@@ -1,0 +1,118 @@
+"""CIFAR-10 loading and its deterministic synthetic stand-ins.
+
+A copy of ``distributed_training_tpu/data/cifar10.py``: same on-disk
+layouts, same seeds, so the arrays are bitwise identical to the JAX
+package's. Images are NHWC uint8, labels int32.
+"""
+
+from __future__ import annotations
+
+import os
+import pickle
+import warnings
+
+import numpy as np
+
+NUM_CLASSES = 10
+IMAGE_SHAPE = (32, 32, 3)
+
+
+def default_data_path() -> str:
+    return os.environ.get("DATA", "../data")
+
+
+def _load_pickle_batches(root: str, train: bool):
+    d = os.path.join(root, "cifar-10-batches-py")
+    if not os.path.isdir(d):
+        return None
+    files = [f"data_batch_{i}" for i in range(1, 6)] if train else ["test_batch"]
+    images, labels = [], []
+    for f in files:
+        with open(os.path.join(d, f), "rb") as fh:
+            entry = pickle.load(fh, encoding="latin1")
+        images.append(np.asarray(entry["data"], dtype=np.uint8))
+        labels.extend(entry.get("labels", entry.get("fine_labels", [])))
+    x = np.concatenate(images).reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1)
+    return np.ascontiguousarray(x), np.asarray(labels, dtype=np.int32)
+
+
+def _load_binary_batches(root: str, train: bool):
+    d = os.path.join(root, "cifar-10-batches-bin")
+    if not os.path.isdir(d):
+        return None
+    files = [f"data_batch_{i}.bin" for i in range(1, 6)] if train else ["test_batch.bin"]
+    raw = np.concatenate([
+        np.fromfile(os.path.join(d, f), dtype=np.uint8).reshape(-1, 3073)
+        for f in files])
+    labels = raw[:, 0].astype(np.int32)
+    x = raw[:, 1:].reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1)
+    return np.ascontiguousarray(x), labels
+
+
+def synthetic_cifar10_hard(n: int, train: bool, seed: int = 0):
+    """Gabor-texture stand-in that is not linearly separable: the class
+    sets only orientation and spatial frequency (both closed under the
+    horizontal-flip augment); position, phase, amplitude and noise are
+    random per example."""
+    rng = np.random.RandomState(seed + (0 if train else 1))
+    labels = rng.randint(0, NUM_CLASSES, size=n).astype(np.int32)
+    yy, xx = np.mgrid[0:32, 0:32] / 32.0
+    angles = np.where(np.arange(NUM_CLASSES) % 2 == 0, 0.0, np.pi / 2)
+    freqs = 3.0 + 2.0 * (np.arange(NUM_CLASSES) // 2)
+    phase = rng.rand(n) * 2 * np.pi
+    cx = rng.rand(n) * 0.5 + 0.25
+    cy = rng.rand(n) * 0.5 + 0.25
+    amp = rng.rand(n) * 0.35 + 0.22
+    images = np.empty((n, *IMAGE_SHAPE), np.uint8)
+    tint = np.array([1.0, 0.85, 0.7])
+    for c in range(NUM_CLASSES):
+        idx = np.where(labels == c)[0]
+        if not len(idx):
+            continue
+        dx = xx[None] - cx[idx, None, None]
+        dy = yy[None] - cy[idx, None, None]
+        t = np.cos(angles[c]) * dx + np.sin(angles[c]) * dy
+        wave = np.sin(2 * np.pi * freqs[c] * t + phase[idx, None, None])
+        env = np.exp(-(dx ** 2 + dy ** 2) / 0.05)
+        pat = (wave * env)[..., None] * tint
+        noisy = (pat * amp[idx, None, None, None]
+                 + rng.randn(len(idx), *IMAGE_SHAPE) * 0.24)
+        images[idx] = np.clip((noisy * 0.5 + 0.5) * 255, 0, 255).astype(
+            np.uint8)
+    return images, labels
+
+
+def synthetic_cifar10(n: int, train: bool, seed: int = 0):
+    """Class-conditional Gaussian blobs over pixel space: learnable, and
+    generated in milliseconds with no I/O."""
+    rng = np.random.RandomState(seed + (0 if train else 1))
+    labels = rng.randint(0, NUM_CLASSES, size=n).astype(np.int32)
+    class_means = np.linspace(40, 215, NUM_CLASSES)
+    base = rng.randint(0, 60, size=(n, *IMAGE_SHAPE))
+    images = np.clip(base + class_means[labels][:, None, None, None], 0, 255)
+    return images.astype(np.uint8), labels
+
+
+def load_cifar10(
+    root: str | None = None,
+    train: bool = True,
+    synthetic_ok: bool = True,
+    synthetic_size: int | None = None,
+):
+    """Load CIFAR-10 from disk, or the synthetic stand-in when it is absent
+    and ``synthetic_ok`` (there is no download)."""
+    root = root or default_data_path()
+    for loader in (_load_pickle_batches, _load_binary_batches):
+        out = loader(root, train)
+        if out is not None:
+            return out
+    if not synthetic_ok:
+        raise FileNotFoundError(
+            f"CIFAR-10 not found under {root!r} (looked for cifar-10-batches-py "
+            "and cifar-10-batches-bin); no network egress to download")
+    warnings.warn(
+        f"CIFAR-10 not on disk under {root!r}; using deterministic synthetic "
+        "stand-in (set synthetic_ok=False to require the real dataset)")
+    n = synthetic_size or (50_000 if train else 10_000)
+    return synthetic_cifar10(n, train)
+
