@@ -18,14 +18,17 @@ Phases, in order; any failure exits non-zero and prints no result line:
    the CPU;
 5. fp16 phase: a few ``torch_ddp_fp16`` steps through the dynamic loss
    scale and its guarded, out-of-place update;
-6. flash kernel phase: the flash-attention forward (K2) and backward (K3)
-   kernels against their plain versions over float32 and bfloat16, causal
-   and not, head dims 64 and 128 and T 128, 384 and 1024 (with a non-zero
-   lse cotangent), and ``flash_attention_lse`` through autograd on the
-   card against the CPU; then both timed at the GPT-2-small shape (BH 192,
-   T 1024, d 64, bf16, causal) beside their plain versions,
-   ``F.scaled_dot_product_attention`` forward and backward (yardsticks
-   only; the port never calls it) and the least time the card could take;
+6. flash kernel phase: the flash-attention forward (K2), fused backward
+   (K3) and split backward (K4a dq, K4b dk and dv) against their plain
+   versions over float32 and bfloat16, causal and not, head dims 32, 64
+   and 128 and T 128, 384 and 1024 (with a non-zero lse cotangent), and at
+   every shape of ``flash_kernel_bench`` (bf16 causal);
+   ``flash_attention_lse`` through autograd on the card against the CPU;
+   K4a's dq bit for bit across two launches; then all four timed at the
+   GPT-2-small shape (BH 192, T 1024, d 64, bf16, causal) beside their
+   plain versions, ``F.scaled_dot_product_attention`` forward and backward
+   (yardsticks only; the port never calls it) and the least time the card
+   could take;
 7. LM phase: ``LMTrainer.fit()`` on GPT-2-small at full width (12 layers,
    hidden 768, 12 heads, vocab 50304, T 1024, batch 16, bf16,
    ``attn_impl="flash"``, ``hybrid_adam``), 10 steps and an eval of 2
@@ -35,8 +38,22 @@ Phases, in order; any failure exits non-zero and prints no result line:
    logits and the eval loss with the exact attention must match the flash
    ones; then steady-state ms/step, tokens/s, device-busy share and peak
    memory;
-8. a ``{"kernels": [...]}`` line, then the card line, and last
-   ``{"ok": true, "device": {...}}``.
+8. exp2 phase: under the ``_USE_EXP2`` switch, K2, K3 and K4 against the
+   plain versions (exp2 too) over the flash grid's bf16 causal cases (head
+   dims 32, 64, 128) and at every shape of ``flash_kernel_bench``, then
+   each timed at the GPT-2-small shape;
+9. conv phase: the conv3x3 + BN-statistics kernel (K5) against its plain
+   version on a border-heavy 7 x 9 image (the probe's own verify holds it
+   at the ResNet-50 shapes s0, s1, s2 in the tools phase), and the plain
+   version timed at those shapes (batch 256);
+10. tools phase, the entry points that run K4 and K5:
+   ``flash_kernel_bench.main`` over its five shapes as it is, with
+   ``--split-bwd`` and with ``--exp2`` (``--iters 5``), then
+   ``conv_fusion_probe.main`` over s0, s1, s2; each run starts with every
+   kernel count at 0, each must verify and launch its kernels, and both
+   switches must be back to False after them;
+11. a ``{"kernels": [...]}`` line (six kernels, each with its launches by
+   path), then the card line, and last ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits with code 2 before doing anything.
 """
@@ -45,7 +62,7 @@ from __future__ import annotations
 
 import json
 import os
-import subprocess
+import re
 import sys
 import tempfile
 import time
@@ -53,6 +70,9 @@ import time
 import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, REPO)
+
+from distributed_training_tpu_torch.utils.device import card_line, cuda_ms  # noqa: E402
 
 # H100 SXM: 3.35 TB/s HBM3, 67 TFLOP/s float32 outside the tensor cores
 # (NVIDIA data sheet, at the 700 W limit).
@@ -107,34 +127,6 @@ LM_STEPS, LM_EVAL_BATCHES = 10, 2
 # digits both ways there, and 1e-4 is about a hundred float32 steps of a
 # mean near 11.
 LM_ATTN_TOL, LM_LOGITS_TOL, LM_EVAL_ATOL = 0.15, 0.1, 1e-4
-
-
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-
-
-def cuda_ms(fn, iters: int, ahead: bool = True) -> float:
-    """Mean milliseconds of ``fn()`` on the card (CUDA events, after warm-up).
-
-    With ``ahead``, the card first spins for ~0.2 s so that the host
-    queues the launches before the first one runs: the events then time
-    the device's work, not the host's enqueueing. Without it, the launches
-    run as the host issues them (what a caller waiting on each call sees).
-    """
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    if ahead:
-        torch.cuda._sleep(400_000_000)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def kernel_phase() -> dict:
@@ -385,59 +377,112 @@ def _check(what: str, err: float, tol: float) -> None:
         raise SystemExit(f"{what}: error {err:.3g} above the tolerance {tol}")
 
 
-def flash_kernel_phase() -> tuple[dict, dict]:
-    """K2 and K3 against their plain versions over a grid of shapes, then
-    timed at the GPT-2-small shape."""
-    import torch.nn.functional as F
+def _bound(nbytes: float, ops: dict) -> tuple[float, str]:
+    """The least time in ms and what sets it: ``nbytes`` at 3.35 TB/s
+    against each kind of operation at its own peak (``ops`` maps a rate to
+    a count). Tensor cores, CUDA cores and memory run at once, so the
+    bound is the largest of the times, not their sum."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = max(n / rate * 1e3 for rate, n in ops.items())
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
 
-    from distributed_training_tpu_torch.ops.flash_attention import (
-        flash_attention_bwd_reference,
-        flash_attention_lse,
-        flash_attention_reference,
-        flash_bwd,
-        flash_fwd,
-    )
 
-    gen = torch.Generator(device="cuda").manual_seed(0)
+def _randn(gen, *shape, dtype=torch.float32) -> torch.Tensor:
+    return torch.randn(shape, device="cuda", generator=gen).to(dtype)
 
-    def randn(*shape, dtype=torch.float32):
-        return torch.randn(shape, device="cuda", generator=gen).to(dtype)
 
+def _flash_case(what: str, q, k, v, g, g_lse=None, *, causal: bool) -> tuple[dict, dict]:
+    """K2, K3 and the split backward's K4a and K4b on one input against
+    their plain versions, under the flash module's switches as they stand.
+    Raises above the limits; returns each output's error by row (lse's
+    over its largest magnitude) and each output's largest absolute error."""
+    from distributed_training_tpu_torch.ops import flash_attention as fa
+
+    fwd_tol, bwd_tol = FLASH_TOL[q.dtype]
+    out, lse = fa.flash_fwd(q, k, v, causal=causal)
+    want_out, want_lse = fa.flash_attention_reference(q, k, v, causal=causal)
+    delta = fa._delta(g, out, g_lse)
+    pairs = {"K2 out": (out, want_out)}
+    pairs.update(zip(("K3 dq", "K3 dk", "K3 dv"), zip(
+        fa.flash_bwd(q, k, v, out, lse, g, g_lse, causal=causal),
+        fa.flash_attention_bwd_reference(q, k, v, out, lse, g, g_lse, causal=causal))))
+    pairs["K4a dq"] = (fa.flash_bwd_dq(q, k, v, g, lse, delta, causal=causal),
+                       fa.flash_attention_dq_reference(q, k, v, g, lse, delta, causal=causal))
+    pairs.update(zip(("K4b dk", "K4b dv"), zip(
+        fa.flash_bwd_dkv(q, k, v, g, lse, delta, causal=causal),
+        fa.flash_attention_dkv_reference(q, k, v, g, lse, delta, causal=causal))))
+    rows = {n: _row_err(a, b) for n, (a, b) in pairs.items()}
+    rows["K2 lse"] = _rel_err(lse, want_lse)
+    for n, err in rows.items():
+        _check(f"{what}: {n}", err,
+               LSE_TOL if n == "K2 lse" else fwd_tol if n == "K2 out" else bwd_tol)
+    return rows, {n: (a.float() - b.float()).abs().max().item() for n, (a, b) in pairs.items()}
+
+
+def _flash_grid(what: str, gen, dtypes: tuple, causals: tuple) -> dict:
+    """:func:`_flash_case` over ``dtypes`` x ``causals`` x head dims 32,
+    64, 128 x T 128, 384, 1024, each with a non-zero lse cotangent: the
+    worst error by row of each output, by dtype."""
     worst: dict = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        fwd_tol, bwd_tol = FLASH_TOL[dtype]
-        for causal in (False, True):
-            for d in (64, 128):
+    for dtype in dtypes:
+        name = str(dtype)[6:]
+        for causal in causals:
+            for d in (32, 64, 128):
                 for t in (128, 384, 1024):
                     bh = 8 if t < 1024 else 4
-                    q, k, v, g = (randn(bh, t, d, dtype=dtype) for _ in range(4))
-                    g_lse = randn(bh, t)
-                    out, lse = flash_fwd(q, k, v, causal=causal)
-                    grads = flash_bwd(q, k, v, out, lse, g, g_lse, causal=causal)
-                    want_out, want_lse = flash_attention_reference(q, k, v, causal=causal)
-                    want = flash_attention_bwd_reference(q, k, v, out, lse, g, g_lse,
-                                                         causal=causal)
-                    case = f"{str(dtype)[6:]} causal={causal} d={d} T={t}"
-                    errs = {"out": (_row_err(out, want_out), fwd_tol),
-                            "lse": (_rel_err(lse, want_lse), LSE_TOL)}
-                    errs.update({n: (_row_err(a, b), bwd_tol)
-                                 for n, a, b in zip(("dq", "dk", "dv"), grads, want)})
-                    for n, (err, tol) in errs.items():
-                        _check(f"flash {n} {case}", err, tol)
-                        key = (str(dtype)[6:], n)
-                        worst[key] = max(worst.get(key, 0.0), err)
-    print("[flash] K2/K3 vs plain, 24 cases (dtype x causal x d 64,128 x T "
+                    q, k, v, g = (_randn(gen, bh, t, d, dtype=dtype) for _ in range(4))
+                    rows, _ = _flash_case(f"{what} {name} causal={causal} d={d} T={t}",
+                                          q, k, v, g, _randn(gen, bh, t), causal=causal)
+                    for n, err in rows.items():
+                        worst[f"{name} {n}"] = max(worst.get(f"{name} {n}", 0.0), err)
+    return worst
+
+
+def _bench_shape_checks(what: str, gen) -> dict:
+    """:func:`_flash_case` at each of ``flash_kernel_bench``'s shapes, bf16
+    causal with no lse cotangent, as the bench runs them. BH is cut where
+    the plain versions' float32 [BH, T, T] scores would pass 2 GiB (only
+    T 16384, to BH 2): the kernels' tiles and loops depend on T and d, not
+    on BH. Returns the largest absolute errors at the ``gpt`` shape."""
+    from distributed_training_tpu_torch.tools.flash_kernel_bench import SHAPES
+
+    gpt = {}
+    for key, (_, bh, t, d) in SHAPES.items():
+        bh = min(bh, 2**29 // t**2)
+        q, k, v, g = (_randn(gen, bh, t, d, dtype=torch.bfloat16) for _ in range(4))
+        rows, abs_errs = _flash_case(f"{what} {key}", q, k, v, g, causal=True)
+        print(f"[{what}] K2/K3/K4 vs plain at the bench's {key} [{bh},{t},{d}] bf16 "
+              f"causal, by row: " + ", ".join(f"{n} {e:.3g}" for n, e in rows.items()))
+        if key == "gpt":
+            gpt = abs_errs
+        del q, k, v, g
+    torch.cuda.empty_cache()
+    return gpt
+
+
+def flash_kernel_phase() -> dict:
+    """K2, K3 and the split backward's K4a (dq) and K4b (dk, dv) against
+    their plain versions over a grid of shapes and at the flash bench's
+    shapes, K4a's dq bit for bit across two launches, then all four timed
+    at the GPT-2-small shape."""
+    import torch.nn.functional as F
+
+    from distributed_training_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    worst = _flash_grid("flash", gen, (torch.float32, torch.bfloat16), (False, True))
+    print("[flash] K2/K3/K4 vs plain, 36 cases (dtype x causal x d 32,64,128 x T "
           "128,384,1024, non-zero g_lse), worst errors by row (lse: of its "
           "largest magnitude): "
-          + ", ".join(f"{dt} {n} {e:.3g}" for (dt, n), e in sorted(worst.items())))
+          + ", ".join(f"{n} {e:.3g}" for n, e in sorted(worst.items())))
 
     # flash_attention_lse through autograd: card (K2/K3) vs CPU (plain).
-    q, k, v = (randn(2, 3, 384, 64, dtype=torch.bfloat16) for _ in range(3))
-    w_out, w_lse = randn(2, 3, 384, 64), randn(2, 3, 384)
+    q, k, v = (_randn(gen, 2, 3, 384, 64, dtype=torch.bfloat16) for _ in range(3))
+    w_out, w_lse = _randn(gen, 2, 3, 384, 64), _randn(gen, 2, 3, 384)
 
     def lse_grads(device):
         xs = [x.detach().to(device).requires_grad_() for x in (q, k, v)]
-        out, lse = flash_attention_lse(*xs, causal=True, block_q=128, block_k=128)
+        out, lse = fa.flash_attention_lse(*xs, causal=True, block_q=128, block_k=128)
         ((out.float() * w_out.to(device)).sum()
          + (lse * w_lse.to(device)).sum()).backward()
         return [x.grad.cpu() for x in xs]
@@ -448,64 +493,75 @@ def flash_kernel_phase() -> tuple[dict, dict]:
               f"T 384): {err:.3g} by row (tolerance {LSE_GRAD_TOL})")
         _check(f"flash_attention_lse d{n}", err, LSE_GRAD_TOL)
 
+    gpt = _bench_shape_checks("flash", gen)
+    errs = {"flash_fwd": gpt["K2 out"],
+            "flash_bwd": max(gpt["K3 dq"], gpt["K3 dk"], gpt["K3 dv"]),
+            "flash_bwd_dq": gpt["K4a dq"],
+            "flash_bwd_dkv": max(gpt["K4b dk"], gpt["K4b dv"])}
+
     # The GPT-2-small shape.
     bh, t, d = GPT_B * GPT_H, GPT_T, GPT_D
-    q, k, v, g = (randn(bh, t, d, dtype=torch.bfloat16) for _ in range(4))
-    out, lse = flash_fwd(q, k, v, causal=True)
-    grads = flash_bwd(q, k, v, out, lse, g, causal=True)
-    want_out, _ = flash_attention_reference(q, k, v, causal=True)
-    want = flash_attention_bwd_reference(q, k, v, out, lse, g, causal=True)
-    fwd_tol, bwd_tol = FLASH_TOL[torch.bfloat16]
-    row_errs = {"out": _row_err(out, want_out)}
-    row_errs.update({n: _row_err(a, b) for n, a, b in zip(("dq", "dk", "dv"), grads, want)})
-    print(f"[flash] K2/K3 vs plain at BH {bh} T {t} d {d} bf16 causal, by row: "
-          + ", ".join(f"{n} {e:.3g}" for n, e in row_errs.items())
-          + f" (tolerance {fwd_tol} forward, {bwd_tol} gradients)")
-    for n, err in row_errs.items():
-        _check(f"flash {n} at the GPT-2-small shape", err,
-               fwd_tol if n == "out" else bwd_tol)
-    k2_err = (out.float() - want_out.float()).abs().max().item()
-    k3_err = max((a.float() - b.float()).abs().max().item() for a, b in zip(grads, want))
-    del want_out, want
+    q, k, v, g = (_randn(gen, bh, t, d, dtype=torch.bfloat16) for _ in range(4))
+    out, lse = fa.flash_fwd(q, k, v, causal=True)
+    delta = fa._delta(g, out)
+    dq = fa.flash_bwd_dq(q, k, v, g, lse, delta, causal=True)
+    if not torch.equal(dq, fa.flash_bwd_dq(q, k, v, g, lse, delta, causal=True)):
+        raise SystemExit("K4a dq differs between two launches on the same inputs")
+    print(f"[flash] K4a dq equal bit for bit across two launches at BH {bh} T {t} "
+          f"d {d} bf16 causal")
 
-    k2_ms = cuda_ms(lambda: flash_fwd(q, k, v, causal=True), 20)
-    k3_ms = cuda_ms(lambda: flash_bwd(q, k, v, out, lse, g, causal=True), 10)
-    k2_plain = cuda_ms(lambda: flash_attention_reference(q, k, v, causal=True), 5)
-    k3_plain = cuda_ms(lambda: flash_attention_bwd_reference(
-        q, k, v, out, lse, g, causal=True), 3)
+    ms = {"flash_fwd": cuda_ms(lambda: fa.flash_fwd(q, k, v, causal=True), 20),
+          "flash_bwd": cuda_ms(lambda: fa.flash_bwd(q, k, v, out, lse, g, causal=True), 10),
+          "flash_bwd_dq": cuda_ms(lambda: fa.flash_bwd_dq(
+              q, k, v, g, lse, delta, causal=True), 10),
+          "flash_bwd_dkv": cuda_ms(lambda: fa.flash_bwd_dkv(
+              q, k, v, g, lse, delta, causal=True), 10)}
+    pair_ms = cuda_ms(lambda: fa.flash_bwd_split(q, k, v, out, lse, g, causal=True), 10)
+    plain = {"flash_fwd": cuda_ms(lambda: fa.flash_attention_reference(
+                 q, k, v, causal=True), 5),
+             "flash_bwd": cuda_ms(lambda: fa.flash_attention_bwd_reference(
+                 q, k, v, out, lse, g, causal=True), 3),
+             "flash_bwd_dq": cuda_ms(lambda: fa.flash_attention_dq_reference(
+                 q, k, v, g, lse, delta, causal=True), 3),
+             "flash_bwd_dkv": cuda_ms(lambda: fa.flash_attention_dkv_reference(
+                 q, k, v, g, lse, delta, causal=True), 3)}
     q4, k4, v4, g4 = (x.view(GPT_B, GPT_H, t, d) for x in (q, k, v, g))
-    k2_lib = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True), 20)
+    sdpa_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True), 20)
     xs = [x.detach().requires_grad_() for x in (q4, k4, v4)]
     o4 = F.scaled_dot_product_attention(*xs, is_causal=True)
-    k3_lib = cuda_ms(lambda: torch.autograd.grad(o4, xs, g4, retain_graph=True), 10)
+    sdpa_bwd = cuda_ms(lambda: torch.autograd.grad(o4, xs, g4, retain_graph=True), 10)
 
     # Least times: every input read once and every output written once at
     # 3.35 TB/s, against the unmasked (q, k) pairs' products at the bf16
-    # peak (2 products of 2·d operations a pair forward, 5 backward).
+    # peak, 2·d operations a product: 2 a pair forward (s, p·v), 5 in the
+    # fused backward (s, dp, dS·K, pᵀ·dO, dSᵀ·Q), of which K4a does s, dp
+    # and dS·K, and K4b s, dp, pᵀ·dO and dSᵀ·Q.
     pairs = bh * t * (t + 1) // 2
-    elem = torch.bfloat16.itemsize
-    k2_bytes = 4 * bh * t * d * elem + bh * t * 4            # q k v out, lse
-    k3_bytes = 7 * bh * t * d * elem + 2 * bh * t * 4        # q k v dO dq dk dv, lse δ
-    k2_ops, k3_ops = 4 * d * pairs, 10 * d * pairs
+    x, rows = bh * t * d * torch.bfloat16.itemsize, bh * t * 4
+    work = {"flash_fwd": (4 * x + rows, 4 * d),             # q k v out, lse
+            "flash_bwd": (7 * x + 2 * rows, 10 * d),        # q k v dO dq dk dv, lse δ
+            "flash_bwd_dq": (5 * x + 2 * rows, 6 * d),      # q k v dO dq, lse δ
+            "flash_bwd_dkv": (6 * x + 2 * rows, 8 * d)}     # q k v dO dk dv, lse δ
     result = {}
-    for name, ms, plain, lib, nbytes, ops, err in (
-            ("K2", k2_ms, k2_plain, k2_lib, k2_bytes, k2_ops, k2_err),
-            ("K3", k3_ms, k3_plain, k3_lib, k3_bytes, k3_ops, k3_err)):
-        by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        by_ops = ops / BF16_FLOPS * 1e3
-        result[name] = {
-            "max_abs_err": err, "ms": ms, "plain_ms": plain, "library_ms": lib,
-            "bound_ms": max(by_bytes, by_ops),
-            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
-        print(f"[flash] {name} at BH {bh} T {t} d {d} bf16 causal: ms={ms:.4f} "
-              f"plain_ms={plain:.4f} library_ms={lib:.4f} (SDPA) bound_ms="
-              f"{max(by_bytes, by_ops):.4f} ({nbytes / 1e6:.1f} MB -> "
-              f"{by_bytes:.4f} ms; {ops / 1e9:.2f} GFLOP -> {by_ops:.4f} ms); "
-              f"{ops / ms / 1e9:.2f} TFLOP/s; max_abs_err={err:.3g}")
-    print("[flash] K3 time includes its wrapper's delta, dq zeroing and cast")
-    del q, k, v, g, out, lse, grads, q4, k4, v4, g4, xs, o4
+    for name, (nbytes, per_pair) in work.items():
+        ops = per_pair * pairs
+        bound, by = _bound(nbytes, {BF16_FLOPS: ops})
+        lib = sdpa_fwd if name == "flash_fwd" else sdpa_bwd
+        result[name] = {"max_abs_err": errs[name], "ms": ms[name], "plain_ms": plain[name],
+                        "library_ms": lib, "bound_ms": bound, "bound_by": by}
+        print(f"[flash] {name} at BH {bh} T {t} d {d} bf16 causal: ms={ms[name]:.4f} "
+              f"plain_ms={plain[name]:.4f} library_ms={lib:.4f} (SDPA) bound_ms="
+              f"{bound:.4f} ({nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP; {by}); "
+              f"{ops / ms[name] / 1e9:.2f} TFLOP/s; max_abs_err={errs[name]:.3g}")
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        result[name].update(library_call="SDPA backward (dq, dk, dv)", pair_ms=pair_ms,
+                            pair_bound_ms=result["flash_bwd"]["bound_ms"])
+    print(f"[flash] K3 time includes its wrapper's delta, dq zeroing and cast; the "
+          f"K4 pair through flash_bwd_split (with delta) {pair_ms:.4f} ms, "
+          f"{pair_ms / ms['flash_bwd']:.3f}x K3")
+    del q, k, v, g, out, lse, delta, dq, q4, k4, v4, g4, xs, o4
     torch.cuda.empty_cache()
-    return result["K2"], result["K3"]
+    return result
 
 
 def lm_phase(ckpt_dir: str) -> dict:
@@ -629,12 +685,114 @@ def lm_phase(ckpt_dir: str) -> dict:
     return launches
 
 
+def exp2_phase() -> dict:
+    """Under ``_USE_EXP2``: K2, K3 and K4 against the plain versions (which
+    read the switch too) over the grid's bf16 causal cases and at the flash
+    bench's shapes, then each timed at the GPT-2-small shape."""
+    from distributed_training_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    bh, t, d = GPT_B * GPT_H, GPT_T, GPT_D
+    fa._USE_EXP2 = True
+    try:
+        worst = _flash_grid("exp2", gen, (torch.bfloat16,), (True,))
+        print("[exp2] K2/K3/K4 vs plain (exp2 too), 9 cases (bf16 causal x d "
+              "32,64,128 x T 128,384,1024, non-zero g_lse), worst errors by row "
+              "(lse: of its largest magnitude): "
+              + ", ".join(f"{n} {e:.3g}" for n, e in sorted(worst.items())))
+        _bench_shape_checks("exp2", gen)
+        q, k, v, g = (_randn(gen, bh, t, d, dtype=torch.bfloat16) for _ in range(4))
+        out, lse = fa.flash_fwd(q, k, v, causal=True)
+        delta = fa._delta(g, out)
+        ms = {"flash_fwd": cuda_ms(lambda: fa.flash_fwd(q, k, v, causal=True), 20),
+              "flash_bwd": cuda_ms(lambda: fa.flash_bwd(q, k, v, out, lse, g,
+                                                        causal=True), 10),
+              "flash_bwd_dq": cuda_ms(lambda: fa.flash_bwd_dq(
+                  q, k, v, g, lse, delta, causal=True), 10),
+              "flash_bwd_dkv": cuda_ms(lambda: fa.flash_bwd_dkv(
+                  q, k, v, g, lse, delta, causal=True), 10)}
+    finally:
+        fa._USE_EXP2 = False
+    print(f"[exp2] at BH {bh} T {t} d {d} bf16 causal, ms: "
+          + ", ".join(f"{n} {v:.4f}" for n, v in ms.items()))
+    del q, k, v, g, out, lse, delta
+    torch.cuda.empty_cache()
+    return ms
+
+
+def conv_phase() -> dict:
+    """K5 against its plain version on a border-heavy 7 x 9 image (the
+    probe's own verify holds it at s0, s1 and s2 in the tools phase), then
+    at each probe shape (batch 256) the plain version timed and the bound."""
+    from distributed_training_tpu_torch.ops.conv3x3_stats import conv3x3_stats_reference
+    from distributed_training_tpu_torch.tools import conv_fusion_probe as probe
+
+    errs = probe.check(*probe.inputs(256, 7, 9, 16, 32, "cuda", seed=3))
+    print("[conv] K5 vs plain, [256,7,9,16]->32 bf16 (border-heavy): "
+          + " ".join(f"{k}={v:.3g}" for k, v in errs.items())
+          + f" (limits out {probe.OUT_TOL}, sum {probe.SUM_TOL}, sumsq {probe.SUMSQ_TOL})")
+    by_shape = {}
+    for key, (_, n, h, w, cin, cout) in probe.SHAPES.items():
+        x, wts = probe.inputs(n, h, w, cin, cout, "cuda")
+        plain = cuda_ms(lambda: conv3x3_stats_reference(x, wts), 3)
+        elem = x.element_size()
+        outputs = n * h * w * cout
+        bound, by = _bound((x.numel() + wts.numel() + outputs) * elem + 2 * cout * 4,
+                           {BF16_FLOPS: 18 * cin * outputs, FP32_FLOPS: 3 * outputs})
+        by_shape[key] = {"plain_ms": plain, "bound_ms": bound, "bound_by": by,
+                         "gflop": 18 * cin * outputs / 1e9}
+        print(f"[conv] {key} [{n},{h},{w},{cin}]->{cout} bf16: plain_ms={plain:.4f} "
+              f"bound_ms={bound:.4f} ({by})")
+        del x, wts
+    torch.cuda.empty_cache()
+    return by_shape
+
+
+def tools_phase() -> tuple[dict, dict]:
+    """The two tools as a user runs them: the flash bench over its five
+    shapes, as it is and with --split-bwd and --exp2, then the conv probe
+    over s0, s1 and s2. Each run starts with every kernel count at 0; both
+    must verify, and both switches must be back to False afterwards."""
+    from distributed_training_tpu_torch.ops import flash_attention as fa
+    from distributed_training_tpu_torch.ops.conv3x3_stats import conv3x3_stats
+    from distributed_training_tpu_torch.tools import conv_fusion_probe, flash_kernel_bench
+
+    counters = {"flash_fwd": fa.flash_fwd, "flash_bwd": fa.flash_bwd,
+                "flash_bwd_dq": fa.flash_bwd_dq, "flash_bwd_dkv": fa.flash_bwd_dkv,
+                "conv3x3_stats": conv3x3_stats}
+    launches, results = {}, {}
+    runs = [("flash_kernel_bench", flash_kernel_bench.main, ["--iters", "5"]),
+            ("flash_kernel_bench --split-bwd", flash_kernel_bench.main,
+             ["--split-bwd", "--iters", "5"]),
+            ("flash_kernel_bench --exp2", flash_kernel_bench.main,
+             ["--exp2", "--iters", "5"]),
+            ("conv_fusion_probe", conv_fusion_probe.main, [])]
+    for path, tool_main, argv in runs:
+        for fn in counters.values():
+            fn.launches = 0
+        results[path] = tool_main(argv)
+        launches[path] = {name: fn.launches for name, fn in counters.items()
+                          if fn.launches}
+        print(f"[tools] {path}: {len(results[path])} shapes, launches {launches[path]}")
+    if fa._USE_SPLIT_BWD or fa._USE_EXP2:
+        raise SystemExit("a tool left a flash switch set")
+    want = {"flash_kernel_bench": {"flash_fwd", "flash_bwd"},
+            "flash_kernel_bench --split-bwd": {"flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"},
+            "flash_kernel_bench --exp2": {"flash_fwd", "flash_bwd"},
+            "conv_fusion_probe": {"conv3x3_stats"}}
+    for path, names in want.items():
+        if set(launches[path]) != names or len(results[path]) != (
+                3 if path == "conv_fusion_probe" else 5):
+            raise SystemExit(f"{path}: launches {launches[path]}, {len(results[path])} "
+                             f"results; expected launches of {sorted(names)}")
+    return launches, results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, REPO)
     from distributed_training_tpu_torch.ops import cuda_build
 
     card = card_line()
@@ -645,16 +803,36 @@ def main() -> int:
     print(f"[build] {cuda_build.kernel_names()} built in "
           f"{time.perf_counter() - t0:.2f} s")
     for name, log in cuda_build.build_logs.items():
-        print(f"[build] {name}: {' | '.join(log.strip().splitlines())}")
+        regs = re.findall(r"Used (\d+) registers", log)
+        spills = re.findall(r"(\d+) bytes spill stores", log)
+        print(f"[build] {name}: ptxas, kernel by kernel: registers "
+              f"{' '.join(regs)}; bytes of spill stores {' '.join(spills)}")
 
     k = kernel_phase()
     with tempfile.TemporaryDirectory() as ckpt:
         launches = train_phase(os.path.join(ckpt, "fp32"))
         fp16_phase(os.path.join(ckpt, "fp16"))
-        k2, k3 = flash_kernel_phase()
+        flash = flash_kernel_phase()
         lm = lm_phase(os.path.join(ckpt, "lm"))
+    exp2 = exp2_phase()
+    k5 = conv_phase()
+    tool_launches, tool_results = tools_phase()
 
+    def by_path(name: str, **more) -> dict:
+        paths = {**more, **{p: n[name] for p, n in tool_launches.items() if name in n}}
+        return {"launches": sum(paths.values()), "launches_by_path": paths}
+
+    k5_shapes = {}
+    for key, r in zip(k5, tool_results["conv_fusion_probe"]):
+        k5_shapes[key] = {**{e: r[e] for e in ("out_err", "sum_err", "sumsq_err",
+                                                "max_abs_err")},
+                          **k5[key], "ms": r["fused_ms"], "library_ms": r["torch_conv_ms"],
+                          "library_conv_stats_ms": r["torch_conv_stats_ms"],
+                          "tool_line": r["shape"]}
+    s0 = k5_shapes["s0"]
     flash_src = "distributed_training_tpu_torch/csrc/flash_attention.cu"
+    split_src = "distributed_training_tpu_torch/csrc/flash_attention_split.cu"
+    ref = "distributed_training_tpu/ops/flash_attention.py"
     # Every check above raises before this line when it fails.
     kernels = [{
         "name": "fused_adam", "route": "cuda",
@@ -664,18 +842,21 @@ def main() -> int:
         "launches_by_path": {"resnet18_train": launches,
                              "gpt2_small_train": lm["fused_adam"]},
         **k, "ok": True,
-    }, {
-        "name": "flash_fwd", "route": "cuda", "source": flash_src,
-        "replaces": "distributed_training_tpu/ops/flash_attention.py:107",
-        "launches": lm["flash_fwd"],
-        "launches_by_path": {"gpt2_small_train": lm["flash_fwd"]},
-        **k2, "ok": True,
-    }, {
-        "name": "flash_bwd", "route": "cuda", "source": flash_src,
-        "replaces": "distributed_training_tpu/ops/flash_attention.py:280",
-        "launches": lm["flash_bwd"],
-        "launches_by_path": {"gpt2_small_train": lm["flash_bwd"]},
-        **k3, "ok": True,
+    }, *({
+        "name": name, "route": "cuda", "source": src, "replaces": f"{ref}:{line}",
+        **by_path(name, **({"gpt2_small_train": lm[name]} if name in lm else {})),
+        **flash[name], "exp2_ms": exp2[name], "ok": True,
+    } for name, src, line in (("flash_fwd", flash_src, 107), ("flash_bwd", flash_src, 280),
+                              ("flash_bwd_dq", split_src, 212),
+                              ("flash_bwd_dkv", split_src, 243))), {
+        "name": "conv3x3_stats", "route": "cuda",
+        "source": "distributed_training_tpu_torch/csrc/conv3x3_stats.cu",
+        "replaces": "tools/conv_fusion_probe.py:55", **by_path("conv3x3_stats"),
+        "shape": "s0", "ms": s0["ms"], "plain_ms": s0["plain_ms"],
+        "library_ms": s0["library_ms"], "library_call": "F.conv2d bf16 (cuDNN)",
+        "bound_ms": s0["bound_ms"], "bound_by": s0["bound_by"],
+        "max_abs_err": max(r["max_abs_err"] for r in k5_shapes.values()),
+        "by_shape": k5_shapes, "ok": True,
     }]
     print(json.dumps({"kernels": kernels}))
     print(card)

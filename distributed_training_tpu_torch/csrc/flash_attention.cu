@@ -8,10 +8,11 @@
 //     out in the input dtype and lse in float32, one value per row (the
 //     TPU's LSE_LANES replication was a Mosaic layout rule, not part of
 //     the function);
-//   - flash_bwd_kernel  <- _flash_bwd (body _fused_bwd_kernel): dq, dk, dv
-//     from p = exp(s - lse) recomputed once per tile and shared by the
-//     three products. delta = rowsum(dO * out) - g_lse is a plain tensor
-//     op before the launch, as in _bwd_prologue.
+//   - flash_bwd_kernel<T, D, true> (flash_tiles.cuh)  <- _flash_bwd (body
+//     _fused_bwd_kernel): dq, dk, dv from p = exp(s - lse) recomputed once
+//     per tile and shared by the three products. delta = rowsum(dO * out)
+//     - g_lse is a plain tensor op before the launch, as in _bwd_prologue.
+// Both take use_exp2 (the JAX _USE_EXP2 switch, see flash_tiles.cuh).
 //
 // Same numerics as the TPU kernels: scores and every product accumulate in
 // float32 from the stored (fp32 or bf16) values; masked scores are
@@ -27,162 +28,26 @@
 // GFLOP (0.065 ms), so it is bound by operations at 0.065 ms. This first
 // version does NOT use the tensor cores: every product is a float32 FMA
 // on CUDA cores, so its ceiling is the 67 TFLOP/s float32 rate. Design,
-// chosen to be simple and right first:
-//   - one block of 256 threads (16 x 16) per (bh, 64-row tile); the k (or,
-//     backward, q) tiles are a loop inside the block, which takes the
-//     place of the TPU's sequential grid axis, and the running (m, l, acc)
-//     of the forward stay in registers across it;
-//   - tiles of 64 x D live in shared memory as float32 rows padded by 4,
-//     so the float4 reads of the inner products hit distinct banks;
-//   - each thread owns a 4 x 4 block of the 64 x 64 score tile (rows
-//     ty + 16 i, columns tx + 16 j): 16 FMAs per two 16-byte reads;
-//     row max and sum reduce over the 16 lanes of a half warp by shuffles;
+// chosen to be simple and right first (tile layout in flash_tiles.cuh):
+//   - the k (or, backward, q) tiles are a loop inside the block, which
+//     takes the place of the TPU's sequential grid axis, and the running
+//     (m, l, acc) of the forward stay in registers across it;
+//   - row max and sum reduce over the 16 lanes of a half warp by shuffles;
 //   - causal: the forward stops at the last live k tile, the backward
 //     starts at the first live q tile; blocks are ordered heaviest first;
 //   - dK and dV accumulate in registers over the q tiles; dQ, whose rows
 //     are spread over all k-tile blocks, is added with float32 atomics
 //     into one zeroed [BH, T, D] buffer (the TPU wrote [nk, BH, T, D]
-//     partials, 0.8 GB per layer at this shape) and cast by the caller;
-//   - rows and keys past T are masked, so any T is taken.
+//     partials, 0.8 GB per layer at this shape) and cast by the caller.
 //
 // C interface (bound with ctypes): each entry launches once on the given
 // stream and returns cudaGetLastError().
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_tiles.cuh"
 
 namespace {
 
-constexpr int kBQ = 64;        // query rows per tile
-constexpr int kBK = 64;        // key rows per tile
-constexpr int kThreads = 256;  // 16 x 16
-constexpr int kPad = 4;        // floats of padding per shared-memory row
-constexpr float kNegInf = -1e30f;
-
-template <typename T>
-struct Elem;
-
-template <>
-struct Elem<float> {
-  static __device__ __forceinline__ float4 load4(const float* p) {
-    return *reinterpret_cast<const float4*>(p);
-  }
-  static __device__ __forceinline__ void store4(float* p, float4 v) {
-    *reinterpret_cast<float4*>(p) = v;
-  }
-  static __device__ __forceinline__ void store2(float* p, float a, float b) {
-    *reinterpret_cast<float2*>(p) = make_float2(a, b);
-  }
-  static __device__ __forceinline__ float round(float x) { return x; }
-};
-
-template <>
-struct Elem<__nv_bfloat16> {
-  static __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-    const uint2 u = *reinterpret_cast<const uint2*>(p);
-    __nv_bfloat162 lo, hi;
-    *reinterpret_cast<uint32_t*>(&lo) = u.x;
-    *reinterpret_cast<uint32_t*>(&hi) = u.y;
-    const float2 a = __bfloat1622float2(lo);
-    const float2 b = __bfloat1622float2(hi);
-    return make_float4(a.x, a.y, b.x, b.y);
-  }
-  static __device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-    __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
-    __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
-    uint2 u;
-    u.x = *reinterpret_cast<uint32_t*>(&lo);
-    u.y = *reinterpret_cast<uint32_t*>(&hi);
-    *reinterpret_cast<uint2*>(p) = u;
-  }
-  static __device__ __forceinline__ void store2(__nv_bfloat16* p, float a,
-                                                float b) {
-    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-  }
-  static __device__ __forceinline__ float round(float x) {
-    return __bfloat162float(__float2bfloat16_rn(x));
-  }
-};
-
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
-}
-
-__device__ __forceinline__ float comp(float4 v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
-}
-
-__device__ __forceinline__ float4 lds4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-// N consecutive floats of shared memory (N = D / 16: 2, 4 or 8).
-template <int N>
-__device__ __forceinline__ void lds_row(float (&dst)[N], const float* src) {
-  if constexpr (N % 4 == 0) {
-#pragma unroll
-    for (int i = 0; i < N; i += 4) {
-      const float4 v = lds4(src + i);
-      dst[i] = v.x;
-      dst[i + 1] = v.y;
-      dst[i + 2] = v.z;
-      dst[i + 3] = v.w;
-    }
-  } else {
-    static_assert(N == 2, "columns per thread must be 2, 4 or 8");
-    const float2 v = *reinterpret_cast<const float2*>(src);
-    dst[0] = v.x;
-    dst[1] = v.y;
-  }
-}
-
-// N consecutive values of a row of global memory, from float32.
-template <typename T, int N>
-__device__ __forceinline__ void store_row(T* dst, const float (&src)[N],
-                                          float mul) {
-  if constexpr (N % 4 == 0) {
-#pragma unroll
-    for (int i = 0; i < N; i += 4)
-      Elem<T>::store4(dst + i, make_float4(src[i] * mul, src[i + 1] * mul,
-                                           src[i + 2] * mul, src[i + 3] * mul));
-  } else {
-    Elem<T>::store2(dst, src[0] * mul, src[1] * mul);
-  }
-}
-
-// Rows [row0, row0 + R) of a [t, D] matrix into shared memory as float32,
-// R rows of D + kPad; rows at or past t read as zeros. Coalesced: thread
-// i takes the i-th group of 4 elements of the tile.
-template <typename T, int D, int R>
-__device__ __forceinline__ void load_tile(float* s, const T* g, int row0,
-                                          int t) {
-  constexpr int kGroups = R * D / 4;
-  for (int i = threadIdx.x; i < kGroups; i += kThreads) {
-    const int r = i / (D / 4);
-    const int c = (i % (D / 4)) * 4;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < t) v = Elem<T>::load4(g + (size_t)(row0 + r) * D + c);
-    *reinterpret_cast<float4*>(s + r * (D + kPad) + c) = v;
-  }
-}
-
-__device__ __forceinline__ float half_warp_max(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off, 16));
-  return x;
-}
-
-__device__ __forceinline__ float half_warp_sum(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off, 16);
-  return x;
-}
+using namespace flash;
 
 template <int D>
 constexpr size_t fwd_smem_bytes() {
@@ -190,21 +55,52 @@ constexpr size_t fwd_smem_bytes() {
           (size_t)kBQ * (kBK + kPad)) * sizeof(float);
 }
 
-template <int D>
-constexpr size_t bwd_smem_bytes() {
-  return ((size_t)(2 * kBK + 2 * kBQ) * (D + kPad) +
-          (size_t)2 * kBK * (kBQ + kPad) + (size_t)kBQ * (kBK + kPad) +
-          2 * kBQ) * sizeof(float);
+// One k tile's step of the online softmax for query rows ty + 16 i: the
+// scores s (scaled and masked here), the running max m and sum l, the
+// output accumulators o rescaled, and p (rounded) into shared memory.
+template <bool kExp2, typename T, int kCpt>
+__device__ __forceinline__ void online_softmax(float (&s)[4][4], float (&m)[4],
+                                               float (&l)[4],
+                                               float (&o)[4][kCpt], float* ps,
+                                               int q0, int k0, int t,
+                                               int causal, float sscale) {
+  constexpr int kLdp = kBK + kPad;
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty + 16 * i;
+    float mx = kNegInf;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = k0 + tx + 16 * j;
+      float x = s[i][j] * sscale;
+      if (col >= t || (causal && col > row)) x = kNegInf;
+      s[i][j] = x;
+      mx = fmaxf(mx, x);
+    }
+    const float m_new = fmaxf(m[i], half_warp_max(mx));
+    const float corr = softmax_exp<kExp2>(m[i] - m_new);
+    float rs = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float p = softmax_exp<kExp2>(s[i][j] - m_new);
+      rs += p;
+      ps[(ty + 16 * i) * kLdp + tx + 16 * j] = Elem<T>::round(p);
+    }
+    l[i] = l[i] * corr + half_warp_sum(rs);
+    m[i] = m_new;
+#pragma unroll
+    for (int c = 0; c < kCpt; ++c) o[i][c] *= corr;
+  }
 }
-
-// ---------------------------------------------------------------- forward
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out,
                  float* __restrict__ lse, int bh_count, int t, int causal,
-                 float scale) {
+                 int use_exp2, float scale) {
   constexpr int kLd = D + kPad;
   constexpr int kLdp = kBK + kPad;
   constexpr int kCpt = D / 16;  // output columns per thread
@@ -220,6 +116,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const size_t base = (size_t)bh * t * D;
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
+  const float sscale = use_exp2 ? scale * kLog2e : scale;
 
   load_tile<T, D, kBQ>(qs, q + base, q0, t);
 
@@ -257,32 +154,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int j = 0; j < 4; ++j) s[i][j] = dot4(qv[i], kv[j], s[i][j]);
     }
 
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty + 16 * i;
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx + 16 * j;
-        float x = s[i][j] * scale;
-        if (col >= t || (causal && col > row)) x = kNegInf;
-        s[i][j] = x;
-        mx = fmaxf(mx, x);
-      }
-      const float m_new = fmaxf(m[i], half_warp_max(mx));
-      const float corr = expf(m[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        rs += p;
-        ps[(ty + 16 * i) * kLdp + tx + 16 * j] = Elem<T>::round(p);
-      }
-      l[i] = l[i] * corr + half_warp_sum(rs);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < kCpt; ++c) o[i][c] *= corr;
-    }
+    if (use_exp2)
+      online_softmax<true, T, kCpt>(s, m, l, o, ps, q0, k0, t, causal, sscale);
+    else
+      online_softmax<false, T, kCpt>(s, m, l, o, ps, q0, k0, t, causal, sscale);
     __syncthreads();
 
 #pragma unroll 2
@@ -312,194 +187,18 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < kCpt; ++c) res[c] = l[i] > 0.f ? o[i][c] / l[i] : 0.f;
     store_row<T, kCpt>(out + base + (size_t)row * D + tx * kCpt, res, 1.f);
-    if (tx == 0)
-      lse[(size_t)bh * t + row] = m[i] + logf(fmaxf(l[i], 1e-30f));
-  }
-}
-
-// --------------------------------------------------------------- backward
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, 1)
-flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const T* __restrict__ dout,
-                 const float* __restrict__ lse,
-                 const float* __restrict__ delta, float* __restrict__ dq_acc,
-                 T* __restrict__ dk, T* __restrict__ dv, int bh_count, int t,
-                 int causal, float scale) {
-  constexpr int kLd = D + kPad;
-  constexpr int kLdq = kBQ + kPad;  // rows of p^T and dS^T: one per key
-  constexpr int kLdk = kBK + kPad;  // rows of dS: one per query
-  constexpr int kCpt = D / 16;
-  extern __shared__ float4 smem4[];
-  float* ks = reinterpret_cast<float*>(smem4);
-  float* vs = ks + kBK * kLd;
-  float* qs = vs + kBK * kLd;
-  float* dos = qs + kBQ * kLd;
-  float* pts = dos + kBQ * kLd;     // p^T   [kBK][kLdq]
-  float* dsts = pts + kBK * kLdq;   // dS^T  [kBK][kLdq]
-  float* dss = dsts + kBK * kLdq;   // dS    [kBQ][kLdk]
-  float* lse_s = dss + kBQ * kLdk;  // [kBQ]
-  float* delta_s = lse_s + kBQ;     // [kBQ]
-
-  const int bh = blockIdx.x % bh_count;
-  const int k0 = (blockIdx.x / bh_count) * kBK;  // heaviest (k0 = 0) first
-  const size_t base = (size_t)bh * t * D;
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-
-  load_tile<T, D, kBK>(ks, k + base, k0, t);
-  load_tile<T, D, kBK>(vs, v + base, k0, t);
-
-  float dk_acc[4][kCpt], dv_acc[4][kCpt];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < kCpt; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
-
-  const int q_start = causal ? (k0 / kBQ) * kBQ : 0;
-  for (int q0 = q_start; q0 < t; q0 += kBQ) {
-    __syncthreads();  // the last tile's qs, dos, pts, dsts, dss are read
-    load_tile<T, D, kBQ>(qs, q + base, q0, t);
-    load_tile<T, D, kBQ>(dos, dout + base, q0, t);
-    for (int i = threadIdx.x; i < kBQ; i += kThreads) {
-      const bool in = q0 + i < t;
-      lse_s[i] = in ? lse[(size_t)bh * t + q0 + i] : 0.f;
-      delta_s[i] = in ? delta[(size_t)bh * t + q0 + i] : 0.f;
-    }
-    __syncthreads();
-
-    // s^T and dp^T for keys ty + 16 i, queries tx + 16 j.
-    float st[4][4], dpt[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) st[i][j] = dpt[i][j] = 0.f;
-#pragma unroll 2
-    for (int d = 0; d < D; d += 4) {
-      float4 kv[4], vv[4], qv[4], dov[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        kv[i] = lds4(ks + (ty + 16 * i) * kLd + d);
-        vv[i] = lds4(vs + (ty + 16 * i) * kLd + d);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        qv[j] = lds4(qs + (tx + 16 * j) * kLd + d);
-        dov[j] = lds4(dos + (tx + 16 * j) * kLd + d);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          st[i][j] = dot4(kv[i], qv[j], st[i][j]);
-          dpt[i][j] = dot4(vv[i], dov[j], dpt[i][j]);
-        }
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int kl = ty + 16 * i;
-      const int col = k0 + kl;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int ql = tx + 16 * j;
-        const int row = q0 + ql;
-        float p = 0.f;
-        if (row < t && col < t && !(causal && col > row))
-          p = expf(st[i][j] * scale - lse_s[ql]);
-        const float ds = Elem<T>::round(p * (dpt[i][j] - delta_s[ql]));
-        pts[kl * kLdq + ql] = Elem<T>::round(p);
-        dsts[kl * kLdq + ql] = ds;
-        dss[ql * kLdk + kl] = ds;
-      }
-    }
-    __syncthreads();
-
-    // dV += p^T dO and dK += dS^T Q, for keys ty + 16 i, columns tx * kCpt.
-#pragma unroll 2
-    for (int r = 0; r < kBQ; r += 4) {
-      float4 pv[4], dsv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pv[i] = lds4(pts + (ty + 16 * i) * kLdq + r);
-        dsv[i] = lds4(dsts + (ty + 16 * i) * kLdq + r);
-      }
-#pragma unroll
-      for (int rr = 0; rr < 4; ++rr) {
-        float dov[kCpt], qv[kCpt];
-        lds_row<kCpt>(dov, dos + (r + rr) * kLd + tx * kCpt);
-        lds_row<kCpt>(qv, qs + (r + rr) * kLd + tx * kCpt);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float p = comp(pv[i], rr);
-          const float ds = comp(dsv[i], rr);
-#pragma unroll
-          for (int c = 0; c < kCpt; ++c) {
-            dv_acc[i][c] = fmaf(p, dov[c], dv_acc[i][c]);
-            dk_acc[i][c] = fmaf(ds, qv[c], dk_acc[i][c]);
-          }
-        }
-      }
-    }
-
-    // dQ of this tile, rows ty + 16 i, columns tx * kCpt: dS K, added
-    // into the float32 buffer.
-    float dq[4][kCpt];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int c = 0; c < kCpt; ++c) dq[i][c] = 0.f;
-#pragma unroll 2
-    for (int c0 = 0; c0 < kBK; c0 += 4) {
-      float4 dsr[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) dsr[i] = lds4(dss + (ty + 16 * i) * kLdk + c0);
-#pragma unroll
-      for (int cc = 0; cc < 4; ++cc) {
-        float kv[kCpt];
-        lds_row<kCpt>(kv, ks + (c0 + cc) * kLd + tx * kCpt);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float ds = comp(dsr[i], cc);
-#pragma unroll
-          for (int c = 0; c < kCpt; ++c) dq[i][c] = fmaf(ds, kv[c], dq[i][c]);
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty + 16 * i;
-      if (row >= t) continue;
-      float* dst = dq_acc + base + (size_t)row * D + tx * kCpt;
-#pragma unroll
-      for (int c = 0; c < kCpt; ++c) atomicAdd(dst + c, scale * dq[i][c]);
+    if (tx == 0) {
+      const float lm = fmaxf(l[i], 1e-30f);
+      lse[(size_t)bh * t + row] =
+          use_exp2 ? (m[i] + log2f(lm)) / kLog2e : m[i] + logf(lm);
     }
   }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int col = k0 + ty + 16 * i;
-    if (col >= t) continue;
-    const size_t off = base + (size_t)col * D + tx * kCpt;
-    store_row<T, kCpt>(dk + off, dk_acc[i], scale);
-    store_row<T, kCpt>(dv + off, dv_acc[i], 1.f);
-  }
-}
-
-// ---------------------------------------------------------------- launches
-
-int blocks_for(int t, int tile, int bh, unsigned* out) {
-  const long long n = (long long)((t + tile - 1) / tile) * bh;
-  if (t <= 0 || bh <= 0 || n > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  *out = (unsigned)n;
-  return 0;
 }
 
 template <typename T, int D>
 int launch_fwd(const void* q, const void* k, const void* v, void* out,
-               float* lse, int bh, int t, int causal, float scale,
-               cudaStream_t stream) {
+               float* lse, int bh, int t, int causal, int use_exp2,
+               float scale, cudaStream_t stream) {
   constexpr size_t smem = fwd_smem_bytes<D>();
   unsigned blocks;
   if (int e = blocks_for(t, kBQ, bh, &blocks)) return e;
@@ -510,26 +209,7 @@ int launch_fwd(const void* q, const void* k, const void* v, void* out,
   flash_fwd_kernel<T, D><<<blocks, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), lse, bh, t, causal,
-      scale);
-  return (int)cudaGetLastError();
-}
-
-template <typename T, int D>
-int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
-               const float* lse, const float* delta, float* dq_acc, void* dk,
-               void* dv, int bh, int t, int causal, float scale,
-               cudaStream_t stream) {
-  constexpr size_t smem = bwd_smem_bytes<D>();
-  unsigned blocks;
-  if (int e = blocks_for(t, kBK, bh, &blocks)) return e;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  flash_bwd_kernel<T, D><<<blocks, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      dq_acc, static_cast<T*>(dk), static_cast<T*>(dv), bh, t, causal, scale);
+      use_exp2, scale);
   return (int)cudaGetLastError();
 }
 
@@ -539,23 +219,16 @@ extern "C" {
 
 // q, k, v, out: [bh, t, d] contiguous, float32 (is_bf16 = 0) or bfloat16
 // (is_bf16 = 1), 16-byte aligned; lse: [bh, t] float32. d: 32, 64 or 128.
+// scale: 1/sqrt(d) (use_exp2 folds log2(e) into it inside the kernel).
 int flash_fwd(const void* q, const void* k, const void* v, void* out,
               void* lse, int bh, int t, int d, int is_bf16, int causal,
-              float scale, void* stream) {
+              int use_exp2, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-#define FWD(T, D) launch_fwd<T, D>(q, k, v, out, l, bh, t, causal, scale, s)
-  if (is_bf16) {
-    if (d == 32) return FWD(__nv_bfloat16, 32);
-    if (d == 64) return FWD(__nv_bfloat16, 64);
-    if (d == 128) return FWD(__nv_bfloat16, 128);
-  } else {
-    if (d == 32) return FWD(float, 32);
-    if (d == 64) return FWD(float, 64);
-    if (d == 128) return FWD(float, 128);
-  }
+#define FWD(T, D) \
+  launch_fwd<T, D>(q, k, v, out, l, bh, t, causal, use_exp2, scale, s)
+  FLASH_DISPATCH(FWD);
 #undef FWD
-  return (int)cudaErrorInvalidValue;
 }
 
 // q, k, v, dout, dk, dv: [bh, t, d] as above; lse, delta: [bh, t] float32;
@@ -564,24 +237,16 @@ int flash_fwd(const void* q, const void* k, const void* v, void* out,
 int flash_bwd(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dq_acc, void* dk,
               void* dv, int bh, int t, int d, int is_bf16, int causal,
-              float scale, void* stream) {
+              int use_exp2, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
   float* dq = static_cast<float*>(dq_acc);
-#define BWD(T, D) \
-  launch_bwd<T, D>(q, k, v, dout, l, dl, dq, dk, dv, bh, t, causal, scale, s)
-  if (is_bf16) {
-    if (d == 32) return BWD(__nv_bfloat16, 32);
-    if (d == 64) return BWD(__nv_bfloat16, 64);
-    if (d == 128) return BWD(__nv_bfloat16, 128);
-  } else {
-    if (d == 32) return BWD(float, 32);
-    if (d == 64) return BWD(float, 64);
-    if (d == 128) return BWD(float, 128);
-  }
+#define BWD(T, D)                                                          \
+  launch_bwd<T, D, true>(q, k, v, dout, l, dl, dq, dk, dv, bh, t, causal,  \
+                         use_exp2, scale, s)
+  FLASH_DISPATCH(BWD);
 #undef BWD
-  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -1,0 +1,381 @@
+// Tile helpers of the flash-attention kernels, and the backward's k-tile
+// loop, shared by flash_attention.cu (K2, K3) and flash_attention_split.cu
+// (K4a, K4b).
+//
+// Layout common to all of them: one block of 256 threads (16 x 16) per
+// (bh, 64-row tile); tiles of 64 x D live in shared memory as float32 rows
+// padded by 4 floats, so the float4 reads of the inner products hit
+// distinct banks; each thread owns a 4 x 4 block of a 64 x 64 score tile
+// (rows ty + 16 i, columns tx + 16 j) and D / 16 columns of a 64 x D
+// product. Rows and keys past T are masked, so any T is taken.
+//
+// use_exp2 (the JAX package's _USE_EXP2 switch): log2(e) is folded into
+// the score scale, the running max and sum of the forward and the
+// recomputed p of the backward are in the log2 domain and use exp2f (the
+// card's ex2); the stored lse stays a natural log. It is a runtime
+// argument, uniform across the grid, not a template parameter of the
+// kernels, so the number of instantiations stays the same. Each kernel
+// branches on it once per tile, around the section that takes the
+// exponentials (a helper templated on kExp2), so that with use_exp2 = 0
+// the tile runs the instructions it ran before the switch existed.
+
+#pragma once
+
+#include "elem.cuh"
+
+namespace flash {
+
+constexpr int kBQ = 64;        // query rows per tile
+constexpr int kBK = 64;        // key rows per tile
+constexpr int kThreads = 256;  // 16 x 16
+constexpr int kPad = 4;        // floats of padding per shared-memory row
+constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
+}
+
+__device__ __forceinline__ float comp(float4 v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// e^x, or 2^x when the scores carry log2(e) (use_exp2).
+template <bool kExp2>
+__device__ __forceinline__ float softmax_exp(float x) {
+  return kExp2 ? exp2f(x) : expf(x);
+}
+
+// N consecutive floats of shared memory (N = D / 16: 2, 4 or 8).
+template <int N>
+__device__ __forceinline__ void lds_row(float (&dst)[N], const float* src) {
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < N; i += 4) {
+      const float4 v = lds4(src + i);
+      dst[i] = v.x;
+      dst[i + 1] = v.y;
+      dst[i + 2] = v.z;
+      dst[i + 3] = v.w;
+    }
+  } else {
+    static_assert(N == 2, "columns per thread must be 2, 4 or 8");
+    const float2 v = *reinterpret_cast<const float2*>(src);
+    dst[0] = v.x;
+    dst[1] = v.y;
+  }
+}
+
+// N consecutive values of a row of global memory, from float32.
+template <typename T, int N>
+__device__ __forceinline__ void store_row(T* dst, const float (&src)[N],
+                                          float mul) {
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < N; i += 4)
+      Elem<T>::store4(dst + i, make_float4(src[i] * mul, src[i + 1] * mul,
+                                           src[i + 2] * mul, src[i + 3] * mul));
+  } else {
+    Elem<T>::store2(dst, src[0] * mul, src[1] * mul);
+  }
+}
+
+// Rows [row0, row0 + R) of a [t, D] matrix into shared memory as float32,
+// R rows of D + kPad; rows at or past t read as zeros. Coalesced: thread
+// i takes the i-th group of 4 elements of the tile.
+template <typename T, int D, int R>
+__device__ __forceinline__ void load_tile(float* s, const T* g, int row0,
+                                          int t) {
+  constexpr int kGroups = R * D / 4;
+  for (int i = threadIdx.x; i < kGroups; i += kThreads) {
+    const int r = i / (D / 4);
+    const int c = (i % (D / 4)) * 4;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row0 + r < t) v = Elem<T>::load4(g + (size_t)(row0 + r) * D + c);
+    *reinterpret_cast<float4*>(s + r * (D + kPad) + c) = v;
+  }
+}
+
+// lse (times log2(e) with use_exp2) and delta of the query rows
+// [q0, q0 + kBQ) into shared memory; rows past t read as zeros.
+__device__ __forceinline__ void load_row_stats(float* lse_s, float* delta_s,
+                                               const float* lse,
+                                               const float* delta,
+                                               size_t row_base, int q0, int t,
+                                               int use_exp2) {
+  for (int i = threadIdx.x; i < kBQ; i += kThreads) {
+    const bool in = q0 + i < t;
+    const float l = in ? lse[row_base + q0 + i] : 0.f;
+    lse_s[i] = use_exp2 ? l * kLog2e : l;
+    delta_s[i] = in ? delta[row_base + q0 + i] : 0.f;
+  }
+}
+
+__device__ __forceinline__ float half_warp_max(float x) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off, 16));
+  return x;
+}
+
+__device__ __forceinline__ float half_warp_sum(float x) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1)
+    x += __shfl_xor_sync(0xffffffffu, x, off, 16);
+  return x;
+}
+
+inline int blocks_for(int t, int tile, int bh, unsigned* out) {
+  const long long n = (long long)((t + tile - 1) / tile) * bh;
+  if (t <= 0 || bh <= 0 || n > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  *out = (unsigned)n;
+  return 0;
+}
+
+// ------------------------------------------------ backward, one k tile a block
+
+template <int D, bool kDq>
+constexpr size_t bwd_smem_bytes() {
+  return ((size_t)(2 * kBK + 2 * kBQ) * (D + kPad) +
+          (size_t)2 * kBK * (kBQ + kPad) +
+          (kDq ? (size_t)kBQ * (kBK + kPad) : 0) + 2 * kBQ) *
+         sizeof(float);
+}
+
+// p^T (rounded), dS^T and, with kDq, dS of one (k tile, q tile) pair into
+// shared memory, from s^T and dp^T for keys ty + 16 i, queries tx + 16 j.
+template <bool kExp2, typename T, bool kDq>
+__device__ __forceinline__ void bwd_probs_t(const float (&st)[4][4],
+                                            const float (&dpt)[4][4],
+                                            const float* lse_s,
+                                            const float* delta_s, float* pts,
+                                            float* dsts, float* dss, int q0,
+                                            int k0, int t, int causal,
+                                            float sscale) {
+  constexpr int kLdq = kBQ + kPad;
+  constexpr int kLdk = kBK + kPad;
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int kl = ty + 16 * i;
+    const int col = k0 + kl;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int ql = tx + 16 * j;
+      const int row = q0 + ql;
+      float p = 0.f;
+      if (row < t && col < t && !(causal && col > row))
+        p = softmax_exp<kExp2>(st[i][j] * sscale - lse_s[ql]);
+      const float ds = Elem<T>::round(p * (dpt[i][j] - delta_s[ql]));
+      pts[kl * kLdq + ql] = Elem<T>::round(p);
+      dsts[kl * kLdq + ql] = ds;
+      if constexpr (kDq) dss[ql * kLdk + kl] = ds;
+    }
+  }
+}
+
+// dK and dV of one 64-key tile, in registers over the live q tiles, written
+// once. With kDq (K3) each q tile's dQ = dS K is also added with float32
+// atomics into dq_acc; without it (K4b) dq_acc is not touched.
+template <typename T, int D, bool kDq>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, const T* __restrict__ dout,
+                 const float* __restrict__ lse,
+                 const float* __restrict__ delta, float* __restrict__ dq_acc,
+                 T* __restrict__ dk, T* __restrict__ dv, int bh_count, int t,
+                 int causal, int use_exp2, float scale) {
+  constexpr int kLd = D + kPad;
+  constexpr int kLdq = kBQ + kPad;  // rows of p^T and dS^T: one per key
+  constexpr int kLdk = kBK + kPad;  // rows of dS: one per query
+  constexpr int kCpt = D / 16;
+  extern __shared__ float4 smem4[];
+  float* ks = reinterpret_cast<float*>(smem4);
+  float* vs = ks + kBK * kLd;
+  float* qs = vs + kBK * kLd;
+  float* dos = qs + kBQ * kLd;
+  float* pts = dos + kBQ * kLd;     // p^T   [kBK][kLdq]
+  float* dsts = pts + kBK * kLdq;   // dS^T  [kBK][kLdq]
+  float* dss = dsts + kBK * kLdq;   // dS    [kBQ][kLdk], with kDq only
+  float* lse_s = dss + (kDq ? kBQ * kLdk : 0);  // [kBQ]
+  float* delta_s = lse_s + kBQ;                 // [kBQ]
+
+  const int bh = blockIdx.x % bh_count;
+  const int k0 = (blockIdx.x / bh_count) * kBK;  // heaviest (k0 = 0) first
+  const size_t base = (size_t)bh * t * D;
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+  const float sscale = use_exp2 ? scale * kLog2e : scale;
+
+  load_tile<T, D, kBK>(ks, k + base, k0, t);
+  load_tile<T, D, kBK>(vs, v + base, k0, t);
+
+  float dk_acc[4][kCpt], dv_acc[4][kCpt];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < kCpt; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
+
+  const int q_start = causal ? (k0 / kBQ) * kBQ : 0;
+  for (int q0 = q_start; q0 < t; q0 += kBQ) {
+    __syncthreads();  // the last tile's qs, dos, pts, dsts, dss are read
+    load_tile<T, D, kBQ>(qs, q + base, q0, t);
+    load_tile<T, D, kBQ>(dos, dout + base, q0, t);
+    load_row_stats(lse_s, delta_s, lse, delta, (size_t)bh * t, q0, t,
+                   use_exp2);
+    __syncthreads();
+
+    // s^T and dp^T for keys ty + 16 i, queries tx + 16 j.
+    float st[4][4], dpt[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) st[i][j] = dpt[i][j] = 0.f;
+#pragma unroll 2
+    for (int d = 0; d < D; d += 4) {
+      float4 kv[4], vv[4], qv[4], dov[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        kv[i] = lds4(ks + (ty + 16 * i) * kLd + d);
+        vv[i] = lds4(vs + (ty + 16 * i) * kLd + d);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        qv[j] = lds4(qs + (tx + 16 * j) * kLd + d);
+        dov[j] = lds4(dos + (tx + 16 * j) * kLd + d);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          st[i][j] = dot4(kv[i], qv[j], st[i][j]);
+          dpt[i][j] = dot4(vv[i], dov[j], dpt[i][j]);
+        }
+    }
+
+    if (use_exp2)
+      bwd_probs_t<true, T, kDq>(st, dpt, lse_s, delta_s, pts, dsts, dss, q0,
+                                k0, t, causal, sscale);
+    else
+      bwd_probs_t<false, T, kDq>(st, dpt, lse_s, delta_s, pts, dsts, dss, q0,
+                                 k0, t, causal, sscale);
+    __syncthreads();
+
+    // dV += p^T dO and dK += dS^T Q, for keys ty + 16 i, columns tx * kCpt.
+#pragma unroll 2
+    for (int r = 0; r < kBQ; r += 4) {
+      float4 pv[4], dsv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        pv[i] = lds4(pts + (ty + 16 * i) * kLdq + r);
+        dsv[i] = lds4(dsts + (ty + 16 * i) * kLdq + r);
+      }
+#pragma unroll
+      for (int rr = 0; rr < 4; ++rr) {
+        float dov[kCpt], qv[kCpt];
+        lds_row<kCpt>(dov, dos + (r + rr) * kLd + tx * kCpt);
+        lds_row<kCpt>(qv, qs + (r + rr) * kLd + tx * kCpt);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float p = comp(pv[i], rr);
+          const float ds = comp(dsv[i], rr);
+#pragma unroll
+          for (int c = 0; c < kCpt; ++c) {
+            dv_acc[i][c] = fmaf(p, dov[c], dv_acc[i][c]);
+            dk_acc[i][c] = fmaf(ds, qv[c], dk_acc[i][c]);
+          }
+        }
+      }
+    }
+
+    if constexpr (kDq) {
+      // dQ of this tile, rows ty + 16 i, columns tx * kCpt: dS K, added
+      // into the float32 buffer.
+      float dq[4][kCpt];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < kCpt; ++c) dq[i][c] = 0.f;
+#pragma unroll 2
+      for (int c0 = 0; c0 < kBK; c0 += 4) {
+        float4 dsr[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          dsr[i] = lds4(dss + (ty + 16 * i) * kLdk + c0);
+#pragma unroll
+        for (int cc = 0; cc < 4; ++cc) {
+          float kv[kCpt];
+          lds_row<kCpt>(kv, ks + (c0 + cc) * kLd + tx * kCpt);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float ds = comp(dsr[i], cc);
+#pragma unroll
+            for (int c = 0; c < kCpt; ++c) dq[i][c] = fmaf(ds, kv[c], dq[i][c]);
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = q0 + ty + 16 * i;
+        if (row >= t) continue;
+        float* dst = dq_acc + base + (size_t)row * D + tx * kCpt;
+#pragma unroll
+        for (int c = 0; c < kCpt; ++c) atomicAdd(dst + c, scale * dq[i][c]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int col = k0 + ty + 16 * i;
+    if (col >= t) continue;
+    const size_t off = base + (size_t)col * D + tx * kCpt;
+    store_row<T, kCpt>(dk + off, dk_acc[i], scale);
+    store_row<T, kCpt>(dv + off, dv_acc[i], 1.f);
+  }
+}
+
+template <typename T, int D, bool kDq>
+int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
+               const float* lse, const float* delta, float* dq_acc, void* dk,
+               void* dv, int bh, int t, int causal, int use_exp2, float scale,
+               cudaStream_t stream) {
+  constexpr size_t smem = bwd_smem_bytes<D, kDq>();
+  unsigned blocks;
+  if (int e = blocks_for(t, kBK, bh, &blocks)) return e;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_kernel<T, D, kDq>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  flash_bwd_kernel<T, D, kDq><<<blocks, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+      dq_acc, static_cast<T*>(dk), static_cast<T*>(dv), bh, t, causal,
+      use_exp2, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace flash
+
+// Dispatch on the element type and head dim: RUN(T, D) for T float32
+// (is_bf16 = 0) or bfloat16, D 32, 64 or 128; anything else is refused.
+// It returns from the enclosing function on every path.
+#define FLASH_DISPATCH(RUN)                        \
+  if (is_bf16) {                                   \
+    if (d == 32) return RUN(__nv_bfloat16, 32);    \
+    if (d == 64) return RUN(__nv_bfloat16, 64);    \
+    if (d == 128) return RUN(__nv_bfloat16, 128);  \
+  } else {                                         \
+    if (d == 32) return RUN(float, 32);            \
+    if (d == 64) return RUN(float, 64);            \
+    if (d == 128) return RUN(float, 128);          \
+  }                                                \
+  return (int)cudaErrorInvalidValue

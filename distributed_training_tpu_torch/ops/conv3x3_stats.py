@@ -1,0 +1,112 @@
+"""A 3×3 convolution that also returns the per-channel statistics of its
+result: the kernel's wrapper, its plain PyTorch version and its launch
+counter.
+
+The port of ``pallas_conv3x3_stats`` in ``tools/conv_fusion_probe.py`` (K5;
+the kernel is ``csrc/conv3x3_stats.cu``, whose note says what bounds it).
+In the JAX layout: ``x`` ``[N, H, W, Cin]`` (NHWC), ``w`` ``[3, 3, Cin,
+Cout]`` (HWIO), stride 1, SAME padding; ``out`` ``[N, H, W, Cout]`` in x's
+dtype, and ``sum`` and ``sumsq`` float32 ``[Cout]``, the sums over N, H and
+W of the float32 result and of its square, taken before the cast.
+
+:func:`conv3x3_stats` takes its kernel for CUDA tensors and its plain
+version (:func:`conv3x3_stats_reference`) for CPU tensors, and nothing
+else: a CUDA tensor the kernel cannot take raises.
+``conv3x3_stats.launches`` counts kernel launches.
+
+Two behaviours of the JAX kernel are not kept. Its per-program partial sums
+start from its uninitialised output times 0, which interpret mode fills
+with NaN; here every partial starts at zero. With ``N % bn != 0`` it never
+writes the last ``N % bn`` images; here that raises ``ValueError``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from distributed_training_tpu_torch.ops import cuda_build
+from distributed_training_tpu_torch.utils.device import set_fp32_math
+
+_KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check_bn(n: int, bn: int) -> None:
+    """``bn`` (the JAX kernel's images per program) must divide ``N``. It is
+    validated, not used: the CUDA kernel tiles pixels its own way."""
+    if bn < 1 or n % bn:
+        raise ValueError(f"batch {n} is not a multiple of the batch block bn={bn}")
+
+
+def conv3x3_stats_reference(x, w):
+    """Plain version: ``F.conv2d`` of float32 copies (exact for bf16
+    values), TF32 off, then the sums of the float32 result; ``out`` cast to
+    x's dtype."""
+    set_fp32_math()
+    out = F.conv2d(x.float().permute(0, 3, 1, 2), w.float().permute(3, 2, 0, 1),
+                   padding=1).permute(0, 2, 3, 1)
+    return (out.to(x.dtype), out.sum((0, 1, 2)), out.square().sum((0, 1, 2)))
+
+
+def _check_for_kernel(x, w) -> None:
+    """Raise unless the kernel can take these tensors: ``x`` ``[N, H, W,
+    Cin]`` and ``w`` ``[3, 3, Cin, Cout]`` of one float32 or bfloat16
+    dtype, ``Cin`` and ``Cout`` multiples of 4, contiguous, 16-byte
+    aligned, on one CUDA device."""
+    if x.dim() != 4 or w.dim() != 4 or tuple(w.shape[:3]) != (3, 3, x.shape[-1]):
+        raise ValueError(f"conv3x3_stats: the kernel takes x [N, H, W, Cin] and "
+                         f"w [3, 3, Cin, Cout], got {tuple(x.shape)} and "
+                         f"{tuple(w.shape)}")
+    if x.dtype not in _KERNEL_DTYPES or w.dtype != x.dtype:
+        raise ValueError(f"conv3x3_stats: the kernel takes float32 or bfloat16 "
+                         f"x and w of one dtype, got {x.dtype} and {w.dtype}")
+    if x.shape[-1] % 4 or w.shape[-1] % 4:
+        raise ValueError(f"conv3x3_stats: Cin and Cout must be multiples of 4, "
+                         f"got {x.shape[-1]} and {w.shape[-1]}")
+    for t in (x, w):
+        if t.device.type != "cuda" or t.device != x.device:
+            raise ValueError(f"conv3x3_stats: tensors must all be on the CPU or "
+                             f"all on one CUDA device, got {t.device} and {x.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("conv3x3_stats: tensors must be contiguous and "
+                             "16-byte aligned")
+
+
+def _lib():
+    lib = cuda_build.load("conv3x3_stats")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.conv3x3_stats_blocks.restype = ctypes.c_longlong
+    lib.conv3x3_stats_blocks.argtypes = [i32] * 3
+    lib.conv3x3_stats.restype = i32
+    lib.conv3x3_stats.argtypes = [ptr] * 5 + [i32] * 6 + [ptr]
+    return lib
+
+
+def conv3x3_stats(x, w, *, bn: int = 1):
+    """K5: ``(out, sum, sumsq)`` (see the module docstring)."""
+    _check_bn(x.shape[0], bn)
+    if x.device.type == "cpu" and w.device.type == "cpu":
+        return conv3x3_stats_reference(x, w)
+    _check_for_kernel(x, w)
+    n, h, wd, cin = x.shape
+    cout = w.shape[-1]
+    lib = _lib()
+    blocks = lib.conv3x3_stats_blocks(n, h, wd)
+    out = torch.empty((n, h, wd, cout), dtype=x.dtype, device=x.device)
+    psum = torch.empty((blocks, cout), dtype=torch.float32, device=x.device)
+    psumsq = torch.empty_like(psum)
+    with torch.cuda.device(x.device):
+        err = lib.conv3x3_stats(
+            x.data_ptr(), w.data_ptr(), out.data_ptr(), psum.data_ptr(),
+            psumsq.data_ptr(), n, h, wd, cin, cout,
+            int(x.dtype == torch.bfloat16),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"conv3x3_stats kernel launch failed: CUDA error {err}")
+    conv3x3_stats.launches += 1
+    return out, psum.sum(0), psumsq.sum(0)
+
+
+conv3x3_stats.launches = 0

@@ -1,8 +1,9 @@
 """Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
-into ``_build/lib<name>-<hash>.so`` (the hash is of the source, so an
-edited source builds anew and an unchanged one is loaded as it is). The
+into ``_build/lib<name>-<hash>.so``. The hash is of the source and of every
+header in ``csrc/`` (``*.cuh``), so an edited source or header builds anew
+and an unchanged one is loaded as it is. The
 build happens at first use, never at import: the CPU tests import every
 module on machines without ``nvcc``. :func:`build_all` starts one ``nvcc``
 per source at once and waits for all of them.
@@ -41,8 +42,12 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as fh:
-        digest = hashlib.sha1(fh.read()).hexdigest()[:12]
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    parts = []
+    for f in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC, f), "rb") as fh:
+            parts.append(f.encode() + b"\0" + fh.read())
+    digest = hashlib.sha1(b"\0".join(parts)).hexdigest()[:12]
     return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
 
 

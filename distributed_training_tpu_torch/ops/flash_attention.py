@@ -2,20 +2,32 @@
 versions, launch counters, and the differentiable public ops.
 
 The port of ``distributed_training_tpu/ops/flash_attention.py``. Two
-kernels live in ``csrc/flash_attention.cu`` (see the note there for their
-design and what bounds them):
+kernels live in ``csrc/flash_attention.cu`` and two in
+``csrc/flash_attention_split.cu`` (see the notes there for their design
+and what bounds them):
 
 - K2, :func:`flash_fwd` (the TPU's ``_flash_fwd``): ``out`` and a float32
   ``lse`` of shape ``[BH, T]``, one value per row;
 - K3, :func:`flash_bwd` (the TPU's fused ``_flash_bwd``): ``dq, dk, dv``.
   ``delta = rowsum(dO·out) − g_lse`` is a plain tensor op before the
-  launch, as in the JAX ``_bwd_prologue``.
+  launch, as in the JAX ``_bwd_prologue``;
+- K4, the split backward (the TPU's ``_flash_bwd_split``):
+  :func:`flash_bwd_dq` (K4a, the TPU's ``_dq_kernel``) and
+  :func:`flash_bwd_dkv` (K4b, ``_dkv_kernel``), both from one ``delta``,
+  launched in turn by :func:`flash_bwd_split`.
 
 Each wrapper takes its kernel for CUDA tensors and its plain version
-(:func:`flash_attention_reference`, :func:`flash_attention_bwd_reference`)
+(:func:`flash_attention_reference`, :func:`flash_attention_bwd_reference`,
+:func:`flash_attention_dq_reference`, :func:`flash_attention_dkv_reference`)
 for CPU tensors, and for nothing else: a CUDA tensor the kernel cannot
-take raises. ``flash_fwd.launches`` and ``flash_bwd.launches`` count
-kernel launches.
+take raises. Each wrapper's ``launches`` counts its kernel's launches.
+
+Two module switches keep the JAX package's names and meaning, so that a
+test or a tool flips both packages the same way; the model path never sets
+them. ``_USE_SPLIT_BWD`` sends the autograd backward to the split kernels.
+``_USE_EXP2`` makes every kernel and every plain version take its softmax
+exponentials as ``2**x`` with log2(e) folded into the score scale, the
+stored ``lse`` staying a natural log.
 
 :func:`flash_attention` and :func:`flash_attention_lse` keep the JAX
 signature and layout ``[..., T, d]`` and its admissibility rule: the
@@ -37,6 +49,12 @@ from distributed_training_tpu_torch.ops import cuda_build
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128)
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+LOG2E = 1.4426950408889634
+
+# A/B switches of the flash kernel bench's --split-bwd and --exp2 (read
+# when a kernel or plain version runs; see the module docstring).
+_USE_SPLIT_BWD = False
+_USE_EXP2 = False
 
 
 def _block(t: int, requested: int) -> int:
@@ -61,8 +79,24 @@ def softmax_scale(d: int) -> float:
     return float(np.float32(1.0 / (d ** 0.5)))
 
 
+def _score_scale(d: int) -> float:
+    """The float32 the scores are scaled by, as the kernels compute it:
+    ``1/√d``, times log2(e) under ``_USE_EXP2``."""
+    scale = np.float32(softmax_scale(d))
+    return float(scale * np.float32(LOG2E)) if _USE_EXP2 else float(scale)
+
+
 def _causal_mask(t: int, device) -> torch.Tensor:
     return torch.ones((t, t), dtype=torch.bool, device=device).triu(1)
+
+
+def _scores(q, k, causal: bool) -> torch.Tensor:
+    """Materialised float32 scores, scaled by :func:`_score_scale` and
+    masked with ``NEG_INF``."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * _score_scale(q.shape[-1])
+    if causal:
+        s = s.masked_fill(_causal_mask(q.shape[-2], q.device), NEG_INF)
+    return s
 
 
 # -- plain versions -----------------------------------------------------------
@@ -72,13 +106,18 @@ def flash_attention_reference(q, k, v, *, causal: bool):
 
     Materialised float32 scores scaled by ``1/√d``, masked with
     ``NEG_INF``, float32 softmax; ``out`` in the input dtype, ``lse``
-    float32 ``[BH, T]``.
+    float32 ``[BH, T]``. Under ``_USE_EXP2`` the softmax runs in the log2
+    domain as the kernels' does: ``lse = (m + log2 Σ 2**(s − m)) / log2 e``.
     """
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * softmax_scale(q.shape[-1])
-    if causal:
-        s = s.masked_fill(_causal_mask(q.shape[-2], q.device), NEG_INF)
-    lse = torch.logsumexp(s, dim=-1)
-    p = torch.exp(s - lse[..., None])
+    s = _scores(q, k, causal)
+    if _USE_EXP2:
+        m = s.amax(-1, keepdim=True)
+        lse2 = m + torch.log2(torch.exp2(s - m).sum(-1, keepdim=True))
+        p = torch.exp2(s - lse2)
+        lse = (lse2 / LOG2E).squeeze(-1)
+    else:
+        lse = torch.logsumexp(s, dim=-1)
+        p = torch.exp(s - lse[..., None])
     return torch.matmul(p, v.float()).to(q.dtype), lse
 
 
@@ -90,23 +129,49 @@ def _delta(g, out, g_lse=None) -> torch.Tensor:
     return delta
 
 
+def _probs_and_dscores(q, k, v, g, lse, delta, causal: bool):
+    """``p`` recomputed from the saved natural-log ``lse`` (under
+    ``_USE_EXP2`` as ``2**(s·log2e − lse·log2e)``) and
+    ``dS = p·(dO vᵀ − delta)``, float32 ``[BH, T, T]``."""
+    s = _scores(q, k, causal)
+    if _USE_EXP2:
+        p = torch.exp2(s - lse.float()[..., None] * LOG2E)
+    else:
+        p = torch.exp(s - lse.float()[..., None])
+    dp = torch.matmul(g.float(), v.float().transpose(-1, -2))
+    return p, p * (dp - delta[..., None])
+
+
+def _dq(ds, q, k):
+    return (torch.matmul(ds, k.float()) * softmax_scale(q.shape[-1])).to(q.dtype)
+
+
+def _dkv(p, ds, q, k, v, g):
+    dk = torch.matmul(ds.transpose(-1, -2), q.float()) * softmax_scale(q.shape[-1])
+    dv = torch.matmul(p.transpose(-1, -2), g.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
 def flash_attention_bwd_reference(q, k, v, out, lse, g, g_lse=None, *,
                                   causal: bool):
     """Plain gradients of attention over ``[BH, T, d]``, in closed form
     from the saved ``out`` and ``lse``: ``(dq, dk, dv)`` in the input
     dtypes. ``g_lse`` is the cotangent of ``lse`` (None for zero)."""
-    scale = softmax_scale(q.shape[-1])
-    qf, kf, vf, gf = q.float(), k.float(), v.float(), g.float()
-    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
-    if causal:
-        s = s.masked_fill(_causal_mask(q.shape[-2], q.device), NEG_INF)
-    p = torch.exp(s - lse.float()[..., None])
-    dv = torch.matmul(p.transpose(-1, -2), gf)
-    dp = torch.matmul(gf, vf.transpose(-1, -2))
-    ds = p * (dp - _delta(g, out, g_lse)[..., None])
-    dq = torch.matmul(ds, kf) * scale
-    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    p, ds = _probs_and_dscores(q, k, v, g, lse, _delta(g, out, g_lse), causal)
+    return (_dq(ds, q, k), *_dkv(p, ds, q, k, v, g))
+
+
+def flash_attention_dq_reference(q, k, v, g, lse, delta, *, causal: bool):
+    """Plain version of K4a: ``dq`` from the saved ``lse`` and the
+    backward's ``delta`` (:func:`_delta`), in q's dtype."""
+    return _dq(_probs_and_dscores(q, k, v, g, lse, delta, causal)[1], q, k)
+
+
+def flash_attention_dkv_reference(q, k, v, g, lse, delta, *, causal: bool):
+    """Plain version of K4b: ``(dk, dv)`` as
+    :func:`flash_attention_dq_reference` takes them."""
+    p, ds = _probs_and_dscores(q, k, v, g, lse, delta, causal)
+    return _dkv(p, ds, q, k, v, g)
 
 
 # -- kernel wrappers ----------------------------------------------------------
@@ -144,9 +209,19 @@ def _lib():
     lib = cuda_build.load("flash_attention")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.flash_fwd.restype = i32
-    lib.flash_fwd.argtypes = [ptr] * 5 + [i32] * 5 + [ctypes.c_float, ptr]
+    lib.flash_fwd.argtypes = [ptr] * 5 + [i32] * 6 + [ctypes.c_float, ptr]
     lib.flash_bwd.restype = i32
-    lib.flash_bwd.argtypes = [ptr] * 9 + [i32] * 5 + [ctypes.c_float, ptr]
+    lib.flash_bwd.argtypes = [ptr] * 9 + [i32] * 6 + [ctypes.c_float, ptr]
+    return lib
+
+
+def _split_lib():
+    lib = cuda_build.load("flash_attention_split")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.flash_bwd_dq.restype = i32
+    lib.flash_bwd_dq.argtypes = [ptr] * 7 + [i32] * 6 + [ctypes.c_float, ptr]
+    lib.flash_bwd_dkv.restype = i32
+    lib.flash_bwd_dkv.argtypes = [ptr] * 8 + [i32] * 6 + [ctypes.c_float, ptr]
     return lib
 
 
@@ -167,7 +242,7 @@ def flash_fwd(q, k, v, *, causal: bool):
         err = _lib().flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), bh, t, d, int(q.dtype == torch.bfloat16),
-            int(causal), softmax_scale(d), _stream(q.device))
+            int(causal), int(_USE_EXP2), softmax_scale(d), _stream(q.device))
     if err != 0:
         raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error {err}")
     flash_fwd.launches += 1
@@ -190,16 +265,66 @@ def flash_bwd(q, k, v, out, lse, g, g_lse=None, *, causal: bool):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq_acc.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), bh, t, d,
-            int(q.dtype == torch.bfloat16), int(causal), softmax_scale(d),
-            _stream(q.device))
+            int(q.dtype == torch.bfloat16), int(causal), int(_USE_EXP2),
+            softmax_scale(d), _stream(q.device))
     if err != 0:
         raise RuntimeError(f"flash_bwd kernel launch failed: CUDA error {err}")
     flash_bwd.launches += 1
     return dq_acc.to(q.dtype), dk, dv
 
 
+def flash_bwd_dq(q, k, v, g, lse, delta, *, causal: bool):
+    """K4a: ``dq`` from the forward's ``lse``, the output cotangent ``g``
+    and the backward's ``delta``; written once, no atomics, so the same bit
+    for bit from run to run."""
+    if _all_cpu((q, k, v, g, lse, delta)):
+        return flash_attention_dq_reference(q, k, v, g, lse, delta, causal=causal)
+    _check_for_kernel("flash_bwd_dq", (q, k, v, g), (lse, delta))
+    bh, t, d = q.shape
+    dq = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        err = _split_lib().flash_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bh, t, d,
+            int(q.dtype == torch.bfloat16), int(causal), int(_USE_EXP2),
+            softmax_scale(d), _stream(q.device))
+    if err != 0:
+        raise RuntimeError(f"flash_bwd_dq kernel launch failed: CUDA error {err}")
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, g, lse, delta, *, causal: bool):
+    """K4b: ``(dk, dv)``, taking what :func:`flash_bwd_dq` takes."""
+    if _all_cpu((q, k, v, g, lse, delta)):
+        return flash_attention_dkv_reference(q, k, v, g, lse, delta, causal=causal)
+    _check_for_kernel("flash_bwd_dkv", (q, k, v, g), (lse, delta))
+    bh, t, d = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        err = _split_lib().flash_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            bh, t, d, int(q.dtype == torch.bfloat16), int(causal),
+            int(_USE_EXP2), softmax_scale(d), _stream(q.device))
+    if err != 0:
+        raise RuntimeError(f"flash_bwd_dkv kernel launch failed: CUDA error {err}")
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+def flash_bwd_split(q, k, v, out, lse, g, g_lse=None, *, causal: bool):
+    """K4: ``(dq, dk, dv)`` as :func:`flash_bwd` gives them, from K4a and
+    K4b in turn, with ``delta`` computed once for both."""
+    delta = _delta(g, out, g_lse)
+    dq = flash_bwd_dq(q, k, v, g, lse, delta, causal=causal)
+    return (dq, *flash_bwd_dkv(q, k, v, g, lse, delta, causal=causal))
+
+
 flash_fwd.launches = 0
 flash_bwd.launches = 0
+flash_bwd_dq.launches = 0
+flash_bwd_dkv.launches = 0
 
 
 # -- differentiable ops -------------------------------------------------------
@@ -217,13 +342,14 @@ def _backward(ctx, g, g_lse=None):
         _block(q.shape[-2], b)
     if g_lse is not None:
         g_lse = g_lse.contiguous()
-    dq, dk, dv = flash_bwd(q, k, v, out, lse, g.contiguous(), g_lse,
-                           causal=ctx.causal)
+    bwd = flash_bwd_split if _USE_SPLIT_BWD else flash_bwd
+    dq, dk, dv = bwd(q, k, v, out, lse, g.contiguous(), g_lse, causal=ctx.causal)
     return dq, dk, dv, None, None, None
 
 
 class _FlashCore(torch.autograd.Function):
-    """Attention whose forward is K2 and whose backward is K3."""
+    """Attention whose forward is K2 and whose backward is K3 (K4 under
+    ``_USE_SPLIT_BWD``)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, bwd_block_q, bwd_block_k):

@@ -1,0 +1,99 @@
+"""The port's conv3×3 + BN-statistics op (K5) on the CPU (the wrapper's
+plain version) against the JAX probe's ``tools/conv_fusion_probe.py``.
+
+bf16 inputs from numpy, as the probe makes them. Two references, because
+the JAX kernel run in interpret mode gives ``out`` but not the sums:
+
+- ``out`` against ``pallas_conv3x3_stats(..., interpret=True)``: within
+  one bf16 step, 2**-7 of the element (both sum the same float32 products
+  in another order, and a float32 sum near a rounding boundary may round
+  the other way), plus 1e-5 absolute for elements near zero, where that
+  order moves the float32 sum by more than the element's own bf16 step;
+- ``sum`` and ``sumsq`` against the probe's oracle ``xla_conv_stats``, the
+  same float32 conv and sums (the kernel's own sums are NaN in interpret
+  mode: each program's partial starts from its uninitialised output times
+  0): each channel's error within 1e-5 of the sum of its terms' magnitudes.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from distributed_training_tpu_torch.ops.conv3x3_stats import (
+    conv3x3_stats,
+    conv3x3_stats_reference,
+)
+from tools import conv_fusion_probe as probe
+
+torch.set_num_threads(1)
+
+
+def _inputs(n, h, w, cin, cout, seed=0):
+    rng = np.random.RandomState(seed)
+    x = jnp.asarray(rng.randn(n, h, w, cin), jnp.bfloat16)
+    wts = jnp.asarray(rng.randn(3, 3, cin, cout) * 0.05, jnp.bfloat16)
+    to_torch = lambda a: torch.from_numpy(np.asarray(a, np.float32)).bfloat16()  # noqa: E731
+    return x, wts, to_torch(x), to_torch(wts)
+
+
+@pytest.mark.parametrize("n,h,w,cin,cout,bn", [
+    (2, 8, 8, 16, 16, 1),
+    (4, 8, 8, 16, 32, 2),
+    (2, 6, 10, 16, 16, 2),
+    (3, 6, 10, 16, 32, 1),
+])
+def test_matches_the_jax_probe(n, h, w, cin, cout, bn):
+    jx, jw, x, wts = _inputs(n, h, w, cin, cout, seed=n + h + cout)
+    got_out, got_s, got_ss = conv3x3_stats(x, wts, bn=bn)
+    assert got_out.shape == (n, h, w, cout) and got_out.dtype == torch.bfloat16
+    assert got_s.shape == got_ss.shape == (cout,)
+    assert got_s.dtype == got_ss.dtype == torch.float32
+
+    k_out, _, _ = probe.pallas_conv3x3_stats(jx, jw, bn=bn, interpret=True)
+    np.testing.assert_allclose(got_out.float().numpy(), np.asarray(k_out, np.float32),
+                               rtol=2 ** -7, atol=1e-5)
+
+    ref_out, ref_s, ref_ss = probe.xla_conv_stats(jx, jw)
+    terms = np.abs(np.asarray(ref_out, np.float32)).sum((0, 1, 2))
+    np.testing.assert_array_less(np.abs(got_s.numpy() - np.asarray(ref_s)), 1e-5 * terms)
+    ref_ss = np.asarray(ref_ss)
+    np.testing.assert_array_less(np.abs(got_ss.numpy() - ref_ss), 1e-5 * ref_ss)
+
+
+def test_batch_not_a_multiple_of_bn_raises():
+    """The JAX kernel leaves the last N % bn images unwritten; the port
+    refuses the call."""
+    _, _, x, wts = _inputs(3, 8, 8, 16, 16)
+    with pytest.raises(ValueError, match="multiple"):
+        conv3x3_stats(x, wts, bn=2)
+    with pytest.raises(ValueError, match="multiple"):
+        conv3x3_stats(x, wts, bn=0)
+
+
+def test_reference_sums_are_of_the_float32_result():
+    """The sums are taken before the cast: they differ from the sums of the
+    bf16 ``out``, and equal those of the float32 conv."""
+    _, _, x, wts = _inputs(2, 8, 8, 16, 16, seed=9)
+    out, s, ss = conv3x3_stats_reference(x, wts)
+    want = torch.nn.functional.conv2d(x.float().permute(0, 3, 1, 2),
+                                      wts.float().permute(3, 2, 0, 1), padding=1)
+    torch.testing.assert_close(s, want.sum((0, 2, 3)), rtol=1e-6, atol=1e-5)
+    torch.testing.assert_close(ss, want.square().sum((0, 2, 3)), rtol=1e-6, atol=1e-5)
+    assert not torch.equal(s, out.float().sum((0, 1, 2)))
+
+
+def test_cpu_takes_the_plain_version_and_off_cpu_never_falls_back():
+    _, _, x, wts = _inputs(2, 8, 8, 16, 16)
+    n = conv3x3_stats.launches
+    for a, b in zip(conv3x3_stats(x, wts), conv3x3_stats_reference(x, wts)):
+        assert torch.equal(a, b)
+    xm = torch.empty((2, 8, 8, 16), dtype=torch.bfloat16, device="meta")
+    wm = torch.empty((3, 3, 16, 16), dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        conv3x3_stats(xm, wm)
+    with pytest.raises(ValueError, match="Cin and Cout"):
+        conv3x3_stats(xm[..., :6], wm[:, :, :6, :])
+    with pytest.raises(ValueError, match="dtype"):
+        conv3x3_stats(xm, wm.float())
+    assert conv3x3_stats.launches == n

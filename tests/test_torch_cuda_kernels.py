@@ -190,3 +190,148 @@ def test_flash_kernels_refuse_what_they_cannot_take(require_cuda):
     out, lse = flash_fwd(q, k, v, causal=True)
     with pytest.raises(ValueError):
         flash_bwd(q, k, v, out, lse[:, :64].contiguous(), g, causal=True)
+
+
+# -- split flash backward (K4a dq, K4b dk/dv) and exp2 ------------------------
+#
+# Row by row under the K2/K3 limits above: K4a and K4b round p and dS where
+# K3 does and sum in the same float32, without K3's atomics.
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("bh,t,d", [(6, 128, 32), (3, 200, 64), (2, 1024, 64),
+                                    (3, 256, 128)])
+def test_split_kernels_match_reference(require_cuda, dtype, causal, bh, t, d):
+    from distributed_training_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, g = _attn_inputs((bh, t, d), dtype, seed=2)
+    g_lse = torch.randn((bh, t), device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(3))
+    out, lse = fa.flash_fwd(q, k, v, causal=causal)
+    delta = fa._delta(g, out, g_lse)
+    n = (fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches)
+    dq = fa.flash_bwd_dq(q, k, v, g, lse, delta, causal=causal)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, g, lse, delta, causal=causal)
+    torch.cuda.synchronize()
+    assert (fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches) == (n[0] + 1, n[1] + 1)
+    want_dq = fa.flash_attention_dq_reference(q, k, v, g, lse, delta, causal=causal)
+    want_dk, want_dv = fa.flash_attention_dkv_reference(q, k, v, g, lse, delta,
+                                                        causal=causal)
+    tol = FLASH_TOL[dtype][1]
+    for name, a, b in (("dq", dq, want_dq), ("dk", dk, want_dk), ("dv", dv, want_dv)):
+        assert a.dtype == dtype and a.shape == b.shape
+        assert _row_err(a, b) < tol, name
+
+
+@pytest.mark.cuda
+def test_split_dq_is_bitwise_repeatable(require_cuda):
+    """K4a writes each dq row once from registers: no atomics, so two
+    launches on the same inputs give the same bits."""
+    from distributed_training_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, g = _attn_inputs((8, 1024, 64), torch.bfloat16, seed=4)
+    out, lse = fa.flash_fwd(q, k, v, causal=True)
+    delta = fa._delta(g, out)
+    first = fa.flash_bwd_dq(q, k, v, g, lse, delta, causal=True)
+    second = fa.flash_bwd_dq(q, k, v, g, lse, delta, causal=True)
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("split", [False, True], ids=["fused", "split"])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_exp2_kernels_match_reference(require_cuda, monkeypatch, dtype, split, d):
+    """Under _USE_EXP2 the kernels (K2 with K3 or K4) against the plain
+    versions, which read the switch too, and against the natural-exp
+    forward: the same function."""
+    from distributed_training_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, g = _attn_inputs((3, 384, d), dtype, seed=5)
+    nat_out, nat_lse = fa.flash_fwd(q, k, v, causal=True)
+    monkeypatch.setattr(fa, "_USE_EXP2", True)
+    out, lse = fa.flash_fwd(q, k, v, causal=True)
+    bwd = fa.flash_bwd_split if split else fa.flash_bwd
+    grads = bwd(q, k, v, out, lse, g, causal=True)
+    want_out, want_lse = fa.flash_attention_reference(q, k, v, causal=True)
+    want = fa.flash_attention_bwd_reference(q, k, v, out, lse, g, causal=True)
+    fwd_tol, bwd_tol = FLASH_TOL[dtype]
+    assert _row_err(out, want_out) < fwd_tol
+    assert _rel_err(lse, want_lse) < 1e-5
+    assert _row_err(out, nat_out) < fwd_tol and _rel_err(lse, nat_lse) < 1e-5
+    for name, a, b in zip(("dq", "dk", "dv"), grads, want):
+        assert _row_err(a, b) < bwd_tol, name
+
+
+@pytest.mark.cuda
+def test_split_kernels_refuse_what_they_cannot_take(require_cuda):
+    from distributed_training_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, g = _attn_inputs((2, 128, 64), torch.float32)
+    out, lse = fa.flash_fwd(q, k, v, causal=True)
+    delta = fa._delta(g, out)
+    with pytest.raises(ValueError):
+        fa.flash_bwd_dq(q, k, v, g, lse, delta[:, :64].contiguous(), causal=True)
+    with pytest.raises(ValueError):
+        fa.flash_bwd_dkv(q, k.bfloat16(), v, g, lse, delta, causal=True)
+
+
+# -- conv3x3 + BN statistics (K5) ---------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["s0", "s1", "s2", "border"])
+def test_conv3x3_stats_matches_reference(require_cuda, shape):
+    """The probe's shapes at batch 2, and a border-heavy 7 x 9 image (one
+    partial 8 x 8 tile, every pixel on or beside the border), in bf16
+    under the probe's limits (``check`` raises above them)."""
+    from distributed_training_tpu_torch.ops.conv3x3_stats import conv3x3_stats
+    from distributed_training_tpu_torch.tools import conv_fusion_probe as probe
+
+    n, h, w, cin, cout = (3, 7, 9, 16, 32) if shape == "border" else (2, *probe.SHAPES[shape][2:])
+    x, wts = probe.inputs(n, h, w, cin, cout, "cuda", seed=1)
+    before = conv3x3_stats.launches
+    probe.check(x, wts)
+    assert conv3x3_stats.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_conv3x3_stats_float32_and_repeatable(require_cuda):
+    """float32 inputs: the kernel and the plain version sum the same exact
+    products in another order (out within float32 noise); and the sums,
+    reduced in a fixed order without atomics, repeat bit for bit."""
+    from distributed_training_tpu_torch.ops.conv3x3_stats import (
+        conv3x3_stats,
+        conv3x3_stats_reference,
+    )
+    from distributed_training_tpu_torch.tools import conv_fusion_probe as probe
+
+    x, wts = probe.inputs(2, 7, 9, 16, 32, "cuda", seed=2)
+    x, wts = x.float(), wts.float()
+    out, s, ss = conv3x3_stats(x, wts)
+    want = conv3x3_stats_reference(x, wts)
+    torch.testing.assert_close(out, want[0], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(s, want[1], rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(ss, want[2], rtol=1e-5, atol=1e-4)
+    again = conv3x3_stats(x, wts)
+    assert torch.equal(again[1], s) and torch.equal(again[2], ss)
+
+
+@pytest.mark.cuda
+def test_conv3x3_stats_refuses_what_it_cannot_take(require_cuda):
+    from distributed_training_tpu_torch.ops.conv3x3_stats import conv3x3_stats
+
+    x = torch.randn(2, 8, 8, 16, device="cuda", dtype=torch.bfloat16)
+    w = torch.randn(3, 3, 16, 16, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous"):
+        conv3x3_stats(x.transpose(1, 2), w)
+    with pytest.raises(ValueError):
+        conv3x3_stats(x, w.float())
+    with pytest.raises(ValueError):
+        conv3x3_stats(x.half(), w.half())
+    with pytest.raises(ValueError):
+        conv3x3_stats(x, w.cpu())
+    with pytest.raises(ValueError, match="multiple"):
+        conv3x3_stats(x[:1].expand(3, 8, 8, 16).contiguous(), w, bn=2)

@@ -64,7 +64,9 @@ def test_every_module_imports_with_jax_blocked():
     assert r.returncode == 0, r.stderr
     assert len(mods) >= 22
     for new in ("ops.flash_attention", "parallel.ring_attention", "models.gpt",
-                "data.lm_text", "train.lm_step", "train.lm_trainer"):
+                "data.lm_text", "train.lm_step", "train.lm_trainer",
+                "ops.conv3x3_stats", "tools.flash_kernel_bench",
+                "tools.conv_fusion_probe"):
         assert f"distributed_training_tpu_torch.{new}" in mods
 
 
