@@ -6,7 +6,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build every kernel in ``distributed_training_tpu_torch/csrc`` with
-   ``nvcc`` (one process per source, in parallel);
+   ``nvcc`` (one process per source, in parallel), and print ptxas's
+   registers and spills and the dynamic shared memory of each bf16
+   tensor-core instantiation of K2, K3 and K4b (a spill at d 64 fails);
 3. kernel phase: the fused-Adam kernel against its plain PyTorch version
    on all 62 ResNet-18 parameter shapes for 3 steps, and its time beside
    the plain version's, ``torch.optim.Adam(fused=True)``'s (a yardstick
@@ -28,7 +30,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    GPT-2-small shape (BH 192, T 1024, d 64, bf16, causal) beside their
    plain versions, ``F.scaled_dot_product_attention`` forward and backward
    (yardsticks only; the port never calls it) and the least time the card
-   could take;
+   could take, with TFLOP/s, the share of the bound, and for K2, K3 and
+   K4b their times before the tensor-core redesign;
 7. LM phase: ``LMTrainer.fit()`` on GPT-2-small at full width (12 layers,
    hidden 768, 12 heads, vocab 50304, T 1024, batch 16, bf16,
    ``attn_impl="flash"``, ``hybrid_adam``), 10 steps and an eval of 2
@@ -319,6 +322,10 @@ def steady_state(trainer, batches: list, per_step: int, unit: str,
           f"{100 * busy / wall_us:.1f}% of wall")
     for dev_us, key, count in rows[:12]:
         print(f"[{tag}]   {dev_us / 1e3:9.3f} ms  x{count:<5d} {key[:90]}")
+    for dev_us, key, count in rows[12:]:  # the port's own kernels, wherever they rank
+        if re.search(r"flash|fused_adam|conv3x3", key):
+            print(f"[{tag}]   {dev_us / 1e3:9.3f} ms  x{count:<5d} {key[:90]} "
+                  f"(rank {rows.index((dev_us, key, count)) + 1})")
 
 
 def fp16_phase(ckpt_dir: str) -> None:
@@ -549,10 +556,15 @@ def flash_kernel_phase() -> dict:
         lib = sdpa_fwd if name == "flash_fwd" else sdpa_bwd
         result[name] = {"max_abs_err": errs[name], "ms": ms[name], "plain_ms": plain[name],
                         "library_ms": lib, "bound_ms": bound, "bound_by": by}
+        before = (f"; before the tensor-core redesign {CUDA_CORE_MS[name]:.4f} ms "
+                  f"(PR 3), {CUDA_CORE_MS[name] / ms[name]:.2f}x" if name in CUDA_CORE_MS
+                  else "")
         print(f"[flash] {name} at BH {bh} T {t} d {d} bf16 causal: ms={ms[name]:.4f} "
               f"plain_ms={plain[name]:.4f} library_ms={lib:.4f} (SDPA) bound_ms="
               f"{bound:.4f} ({nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP; {by}); "
-              f"{ops / ms[name] / 1e9:.2f} TFLOP/s; max_abs_err={errs[name]:.3g}")
+              f"{ops / ms[name] / 1e9:.2f} TFLOP/s, {100 * bound / ms[name]:.1f}% of "
+              f"the bound, {ms[name] / lib:.2f}x SDPA{before}; "
+              f"max_abs_err={errs[name]:.3g}")
     for name in ("flash_bwd_dq", "flash_bwd_dkv"):
         result[name].update(library_call="SDPA backward (dq, dk, dv)", pair_ms=pair_ms,
                             pair_bound_ms=result["flash_bwd"]["bound_ms"])
@@ -788,6 +800,54 @@ def tools_phase() -> tuple[dict, dict]:
     return launches, results
 
 
+# K2, K3 and K4b at the GPT-2-small shape before their tensor-core
+# redesign: the CUDA-core kernels' times on an H100 80GB HBM3 at 700 W
+# (PERF.md, PR 3's final run of this script).
+CUDA_CORE_MS = {"flash_fwd": 0.9222, "flash_bwd": 3.1057, "flash_bwd_dkv": 2.1614}
+
+
+def wgmma_build_lines() -> None:
+    """ptxas's registers and spills and the launch's dynamic shared memory
+    of each bf16 tensor-core instantiation (flash_wgmma.cuh): K2's
+    ``fwd_kernel<D>``, K3's ``bwd_kernel<D, true>``, K4b's ``bwd_kernel<D,
+    false>``; fails on a spill at d 64, the GPT path."""
+    import ctypes
+
+    from distributed_training_tpu_torch.ops import cuda_build
+    from distributed_training_tpu_torch.ops import flash_attention as fa
+
+    if "flash_attention" not in cuda_build.build_logs:
+        print("[build] wgmma: the flash libraries were built before this run; "
+              "no ptxas output to read")
+        return
+    lib = fa._lib()
+    lib.flash_wgmma_smem_bytes.restype = ctypes.c_int
+    lib.flash_wgmma_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    seen = {}
+    for src in ("flash_attention", "flash_attention_split"):
+        log = cuda_build.build_logs.get(src, "")
+        for entry in re.split(r"Compiling entry function", log)[1:]:
+            m = re.match(r" '_ZN11flash_wgmma(\d+)(fwd|bwd)_kernelILi(\d+)E(Lb(\d)E)?",
+                         entry)
+            if not m:
+                continue
+            kind, d = m.group(2), int(m.group(3))
+            which = 0 if kind == "fwd" else (1 if m.group(5) == "1" else 2)
+            name = ("K2 fwd_kernel", "K3 bwd_kernel(dq)", "K4b bwd_kernel")[which]
+            regs = int(re.search(r"Used (\d+) registers", entry).group(1))
+            stores, loads = map(int, re.search(
+                r"(\d+) bytes spill stores, (\d+) bytes spill loads", entry).groups())
+            seen[(which, d)] = stores + loads
+            print(f"[build] wgmma {name} d {d} ({src}): {regs} registers, spill "
+                  f"stores {stores} B, spill loads {loads} B, dynamic shared memory "
+                  f"{lib.flash_wgmma_smem_bytes(which, d)} B")
+    if len(seen) != 9:
+        raise SystemExit(f"expected 9 bf16 tensor-core instantiations in ptxas's "
+                         f"output, found {sorted(seen)}")
+    if any(seen[(w, 64)] for w in range(3)):
+        raise SystemExit("a bf16 d 64 tensor-core instantiation spills")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -807,6 +867,7 @@ def main() -> int:
         spills = re.findall(r"(\d+) bytes spill stores", log)
         print(f"[build] {name}: ptxas, kernel by kernel: registers "
               f"{' '.join(regs)}; bytes of spill stores {' '.join(spills)}")
+    wgmma_build_lines()
 
     k = kernel_phase()
     with tempfile.TemporaryDirectory() as ckpt:

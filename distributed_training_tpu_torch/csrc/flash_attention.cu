@@ -1,14 +1,17 @@
 // Flash attention for Hopper (sm_90a): the forward (K2) and the fused
-// backward (K3), on [BH, T, D] tensors in float32 or bfloat16.
+// backward (K3), on [BH, T, D] tensors in float32 or bfloat16 (bfloat16 on
+// the tensor cores, flash_wgmma.cuh).
 //
 // Replaces the Pallas kernels of distributed_training_tpu/ops/
 // flash_attention.py:
-//   - flash_fwd_kernel  <- _flash_fwd (body _fwd_kernel): online-softmax
+//   - flash_wgmma::fwd_kernel<D> (bf16), flash_fwd_kernel<float, D>  <-
+//     _flash_fwd (body _fwd_kernel): online-softmax
 //     attention, causal tiles that are wholly masked skipped (_live_block);
 //     out in the input dtype and lse in float32, one value per row (the
 //     TPU's LSE_LANES replication was a Mosaic layout rule, not part of
 //     the function);
-//   - flash_bwd_kernel<T, D, true> (flash_tiles.cuh)  <- _flash_bwd (body
+//   - flash_wgmma::bwd_kernel<D, true> (bf16), flash_bwd_kernel<float, D,
+//     true> (flash_tiles.cuh)  <- _flash_bwd (body
 //     _fused_bwd_kernel): dq, dk, dv from p = exp(s - lse) recomputed once
 //     per tile and shared by the three products. delta = rowsum(dO * out)
 //     - g_lse is a plain tensor op before the launch, as in _bwd_prologue.
@@ -24,17 +27,26 @@
 // tensor cores, 67 TFLOP/s float32 outside them, 3.35 TB/s): at the
 // GPT-2-small shape (BH 192, T 1024, D 64, causal, bf16) the forward moves
 // ~101 MB (0.030 ms) and does 25.8 GFLOP (0.026 ms), so it is bound by
-// bytes at 0.030 ms; the backward moves ~178 MB (0.053 ms) and does 64.5
-// GFLOP (0.065 ms), so it is bound by operations at 0.065 ms. This first
-// version does NOT use the tensor cores: every product is a float32 FMA
-// on CUDA cores, so its ceiling is the 67 TFLOP/s float32 rate. Design,
-// chosen to be simple and right first (tile layout in flash_tiles.cuh):
+// bytes at 0.0303 ms; the backward moves ~178 MB (0.053 ms) and does 64.5
+// GFLOP (0.065 ms), so it is bound by operations at 0.0652 ms.
+//
+// bfloat16 (the GPT path) runs on the tensor cores: flash_wgmma.cuh holds
+// both kernels (bf16 tiles in the swizzled layout wgmma reads, every
+// product a wgmma with float32 accumulators, P and dS^T taken from
+// registers, double-buffered cp.async loads, the mask only on diagonal and
+// ragged tiles, dQ by float4 vector reductions). The first version, every
+// product a float32 FMA on CUDA cores, took 0.9222 ms (K2) and 3.1057 ms
+// (K3 through its wrapper; kernel 2.88 ms) at that shape on that card.
+// float32 keeps that version (below and flash_tiles.cuh): on the tensor
+// cores it would be TF32, and it is a checking path the trainer does not
+// run. Its design:
 //   - the k (or, backward, q) tiles are a loop inside the block, which
 //     takes the place of the TPU's sequential grid axis, and the running
 //     (m, l, acc) of the forward stay in registers across it;
 //   - row max and sum reduce over the 16 lanes of a half warp by shuffles;
 //   - causal: the forward stops at the last live k tile, the backward
-//     starts at the first live q tile; blocks are ordered heaviest first;
+//     starts at the first live q tile; blocks are ordered heaviest first
+//     (both versions);
 //   - dK and dV accumulate in registers over the q tiles; dQ, whose rows
 //     are spread over all k-tile blocks, is added with float32 atomics
 //     into one zeroed [BH, T, D] buffer (the TPU wrote [nk, BH, T, D]
@@ -43,7 +55,7 @@
 // C interface (bound with ctypes): each entry launches once on the given
 // stream and returns cudaGetLastError().
 
-#include "flash_tiles.cuh"
+#include "flash_wgmma.cuh"
 
 namespace {
 
@@ -227,7 +239,11 @@ int flash_fwd(const void* q, const void* k, const void* v, void* out,
   float* l = static_cast<float*>(lse);
 #define FWD(T, D) \
   launch_fwd<T, D>(q, k, v, out, l, bh, t, causal, use_exp2, scale, s)
-  FLASH_DISPATCH(FWD);
+#define FWD_WGMMA(T, D)                                                 \
+  flash_wgmma::launch_fwd<D>(q, k, v, out, l, bh, t, causal, use_exp2, \
+                             scale, s)
+  FLASH_DISPATCH(FWD_WGMMA, FWD);
+#undef FWD_WGMMA
 #undef FWD
 }
 
@@ -245,8 +261,28 @@ int flash_bwd(const void* q, const void* k, const void* v, const void* dout,
 #define BWD(T, D)                                                          \
   launch_bwd<T, D, true>(q, k, v, dout, l, dl, dq, dk, dv, bh, t, causal,  \
                          use_exp2, scale, s)
-  FLASH_DISPATCH(BWD);
+#define BWD_WGMMA(T, D)                                                 \
+  flash_wgmma::launch_bwd<D, true>(q, k, v, dout, l, dl, dq, dk, dv, bh, \
+                                   t, causal, use_exp2, scale, s)
+  FLASH_DISPATCH(BWD_WGMMA, BWD);
+#undef BWD_WGMMA
 #undef BWD
+}
+
+// Dynamic shared memory a block of the bf16 tensor-core kernels takes at
+// head dim d: kernel 0 the forward (K2), 1 the backward with dq (K3), 2
+// without it (K4b); -1 for anything else.
+int flash_wgmma_smem_bytes(int kernel, int d) {
+#define SMEM(D)                                                         \
+  (kernel == 0   ? (int)flash_wgmma::fwd_smem_bytes<D>()                \
+   : kernel == 1 ? (int)flash_wgmma::bwd_smem_bytes<D, true>()          \
+   : kernel == 2 ? (int)flash_wgmma::bwd_smem_bytes<D, false>()         \
+                 : -1)
+  if (d == 32) return SMEM(32);
+  if (d == 64) return SMEM(64);
+  if (d == 128) return SMEM(128);
+  return -1;
+#undef SMEM
 }
 
 }  // extern "C"

@@ -12,10 +12,12 @@
 //     No atomics and no zeroed float32 buffer, so dq is the same bit for
 //     bit from run to run (K3 adds its dq parts with atomics in an order
 //     that changes);
-//   - flash_bwd_kernel<T, D, false> (flash_tiles.cuh)  <- _dkv_kernel
+//   - flash_wgmma::bwd_kernel<D, false> (bf16, flash_wgmma.cuh) and
+//     flash_bwd_kernel<float, D, false> (flash_tiles.cuh)  <- _dkv_kernel
 //     (flash_attention.py:243): one block per (bh, 64-row k tile) sweeps
 //     the q tiles from the diagonal; dk and dv in registers, written once.
-//     It is K3's loop without the dq part.
+//     It is K3's loop without the dq part, on the tensor cores in bf16 as
+//     K3 is (redesigned with it; 2.1614 ms before, on CUDA cores).
 // delta = rowsum(dO * out) - g_lse is computed once by the caller and read
 // by both. use_exp2 as in flash_tiles.cuh.
 //
@@ -32,14 +34,14 @@
 // and dS^T Q, 8 D a pair, 51.6 GFLOP (0.0522 ms), against 152.6 MB
 // (0.0455 ms): operations, 0.0522 ms. The split recomputes s, p and dp in
 // both kernels, 14 D operations a pair against K3's 10 D; the pair
-// computes K3's function, so its bound is K3's, 0.0652 ms. Like K2/K3,
-// this first version runs every product as a float32 FMA on CUDA cores
-// (ceiling: 67 TFLOP/s float32); tensor cores are later work.
+// computes K3's function, so its bound is K3's, 0.0652 ms. K4a, and both
+// in float32, run every product as a float32 FMA on CUDA cores (ceiling:
+// 67 TFLOP/s float32); K4a on the tensor cores is later work.
 //
 // C interface (bound with ctypes): each entry launches once on the given
 // stream and returns cudaGetLastError().
 
-#include "flash_tiles.cuh"
+#include "flash_wgmma.cuh"
 
 namespace {
 
@@ -220,7 +222,7 @@ int flash_bwd_dq(const void* q, const void* k, const void* v,
   const float* dl = static_cast<const float*>(delta);
 #define DQ(T, D) \
   launch_dq<T, D>(q, k, v, dout, l, dl, dq, bh, t, causal, use_exp2, scale, s)
-  FLASH_DISPATCH(DQ);
+  FLASH_DISPATCH(DQ, DQ);
 #undef DQ
 }
 
@@ -235,7 +237,11 @@ int flash_bwd_dkv(const void* q, const void* k, const void* v,
 #define DKV(T, D)                                                           \
   launch_bwd<T, D, false>(q, k, v, dout, l, dl, nullptr, dk, dv, bh, t,     \
                           causal, use_exp2, scale, s)
-  FLASH_DISPATCH(DKV);
+#define DKV_WGMMA(T, D)                                                     \
+  flash_wgmma::launch_bwd<D, false>(q, k, v, dout, l, dl, nullptr, dk, dv,  \
+                                    bh, t, causal, use_exp2, scale, s)
+  FLASH_DISPATCH(DKV_WGMMA, DKV);
+#undef DKV_WGMMA
 #undef DKV
 }
 

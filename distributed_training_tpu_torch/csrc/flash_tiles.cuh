@@ -1,6 +1,8 @@
-// Tile helpers of the flash-attention kernels, and the backward's k-tile
-// loop, shared by flash_attention.cu (K2, K3) and flash_attention_split.cu
-// (K4a, K4b).
+// Tile helpers of the flash-attention kernels on CUDA cores, and the
+// backward's k-tile loop, shared by flash_attention.cu (K2, K3) and
+// flash_attention_split.cu (K4a, K4b). They run every float32 instantiation
+// and K4a in bfloat16; the bfloat16 K2, K3 and K4b run on the tensor cores
+// (flash_wgmma.cuh).
 //
 // Layout common to all of them: one block of 256 threads (16 x 16) per
 // (bh, 64-row tile); tiles of 64 x D live in shared memory as float32 rows
@@ -365,17 +367,19 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
 
 }  // namespace flash
 
-// Dispatch on the element type and head dim: RUN(T, D) for T float32
-// (is_bf16 = 0) or bfloat16, D 32, 64 or 128; anything else is refused.
-// It returns from the enclosing function on every path.
-#define FLASH_DISPATCH(RUN)                        \
-  if (is_bf16) {                                   \
-    if (d == 32) return RUN(__nv_bfloat16, 32);    \
-    if (d == 64) return RUN(__nv_bfloat16, 64);    \
-    if (d == 128) return RUN(__nv_bfloat16, 128);  \
-  } else {                                         \
-    if (d == 32) return RUN(float, 32);            \
-    if (d == 64) return RUN(float, 64);            \
-    if (d == 128) return RUN(float, 128);          \
-  }                                                \
+// Dispatch on the element type and head dim: BF16(T, D) for bfloat16
+// (is_bf16 = 1), F32(T, D) for float32, D 32, 64 or 128; anything else is
+// refused. It returns from the enclosing function on every path. The flash
+// kernels send bf16 to the tensor-core tiles of flash_wgmma.cuh and float32
+// to the CUDA-core loops above.
+#define FLASH_DISPATCH(BF16, F32)                   \
+  if (is_bf16) {                                    \
+    if (d == 32) return BF16(__nv_bfloat16, 32);    \
+    if (d == 64) return BF16(__nv_bfloat16, 64);    \
+    if (d == 128) return BF16(__nv_bfloat16, 128);  \
+  } else {                                          \
+    if (d == 32) return F32(float, 32);             \
+    if (d == 64) return F32(float, 64);             \
+    if (d == 128) return F32(float, 128);           \
+  }                                                 \
   return (int)cudaErrorInvalidValue

@@ -1,0 +1,757 @@
+// bf16 flash-attention tiles on Hopper's tensor cores (sm_90a): the forward
+// (K2) and the backward's k-tile loop (K3 with dQ, K4b without), included
+// by flash_attention.cu and flash_attention_split.cu. float32 inputs keep
+// the CUDA-core loops of flash_tiles.cuh: on the tensor cores they would
+// run as TF32, which cannot hold the float32 limit.
+//
+// Design, one warpgroup (128 threads) per block, one 64-row tile a block:
+//   - Tiles stay bf16 in shared memory in the layout wgmma reads: rows of
+//     a [64, D] tile in column blocks of 64 values (128 bytes, the row of
+//     the 128-byte swizzle; D 128 is two such blocks), or at D 32 rows of
+//     64 bytes under the 64-byte swizzle. Each 16-byte chunk of a row sits
+//     at its index XOR the row's (Tile::offset), so the wgmma reads and the
+//     per-thread stores below hit distinct banks.
+//   - Every tile product is wgmma.mma_async with float32 accumulators in
+//     registers. Forward: S = Q K^T (A = Q, B = K, both K-major), then
+//     O += P V with A = P from registers (the S accumulator rounded to
+//     bf16 in place: its fragment is the A fragment of the next product)
+//     and B = V MN-major (the transpose bit). Backward, per live q tile:
+//     S^T = K Q^T and dP^T = V dO^T; dV += P^T dO and dK += dS^T Q with A
+//     from registers; dQ = dS K with A = dS^T written once to shared
+//     memory and read transposed, B = K transposed.
+//   - Loads are cp.async, 16 bytes a thread into the swizzled addresses,
+//     double-buffered: the next K/V tile (forward) or Q/dO tile with its
+//     lse and delta (backward) is in flight while the current one's
+//     products run. cp.async and not TMA: its zero fill (a source size of
+//     0) reads rows past T as zeros for any T and any BH without a tensor
+//     map per call, and a block's 128 threads issue a tile in 2-8 copies
+//     each. A cp.async write is a generic-proxy write, so each thread
+//     fences to the async proxy before the barrier that precedes wgmma.
+//   - Only the diagonal tile (causal) and a ragged tile (T not a multiple
+//     of 64) compute the mask.
+//   - dQ goes into the caller's zeroed float32 buffer by vector reductions
+//     (atomicAdd on float4, red.global.add.v4.f32 on sm_90), after one
+//     shuffle that gives each lane four consecutive values of a row: a
+//     quarter of the atomics of the scalar form.
+// Numerics as flash_tiles.cuh: scores and products accumulate in float32,
+// masked scores are -1e30, p is rounded to bf16 before it multiplies V or
+// dO and dS before it multiplies Q or K, a row with l = 0 writes 0 and
+// lse = m + log(max(l, 1e-30)); use_exp2 branches once per tile.
+
+#pragma once
+
+#include "flash_tiles.cuh"
+
+namespace flash_wgmma {
+
+using bf16 = __nv_bfloat16;
+using flash::kLog2e;
+using flash::kNegInf;
+using flash::softmax_exp;
+
+constexpr int kRows = 64;      // rows of every tile: queries or keys
+constexpr int kThreads = 128;  // one warpgroup
+
+// ------------------------------------------------------------ PTX wrappers
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared; src_bytes 0 writes zeros and reads
+// nothing.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Generic-proxy writes to shared memory (cp.async, st.shared) made visible
+// to the async proxy that wgmma reads through.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void st_shared(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving reads or writes of registers that an
+// asynchronous wgmma owns across its issue or its wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int N, int M>
+__device__ __forceinline__ void fence_regs(float (&r)[N][M]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) fence_regs(r[i]);
+}
+
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// Two float32 as a bf16 pair, the first in the low half (round to nearest).
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// A wgmma shared-memory descriptor: start address, leading and stride byte
+// offsets (16-byte units) and the swizzle (1: 128 bytes, 2: 64 bytes).
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, uint64_t swizzle) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (swizzle << 62);
+}
+
+// ------------------------------------------------------------ wgmma
+
+// D (64 x 64, float32) += A (64 x 16) * B (16 x 64), both bf16 in shared
+// memory through their descriptors; kTA / kTB: 0 K-major, 1 MN-major.
+template <int kTA, int kTB>
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(kTA), "n"(kTB));
+}
+
+// D (64 x 32, float32) += A (64 x 16) * B (16 x 32), both bf16 in shared
+// memory through their descriptors; kTA / kTB: 0 K-major, 1 MN-major.
+template <int kTA, int kTB>
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, %19, %20;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(kTA), "n"(kTB));
+}
+
+// D (64 x 64, float32) += A (64 x 16, bf16 pairs in registers) * B (16 x
+// 64, bf16 in shared memory); kTB: 0 K-major, 1 MN-major.
+template <int kTB>
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate),
+        "n"(kTB));
+}
+
+// D (64 x 32, float32) += A (64 x 16, bf16 pairs in registers) * B (16 x
+// 32, bf16 in shared memory); kTB: 0 K-major, 1 MN-major.
+template <int kTB>
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4],
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate),
+        "n"(kTB));
+}
+
+
+// The products at a tile's column-block width: n64, or n32 at D 32.
+template <int N, int kTA, int kTB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  if constexpr (N == 64)
+    wgmma_ss_n64<kTA, kTB>(d, da, db, accumulate);
+  else
+    wgmma_ss_n32<kTA, kTB>(d, da, db, accumulate);
+}
+
+template <int N, int kTB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t db,
+                                         int accumulate) {
+  if constexpr (N == 64)
+    wgmma_rs_n64<kTB>(d, a, db, accumulate);
+  else
+    wgmma_rs_n32<kTB>(d, a, db, accumulate);
+}
+
+// --------------------------------------------------------- tiles and loads
+
+// A [64, D] bf16 tile in shared memory, 1024-byte aligned: kBlocks column
+// blocks of kCols values, each 64 rows of kRowBytes, swizzled.
+template <int D>
+struct Tile {
+  static constexpr int kCols = D < 64 ? D : 64;
+  static constexpr int kBlocks = D / kCols;
+  static constexpr int kRowBytes = kCols * 2;  // 128, or 64 at D 32
+  static constexpr int kBlockBytes = kRows * kRowBytes;
+  static constexpr int kBytes = kBlocks * kBlockBytes;
+  static constexpr uint64_t kSwizzle = kRowBytes == 128 ? 1 : 2;
+  // The hardware XORs bits 4-6 (128-byte swizzle) or 4-5 (64-byte) of an
+  // address with bits 7-9 (or 7-8).
+  static constexpr uint32_t kSwizzleMask = kRowBytes == 128 ? 0x70 : 0x30;
+  // 8 rows: the stride between the 8-row groups of the swizzle atom.
+  static constexpr uint32_t kGroupBytes = 8 * kRowBytes;
+
+  // Byte offset of element (r, c); c even.
+  static __device__ __forceinline__ uint32_t offset(int r, int c) {
+    const uint32_t off =
+        (c / kCols) * kBlockBytes + r * kRowBytes + (c % kCols) * 2;
+    return off ^ ((off >> 3) & kSwizzleMask);
+  }
+
+  // The tile as a K-major operand (rows are M or N, columns K): the 16
+  // columns of k step kk.
+  static __device__ __forceinline__ uint64_t k_major(uint32_t base, int kk) {
+    const int c = kk * 16;
+    return make_desc(base + (c / kCols) * kBlockBytes + (c % kCols) * 2, 16,
+                     kGroupBytes, kSwizzle);
+  }
+
+  // The tile as an MN-major operand (rows are K, columns N): rows
+  // [16 kk, 16 kk + 16) of column block b. N is one swizzle atom wide, so
+  // the only stride the product walks is the one between 8-row groups;
+  // both offsets carry it.
+  static __device__ __forceinline__ uint64_t mn_major(uint32_t base, int b,
+                                                     int kk) {
+    return make_desc(base + b * kBlockBytes + kk * 16 * kRowBytes,
+                     kGroupBytes, kGroupBytes, kSwizzle);
+  }
+};
+
+// Rows [row0, row0 + 64) of a [t, D] matrix into a tile, asynchronously;
+// rows at or past t read as zeros.
+template <int D>
+__device__ __forceinline__ void load_tile(uint32_t tile, const bf16* g,
+                                          int row0, int t, int tid) {
+  constexpr int kChunksPerRow = D / 8;
+#pragma unroll
+  for (int i = tid; i < kRows * kChunksPerRow; i += kThreads) {
+    const int r = i / kChunksPerRow;
+    const int c = (i % kChunksPerRow) * 8;
+    const bool in = row0 + r < t;
+    cp_async16(tile + Tile<D>::offset(r, c),
+               g + (size_t)(in ? row0 + r : 0) * D + c, in ? 16 : 0);
+  }
+}
+
+// lse and delta of the query rows [q0, q0 + 64), asynchronously; rows at or
+// past t read as zeros.
+__device__ __forceinline__ void load_row_stats(uint32_t lse_s, uint32_t delta_s,
+                                               const float* lse,
+                                               const float* delta,
+                                               size_t row_base, int q0, int t,
+                                               int tid) {
+  const int i = tid % kRows;
+  const bool in = q0 + i < t;
+  const size_t at = row_base + (in ? q0 + i : 0);
+  if (tid < kRows)
+    cp_async4(lse_s + 4 * i, lse + at, in ? 4 : 0);
+  else
+    cp_async4(delta_s + 4 * i, delta + at, in ? 4 : 0);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Accumulator fragments (64 x N float32, N / 2 a thread): register i of a
+// thread holds row r0 + 8 ((i >> 1) & 1) and column 8 (i / 4) + cq + (i &
+// 1), r0 = 16 warp + lane / 4, cq = 2 (lane % 4). The bf16 A fragment of
+// k step kk of a product over those columns is registers 8 kk .. 8 kk + 7
+// taken in pairs, so an accumulator becomes an A operand in place.
+__device__ __forceinline__ void to_a_fragments(const float (&s)[32],
+                                               uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      a[kk][j] = pack_bf16(s[8 * kk + 2 * j], s[8 * kk + 2 * j + 1]);
+}
+
+// ------------------------------------------------------------------ forward
+
+// One k tile's step of the online softmax on the S accumulator: scale and
+// (edge tiles only) mask, running max m and this thread's part of the sum
+// l for its two rows, O rescaled, P rounded into A fragments.
+template <bool kExp2, int D>
+__device__ __forceinline__ void fwd_softmax(
+    float (&s)[32], float (&m)[2], float (&l)[2],
+    float (&o)[Tile<D>::kBlocks][Tile<D>::kCols / 2], uint32_t (&p)[4][4],
+    bool edge, int row0, int col0, int t, int causal, float sscale) {
+  float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int h = (i >> 1) & 1;
+    float x = s[i] * sscale;
+    if (edge) {
+      const int col = col0 + 8 * (i / 4) + (i & 1);
+      if (col >= t || (causal && col > row0 + 8 * h)) x = kNegInf;
+    }
+    s[i] = x;
+    mx[h] = fmaxf(mx[h], x);
+  }
+  float corr[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float m_new = fmaxf(m[h], quad_max(mx[h]));
+    corr[h] = softmax_exp<kExp2>(m[h] - m_new);
+    m[h] = m_new;
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int h = (i >> 1) & 1;
+    s[i] = softmax_exp<kExp2>(s[i] - m[h]);
+    rs[h] += s[i];
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) l[h] = l[h] * corr[h] + rs[h];
+#pragma unroll
+  for (int b = 0; b < Tile<D>::kBlocks; ++b)
+#pragma unroll
+    for (int i = 0; i < Tile<D>::kCols / 2; ++i) o[b][i] *= corr[(i >> 1) & 1];
+  to_a_fragments(s, p);
+}
+
+// Shared memory: Q, then two stages of (K, V); 1024 bytes of alignment.
+template <int D>
+constexpr size_t fwd_smem_bytes() {
+  return 5 * (size_t)Tile<D>::kBytes + 1024;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+           const bf16* __restrict__ v, bf16* __restrict__ out,
+           float* __restrict__ lse, int bh_count, int t, int causal,
+           int use_exp2, float scale) {
+  using TL = Tile<D>;
+  extern __shared__ uint8_t smem[];
+  const uint32_t qs = (smem_u32(smem) + 1023) & ~1023u;
+  auto ks = [&](int st) { return qs + (1 + 2 * st) * TL::kBytes; };
+  auto vs = [&](int st) { return qs + (2 + 2 * st) * TL::kBytes; };
+
+  const int nq = (t + kRows - 1) / kRows;
+  const int bh = blockIdx.x % bh_count;
+  const int q0 = (nq - 1 - blockIdx.x / bh_count) * kRows;  // heaviest first
+  const size_t base = (size_t)bh * t * D;
+  const int tid = threadIdx.x;
+  const int r0 = 16 * (tid / 32) + (tid % 32) / 4;  // rows r0, r0 + 8
+  const int cq = 2 * (tid % 4);
+  const float sscale = use_exp2 ? scale * kLog2e : scale;
+  const int k_end = causal ? min(t, q0 + kRows) : t;
+  const int nk = (k_end + kRows - 1) / kRows;
+
+  load_tile<D>(qs, q + base, q0, t, tid);
+  load_tile<D>(ks(0), k + base, 0, t, tid);
+  load_tile<D>(vs(0), v + base, 0, t, tid);
+  cp_async_commit();
+
+  float o[TL::kBlocks][TL::kCols / 2];
+#pragma unroll
+  for (int b = 0; b < TL::kBlocks; ++b)
+#pragma unroll
+    for (int i = 0; i < TL::kCols / 2; ++i) o[b][i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  for (int j = 0; j < nk; ++j) {
+    const int k0 = j * kRows;
+    __syncthreads();  // tile j - 1's products are done: its stage is free
+    if (j + 1 < nk) {
+      load_tile<D>(ks((j + 1) & 1), k + base, k0 + kRows, t, tid);
+      load_tile<D>(vs((j + 1) & 1), v + base, k0 + kRows, t, tid);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // tile j (and Q) landed
+    fence_proxy_async();
+    __syncthreads();
+
+    float s[32] = {};
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64<0, 0>(s, TL::k_major(qs, kk), TL::k_major(ks(j & 1), kk),
+                         kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+
+    const bool edge = (causal && k0 == q0) || k0 + kRows > t;
+    uint32_t p[4][4];
+    if (use_exp2)
+      fwd_softmax<true, D>(s, m, l, o, p, edge, q0 + r0, k0 + cq, t, causal,
+                           sscale);
+    else
+      fwd_softmax<false, D>(s, m, l, o, p, edge, q0 + r0, k0 + cq, t, causal,
+                            sscale);
+
+    fence_regs(o);
+    wgmma_fence();
+#pragma unroll
+    for (int b = 0; b < TL::kBlocks; ++b)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs<TL::kCols, 1>(o[b], p[kk], TL::mn_major(vs(j & 1), b, kk), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+    fence_regs(p);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] = quad_sum(l[h]);
+    const int row = q0 + r0 + 8 * h;
+    if (row >= t) continue;
+    const float inv = l[h] > 0.f ? 1.f / l[h] : 0.f;
+#pragma unroll
+    for (int b = 0; b < TL::kBlocks; ++b)
+#pragma unroll
+      for (int i = 2 * h; i < TL::kCols / 2; i += 4) {
+        const int col = b * TL::kCols + 8 * (i / 4) + cq;
+        *reinterpret_cast<uint32_t*>(out + base + (size_t)row * D + col) =
+            pack_bf16(o[b][i] * inv, o[b][i + 1] * inv);
+      }
+    if (cq == 0) {
+      const float lm = fmaxf(l[h], 1e-30f);
+      lse[(size_t)bh * t + row] =
+          use_exp2 ? (m[h] + log2f(lm)) / kLog2e : m[h] + logf(lm);
+    }
+  }
+}
+
+template <int D>
+int launch_fwd(const void* q, const void* k, const void* v, void* out,
+               float* lse, int bh, int t, int causal, int use_exp2,
+               float scale, cudaStream_t stream) {
+  constexpr size_t smem = fwd_smem_bytes<D>();
+  unsigned blocks;
+  if (int e = flash::blocks_for(t, kRows, bh, &blocks)) return e;
+  cudaError_t err = cudaFuncSetAttribute(
+      fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  fwd_kernel<D><<<blocks, kThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, bh, t, causal,
+      use_exp2, scale);
+  return (int)cudaGetLastError();
+}
+
+// ----------------------------------------------------------------- backward
+
+// p^T (rounded) and dS^T (rounded) of one (k tile, q tile) pair as A
+// fragments, from the S^T and dP^T accumulators (keys by rows, queries by
+// columns). Edge tiles zero p outside the mask, rows past t included.
+template <bool kExp2>
+__device__ __forceinline__ void bwd_probs(float (&st)[32], float (&dpt)[32],
+                                          const float* lse_s,
+                                          const float* delta_s,
+                                          uint32_t (&pt)[4][4],
+                                          uint32_t (&dst)[4][4], bool edge,
+                                          int key0, int q0, int cq, int t,
+                                          int causal, float sscale) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int ql = 8 * (i / 4) + cq + (i & 1);
+    const float l = kExp2 ? lse_s[ql] * kLog2e : lse_s[ql];
+    float p = softmax_exp<kExp2>(st[i] * sscale - l);
+    if (edge) {
+      const int key = key0 + 8 * ((i >> 1) & 1);
+      const int row = q0 + ql;
+      if (row >= t || key >= t || (causal && key > row)) p = 0.f;
+    }
+    dpt[i] = p * (dpt[i] - delta_s[ql]);
+    st[i] = p;
+  }
+  to_a_fragments(st, pt);
+  to_a_fragments(dpt, dst);
+}
+
+// Shared memory: K, V, two stages of (Q, dO), with kDq the dS^T tile, then
+// two stages of (lse, delta); 1024 bytes of alignment.
+template <int D, bool kDq>
+constexpr size_t bwd_smem_bytes() {
+  return 6 * (size_t)Tile<D>::kBytes + (kDq ? Tile<64>::kBytes : 0) +
+         4 * kRows * sizeof(float) + 1024;
+}
+
+// dK and dV of one 64-key tile over the live q tiles, in registers, written
+// once. With kDq (K3) each q tile's dQ = dS K is added into dq_acc by
+// vector reductions; without it (K4b) dq_acc is not touched.
+template <int D, bool kDq>
+__global__ void __launch_bounds__(kThreads)
+bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+           const bf16* __restrict__ v, const bf16* __restrict__ dout,
+           const float* __restrict__ lse, const float* __restrict__ delta,
+           float* __restrict__ dq_acc, bf16* __restrict__ dk,
+           bf16* __restrict__ dv, int bh_count, int t, int causal,
+           int use_exp2, float scale) {
+  using TL = Tile<D>;
+  extern __shared__ uint8_t smem[];
+  const uint32_t ks = (smem_u32(smem) + 1023) & ~1023u;
+  const uint32_t vs = ks + TL::kBytes;
+  auto qs = [&](int st) { return ks + (2 + 2 * st) * TL::kBytes; };
+  auto dos = [&](int st) { return ks + (3 + 2 * st) * TL::kBytes; };
+  const uint32_t dss = ks + 6 * TL::kBytes;  // dS^T [key][query], kDq only
+  const uint32_t stats = dss + (kDq ? Tile<64>::kBytes : 0);
+  // lse of stage st at stats + 512 st, delta 256 bytes after it.
+  const float* stats_f =
+      reinterpret_cast<const float*>(smem + (stats - smem_u32(smem)));
+
+  const int bh = blockIdx.x % bh_count;
+  const int k0 = (blockIdx.x / bh_count) * kRows;  // heaviest (k0 = 0) first
+  const size_t base = (size_t)bh * t * D;
+  const size_t row_base = (size_t)bh * t;
+  const int tid = threadIdx.x;
+  const int r0 = 16 * (tid / 32) + (tid % 32) / 4;  // rows r0, r0 + 8
+  const int cq = 2 * (tid % 4);
+  const float sscale = use_exp2 ? scale * kLog2e : scale;
+  const int q_start = causal ? k0 : 0;
+  const int n_q = (t - q_start + kRows - 1) / kRows;
+
+  load_tile<D>(ks, k + base, k0, t, tid);
+  load_tile<D>(vs, v + base, k0, t, tid);
+  load_tile<D>(qs(0), q + base, q_start, t, tid);
+  load_tile<D>(dos(0), dout + base, q_start, t, tid);
+  load_row_stats(stats, stats + 256, lse, delta, row_base, q_start, t, tid);
+  cp_async_commit();
+
+  float dk_acc[TL::kBlocks][TL::kCols / 2], dv_acc[TL::kBlocks][TL::kCols / 2];
+#pragma unroll
+  for (int b = 0; b < TL::kBlocks; ++b)
+#pragma unroll
+    for (int i = 0; i < TL::kCols / 2; ++i) dk_acc[b][i] = dv_acc[b][i] = 0.f;
+
+  for (int it = 0; it < n_q; ++it) {
+    const int q0 = q_start + it * kRows;
+    const int st = it & 1;
+    __syncthreads();  // tile it - 1's products are done: its stage is free
+    if (it + 1 < n_q) {
+      const int nx = st ^ 1;
+      load_tile<D>(qs(nx), q + base, q0 + kRows, t, tid);
+      load_tile<D>(dos(nx), dout + base, q0 + kRows, t, tid);
+      load_row_stats(stats + 512 * nx, stats + 512 * nx + 256, lse, delta,
+                     row_base, q0 + kRows, t, tid);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // tile it landed
+    fence_proxy_async();
+    __syncthreads();
+
+    float s_t[32] = {}, dp_t[32] = {};
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64<0, 0>(s_t, TL::k_major(ks, kk), TL::k_major(qs(st), kk),
+                         kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64<0, 0>(dp_t, TL::k_major(vs, kk), TL::k_major(dos(st), kk),
+                         kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s_t);
+    fence_regs(dp_t);
+
+    const bool edge =
+        (causal && q0 == k0) || q0 + kRows > t || k0 + kRows > t;
+    const float* lse_s = stats_f + 128 * st;
+    uint32_t p_t[4][4], ds_t[4][4];
+    if (use_exp2)
+      bwd_probs<true>(s_t, dp_t, lse_s, lse_s + kRows, p_t, ds_t, edge,
+                      k0 + r0, q0, cq, t, causal, sscale);
+    else
+      bwd_probs<false>(s_t, dp_t, lse_s, lse_s + kRows, p_t, ds_t, edge,
+                       k0 + r0, q0, cq, t, causal, sscale);
+    if constexpr (kDq) {
+      // dS^T into its tile: fragment j of k step kk is row r0 + 8 (j & 1),
+      // column 16 kk + 8 (j >> 1) + cq.
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          st_shared(dss + Tile<64>::offset(r0 + 8 * (j & 1),
+                                           16 * kk + 8 * (j >> 1) + cq),
+                    ds_t[kk][j]);
+    }
+
+    fence_regs(dk_acc);
+    fence_regs(dv_acc);
+    wgmma_fence();
+#pragma unroll
+    for (int b = 0; b < TL::kBlocks; ++b)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs<TL::kCols, 1>(dv_acc[b], p_t[kk],
+                               TL::mn_major(dos(st), b, kk), 1);
+#pragma unroll
+    for (int b = 0; b < TL::kBlocks; ++b)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs<TL::kCols, 1>(dk_acc[b], ds_t[kk],
+                               TL::mn_major(qs(st), b, kk), 1);
+    wgmma_commit();
+
+    if constexpr (kDq) {
+      fence_proxy_async();
+      __syncthreads();  // the whole dS^T tile is written
+      // dQ = dS K a column block at a time (fewer live registers at D 128),
+      // rows q0 + r0 (+ 8), added into dq_acc.
+#pragma unroll
+      for (int b = 0; b < TL::kBlocks; ++b) {
+        float dq[TL::kCols / 2] = {};
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss<TL::kCols, 1, 1>(dq, Tile<64>::mn_major(dss, 0, kk),
+                                    TL::mn_major(ks, b, kk), kk > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dq);
+        // Lanes 2j and 2j + 1 hold columns c, c + 1 and c + 2, c + 3 of
+        // rows r0 and r0 + 8: they swap halves so that each adds four
+        // consecutive values of one row, the even lane row r0, the odd one
+        // row r0 + 8.
+        const bool odd = tid & 1;
+        const int rl = r0 + (odd ? 8 : 0);
+#pragma unroll
+        for (int i = 0; i < TL::kCols / 2; i += 4) {
+          const float x = __shfl_xor_sync(0xffffffffu, odd ? dq[i] : dq[i + 2], 1);
+          const float y = __shfl_xor_sync(0xffffffffu, odd ? dq[i + 1] : dq[i + 3], 1);
+          const float4 add =
+              odd ? make_float4(scale * x, scale * y, scale * dq[i + 2],
+                                scale * dq[i + 3])
+                  : make_float4(scale * dq[i], scale * dq[i + 1], scale * x,
+                                scale * y);
+          const int col = b * TL::kCols + 8 * (i / 4) + cq - (odd ? 2 : 0);
+          if (q0 + rl < t)
+            atomicAdd(reinterpret_cast<float4*>(dq_acc + base +
+                                                (size_t)(q0 + rl) * D + col),
+                      add);
+        }
+      }
+    } else {
+      wgmma_wait<0>();
+    }
+    fence_regs(dk_acc);
+    fence_regs(dv_acc);
+    fence_regs(p_t);
+    fence_regs(ds_t);
+  }
+
+#pragma unroll
+  for (int b = 0; b < TL::kBlocks; ++b)
+#pragma unroll
+    for (int i = 0; i < TL::kCols / 2; i += 2) {
+      const int key = k0 + r0 + 8 * ((i >> 1) & 1);
+      if (key >= t) continue;
+      const size_t off = base + (size_t)key * D + b * TL::kCols + 8 * (i / 4) + cq;
+      *reinterpret_cast<uint32_t*>(dk + off) =
+          pack_bf16(scale * dk_acc[b][i], scale * dk_acc[b][i + 1]);
+      *reinterpret_cast<uint32_t*>(dv + off) =
+          pack_bf16(dv_acc[b][i], dv_acc[b][i + 1]);
+    }
+}
+
+template <int D, bool kDq>
+int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
+               const float* lse, const float* delta, float* dq_acc, void* dk,
+               void* dv, int bh, int t, int causal, int use_exp2, float scale,
+               cudaStream_t stream) {
+  constexpr size_t smem = bwd_smem_bytes<D, kDq>();
+  unsigned blocks;
+  if (int e = flash::blocks_for(t, kRows, bh, &blocks)) return e;
+  cudaError_t err = cudaFuncSetAttribute(
+      bwd_kernel<D, kDq>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  bwd_kernel<D, kDq><<<blocks, kThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, delta,
+      dq_acc, static_cast<bf16*>(dk), static_cast<bf16*>(dv), bh, t, causal,
+      use_exp2, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace flash_wgmma

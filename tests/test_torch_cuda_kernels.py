@@ -82,6 +82,9 @@ def test_kernel_refuses_what_it_cannot_take(require_cuda):
 
 # -- flash attention (K2 forward, K3 backward) --------------------------------
 #
+# bfloat16 runs on the tensor-core kernels (csrc/flash_wgmma.cuh), float32
+# on the CUDA-core loops (csrc/flash_tiles.cuh); both meet the same limits.
+#
 # Tolerances, row by row (a row is one query's out or dq, one key's dk or
 # dv): the largest error in the row over the RMS of the plain version's
 # row, that RMS held at least a tenth of the whole tensor's (causal row 0
@@ -144,6 +147,83 @@ def test_flash_kernels_match_reference(require_cuda, dtype, causal, bh, t, d):
     assert _rel_err(lse, want_lse) < 1e-5
     for name, a, b in zip(("dq", "dk", "dv"), grads, want):
         assert a.dtype == dtype and a.shape == b.shape
+        assert _row_err(a, b) < bwd_tol, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("t", [1, 7, 65, 1000])
+def test_flash_bf16_tensor_core_tiles_at_ragged_lengths(require_cuda, causal, d, t):
+    """bf16 goes to the tensor-core kernels (wgmma tiles): K2, K3 and K4b
+    against the plain versions at lengths that are not multiples of the
+    64-row tile, T 1 included, under FLASH_TOL. A non-zero lse cotangent
+    keeps dq and dk well defined at T 1, where without it dS = p (dp −
+    delta) is 0 up to rounding and the comparison would be of noise."""
+    from distributed_training_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, g = _attn_inputs((3, t, d), torch.bfloat16, seed=6)
+    g_lse = torch.randn((3, t), device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(7))
+    n = (fa.flash_fwd.launches, fa.flash_bwd.launches, fa.flash_bwd_dkv.launches)
+    out, lse = fa.flash_fwd(q, k, v, causal=causal)
+    grads = fa.flash_bwd(q, k, v, out, lse, g, g_lse, causal=causal)
+    dk4, dv4 = fa.flash_bwd_dkv(q, k, v, g, lse, fa._delta(g, out, g_lse), causal=causal)
+    torch.cuda.synchronize()
+    assert (fa.flash_fwd.launches, fa.flash_bwd.launches,
+            fa.flash_bwd_dkv.launches) == (n[0] + 1, n[1] + 1, n[2] + 1)
+    want_out, want_lse = fa.flash_attention_reference(q, k, v, causal=causal)
+    want = fa.flash_attention_bwd_reference(q, k, v, out, lse, g, g_lse, causal=causal)
+    fwd_tol, bwd_tol = FLASH_TOL[torch.bfloat16]
+    assert _row_err(out, want_out) < fwd_tol
+    assert _rel_err(lse, want_lse) < 1e-5
+    for name, a, b in zip(("dq", "dk", "dv", "K4b dk", "K4b dv"),
+                          (*grads, dk4, dv4), (*want, *want[1:])):
+        assert a.dtype == torch.bfloat16 and a.shape == b.shape
+        assert _row_err(a, b) < bwd_tol, name
+
+
+@pytest.mark.cuda
+def test_flash_bwd_repeatable_on_the_card(require_cuda):
+    """Two K3 launches on the same bf16 inputs: dk and dv are written once
+    from registers, so they repeat bit for bit; dq's k-tile parts are
+    added with atomics in an order that changes, so the two agree within
+    the bf16 limit."""
+    from distributed_training_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, g = _attn_inputs((8, 1024, 64), torch.bfloat16, seed=8)
+    out, lse = fa.flash_fwd(q, k, v, causal=True)
+    first = fa.flash_bwd(q, k, v, out, lse, g, causal=True)
+    second = fa.flash_bwd(q, k, v, out, lse, g, causal=True)
+    torch.cuda.synchronize()
+    assert _row_err(first[0], second[0]) < FLASH_TOL[torch.bfloat16][1]
+    assert torch.equal(first[1], second[1]) and torch.equal(first[2], second[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("bh,t,d", [(3, 200, 32), (2, 1000, 64), (2, 65, 128)])
+def test_flash_float32_route_keeps_its_limit(require_cuda, causal, bh, t, d):
+    """float32 stays on the CUDA-core loops: K2, K3 and K4b against the
+    plain versions within the float32 limit (3e-5 by row), with a non-zero
+    lse cotangent."""
+    from distributed_training_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, g = _attn_inputs((bh, t, d), torch.float32, seed=9)
+    g_lse = torch.randn((bh, t), device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(10))
+    out, lse = fa.flash_fwd(q, k, v, causal=causal)
+    grads = fa.flash_bwd(q, k, v, out, lse, g, g_lse, causal=causal)
+    dk4, dv4 = fa.flash_bwd_dkv(q, k, v, g, lse, fa._delta(g, out, g_lse), causal=causal)
+    want_out, want_lse = fa.flash_attention_reference(q, k, v, causal=causal)
+    want = fa.flash_attention_bwd_reference(q, k, v, out, lse, g, g_lse, causal=causal)
+    fwd_tol, bwd_tol = FLASH_TOL[torch.float32]
+    assert fwd_tol == bwd_tol == 3e-5
+    assert _row_err(out, want_out) < fwd_tol
+    assert _rel_err(lse, want_lse) < 1e-5
+    for name, a, b in zip(("dq", "dk", "dv", "K4b dk", "K4b dv"),
+                          (*grads, dk4, dv4), (*want, *want[1:])):
+        assert a.dtype == torch.float32
         assert _row_err(a, b) < bwd_tol, name
 
 
