@@ -7,8 +7,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
 1. the card's name and power limit (``nvidia-smi``);
 2. build every kernel in ``distributed_training_tpu_torch/csrc`` with
    ``nvcc`` (one process per source, in parallel), and print ptxas's
-   registers and spills and the dynamic shared memory of each bf16
-   tensor-core instantiation of K2, K3 and K4b (a spill at d 64 fails);
+   registers and spills, the dynamic shared memory and the count of HGMMA
+   instructions in the SASS (``cuobjdump``) of each bf16 tensor-core
+   instantiation of K2, K3, K4a, K4b and K5 (no HGMMA, or a spill at d 64
+   or in K5, fails);
 3. kernel phase: the fused-Adam kernel against its plain PyTorch version
    on all 62 ResNet-18 parameter shapes for 3 steps, and its time beside
    the plain version's, ``torch.optim.Adam(fused=True)``'s (a yardstick
@@ -30,8 +32,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
    GPT-2-small shape (BH 192, T 1024, d 64, bf16, causal) beside their
    plain versions, ``F.scaled_dot_product_attention`` forward and backward
    (yardsticks only; the port never calls it) and the least time the card
-   could take, with TFLOP/s, the share of the bound, and for K2, K3 and
-   K4b their times before the tensor-core redesign;
+   could take, with TFLOP/s, the share of the bound, and their times
+   before the tensor-core redesign; then at every shape of
+   ``flash_kernel_bench`` the split pair's backward beside K3's;
 7. LM phase: ``LMTrainer.fit()`` on GPT-2-small at full width (12 layers,
    hidden 768, 12 heads, vocab 50304, T 1024, batch 16, bf16,
    ``attn_impl="flash"``, ``hybrid_adam``), 10 steps and an eval of 2
@@ -55,8 +58,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
    ``conv_fusion_probe.main`` over s0, s1, s2; each run starts with every
    kernel count at 0, each must verify and launch its kernels, and both
    switches must be back to False after them;
-11. a ``{"kernels": [...]}`` line (six kernels, each with its launches by
-   path), then the card line, and last ``{"ok": true, "device": {...}}``.
+11. K5's time at each probe shape beside its yardsticks and its time
+   before the tensor-core redesign, a ``{"kernels": [...]}`` line (six
+   kernels, each with its launches by path), then the card line, and last
+   ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits with code 2 before doing anything.
 """
@@ -556,9 +561,7 @@ def flash_kernel_phase() -> dict:
         lib = sdpa_fwd if name == "flash_fwd" else sdpa_bwd
         result[name] = {"max_abs_err": errs[name], "ms": ms[name], "plain_ms": plain[name],
                         "library_ms": lib, "bound_ms": bound, "bound_by": by}
-        before = (f"; before the tensor-core redesign {CUDA_CORE_MS[name]:.4f} ms "
-                  f"(PR 3), {CUDA_CORE_MS[name] / ms[name]:.2f}x" if name in CUDA_CORE_MS
-                  else "")
+        before = _before(name, ms[name])
         print(f"[flash] {name} at BH {bh} T {t} d {d} bf16 causal: ms={ms[name]:.4f} "
               f"plain_ms={plain[name]:.4f} library_ms={lib:.4f} (SDPA) bound_ms="
               f"{bound:.4f} ({nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP; {by}); "
@@ -573,7 +576,43 @@ def flash_kernel_phase() -> dict:
           f"{pair_ms / ms['flash_bwd']:.3f}x K3")
     del q, k, v, g, out, lse, delta, dq, q4, k4, v4, g4, xs, o4
     torch.cuda.empty_cache()
+    result["flash_bwd_dq"]["bench_shapes"] = _split_vs_fused(gen)
     return result
+
+
+def _split_vs_fused(gen) -> dict:
+    """At each ``flash_kernel_bench`` shape (bf16 causal): the backward
+    through K3's wrapper against the split pair through
+    ``flash_bwd_split``, and K4a and K4b alone, in ms; and K4a without the
+    causal mask, which does twice the work with no q tile lighter than
+    another: causal K4a at about half of it shows that the causal
+    imbalance (q tiles see 1 to T / 64 k tiles) costs little."""
+    from distributed_training_tpu_torch.ops import flash_attention as fa
+    from distributed_training_tpu_torch.tools.flash_kernel_bench import SHAPES
+
+    times = {}
+    for key, (_, bh, t, d) in SHAPES.items():
+        q, k, v, g = (_randn(gen, bh, t, d, dtype=torch.bfloat16) for _ in range(4))
+        out, lse = fa.flash_fwd(q, k, v, causal=True)
+        delta = fa._delta(g, out)
+        times[key] = {
+            "K3": cuda_ms(lambda: fa.flash_bwd(q, k, v, out, lse, g, causal=True), 5),
+            "pair": cuda_ms(lambda: fa.flash_bwd_split(q, k, v, out, lse, g, causal=True), 5),
+            "K4a": cuda_ms(lambda: fa.flash_bwd_dq(q, k, v, g, lse, delta, causal=True), 5),
+            "K4b": cuda_ms(lambda: fa.flash_bwd_dkv(q, k, v, g, lse, delta, causal=True), 5)}
+        out, lse = fa.flash_fwd(q, k, v, causal=False)
+        delta = fa._delta(g, out)
+        times[key]["K4a_not_causal"] = cuda_ms(
+            lambda: fa.flash_bwd_dq(q, k, v, g, lse, delta, causal=False), 5)
+        r = times[key]
+        print(f"[flash] backward at the bench's {key} [{bh},{t},{d}] bf16 causal, ms: "
+              f"K3 (wrapper) {r['K3']:.4f}, split pair (flash_bwd_split) {r['pair']:.4f} "
+              f"= {r['pair'] / r['K3']:.3f}x K3; K4a {r['K4a']:.4f}, K4b {r['K4b']:.4f}; "
+              f"K4a not causal {r['K4a_not_causal']:.4f} (causal "
+              f"{r['K4a'] / r['K4a_not_causal']:.3f}x)")
+        del q, k, v, g, out, lse, delta
+    torch.cuda.empty_cache()
+    return times
 
 
 def lm_phase(ckpt_dir: str) -> dict:
@@ -800,52 +839,105 @@ def tools_phase() -> tuple[dict, dict]:
     return launches, results
 
 
-# K2, K3 and K4b at the GPT-2-small shape before their tensor-core
-# redesign: the CUDA-core kernels' times on an H100 80GB HBM3 at 700 W
-# (PERF.md, PR 3's final run of this script).
-CUDA_CORE_MS = {"flash_fwd": 0.9222, "flash_bwd": 3.1057, "flash_bwd_dkv": 2.1614}
+# Each kernel's time on CUDA cores, before its tensor-core redesign, at
+# the path's shape on an H100 80GB HBM3 at 700 W (PERF.md's kernel table):
+# K2, K3, K4a and K4b at the GPT-2-small shape, K5 at the probe's shapes.
+CUDA_CORE_MS = {"flash_fwd": 0.9222, "flash_bwd": 3.1057, "flash_bwd_dkv": 2.1614,
+                "flash_bwd_dq": 1.3209, "conv3x3_stats s0": 1.8435,
+                "conv3x3_stats s1": 2.3699, "conv3x3_stats s2": 2.3936}
+
+
+def _before(name: str, ms: float) -> str:
+    """The time before the tensor-core redesign and the speed-up since."""
+    if name not in CUDA_CORE_MS:
+        return ""
+    old = CUDA_CORE_MS[name]
+    return f"; before the tensor-core redesign {old:.4f} ms, {old / ms:.2f}x"
+
+
+# The bf16 tensor-core kernels, as ptxas and cuobjdump name them: K2's
+# flash_wgmma::fwd_kernel<D>, K3's and K4b's bwd_kernel<D, true / false>,
+# K4a's dq_kernel<D> and K5's conv_wgmma::conv_kernel<NC>. (library, the
+# mangled name's pattern, the kernel's name, the index of its shared-memory
+# query or None for K5's.)
+WGMMA_KERNELS = (
+    ("flash_attention", r"_ZN11flash_wgmma10fwd_kernelILi(\d+)E", "K2 fwd_kernel", 0),
+    ("flash_attention", r"_ZN11flash_wgmma10bwd_kernelILi(\d+)ELb1E", "K3 bwd_kernel(dq)", 1),
+    ("flash_attention_split", r"_ZN11flash_wgmma10bwd_kernelILi(\d+)ELb0E", "K4b bwd_kernel", 2),
+    ("flash_attention_split", r"_ZN11flash_wgmma9dq_kernelILi(\d+)E", "K4a dq_kernel", 3),
+    ("conv3x3_stats", r"_ZN10conv_wgmma11conv_kernelILi(\d+)E", "K5 conv_kernel", None),
+)
+
+
+def _sass_by_function(lib: str) -> dict:
+    """cuobjdump's SASS of one built library, by mangled function name."""
+    import subprocess
+
+    from distributed_training_tpu_torch.ops import cuda_build
+
+    tool = os.path.join(os.path.dirname(cuda_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", cuda_build._target(lib)], check=True,
+                          capture_output=True, text=True).stdout
+    return {part.split(None, 1)[0]: part for part in sass.split("Function : ")[1:]}
 
 
 def wgmma_build_lines() -> None:
-    """ptxas's registers and spills and the launch's dynamic shared memory
-    of each bf16 tensor-core instantiation (flash_wgmma.cuh): K2's
-    ``fwd_kernel<D>``, K3's ``bwd_kernel<D, true>``, K4b's ``bwd_kernel<D,
-    false>``; fails on a spill at d 64, the GPT path."""
+    """Per bf16 tensor-core instantiation: the HGMMA instructions in its
+    SASS and, when this run built the libraries, ptxas's registers and
+    spills, and the launch's dynamic shared memory. Fails unless all 14
+    are there (K2, K3, K4b, K4a at d 32, 64, 128; K5 at 32 and 64 output
+    channels a block), each with HGMMA (the proof that it reaches the
+    tensor cores), and on a spill at d 64 (the GPT path) or in K5."""
     import ctypes
 
+    from distributed_training_tpu_torch.ops import conv3x3_stats as conv
     from distributed_training_tpu_torch.ops import cuda_build
     from distributed_training_tpu_torch.ops import flash_attention as fa
 
-    if "flash_attention" not in cuda_build.build_logs:
-        print("[build] wgmma: the flash libraries were built before this run; "
-              "no ptxas output to read")
-        return
-    lib = fa._lib()
-    lib.flash_wgmma_smem_bytes.restype = ctypes.c_int
-    lib.flash_wgmma_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-    seen = {}
-    for src in ("flash_attention", "flash_attention_split"):
-        log = cuda_build.build_logs.get(src, "")
+    flash = fa._lib()
+    flash.flash_wgmma_smem_bytes.restype = ctypes.c_int
+    flash.flash_wgmma_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib5 = conv._lib()
+    lib5.conv3x3_stats_wgmma_smem_bytes.restype = ctypes.c_int
+    lib5.conv3x3_stats_wgmma_smem_bytes.argtypes = [ctypes.c_int]
+    sass = {lib: _sass_by_function(lib) for lib in {k[0] for k in WGMMA_KERNELS}}
+    ptxas = {}  # mangled name -> ptxas's lines for it, from this run's builds
+    for log in cuda_build.build_logs.values():
         for entry in re.split(r"Compiling entry function", log)[1:]:
-            m = re.match(r" '_ZN11flash_wgmma(\d+)(fwd|bwd)_kernelILi(\d+)E(Lb(\d)E)?",
-                         entry)
+            ptxas[re.match(r" '(\w+)'", entry).group(1)] = entry
+    if not ptxas:
+        print("[build] wgmma: the libraries were built before this run; no ptxas "
+              "output to read (remove distributed_training_tpu_torch/_build for it)")
+    seen = {}
+    for lib, pattern, name, smem_kind in WGMMA_KERNELS:
+        for mangled, code in sass[lib].items():
+            m = re.match(pattern, mangled)
             if not m:
                 continue
-            kind, d = m.group(2), int(m.group(3))
-            which = 0 if kind == "fwd" else (1 if m.group(5) == "1" else 2)
-            name = ("K2 fwd_kernel", "K3 bwd_kernel(dq)", "K4b bwd_kernel")[which]
-            regs = int(re.search(r"Used (\d+) registers", entry).group(1))
-            stores, loads = map(int, re.search(
-                r"(\d+) bytes spill stores, (\d+) bytes spill loads", entry).groups())
-            seen[(which, d)] = stores + loads
-            print(f"[build] wgmma {name} d {d} ({src}): {regs} registers, spill "
-                  f"stores {stores} B, spill loads {loads} B, dynamic shared memory "
-                  f"{lib.flash_wgmma_smem_bytes(which, d)} B")
-    if len(seen) != 9:
-        raise SystemExit(f"expected 9 bf16 tensor-core instantiations in ptxas's "
-                         f"output, found {sorted(seen)}")
-    if any(seen[(w, 64)] for w in range(3)):
-        raise SystemExit("a bf16 d 64 tensor-core instantiation spills")
+            width = int(m.group(1))
+            smem = (lib5.conv3x3_stats_wgmma_smem_bytes(width) if smem_kind is None
+                    else flash.flash_wgmma_smem_bytes(smem_kind, width))
+            line = (f"[build] wgmma {name} {'nc' if smem_kind is None else 'd'} {width} "
+                    f"({lib}): {code.count('HGMMA')} HGMMA in its SASS, dynamic shared "
+                    f"memory {smem} B")
+            spills = 0
+            if mangled in ptxas:
+                regs = int(re.search(r"Used (\d+) registers", ptxas[mangled]).group(1))
+                stores, loads = map(int, re.search(r"(\d+) bytes spill stores, "
+                                                   r"(\d+) bytes spill loads",
+                                                   ptxas[mangled]).groups())
+                spills = stores + loads
+                line += f", {regs} registers, spill stores {stores} B, spill loads {loads} B"
+            print(line)
+            seen[(name, width)] = (spills, code.count("HGMMA"))
+    if len(seen) != 14:
+        raise SystemExit(f"expected 14 bf16 tensor-core instantiations in the SASS, "
+                         f"found {sorted(seen)}")
+    if [k for k, (_, hgmma) in seen.items() if not hgmma]:
+        raise SystemExit(f"no HGMMA in the SASS of {[k for k, v in seen.items() if not v[1]]}")
+    if any(spills for (name, width), (spills, _) in seen.items()
+           if width == 64 or name.startswith("K5")):
+        raise SystemExit("a bf16 tensor-core instantiation spills at d 64 or in K5")
 
 
 def main() -> int:
@@ -890,6 +982,10 @@ def main() -> int:
                           **k5[key], "ms": r["fused_ms"], "library_ms": r["torch_conv_ms"],
                           "library_conv_stats_ms": r["torch_conv_stats_ms"],
                           "tool_line": r["shape"]}
+    for key, r in k5_shapes.items():
+        print(f"[conv] K5 {key} (probe): ms={r['ms']:.4f}, cuDNN conv {r['library_ms']:.4f}, "
+              f"conv + stats {r['library_conv_stats_ms']:.4f}, bound {r['bound_ms']:.4f} "
+              f"({100 * r['bound_ms'] / r['ms']:.1f}%)" + _before(f"conv3x3_stats {key}", r["ms"]))
     s0 = k5_shapes["s0"]
     flash_src = "distributed_training_tpu_torch/csrc/flash_attention.cu"
     split_src = "distributed_training_tpu_torch/csrc/flash_attention_split.cu"

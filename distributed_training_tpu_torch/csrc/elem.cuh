@@ -1,10 +1,10 @@
 // Loads and stores of four consecutive elements as float32, and the
-// rounding of a float32 to the element type, for the kernels' two element
-// types (float32, bfloat16). Used by every kernel source that includes it.
+// rounding of a float32 to the element type, for the CUDA-core kernels'
+// element type: float32. Every bfloat16 kernel runs on the tensor cores
+// (wgmma.cuh).
 
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -23,32 +23,4 @@ struct Elem<float> {
     *reinterpret_cast<float2*>(p) = make_float2(a, b);
   }
   static __device__ __forceinline__ float round(float x) { return x; }
-};
-
-template <>
-struct Elem<__nv_bfloat16> {
-  static __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-    const uint2 u = *reinterpret_cast<const uint2*>(p);
-    __nv_bfloat162 lo, hi;
-    *reinterpret_cast<uint32_t*>(&lo) = u.x;
-    *reinterpret_cast<uint32_t*>(&hi) = u.y;
-    const float2 a = __bfloat1622float2(lo);
-    const float2 b = __bfloat1622float2(hi);
-    return make_float4(a.x, a.y, b.x, b.y);
-  }
-  static __device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-    __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
-    __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
-    uint2 u;
-    u.x = *reinterpret_cast<uint32_t*>(&lo);
-    u.y = *reinterpret_cast<uint32_t*>(&hi);
-    *reinterpret_cast<uint2*>(p) = u;
-  }
-  static __device__ __forceinline__ void store2(__nv_bfloat16* p, float a,
-                                                float b) {
-    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-  }
-  static __device__ __forceinline__ float round(float x) {
-    return __bfloat162float(__float2bfloat16_rn(x));
-  }
 };

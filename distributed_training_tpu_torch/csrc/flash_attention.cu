@@ -271,12 +271,13 @@ int flash_bwd(const void* q, const void* k, const void* v, const void* dout,
 
 // Dynamic shared memory a block of the bf16 tensor-core kernels takes at
 // head dim d: kernel 0 the forward (K2), 1 the backward with dq (K3), 2
-// without it (K4b); -1 for anything else.
+// without it (K4b), 3 the split backward's dq (K4a); -1 for anything else.
 int flash_wgmma_smem_bytes(int kernel, int d) {
 #define SMEM(D)                                                         \
   (kernel == 0   ? (int)flash_wgmma::fwd_smem_bytes<D>()                \
    : kernel == 1 ? (int)flash_wgmma::bwd_smem_bytes<D, true>()          \
    : kernel == 2 ? (int)flash_wgmma::bwd_smem_bytes<D, false>()         \
+   : kernel == 3 ? (int)flash_wgmma::dq_smem_bytes<D>()                 \
                  : -1)
   if (d == 32) return SMEM(32);
   if (d == 64) return SMEM(64);

@@ -6,12 +6,15 @@
 // distributed_training_tpu/ops/flash_attention.py, which the JAX package
 // runs under its _USE_SPLIT_BWD switch (tools/flash_kernel_bench.py
 // --split-bwd):
-//   - flash_bwd_dq_kernel  <- _dq_kernel (flash_attention.py:212): one
-//     block per (bh, 64-row q tile) sweeps the live k tiles; dq
-//     accumulates in float32 registers and is written once in q's dtype.
-//     No atomics and no zeroed float32 buffer, so dq is the same bit for
-//     bit from run to run (K3 adds its dq parts with atomics in an order
-//     that changes);
+//   - flash_wgmma::dq_kernel<D> (bf16, flash_wgmma.cuh) and
+//     flash_bwd_dq_kernel<float, D> (below)  <- _dq_kernel
+//     (flash_attention.py:212): one block per (bh, 64-row q tile) sweeps
+//     the live k tiles; dq accumulates in float32 registers and is written
+//     once in q's dtype. No atomics and no zeroed float32 buffer, so dq is
+//     the same bit for bit from run to run (K3 adds its dq parts with
+//     atomics in an order that changes). In bf16 it is the forward's loop
+//     on the tensor cores with one more product (redesigned; 1.3209 ms
+//     before, on CUDA cores);
 //   - flash_wgmma::bwd_kernel<D, false> (bf16, flash_wgmma.cuh) and
 //     flash_bwd_kernel<float, D, false> (flash_tiles.cuh)  <- _dkv_kernel
 //     (flash_attention.py:243): one block per (bh, 64-row k tile) sweeps
@@ -34,9 +37,9 @@
 // and dS^T Q, 8 D a pair, 51.6 GFLOP (0.0522 ms), against 152.6 MB
 // (0.0455 ms): operations, 0.0522 ms. The split recomputes s, p and dp in
 // both kernels, 14 D operations a pair against K3's 10 D; the pair
-// computes K3's function, so its bound is K3's, 0.0652 ms. K4a, and both
-// in float32, run every product as a float32 FMA on CUDA cores (ceiling:
-// 67 TFLOP/s float32); K4a on the tensor cores is later work.
+// computes K3's function, so its bound is K3's, 0.0652 ms. In bf16 both
+// run every product on the tensor cores (wgmma); in float32 both run them
+// as float32 FMAs on CUDA cores (ceiling: 67 TFLOP/s float32).
 //
 // C interface (bound with ctypes): each entry launches once on the given
 // stream and returns cudaGetLastError().
@@ -81,6 +84,7 @@ __device__ __forceinline__ void dq_probs(const float (&s)[4][4],
   }
 }
 
+// K4a in float32 (bf16 takes flash_wgmma::dq_kernel).
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -222,7 +226,11 @@ int flash_bwd_dq(const void* q, const void* k, const void* v,
   const float* dl = static_cast<const float*>(delta);
 #define DQ(T, D) \
   launch_dq<T, D>(q, k, v, dout, l, dl, dq, bh, t, causal, use_exp2, scale, s)
-  FLASH_DISPATCH(DQ, DQ);
+#define DQ_WGMMA(T, D)                                                      \
+  flash_wgmma::launch_dq<D>(q, k, v, dout, l, dl, dq, bh, t, causal,        \
+                            use_exp2, scale, s)
+  FLASH_DISPATCH(DQ_WGMMA, DQ);
+#undef DQ_WGMMA
 #undef DQ
 }
 

@@ -1,7 +1,7 @@
 // Tile helpers of the flash-attention kernels on CUDA cores, and the
 // backward's k-tile loop, shared by flash_attention.cu (K2, K3) and
-// flash_attention_split.cu (K4a, K4b). They run every float32 instantiation
-// and K4a in bfloat16; the bfloat16 K2, K3 and K4b run on the tensor cores
+// flash_attention_split.cu (K4a, K4b). They run every float32
+// instantiation; in bfloat16 all four run on the tensor cores
 // (flash_wgmma.cuh).
 //
 // Layout common to all of them: one block of 256 threads (16 x 16) per

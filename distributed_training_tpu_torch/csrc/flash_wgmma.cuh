@@ -1,8 +1,10 @@
 // bf16 flash-attention tiles on Hopper's tensor cores (sm_90a): the forward
-// (K2) and the backward's k-tile loop (K3 with dQ, K4b without), included
-// by flash_attention.cu and flash_attention_split.cu. float32 inputs keep
-// the CUDA-core loops of flash_tiles.cuh: on the tensor cores they would
-// run as TF32, which cannot hold the float32 limit.
+// (K2), the backward's k-tile loop (K3 with dQ, K4b without) and the split
+// backward's q-tile loop (K4a, dQ only), included by flash_attention.cu and
+// flash_attention_split.cu; the PTX wrappers and the swizzled tile are
+// wgmma.cuh's. float32 inputs keep the CUDA-core loops of flash_tiles.cuh
+// and flash_attention_split.cu: on the tensor cores they would run as
+// TF32, which cannot hold the float32 limit.
 //
 // Design, one warpgroup (128 threads) per block, one 64-row tile a block:
 //   - Tiles stay bf16 in shared memory in the layout wgmma reads: rows of
@@ -18,10 +20,12 @@
 //     and B = V MN-major (the transpose bit). Backward, per live q tile:
 //     S^T = K Q^T and dP^T = V dO^T; dV += P^T dO and dK += dS^T Q with A
 //     from registers; dQ = dS K with A = dS^T written once to shared
-//     memory and read transposed, B = K transposed.
+//     memory and read transposed, B = K transposed. K4a, per live k tile:
+//     S = Q K^T and dP = dO V^T, then dQ += dS K with A = dS from
+//     registers and B = K MN-major.
 //   - Loads are cp.async, 16 bytes a thread into the swizzled addresses,
-//     double-buffered: the next K/V tile (forward) or Q/dO tile with its
-//     lse and delta (backward) is in flight while the current one's
+//     double-buffered: the next K/V tile (forward, K4a) or Q/dO tile with
+//     its lse and delta (backward) is in flight while the current one's
 //     products run. cp.async and not TMA: its zero fill (a source size of
 //     0) reads rows past T as zeros for any T and any BH without a tensor
 //     map per call, and a block's 128 threads issue a tile in 2-8 copies
@@ -29,7 +33,7 @@
 //     fences to the async proxy before the barrier that precedes wgmma.
 //   - Only the diagonal tile (causal) and a ragged tile (T not a multiple
 //     of 64) compute the mask.
-//   - dQ goes into the caller's zeroed float32 buffer by vector reductions
+//   - K3's dQ goes into the caller's zeroed float32 buffer by vector reductions
 //     (atomicAdd on float4, red.global.add.v4.f32 on sm_90), after one
 //     shuffle that gives each lane four consecutive values of a row: a
 //     quarter of the atomics of the scalar form.
@@ -41,258 +45,19 @@
 #pragma once
 
 #include "flash_tiles.cuh"
+#include "wgmma.cuh"
 
 namespace flash_wgmma {
 
-using bf16 = __nv_bfloat16;
+using namespace sm90;  // the PTX wrappers and Tile (wgmma.cuh)
+using sm90::bf16;
+using sm90::kRows;     // rows of every tile: queries or keys
+using sm90::kThreads;  // one warpgroup
 using flash::kLog2e;
 using flash::kNegInf;
 using flash::softmax_exp;
 
-constexpr int kRows = 64;      // rows of every tile: queries or keys
-constexpr int kThreads = 128;  // one warpgroup
-
-// ------------------------------------------------------------ PTX wrappers
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from global to shared; src_bytes 0 writes zeros and reads
-// nothing.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
-                                          int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Generic-proxy writes to shared memory (cp.async, st.shared) made visible
-// to the async proxy that wgmma reads through.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void st_shared(uint32_t addr, uint32_t v) {
-  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keep the compiler from moving reads or writes of registers that an
-// asynchronous wgmma owns across its issue or its wait.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-template <int N, int M>
-__device__ __forceinline__ void fence_regs(float (&r)[N][M]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) fence_regs(r[i]);
-}
-
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-}
-
-// Two float32 as a bf16 pair, the first in the low half (round to nearest).
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// A wgmma shared-memory descriptor: start address, leading and stride byte
-// offsets (16-byte units) and the swizzle (1: 128 bytes, 2: 64 bytes).
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo, uint64_t swizzle) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (swizzle << 62);
-}
-
-// ------------------------------------------------------------ wgmma
-
-// D (64 x 64, float32) += A (64 x 16) * B (16 x 64), both bf16 in shared
-// memory through their descriptors; kTA / kTB: 0 K-major, 1 MN-major.
-template <int kTA, int kTB>
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
-                                             uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, %35, %36;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate), "n"(kTA), "n"(kTB));
-}
-
-// D (64 x 32, float32) += A (64 x 16) * B (16 x 32), both bf16 in shared
-// memory through their descriptors; kTA / kTB: 0 K-major, 1 MN-major.
-template <int kTA, int kTB>
-__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
-                                             uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15}, "
-      "%16, %17, p, 1, 1, %19, %20;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(da), "l"(db), "r"(accumulate), "n"(kTA), "n"(kTB));
-}
-
-// D (64 x 64, float32) += A (64 x 16, bf16 pairs in registers) * B (16 x
-// 64, bf16 in shared memory); kTB: 0 K-major, 1 MN-major.
-template <int kTB>
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
-                                             uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate),
-        "n"(kTB));
-}
-
-// D (64 x 32, float32) += A (64 x 16, bf16 pairs in registers) * B (16 x
-// 32, bf16 in shared memory); kTB: 0 K-major, 1 MN-major.
-template <int kTB>
-__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4],
-                                             uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate),
-        "n"(kTB));
-}
-
-
-// The products at a tile's column-block width: n64, or n32 at D 32.
-template <int N, int kTA, int kTB>
-__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
-                                         uint64_t db, int accumulate) {
-  if constexpr (N == 64)
-    wgmma_ss_n64<kTA, kTB>(d, da, db, accumulate);
-  else
-    wgmma_ss_n32<kTA, kTB>(d, da, db, accumulate);
-}
-
-template <int N, int kTB>
-__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
-                                         const uint32_t (&a)[4], uint64_t db,
-                                         int accumulate) {
-  if constexpr (N == 64)
-    wgmma_rs_n64<kTB>(d, a, db, accumulate);
-  else
-    wgmma_rs_n32<kTB>(d, a, db, accumulate);
-}
-
-// --------------------------------------------------------- tiles and loads
-
-// A [64, D] bf16 tile in shared memory, 1024-byte aligned: kBlocks column
-// blocks of kCols values, each 64 rows of kRowBytes, swizzled.
-template <int D>
-struct Tile {
-  static constexpr int kCols = D < 64 ? D : 64;
-  static constexpr int kBlocks = D / kCols;
-  static constexpr int kRowBytes = kCols * 2;  // 128, or 64 at D 32
-  static constexpr int kBlockBytes = kRows * kRowBytes;
-  static constexpr int kBytes = kBlocks * kBlockBytes;
-  static constexpr uint64_t kSwizzle = kRowBytes == 128 ? 1 : 2;
-  // The hardware XORs bits 4-6 (128-byte swizzle) or 4-5 (64-byte) of an
-  // address with bits 7-9 (or 7-8).
-  static constexpr uint32_t kSwizzleMask = kRowBytes == 128 ? 0x70 : 0x30;
-  // 8 rows: the stride between the 8-row groups of the swizzle atom.
-  static constexpr uint32_t kGroupBytes = 8 * kRowBytes;
-
-  // Byte offset of element (r, c); c even.
-  static __device__ __forceinline__ uint32_t offset(int r, int c) {
-    const uint32_t off =
-        (c / kCols) * kBlockBytes + r * kRowBytes + (c % kCols) * 2;
-    return off ^ ((off >> 3) & kSwizzleMask);
-  }
-
-  // The tile as a K-major operand (rows are M or N, columns K): the 16
-  // columns of k step kk.
-  static __device__ __forceinline__ uint64_t k_major(uint32_t base, int kk) {
-    const int c = kk * 16;
-    return make_desc(base + (c / kCols) * kBlockBytes + (c % kCols) * 2, 16,
-                     kGroupBytes, kSwizzle);
-  }
-
-  // The tile as an MN-major operand (rows are K, columns N): rows
-  // [16 kk, 16 kk + 16) of column block b. N is one swizzle atom wide, so
-  // the only stride the product walks is the one between 8-row groups;
-  // both offsets carry it.
-  static __device__ __forceinline__ uint64_t mn_major(uint32_t base, int b,
-                                                     int kk) {
-    return make_desc(base + b * kBlockBytes + kk * 16 * kRowBytes,
-                     kGroupBytes, kGroupBytes, kSwizzle);
-  }
-};
+// --------------------------------------------------------- loads
 
 // Rows [row0, row0 + 64) of a [t, D] matrix into a tile, asynchronously;
 // rows at or past t read as zeros.
@@ -751,6 +516,173 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, delta,
       dq_acc, static_cast<bf16*>(dk), static_cast<bf16*>(dv), bh, t, causal,
       use_exp2, scale);
+  return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------ backward, dq only (K4a)
+
+// dS of one (q tile, k tile) pair as A fragments, from the S and dP
+// accumulators (queries by rows, keys by columns): p = exp(s scale - lse)
+// for the thread's rows r0 and r0 + 8 (lse times log2(e) with kExp2), zero
+// outside the mask on edge tiles, then dS = p (dp - delta) rounded to bf16.
+template <bool kExp2>
+__device__ __forceinline__ void dq_probs(float (&s)[32], const float (&dp)[32],
+                                         const float (&lse)[2],
+                                         const float (&delta)[2],
+                                         uint32_t (&ds)[4][4], bool edge,
+                                         int row0, int col0, int t, int causal,
+                                         float sscale) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int h = (i >> 1) & 1;
+    float p = softmax_exp<kExp2>(s[i] * sscale - lse[h]);
+    if (edge) {
+      const int col = col0 + 8 * (i / 4) + (i & 1);
+      if (col >= t || (causal && col > row0 + 8 * h)) p = 0.f;
+    }
+    s[i] = p * (dp[i] - delta[h]);
+  }
+  to_a_fragments(s, ds);
+}
+
+// Shared memory: Q, dO, then two stages of (K, V); 1024 bytes of alignment.
+template <int D>
+constexpr size_t dq_smem_bytes() {
+  return 6 * (size_t)Tile<D>::kBytes + 1024;
+}
+
+// dQ of one 64-row q tile over its live k tiles (K4a), the forward's loop
+// with one more product: S = Q K^T and dP = dO V^T (A and B K-major from
+// shared memory), dS rounded into A fragments in place, dQ += dS K with B
+// = K MN-major, as P V in the forward. dQ stays in registers and is
+// written once, scaled, in bf16: no atomics, so the same bits every run.
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+          const bf16* __restrict__ v, const bf16* __restrict__ dout,
+          const float* __restrict__ lse, const float* __restrict__ delta,
+          bf16* __restrict__ dq, int bh_count, int t, int causal,
+          int use_exp2, float scale) {
+  using TL = Tile<D>;
+  extern __shared__ uint8_t smem[];
+  const uint32_t qs = (smem_u32(smem) + 1023) & ~1023u;
+  const uint32_t dos = qs + TL::kBytes;
+  auto ks = [&](int st) { return qs + (2 + 2 * st) * TL::kBytes; };
+  auto vs = [&](int st) { return qs + (3 + 2 * st) * TL::kBytes; };
+
+  const int nq = (t + kRows - 1) / kRows;
+  const int bh = blockIdx.x % bh_count;
+  const int q0 = (nq - 1 - blockIdx.x / bh_count) * kRows;  // heaviest first
+  const size_t base = (size_t)bh * t * D;
+  const int tid = threadIdx.x;
+  const int r0 = 16 * (tid / 32) + (tid % 32) / 4;  // rows r0, r0 + 8
+  const int cq = 2 * (tid % 4);
+  const float sscale = use_exp2 ? scale * kLog2e : scale;
+  const int k_end = causal ? min(t, q0 + kRows) : t;
+  const int nk = (k_end + kRows - 1) / kRows;
+
+  load_tile<D>(qs, q + base, q0, t, tid);
+  load_tile<D>(dos, dout + base, q0, t, tid);
+  load_tile<D>(ks(0), k + base, 0, t, tid);
+  load_tile<D>(vs(0), v + base, 0, t, tid);
+  cp_async_commit();
+
+  // lse and delta of rows r0 and r0 + 8; rows past t read as zeros.
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + r0 + 8 * h;
+    const size_t at = (size_t)bh * t + (row < t ? row : 0);
+    const float l = row < t ? lse[at] : 0.f;
+    lse_r[h] = use_exp2 ? l * kLog2e : l;
+    delta_r[h] = row < t ? delta[at] : 0.f;
+  }
+
+  float acc[TL::kBlocks][TL::kCols / 2];
+#pragma unroll
+  for (int b = 0; b < TL::kBlocks; ++b)
+#pragma unroll
+    for (int i = 0; i < TL::kCols / 2; ++i) acc[b][i] = 0.f;
+
+  for (int j = 0; j < nk; ++j) {
+    const int k0 = j * kRows;
+    __syncthreads();  // tile j - 1's products are done: its stage is free
+    if (j + 1 < nk) {
+      load_tile<D>(ks((j + 1) & 1), k + base, k0 + kRows, t, tid);
+      load_tile<D>(vs((j + 1) & 1), v + base, k0 + kRows, t, tid);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // tile j (and Q, dO) landed
+    fence_proxy_async();
+    __syncthreads();
+
+    float s[32] = {}, dp[32] = {};
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64<0, 0>(s, TL::k_major(qs, kk), TL::k_major(ks(j & 1), kk),
+                         kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64<0, 0>(dp, TL::k_major(dos, kk), TL::k_major(vs(j & 1), kk),
+                         kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+
+    const bool edge = (causal && k0 == q0) || k0 + kRows > t;
+    uint32_t ds[4][4];
+    if (use_exp2)
+      dq_probs<true>(s, dp, lse_r, delta_r, ds, edge, q0 + r0, k0 + cq, t,
+                     causal, sscale);
+    else
+      dq_probs<false>(s, dp, lse_r, delta_r, ds, edge, q0 + r0, k0 + cq, t,
+                      causal, sscale);
+
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int b = 0; b < TL::kBlocks; ++b)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs<TL::kCols, 1>(acc[b], ds[kk], TL::mn_major(ks(j & 1), b, kk),
+                               1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_regs(ds);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + r0 + 8 * h;
+    if (row >= t) continue;
+#pragma unroll
+    for (int b = 0; b < TL::kBlocks; ++b)
+#pragma unroll
+      for (int i = 2 * h; i < TL::kCols / 2; i += 4) {
+        const int col = b * TL::kCols + 8 * (i / 4) + cq;
+        *reinterpret_cast<uint32_t*>(dq + base + (size_t)row * D + col) =
+            pack_bf16(scale * acc[b][i], scale * acc[b][i + 1]);
+      }
+  }
+}
+
+template <int D>
+int launch_dq(const void* q, const void* k, const void* v, const void* dout,
+              const float* lse, const float* delta, void* dq, int bh, int t,
+              int causal, int use_exp2, float scale, cudaStream_t stream) {
+  constexpr size_t smem = dq_smem_bytes<D>();
+  unsigned blocks;
+  if (int e = flash::blocks_for(t, kRows, bh, &blocks)) return e;
+  cudaError_t err = cudaFuncSetAttribute(
+      dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dq_kernel<D><<<blocks, kThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, delta,
+      static_cast<bf16*>(dq), bh, t, causal, use_exp2, scale);
   return (int)cudaGetLastError();
 }
 

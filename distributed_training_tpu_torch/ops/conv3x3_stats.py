@@ -3,7 +3,8 @@ result: the kernel's wrapper, its plain PyTorch version and its launch
 counter.
 
 The port of ``pallas_conv3x3_stats`` in ``tools/conv_fusion_probe.py`` (K5;
-the kernel is ``csrc/conv3x3_stats.cu``, whose note says what bounds it).
+the kernel is ``csrc/conv3x3_stats.cu``, whose note says what bounds it:
+bfloat16 runs on the tensor cores, float32 on CUDA cores).
 In the JAX layout: ``x`` ``[N, H, W, Cin]`` (NHWC), ``w`` ``[3, 3, Cin,
 Cout]`` (HWIO), stride 1, SAME padding; ``out`` ``[N, H, W, Cout]`` in x's
 dtype, and ``sum`` and ``sumsq`` float32 ``[Cout]``, the sums over N, H and
@@ -53,7 +54,8 @@ def conv3x3_stats_reference(x, w):
 def _check_for_kernel(x, w) -> None:
     """Raise unless the kernel can take these tensors: ``x`` ``[N, H, W,
     Cin]`` and ``w`` ``[3, 3, Cin, Cout]`` of one float32 or bfloat16
-    dtype, ``Cin`` and ``Cout`` multiples of 4, contiguous, 16-byte
+    dtype, ``Cin`` and ``Cout`` multiples of 8 in bfloat16 (the tensor-core
+    kernel copies 16-byte rows) and of 4 in float32, contiguous, 16-byte
     aligned, on one CUDA device."""
     if x.dim() != 4 or w.dim() != 4 or tuple(w.shape[:3]) != (3, 3, x.shape[-1]):
         raise ValueError(f"conv3x3_stats: the kernel takes x [N, H, W, Cin] and "
@@ -62,9 +64,12 @@ def _check_for_kernel(x, w) -> None:
     if x.dtype not in _KERNEL_DTYPES or w.dtype != x.dtype:
         raise ValueError(f"conv3x3_stats: the kernel takes float32 or bfloat16 "
                          f"x and w of one dtype, got {x.dtype} and {w.dtype}")
-    if x.shape[-1] % 4 or w.shape[-1] % 4:
-        raise ValueError(f"conv3x3_stats: Cin and Cout must be multiples of 4, "
-                         f"got {x.shape[-1]} and {w.shape[-1]}")
+    align = 8 if x.dtype == torch.bfloat16 else 4
+    if x.shape[-1] % align or w.shape[-1] % align:
+        raise ValueError(f"conv3x3_stats: Cin and Cout must be multiples of {align} "
+                         f"in {x.dtype} (bfloat16 runs on the tensor cores, whose "
+                         f"copies take 16-byte rows of 8 channels), got "
+                         f"{x.shape[-1]} and {w.shape[-1]}")
     for t in (x, w):
         if t.device.type != "cuda" or t.device != x.device:
             raise ValueError(f"conv3x3_stats: tensors must all be on the CPU or "

@@ -97,3 +97,20 @@ def test_cpu_takes_the_plain_version_and_off_cpu_never_falls_back():
     with pytest.raises(ValueError, match="dtype"):
         conv3x3_stats(xm, wm.float())
     assert conv3x3_stats.launches == n
+
+
+def test_bf16_channels_must_be_multiples_of_8_off_the_cpu():
+    """bfloat16 runs on the tensor-core kernel, whose 16-byte copies take 8
+    channels: Cin or Cout a multiple of 4 but not of 8 raises off the CPU
+    (float32 keeps its rule of 4); the CPU still takes the plain version."""
+    xm = torch.empty((2, 8, 8, 12), dtype=torch.bfloat16, device="meta")
+    wm = torch.empty((3, 3, 12, 16), dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="multiples of 8"):
+        conv3x3_stats(xm, wm)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        conv3x3_stats(xm[..., :8], wm[:, :, :8, :12])
+    with pytest.raises(ValueError, match="CUDA"):
+        conv3x3_stats(xm.float(), wm.float())
+    _, _, x, wts = _inputs(1, 4, 4, 12, 12)
+    for a, b in zip(conv3x3_stats(x, wts), conv3x3_stats_reference(x, wts)):
+        assert torch.equal(a, b)

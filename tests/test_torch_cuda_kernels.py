@@ -320,6 +320,31 @@ def test_split_dq_is_bitwise_repeatable(require_cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("t", [1, 63, 65, 129, 1000])
+def test_split_dq_bf16_tensor_core_tiles_at_ragged_lengths(require_cuda, causal, d, t):
+    """bf16 K4a runs on the tensor cores (flash_wgmma::dq_kernel): dq
+    against the plain version at lengths that are not multiples of the
+    64-row tile, T 1 included, under FLASH_TOL, with a non-zero lse
+    cotangent (without it dq at T 1 is 0 up to rounding)."""
+    from distributed_training_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, g = _attn_inputs((3, t, d), torch.bfloat16, seed=11)
+    g_lse = torch.randn((3, t), device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(12))
+    out, lse = fa.flash_fwd(q, k, v, causal=causal)
+    delta = fa._delta(g, out, g_lse)
+    n = fa.flash_bwd_dq.launches
+    dq = fa.flash_bwd_dq(q, k, v, g, lse, delta, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.flash_bwd_dq.launches == n + 1
+    want = fa.flash_attention_dq_reference(q, k, v, g, lse, delta, causal=causal)
+    assert dq.dtype == torch.bfloat16 and dq.shape == want.shape
+    assert _row_err(dq, want) < FLASH_TOL[torch.bfloat16][1]
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 @pytest.mark.parametrize("split", [False, True], ids=["fused", "split"])
 @pytest.mark.parametrize("d", [32, 64, 128])
@@ -415,3 +440,81 @@ def test_conv3x3_stats_refuses_what_it_cannot_take(require_cuda):
         conv3x3_stats(x, w.cpu())
     with pytest.raises(ValueError, match="multiple"):
         conv3x3_stats(x[:1].expand(3, 8, 8, 16).contiguous(), w, bn=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cout", [32, 64, 128, 256])
+@pytest.mark.parametrize("cin", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("h,w", [(7, 9), (13, 17), (14, 14)])
+def test_conv3x3_stats_bf16_tensor_core_at_ragged_sizes(require_cuda, h, w, cin, cout):
+    """bf16 K5 runs on the tensor cores (conv_wgmma::conv_kernel): images
+    that 8 x 8 tiles do not divide, Cin below, at and above the 64-channel
+    chunk, Cout at the n32 form (32) and over several 64-channel slices,
+    under the probe's limits (``check`` raises above them)."""
+    from distributed_training_tpu_torch.ops.conv3x3_stats import conv3x3_stats
+    from distributed_training_tpu_torch.tools import conv_fusion_probe as probe
+
+    x, wts = probe.inputs(2, h, w, cin, cout, "cuda", seed=h + cin + cout)
+    before = conv3x3_stats.launches
+    probe.check(x, wts)
+    assert conv3x3_stats.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_conv3x3_stats_sums_ignore_pixels_past_the_edge(require_cuda):
+    """A 7 x 9 image in 8 x 8 tiles: the tile rows and columns past the
+    edge are built from zero-filled halo pixels but still see the last real
+    row and column. x is zero but for large values there, so those rows
+    would move the sums far past the limits; the kernel's sums must match
+    the plain version's, not those of the image padded to whole tiles."""
+    from distributed_training_tpu_torch.ops.conv3x3_stats import (
+        conv3x3_stats,
+        conv3x3_stats_reference,
+    )
+    from distributed_training_tpu_torch.tools import conv_fusion_probe as probe
+
+    x, wts = probe.inputs(2, 7, 9, 16, 32, "cuda", seed=13)
+    edge = torch.zeros_like(x)
+    edge[:, -1], edge[:, :, -1] = 8 * x[:, -1], 8 * x[:, :, -1]
+    _, s, ss = conv3x3_stats(edge, wts)
+    _, want_s, want_ss = conv3x3_stats_reference(edge, wts)
+    padded = torch.zeros((2, 8, 16, 16), dtype=x.dtype, device="cuda")
+    padded[:, :7, :9] = edge
+    _, tile_s, tile_ss = conv3x3_stats_reference(padded, wts)
+    rss = want_ss.sqrt()
+    assert ((tile_ss - want_ss).abs() / want_ss).min() > 100 * probe.SUMSQ_TOL
+    assert ((s - want_s).abs() / rss).max() <= probe.SUM_TOL
+    assert ((ss - want_ss).abs() / want_ss).max() <= probe.SUMSQ_TOL
+
+
+@pytest.mark.cuda
+def test_conv3x3_stats_bf16_is_bitwise_repeatable(require_cuda):
+    """bf16 K5 twice on the same inputs: each block writes its out tile and
+    its partial sums once and the caller sums the partials in a fixed
+    order, so out, sum and sumsq repeat bit for bit."""
+    from distributed_training_tpu_torch.ops.conv3x3_stats import conv3x3_stats
+    from distributed_training_tpu_torch.tools import conv_fusion_probe as probe
+
+    x, wts = probe.inputs(4, 28, 28, 128, 128, "cuda", seed=14)
+    first, second = conv3x3_stats(x, wts), conv3x3_stats(x, wts)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_conv3x3_stats_bf16_refuses_channels_not_a_multiple_of_8(require_cuda):
+    """The tensor-core kernel copies 16-byte rows: in bf16 Cin and Cout must
+    be multiples of 8 and the call raises, where float32 takes multiples of
+    4 on its CUDA-core kernel."""
+    from distributed_training_tpu_torch.ops.conv3x3_stats import (
+        conv3x3_stats,
+        conv3x3_stats_reference,
+    )
+
+    x = torch.randn(2, 8, 8, 12, device="cuda")
+    w = torch.randn(3, 3, 12, 12, device="cuda") * 0.05
+    with pytest.raises(ValueError, match="multiples of 8"):
+        conv3x3_stats(x.bfloat16(), w.bfloat16())
+    out, _, _ = conv3x3_stats(x, w)
+    torch.testing.assert_close(out, conv3x3_stats_reference(x, w)[0],
+                               rtol=1e-5, atol=1e-5)
