@@ -8,9 +8,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
 2. build every kernel in ``distributed_training_tpu_torch/csrc`` with
    ``nvcc`` (one process per source, in parallel), and print ptxas's
    registers and spills, the dynamic shared memory and the count of HGMMA
-   instructions in the SASS (``cuobjdump``) of each bf16 tensor-core
-   instantiation of K2, K3, K4a, K4b and K5 (no HGMMA, or a spill at d 64
-   or in K5, fails);
+   instructions in the SASS (``cuobjdump``) of each of the 28 tensor-core
+   instantiations, bf16 and fp16, of K2, K3, K4a, K4b and K5 (one missing,
+   no HGMMA, or a spill at d 64 or in K5, fails);
 3. kernel phase: the fused-Adam kernel against its plain PyTorch version
    on all 62 ResNet-18 parameter shapes for 3 steps, and its time beside
    the plain version's, ``torch.optim.Adam(fused=True)``'s (a yardstick
@@ -22,6 +22,16 @@ Phases, in order; any failure exits non-zero and prints no result line:
    the CPU;
 5. fp16 phase: a few ``torch_ddp_fp16`` steps through the dynamic loss
    scale and its guarded, out-of-place update;
+5b. DP/ZeRO phase: each of the five plugin presets (``torch_ddp``,
+   ``torch_ddp_fp16``, ``low_level_zero`` ZeRO 1, ``gemini`` ZeRO 3,
+   ``deepspeed`` ZeRO 2 with ``cpu_offload``) runs 5 steps of full-width
+   ResNet-18 (batch 100) through ``Trainer.fit()``, first without a
+   process group, then under a world-1 NCCL group that
+   ``runtime.distributed.initialize_distributed`` brings up (SyncBN, the
+   stage's collectives, K1 on the rank's shard); the loss must be finite
+   and fall, K1 must launch once a step, each step's loss must match the
+   no-group run's, and the offloaded moments must be pinned host tensors;
+   images/s and peak memory per preset;
 6. flash kernel phase: the flash-attention forward (K2), fused backward
    (K3) and split backward (K4a dq, K4b dk and dv) against their plain
    versions over float32 and bfloat16, causal and not, head dims 32, 64
@@ -44,6 +54,14 @@ Phases, in order; any failure exits non-zero and prints no result line:
    logits and the eval loss with the exact attention must match the flash
    ones; then steady-state ms/step, tokens/s, device-busy share and peak
    memory;
+7b. fp16 LM phase: 5 steps of the same GPT-2-small ``LMTrainer`` in
+   fp16 (loss scaling), K2 and K3 launched as in the bf16 phase, the loss
+   finite;
+7c. fp16 and padding phase: K2–K4 in fp16 at the flash bench's five
+   shapes, K2–K4 at head dims 16, 48 and 96 (padded to the instantiated
+   ones) in bf16 and fp16, K5 in fp16 at s0–s2 and at Cin/Cout 3→12 and
+   20→36 in every dtype, each against its plain version; then the fp16
+   times of K2–K4 at the GPT-2-small shape and of K5 at s0–s2;
 8. exp2 phase: under the ``_USE_EXP2`` switch, K2, K3 and K4 against the
    plain versions (exp2 too) over the flash grid's bf16 causal cases (head
    dims 32, 64, 128) and at every shape of ``flash_kernel_bench``, then
@@ -60,7 +78,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    switches must be back to False after them;
 11. K5's time at each probe shape beside its yardsticks and its time
    before the tensor-core redesign, a ``{"kernels": [...]}`` line (six
-   kernels, each with its launches by path), then the card line, and last
+   kernels, each with its launches by path, its fp16 time and its
+   tensor-core instantiations), then the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits with code 2 before doing anything.
@@ -106,7 +125,10 @@ BF16_FLOPS = 989e12
 # float32, and every output is rounded to bfloat16 (2**-9 of an element,
 # several times that of the row's RMS). Each limit is about three times the
 # worst error measured on an H100 80GB HBM3 at 700 W (PERF.md).
-FLASH_TOL = {torch.float32: (3e-5, 3e-5), torch.bfloat16: (0.1, 0.1)}
+FLASH_TOL = {torch.float32: (3e-5, 3e-5), torch.bfloat16: (0.1, 0.1),
+             # float16 rounds p and dS where bfloat16 does, with 3 more
+             # mantissa bits: an eighth of bfloat16's limits.
+             torch.float16: (0.1 / 8, 0.1 / 8)}
 # lse, float32 in both: the largest error over the largest magnitude.
 LSE_TOL = 1e-5
 # flash_attention_lse through autograd, bf16: the card's kernels against
@@ -135,6 +157,24 @@ LM_STEPS, LM_EVAL_BATCHES = 10, 2
 # digits both ways there, and 1e-4 is about a hundred float32 steps of a
 # mean near 11.
 LM_ATTN_TOL, LM_LOGITS_TOL, LM_EVAL_ATOL = 0.15, 0.1, 1e-4
+
+
+# The DP/ZeRO phase: the five plugin presets on full-width ResNet-18
+# (batch 100, synthetic CIFAR), DP_STEPS steps each through Trainer.fit(),
+# with a world-1 NCCL group and with none. With the group, BatchNorm takes
+# the SyncBN path (local means of x and x² through an all-reduce, var =
+# E[x²] − E[x]², its own backward) where the run without one takes
+# cuDNN's batch norm, and cuDNN's backward kernels sum with atomics in an
+# order that changes from run to run: each step's loss must agree with the
+# no-group run's within DP_LOSS_RTOL, relative, by compute dtype. In fp32
+# the two agree to 1.45e-7 on an H100 80GB HBM3 at 700 W; in fp16 the two
+# batch norms round the fp16 activations at other places, 7e-6 apart at
+# the first step, and 5 fp16 Adam steps amplify that to 1.47e-3 (PERF.md).
+# Each limit is about three times (fp16) or seventy times (fp32, where
+# only summation order differs) that reading.
+DP_STEPS = 5
+DP_LOSS_RTOL = {"fp32": 1e-5, "fp16": 5e-3}
+DP_PRESETS = ("torch_ddp", "torch_ddp_fp16", "low_level_zero", "gemini", "deepspeed")
 
 
 def kernel_phase() -> dict:
@@ -333,6 +373,240 @@ def steady_state(trainer, batches: list, per_step: int, unit: str,
                   f"(rank {rows.index((dev_us, key, count)) + 1})")
 
 
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _dp_config(plugin: str, ckpt_dir: str):
+    import dataclasses
+
+    from distributed_training_tpu_torch.config import (
+        CheckpointConfig,
+        DataConfig,
+        TrainConfig,
+        ZeroConfig,
+    )
+
+    extra = {"zero": ZeroConfig(stage=2, cpu_offload=True)} if plugin == "deepspeed" else {}
+    cfg = TrainConfig.from_plugin(
+        plugin, model="resnet18", num_epochs=1, log_interval=1, eval_every=0,
+        data=DataConfig(dataset="synthetic_cifar", batch_size=100,
+                        max_steps_per_epoch=DP_STEPS),
+        checkpoint=CheckpointConfig(directory=ckpt_dir, interval=0), **extra)
+    return cfg.replace(optimizer=dataclasses.replace(cfg.optimizer, name="hybrid_adam"))
+
+
+def dp_phase(ckpt_dir: str) -> dict:
+    """The five plugin presets through ``Trainer(cfg).fit()`` on full-width
+    ResNet-18: first each without a process group, then each under a
+    world-1 NCCL group brought up by ``initialize_distributed`` (SyncBN,
+    the ZeRO stage's collectives, K1 on the rank's shard). Checks per
+    preset: finite losses that fall, one K1 launch a step, each step's loss
+    against the no-group run's, pinned host moments under ``cpu_offload``;
+    then images/s and peak memory in the steady state."""
+    import torch.distributed as dist
+
+    from distributed_training_tpu_torch import Trainer
+    from distributed_training_tpu_torch.data.pipeline import to_device
+    from distributed_training_tpu_torch.ops.fused_adam import fused_adam_update
+    from distributed_training_tpu_torch.runtime import distributed
+
+    alone = {}
+    for plugin in DP_PRESETS:
+        trainer = Trainer(_dp_config(plugin, os.path.join(ckpt_dir, plugin)))
+        trainer.fit()
+        alone[plugin] = [h["loss"] for h in trainer.meter.history]
+        del trainer
+    port = _free_port()
+    group = distributed.initialize_distributed(
+        init_method=f"tcp://127.0.0.1:{port}", world_size=1, rank=0)
+    if group is None or dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+        raise SystemExit("the world-1 NCCL group did not come up")
+    print(f"[dp] NCCL process group up at tcp://127.0.0.1:{port}, world "
+          f"{dist.get_world_size()}, backend {dist.get_backend()}")
+    results = {}
+    try:
+        for plugin in DP_PRESETS:
+            cfg = _dp_config(plugin, os.path.join(ckpt_dir, plugin + "_nccl"))
+            trainer = Trainer(cfg)
+            zero = trainer.state.zero
+            if zero.group is None or zero.stage != cfg.zero.stage:
+                raise SystemExit(f"{plugin}: the trainer did not join the group "
+                                 f"at stage {cfg.zero.stage}")
+            times = _timed_train_epochs(trainer)
+            fused_adam_update.launches = 0
+            out = trainer.fit()
+            launches = fused_adam_update.launches
+            hist = trainer.meter.history
+            losses = [h["loss"] for h in hist]
+            diff = max(abs(a - b) / abs(b) for a, b in zip(losses, alone[plugin]))
+            pinned = None
+            if cfg.zero.cpu_offload:
+                moments = [*trainer.state.opt_state.mu.values(),
+                           *trainer.state.opt_state.nu.values()]
+                pinned = all(m.device.type == "cpu" and m.is_pinned() for m in moments)
+            print(f"[dp] {plugin}: zero stage {cfg.zero.stage}"
+                  f"{' cpu_offload' if cfg.zero.cpu_offload else ''}, "
+                  f"{cfg.precision.dtype}, per step (loss, loss_scale, committed) "
+                  f"{[(h['loss'], h['loss_scale'], h['grads_finite']) for h in hist]}; "
+                  f"without a group {alone[plugin]}; largest relative difference "
+                  f"{diff:.3g} (tolerance {DP_LOSS_RTOL[cfg.precision.dtype]}); "
+                  f"K1 launches {launches}; "
+                  f"{DP_STEPS} steps in {times[0]:.3f} s (first step's cuDNN planning "
+                  f"included)" + ("" if pinned is None else f"; moments pinned host {pinned}"))
+            if not all(x == x and abs(x) != float("inf") for x in losses):
+                raise SystemExit(f"{plugin}: non-finite loss {losses}")
+            if not losses[-1] < losses[0]:
+                raise SystemExit(f"{plugin}: loss did not fall: {losses}")
+            if launches != DP_STEPS:
+                raise SystemExit(f"{plugin}: K1 launches {launches} != {DP_STEPS} steps")
+            _check(f"{plugin} loss with the NCCL group vs without", diff,
+                   DP_LOSS_RTOL[cfg.precision.dtype])
+            if pinned is False:
+                raise SystemExit(f"{plugin}: cpu_offload moments are not pinned host tensors")
+            loader, _ = trainer.make_loaders()
+            batches = [to_device(b, trainer.device) for _, b in zip(range(10), loader)]
+            steady_state(trainer, batches, 100, "images", tag=f"dp {plugin}", profiled=2)
+            results[plugin] = {"launches": launches, "loss_rel_diff": diff,
+                               "committed": out["steps"], "moments_pinned": pinned}
+            del trainer, batches
+    finally:
+        distributed.shutdown_distributed()
+    torch.cuda.empty_cache()
+    return results
+
+
+def fp16_pad_phase() -> dict:
+    """The float16 instantiations and the padded shapes: K2–K4 in fp16 at
+    the flash bench's five shapes; K2–K4 at d 16, 48 and 96 in bf16 and
+    fp16; K5 in fp16 at s0–s2 and at Cin/Cout 3→12 and 20→36 in every
+    dtype; each against its plain version, each call counted. Then the
+    fp16 times at each row's shape (K2–K4 at the GPT-2-small shape, K5 at
+    s0–s2) beside bf16's."""
+    from distributed_training_tpu_torch.ops import flash_attention as fa
+    from distributed_training_tpu_torch.ops.conv3x3_stats import conv3x3_stats
+    from distributed_training_tpu_torch.tools import conv_fusion_probe as probe
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    counters = (fa.flash_fwd, fa.flash_bwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    fp16 = _bench_shape_checks("fp16", gen, torch.float16)
+    worst: dict = {}
+    for dtype in (torch.bfloat16, torch.float16):
+        for d in (16, 48, 96):
+            for causal in (False, True):
+                n = [f.launches for f in counters]
+                q, k, v, g = (_randn(gen, 4, 384, d, dtype=dtype) for _ in range(4))
+                rows, _ = _flash_case(f"pad {str(dtype)[6:]} d={d} causal={causal}",
+                                      q, k, v, g, _randn(gen, 4, 384), causal=causal)
+                if [f.launches - m for f, m in zip(counters, n)] != [1, 1, 1, 1]:
+                    raise SystemExit(f"padded d {d}: a flash kernel did not launch once")
+                for name, err in rows.items():
+                    key = f"{str(dtype)[6:]} {name}"
+                    worst[key] = max(worst.get(key, 0.0), err)
+    print("[fp16] K2/K3/K4 at d 16, 48, 96 (padded to 32, 64, 128), bf16 and fp16, "
+          "causal and not, T 384, worst errors by row: "
+          + ", ".join(f"{n} {e:.3g}" for n, e in sorted(worst.items())))
+    k5 = {}
+    for key, (_, n, h, w, cin, cout) in probe.SHAPES.items():
+        x, wts = probe.inputs(n, h, w, cin, cout, "cuda", seed=7, dtype=torch.float16)
+        k5[key] = probe.check(x, wts)
+        print(f"[fp16] K5 fp16 vs plain at {key} [{n},{h},{w},{cin}]->{cout}: "
+              + " ".join(f"{e}={v:.3g}" for e, v in k5[key].items())
+              + f" (limits out {probe.OUT_TOLS[torch.float16]}, sum {probe.SUM_TOL}, "
+                f"sumsq {probe.SUMSQ_TOL})")
+        k5[key]["ms"] = cuda_ms(lambda: conv3x3_stats(x, wts), 20)
+        del x, wts
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        for cin, cout in ((3, 12), (20, 36)):
+            x, wts = probe.inputs(8, 14, 14, cin, cout, "cuda", seed=cin, dtype=dtype)
+            before = conv3x3_stats.launches
+            errs = probe.check(x, wts)
+            if conv3x3_stats.launches != before + 1:
+                raise SystemExit(f"K5 {dtype} {cin}->{cout}: the kernel did not launch once")
+            print(f"[fp16] K5 {str(dtype)[6:]} Cin/Cout {cin}->{cout} (padded to "
+                  f"multiples of {8 if dtype != torch.float32 else 4}) vs plain: "
+                  + " ".join(f"{e}={v:.3g}" for e, v in errs.items()))
+    bh, t, d = GPT_B * GPT_H, GPT_T, GPT_D
+    q, k, v, g = (_randn(gen, bh, t, d, dtype=torch.float16) for _ in range(4))
+    out, lse = fa.flash_fwd(q, k, v, causal=True)
+    delta = fa._delta(g, out)
+    ms = {"flash_fwd": cuda_ms(lambda: fa.flash_fwd(q, k, v, causal=True), 20),
+          "flash_bwd": cuda_ms(lambda: fa.flash_bwd(q, k, v, out, lse, g, causal=True), 10),
+          "flash_bwd_dq": cuda_ms(lambda: fa.flash_bwd_dq(
+              q, k, v, g, lse, delta, causal=True), 10),
+          "flash_bwd_dkv": cuda_ms(lambda: fa.flash_bwd_dkv(
+              q, k, v, g, lse, delta, causal=True), 10)}
+    print(f"[fp16] at BH {bh} T {t} d {d} fp16 causal, ms: "
+          + ", ".join(f"{n} {v:.4f}" for n, v in ms.items())
+          + "; K5 fp16 at the probe's shapes, ms: "
+          + ", ".join(f"{key} {r['ms']:.4f}" for key, r in k5.items()))
+    del q, k, v, g, out, lse, delta
+    torch.cuda.empty_cache()
+    errs = {"flash_fwd": fp16["K2 out"],
+            "flash_bwd": max(fp16["K3 dq"], fp16["K3 dk"], fp16["K3 dv"]),
+            "flash_bwd_dq": fp16["K4a dq"],
+            "flash_bwd_dkv": max(fp16["K4b dk"], fp16["K4b dv"])}
+    return {"ms": ms, "max_abs_err": errs, "k5": k5}
+
+
+def lm_fp16_phase(ckpt_dir: str) -> dict:
+    """GPT-2-small ``LMTrainer`` in fp16 with the flash kernels: 5 steps
+    and an eval of 2 batches, the loss finite, K2 and K3 launched as in the
+    bf16 phase (fp16 instantiations)."""
+    import math
+
+    from distributed_training_tpu_torch import LMTrainer
+    from distributed_training_tpu_torch.config import (
+        CheckpointConfig,
+        DataConfig,
+        LMConfig,
+        OptimizerConfig,
+        PrecisionConfig,
+        TrainConfig,
+    )
+    from distributed_training_tpu_torch.ops.flash_attention import flash_bwd, flash_fwd
+    from distributed_training_tpu_torch.ops.fused_adam import fused_adam_update
+
+    steps = 5
+    cfg = TrainConfig(
+        model="transformer_lm", num_epochs=1, log_interval=1,
+        optimizer=OptimizerConfig(name="hybrid_adam", lr=1e-3),
+        precision=PrecisionConfig(dtype="fp16"),
+        lm=LMConfig(seq_len=GPT_T, vocab_size=50304, num_layers=GPT_LAYERS,
+                    num_heads=GPT_H, hidden_dim=GPT_H * GPT_D, mlp_ratio=4,
+                    max_len=GPT_T, attn_impl="flash", logits_dtype="bf16",
+                    head_bias=False, train_sequences=GPT_B * steps,
+                    eval_sequences=GPT_B * LM_EVAL_BATCHES),
+        data=DataConfig(batch_size=GPT_B, max_steps_per_epoch=steps),
+        checkpoint=CheckpointConfig(directory=ckpt_dir, interval=0))
+    trainer = LMTrainer(cfg)
+    times = _timed_train_epochs(trainer)
+    for fn in (flash_fwd, flash_bwd, fused_adam_update):
+        fn.launches = 0
+    out = trainer.fit()
+    launches = {"flash_fwd": flash_fwd.launches, "flash_bwd": flash_bwd.launches,
+                "fused_adam": fused_adam_update.launches}
+    hist = trainer.meter.history
+    print(f"[lm fp16] fit -> {out}")
+    print(f"[lm fp16] per step (loss, loss_scale, committed) "
+          f"{[(h['loss'], h['loss_scale'], h['grads_finite']) for h in hist]}; "
+          f"{steps} steps in {times[0]:.3f} s ({GPT_B * GPT_T * steps / times[0]:.1f} "
+          f"tokens/s, first step included); launches {launches}")
+    if not all(math.isfinite(h["loss"]) for h in hist):
+        raise SystemExit(f"non-finite fp16 LM loss: {[h['loss'] for h in hist]}")
+    want = {"flash_fwd": GPT_LAYERS * (steps + LM_EVAL_BATCHES),
+            "flash_bwd": GPT_LAYERS * steps, "fused_adam": steps}
+    if launches != want:
+        raise SystemExit(f"fp16 LM launches {launches} != {want}")
+    del trainer
+    torch.cuda.empty_cache()
+    return launches
+
+
 def fp16_phase(ckpt_dir: str) -> None:
     from distributed_training_tpu_torch import Trainer
     from distributed_training_tpu_torch.config import (
@@ -450,21 +724,23 @@ def _flash_grid(what: str, gen, dtypes: tuple, causals: tuple) -> dict:
     return worst
 
 
-def _bench_shape_checks(what: str, gen) -> dict:
-    """:func:`_flash_case` at each of ``flash_kernel_bench``'s shapes, bf16
-    causal with no lse cotangent, as the bench runs them. BH is cut where
-    the plain versions' float32 [BH, T, T] scores would pass 2 GiB (only
-    T 16384, to BH 2): the kernels' tiles and loops depend on T and d, not
-    on BH. Returns the largest absolute errors at the ``gpt`` shape."""
+def _bench_shape_checks(what: str, gen, dtype=torch.bfloat16) -> dict:
+    """:func:`_flash_case` at each of ``flash_kernel_bench``'s shapes,
+    causal with no lse cotangent, as the bench runs them (in bf16, or
+    ``dtype``). BH is cut where the plain versions' float32 [BH, T, T]
+    scores would pass 2 GiB (only T 16384, to BH 2): the kernels' tiles and
+    loops depend on T and d, not on BH. Returns the largest absolute
+    errors at the ``gpt`` shape."""
     from distributed_training_tpu_torch.tools.flash_kernel_bench import SHAPES
 
     gpt = {}
     for key, (_, bh, t, d) in SHAPES.items():
         bh = min(bh, 2**29 // t**2)
-        q, k, v, g = (_randn(gen, bh, t, d, dtype=torch.bfloat16) for _ in range(4))
+        q, k, v, g = (_randn(gen, bh, t, d, dtype=dtype) for _ in range(4))
         rows, abs_errs = _flash_case(f"{what} {key}", q, k, v, g, causal=True)
-        print(f"[{what}] K2/K3/K4 vs plain at the bench's {key} [{bh},{t},{d}] bf16 "
-              f"causal, by row: " + ", ".join(f"{n} {e:.3g}" for n, e in rows.items()))
+        print(f"[{what}] K2/K3/K4 vs plain at the bench's {key} [{bh},{t},{d}] "
+              f"{str(dtype)[6:]} causal, by row: "
+              + ", ".join(f"{n} {e:.3g}" for n, e in rows.items()))
         if key == "gpt":
             gpt = abs_errs
         del q, k, v, g
@@ -855,18 +1131,24 @@ def _before(name: str, ms: float) -> str:
     return f"; before the tensor-core redesign {old:.4f} ms, {old / ms:.2f}x"
 
 
-# The bf16 tensor-core kernels, as ptxas and cuobjdump name them: K2's
-# flash_wgmma::fwd_kernel<D>, K3's and K4b's bwd_kernel<D, true / false>,
-# K4a's dq_kernel<D> and K5's conv_wgmma::conv_kernel<NC>. (library, the
-# mangled name's pattern, the kernel's name, the index of its shared-memory
-# query or None for K5's.)
+# The tensor-core kernels, as ptxas and cuobjdump name them: K2's
+# flash_wgmma::fwd_kernel<T, D>, K3's and K4b's bwd_kernel<T, D, true /
+# false>, K4a's dq_kernel<T, D> and K5's conv_wgmma::conv_kernel<T, NC>, T
+# __nv_bfloat16 or __half. (library, the mangled name's pattern, the
+# kernel's name, the index of its shared-memory query or None for K5's.)
+_T = r"(13__nv_bfloat16|6__half)"
 WGMMA_KERNELS = (
-    ("flash_attention", r"_ZN11flash_wgmma10fwd_kernelILi(\d+)E", "K2 fwd_kernel", 0),
-    ("flash_attention", r"_ZN11flash_wgmma10bwd_kernelILi(\d+)ELb1E", "K3 bwd_kernel(dq)", 1),
-    ("flash_attention_split", r"_ZN11flash_wgmma10bwd_kernelILi(\d+)ELb0E", "K4b bwd_kernel", 2),
-    ("flash_attention_split", r"_ZN11flash_wgmma9dq_kernelILi(\d+)E", "K4a dq_kernel", 3),
-    ("conv3x3_stats", r"_ZN10conv_wgmma11conv_kernelILi(\d+)E", "K5 conv_kernel", None),
+    ("flash_attention", rf"_ZN11flash_wgmma10fwd_kernelI{_T}Li(\d+)E", "K2 fwd_kernel", 0),
+    ("flash_attention", rf"_ZN11flash_wgmma10bwd_kernelI{_T}Li(\d+)ELb1E",
+     "K3 bwd_kernel(dq)", 1),
+    ("flash_attention_split", rf"_ZN11flash_wgmma10bwd_kernelI{_T}Li(\d+)ELb0E",
+     "K4b bwd_kernel", 2),
+    ("flash_attention_split", rf"_ZN11flash_wgmma9dq_kernelI{_T}Li(\d+)E", "K4a dq_kernel", 3),
+    ("conv3x3_stats", rf"_ZN10conv_wgmma11conv_kernelI{_T}Li(\d+)E", "K5 conv_kernel", None),
 )
+# 14 instantiations in each of the two types: K2, K3, K4b and K4a at d 32,
+# 64 and 128, K5 at 32 and 64 output channels a block.
+WGMMA_INSTANTIATIONS = 28
 
 
 def _sass_by_function(lib: str) -> dict:
@@ -881,13 +1163,14 @@ def _sass_by_function(lib: str) -> dict:
     return {part.split(None, 1)[0]: part for part in sass.split("Function : ")[1:]}
 
 
-def wgmma_build_lines() -> None:
-    """Per bf16 tensor-core instantiation: the HGMMA instructions in its
-    SASS and, when this run built the libraries, ptxas's registers and
-    spills, and the launch's dynamic shared memory. Fails unless all 14
-    are there (K2, K3, K4b, K4a at d 32, 64, 128; K5 at 32 and 64 output
-    channels a block), each with HGMMA (the proof that it reaches the
-    tensor cores), and on a spill at d 64 (the GPT path) or in K5."""
+def wgmma_build_lines() -> dict:
+    """Per tensor-core instantiation (bf16 and fp16): the HGMMA
+    instructions in its SASS and, when this run built the libraries,
+    ptxas's registers and spills, and the launch's dynamic shared memory.
+    Fails unless all 28 are there (K2, K3, K4b, K4a at d 32, 64, 128; K5
+    at 32 and 64 output channels a block; each in both types), each with
+    HGMMA (the proof that it reaches the tensor cores), and on a spill at
+    d 64 (the GPT path) or in K5."""
     import ctypes
 
     from distributed_training_tpu_torch.ops import conv3x3_stats as conv
@@ -914,12 +1197,13 @@ def wgmma_build_lines() -> None:
             m = re.match(pattern, mangled)
             if not m:
                 continue
-            width = int(m.group(1))
+            dtype = "bf16" if "bfloat16" in m.group(1) else "fp16"
+            width = int(m.group(2))
             smem = (lib5.conv3x3_stats_wgmma_smem_bytes(width) if smem_kind is None
                     else flash.flash_wgmma_smem_bytes(smem_kind, width))
-            line = (f"[build] wgmma {name} {'nc' if smem_kind is None else 'd'} {width} "
-                    f"({lib}): {code.count('HGMMA')} HGMMA in its SASS, dynamic shared "
-                    f"memory {smem} B")
+            line = (f"[build] wgmma {name} {dtype} {'nc' if smem_kind is None else 'd'} "
+                    f"{width} ({lib}): {code.count('HGMMA')} HGMMA in its SASS, dynamic "
+                    f"shared memory {smem} B")
             spills = 0
             if mangled in ptxas:
                 regs = int(re.search(r"Used (\d+) registers", ptxas[mangled]).group(1))
@@ -929,15 +1213,18 @@ def wgmma_build_lines() -> None:
                 spills = stores + loads
                 line += f", {regs} registers, spill stores {stores} B, spill loads {loads} B"
             print(line)
-            seen[(name, width)] = (spills, code.count("HGMMA"))
-    if len(seen) != 14:
-        raise SystemExit(f"expected 14 bf16 tensor-core instantiations in the SASS, "
-                         f"found {sorted(seen)}")
+            seen[(name, dtype, width)] = (spills, code.count("HGMMA"))
+    if len(seen) != WGMMA_INSTANTIATIONS:
+        raise SystemExit(f"expected {WGMMA_INSTANTIATIONS} tensor-core instantiations "
+                         f"in the SASS, found {sorted(seen)}")
     if [k for k, (_, hgmma) in seen.items() if not hgmma]:
         raise SystemExit(f"no HGMMA in the SASS of {[k for k, v in seen.items() if not v[1]]}")
-    if any(spills for (name, width), (spills, _) in seen.items()
+    if any(spills for (name, _, width), (spills, _) in seen.items()
            if width == 64 or name.startswith("K5")):
-        raise SystemExit("a bf16 tensor-core instantiation spills at d 64 or in K5")
+        raise SystemExit("a tensor-core instantiation spills at d 64 or in K5")
+    print(f"[build] wgmma: {len(seen)} tensor-core instantiations (bf16 and fp16), "
+          f"every one with HGMMA in its SASS")
+    return seen
 
 
 def main() -> int:
@@ -959,14 +1246,17 @@ def main() -> int:
         spills = re.findall(r"(\d+) bytes spill stores", log)
         print(f"[build] {name}: ptxas, kernel by kernel: registers "
               f"{' '.join(regs)}; bytes of spill stores {' '.join(spills)}")
-    wgmma_build_lines()
+    instantiations = wgmma_build_lines()
 
     k = kernel_phase()
     with tempfile.TemporaryDirectory() as ckpt:
         launches = train_phase(os.path.join(ckpt, "fp32"))
         fp16_phase(os.path.join(ckpt, "fp16"))
+        dp = dp_phase(os.path.join(ckpt, "dp"))
         flash = flash_kernel_phase()
         lm = lm_phase(os.path.join(ckpt, "lm"))
+        lm16 = lm_fp16_phase(os.path.join(ckpt, "lm_fp16"))
+    half = fp16_pad_phase()
     exp2 = exp2_phase()
     k5 = conv_phase()
     tool_launches, tool_results = tools_phase()
@@ -974,6 +1264,12 @@ def main() -> int:
     def by_path(name: str, **more) -> dict:
         paths = {**more, **{p: n[name] for p, n in tool_launches.items() if name in n}}
         return {"launches": sum(paths.values()), "launches_by_path": paths}
+
+    def built(prefix: str) -> list:
+        """The kernel's tensor-core instantiations, as the build check saw them."""
+        return [f"{dtype} {'nc' if name.startswith('K5') else 'd'} {width}: {hgmma} HGMMA"
+                for (name, dtype, width), (_, hgmma) in sorted(instantiations.items())
+                if name.startswith(prefix)]
 
     k5_shapes = {}
     for key, r in zip(k5, tool_results["conv_fusion_probe"]):
@@ -995,17 +1291,24 @@ def main() -> int:
         "name": "fused_adam", "route": "cuda",
         "source": "distributed_training_tpu_torch/csrc/fused_adam.cu",
         "replaces": "distributed_training_tpu/ops/fused_adam.py:40",
-        "launches": launches + lm["fused_adam"],
+        "launches": (launches + lm["fused_adam"] + lm16["fused_adam"]
+                     + sum(r["launches"] for r in dp.values())),
         "launches_by_path": {"resnet18_train": launches,
-                             "gpt2_small_train": lm["fused_adam"]},
+                             **{f"resnet18_{p}_nccl_world1": r["launches"]
+                                for p, r in dp.items()},
+                             "gpt2_small_train": lm["fused_adam"],
+                             "gpt2_small_train_fp16": lm16["fused_adam"]},
         **k, "ok": True,
     }, *({
         "name": name, "route": "cuda", "source": src, "replaces": f"{ref}:{line}",
-        **by_path(name, **({"gpt2_small_train": lm[name]} if name in lm else {})),
-        **flash[name], "exp2_ms": exp2[name], "ok": True,
-    } for name, src, line in (("flash_fwd", flash_src, 107), ("flash_bwd", flash_src, 280),
-                              ("flash_bwd_dq", split_src, 212),
-                              ("flash_bwd_dkv", split_src, 243))), {
+        **by_path(name, **({"gpt2_small_train": lm[name],
+                            "gpt2_small_train_fp16": lm16[name]} if name in lm else {})),
+        **flash[name], "exp2_ms": exp2[name], "fp16_ms": half["ms"][name],
+        "fp16_max_abs_err": half["max_abs_err"][name],
+        "instantiations": built(tag), "ok": True,
+    } for name, src, line, tag in (
+        ("flash_fwd", flash_src, 107, "K2"), ("flash_bwd", flash_src, 280, "K3"),
+        ("flash_bwd_dq", split_src, 212, "K4a"), ("flash_bwd_dkv", split_src, 243, "K4b"))), {
         "name": "conv3x3_stats", "route": "cuda",
         "source": "distributed_training_tpu_torch/csrc/conv3x3_stats.cu",
         "replaces": "tools/conv_fusion_probe.py:55", **by_path("conv3x3_stats"),
@@ -1013,7 +1316,9 @@ def main() -> int:
         "library_ms": s0["library_ms"], "library_call": "F.conv2d bf16 (cuDNN)",
         "bound_ms": s0["bound_ms"], "bound_by": s0["bound_by"],
         "max_abs_err": max(r["max_abs_err"] for r in k5_shapes.values()),
-        "by_shape": k5_shapes, "ok": True,
+        "by_shape": k5_shapes, "fp16_ms": half["k5"]["s0"]["ms"],
+        "fp16_max_abs_err": max(r["max_abs_err"] for r in half["k5"].values()),
+        "fp16_by_shape": half["k5"], "instantiations": built("K5"), "ok": True,
     }]
     print(json.dumps({"kernels": kernels}))
     print(card)

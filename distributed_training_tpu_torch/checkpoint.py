@@ -13,6 +13,10 @@ A directory without the marker, or whose files no longer match the
 manifest, is not a checkpoint: :func:`latest_valid_epoch` skips it (and
 quarantines it to ``epoch_N.corrupt``), and :func:`restore_checkpoint`
 refuses it. Orbax compatibility with the JAX package is not a goal.
+
+A data-parallel save is written by rank 0 alone, in the same format: the
+state partitioned by ZeRO is gathered to whole tensors first, so a save
+made at any stage and world resumes at any other.
 """
 
 from __future__ import annotations
@@ -58,18 +62,28 @@ def _write_atomic(path: str, data: bytes) -> None:
 def save_checkpoint(directory: str, epoch: int, state) -> str:
     """Save ``state`` (a ``TrainState``) at the end of ``epoch``; returns
     the path. The metadata says where a resume starts: ``next_epoch``,
-    after ``epoch_step`` of its batches (0 for an end-of-epoch save)."""
+    after ``epoch_step`` of its batches (0 for an end-of-epoch save).
+
+    Data-parallel: every rank calls it. The partitioned state is gathered
+    to whole tensors on every rank (``TrainState.state_dict``), rank 0
+    writes the world-1 format, and the others wait at a barrier until the
+    save is committed."""
     path = _epoch_dir(directory, epoch)
+    sd = state.state_dict()
+    if state.zero.rank != 0:
+        state.zero.barrier()
+        return path
     if os.path.isdir(path):
         shutil.rmtree(path)
     os.makedirs(path)
     meta = {"epoch": epoch, "next_epoch": epoch + 1, "epoch_step": 0}
     payload = os.path.join(path, PAYLOAD)
-    torch.save({"state": state.state_dict(), "meta": meta}, payload)
+    torch.save({"state": sd, "meta": meta}, payload)
     files = {PAYLOAD: [os.path.getsize(payload), _crc_file(payload)]}
     _write_atomic(os.path.join(path, MANIFEST_NAME),
                   json.dumps({"files": files}).encode())
     _write_atomic(os.path.join(path, COMMIT_NAME), b"")
+    state.zero.barrier()
     return path
 
 
@@ -101,8 +115,9 @@ def checkpoint_is_valid(path: str) -> bool:
 
 
 def restore_checkpoint(directory: str, epoch: int, state) -> tuple[int, int]:
-    """Load the save of ``epoch`` into ``state`` in place; returns
-    ``(start_epoch, start_step)``."""
+    """Load the save of ``epoch`` into ``state`` in place, partitioned for
+    its stage and world whatever they were at the save; returns
+    ``(start_epoch, start_step)``. Every rank calls it."""
     path = _epoch_dir(directory, epoch)
     if not os.path.isdir(path):
         raise FileNotFoundError(f"no checkpoint at {path}")
@@ -144,13 +159,15 @@ def latest_valid_epoch(directory: str, *, quarantine: bool = True) -> int | None
     return None
 
 
-def resolve_resume(ckpt_cfg) -> int:
+def resolve_resume(ckpt_cfg, *, quarantine: bool = True) -> int:
     """Resume epoch for a ``CheckpointConfig``: an explicit ``resume >= 0``
-    wins; else ``auto_resume`` takes the newest verified save; -1 = fresh."""
+    wins; else ``auto_resume`` takes the newest verified save; -1 = fresh.
+    ``quarantine`` as in :func:`latest_valid_epoch` (rank 0 only, when
+    several processes look at one directory)."""
     if ckpt_cfg.resume >= 0:
         return ckpt_cfg.resume
     if ckpt_cfg.auto_resume:
-        latest = latest_valid_epoch(ckpt_cfg.directory)
+        latest = latest_valid_epoch(ckpt_cfg.directory, quarantine=quarantine)
         if latest is not None:
             return latest
     return -1

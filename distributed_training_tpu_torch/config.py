@@ -9,8 +9,8 @@ Not carried over yet (see ROADMAP.md): ``from_ds_config``,
 ``ServeConfig``, ``ObservabilityConfig``, ``ChaosConfig`` and
 ``TraceConfig``. ``TrainConfig`` therefore has no ``observability`` or
 ``chaos`` field; passing one raises ``TypeError``. Fields that exist but
-whose behaviour the port does not provide yet (MoE, meshes beyond one
-device, and the options listed in the trainers) raise
+whose behaviour the port does not provide yet (MoE, mesh axes other than
+``data``, and the options listed in the trainers) raise
 ``NotImplementedError`` in the ``Trainer`` or ``LMTrainer`` when set away
 from their defaults.
 """
@@ -76,7 +76,10 @@ class PrecisionConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ZeroConfig:
-    """ZeRO sharding. The port runs on one device: only ``stage=0``."""
+    """ZeRO sharding over the data-parallel ranks (``parallel/zero.py``):
+    ``stage`` 0–3 and ``cpu_offload`` in the image ``Trainer``. The bucket
+    and overlap knobs are DeepSpeed's and are read by nothing: each
+    exchange of a step is one collective on one flat buffer."""
 
     stage: int = 0
     allgather_partitions: bool = True
@@ -142,7 +145,8 @@ class DataConfig:
 @dataclasses.dataclass(frozen=True)
 class MeshSpec:
     """Logical mesh axis sizes; -1 infers from the device count. The port
-    runs on one device: every axis but ``data`` (-1 or 1) must be 1."""
+    runs data parallelism only: ``data`` is -1 or the world size
+    (:func:`resolve_data_axis`), every other axis must be 1."""
 
     data: int = -1
     fsdp: int = 1
@@ -268,3 +272,15 @@ def effective_batch_sizes(cfg: TrainConfig, world: int,
             f"global batch {gbs} not divisible by "
             f"gradient_accumulation_steps={accum}")
     return gbs, gbs // accum, accum
+
+
+def resolve_data_axis(mesh: MeshSpec, world: int) -> int:
+    """``mesh.data`` against the number of processes: -1 infers it, any
+    other value must equal it. (Axes other than ``data`` are refused by
+    the trainers.)"""
+    if mesh.data == -1:
+        return world
+    if mesh.data != world:
+        raise ValueError(f"mesh data axis {mesh.data} does not match the "
+                         f"world size {world}")
+    return mesh.data

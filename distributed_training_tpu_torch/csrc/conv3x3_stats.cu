@@ -1,5 +1,6 @@
 // Stride-1 SAME 3x3 convolution with the per-channel sum and sum of squares
-// of its float32 result, for Hopper (sm_90a), in float32 or bfloat16.
+// of its float32 result, for Hopper (sm_90a), in float32, bfloat16 or
+// float16.
 //
 // Replaces the Pallas kernel of tools/conv_fusion_probe.py,
 // pallas_conv3x3_stats (body _conv_kernel, conv_fusion_probe.py:55): x
@@ -19,7 +20,8 @@
 // MB at s0 (0.0613 ms at 3.35 TB/s, bound by bytes), 102.8 MB at s1 and
 // 51.4 MB at s2 (bound by operations, 0.0598 ms).
 //
-// bfloat16 (conv_wgmma::conv_kernel) runs on the tensor cores, an implicit
+// bfloat16 and float16 (conv_wgmma::conv_kernel<T, NC>, one instantiation
+// per type) run on the tensor cores, an implicit
 // GEMM of M = 64 output pixels (an 8 x 8 tile of one image) by N = 64
 // output channels (32 where Cout <= 32) by K = 9 taps x Cin, one
 // warpgroup a block:
@@ -48,13 +50,14 @@
 //     tensor cores' own accumulation rounds toward zero, and over the 9 x
 //     Cin / 16 steps of one long chain that bias would show in the sum of
 //     squares;
-//   - the epilogue writes out in bf16 from the accumulator fragment and
+//   - the epilogue writes out in T from the accumulator fragment and
 //     reduces each channel's sum and sum of squares over the tile's valid
 //     pixels only (rows past the image edge are built from zero-filled
 //     halo pixels but still pick up real neighbours, so they are not
 //     zero), by shuffles over the 8 lanes of a column, then across the 4
 //     warps through shared memory, in a fixed order.
-// It needs 16-byte rows: Cin and Cout multiples of 8.
+// It needs 16-byte rows: Cin and Cout multiples of 8 (the wrapper pads
+// other channel counts with zero channels and slices the result).
 //
 // float32 (conv3x3_stats_kernel) keeps its CUDA-core kernel: on the tensor
 // cores it would run as TF32, which cannot hold the float32 limits. Every
@@ -225,7 +228,8 @@ __device__ __forceinline__ uint32_t halo_offset(int hp, int c) {
 // Channels [c0, c0 + 64) of the 10 x 10 input pixels around the output
 // tile at (y0, x0), asynchronously; pixels off the image and channels past
 // cin read as zeros.
-__device__ __forceinline__ void load_halo(uint32_t hs, const bf16* xn, int y0,
+template <typename T>
+__device__ __forceinline__ void load_halo(uint32_t hs, const T* xn, int y0,
                                           int x0, int c0, int h, int wd,
                                           int cin, int tid) {
   for (int i = tid; i < kHaloPixels * 8; i += kThreads) {
@@ -240,8 +244,8 @@ __device__ __forceinline__ void load_halo(uint32_t hs, const bf16* xn, int y0,
 
 // w[tap, c0:c0+64, co0:co0+NC] into a [64, NC] tile, asynchronously; rows
 // past cin and columns past cout read as zeros.
-template <int NC>
-__device__ __forceinline__ void load_weights(uint32_t ws, const bf16* w,
+template <typename T, int NC>
+__device__ __forceinline__ void load_weights(uint32_t ws, const T* w,
                                              int tap, int c0, int co0,
                                              int cin, int cout, int tid) {
   constexpr int kChunksPerRow = NC / 8;
@@ -266,10 +270,10 @@ constexpr size_t smem_bytes() {
 // One block: the 8 x 8 output pixels of pixel block blockIdx.x / co_blocks
 // by the NC output channels of slice blockIdx.x % co_blocks (see the note
 // at the top of the file).
-template <int NC>
+template <typename T, int NC>
 __global__ void __launch_bounds__(kThreads)
-conv_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-            bf16* __restrict__ out, float* __restrict__ psum,
+conv_kernel(const T* __restrict__ x, const T* __restrict__ w,
+            T* __restrict__ out, float* __restrict__ psum,
             float* __restrict__ psumsq, int h, int wd, int cin, int cout,
             int tiles_x, int tiles, int co_blocks) {
   using TW = Tile<NC>;
@@ -285,7 +289,7 @@ conv_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   const int tile = pix_block % tiles;
   const int y0 = (tile / tiles_x) * kTile;
   const int x0 = (tile % tiles_x) * kTile;
-  const bf16* xn = x + (size_t)n * h * wd * cin;
+  const T* xn = x + (size_t)n * h * wd * cin;
   const int tid = threadIdx.x;
   const int lane = tid % 32, warp = tid / 32;
   // The output pixel whose row of A this lane addresses for ldmatrix, and
@@ -294,8 +298,8 @@ conv_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   const int hp0 = (p / kTile) * kHaloW + p % kTile;
   const int nsteps = 9 * ((cin + kChunk - 1) / kChunk);
 
-  load_halo(hs(0), xn, y0, x0, 0, h, wd, cin, tid);
-  load_weights<NC>(ws(0), w, 0, 0, co0, cin, cout, tid);
+  load_halo<T>(hs(0), xn, y0, x0, 0, h, wd, cin, tid);
+  load_weights<T, NC>(ws(0), w, 0, 0, co0, cin, cout, tid);
   cp_async_commit();
 
   float acc[NC / 2], part[NC / 2];
@@ -308,8 +312,8 @@ conv_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
     if (s + 1 < nsteps) {
       const int next_tap = (s + 1) % 9, next_c0 = (s + 1) / 9 * kChunk;
       if (next_tap == 0)
-        load_halo(hs((chunk + 1) & 1), xn, y0, x0, next_c0, h, wd, cin, tid);
-      load_weights<NC>(ws((s + 1) & 1), w, next_tap, next_c0, co0, cin, cout,
+        load_halo<T>(hs((chunk + 1) & 1), xn, y0, x0, next_c0, h, wd, cin, tid);
+      load_weights<T, NC>(ws((s + 1) & 1), w, next_tap, next_c0, co0, cin, cout,
                        tid);
     }
     cp_async_commit();
@@ -326,7 +330,7 @@ conv_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      wgmma_rs<NC, 1>(part, a[kk], TW::mn_major(ws(s & 1), 0, kk), kk > 0);
+      wgmma_rs<T, NC, 1>(part, a[kk], TW::mn_major(ws(s & 1), 0, kk), kk > 0);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(part);
@@ -357,7 +361,7 @@ conv_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
       const int co = co0 + 8 * j + cq;
       if (valid[hh] && co < cout)
         *reinterpret_cast<uint32_t*>(out + at[hh] + co) =
-            pack_bf16(acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
+            pack2<T>(acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
     }
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
@@ -391,7 +395,7 @@ conv_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   }
 }
 
-template <int NC>
+template <typename T, int NC>
 int launch(const void* x, const void* w, void* out, float* psum,
            float* psumsq, int h, int wd, int cin, int cout, int tiles_x,
            int tiles, long long pixel_blocks, cudaStream_t stream) {
@@ -399,12 +403,12 @@ int launch(const void* x, const void* w, void* out, float* psum,
   const int co_blocks = (cout + NC - 1) / NC;
   if (pixel_blocks * co_blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      conv_kernel<NC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      conv_kernel<T, NC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  conv_kernel<NC><<<(unsigned)(pixel_blocks * co_blocks), kThreads, smem,
+  conv_kernel<T, NC><<<(unsigned)(pixel_blocks * co_blocks), kThreads, smem,
                     stream>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w),
-      static_cast<bf16*>(out), psum, psumsq, h, wd, cin, cout, tiles_x, tiles,
+      static_cast<const T*>(x), static_cast<const T*>(w),
+      static_cast<T*>(out), psum, psumsq, h, wd, cin, cout, tiles_x, tiles,
       co_blocks);
   return (int)cudaGetLastError();
 }
@@ -420,28 +424,33 @@ long long conv3x3_stats_blocks(int n, int h, int wd) {
 }
 
 // x: [n, h, wd, cin], w: [3, 3, cin, cout], out: [n, h, wd, cout], all
-// contiguous, of one dtype, float32 (is_bf16 = 0; cin and cout multiples
-// of 4) or bfloat16 (is_bf16 = 1; multiples of 8), 16-byte aligned. psum,
+// contiguous, of one dtype, float32 (dtype = 0; cin and cout multiples of
+// 4), bfloat16 (dtype = 1) or float16 (dtype = 2; multiples of 8), 16-byte
+// aligned. psum,
 // psumsq: float32 [conv3x3_stats_blocks(n, h, wd), cout].
 int conv3x3_stats(const void* x, const void* w, void* out, void* psum,
                   void* psumsq, int n, int h, int wd, int cin, int cout,
-                  int is_bf16, void* stream) {
+                  int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long blocks = conv3x3_stats_blocks(n, h, wd);
-  const int align = is_bf16 ? 8 : 4;
+  const int align = dtype == 0 ? 4 : 8;
   if (n <= 0 || h <= 0 || wd <= 0 || cin <= 0 || cout <= 0 || cin % align ||
-      cout % align || blocks > 0x7fffffffLL)
+      cout % align || dtype < 0 || dtype > 2 || blocks > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   const int tiles_x = (wd + kTile - 1) / kTile;
   const int tiles = tiles_x * ((h + kTile - 1) / kTile);
   float* ps = static_cast<float*>(psum);
   float* pss = static_cast<float*>(psumsq);
-  if (is_bf16)
-    return cout <= 32
-               ? conv_wgmma::launch<32>(x, w, out, ps, pss, h, wd, cin, cout,
-                                        tiles_x, tiles, blocks, s)
-               : conv_wgmma::launch<64>(x, w, out, ps, pss, h, wd, cin, cout,
-                                        tiles_x, tiles, blocks, s);
+#define CONV_WGMMA(T)                                                    \
+  return cout <= 32 ? conv_wgmma::launch<T, 32>(x, w, out, ps, pss, h, wd, \
+                                                cin, cout, tiles_x, tiles, \
+                                                blocks, s)                 \
+                    : conv_wgmma::launch<T, 64>(x, w, out, ps, pss, h, wd, \
+                                                cin, cout, tiles_x, tiles, \
+                                                blocks, s)
+  if (dtype == 1) CONV_WGMMA(__nv_bfloat16);
+  if (dtype == 2) CONV_WGMMA(__half);
+#undef CONV_WGMMA
   const dim3 grid((unsigned)blocks, (unsigned)((cout + kCo - 1) / kCo));
   conv3x3_stats_kernel<<<grid, kThreads, 0, s>>>(
       static_cast<const float*>(x), static_cast<const float*>(w),
@@ -449,8 +458,9 @@ int conv3x3_stats(const void* x, const void* w, void* out, void* psum,
   return (int)cudaGetLastError();
 }
 
-// Dynamic shared memory a block of the bf16 tensor-core kernel takes at
-// nc output channels a block (32 or 64); -1 for anything else.
+// Dynamic shared memory a block of the tensor-core kernel (bf16 and fp16
+// alike) takes at nc output channels a block (32 or 64); -1 for anything
+// else.
 int conv3x3_stats_wgmma_smem_bytes(int nc) {
   return nc == 32   ? (int)conv_wgmma::smem_bytes<32>()
          : nc == 64 ? (int)conv_wgmma::smem_bytes<64>()

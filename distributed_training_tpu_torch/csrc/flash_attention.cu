@@ -1,24 +1,24 @@
 // Flash attention for Hopper (sm_90a): the forward (K2) and the fused
-// backward (K3), on [BH, T, D] tensors in float32 or bfloat16 (bfloat16 on
-// the tensor cores, flash_wgmma.cuh).
+// backward (K3), on [BH, T, D] tensors in float32, bfloat16 or float16 (the
+// two 16-bit types on the tensor cores, flash_wgmma.cuh, one instantiation
+// each).
 //
 // Replaces the Pallas kernels of distributed_training_tpu/ops/
 // flash_attention.py:
-//   - flash_wgmma::fwd_kernel<D> (bf16), flash_fwd_kernel<float, D>  <-
-//     _flash_fwd (body _fwd_kernel): online-softmax
-//     attention, causal tiles that are wholly masked skipped (_live_block);
-//     out in the input dtype and lse in float32, one value per row (the
+//   - flash_wgmma::fwd_kernel<T, D> (bf16, fp16), flash_fwd_kernel<float,
+//     D>  <- _flash_fwd (body _fwd_kernel): online-softmax attention,
+//     causal tiles that are wholly masked skipped (_live_block); out in the input dtype and lse in float32, one value per row (the
 //     TPU's LSE_LANES replication was a Mosaic layout rule, not part of
 //     the function);
-//   - flash_wgmma::bwd_kernel<D, true> (bf16), flash_bwd_kernel<float, D,
-//     true> (flash_tiles.cuh)  <- _flash_bwd (body
+//   - flash_wgmma::bwd_kernel<T, D, true> (bf16, fp16), flash_bwd_kernel<
+//     float, D, true> (flash_tiles.cuh)  <- _flash_bwd (body
 //     _fused_bwd_kernel): dq, dk, dv from p = exp(s - lse) recomputed once
 //     per tile and shared by the three products. delta = rowsum(dO * out)
 //     - g_lse is a plain tensor op before the launch, as in _bwd_prologue.
 // Both take use_exp2 (the JAX _USE_EXP2 switch, see flash_tiles.cuh).
 //
 // Same numerics as the TPU kernels: scores and every product accumulate in
-// float32 from the stored (fp32 or bf16) values; masked scores are
+// float32 from the stored (fp32, bf16 or fp16) values; masked scores are
 // -1e30; p is rounded to the input dtype before it multiplies V (forward)
 // or dO (backward), and dS before it multiplies Q or K; a row with l == 0
 // writes 0 and lse = m + log(max(l, 1e-30)).
@@ -229,18 +229,19 @@ int launch_fwd(const void* q, const void* k, const void* v, void* out,
 
 extern "C" {
 
-// q, k, v, out: [bh, t, d] contiguous, float32 (is_bf16 = 0) or bfloat16
-// (is_bf16 = 1), 16-byte aligned; lse: [bh, t] float32. d: 32, 64 or 128.
+// q, k, v, out: [bh, t, d] contiguous, float32 (dtype = 0), bfloat16
+// (dtype = 1) or float16 (dtype = 2), 16-byte aligned; lse: [bh, t]
+// float32. d: 32, 64 or 128 (the wrapper pads any other d up to one).
 // scale: 1/sqrt(d) (use_exp2 folds log2(e) into it inside the kernel).
 int flash_fwd(const void* q, const void* k, const void* v, void* out,
-              void* lse, int bh, int t, int d, int is_bf16, int causal,
+              void* lse, int bh, int t, int d, int dtype, int causal,
               int use_exp2, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
 #define FWD(T, D) \
   launch_fwd<T, D>(q, k, v, out, l, bh, t, causal, use_exp2, scale, s)
 #define FWD_WGMMA(T, D)                                                 \
-  flash_wgmma::launch_fwd<D>(q, k, v, out, l, bh, t, causal, use_exp2, \
+  flash_wgmma::launch_fwd<T, D>(q, k, v, out, l, bh, t, causal, use_exp2, \
                              scale, s)
   FLASH_DISPATCH(FWD_WGMMA, FWD);
 #undef FWD_WGMMA
@@ -252,7 +253,7 @@ int flash_fwd(const void* q, const void* k, const void* v, void* out,
 // it).
 int flash_bwd(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dq_acc, void* dk,
-              void* dv, int bh, int t, int d, int is_bf16, int causal,
+              void* dv, int bh, int t, int d, int dtype, int causal,
               int use_exp2, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
@@ -262,15 +263,15 @@ int flash_bwd(const void* q, const void* k, const void* v, const void* dout,
   launch_bwd<T, D, true>(q, k, v, dout, l, dl, dq, dk, dv, bh, t, causal,  \
                          use_exp2, scale, s)
 #define BWD_WGMMA(T, D)                                                 \
-  flash_wgmma::launch_bwd<D, true>(q, k, v, dout, l, dl, dq, dk, dv, bh, \
+  flash_wgmma::launch_bwd<T, D, true>(q, k, v, dout, l, dl, dq, dk, dv, bh, \
                                    t, causal, use_exp2, scale, s)
   FLASH_DISPATCH(BWD_WGMMA, BWD);
 #undef BWD_WGMMA
 #undef BWD
 }
 
-// Dynamic shared memory a block of the bf16 tensor-core kernels takes at
-// head dim d: kernel 0 the forward (K2), 1 the backward with dq (K3), 2
+// Dynamic shared memory a block of the tensor-core kernels (bf16 and fp16
+// alike) takes at head dim d: kernel 0 the forward (K2), 1 the backward with dq (K3), 2
 // without it (K4b), 3 the split backward's dq (K4a); -1 for anything else.
 int flash_wgmma_smem_bytes(int kernel, int d) {
 #define SMEM(D)                                                         \

@@ -1,12 +1,12 @@
 // The split flash-attention backward for Hopper (sm_90a): dQ (K4a) and
-// dK, dV (K4b) in two launches, on [BH, T, D] tensors in float32 or
-// bfloat16.
+// dK, dV (K4b) in two launches, on [BH, T, D] tensors in float32,
+// bfloat16 or float16 (the 16-bit types on the tensor cores).
 //
 // Replaces the two Pallas kernels of _flash_bwd_split in
 // distributed_training_tpu/ops/flash_attention.py, which the JAX package
 // runs under its _USE_SPLIT_BWD switch (tools/flash_kernel_bench.py
 // --split-bwd):
-//   - flash_wgmma::dq_kernel<D> (bf16, flash_wgmma.cuh) and
+//   - flash_wgmma::dq_kernel<T, D> (bf16, fp16; flash_wgmma.cuh) and
 //     flash_bwd_dq_kernel<float, D> (below)  <- _dq_kernel
 //     (flash_attention.py:212): one block per (bh, 64-row q tile) sweeps
 //     the live k tiles; dq accumulates in float32 registers and is written
@@ -15,7 +15,7 @@
 //     atomics in an order that changes). In bf16 it is the forward's loop
 //     on the tensor cores with one more product (redesigned; 1.3209 ms
 //     before, on CUDA cores);
-//   - flash_wgmma::bwd_kernel<D, false> (bf16, flash_wgmma.cuh) and
+//   - flash_wgmma::bwd_kernel<T, D, false> (bf16, fp16; flash_wgmma.cuh) and
 //     flash_bwd_kernel<float, D, false> (flash_tiles.cuh)  <- _dkv_kernel
 //     (flash_attention.py:243): one block per (bh, 64-row k tile) sweeps
 //     the q tiles from the diagonal; dk and dv in registers, written once.
@@ -214,12 +214,13 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
 
 extern "C" {
 
-// q, k, v, dout, dq: [bh, t, d] contiguous, float32 (is_bf16 = 0) or
-// bfloat16 (is_bf16 = 1), 16-byte aligned; lse, delta: [bh, t] float32.
+// q, k, v, dout, dq: [bh, t, d] contiguous, float32 (dtype = 0), bfloat16
+// (dtype = 1) or float16 (dtype = 2), 16-byte aligned; lse, delta: [bh, t]
+// float32.
 // d: 32, 64 or 128. scale: 1/sqrt(d).
 int flash_bwd_dq(const void* q, const void* k, const void* v,
                  const void* dout, const void* lse, const void* delta,
-                 void* dq, int bh, int t, int d, int is_bf16, int causal,
+                 void* dq, int bh, int t, int d, int dtype, int causal,
                  int use_exp2, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
@@ -227,7 +228,7 @@ int flash_bwd_dq(const void* q, const void* k, const void* v,
 #define DQ(T, D) \
   launch_dq<T, D>(q, k, v, dout, l, dl, dq, bh, t, causal, use_exp2, scale, s)
 #define DQ_WGMMA(T, D)                                                      \
-  flash_wgmma::launch_dq<D>(q, k, v, dout, l, dl, dq, bh, t, causal,        \
+  flash_wgmma::launch_dq<T, D>(q, k, v, dout, l, dl, dq, bh, t, causal,        \
                             use_exp2, scale, s)
   FLASH_DISPATCH(DQ_WGMMA, DQ);
 #undef DQ_WGMMA
@@ -237,7 +238,7 @@ int flash_bwd_dq(const void* q, const void* k, const void* v,
 // As flash_bwd_dq, writing dk and dv ([bh, t, d], the inputs' dtype).
 int flash_bwd_dkv(const void* q, const void* k, const void* v,
                   const void* dout, const void* lse, const void* delta,
-                  void* dk, void* dv, int bh, int t, int d, int is_bf16,
+                  void* dk, void* dv, int bh, int t, int d, int dtype,
                   int causal, int use_exp2, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
@@ -246,7 +247,7 @@ int flash_bwd_dkv(const void* q, const void* k, const void* v,
   launch_bwd<T, D, false>(q, k, v, dout, l, dl, nullptr, dk, dv, bh, t,     \
                           causal, use_exp2, scale, s)
 #define DKV_WGMMA(T, D)                                                     \
-  flash_wgmma::launch_bwd<D, false>(q, k, v, dout, l, dl, nullptr, dk, dv,  \
+  flash_wgmma::launch_bwd<T, D, false>(q, k, v, dout, l, dl, nullptr, dk, dv,  \
                                     bh, t, causal, use_exp2, scale, s)
   FLASH_DISPATCH(DKV_WGMMA, DKV);
 #undef DKV_WGMMA

@@ -1,7 +1,7 @@
 // Tile helpers of the flash-attention kernels on CUDA cores, and the
 // backward's k-tile loop, shared by flash_attention.cu (K2, K3) and
 // flash_attention_split.cu (K4a, K4b). They run every float32
-// instantiation; in bfloat16 all four run on the tensor cores
+// instantiation; in bfloat16 and float16 all four run on the tensor cores
 // (flash_wgmma.cuh).
 //
 // Layout common to all of them: one block of 256 threads (16 x 16) per
@@ -367,19 +367,24 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
 
 }  // namespace flash
 
-// Dispatch on the element type and head dim: BF16(T, D) for bfloat16
-// (is_bf16 = 1), F32(T, D) for float32, D 32, 64 or 128; anything else is
-// refused. It returns from the enclosing function on every path. The flash
-// kernels send bf16 to the tensor-core tiles of flash_wgmma.cuh and float32
-// to the CUDA-core loops above.
-#define FLASH_DISPATCH(BF16, F32)                   \
-  if (is_bf16) {                                    \
-    if (d == 32) return BF16(__nv_bfloat16, 32);    \
-    if (d == 64) return BF16(__nv_bfloat16, 64);    \
-    if (d == 128) return BF16(__nv_bfloat16, 128);  \
-  } else {                                          \
-    if (d == 32) return F32(float, 32);             \
-    if (d == 64) return F32(float, 64);             \
-    if (d == 128) return F32(float, 128);           \
-  }                                                 \
+// Dispatch on the element type and head dim: WGMMA(T, D) for bfloat16
+// (dtype = 1, T __nv_bfloat16) and float16 (dtype = 2, T __half), F32(T,
+// D) for float32 (dtype = 0), D 32, 64 or 128; anything else is refused. It
+// returns from the enclosing function on every path. The flash kernels
+// send the 16-bit types to the tensor-core tiles of flash_wgmma.cuh and
+// float32 to the CUDA-core loops above.
+#define FLASH_DISPATCH(WGMMA, F32)                   \
+  if (dtype == 1) {                                  \
+    if (d == 32) return WGMMA(__nv_bfloat16, 32);    \
+    if (d == 64) return WGMMA(__nv_bfloat16, 64);    \
+    if (d == 128) return WGMMA(__nv_bfloat16, 128);  \
+  } else if (dtype == 2) {                           \
+    if (d == 32) return WGMMA(__half, 32);           \
+    if (d == 64) return WGMMA(__half, 64);           \
+    if (d == 128) return WGMMA(__half, 128);         \
+  } else if (dtype == 0) {                           \
+    if (d == 32) return F32(float, 32);              \
+    if (d == 64) return F32(float, 64);              \
+    if (d == 128) return F32(float, 128);            \
+  }                                                  \
   return (int)cudaErrorInvalidValue

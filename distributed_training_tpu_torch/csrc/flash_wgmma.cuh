@@ -1,13 +1,16 @@
-// bf16 flash-attention tiles on Hopper's tensor cores (sm_90a): the forward
-// (K2), the backward's k-tile loop (K3 with dQ, K4b without) and the split
-// backward's q-tile loop (K4a, dQ only), included by flash_attention.cu and
-// flash_attention_split.cu; the PTX wrappers and the swizzled tile are
-// wgmma.cuh's. float32 inputs keep the CUDA-core loops of flash_tiles.cuh
+// bf16 and fp16 flash-attention tiles on Hopper's tensor cores (sm_90a):
+// the forward (K2), the backward's k-tile loop (K3 with dQ, K4b without) and
+// the split backward's q-tile loop (K4a, dQ only), included by
+// flash_attention.cu and flash_attention_split.cu; the PTX wrappers and the
+// swizzled tile are wgmma.cuh's. Every kernel is a template on the element
+// type T (bf16 or fp16): the two differ only in the wgmma instruction's
+// operand type and in the rounding of p, p^T and dS^T into A fragments
+// (pack2<T>), as the JAX kernels round p to the value dtype in either. float32 inputs keep the CUDA-core loops of flash_tiles.cuh
 // and flash_attention_split.cu: on the tensor cores they would run as
 // TF32, which cannot hold the float32 limit.
 //
 // Design, one warpgroup (128 threads) per block, one 64-row tile a block:
-//   - Tiles stay bf16 in shared memory in the layout wgmma reads: rows of
+//   - Tiles stay T in shared memory in the layout wgmma reads: rows of
 //     a [64, D] tile in column blocks of 64 values (128 bytes, the row of
 //     the 128-byte swizzle; D 128 is two such blocks), or at D 32 rows of
 //     64 bytes under the 64-byte swizzle. Each 16-byte chunk of a row sits
@@ -16,7 +19,7 @@
 //   - Every tile product is wgmma.mma_async with float32 accumulators in
 //     registers. Forward: S = Q K^T (A = Q, B = K, both K-major), then
 //     O += P V with A = P from registers (the S accumulator rounded to
-//     bf16 in place: its fragment is the A fragment of the next product)
+//     T in place: its fragment is the A fragment of the next product)
 //     and B = V MN-major (the transpose bit). Backward, per live q tile:
 //     S^T = K Q^T and dP^T = V dO^T; dV += P^T dO and dK += dS^T Q with A
 //     from registers; dQ = dS K with A = dS^T written once to shared
@@ -38,7 +41,7 @@
 //     shuffle that gives each lane four consecutive values of a row: a
 //     quarter of the atomics of the scalar form.
 // Numerics as flash_tiles.cuh: scores and products accumulate in float32,
-// masked scores are -1e30, p is rounded to bf16 before it multiplies V or
+// masked scores are -1e30, p is rounded to T before it multiplies V or
 // dO and dS before it multiplies Q or K, a row with l = 0 writes 0 and
 // lse = m + log(max(l, 1e-30)); use_exp2 branches once per tile.
 
@@ -61,8 +64,8 @@ using flash::softmax_exp;
 
 // Rows [row0, row0 + 64) of a [t, D] matrix into a tile, asynchronously;
 // rows at or past t read as zeros.
-template <int D>
-__device__ __forceinline__ void load_tile(uint32_t tile, const bf16* g,
+template <typename T, int D>
+__device__ __forceinline__ void load_tile(uint32_t tile, const T* g,
                                           int row0, int t, int tid) {
   constexpr int kChunksPerRow = D / 8;
 #pragma unroll
@@ -103,16 +106,17 @@ __device__ __forceinline__ float quad_sum(float x) {
 
 // Accumulator fragments (64 x N float32, N / 2 a thread): register i of a
 // thread holds row r0 + 8 ((i >> 1) & 1) and column 8 (i / 4) + cq + (i &
-// 1), r0 = 16 warp + lane / 4, cq = 2 (lane % 4). The bf16 A fragment of
+// 1), r0 = 16 warp + lane / 4, cq = 2 (lane % 4). The T A fragment of
 // k step kk of a product over those columns is registers 8 kk .. 8 kk + 7
 // taken in pairs, so an accumulator becomes an A operand in place.
+template <typename T>
 __device__ __forceinline__ void to_a_fragments(const float (&s)[32],
                                                uint32_t (&a)[4][4]) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-      a[kk][j] = pack_bf16(s[8 * kk + 2 * j], s[8 * kk + 2 * j + 1]);
+      a[kk][j] = pack2<T>(s[8 * kk + 2 * j], s[8 * kk + 2 * j + 1]);
 }
 
 // ------------------------------------------------------------------ forward
@@ -120,7 +124,7 @@ __device__ __forceinline__ void to_a_fragments(const float (&s)[32],
 // One k tile's step of the online softmax on the S accumulator: scale and
 // (edge tiles only) mask, running max m and this thread's part of the sum
 // l for its two rows, O rescaled, P rounded into A fragments.
-template <bool kExp2, int D>
+template <typename T, bool kExp2, int D>
 __device__ __forceinline__ void fwd_softmax(
     float (&s)[32], float (&m)[2], float (&l)[2],
     float (&o)[Tile<D>::kBlocks][Tile<D>::kCols / 2], uint32_t (&p)[4][4],
@@ -156,7 +160,7 @@ __device__ __forceinline__ void fwd_softmax(
   for (int b = 0; b < Tile<D>::kBlocks; ++b)
 #pragma unroll
     for (int i = 0; i < Tile<D>::kCols / 2; ++i) o[b][i] *= corr[(i >> 1) & 1];
-  to_a_fragments(s, p);
+  to_a_fragments<T>(s, p);
 }
 
 // Shared memory: Q, then two stages of (K, V); 1024 bytes of alignment.
@@ -165,10 +169,10 @@ constexpr size_t fwd_smem_bytes() {
   return 5 * (size_t)Tile<D>::kBytes + 1024;
 }
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
-fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-           const bf16* __restrict__ v, bf16* __restrict__ out,
+fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+           const T* __restrict__ v, T* __restrict__ out,
            float* __restrict__ lse, int bh_count, int t, int causal,
            int use_exp2, float scale) {
   using TL = Tile<D>;
@@ -188,9 +192,9 @@ fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int k_end = causal ? min(t, q0 + kRows) : t;
   const int nk = (k_end + kRows - 1) / kRows;
 
-  load_tile<D>(qs, q + base, q0, t, tid);
-  load_tile<D>(ks(0), k + base, 0, t, tid);
-  load_tile<D>(vs(0), v + base, 0, t, tid);
+  load_tile<T, D>(qs, q + base, q0, t, tid);
+  load_tile<T, D>(ks(0), k + base, 0, t, tid);
+  load_tile<T, D>(vs(0), v + base, 0, t, tid);
   cp_async_commit();
 
   float o[TL::kBlocks][TL::kCols / 2];
@@ -204,8 +208,8 @@ fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int k0 = j * kRows;
     __syncthreads();  // tile j - 1's products are done: its stage is free
     if (j + 1 < nk) {
-      load_tile<D>(ks((j + 1) & 1), k + base, k0 + kRows, t, tid);
-      load_tile<D>(vs((j + 1) & 1), v + base, k0 + kRows, t, tid);
+      load_tile<T, D>(ks((j + 1) & 1), k + base, k0 + kRows, t, tid);
+      load_tile<T, D>(vs((j + 1) & 1), v + base, k0 + kRows, t, tid);
     }
     cp_async_commit();
     cp_async_wait<1>();  // tile j (and Q) landed
@@ -216,7 +220,7 @@ fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss_n64<0, 0>(s, TL::k_major(qs, kk), TL::k_major(ks(j & 1), kk),
+      wgmma_ss_n64<T, 0, 0>(s, TL::k_major(qs, kk), TL::k_major(ks(j & 1), kk),
                          kk > 0);
     wgmma_commit();
     wgmma_wait<0>();
@@ -225,10 +229,10 @@ fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bool edge = (causal && k0 == q0) || k0 + kRows > t;
     uint32_t p[4][4];
     if (use_exp2)
-      fwd_softmax<true, D>(s, m, l, o, p, edge, q0 + r0, k0 + cq, t, causal,
+      fwd_softmax<T, true, D>(s, m, l, o, p, edge, q0 + r0, k0 + cq, t, causal,
                            sscale);
     else
-      fwd_softmax<false, D>(s, m, l, o, p, edge, q0 + r0, k0 + cq, t, causal,
+      fwd_softmax<T, false, D>(s, m, l, o, p, edge, q0 + r0, k0 + cq, t, causal,
                             sscale);
 
     fence_regs(o);
@@ -237,7 +241,7 @@ fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int b = 0; b < TL::kBlocks; ++b)
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        wgmma_rs<TL::kCols, 1>(o[b], p[kk], TL::mn_major(vs(j & 1), b, kk), 1);
+        wgmma_rs<T, TL::kCols, 1>(o[b], p[kk], TL::mn_major(vs(j & 1), b, kk), 1);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(o);
@@ -256,7 +260,7 @@ fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int i = 2 * h; i < TL::kCols / 2; i += 4) {
         const int col = b * TL::kCols + 8 * (i / 4) + cq;
         *reinterpret_cast<uint32_t*>(out + base + (size_t)row * D + col) =
-            pack_bf16(o[b][i] * inv, o[b][i + 1] * inv);
+            pack2<T>(o[b][i] * inv, o[b][i + 1] * inv);
       }
     if (cq == 0) {
       const float lm = fmaxf(l[h], 1e-30f);
@@ -266,7 +270,7 @@ fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int D>
+template <typename T, int D>
 int launch_fwd(const void* q, const void* k, const void* v, void* out,
                float* lse, int bh, int t, int causal, int use_exp2,
                float scale, cudaStream_t stream) {
@@ -274,11 +278,11 @@ int launch_fwd(const void* q, const void* k, const void* v, void* out,
   unsigned blocks;
   if (int e = flash::blocks_for(t, kRows, bh, &blocks)) return e;
   cudaError_t err = cudaFuncSetAttribute(
-      fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  fwd_kernel<D><<<blocks, kThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, bh, t, causal,
+  fwd_kernel<T, D><<<blocks, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(out), lse, bh, t, causal,
       use_exp2, scale);
   return (int)cudaGetLastError();
 }
@@ -288,7 +292,7 @@ int launch_fwd(const void* q, const void* k, const void* v, void* out,
 // p^T (rounded) and dS^T (rounded) of one (k tile, q tile) pair as A
 // fragments, from the S^T and dP^T accumulators (keys by rows, queries by
 // columns). Edge tiles zero p outside the mask, rows past t included.
-template <bool kExp2>
+template <typename T, bool kExp2>
 __device__ __forceinline__ void bwd_probs(float (&st)[32], float (&dpt)[32],
                                           const float* lse_s,
                                           const float* delta_s,
@@ -309,8 +313,8 @@ __device__ __forceinline__ void bwd_probs(float (&st)[32], float (&dpt)[32],
     dpt[i] = p * (dpt[i] - delta_s[ql]);
     st[i] = p;
   }
-  to_a_fragments(st, pt);
-  to_a_fragments(dpt, dst);
+  to_a_fragments<T>(st, pt);
+  to_a_fragments<T>(dpt, dst);
 }
 
 // Shared memory: K, V, two stages of (Q, dO), with kDq the dS^T tile, then
@@ -324,13 +328,13 @@ constexpr size_t bwd_smem_bytes() {
 // dK and dV of one 64-key tile over the live q tiles, in registers, written
 // once. With kDq (K3) each q tile's dQ = dS K is added into dq_acc by
 // vector reductions; without it (K4b) dq_acc is not touched.
-template <int D, bool kDq>
+template <typename T, int D, bool kDq>
 __global__ void __launch_bounds__(kThreads)
-bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-           const bf16* __restrict__ v, const bf16* __restrict__ dout,
+bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+           const T* __restrict__ v, const T* __restrict__ dout,
            const float* __restrict__ lse, const float* __restrict__ delta,
-           float* __restrict__ dq_acc, bf16* __restrict__ dk,
-           bf16* __restrict__ dv, int bh_count, int t, int causal,
+           float* __restrict__ dq_acc, T* __restrict__ dk,
+           T* __restrict__ dv, int bh_count, int t, int causal,
            int use_exp2, float scale) {
   using TL = Tile<D>;
   extern __shared__ uint8_t smem[];
@@ -355,10 +359,10 @@ bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int q_start = causal ? k0 : 0;
   const int n_q = (t - q_start + kRows - 1) / kRows;
 
-  load_tile<D>(ks, k + base, k0, t, tid);
-  load_tile<D>(vs, v + base, k0, t, tid);
-  load_tile<D>(qs(0), q + base, q_start, t, tid);
-  load_tile<D>(dos(0), dout + base, q_start, t, tid);
+  load_tile<T, D>(ks, k + base, k0, t, tid);
+  load_tile<T, D>(vs, v + base, k0, t, tid);
+  load_tile<T, D>(qs(0), q + base, q_start, t, tid);
+  load_tile<T, D>(dos(0), dout + base, q_start, t, tid);
   load_row_stats(stats, stats + 256, lse, delta, row_base, q_start, t, tid);
   cp_async_commit();
 
@@ -374,8 +378,8 @@ bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();  // tile it - 1's products are done: its stage is free
     if (it + 1 < n_q) {
       const int nx = st ^ 1;
-      load_tile<D>(qs(nx), q + base, q0 + kRows, t, tid);
-      load_tile<D>(dos(nx), dout + base, q0 + kRows, t, tid);
+      load_tile<T, D>(qs(nx), q + base, q0 + kRows, t, tid);
+      load_tile<T, D>(dos(nx), dout + base, q0 + kRows, t, tid);
       load_row_stats(stats + 512 * nx, stats + 512 * nx + 256, lse, delta,
                      row_base, q0 + kRows, t, tid);
     }
@@ -388,11 +392,11 @@ bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss_n64<0, 0>(s_t, TL::k_major(ks, kk), TL::k_major(qs(st), kk),
+      wgmma_ss_n64<T, 0, 0>(s_t, TL::k_major(ks, kk), TL::k_major(qs(st), kk),
                          kk > 0);
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss_n64<0, 0>(dp_t, TL::k_major(vs, kk), TL::k_major(dos(st), kk),
+      wgmma_ss_n64<T, 0, 0>(dp_t, TL::k_major(vs, kk), TL::k_major(dos(st), kk),
                          kk > 0);
     wgmma_commit();
     wgmma_wait<0>();
@@ -404,10 +408,10 @@ bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const float* lse_s = stats_f + 128 * st;
     uint32_t p_t[4][4], ds_t[4][4];
     if (use_exp2)
-      bwd_probs<true>(s_t, dp_t, lse_s, lse_s + kRows, p_t, ds_t, edge,
+      bwd_probs<T, true>(s_t, dp_t, lse_s, lse_s + kRows, p_t, ds_t, edge,
                       k0 + r0, q0, cq, t, causal, sscale);
     else
-      bwd_probs<false>(s_t, dp_t, lse_s, lse_s + kRows, p_t, ds_t, edge,
+      bwd_probs<T, false>(s_t, dp_t, lse_s, lse_s + kRows, p_t, ds_t, edge,
                        k0 + r0, q0, cq, t, causal, sscale);
     if constexpr (kDq) {
       // dS^T into its tile: fragment j of k step kk is row r0 + 8 (j & 1),
@@ -428,13 +432,13 @@ bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int b = 0; b < TL::kBlocks; ++b)
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        wgmma_rs<TL::kCols, 1>(dv_acc[b], p_t[kk],
+        wgmma_rs<T, TL::kCols, 1>(dv_acc[b], p_t[kk],
                                TL::mn_major(dos(st), b, kk), 1);
 #pragma unroll
     for (int b = 0; b < TL::kBlocks; ++b)
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        wgmma_rs<TL::kCols, 1>(dk_acc[b], ds_t[kk],
+        wgmma_rs<T, TL::kCols, 1>(dk_acc[b], ds_t[kk],
                                TL::mn_major(qs(st), b, kk), 1);
     wgmma_commit();
 
@@ -449,7 +453,7 @@ bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
-          wgmma_ss<TL::kCols, 1, 1>(dq, Tile<64>::mn_major(dss, 0, kk),
+          wgmma_ss<T, TL::kCols, 1, 1>(dq, Tile<64>::mn_major(dss, 0, kk),
                                     TL::mn_major(ks, b, kk), kk > 0);
         wgmma_commit();
         wgmma_wait<0>();
@@ -493,13 +497,13 @@ bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       if (key >= t) continue;
       const size_t off = base + (size_t)key * D + b * TL::kCols + 8 * (i / 4) + cq;
       *reinterpret_cast<uint32_t*>(dk + off) =
-          pack_bf16(scale * dk_acc[b][i], scale * dk_acc[b][i + 1]);
+          pack2<T>(scale * dk_acc[b][i], scale * dk_acc[b][i + 1]);
       *reinterpret_cast<uint32_t*>(dv + off) =
-          pack_bf16(dv_acc[b][i], dv_acc[b][i + 1]);
+          pack2<T>(dv_acc[b][i], dv_acc[b][i + 1]);
     }
 }
 
-template <int D, bool kDq>
+template <typename T, int D, bool kDq>
 int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
                const float* lse, const float* delta, float* dq_acc, void* dk,
                void* dv, int bh, int t, int causal, int use_exp2, float scale,
@@ -508,13 +512,13 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
   unsigned blocks;
   if (int e = flash::blocks_for(t, kRows, bh, &blocks)) return e;
   cudaError_t err = cudaFuncSetAttribute(
-      bwd_kernel<D, kDq>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bwd_kernel<T, D, kDq>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  bwd_kernel<D, kDq><<<blocks, kThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, delta,
-      dq_acc, static_cast<bf16*>(dk), static_cast<bf16*>(dv), bh, t, causal,
+  bwd_kernel<T, D, kDq><<<blocks, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+      dq_acc, static_cast<T*>(dk), static_cast<T*>(dv), bh, t, causal,
       use_exp2, scale);
   return (int)cudaGetLastError();
 }
@@ -524,8 +528,8 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
 // dS of one (q tile, k tile) pair as A fragments, from the S and dP
 // accumulators (queries by rows, keys by columns): p = exp(s scale - lse)
 // for the thread's rows r0 and r0 + 8 (lse times log2(e) with kExp2), zero
-// outside the mask on edge tiles, then dS = p (dp - delta) rounded to bf16.
-template <bool kExp2>
+// outside the mask on edge tiles, then dS = p (dp - delta) rounded to T.
+template <typename T, bool kExp2>
 __device__ __forceinline__ void dq_probs(float (&s)[32], const float (&dp)[32],
                                          const float (&lse)[2],
                                          const float (&delta)[2],
@@ -542,7 +546,7 @@ __device__ __forceinline__ void dq_probs(float (&s)[32], const float (&dp)[32],
     }
     s[i] = p * (dp[i] - delta[h]);
   }
-  to_a_fragments(s, ds);
+  to_a_fragments<T>(s, ds);
 }
 
 // Shared memory: Q, dO, then two stages of (K, V); 1024 bytes of alignment.
@@ -555,13 +559,13 @@ constexpr size_t dq_smem_bytes() {
 // with one more product: S = Q K^T and dP = dO V^T (A and B K-major from
 // shared memory), dS rounded into A fragments in place, dQ += dS K with B
 // = K MN-major, as P V in the forward. dQ stays in registers and is
-// written once, scaled, in bf16: no atomics, so the same bits every run.
-template <int D>
+// written once, scaled, in T: no atomics, so the same bits every run.
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
-dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-          const bf16* __restrict__ v, const bf16* __restrict__ dout,
+dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+          const T* __restrict__ v, const T* __restrict__ dout,
           const float* __restrict__ lse, const float* __restrict__ delta,
-          bf16* __restrict__ dq, int bh_count, int t, int causal,
+          T* __restrict__ dq, int bh_count, int t, int causal,
           int use_exp2, float scale) {
   using TL = Tile<D>;
   extern __shared__ uint8_t smem[];
@@ -581,10 +585,10 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int k_end = causal ? min(t, q0 + kRows) : t;
   const int nk = (k_end + kRows - 1) / kRows;
 
-  load_tile<D>(qs, q + base, q0, t, tid);
-  load_tile<D>(dos, dout + base, q0, t, tid);
-  load_tile<D>(ks(0), k + base, 0, t, tid);
-  load_tile<D>(vs(0), v + base, 0, t, tid);
+  load_tile<T, D>(qs, q + base, q0, t, tid);
+  load_tile<T, D>(dos, dout + base, q0, t, tid);
+  load_tile<T, D>(ks(0), k + base, 0, t, tid);
+  load_tile<T, D>(vs(0), v + base, 0, t, tid);
   cp_async_commit();
 
   // lse and delta of rows r0 and r0 + 8; rows past t read as zeros.
@@ -608,8 +612,8 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int k0 = j * kRows;
     __syncthreads();  // tile j - 1's products are done: its stage is free
     if (j + 1 < nk) {
-      load_tile<D>(ks((j + 1) & 1), k + base, k0 + kRows, t, tid);
-      load_tile<D>(vs((j + 1) & 1), v + base, k0 + kRows, t, tid);
+      load_tile<T, D>(ks((j + 1) & 1), k + base, k0 + kRows, t, tid);
+      load_tile<T, D>(vs((j + 1) & 1), v + base, k0 + kRows, t, tid);
     }
     cp_async_commit();
     cp_async_wait<1>();  // tile j (and Q, dO) landed
@@ -620,11 +624,11 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss_n64<0, 0>(s, TL::k_major(qs, kk), TL::k_major(ks(j & 1), kk),
+      wgmma_ss_n64<T, 0, 0>(s, TL::k_major(qs, kk), TL::k_major(ks(j & 1), kk),
                          kk > 0);
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss_n64<0, 0>(dp, TL::k_major(dos, kk), TL::k_major(vs(j & 1), kk),
+      wgmma_ss_n64<T, 0, 0>(dp, TL::k_major(dos, kk), TL::k_major(vs(j & 1), kk),
                          kk > 0);
     wgmma_commit();
     wgmma_wait<0>();
@@ -634,10 +638,10 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bool edge = (causal && k0 == q0) || k0 + kRows > t;
     uint32_t ds[4][4];
     if (use_exp2)
-      dq_probs<true>(s, dp, lse_r, delta_r, ds, edge, q0 + r0, k0 + cq, t,
+      dq_probs<T, true>(s, dp, lse_r, delta_r, ds, edge, q0 + r0, k0 + cq, t,
                      causal, sscale);
     else
-      dq_probs<false>(s, dp, lse_r, delta_r, ds, edge, q0 + r0, k0 + cq, t,
+      dq_probs<T, false>(s, dp, lse_r, delta_r, ds, edge, q0 + r0, k0 + cq, t,
                       causal, sscale);
 
     fence_regs(acc);
@@ -646,7 +650,7 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int b = 0; b < TL::kBlocks; ++b)
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        wgmma_rs<TL::kCols, 1>(acc[b], ds[kk], TL::mn_major(ks(j & 1), b, kk),
+        wgmma_rs<T, TL::kCols, 1>(acc[b], ds[kk], TL::mn_major(ks(j & 1), b, kk),
                                1);
     wgmma_commit();
     wgmma_wait<0>();
@@ -664,12 +668,12 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int i = 2 * h; i < TL::kCols / 2; i += 4) {
         const int col = b * TL::kCols + 8 * (i / 4) + cq;
         *reinterpret_cast<uint32_t*>(dq + base + (size_t)row * D + col) =
-            pack_bf16(scale * acc[b][i], scale * acc[b][i + 1]);
+            pack2<T>(scale * acc[b][i], scale * acc[b][i + 1]);
       }
   }
 }
 
-template <int D>
+template <typename T, int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const float* lse, const float* delta, void* dq, int bh, int t,
               int causal, int use_exp2, float scale, cudaStream_t stream) {
@@ -677,12 +681,12 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   unsigned blocks;
   if (int e = flash::blocks_for(t, kRows, bh, &blocks)) return e;
   cudaError_t err = cudaFuncSetAttribute(
-      dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dq_kernel<D><<<blocks, kThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, delta,
-      static_cast<bf16*>(dq), bh, t, causal, use_exp2, scale);
+  dq_kernel<T, D><<<blocks, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+      static_cast<T*>(dq), bh, t, causal, use_exp2, scale);
   return (int)cudaGetLastError();
 }
 

@@ -1,4 +1,4 @@
-"""Sharded input pipeline for one process.
+"""Sharded input pipeline: each process loads its slice.
 
 The port of ``distributed_training_tpu/data/pipeline.py``: a
 deterministic global permutation seeded by ``(seed, epoch)``, a contiguous
@@ -21,6 +21,7 @@ import torch
 
 from distributed_training_tpu_torch.data import cifar10, transforms
 from distributed_training_tpu_torch.data.synthetic import synthetic_imagenet
+from distributed_training_tpu_torch.runtime.coordinator import Coordinator
 
 
 class ShardedBatchIndexer:
@@ -179,13 +180,21 @@ def to_device(batch: dict, device: torch.device) -> dict:
 
 def build_dataloaders(cfg, *, seed: int = 0,
                       global_batch_size: int | None = None,
-                      eval_global_batch_size: int | None = None):
+                      eval_global_batch_size: int | None = None,
+                      process_index: int | None = None,
+                      process_count: int | None = None):
     """Build ``(train_loader, eval_loader)`` for one process.
 
     ``global_batch_size`` / ``eval_global_batch_size`` override the config
     (the trainer passes ``config.effective_batch_sizes``, so gradient
-    accumulation scales only the train loader).
+    accumulation scales only the train loader). ``process_index`` and
+    ``process_count`` default to this process's rank and the world size
+    of the default process group (0 and 1 without one): each process
+    loads its own contiguous slice of every global batch.
     """
+    if process_index is None or process_count is None:
+        coord = Coordinator()
+        process_index, process_count = coord.process_index, coord.process_count
     data = cfg.data
     global_bs = global_batch_size or data.global_batch_size or data.batch_size
     eval_bs = eval_global_batch_size or global_bs
@@ -212,8 +221,10 @@ def build_dataloaders(cfg, *, seed: int = 0,
     train_loader = ShardedDataLoader(
         train_x, train_y, global_batch_size=global_bs, shuffle=True,
         drop_last=data.drop_last, augment=data.augment, train=True, seed=seed,
+        process_index=process_index, process_count=process_count,
         max_steps=data.max_steps_per_epoch)
     eval_loader = ShardedDataLoader(
         eval_x, eval_y, global_batch_size=eval_bs, shuffle=False,
-        drop_last=False, augment=data.augment, train=False, seed=seed)
+        drop_last=False, augment=data.augment, train=False, seed=seed,
+        process_index=process_index, process_count=process_count)
     return train_loader, eval_loader

@@ -23,6 +23,14 @@ What it takes to match the Flax model:
 - **Precision.** Parameters are float32; ``dtype`` is the compute type
   (float16 for the fp16 policy). BatchNorm statistics and the logits are
   float32, as in Flax.
+- **SyncBN.** The Flax model's ``axis_name`` becomes a process group
+  (:func:`set_batchnorm_group`): in training, each :class:`BatchNorm`
+  averages its per-channel mean and mean of squares over the ranks with
+  one all-reduce, and takes the biased ``var = E[x²] − E[x]²``, clipped at
+  0, as Flax computes it across an axis; its backward
+  (:class:`_SyncBatchNorm`) all-reduces the two per-channel gradient sums. ``torch.nn.SyncBatchNorm`` is not used: it keeps the unbiased
+  running variance and refuses CPU inputs. Without a group (or with
+  ``sync_batchnorm=False``) the statistics are the rank's own.
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -83,13 +92,60 @@ class Conv(nn.Module):
                         padding=pad)
 
 
+class _SyncBatchNorm(torch.autograd.Function):
+    """Training BatchNorm over the batches of every rank of ``group``
+    (equal local batches), with its own backward.
+
+    Forward: each rank's per-channel means of x and x² in float32, averaged
+    over the ranks by one all-reduce; ``var = E[x²] − E[x]²`` clipped at 0
+    (Flax's statistics across an axis); then one normalisation pass. The
+    backward is BatchNorm's closed form with the two per-channel gradient
+    sums (of dy and of dy·(x − mean)) all-reduced in one call, so each
+    rank's dx is the gradient of the sum of every rank's loss, which the
+    step's gradient mean turns into that of the global batch's mean loss.
+    Returns ``(y, mean, var)``; the statistics are not differentiable.
+    """
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, group, eps):
+        dims = (0, 2, 3)
+        world = dist.get_world_size(group)
+        xf = x.float()
+        stats = torch.stack([xf.mean(dims), xf.square().mean(dims)])
+        dist.all_reduce(stats, group=group)
+        mean, mean2 = stats / world
+        var = (mean2 - mean.square()).clamp_min(0.0)
+        y = F.batch_norm(x, mean, var, weight, bias, False, 0.0, eps)
+        ctx.save_for_backward(x, weight, mean, torch.rsqrt(var + eps))
+        ctx.group, ctx.count = group, x.numel() // x.shape[1] * world
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _mean, _var):
+        x, weight, mean, invstd = ctx.saved_tensors
+        shape = (1, -1, 1, 1)
+        dims = (0, 2, 3)
+        dyf = dy.float()
+        xmu = x.float() - mean.view(shape)
+        sums = torch.stack([dyf.sum(dims), (dyf * xmu).sum(dims)])
+        grad_weight, grad_bias = sums[1] * invstd, sums[0].clone()
+        dist.all_reduce(sums, group=ctx.group)
+        mean_dy, mean_dy_xmu = sums / ctx.count
+        dx = (dyf - mean_dy.view(shape)
+              - xmu * (invstd.square() * mean_dy_xmu).view(shape)) * (invstd * weight).view(shape)
+        return dx.to(x.dtype), grad_weight, grad_bias, None, None
+
+
 class BatchNorm(nn.Module):
-    """BatchNorm over N, H, W with Flax's running-statistics rule."""
+    """BatchNorm over N, H, W with Flax's running-statistics rule; with a
+    process group (``group``), synchronised over its ranks in training."""
 
     def __init__(self, channels: int, zero_scale: bool = False,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.zero_scale, self.dtype = zero_scale, dtype
+        self.group = None
         self.weight = nn.Parameter(torch.empty(channels))
         self.bias = nn.Parameter(torch.empty(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
@@ -107,12 +163,22 @@ class BatchNorm(nn.Module):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, BN_EPS)
+        if self.group is not None:
+            return self._sync_forward(x)
         with torch.no_grad():
             var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), unbiased=False)
             self.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1 - BN_MOMENTUM)
             self.running_var.mul_(BN_MOMENTUM).add_(var, alpha=1 - BN_MOMENTUM)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                             BN_EPS)
+
+    def _sync_forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Statistics over every rank's batch (:class:`_SyncBatchNorm`)."""
+        y, mean, var = _SyncBatchNorm.apply(x, self.weight, self.bias, self.group, BN_EPS)
+        with torch.no_grad():
+            self.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1 - BN_MOMENTUM)
+            self.running_var.mul_(BN_MOMENTUM).add_(var, alpha=1 - BN_MOMENTUM)
+        return y
 
 
 class BasicBlock(nn.Module):
@@ -221,6 +287,14 @@ class ResNet(nn.Module):
         x = F.linear(x, self.Dense_0.weight.to(self.dtype),
                      self.Dense_0.bias.to(self.dtype))
         return x.float()
+
+
+def set_batchnorm_group(model: nn.Module, group) -> None:
+    """SyncBN: every :class:`BatchNorm` of ``model`` reduces its training
+    statistics over ``group`` (None: each rank its own)."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.group = group
 
 
 STAGE_SIZES = {

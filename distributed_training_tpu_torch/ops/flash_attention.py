@@ -16,6 +16,13 @@ and what bounds them):
   :func:`flash_bwd_dkv` (K4b, ``_dkv_kernel``), both from one ``delta``,
   launched in turn by :func:`flash_bwd_split`.
 
+The kernels take float32, bfloat16 and float16 (the 16-bit types on the
+tensor cores) at head dims 32, 64 and 128. Each wrapper zero-pads any
+other ``d`` up to the next of those (``d`` above 128 raises) and slices
+its outputs back: a zero column adds nothing to a score, to ``out`` or to
+a gradient, and the scores keep the true ``d``'s scale
+(:func:`softmax_scale`), so the result is the unpadded one.
+
 Each wrapper takes its kernel for CUDA tensors and its plain version
 (:func:`flash_attention_reference`, :func:`flash_attention_bwd_reference`,
 :func:`flash_attention_dq_reference`, :func:`flash_attention_dkv_reference`)
@@ -43,12 +50,14 @@ import ctypes
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from distributed_training_tpu_torch.ops import cuda_build
 
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128)
-_KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+# The kernels' dtype argument (csrc/flash_tiles.cuh, FLASH_DISPATCH).
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 LOG2E = 1.4426950408889634
 
 # A/B switches of the flash kernel bench's --split-bwd and --exp2 (read
@@ -180,18 +189,33 @@ def _all_cpu(tensors) -> bool:
     return all(t.device.type == "cpu" for t in tensors)
 
 
+def padded_head_dim(d: int) -> int:
+    """The instantiated head dim a kernel runs ``d`` at: the least of
+    :data:`HEAD_DIMS` not below it; above 128 raises."""
+    for size in HEAD_DIMS:
+        if d <= size:
+            return size
+    raise ValueError(f"flash attention: the kernels take head dims up to "
+                     f"{HEAD_DIMS[-1]}, got {d}")
+
+
+def _pad_d(x: torch.Tensor, size: int) -> torch.Tensor:
+    """``x`` ``[..., d]`` zero-padded to ``size`` on its last axis."""
+    return x if x.shape[-1] == size else F.pad(x, (0, size - x.shape[-1]))
+
+
 def _check_for_kernel(name: str, tensors, floats=()) -> None:
     """Raise unless the kernel can take these tensors: ``tensors`` are
-    ``[BH, T, d]`` of one float32 or bfloat16 dtype, ``floats`` are
-    float32 ``[BH, T]``; all contiguous, 16-byte aligned, on one CUDA
-    device."""
+    ``[BH, T, d]`` of one float32, bfloat16 or float16 dtype with ``d`` in
+    :data:`HEAD_DIMS` (the wrappers pad to one), ``floats`` are float32
+    ``[BH, T]``; all contiguous, 16-byte aligned, on one CUDA device."""
     ref = tensors[0]
     if ref.dim() != 3 or ref.shape[-1] not in HEAD_DIMS:
         raise ValueError(f"{name}: the kernel takes [BH, T, d] with d in "
                          f"{HEAD_DIMS}, got {tuple(ref.shape)}")
-    if ref.dtype not in _KERNEL_DTYPES:
-        raise ValueError(f"{name}: the kernel takes float32 or bfloat16, "
-                         f"got {ref.dtype}")
+    if ref.dtype not in _DTYPE_CODES:
+        raise ValueError(f"{name}: the kernel takes float32, bfloat16 or "
+                         f"float16, got {ref.dtype}")
     for t, shape, dtype in ([(t, ref.shape, ref.dtype) for t in tensors]
                             + [(t, ref.shape[:2], torch.float32) for t in floats]):
         if t.device.type != "cuda" or t.device != ref.device:
@@ -229,24 +253,39 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def _kernel_args(name: str, tensors, floats=()):
+    """``tensors`` (``[BH, T, d]``) padded to the kernel's head dim and
+    checked with ``floats``; returns them, the true ``d``, the padded one
+    and the dtype code."""
+    d = tensors[0].shape[-1]
+    size = padded_head_dim(d)
+    tensors = [_pad_d(t, size) for t in tensors]
+    _check_for_kernel(name, tensors, floats)
+    return tensors, d, size, _DTYPE_CODES[tensors[0].dtype]
+
+
+def _unpad(x: torch.Tensor, d: int) -> torch.Tensor:
+    return x if x.shape[-1] == d else x[..., :d].contiguous()
+
+
 def flash_fwd(q, k, v, *, causal: bool):
     """K2: ``(out, lse)`` for ``[BH, T, d]`` inputs (see the module
     docstring)."""
     if _all_cpu((q, k, v)):
         return flash_attention_reference(q, k, v, causal=causal)
-    _check_for_kernel("flash_fwd", (q, k, v))
-    bh, t, d = q.shape
+    (q, k, v), d, size, code = _kernel_args("flash_fwd", (q, k, v))
+    bh, t, _ = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((bh, t), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         err = _lib().flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), bh, t, d, int(q.dtype == torch.bfloat16),
-            int(causal), int(_USE_EXP2), softmax_scale(d), _stream(q.device))
+            lse.data_ptr(), bh, t, size, code, int(causal), int(_USE_EXP2),
+            softmax_scale(d), _stream(q.device))
     if err != 0:
         raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error {err}")
     flash_fwd.launches += 1
-    return out, lse
+    return _unpad(out, d), lse
 
 
 def flash_bwd(q, k, v, out, lse, g, g_lse=None, *, causal: bool):
@@ -256,21 +295,21 @@ def flash_bwd(q, k, v, out, lse, g, g_lse=None, *, causal: bool):
         return flash_attention_bwd_reference(q, k, v, out, lse, g, g_lse,
                                              causal=causal)
     delta = _delta(g, out, g_lse)
-    _check_for_kernel("flash_bwd", (q, k, v, g), (lse, delta))
-    bh, t, d = q.shape
-    dq_acc = torch.zeros((bh, t, d), dtype=torch.float32, device=q.device)
+    (q, k, v, g), d, size, code = _kernel_args("flash_bwd", (q, k, v, g),
+                                               (lse, delta))
+    bh, t, _ = q.shape
+    dq_acc = torch.zeros((bh, t, size), dtype=torch.float32, device=q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(q.device):
         err = _lib().flash_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq_acc.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), bh, t, d,
-            int(q.dtype == torch.bfloat16), int(causal), int(_USE_EXP2),
-            softmax_scale(d), _stream(q.device))
+            dk.data_ptr(), dv.data_ptr(), bh, t, size, code, int(causal),
+            int(_USE_EXP2), softmax_scale(d), _stream(q.device))
     if err != 0:
         raise RuntimeError(f"flash_bwd kernel launch failed: CUDA error {err}")
     flash_bwd.launches += 1
-    return dq_acc.to(q.dtype), dk, dv
+    return _unpad(dq_acc, d).to(q.dtype), _unpad(dk, d), _unpad(dv, d)
 
 
 def flash_bwd_dq(q, k, v, g, lse, delta, *, causal: bool):
@@ -279,38 +318,40 @@ def flash_bwd_dq(q, k, v, g, lse, delta, *, causal: bool):
     for bit from run to run."""
     if _all_cpu((q, k, v, g, lse, delta)):
         return flash_attention_dq_reference(q, k, v, g, lse, delta, causal=causal)
-    _check_for_kernel("flash_bwd_dq", (q, k, v, g), (lse, delta))
-    bh, t, d = q.shape
+    (q, k, v, g), d, size, code = _kernel_args("flash_bwd_dq", (q, k, v, g),
+                                               (lse, delta))
+    bh, t, _ = q.shape
     dq = torch.empty_like(q)
     with torch.cuda.device(q.device):
         err = _split_lib().flash_bwd_dq(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bh, t, d,
-            int(q.dtype == torch.bfloat16), int(causal), int(_USE_EXP2),
-            softmax_scale(d), _stream(q.device))
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bh, t, size,
+            code, int(causal), int(_USE_EXP2), softmax_scale(d),
+            _stream(q.device))
     if err != 0:
         raise RuntimeError(f"flash_bwd_dq kernel launch failed: CUDA error {err}")
     flash_bwd_dq.launches += 1
-    return dq
+    return _unpad(dq, d)
 
 
 def flash_bwd_dkv(q, k, v, g, lse, delta, *, causal: bool):
     """K4b: ``(dk, dv)``, taking what :func:`flash_bwd_dq` takes."""
     if _all_cpu((q, k, v, g, lse, delta)):
         return flash_attention_dkv_reference(q, k, v, g, lse, delta, causal=causal)
-    _check_for_kernel("flash_bwd_dkv", (q, k, v, g), (lse, delta))
-    bh, t, d = q.shape
+    (q, k, v, g), d, size, code = _kernel_args("flash_bwd_dkv", (q, k, v, g),
+                                               (lse, delta))
+    bh, t, _ = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(q.device):
         err = _split_lib().flash_bwd_dkv(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            bh, t, d, int(q.dtype == torch.bfloat16), int(causal),
-            int(_USE_EXP2), softmax_scale(d), _stream(q.device))
+            bh, t, size, code, int(causal), int(_USE_EXP2), softmax_scale(d),
+            _stream(q.device))
     if err != 0:
         raise RuntimeError(f"flash_bwd_dkv kernel launch failed: CUDA error {err}")
     flash_bwd_dkv.launches += 1
-    return dk, dv
+    return _unpad(dk, d), _unpad(dv, d)
 
 
 def flash_bwd_split(q, k, v, out, lse, g, g_lse=None, *, causal: bool):

@@ -1,1 +1,2 @@
-"""Parallel strategies of the port (the unsharded attention so far)."""
+"""Parallel strategies of the port: ZeRO data parallelism and the
+unsharded attention."""

@@ -63,6 +63,10 @@ CPU_BATCH = 4
 # seeds each, on an H100 80GB HBM3 at 700 W: out 0.0264, sum 1.76e-6,
 # sumsq 5.78e-7 (PERF.md).
 OUT_TOL, SUM_TOL, SUMSQ_TOL = 0.08, 5e-6, 2e-6
+# out's limit by dtype: bf16's above; float16's a step of 2**-10 of the
+# element, 8 times finer (3 more mantissa bits), so OUT_TOL / 8; float32's
+# only the other summation order of the same float32 products.
+OUT_TOLS = {torch.bfloat16: OUT_TOL, torch.float16: OUT_TOL / 8, torch.float32: 1e-4}
 
 
 def _row_err(got, want) -> float:
@@ -84,19 +88,20 @@ def check(x, w, bn: int = 1) -> dict:
             "sum_err": ((got_s - s).abs() / ss.sqrt()).max().item(),
             "sumsq_err": ((got_ss - ss).abs() / ss).max().item(),
             "max_abs_err": (got_out.float() - out.float()).abs().max().item()}
-    for key, tol in (("out_err", OUT_TOL), ("sum_err", SUM_TOL), ("sumsq_err", SUMSQ_TOL)):
+    for key, tol in (("out_err", OUT_TOLS[x.dtype]), ("sum_err", SUM_TOL),
+                     ("sumsq_err", SUMSQ_TOL)):
         if not errs[key] <= tol:
             raise AssertionError(f"conv3x3_stats {key} {errs[key]:.3g} above {tol} "
                                  f"at x {tuple(x.shape)} -> {w.shape[-1]}")
     return errs
 
 
-def inputs(n, h, w, cin, cout, device, seed=0):
-    """x ~ N(0, 1) and w ~ 0.05·N(0, 1) in bf16, as the JAX tool makes them
-    (from a torch generator on the device, not numpy's)."""
+def inputs(n, h, w, cin, cout, device, seed=0, dtype=torch.bfloat16):
+    """x ~ N(0, 1) and w ~ 0.05·N(0, 1) in bf16 (or ``dtype``), as the JAX
+    tool makes them (from a torch generator on the device, not numpy's)."""
     gen = torch.Generator(device=device).manual_seed(seed)
-    x = torch.randn((n, h, w, cin), device=device, generator=gen).to(torch.bfloat16)
-    wts = (torch.randn((3, 3, cin, cout), device=device, generator=gen) * 0.05).to(torch.bfloat16)
+    x = torch.randn((n, h, w, cin), device=device, generator=gen).to(dtype)
+    wts = (torch.randn((3, 3, cin, cout), device=device, generator=gen) * 0.05).to(dtype)
     return x, wts
 
 

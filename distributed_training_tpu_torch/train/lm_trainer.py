@@ -40,6 +40,7 @@ from distributed_training_tpu_torch.train.precision import LossScaleState, Polic
 from distributed_training_tpu_torch.train.train_state import TrainState, param_count
 from distributed_training_tpu_torch.train.trainer import (
     MetricMeter,
+    data_parallel_fields,
     refuse_unported,
     unported_fields,
 )
@@ -53,6 +54,7 @@ class LMTrainer:
         lm = cfg.lm
         refuse_unported({
             **unported_fields(cfg),
+            **data_parallel_fields(cfg),
             "lm.num_microbatches > 1": lm.num_microbatches != 1,
             "lm.virtual_stages > 1": lm.virtual_stages != 1,
             "lm.ce_chunk_size": lm.ce_chunk_size is not None,

@@ -15,7 +15,13 @@ reads the schedule at the 1-based step ``t``, ``adam`` at ``t - 1``
 (optax's ``scale_by_schedule`` counts from 0).
 
 Schedules return float32 numbers computed on the host, so the step needs
-no device read for its learning rate. Not ported yet: ``adamw``, ``sgd``,
+no device read for its learning rate.
+
+Under ZeRO stages 1–3 (``parallel/zero.py``) the chain runs on each rank's
+shards: the clip's global norm is the square root of the all-reduced sum
+of every rank's squared shard norms (one all-reduce), the weight-decay
+mask is decided by name on the full parameters (``decay_flags``), and the
+update (K1 for ``hybrid_adam``) takes the shards as they are. Not ported yet: ``adamw``, ``sgd``,
 ``lamb`` and the parameter EMA.
 """
 
@@ -107,10 +113,15 @@ class AdamState:
     nu: dict[str, torch.Tensor]
 
 
-def global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:
-    """L2 norm over all tensors, as a float32 0-d tensor."""
+def global_norm(tensors: list[torch.Tensor], zero=None) -> torch.Tensor:
+    """L2 norm over all tensors, as a float32 0-d tensor. With ``zero``
+    (a ``parallel.zero.Zero``) at stage 1 or more the tensors are this
+    rank's shards: their squared norms are summed over the ranks by one
+    all-reduce."""
     norms = torch._foreach_norm(tensors, 2)
-    return torch.linalg.vector_norm(torch.stack(norms))
+    if zero is None or not zero.partitions_optimizer:
+        return torch.linalg.vector_norm(torch.stack(norms))
+    return zero.all_reduce_(torch.stack(norms).square().sum()).sqrt()
 
 
 class Adam:
@@ -136,30 +147,40 @@ class Adam:
         return AdamState(0, {n: zeros(p) for n, p in params.items()},
                          {n: zeros(p) for n, p in params.items()})
 
+    def decay_flags(self, params: dict[str, torch.Tensor]) -> dict[str, bool]:
+        """Which of the (full) parameters take weight decay, by name."""
+        return {n: self.mask is None or bool(self.mask(n, p)) for n, p in params.items()}
+
     def transform_grads(self, params: dict[str, torch.Tensor],
-                        grads: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
-        """Clip, then L2: the chain's parts before the Adam update."""
+                        grads: dict[str, torch.Tensor], *,
+                        decay: dict[str, bool] | None = None,
+                        zero=None) -> dict[str, torch.Tensor]:
+        """Clip, then L2: the chain's parts before the Adam update.
+        ``decay`` (by name) replaces the mask where ``params`` are shards;
+        ``zero`` makes the clip's norm global over the ranks' shards."""
         if self.clip is not None:
-            norm = global_norm(list(grads.values()))
+            norm = global_norm(list(grads.values()), zero)
             keep = norm < self.clip
             grads = {n: torch.where(keep, g, g / norm * self.clip)
                      for n, g in grads.items()}
         if self.weight_decay:
-            grads = {n: (g + self.weight_decay * params[n]
-                         if self.mask is None or self.mask(n, params[n]) else g)
+            if decay is None:
+                decay = self.decay_flags(params)
+            grads = {n: g + self.weight_decay * params[n] if decay[n] else g
                      for n, g in grads.items()}
         return grads
 
     @torch.no_grad()
     def update(self, params: dict[str, torch.Tensor],
                grads: dict[str, torch.Tensor], state: AdamState, *,
-               out: dict[str, torch.Tensor] | None = None) -> AdamState:
+               out: dict[str, torch.Tensor] | None = None,
+               decay: dict[str, bool] | None = None, zero=None) -> AdamState:
         """One step. Writes the new parameters into ``params`` (in place)
         or into ``out``; returns the new state, whose moments are new
         tensors when ``out`` is given and the old ones updated in place
-        otherwise."""
+        otherwise. ``decay`` and ``zero`` as in :meth:`transform_grads`."""
         names = list(params)
-        grads = self.transform_grads(params, grads)
+        grads = self.transform_grads(params, grads, decay=decay, zero=zero)
         count = state.count + 1
         if out is None:
             p_out, mu, nu = params, state.mu, state.nu

@@ -28,6 +28,7 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from distributed_training_tpu_torch.config import PrecisionConfig
 
@@ -113,33 +114,48 @@ def commit_gradients(state, grads: dict[str, torch.Tensor],
     whole update when the dynamic loss scale overflowed. Returns whether
     the update was committed.
 
+    ``grads`` are for ``state.master_params()``: the whole gradients at
+    ZeRO stage 0, this rank's shards from stage 1 on. The update goes
+    through ``state.apply_params``, which all-gathers shards where the
+    stage keeps whole parameters.
+
     - Dynamic scaler: the optimizer writes a *candidate* (new params and
       moments in fresh tensors; the old ones stay untouched). The guard
       covers the update, not only the gradients: a finite-but-huge
       gradient can still overflow inside Adam (``g² > fp32 max``), and an
-      in-place write would then keep an inf moment for good. The finite
-      flag is read on the host (one device sync per fp16 step). If it is
-      set, the commit swaps references to the candidate, copying nothing;
-      if not, the candidate is dropped, ``old_batch_stats`` (a snapshot of
-      the BatchNorm buffers taken before the forward) is put back, and
-      neither the step count nor the schedule advances.
+      in-place write would then keep an inf moment for good. Under ZeRO
+      (stage 1 or more) each rank sees only its shard of the candidate, so
+      the finite flag is all-reduced (MIN) first: every rank then commits
+      or skips the same step and keeps the same loss scale. The flag is
+      read on the host (one device sync per fp16 step). If it is set, the
+      commit swaps references to the candidate, copying nothing; if not,
+      the candidate is dropped, ``old_batch_stats`` (a snapshot of the
+      BatchNorm buffers taken before the forward) is put back, and neither
+      the step count nor the schedule advances.
     - Static or inert scaler: the optimizer updates in place.
     """
-    params = state.params()
+    params = state.master_params()
+    zero = state.zero
+    opt_state = state.offload_fetch()
     if not state.loss_scale.dynamic:
-        state.opt_state = state.tx.update(params, grads, state.opt_state)
+        new = state.tx.update(params, grads, opt_state, decay=state.decay, zero=zero)
+        state.offload_store(new)
+        state.apply_params(params)
         state.step += 1
         return True
     out = {n: torch.empty_like(p) for n, p in params.items()}
-    candidate = state.tx.update(params, grads, state.opt_state, out=out)
-    finite = bool(all_finite(
+    candidate = state.tx.update(params, grads, opt_state, out=out,
+                                decay=state.decay, zero=zero)
+    finite_t = all_finite(
         [*grads.values(), *out.values(), *candidate.mu.values(),
-         *candidate.nu.values()]))
+         *candidate.nu.values()])
+    if zero.partitions_optimizer:
+        finite_t = zero.all_reduce_(finite_t.to(torch.int32), op=dist.ReduceOp.MIN)
+    finite = bool(finite_t)
     state.loss_scale = state.loss_scale.update(finite)
     if finite:
-        for n, p in state.model.named_parameters():
-            p.data = out[n]
-        state.opt_state = candidate
+        state.offload_store(candidate)
+        state.apply_params(out)
         state.step += 1
     elif old_batch_stats is not None:
         with torch.no_grad():

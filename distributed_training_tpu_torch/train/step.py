@@ -1,14 +1,32 @@
-"""The train and eval steps on one device.
+"""The train and eval steps, on one device or data-parallel over a
+process group with ZeRO stages 0–3.
 
-The port of ``distributed_training_tpu/train/step.py``'s single-device
-path: forward, loss, backward (with gradient accumulation), loss-scale
+The port of ``distributed_training_tpu/train/step.py``: forward, loss,
+backward (with gradient accumulation), the gradient exchange, loss-scale
 handling, the optimizer update. Metrics stay on the device as 0-d tensors;
 the trainer reads them every ``log_interval`` steps, as the JAX trainer
 does, so the fp32 step itself makes no host read. (The fp16 step reads
 one finite flag: see ``precision.commit_gradients``.)
 
+Data parallelism (the state's ``zero``, ``parallel/zero.py``): every rank
+runs forward and backward on its own equal slice of the global batch, so
+averaging the gradients over the ranks equals the JAX GSPMD step's loss
+mean over the global batch. The step then, in order:
+
+1. exchanges the gradients: all-reduce mean at stages 0–1 (stage 1 then
+   keeps its shard), reduce-scatter mean at stages 2–3;
+2. clips with the global norm over the shards and adds L2 on them, then
+   runs the update (K1 for ``hybrid_adam``) on this rank's shard;
+3. all-gathers the updated parameters at stages 1–2; at stage 3 keeps
+   the shard, and all-gathers the parameters at the next forward.
+
+BatchNorm statistics are synchronised over the group (SyncBN,
+``models/resnet.py``) unless the model was built without it, in which
+case ``local_bn=True`` makes this the counterpart of the JAX package's
+``make_shard_map_train_step``: each rank keeps its own statistics in the
+step and the running statistics are averaged over the ranks after it.
+
 Batches are dicts of tensors with NHWC ``image``, as in the JAX package.
-Multi-GPU data parallelism and ZeRO are not ported yet.
 """
 
 from __future__ import annotations
@@ -45,22 +63,32 @@ def _accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 def make_train_step(*, zero_stage: int = 0, grad_accum_steps: int = 1,
                     label_smoothing: float = 0.0,
-                    input_affine: tuple | None = None) -> Callable:
+                    input_affine: tuple | None = None,
+                    local_bn: bool = False) -> Callable:
     """Build ``step(state, batch) -> metrics``.
 
-    ``grad_accum_steps > 1``: the batch is the effective batch; it is cut
-    into that many contiguous microbatches, their gradients are summed and
-    averaged, and one optimizer update follows. BatchNorm running stats
-    tick once per microbatch, in order (torch grad-accum semantics).
+    ``zero_stage`` must be the stage of ``state.zero`` (the state holds the
+    partitioned tensors; the argument states the intent, and a mismatch
+    raises). ``grad_accum_steps > 1``: the batch is the rank's effective
+    batch; it is cut into that many contiguous microbatches, their
+    gradients are summed and averaged, and one optimizer update follows.
+    BatchNorm running stats tick once per microbatch, in order (torch
+    grad-accum semantics). ``local_bn``: BatchNorm without a group, its
+    running statistics averaged over the ranks after the step; stage 0
+    only, as in the JAX package.
     """
     if grad_accum_steps < 1:
         raise ValueError(f"grad_accum_steps must be >= 1, got {grad_accum_steps}")
-    if zero_stage != 0:
+    if local_bn and zero_stage != 0:
         raise NotImplementedError(
-            "ZeRO (zero.stage > 0) needs multi-GPU data parallelism, which "
-            "is not ported yet")
+            "sync_batchnorm=False uses the explicit DP step, which has no "
+            "ZeRO sharding; use zero stage 0 with local BN")
 
     def step(state: TrainState, batch: dict) -> dict:
+        zero = state.zero
+        if zero.stage != zero_stage:
+            raise ValueError(f"the step was built for zero stage {zero_stage}, "
+                             f"the state is partitioned for {zero.stage}")
         model = state.model
         model.train()
         images = _input_images(batch, input_affine)
@@ -71,6 +99,7 @@ def make_train_step(*, zero_stage: int = 0, grad_accum_steps: int = 1,
                 f"gradient_accumulation_steps={grad_accum_steps}")
         ls = state.loss_scale
         snapshot = ([b.clone() for b in model.buffers()] if ls.dynamic else None)
+        state.gather_params()
         for p in model.parameters():
             p.grad = None
         losses, accs = [], []
@@ -81,16 +110,31 @@ def make_train_step(*, zero_stage: int = 0, grad_accum_steps: int = 1,
             ls.scale_loss(loss).backward()
             losses.append(loss.detach())
             accs.append(_accuracy(logits.detach(), y))
-        grads = {n: p.grad for n, p in model.named_parameters()}
-        if grad_accum_steps > 1:
-            grads = {n: g / grad_accum_steps for n, g in grads.items()}
-        grads = ls.unscale_grads(grads)
-        finite = commit_gradients(state, grads, snapshot)
+        names = [n for n, _ in model.named_parameters()]
+        grads = [p.grad for p in model.parameters()]
         for p in model.parameters():
             p.grad = None
+        if grad_accum_steps > 1:
+            grads = [g / grad_accum_steps for g in grads]
+        if zero.partitions_grads:
+            grads = zero.reduce_scatter_mean(grads)
+            state.release_params()
+        else:
+            grads = zero.all_reduce_mean(grads)
+            if zero.partitions_optimizer:
+                grads = [zero.shard(g) for g in grads]
+        grads = ls.unscale_grads(dict(zip(names, grads)))
+        finite = commit_gradients(state, grads, snapshot)
+        if local_bn:
+            bufs = list(model.buffers())
+            with torch.no_grad():
+                for b, avg in zip(bufs, zero.all_reduce_mean(bufs)):
+                    b.copy_(avg)
+        loss, acc = zero.all_reduce_mean(
+            [torch.stack(losses).mean(), torch.stack(accs).mean()])
         return {
-            "loss": torch.stack(losses).mean(),
-            "accuracy": torch.stack(accs).mean(),
+            "loss": loss,
+            "accuracy": acc,
             "loss_scale": state.loss_scale.scale,
             "grads_finite": float(finite),
         }
@@ -100,11 +144,14 @@ def make_train_step(*, zero_stage: int = 0, grad_accum_steps: int = 1,
 
 def make_eval_step(input_affine: tuple | None = None) -> Callable:
     """Build ``eval(state, batch) -> (top1_count, top5_count, count)`` as
-    0-d device tensors; ``batch['mask']`` (0/1) drops the padding of a
-    ragged last batch."""
+    0-d device tensors, summed over the ranks of ``state.zero``'s group;
+    ``batch['mask']`` (0/1) drops the padding of a ragged last batch. At
+    ZeRO stage 3 it gathers the parameters and leaves them gathered (the
+    trainer releases them after the eval pass)."""
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: dict):
+        state.gather_params()
         state.model.eval()
         logits = state.model(_input_images(batch, input_affine))
         labels = batch["label"].long()
@@ -115,6 +162,8 @@ def make_eval_step(input_affine: tuple | None = None) -> Callable:
         mask = batch.get("mask")
         if mask is None:
             mask = torch.ones_like(correct)
-        return (correct * mask).sum(), (correct5 * mask).sum(), mask.sum()
+        counts = torch.stack([(correct * mask).sum(), (correct5 * mask).sum(),
+                              mask.sum()])
+        return tuple(state.zero.all_reduce_(counts))
 
     return eval_step

@@ -1,10 +1,22 @@
 """Train state: model, optimizer state, loss scaler and step count as one
-object.
+object, partitioned by its ZeRO stage.
 
 The JAX package carries these as one immutable pytree through a jitted
-step. PyTorch updates in place, so here they are one mutable object that
-the step changes: the model's parameters and BatchNorm buffers, the
-optimizer's state, the loss scaler and the number of committed updates.
+step, placed on the mesh by ``parallel/sharding.py``. PyTorch updates in
+place, so here they are one mutable object that the step changes: the
+model's parameters and BatchNorm buffers, the optimizer's state, the loss
+scaler and the number of committed updates.
+
+Under ZeRO (``zero``, a ``parallel.zero.Zero``) the optimizer works on the
+*master* parameters (:meth:`TrainState.master_params`): the model's own
+tensors at stage 0, this rank's shards at stages 1–3. The Adam moments
+are shard-shaped from stage 1 on, and live in host memory with
+``cpu_offload`` (pinned where there is a card). At stage 3 the shards
+*are* the parameters between steps: the model's parameter tensors are
+emptied after each step (:meth:`release_params`) and all-gathered again
+before the next forward (:meth:`gather_params`). A checkpoint holds the
+whole tensors whatever the stage and world (:meth:`state_dict` gathers,
+:meth:`load_state_dict` partitions anew).
 """
 
 from __future__ import annotations
@@ -13,8 +25,16 @@ import dataclasses
 
 import torch
 
+from distributed_training_tpu_torch.parallel.zero import Zero
 from distributed_training_tpu_torch.train.optim import Adam, AdamState
 from distributed_training_tpu_torch.train.precision import LossScaleState
+
+
+def _host_zeros(like: torch.Tensor) -> torch.Tensor:
+    """float32 zeros of ``like``'s shape in host memory, pinned when the
+    tensor it stands for is on a card (pinning needs CUDA)."""
+    return torch.zeros(like.shape, dtype=torch.float32,
+                       pin_memory=like.device.type == "cuda")
 
 
 @dataclasses.dataclass
@@ -24,41 +44,164 @@ class TrainState:
     opt_state: AdamState
     loss_scale: LossScaleState
     step: int = 0
+    zero: Zero = dataclasses.field(default_factory=Zero)
+    # Per parameter name: whether it takes weight decay (decided on the
+    # full tensors), its shape and memory format, and (stage 3) its shard.
+    decay: dict = dataclasses.field(default_factory=dict)
+    layouts: dict = dataclasses.field(default_factory=dict)
+    shards: dict | None = None
 
     @classmethod
     def create(cls, model: torch.nn.Module, tx: Adam,
-               loss_scale: LossScaleState | None = None) -> "TrainState":
+               loss_scale: LossScaleState | None = None,
+               zero: Zero | None = None) -> "TrainState":
         if loss_scale is None:
             loss_scale = LossScaleState(scale=1.0, good_steps=0,
                                         hysteresis_left=1, dynamic=False)
-        state = cls(model=model, tx=tx, opt_state=None, loss_scale=loss_scale)
-        state.opt_state = tx.init(state.params())
+        state = cls(model=model, tx=tx, opt_state=None, loss_scale=loss_scale,
+                    zero=zero or Zero())
+        params = state.params()
+        state.decay = tx.decay_flags(params)
+        state.layouts = {n: (p.shape, not p.is_contiguous() and p.is_contiguous(
+                             memory_format=torch.channels_last))
+                         for n, p in params.items()}
+        if state.zero.partitions_params:
+            state.shards = {n: state.zero.shard(p) for n, p in params.items()}
+        state.opt_state = tx.init(state.master_params())
+        if state.zero.cpu_offload:
+            for moments in (state.opt_state.mu, state.opt_state.nu):
+                for n, m in moments.items():
+                    moments[n] = _host_zeros(m)
+        state.release_params()
         return state
 
     def params(self) -> dict[str, torch.Tensor]:
-        """Parameters by name (the tensors themselves, updated in place)."""
+        """Parameters by name (the model's tensors themselves)."""
         return dict(self.model.named_parameters())
 
+    def master_params(self) -> dict[str, torch.Tensor]:
+        """What the optimizer updates: the model's tensors at stage 0;
+        this rank's shards from stage 1 on (copies of the replicated
+        parameters at 1–2, the parameters themselves at 3)."""
+        if self.shards is not None:
+            return self.shards
+        if not self.zero.partitions_optimizer:
+            return self.params()
+        return {n: self.zero.shard(p) for n, p in self.params().items()}
+
+    @torch.no_grad()
+    def apply_params(self, new: dict[str, torch.Tensor]) -> None:
+        """Install updated master parameters: at stage 0 the model's
+        tensors become ``new``'s (a swap of references when they are not
+        the same tensors); at 1–2 the shards are all-gathered into them; at
+        3 the shards are kept and the model's tensors stay released."""
+        if self.shards is not None:
+            self.shards = new
+            return
+        params = self.params()
+        if not self.zero.partitions_optimizer:
+            for n, p in params.items():
+                if new[n] is not p:
+                    p.data = new[n]
+            return
+        names = list(params)
+        full = self.zero.all_gather([new[n] for n in names],
+                                    [params[n].shape for n in names])
+        for n, f in zip(names, full):
+            params[n].copy_(f)
+
+    @torch.no_grad()
+    def gather_params(self) -> None:
+        """Stage 3: the model's parameter tensors all-gathered from the
+        shards (before a forward); a no-op at other stages."""
+        if self.shards is None:
+            return
+        params = self.params()
+        names = list(params)
+        full = self.zero.all_gather([self.shards[n] for n in names],
+                                    [self.layouts[n][0] for n in names])
+        for n, f in zip(names, full):
+            fmt = (torch.channels_last if self.layouts[n][1]
+                   else torch.contiguous_format)
+            params[n].data = f.contiguous(memory_format=fmt)
+
+    def release_params(self) -> None:
+        """Stage 3: empty the model's parameter tensors, which the shards
+        stand for between steps; a no-op at other stages."""
+        if self.shards is None:
+            return
+        for p in self.model.parameters():
+            p.data = p.data.new_empty(0)
+
+    def offload_fetch(self) -> AdamState:
+        """The optimizer state on the master parameters' device: with
+        ``cpu_offload``, copies of the host moments queued on the current
+        stream (pinned, so the host does not wait); else the state itself."""
+        st = self.opt_state
+        if not self.zero.cpu_offload:
+            return st
+        dev = next(iter(self.master_params().values())).device
+        move = lambda d: {n: t.to(dev, non_blocking=True) for n, t in d.items()}  # noqa: E731
+        return AdamState(st.count, move(st.mu), move(st.nu))
+
+    @torch.no_grad()
+    def offload_store(self, st: AdamState) -> None:
+        """Keep ``st`` as the optimizer state; with ``cpu_offload`` its
+        moments are written back into the host tensors on the current
+        stream (no host sync: the next step's fetch is queued behind it)."""
+        if not self.zero.cpu_offload:
+            self.opt_state = st
+            return
+        host = self.opt_state
+        for name in ("mu", "nu"):
+            for n, t in getattr(st, name).items():
+                getattr(host, name)[n].copy_(t, non_blocking=True)
+        host.count = st.count
+
+    def _full_moments(self, moments: dict) -> dict:
+        if not self.zero.partitions_optimizer:
+            return moments
+        if self.zero.cpu_offload and torch.cuda.is_available():
+            torch.cuda.synchronize()  # the host copies written back last step
+        dev = next(self.model.parameters()).device
+        names = list(moments)
+        full = self.zero.all_gather([moments[n].to(dev) for n in names],
+                                    [self.layouts[n][0] for n in names])
+        return {n: f.cpu() for n, f in zip(names, full)}
+
     def state_dict(self) -> dict:
-        """Everything a resume needs, as plain tensors and numbers."""
+        """Everything a resume needs, as whole tensors and numbers: the
+        world-1 format at every stage and world. Every rank must call it
+        (it all-gathers partitioned state)."""
+        self.gather_params()
+        model = self.model.state_dict()  # holds the gathered tensors
+        self.release_params()
         return {
-            "model": self.model.state_dict(),
+            "model": model,
             "opt_state": {"count": self.opt_state.count,
-                          "mu": self.opt_state.mu, "nu": self.opt_state.nu},
+                          "mu": self._full_moments(self.opt_state.mu),
+                          "nu": self._full_moments(self.opt_state.nu)},
             "loss_scale": dataclasses.asdict(self.loss_scale),
             "step": self.step,
         }
 
+    @torch.no_grad()
     def load_state_dict(self, sd: dict) -> None:
+        """Load a :meth:`state_dict` saved at any stage and world, and
+        partition it for this one."""
+        self.gather_params()
         self.model.load_state_dict(sd["model"], strict=True)
-        with torch.no_grad():
-            for key in ("mu", "nu"):
-                mine = getattr(self.opt_state, key)
-                if set(mine) != set(sd["opt_state"][key]):
-                    raise ValueError(f"optimizer state {key} names differ from "
-                                     f"the checkpoint's")
-                for n, t in sd["opt_state"][key].items():
-                    mine[n].copy_(t)
+        if self.shards is not None:
+            self.shards = {n: self.zero.shard(p) for n, p in self.params().items()}
+        self.release_params()
+        for key in ("mu", "nu"):
+            mine = getattr(self.opt_state, key)
+            if set(mine) != set(sd["opt_state"][key]):
+                raise ValueError(f"optimizer state {key} names differ from "
+                                 f"the checkpoint's")
+            for n, t in sd["opt_state"][key].items():
+                part = self.zero.shard(t) if self.zero.partitions_optimizer else t
+                mine[n].copy_(part)
         self.opt_state.count = int(sd["opt_state"]["count"])
         self.loss_scale = LossScaleState(**sd["loss_scale"])
         self.step = int(sd["step"])

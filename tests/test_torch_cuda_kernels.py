@@ -97,7 +97,10 @@ def test_kernel_refuses_what_it_cannot_take(require_cuda):
 # lse is float32 in both: its largest error over its largest magnitude.
 # Through autograd, card against CPU, each run feeds its own out into
 # delta, so the bfloat16 gradients get a wider limit.
-FLASH_TOL = {torch.float32: (3e-5, 3e-5), torch.bfloat16: (0.1, 0.1)}
+# float16 rounds p and dS where bfloat16 does, with 3 more mantissa bits:
+# an eighth of bfloat16's limits.
+FLASH_TOL = {torch.float32: (3e-5, 3e-5), torch.bfloat16: (0.1, 0.1),
+             torch.float16: (0.1 / 8, 0.1 / 8)}
 LSE_GRAD_TOL = {torch.float32: 3e-5, torch.bfloat16: 0.2}
 
 
@@ -261,10 +264,10 @@ def test_flash_kernels_refuse_what_they_cannot_take(require_cuda):
     with pytest.raises(ValueError):
         flash_fwd(q, k.bfloat16(), v, causal=True)
     with pytest.raises(ValueError):
-        flash_fwd(q.half(), k.half(), v.half(), causal=True)
-    with pytest.raises(ValueError):
-        flash_fwd(q[..., :48].contiguous(), k[..., :48].contiguous(),
-                  v[..., :48].contiguous(), causal=True)
+        flash_fwd(q.double(), k.double(), v.double(), causal=True)
+    wide = [torch.cat([x, x, x[..., :32]], -1) for x in (q, k, v)]  # d 160
+    with pytest.raises(ValueError, match="head dims up to 128"):
+        flash_fwd(*wide, causal=True)
     with pytest.raises(ValueError):
         flash_fwd(q, k.cpu(), v, causal=True)
     out, lse = flash_fwd(q, k, v, causal=True)
@@ -435,7 +438,7 @@ def test_conv3x3_stats_refuses_what_it_cannot_take(require_cuda):
     with pytest.raises(ValueError):
         conv3x3_stats(x, w.float())
     with pytest.raises(ValueError):
-        conv3x3_stats(x.half(), w.half())
+        conv3x3_stats(x.double(), w.double())
     with pytest.raises(ValueError):
         conv3x3_stats(x, w.cpu())
     with pytest.raises(ValueError, match="multiple"):
@@ -504,8 +507,11 @@ def test_conv3x3_stats_bf16_is_bitwise_repeatable(require_cuda):
 @pytest.mark.cuda
 def test_conv3x3_stats_bf16_refuses_channels_not_a_multiple_of_8(require_cuda):
     """The tensor-core kernel copies 16-byte rows: in bf16 Cin and Cout must
-    be multiples of 8 and the call raises, where float32 takes multiples of
-    4 on its CUDA-core kernel."""
+    be multiples of 8, and its C entry refuses 12 (returns
+    cudaErrorInvalidValue, launching nothing); the wrapper pads 12 to 16
+    and slices back, where float32 takes multiples of 4 on its CUDA-core
+    kernel as they are."""
+    from distributed_training_tpu_torch.ops import conv3x3_stats as k5
     from distributed_training_tpu_torch.ops.conv3x3_stats import (
         conv3x3_stats,
         conv3x3_stats_reference,
@@ -513,8 +519,119 @@ def test_conv3x3_stats_bf16_refuses_channels_not_a_multiple_of_8(require_cuda):
 
     x = torch.randn(2, 8, 8, 12, device="cuda")
     w = torch.randn(3, 3, 12, 12, device="cuda") * 0.05
-    with pytest.raises(ValueError, match="multiples of 8"):
-        conv3x3_stats(x.bfloat16(), w.bfloat16())
+    xb, wb = x.bfloat16(), w.bfloat16()
+    out = torch.empty_like(xb)
+    part = torch.empty((2, 12), device="cuda")
+    err = k5._lib().conv3x3_stats(
+        xb.data_ptr(), wb.data_ptr(), out.data_ptr(), part.data_ptr(),
+        part.data_ptr(), 2, 8, 8, 12, 12, 1, torch.cuda.current_stream().cuda_stream)
+    assert err == 1  # cudaErrorInvalidValue
+    padded = k5.pad_channels(xb, wb)
+    assert padded[0].shape[-1] == padded[1].shape[-1] == 16 and padded[2] == 12
+    got = conv3x3_stats(xb, wb)
+    assert got[0].shape == (2, 8, 8, 12) and got[1].shape == (12,)
     out, _, _ = conv3x3_stats(x, w)
     torch.testing.assert_close(out, conv3x3_stats_reference(x, w)[0],
                                rtol=1e-5, atol=1e-5)
+
+
+# -- float16 and padding (K2-K5) -----------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("t", [1, 65, 384, 1000])
+def test_flash_fp16_tensor_core_kernels_match_reference(require_cuda, causal, d, t):
+    """float16 runs the fp16 instantiations of K2, K3, K4a and K4b (wgmma
+    .f16): each against its plain version at ragged and whole-tile lengths,
+    under FLASH_TOL[float16], with a non-zero lse cotangent; every call a
+    launch."""
+    from distributed_training_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, g = _attn_inputs((3, t, d), torch.float16, seed=21)
+    g_lse = torch.randn((3, t), device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(22))
+    fns = (fa.flash_fwd, fa.flash_bwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    n = [f.launches for f in fns]
+    out, lse = fa.flash_fwd(q, k, v, causal=causal)
+    grads = fa.flash_bwd(q, k, v, out, lse, g, g_lse, causal=causal)
+    delta = fa._delta(g, out, g_lse)
+    dq4 = fa.flash_bwd_dq(q, k, v, g, lse, delta, causal=causal)
+    dk4, dv4 = fa.flash_bwd_dkv(q, k, v, g, lse, delta, causal=causal)
+    torch.cuda.synchronize()
+    assert [f.launches for f in fns] == [x + 1 for x in n]
+    want_out, want_lse = fa.flash_attention_reference(q, k, v, causal=causal)
+    want = fa.flash_attention_bwd_reference(q, k, v, out, lse, g, g_lse, causal=causal)
+    fwd_tol, bwd_tol = FLASH_TOL[torch.float16]
+    assert out.dtype == torch.float16
+    assert _row_err(out, want_out) < fwd_tol
+    assert _rel_err(lse, want_lse) < 1e-5
+    for name, a, b in zip(("dq", "dk", "dv", "K4a dq", "K4b dk", "K4b dv"),
+                          (*grads, dq4, dk4, dv4), (*want, *want)):
+        assert a.dtype == torch.float16 and a.shape == b.shape
+        assert _row_err(a, b) < bwd_tol, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16], ids=str)
+@pytest.mark.parametrize("d", [16, 48, 96])
+def test_flash_pads_other_head_dims(require_cuda, dtype, d):
+    """A head dim between the instantiated ones is zero-padded to the next
+    (32, 64, 128) and sliced back, with the true d's scale: K2, K3, K4a and
+    K4b each launch once and match the plain versions at d."""
+    from distributed_training_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, g = _attn_inputs((3, 200, d), dtype, seed=d)
+    fns = (fa.flash_fwd, fa.flash_bwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    n = [f.launches for f in fns]
+    out, lse = fa.flash_fwd(q, k, v, causal=True)
+    grads = fa.flash_bwd(q, k, v, out, lse, g, causal=True)
+    delta = fa._delta(g, out)
+    split = (fa.flash_bwd_dq(q, k, v, g, lse, delta, causal=True),
+             *fa.flash_bwd_dkv(q, k, v, g, lse, delta, causal=True))
+    torch.cuda.synchronize()
+    assert [f.launches for f in fns] == [x + 1 for x in n]
+    want_out, want_lse = fa.flash_attention_reference(q, k, v, causal=True)
+    want = fa.flash_attention_bwd_reference(q, k, v, out, lse, g, causal=True)
+    fwd_tol, bwd_tol = FLASH_TOL[dtype]
+    assert out.shape == q.shape and out.is_contiguous()
+    assert _row_err(out, want_out) < fwd_tol
+    assert _rel_err(lse, want_lse) < 1e-5
+    for a, b in zip((*grads, *split), (*want, *want)):
+        assert a.shape == b.shape and a.dtype == dtype
+        assert _row_err(a, b) < bwd_tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["s0", "s1", "s2", "border"])
+def test_conv3x3_stats_fp16_matches_reference(require_cuda, shape):
+    """float16 K5 (the fp16 conv_wgmma::conv_kernel) at the probe's shapes
+    at batch 2 and on a border-heavy 7 x 9 image, under the probe's float16
+    limits."""
+    from distributed_training_tpu_torch.ops.conv3x3_stats import conv3x3_stats
+    from distributed_training_tpu_torch.tools import conv_fusion_probe as probe
+
+    n, h, w, cin, cout = (3, 7, 9, 16, 32) if shape == "border" else (2, *probe.SHAPES[shape][2:])
+    x, wts = probe.inputs(n, h, w, cin, cout, "cuda", seed=5, dtype=torch.float16)
+    before = conv3x3_stats.launches
+    probe.check(x, wts)
+    assert conv3x3_stats.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16], ids=str)
+@pytest.mark.parametrize("cin,cout", [(3, 12), (20, 36), (13, 5)])
+def test_conv3x3_stats_pads_other_channel_counts(require_cuda, dtype, cin, cout):
+    """Cin and Cout that are not multiples of the kernel's (8 in the 16-bit
+    types, 4 in float32) are zero-padded and sliced back: one launch, out
+    of the true shape, under the probe's limits."""
+    from distributed_training_tpu_torch.ops.conv3x3_stats import conv3x3_stats
+    from distributed_training_tpu_torch.tools import conv_fusion_probe as probe
+
+    x, wts = probe.inputs(2, 7, 9, cin, cout, "cuda", seed=cin + cout, dtype=dtype)
+    before = conv3x3_stats.launches
+    out, s, ss = conv3x3_stats(x, wts)
+    assert conv3x3_stats.launches == before + 1
+    assert out.shape == (2, 7, 9, cout) and s.shape == ss.shape == (cout,)
+    probe.check(x, wts)

@@ -87,6 +87,52 @@ def test_gradients_match_jax(causal):
                                    rtol=1e-4, err_msg=f"d{name}")
 
 
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [16, 48, 96])
+def test_other_head_dims_match_jax(d, causal):
+    """Head dims between the kernels' sizes (which the card pads to 32, 64
+    or 128): out, lse and the gradients of a loss reading both, against
+    the JAX kernels, which take any d."""
+    q, k, v = _qkv((1, 2, 128, d), seed=d)
+    rng = np.random.RandomState(d + 1)
+    g = rng.randn(1, 2, 128, d).astype(np.float32)
+    g_lse = rng.randn(1, 2, 128).astype(np.float32)
+    blocks = dict(causal=causal, block_q=64, block_k=64, bwd_block_q=64, bwd_block_k=64)
+
+    def jloss(q, k, v):
+        o, lse = jfa.flash_attention_lse(q, k, v, **blocks)
+        return jnp.sum(o * g) + jnp.sum(lse * g_lse), (o, lse)
+
+    (_, (jo, jlse)), jgrads = jax.value_and_grad(
+        jloss, argnums=(0, 1, 2), has_aux=True)(*map(jnp.asarray, (q, k, v)))
+    xs = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    o, lse = tfa.flash_attention_lse(*xs, **blocks)
+    ((o * torch.from_numpy(g)).sum() + (lse * torch.from_numpy(g_lse)).sum()).backward()
+    np.testing.assert_allclose(o.detach().numpy(), np.asarray(jo), atol=2e-6, rtol=1e-5)
+    np.testing.assert_allclose(lse.detach().numpy(), np.asarray(jlse), atol=1e-5, rtol=1e-5)
+    for name, x, want in zip("qkv", xs, jgrads):
+        np.testing.assert_allclose(x.grad.numpy(), np.asarray(want), atol=5e-5,
+                                   rtol=1e-4, err_msg=f"d{name}")
+
+
+def test_head_dims_pad_to_the_kernels_sizes():
+    """Off the CPU, d goes up to the next instantiated size, 128 the
+    largest; the padding comes before the kernel's checks (a ``meta``
+    tensor is then refused as not on a card)."""
+    assert [tfa.padded_head_dim(d) for d in (1, 16, 32, 33, 48, 64, 96, 128)] == [
+        32, 32, 32, 64, 64, 64, 128, 128]
+    with pytest.raises(ValueError, match="up to 128"):
+        tfa.padded_head_dim(160)
+    q = torch.empty((2, 64, 48), device="meta", dtype=torch.float16)
+    padded = tfa._pad_d(q, 64)
+    assert padded.shape == (2, 64, 64) and padded.dtype == torch.float16
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_fwd(q, q, q, causal=True)
+    wide = torch.empty((2, 64, 160), device="meta")
+    with pytest.raises(ValueError, match="up to 128"):
+        tfa.flash_fwd(wide, wide, wide, causal=True)
+
+
 def test_rejects_indivisible_like_jax():
     q, k, v = _qkv((1, 1, 100, 32))
     with pytest.raises(ValueError, match="divisible"):

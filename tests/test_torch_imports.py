@@ -66,7 +66,8 @@ def test_every_module_imports_with_jax_blocked():
     for new in ("ops.flash_attention", "parallel.ring_attention", "models.gpt",
                 "data.lm_text", "train.lm_step", "train.lm_trainer",
                 "ops.conv3x3_stats", "tools.flash_kernel_bench",
-                "tools.conv_fusion_probe"):
+                "tools.conv_fusion_probe", "runtime.distributed",
+                "runtime.coordinator", "parallel.zero"):
         assert f"distributed_training_tpu_torch.{new}" in mods
 
 

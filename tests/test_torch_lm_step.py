@@ -3,10 +3,11 @@ rows and tie-inclusive accuracy, and the parameters, Adam moments and
 metrics after two ``hybrid_adam`` steps against ``make_tp_lm_train_step``
 on a one-device CPU mesh (its flash kernels in interpret mode).
 
-Tolerances. CE rows: float32 logits rtol 1e-6; bfloat16 logits (both
-sides read the same stored values and sum exponentials in float32)
-rtol 1e-5; their gradients within 1e-6 (float32) and one bfloat16 ulp
-(2**-8) of the largest magnitude. Train step, float32 on the CPU with
+Tolerances. CE rows: float32 logits rtol 1e-6; bfloat16 and float16
+logits (both sides read the same stored values and sum exponentials in
+float32) rtol 1e-5; their gradients within 1e-6 (float32) and one ulp of
+the logits' dtype (bfloat16 2**-8, float16 2**-11) of the largest
+magnitude. Train step, float32 on the CPU with
 sums in other orders: metrics rtol 1e-5; parameters atol 1e-5 (1% of lr
 1e-3); Adam moments within 1e-4 of each tensor's largest magnitude.
 Adam's eps is 1e-4 so that a near-zero gradient does not turn rounding
@@ -43,10 +44,14 @@ torch.set_num_threads(1)
 OPT = dict(name="hybrid_adam", lr=1e-3, eps=1e-4, weight_decay=1e-4,
            grad_clip_norm=1.0)
 KW = dict(num_classes=64, num_layers=2, num_heads=2, hidden_dim=32, max_len=64)
-DTYPES = {"fp32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
+DTYPES = {"fp32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16),
+          "fp16": (jnp.float16, torch.float16)}
+# One ulp of the logits' dtype: the CE gradient's limit, of its largest
+# magnitude (float32: the float32 sums in another order).
+GRAD_TOL = {"fp32": 1e-6, "bf16": 2.0 ** -8, "fp16": 2.0 ** -11}
 
 
-@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("dtype", ["fp32", "bf16", "fp16"])
 def test_ce_rows_accuracy_and_gradient_match_jax(dtype):
     jd, td = DTYPES[dtype]
     rng = np.random.RandomState(0)
@@ -63,8 +68,8 @@ def test_ce_rows_accuracy_and_gradient_match_jax(dtype):
                                rtol=1e-6 if dtype == "fp32" else 1e-5)
     np.testing.assert_array_equal(correct.numpy(), np.asarray(jcorrect))
     jg = np.asarray(jgrad.astype(jnp.float32))
-    tol = 1e-6 if dtype == "fp32" else 2.0 ** -8
-    np.testing.assert_allclose(tl.grad.float().numpy(), jg, atol=tol * np.abs(jg).max())
+    np.testing.assert_allclose(tl.grad.float().numpy(), jg,
+                               atol=GRAD_TOL[dtype] * np.abs(jg).max())
     np.testing.assert_allclose(
         float(lm_step._fused_softmax_ce(tl.detach(), torch.from_numpy(targets))),
         float(jstep_mod._fused_softmax_ce(jl, jnp.asarray(targets))), rtol=1e-6)

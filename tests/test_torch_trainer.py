@@ -12,6 +12,7 @@ from distributed_training_tpu_torch import checkpoint as ckpt
 from distributed_training_tpu_torch.config import (
     CheckpointConfig,
     DataConfig,
+    MeshSpec,
     OptimizerConfig,
     TrainConfig,
     ZeroConfig,
@@ -121,9 +122,47 @@ def test_target_acc_gate(tmp_path):
         Trainer(_cfg(tmp_path, target_acc=1.01), device="cpu").fit()
 
 
+PRESETS = {
+    "torch_ddp": {}, "torch_ddp_fp16": {}, "low_level_zero": {}, "gemini": {},
+    "deepspeed": dict(zero=ZeroConfig(stage=2, cpu_offload=True)),
+}
+
+
+@pytest.mark.parametrize("plugin", list(PRESETS))
+def test_every_plugin_preset_fits_and_equals_its_stage0_twin(tmp_path, plugin):
+    """All five presets run at world 1 (``low_level_zero`` is ZeRO 1 in
+    fp16, ``gemini`` ZeRO 3, the deepspeed one here ZeRO 2 with
+    ``cpu_offload``), and each step's loss and the final parameters equal
+    those of the same config at ZeRO stage 0: at world 1 a stage partitions
+    nothing. Stages 1 and 3 run the same arithmetic bit for bit; the
+    deepspeed clip's global norm sums the shards' squared norms, which
+    rounds otherwise than one norm over all tensors: atol 1e-6 (lr 3e-3)."""
+    def run(zero, tag):
+        cfg = TrainConfig.from_plugin(plugin, **{
+            k: v for k, v in vars(_cfg(tmp_path / tag)).items()
+            if k in ("model", "num_epochs", "log_interval", "data", "checkpoint")},
+            **({"zero": zero} if zero else {}))
+        cfg = cfg.replace(optimizer=OptimizerConfig(
+            **{**vars(cfg.optimizer), "name": "hybrid_adam", "lr": 3e-3}))
+        t = Trainer(cfg, device="cpu")
+        out = t.fit()
+        t.state.gather_params()
+        return out, [h["loss"] for h in t.meter.history], _params(t), t
+
+    out, losses, params, t = run(PRESETS[plugin].get("zero"), "preset")
+    want_stage = {"low_level_zero": 1, "gemini": 3, "deepspeed": 2}.get(plugin, 0)
+    assert t.state.zero.stage == want_stage and out["steps"] == 3
+    if plugin == "deepspeed":
+        assert all(m.device.type == "cpu" for m in t.state.opt_state.mu.values())
+    _, twin_losses, twin, _ = run(ZeroConfig(stage=0), "twin")
+    np.testing.assert_allclose(losses, twin_losses, rtol=1e-6)
+    for n in twin:
+        torch.testing.assert_close(params[n], twin[n], rtol=0, atol=1e-6)
+
+
 @pytest.mark.parametrize("override", [
     dict(remat=True), dict(eval_precise_bn_batches=2),
-    dict(tensorboard_dir="tb"), dict(zero=ZeroConfig(stage=1)),
+    dict(tensorboard_dir="tb"), dict(mesh=MeshSpec(model=2)),
     dict(optimizer=OptimizerConfig(name="hybrid_adam", ema_decay=0.999)),
     dict(optimizer=OptimizerConfig(name="lamb")),
     dict(model="vit_b16"),
