@@ -8,7 +8,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
 2. build every kernel in ``distributed_training_tpu_torch/csrc`` with
    ``nvcc`` (one process per source, in parallel), and print ptxas's
    registers and spills, the dynamic shared memory and the count of HGMMA
-   instructions in the SASS (``cuobjdump``) of each of the 28 tensor-core
+   instructions in the SASS (``cuobjdump``) of each of the 36 tensor-core
    instantiations, bf16 and fp16, of K2, K3, K4a, K4b and K5 (one missing,
    no HGMMA, or a spill at d 64 or in K5, fails);
 3. kernel phase: the fused-Adam kernel against its plain PyTorch version
@@ -20,6 +20,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
    and fall, and every optimizer step must have gone through the kernel;
    the trained model's logits on the card must match the same model's on
    the CPU;
+4b. bf16 image phase: ``Trainer.fit()`` on full-width ResNet-18 in bf16
+   (20 steps of ``hybrid_adam``, batch 100): the loss finite and falling,
+   K1 once a step; then the same with ``ema_decay`` 0.9, whose eval must
+   go through the EMA weights;
 5. fp16 phase: a few ``torch_ddp_fp16`` steps through the dynamic loss
    scale and its guarded, out-of-place update;
 5b. DP/ZeRO phase: each of the five plugin presets (``torch_ddp``,
@@ -62,6 +66,13 @@ Phases, in order; any failure exits non-zero and prints no result line:
    ones) in bf16 and fp16, K5 in fp16 at s0–s2 and at Cin/Cout 3→12 and
    20→36 in every dtype, each against its plain version; then the fp16
    times of K2–K4 at the GPT-2-small shape and of K5 at s0–s2;
+7d. ResNet CLI phase: ``resnet/torch_cuda/train.py -p torch_ddp_fp16``
+   (what ``run.sh`` runs) for one short epoch on synthetic CIFAR;
+7e. d-256 phase: K2–K4 at head dims 256 and 160 (padded to 256) in
+   float32, bf16 and fp16, T 100 and 384, causal and not, against their
+   plain versions; d 257 must raise; then all four timed in bf16 at BH 48
+   (4 × 12 heads), T 1024, d 256, causal, beside their plain versions,
+   SDPA and the bound;
 8. exp2 phase: under the ``_USE_EXP2`` switch, K2, K3 and K4 against the
    plain versions (exp2 too) over the flash grid's bf16 causal cases (head
    dims 32, 64, 128) and at every shape of ``flash_kernel_bench``, then
@@ -76,10 +87,18 @@ Phases, in order; any failure exits non-zero and prints no result line:
    ``conv_fusion_probe.main`` over s0, s1, s2; each run starts with every
    kernel count at 0, each must verify and launch its kernels, and both
    switches must be back to False after them;
+10b. bench phase: ``python -m distributed_training_tpu_torch.bench`` at
+   its defaults (the bf16 ResNet-50 leg at 224², batch 512 as 2 × 256,
+   SGD; the GPT-2-small AdamW leg at B16 T1024 with flash attention),
+   each leg printing its JSON line, then the LM leg with
+   ``--lm-optimizer hybrid_adam``; every value and MFU finite and
+   positive, MFU at most 1, the losses finite, K2/K3 once a layer a step
+   and K1 once a step on the hybrid_adam leg; then each default leg's
+   step profiled (device busy share, kernels by device time);
 11. K5's time at each probe shape beside its yardsticks and its time
    before the tensor-core redesign, a ``{"kernels": [...]}`` line (six
-   kernels, each with its launches by path, its fp16 time and its
-   tensor-core instantiations), then the card line, and last
+   kernels, each with its launches by path, its fp16 time, its d-256
+   times and its tensor-core instantiations), then the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits with code 2 before doing anything.
@@ -339,13 +358,21 @@ def steady_state(trainer, batches: list, per_step: int, unit: str,
           f"{per_step * 1e3 / ms:.1f} {unit}/s over {len(batches)} steps "
           f"(batches on the card, after warm-up); peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    _profile([lambda b=b: trainer.train_step(trainer.state, b)
+              for b in batches[:profiled]], tag)
+
+
+def _profile(calls: list, tag: str) -> None:
+    """Run ``calls`` under ``torch.profiler`` and print where the device
+    time goes: the wall time, the device's busy share of it, and the
+    kernels by device time (the port's own wherever they rank)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for b in batches[:profiled]:
-            trainer.train_step(trainer.state, b)
+        for call in calls:
+            call()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     # Device events only (kernels, copies, memsets): an operator's row
@@ -362,7 +389,7 @@ def steady_state(trainer, batches: list, per_step: int, unit: str,
             rows.append((dev_us, e.key, e.count))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    print(f"[{tag}] profile of {profiled} steps: wall {wall_us / 1e3:.3f} ms "
+    print(f"[{tag}] profile of {len(calls)} steps: wall {wall_us / 1e3:.3f} ms "
           f"(profiled), device busy {busy / 1e3:.3f} ms = "
           f"{100 * busy / wall_us:.1f}% of wall")
     for dev_us, key, count in rows[:12]:
@@ -753,8 +780,6 @@ def flash_kernel_phase() -> dict:
     their plain versions over a grid of shapes and at the flash bench's
     shapes, K4a's dq bit for bit across two launches, then all four timed
     at the GPT-2-small shape."""
-    import torch.nn.functional as F
-
     from distributed_training_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -797,14 +822,40 @@ def flash_kernel_phase() -> dict:
         raise SystemExit("K4a dq differs between two launches on the same inputs")
     print(f"[flash] K4a dq equal bit for bit across two launches at BH {bh} T {t} "
           f"d {d} bf16 causal")
+    result = _time_flash("flash", q, k, v, g, GPT_B, errs)
+    pair_ms = cuda_ms(lambda: fa.flash_bwd_split(q, k, v, out, lse, g, causal=True), 10)
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        result[name].update(library_call="SDPA backward (dq, dk, dv)", pair_ms=pair_ms,
+                            pair_bound_ms=result["flash_bwd"]["bound_ms"])
+    print(f"[flash] K3 time includes its wrapper's delta, dq zeroing and cast; the "
+          f"K4 pair through flash_bwd_split (with delta) {pair_ms:.4f} ms, "
+          f"{pair_ms / result['flash_bwd']['ms']:.3f}x K3")
+    del q, k, v, g, out, lse, delta, dq
+    torch.cuda.empty_cache()
+    result["flash_bwd_dq"]["bench_shapes"] = _split_vs_fused(gen)
+    return result
 
+
+def _time_flash(tag: str, q, k, v, g, batch: int, errs: dict) -> dict:
+    """K2, K3, K4a and K4b timed on ``[BH, T, d]`` inputs (causal), beside
+    their plain versions, ``F.scaled_dot_product_attention`` forward and
+    backward on the same tensors as ``[batch, heads, T, d]`` (a yardstick
+    only; the port never calls it) and the least time the card could take;
+    printed, and returned by kernel with ``errs`` (its max_abs_err)."""
+    import torch.nn.functional as F
+
+    from distributed_training_tpu_torch.ops import flash_attention as fa
+
+    bh, t, d = q.shape
+    dtype = str(q.dtype)[6:]
+    out, lse = fa.flash_fwd(q, k, v, causal=True)
+    delta = fa._delta(g, out)
     ms = {"flash_fwd": cuda_ms(lambda: fa.flash_fwd(q, k, v, causal=True), 20),
           "flash_bwd": cuda_ms(lambda: fa.flash_bwd(q, k, v, out, lse, g, causal=True), 10),
           "flash_bwd_dq": cuda_ms(lambda: fa.flash_bwd_dq(
               q, k, v, g, lse, delta, causal=True), 10),
           "flash_bwd_dkv": cuda_ms(lambda: fa.flash_bwd_dkv(
               q, k, v, g, lse, delta, causal=True), 10)}
-    pair_ms = cuda_ms(lambda: fa.flash_bwd_split(q, k, v, out, lse, g, causal=True), 10)
     plain = {"flash_fwd": cuda_ms(lambda: fa.flash_attention_reference(
                  q, k, v, causal=True), 5),
              "flash_bwd": cuda_ms(lambda: fa.flash_attention_bwd_reference(
@@ -813,7 +864,7 @@ def flash_kernel_phase() -> dict:
                  q, k, v, g, lse, delta, causal=True), 3),
              "flash_bwd_dkv": cuda_ms(lambda: fa.flash_attention_dkv_reference(
                  q, k, v, g, lse, delta, causal=True), 3)}
-    q4, k4, v4, g4 = (x.view(GPT_B, GPT_H, t, d) for x in (q, k, v, g))
+    q4, k4, v4, g4 = (x.view(batch, bh // batch, t, d) for x in (q, k, v, g))
     sdpa_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True), 20)
     xs = [x.detach().requires_grad_() for x in (q4, k4, v4)]
     o4 = F.scaled_dot_product_attention(*xs, is_causal=True)
@@ -825,7 +876,7 @@ def flash_kernel_phase() -> dict:
     # fused backward (s, dp, dS·K, pᵀ·dO, dSᵀ·Q), of which K4a does s, dp
     # and dS·K, and K4b s, dp, pᵀ·dO and dSᵀ·Q.
     pairs = bh * t * (t + 1) // 2
-    x, rows = bh * t * d * torch.bfloat16.itemsize, bh * t * 4
+    x, rows = bh * t * d * q.element_size(), bh * t * 4
     work = {"flash_fwd": (4 * x + rows, 4 * d),             # q k v out, lse
             "flash_bwd": (7 * x + 2 * rows, 10 * d),        # q k v dO dq dk dv, lse δ
             "flash_bwd_dq": (5 * x + 2 * rows, 6 * d),      # q k v dO dq, lse δ
@@ -837,22 +888,14 @@ def flash_kernel_phase() -> dict:
         lib = sdpa_fwd if name == "flash_fwd" else sdpa_bwd
         result[name] = {"max_abs_err": errs[name], "ms": ms[name], "plain_ms": plain[name],
                         "library_ms": lib, "bound_ms": bound, "bound_by": by}
-        before = _before(name, ms[name])
-        print(f"[flash] {name} at BH {bh} T {t} d {d} bf16 causal: ms={ms[name]:.4f} "
+        before = _before(name, ms[name]) if d == GPT_D else ""
+        print(f"[{tag}] {name} at BH {bh} T {t} d {d} {dtype} causal: ms={ms[name]:.4f} "
               f"plain_ms={plain[name]:.4f} library_ms={lib:.4f} (SDPA) bound_ms="
               f"{bound:.4f} ({nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP; {by}); "
               f"{ops / ms[name] / 1e9:.2f} TFLOP/s, {100 * bound / ms[name]:.1f}% of "
               f"the bound, {ms[name] / lib:.2f}x SDPA{before}; "
               f"max_abs_err={errs[name]:.3g}")
-    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
-        result[name].update(library_call="SDPA backward (dq, dk, dv)", pair_ms=pair_ms,
-                            pair_bound_ms=result["flash_bwd"]["bound_ms"])
-    print(f"[flash] K3 time includes its wrapper's delta, dq zeroing and cast; the "
-          f"K4 pair through flash_bwd_split (with delta) {pair_ms:.4f} ms, "
-          f"{pair_ms / ms['flash_bwd']:.3f}x K3")
-    del q, k, v, g, out, lse, delta, dq, q4, k4, v4, g4, xs, o4
-    torch.cuda.empty_cache()
-    result["flash_bwd_dq"]["bench_shapes"] = _split_vs_fused(gen)
+    del out, lse, delta, q4, k4, v4, g4, xs, o4
     return result
 
 
@@ -1115,6 +1158,196 @@ def tools_phase() -> tuple[dict, dict]:
     return launches, results
 
 
+# Head dims up to 256 (Gemma's width): K2–K4 checked at d 256 and at d 160
+# (zero-padded to 256), then timed at BH 48 (batch 4, 12 heads), T 1024,
+# d 256, bf16, causal.
+D256_B, D256_H, D256_T = 4, 12, 1024
+
+
+def d256_phase() -> dict:
+    """The D-256 instantiations: K2, K3, K4a and K4b against their plain
+    versions at d 256 and 160, in float32, bf16 and fp16, at a ragged
+    (100) and an admissible (384) T, causal and not, with a non-zero lse
+    cotangent, under FLASH_TOL; each kernel launched once a case. A d of
+    257 raises. Then all four timed in bf16 at BH 48, T 1024, d 256,
+    causal, beside their plain versions, SDPA and the bound."""
+    from distributed_training_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    counters = (fa.flash_fwd, fa.flash_bwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    worst: dict = {}
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        for d in (160, 256):
+            for t in (100, 384):
+                for causal in (False, True):
+                    n = [f.launches for f in counters]
+                    q, k, v, g = (_randn(gen, 4, t, d, dtype=dtype) for _ in range(4))
+                    rows, _ = _flash_case(f"d256 {str(dtype)[6:]} d={d} T={t} causal={causal}",
+                                          q, k, v, g, _randn(gen, 4, t), causal=causal)
+                    if [f.launches - m for f, m in zip(counters, n)] != [1, 1, 1, 1]:
+                        raise SystemExit(f"d {d}: a flash kernel did not launch once")
+                    for name, err in rows.items():
+                        key = f"{str(dtype)[6:]} {name}"
+                        worst[key] = max(worst.get(key, 0.0), err)
+    print("[d256] K2/K3/K4 vs plain at d 160 (padded to 256) and 256, float32, bf16 and "
+          "fp16, T 100 and 384, causal and not, worst errors by row (lse: of its largest "
+          "magnitude): " + ", ".join(f"{n} {e:.3g}" for n, e in sorted(worst.items())))
+    wide = [_randn(gen, 2, 64, 257, dtype=torch.bfloat16) for _ in range(3)]
+    try:
+        fa.flash_fwd(*wide, causal=True)
+    except ValueError as err:
+        print(f"[d256] d 257 raises ValueError: {err}")
+    else:
+        raise SystemExit("flash_fwd took a head dim of 257")
+    bh, t, d = D256_B * D256_H, D256_T, 256
+    q, k, v, g = (_randn(gen, bh, t, d, dtype=torch.bfloat16) for _ in range(4))
+    _, abs_errs = _flash_case(f"d256 timed shape [{bh},{t},{d}]", q, k, v, g, causal=True)
+    errs = {"flash_fwd": abs_errs["K2 out"],
+            "flash_bwd": max(abs_errs["K3 dq"], abs_errs["K3 dk"], abs_errs["K3 dv"]),
+            "flash_bwd_dq": abs_errs["K4a dq"],
+            "flash_bwd_dkv": max(abs_errs["K4b dk"], abs_errs["K4b dv"])}
+    result = _time_flash("d256", q, k, v, g, D256_B, errs)
+    del q, k, v, g, wide
+    torch.cuda.empty_cache()
+    return result
+
+
+def bf16_image_phase(ckpt_dir: str) -> dict:
+    """``Trainer.fit()`` on full-width ResNet-18 in bf16 (20 steps of
+    ``hybrid_adam``, batch 100): the loss finite and falling, K1 once a
+    step. Then the same with ``ema_decay``: eval goes through the EMA
+    weights (``TrainState.ema_weights``), which differ from the live ones."""
+    import math
+
+    from distributed_training_tpu_torch import Trainer
+    from distributed_training_tpu_torch.config import (
+        CheckpointConfig,
+        DataConfig,
+        OptimizerConfig,
+        PrecisionConfig,
+        TrainConfig,
+    )
+    from distributed_training_tpu_torch.ops.fused_adam import fused_adam_update
+
+    steps = 20
+    out = {}
+    for tag, ema in (("bf16", None), ("bf16_ema", 0.9)):
+        cfg = TrainConfig(
+            model="resnet18", num_epochs=1, log_interval=5,
+            optimizer=OptimizerConfig(name="hybrid_adam", ema_decay=ema),
+            precision=PrecisionConfig(dtype="bf16"),
+            data=DataConfig(dataset="synthetic_cifar", batch_size=100,
+                            max_steps_per_epoch=steps),
+            checkpoint=CheckpointConfig(directory=os.path.join(ckpt_dir, tag), interval=0))
+        trainer = Trainer(cfg)
+        if trainer.model.dtype != torch.bfloat16:
+            raise SystemExit("the bf16 Trainer did not build a bf16 model")
+        entered = []
+        swap = trainer.state.ema_weights
+        trainer.state.ema_weights = lambda: (entered.append(1), swap())[1]
+        times = _timed_train_epochs(trainer)
+        fused_adam_update.launches = 0
+        result = trainer.fit()
+        launches = fused_adam_update.launches
+        losses = [h["loss"] for h in trainer.meter.history]
+        print(f"[{tag}] fit -> {result}")
+        print(f"[{tag}] logged losses {losses}; {steps} steps in {times[0]:.3f} s, "
+              f"{steps * 100 / times[0]:.1f} images/s (first step's cuDNN planning "
+              f"included); K1 launches {launches}; EMA eval passes {len(entered)}")
+        if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+            raise SystemExit(f"{tag}: the loss is not finite or did not fall: {losses}")
+        if launches != steps:
+            raise SystemExit(f"{tag}: K1 launches {launches} != {steps} steps")
+        if ema is None:
+            if entered:
+                raise SystemExit("eval went through the EMA without ema_decay")
+        else:
+            opt = trainer.state.opt_state
+            moved = max((opt.ema[n] - p).abs().max().item()
+                        for n, p in trainer.model.named_parameters())
+            if len(entered) != 1 or moved == 0:
+                raise SystemExit(f"EMA eval passes {len(entered)}, EMA vs live {moved}")
+            print(f"[{tag}] the EMA weights differ from the live ones by up to {moved:.3g}")
+        out[tag] = launches
+        del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def bench_phase() -> dict:
+    """The port's bench as a user runs it: a bare run at its defaults (the
+    bf16 ResNet-50 leg, then the GPT-2-small AdamW leg; each prints its
+    JSON line), then the LM leg with ``--lm-optimizer hybrid_adam``. Every
+    kernel count starts at 0 before each run. Each ``value`` and ``mfu``
+    must be finite and positive, each ``mfu`` at most 1, each loss finite;
+    the LM legs must launch K2 and K3 once a layer a step, and the
+    hybrid_adam leg K1 once a step. Then a profile of two steps of each
+    default leg: the device's busy share and the kernels by device time."""
+    import math
+
+    from distributed_training_tpu_torch import bench
+    from distributed_training_tpu_torch.ops import flash_attention as fa
+    from distributed_training_tpu_torch.ops.fused_adam import fused_adam_update
+
+    counters = {"flash_fwd": fa.flash_fwd, "flash_bwd": fa.flash_bwd,
+                "fused_adam": fused_adam_update}
+    defaults = bench.build_parser().parse_args([])
+    steps = defaults.warmup + defaults.steps
+    runs, launches = {}, {}
+    for path, argv in (("bench", []), ("bench --lm --lm-optimizer hybrid_adam",
+                                       ["--lm", "--lm-optimizer", "hybrid_adam"])):
+        for fn in counters.values():
+            fn.launches = 0
+        runs[path] = bench.main(argv)
+        launches[path] = {n: fn.launches for n, fn in counters.items()}
+        print(f"[bench] {path}: launches {launches[path]}")
+    results = [*runs["bench"], *runs["bench --lm --lm-optimizer hybrid_adam"]]
+    for line, loss in results:
+        ok = (math.isfinite(line["value"]) and line["value"] > 0 and line["mfu"] is not None
+              and math.isfinite(line["mfu"]) and 0 < line["mfu"] <= 1 and math.isfinite(loss))
+        if not ok:
+            raise SystemExit(f"bench line out of range (loss {loss}): {line}")
+    lm = GPT_LAYERS * steps
+    want = {"bench": {"flash_fwd": lm, "flash_bwd": lm, "fused_adam": 0},
+            "bench --lm --lm-optimizer hybrid_adam": {"flash_fwd": lm, "flash_bwd": lm,
+                                                      "fused_adam": steps}}
+    if launches != want:
+        raise SystemExit(f"bench launches {launches} != {want}")
+    print(f"[bench] losses {[round(loss, 4) for _, loss in results]}; image "
+          f"{results[0][0]['value']} images/s mfu {results[0][0]['mfu']}, LM AdamW "
+          f"{results[1][0]['value']} tokens/s mfu {results[1][0]['mfu']}, LM hybrid_adam "
+          f"{results[2][0]['value']} tokens/s mfu {results[2][0]['mfu']}")
+    # Where each default leg's step spends the card's time: two steps after
+    # two warm-up steps, on the leg's own model, state and batch.
+    for tag, setup in (("bench image", bench.image_step), ("bench lm", bench.lm_step)):
+        _, state, step, batch = setup(defaults, torch.device("cuda"))
+        for _ in range(2):
+            step(state, batch)
+        _profile([lambda: step(state, batch)] * 2, tag)
+        del state, step, batch
+        torch.cuda.empty_cache()
+    return launches
+
+
+def cli_phase(ckpt_dir: str) -> dict:
+    """The ResNet CLI (``resnet/torch_cuda/train.py``) as ``run.sh`` calls
+    it (``-p torch_ddp_fp16 -c <dir>``), on synthetic CIFAR for one short
+    epoch: it must commit every step and save its checkpoint."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_cuda_train", os.path.join(REPO, "resnet", "torch_cuda", "train.py"))
+    cli = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cli)
+    steps = 10
+    out = cli.main(["-p", "torch_ddp_fp16", "-c", ckpt_dir, "-i", "1", "-e", "1",
+                    "--dataset", "synthetic_cifar", "--steps-per-epoch", str(steps)])
+    if out["steps"] != steps or not os.path.isdir(os.path.join(ckpt_dir, "epoch_0")):
+        raise SystemExit(f"the ResNet CLI did not commit {steps} steps and save: {out}")
+    print(f"[cli] resnet/torch_cuda/train.py -p torch_ddp_fp16: {out}")
+    return out
+
+
 # Each kernel's time on CUDA cores, before its tensor-core redesign, at
 # the path's shape on an H100 80GB HBM3 at 700 W (PERF.md's kernel table):
 # K2, K3, K4a and K4b at the GPT-2-small shape, K5 at the probe's shapes.
@@ -1146,9 +1379,9 @@ WGMMA_KERNELS = (
     ("flash_attention_split", rf"_ZN11flash_wgmma9dq_kernelI{_T}Li(\d+)E", "K4a dq_kernel", 3),
     ("conv3x3_stats", rf"_ZN10conv_wgmma11conv_kernelI{_T}Li(\d+)E", "K5 conv_kernel", None),
 )
-# 14 instantiations in each of the two types: K2, K3, K4b and K4a at d 32,
-# 64 and 128, K5 at 32 and 64 output channels a block.
-WGMMA_INSTANTIATIONS = 28
+# 18 instantiations in each of the two types: K2, K3, K4b and K4a at d 32,
+# 64, 128 and 256, K5 at 32 and 64 output channels a block.
+WGMMA_INSTANTIATIONS = 36
 
 
 def _sass_by_function(lib: str) -> dict:
@@ -1167,8 +1400,8 @@ def wgmma_build_lines() -> dict:
     """Per tensor-core instantiation (bf16 and fp16): the HGMMA
     instructions in its SASS and, when this run built the libraries,
     ptxas's registers and spills, and the launch's dynamic shared memory.
-    Fails unless all 28 are there (K2, K3, K4b, K4a at d 32, 64, 128; K5
-    at 32 and 64 output channels a block; each in both types), each with
+    Fails unless all 36 are there (K2, K3, K4b, K4a at d 32, 64, 128, 256;
+    K5 at 32 and 64 output channels a block; each in both types), each with
     HGMMA (the proof that it reaches the tensor cores), and on a spill at
     d 64 (the GPT path) or in K5."""
     import ctypes
@@ -1252,14 +1485,20 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as ckpt:
         launches = train_phase(os.path.join(ckpt, "fp32"))
         fp16_phase(os.path.join(ckpt, "fp16"))
+        bf16 = bf16_image_phase(os.path.join(ckpt, "bf16"))
         dp = dp_phase(os.path.join(ckpt, "dp"))
         flash = flash_kernel_phase()
         lm = lm_phase(os.path.join(ckpt, "lm"))
         lm16 = lm_fp16_phase(os.path.join(ckpt, "lm_fp16"))
+        cli_phase(os.path.join(ckpt, "cli"))
     half = fp16_pad_phase()
+    d256 = d256_phase()
     exp2 = exp2_phase()
     k5 = conv_phase()
     tool_launches, tool_results = tools_phase()
+    bench = bench_phase()
+    bench_lm = {"bench_gpt2_small_adamw": bench["bench"],
+                "bench_gpt2_small_hybrid_adam": bench["bench --lm --lm-optimizer hybrid_adam"]}
 
     def by_path(name: str, **more) -> dict:
         paths = {**more, **{p: n[name] for p, n in tool_launches.items() if name in n}}
@@ -1291,19 +1530,26 @@ def main() -> int:
         "name": "fused_adam", "route": "cuda",
         "source": "distributed_training_tpu_torch/csrc/fused_adam.cu",
         "replaces": "distributed_training_tpu/ops/fused_adam.py:40",
-        "launches": (launches + lm["fused_adam"] + lm16["fused_adam"]
-                     + sum(r["launches"] for r in dp.values())),
+        "launches": (launches + sum(bf16.values()) + lm["fused_adam"] + lm16["fused_adam"]
+                     + sum(r["launches"] for r in dp.values())
+                     + sum(n["fused_adam"] for n in bench_lm.values())),
         "launches_by_path": {"resnet18_train": launches,
+                             **{f"resnet18_train_{tag}": n for tag, n in bf16.items()},
                              **{f"resnet18_{p}_nccl_world1": r["launches"]
                                 for p, r in dp.items()},
                              "gpt2_small_train": lm["fused_adam"],
-                             "gpt2_small_train_fp16": lm16["fused_adam"]},
+                             "gpt2_small_train_fp16": lm16["fused_adam"],
+                             **{p: n["fused_adam"] for p, n in bench_lm.items()
+                                if n["fused_adam"]}},
         **k, "ok": True,
     }, *({
         "name": name, "route": "cuda", "source": src, "replaces": f"{ref}:{line}",
         **by_path(name, **({"gpt2_small_train": lm[name],
-                            "gpt2_small_train_fp16": lm16[name]} if name in lm else {})),
-        **flash[name], "exp2_ms": exp2[name], "fp16_ms": half["ms"][name],
+                            "gpt2_small_train_fp16": lm16[name],
+                            **{p: n[name] for p, n in bench_lm.items()}}
+                           if name in lm else {})),
+        **flash[name], "d256": d256[name], "exp2_ms": exp2[name],
+        "fp16_ms": half["ms"][name],
         "fp16_max_abs_err": half["max_abs_err"][name],
         "instantiations": built(tag), "ok": True,
     } for name, src, line, tag in (

@@ -1,0 +1,348 @@
+"""Benchmark: the two headline training-throughput metrics, on the port.
+
+    python -m distributed_training_tpu_torch.bench            # both legs
+    python -m distributed_training_tpu_torch.bench --image    # one leg
+    python -m distributed_training_tpu_torch.bench --lm --lm-optimizer hybrid_adam
+    python -m distributed_training_tpu_torch.bench --device cpu --model resnet_micro ...
+
+The port of the root ``bench.py``, with its parser (names and defaults)
+and its output: a bare run prints the image leg's JSON line, then the LM
+leg's, each with ``metric``, ``value``, ``unit``, ``vs_baseline``, ``mfu``,
+``model_flops_per_sec``, ``step_time_p50_ms`` and ``step_time_p95_ms``.
+
+- **Image leg:** ResNet-50 on synthetic ImageNet at 224², bf16 compute
+  over float32 parameters, an effective batch of 512 as 2 × 256 gradient
+  accumulation, SGD 0.1 with momentum 0.9, through the image train step
+  (``train/step.py``) at ``--zero-stage`` (world 1).
+- **LM leg:** GPT-2-small (vocab 50304, 12 layers, 12 heads, hidden 768)
+  at B16 T1024, bf16, the flash kernels K2/K3, bf16 logits, no head
+  bias, AdamW 3e-4 (optax's defaults: weight decay 1e-4 on every
+  tensor), through the LM train step; ``--lm-optimizer hybrid_adam`` runs
+  the fused-Adam kernel K1.
+
+Both legs time the steady state on batches already on the card: 5
+warm-up steps, then 45 steps with a host read of the loss every 15 (the
+barrier), by the host clock. The step-time percentiles are over those
+sync windows' mean step times. ``mfu`` is the train step's model FLOPs
+(``observability.flops``: 3× the forward's matmul FLOPs at the effective
+batch) per second over the card's dense bf16 peak; null for a card the
+peak table does not know, and on the CPU, unless ``$OBS_PEAK_FLOPS`` gives
+one. ``vs_baseline`` is null: the root bench's baselines (6000 images/s,
+94,600 tokens/s) are a TPU's.
+
+One default differs from the root bench: ``--steps-per-call`` is 1. The
+JAX bench compiles 15 steps into one ``lax.scan`` dispatch; eager PyTorch
+has no counterpart (a CUDA graph of the step would be one, ROADMAP.md), so
+a value above 1 raises. Every other flag the port cannot honour raises
+``NotImplementedError`` naming ROADMAP.md, never silently ignored. There
+is no CPU clamp: on the CPU (``--device cpu``) the sizes are what the
+caller passes.
+"""
+
+from __future__ import annotations
+
+import argparse
+import copy
+import json
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+
+
+
+class _WindowTimer:
+    """Per-sync-window step times: ``mark(k)`` after every host read
+    records the window's mean per-step ms over the k steps it covered."""
+
+    def __init__(self):
+        self._last = time.perf_counter()
+        self.per_step_ms: list[float] = []
+
+    def mark(self, steps_in_window: int) -> None:
+        now = time.perf_counter()
+        if steps_in_window > 0:
+            self.per_step_ms.append((now - self._last) / steps_in_window * 1e3)
+        self._last = now
+
+
+def observability_fields(step_flops: int | None, per_step_ms: list,
+                         total_steps: int, total_seconds: float) -> dict:
+    """``mfu``, ``model_flops_per_sec`` and the step-time percentiles, as
+    the root bench computes them (one card)."""
+    from distributed_training_tpu_torch.observability import (
+        device_peak_flops,
+        mfu,
+        percentile,
+    )
+
+    out: dict = {"mfu": None}
+    if per_step_ms:
+        out["step_time_p50_ms"] = round(percentile(per_step_ms, 50), 3)
+        out["step_time_p95_ms"] = round(percentile(per_step_ms, 95), 3)
+    if step_flops and total_seconds > 0:
+        fps = step_flops * total_steps / total_seconds
+        out["model_flops_per_sec"] = round(fps, 1)
+        u = mfu(fps, 1, device_peak_flops())
+        if u is not None:
+            out["mfu"] = round(u, 4)
+    return out
+
+
+def _timed_loop(step, state, batch, args) -> tuple[float, list, float]:
+    """Warm-up, then ``args.steps`` steps with a host read of the loss
+    every ``sync_interval``: (seconds, per-window step ms, last loss)."""
+    for _ in range(args.warmup):
+        metrics = step(state, batch)
+    if args.warmup:
+        float(metrics["loss"])
+    t0 = time.perf_counter()
+    wt = _WindowTimer()
+    win = 0
+    for i in range(args.steps):
+        metrics = step(state, batch)
+        win += 1
+        if args.sync_interval > 0 and (i + 1) % args.sync_interval == 0:
+            float(metrics["loss"])
+            wt.mark(win)
+            win = 0
+    loss = float(metrics["loss"])
+    wt.mark(win)
+    return time.perf_counter() - t0, wt.per_step_ms, loss
+
+
+def _where(device: torch.device) -> str:
+    return "1 gpu chip(s)" if device.type == "cuda" else "cpu"
+
+
+def image_step(args, device: torch.device):
+    """The image leg's ``(model, state, step, batch)``, as it is timed."""
+    from distributed_training_tpu_torch.config import OptimizerConfig, PrecisionConfig
+    from distributed_training_tpu_torch.models import get_model
+    from distributed_training_tpu_torch.parallel.zero import Zero
+    from distributed_training_tpu_torch.train.optim import make_optimizer
+    from distributed_training_tpu_torch.train.precision import LossScaleState
+    from distributed_training_tpu_torch.train.step import make_train_step
+    from distributed_training_tpu_torch.train.train_state import TrainState
+
+    batch_size = args.batch_size  # one card: the global batch
+    model = get_model(args.model, num_classes=args.num_classes, dtype=torch.bfloat16,
+                      generator=torch.Generator().manual_seed(0)).to(device)
+    # SGD with momentum, as the root bench's optax.sgd(0.1, momentum=0.9).
+    tx = make_optimizer(OptimizerConfig(name="sgd", lr=0.1, momentum=0.9))
+    state = TrainState.create(model, tx, LossScaleState.create(PrecisionConfig(dtype="bf16")),
+                              Zero(args.zero_stage, None, args.cpu_offload))
+    step = make_train_step(zero_stage=args.zero_stage, grad_accum_steps=args.grad_accum)
+    rng = np.random.RandomState(0)
+    images = rng.rand(batch_size, args.image_size, args.image_size, 3)
+    if args.input_dtype == "uint8":
+        images = torch.from_numpy((images * 255).astype(np.uint8))
+    else:
+        images = torch.from_numpy(images.astype(np.float32)).to(
+            torch.bfloat16 if args.input_dtype == "bf16" else torch.float32)
+    batch = {"image": images.to(device),
+             "label": torch.from_numpy(rng.randint(0, args.num_classes, batch_size)
+                                       .astype(np.int32)).to(device)}
+    return model, state, step, batch
+
+
+def bench_image(args, device: torch.device) -> tuple[dict, float]:
+    """The image leg: ``(the JSON line's dict, the last loss)``."""
+    from distributed_training_tpu_torch.observability import (
+        forward_flops,
+        train_step_flops,
+    )
+
+    model, state, step, batch = image_step(args, device)
+    dt, per_step_ms, loss = _timed_loop(step, state, batch, args)
+
+    per_chip = args.steps * args.batch_size / dt
+    step_flops = train_step_flops(forward_flops(model, image_size=args.image_size,
+                                                batch=args.batch_size))
+    result = {
+        "metric": f"{args.model} synthetic-ImageNet train throughput "
+                  f"(bf16, batch {args.batch_size}/chip"
+                  f"{', zero-' + str(args.zero_stage) if args.zero_stage else ''}"
+                  f"{', offload' if args.cpu_offload else ''}"
+                  f"{', in:' + args.input_dtype if args.input_dtype != 'fp32' else ''}"
+                  f"{', accum:' + str(args.grad_accum) if args.grad_accum > 1 else ''}"
+                  f", {_where(device)})",
+        "value": round(per_chip, 2),
+        "unit": "images/sec/chip",
+        "vs_baseline": None,
+        **observability_fields(step_flops, per_step_ms, args.steps, dt),
+    }
+    print(json.dumps(result), flush=True)
+    return result, loss
+
+
+def lm_step(args, device: torch.device):
+    """The LM leg's ``(model, state, step, batch)``, as it is timed."""
+    from distributed_training_tpu_torch.config import OptimizerConfig, PrecisionConfig
+    from distributed_training_tpu_torch.data.pipeline import to_device
+    from distributed_training_tpu_torch.models import get_model
+    from distributed_training_tpu_torch.train.lm_step import (
+        make_lm_batch,
+        make_lm_train_step,
+        parse_logits_dtype,
+    )
+    from distributed_training_tpu_torch.train.optim import make_optimizer
+    from distributed_training_tpu_torch.train.precision import LossScaleState
+    from distributed_training_tpu_torch.train.train_state import TrainState
+
+    model = get_model(
+        "transformer_lm", num_classes=50304, dtype=torch.bfloat16,
+        num_layers=12, num_heads=12, hidden_dim=768, max_len=args.seq_len,
+        attn_impl=args.attn_impl, logits_dtype=parse_logits_dtype(args.logits_dtype),
+        head_bias=args.head_bias, generator=torch.Generator().manual_seed(0)).to(device)
+    if args.lm_optimizer == "hybrid_adam":
+        opt = OptimizerConfig(name="hybrid_adam", lr=3e-4)
+    else:  # optax.adamw(3e-4): b1 0.9, b2 0.999, eps 1e-8, weight decay 1e-4
+        opt = OptimizerConfig(name="adamw", lr=3e-4, weight_decay=1e-4)
+    state = TrainState.create(model, make_optimizer(opt),
+                              LossScaleState.create(PrecisionConfig(dtype="bf16")))
+    step = make_lm_train_step(accuracy_metric=not args.no_accuracy, max_len=args.seq_len)
+    toks = np.random.RandomState(0).randint(
+        0, 50304, (args.lm_batch, args.seq_len + 1)).astype(np.int32)
+    batch = to_device({k: np.ascontiguousarray(v) for k, v in make_lm_batch(toks).items()},
+                      device)
+    return model, state, step, batch
+
+
+def bench_lm(args, device: torch.device) -> tuple[dict, float]:
+    """The LM leg: ``(the JSON line's dict, the last loss)``."""
+    from distributed_training_tpu_torch.observability import (
+        forward_flops,
+        train_step_flops,
+    )
+
+    model, state, step, batch = lm_step(args, device)
+    dt, per_step_ms, loss = _timed_loop(step, state, batch, args)
+
+    tok_s = args.lm_batch * args.seq_len * args.steps / dt
+    step_flops = train_step_flops(forward_flops(model, seq_len=args.seq_len,
+                                                batch=args.lm_batch))
+    result = {
+        "metric": f"GPT-2-small train throughput (bf16 "
+                  f"{'HybridAdam' if args.lm_optimizer == 'hybrid_adam' else 'AdamW'}, B"
+                  f"{args.lm_batch} T{args.seq_len} {args.attn_impl}"
+                  f"{', logits:fp32' if args.logits_dtype == 'fp32' else ''}"
+                  f"{', head-bias' if args.head_bias else ''}"
+                  f"{', no-acc-metric' if args.no_accuracy else ''}"
+                  f", {_where(device)})",
+        "value": round(tok_s, 1),
+        "unit": "tokens/sec",
+        "vs_baseline": None,
+        **observability_fields(step_flops, per_step_ms, args.steps, dt),
+    }
+    print(json.dumps(result), flush=True)
+    return result, loss
+
+
+def build_parser() -> argparse.ArgumentParser:
+    """The root bench's parser (names and defaults; ``--steps-per-call``
+    defaults to 1 here), and ``--device``."""
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--device", default=None,
+                    help="cuda (default; raises without a card) or cpu")
+    ap.add_argument("--model", default="resnet50")
+    ap.add_argument("--batch-size", type=int, default=512,
+                    help="per-chip EFFECTIVE batch size")
+    ap.add_argument("--image-size", type=int, default=224)
+    ap.add_argument("--num-classes", type=int, default=1000)
+    ap.add_argument("--zero-stage", type=int, default=0, choices=[0, 1, 2, 3],
+                    help="ZeRO stage of the benched step (world 1)")
+    ap.add_argument("--cpu-offload", action="store_true", default=False,
+                    help="optimizer state in pinned host memory "
+                         "(requires --zero-stage >= 1)")
+    ap.add_argument("--remat", action="store_true", default=False)
+    ap.add_argument("--remat-policy", default=None, choices=[None, "conv"])
+    ap.add_argument("--param-dtype", default="fp32", choices=["fp32", "bf16"])
+    ap.add_argument("--input-dtype", default="fp32", choices=["fp32", "bf16", "uint8"],
+                    help="batch image dtype (uint8 maps to float on the card)")
+    ap.add_argument("--grad-accum", type=int, default=2,
+                    help="microbatches a step (batch-size is the effective batch)")
+    ap.add_argument("--steps-per-call", type=int, default=1,
+                    help="train steps a dispatch; only 1 (see the module docstring)")
+    ap.add_argument("--warmup", type=int, default=5)
+    ap.add_argument("--steps", type=int, default=45)
+    ap.add_argument("--sync-interval", type=int, default=15,
+                    help="read the loss on the host every N steps (the barrier)")
+    ap.add_argument("--data-only", action="store_true", default=False)
+    ap.add_argument("--data-stress", action=argparse.BooleanOptionalAction, default=True)
+    ap.add_argument("--data-concurrent", action="store_true", default=False)
+    ap.add_argument("--data-mode", default="both",
+                    choices=["imagefolder", "cached", "augment", "both"])
+    ap.add_argument("--data-path", default=None)
+    ap.add_argument("--data-images", type=int, default=2048)
+    ap.add_argument("--data-workers", type=int, default=os.cpu_count() or 8)
+    ap.add_argument("--data-batch-size", type=int, default=256)
+    ap.add_argument("--lm", action="store_true", default=False,
+                    help="bench ONLY the GPT-2-small LM step; a bare run "
+                         "emits the image leg then the LM leg")
+    ap.add_argument("--image", action="store_true", default=False,
+                    help="bench ONLY the image step")
+    ap.add_argument("--tp", type=int, default=1)
+    ap.add_argument("--tp-overlap", action="store_true", default=False)
+    ap.add_argument("--lm-batch", type=int, default=16)
+    ap.add_argument("--seq-len", type=int, default=1024)
+    ap.add_argument("--attn-impl", default="flash", choices=["flash", "exact"])
+    ap.add_argument("--ce-chunk", type=int, default=None)
+    ap.add_argument("--ce-save-probs", action="store_true", default=False)
+    ap.add_argument("--logits-dtype", default="bf16", choices=["fp32", "bf16"])
+    ap.add_argument("--head-bias", action=argparse.BooleanOptionalAction, default=False)
+    ap.add_argument("--no-accuracy", action="store_true", default=False)
+    ap.add_argument("--lm-optimizer", default="adamw", choices=["adamw", "hybrid_adam"],
+                    help="hybrid_adam: the fused-Adam kernel K1")
+    ap.add_argument("--check", action="store_true", default=False)
+    return ap
+
+
+def unported(args) -> list[str]:
+    """The flags set to something the port cannot honour yet."""
+    defaults = build_parser().parse_args([])
+    data = [f"--{name.replace('_', '-')}" for name in (
+        "data_stress", "data_mode", "data_path", "data_images", "data_workers",
+        "data_batch_size") if getattr(args, name) != getattr(defaults, name)]
+    flags = {
+        "--remat (activation checkpointing, A5)": args.remat,
+        "--remat-policy (A5)": args.remat_policy is not None,
+        "--param-dtype bf16 (bf16 master weights)": args.param_dtype == "bf16",
+        "--tp (tensor parallelism, A7)": args.tp != 1,
+        "--tp-overlap (A7)": args.tp_overlap,
+        "--ce-chunk (chunked CE, A7)": args.ce_chunk is not None,
+        "--ce-save-probs (A7)": args.ce_save_probs,
+        "--data-only (the host input pipeline, A6)": args.data_only,
+        "--data-concurrent (A6)": args.data_concurrent,
+        "--check (BENCH_BASELINE.json holds a TPU's numbers)": args.check,
+        "--steps-per-call > 1 (a CUDA graph of the step)": args.steps_per_call != 1,
+        **{f"{flag} (A6)": True for flag in data},
+    }
+    return [k for k, v in flags.items() if v]
+
+
+def main(argv: list[str] | None = None) -> list[tuple[dict, float]]:
+    """Run the legs ``argv`` asks for; print each JSON line, and return
+    each leg's ``(dict, last loss)``."""
+    args = build_parser().parse_args(argv)
+    bad = unported(args)
+    if bad:
+        raise NotImplementedError(f"not ported yet (see ROADMAP.md): {', '.join(bad)}")
+    from distributed_training_tpu_torch.utils.device import resolve_device, set_fp32_math
+
+    device = resolve_device(args.device)
+    set_fp32_math()
+    legs = ([bench_lm] if args.lm else [bench_image] if args.image
+            else [bench_image, bench_lm])
+    out = []
+    for leg in legs:  # each leg gets its own copy of the arguments
+        out.append(leg(copy.deepcopy(args), device))
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

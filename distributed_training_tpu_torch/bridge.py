@@ -162,8 +162,59 @@ def load_flax_adam_state(model: nn.Module, opt_state, count: int, mu: Any,
                          nu: Any) -> None:
     """Copy a JAX ``FusedAdamState`` (``count``, ``mu``, ``nu``) or an optax
     ``ScaleByAdamState`` of ``model``'s parameters into the port's
-    :class:`AdamState`."""
+    ``OptState``."""
     opt_state.count = int(count)
     for src, dst in ((mu, opt_state.mu), (nu, opt_state.nu)):
         for name, t in flax_tree_to_named(model, src).items():
             dst[name].copy_(t)
+
+
+def named_to_flax_stats(model: nn.Module, named: dict[str, torch.Tensor]) -> dict:
+    """BatchNorm statistics keyed by the port's buffer names (e.g. the
+    ``ema_stats`` slot) as a Flax ``batch_stats`` tree."""
+    return _to_trees(model, named)["batch_stats"]
+
+
+def _optax_parts(state) -> list:
+    """The leaf states of an optax chain (nested tuples), outermost first."""
+    if isinstance(state, tuple) and not hasattr(state, "_fields"):
+        return [p for s in state for p in _optax_parts(s)]
+    if hasattr(state, "ema_params"):  # EmaState: its own fields, then inner
+        return [state, *_optax_parts(state.inner)]
+    return [state]
+
+
+def load_optax_state(model: nn.Module, opt_state, jax_state) -> None:
+    """Copy the JAX optimizer state of ``model``'s parameters (after
+    ``jax.device_get``) into the port's ``OptState``, by the fields of the
+    chain's states: ``mu``/``nu`` (optax ``ScaleByAdamState``, the fused
+    ``FusedAdamState``), ``trace`` (``TraceState``), ``ema_params`` and
+    ``ema_batch_stats`` (``EmaState``); the count from the first state
+    that has one. Every slot of ``opt_state`` must be covered."""
+    slots = opt_state.slots
+    covered = set()
+    count = None
+    for part in _optax_parts(jax_state):
+        fields = getattr(part, "_fields", ())
+        if count is None and "count" in fields:
+            count = int(part.count)
+        trees = {}
+        if "mu" in fields and "nu" in fields:
+            trees = {"mu": part.mu, "nu": part.nu}
+        elif "trace" in fields:
+            trees = {"trace": part.trace}
+        elif "ema_params" in fields:
+            trees = {"ema": part.ema_params}
+            if "ema_stats" in slots:
+                for name, t in _from_trees(
+                        model, {"batch_stats": part.ema_batch_stats}).items():
+                    slots["ema_stats"][name].copy_(t)
+                covered.add("ema_stats")
+        for slot, tree in trees.items():
+            for name, t in flax_tree_to_named(model, tree).items():
+                slots[slot][name].copy_(t)
+            covered.add(slot)
+    if covered != set(slots):
+        raise ValueError(f"the JAX state covers slots {sorted(covered)}, the "
+                         f"port's has {sorted(slots)}")
+    opt_state.count = 0 if count is None else count

@@ -5,9 +5,8 @@ Field names and defaults are the JAX package's, so a config written for
 one package means the same run in the other. The port keeps its own copy:
 importing anything of ``distributed_training_tpu`` would import JAX.
 
-Not carried over yet (see ROADMAP.md): ``from_ds_config``,
-``ServeConfig``, ``ObservabilityConfig``, ``ChaosConfig`` and
-``TraceConfig``. ``TrainConfig`` therefore has no ``observability`` or
+Not carried over yet (see ROADMAP.md): ``ServeConfig``,
+``ObservabilityConfig``, ``ChaosConfig`` and ``TraceConfig``. ``TrainConfig`` therefore has no ``observability`` or
 ``chaos`` field; passing one raises ``TypeError``. Fields that exist but
 whose behaviour the port does not provide yet (MoE, mesh axes other than
 ``data``, and the options listed in the trainers) raise
@@ -18,7 +17,8 @@ from their defaults.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Sequence
+import warnings
+from typing import Any, Mapping, Sequence
 
 PLUGINS = (
     "torch_ddp",        # pure DP, fp32
@@ -33,7 +33,7 @@ PLUGINS = (
 class OptimizerConfig:
     """Adam hyperparameters (DeepSpeed ds_config optimizer block defaults)."""
 
-    # adam | adamw | sgd | lamb | hybrid_adam (the port: adam, hybrid_adam)
+    # adam | adamw | sgd | lamb | hybrid_adam (the fused-Adam kernel K1)
     name: str = "adam"
     lr: float = 1e-3
     betas: tuple = (0.9, 0.999)
@@ -284,3 +284,133 @@ def resolve_data_axis(mesh: MeshSpec, world: int) -> int:
         raise ValueError(f"mesh data axis {mesh.data} does not match the "
                          f"world size {world}")
     return mesh.data
+
+
+def from_ds_config(ds: Mapping[str, Any], base: TrainConfig | None = None) -> TrainConfig:
+    """Ingest a DeepSpeed-style config dict, as the JAX package's
+    ``from_ds_config`` does: every field of the reference's ds_config
+    (``resnet/deepspeed/deepspeed_train.py:172-220``) maps onto the
+    dataclasses, and unknown keys raise ``ValueError``. What asks for a
+    behaviour the port lacks raises ``NotImplementedError``: activation
+    checkpointing that turns remat on, and ``wall_clock_breakdown``.
+    ``prescale_gradients`` and the ZeRO bucket and overlap knobs are
+    validated and read by nothing (each exchange is one collective on one
+    flat buffer, which averages either way)."""
+    cfg = base or TrainConfig.from_plugin("deepspeed")
+    known = {
+        "train_batch_size", "train_micro_batch_size_per_gpu", "steps_per_print",
+        "gradient_accumulation_steps", "activation_checkpointing",
+        "optimizer", "scheduler", "gradient_clipping", "prescale_gradients",
+        "bf16", "fp16", "wall_clock_breakdown", "zero_optimization",
+    }
+    unknown = set(ds) - known
+    if unknown:
+        raise ValueError(f"unknown ds_config keys: {sorted(unknown)}")
+
+    opt = cfg.optimizer
+    if "optimizer" in ds:
+        p = ds["optimizer"].get("params", {})
+        opt_type = ds["optimizer"].get("type", "Adam").lower()
+        if opt_type in ("adam", "adamw", "lamb"):
+            opt = dataclasses.replace(
+                opt, name=opt_type, lr=p.get("lr", opt.lr),
+                betas=tuple(p.get("betas", opt.betas)), eps=p.get("eps", opt.eps),
+                weight_decay=p.get("weight_decay", opt.weight_decay))
+        elif opt_type == "sgd":
+            opt = dataclasses.replace(
+                opt, name="sgd", lr=p.get("lr", opt.lr),
+                momentum=p.get("momentum", opt.momentum),
+                nesterov=bool(p.get("nesterov", opt.nesterov)),
+                weight_decay=p.get("weight_decay", opt.weight_decay))
+        else:
+            raise ValueError(
+                f"unsupported ds optimizer type {ds['optimizer'].get('type')!r}"
+                " (adam | adamw | sgd | lamb)")
+    if "gradient_clipping" in ds:
+        opt = dataclasses.replace(opt, grad_clip_norm=float(ds["gradient_clipping"]))
+
+    sched = cfg.scheduler
+    if "scheduler" in ds:
+        if ds["scheduler"].get("type") != "WarmupLR":
+            raise ValueError("only WarmupLR scheduler is supported from ds_config")
+        p = ds["scheduler"].get("params", {})
+        sched = SchedulerConfig(
+            name="warmup_lr", warmup_min_lr=p.get("warmup_min_lr", 0.0),
+            warmup_max_lr=p.get("warmup_max_lr", opt.lr),
+            warmup_num_steps=p.get("warmup_num_steps", 1000))
+
+    prec = cfg.precision
+    if ds.get("bf16", {}).get("enabled"):
+        prec = dataclasses.replace(prec, dtype="bf16")
+    fp16 = ds.get("fp16", {})
+    if fp16.get("enabled"):
+        loss_scale = fp16.get("loss_scale", 0)
+        prec = PrecisionConfig(
+            dtype="fp16", initial_scale_power=fp16.get("initial_scale_power", 15),
+            loss_scale_window=fp16.get("loss_scale_window", 500),
+            hysteresis=fp16.get("hysteresis", 2),
+            min_loss_scale=fp16.get("min_loss_scale", 1.0),
+            static_loss_scale=None if loss_scale == 0 else float(loss_scale))
+
+    zero = cfg.zero
+    if "zero_optimization" in ds:
+        z = dict(ds["zero_optimization"])
+        zero = ZeroConfig(
+            stage=z.pop("stage", 0),
+            allgather_partitions=z.pop("allgather_partitions", True),
+            reduce_scatter=z.pop("reduce_scatter", True),
+            allgather_bucket_size=z.pop("allgather_bucket_size", 50_000_000),
+            reduce_bucket_size=z.pop("reduce_bucket_size", 50_000_000),
+            overlap_comm=z.pop("overlap_comm", True),
+            contiguous_gradients=z.pop("contiguous_gradients", True),
+            cpu_offload=z.pop("cpu_offload", False))
+        if z:
+            raise ValueError(f"unknown zero_optimization keys: {sorted(z)}")
+
+    data = cfg.data
+    if "train_batch_size" in ds:
+        data = dataclasses.replace(data, global_batch_size=int(ds["train_batch_size"]))
+    if "train_micro_batch_size_per_gpu" in ds:
+        data = dataclasses.replace(data, batch_size=int(ds["train_micro_batch_size_per_gpu"]))
+
+    if not isinstance(ds.get("prescale_gradients", False), bool):
+        raise ValueError("prescale_gradients must be a bool")
+
+    # activation_checkpointing turns remat on only with an opt-in signal
+    # (the "enabled" key, or a truthy functional sub-knob), as in the JAX
+    # package; remat is not ported.
+    remat = cfg.remat
+    if "activation_checkpointing" in ds:
+        ac = ds["activation_checkpointing"]
+        if isinstance(ac, Mapping):
+            functional = {"enabled", "partition_activations", "cpu_checkpointing",
+                          "contiguous_memory_optimization", "number_checkpoints"}
+            unknown_ac = set(ac) - functional - {"synchronize_checkpoint_boundary",
+                                                 "profile"}
+            if unknown_ac:
+                raise ValueError(f"unknown activation_checkpointing keys: "
+                                 f"{sorted(unknown_ac)}")
+            if "enabled" in ac:
+                remat = bool(ac["enabled"])
+            elif any(ac.get(k) for k in functional):
+                remat = True
+            elif not remat:
+                warnings.warn(
+                    "activation_checkpointing block present but all functional "
+                    "sub-knobs are false — remat stays OFF. "
+                    'Set {"activation_checkpointing": {"enabled": true}} to opt in.',
+                    stacklevel=2)
+        else:
+            remat = bool(ac)
+    wall_clock = bool(ds.get("wall_clock_breakdown", cfg.wall_clock_breakdown))
+    lacking = [k for k, v in (("activation checkpointing (remat)", remat),
+                              ("wall_clock_breakdown", wall_clock)) if v]
+    if lacking:
+        raise NotImplementedError(f"ds_config asks for what the port lacks "
+                                  f"(see ROADMAP.md, A5): {', '.join(lacking)}")
+
+    return cfg.replace(
+        optimizer=opt, scheduler=sched, precision=prec, zero=zero, data=data,
+        gradient_accumulation_steps=int(
+            ds.get("gradient_accumulation_steps", cfg.gradient_accumulation_steps)),
+        log_interval=int(ds.get("steps_per_print", cfg.log_interval)))

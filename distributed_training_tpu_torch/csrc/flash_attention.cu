@@ -61,30 +61,29 @@ namespace {
 
 using namespace flash;
 
-template <int D>
+template <int D, int R>
 constexpr size_t fwd_smem_bytes() {
-  return ((size_t)(kBQ + 2 * kBK) * (D + kPad) +
-          (size_t)kBQ * (kBK + kPad)) * sizeof(float);
+  return ((size_t)3 * R * (D + kPad) + (size_t)R * (R + kPad)) * sizeof(float);
 }
 
 // One k tile's step of the online softmax for query rows ty + 16 i: the
 // scores s (scaled and masked here), the running max m and sum l, the
 // output accumulators o rescaled, and p (rounded) into shared memory.
-template <bool kExp2, typename T, int kCpt>
-__device__ __forceinline__ void online_softmax(float (&s)[4][4], float (&m)[4],
-                                               float (&l)[4],
-                                               float (&o)[4][kCpt], float* ps,
+template <bool kExp2, typename T, int kCpt, int kN>
+__device__ __forceinline__ void online_softmax(float (&s)[kN][kN],
+                                               float (&m)[kN], float (&l)[kN],
+                                               float (&o)[kN][kCpt], float* ps,
                                                int q0, int k0, int t,
                                                int causal, float sscale) {
-  constexpr int kLdp = kBK + kPad;
+  constexpr int kLdp = 16 * kN + kPad;
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < kN; ++i) {
     const int row = q0 + ty + 16 * i;
     float mx = kNegInf;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < kN; ++j) {
       const int col = k0 + tx + 16 * j;
       float x = s[i][j] * sscale;
       if (col >= t || (causal && col > row)) x = kNegInf;
@@ -95,7 +94,7 @@ __device__ __forceinline__ void online_softmax(float (&s)[4][4], float (&m)[4],
     const float corr = softmax_exp<kExp2>(m[i] - m_new);
     float rs = 0.f;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < kN; ++j) {
       const float p = softmax_exp<kExp2>(s[i][j] - m_new);
       rs += p;
       ps[(ty + 16 * i) * kLdp + tx + 16 * j] = Elem<T>::round(p);
@@ -107,82 +106,85 @@ __device__ __forceinline__ void online_softmax(float (&s)[4][4], float (&m)[4],
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, int R>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out,
                  float* __restrict__ lse, int bh_count, int t, int causal,
                  int use_exp2, float scale) {
   constexpr int kLd = D + kPad;
-  constexpr int kLdp = kBK + kPad;
+  constexpr int kLdp = R + kPad;
+  constexpr int kN = R / 16;    // score rows and columns per thread
   constexpr int kCpt = D / 16;  // output columns per thread
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);
-  float* ks = qs + kBQ * kLd;
-  float* vs = ks + kBK * kLd;
-  float* ps = vs + kBK * kLd;
+  float* ks = qs + R * kLd;
+  float* vs = ks + R * kLd;
+  float* ps = vs + R * kLd;
 
-  const int nq = (t + kBQ - 1) / kBQ;
+  const int nq = (t + R - 1) / R;
   const int bh = blockIdx.x % bh_count;
-  const int q0 = (nq - 1 - blockIdx.x / bh_count) * kBQ;  // heaviest first
+  const int q0 = (nq - 1 - blockIdx.x / bh_count) * R;  // heaviest first
   const size_t base = (size_t)bh * t * D;
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
   const float sscale = use_exp2 ? scale * kLog2e : scale;
 
-  load_tile<T, D, kBQ>(qs, q + base, q0, t);
+  load_tile<T, D, R>(qs, q + base, q0, t);
 
-  float m[4], l[4], o[4][kCpt];
+  float m[kN], l[kN], o[kN][kCpt];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < kN; ++i) {
     m[i] = kNegInf;
     l[i] = 0.f;
 #pragma unroll
     for (int c = 0; c < kCpt; ++c) o[i][c] = 0.f;
   }
 
-  const int k_end = causal ? min(t, q0 + kBQ) : t;
-  for (int k0 = 0; k0 < k_end; k0 += kBK) {
+  const int k_end = causal ? min(t, q0 + R) : t;
+  for (int k0 = 0; k0 < k_end; k0 += R) {
     __syncthreads();  // the last tile's ks, vs, ps are read
-    load_tile<T, D, kBK>(ks, k + base, k0, t);
-    load_tile<T, D, kBK>(vs, v + base, k0, t);
+    load_tile<T, D, R>(ks, k + base, k0, t);
+    load_tile<T, D, R>(vs, v + base, k0, t);
     __syncthreads();
 
-    float s[4][4];
+    float s[kN][kN];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < kN; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+      for (int j = 0; j < kN; ++j) s[i][j] = 0.f;
 #pragma unroll 4
     for (int d = 0; d < D; d += 4) {
-      float4 qv[4], kv[4];
+      float4 qv[kN], kv[kN];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = lds4(qs + (ty + 16 * i) * kLd + d);
+      for (int i = 0; i < kN; ++i) qv[i] = lds4(qs + (ty + 16 * i) * kLd + d);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = lds4(ks + (tx + 16 * j) * kLd + d);
+      for (int j = 0; j < kN; ++j) kv[j] = lds4(ks + (tx + 16 * j) * kLd + d);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < kN; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = dot4(qv[i], kv[j], s[i][j]);
+        for (int j = 0; j < kN; ++j) s[i][j] = dot4(qv[i], kv[j], s[i][j]);
     }
 
     if (use_exp2)
-      online_softmax<true, T, kCpt>(s, m, l, o, ps, q0, k0, t, causal, sscale);
+      online_softmax<true, T, kCpt, kN>(s, m, l, o, ps, q0, k0, t, causal,
+                                        sscale);
     else
-      online_softmax<false, T, kCpt>(s, m, l, o, ps, q0, k0, t, causal, sscale);
+      online_softmax<false, T, kCpt, kN>(s, m, l, o, ps, q0, k0, t, causal,
+                                         sscale);
     __syncthreads();
 
 #pragma unroll 2
-    for (int j = 0; j < kBK; j += 4) {
-      float4 pv[4];
+    for (int j = 0; j < R; j += 4) {
+      float4 pv[kN];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = lds4(ps + (ty + 16 * i) * kLdp + j);
+      for (int i = 0; i < kN; ++i) pv[i] = lds4(ps + (ty + 16 * i) * kLdp + j);
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
         float vv[kCpt];
         lds_row<kCpt>(vv, vs + (j + jj) * kLd + tx * kCpt);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < kN; ++i) {
           const float p = comp(pv[i], jj);
 #pragma unroll
           for (int c = 0; c < kCpt; ++c) o[i][c] = fmaf(p, vv[c], o[i][c]);
@@ -192,7 +194,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < kN; ++i) {
     const int row = q0 + ty + 16 * i;
     if (row >= t) continue;
     float res[kCpt];
@@ -211,14 +213,15 @@ template <typename T, int D>
 int launch_fwd(const void* q, const void* k, const void* v, void* out,
                float* lse, int bh, int t, int causal, int use_exp2,
                float scale, cudaStream_t stream) {
-  constexpr size_t smem = fwd_smem_bytes<D>();
+  constexpr int R = rows_f32<D>;
+  constexpr size_t smem = fwd_smem_bytes<D, R>();
   unsigned blocks;
-  if (int e = blocks_for(t, kBQ, bh, &blocks)) return e;
+  if (int e = blocks_for(t, R, bh, &blocks)) return e;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<T, D, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  flash_fwd_kernel<T, D><<<blocks, kThreads, smem, stream>>>(
+  flash_fwd_kernel<T, D, R><<<blocks, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), lse, bh, t, causal,
       use_exp2, scale);
@@ -231,7 +234,7 @@ extern "C" {
 
 // q, k, v, out: [bh, t, d] contiguous, float32 (dtype = 0), bfloat16
 // (dtype = 1) or float16 (dtype = 2), 16-byte aligned; lse: [bh, t]
-// float32. d: 32, 64 or 128 (the wrapper pads any other d up to one).
+// float32. d: 32, 64, 128 or 256 (the wrapper pads any other d up to one).
 // scale: 1/sqrt(d) (use_exp2 folds log2(e) into it inside the kernel).
 int flash_fwd(const void* q, const void* k, const void* v, void* out,
               void* lse, int bh, int t, int d, int dtype, int causal,
@@ -283,6 +286,7 @@ int flash_wgmma_smem_bytes(int kernel, int d) {
   if (d == 32) return SMEM(32);
   if (d == 64) return SMEM(64);
   if (d == 128) return SMEM(128);
+  if (d == 256) return SMEM(256);
   return -1;
 #undef SMEM
 }

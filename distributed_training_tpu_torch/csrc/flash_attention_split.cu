@@ -50,30 +50,30 @@ namespace {
 
 using namespace flash;
 
-template <int D>
+template <int D, int R>
 constexpr size_t dq_smem_bytes() {
-  return ((size_t)(2 * kBQ + 2 * kBK) * (D + kPad) +
-          (size_t)kBQ * (kBK + kPad) + 2 * kBQ) * sizeof(float);
+  return ((size_t)4 * R * (D + kPad) + (size_t)R * (R + kPad) + 2 * R) *
+         sizeof(float);
 }
 
 // dS of one (q tile, k tile) pair into shared memory, from s and dp for
 // queries ty + 16 i, keys tx + 16 j.
-template <bool kExp2, typename T>
-__device__ __forceinline__ void dq_probs(const float (&s)[4][4],
-                                         const float (&dp)[4][4],
+template <bool kExp2, typename T, int kN>
+__device__ __forceinline__ void dq_probs(const float (&s)[kN][kN],
+                                         const float (&dp)[kN][kN],
                                          const float* lse_s,
                                          const float* delta_s, float* dss,
                                          int q0, int k0, int t, int causal,
                                          float sscale) {
-  constexpr int kLdk = kBK + kPad;
+  constexpr int kLdk = 16 * kN + kPad;
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < kN; ++i) {
     const int ql = ty + 16 * i;
     const int row = q0 + ql;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < kN; ++j) {
       const int kl = tx + 16 * j;
       const int col = k0 + kl;
       float p = 0.f;
@@ -85,7 +85,7 @@ __device__ __forceinline__ void dq_probs(const float (&s)[4][4],
 }
 
 // K4a in float32 (bf16 takes flash_wgmma::dq_kernel).
-template <typename T, int D>
+template <typename T, int D, int R>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
@@ -94,88 +94,92 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     int bh_count, int t, int causal, int use_exp2,
                     float scale) {
   constexpr int kLd = D + kPad;
-  constexpr int kLdk = kBK + kPad;  // rows of dS: one per query
+  constexpr int kLdk = R + kPad;  // rows of dS: one per query
+  constexpr int kN = R / 16;
   constexpr int kCpt = D / 16;
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);
-  float* dos = qs + kBQ * kLd;
-  float* ks = dos + kBQ * kLd;
-  float* vs = ks + kBK * kLd;
-  float* dss = vs + kBK * kLd;      // dS [kBQ][kLdk]
-  float* lse_s = dss + kBQ * kLdk;  // [kBQ]
-  float* delta_s = lse_s + kBQ;     // [kBQ]
+  float* dos = qs + R * kLd;
+  float* ks = dos + R * kLd;
+  float* vs = ks + R * kLd;
+  float* dss = vs + R * kLd;      // dS [R][kLdk]
+  float* lse_s = dss + R * kLdk;  // [R]
+  float* delta_s = lse_s + R;     // [R]
 
-  const int nq = (t + kBQ - 1) / kBQ;
+  const int nq = (t + R - 1) / R;
   const int bh = blockIdx.x % bh_count;
-  const int q0 = (nq - 1 - blockIdx.x / bh_count) * kBQ;  // heaviest first
+  const int q0 = (nq - 1 - blockIdx.x / bh_count) * R;  // heaviest first
   const size_t base = (size_t)bh * t * D;
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
   const float sscale = use_exp2 ? scale * kLog2e : scale;
 
-  load_tile<T, D, kBQ>(qs, q + base, q0, t);
-  load_tile<T, D, kBQ>(dos, dout + base, q0, t);
-  load_row_stats(lse_s, delta_s, lse, delta, (size_t)bh * t, q0, t, use_exp2);
+  load_tile<T, D, R>(qs, q + base, q0, t);
+  load_tile<T, D, R>(dos, dout + base, q0, t);
+  load_row_stats<R>(lse_s, delta_s, lse, delta, (size_t)bh * t, q0, t,
+                    use_exp2);
 
-  float acc[4][kCpt];
+  float acc[kN][kCpt];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < kN; ++i)
 #pragma unroll
     for (int c = 0; c < kCpt; ++c) acc[i][c] = 0.f;
 
-  const int k_end = causal ? min(t, q0 + kBQ) : t;
-  for (int k0 = 0; k0 < k_end; k0 += kBK) {
+  const int k_end = causal ? min(t, q0 + R) : t;
+  for (int k0 = 0; k0 < k_end; k0 += R) {
     __syncthreads();  // the last tile's ks, vs, dss are read
-    load_tile<T, D, kBK>(ks, k + base, k0, t);
-    load_tile<T, D, kBK>(vs, v + base, k0, t);
+    load_tile<T, D, R>(ks, k + base, k0, t);
+    load_tile<T, D, R>(vs, v + base, k0, t);
     __syncthreads();
 
     // s = q k^T and dp = dO v^T for queries ty + 16 i, keys tx + 16 j.
-    float s[4][4], dp[4][4];
+    float s[kN][kN], dp[kN][kN];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < kN; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+      for (int j = 0; j < kN; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 2
     for (int d = 0; d < D; d += 4) {
-      float4 qv[4], dov[4], kv[4], vv[4];
+      float4 qv[kN], dov[kN], kv[kN], vv[kN];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < kN; ++i) {
         qv[i] = lds4(qs + (ty + 16 * i) * kLd + d);
         dov[i] = lds4(dos + (ty + 16 * i) * kLd + d);
       }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < kN; ++j) {
         kv[j] = lds4(ks + (tx + 16 * j) * kLd + d);
         vv[j] = lds4(vs + (tx + 16 * j) * kLd + d);
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < kN; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < kN; ++j) {
           s[i][j] = dot4(qv[i], kv[j], s[i][j]);
           dp[i][j] = dot4(dov[i], vv[j], dp[i][j]);
         }
     }
 
     if (use_exp2)
-      dq_probs<true, T>(s, dp, lse_s, delta_s, dss, q0, k0, t, causal, sscale);
+      dq_probs<true, T, kN>(s, dp, lse_s, delta_s, dss, q0, k0, t, causal,
+                            sscale);
     else
-      dq_probs<false, T>(s, dp, lse_s, delta_s, dss, q0, k0, t, causal, sscale);
+      dq_probs<false, T, kN>(s, dp, lse_s, delta_s, dss, q0, k0, t, causal,
+                             sscale);
     __syncthreads();
 
     // dq += dS K, rows ty + 16 i, columns tx * kCpt.
 #pragma unroll 2
-    for (int c0 = 0; c0 < kBK; c0 += 4) {
-      float4 dsr[4];
+    for (int c0 = 0; c0 < R; c0 += 4) {
+      float4 dsr[kN];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) dsr[i] = lds4(dss + (ty + 16 * i) * kLdk + c0);
+      for (int i = 0; i < kN; ++i) dsr[i] = lds4(dss + (ty + 16 * i) * kLdk + c0);
 #pragma unroll
       for (int cc = 0; cc < 4; ++cc) {
         float kv[kCpt];
         lds_row<kCpt>(kv, ks + (c0 + cc) * kLd + tx * kCpt);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < kN; ++i) {
           const float ds = comp(dsr[i], cc);
 #pragma unroll
           for (int c = 0; c < kCpt; ++c) acc[i][c] = fmaf(ds, kv[c], acc[i][c]);
@@ -185,7 +189,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < kN; ++i) {
     const int row = q0 + ty + 16 * i;
     if (row >= t) continue;
     store_row<T, kCpt>(dq + base + (size_t)row * D + tx * kCpt, acc[i], scale);
@@ -196,14 +200,15 @@ template <typename T, int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const float* lse, const float* delta, void* dq, int bh, int t,
               int causal, int use_exp2, float scale, cudaStream_t stream) {
-  constexpr size_t smem = dq_smem_bytes<D>();
+  constexpr int R = rows_f32<D>;
+  constexpr size_t smem = dq_smem_bytes<D, R>();
   unsigned blocks;
-  if (int e = blocks_for(t, kBQ, bh, &blocks)) return e;
+  if (int e = blocks_for(t, R, bh, &blocks)) return e;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      flash_bwd_dq_kernel<T, D, R>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_dq_kernel<T, D><<<blocks, kThreads, smem, stream>>>(
+  flash_bwd_dq_kernel<T, D, R><<<blocks, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
       static_cast<T*>(dq), bh, t, causal, use_exp2, scale);
@@ -217,7 +222,7 @@ extern "C" {
 // q, k, v, dout, dq: [bh, t, d] contiguous, float32 (dtype = 0), bfloat16
 // (dtype = 1) or float16 (dtype = 2), 16-byte aligned; lse, delta: [bh, t]
 // float32.
-// d: 32, 64 or 128. scale: 1/sqrt(d).
+// d: 32, 64, 128 or 256. scale: 1/sqrt(d).
 int flash_bwd_dq(const void* q, const void* k, const void* v,
                  const void* dout, const void* lse, const void* delta,
                  void* dq, int bh, int t, int d, int dtype, int causal,

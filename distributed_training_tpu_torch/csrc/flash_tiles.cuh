@@ -5,11 +5,14 @@
 // (flash_wgmma.cuh).
 //
 // Layout common to all of them: one block of 256 threads (16 x 16) per
-// (bh, 64-row tile); tiles of 64 x D live in shared memory as float32 rows
-// padded by 4 floats, so the float4 reads of the inner products hit
-// distinct banks; each thread owns a 4 x 4 block of a 64 x 64 score tile
-// (rows ty + 16 i, columns tx + 16 j) and D / 16 columns of a 64 x D
-// product. Rows and keys past T are masked, so any T is taken.
+// (bh, R-row tile), R = 64 (rows_f32); tiles of R x D live in shared
+// memory as float32 rows padded by 4 floats, so the float4 reads of the
+// inner products hit distinct banks; each thread owns an R/16 x R/16
+// block of an R x R score tile (rows ty + 16 i, columns tx + 16 j) and
+// D / 16 columns of an R x D product. Rows and keys past T are masked, so
+// any T is taken. At D 256 the tiles have R = 32 rows: the backward's four
+// 64 x 260-float tiles alone would take 266 KB, above the 227 KB a block
+// may have; at 32 rows K3 takes 147 KB.
 //
 // use_exp2 (the JAX package's _USE_EXP2 switch): log2(e) is folded into
 // the score scale, the running max and sum of the forward and the
@@ -27,12 +30,14 @@
 
 namespace flash {
 
-constexpr int kBQ = 64;        // query rows per tile
-constexpr int kBK = 64;        // key rows per tile
 constexpr int kThreads = 256;  // 16 x 16
 constexpr int kPad = 4;        // floats of padding per shared-memory row
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+
+// Query and key rows of a float32 tile at head dim D (see above).
+template <int D>
+constexpr int rows_f32 = D > 128 ? 32 : 64;
 
 __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
   acc = fmaf(a.x, b.x, acc);
@@ -55,7 +60,7 @@ __device__ __forceinline__ float softmax_exp(float x) {
   return kExp2 ? exp2f(x) : expf(x);
 }
 
-// N consecutive floats of shared memory (N = D / 16: 2, 4 or 8).
+// N consecutive floats of shared memory (N = D / 16: 2, 4, 8 or 16).
 template <int N>
 __device__ __forceinline__ void lds_row(float (&dst)[N], const float* src) {
   if constexpr (N % 4 == 0) {
@@ -68,7 +73,7 @@ __device__ __forceinline__ void lds_row(float (&dst)[N], const float* src) {
       dst[i + 3] = v.w;
     }
   } else {
-    static_assert(N == 2, "columns per thread must be 2, 4 or 8");
+    static_assert(N == 2, "columns per thread must be 2, 4, 8 or 16");
     const float2 v = *reinterpret_cast<const float2*>(src);
     dst[0] = v.x;
     dst[1] = v.y;
@@ -106,13 +111,14 @@ __device__ __forceinline__ void load_tile(float* s, const T* g, int row0,
 }
 
 // lse (times log2(e) with use_exp2) and delta of the query rows
-// [q0, q0 + kBQ) into shared memory; rows past t read as zeros.
+// [q0, q0 + R) into shared memory; rows past t read as zeros.
+template <int R>
 __device__ __forceinline__ void load_row_stats(float* lse_s, float* delta_s,
                                                const float* lse,
                                                const float* delta,
                                                size_t row_base, int q0, int t,
                                                int use_exp2) {
-  for (int i = threadIdx.x; i < kBQ; i += kThreads) {
+  for (int i = threadIdx.x; i < R; i += kThreads) {
     const bool in = q0 + i < t;
     const float l = in ? lse[row_base + q0 + i] : 0.f;
     lse_s[i] = use_exp2 ? l * kLog2e : l;
@@ -143,51 +149,50 @@ inline int blocks_for(int t, int tile, int bh, unsigned* out) {
 
 // ------------------------------------------------ backward, one k tile a block
 
-template <int D, bool kDq>
+template <int D, int R, bool kDq>
 constexpr size_t bwd_smem_bytes() {
-  return ((size_t)(2 * kBK + 2 * kBQ) * (D + kPad) +
-          (size_t)2 * kBK * (kBQ + kPad) +
-          (kDq ? (size_t)kBQ * (kBK + kPad) : 0) + 2 * kBQ) *
+  return ((size_t)4 * R * (D + kPad) + (size_t)2 * R * (R + kPad) +
+          (kDq ? (size_t)R * (R + kPad) : 0) + 2 * R) *
          sizeof(float);
 }
 
 // p^T (rounded), dS^T and, with kDq, dS of one (k tile, q tile) pair into
 // shared memory, from s^T and dp^T for keys ty + 16 i, queries tx + 16 j.
-template <bool kExp2, typename T, bool kDq>
-__device__ __forceinline__ void bwd_probs_t(const float (&st)[4][4],
-                                            const float (&dpt)[4][4],
+template <bool kExp2, typename T, bool kDq, int R>
+__device__ __forceinline__ void bwd_probs_t(const float (&st)[R / 16][R / 16],
+                                            const float (&dpt)[R / 16][R / 16],
                                             const float* lse_s,
                                             const float* delta_s, float* pts,
                                             float* dsts, float* dss, int q0,
                                             int k0, int t, int causal,
                                             float sscale) {
-  constexpr int kLdq = kBQ + kPad;
-  constexpr int kLdk = kBK + kPad;
+  constexpr int kN = R / 16;
+  constexpr int kLd = R + kPad;
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < kN; ++i) {
     const int kl = ty + 16 * i;
     const int col = k0 + kl;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < kN; ++j) {
       const int ql = tx + 16 * j;
       const int row = q0 + ql;
       float p = 0.f;
       if (row < t && col < t && !(causal && col > row))
         p = softmax_exp<kExp2>(st[i][j] * sscale - lse_s[ql]);
       const float ds = Elem<T>::round(p * (dpt[i][j] - delta_s[ql]));
-      pts[kl * kLdq + ql] = Elem<T>::round(p);
-      dsts[kl * kLdq + ql] = ds;
-      if constexpr (kDq) dss[ql * kLdk + kl] = ds;
+      pts[kl * kLd + ql] = Elem<T>::round(p);
+      dsts[kl * kLd + ql] = ds;
+      if constexpr (kDq) dss[ql * kLd + kl] = ds;
     }
   }
 }
 
-// dK and dV of one 64-key tile, in registers over the live q tiles, written
+// dK and dV of one R-key tile, in registers over the live q tiles, written
 // once. With kDq (K3) each q tile's dQ = dS K is also added with float32
 // atomics into dq_acc; without it (K4b) dq_acc is not touched.
-template <typename T, int D, bool kDq>
+template <typename T, int D, bool kDq, int R>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const T* __restrict__ dout,
@@ -196,89 +201,89 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  T* __restrict__ dk, T* __restrict__ dv, int bh_count, int t,
                  int causal, int use_exp2, float scale) {
   constexpr int kLd = D + kPad;
-  constexpr int kLdq = kBQ + kPad;  // rows of p^T and dS^T: one per key
-  constexpr int kLdk = kBK + kPad;  // rows of dS: one per query
+  constexpr int kLdr = R + kPad;  // rows of p^T, dS^T (one per key), dS
+  constexpr int kN = R / 16;
   constexpr int kCpt = D / 16;
   extern __shared__ float4 smem4[];
   float* ks = reinterpret_cast<float*>(smem4);
-  float* vs = ks + kBK * kLd;
-  float* qs = vs + kBK * kLd;
-  float* dos = qs + kBQ * kLd;
-  float* pts = dos + kBQ * kLd;     // p^T   [kBK][kLdq]
-  float* dsts = pts + kBK * kLdq;   // dS^T  [kBK][kLdq]
-  float* dss = dsts + kBK * kLdq;   // dS    [kBQ][kLdk], with kDq only
-  float* lse_s = dss + (kDq ? kBQ * kLdk : 0);  // [kBQ]
-  float* delta_s = lse_s + kBQ;                 // [kBQ]
+  float* vs = ks + R * kLd;
+  float* qs = vs + R * kLd;
+  float* dos = qs + R * kLd;
+  float* pts = dos + R * kLd;     // p^T   [R][kLdr]
+  float* dsts = pts + R * kLdr;   // dS^T  [R][kLdr]
+  float* dss = dsts + R * kLdr;   // dS    [R][kLdr], with kDq only
+  float* lse_s = dss + (kDq ? R * kLdr : 0);  // [R]
+  float* delta_s = lse_s + R;                 // [R]
 
   const int bh = blockIdx.x % bh_count;
-  const int k0 = (blockIdx.x / bh_count) * kBK;  // heaviest (k0 = 0) first
+  const int k0 = (blockIdx.x / bh_count) * R;  // heaviest (k0 = 0) first
   const size_t base = (size_t)bh * t * D;
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
   const float sscale = use_exp2 ? scale * kLog2e : scale;
 
-  load_tile<T, D, kBK>(ks, k + base, k0, t);
-  load_tile<T, D, kBK>(vs, v + base, k0, t);
+  load_tile<T, D, R>(ks, k + base, k0, t);
+  load_tile<T, D, R>(vs, v + base, k0, t);
 
-  float dk_acc[4][kCpt], dv_acc[4][kCpt];
+  float dk_acc[kN][kCpt], dv_acc[kN][kCpt];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < kN; ++i)
 #pragma unroll
     for (int c = 0; c < kCpt; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
 
-  const int q_start = causal ? (k0 / kBQ) * kBQ : 0;
-  for (int q0 = q_start; q0 < t; q0 += kBQ) {
+  const int q_start = causal ? k0 : 0;
+  for (int q0 = q_start; q0 < t; q0 += R) {
     __syncthreads();  // the last tile's qs, dos, pts, dsts, dss are read
-    load_tile<T, D, kBQ>(qs, q + base, q0, t);
-    load_tile<T, D, kBQ>(dos, dout + base, q0, t);
-    load_row_stats(lse_s, delta_s, lse, delta, (size_t)bh * t, q0, t,
-                   use_exp2);
+    load_tile<T, D, R>(qs, q + base, q0, t);
+    load_tile<T, D, R>(dos, dout + base, q0, t);
+    load_row_stats<R>(lse_s, delta_s, lse, delta, (size_t)bh * t, q0, t,
+                      use_exp2);
     __syncthreads();
 
     // s^T and dp^T for keys ty + 16 i, queries tx + 16 j.
-    float st[4][4], dpt[4][4];
+    float st[kN][kN], dpt[kN][kN];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < kN; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) st[i][j] = dpt[i][j] = 0.f;
+      for (int j = 0; j < kN; ++j) st[i][j] = dpt[i][j] = 0.f;
 #pragma unroll 2
     for (int d = 0; d < D; d += 4) {
-      float4 kv[4], vv[4], qv[4], dov[4];
+      float4 kv[kN], vv[kN], qv[kN], dov[kN];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < kN; ++i) {
         kv[i] = lds4(ks + (ty + 16 * i) * kLd + d);
         vv[i] = lds4(vs + (ty + 16 * i) * kLd + d);
       }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < kN; ++j) {
         qv[j] = lds4(qs + (tx + 16 * j) * kLd + d);
         dov[j] = lds4(dos + (tx + 16 * j) * kLd + d);
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < kN; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < kN; ++j) {
           st[i][j] = dot4(kv[i], qv[j], st[i][j]);
           dpt[i][j] = dot4(vv[i], dov[j], dpt[i][j]);
         }
     }
 
     if (use_exp2)
-      bwd_probs_t<true, T, kDq>(st, dpt, lse_s, delta_s, pts, dsts, dss, q0,
-                                k0, t, causal, sscale);
+      bwd_probs_t<true, T, kDq, R>(st, dpt, lse_s, delta_s, pts, dsts, dss,
+                                   q0, k0, t, causal, sscale);
     else
-      bwd_probs_t<false, T, kDq>(st, dpt, lse_s, delta_s, pts, dsts, dss, q0,
-                                 k0, t, causal, sscale);
+      bwd_probs_t<false, T, kDq, R>(st, dpt, lse_s, delta_s, pts, dsts, dss,
+                                    q0, k0, t, causal, sscale);
     __syncthreads();
 
     // dV += p^T dO and dK += dS^T Q, for keys ty + 16 i, columns tx * kCpt.
 #pragma unroll 2
-    for (int r = 0; r < kBQ; r += 4) {
-      float4 pv[4], dsv[4];
+    for (int r = 0; r < R; r += 4) {
+      float4 pv[kN], dsv[kN];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pv[i] = lds4(pts + (ty + 16 * i) * kLdq + r);
-        dsv[i] = lds4(dsts + (ty + 16 * i) * kLdq + r);
+      for (int i = 0; i < kN; ++i) {
+        pv[i] = lds4(pts + (ty + 16 * i) * kLdr + r);
+        dsv[i] = lds4(dsts + (ty + 16 * i) * kLdr + r);
       }
 #pragma unroll
       for (int rr = 0; rr < 4; ++rr) {
@@ -286,7 +291,7 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         lds_row<kCpt>(dov, dos + (r + rr) * kLd + tx * kCpt);
         lds_row<kCpt>(qv, qs + (r + rr) * kLd + tx * kCpt);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < kN; ++i) {
           const float p = comp(pv[i], rr);
           const float ds = comp(dsv[i], rr);
 #pragma unroll
@@ -301,23 +306,23 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if constexpr (kDq) {
       // dQ of this tile, rows ty + 16 i, columns tx * kCpt: dS K, added
       // into the float32 buffer.
-      float dq[4][kCpt];
+      float dq[kN][kCpt];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < kN; ++i)
 #pragma unroll
         for (int c = 0; c < kCpt; ++c) dq[i][c] = 0.f;
 #pragma unroll 2
-      for (int c0 = 0; c0 < kBK; c0 += 4) {
-        float4 dsr[4];
+      for (int c0 = 0; c0 < R; c0 += 4) {
+        float4 dsr[kN];
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-          dsr[i] = lds4(dss + (ty + 16 * i) * kLdk + c0);
+        for (int i = 0; i < kN; ++i)
+          dsr[i] = lds4(dss + (ty + 16 * i) * kLdr + c0);
 #pragma unroll
         for (int cc = 0; cc < 4; ++cc) {
           float kv[kCpt];
           lds_row<kCpt>(kv, ks + (c0 + cc) * kLd + tx * kCpt);
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
+          for (int i = 0; i < kN; ++i) {
             const float ds = comp(dsr[i], cc);
 #pragma unroll
             for (int c = 0; c < kCpt; ++c) dq[i][c] = fmaf(ds, kv[c], dq[i][c]);
@@ -325,7 +330,7 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < kN; ++i) {
         const int row = q0 + ty + 16 * i;
         if (row >= t) continue;
         float* dst = dq_acc + base + (size_t)row * D + tx * kCpt;
@@ -336,7 +341,7 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < kN; ++i) {
     const int col = k0 + ty + 16 * i;
     if (col >= t) continue;
     const size_t off = base + (size_t)col * D + tx * kCpt;
@@ -350,14 +355,15 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
                const float* lse, const float* delta, float* dq_acc, void* dk,
                void* dv, int bh, int t, int causal, int use_exp2, float scale,
                cudaStream_t stream) {
-  constexpr size_t smem = bwd_smem_bytes<D, kDq>();
+  constexpr int R = rows_f32<D>;
+  constexpr size_t smem = bwd_smem_bytes<D, R, kDq>();
   unsigned blocks;
-  if (int e = blocks_for(t, kBK, bh, &blocks)) return e;
+  if (int e = blocks_for(t, R, bh, &blocks)) return e;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_kernel<T, D, kDq>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      flash_bwd_kernel<T, D, kDq, R>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_kernel<T, D, kDq><<<blocks, kThreads, smem, stream>>>(
+  flash_bwd_kernel<T, D, kDq, R><<<blocks, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
       dq_acc, static_cast<T*>(dk), static_cast<T*>(dv), bh, t, causal,
@@ -369,7 +375,8 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
 
 // Dispatch on the element type and head dim: WGMMA(T, D) for bfloat16
 // (dtype = 1, T __nv_bfloat16) and float16 (dtype = 2, T __half), F32(T,
-// D) for float32 (dtype = 0), D 32, 64 or 128; anything else is refused. It
+// D) for float32 (dtype = 0), D 32, 64, 128 or 256; anything else is
+// refused. It
 // returns from the enclosing function on every path. The flash kernels
 // send the 16-bit types to the tensor-core tiles of flash_wgmma.cuh and
 // float32 to the CUDA-core loops above.
@@ -378,13 +385,16 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
     if (d == 32) return WGMMA(__nv_bfloat16, 32);    \
     if (d == 64) return WGMMA(__nv_bfloat16, 64);    \
     if (d == 128) return WGMMA(__nv_bfloat16, 128);  \
+    if (d == 256) return WGMMA(__nv_bfloat16, 256);  \
   } else if (dtype == 2) {                           \
     if (d == 32) return WGMMA(__half, 32);           \
     if (d == 64) return WGMMA(__half, 64);           \
     if (d == 128) return WGMMA(__half, 128);         \
+    if (d == 256) return WGMMA(__half, 256);         \
   } else if (dtype == 0) {                           \
     if (d == 32) return F32(float, 32);              \
     if (d == 64) return F32(float, 64);              \
     if (d == 128) return F32(float, 128);            \
+    if (d == 256) return F32(float, 256);            \
   }                                                  \
   return (int)cudaErrorInvalidValue

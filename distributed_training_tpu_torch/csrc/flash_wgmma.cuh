@@ -12,7 +12,7 @@
 // Design, one warpgroup (128 threads) per block, one 64-row tile a block:
 //   - Tiles stay T in shared memory in the layout wgmma reads: rows of
 //     a [64, D] tile in column blocks of 64 values (128 bytes, the row of
-//     the 128-byte swizzle; D 128 is two such blocks), or at D 32 rows of
+//     the 128-byte swizzle; D 128 is two such blocks, D 256 four), or at D 32 rows of
 //     64 bytes under the 64-byte swizzle. Each 16-byte chunk of a row sits
 //     at its index XOR the row's (Tile::offset), so the wgmma reads and the
 //     per-thread stores below hit distinct banks.
@@ -40,6 +40,15 @@
 //     (atomicAdd on float4, red.global.add.v4.f32 on sm_90), after one
 //     shuffle that gives each lane four consecutive values of a row: a
 //     quarter of the atomics of the scalar form.
+//   - A block owns at most 128 columns of its outputs (two column blocks),
+//     so its float32 accumulators (O; dK and dV; dQ) take at most 64
+//     registers a thread each. At D 256 (Gemma's head width) a tile's
+//     outputs are split between kParts = 2 blocks, each of which computes
+//     the whole score tile S (and dP) over all 256 columns of Q and K and
+//     then its own half of O, dK and dV or dQ: 1.5x the forward's
+//     products and 1.4x K3's, against dK and dV at 64 x 256 each, which
+//     would take 256 accumulator registers a thread in one warpgroup, past
+//     the 255 a thread may have.
 // Numerics as flash_tiles.cuh: scores and products accumulate in float32,
 // masked scores are -1e30, p is rounded to T before it multiplies V or
 // dO and dS before it multiplies Q or K, a row with l = 0 writes 0 and
@@ -59,6 +68,15 @@ using sm90::kThreads;  // one warpgroup
 using flash::kLog2e;
 using flash::kNegInf;
 using flash::softmax_exp;
+
+// Output column blocks a block owns (kOwn), and the blocks a 64-row tile's
+// outputs are split between (kParts): one block owns all of them up to D
+// 128, two blocks own half each at D 256.
+template <int D>
+struct Cols {
+  static constexpr int kOwn = Tile<D>::kBlocks < 2 ? Tile<D>::kBlocks : 2;
+  static constexpr int kParts = Tile<D>::kBlocks / kOwn;
+};
 
 // --------------------------------------------------------- loads
 
@@ -127,7 +145,7 @@ __device__ __forceinline__ void to_a_fragments(const float (&s)[32],
 template <typename T, bool kExp2, int D>
 __device__ __forceinline__ void fwd_softmax(
     float (&s)[32], float (&m)[2], float (&l)[2],
-    float (&o)[Tile<D>::kBlocks][Tile<D>::kCols / 2], uint32_t (&p)[4][4],
+    float (&o)[Cols<D>::kOwn][Tile<D>::kCols / 2], uint32_t (&p)[4][4],
     bool edge, int row0, int col0, int t, int causal, float sscale) {
   float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
@@ -157,7 +175,7 @@ __device__ __forceinline__ void fwd_softmax(
 #pragma unroll
   for (int h = 0; h < 2; ++h) l[h] = l[h] * corr[h] + rs[h];
 #pragma unroll
-  for (int b = 0; b < Tile<D>::kBlocks; ++b)
+  for (int b = 0; b < Cols<D>::kOwn; ++b)
 #pragma unroll
     for (int i = 0; i < Tile<D>::kCols / 2; ++i) o[b][i] *= corr[(i >> 1) & 1];
   to_a_fragments<T>(s, p);
@@ -176,6 +194,7 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
            float* __restrict__ lse, int bh_count, int t, int causal,
            int use_exp2, float scale) {
   using TL = Tile<D>;
+  using CO = Cols<D>;
   extern __shared__ uint8_t smem[];
   const uint32_t qs = (smem_u32(smem) + 1023) & ~1023u;
   auto ks = [&](int st) { return qs + (1 + 2 * st) * TL::kBytes; };
@@ -183,7 +202,9 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int nq = (t + kRows - 1) / kRows;
   const int bh = blockIdx.x % bh_count;
-  const int q0 = (nq - 1 - blockIdx.x / bh_count) * kRows;  // heaviest first
+  const int part = (blockIdx.x / bh_count) % CO::kParts;
+  const int b0 = part * CO::kOwn;  // the first column block this block owns
+  const int q0 = (nq - 1 - blockIdx.x / (bh_count * CO::kParts)) * kRows;  // heaviest first
   const size_t base = (size_t)bh * t * D;
   const int tid = threadIdx.x;
   const int r0 = 16 * (tid / 32) + (tid % 32) / 4;  // rows r0, r0 + 8
@@ -197,9 +218,9 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   load_tile<T, D>(vs(0), v + base, 0, t, tid);
   cp_async_commit();
 
-  float o[TL::kBlocks][TL::kCols / 2];
+  float o[CO::kOwn][TL::kCols / 2];
 #pragma unroll
-  for (int b = 0; b < TL::kBlocks; ++b)
+  for (int b = 0; b < CO::kOwn; ++b)
 #pragma unroll
     for (int i = 0; i < TL::kCols / 2; ++i) o[b][i] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
@@ -238,10 +259,11 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     fence_regs(o);
     wgmma_fence();
 #pragma unroll
-    for (int b = 0; b < TL::kBlocks; ++b)
+    for (int b = 0; b < CO::kOwn; ++b)
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        wgmma_rs<T, TL::kCols, 1>(o[b], p[kk], TL::mn_major(vs(j & 1), b, kk), 1);
+        wgmma_rs<T, TL::kCols, 1>(o[b], p[kk],
+                                  TL::mn_major(vs(j & 1), b0 + b, kk), 1);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(o);
@@ -255,14 +277,14 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (row >= t) continue;
     const float inv = l[h] > 0.f ? 1.f / l[h] : 0.f;
 #pragma unroll
-    for (int b = 0; b < TL::kBlocks; ++b)
+    for (int b = 0; b < CO::kOwn; ++b)
 #pragma unroll
       for (int i = 2 * h; i < TL::kCols / 2; i += 4) {
-        const int col = b * TL::kCols + 8 * (i / 4) + cq;
+        const int col = (b0 + b) * TL::kCols + 8 * (i / 4) + cq;
         *reinterpret_cast<uint32_t*>(out + base + (size_t)row * D + col) =
             pack2<T>(o[b][i] * inv, o[b][i + 1] * inv);
       }
-    if (cq == 0) {
+    if (cq == 0 && part == 0) {
       const float lm = fmaxf(l[h], 1e-30f);
       lse[(size_t)bh * t + row] =
           use_exp2 ? (m[h] + log2f(lm)) / kLog2e : m[h] + logf(lm);
@@ -276,7 +298,7 @@ int launch_fwd(const void* q, const void* k, const void* v, void* out,
                float scale, cudaStream_t stream) {
   constexpr size_t smem = fwd_smem_bytes<D>();
   unsigned blocks;
-  if (int e = flash::blocks_for(t, kRows, bh, &blocks)) return e;
+  if (int e = flash::blocks_for(t, kRows, bh * Cols<D>::kParts, &blocks)) return e;
   cudaError_t err = cudaFuncSetAttribute(
       fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -325,9 +347,10 @@ constexpr size_t bwd_smem_bytes() {
          4 * kRows * sizeof(float) + 1024;
 }
 
-// dK and dV of one 64-key tile over the live q tiles, in registers, written
-// once. With kDq (K3) each q tile's dQ = dS K is added into dq_acc by
-// vector reductions; without it (K4b) dq_acc is not touched.
+// dK and dV of one 64-key tile (the block's columns of them) over the live
+// q tiles, in registers, written once. With kDq (K3) each q tile's dQ = dS
+// K (the block's columns) is added into dq_acc by vector reductions;
+// without it (K4b) dq_acc is not touched.
 template <typename T, int D, bool kDq>
 __global__ void __launch_bounds__(kThreads)
 bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -337,6 +360,7 @@ bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
            T* __restrict__ dv, int bh_count, int t, int causal,
            int use_exp2, float scale) {
   using TL = Tile<D>;
+  using CO = Cols<D>;
   extern __shared__ uint8_t smem[];
   const uint32_t ks = (smem_u32(smem) + 1023) & ~1023u;
   const uint32_t vs = ks + TL::kBytes;
@@ -349,7 +373,8 @@ bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       reinterpret_cast<const float*>(smem + (stats - smem_u32(smem)));
 
   const int bh = blockIdx.x % bh_count;
-  const int k0 = (blockIdx.x / bh_count) * kRows;  // heaviest (k0 = 0) first
+  const int b0 = (blockIdx.x / bh_count) % CO::kParts * CO::kOwn;
+  const int k0 = (blockIdx.x / (bh_count * CO::kParts)) * kRows;  // heaviest (k0 = 0) first
   const size_t base = (size_t)bh * t * D;
   const size_t row_base = (size_t)bh * t;
   const int tid = threadIdx.x;
@@ -366,9 +391,9 @@ bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   load_row_stats(stats, stats + 256, lse, delta, row_base, q_start, t, tid);
   cp_async_commit();
 
-  float dk_acc[TL::kBlocks][TL::kCols / 2], dv_acc[TL::kBlocks][TL::kCols / 2];
+  float dk_acc[CO::kOwn][TL::kCols / 2], dv_acc[CO::kOwn][TL::kCols / 2];
 #pragma unroll
-  for (int b = 0; b < TL::kBlocks; ++b)
+  for (int b = 0; b < CO::kOwn; ++b)
 #pragma unroll
     for (int i = 0; i < TL::kCols / 2; ++i) dk_acc[b][i] = dv_acc[b][i] = 0.f;
 
@@ -429,17 +454,17 @@ bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     fence_regs(dv_acc);
     wgmma_fence();
 #pragma unroll
-    for (int b = 0; b < TL::kBlocks; ++b)
+    for (int b = 0; b < CO::kOwn; ++b)
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
         wgmma_rs<T, TL::kCols, 1>(dv_acc[b], p_t[kk],
-                               TL::mn_major(dos(st), b, kk), 1);
+                               TL::mn_major(dos(st), b0 + b, kk), 1);
 #pragma unroll
-    for (int b = 0; b < TL::kBlocks; ++b)
+    for (int b = 0; b < CO::kOwn; ++b)
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
         wgmma_rs<T, TL::kCols, 1>(dk_acc[b], ds_t[kk],
-                               TL::mn_major(qs(st), b, kk), 1);
+                               TL::mn_major(qs(st), b0 + b, kk), 1);
     wgmma_commit();
 
     if constexpr (kDq) {
@@ -448,7 +473,8 @@ bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       // dQ = dS K a column block at a time (fewer live registers at D 128),
       // rows q0 + r0 (+ 8), added into dq_acc.
 #pragma unroll
-      for (int b = 0; b < TL::kBlocks; ++b) {
+      for (int bb = 0; bb < CO::kOwn; ++bb) {
+        const int b = b0 + bb;
         float dq[TL::kCols / 2] = {};
         wgmma_fence();
 #pragma unroll
@@ -490,12 +516,13 @@ bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
 #pragma unroll
-  for (int b = 0; b < TL::kBlocks; ++b)
+  for (int b = 0; b < CO::kOwn; ++b)
 #pragma unroll
     for (int i = 0; i < TL::kCols / 2; i += 2) {
       const int key = k0 + r0 + 8 * ((i >> 1) & 1);
       if (key >= t) continue;
-      const size_t off = base + (size_t)key * D + b * TL::kCols + 8 * (i / 4) + cq;
+      const size_t off =
+          base + (size_t)key * D + (b0 + b) * TL::kCols + 8 * (i / 4) + cq;
       *reinterpret_cast<uint32_t*>(dk + off) =
           pack2<T>(scale * dk_acc[b][i], scale * dk_acc[b][i + 1]);
       *reinterpret_cast<uint32_t*>(dv + off) =
@@ -510,7 +537,7 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
                cudaStream_t stream) {
   constexpr size_t smem = bwd_smem_bytes<D, kDq>();
   unsigned blocks;
-  if (int e = flash::blocks_for(t, kRows, bh, &blocks)) return e;
+  if (int e = flash::blocks_for(t, kRows, bh * Cols<D>::kParts, &blocks)) return e;
   cudaError_t err = cudaFuncSetAttribute(
       bwd_kernel<T, D, kDq>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
@@ -568,6 +595,7 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
           T* __restrict__ dq, int bh_count, int t, int causal,
           int use_exp2, float scale) {
   using TL = Tile<D>;
+  using CO = Cols<D>;
   extern __shared__ uint8_t smem[];
   const uint32_t qs = (smem_u32(smem) + 1023) & ~1023u;
   const uint32_t dos = qs + TL::kBytes;
@@ -576,7 +604,8 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int nq = (t + kRows - 1) / kRows;
   const int bh = blockIdx.x % bh_count;
-  const int q0 = (nq - 1 - blockIdx.x / bh_count) * kRows;  // heaviest first
+  const int b0 = (blockIdx.x / bh_count) % CO::kParts * CO::kOwn;
+  const int q0 = (nq - 1 - blockIdx.x / (bh_count * CO::kParts)) * kRows;  // heaviest first
   const size_t base = (size_t)bh * t * D;
   const int tid = threadIdx.x;
   const int r0 = 16 * (tid / 32) + (tid % 32) / 4;  // rows r0, r0 + 8
@@ -602,9 +631,9 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     delta_r[h] = row < t ? delta[at] : 0.f;
   }
 
-  float acc[TL::kBlocks][TL::kCols / 2];
+  float acc[CO::kOwn][TL::kCols / 2];
 #pragma unroll
-  for (int b = 0; b < TL::kBlocks; ++b)
+  for (int b = 0; b < CO::kOwn; ++b)
 #pragma unroll
     for (int i = 0; i < TL::kCols / 2; ++i) acc[b][i] = 0.f;
 
@@ -647,11 +676,11 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     fence_regs(acc);
     wgmma_fence();
 #pragma unroll
-    for (int b = 0; b < TL::kBlocks; ++b)
+    for (int b = 0; b < CO::kOwn; ++b)
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        wgmma_rs<T, TL::kCols, 1>(acc[b], ds[kk], TL::mn_major(ks(j & 1), b, kk),
-                               1);
+        wgmma_rs<T, TL::kCols, 1>(acc[b], ds[kk],
+                               TL::mn_major(ks(j & 1), b0 + b, kk), 1);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(acc);
@@ -663,10 +692,10 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int row = q0 + r0 + 8 * h;
     if (row >= t) continue;
 #pragma unroll
-    for (int b = 0; b < TL::kBlocks; ++b)
+    for (int b = 0; b < CO::kOwn; ++b)
 #pragma unroll
       for (int i = 2 * h; i < TL::kCols / 2; i += 4) {
-        const int col = b * TL::kCols + 8 * (i / 4) + cq;
+        const int col = (b0 + b) * TL::kCols + 8 * (i / 4) + cq;
         *reinterpret_cast<uint32_t*>(dq + base + (size_t)row * D + col) =
             pack2<T>(scale * acc[b][i], scale * acc[b][i + 1]);
       }
@@ -679,7 +708,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               int causal, int use_exp2, float scale, cudaStream_t stream) {
   constexpr size_t smem = dq_smem_bytes<D>();
   unsigned blocks;
-  if (int e = flash::blocks_for(t, kRows, bh, &blocks)) return e;
+  if (int e = flash::blocks_for(t, kRows, bh * Cols<D>::kParts, &blocks)) return e;
   cudaError_t err = cudaFuncSetAttribute(
       dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;

@@ -142,6 +142,8 @@ class TransformerLM(nn.Module):
                  generator: torch.Generator | None = None):
         super().__init__()
         self.num_layers, self.max_len, self.dtype = num_layers, max_len, dtype
+        # The Flax module's fields, which the FLOP count reads.
+        self.vocab_size, self.hidden_dim, self.mlp_ratio = vocab_size, hidden_dim, mlp_ratio
         self.tok_embed = Embed(vocab_size, hidden_dim, dtype, generator)
         self.pos_embed = nn.Parameter(torch.empty(max_len, hidden_dim))
         with torch.no_grad():

@@ -247,6 +247,9 @@ class ResNet(nn.Module):
         if stem not in ("imagenet", "cifar"):
             raise ValueError(f"unknown stem {stem!r}")
         self.stem, self.dtype = stem, dtype
+        # The Flax module's fields, which the FLOP count reads.
+        self.stage_sizes, self.block_cls = tuple(stage_sizes), block_cls
+        self.num_classes, self.num_filters = num_classes, num_filters
         if stem == "imagenet":
             self.conv_init = Conv(3, num_filters, 7, 2, dtype)
         else:

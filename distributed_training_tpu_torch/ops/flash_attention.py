@@ -17,8 +17,8 @@ and what bounds them):
   launched in turn by :func:`flash_bwd_split`.
 
 The kernels take float32, bfloat16 and float16 (the 16-bit types on the
-tensor cores) at head dims 32, 64 and 128. Each wrapper zero-pads any
-other ``d`` up to the next of those (``d`` above 128 raises) and slices
+tensor cores) at head dims 32, 64, 128 and 256. Each wrapper zero-pads any
+other ``d`` up to the next of those (``d`` above 256 raises) and slices
 its outputs back: a zero column adds nothing to a score, to ``out`` or to
 a gradient, and the scores keep the true ``d``'s scale
 (:func:`softmax_scale`), so the result is the unpadded one.
@@ -55,7 +55,7 @@ import torch.nn.functional as F
 from distributed_training_tpu_torch.ops import cuda_build
 
 NEG_INF = -1e30
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 # The kernels' dtype argument (csrc/flash_tiles.cuh, FLASH_DISPATCH).
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 LOG2E = 1.4426950408889634
@@ -191,7 +191,7 @@ def _all_cpu(tensors) -> bool:
 
 def padded_head_dim(d: int) -> int:
     """The instantiated head dim a kernel runs ``d`` at: the least of
-    :data:`HEAD_DIMS` not below it; above 128 raises."""
+    :data:`HEAD_DIMS` not below it; above 256 raises."""
     for size in HEAD_DIMS:
         if d <= size:
             return size

@@ -17,6 +17,8 @@ saved-probabilities CE.
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -140,8 +142,11 @@ class LMTrainer:
     # -- eval ---------------------------------------------------------------
     def evaluate(self, loader: TokenLoader) -> float:
         """Mean held-out perplexity (exp of the mean of the batches' token
-        CE), with one host read for the whole pass."""
-        losses = [self.eval_loss(self.model, self.place_batch(b)) for b in loader]
+        CE), with one host read for the whole pass; with the parameters'
+        EMA when ``optimizer.ema_decay`` and ``eval_with_ema`` are set."""
+        ema = self.cfg.optimizer.ema_decay is not None and self.cfg.eval_with_ema
+        with self.state.ema_weights() if ema else contextlib.nullcontext():
+            losses = [self.eval_loss(self.model, self.place_batch(b)) for b in loader]
         if not losses:
             raise ValueError(
                 f"eval loader yielded no batches (eval_sequences "

@@ -1,28 +1,47 @@
 """Optimizer and LR schedule, with optax's semantics.
 
-The port of ``distributed_training_tpu/train/optim.py`` for the ``adam``
-and ``hybrid_adam`` chains that ``make_optimizer`` builds there:
+The port of ``distributed_training_tpu/train/optim.py``: the chains that
+``make_optimizer`` builds there, and ``with_ema``. Every chain starts with
 
 1. clip by global norm (``optax.clip_by_global_norm``);
-2. L2 added to the gradient *before* the moments
-   (``optax.add_decayed_weights``, torch-Adam ``weight_decay`` semantics);
-3. the update: ``hybrid_adam`` is the fused-Adam kernel
-   (``ops/fused_adam.py``), ``adam`` is ``optax.scale_by_adam`` followed by
-   ``scale_by_learning_rate`` in plain tensor ops, as XLA ran it.
 
-The two differ in one detail kept from the JAX package: ``hybrid_adam``
-reads the schedule at the 1-based step ``t``, ``adam`` at ``t - 1``
-(optax's ``scale_by_schedule`` counts from 0).
+then, by ``OptimizerConfig.name``:
+
+- ``adam``: L2 added to the gradient *before* the moments
+  (``optax.add_decayed_weights``, torch-Adam ``weight_decay`` semantics),
+  ``optax.scale_by_adam``, ``scale_by_learning_rate``;
+- ``hybrid_adam``: the same L2, then the fused-Adam kernel K1
+  (``ops/fused_adam.py``), which applies the learning rate itself;
+- ``adamw``: ``scale_by_adam``, then the weight decay added to the
+  *update* (decoupled), then the learning rate;
+- ``sgd``: L2 added to the gradient, then ``optax.trace(momentum,
+  nesterov)`` (no trace state at momentum 0), then the learning rate;
+- ``lamb``: ``scale_by_adam``, the decoupled decay, then
+  ``optax.scale_by_trust_ratio``: each tensor's update times ``‖p‖ / ‖u‖``
+  (1 where either norm is 0), then the learning rate.
+
+``hybrid_adam`` reads the schedule at the 1-based step ``t``; every other
+chain reads it at ``t - 1`` (optax's ``scale_by_schedule`` counts from 0).
+That difference is the JAX package's, kept.
+
+With ``ema_decay`` the state also carries an exponential moving average
+of the updated parameters (``with_ema``): ``ema = d·ema + (1 − d)·p`` after
+each committed update, seeded with the initial parameters. The train
+state adds the average of the BatchNorm statistics beside it
+(``precision.commit_gradients``).
 
 Schedules return float32 numbers computed on the host, so the step needs
-no device read for its learning rate.
+no device read for its learning rate. The updates are plain tensor ops
+(``torch._foreach_*``, a few launches a step whatever the number of
+tensors), in optax's order of operations.
 
 Under ZeRO stages 1–3 (``parallel/zero.py``) the chain runs on each rank's
 shards: the clip's global norm is the square root of the all-reduced sum
-of every rank's squared shard norms (one all-reduce), the weight-decay
-mask is decided by name on the full parameters (``decay_flags``), and the
-update (K1 for ``hybrid_adam``) takes the shards as they are. Not ported yet: ``adamw``, ``sgd``,
-``lamb`` and the parameter EMA.
+of every rank's squared shard norms (one all-reduce), lamb's per-tensor
+norms of the parameters and of the updates likewise (one all-reduce of
+one vector), the weight-decay mask is decided by name on the full
+parameters (``decay_flags``), and the update (K1 for ``hybrid_adam``)
+takes the shards as they are.
 """
 
 from __future__ import annotations
@@ -104,13 +123,33 @@ def decay_mask(opt: OptimizerConfig) -> Callable[[str, torch.Tensor], bool] | No
     raise ValueError(f"unknown weight_decay_mask {opt.weight_decay_mask!r}")
 
 
+# Which chains keep Adam's moments, and which add the weight decay to the
+# gradient (L2) rather than to the update.
+_ADAM_MOMENTS = ("adam", "hybrid_adam", "adamw", "lamb")
+_L2 = ("adam", "hybrid_adam", "sgd")
+OPTIMIZERS = ("adam", "hybrid_adam", "adamw", "sgd", "lamb")
+# The slots :meth:`Optimizer.update` writes (the train state keeps
+# ``ema_stats``).
+_OWN_SLOTS = ("mu", "nu", "trace", "ema")
+
+
 @dataclasses.dataclass
-class AdamState:
-    """Adam's state: committed update count and float32 moments by name."""
+class OptState:
+    """The optimizer's state: the committed update count and, by slot, a
+    float32 tensor per parameter name. The slots are ``mu`` and ``nu``
+    (Adam's moments: adam, hybrid_adam, adamw, lamb), ``trace`` (sgd with
+    momentum), ``ema`` (the parameters' EMA) and ``ema_stats`` (the
+    BatchNorm statistics' EMA, by buffer name; the train state keeps it).
+    A slot reads as an attribute: ``state.mu``."""
 
     count: int
-    mu: dict[str, torch.Tensor]
-    nu: dict[str, torch.Tensor]
+    slots: dict[str, dict[str, torch.Tensor]]
+
+    def __getattr__(self, name: str):
+        slots = self.__dict__.get("slots")
+        if slots is not None and name in slots:
+            return slots[name]
+        raise AttributeError(name)
 
 
 def global_norm(tensors: list[torch.Tensor], zero=None) -> torch.Tensor:
@@ -124,70 +163,99 @@ def global_norm(tensors: list[torch.Tensor], zero=None) -> torch.Tensor:
     return zero.all_reduce_(torch.stack(norms).square().sum()).sqrt()
 
 
-class Adam:
-    """The ``adam`` / ``hybrid_adam`` chain (see the module docstring)."""
+def tensor_norms(tensors: list[torch.Tensor], zero=None) -> torch.Tensor:
+    """Each tensor's L2 norm, as one float32 vector. Under ZeRO (stage 1
+    or more) the tensors are shards: each whole tensor's norm is the square
+    root of its shards' squared norms summed over the ranks (one
+    all-reduce of the vector)."""
+    norms = torch.stack(torch._foreach_norm(tensors, 2))
+    if zero is None or not zero.partitions_optimizer:
+        return norms
+    return zero.all_reduce_(norms.square()).sqrt()
+
+
+class Optimizer:
+    """The chain of ``opt.name`` (see the module docstring), with the EMA
+    when ``opt.ema_decay`` is set."""
 
     def __init__(self, opt: OptimizerConfig, sched: SchedulerConfig | None = None,
                  world_size: int = 1):
-        if opt.name not in ("adam", "hybrid_adam"):
-            raise NotImplementedError(
-                f"optimizer {opt.name!r} is not ported yet (adam, hybrid_adam)")
-        if opt.ema_decay is not None:
-            raise NotImplementedError("parameter EMA is not ported yet")
+        if opt.name not in OPTIMIZERS:
+            raise ValueError(f"unknown optimizer {opt.name!r}")
+        self.name = opt.name
         self.fused = opt.name == "hybrid_adam"
         self.lr = make_schedule(opt, sched or SchedulerConfig(), world_size)
         self.b1, self.b2 = opt.betas
         self.eps = opt.eps
+        self.momentum, self.nesterov = opt.momentum, opt.nesterov
         self.clip = opt.grad_clip_norm
         self.weight_decay = opt.weight_decay
         self.mask = decay_mask(opt)
+        self.ema_decay = opt.ema_decay
 
-    def init(self, params: dict[str, torch.Tensor]) -> AdamState:
-        zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)  # noqa: E731
-        return AdamState(0, {n: zeros(p) for n, p in params.items()},
-                         {n: zeros(p) for n, p in params.items()})
+    def init(self, params: dict[str, torch.Tensor]) -> OptState:
+        zeros = lambda: {n: torch.zeros_like(p, dtype=torch.float32)  # noqa: E731
+                         for n, p in params.items()}
+        slots = {}
+        if self.name in _ADAM_MOMENTS:
+            slots["mu"], slots["nu"] = zeros(), zeros()
+        elif self.momentum:
+            slots["trace"] = zeros()
+        if self.ema_decay is not None:
+            slots["ema"] = {n: p.detach().float().clone() for n, p in params.items()}
+        return OptState(0, slots)
 
     def decay_flags(self, params: dict[str, torch.Tensor]) -> dict[str, bool]:
         """Which of the (full) parameters take weight decay, by name."""
         return {n: self.mask is None or bool(self.mask(n, p)) for n, p in params.items()}
 
+    def ema_factors(self) -> tuple[float, float]:
+        """``(d, 1 − d)`` as the float32 numbers the EMA multiplies by."""
+        d = np.float32(self.ema_decay)
+        return float(d), float(np.float32(1.0) - d)
+
     def transform_grads(self, params: dict[str, torch.Tensor],
                         grads: dict[str, torch.Tensor], *,
                         decay: dict[str, bool] | None = None,
                         zero=None) -> dict[str, torch.Tensor]:
-        """Clip, then L2: the chain's parts before the Adam update.
-        ``decay`` (by name) replaces the mask where ``params`` are shards;
-        ``zero`` makes the clip's norm global over the ranks' shards."""
+        """Clip, then (adam, hybrid_adam, sgd) L2: the chain's parts before
+        the update. ``decay`` (by name) replaces the mask where ``params``
+        are shards; ``zero`` makes the clip's norm global over the ranks'
+        shards."""
         if self.clip is not None:
             norm = global_norm(list(grads.values()), zero)
             keep = norm < self.clip
             grads = {n: torch.where(keep, g, g / norm * self.clip)
                      for n, g in grads.items()}
-        if self.weight_decay:
-            if decay is None:
-                decay = self.decay_flags(params)
-            grads = {n: g + self.weight_decay * params[n] if decay[n] else g
-                     for n, g in grads.items()}
+        if self.weight_decay and self.name in _L2:
+            grads = self._add_decay(params, grads, decay)
         return grads
+
+    def _add_decay(self, params, xs, decay) -> dict[str, torch.Tensor]:
+        """``x + weight_decay · p`` where the mask says so."""
+        if decay is None:
+            decay = self.decay_flags(params)
+        return {n: x + self.weight_decay * params[n] if decay[n] else x
+                for n, x in xs.items()}
 
     @torch.no_grad()
     def update(self, params: dict[str, torch.Tensor],
-               grads: dict[str, torch.Tensor], state: AdamState, *,
+               grads: dict[str, torch.Tensor], state: OptState, *,
                out: dict[str, torch.Tensor] | None = None,
-               decay: dict[str, bool] | None = None, zero=None) -> AdamState:
+               decay: dict[str, bool] | None = None, zero=None) -> OptState:
         """One step. Writes the new parameters into ``params`` (in place)
-        or into ``out``; returns the new state, whose moments are new
+        or into ``out``; returns the new state, whose slots are new
         tensors when ``out`` is given and the old ones updated in place
         otherwise. ``decay`` and ``zero`` as in :meth:`transform_grads`."""
         names = list(params)
         grads = self.transform_grads(params, grads, decay=decay, zero=zero)
         count = state.count + 1
         if out is None:
-            p_out, mu, nu = params, state.mu, state.nu
-        else:
+            p_out, slots = params, state.slots
+        else:  # new tensors for the slots this chain writes; others carried
             p_out = out
-            mu = {n: torch.empty_like(state.mu[n]) for n in names}
-            nu = {n: torch.empty_like(state.nu[n]) for n in names}
+            slots = {k: {n: torch.empty_like(t) for n, t in v.items()}
+                     if k in _OWN_SLOTS else v for k, v in state.slots.items()}
         if self.fused:
             fused_adam_update(
                 [params[n] for n in names],
@@ -195,26 +263,77 @@ class Adam:
                 [state.mu[n] for n in names], [state.nu[n] for n in names],
                 lr=float(self.lr(count)), step=count, b1=self.b1, b2=self.b2,
                 eps=self.eps,
-                out=([p_out[n] for n in names], [mu[n] for n in names],
-                     [nu[n] for n in names]))
+                out=([p_out[n] for n in names], [slots["mu"][n] for n in names],
+                     [slots["nu"][n] for n in names]))
         else:
-            self._adam(names, params, grads, state, count, p_out, mu, nu)
-        return AdamState(count, mu, nu)
+            u = self._direction(names, params, grads, state, slots, count,
+                                decay, zero)
+            new = torch._foreach_mul(u, -float(self.lr(count - 1)))
+            torch._foreach_add_(new, [params[n] for n in names])
+            torch._foreach_copy_([p_out[n] for n in names], new)
+        if self.ema_decay is not None:
+            d, one_minus = self.ema_factors()
+            ema = torch._foreach_mul([state.ema[n] for n in names], d)
+            torch._foreach_add_(ema, torch._foreach_mul([p_out[n] for n in names],
+                                                        one_minus))
+            torch._foreach_copy_([slots["ema"][n] for n in names], ema)
+        return OptState(count, slots)
 
-    def _adam(self, names, params, grads, state, count, p_out, mu, nu) -> None:
-        """``optax.scale_by_adam`` + ``scale_by_learning_rate`` + apply."""
+    def _direction(self, names, params, grads, state, slots, count, decay,
+                   zero) -> list[torch.Tensor]:
+        """The update before the learning rate, by ``names``; writes the
+        new moments or trace into ``slots``."""
+        g = [grads[n] for n in names]
+        if self.name == "sgd":
+            if not self.momentum:
+                return g
+            # optax.trace: t' = g + m·t; nesterov: g + m·t'.
+            trace = torch._foreach_mul([state.trace[n] for n in names], self.momentum)
+            torch._foreach_add_(trace, g)
+            torch._foreach_copy_([slots["trace"][n] for n in names], trace)
+            if not self.nesterov:
+                return trace
+            u = torch._foreach_mul(trace, self.momentum)
+            torch._foreach_add_(u, g)
+            return u
+        u = self._scale_by_adam(names, g, state, slots, count)
+        if self.name == "adam":
+            return u
+        if self.weight_decay:  # adamw, lamb: decoupled, on the update
+            u = list(self._add_decay(params, dict(zip(names, u)), decay).values())
+        if self.name == "lamb":
+            u = self._trust_ratio(u, [params[n] for n in names], zero)
+        return u
+
+    def _scale_by_adam(self, names, g, state, slots, count) -> list[torch.Tensor]:
+        """``optax.scale_by_adam``: the new moments into ``slots``, and
+        ``m̂ / (√v̂ + eps)``."""
+        m = torch._foreach_mul(g, 1.0 - self.b1)
+        torch._foreach_add_(m, torch._foreach_mul([state.mu[n] for n in names], self.b1))
+        v = torch._foreach_mul(g, g)
+        torch._foreach_mul_(v, 1.0 - self.b2)
+        torch._foreach_add_(v, torch._foreach_mul([state.nu[n] for n in names], self.b2))
+        torch._foreach_copy_([slots["mu"][n] for n in names], m)
+        torch._foreach_copy_([slots["nu"][n] for n in names], v)
         t = np.float32(count)
         bc1 = float(np.float32(1.0) - np.float32(self.b1) ** t)
         bc2 = float(np.float32(1.0) - np.float32(self.b2) ** t)
-        step_size = -float(self.lr(count - 1))
-        for n in names:
-            g = grads[n]
-            m = (1.0 - self.b1) * g + self.b1 * state.mu[n]
-            v = (1.0 - self.b2) * (g * g) + self.b2 * state.nu[n]
-            u = (m / bc1) / (torch.sqrt(v / bc2 + 0.0) + self.eps)
-            p_out[n].copy_(params[n] + u * step_size)
-            mu[n].copy_(m)
-            nu[n].copy_(v)
+        den = torch._foreach_div(v, bc2)
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, self.eps)
+        u = torch._foreach_div(m, bc1)
+        torch._foreach_div_(u, den)
+        return u
+
+    @staticmethod
+    def _trust_ratio(u, params, zero) -> list[torch.Tensor]:
+        """``optax.scale_by_trust_ratio``: each update times ‖p‖ / ‖u‖, 1
+        where either norm is 0; whole-tensor norms under ZeRO."""
+        norms = tensor_norms([*params, *u], zero)
+        p_norm, u_norm = norms[:len(u)], norms[len(u):]
+        ratio = torch.where((p_norm == 0) | (u_norm == 0),
+                            torch.ones_like(p_norm), p_norm / u_norm)
+        return [x * r for x, r in zip(u, ratio.unbind())]
 
 
 def _like(p: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -224,6 +343,6 @@ def _like(p: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 
 
 def make_optimizer(opt: OptimizerConfig, sched: SchedulerConfig | None = None,
-                   world_size: int = 1) -> Adam:
+                   world_size: int = 1) -> Optimizer:
     """Build the gradient transformation chain for ``opt.name``."""
-    return Adam(opt, sched, world_size)
+    return Optimizer(opt, sched, world_size)

@@ -12,8 +12,12 @@ scaler follows DeepSpeed's DynamicLossScaler, as the JAX one does:
 
 bf16 needs no scaling: the ``bf16`` policy computes in bfloat16 over
 float32 parameters with an inert scaler (scale 1, never updated, no host
-read), as ``fp32`` does. The LM trainer takes it; the image trainer still
-refuses it until a card run covers it.
+read), as ``fp32`` does.
+
+With the parameter EMA (``OptimizerConfig.ema_decay``) the commit also
+advances the EMA of the BatchNorm statistics (the JAX
+``_with_ema_batch_stats``), from the statistics the step's forward left
+in the model; a skipped fp16 step leaves both EMAs as they were.
 
 The JAX step carries the scaler as traced arrays and selects with
 ``jnp.where``. Here the scaler lives on the host, because the commit
@@ -108,6 +112,25 @@ def all_finite(tensors: list[torch.Tensor]) -> torch.Tensor:
     return torch.isfinite(torch.stack(torch._foreach_norm(tensors, float("inf")))).all()
 
 
+def _advance_ema_stats(state, slots: dict, in_place: bool) -> None:
+    """``ema_stats = d·ema_stats + (1 − d)·stats`` on the rank's shards of
+    the model's BatchNorm statistics; in place, or into new tensors in
+    ``slots`` (a candidate's). A no-op without that slot."""
+    ema = slots.get("ema_stats")
+    if not ema:
+        return
+    d, one_minus = state.tx.ema_factors()
+    stats = state.stats()
+    names = list(ema)
+    now = [state.partition(stats[n]) for n in names]
+    new = torch._foreach_mul([ema[n] for n in names], d)
+    torch._foreach_add_(new, torch._foreach_mul(now, one_minus))
+    if in_place:
+        torch._foreach_copy_([ema[n] for n in names], new)
+    else:
+        slots["ema_stats"] = dict(zip(names, new))
+
+
 def commit_gradients(state, grads: dict[str, torch.Tensor],
                      old_batch_stats: list[torch.Tensor] | None = None) -> bool:
     """Apply unscaled grads to ``state`` (a ``TrainState``), skipping the
@@ -120,7 +143,8 @@ def commit_gradients(state, grads: dict[str, torch.Tensor],
     stage keeps whole parameters.
 
     - Dynamic scaler: the optimizer writes a *candidate* (new params and
-      moments in fresh tensors; the old ones stay untouched). The guard
+      optimizer slots, the EMAs included, in fresh tensors; the old ones
+      stay untouched). The guard
       covers the update, not only the gradients: a finite-but-huge
       gradient can still overflow inside Adam (``g² > fp32 max``), and an
       in-place write would then keep an inf moment for good. Under ZeRO
@@ -139,6 +163,7 @@ def commit_gradients(state, grads: dict[str, torch.Tensor],
     opt_state = state.offload_fetch()
     if not state.loss_scale.dynamic:
         new = state.tx.update(params, grads, opt_state, decay=state.decay, zero=zero)
+        _advance_ema_stats(state, new.slots, in_place=True)
         state.offload_store(new)
         state.apply_params(params)
         state.step += 1
@@ -146,9 +171,10 @@ def commit_gradients(state, grads: dict[str, torch.Tensor],
     out = {n: torch.empty_like(p) for n, p in params.items()}
     candidate = state.tx.update(params, grads, opt_state, out=out,
                                 decay=state.decay, zero=zero)
+    _advance_ema_stats(state, candidate.slots, in_place=False)
     finite_t = all_finite(
-        [*grads.values(), *out.values(), *candidate.mu.values(),
-         *candidate.nu.values()])
+        [*grads.values(), *out.values(),
+         *(t for slot in candidate.slots.values() for t in slot.values())])
     if zero.partitions_optimizer:
         finite_t = zero.all_reduce_(finite_t.to(torch.int32), op=dist.ReduceOp.MIN)
     finite = bool(finite_t)

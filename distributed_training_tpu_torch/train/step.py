@@ -24,7 +24,8 @@ BatchNorm statistics are synchronised over the group (SyncBN,
 ``models/resnet.py``) unless the model was built without it, in which
 case ``local_bn=True`` makes this the counterpart of the JAX package's
 ``make_shard_map_train_step``: each rank keeps its own statistics in the
-step and the running statistics are averaged over the ranks after it.
+step and the running statistics (and their EMA, with ``ema_decay``) are
+averaged over the ranks after it.
 
 Batches are dicts of tensors with NHWC ``image``, as in the JAX package.
 """
@@ -126,7 +127,8 @@ def make_train_step(*, zero_stage: int = 0, grad_accum_steps: int = 1,
         grads = ls.unscale_grads(dict(zip(names, grads)))
         finite = commit_gradients(state, grads, snapshot)
         if local_bn:
-            bufs = list(model.buffers())
+            bufs = [*model.buffers(),
+                    *state.opt_state.slots.get("ema_stats", {}).values()]
             with torch.no_grad():
                 for b, avg in zip(bufs, zero.all_reduce_mean(bufs)):
                     b.copy_(avg)

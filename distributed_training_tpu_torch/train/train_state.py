@@ -9,9 +9,11 @@ scaler and the number of committed updates.
 
 Under ZeRO (``zero``, a ``parallel.zero.Zero``) the optimizer works on the
 *master* parameters (:meth:`TrainState.master_params`): the model's own
-tensors at stage 0, this rank's shards at stages 1–3. The Adam moments
-are shard-shaped from stage 1 on, and live in host memory with
-``cpu_offload`` (pinned where there is a card). At stage 3 the shards
+tensors at stage 0, this rank's shards at stages 1–3. Every slot of the
+optimizer's state (Adam's moments, the SGD trace, the parameters' EMA and
+the BatchNorm statistics' EMA) is shard-shaped from stage 1 on, by the one
+partition rule, and lives in host memory with ``cpu_offload`` (pinned
+where there is a card). At stage 3 the shards
 *are* the parameters between steps: the model's parameter tensors are
 emptied after each step (:meth:`release_params`) and all-gathered again
 before the next forward (:meth:`gather_params`). A checkpoint holds the
@@ -21,12 +23,13 @@ whole tensors whatever the stage and world (:meth:`state_dict` gathers,
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
 
 from distributed_training_tpu_torch.parallel.zero import Zero
-from distributed_training_tpu_torch.train.optim import Adam, AdamState
+from distributed_training_tpu_torch.train.optim import Optimizer, OptState
 from distributed_training_tpu_torch.train.precision import LossScaleState
 
 
@@ -40,8 +43,8 @@ def _host_zeros(like: torch.Tensor) -> torch.Tensor:
 @dataclasses.dataclass
 class TrainState:
     model: torch.nn.Module
-    tx: Adam
-    opt_state: AdamState
+    tx: Optimizer
+    opt_state: OptState
     loss_scale: LossScaleState
     step: int = 0
     zero: Zero = dataclasses.field(default_factory=Zero)
@@ -52,7 +55,7 @@ class TrainState:
     shards: dict | None = None
 
     @classmethod
-    def create(cls, model: torch.nn.Module, tx: Adam,
+    def create(cls, model: torch.nn.Module, tx: Optimizer,
                loss_scale: LossScaleState | None = None,
                zero: Zero | None = None) -> "TrainState":
         if loss_scale is None:
@@ -68,16 +71,33 @@ class TrainState:
         if state.zero.partitions_params:
             state.shards = {n: state.zero.shard(p) for n, p in params.items()}
         state.opt_state = tx.init(state.master_params())
+        stats = state.stats()
+        if tx.ema_decay is not None and stats:
+            # with_ema's BatchNorm half: seeded with the initial statistics.
+            state.opt_state.slots["ema_stats"] = {
+                n: state.partition(b.float()).clone() for n, b in stats.items()}
         if state.zero.cpu_offload:
-            for moments in (state.opt_state.mu, state.opt_state.nu):
-                for n, m in moments.items():
-                    moments[n] = _host_zeros(m)
+            for slot in state.opt_state.slots.values():
+                for n, t in slot.items():
+                    slot[n] = _host_zeros(t).copy_(t)
         state.release_params()
         return state
 
     def params(self) -> dict[str, torch.Tensor]:
         """Parameters by name (the model's tensors themselves)."""
         return dict(self.model.named_parameters())
+
+    def stats(self) -> dict[str, torch.Tensor]:
+        """BatchNorm statistics (the model's buffers) by name."""
+        return dict(self.model.named_buffers())
+
+    def partition(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` as the optimizer's state holds it: this rank's shard from
+        stage 1 on, ``t`` itself at stage 0."""
+        return self.zero.shard(t) if self.zero.partitions_optimizer else t
+
+    def _device(self) -> torch.device:
+        return next(self.model.buffers(), next(self.model.parameters())).device
 
     def master_params(self) -> dict[str, torch.Tensor]:
         """What the optimizer updates: the model's tensors at stage 0;
@@ -133,41 +153,91 @@ class TrainState:
         for p in self.model.parameters():
             p.data = p.data.new_empty(0)
 
-    def offload_fetch(self) -> AdamState:
+    def offload_fetch(self) -> OptState:
         """The optimizer state on the master parameters' device: with
-        ``cpu_offload``, copies of the host moments queued on the current
+        ``cpu_offload``, copies of the host slots queued on the current
         stream (pinned, so the host does not wait); else the state itself."""
         st = self.opt_state
         if not self.zero.cpu_offload:
             return st
         dev = next(iter(self.master_params().values())).device
-        move = lambda d: {n: t.to(dev, non_blocking=True) for n, t in d.items()}  # noqa: E731
-        return AdamState(st.count, move(st.mu), move(st.nu))
+        return OptState(st.count, {
+            k: {n: t.to(dev, non_blocking=True) for n, t in v.items()}
+            for k, v in st.slots.items()})
 
     @torch.no_grad()
-    def offload_store(self, st: AdamState) -> None:
+    def offload_store(self, st: OptState) -> None:
         """Keep ``st`` as the optimizer state; with ``cpu_offload`` its
-        moments are written back into the host tensors on the current
+        slots are written back into the host tensors on the current
         stream (no host sync: the next step's fetch is queued behind it)."""
         if not self.zero.cpu_offload:
             self.opt_state = st
             return
         host = self.opt_state
-        for name in ("mu", "nu"):
-            for n, t in getattr(st, name).items():
-                getattr(host, name)[n].copy_(t, non_blocking=True)
+        for k, v in st.slots.items():
+            for n, t in v.items():
+                host.slots[k][n].copy_(t, non_blocking=True)
         host.count = st.count
 
-    def _full_moments(self, moments: dict) -> dict:
-        if not self.zero.partitions_optimizer:
-            return moments
+    def _shapes(self, slot: str, names) -> list:
+        """The whole shapes of a slot's tensors: the buffers' for
+        ``ema_stats``, the parameters' for every other slot."""
+        if slot == "ema_stats":
+            stats = self.stats()
+            return [stats[n].shape for n in names]
+        return [self.layouts[n][0] for n in names]
+
+    def _full_slot(self, slot: str, tensors: dict, device=None) -> dict:
+        """A slot's whole tensors (all-gathered from the shards from stage
+        1 on), on ``device`` (default: the host)."""
+        if not tensors or not self.zero.partitions_optimizer:
+            return tensors if device is None else {
+                n: t.to(device) for n, t in tensors.items()}
         if self.zero.cpu_offload and torch.cuda.is_available():
             torch.cuda.synchronize()  # the host copies written back last step
-        dev = next(self.model.parameters()).device
-        names = list(moments)
-        full = self.zero.all_gather([moments[n].to(dev) for n in names],
-                                    [self.layouts[n][0] for n in names])
-        return {n: f.cpu() for n, f in zip(names, full)}
+        dev = self._device()
+        names = list(tensors)
+        full = self.zero.all_gather([tensors[n].to(dev) for n in names],
+                                    self._shapes(slot, names))
+        return {n: f.to(device or "cpu") for n, f in zip(names, full)}
+
+    @contextlib.contextmanager
+    def ema_weights(self):
+        """While the block runs, the model holds the parameters' EMA and
+        the BatchNorm statistics' EMA (eval with ``eval_with_ema``); its
+        own afterwards. Every rank must enter it (it all-gathers the EMA
+        from stage 1 on)."""
+        slots = self.opt_state.slots
+        if "ema" not in slots:
+            raise ValueError("the optimizer state carries no EMA; set "
+                             "OptimizerConfig.ema_decay")
+        dev = self._device()
+        stats = self.stats()
+        live_stats = {n: b.clone() for n, b in stats.items()}
+        live_shards, live = self.shards, None
+        if self.shards is not None:
+            self.shards = {n: t.to(dev) for n, t in slots["ema"].items()}
+        else:
+            live = {n: p.data for n, p in self.params().items()}
+            full = self._full_slot("ema", slots["ema"], dev)
+            for n, p in self.params().items():
+                fmt = (torch.channels_last if self.layouts[n][1]
+                       else torch.contiguous_format)
+                p.data = full[n].view(self.layouts[n][0]).contiguous(memory_format=fmt)
+        with torch.no_grad():
+            for n, t in self._full_slot("ema_stats", slots.get("ema_stats", {}),
+                                        dev).items():
+                stats[n].copy_(t.view(stats[n].shape))
+        try:
+            yield
+        finally:
+            self.shards = live_shards
+            if live is not None:
+                for n, p in self.params().items():
+                    p.data = live[n]
+            with torch.no_grad():
+                for n, b in live_stats.items():
+                    stats[n].copy_(b)
 
     def state_dict(self) -> dict:
         """Everything a resume needs, as whole tensors and numbers: the
@@ -179,8 +249,8 @@ class TrainState:
         return {
             "model": model,
             "opt_state": {"count": self.opt_state.count,
-                          "mu": self._full_moments(self.opt_state.mu),
-                          "nu": self._full_moments(self.opt_state.nu)},
+                          **{k: self._full_slot(k, v)
+                             for k, v in self.opt_state.slots.items()}},
             "loss_scale": dataclasses.asdict(self.loss_scale),
             "step": self.step,
         }
@@ -194,14 +264,17 @@ class TrainState:
         if self.shards is not None:
             self.shards = {n: self.zero.shard(p) for n, p in self.params().items()}
         self.release_params()
-        for key in ("mu", "nu"):
-            mine = getattr(self.opt_state, key)
-            if set(mine) != set(sd["opt_state"][key]):
+        saved = {k: v for k, v in sd["opt_state"].items() if k != "count"}
+        if set(saved) != set(self.opt_state.slots):
+            raise ValueError(f"optimizer state slots {sorted(self.opt_state.slots)} "
+                             f"differ from the checkpoint's {sorted(saved)}")
+        for key, tensors in saved.items():
+            mine = self.opt_state.slots[key]
+            if set(mine) != set(tensors):
                 raise ValueError(f"optimizer state {key} names differ from "
                                  f"the checkpoint's")
-            for n, t in sd["opt_state"][key].items():
-                part = self.zero.shard(t) if self.zero.partitions_optimizer else t
-                mine[n].copy_(part)
+            for n, t in tensors.items():
+                mine[n].copy_(self.partition(t).view(mine[n].shape))
         self.opt_state.count = int(sd["opt_state"]["count"])
         self.loss_scale = LossScaleState(**sd["loss_scale"])
         self.step = int(sd["step"])

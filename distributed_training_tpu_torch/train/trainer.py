@@ -22,6 +22,8 @@ away from their defaults.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from distributed_training_tpu_torch import checkpoint as ckpt_lib
@@ -64,7 +66,6 @@ def unported_fields(cfg: TrainConfig) -> dict[str, bool]:
         "profile_dir": cfg.profile_dir,
         "tensorboard_dir": cfg.tensorboard_dir,
         "metrics_jsonl": cfg.metrics_jsonl,
-        "optimizer.ema_decay": cfg.optimizer.ema_decay,
         "data.decoded_cache": cfg.data.decoded_cache,
         "moe.enabled": cfg.moe.enabled,
     }
@@ -123,9 +124,7 @@ class Trainer:
     group when one is open (see the module docstring)."""
 
     def __init__(self, cfg: TrainConfig, device: str | torch.device | None = None):
-        # bf16 runs on the LM path only until a card run covers images.
-        refuse_unported({**unported_fields(cfg),
-                         "precision.dtype == 'bf16'": cfg.precision.dtype == "bf16"})
+        refuse_unported(unported_fields(cfg))
         self.cfg = cfg
         group = initialize_distributed(device=device)
         self.coord = Coordinator()
@@ -199,15 +198,22 @@ class Trainer:
                          + " ".join(f"{k}={v:.4g}" for k, v in self.meter.last.items()))
         return self.meter.last
 
+    def uses_ema(self) -> bool:
+        """Eval reads the EMA of the parameters and of the BatchNorm
+        statistics (``optimizer.ema_decay`` with ``eval_with_ema``)."""
+        return self.cfg.optimizer.ema_decay is not None and self.cfg.eval_with_ema
+
     def evaluate(self, loader) -> float:
         """Top-1 accuracy over every rank's slice of the eval set (the step
-        sums its counts over the ranks); top-5 is kept on
-        ``self.last_eval``."""
+        sums its counts over the ranks), with the EMA weights when
+        :meth:`uses_ema`; top-5 is kept on ``self.last_eval``."""
         sums = torch.zeros(3, device=self.device)
-        for batch in loader:
-            c, c5, t = self.eval_step(self.state, to_device(batch, self.device))
-            sums += torch.stack([c, c5, t])
-        self.state.release_params()
+        with (self.state.ema_weights() if self.uses_ema()
+              else contextlib.nullcontext()):
+            for batch in loader:
+                c, c5, t = self.eval_step(self.state, to_device(batch, self.device))
+                sums += torch.stack([c, c5, t])
+            self.state.release_params()
         correct, correct5, total = sums.tolist()
         self.last_eval = {"top1": correct / max(total, 1.0),
                           "top5": correct5 / max(total, 1.0)}

@@ -1,0 +1,369 @@
+"""PyTorch/CUDA backend trainer: the port of ``resnet/jax_tpu/train.py``.
+
+The same command line (every flag, name and default of the JAX CLI, plus
+``--device``), on the port's ``Trainer`` (``distributed_training_tpu_torch``;
+this script imports nothing of the JAX package):
+
+- ``-p/--plugin`` selects the preset (``TrainConfig.from_plugin``);
+  ``deepspeed`` ingests ``--deepspeed_config`` or the reference's in-code
+  ds_config (``from_ds_config``), patched by ``--dtype`` and ``--stage``;
+- ``-r``, ``-c``, ``-i``, ``--target_acc``, ``--auto-resume``, the
+  optimizer flags (``--optimizer`` adam, adamw, sgd, lamb, hybrid_adam;
+  ``--lr``, ``--momentum``, ``--nesterov``, ``--weight-decay``,
+  ``--weight-decay-mask``), ``--ema-decay`` and ``--dtype`` fp32, bf16,
+  fp16 all work;
+- the flags of what the port lacks (MoE, chaos, the flight recorder and
+  the other observability instruments, traces, TensorBoard and JSONL
+  sinks, the profiler, the wall-clock breakdown, imagefolder, the decoded
+  cache, remat, precise-BN) raise ``NotImplementedError`` naming
+  ROADMAP.md; none is silently ignored. ``--flight-recorder`` therefore
+  defaults to off, where the JAX CLI's is on.
+
+It runs on the card (``cuda:LOCAL_RANK`` under a launcher such as
+``torchrun``, which sets the process group's environment) unless
+``--device cpu`` asks for the CPU; without a card it raises.
+
+    python train.py -p torch_ddp_fp16 -c ./ckpt-fp16      # run.sh
+    python train.py -p deepspeed --dtype bf16 --stage 2 --optimizer sgd --lr 0.1
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import sys
+
+# Run as a script from this directory: the repo root holds the package.
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))))
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(description="CIFAR on an NVIDIA GPU (PyTorch backend)")
+
+    # -- model / plugin (Colossal style) ------------------------------------
+    parser.add_argument("-p", "--plugin", type=str, default="torch_ddp",
+                        choices=["torch_ddp", "torch_ddp_fp16",
+                                 "low_level_zero", "gemini", "deepspeed"],
+                        help="parallelism plugin to use")
+    parser.add_argument("--model", type=str, default="resnet18",
+                        help="model name from the registry")
+    parser.add_argument("-r", "--resume", type=int, default=-1,
+                        help="resume from the epoch's checkpoint")
+    parser.add_argument("-c", "--checkpoint", type=str, default="./checkpoint",
+                        help="checkpoint directory")
+    parser.add_argument("-i", "--interval", type=int, default=5,
+                        help="interval of saving checkpoint (epochs)")
+    parser.add_argument("--precise-bn-batches", type=int, default=0,
+                        help="refresh BatchNorm running stats with N "
+                             "train-mode forwards before each eval (the EMA "
+                             "stats lag fast-moving params; 0 = raw stats)")
+    parser.add_argument("--target_acc", type=float, default=None,
+                        help="target accuracy; raise if not reached")
+    parser.add_argument("--local-rank", "--local_rank", type=int, default=-1,
+                        help="accepted for launcher compat; the process group "
+                             "comes from the launcher's environment")
+    parser.add_argument("--device", type=str, default=None,
+                        help="cuda (default; raises without a card) or cpu")
+
+    # -- train (DeepSpeed style) --------------------------------------------
+    parser.add_argument("-b", "--batch_size", type=int, default=100,
+                        help="per-device mini-batch size")
+    parser.add_argument("-e", "--epochs", type=int, default=5,
+                        help="number of total epochs")
+    parser.add_argument("--gradient-accumulation-steps", type=int, default=1,
+                        help="microbatches accumulated per optimizer update "
+                             "(effective batch = batch_size × world × this)")
+    parser.add_argument("--label-smoothing", type=float, default=0.0,
+                        help="uniform label smoothing for the train CE")
+    parser.add_argument("--remat", action="store_true", default=False,
+                        help="activation checkpointing per block (fit "
+                             "bigger batches; ~30%% extra backward FLOPs)")
+
+    # -- optimizer overrides (None = keep the plugin preset) ----------------
+    parser.add_argument("--optimizer", type=str, default=None,
+                        choices=["adam", "adamw", "sgd", "lamb",
+                                 "hybrid_adam"])
+    parser.add_argument("--lr", type=float, default=None)
+    parser.add_argument("--momentum", type=float, default=None,
+                        help="SGD momentum (sgd only)")
+    parser.add_argument("--nesterov", action="store_true", default=False)
+    parser.add_argument("--weight-decay", type=float, default=None)
+    parser.add_argument("--weight-decay-mask", type=str, default=None,
+                        choices=["all", "no_1d"],
+                        help="no_1d = don't decay biases/norm params "
+                             "(ImageNet recipe)")
+    parser.add_argument("--ema-decay", type=float, default=None,
+                        help="parameter EMA decay (e.g. 0.9999); eval uses "
+                             "the averaged params")
+    parser.add_argument("--log-interval", type=int, default=100,
+                        help="steps between metric fetches/logs")
+    parser.add_argument("--dtype", type=str, default="fp32",
+                        choices=["bf16", "fp16", "fp32"],
+                        help="compute datatype")
+    parser.add_argument("--stage", type=int, default=0, choices=[0, 1, 2, 3],
+                        help="ZeRO optimization stage (deepspeed plugin)")
+    parser.add_argument("--deepspeed", action="store_true", default=False,
+                        help="accepted for launcher compat (config comes "
+                             "from --deepspeed_config / built-in defaults)")
+    parser.add_argument("--deepspeed_config", type=str, default=None,
+                        help="path to a DeepSpeed-style JSON config to ingest")
+
+    # -- MoE (DeepSpeed style, deepspeed_train.py:61-106) -------------------
+    parser.add_argument("--moe", action="store_true", default=False,
+                        help="use mixture of experts")
+    parser.add_argument("--ep-world-size", type=int, default=1,
+                        help="(moe) expert parallel world size")
+    parser.add_argument("--num-experts", type=int, nargs="+", default=[1],
+                        help="number of experts list, MoE related.")
+    parser.add_argument("--mlp-type", type=str, default="standard",
+                        help="only applicable when num-experts > 1; "
+                             "accepts [standard, residual]")
+    parser.add_argument("--top-k", type=int, default=1,
+                        help="(moe) gating top 1 and 2 supported")
+    parser.add_argument("--min-capacity", type=int, default=0,
+                        help="(moe) minimum expert capacity")
+    parser.add_argument("--noisy-gate-policy", type=str, default=None,
+                        help="(moe) None, RSample, or Jitter")
+    parser.add_argument("--moe-param-group", action="store_true",
+                        default=False,
+                        help="(moe) separate moe param groups for ZeRO")
+
+    # -- data / misc --------------------------------------------------------
+    parser.add_argument("--dataset", type=str, default="cifar10",
+                        choices=["cifar10", "synthetic_cifar",
+                                 "synthetic_cifar_hard",
+                                 "synthetic_imagenet", "imagefolder"])
+    parser.add_argument("--data-path", type=str, default=None,
+                        help="dataset root (default: $DATA or ../data); "
+                             "imagefolder expects <root>/train and "
+                             "<root>/val class-directory trees")
+    parser.add_argument("--decoded-cache", action="store_true", default=False,
+                        help="(imagefolder) decode the tree once into a "
+                             "uint8 memmap cache under <root>/.decoded_cache "
+                             "and serve epochs from it — decode-bound hosts "
+                             "become augment-bound (DALI-cache analogue)")
+    parser.add_argument("--image-size", type=int, default=None,
+                        help="square input size (default: 224 for "
+                             "imagenet-style datasets, 32 for CIFAR)")
+    parser.add_argument("--num-classes", type=int, default=None,
+                        help="label count (default by dataset)")
+    parser.add_argument("--steps-per-epoch", type=int, default=None,
+                        help="cap train steps per epoch (smoke runs)")
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--wall-clock-breakdown", action="store_true",
+                        default=False)
+    parser.add_argument("--profile-dir", type=str, default=None,
+                        help="profiler trace output directory")
+    parser.add_argument("--auto-resume", action="store_true", default=False,
+                        help="resume from the newest checkpoint if present "
+                             "(pairs with SIGTERM preemption saves)")
+    parser.add_argument("--tensorboard-dir", type=str, default=None,
+                        help="TensorBoard scalar log directory")
+    parser.add_argument("--metrics-jsonl", type=str, default=None,
+                        help="append metric flushes to this JSONL file")
+    # Observability (flight instruments): the JAX CLI's surface, not
+    # ported yet (ROADMAP.md, A10); each raises when set. --flight-recorder
+    # defaults to off here, where the JAX CLI's is on.
+    parser.add_argument("--flight-recorder",
+                        action=argparse.BooleanOptionalAction, default=False,
+                        help="ring buffer of per-step timestamps + flushed "
+                             "metrics (step-time percentiles, goodput; "
+                             "dumped on anomaly/crash)")
+    parser.add_argument("--flight-dir", type=str, default=None,
+                        help="anomaly/crash forensics directory")
+    parser.add_argument("--trace", action=argparse.BooleanOptionalAction,
+                        default=False,
+                        help="span-level Perfetto trace (step/eval/ckpt "
+                             "phases, ckpt-writer track, chaos marks); "
+                             "summarize with tools/trace_report.py")
+    parser.add_argument("--trace-dir", type=str, default=None,
+                        help="trace output directory (default: "
+                             "<flight dir>/trace)")
+    parser.add_argument("--metrics-port", type=int, default=None,
+                        help="live telemetry plane: /metrics (Prometheus "
+                             "text), /healthz and /vars served from a "
+                             "background thread on this port while the "
+                             "run is alive (loopback; 0 = ephemeral; "
+                             "master process only)")
+    parser.add_argument("--grad-norm-metric", action="store_true",
+                        default=False,
+                        help="global L2 grad norm as an on-device metric")
+    parser.add_argument("--anomaly-detection", action="store_true",
+                        default=False,
+                        help="NaN/Inf-loss + grad-norm-spike detection at "
+                             "meter flushes (flight dump + batch/HLO + "
+                             "profiler trace on trigger)")
+    parser.add_argument("--anomaly-action", default="raise",
+                        choices=["raise", "skip"])
+    parser.add_argument("--anomaly-trace-steps", type=int, default=3)
+
+    # Chaos harness (the JAX CLI's resilience/chaos.py surface): not
+    # ported yet (ROADMAP.md, A10); each raises when set away from its
+    # default.
+    parser.add_argument("--chaos-seed", type=int, default=0)
+    parser.add_argument("--chaos-kill-at-step", type=int, default=None,
+                        help="deliver --chaos-kill-signal at this global "
+                             "step (simulated preemption)")
+    parser.add_argument("--chaos-kill-signal", type=str, default="sigterm",
+                        choices=["sigterm", "kill"])
+    parser.add_argument("--chaos-torn-ckpt-epoch", type=int, default=None,
+                        help="tear this epoch's save after it lands "
+                             "(truncate + drop COMMITTED; auto-resume "
+                             "must fall back)")
+    parser.add_argument("--chaos-torn-bytes", type=int, default=64)
+    parser.add_argument("--chaos-corrupt-ckpt-epoch", type=int,
+                        default=None,
+                        help="tear-AFTER-commit: corrupt this epoch's "
+                             "save payload, COMMITTED marker intact "
+                             "(checksum pass must catch it)")
+    parser.add_argument("--chaos-data-error-rate", type=float, default=0.0,
+                        help="seeded one-shot transient data-read faults "
+                             "(the retry policy must absorb them)")
+    parser.add_argument("--chaos-slow-step-every", type=int, default=None)
+    parser.add_argument("--chaos-slow-step-ms", type=float, default=50.0)
+    parser.add_argument("--chaos-slow-step-host", type=int, default=None,
+                        help="restrict slow-step injection to this "
+                             "process index (straggler drill)")
+
+    return parser
+
+
+# The DeepSpeed trainer's in-code engine config
+# (resnet/deepspeed/deepspeed_train.py:172-220), reproduced as the default
+# ds_config for the 'deepspeed' plugin; --dtype/--stage patch it exactly the
+# way the reference's args do.
+def default_ds_config(dtype: str, stage: int, batch_size: int) -> dict:
+    return {
+        "train_batch_size": batch_size,
+        "steps_per_print": 2000,
+        "optimizer": {
+            "type": "Adam",
+            "params": {
+                "lr": 0.001,
+                "betas": [0.8, 0.999],
+                "eps": 1e-8,
+                "weight_decay": 3e-7,
+            },
+        },
+        "scheduler": {
+            "type": "WarmupLR",
+            "params": {
+                "warmup_min_lr": 0,
+                "warmup_max_lr": 0.001,
+                "warmup_num_steps": 1000,
+            },
+        },
+        "gradient_clipping": 1.0,
+        "prescale_gradients": False,
+        "bf16": {"enabled": dtype == "bf16"},
+        "fp16": {
+            "enabled": dtype == "fp16",
+            "fp16_master_weights_and_grads": False,
+            "loss_scale": 0,
+            "loss_scale_window": 500,
+            "hysteresis": 2,
+            "min_loss_scale": 1,
+            "initial_scale_power": 15,
+        },
+        "wall_clock_breakdown": False,
+        "zero_optimization": {
+            "stage": stage,
+            "allgather_partitions": True,
+            "reduce_scatter": True,
+            "allgather_bucket_size": 50000000,
+            "reduce_bucket_size": 50000000,
+            "overlap_comm": True,
+            "contiguous_gradients": True,
+            "cpu_offload": False,
+        },
+    }
+
+
+
+def unported_flags(args: argparse.Namespace) -> list[str]:
+    """The flags set to something the port cannot honour yet."""
+    defaults = build_parser().parse_args([])
+    observability = ("flight_recorder", "flight_dir", "trace", "trace_dir",
+                     "metrics_port", "grad_norm_metric", "anomaly_detection",
+                     "anomaly_action", "anomaly_trace_steps")
+    moe = ("moe", "ep_world_size", "num_experts", "mlp_type", "top_k",
+           "min_capacity", "noisy_gate_policy", "moe_param_group")
+    chaos = tuple(k for k in vars(defaults) if k.startswith("chaos_"))
+    others = ("remat", "precise_bn_batches", "decoded_cache", "wall_clock_breakdown",
+              "profile_dir", "tensorboard_dir", "metrics_jsonl")
+    bad = [f"--{k.replace('_', '-')}" for k in (*moe, *chaos, *observability, *others)
+           if getattr(args, k) != getattr(defaults, k)]
+    if args.dataset == "imagefolder":
+        bad.append("--dataset imagefolder")
+    return bad
+
+
+def build_config(args: argparse.Namespace):
+    """The port's ``TrainConfig`` for ``args``; raises
+    ``NotImplementedError`` for flags the port lacks."""
+    from distributed_training_tpu_torch.config import (
+        CheckpointConfig,
+        DataConfig,
+        TrainConfig,
+        from_ds_config,
+    )
+
+    bad = unported_flags(args)
+    if bad:
+        raise NotImplementedError(f"not ported yet (see ROADMAP.md): {', '.join(bad)}")
+    cfg = TrainConfig.from_plugin(args.plugin)
+    if args.plugin == "deepspeed":
+        if args.deepspeed_config:
+            with open(args.deepspeed_config) as fh:
+                ds = json.load(fh)
+        else:
+            ds = default_ds_config(args.dtype, args.stage, args.batch_size)
+        cfg = from_ds_config(ds, base=cfg)
+    elif args.dtype != "fp32":
+        cfg = cfg.replace(precision=dataclasses.replace(cfg.precision, dtype=args.dtype))
+
+    imagenet_style = args.dataset == "synthetic_imagenet"
+    cfg = cfg.replace(
+        model=args.model,
+        num_epochs=args.epochs,
+        gradient_accumulation_steps=args.gradient_accumulation_steps,
+        label_smoothing=args.label_smoothing,
+        seed=args.seed,
+        log_interval=args.log_interval,
+        target_acc=args.target_acc,
+        checkpoint=CheckpointConfig(directory=args.checkpoint, interval=args.interval,
+                                    resume=args.resume, auto_resume=args.auto_resume),
+        data=DataConfig(
+            dataset=args.dataset, data_path=args.data_path, batch_size=args.batch_size,
+            # DeepSpeed normalizes; DDP and Colossal pad, crop and flip.
+            augment="normalize_only" if args.plugin == "deepspeed" else "pad_crop_flip",
+            image_size=args.image_size or (224 if imagenet_style else 32),
+            num_classes=args.num_classes or (1000 if imagenet_style else 10),
+            max_steps_per_epoch=args.steps_per_epoch),
+    )
+    # Optimizer overrides on top of the plugin preset (None = keep preset).
+    opt_overrides = {k: v for k, v in (
+        ("name", args.optimizer), ("lr", args.lr), ("momentum", args.momentum),
+        ("weight_decay", args.weight_decay), ("weight_decay_mask", args.weight_decay_mask),
+        ("ema_decay", args.ema_decay)) if v is not None}
+    if args.nesterov:
+        opt_overrides["nesterov"] = True
+    if opt_overrides:
+        cfg = cfg.replace(optimizer=dataclasses.replace(cfg.optimizer, **opt_overrides))
+    return cfg
+
+
+def main(argv: list[str] | None = None) -> dict:
+    from distributed_training_tpu_torch import Trainer
+
+    args = build_parser().parse_args(argv)
+    trainer = Trainer(build_config(args), device=args.device)
+    result = trainer.fit()
+    trainer.coord.print(f"[done] {result}")
+    return result
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,162 @@
+"""The port's bench entry point and FLOP count on the CPU.
+
+- ``observability.flops``: the forward FLOPs the port reads off its model
+  instances equal, as integers, those the JAX package's formulas read off
+  the Flax modules, for resnet_micro, resnet18, resnet50 and GPT-2-small;
+  the peak table knows the H100 and no TPU, and ``$OBS_PEAK_FLOPS``
+  overrides it; the percentile is the JAX package's.
+- ``python -m distributed_training_tpu_torch.bench``: the root bench's
+  parser (names and defaults, ``--steps-per-call`` 1), a bare run with
+  ``--device cpu`` at a tiny size printing one JSON line per leg with the
+  root bench's keys, and every flag the port cannot honour raising.
+"""
+
+import importlib.util
+import json
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from distributed_training_tpu.models import get_model as jax_model
+from distributed_training_tpu.observability import flight_recorder
+from distributed_training_tpu.observability import flops as jflops
+from distributed_training_tpu_torch import bench
+from distributed_training_tpu_torch.models import get_model
+from distributed_training_tpu_torch.observability import (
+    PEAK_BF16_FLOPS,
+    device_peak_flops,
+    forward_flops,
+    mfu,
+    percentile,
+    train_step_flops,
+)
+
+# The suite runs several pytest workers on one host: torch's intra-op
+# thread pool in each of them would oversubscribe the cores.
+torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# bench.py's JSON keys (its observability_fields and result dicts).
+KEYS = {"metric", "value", "unit", "vs_baseline", "mfu", "model_flops_per_sec",
+        "step_time_p50_ms", "step_time_p95_ms"}
+GPT2_SMALL = dict(num_classes=50304, num_layers=12, num_heads=12, hidden_dim=768,
+                  max_len=1024)
+
+
+@pytest.mark.parametrize("name,size,classes", [
+    ("resnet_micro", 32, 10), ("resnet18", 32, 10), ("resnet50", 224, 1000)])
+def test_resnet_flops_equal_jax(name, size, classes):
+    want = jflops.forward_flops(jax_model(name, num_classes=classes),
+                                image_size=size, batch=512)
+    got = forward_flops(get_model(name, num_classes=classes), image_size=size, batch=512)
+    assert isinstance(got, int) and got == int(want) and float(got) == want
+    assert train_step_flops(got) == 3 * got
+
+
+def test_gpt2_small_flops_equal_jax():
+    want = jflops.forward_flops(jax_model("transformer_lm", dtype=jnp.bfloat16, **GPT2_SMALL),
+                                seq_len=1024, batch=16)
+    with torch.device("meta"):  # the dims alone: no weights are made
+        model = get_model("transformer_lm", dtype=torch.bfloat16, **GPT2_SMALL)
+    got = forward_flops(model, seq_len=1024, batch=16)
+    assert got == int(want) and float(got) == want
+
+
+def test_resnet50_train_step_is_about_3x_8_2_gflop_an_image():
+    step = train_step_flops(forward_flops(get_model("resnet50", num_classes=1000),
+                                          image_size=224))
+    assert 3 * 8.1e9 < step < 3 * 8.3e9
+
+
+def test_peak_table_and_override(monkeypatch):
+    assert PEAK_BF16_FLOPS == {"NVIDIA H100 80GB HBM3": 989.4e12}
+    monkeypatch.delenv("OBS_PEAK_FLOPS", raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert device_peak_flops() is None
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda device=None: "NVIDIA H100 80GB HBM3")
+    assert device_peak_flops() == 989.4e12
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda device=None: "Some Other Card")
+    assert device_peak_flops() is None
+    monkeypatch.setenv("OBS_PEAK_FLOPS", "1e12")
+    assert device_peak_flops() == 1e12
+    assert mfu(5e11, 1, 1e12) == 0.5 and mfu(5e11, 1, None) is None
+
+
+@pytest.mark.parametrize("values", [[3.0], [5.0, 1.0], [4.0, 2.5, 9.0, 1.0, 7.5]])
+def test_percentile_is_the_jax_packages(values):
+    for q in (0, 50, 95, 100):
+        assert percentile(values, q) == flight_recorder.percentile(values, q)
+    with pytest.raises(ValueError):
+        percentile([], 50)
+
+
+def _root_parser():
+    spec = importlib.util.spec_from_file_location("root_bench", os.path.join(ROOT, "bench.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.build_parser()
+
+
+def test_parser_has_the_root_bench_names_and_defaults():
+    root = vars(_root_parser().parse_args([]))
+    port = vars(bench.build_parser().parse_args([]))
+    assert set(port) == set(root) | {"device"}
+    differ = {k for k in root if root[k] != port[k]}
+    assert differ == {"steps_per_call"} and port["steps_per_call"] == 1
+
+
+TINY = ["--device", "cpu", "--model", "resnet_micro", "--batch-size", "4",
+        "--image-size", "32", "--num-classes", "10", "--warmup", "0", "--steps", "2",
+        "--sync-interval", "1", "--lm-batch", "1", "--seq-len", "8"]
+
+
+def test_bare_run_prints_both_legs_with_the_root_keys(capsys, monkeypatch):
+    monkeypatch.setenv("OBS_PEAK_FLOPS", "1e12")
+    results = bench.main(TINY)
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()
+             if x.startswith("{")]
+    assert len(lines) == len(results) == 2
+    image, lm = lines
+    assert set(image) == set(lm) == KEYS
+    assert image["unit"] == "images/sec/chip" and lm["unit"] == "tokens/sec"
+    assert "resnet_micro" in image["metric"] and "accum:2" in image["metric"]
+    assert "AdamW, B1 T8 flash" in lm["metric"]
+    for line, (result, loss) in zip(lines, results):
+        assert line == result and np.isfinite(loss)
+        assert line["vs_baseline"] is None
+        assert line["value"] > 0 and 0 < line["mfu"]
+        assert line["step_time_p50_ms"] <= line["step_time_p95_ms"]
+
+
+@pytest.mark.parametrize("flags,tag", [
+    (["--zero-stage", "2", "--cpu-offload"], "zero-2, offload"),
+    (["--zero-stage", "3", "--input-dtype", "uint8"], "zero-3, in:uint8"),
+    (["--input-dtype", "bf16"], "in:bf16"),
+], ids=["zero2_offload", "zero3_uint8", "bf16_input"])
+def test_image_leg_honours_zero_offload_and_input_dtype(capsys, flags, tag):
+    """``--zero-stage`` and ``--cpu-offload`` run PR 6's world-1 ZeRO
+    path; ``--input-dtype`` sets the batch's dtype (uint8 mapped to float
+    by the step)."""
+    (line, loss), = bench.main([*TINY, "--image", *flags])
+    assert tag in line["metric"] and line["value"] > 0 and np.isfinite(loss)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--check"], ["--remat"], ["--remat-policy", "conv"], ["--param-dtype", "bf16"],
+    ["--tp", "2"], ["--tp-overlap"], ["--ce-chunk", "8"], ["--ce-save-probs"],
+    ["--data-only"], ["--data-concurrent"], ["--data-path", "x"], ["--data-mode", "augment"],
+    ["--steps-per-call", "15"],
+], ids=lambda f: f[0])
+def test_unported_flags_raise(flags):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        bench.main(["--device", "cpu", *flags])
+
+
+def test_without_device_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bench.main(["--image"])

@@ -1,0 +1,153 @@
+"""The port's ResNet CLI (``resnet/torch_cuda/train.py``) and
+``from_ds_config`` against the JAX package's on the CPU.
+
+- ``from_ds_config`` on the reference's in-code ds_config (the JAX CLI's
+  ``default_ds_config``, every dtype and ZeRO stage) and on variants of
+  it gives the JAX package's fields; unknown keys raise in both, and what
+  asks for a behaviour the port lacks raises ``NotImplementedError``.
+- The CLI parses the JAX CLI's flags with its names and defaults (plus
+  ``--device``; ``--flight-recorder`` is off), builds the same config
+  from the same command line, refuses every flag of what the port lacks,
+  and trains through ``Trainer.fit()``.
+"""
+
+import contextlib
+import dataclasses
+import importlib.util
+import os
+
+import pytest
+import torch
+
+from distributed_training_tpu import config as jcfg
+from distributed_training_tpu_torch import config as tcfg
+
+# The suite runs several pytest workers on one host: torch's intra-op
+# thread pool in each of them would oversubscribe the cores.
+torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# TrainConfig fields both packages have and a ds_config or the CLI sets.
+FIELDS = ("model", "plugin", "num_epochs", "gradient_accumulation_steps", "label_smoothing",
+          "seed", "log_interval", "target_acc", "optimizer", "scheduler", "precision",
+          "zero", "checkpoint", "data", "remat", "wall_clock_breakdown")
+
+
+def _load(path, name):
+    spec = importlib.util.spec_from_file_location(name, os.path.join(ROOT, path))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+JAX_CLI = _load("resnet/jax_tpu/train.py", "jax_cli")
+PORT_CLI = _load("resnet/torch_cuda/train.py", "port_cli")
+
+
+def _same(a, b):
+    for f in FIELDS:
+        x, y = getattr(a, f), getattr(b, f)
+        if dataclasses.is_dataclass(x):
+            x, y = dataclasses.asdict(x), dataclasses.asdict(y)
+            assert set(y) <= set(x), f  # the port's fields are the JAX package's
+            x = {k: v for k, v in x.items() if k in y}
+        assert x == y, f
+
+
+@pytest.mark.parametrize("stage", [0, 1, 2, 3])
+@pytest.mark.parametrize("dtype", ["fp32", "bf16", "fp16"])
+def test_reference_ds_config_maps_as_in_jax(dtype, stage):
+    ds = JAX_CLI.default_ds_config(dtype, stage, 96)
+    _same(jcfg.from_ds_config(ds), tcfg.from_ds_config(ds))
+
+
+@pytest.mark.parametrize("change", [
+    {"optimizer": {"type": "SGD", "params": {"lr": 0.1, "momentum": 0.8, "nesterov": True}}},
+    {"optimizer": {"type": "AdamW", "params": {"lr": 3e-4, "weight_decay": 0.05}}},
+    {"optimizer": {"type": "Lamb", "params": {"lr": 1e-2}}},
+    {"fp16": {"enabled": True, "loss_scale": 128}},
+    {"train_micro_batch_size_per_gpu": 32, "gradient_accumulation_steps": 4},
+    {"activation_checkpointing": {"partition_activations": False}},
+], ids=["sgd", "adamw", "lamb", "static_fp16", "batch_triple", "ac_off"])
+def test_ds_config_variants_map_as_in_jax(change):
+    ds = {**JAX_CLI.default_ds_config("fp32", 1, 96), **change}
+    warns = lambda: (pytest.warns(UserWarning, match="remat stays OFF")  # noqa: E731
+                     if "activation_checkpointing" in change else contextlib.nullcontext())
+    with warns():
+        want = jcfg.from_ds_config(ds)
+    with warns():
+        got = tcfg.from_ds_config(ds)
+    _same(want, got)
+
+
+@pytest.mark.parametrize("bad", [{"zero_optimization": {"stage": 1, "bogus": 1}},
+                                 {"not_a_key": 1}, {"optimizer": {"type": "Adagrad"}},
+                                 {"scheduler": {"type": "OneCycle"}}])
+def test_invalid_ds_config_raises_in_both(bad):
+    ds = {**JAX_CLI.default_ds_config("fp32", 0, 96), **bad}
+    with pytest.raises(ValueError):
+        jcfg.from_ds_config(ds)
+    with pytest.raises(ValueError):
+        tcfg.from_ds_config(ds)
+
+
+@pytest.mark.parametrize("lacking", [{"activation_checkpointing": {"enabled": True}},
+                                     {"wall_clock_breakdown": True}])
+def test_ds_config_asking_for_what_the_port_lacks_raises(lacking):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tcfg.from_ds_config({**JAX_CLI.default_ds_config("fp32", 0, 96), **lacking})
+
+
+def _jax_args(argv):
+    import sys
+
+    old = sys.argv
+    sys.argv = ["train.py", *argv]
+    try:
+        return JAX_CLI.add_argument()
+    finally:
+        sys.argv = old
+
+
+def test_cli_flags_are_the_jax_clis():
+    jax_args, port_args = vars(_jax_args([])), vars(PORT_CLI.build_parser().parse_args([]))
+    assert set(port_args) == set(jax_args) | {"device"}
+    assert {k for k in jax_args if jax_args[k] != port_args[k]} == {"flight_recorder"}
+
+
+@pytest.mark.parametrize("argv", [
+    [],
+    ["-p", "deepspeed", "--dtype", "bf16", "--stage", "2"],
+    ["-p", "torch_ddp_fp16", "-r", "3", "-c", "/tmp/ck", "-i", "2", "--target_acc", "0.9"],
+    ["-p", "gemini", "--optimizer", "sgd", "--lr", "0.1", "--momentum", "0.8", "--nesterov",
+     "--weight-decay", "1e-4", "--weight-decay-mask", "no_1d", "--ema-decay", "0.999"],
+    ["--optimizer", "lamb", "--dataset", "synthetic_imagenet", "--model", "resnet50",
+     "-b", "32", "-e", "2", "--steps-per-epoch", "10", "--label-smoothing", "0.1",
+     "--gradient-accumulation-steps", "2", "--auto-resume", "--seed", "3"],
+], ids=["defaults", "deepspeed_bf16_s2", "resume_target", "sgd_ema", "lamb_imagenet"])
+def test_cli_builds_the_jax_clis_config(argv):
+    want = JAX_CLI.build_config(_jax_args(argv))
+    got = PORT_CLI.build_config(PORT_CLI.build_parser().parse_args(argv))
+    _same(want, got)
+
+
+@pytest.mark.parametrize("argv", [
+    ["--moe"], ["--num-experts", "4"], ["--top-k", "2"], ["--chaos-kill-at-step", "3"],
+    ["--chaos-data-error-rate", "0.1"], ["--flight-recorder"], ["--flight-dir", "f"],
+    ["--trace"], ["--metrics-port", "0"], ["--grad-norm-metric"], ["--anomaly-detection"],
+    ["--tensorboard-dir", "tb"], ["--metrics-jsonl", "m.jsonl"], ["--profile-dir", "p"],
+    ["--wall-clock-breakdown"], ["--dataset", "imagefolder"], ["--decoded-cache"],
+    ["--remat"], ["--precise-bn-batches", "2"],
+], ids=lambda a: a[0].lstrip("-"))
+def test_cli_refuses_what_the_port_lacks(argv):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        PORT_CLI.build_config(PORT_CLI.build_parser().parse_args(argv))
+
+
+def test_cli_trains_through_the_trainer(tmp_path):
+    out = PORT_CLI.main([
+        "--device", "cpu", "--model", "resnet_micro", "--dataset", "synthetic_cifar",
+        "-b", "8", "-e", "1", "--steps-per-epoch", "2", "-c", str(tmp_path), "-i", "1",
+        "--dtype", "bf16", "--optimizer", "sgd", "--lr", "0.05", "--ema-decay", "0.9"])
+    assert out["steps"] == 2 and 0.0 <= out["final_acc"] <= 1.0
+    assert os.path.isdir(tmp_path / "epoch_0")

@@ -265,14 +265,57 @@ def test_flash_kernels_refuse_what_they_cannot_take(require_cuda):
         flash_fwd(q, k.bfloat16(), v, causal=True)
     with pytest.raises(ValueError):
         flash_fwd(q.double(), k.double(), v.double(), causal=True)
-    wide = [torch.cat([x, x, x[..., :32]], -1) for x in (q, k, v)]  # d 160
-    with pytest.raises(ValueError, match="head dims up to 128"):
+    wide = [torch.cat([x, x, x, x, x[..., :1]], -1) for x in (q, k, v)]  # d 257
+    with pytest.raises(ValueError, match="head dims up to 256"):
         flash_fwd(*wide, causal=True)
     with pytest.raises(ValueError):
         flash_fwd(q, k.cpu(), v, causal=True)
     out, lse = flash_fwd(q, k, v, causal=True)
     with pytest.raises(ValueError):
         flash_bwd(q, k, v, out, lse[:, :64].contiguous(), g, causal=True)
+
+
+# float32 starts at T 65, as the float32 test above does: at T 1, out = v,
+# so dS = dO·v − rowsum(dO·out) + ... cancels exactly, and the comparison
+# would measure two float32 summation orders of a sum near 16 (d 256), not
+# the kernel.
+D256_CASES = [(dtype, t) for dtype in (torch.float32, torch.bfloat16, torch.float16)
+              for t in ((65, 100, 256) if dtype == torch.float32 else (1, 100, 256))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,t", D256_CASES, ids=str)
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [160, 256])
+def test_flash_kernels_at_head_dims_up_to_256(require_cuda, dtype, causal, d, t):
+    """The D-256 instantiations (16-bit: each tile's outputs split between
+    two blocks of 128 columns; float32: 32-row tiles): K2, K3, K4a and K4b
+    against their plain versions at d 256 and at d 160 (padded to 256), at
+    ragged and admissible T, with a non-zero lse cotangent, under
+    FLASH_TOL; each kernel launches once."""
+    from distributed_training_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, g = _attn_inputs((3, t, d), dtype, seed=13)
+    g_lse = torch.randn((3, t), device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(14))
+    counters = (fa.flash_fwd, fa.flash_bwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    n = [f.launches for f in counters]
+    out, lse = fa.flash_fwd(q, k, v, causal=causal)
+    delta = fa._delta(g, out, g_lse)
+    grads = fa.flash_bwd(q, k, v, out, lse, g, g_lse, causal=causal)
+    dq4 = fa.flash_bwd_dq(q, k, v, g, lse, delta, causal=causal)
+    dk4, dv4 = fa.flash_bwd_dkv(q, k, v, g, lse, delta, causal=causal)
+    torch.cuda.synchronize()
+    assert [f.launches - m for f, m in zip(counters, n)] == [1, 1, 1, 1]
+    want_out, want_lse = fa.flash_attention_reference(q, k, v, causal=causal)
+    want = fa.flash_attention_bwd_reference(q, k, v, out, lse, g, g_lse, causal=causal)
+    fwd_tol, bwd_tol = FLASH_TOL[dtype]
+    assert out.shape == (3, t, d) and _row_err(out, want_out) < fwd_tol
+    assert _rel_err(lse, want_lse) < 1e-5
+    for name, a, b in zip(("dq", "dk", "dv", "K4a dq", "K4b dk", "K4b dv"),
+                          (*grads, dq4, dk4, dv4), (*want, *want)):
+        assert a.dtype == dtype and a.shape == b.shape
+        assert _row_err(a, b) < bwd_tol, name
 
 
 # -- split flash backward (K4a dq, K4b dk/dv) and exp2 ------------------------

@@ -1,5 +1,6 @@
 """The port stands alone: no module of ``distributed_training_tpu_torch``
-and no line of ``chip_smoke.py`` imports JAX, Flax, optax, orbax or the
+and no line of ``chip_smoke.py`` or of the ResNet CLI
+(``resnet/torch_cuda/train.py``) imports JAX, Flax, optax, orbax or the
 JAX package; and the entry points refuse to run on the CPU unless asked."""
 
 import ast
@@ -24,6 +25,7 @@ def _port_files():
             if f.endswith(".py"):
                 yield os.path.join(d, f)
     yield os.path.join(REPO, "chip_smoke.py")
+    yield os.path.join(REPO, "resnet", "torch_cuda", "train.py")
 
 
 def _imported(path):
@@ -67,7 +69,8 @@ def test_every_module_imports_with_jax_blocked():
                 "data.lm_text", "train.lm_step", "train.lm_trainer",
                 "ops.conv3x3_stats", "tools.flash_kernel_bench",
                 "tools.conv_fusion_probe", "runtime.distributed",
-                "runtime.coordinator", "parallel.zero"):
+                "runtime.coordinator", "parallel.zero", "observability",
+                "observability.flops", "bench"):
         assert f"distributed_training_tpu_torch.{new}" in mods
 
 

@@ -163,8 +163,7 @@ def test_every_plugin_preset_fits_and_equals_its_stage0_twin(tmp_path, plugin):
 @pytest.mark.parametrize("override", [
     dict(remat=True), dict(eval_precise_bn_batches=2),
     dict(tensorboard_dir="tb"), dict(mesh=MeshSpec(model=2)),
-    dict(optimizer=OptimizerConfig(name="hybrid_adam", ema_decay=0.999)),
-    dict(optimizer=OptimizerConfig(name="lamb")),
+    dict(wall_clock_breakdown=True), dict(profile_dir="prof"),
     dict(model="vit_b16"),
 ])
 def test_unported_options_raise(tmp_path, override):

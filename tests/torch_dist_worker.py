@@ -24,6 +24,11 @@ OPT = dict(name="hybrid_adam", lr=1e-3, eps=1e-4, weight_decay=1e-3,
 # 3e-7, clip at 1.0; eps as above.
 DS_OPT = dict(name="hybrid_adam", lr=1e-3, betas=(0.8, 0.999), eps=1e-4,
               weight_decay=3e-7, grad_clip_norm=1.0)
+# lamb with the parameter EMA at stage 2: the trust ratio needs each whole
+# tensor's norm from the ranks' shards, and the EMAs (of the parameters and
+# of the BatchNorm statistics) are partitioned as the moments are.
+LAMB_OPT = dict(name="lamb", lr=1e-3, eps=1e-4, weight_decay=1e-3,
+                grad_clip_norm=5.0, ema_decay=0.9)
 # (name, zero stage, SyncBN, cpu_offload, optimizer)
 TRAIN_SCENARIOS = (
     ("sync_s0", 0, True, False, OPT),
@@ -33,6 +38,7 @@ TRAIN_SCENARIOS = (
     ("local_bn", 0, False, False, OPT),
     ("ds_clip", 2, True, False, DS_OPT),
     ("ds_clip_offload", 2, True, True, DS_OPT),
+    ("lamb_s2", 2, True, False, LAMB_OPT),
 )
 CKPT_GLOBAL_BATCH = 16
 
