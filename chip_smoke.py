@@ -8,9 +8,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
 2. build every kernel in ``distributed_training_tpu_torch/csrc`` with
    ``nvcc`` (one process per source, in parallel), and print ptxas's
    registers and spills, the dynamic shared memory and the count of HGMMA
-   instructions in the SASS (``cuobjdump``) of each of the 36 tensor-core
-   instantiations, bf16 and fp16, of K2, K3, K4a, K4b and K5 (one missing,
-   no HGMMA, or a spill at d 64 or in K5, fails);
+   instructions in the SASS (``cuobjdump``) of each of the 44 tensor-core
+   instantiations, bf16 and fp16, of K2, K3, K4a, K4b (d 32, 64, 128, 256
+   and the d > 256 kernels) and K5 (one missing, no HGMMA, or a spill at d
+   64, above 256 or in K5, fails);
 3. kernel phase: the fused-Adam kernel against its plain PyTorch version
    on all 62 ResNet-18 parameter shapes for 3 steps, and its time beside
    the plain version's, ``torch.optim.Adam(fused=True)``'s (a yardstick
@@ -68,11 +69,28 @@ Phases, in order; any failure exits non-zero and prints no result line:
    times of K2–K4 at the GPT-2-small shape and of K5 at s0–s2;
 7d. ResNet CLI phase: ``resnet/torch_cuda/train.py -p torch_ddp_fp16``
    (what ``run.sh`` runs) for one short epoch on synthetic CIFAR;
-7e. d-256 phase: K2–K4 at head dims 256 and 160 (padded to 256) in
-   float32, bf16 and fp16, T 100 and 384, causal and not, against their
-   plain versions; d 257 must raise; then all four timed in bf16 at BH 48
-   (4 × 12 heads), T 1024, d 256, causal, beside their plain versions,
-   SDPA and the bound;
+7d'. gpt_cli phase: the GPT CLI (``gpt/torch_cuda/train.py``'s
+   ``build_trainer`` and ``fit``, what ``main`` runs) at GPT-2-small width
+   (vocab 50304, 12 layers, 12 heads, hidden 768, T 1024, batch 16, bf16,
+   flash, bf16 logits, no head bias) for 4 steps and an eval under a
+   world-1 NCCL group, at ZeRO 2 with remat and the chunked CE (256) and a
+   JSONL sink: the loss finite and falling, K2 launched twice a layer a
+   step (forward and recompute) and once a layer an eval batch, K3 once a
+   layer a step, the JSONL lines written; tokens/s and peak memory beside
+   the same run without remat and the chunked CE, whose peak must be
+   higher; with fp32 logits, stage 0 against stage 3 and the
+   saved-probabilities CE against the default, each step's loss; then the
+   CLI as a subprocess (GPT-2-small width, 2 layers, T 256, float32),
+   SIGTERM after its third logged step: it must save and exit 0, and the
+   run resumed with ``--auto-resume`` must end at the uninterrupted run's
+   step count and final loss;
+7e. d-256 phase: K2–K4 at head dims 256 and 160 (padded to 256), and at
+   257, 320, 384 and 512 (768 in bf16; the d > 256 kernels, d padded to a
+   multiple of 64), in float32, bf16 and fp16, T 100 and 384, causal and
+   not, against their plain versions, K4a bit for bit across two launches
+   above 256; then all four timed in bf16 at BH 48 (4 × 12 heads), T
+   1024, d 256 and at BH 24 (2 × 12), T 1024, d 512, causal, beside their
+   plain versions, SDPA (and the backend it ran) and the bound;
 8. exp2 phase: under the ``_USE_EXP2`` switch, K2, K3 and K4 against the
    plain versions (exp2 too) over the flash grid's bf16 causal cases (head
    dims 32, 64, 128) and at every shape of ``flash_kernel_bench``, then
@@ -97,9 +115,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
    step profiled (device busy share, kernels by device time);
 11. K5's time at each probe shape beside its yardsticks and its time
    before the tensor-core redesign, a ``{"kernels": [...]}`` line (six
-   kernels, each with its launches by path, its fp16 time, its d-256
-   times and its tensor-core instantiations), then the card line, and last
-   ``{"ok": true, "device": {...}}``.
+   kernels, each with its launches by path, its fp16 time, its d-256 and
+   d-512 times and its tensor-core instantiations), then the card line,
+   and last ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits with code 2 before doing anything.
 """
@@ -107,6 +125,7 @@ Without a CUDA device it exits with code 2 before doing anything.
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import sys
@@ -998,7 +1017,7 @@ def lm_phase(ckpt_dir: str) -> dict:
     # The trained weights with the flash and the exact attention: eval CE,
     # one eval batch's logits, and each layer's attention output on the
     # input that layer saw in the flash run.
-    batch = trainer.place_batch(next(iter(eval_loader)))
+    batch = trainer.place(next(iter(eval_loader)))
     model = trainer.model.eval()
     attns = [m for m in model.modules() if isinstance(m, RingSelfAttention)]
     ce, logits, seen = {}, {}, []
@@ -1050,7 +1069,7 @@ def lm_phase(ckpt_dir: str) -> dict:
     del ps, gs, mus, nus
 
     loader, _ = trainer.make_loaders()
-    batches = [trainer.place_batch(b) for _, b in zip(range(5), loader)]
+    batches = [trainer.place(b) for _, b in zip(range(5), loader)]
     steady_state(trainer, batches, GPT_B * GPT_T, "tokens", tag="lm", profiled=2)
     return launches
 
@@ -1160,55 +1179,98 @@ def tools_phase() -> tuple[dict, dict]:
 
 # Head dims up to 256 (Gemma's width): K2–K4 checked at d 256 and at d 160
 # (zero-padded to 256), then timed at BH 48 (batch 4, 12 heads), T 1024,
-# d 256, bf16, causal.
+# d 256, bf16, causal. Above 256 (the kernels that stream d in slabs of 64
+# columns): checked at d 257, 320, 384 and 512 in every dtype and at 768 in
+# bf16, then timed at BH 24 (batch 2, 12 heads), T 1024, d 512: the
+# GPT-2-small shape's elements (24 × 512 = 192 × 64), so its bounds.
 D256_B, D256_H, D256_T = 4, 12, 1024
+WIDE_DIMS = (257, 320, 384, 512)
+D512_B = 2
+
+
+def _sdpa_backend(q4, k4, v4) -> str:
+    """The backend ``F.scaled_dot_product_attention`` dispatched to on
+    these inputs (causal): the name of the backend's own aten operator in
+    a host-side profile of one call (host events are recorded whether or
+    not the profiler can trace the card)."""
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+        torch.cuda.synchronize()
+    ops = [e.key for e in prof.key_averages()
+           if e.key.startswith("aten::_scaled_dot_product_")
+           or e.key.endswith("attention_forward")]
+    for kind in ("cudnn", "flash", "efficient", "math"):
+        hits = [k for k in ops if kind in k]
+        if hits:
+            return f"{kind} ({hits[0]})"
+    return f"not identified (aten ops {ops})"
 
 
 def d256_phase() -> dict:
     """The D-256 instantiations: K2, K3, K4a and K4b against their plain
     versions at d 256 and 160, in float32, bf16 and fp16, at a ragged
     (100) and an admissible (384) T, causal and not, with a non-zero lse
-    cotangent, under FLASH_TOL; each kernel launched once a case. A d of
-    257 raises. Then all four timed in bf16 at BH 48, T 1024, d 256,
-    causal, beside their plain versions, SDPA and the bound."""
+    cotangent, under FLASH_TOL; each kernel launched once a case. The d >
+    256 kernels the same way at d 257, 320, 384 and 512 (and 768 in bf16),
+    K4a's dq the same bit for bit across two launches. Then all four timed
+    in bf16 at BH 48, T 1024, d 256 and at BH 24, T 1024, d 512, causal,
+    beside their plain versions, SDPA (with the backend it ran) and the
+    bound."""
     from distributed_training_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(5)
     counters = (fa.flash_fwd, fa.flash_bwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
-    worst: dict = {}
-    for dtype in (torch.float32, torch.bfloat16, torch.float16):
-        for d in (160, 256):
-            for t in (100, 384):
-                for causal in (False, True):
-                    n = [f.launches for f in counters]
-                    q, k, v, g = (_randn(gen, 4, t, d, dtype=dtype) for _ in range(4))
-                    rows, _ = _flash_case(f"d256 {str(dtype)[6:]} d={d} T={t} causal={causal}",
-                                          q, k, v, g, _randn(gen, 4, t), causal=causal)
-                    if [f.launches - m for f, m in zip(counters, n)] != [1, 1, 1, 1]:
-                        raise SystemExit(f"d {d}: a flash kernel did not launch once")
-                    for name, err in rows.items():
-                        key = f"{str(dtype)[6:]} {name}"
-                        worst[key] = max(worst.get(key, 0.0), err)
-    print("[d256] K2/K3/K4 vs plain at d 160 (padded to 256) and 256, float32, bf16 and "
-          "fp16, T 100 and 384, causal and not, worst errors by row (lse: of its largest "
-          "magnitude): " + ", ".join(f"{n} {e:.3g}" for n, e in sorted(worst.items())))
-    wide = [_randn(gen, 2, 64, 257, dtype=torch.bfloat16) for _ in range(3)]
-    try:
-        fa.flash_fwd(*wide, causal=True)
-    except ValueError as err:
-        print(f"[d256] d 257 raises ValueError: {err}")
-    else:
-        raise SystemExit("flash_fwd took a head dim of 257")
-    bh, t, d = D256_B * D256_H, D256_T, 256
-    q, k, v, g = (_randn(gen, bh, t, d, dtype=torch.bfloat16) for _ in range(4))
-    _, abs_errs = _flash_case(f"d256 timed shape [{bh},{t},{d}]", q, k, v, g, causal=True)
-    errs = {"flash_fwd": abs_errs["K2 out"],
-            "flash_bwd": max(abs_errs["K3 dq"], abs_errs["K3 dk"], abs_errs["K3 dv"]),
-            "flash_bwd_dq": abs_errs["K4a dq"],
-            "flash_bwd_dkv": max(abs_errs["K4b dk"], abs_errs["K4b dv"])}
-    result = _time_flash("d256", q, k, v, g, D256_B, errs)
-    del q, k, v, g, wide
-    torch.cuda.empty_cache()
+    for label, dims_of in (("d256", lambda dtype: (160, 256)),
+                           ("wide", lambda dtype: WIDE_DIMS + (
+                               (768,) if dtype == torch.bfloat16 else ()))):
+        worst: dict = {}
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            for d in dims_of(dtype):
+                for t in (100, 384):
+                    for causal in (False, True):
+                        n = [f.launches for f in counters]
+                        q, k, v, g = (_randn(gen, 4, t, d, dtype=dtype) for _ in range(4))
+                        rows, _ = _flash_case(
+                            f"{label} {str(dtype)[6:]} d={d} T={t} causal={causal}",
+                            q, k, v, g, _randn(gen, 4, t), causal=causal)
+                        if [f.launches - m for f, m in zip(counters, n)] != [1, 1, 1, 1]:
+                            raise SystemExit(f"d {d}: a flash kernel did not launch once")
+                        if label == "wide":
+                            out, lse = fa.flash_fwd(q, k, v, causal=causal)
+                            delta = fa._delta(g, out)
+                            if not torch.equal(
+                                    fa.flash_bwd_dq(q, k, v, g, lse, delta, causal=causal),
+                                    fa.flash_bwd_dq(q, k, v, g, lse, delta, causal=causal)):
+                                raise SystemExit(f"d {d}: K4a dq differs between launches")
+                        for name, err in rows.items():
+                            key = f"{str(dtype)[6:]} {name}"
+                            worst[key] = max(worst.get(key, 0.0), err)
+        dims = ("160 (padded to 256) and 256" if label == "d256" else
+                "257, 320, 384, 512 (padded to multiples of 64; 768 in bf16)")
+        print(f"[d256] K2/K3/K4 vs plain at d {dims}, float32, bf16 and fp16, T 100 "
+              f"and 384, causal and not, worst errors by row (lse: of its largest "
+              f"magnitude): " + ", ".join(f"{n} {e:.3g}" for n, e in sorted(worst.items())))
+    print("[d256] K4a dq equal bit for bit across two launches at every d above 256")
+    result = {}
+    for d, batch in ((256, D256_B), (512, D512_B)):
+        bh, t = batch * D256_H, D256_T
+        q, k, v, g = (_randn(gen, bh, t, d, dtype=torch.bfloat16) for _ in range(4))
+        _, abs_errs = _flash_case(f"d{d} timed shape [{bh},{t},{d}]", q, k, v, g, causal=True)
+        errs = {"flash_fwd": abs_errs["K2 out"],
+                "flash_bwd": max(abs_errs["K3 dq"], abs_errs["K3 dk"], abs_errs["K3 dv"]),
+                "flash_bwd_dq": abs_errs["K4a dq"],
+                "flash_bwd_dkv": max(abs_errs["K4b dk"], abs_errs["K4b dv"])}
+        result[f"d{d}"] = _time_flash(f"d{d}", q, k, v, g, batch, errs)
+        backend = _sdpa_backend(*(x.view(batch, D256_H, t, d) for x in (q, k, v)))
+        print(f"[d{d}] SDPA at [{batch},{D256_H},{t},{d}] bf16 causal ran the {backend} "
+              f"backend")
+        for r in result[f"d{d}"].values():
+            r["library_backend"] = backend
+        del q, k, v, g
+        torch.cuda.empty_cache()
     return result
 
 
@@ -1348,6 +1410,242 @@ def cli_phase(ckpt_dir: str) -> dict:
     return out
 
 
+# The gpt_cli phase: the GPT CLI (gpt/torch_cuda/train.py) at GPT-2-small
+# width, GPT_CLI_STEPS steps and one eval (256 sequences, 16 batches) a run.
+GPT_CLI_STEPS = 4
+GPT_CLI_WIDTH = ["--vocab-size", "50304", "--num-layers", str(GPT_LAYERS),
+                 "--num-heads", str(GPT_H), "--hidden-dim", str(GPT_H * GPT_D),
+                 "--seq-len", str(GPT_T), "--max-len", str(GPT_T), "-b", str(GPT_B),
+                 "--dtype", "bf16", "--attn-impl", "flash", "--no-head-bias",
+                 "-e", "1", "--steps-per-epoch", str(GPT_CLI_STEPS), "--log-interval", "1"]
+# ZeRO stage 0 against stage 3 at world 1: the same arithmetic, but K3
+# adds dQ with atomics in an order that changes from run to run, and bf16
+# rounds the activations, so two runs of one config differ in the last
+# bits and Adam carries that on: the DP phase's limit for a 16-bit compute
+# type (DP_LOSS_RTOL["fp16"]), relative, each step's loss.
+GPT_STAGE_RTOL = DP_LOSS_RTOL["fp16"]
+# The saved-probabilities CE against the default CE (fp32 logits): the
+# same forward, a backward from bf16-rounded probabilities; each step's
+# loss within 1e-4 nats. Both with the exact attention: two flash runs of
+# one config already differ by up to 1.9e-4 nats at step 4 (K3's dQ
+# atomics; H100 80GB HBM3 at 700 W, PERF.md), which would hide the CE's
+# own difference.
+GPT_SAVE_PROBS_ATOL = 1e-4
+# Preempt and resume: GPT-2-small's width at 2 layers and T 256, float32,
+# 3 epochs of 8 steps; SIGTERM once step GPT_PREEMPT_AFTER is logged. The
+# resumed run's final loss against the uninterrupted run's: float32, but
+# K3's dQ and the embedding's backward add with atomics in an order that
+# changes from run to run, so rtol 1e-4, not bit for bit.
+GPT_PREEMPT_AFTER = 3
+GPT_PREEMPT_RTOL = 1e-4
+GPT_PREEMPT_ARGS = ["--vocab-size", "50304", "--num-layers", "2", "--num-heads", "12",
+                    "--hidden-dim", "768", "--seq-len", "256", "--max-len", "256", "-b", "4",
+                    "--dtype", "fp32", "--attn-impl", "flash", "-e", "3",
+                    "--steps-per-epoch", "8", "--log-interval", "1", "--auto-resume"]
+
+
+def _gpt_cli_module():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "gpt_torch_cuda_train", os.path.join(REPO, "gpt", "torch_cuda", "train.py"))
+    cli = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cli)
+    return cli
+
+
+def _gpt_cli_run(cli, argv: list) -> dict:
+    """``build_trainer(argv).fit()`` with each train step timed on the card
+    (synchronised before and after); its losses, step times, peak memory
+    (above what the process held before the run: earlier phases keep some
+    tensors alive), eval batches and ZeRO view."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    trainer = cli.build_trainer(argv)
+    step, times = trainer.train_step, []
+
+    def timed(state, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        return out
+
+    trainer.train_step = timed
+    result = trainer.fit()
+    run = {"result": result, "losses": [h["loss"] for h in trainer.meter.history],
+           "step_s": times, "peak_bytes": torch.cuda.max_memory_allocated() - start,
+           "held_before_bytes": start,
+           "eval_batches": len(trainer.make_loaders()[1]),
+           "stage": trainer.state.zero.stage, "grouped": trainer.state.zero.group is not None,
+           "tokens_per_s": GPT_B * GPT_T * (len(times) - 1) / sum(times[1:])}
+    del trainer
+    torch.cuda.empty_cache()
+    return run
+
+
+def _check_losses(tag: str, losses: list, steps: int) -> None:
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+        raise SystemExit(f"{tag}: expected {steps} finite losses, got {losses}")
+    if not losses[-1] < losses[0]:
+        raise SystemExit(f"{tag}: loss did not fall: {losses}")
+
+
+def _preempt_and_resume(cli, ckpt_dir: str) -> dict:
+    """The CLI as a subprocess, sent SIGTERM once it has logged step
+    GPT_PREEMPT_AFTER: it must save and exit 0; then the same command
+    with ``--auto-resume`` runs to the end, where the committed steps and
+    the final loss must be the uninterrupted run's."""
+    import json
+    import signal
+    import subprocess
+
+    straight = cli.main([*GPT_PREEMPT_ARGS, "-c", os.path.join(ckpt_dir, "straight")])
+    torch.cuda.empty_cache()
+    run_dir, jsonl = os.path.join(ckpt_dir, "preempted"), os.path.join(ckpt_dir, "p.jsonl")
+    log_path = os.path.join(ckpt_dir, "preempted.log")
+    cmd = [sys.executable, os.path.join(REPO, "gpt", "torch_cuda", "train.py"),
+           *GPT_PREEMPT_ARGS, "-c", run_dir, "--metrics-jsonl", jsonl]
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(cmd, cwd=REPO, stdout=log, stderr=subprocess.STDOUT)
+        try:
+            logged = 0
+            while logged < GPT_PREEMPT_AFTER:
+                if proc.poll() is not None:
+                    raise SystemExit(f"the CLI exited ({proc.returncode}) before step "
+                                     f"{GPT_PREEMPT_AFTER}: {open(log_path).read()[-3000:]}")
+                if time.perf_counter() - t0 > 240:
+                    raise SystemExit("the CLI logged no step in 240 s")
+                time.sleep(0.1)
+                if os.path.exists(jsonl):
+                    with open(jsonl) as fh:
+                        steps = [json.loads(x)["step"] for x in fh if '"train"' in x]
+                    logged = max(steps, default=0)
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=240)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    out = open(log_path).read()
+    saved = [x for x in out.splitlines() if "SIGTERM: saved preemption checkpoint" in x]
+    if rc != 0 or not saved or "'preempted': True" not in out:
+        raise SystemExit(f"the preempted CLI exited {rc} without its save: {out[-3000:]}")
+    resumed = cli.main([*GPT_PREEMPT_ARGS, "-c", run_dir])
+    want, got = straight["last_metrics"]["loss"], resumed["last_metrics"]["loss"]
+    rel = abs(got - want) / abs(want)
+    print(f"[gpt_cli] preempted after step {logged} (SIGTERM sent then): {saved[0].strip()}; "
+          f"resumed to {resumed['steps']} steps, final loss {got!r} against the "
+          f"uninterrupted run's {want!r} ({straight['steps']} steps): relative "
+          f"difference {rel:.3g} (tolerance {GPT_PREEMPT_RTOL})")
+    if resumed["steps"] != straight["steps"] or resumed["preempted"]:
+        raise SystemExit(f"resumed run committed {resumed['steps']} steps, the "
+                         f"uninterrupted one {straight['steps']}")
+    _check("preempted-and-resumed final loss vs uninterrupted", rel, GPT_PREEMPT_RTOL)
+    return {"signalled_after_step": logged, "save_line": saved[0].strip(),
+            "steps": resumed["steps"], "loss": got, "loss_straight": want, "rel_diff": rel}
+
+
+def gpt_cli_phase(ckpt_dir: str) -> dict:
+    """The GPT CLI (``gpt/torch_cuda/train.py``) at GPT-2-small width under
+    a world-1 NCCL group: bf16, flash (K2, K3), ZeRO 2, remat, chunked CE
+    (256) and a JSONL sink; the loss finite and falling, K2 twice a layer a
+    step (forward and remat recompute) plus once a layer an eval batch, K3
+    once a layer a step, the JSONL written; tokens/s and peak memory beside
+    the same run without remat and the chunked CE (peak memory must be
+    lower with them). Then, with fp32 logits, stage 0 against stage 3, and
+    the saved-probabilities CE against the default one (exact attention,
+    see GPT_SAVE_PROBS_ATOL), each step's loss; then preempt and resume
+    (:func:`_preempt_and_resume`)."""
+    import json
+
+    import torch.distributed as dist
+
+    from distributed_training_tpu_torch.ops.flash_attention import flash_bwd, flash_fwd
+    from distributed_training_tpu_torch.runtime import distributed
+
+    os.makedirs(ckpt_dir, exist_ok=True)
+    cli = _gpt_cli_module()
+    port = _free_port()
+    distributed.initialize_distributed(init_method=f"tcp://127.0.0.1:{port}",
+                                       world_size=1, rank=0)
+    if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+        raise SystemExit("the world-1 NCCL group did not come up")
+    try:
+        jsonl = os.path.join(ckpt_dir, "gpt2_small.jsonl")
+        flash_fwd.launches = flash_bwd.launches = 0
+        chunked = _gpt_cli_run(cli, [*GPT_CLI_WIDTH, "--stage", "2", "--remat",
+                                  "--ce-chunk-size", "256", "--metrics-jsonl", jsonl,
+                                  "-c", os.path.join(ckpt_dir, "main")])
+        launches = {"flash_fwd": flash_fwd.launches, "flash_bwd": flash_bwd.launches}
+        want = {"flash_fwd": GPT_LAYERS * (2 * GPT_CLI_STEPS + chunked["eval_batches"]),
+                "flash_bwd": GPT_LAYERS * GPT_CLI_STEPS}
+        with open(jsonl) as fh:
+            lines = [json.loads(x) for x in fh]
+        print(f"[gpt_cli] GPT-2-small (bf16, flash, ZeRO {chunked['stage']} in the NCCL "
+              f"group {chunked['grouped']}, remat, ce_chunk 256), {GPT_CLI_STEPS} steps: losses "
+              f"{chunked['losses']}; K2 launches {launches['flash_fwd']} (want "
+              f"{want['flash_fwd']}: 2 a layer a step, 1 a layer an eval batch), K3 "
+              f"{launches['flash_bwd']} (want {want['flash_bwd']}); JSONL lines "
+              f"{[(x['prefix'], x['step']) for x in lines]}; eval perplexity "
+              f"{chunked['result']['final_perplexity']:.4f}")
+        _check_losses("gpt_cli", chunked["losses"], GPT_CLI_STEPS)
+        if not chunked["grouped"] or chunked["stage"] != 2:
+            raise SystemExit("the GPT CLI's trainer did not join the group at stage 2")
+        if launches != want:
+            raise SystemExit(f"gpt_cli launches {launches}, want {want}")
+        if ([(x["prefix"], x["step"]) for x in lines]
+                != [("train", i + 1) for i in range(GPT_CLI_STEPS)]
+                + [("eval", GPT_CLI_STEPS)]):
+            raise SystemExit(f"gpt_cli JSONL lines: {lines}")
+        base = _gpt_cli_run(cli, [*GPT_CLI_WIDTH, "--stage", "2",
+                                  "-c", os.path.join(ckpt_dir, "base")])
+        _check_losses("gpt_cli without remat", base["losses"], GPT_CLI_STEPS)
+        for tag, r in (("remat + ce_chunk 256", chunked), ("neither", base)):
+            print(f"[gpt_cli] {tag}: {r['tokens_per_s']:.1f} tokens/s (steps 2-"
+                  f"{GPT_CLI_STEPS}, {1e3 * sum(r['step_s'][1:]) / (GPT_CLI_STEPS - 1):.3f} "
+                  f"ms a step), peak memory {r['peak_bytes'] / 2**30:.3f} GiB above the "
+                  f"{r['held_before_bytes'] / 2**30:.3f} GiB held before the run")
+        if not chunked["peak_bytes"] < base["peak_bytes"]:
+            raise SystemExit(f"peak memory with remat and the chunked CE "
+                             f"{chunked['peak_bytes']} is not below {base['peak_bytes']}")
+        fp32_logits = [*GPT_CLI_WIDTH, "--logits-dtype", "fp32"]
+        exact = [a if a != "flash" else "exact" for a in fp32_logits]
+        runs = {name: _gpt_cli_run(cli, [*argv, *extra, "-c", os.path.join(ckpt_dir, name)])
+                for name, argv, extra in (
+                    ("s0", fp32_logits, ["--stage", "0"]),
+                    ("s3", fp32_logits, ["--stage", "3"]),
+                    ("exact_ce", exact, ["--stage", "0"]),
+                    ("exact_save_probs", exact, ["--stage", "0", "--ce-save-probs"]))}
+        for name, r in runs.items():
+            _check_losses(f"gpt_cli {name}", r["losses"], GPT_CLI_STEPS)
+        stage_diff = max(abs(a - b) / abs(b) for a, b in zip(runs["s3"]["losses"],
+                                                               runs["s0"]["losses"]))
+        stage_nats = max(abs(a - b) for a, b in zip(runs["s3"]["losses"],
+                                                    runs["s0"]["losses"]))
+        ce_diff = max(abs(a - b) for a, b in zip(runs["exact_save_probs"]["losses"],
+                                                 runs["exact_ce"]["losses"]))
+        print(f"[gpt_cli] fp32 logits, losses: stage 0 {runs['s0']['losses']}, stage 3 "
+              f"{runs['s3']['losses']} (largest relative difference {stage_diff:.3g}, "
+              f"{stage_nats:.3g} nats; tolerance {GPT_STAGE_RTOL} relative); exact "
+              f"attention, default CE {runs['exact_ce']['losses']}, saved-probabilities "
+              f"CE {runs['exact_save_probs']['losses']} (largest difference "
+              f"{ce_diff:.3g} nats, tolerance {GPT_SAVE_PROBS_ATOL}); tokens/s "
+              + ", ".join(f"{n} {r['tokens_per_s']:.1f}" for n, r in runs.items())
+              + "; peak GiB "
+              + ", ".join(f"{n} {r['peak_bytes'] / 2**30:.3f}" for n, r in runs.items()))
+        _check("gpt_cli stage 3 vs stage 0 loss", stage_diff, GPT_STAGE_RTOL)
+        _check("gpt_cli saved-probabilities CE vs default", ce_diff, GPT_SAVE_PROBS_ATOL)
+    finally:
+        distributed.shutdown_distributed()
+    preempt = _preempt_and_resume(cli, ckpt_dir)
+    return {"launches": launches, "chunked": chunked, "base": base, "runs": runs,
+            "preempt": preempt}
+
+
 # Each kernel's time on CUDA cores, before its tensor-core redesign, at
 # the path's shape on an H100 80GB HBM3 at 700 W (PERF.md's kernel table):
 # K2, K3, K4a and K4b at the GPT-2-small shape, K5 at the probe's shapes.
@@ -1378,10 +1676,19 @@ WGMMA_KERNELS = (
      "K4b bwd_kernel", 2),
     ("flash_attention_split", rf"_ZN11flash_wgmma9dq_kernelI{_T}Li(\d+)E", "K4a dq_kernel", 3),
     ("conv3x3_stats", rf"_ZN10conv_wgmma11conv_kernelI{_T}Li(\d+)E", "K5 conv_kernel", None),
+    # The d > 256 kernels take d at run time: one instantiation a type.
+    ("flash_attention", rf"_ZN11flash_wgmma15fwd_wide_kernelI{_T}E", "K2 fwd_wide_kernel", 0),
+    ("flash_attention", rf"_ZN11flash_wgmma15bwd_wide_kernelI{_T}Lb1E",
+     "K3 bwd_wide_kernel(dq)", 1),
+    ("flash_attention_split", rf"_ZN11flash_wgmma15bwd_wide_kernelI{_T}Lb0E",
+     "K4b bwd_wide_kernel", 2),
+    ("flash_attention_split", rf"_ZN11flash_wgmma14dq_wide_kernelI{_T}E",
+     "K4a dq_wide_kernel", 3),
 )
-# 18 instantiations in each of the two types: K2, K3, K4b and K4a at d 32,
-# 64, 128 and 256, K5 at 32 and 64 output channels a block.
-WGMMA_INSTANTIATIONS = 36
+# 22 instantiations in each of the two types: K2, K3, K4b and K4a at d 32,
+# 64, 128 and 256 and above 256 ("wide"), K5 at 32 and 64 output channels a
+# block.
+WGMMA_INSTANTIATIONS = 44
 
 
 def _sass_by_function(lib: str) -> dict:
@@ -1400,10 +1707,10 @@ def wgmma_build_lines() -> dict:
     """Per tensor-core instantiation (bf16 and fp16): the HGMMA
     instructions in its SASS and, when this run built the libraries,
     ptxas's registers and spills, and the launch's dynamic shared memory.
-    Fails unless all 36 are there (K2, K3, K4b, K4a at d 32, 64, 128, 256;
-    K5 at 32 and 64 output channels a block; each in both types), each with
-    HGMMA (the proof that it reaches the tensor cores), and on a spill at
-    d 64 (the GPT path) or in K5."""
+    Fails unless all 44 are there (K2, K3, K4b, K4a at d 32, 64, 128, 256
+    and above 256; K5 at 32 and 64 output channels a block; each in both
+    types), each with HGMMA (the proof that it reaches the tensor cores),
+    and on a spill at d 64 (the GPT path), above 256 or in K5."""
     import ctypes
 
     from distributed_training_tpu_torch.ops import conv3x3_stats as conv
@@ -1431,9 +1738,10 @@ def wgmma_build_lines() -> dict:
             if not m:
                 continue
             dtype = "bf16" if "bfloat16" in m.group(1) else "fp16"
-            width = int(m.group(2))
+            width = int(m.group(2)) if m.re.groups >= 2 else "wide"
             smem = (lib5.conv3x3_stats_wgmma_smem_bytes(width) if smem_kind is None
-                    else flash.flash_wgmma_smem_bytes(smem_kind, width))
+                    else flash.flash_wgmma_smem_bytes(smem_kind,
+                                                      512 if width == "wide" else width))
             line = (f"[build] wgmma {name} {dtype} {'nc' if smem_kind is None else 'd'} "
                     f"{width} ({lib}): {code.count('HGMMA')} HGMMA in its SASS, dynamic "
                     f"shared memory {smem} B")
@@ -1453,8 +1761,8 @@ def wgmma_build_lines() -> dict:
     if [k for k, (_, hgmma) in seen.items() if not hgmma]:
         raise SystemExit(f"no HGMMA in the SASS of {[k for k, v in seen.items() if not v[1]]}")
     if any(spills for (name, _, width), (spills, _) in seen.items()
-           if width == 64 or name.startswith("K5")):
-        raise SystemExit("a tensor-core instantiation spills at d 64 or in K5")
+           if width in (64, "wide") or name.startswith("K5")):
+        raise SystemExit("a tensor-core instantiation spills at d 64, above 256 or in K5")
     print(f"[build] wgmma: {len(seen)} tensor-core instantiations (bf16 and fp16), "
           f"every one with HGMMA in its SASS")
     return seen
@@ -1491,6 +1799,7 @@ def main() -> int:
         lm = lm_phase(os.path.join(ckpt, "lm"))
         lm16 = lm_fp16_phase(os.path.join(ckpt, "lm_fp16"))
         cli_phase(os.path.join(ckpt, "cli"))
+        gpt = gpt_cli_phase(os.path.join(ckpt, "gpt_cli"))
     half = fp16_pad_phase()
     d256 = d256_phase()
     exp2 = exp2_phase()
@@ -1546,9 +1855,11 @@ def main() -> int:
         "name": name, "route": "cuda", "source": src, "replaces": f"{ref}:{line}",
         **by_path(name, **({"gpt2_small_train": lm[name],
                             "gpt2_small_train_fp16": lm16[name],
+                            "gpt_cli_gpt2_small_zero2_remat": gpt["launches"][name],
                             **{p: n[name] for p, n in bench_lm.items()}}
                            if name in lm else {})),
-        **flash[name], "d256": d256[name], "exp2_ms": exp2[name],
+        **flash[name], "d256": d256["d256"][name], "d512": d256["d512"][name],
+        "exp2_ms": exp2[name],
         "fp16_ms": half["ms"][name],
         "fp16_max_abs_err": half["max_abs_err"][name],
         "instantiations": built(tag), "ok": True,

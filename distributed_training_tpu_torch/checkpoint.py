@@ -16,7 +16,13 @@ refuses it. Orbax compatibility with the JAX package is not a goal.
 
 A data-parallel save is written by rank 0 alone, in the same format: the
 state partitioned by ZeRO is gathered to whole tensors first, so a save
-made at any stage and world resumes at any other.
+made at any stage and world resumes at any other. A save is made
+synchronously (:func:`save_checkpoint`) or, with the trainers'
+``checkpoint.async_save``, by a background writer from a host copy of the
+state (``resilience/async_ckpt.py``), which calls
+:func:`write_checkpoint`. A preemption save records where in its epoch
+training stopped (``next_epoch``, ``epoch_step``), so the resume trains no
+batch twice.
 """
 
 from __future__ import annotations
@@ -59,30 +65,45 @@ def _write_atomic(path: str, data: bytes) -> None:
     os.replace(tmp, path)
 
 
-def save_checkpoint(directory: str, epoch: int, state) -> str:
-    """Save ``state`` (a ``TrainState``) at the end of ``epoch``; returns
-    the path. The metadata says where a resume starts: ``next_epoch``,
-    after ``epoch_step`` of its batches (0 for an end-of-epoch save).
-
-    Data-parallel: every rank calls it. The partitioned state is gathered
-    to whole tensors on every rank (``TrainState.state_dict``), rank 0
-    writes the world-1 format, and the others wait at a barrier until the
-    save is committed."""
+def write_checkpoint(directory: str, epoch: int, sd: dict, *,
+                     next_epoch: int | None = None, epoch_step: int = 0) -> str:
+    """Write a state dict (:meth:`TrainState.state_dict`, or the host
+    copy ``resilience/async_ckpt.py`` takes of one) as the save of
+    ``epoch``, through the commit protocol; returns the path. The metadata
+    says where a resume starts: ``next_epoch`` (default ``epoch + 1``),
+    after ``epoch_step`` of its batches (a preemption save mid-epoch)."""
     path = _epoch_dir(directory, epoch)
-    sd = state.state_dict()
-    if state.zero.rank != 0:
-        state.zero.barrier()
-        return path
     if os.path.isdir(path):
         shutil.rmtree(path)
     os.makedirs(path)
-    meta = {"epoch": epoch, "next_epoch": epoch + 1, "epoch_step": 0}
+    meta = {"epoch": epoch,
+            "next_epoch": epoch + 1 if next_epoch is None else int(next_epoch),
+            "epoch_step": int(epoch_step)}
     payload = os.path.join(path, PAYLOAD)
     torch.save({"state": sd, "meta": meta}, payload)
     files = {PAYLOAD: [os.path.getsize(payload), _crc_file(payload)]}
     _write_atomic(os.path.join(path, MANIFEST_NAME),
                   json.dumps({"files": files}).encode())
     _write_atomic(os.path.join(path, COMMIT_NAME), b"")
+    return path
+
+
+def save_checkpoint(directory: str, epoch: int, state, *,
+                    next_epoch: int | None = None, epoch_step: int = 0) -> str:
+    """Save ``state`` (a ``TrainState``) as the save of ``epoch``,
+    synchronously; returns the path. ``next_epoch`` and ``epoch_step`` as
+    in :func:`write_checkpoint` (an end-of-epoch save by default).
+
+    Data-parallel: every rank calls it. The partitioned state is gathered
+    to whole tensors on every rank (``TrainState.state_dict``), rank 0
+    writes the world-1 format, and the others wait at a barrier until the
+    save is committed."""
+    sd = state.state_dict()
+    if state.zero.rank != 0:
+        state.zero.barrier()
+        return _epoch_dir(directory, epoch)
+    path = write_checkpoint(directory, epoch, sd, next_epoch=next_epoch,
+                            epoch_step=epoch_step)
     state.zero.barrier()
     return path
 

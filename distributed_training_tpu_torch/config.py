@@ -9,9 +9,9 @@ Not carried over yet (see ROADMAP.md): ``ServeConfig``,
 ``ObservabilityConfig``, ``ChaosConfig`` and ``TraceConfig``. ``TrainConfig`` therefore has no ``observability`` or
 ``chaos`` field; passing one raises ``TypeError``. Fields that exist but
 whose behaviour the port does not provide yet (MoE, mesh axes other than
-``data``, and the options listed in the trainers) raise
-``NotImplementedError`` in the ``Trainer`` or ``LMTrainer`` when set away
-from their defaults.
+``data``, ``tp_overlap``, ``data.decoded_cache``, pipeline microbatches)
+raise ``NotImplementedError`` in the ``Trainer`` or ``LMTrainer`` when set
+away from their defaults.
 """
 
 from __future__ import annotations
@@ -110,9 +110,11 @@ class MoEConfig:
 
 @dataclasses.dataclass(frozen=True)
 class CheckpointConfig:
-    """Checkpoint/resume. The port writes every save synchronously; a
-    save is durable (payload, manifest, then ``COMMITTED``) before
-    ``save_checkpoint`` returns, whatever ``async_save`` says."""
+    """Checkpoint/resume. ``async_save``: the trainers snapshot the state
+    to host memory and a background thread writes it
+    (``resilience/async_ckpt.py``); else each save is written before the
+    step loop goes on. ``save_on_preemption``: on SIGTERM the trainers
+    save where the epoch stopped (``runtime/preemption.py``)."""
 
     directory: str = "./checkpoint"
     interval: int = 5          # epochs between saves
@@ -160,9 +162,9 @@ class MeshSpec:
 class LMConfig:
     """Transformer-LM model and token-data surface (``models/gpt.py``,
     ``train/lm_trainer.py``). Defaults are the JAX package's; the port
-    implements the single-device path: ``num_microbatches``,
-    ``virtual_stages``, ``ce_chunk_size`` and ``ce_save_probs`` away from
-    their defaults raise in the ``LMTrainer``."""
+    implements the data-parallel path: ``num_microbatches`` and
+    ``virtual_stages`` (the pipeline) away from their defaults raise in the
+    ``LMTrainer``."""
 
     seq_len: int = 128
     vocab_size: int = 256
@@ -291,9 +293,9 @@ def from_ds_config(ds: Mapping[str, Any], base: TrainConfig | None = None) -> Tr
     ``from_ds_config`` does: every field of the reference's ds_config
     (``resnet/deepspeed/deepspeed_train.py:172-220``) maps onto the
     dataclasses, and unknown keys raise ``ValueError``. What asks for a
-    behaviour the port lacks raises ``NotImplementedError``: activation
-    checkpointing that turns remat on, and ``wall_clock_breakdown``.
-    ``prescale_gradients`` and the ZeRO bucket and overlap knobs are
+    ``activation_checkpointing`` turns ``remat`` on only with an opt-in
+    signal, as in the JAX package (below), and ``wall_clock_breakdown``
+    maps onto the field of that name. ``prescale_gradients`` and the ZeRO bucket and overlap knobs are
     validated and read by nothing (each exchange is one collective on one
     flat buffer, which averages either way)."""
     cfg = base or TrainConfig.from_plugin("deepspeed")
@@ -376,9 +378,12 @@ def from_ds_config(ds: Mapping[str, Any], base: TrainConfig | None = None) -> Tr
     if not isinstance(ds.get("prescale_gradients", False), bool):
         raise ValueError("prescale_gradients must be a bool")
 
-    # activation_checkpointing turns remat on only with an opt-in signal
-    # (the "enabled" key, or a truthy functional sub-knob), as in the JAX
-    # package; remat is not ported.
+    # DeepSpeed's activation_checkpointing block only configures its
+    # checkpointing API; nothing is checkpointed unless the model calls it.
+    # So, as in the JAX package, remat needs an opt-in signal: the
+    # "enabled" key (authoritative both ways) or a truthy functional
+    # sub-knob. An all-false block leaves remat off, with a warning;
+    # profile / synchronize_checkpoint_boundary carry no intent.
     remat = cfg.remat
     if "activation_checkpointing" in ds:
         ac = ds["activation_checkpointing"]
@@ -402,15 +407,11 @@ def from_ds_config(ds: Mapping[str, Any], base: TrainConfig | None = None) -> Tr
                     stacklevel=2)
         else:
             remat = bool(ac)
-    wall_clock = bool(ds.get("wall_clock_breakdown", cfg.wall_clock_breakdown))
-    lacking = [k for k, v in (("activation checkpointing (remat)", remat),
-                              ("wall_clock_breakdown", wall_clock)) if v]
-    if lacking:
-        raise NotImplementedError(f"ds_config asks for what the port lacks "
-                                  f"(see ROADMAP.md, A5): {', '.join(lacking)}")
-
     return cfg.replace(
         optimizer=opt, scheduler=sched, precision=prec, zero=zero, data=data,
+        remat=remat,
+        wall_clock_breakdown=bool(ds.get("wall_clock_breakdown",
+                                         cfg.wall_clock_breakdown)),
         gradient_accumulation_steps=int(
             ds.get("gradient_accumulation_steps", cfg.gradient_accumulation_steps)),
         log_interval=int(ds.get("steps_per_print", cfg.log_interval)))

@@ -228,13 +228,141 @@ int launch_fwd(const void* q, const void* k, const void* v, void* out,
   return (int)cudaGetLastError();
 }
 
+// flash_fwd_kernel's function at any d (multiple of 64; flash_tiles.cuh's
+// d > 256 layout): out's owned 64 columns of one 64-row q tile.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, T* __restrict__ out,
+                      float* __restrict__ lse, int bh_count, int t, int d,
+                      int causal, int use_exp2, float scale) {
+  constexpr int R = kWideR;
+  constexpr int kLd = kWideLd;
+  extern __shared__ float4 smem4[];
+  float* qs = reinterpret_cast<float*>(smem4);  // slabs of Q and K
+  float* ks = qs + kWideTile;
+  float* vs = ks + kWideTile;  // owned columns of V
+  float* ps = vs + kWideTile;
+
+  const int parts = d / 64;
+  const int nq = (t + R - 1) / R;
+  const int bh = blockIdx.x % bh_count;
+  const int part = (blockIdx.x / bh_count) % parts;
+  const int col0 = part * 64;
+  const int q0 = (nq - 1 - blockIdx.x / (bh_count * parts)) * R;  // heaviest first
+  const size_t base = (size_t)bh * t * d;
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+  const float sscale = use_exp2 ? scale * kLog2e : scale;
+
+  float m[4], l[4], o[4][4] = {};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+  }
+
+  const int k_end = causal ? min(t, q0 + R) : t;
+  for (int k0 = 0; k0 < k_end; k0 += R) {
+    float s[4][4] = {};
+    for (int c = 0; c < d; c += 64) {
+      __syncthreads();  // the last slab (and ps, vs) is read
+      load_slab<T>(qs, q + base + c, q0, t, d);
+      load_slab<T>(ks, k + base + c, k0, t, d);
+      if (c == 0) load_slab<T>(vs, v + base + col0, k0, t, d);
+      __syncthreads();
+      slab_products(s, qs, ks);
+    }
+
+    if (use_exp2)
+      online_softmax<true, T, 4, 4>(s, m, l, o, ps, q0, k0, t, causal, sscale);
+    else
+      online_softmax<false, T, 4, 4>(s, m, l, o, ps, q0, k0, t, causal, sscale);
+    __syncthreads();
+
+#pragma unroll 2
+    for (int j = 0; j < R; j += 4) {
+      float4 pv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) pv[i] = lds4(ps + (ty + 16 * i) * kLd + j);
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const float4 vv = lds4(vs + (j + jj) * kLd + tx * 4);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float p = comp(pv[i], jj);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) o[i][c] = fmaf(p, comp(vv, c), o[i][c]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty + 16 * i;
+    if (row >= t) continue;
+    float res[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) res[c] = l[i] > 0.f ? o[i][c] / l[i] : 0.f;
+    store_row<T, 4>(out + base + (size_t)row * d + col0 + tx * 4, res, 1.f);
+    if (tx == 0 && part == 0) {
+      const float lm = fmaxf(l[i], 1e-30f);
+      lse[(size_t)bh * t + row] =
+          use_exp2 ? (m[i] + log2f(lm)) / kLog2e : m[i] + logf(lm);
+    }
+  }
+}
+
+// K2 at d > 256: flash_wgmma's tensor-core kernel for the 16-bit types,
+// the CUDA-core one above for float32.
+template <typename T>
+int launch_fwd_wide(const void* q, const void* k, const void* v, void* out,
+                    float* lse, int bh, int t, int d, int causal,
+                    int use_exp2, float scale, cudaStream_t stream) {
+  if constexpr (!std::is_same_v<T, float>) {
+    return flash_wgmma::launch_fwd_wide<T>(q, k, v, out, lse, bh, t, d, causal,
+                                           use_exp2, scale, stream);
+  } else {
+    constexpr size_t smem = (size_t)4 * kWideTile * sizeof(float);
+    unsigned blocks;
+    if (d % 64) return (int)cudaErrorInvalidValue;
+    if (int e = blocks_for(t, kWideR, bh * (d / 64), &blocks)) return e;
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd_wide_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    flash_fwd_wide_kernel<T><<<blocks, kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<T*>(out), lse, bh, t, d, causal,
+        use_exp2, scale);
+    return (int)cudaGetLastError();
+  }
+}
+
+// K3 (or, without kDq, K4b) at d > 256, as launch_fwd_wide.
+template <typename T, bool kDq>
+int bwd_wide(const void* q, const void* k, const void* v, const void* dout,
+             const float* lse, const float* delta, float* dq_acc, void* dk,
+             void* dv, int bh, int t, int d, int causal, int use_exp2,
+             float scale, cudaStream_t stream) {
+  if constexpr (!std::is_same_v<T, float>)
+    return flash_wgmma::launch_bwd_wide<T, kDq>(q, k, v, dout, lse, delta,
+                                                dq_acc, dk, dv, bh, t, d,
+                                                causal, use_exp2, scale, stream);
+  else
+    return launch_bwd_wide<T, kDq>(q, k, v, dout, lse, delta, dq_acc, dk, dv,
+                                   bh, t, d, causal, use_exp2, scale, stream);
+}
+
 }  // namespace
 
 extern "C" {
 
 // q, k, v, out: [bh, t, d] contiguous, float32 (dtype = 0), bfloat16
 // (dtype = 1) or float16 (dtype = 2), 16-byte aligned; lse: [bh, t]
-// float32. d: 32, 64, 128 or 256 (the wrapper pads any other d up to one).
+// float32. d: 32, 64, 128, 256 or any multiple of 64 above 256 (the
+// wrapper pads any other d up to one).
 // scale: 1/sqrt(d) (use_exp2 folds log2(e) into it inside the kernel).
 int flash_fwd(const void* q, const void* k, const void* v, void* out,
               void* lse, int bh, int t, int d, int dtype, int causal,
@@ -246,7 +374,10 @@ int flash_fwd(const void* q, const void* k, const void* v, void* out,
 #define FWD_WGMMA(T, D)                                                 \
   flash_wgmma::launch_fwd<T, D>(q, k, v, out, l, bh, t, causal, use_exp2, \
                              scale, s)
-  FLASH_DISPATCH(FWD_WGMMA, FWD);
+#define FWD_WIDE(T) \
+  launch_fwd_wide<T>(q, k, v, out, l, bh, t, d, causal, use_exp2, scale, s)
+  FLASH_DISPATCH(FWD_WGMMA, FWD, FWD_WIDE);
+#undef FWD_WIDE
 #undef FWD_WGMMA
 #undef FWD
 }
@@ -268,14 +399,19 @@ int flash_bwd(const void* q, const void* k, const void* v, const void* dout,
 #define BWD_WGMMA(T, D)                                                 \
   flash_wgmma::launch_bwd<T, D, true>(q, k, v, dout, l, dl, dq, dk, dv, bh, \
                                    t, causal, use_exp2, scale, s)
-  FLASH_DISPATCH(BWD_WGMMA, BWD);
+#define BWD_WIDE(T)                                                       \
+  bwd_wide<T, true>(q, k, v, dout, l, dl, dq, dk, dv, bh, t, d, causal,   \
+                    use_exp2, scale, s)
+  FLASH_DISPATCH(BWD_WGMMA, BWD, BWD_WIDE);
+#undef BWD_WIDE
 #undef BWD_WGMMA
 #undef BWD
 }
 
 // Dynamic shared memory a block of the tensor-core kernels (bf16 and fp16
 // alike) takes at head dim d: kernel 0 the forward (K2), 1 the backward with dq (K3), 2
-// without it (K4b), 3 the split backward's dq (K4a); -1 for anything else.
+// without it (K4b), 3 the split backward's dq (K4a); at any d above 256 that
+// is a multiple of 64, the d > 256 kernels'; -1 for anything else.
 int flash_wgmma_smem_bytes(int kernel, int d) {
 #define SMEM(D)                                                         \
   (kernel == 0   ? (int)flash_wgmma::fwd_smem_bytes<D>()                \
@@ -287,6 +423,12 @@ int flash_wgmma_smem_bytes(int kernel, int d) {
   if (d == 64) return SMEM(64);
   if (d == 128) return SMEM(128);
   if (d == 256) return SMEM(256);
+  if (d > 256 && d % 64 == 0)
+    return kernel == 0   ? (int)flash_wgmma::fwd_wide_smem_bytes()
+           : kernel == 1 ? (int)flash_wgmma::bwd_wide_smem_bytes<true>()
+           : kernel == 2 ? (int)flash_wgmma::bwd_wide_smem_bytes<false>()
+           : kernel == 3 ? (int)flash_wgmma::dq_wide_smem_bytes()
+                         : -1;
   return -1;
 #undef SMEM
 }

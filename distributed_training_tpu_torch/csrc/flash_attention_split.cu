@@ -215,6 +215,136 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
+// flash_bwd_dq_kernel's function at any d (multiple of 64; flash_tiles.cuh's
+// d > 256 layout): dQ's owned 64 columns of one 64-row q tile, written once.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, const T* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta, T* __restrict__ dq,
+                         int bh_count, int t, int d, int causal, int use_exp2,
+                         float scale) {
+  constexpr int R = kWideR;
+  constexpr int kLd = kWideLd;
+  extern __shared__ float4 smem4[];
+  float* qs = reinterpret_cast<float*>(smem4);  // slabs of Q, dO, K, V
+  float* dos = qs + kWideTile;
+  float* ks = dos + kWideTile;
+  float* vs = ks + kWideTile;
+  float* ko = vs + kWideTile;   // owned columns of K
+  float* dss = ko + kWideTile;  // dS [query][key]
+  float* lse_s = dss + kWideTile;
+  float* delta_s = lse_s + R;
+
+  const int parts = d / 64;
+  const int nq = (t + R - 1) / R;
+  const int bh = blockIdx.x % bh_count;
+  const int col0 = (blockIdx.x / bh_count) % parts * 64;
+  const int q0 = (nq - 1 - blockIdx.x / (bh_count * parts)) * R;  // heaviest first
+  const size_t base = (size_t)bh * t * d;
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+  const float sscale = use_exp2 ? scale * kLog2e : scale;
+
+  load_row_stats<R>(lse_s, delta_s, lse, delta, (size_t)bh * t, q0, t,
+                    use_exp2);
+
+  float acc[4][4] = {};
+  const int k_end = causal ? min(t, q0 + R) : t;
+  for (int k0 = 0; k0 < k_end; k0 += R) {
+    float s[4][4] = {}, dp[4][4] = {};
+    for (int c = 0; c < d; c += 64) {
+      __syncthreads();  // the last slab (and dss, ko) is read
+      load_slab<T>(qs, q + base + c, q0, t, d);
+      load_slab<T>(dos, dout + base + c, q0, t, d);
+      load_slab<T>(ks, k + base + c, k0, t, d);
+      load_slab<T>(vs, v + base + c, k0, t, d);
+      if (c == 0) load_slab<T>(ko, k + base + col0, k0, t, d);
+      __syncthreads();
+      slab_products(s, qs, ks);
+      slab_products(dp, dos, vs);
+    }
+
+    if (use_exp2)
+      dq_probs<true, T, 4>(s, dp, lse_s, delta_s, dss, q0, k0, t, causal,
+                           sscale);
+    else
+      dq_probs<false, T, 4>(s, dp, lse_s, delta_s, dss, q0, k0, t, causal,
+                            sscale);
+    __syncthreads();
+
+    // dq += dS K, rows ty + 16 i, owned columns tx * 4.
+#pragma unroll 2
+    for (int c0 = 0; c0 < R; c0 += 4) {
+      float4 dsr[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) dsr[i] = lds4(dss + (ty + 16 * i) * kLd + c0);
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc) {
+        const float4 kv = lds4(ko + (c0 + cc) * kLd + tx * 4);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float ds = comp(dsr[i], cc);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[i][c] = fmaf(ds, comp(kv, c), acc[i][c]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty + 16 * i;
+    if (row >= t) continue;
+    store_row<T, 4>(dq + base + (size_t)row * d + col0 + tx * 4, acc[i], scale);
+  }
+}
+
+// K4a at d > 256: flash_wgmma's tensor-core kernel for the 16-bit types,
+// the CUDA-core one above for float32.
+template <typename T>
+int launch_dq_wide(const void* q, const void* k, const void* v,
+                   const void* dout, const float* lse, const float* delta,
+                   void* dq, int bh, int t, int d, int causal, int use_exp2,
+                   float scale, cudaStream_t stream) {
+  if constexpr (!std::is_same_v<T, float>) {
+    return flash_wgmma::launch_dq_wide<T>(q, k, v, dout, lse, delta, dq, bh, t,
+                                          d, causal, use_exp2, scale, stream);
+  } else {
+    constexpr size_t smem = ((size_t)6 * kWideTile + 2 * kWideR) * sizeof(float);
+    unsigned blocks;
+    if (d % 64) return (int)cudaErrorInvalidValue;
+    if (int e = blocks_for(t, kWideR, bh * (d / 64), &blocks)) return e;
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_bwd_dq_wide_kernel<T>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    flash_bwd_dq_wide_kernel<T><<<blocks, kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+        static_cast<T*>(dq), bh, t, d, causal, use_exp2, scale);
+    return (int)cudaGetLastError();
+  }
+}
+
+// K4b at d > 256, as launch_dq_wide.
+template <typename T>
+int dkv_wide(const void* q, const void* k, const void* v, const void* dout,
+             const float* lse, const float* delta, void* dk, void* dv, int bh,
+             int t, int d, int causal, int use_exp2, float scale,
+             cudaStream_t stream) {
+  if constexpr (!std::is_same_v<T, float>)
+    return flash_wgmma::launch_bwd_wide<T, false>(q, k, v, dout, lse, delta,
+                                                  nullptr, dk, dv, bh, t, d,
+                                                  causal, use_exp2, scale,
+                                                  stream);
+  else
+    return launch_bwd_wide<T, false>(q, k, v, dout, lse, delta, nullptr, dk,
+                                     dv, bh, t, d, causal, use_exp2, scale,
+                                     stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -222,7 +352,8 @@ extern "C" {
 // q, k, v, dout, dq: [bh, t, d] contiguous, float32 (dtype = 0), bfloat16
 // (dtype = 1) or float16 (dtype = 2), 16-byte aligned; lse, delta: [bh, t]
 // float32.
-// d: 32, 64, 128 or 256. scale: 1/sqrt(d).
+// d: 32, 64, 128, 256 or any multiple of 64 above 256. scale: 1/sqrt(d)
+// of the unpadded d.
 int flash_bwd_dq(const void* q, const void* k, const void* v,
                  const void* dout, const void* lse, const void* delta,
                  void* dq, int bh, int t, int d, int dtype, int causal,
@@ -235,7 +366,10 @@ int flash_bwd_dq(const void* q, const void* k, const void* v,
 #define DQ_WGMMA(T, D)                                                      \
   flash_wgmma::launch_dq<T, D>(q, k, v, dout, l, dl, dq, bh, t, causal,        \
                             use_exp2, scale, s)
-  FLASH_DISPATCH(DQ_WGMMA, DQ);
+#define DQ_WIDE(T) \
+  launch_dq_wide<T>(q, k, v, dout, l, dl, dq, bh, t, d, causal, use_exp2, scale, s)
+  FLASH_DISPATCH(DQ_WGMMA, DQ, DQ_WIDE);
+#undef DQ_WIDE
 #undef DQ_WGMMA
 #undef DQ
 }
@@ -254,7 +388,11 @@ int flash_bwd_dkv(const void* q, const void* k, const void* v,
 #define DKV_WGMMA(T, D)                                                     \
   flash_wgmma::launch_bwd<T, D, false>(q, k, v, dout, l, dl, nullptr, dk, dv,  \
                                     bh, t, causal, use_exp2, scale, s)
-  FLASH_DISPATCH(DKV_WGMMA, DKV);
+#define DKV_WIDE(T)                                                         \
+  dkv_wide<T>(q, k, v, dout, l, dl, dk, dv, bh, t, d, causal, use_exp2,      \
+              scale, s)
+  FLASH_DISPATCH(DKV_WGMMA, DKV, DKV_WIDE);
+#undef DKV_WIDE
 #undef DKV_WGMMA
 #undef DKV
 }

@@ -371,17 +371,226 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------ head dims above 256 (float32)
+//
+// As flash_wgmma.cuh's d > 256 kernels, on CUDA cores: d a runtime multiple
+// of 64 (the wrapper pads), the score products run over d in slabs of 64
+// columns through shared memory, and each block owns 64 output columns, so
+// shared memory and registers do not grow with d and the parts recompute
+// the scores. Tiles of kWideR = 64 rows, rows of 64 + kPad floats.
+constexpr int kWideR = 64;
+constexpr int kWideLd = 64 + kPad;
+constexpr int kWideTile = kWideR * kWideLd;  // floats of one tile
+
+// Rows [row0, row0 + 64) and the 64 columns from g of a matrix of row
+// stride ld into shared memory as float32; rows at or past t read as zeros.
+template <typename T>
+__device__ __forceinline__ void load_slab(float* s, const T* g, int row0,
+                                          int t, int ld) {
+  for (int i = threadIdx.x; i < kWideR * 16; i += kThreads) {
+    const int r = i / 16;
+    const int c = (i % 16) * 4;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row0 + r < t) v = Elem<T>::load4(g + (size_t)(row0 + r) * ld + c);
+    *reinterpret_cast<float4*>(s + r * kWideLd + c) = v;
+  }
+}
+
+// acc[i][j] += row ty + 16 i of slab a . row tx + 16 j of slab b.
+__device__ __forceinline__ void slab_products(float (&acc)[4][4],
+                                              const float* a, const float* b) {
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+#pragma unroll 4
+  for (int d = 0; d < 64; d += 4) {
+    float4 av[4], bv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) av[i] = lds4(a + (ty + 16 * i) * kWideLd + d);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) bv[j] = lds4(b + (tx + 16 * j) * kWideLd + d);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = dot4(av[i], bv[j], acc[i][j]);
+  }
+}
+
+template <bool kDq>
+constexpr size_t bwd_wide_smem_bytes() {
+  return ((size_t)(kDq ? 10 : 8) * kWideTile + 2 * kWideR) * sizeof(float);
+}
+
+// flash_bwd_kernel's function at any d (multiple of 64): dK and dV of one
+// 64-key tile's owned columns, with kDq (K3) dQ's added into dq_acc.
+template <typename T, bool kDq>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const T* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta,
+                      float* __restrict__ dq_acc, T* __restrict__ dk,
+                      T* __restrict__ dv, int bh_count, int t, int d,
+                      int causal, int use_exp2, float scale) {
+  constexpr int R = kWideR;
+  constexpr int kLd = kWideLd;
+  extern __shared__ float4 smem4[];
+  float* ks = reinterpret_cast<float*>(smem4);  // slabs of K, V, Q, dO
+  float* vs = ks + kWideTile;
+  float* qs = vs + kWideTile;
+  float* dos = qs + kWideTile;
+  float* qo = dos + kWideTile;   // owned columns of Q, dO
+  float* doo = qo + kWideTile;
+  float* pts = doo + kWideTile;  // p^T, dS^T [key][query]
+  float* dsts = pts + kWideTile;
+  float* dss = dsts + kWideTile;  // dS [query][key], kDq only
+  float* ko = dss + kWideTile;    // owned columns of K, kDq only
+  float* lse_s = dsts + (kDq ? 3 : 1) * kWideTile;
+  float* delta_s = lse_s + R;
+
+  const int parts = d / 64;
+  const int bh = blockIdx.x % bh_count;
+  const int col0 = (blockIdx.x / bh_count) % parts * 64;
+  const int k0 = (blockIdx.x / (bh_count * parts)) * R;  // heaviest first
+  const size_t base = (size_t)bh * t * d;
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+  const float sscale = use_exp2 ? scale * kLog2e : scale;
+
+  if constexpr (kDq) load_slab<T>(ko, k + base + col0, k0, t, d);
+
+  float dk_acc[4][4] = {}, dv_acc[4][4] = {};
+  const int q_start = causal ? k0 : 0;
+  for (int q0 = q_start; q0 < t; q0 += R) {
+    float st[4][4] = {}, dpt[4][4] = {};
+    for (int c = 0; c < d; c += 64) {
+      __syncthreads();  // the last slab (and tile) is read
+      load_slab<T>(ks, k + base + c, k0, t, d);
+      load_slab<T>(vs, v + base + c, k0, t, d);
+      load_slab<T>(qs, q + base + c, q0, t, d);
+      load_slab<T>(dos, dout + base + c, q0, t, d);
+      if (c == 0) {
+        load_slab<T>(qo, q + base + col0, q0, t, d);
+        load_slab<T>(doo, dout + base + col0, q0, t, d);
+        load_row_stats<R>(lse_s, delta_s, lse, delta, (size_t)bh * t, q0, t,
+                          use_exp2);
+      }
+      __syncthreads();
+      slab_products(st, ks, qs);
+      slab_products(dpt, vs, dos);
+    }
+
+    if (use_exp2)
+      bwd_probs_t<true, T, kDq, R>(st, dpt, lse_s, delta_s, pts, dsts, dss,
+                                   q0, k0, t, causal, sscale);
+    else
+      bwd_probs_t<false, T, kDq, R>(st, dpt, lse_s, delta_s, pts, dsts, dss,
+                                    q0, k0, t, causal, sscale);
+    __syncthreads();
+
+    // dV += p^T dO and dK += dS^T Q, keys ty + 16 i, owned columns tx * 4.
+#pragma unroll 2
+    for (int r = 0; r < R; r += 4) {
+      float4 pv[4], dsv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        pv[i] = lds4(pts + (ty + 16 * i) * kLd + r);
+        dsv[i] = lds4(dsts + (ty + 16 * i) * kLd + r);
+      }
+#pragma unroll
+      for (int rr = 0; rr < 4; ++rr) {
+        const float4 dov = lds4(doo + (r + rr) * kLd + tx * 4);
+        const float4 qv = lds4(qo + (r + rr) * kLd + tx * 4);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float p = comp(pv[i], rr);
+          const float ds = comp(dsv[i], rr);
+#pragma unroll
+          for (int cc = 0; cc < 4; ++cc) {
+            dv_acc[i][cc] = fmaf(p, comp(dov, cc), dv_acc[i][cc]);
+            dk_acc[i][cc] = fmaf(ds, comp(qv, cc), dk_acc[i][cc]);
+          }
+        }
+      }
+    }
+
+    if constexpr (kDq) {
+      // dQ of this tile, rows ty + 16 i, owned columns tx * 4: dS K.
+      float dq[4][4] = {};
+#pragma unroll 2
+      for (int c0 = 0; c0 < R; c0 += 4) {
+        float4 dsr[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) dsr[i] = lds4(dss + (ty + 16 * i) * kLd + c0);
+#pragma unroll
+        for (int cc = 0; cc < 4; ++cc) {
+          const float4 kv = lds4(ko + (c0 + cc) * kLd + tx * 4);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float ds = comp(dsr[i], cc);
+#pragma unroll
+            for (int c = 0; c < 4; ++c) dq[i][c] = fmaf(ds, comp(kv, c), dq[i][c]);
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = q0 + ty + 16 * i;
+        if (row >= t) continue;
+        float* dst = dq_acc + base + (size_t)row * d + col0 + tx * 4;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) atomicAdd(dst + c, scale * dq[i][c]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int key = k0 + ty + 16 * i;
+    if (key >= t) continue;
+    const size_t off = base + (size_t)key * d + col0 + tx * 4;
+    store_row<T, 4>(dk + off, dk_acc[i], scale);
+    store_row<T, 4>(dv + off, dv_acc[i], 1.f);
+  }
+}
+
+template <typename T, bool kDq>
+int launch_bwd_wide(const void* q, const void* k, const void* v,
+                    const void* dout, const float* lse, const float* delta,
+                    float* dq_acc, void* dk, void* dv, int bh, int t, int d,
+                    int causal, int use_exp2, float scale,
+                    cudaStream_t stream) {
+  constexpr size_t smem = bwd_wide_smem_bytes<kDq>();
+  unsigned blocks;
+  if (d % 64) return (int)cudaErrorInvalidValue;
+  if (int e = blocks_for(t, kWideR, bh * (d / 64), &blocks)) return e;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_wide_kernel<T, kDq>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  flash_bwd_wide_kernel<T, kDq><<<blocks, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+      dq_acc, static_cast<T*>(dk), static_cast<T*>(dv), bh, t, d, causal,
+      use_exp2, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace flash
 
 // Dispatch on the element type and head dim: WGMMA(T, D) for bfloat16
 // (dtype = 1, T __nv_bfloat16) and float16 (dtype = 2, T __half), F32(T,
-// D) for float32 (dtype = 0), D 32, 64, 128 or 256; anything else is
-// refused. It
+// D) for float32 (dtype = 0), D 32, 64, 128 or 256; WIDE(T) (T float for
+// float32) at any d above 256 (the d > 256 kernels; a d that is not a
+// multiple of 64 is refused there); anything else is refused. It
 // returns from the enclosing function on every path. The flash kernels
 // send the 16-bit types to the tensor-core tiles of flash_wgmma.cuh and
 // float32 to the CUDA-core loops above.
-#define FLASH_DISPATCH(WGMMA, F32)                   \
-  if (dtype == 1) {                                  \
+#define FLASH_DISPATCH(WGMMA, F32, WIDE)             \
+  if (d > 256) {                                     \
+    if (dtype == 1) return WIDE(__nv_bfloat16);      \
+    if (dtype == 2) return WIDE(__half);             \
+    if (dtype == 0) return WIDE(float);              \
+  } else if (dtype == 1) {                           \
     if (d == 32) return WGMMA(__nv_bfloat16, 32);    \
     if (d == 64) return WGMMA(__nv_bfloat16, 64);    \
     if (d == 128) return WGMMA(__nv_bfloat16, 128);  \

@@ -78,6 +78,10 @@ struct Cols {
   static constexpr int kParts = Tile<D>::kBlocks / kOwn;
 };
 
+// Columns of d a product step of the d > 256 kernels takes, and output
+// columns each of their blocks owns (the end of this file).
+constexpr int kSlab = 64;
+
 // --------------------------------------------------------- loads
 
 // Rows [row0, row0 + 64) of a [t, D] matrix into a tile, asynchronously;
@@ -716,6 +720,501 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
       static_cast<T*>(dq), bh, t, causal, use_exp2, scale);
+  return (int)cudaGetLastError();
+}
+
+// ------------------------------------------ head dims above 256 (any d)
+//
+// Above 256 the tiles above no longer fit: one 64-row Q tile and one K
+// tile at d 512 are 64 KB each, and double-buffered K and V pass the
+// 227 KB a block may have. These kernels take d as a runtime argument, a
+// multiple of 64 (the wrapper zero-pads up to it), and stream d:
+//   - the score products (S, and dP in the backward) run over d in slabs
+//     of 64 columns, each slab's Q and K (and dO, V) tiles loaded by
+//     cp.async into a two-stage ring and multiplied by wgmma into the same
+//     S (and dP) accumulators;
+//   - each block owns 64 output columns (O; dK and dV, K3's dQ; K4a's dQ),
+//     so the grid has d / 64 parts per 64-row tile, each of which computes
+//     the whole S over d and reads only its own columns of V (forward),
+//     of Q and dO (dK, dV) and of K (dQ).
+// Shared memory and registers do not grow with d (39-97 KB; the
+// accumulators of d 64); the parts recompute S (and dP) d / 64 times, so
+// these kernels are correct at any d and slow: no configuration of the
+// repo runs a head dim above 256. The d <= 256 kernels above are not
+// touched.
+
+// Rows [row0, row0 + 64) and the 64 columns from g of a matrix of row
+// stride ld into a Tile<64>, asynchronously; rows at or past t read as
+// zeros.
+template <typename T>
+__device__ __forceinline__ void load_slab(uint32_t tile, const T* g, int row0,
+                                          int t, int ld, int tid) {
+  constexpr int kChunksPerRow = kSlab / 8;
+#pragma unroll
+  for (int i = tid; i < kRows * kChunksPerRow; i += kThreads) {
+    const int r = i / kChunksPerRow;
+    const int c = (i % kChunksPerRow) * 8;
+    const bool in = row0 + r < t;
+    cp_async16(tile + Tile<kSlab>::offset(r, c),
+               g + (size_t)(in ? row0 + r : 0) * ld + c, in ? 16 : 0);
+  }
+}
+
+// Shared memory: two stages of (Q, K) slabs, then V's owned columns.
+constexpr size_t fwd_wide_smem_bytes() {
+  return 5 * (size_t)Tile<kSlab>::kBytes + 1024;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                const T* __restrict__ v, T* __restrict__ out,
+                float* __restrict__ lse, int bh_count, int t, int d,
+                int causal, int use_exp2, float scale) {
+  using TL = Tile<kSlab>;
+  extern __shared__ uint8_t smem[];
+  const uint32_t s0 = (smem_u32(smem) + 1023) & ~1023u;
+  auto qs = [&](int st) { return s0 + (2 * st) * TL::kBytes; };
+  auto ks = [&](int st) { return s0 + (2 * st + 1) * TL::kBytes; };
+  const uint32_t vs = s0 + 4 * TL::kBytes;
+
+  const int parts = d / kSlab;
+  const int nq = (t + kRows - 1) / kRows;
+  const int bh = blockIdx.x % bh_count;
+  const int part = (blockIdx.x / bh_count) % parts;
+  const int col0 = part * kSlab;  // the block's output columns
+  const int q0 = (nq - 1 - blockIdx.x / (bh_count * parts)) * kRows;  // heaviest first
+  const size_t base = (size_t)bh * t * d;
+  const int tid = threadIdx.x;
+  const int r0 = 16 * (tid / 32) + (tid % 32) / 4;  // rows r0, r0 + 8
+  const int cq = 2 * (tid % 4);
+  const float sscale = use_exp2 ? scale * kLog2e : scale;
+  const int k_end = causal ? min(t, q0 + kRows) : t;
+  const int nk = (k_end + kRows - 1) / kRows;
+
+  float o[1][TL::kCols / 2] = {};
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  for (int j = 0; j < nk; ++j) {
+    const int k0 = j * kRows;
+    __syncthreads();  // tile j - 1's products are done: every stage is free
+    load_slab<T>(qs(0), q + base, q0, t, d, tid);
+    load_slab<T>(ks(0), k + base, k0, t, d, tid);
+    load_slab<T>(vs, v + base + col0, k0, t, d, tid);
+    cp_async_commit();
+
+    float s[32] = {};
+    for (int sl = 0; sl < parts; ++sl) {
+      const int st = sl & 1;
+      if (sl > 0) __syncthreads();  // slab sl - 1's product is done
+      if (sl + 1 < parts) {
+        load_slab<T>(qs(st ^ 1), q + base + (sl + 1) * kSlab, q0, t, d, tid);
+        load_slab<T>(ks(st ^ 1), k + base + (sl + 1) * kSlab, k0, t, d, tid);
+      }
+      cp_async_commit();
+      cp_async_wait<1>();  // slab sl (and V) landed
+      fence_proxy_async();
+      __syncthreads();
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kSlab / 16; ++kk)
+        wgmma_ss_n64<T, 0, 0>(s, TL::k_major(qs(st), kk), TL::k_major(ks(st), kk),
+                              sl > 0 || kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+    }
+
+    const bool edge = (causal && k0 == q0) || k0 + kRows > t;
+    uint32_t p[4][4];
+    if (use_exp2)
+      fwd_softmax<T, true, kSlab>(s, m, l, o, p, edge, q0 + r0, k0 + cq, t,
+                                  causal, sscale);
+    else
+      fwd_softmax<T, false, kSlab>(s, m, l, o, p, edge, q0 + r0, k0 + cq, t,
+                                   causal, sscale);
+
+    fence_regs(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<T, TL::kCols, 1>(o[0], p[kk], TL::mn_major(vs, 0, kk), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+    fence_regs(p);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] = quad_sum(l[h]);
+    const int row = q0 + r0 + 8 * h;
+    if (row >= t) continue;
+    const float inv = l[h] > 0.f ? 1.f / l[h] : 0.f;
+#pragma unroll
+    for (int i = 2 * h; i < TL::kCols / 2; i += 4) {
+      const int col = col0 + 8 * (i / 4) + cq;
+      *reinterpret_cast<uint32_t*>(out + base + (size_t)row * d + col) =
+          pack2<T>(o[0][i] * inv, o[0][i + 1] * inv);
+    }
+    if (cq == 0 && part == 0) {
+      const float lm = fmaxf(l[h], 1e-30f);
+      lse[(size_t)bh * t + row] =
+          use_exp2 ? (m[h] + log2f(lm)) / kLog2e : m[h] + logf(lm);
+    }
+  }
+}
+
+template <typename T>
+int launch_fwd_wide(const void* q, const void* k, const void* v, void* out,
+                    float* lse, int bh, int t, int d, int causal,
+                    int use_exp2, float scale, cudaStream_t stream) {
+  constexpr size_t smem = fwd_wide_smem_bytes();
+  unsigned blocks;
+  if (d % kSlab) return (int)cudaErrorInvalidValue;
+  if (int e = flash::blocks_for(t, kRows, bh * (d / kSlab), &blocks)) return e;
+  cudaError_t err = cudaFuncSetAttribute(
+      fwd_wide_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  fwd_wide_kernel<T><<<blocks, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(out), lse, bh, t, d, causal,
+      use_exp2, scale);
+  return (int)cudaGetLastError();
+}
+
+// Shared memory: two stages of (K, V, Q, dO) slabs; the owned columns of Q
+// and dO (for dK and dV) and of K (for dQ); with kDq the dS^T tile; lse and
+// delta; 1024 bytes of alignment.
+template <bool kDq>
+constexpr size_t bwd_wide_smem_bytes() {
+  return (11 + (kDq ? 1 : 0)) * (size_t)Tile<kSlab>::kBytes +
+         2 * kRows * sizeof(float) + 1024;
+}
+
+// bwd_kernel's function at any d (multiple of 64): dK and dV of one 64-key
+// tile's owned columns over the live q tiles, with kDq (K3) dQ's owned
+// columns added into dq_acc.
+template <typename T, bool kDq>
+__global__ void __launch_bounds__(kThreads)
+bwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                const T* __restrict__ v, const T* __restrict__ dout,
+                const float* __restrict__ lse, const float* __restrict__ delta,
+                float* __restrict__ dq_acc, T* __restrict__ dk,
+                T* __restrict__ dv, int bh_count, int t, int d, int causal,
+                int use_exp2, float scale) {
+  using TL = Tile<kSlab>;
+  extern __shared__ uint8_t smem[];
+  const uint32_t s0 = (smem_u32(smem) + 1023) & ~1023u;
+  // Stage st: K, V, Q, dO slabs at s0 + (4 st + 0..3) tiles.
+  auto slab = [&](int st, int i) { return s0 + (4 * st + i) * TL::kBytes; };
+  const uint32_t qo = s0 + 8 * TL::kBytes;   // Q's owned columns
+  const uint32_t doo = s0 + 9 * TL::kBytes;  // dO's owned columns
+  const uint32_t ko = s0 + 10 * TL::kBytes;  // K's owned columns
+  const uint32_t dss = s0 + 11 * TL::kBytes;  // dS^T [key][query], kDq only
+  const uint32_t stats = dss + (kDq ? TL::kBytes : 0);  // lse, then delta
+  const float* stats_f =
+      reinterpret_cast<const float*>(smem + (stats - smem_u32(smem)));
+
+  const int parts = d / kSlab;
+  const int bh = blockIdx.x % bh_count;
+  const int col0 = (blockIdx.x / bh_count) % parts * kSlab;
+  const int k0 = (blockIdx.x / (bh_count * parts)) * kRows;  // heaviest (k0 = 0) first
+  const size_t base = (size_t)bh * t * d;
+  const size_t row_base = (size_t)bh * t;
+  const int tid = threadIdx.x;
+  const int r0 = 16 * (tid / 32) + (tid % 32) / 4;  // rows r0, r0 + 8
+  const int cq = 2 * (tid % 4);
+  const float sscale = use_exp2 ? scale * kLog2e : scale;
+  const int q_start = causal ? k0 : 0;
+  const int n_q = (t - q_start + kRows - 1) / kRows;
+  const T* srcs[4] = {k, v, q, dout};
+
+  if constexpr (kDq) load_slab<T>(ko, k + base + col0, k0, t, d, tid);
+
+  float dk_acc[1][TL::kCols / 2] = {}, dv_acc[1][TL::kCols / 2] = {};
+
+  for (int it = 0; it < n_q; ++it) {
+    const int q0 = q_start + it * kRows;
+    __syncthreads();  // tile it - 1's products are done: every stage is free
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      load_slab<T>(slab(0, i), srcs[i] + base, i < 2 ? k0 : q0, t, d, tid);
+    load_slab<T>(qo, q + base + col0, q0, t, d, tid);
+    load_slab<T>(doo, dout + base + col0, q0, t, d, tid);
+    load_row_stats(stats, stats + 256, lse, delta, row_base, q0, t, tid);
+    cp_async_commit();
+
+    float s_t[32] = {}, dp_t[32] = {};
+    for (int sl = 0; sl < parts; ++sl) {
+      const int st = sl & 1;
+      if (sl > 0) __syncthreads();  // slab sl - 1's products are done
+      if (sl + 1 < parts) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          load_slab<T>(slab(st ^ 1, i), srcs[i] + base + (sl + 1) * kSlab,
+                       i < 2 ? k0 : q0, t, d, tid);
+      }
+      cp_async_commit();
+      cp_async_wait<1>();  // slab sl (and the tile's owned columns) landed
+      fence_proxy_async();
+      __syncthreads();
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kSlab / 16; ++kk)
+        wgmma_ss_n64<T, 0, 0>(s_t, TL::k_major(slab(st, 0), kk),
+                              TL::k_major(slab(st, 2), kk), sl > 0 || kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < kSlab / 16; ++kk)
+        wgmma_ss_n64<T, 0, 0>(dp_t, TL::k_major(slab(st, 1), kk),
+                              TL::k_major(slab(st, 3), kk), sl > 0 || kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s_t);
+      fence_regs(dp_t);
+    }
+
+    const bool edge =
+        (causal && q0 == k0) || q0 + kRows > t || k0 + kRows > t;
+    uint32_t p_t[4][4], ds_t[4][4];
+    if (use_exp2)
+      bwd_probs<T, true>(s_t, dp_t, stats_f, stats_f + kRows, p_t, ds_t, edge,
+                         k0 + r0, q0, cq, t, causal, sscale);
+    else
+      bwd_probs<T, false>(s_t, dp_t, stats_f, stats_f + kRows, p_t, ds_t, edge,
+                          k0 + r0, q0, cq, t, causal, sscale);
+    if constexpr (kDq) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          st_shared(dss + TL::offset(r0 + 8 * (j & 1),
+                                     16 * kk + 8 * (j >> 1) + cq),
+                    ds_t[kk][j]);
+    }
+
+    fence_regs(dk_acc);
+    fence_regs(dv_acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<T, TL::kCols, 1>(dv_acc[0], p_t[kk], TL::mn_major(doo, 0, kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<T, TL::kCols, 1>(dk_acc[0], ds_t[kk], TL::mn_major(qo, 0, kk), 1);
+    wgmma_commit();
+
+    if constexpr (kDq) {
+      fence_proxy_async();
+      __syncthreads();  // the whole dS^T tile is written
+      float dq[TL::kCols / 2] = {};
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss<T, TL::kCols, 1, 1>(dq, TL::mn_major(dss, 0, kk),
+                                     TL::mn_major(ko, 0, kk), kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dq);
+      // As bwd_kernel: lanes 2j and 2j + 1 swap halves so that each adds
+      // four consecutive values of one row.
+      const bool odd = tid & 1;
+      const int rl = r0 + (odd ? 8 : 0);
+#pragma unroll
+      for (int i = 0; i < TL::kCols / 2; i += 4) {
+        const float x = __shfl_xor_sync(0xffffffffu, odd ? dq[i] : dq[i + 2], 1);
+        const float y = __shfl_xor_sync(0xffffffffu, odd ? dq[i + 1] : dq[i + 3], 1);
+        const float4 add =
+            odd ? make_float4(scale * x, scale * y, scale * dq[i + 2],
+                              scale * dq[i + 3])
+                : make_float4(scale * dq[i], scale * dq[i + 1], scale * x,
+                              scale * y);
+        const int col = col0 + 8 * (i / 4) + cq - (odd ? 2 : 0);
+        if (q0 + rl < t)
+          atomicAdd(reinterpret_cast<float4*>(dq_acc + base +
+                                              (size_t)(q0 + rl) * d + col),
+                    add);
+      }
+    } else {
+      wgmma_wait<0>();
+    }
+    fence_regs(dk_acc);
+    fence_regs(dv_acc);
+    fence_regs(p_t);
+    fence_regs(ds_t);
+  }
+
+#pragma unroll
+  for (int i = 0; i < TL::kCols / 2; i += 2) {
+    const int key = k0 + r0 + 8 * ((i >> 1) & 1);
+    if (key >= t) continue;
+    const size_t off = base + (size_t)key * d + col0 + 8 * (i / 4) + cq;
+    *reinterpret_cast<uint32_t*>(dk + off) =
+        pack2<T>(scale * dk_acc[0][i], scale * dk_acc[0][i + 1]);
+    *reinterpret_cast<uint32_t*>(dv + off) =
+        pack2<T>(dv_acc[0][i], dv_acc[0][i + 1]);
+  }
+}
+
+template <typename T, bool kDq>
+int launch_bwd_wide(const void* q, const void* k, const void* v,
+                    const void* dout, const float* lse, const float* delta,
+                    float* dq_acc, void* dk, void* dv, int bh, int t, int d,
+                    int causal, int use_exp2, float scale,
+                    cudaStream_t stream) {
+  constexpr size_t smem = bwd_wide_smem_bytes<kDq>();
+  unsigned blocks;
+  if (d % kSlab) return (int)cudaErrorInvalidValue;
+  if (int e = flash::blocks_for(t, kRows, bh * (d / kSlab), &blocks)) return e;
+  cudaError_t err = cudaFuncSetAttribute(
+      bwd_wide_kernel<T, kDq>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  bwd_wide_kernel<T, kDq><<<blocks, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+      dq_acc, static_cast<T*>(dk), static_cast<T*>(dv), bh, t, d, causal,
+      use_exp2, scale);
+  return (int)cudaGetLastError();
+}
+
+// Shared memory: two stages of (Q, dO, K, V) slabs, then K's owned
+// columns; 1024 bytes of alignment.
+constexpr size_t dq_wide_smem_bytes() {
+  return 9 * (size_t)Tile<kSlab>::kBytes + 1024;
+}
+
+// dq_kernel's function at any d (multiple of 64): dQ's owned columns of one
+// 64-row q tile over its live k tiles, written once (no atomics).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+               const T* __restrict__ v, const T* __restrict__ dout,
+               const float* __restrict__ lse, const float* __restrict__ delta,
+               T* __restrict__ dq, int bh_count, int t, int d, int causal,
+               int use_exp2, float scale) {
+  using TL = Tile<kSlab>;
+  extern __shared__ uint8_t smem[];
+  const uint32_t s0 = (smem_u32(smem) + 1023) & ~1023u;
+  // Stage st: Q, dO, K, V slabs at s0 + (4 st + 0..3) tiles.
+  auto slab = [&](int st, int i) { return s0 + (4 * st + i) * TL::kBytes; };
+  const uint32_t ko = s0 + 8 * TL::kBytes;  // K's owned columns
+
+  const int parts = d / kSlab;
+  const int nq = (t + kRows - 1) / kRows;
+  const int bh = blockIdx.x % bh_count;
+  const int col0 = (blockIdx.x / bh_count) % parts * kSlab;
+  const int q0 = (nq - 1 - blockIdx.x / (bh_count * parts)) * kRows;  // heaviest first
+  const size_t base = (size_t)bh * t * d;
+  const int tid = threadIdx.x;
+  const int r0 = 16 * (tid / 32) + (tid % 32) / 4;  // rows r0, r0 + 8
+  const int cq = 2 * (tid % 4);
+  const float sscale = use_exp2 ? scale * kLog2e : scale;
+  const int k_end = causal ? min(t, q0 + kRows) : t;
+  const int nk = (k_end + kRows - 1) / kRows;
+  const T* srcs[4] = {q, dout, k, v};
+
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + r0 + 8 * h;
+    const size_t at = (size_t)bh * t + (row < t ? row : 0);
+    const float l = row < t ? lse[at] : 0.f;
+    lse_r[h] = use_exp2 ? l * kLog2e : l;
+    delta_r[h] = row < t ? delta[at] : 0.f;
+  }
+
+  float acc[1][TL::kCols / 2] = {};
+
+  for (int j = 0; j < nk; ++j) {
+    const int k0 = j * kRows;
+    __syncthreads();  // tile j - 1's products are done: every stage is free
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      load_slab<T>(slab(0, i), srcs[i] + base, i < 2 ? q0 : k0, t, d, tid);
+    load_slab<T>(ko, k + base + col0, k0, t, d, tid);
+    cp_async_commit();
+
+    float s[32] = {}, dp[32] = {};
+    for (int sl = 0; sl < parts; ++sl) {
+      const int st = sl & 1;
+      if (sl > 0) __syncthreads();  // slab sl - 1's products are done
+      if (sl + 1 < parts) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          load_slab<T>(slab(st ^ 1, i), srcs[i] + base + (sl + 1) * kSlab,
+                       i < 2 ? q0 : k0, t, d, tid);
+      }
+      cp_async_commit();
+      cp_async_wait<1>();  // slab sl (and K's owned columns) landed
+      fence_proxy_async();
+      __syncthreads();
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kSlab / 16; ++kk)
+        wgmma_ss_n64<T, 0, 0>(s, TL::k_major(slab(st, 0), kk),
+                              TL::k_major(slab(st, 2), kk), sl > 0 || kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < kSlab / 16; ++kk)
+        wgmma_ss_n64<T, 0, 0>(dp, TL::k_major(slab(st, 1), kk),
+                              TL::k_major(slab(st, 3), kk), sl > 0 || kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+    }
+
+    const bool edge = (causal && k0 == q0) || k0 + kRows > t;
+    uint32_t ds[4][4];
+    if (use_exp2)
+      dq_probs<T, true>(s, dp, lse_r, delta_r, ds, edge, q0 + r0, k0 + cq, t,
+                        causal, sscale);
+    else
+      dq_probs<T, false>(s, dp, lse_r, delta_r, ds, edge, q0 + r0, k0 + cq, t,
+                         causal, sscale);
+
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<T, TL::kCols, 1>(acc[0], ds[kk], TL::mn_major(ko, 0, kk), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_regs(ds);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + r0 + 8 * h;
+    if (row >= t) continue;
+#pragma unroll
+    for (int i = 2 * h; i < TL::kCols / 2; i += 4) {
+      const int col = col0 + 8 * (i / 4) + cq;
+      *reinterpret_cast<uint32_t*>(dq + base + (size_t)row * d + col) =
+          pack2<T>(scale * acc[0][i], scale * acc[0][i + 1]);
+    }
+  }
+}
+
+template <typename T>
+int launch_dq_wide(const void* q, const void* k, const void* v,
+                   const void* dout, const float* lse, const float* delta,
+                   void* dq, int bh, int t, int d, int causal, int use_exp2,
+                   float scale, cudaStream_t stream) {
+  constexpr size_t smem = dq_wide_smem_bytes();
+  unsigned blocks;
+  if (d % kSlab) return (int)cudaErrorInvalidValue;
+  if (int e = flash::blocks_for(t, kRows, bh * (d / kSlab), &blocks)) return e;
+  cudaError_t err = cudaFuncSetAttribute(
+      dq_wide_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dq_wide_kernel<T><<<blocks, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+      static_cast<T*>(dq), bh, t, d, causal, use_exp2, scale);
   return (int)cudaGetLastError();
 }
 

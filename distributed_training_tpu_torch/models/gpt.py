@@ -22,8 +22,26 @@ What it takes to match the Flax model:
 Parameters are float32; ``dtype`` is the compute dtype. The initial values
 follow the Flax initialisers' distributions from a ``torch.Generator``
 (not the same numbers as JAX's PRNG: the tests carry weights over with
-``bridge.py``). Not ported: dropout, MoE layers, remat, sequence
-parallelism and the KV-cache decode path.
+``bridge.py``).
+
+- **Dropout** (``dropout_rate``): after each block's attention and its
+  MLP, in training only, as the Flax block applies it; kept values are
+  divided by the keep probability. The masks come from an explicit
+  ``torch.Generator`` that the train step passes in (``forward``'s
+  ``generator``), so a run's masks depend on its seed, step and rank
+  alone (not the same bits as JAX's PRNG).
+- **Remat** (``remat``): each :class:`DecoderBlock` runs under
+  ``torch.utils.checkpoint`` (non-reentrant) in training, so its
+  activations are recomputed in the backward instead of kept. The
+  checkpoint restores only the default CPU and CUDA generators, so the
+  block restores the explicit generator's state itself before a
+  recompute, which then draws the same dropout masks. Attention's forward
+  (K2 with ``attn_impl="flash"``) runs again in each recompute.
+- ``forward(..., return_hidden=True)`` returns the final-norm hidden
+  states instead of the logits: the chunked cross-entropy applies the head
+  itself (``train/lm_step.py``).
+
+Not ported: MoE layers, sequence parallelism and the KV-cache decode path.
 """
 
 from __future__ import annotations
@@ -32,6 +50,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from distributed_training_tpu_torch.parallel.ring_attention import (
@@ -109,14 +128,28 @@ class MlpBlock(nn.Module):
         return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
 
 
+def dropout(x: torch.Tensor, rate: float,
+            generator: torch.Generator | None) -> torch.Tensor:
+    """Flax ``nn.Dropout`` in training: keep each value with probability
+    ``1 − rate`` (uniform draws from ``generator`` at or above ``rate``),
+    divided by that probability; the rest 0."""
+    if not rate:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
+                                                           device=x.device))
+
+
 class DecoderBlock(nn.Module):
-    """Pre-LN causal block: LN → attention → residual → LN → MLP →
-    residual (the dense FFN)."""
+    """Pre-LN causal block: LN → attention → (dropout) → residual → LN →
+    MLP → (dropout) → residual (the dense FFN)."""
 
     def __init__(self, hidden_dim: int, num_heads: int, mlp_dim: int, *,
                  dtype: torch.dtype = torch.float32, attn_impl: str = "exact",
+                 dropout_rate: float = 0.0,
                  generator: torch.Generator | None = None):
         super().__init__()
+        self.dropout_rate = dropout_rate
         self.ln1 = LayerNorm(hidden_dim, dtype)
         self.attn = RingSelfAttention(hidden_dim, num_heads, dtype=dtype,
                                       causal=True, attn_impl=attn_impl,
@@ -124,9 +157,28 @@ class DecoderBlock(nn.Module):
         self.ln2 = LayerNorm(hidden_dim, dtype)
         self.mlp = MlpBlock(hidden_dim, mlp_dim, dtype, generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.ln1(x))
-        return x + self.mlp(self.ln2(x))
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        rate = self.dropout_rate if self.training else 0.0
+        if rate and generator is None:
+            raise ValueError("dropout in training needs the step's generator")
+        x = x + dropout(self.attn(self.ln1(x)), rate, generator)
+        return x + dropout(self.mlp(self.ln2(x)), rate, generator)
+
+
+def _remat_block(block: DecoderBlock, x: torch.Tensor,
+                 generator: torch.Generator | None) -> torch.Tensor:
+    """``block(x, generator)`` under a non-reentrant checkpoint; the
+    recompute starts from the generator state the first forward began
+    with, so it draws the same dropout masks (see the module docstring)."""
+    start = generator.get_state() if generator is not None else None
+
+    def run(x):
+        if generator is not None:
+            generator.set_state(start)
+        return block(x, generator)
+
+    return torch.utils.checkpoint.checkpoint(run, x, use_reentrant=False)
 
 
 class TransformerLM(nn.Module):
@@ -139,9 +191,11 @@ class TransformerLM(nn.Module):
                  max_len: int = 2048, dtype: torch.dtype = torch.float32,
                  logits_dtype: torch.dtype = torch.float32,
                  head_bias: bool = False, attn_impl: str = "exact",
+                 dropout_rate: float = 0.0, remat: bool = False,
                  generator: torch.Generator | None = None):
         super().__init__()
         self.num_layers, self.max_len, self.dtype = num_layers, max_len, dtype
+        self.dropout_rate, self.remat = dropout_rate, remat
         # The Flax module's fields, which the FLOP count reads.
         self.vocab_size, self.hidden_dim, self.mlp_ratio = vocab_size, hidden_dim, mlp_ratio
         self.tok_embed = Embed(vocab_size, hidden_dim, dtype, generator)
@@ -151,13 +205,19 @@ class TransformerLM(nn.Module):
         for i in range(num_layers):
             self.add_module(f"block{i}", DecoderBlock(
                 hidden_dim, num_heads, mlp_ratio * hidden_dim, dtype=dtype,
-                attn_impl=attn_impl, generator=generator))
+                attn_impl=attn_impl, dropout_rate=dropout_rate,
+                generator=generator))
         self.ln_f = LayerNorm(hidden_dim, dtype)
         self.lm_head = Dense(hidden_dim, vocab_size, dtype=logits_dtype,
                              use_bias=head_bias, generator=generator)
 
     def forward(self, tokens: torch.Tensor,
-                positions: torch.Tensor | None = None) -> torch.Tensor:
+                positions: torch.Tensor | None = None, *,
+                generator: torch.Generator | None = None,
+                return_hidden: bool = False) -> torch.Tensor:
+        """Logits, or with ``return_hidden`` the final-norm hidden states
+        ``[B, T, hidden]``; ``generator`` draws the dropout masks in
+        training (needed when ``dropout_rate`` > 0)."""
         if positions is None:
             # Gathers past the table would fail here, where JAX clamps
             # them silently: check the length, as the JAX model does.
@@ -167,9 +227,12 @@ class TransformerLM(nn.Module):
             positions = torch.arange(tokens.shape[-1], device=tokens.device)[None, :]
         x = self.tok_embed(tokens)
         x = x + self.pos_embed[positions].to(self.dtype)
+        remat = self.remat and self.training and torch.is_grad_enabled()
         for i in range(self.num_layers):
-            x = getattr(self, f"block{i}")(x)
-        return self.lm_head(self.ln_f(x))
+            block = getattr(self, f"block{i}")
+            x = _remat_block(block, x, generator) if remat else block(x, generator)
+        x = self.ln_f(x)
+        return x if return_hidden else self.lm_head(x)
 
 
 def make_transformer_lm(*, num_classes: int = 256,
@@ -188,8 +251,7 @@ def make_transformer_lm(*, num_classes: int = 256,
     unused. The options the port lacks raise ``NotImplementedError``."""
     del axis_name
     unported = {"seq_axis": seq_axis is not None,
-                "dropout_rate": dropout_rate != 0.0,
-                "moe_num_experts": bool(moe_num_experts), "remat": remat}
+                "moe_num_experts": bool(moe_num_experts)}
     bad = [k for k, v in unported.items() if v]
     if bad:
         raise NotImplementedError(
@@ -198,4 +260,5 @@ def make_transformer_lm(*, num_classes: int = 256,
         num_classes, num_layers=num_layers, num_heads=num_heads,
         hidden_dim=hidden_dim, mlp_ratio=mlp_ratio, max_len=max_len,
         dtype=dtype, logits_dtype=logits_dtype, head_bias=head_bias,
-        attn_impl=attn_impl, generator=generator)
+        attn_impl=attn_impl, dropout_rate=dropout_rate, remat=remat,
+        generator=generator)

@@ -31,15 +31,25 @@ What it takes to match the Flax model:
   (:class:`_SyncBatchNorm`) all-reduces the two per-channel gradient sums. ``torch.nn.SyncBatchNorm`` is not used: it keeps the unbiased
   running variance and refuses CPU inputs. Without a group (or with
   ``sync_batchnorm=False``) the statistics are the rank's own.
+- **Remat** (``remat=True``): each residual block runs under
+  ``torch.utils.checkpoint`` (non-reentrant) in training, as Flax's
+  ``nn.remat`` per block. The recompute in the backward runs the block's
+  batch norms again; JAX's remat is functional, so its running statistics
+  tick once, and here too: in the recompute each :class:`BatchNorm`
+  normalises with the statistics its first forward computed, updates no
+  running statistic and, with a group, makes no second all-reduce.
+  (Flax's ``remat_policy="conv"`` is not ported: neither trainer sets it.)
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 # Flax's BatchNorm momentum: the weight of the OLD running value.
@@ -104,17 +114,22 @@ class _SyncBatchNorm(torch.autograd.Function):
     rank's dx is the gradient of the sum of every rank's loss, which the
     step's gradient mean turns into that of the global batch's mean loss.
     Returns ``(y, mean, var)``; the statistics are not differentiable.
+    ``stats``, the ``(mean, var)`` of an earlier forward on the same input
+    (a remat recompute), replaces the statistics pass and its all-reduce.
     """
 
     @staticmethod
-    def forward(ctx, x, weight, bias, group, eps):
-        dims = (0, 2, 3)
+    def forward(ctx, x, weight, bias, group, eps, stats=None):
         world = dist.get_world_size(group)
-        xf = x.float()
-        stats = torch.stack([xf.mean(dims), xf.square().mean(dims)])
-        dist.all_reduce(stats, group=group)
-        mean, mean2 = stats / world
-        var = (mean2 - mean.square()).clamp_min(0.0)
+        if stats is None:
+            dims = (0, 2, 3)
+            xf = x.float()
+            moments = torch.stack([xf.mean(dims), xf.square().mean(dims)])
+            dist.all_reduce(moments, group=group)
+            mean, mean2 = moments / world
+            var = (mean2 - mean.square()).clamp_min(0.0)
+        else:
+            mean, var = stats
         y = F.batch_norm(x, mean, var, weight, bias, False, 0.0, eps)
         ctx.save_for_backward(x, weight, mean, torch.rsqrt(var + eps))
         ctx.group, ctx.count = group, x.numel() // x.shape[1] * world
@@ -134,18 +149,22 @@ class _SyncBatchNorm(torch.autograd.Function):
         mean_dy, mean_dy_xmu = sums / ctx.count
         dx = (dyf - mean_dy.view(shape)
               - xmu * (invstd.square() * mean_dy_xmu).view(shape)) * (invstd * weight).view(shape)
-        return dx.to(x.dtype), grad_weight, grad_bias, None, None
+        return dx.to(x.dtype), grad_weight, grad_bias, None, None, None
 
 
 class BatchNorm(nn.Module):
     """BatchNorm over N, H, W with Flax's running-statistics rule; with a
-    process group (``group``), synchronised over its ranks in training."""
+    process group (``group``), synchronised over its ranks in training.
+    Under remat (:func:`remat_block`) the recompute reuses the first
+    forward's statistics (``_stats``) and ticks nothing."""
 
     def __init__(self, channels: int, zero_scale: bool = False,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.zero_scale, self.dtype = zero_scale, dtype
         self.group = None
+        self.recompute = False
+        self._stats = None
         self.weight = nn.Parameter(torch.empty(channels))
         self.bias = nn.Parameter(torch.empty(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
@@ -165,20 +184,58 @@ class BatchNorm(nn.Module):
                                 self.weight, self.bias, False, 0.0, BN_EPS)
         if self.group is not None:
             return self._sync_forward(x)
-        with torch.no_grad():
-            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), unbiased=False)
-            self.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1 - BN_MOMENTUM)
-            self.running_var.mul_(BN_MOMENTUM).add_(var, alpha=1 - BN_MOMENTUM)
+        if not self.recompute:
+            with torch.no_grad():
+                var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), unbiased=False)
+                self._tick(mean, var)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                             BN_EPS)
 
-    def _sync_forward(self, x: torch.Tensor) -> torch.Tensor:
-        """Statistics over every rank's batch (:class:`_SyncBatchNorm`)."""
-        y, mean, var = _SyncBatchNorm.apply(x, self.weight, self.bias, self.group, BN_EPS)
+    def _tick(self, mean: torch.Tensor, var: torch.Tensor) -> None:
         with torch.no_grad():
             self.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1 - BN_MOMENTUM)
             self.running_var.mul_(BN_MOMENTUM).add_(var, alpha=1 - BN_MOMENTUM)
+
+    def _sync_forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Statistics over every rank's batch (:class:`_SyncBatchNorm`)."""
+        if self.recompute:
+            y, _, _ = _SyncBatchNorm.apply(x, self.weight, self.bias, self.group,
+                                           BN_EPS, self._stats)
+            return y
+        y, mean, var = _SyncBatchNorm.apply(x, self.weight, self.bias, self.group, BN_EPS)
+        self._tick(mean, var)
+        self._stats = (mean, var)
         return y
+
+
+@contextlib.contextmanager
+def _recomputing(block: nn.Module):
+    """The block's batch norms in recompute mode while the body runs."""
+    norms = [m for m in block.modules() if isinstance(m, BatchNorm)]
+    for m in norms:
+        m.recompute = True
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.recompute = False
+            m._stats = None
+
+
+def remat_block(block: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``block(x)`` under a non-reentrant checkpoint whose recompute runs
+    the batch norms in recompute mode (see the module docstring)."""
+    calls = 0
+
+    def run(x):
+        nonlocal calls
+        calls += 1
+        if calls == 1:
+            return block(x)
+        with _recomputing(block):
+            return block(x)
+
+    return torch.utils.checkpoint.checkpoint(run, x, use_reentrant=False)
 
 
 class BasicBlock(nn.Module):
@@ -241,12 +298,12 @@ class ResNet(nn.Module):
 
     def __init__(self, stage_sizes, block_cls, num_classes: int = 10,
                  num_filters: int = 64, stem: str = "imagenet",
-                 dtype: torch.dtype = torch.float32,
+                 dtype: torch.dtype = torch.float32, remat: bool = False,
                  generator: torch.Generator | None = None):
         super().__init__()
         if stem not in ("imagenet", "cifar"):
             raise ValueError(f"unknown stem {stem!r}")
-        self.stem, self.dtype = stem, dtype
+        self.stem, self.dtype, self.remat = stem, dtype, remat
         # The Flax module's fields, which the FLOP count reads.
         self.stage_sizes, self.block_cls = tuple(stage_sizes), block_cls
         self.num_classes, self.num_filters = num_classes, num_filters
@@ -283,9 +340,10 @@ class ResNet(nn.Module):
         if self.stem == "imagenet":
             x, pad = _pad_same(x, 3, 2, value=-math.inf)
             x = F.max_pool2d(x, 3, 2, padding=pad)
+        remat = self.remat and self.training and torch.is_grad_enabled()
         for name, block in self.named_children():
             if name.startswith("stage"):
-                x = block(x)
+                x = remat_block(block, x) if remat else block(x)
         x = x.mean(dim=(2, 3))
         x = F.linear(x, self.Dense_0.weight.to(self.dtype),
                      self.Dense_0.bias.to(self.dtype))

@@ -17,9 +17,10 @@ and what bounds them):
   launched in turn by :func:`flash_bwd_split`.
 
 The kernels take float32, bfloat16 and float16 (the 16-bit types on the
-tensor cores) at head dims 32, 64, 128 and 256. Each wrapper zero-pads any
-other ``d`` up to the next of those (``d`` above 256 raises) and slices
-its outputs back: a zero column adds nothing to a score, to ``out`` or to
+tensor cores) at head dims 32, 64, 128 and 256, and at any multiple of 64
+above 256 (kernels that stream ``d`` in slabs of 64 columns). Each wrapper
+zero-pads any other ``d`` up to the next of those and slices its outputs
+back: a zero column adds nothing to a score, to ``out`` or to
 a gradient, and the scores keep the true ``d``'s scale
 (:func:`softmax_scale`), so the result is the unpadded one.
 
@@ -56,6 +57,8 @@ from distributed_training_tpu_torch.ops import cuda_build
 
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128, 256)
+# Above HEAD_DIMS[-1] the kernels take any multiple of this.
+WIDE_HEAD_DIM_STEP = 64
 # The kernels' dtype argument (csrc/flash_tiles.cuh, FLASH_DISPATCH).
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 LOG2E = 1.4426950408889634
@@ -190,13 +193,19 @@ def _all_cpu(tensors) -> bool:
 
 
 def padded_head_dim(d: int) -> int:
-    """The instantiated head dim a kernel runs ``d`` at: the least of
-    :data:`HEAD_DIMS` not below it; above 256 raises."""
+    """The head dim a kernel runs ``d`` at: the least of :data:`HEAD_DIMS`
+    not below it, or above 256 the least multiple of
+    :data:`WIDE_HEAD_DIM_STEP` not below it."""
+    if d < 1:
+        raise ValueError(f"flash attention: head dim must be at least 1, got {d}")
     for size in HEAD_DIMS:
         if d <= size:
             return size
-    raise ValueError(f"flash attention: the kernels take head dims up to "
-                     f"{HEAD_DIMS[-1]}, got {d}")
+    return -(-d // WIDE_HEAD_DIM_STEP) * WIDE_HEAD_DIM_STEP
+
+
+def _kernel_head_dim(d: int) -> bool:
+    return d in HEAD_DIMS or (d > HEAD_DIMS[-1] and d % WIDE_HEAD_DIM_STEP == 0)
 
 
 def _pad_d(x: torch.Tensor, size: int) -> torch.Tensor:
@@ -207,12 +216,14 @@ def _pad_d(x: torch.Tensor, size: int) -> torch.Tensor:
 def _check_for_kernel(name: str, tensors, floats=()) -> None:
     """Raise unless the kernel can take these tensors: ``tensors`` are
     ``[BH, T, d]`` of one float32, bfloat16 or float16 dtype with ``d`` in
-    :data:`HEAD_DIMS` (the wrappers pad to one), ``floats`` are float32
-    ``[BH, T]``; all contiguous, 16-byte aligned, on one CUDA device."""
+    :data:`HEAD_DIMS` or a multiple of 64 above them (the wrappers pad to
+    one), ``floats`` are float32 ``[BH, T]``; all contiguous, 16-byte
+    aligned, on one CUDA device."""
     ref = tensors[0]
-    if ref.dim() != 3 or ref.shape[-1] not in HEAD_DIMS:
+    if ref.dim() != 3 or not _kernel_head_dim(ref.shape[-1]):
         raise ValueError(f"{name}: the kernel takes [BH, T, d] with d in "
-                         f"{HEAD_DIMS}, got {tuple(ref.shape)}")
+                         f"{HEAD_DIMS} or a multiple of {WIDE_HEAD_DIM_STEP} "
+                         f"above them, got {tuple(ref.shape)}")
     if ref.dtype not in _DTYPE_CODES:
         raise ValueError(f"{name}: the kernel takes float32, bfloat16 or "
                          f"float16, got {ref.dtype}")

@@ -1,22 +1,45 @@
-"""The LM train and eval steps on one device.
+"""The LM train and eval steps, on one device or data-parallel over a
+process group with ZeRO stages 0–3.
 
-The port of the single-device body of
-``distributed_training_tpu/train/lm_step.py`` (``make_tp_lm_train_step``
-on a one-device mesh): forward, the fused cross-entropy, backward with
-gradient accumulation, the loss-scale hooks and the optimizer commit.
-Metrics stay on the device as 0-d tensors and carry the JAX step's keys
-(:func:`_lm_metrics`); the step makes no host read.
+The port of ``distributed_training_tpu/train/lm_step.py``'s GSPMD step at
+``model == 1`` (``make_tp_lm_train_step``, the "tensor/dp" strategy):
+forward, the cross-entropy, backward with gradient accumulation, the
+gradient exchange, the loss-scale hooks and the optimizer commit. Metrics
+stay on the device as 0-d tensors and carry the JAX step's keys
+(:func:`_lm_metrics`); the fp32 and bf16 steps make no host read.
 
-Not ported: chunked CE (``ce_chunk``), the saved-probabilities CE
-backward (``ce_save_probs``), MoE auxiliary losses (``aux_loss`` is
-always 0 here), and the sequence-, tensor- and pipeline-parallel steps.
+The cross-entropy takes one of three forms, as in the JAX package:
+
+- the fused CE (:func:`_fused_ce_rows`) over the whole ``[B, T, vocab]``
+  logits, the default;
+- the chunked CE (``ce_chunk``, :func:`chunked_ce_and_accuracy`): the head
+  runs on ``[B, C, D]`` slices of the hidden states, each slice's CE and
+  accuracy reduced to float32 scalars under a checkpoint, so neither pass
+  holds the whole logits (for long context and large vocabularies);
+- the saved-probabilities CE (``ce_save_probs``, :class:`_SavedProbsCE`):
+  the forward saves the bf16 softmax and the backward is ``(p − onehot)·g``
+  from it.
+
+Data parallelism (the state's ``zero``) is the image step's
+(``train/step.py``): each rank runs its equal slice of the global batch,
+the gradients are all-reduced (stages 0–1) or reduce-scattered (2–3) as a
+mean, the update runs on the rank's shard, and the metrics are averaged
+over the ranks, so the step equals the JAX GSPMD step on the global batch.
+Dropout masks come from a generator seeded by the run's seed, the step and
+the rank (the JAX step's ``fold_in`` of the shard index).
+
+Not ported: MoE auxiliary losses (``aux_loss`` is always 0 here) and the
+sequence-, tensor- and pipeline-parallel steps.
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import Callable
 
+import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from distributed_training_tpu_torch.train.precision import commit_gradients
 from distributed_training_tpu_torch.train.train_state import TrainState
@@ -62,20 +85,140 @@ def _fused_softmax_ce(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tens
     return _fused_ce_rows(logits, targets).mean()
 
 
-def _lm_loss_and_grads(state: TrainState, tokens, targets,
-                       accuracy_metric: bool = True):
+class _SavedProbsCE(torch.autograd.Function):
+    """CE rows whose backward reads saved bf16 probabilities (the JAX
+    ``_saved_probs_vjp``): the forward computes the rows and correctness as
+    :func:`_fused_ce_rows` does and saves ``p = softmax(logits)`` in bf16;
+    the backward is ``dlogits = (p − onehot)·g`` in float32, cast to the
+    logits' dtype. Only the gradient sees the bf16 rounding of ``p``."""
+
+    @staticmethod
+    def forward(ctx, logits, targets):
+        m = logits.amax(-1, keepdim=True).float()
+        ex = torch.exp(logits.float() - m)
+        s = ex.sum(-1)
+        lse = torch.log(s) + m[..., 0]
+        lab = logits.gather(-1, targets[..., None].long())[..., 0].float()
+        p = (ex / s[..., None]).to(torch.bfloat16)
+        ctx.save_for_backward(p, targets)
+        ctx.logits_dtype = logits.dtype
+        correct = (lab >= m[..., 0]).float()
+        ctx.mark_non_differentiable(correct)
+        return lse - lab, correct
+
+    @staticmethod
+    def backward(ctx, g_rows, _g_correct):
+        p, targets = ctx.saved_tensors
+        dlogits = p.float()
+        dlogits.scatter_add_(-1, targets[..., None].long(),
+                             torch.full(targets.shape + (1,), -1.0,
+                                        device=p.device))
+        return (dlogits * g_rows[..., None]).to(ctx.logits_dtype), None
+
+
+def _ce_rows_and_correct(logits, targets, accuracy_metric: bool,
+                         save_probs: bool):
+    """The fused CE (default) or the saved-probabilities CE; returns
+    ``(rows, correct-or-None)``."""
+    if save_probs:
+        rows, correct = _SavedProbsCE.apply(logits, targets)
+        return rows, (correct if accuracy_metric else None)
+    if accuracy_metric:
+        return _fused_ce_rows(logits, targets, with_correct=True)
+    return _fused_ce_rows(logits, targets), None
+
+
+def chunked_ce_and_accuracy(hidden: torch.Tensor, head, targets: torch.Tensor,
+                            chunk: int, accuracy_metric: bool = True,
+                            logits_dtype: torch.dtype = torch.float32):
+    """CE and token accuracy without the ``[B, T, vocab]`` logits.
+
+    ``hidden`` is ``[B, T, D]`` (the model's ``return_hidden`` output),
+    ``head`` the model's ``lm_head`` (``kernel`` ``[D, vocab]``, optional
+    ``bias``). Over ``T / chunk`` slices in order, the head runs on one
+    ``[B, chunk, D]`` slice in ``logits_dtype`` (its bias added in that
+    dtype), and the slice's CE and correct count are reduced to float32
+    sums under a checkpoint, so the backward recomputes the slice's
+    logits too; the sums are divided by ``B·T`` at the end, as the JAX
+    scan does. ``chunk`` must divide ``T``.
+    """
+    b, t, _ = hidden.shape
+    if t % chunk:
+        raise ValueError(f"ce_chunk {chunk} must divide sequence length {t}")
+    w = head.kernel.to(logits_dtype)
+    bias = head.bias.to(logits_dtype) if head.bias is not None else None
+
+    def body(hc, tc):
+        logits = hc.to(logits_dtype) @ w
+        if bias is not None:
+            logits = logits + bias
+        rows, correct = _ce_rows_and_correct(logits, tc, accuracy_metric,
+                                             save_probs=False)
+        acc = (correct.sum() if accuracy_metric
+               else torch.zeros((), dtype=torch.float32, device=hc.device))
+        return rows.sum(), acc
+
+    ce_sum = acc_sum = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c0 in range(0, t, chunk):
+        ce, acc = torch.utils.checkpoint.checkpoint(
+            body, hidden[:, c0:c0 + chunk], targets[:, c0:c0 + chunk],
+            use_reentrant=False)
+        ce_sum, acc_sum = ce_sum + ce, acc_sum + acc
+    denom = float(b * t)
+    return ce_sum / denom, (acc_sum / denom if accuracy_metric else None)
+
+
+def _check_ce_options(ce_chunk, ce_save_probs, logits_dtype=torch.float32):
+    """The JAX package's rule: the chunked CE recomputes each chunk's
+    logits, which would discard saved probabilities, so the two levers
+    are refused together; saved probabilities under bf16 logits work but
+    were measured slower there, so that pair warns."""
+    if ce_chunk and ce_save_probs:
+        raise ValueError(
+            "ce_save_probs does not compose with ce_chunk (the chunked CE "
+            "rematerializes each chunk's logits, discarding saved probs) — "
+            "use ce_chunk for long-context memory or ce_save_probs for "
+            "fp32-logits throughput, not both")
+    if ce_save_probs and logits_dtype == torch.bfloat16:
+        warnings.warn(
+            "ce_save_probs under bf16 logits is a measured throughput "
+            "LOSS (123.7k vs 125.2k tok/s at GPT-2-small B16 T1024; "
+            "BASELINE.md round 5) — its win is fp32 logits only",
+            stacklevel=3)
+
+
+def dropout_generator(model: torch.nn.Module, seed: int, step: int, rank: int,
+                      device: torch.device) -> torch.Generator | None:
+    """The step's dropout generator: seeded by ``(seed, step, rank)``, so
+    each rank and step draws its own masks; None without dropout."""
+    if not getattr(model, "dropout_rate", 0.0):
+        return None
+    key = int(np.random.SeedSequence([seed, step, rank]).generate_state(1, np.uint64)[0])
+    return torch.Generator(device=device).manual_seed(key % 2**63)
+
+
+def _lm_loss_and_grads(model: torch.nn.Module, loss_scale, tokens, targets,
+                       generator=None, ce_chunk: int | None = None,
+                       accuracy_metric: bool = True,
+                       logits_dtype: torch.dtype = torch.float32,
+                       ce_save_probs: bool = False):
     """Forward, CE and backward of one (micro)batch. The gradient of the
     scaled loss is added into the parameters' ``.grad``. Returns ``(ce,
     aux, accuracy)`` as 0-d tensors (``accuracy`` None when off)."""
-    logits = state.model(tokens)
-    if accuracy_metric:
-        rows, correct = _fused_ce_rows(logits, targets, with_correct=True)
+    if ce_chunk:
+        hidden = model(tokens, generator=generator, return_hidden=True)
+        ce, accuracy = chunked_ce_and_accuracy(
+            hidden, model.lm_head, targets, ce_chunk,
+            accuracy_metric=accuracy_metric, logits_dtype=logits_dtype)
     else:
-        rows, correct = _fused_ce_rows(logits, targets), None
-    ce = rows.mean()
+        rows, correct = _ce_rows_and_correct(
+            model(tokens, generator=generator), targets, accuracy_metric,
+            ce_save_probs)
+        ce = rows.mean()
+        accuracy = correct.mean() if accuracy_metric else None
     aux = torch.zeros((), dtype=torch.float32, device=ce.device)  # dense FFN
-    state.loss_scale.scale_loss(ce + aux).backward()
-    return ce.detach(), aux, (correct.mean() if accuracy_metric else None)
+    loss_scale.scale_loss(ce + aux).backward()
+    return ce.detach(), aux, (accuracy.detach() if accuracy_metric else None)
 
 
 def _lm_metrics(state: TrainState, ce, aux, accuracy, finite: bool) -> dict:
@@ -95,20 +238,31 @@ def _lm_metrics(state: TrainState, ce, aux, accuracy, finite: bool) -> dict:
     return out
 
 
-def make_lm_train_step(*, grad_accum_steps: int = 1,
+def make_lm_train_step(*, zero_stage: int = 0, grad_accum_steps: int = 1,
                        accuracy_metric: bool = True,
-                       max_len: int | None = None) -> Callable:
+                       max_len: int | None = None,
+                       ce_chunk: int | None = None, ce_save_probs: bool = False,
+                       logits_dtype: torch.dtype = torch.float32,
+                       seed: int = 0) -> Callable:
     """Build ``step(state, batch) -> metrics`` for batches
-    ``{'tokens', 'targets'}`` of ``[B, T]`` integers.
+    ``{'tokens', 'targets'}`` of ``[B, T]`` integers (the rank's slice).
 
-    ``grad_accum_steps > 1``: the batch is the effective batch, cut into
-    that many contiguous microbatches; their gradients are summed, then
-    averaged, and one optimizer update follows.
+    ``zero_stage`` must be the stage of ``state.zero`` (a mismatch
+    raises). ``grad_accum_steps > 1``: the batch is the rank's effective
+    batch, cut into that many contiguous microbatches; their gradients are
+    summed, then averaged, and one optimizer update follows. ``ce_chunk``
+    and ``ce_save_probs`` select the CE (see the module docstring;
+    together they raise).
     """
     if grad_accum_steps < 1:
         raise ValueError(f"grad_accum_steps must be >= 1, got {grad_accum_steps}")
+    _check_ce_options(ce_chunk, ce_save_probs, logits_dtype)
 
     def step(state: TrainState, batch: dict) -> dict:
+        zero = state.zero
+        if zero.stage != zero_stage:
+            raise ValueError(f"the step was built for zero stage {zero_stage}, "
+                             f"the state is partitioned for {zero.stage}")
         tokens, targets = batch["tokens"], batch["targets"]
         if max_len is not None and tokens.shape[1] > max_len:
             raise ValueError(f"global sequence length {tokens.shape[1]} exceeds "
@@ -118,35 +272,57 @@ def make_lm_train_step(*, grad_accum_steps: int = 1,
                              f"gradient_accumulation_steps={grad_accum_steps}")
         model = state.model
         model.train()
+        state.gather_params()
         for p in model.parameters():
             p.grad = None
+        gen = dropout_generator(model, seed, state.step, zero.rank, tokens.device)
         ces, auxs, accs = [], [], []
         for tk, tg in zip(tokens.chunk(grad_accum_steps),
                           targets.chunk(grad_accum_steps)):
-            ce, aux, acc = _lm_loss_and_grads(state, tk, tg, accuracy_metric)
+            ce, aux, acc = _lm_loss_and_grads(
+                model, state.loss_scale, tk, tg, gen, ce_chunk,
+                accuracy_metric, logits_dtype, ce_save_probs)
             ces.append(ce)
             auxs.append(aux)
             accs.append(acc)
-        grads = {n: p.grad for n, p in model.named_parameters()}
-        if grad_accum_steps > 1:
-            grads = {n: g / grad_accum_steps for n, g in grads.items()}
-        grads = state.loss_scale.unscale_grads(grads)
-        finite = commit_gradients(state, grads)
+        names = [n for n, _ in model.named_parameters()]
+        grads = [p.grad for p in model.parameters()]
         for p in model.parameters():
             p.grad = None
-        return _lm_metrics(
-            state, torch.stack(ces).mean(), torch.stack(auxs).mean(),
-            torch.stack(accs).mean() if accuracy_metric else None, finite)
+        if grad_accum_steps > 1:
+            grads = [g / grad_accum_steps for g in grads]
+        if zero.partitions_grads:
+            grads = zero.reduce_scatter_mean(grads)
+            state.release_params()
+        else:
+            grads = zero.all_reduce_mean(grads)
+            if zero.partitions_optimizer:
+                grads = [zero.shard(g) for g in grads]
+        grads = state.loss_scale.unscale_grads(dict(zip(names, grads)))
+        finite = commit_gradients(state, grads)
+        local = [torch.stack(ces).mean(), torch.stack(auxs).mean()]
+        if accuracy_metric:
+            local.append(torch.stack(accs).mean())
+        ce, aux, *acc = zero.all_reduce_mean(local)
+        return _lm_metrics(state, ce, aux, acc[0] if acc else None, finite)
 
     return step
 
 
-def make_lm_eval_fn() -> Callable:
-    """Build ``eval_loss(model, batch) -> mean token CE`` (a 0-d tensor)."""
+def make_lm_eval_fn(ce_chunk: int | None = None,
+                    logits_dtype: torch.dtype = torch.float32) -> Callable:
+    """Build ``eval_loss(model, batch) -> mean token CE`` (a 0-d tensor of
+    the rank's slice), through the chunked CE when ``ce_chunk`` is set, as
+    the JAX trainer's eval does."""
 
     @torch.no_grad()
     def eval_loss(model: torch.nn.Module, batch: dict) -> torch.Tensor:
         model.eval()
+        if ce_chunk:
+            hidden = model(batch["tokens"], return_hidden=True)
+            return chunked_ce_and_accuracy(hidden, model.lm_head, batch["targets"],
+                                           ce_chunk, accuracy_metric=False,
+                                           logits_dtype=logits_dtype)[0]
         return _fused_softmax_ce(model(batch["tokens"]), batch["targets"])
 
     return eval_loss

@@ -12,17 +12,40 @@ the process group from the launcher's environment
 joins the one already open, and takes from it the world size, the rank's
 slice of every batch and, on the card, its device (``cuda:LOCAL_RANK``).
 Without a group it runs alone, at world 1. Rank 0 alone prints and writes
-checkpoints. Checkpoints are written synchronously (a save is durable when
-it returns, as an awaited async save of the JAX trainer is); the port
-installs no SIGTERM handler, so a preempted process simply ends and
-``auto_resume`` picks up its newest committed save. Fields of the config
-whose behaviour is not ported yet raise ``NotImplementedError`` when set
-away from their defaults.
+checkpoints.
+
+What both trainers share (:class:`Engine`), as the JAX trainers' ``_fit``
+wires it:
+
+- a SIGTERM guard (``runtime/preemption.py``): the step loop breaks at
+  the signal (under a group, at the next log-interval flush, where the
+  ranks agree on the flag), and with ``checkpoint.save_on_preemption`` a
+  synchronous save records where in its epoch training stopped, so an
+  ``auto_resume`` run trains no batch twice; ``fit()`` then returns
+  ``preempted=True``;
+- ``checkpoint.async_save``: saves go through the background writer
+  (``resilience/async_ckpt.py``), which the run drains before ``fit()``
+  returns;
+- the metric sinks (``tensorboard_dir``, ``metrics_jsonl``;
+  ``utils/metrics_io.py``), written at each log-interval flush and after
+  each eval;
+- ``wall_clock_breakdown`` (``utils/profiling.py``'s ``WallClock``:
+  data, step, log, eval and ckpt, printed per epoch) and ``profile_dir``
+  (a ``torch.profiler`` trace of the run);
+- ``remat``, passed to the model.
+
+The image Trainer adds precise-BN (``eval_precise_bn_batches``): before
+an eval that reads the live BatchNorm statistics, they are re-estimated
+from that many training batches with the current weights, as the mean of
+the batches' own statistics. Fields of the config whose behaviour is not
+ported yet raise ``NotImplementedError`` when set away from their
+defaults.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 
 import torch
 
@@ -38,18 +61,30 @@ from distributed_training_tpu_torch.data.pipeline import (
     to_device,
 )
 from distributed_training_tpu_torch.models import get_model
-from distributed_training_tpu_torch.models.resnet import BatchNorm, set_batchnorm_group
+from distributed_training_tpu_torch.models.resnet import (
+    BN_MOMENTUM,
+    BatchNorm,
+    set_batchnorm_group,
+)
 from distributed_training_tpu_torch.parallel.zero import Zero
+from distributed_training_tpu_torch.resilience.async_ckpt import AsyncCheckpointWriter
 from distributed_training_tpu_torch.runtime.coordinator import Coordinator
 from distributed_training_tpu_torch.runtime.distributed import (
     initialize_distributed,
     local_device,
 )
+from distributed_training_tpu_torch.runtime.preemption import PreemptionGuard
 from distributed_training_tpu_torch.train.optim import make_optimizer
 from distributed_training_tpu_torch.train.precision import LossScaleState, Policy
-from distributed_training_tpu_torch.train.step import make_eval_step, make_train_step
+from distributed_training_tpu_torch.train.step import (
+    _input_images,
+    make_eval_step,
+    make_train_step,
+)
 from distributed_training_tpu_torch.train.train_state import TrainState, param_count
 from distributed_training_tpu_torch.utils.device import set_fp32_math
+from distributed_training_tpu_torch.utils.metrics_io import MetricsWriter
+from distributed_training_tpu_torch.utils.profiling import WallClock, trace
 
 
 def unported_fields(cfg: TrainConfig) -> dict[str, bool]:
@@ -59,27 +94,9 @@ def unported_fields(cfg: TrainConfig) -> dict[str, bool]:
         "mesh axes other than data": any(
             getattr(mesh, a) != 1
             for a in ("fsdp", "model", "expert", "sequence", "pipe")),
-        "remat": cfg.remat,
         "tp_overlap": cfg.tp_overlap,
-        "eval_precise_bn_batches": cfg.eval_precise_bn_batches,
-        "wall_clock_breakdown": cfg.wall_clock_breakdown,
-        "profile_dir": cfg.profile_dir,
-        "tensorboard_dir": cfg.tensorboard_dir,
-        "metrics_jsonl": cfg.metrics_jsonl,
         "data.decoded_cache": cfg.data.decoded_cache,
         "moe.enabled": cfg.moe.enabled,
-    }
-
-
-def data_parallel_fields(cfg: TrainConfig) -> dict[str, bool]:
-    """What data parallelism the image Trainer has and the LM trainer
-    still lacks, each with whether ``cfg`` or the process group asks for
-    it."""
-    return {
-        "zero.stage": cfg.zero.stage,
-        "zero.cpu_offload": cfg.zero.cpu_offload,
-        "mesh.data beyond one device": cfg.mesh.data not in (-1, 1),
-        "a process group of more than one rank": Coordinator().process_count > 1,
     }
 
 
@@ -101,6 +118,11 @@ class MetricMeter:
         self.last: dict[str, float] = {}
         self.history: list[dict[str, float]] = []
 
+    @property
+    def pending(self) -> bool:
+        """Whether steps were pushed since the last read."""
+        return bool(self._pending)
+
     def push(self, step: int, metrics: dict) -> bool:
         self._pending.append((step, metrics))
         if len(self._pending) >= self.log_interval:
@@ -119,9 +141,150 @@ class MetricMeter:
         return self.last
 
 
-class Trainer:
+class Engine:
+    """The run machinery both trainers share (see the module docstring).
+    A subclass sets ``cfg``, ``coord``, ``device``, ``state``, ``meter``,
+    ``train_step`` and calls :meth:`_init_run`; it provides
+    ``place(batch)`` and the print tags ``tag`` and ``epoch_tag``."""
+
+    def _init_run(self) -> None:
+        cfg = self.cfg
+        self.clock = WallClock(cfg.wall_clock_breakdown, device=self.device)
+        self.metrics_writer = MetricsWriter(cfg.tensorboard_dir, cfg.metrics_jsonl,
+                                            enabled=self.coord.is_master())
+        self._ckpt_writer = (AsyncCheckpointWriter(printer=self.coord.print)
+                             if cfg.checkpoint.async_save else None)
+        self._guard: PreemptionGuard | None = None
+        self._global_step = 0
+        self._epoch_step = 0
+
+    # -- checkpoints ----------------------------------------------------------
+    def _save_ckpt(self, epoch: int, *, sync: bool = False, **kw) -> None:
+        """One save through the configured path: the background writer
+        (snapshot now, persist later; ``sync=True`` durable before return,
+        the preemption contract) or a synchronous save."""
+        d = self.cfg.checkpoint.directory
+        if self._ckpt_writer is not None:
+            self._ckpt_writer.save(d, epoch, self.state, sync=sync, **kw)
+        else:
+            ckpt_lib.save_checkpoint(d, epoch, self.state, **kw)
+
+    def _prune_ckpts(self) -> None:
+        """Retention sweep (rank 0), after any save in flight."""
+        if not self.coord.is_master():
+            return
+        d, keep = self.cfg.checkpoint.directory, self.cfg.checkpoint.keep
+        if self._ckpt_writer is not None:
+            self._ckpt_writer.prune(d, keep)
+        else:
+            ckpt_lib.prune_checkpoints(d, keep)
+
+    # -- train ----------------------------------------------------------------
+    def train_epoch(self, epoch: int, loader, skip_steps: int = 0) -> dict:
+        """One epoch; ``skip_steps`` drops that many leading batches of the
+        epoch's deterministic shuffle (step-accurate resume). Breaks early
+        when the preemption guard says so."""
+        loader.set_epoch(epoch)
+        if skip_steps:
+            self.coord.print(f"[{self.tag}] resuming epoch {epoch} at step {skip_steps}")
+            loader = SkipBatches(loader, skip_steps)
+        self._epoch_step = skip_steps
+        batches = iter(loader)
+        while True:
+            with self.clock.phase("data"):
+                batch = next(batches, None)
+                if batch is None:
+                    break
+                batch = self.place(batch)
+            with self.clock.phase("step"):
+                metrics = self.train_step(self.state, batch)
+            with self.clock.phase("log"):
+                self._global_step += 1
+                self._epoch_step += 1
+                fetched = self.meter.push(self._global_step, metrics)
+                if fetched:
+                    self.metrics_writer.write(self.meter.last["step"], self.meter.last)
+            if self._guard is not None and self._guard.should_stop(at_sync_point=fetched):
+                break
+        if self.meter.pending:
+            flushed = self.meter.flush()
+            self.metrics_writer.write(flushed["step"], flushed)
+        self.coord.print(f"[{self.epoch_tag}] epoch {epoch + 1}: "
+                         + " ".join(f"{k}={v:.4g}" for k, v in self.meter.last.items()))
+        if self.cfg.wall_clock_breakdown:
+            self.coord.print(f"[wall_clock] {self.clock.report()}")
+        return self.meter.last
+
+    # -- full run -------------------------------------------------------------
+    def fit(self) -> dict:
+        try:
+            return self._fit()
+        finally:
+            if self._ckpt_writer is not None:
+                # A background failure was counted and printed; it must not
+                # mask this run's outcome or exception.
+                self._ckpt_writer.close(raise_on_error=False)
+            self.metrics_writer.close()
+
+    def _run_epochs(self, train_loader, evaluate) -> tuple:
+        """Resume, then the epochs of train, eval (``evaluate(epoch)``, every
+        ``eval_every`` epochs) and saves, under the preemption guard and
+        the profiler trace. Returns ``(last eval, the epoch it followed,
+        preempted)``."""
+        cfg = self.cfg
+        start_epoch = start_step = 0
+        resume = ckpt_lib.resolve_resume(cfg.checkpoint,
+                                         quarantine=self.coord.is_master())
+        if resume >= 0:
+            start_epoch, start_step = ckpt_lib.restore_checkpoint(
+                cfg.checkpoint.directory, resume, self.state)
+            # The metric sinks continue the restored step axis.
+            self._global_step = self.state.step
+            self.coord.print(f"[{self.tag}] resumed at epoch {start_epoch}"
+                             + (f" step {start_step}" if start_step else ""))
+        result, result_epoch, preempted = None, -1, False
+        with trace(cfg.profile_dir), PreemptionGuard() as guard:
+            self._guard = guard
+            for epoch in range(start_epoch, cfg.num_epochs):
+                self.train_epoch(epoch, train_loader,
+                                 skip_steps=start_step if epoch == start_epoch else 0)
+                if guard.should_stop():
+                    # Preempted mid-epoch: the save resumes this epoch after
+                    # the batches it trained. A signal in the epoch's last
+                    # log interval lets the epoch complete; that save rolls
+                    # over to the next epoch.
+                    preempted = True
+                    if cfg.checkpoint.save_on_preemption:
+                        done = self._epoch_step >= len(train_loader)
+                        next_ep = epoch + 1 if done else epoch
+                        estep = 0 if done else self._epoch_step
+                        with self.clock.phase("ckpt"):
+                            self._save_ckpt(epoch, sync=True, next_epoch=next_ep,
+                                            epoch_step=estep)
+                        self.coord.print(
+                            f"[{self.tag}] SIGTERM: saved preemption checkpoint "
+                            f"(resumes at epoch {next_ep} step {estep})")
+                    break
+                if cfg.eval_every and (epoch + 1) % cfg.eval_every == 0:
+                    with self.clock.phase("eval"):
+                        result = evaluate(epoch)
+                    result_epoch = epoch + 1
+                if cfg.checkpoint.interval and (epoch + 1) % cfg.checkpoint.interval == 0:
+                    with self.clock.phase("ckpt"):
+                        self._save_ckpt(epoch)
+                        self._prune_ckpts()
+        self._guard = None
+        if self._ckpt_writer is not None:
+            # The run's saves are durable before fit() reports done.
+            self._ckpt_writer.wait(raise_on_error=False)
+        return result, result_epoch, preempted
+
+
+class Trainer(Engine):
     """End-to-end training engine, data-parallel over the default process
     group when one is open (see the module docstring)."""
+
+    tag, epoch_tag = "trainer", "train"
 
     def __init__(self, cfg: TrainConfig, device: str | torch.device | None = None):
         refuse_unported(unported_fields(cfg))
@@ -134,7 +297,8 @@ class Trainer:
         policy = Policy.from_config(cfg.precision)
         gen = torch.Generator().manual_seed(cfg.seed)
         model = get_model(cfg.model, num_classes=cfg.data.num_classes,
-                          dtype=policy.compute_dtype, generator=gen)
+                          dtype=policy.compute_dtype, remat=cfg.remat,
+                          generator=gen)
         self.model = model.to(self.device)
         has_bn = any(isinstance(m, BatchNorm) for m in self.model.modules())
         local_bn = not cfg.sync_batchnorm and has_bn
@@ -154,8 +318,9 @@ class Trainer:
             Zero(cfg.zero.stage, group, cfg.zero.cpu_offload))
         self.train_gbs, self.eval_gbs, self.grad_accum = effective_batch_sizes(
             cfg, self.world_size, allow_derive=True)
-        input_affine = ((2.0 / 255.0, -1.0) if cfg.data.augment == "normalize_only"
-                        else (1.0 / 255.0, 0.0))
+        self.input_affine = input_affine = (
+            (2.0 / 255.0, -1.0) if cfg.data.augment == "normalize_only"
+            else (1.0 / 255.0, 0.0))
         self.train_step = make_train_step(
             zero_stage=cfg.zero.stage, grad_accum_steps=self.grad_accum,
             label_smoothing=cfg.label_smoothing, input_affine=input_affine,
@@ -163,7 +328,7 @@ class Trainer:
         self.eval_step = make_eval_step(input_affine=input_affine)
         self.meter = MetricMeter(cfg.log_interval)
         self.last_eval: dict[str, float] = {}
-        self._global_step = 0
+        self._init_run()
         self.coord.print(
             f"[trainer] model={cfg.model} params={n_params:,} "
             f"device={self.device} plugin={cfg.plugin} "
@@ -182,71 +347,77 @@ class Trainer:
                                  process_index=self.coord.process_index,
                                  process_count=self.coord.process_count)
 
-    def train_epoch(self, epoch: int, loader, skip_steps: int = 0) -> dict:
-        """One epoch; ``skip_steps`` drops that many leading batches of the
-        epoch's deterministic shuffle (step-accurate resume)."""
-        loader.set_epoch(epoch)
-        if skip_steps:
-            self.coord.print(f"[trainer] resuming epoch {epoch} at step {skip_steps}")
-            loader = SkipBatches(loader, skip_steps)
-        for batch in loader:
-            metrics = self.train_step(self.state, to_device(batch, self.device))
-            self._global_step += 1
-            self.meter.push(self._global_step, metrics)
-        self.meter.flush()
-        self.coord.print(f"[train] epoch {epoch + 1}: "
-                         + " ".join(f"{k}={v:.4g}" for k, v in self.meter.last.items()))
-        return self.meter.last
-
     def uses_ema(self) -> bool:
         """Eval reads the EMA of the parameters and of the BatchNorm
         statistics (``optimizer.ema_decay`` with ``eval_with_ema``)."""
         return self.cfg.optimizer.ema_decay is not None and self.cfg.eval_with_ema
 
-    def evaluate(self, loader) -> float:
+    def place(self, batch: dict) -> dict:
+        return to_device(batch, self.device)
+
+    @torch.no_grad()
+    def refresh_batch_stats(self, train_loader, num_batches: int) -> None:
+        """Precise-BN (the JAX ``_refresh_batch_stats``): the running
+        statistics re-estimated with the current parameters as the mean of
+        the first ``num_batches`` training batches' own statistics. Each
+        batch's train-mode forward ticks the statistics once from zero,
+        giving ``(1 − momentum) · stat``, which is divided back out as the
+        JAX trainer does; the optimizer is not involved. Every rank runs
+        its slice; SyncBN makes the statistics global."""
+        model, stats = self.model, self.state.stats()
+        acc, n = None, 0
+        self.state.gather_params()
+        model.train()
+        for batch in itertools.islice(iter(train_loader), num_batches):
+            for b in stats.values():
+                b.zero_()
+            model(_input_images(self.place(batch), self.input_affine))
+            ticked = {k: b / (1.0 - BN_MOMENTUM) for k, b in stats.items()}
+            acc = ticked if acc is None else {k: acc[k] + v for k, v in ticked.items()}
+            n += 1
+        self.state.release_params()
+        if n:
+            for k, b in stats.items():
+                b.copy_(acc[k] / n)
+
+    def evaluate(self, loader, train_loader=None) -> float:
         """Top-1 accuracy over every rank's slice of the eval set (the step
         sums its counts over the ranks), with the EMA weights when
-        :meth:`uses_ema`; top-5 is kept on ``self.last_eval``."""
+        :meth:`uses_ema`; top-5 is kept on ``self.last_eval``. With
+        ``eval_precise_bn_batches`` and a ``train_loader``, the BatchNorm
+        statistics are refreshed first when eval reads the live ones."""
+        k = self.cfg.eval_precise_bn_batches
+        if k and train_loader is not None and not self.uses_ema() and self.state.stats():
+            self.refresh_batch_stats(train_loader, k)
         sums = torch.zeros(3, device=self.device)
         with (self.state.ema_weights() if self.uses_ema()
               else contextlib.nullcontext()):
             for batch in loader:
-                c, c5, t = self.eval_step(self.state, to_device(batch, self.device))
+                c, c5, t = self.eval_step(self.state, self.place(batch))
                 sums += torch.stack([c, c5, t])
             self.state.release_params()
         correct, correct5, total = sums.tolist()
         self.last_eval = {"top1": correct / max(total, 1.0),
                           "top5": correct5 / max(total, 1.0)}
+        self.metrics_writer.write(self._global_step, self.last_eval, prefix="eval")
         return self.last_eval["top1"]
 
-    def fit(self) -> dict:
+    def _fit(self) -> dict:
         cfg = self.cfg
         train_loader, eval_loader = self.make_loaders()
-        start_epoch = start_step = 0
-        resume = ckpt_lib.resolve_resume(cfg.checkpoint,
-                                         quarantine=self.coord.is_master())
-        if resume >= 0:
-            start_epoch, start_step = ckpt_lib.restore_checkpoint(
-                cfg.checkpoint.directory, resume, self.state)
-            self._global_step = self.state.step
-            self.coord.print(f"[trainer] resumed at epoch {start_epoch}")
-        final_acc = None
-        last_eval_epoch = -1
-        for epoch in range(start_epoch, cfg.num_epochs):
-            self.train_epoch(epoch, train_loader,
-                             skip_steps=start_step if epoch == start_epoch else 0)
-            if cfg.eval_every and (epoch + 1) % cfg.eval_every == 0:
-                final_acc = self.evaluate(eval_loader)
-                last_eval_epoch = epoch + 1
-                self.coord.print(f"[eval] epoch {epoch + 1}: top-1 {final_acc:.4f}")
-            if cfg.checkpoint.interval and (epoch + 1) % cfg.checkpoint.interval == 0:
-                ckpt_lib.save_checkpoint(cfg.checkpoint.directory, epoch, self.state)
-                if self.coord.is_master():
-                    ckpt_lib.prune_checkpoints(cfg.checkpoint.directory,
-                                               cfg.checkpoint.keep)
+
+        def evaluate(epoch: int) -> float:
+            acc = self.evaluate(eval_loader, train_loader)
+            self.coord.print(f"[eval] epoch {epoch + 1}: top-1 {acc:.4f}")
+            return acc
+
+        final_acc, last_eval_epoch, preempted = self._run_epochs(train_loader, evaluate)
+        if preempted:
+            return {"final_acc": None, "preempted": True,
+                    "last_metrics": self.meter.last, "steps": self.state.step}
         if cfg.target_acc is not None:
             if final_acc is None or last_eval_epoch != cfg.num_epochs:
-                final_acc = self.evaluate(eval_loader)
+                final_acc = self.evaluate(eval_loader, train_loader)
             if final_acc < cfg.target_acc:
                 raise RuntimeError(
                     f"target accuracy {cfg.target_acc} not reached "

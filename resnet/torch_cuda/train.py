@@ -10,14 +10,16 @@ this script imports nothing of the JAX package):
 - ``-r``, ``-c``, ``-i``, ``--target_acc``, ``--auto-resume``, the
   optimizer flags (``--optimizer`` adam, adamw, sgd, lamb, hybrid_adam;
   ``--lr``, ``--momentum``, ``--nesterov``, ``--weight-decay``,
-  ``--weight-decay-mask``), ``--ema-decay`` and ``--dtype`` fp32, bf16,
-  fp16 all work;
+  ``--weight-decay-mask``), ``--ema-decay``, ``--dtype`` fp32, bf16,
+  fp16, ``--remat``, ``--precise-bn-batches``, ``--wall-clock-breakdown``,
+  ``--profile-dir``, ``--tensorboard-dir`` and ``--metrics-jsonl`` all
+  work; SIGTERM saves a step-accurate checkpoint that ``--auto-resume``
+  picks up;
 - the flags of what the port lacks (MoE, chaos, the flight recorder and
-  the other observability instruments, traces, TensorBoard and JSONL
-  sinks, the profiler, the wall-clock breakdown, imagefolder, the decoded
-  cache, remat, precise-BN) raise ``NotImplementedError`` naming
-  ROADMAP.md; none is silently ignored. ``--flight-recorder`` therefore
-  defaults to off, where the JAX CLI's is on.
+  the other observability instruments, span traces, imagefolder, the
+  decoded cache) raise ``NotImplementedError`` naming ROADMAP.md; none is
+  silently ignored. ``--flight-recorder`` therefore defaults to off, where
+  the JAX CLI's is on.
 
 It runs on the card (``cuda:LOCAL_RANK`` under a launcher such as
 ``torchrun``, which sets the process group's environment) unless
@@ -291,9 +293,7 @@ def unported_flags(args: argparse.Namespace) -> list[str]:
     moe = ("moe", "ep_world_size", "num_experts", "mlp_type", "top_k",
            "min_capacity", "noisy_gate_policy", "moe_param_group")
     chaos = tuple(k for k in vars(defaults) if k.startswith("chaos_"))
-    others = ("remat", "precise_bn_batches", "decoded_cache", "wall_clock_breakdown",
-              "profile_dir", "tensorboard_dir", "metrics_jsonl")
-    bad = [f"--{k.replace('_', '-')}" for k in (*moe, *chaos, *observability, *others)
+    bad = [f"--{k.replace('_', '-')}" for k in (*moe, *chaos, *observability, "decoded_cache")
            if getattr(args, k) != getattr(defaults, k)]
     if args.dataset == "imagefolder":
         bad.append("--dataset imagefolder")
@@ -333,6 +333,13 @@ def build_config(args: argparse.Namespace):
         seed=args.seed,
         log_interval=args.log_interval,
         target_acc=args.target_acc,
+        # --remat opts in; it never clears a remat the ds_config set.
+        remat=args.remat or cfg.remat,
+        eval_precise_bn_batches=args.precise_bn_batches,
+        wall_clock_breakdown=args.wall_clock_breakdown,
+        profile_dir=args.profile_dir,
+        tensorboard_dir=args.tensorboard_dir,
+        metrics_jsonl=args.metrics_jsonl,
         checkpoint=CheckpointConfig(directory=args.checkpoint, interval=args.interval,
                                     resume=args.resume, auto_resume=args.auto_resume),
         data=DataConfig(

@@ -14,6 +14,7 @@
 import contextlib
 import dataclasses
 import importlib.util
+import json
 import os
 
 import pytest
@@ -94,8 +95,31 @@ def test_invalid_ds_config_raises_in_both(bad):
 @pytest.mark.parametrize("lacking", [{"activation_checkpointing": {"enabled": True}},
                                      {"wall_clock_breakdown": True}])
 def test_ds_config_asking_for_what_the_port_lacks_raises(lacking):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcfg.from_ds_config({**JAX_CLI.default_ds_config("fp32", 0, 96), **lacking})
+    """Named for the refusal it checked until remat and the wall-clock
+    breakdown were ported: both now map as in the JAX package."""
+    ds = {**JAX_CLI.default_ds_config("fp32", 0, 96), **lacking}
+    want, got = jcfg.from_ds_config(ds), tcfg.from_ds_config(ds)
+    _same(want, got)
+    assert got.remat or got.wall_clock_breakdown
+
+
+@pytest.mark.parametrize("ac", [
+    {"enabled": False, "partition_activations": True}, {"number_checkpoints": 4},
+    {"cpu_checkpointing": False, "profile": True}, True, False,
+], ids=["enabled_false_wins", "number_checkpoints", "no_opt_in", "bool_true", "bool_false"])
+def test_activation_checkpointing_maps_as_in_jax(ac):
+    """The opt-in rule of ``activation_checkpointing`` (the ``enabled``
+    key wins both ways; a truthy functional sub-knob opts in; a block with
+    none warns and leaves remat off), against the JAX ``from_ds_config``."""
+    ds = {**JAX_CLI.default_ds_config("fp32", 0, 96), "activation_checkpointing": ac}
+    warns = lambda: (pytest.warns(UserWarning, match="remat stays OFF")  # noqa: E731
+                     if ac == {"cpu_checkpointing": False, "profile": True}
+                     else contextlib.nullcontext())
+    with warns():
+        want = jcfg.from_ds_config(ds)
+    with warns():
+        got = tcfg.from_ds_config(ds)
+    _same(want, got)
 
 
 def _jax_args(argv):
@@ -124,7 +148,10 @@ def test_cli_flags_are_the_jax_clis():
     ["--optimizer", "lamb", "--dataset", "synthetic_imagenet", "--model", "resnet50",
      "-b", "32", "-e", "2", "--steps-per-epoch", "10", "--label-smoothing", "0.1",
      "--gradient-accumulation-steps", "2", "--auto-resume", "--seed", "3"],
-], ids=["defaults", "deepspeed_bf16_s2", "resume_target", "sgd_ema", "lamb_imagenet"])
+    ["--remat", "--precise-bn-batches", "2", "--wall-clock-breakdown", "--profile-dir", "p",
+     "--tensorboard-dir", "tb", "--metrics-jsonl", "m.jsonl"],
+], ids=["defaults", "deepspeed_bf16_s2", "resume_target", "sgd_ema", "lamb_imagenet",
+        "trainer_features"])
 def test_cli_builds_the_jax_clis_config(argv):
     want = JAX_CLI.build_config(_jax_args(argv))
     got = PORT_CLI.build_config(PORT_CLI.build_parser().parse_args(argv))
@@ -135,9 +162,7 @@ def test_cli_builds_the_jax_clis_config(argv):
     ["--moe"], ["--num-experts", "4"], ["--top-k", "2"], ["--chaos-kill-at-step", "3"],
     ["--chaos-data-error-rate", "0.1"], ["--flight-recorder"], ["--flight-dir", "f"],
     ["--trace"], ["--metrics-port", "0"], ["--grad-norm-metric"], ["--anomaly-detection"],
-    ["--tensorboard-dir", "tb"], ["--metrics-jsonl", "m.jsonl"], ["--profile-dir", "p"],
-    ["--wall-clock-breakdown"], ["--dataset", "imagefolder"], ["--decoded-cache"],
-    ["--remat"], ["--precise-bn-batches", "2"],
+    ["--dataset", "imagefolder"], ["--decoded-cache"],
 ], ids=lambda a: a[0].lstrip("-"))
 def test_cli_refuses_what_the_port_lacks(argv):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -151,3 +176,25 @@ def test_cli_trains_through_the_trainer(tmp_path):
         "--dtype", "bf16", "--optimizer", "sgd", "--lr", "0.05", "--ema-decay", "0.9"])
     assert out["steps"] == 2 and 0.0 <= out["final_acc"] <= 1.0
     assert os.path.isdir(tmp_path / "epoch_0")
+
+
+@pytest.mark.parametrize("flag", [
+    ["--remat"], ["--precise-bn-batches", "2"], ["--wall-clock-breakdown"],
+    ["--profile-dir", "prof"], ["--tensorboard-dir", "tb"], ["--metrics-jsonl", "m.jsonl"],
+], ids=lambda a: a[0].lstrip("-"))
+def test_cli_runs_the_trainer_feature_flags(tmp_path, flag):
+    """Each trainer-feature flag the CLI once refused runs: two resnet_micro
+    steps and an eval, with what the flag writes where it says."""
+    if flag[0].endswith("-dir") or flag[0] == "--metrics-jsonl":
+        flag = [flag[0], str(tmp_path / flag[1])]
+    out = PORT_CLI.main([
+        "--device", "cpu", "--model", "resnet_micro", "--dataset", "synthetic_cifar",
+        "-b", "8", "-e", "1", "--steps-per-epoch", "2", "-c", str(tmp_path / "ck"), "-i", "1",
+        "--log-interval", "1", *flag])
+    assert out["steps"] == 2 and 0.0 <= out["final_acc"] <= 1.0
+    if flag[0] == "--metrics-jsonl":
+        with open(flag[1]) as fh:
+            lines = [json.loads(x) for x in fh]
+        assert [x["prefix"] for x in lines] == ["train", "train", "eval"]
+    elif flag[0] in ("--profile-dir", "--tensorboard-dir"):
+        assert os.listdir(flag[1])

@@ -265,9 +265,8 @@ def test_flash_kernels_refuse_what_they_cannot_take(require_cuda):
         flash_fwd(q, k.bfloat16(), v, causal=True)
     with pytest.raises(ValueError):
         flash_fwd(q.double(), k.double(), v.double(), causal=True)
-    wide = [torch.cat([x, x, x, x, x[..., :1]], -1) for x in (q, k, v)]  # d 257
-    with pytest.raises(ValueError, match="head dims up to 256"):
-        flash_fwd(*wide, causal=True)
+    with pytest.raises(ValueError, match="at least 1"):
+        flash_fwd(*(x[..., :0] for x in (q, k, v)), causal=True)
     with pytest.raises(ValueError):
         flash_fwd(q, k.cpu(), v, causal=True)
     out, lse = flash_fwd(q, k, v, causal=True)
@@ -311,6 +310,45 @@ def test_flash_kernels_at_head_dims_up_to_256(require_cuda, dtype, causal, d, t)
     want = fa.flash_attention_bwd_reference(q, k, v, out, lse, g, g_lse, causal=causal)
     fwd_tol, bwd_tol = FLASH_TOL[dtype]
     assert out.shape == (3, t, d) and _row_err(out, want_out) < fwd_tol
+    assert _rel_err(lse, want_lse) < 1e-5
+    for name, a, b in zip(("dq", "dk", "dv", "K4a dq", "K4b dk", "K4b dv"),
+                          (*grads, dq4, dk4, dv4), (*want, *want)):
+        assert a.dtype == dtype and a.shape == b.shape
+        assert _row_err(a, b) < bwd_tol, name
+
+
+WIDE_CASES = [(dtype, d) for dtype in (torch.float32, torch.bfloat16, torch.float16)
+              for d in (257, 320, 384, 512) + ((768,) if dtype == torch.bfloat16 else ())]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", WIDE_CASES, ids=str)
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("t", [100, 384])
+def test_flash_kernels_above_head_dim_256(require_cuda, dtype, d, causal, t):
+    """The d > 256 kernels (d streamed in slabs of 64 columns, 64 output
+    columns a block; d padded to a multiple of 64): K2, K3, K4a and K4b
+    against their plain versions under FLASH_TOL, each launched once, and
+    K4a the same bit for bit across two launches."""
+    from distributed_training_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, g = _attn_inputs((2, t, d), dtype, seed=17)
+    g_lse = torch.randn((2, t), device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(18))
+    counters = (fa.flash_fwd, fa.flash_bwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    n = [f.launches for f in counters]
+    out, lse = fa.flash_fwd(q, k, v, causal=causal)
+    delta = fa._delta(g, out, g_lse)
+    grads = fa.flash_bwd(q, k, v, out, lse, g, g_lse, causal=causal)
+    dq4 = fa.flash_bwd_dq(q, k, v, g, lse, delta, causal=causal)
+    dk4, dv4 = fa.flash_bwd_dkv(q, k, v, g, lse, delta, causal=causal)
+    torch.cuda.synchronize()
+    assert [f.launches - m for f, m in zip(counters, n)] == [1, 1, 1, 1]
+    assert torch.equal(dq4, fa.flash_bwd_dq(q, k, v, g, lse, delta, causal=causal))
+    want_out, want_lse = fa.flash_attention_reference(q, k, v, causal=causal)
+    want = fa.flash_attention_bwd_reference(q, k, v, out, lse, g, g_lse, causal=causal)
+    fwd_tol, bwd_tol = FLASH_TOL[dtype]
+    assert out.shape == (2, t, d) and _row_err(out, want_out) < fwd_tol
     assert _rel_err(lse, want_lse) < 1e-5
     for name, a, b in zip(("dq", "dk", "dv", "K4a dq", "K4b dk", "K4b dv"),
                           (*grads, dq4, dk4, dv4), (*want, *want)):

@@ -88,11 +88,12 @@ def test_gradients_match_jax(causal):
 
 
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("d", [16, 48, 96, 160, 256])
+@pytest.mark.parametrize("d", [16, 48, 96, 160, 256, 320])
 def test_other_head_dims_match_jax(d, causal):
     """Head dims between the kernels' sizes (which the card pads to 32, 64,
-    128 or 256) and the widest one: out, lse and the gradients of a loss
-    reading both, against the JAX kernels, which take any d."""
+    128 or 256, and above 256 to a multiple of 64), 256 and one above it:
+    out, lse and the gradients of a loss reading both, against the JAX
+    kernels, which take any d."""
     q, k, v = _qkv((1, 2, 128, d), seed=d)
     rng = np.random.RandomState(d + 1)
     g = rng.randn(1, 2, 128, d).astype(np.float32)
@@ -116,21 +117,24 @@ def test_other_head_dims_match_jax(d, causal):
 
 
 def test_head_dims_pad_to_the_kernels_sizes():
-    """Off the CPU, d goes up to the next instantiated size, 256 the
-    largest; the padding comes before the kernel's checks (a ``meta``
-    tensor is then refused as not on a card)."""
+    """Off the CPU, d goes up to the next instantiated size up to 256, and
+    above 256 to the next multiple of 64; the padding comes before the
+    kernel's checks (a ``meta`` tensor is then refused as not on a card)."""
     assert [tfa.padded_head_dim(d) for d in (1, 16, 32, 33, 48, 64, 96, 128,
-                                             129, 160, 256)] == [
-        32, 32, 32, 64, 64, 64, 128, 128, 256, 256, 256]
-    with pytest.raises(ValueError, match="up to 256"):
-        tfa.padded_head_dim(257)
+                                             129, 160, 256, 257, 320, 321,
+                                             512, 700)] == [
+        32, 32, 32, 64, 64, 64, 128, 128, 256, 256, 256, 320, 320, 384,
+        512, 704]
+    with pytest.raises(ValueError, match="at least 1"):
+        tfa.padded_head_dim(0)
     q = torch.empty((2, 64, 48), device="meta", dtype=torch.float16)
     padded = tfa._pad_d(q, 64)
     assert padded.shape == (2, 64, 64) and padded.dtype == torch.float16
     with pytest.raises(ValueError, match="CUDA"):
         tfa.flash_fwd(q, q, q, causal=True)
     wide = torch.empty((2, 64, 257), device="meta")
-    with pytest.raises(ValueError, match="up to 256"):
+    assert tfa._pad_d(wide, tfa.padded_head_dim(257)).shape == (2, 64, 320)
+    with pytest.raises(ValueError, match="CUDA"):
         tfa.flash_fwd(wide, wide, wide, causal=True)
 
 

@@ -1,7 +1,8 @@
 """The port stands alone: no module of ``distributed_training_tpu_torch``
-and no line of ``chip_smoke.py`` or of the ResNet CLI
-(``resnet/torch_cuda/train.py``) imports JAX, Flax, optax, orbax or the
-JAX package; and the entry points refuse to run on the CPU unless asked."""
+and no line of ``chip_smoke.py`` or of the two CLIs
+(``resnet/torch_cuda/train.py``, ``gpt/torch_cuda/train.py``) imports JAX,
+Flax, optax, orbax or the JAX package; and the entry points refuse to run
+on the CPU unless asked."""
 
 import ast
 import os
@@ -26,6 +27,7 @@ def _port_files():
                 yield os.path.join(d, f)
     yield os.path.join(REPO, "chip_smoke.py")
     yield os.path.join(REPO, "resnet", "torch_cuda", "train.py")
+    yield os.path.join(REPO, "gpt", "torch_cuda", "train.py")
 
 
 def _imported(path):
@@ -70,8 +72,42 @@ def test_every_module_imports_with_jax_blocked():
                 "ops.conv3x3_stats", "tools.flash_kernel_bench",
                 "tools.conv_fusion_probe", "runtime.distributed",
                 "runtime.coordinator", "parallel.zero", "observability",
-                "observability.flops", "bench"):
+                "observability.flops", "bench", "utils.metrics_io",
+                "utils.profiling", "runtime.preemption", "resilience",
+                "resilience.async_ckpt"):
         assert f"distributed_training_tpu_torch.{new}" in mods
+
+
+def test_the_clis_import_with_jax_blocked():
+    """Both CLIs load as modules (parsers built, configs made for their
+    defaults) in a process where importing JAX or the JAX package fails,
+    and leave neither in ``sys.modules``."""
+    code = (
+        "import sys, importlib.util\n"
+        "for name in %r: sys.modules[name] = None\n"
+        "for i, path in enumerate(%r):\n"
+        "    spec = importlib.util.spec_from_file_location(f'cli{i}', path)\n"
+        "    m = importlib.util.module_from_spec(spec)\n"
+        "    spec.loader.exec_module(m)\n"
+        "    m.build_config(m.build_parser().parse_args([]))\n"
+        "assert not any(k.split('.')[0] in %r for k, v in sys.modules.items() if v is not None)\n"
+    ) % (FORBIDDEN, [os.path.join(REPO, d, "torch_cuda", "train.py") for d in ("resnet", "gpt")],
+         FORBIDDEN)
+    r = subprocess.run([sys.executable, "-c", code], env=dict(os.environ, PYTHONPATH=REPO),
+                       cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+
+
+def test_gpt_cli_without_device_raises_without_cuda(monkeypatch):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "gpt_cli", os.path.join(REPO, "gpt", "torch_cuda", "train.py"))
+    cli = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cli)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["--num-layers", "1", "--hidden-dim", "16", "--num-heads", "2"])
 
 
 def test_trainer_without_device_raises_without_cuda(monkeypatch, tmp_path):

@@ -109,6 +109,6 @@ def test_registry_refuses_unported_models():
         with pytest.raises(NotImplementedError):
             get_model(name)
     with pytest.raises(NotImplementedError):
-        get_model("transformer_lm", remat=True)
+        get_model("transformer_lm", moe_num_experts=4)
     with pytest.raises(ValueError):
         get_model("resnet7")

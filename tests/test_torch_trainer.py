@@ -161,11 +161,14 @@ def test_every_plugin_preset_fits_and_equals_its_stage0_twin(tmp_path, plugin):
 
 
 @pytest.mark.parametrize("override", [
-    dict(remat=True), dict(eval_precise_bn_batches=2),
-    dict(tensorboard_dir="tb"), dict(mesh=MeshSpec(model=2)),
-    dict(wall_clock_breakdown=True), dict(profile_dir="prof"),
+    dict(tp_overlap=True), dict(mesh=MeshSpec(fsdp=2)),
+    dict(mesh=MeshSpec(pipe=2)), dict(mesh=MeshSpec(model=2)),
+    dict(mesh=MeshSpec(sequence=2)), dict(mesh=MeshSpec(expert=2)),
     dict(model="vit_b16"),
 ])
 def test_unported_options_raise(tmp_path, override):
+    """What the Trainer still lacks. (remat, precise-BN, the metric sinks,
+    the wall-clock breakdown and the profiler, which this test once
+    listed, are ported: test_torch_remat.py, test_torch_resilience.py.)"""
     with pytest.raises(NotImplementedError):
         Trainer(_cfg(tmp_path, **override), device="cpu")

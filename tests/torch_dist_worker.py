@@ -1,11 +1,13 @@
 """One rank of the port's data-parallel runs that
-``tests/test_torch_distributed.py`` holds against the JAX package.
+``tests/test_torch_distributed.py`` (:func:`run`, the image step) and
+``tests/test_torch_lm_distributed.py`` (:func:`run_lm`, the LM step and
+``LMTrainer``) hold against the JAX package.
 
-Started by the test in ``spawn``ed processes (two ranks, gloo on the CPU):
-it imports torch and the port only, never JAX. It reads ``<out>/job.pt``
-(the initial weights, the batches, the checkpoint run's config) and
-writes every scenario's results to ``<out>/results_<rank>.pt``, or the
-traceback to ``<out>/error_<rank>.txt``.
+Started by the tests in ``spawn``ed processes (two ranks, gloo on the
+CPU): it imports torch and the port only, never JAX. It reads
+``<out>/job.pt`` (the initial weights, the batches, the trainer run's
+config) and writes every scenario's results to ``<out>/results_<rank>.pt``,
+or the traceback to ``<out>/error_<rank>.txt``.
 """
 
 from __future__ import annotations
@@ -151,7 +153,58 @@ def _coordinator(job, rank, world, group):
                       "scalar": coord.broadcast_scalar(1.5 + rank)}}
 
 
-def run(rank: int, world: int, init_file: str, out_dir: str) -> None:
+# The LM scenarios: (name, zero stage, options of the step, remat).
+LM_SCENARIOS = (
+    ("s0", 0, {}, False),
+    ("s1", 1, {}, False),
+    ("s2", 2, {}, False),
+    ("s3", 3, {}, False),
+    ("s2_chunk", 2, {"ce_chunk": 8}, False),
+    ("s3_remat", 3, {}, True),
+)
+LM_KW = dict(num_classes=64, num_layers=2, num_heads=2, hidden_dim=32, max_len=32)
+
+
+def _lm_steps(job, rank, world, group):
+    """Each LM scenario's steps on this rank's halves of the global batches."""
+    from distributed_training_tpu_torch.config import OptimizerConfig, PrecisionConfig
+    from distributed_training_tpu_torch.models import get_model
+    from distributed_training_tpu_torch.parallel.zero import Zero
+    from distributed_training_tpu_torch.train.lm_step import make_lm_train_step
+    from distributed_training_tpu_torch.train.optim import make_optimizer
+    from distributed_training_tpu_torch.train.precision import LossScaleState
+    from distributed_training_tpu_torch.train.train_state import TrainState
+
+    out = {}
+    for name, stage, options, remat in LM_SCENARIOS:
+        model = get_model("transformer_lm", remat=remat, **LM_KW)
+        model.load_state_dict(job["model"])
+        state = TrainState.create(model, make_optimizer(OptimizerConfig(**OPT)),
+                                  LossScaleState.create(PrecisionConfig()),
+                                  Zero(stage, group))
+        step = make_lm_train_step(zero_stage=stage, max_len=LM_KW["max_len"], **options)
+        metrics = []
+        for batch in job["batches"]:
+            n = len(batch["tokens"]) // world
+            local = {k: torch.from_numpy(np.ascontiguousarray(v[rank * n:(rank + 1) * n]))
+                     for k, v in batch.items()}
+            metrics.append({k: float(v) for k, v in step(state, local).items()})
+        out[name] = {"state": state.state_dict(), "metrics": metrics, "step": state.step}
+    return out
+
+
+def _lm_trainer(job, rank, world, group):
+    """``LMTrainer.fit()`` at world 2 (ZeRO stage 2): the rank's slice of
+    each batch, eval averaged over the ranks, a save."""
+    from distributed_training_tpu_torch import LMTrainer
+
+    t = LMTrainer(job["trainer_cfg"], device="cpu")
+    result = t.fit()
+    return {"trainer": {"result": result, "world": t.world_size,
+                        "model": t.state.state_dict()["model"]}}
+
+
+def _run_parts(rank, world, init_file, out_dir, parts):
     torch.set_num_threads(1)
     from distributed_training_tpu_torch.runtime import distributed
 
@@ -161,7 +214,7 @@ def run(rank: int, world: int, init_file: str, out_dir: str) -> None:
             device="cpu", timeout_s=60)
         job = torch.load(os.path.join(out_dir, "job.pt"), weights_only=False)
         results = {}
-        for part in (_train, _fp16_skip, _eval, _checkpoint, _coordinator):
+        for part in parts:
             results.update(part(job, rank, world, group))
         torch.save(results, os.path.join(out_dir, f"results_{rank}.pt"))
         distributed.shutdown_distributed()
@@ -169,6 +222,15 @@ def run(rank: int, world: int, init_file: str, out_dir: str) -> None:
         with open(os.path.join(out_dir, f"error_{rank}.txt"), "w") as fh:
             fh.write(traceback.format_exc())
         raise
+
+
+def run(rank: int, world: int, init_file: str, out_dir: str) -> None:
+    _run_parts(rank, world, init_file, out_dir,
+               (_train, _fp16_skip, _eval, _checkpoint, _coordinator))
+
+
+def run_lm(rank: int, world: int, init_file: str, out_dir: str) -> None:
+    _run_parts(rank, world, init_file, out_dir, (_lm_steps, _lm_trainer))
 
 
 def global_batches(n_steps: int, batch: int = 8, size: int = 64, seed: int = 0):
