@@ -113,6 +113,19 @@ Phases, in order; any failure exits non-zero and prints no result line:
    positive, MFU at most 1, the losses finite, K2/K3 once a layer a step
    and K1 once a step on the hybrid_adam leg; then each default leg's
    step profiled (device busy share, kernels by device time);
+10c. data phase: the native augment library built on this host
+   (``available()``) and bit for bit the numpy path on 256 crops at 224
+   from 257² images; the bench's ``--data-only --data-mode both`` and
+   ``--data-concurrent --data-stress`` at their defaults, every value
+   finite and positive, the decoded cache through the native library;
+   ``Trainer.fit()`` on full-width ResNet-50 (imagenet stem, 224, bf16,
+   ``hybrid_adam``) over the decoded cache of a JPEG tree, 3 epochs of 20
+   steps at batch 32, at ``prefetch`` 0 and 2: the loss finite, K1 once a
+   step, the batches the step received at 2 bit for bit those at 0, the
+   prefetched pinned copies on a stream no kernel runs on; ms/step and
+   the device's busy share of each; then the bench's image leg by default,
+   with ``--remat`` and with ``--remat-policy conv`` (15 steps each),
+   images/s and peak memory, remat's peak below the default's;
 11. K5's time at each probe shape beside its yardsticks and its time
    before the tensor-core redesign, a ``{"kernels": [...]}`` line (six
    kernels, each with its launches by path, its fp16 time, its d-256 and
@@ -130,6 +143,7 @@ import os
 import re
 import sys
 import tempfile
+import threading
 import time
 
 import torch
@@ -381,6 +395,24 @@ def steady_state(trainer, batches: list, per_step: int, unit: str,
               for b in batches[:profiled]], tag)
 
 
+def _device_rows(prof) -> list:
+    """``(device µs, name, count)`` of the profile's device events
+    (kernels, copies, memsets), largest first. Device events only: an
+    operator's row carries the time of the kernels it launched, which are
+    rows of their own, so summing every row would count that time twice."""
+    rows = []
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "self_cuda_time_total", 0.0)
+        if dev_us > 0:
+            rows.append((dev_us, e.key, e.count))
+    rows.sort(reverse=True)
+    return rows
+
+
 def _profile(calls: list, tag: str) -> None:
     """Run ``calls`` under ``torch.profiler`` and print where the device
     time goes: the wall time, the device's busy share of it, and the
@@ -394,19 +426,7 @@ def _profile(calls: list, tag: str) -> None:
             call()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    # Device events only (kernels, copies, memsets): an operator's row
-    # carries the time of the kernels it launched, which are rows of their
-    # own, so summing every row would count that time twice.
-    rows = []
-    for e in prof.key_averages():
-        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
-            continue
-        dev_us = getattr(e, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(e, "self_cuda_time_total", 0.0)
-        if dev_us > 0:
-            rows.append((dev_us, e.key, e.count))
-    rows.sort(reverse=True)
+    rows = _device_rows(prof)
     busy = sum(r[0] for r in rows)
     print(f"[{tag}] profile of {len(calls)} steps: wall {wall_us / 1e3:.3f} ms "
           f"(profiled), device busy {busy / 1e3:.3f} ms = "
@@ -1768,6 +1788,274 @@ def wgmma_build_lines() -> dict:
     return seen
 
 
+# The data phase: the host input pipeline, on the card machine's host.
+# Native against numpy: a batch of DATA_CROPS crops at 224 from 257²
+# uint8 images. The trained runs: full-width ResNet-50 (imagenet stem, 224,
+# bf16, hybrid_adam) over a decoded cache of a JPEG tree of DATA_CLASSES
+# classes × DATA_PER_CLASS images (256², quality 85; val a quarter of
+# that), DATA_EPOCHS epochs of DATA_STEPS steps of batch DATA_BATCH, at
+# prefetch 0 and 2.
+DATA_CROPS = 256
+DATA_CLASSES, DATA_PER_CLASS, DATA_BATCH, DATA_STEPS, DATA_EPOCHS = 8, 96, 32, 20, 3
+# The image leg with remat and the conv policy, beside the default leg:
+# cut to REMAT_STEPS timed steps after REMAT_WARMUP (the default leg's
+# full run is in the bench phase), which the lines say.
+REMAT_WARMUP, REMAT_STEPS = 3, 15
+
+
+def _native_check() -> dict:
+    """The native library is built on this host and each of its three
+    routines gives the numpy path's bytes on DATA_CROPS crops at 224 from
+    257² images (``-march=native`` decides the host's FMA contraction; the
+    library's conversion is a written-out fused multiply-add, which the
+    numpy path reproduces)."""
+    import numpy as np
+
+    from distributed_training_tpu_torch.data import transforms
+    from distributed_training_tpu_torch.ops.native import native
+
+    t0 = time.perf_counter()
+    if not native.available():
+        raise SystemExit(f"the native augment library did not build: {native.build_log}")
+    print(f"[data] native library {native._target()} available in "
+          f"{time.perf_counter() - t0:.2f} s, g++ flags {' '.join(native.built_with)}"
+          f"{'' if native.built_with else '(built earlier in this checkout)'}")
+    rng = np.random.RandomState(0)
+    images = rng.randint(0, 256, (DATA_CROPS, 257, 257, 3), dtype=np.uint8)
+    n, size = DATA_CROPS, 224
+    ys, xs = rng.randint(0, 257 - size + 1, n), rng.randint(0, 257 - size + 1, n)
+    flips = rng.randint(0, 2, n)
+    crops = native.gather_crop_flip(images, np.arange(n), ys, xs, flips, size)
+    want = np.stack([images[i, y:y + size, x:x + size][:, ::-1 if f else 1]
+                     for i, y, x, f in zip(range(n), ys, xs, flips)])
+    out = {"gather_crop_flip": bool(np.array_equal(crops, want))}
+    out["pad_crop_flip"] = bool(np.array_equal(
+        transforms.pad_crop_flip(crops, np.random.RandomState(1), use_native=True),
+        transforms.pad_crop_flip(crops, np.random.RandomState(1), use_native=False)))
+    for name, (scale, bias) in (("to_float", (1 / 255, 0.0)), ("to_normalized", (2 / 255, -1.0))):
+        out[f"u8_to_f32 {name}"] = bool(np.array_equal(
+            transforms.u8_to_f32(crops, scale, bias, use_native=True),
+            transforms.u8_to_f32(crops, scale, bias, use_native=False)))
+    print(f"[data] native vs numpy, bit for bit, {n} crops at {size} from 257² images: {out}")
+    if not all(out.values()):
+        raise SystemExit(f"the native path differs from the numpy path: {out}")
+    return out
+
+
+def _trace_streams(prof) -> dict:
+    """The card streams of the profile's pinned host-to-device copies and
+    of its kernels, from its trace."""
+    with tempfile.NamedTemporaryFile(suffix=".json") as fh:
+        prof.export_chrome_trace(fh.name)
+        with open(fh.name) as f:
+            events = json.load(f).get("traceEvents", [])
+    pinned_h2d, kernels = [], set()
+    for e in events:
+        stream = (e.get("args") or {}).get("stream", e.get("tid"))
+        if e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", "") \
+                and "Pinned" in e.get("name", ""):
+            pinned_h2d.append(stream)
+        elif e.get("cat") == "kernel":
+            kernels.add(stream)
+    return {"pinned_h2d": pinned_h2d, "kernels": kernels}
+
+
+def _data_fit(root: str, ckpt_dir: str, prefetch: int) -> dict:
+    """``Trainer.fit()`` on ResNet-50 over the tree's decoded cache at
+    ``prefetch``, DATA_EPOCHS epochs of DATA_STEPS steps: the batches the
+    step received (copied on the card as it received them), the losses,
+    K1's launches; ms/step of the second epoch (synchronised wall time),
+    the device's busy share of the third (profiled: its wall time grows
+    by the profiler's host cost), and the streams of its copies and
+    kernels."""
+    import contextlib
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from distributed_training_tpu_torch import Trainer
+    from distributed_training_tpu_torch.config import (
+        CheckpointConfig,
+        DataConfig,
+        OptimizerConfig,
+        PrecisionConfig,
+        TrainConfig,
+    )
+    from distributed_training_tpu_torch.ops.fused_adam import fused_adam_update
+
+    cfg = TrainConfig(
+        model="resnet50", num_epochs=DATA_EPOCHS, log_interval=1, seed=0,
+        optimizer=OptimizerConfig(name="hybrid_adam"), precision=PrecisionConfig(dtype="bf16"),
+        data=DataConfig(dataset="imagefolder", data_path=root, decoded_cache=True,
+                        num_classes=DATA_CLASSES, image_size=224, batch_size=DATA_BATCH,
+                        max_steps_per_epoch=DATA_STEPS, num_workers=os.cpu_count() or 8,
+                        prefetch=prefetch),
+        checkpoint=CheckpointConfig(directory=ckpt_dir, interval=0))
+    trainer = Trainer(cfg)
+    if trainer.model.stem != "imagenet" or trainer.model.dtype != torch.bfloat16:
+        raise SystemExit("the data phase's ResNet-50 is not the imagenet-stem bf16 model")
+    seen = []
+    step = trainer.train_step
+
+    def recording(state, batch):
+        # A copy on the step's stream, queued before the step: the batch as
+        # the step reads it (no host synchronisation).
+        seen.append({k: v.clone() for k, v in batch.items()})
+        return step(state, batch)
+
+    trainer.train_step = recording
+    inner, timed = trainer.train_epoch, {}
+
+    def epoch(index, *a, **kw):
+        if index == 0:  # warm-up: cuDNN's planning, the cache's pages
+            return inner(index, *a, **kw)
+        with (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+              if index == 2 else contextlib.nullcontext()) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = inner(index, *a, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        if index == 1:
+            timed["ms_per_step"] = wall / DATA_STEPS * 1e3
+        else:
+            timed["busy"] = sum(r[0] for r in _device_rows(prof)) / 1e6 / wall
+            timed.update(_trace_streams(prof))
+        return out
+
+    trainer.train_epoch = epoch
+    fused_adam_update.launches = 0
+    result = trainer.fit()
+    launches = fused_adam_update.launches
+    losses = [h["loss"] for h in trainer.meter.history]
+    del trainer
+    batches = [{k: v.cpu().numpy() for k, v in b.items()} for b in seen]
+    del seen
+    torch.cuda.empty_cache()
+    return {"batches": batches, "losses": losses, "launches": launches, "result": result,
+            "ms_per_step": timed["ms_per_step"], "busy": timed["busy"],
+            "pinned_h2d": timed["pinned_h2d"], "kernel_streams": timed["kernels"]}
+
+
+def data_phase(ckpt_dir: str) -> dict:
+    """The input pipeline on the card's host and through the trainer and
+    the bench (see the module docstring, phase 10c). Returns K1's launches
+    by path and the readings."""
+    import importlib.util
+    import math
+    import shutil
+
+    import numpy as np
+
+    from distributed_training_tpu_torch import bench
+    from distributed_training_tpu_torch.ops.native import native
+
+    t_phase = time.perf_counter()
+    # What else holds the host: this process's threads and its CPU time
+    # over a second of sleep (a spinning thread left by an earlier phase
+    # would show), and the load average of the machine.
+    before = os.times()
+    time.sleep(1.0)
+    after = os.times()
+    spin = (after.user + after.system) - (before.user + before.system)
+    names = sorted(t.name for t in threading.enumerate())
+    print(f"[data] host before the phase: {len(names)} threads {names}; this process's "
+          f"CPU time over 1 s asleep {spin:.3f} s; load average {os.getloadavg()}")
+    checks = _native_check()
+    # The phase writes and decodes real JPEG trees: it needs Pillow, and
+    # fails without it.
+    spec = importlib.util.find_spec("PIL")
+    if spec is None:
+        raise SystemExit("Pillow is not installed: the data phase writes and decodes JPEG trees")
+    import PIL
+
+    print(f"[data] Pillow {PIL.__version__}: real JPEG trees, live decode and the decoded cache")
+
+    runs = {}
+    for path, argv in (("bench --data-only --data-mode both", ["--data-only", "--data-mode", "both"]),
+                       ("bench --data-concurrent --data-stress",
+                        ["--data-concurrent", "--data-stress"])):
+        native.gather_crop_flip.calls = native.u8_to_f32.calls = native.pad_crop_flip.calls = 0
+        t0 = time.perf_counter()
+        (line, loss), = bench.main(argv)
+        calls = {n: getattr(native, n).calls
+                 for n in ("gather_crop_flip", "pad_crop_flip", "u8_to_f32")}
+        print(f"[data] {path} (at its defaults, no cut): {time.perf_counter() - t0:.1f} s; "
+              f"native calls {calls}; loss {loss}")
+        numbers = {k: v for k, v in line.items() if isinstance(v, (int, float))
+                   and not isinstance(v, bool)}
+        if not numbers or not all(math.isfinite(v) and v > 0 for v in numbers.values()):
+            raise SystemExit(f"{path}: a value is not finite and positive: {line}")
+        if loss is not None and not math.isfinite(loss):
+            raise SystemExit(f"{path}: non-finite loss {loss}")
+        if calls["gather_crop_flip"] == 0:
+            raise SystemExit(f"{path}: the decoded cache did not go through the native library")
+        runs[path] = line
+    if runs["bench --data-only --data-mode both"].get("augment_images_per_sec") is None:
+        raise SystemExit("--data-mode both did not time the augment path")
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_tree_")
+    try:
+        t0 = time.perf_counter()
+        for split, per_class in (("train", DATA_PER_CLASS), ("val", DATA_PER_CLASS // 4)):
+            bench._jpeg_tree(os.path.join(root, split), DATA_CLASSES * per_class, DATA_CLASSES)
+        print(f"[data] JPEG tree {DATA_CLASSES} classes x {DATA_PER_CLASS} train / "
+              f"{DATA_PER_CLASS // 4} val images at 256² written in "
+              f"{time.perf_counter() - t0:.1f} s")
+        fits = {p: _data_fit(root, os.path.join(ckpt_dir, f"prefetch{p}"), p) for p in (0, 2)}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for p, r in fits.items():
+        print(f"[data] Trainer.fit ResNet-50 (imagenet stem, 224, bf16, hybrid_adam) on the "
+              f"decoded cache, batch {DATA_BATCH}, prefetch {p}: {r['result']}; losses "
+              f"{r['losses']}; K1 launches {r['launches']}; {r['ms_per_step']:.3f} ms/step "
+              f"(epoch 2), device busy {100 * r['busy']:.1f}% of epoch 3 (profiled); "
+              f"pinned HtoD copies {len(r['pinned_h2d'])} on streams "
+              f"{sorted(set(map(str, r['pinned_h2d'])))}, kernels on streams "
+              f"{sorted(map(str, r['kernel_streams']))}")
+        steps = DATA_EPOCHS * DATA_STEPS
+        if not all(math.isfinite(x) for x in r["losses"]) or len(r["losses"]) != steps:
+            raise SystemExit(f"prefetch {p}: losses {r['losses']}")
+        if r["launches"] != steps:
+            raise SystemExit(f"prefetch {p}: K1 launches {r['launches']} != {steps} steps")
+        if len(r["batches"]) != steps:
+            raise SystemExit(f"prefetch {p}: the step received {len(r['batches'])} batches")
+    same = all(a.keys() == b.keys() and all(np.array_equal(a[k], b[k]) for k in a)
+               for a, b in zip(fits[0]["batches"], fits[2]["batches"]))
+    print(f"[data] the {DATA_EPOCHS * DATA_STEPS} batches the step received at prefetch 2 "
+          f"equal those at prefetch 0, bit for bit: {same}")
+    if not same:
+        raise SystemExit("the prefetched batches differ from the synchronous ones")
+    # The trace keeps most of the epoch's 2 · DATA_STEPS copies (a run read
+    # 38 and 32 of 40): at least one a step is required.
+    copies, kernels = fits[2]["pinned_h2d"], fits[2]["kernel_streams"]
+    if len(copies) < DATA_STEPS or set(copies) & kernels or not kernels:
+        raise SystemExit(f"prefetch 2: pinned copies {copies} not on a stream of their own "
+                         f"(kernels on {kernels})")
+
+    # The image leg with remat and with the conv policy beside the default.
+    legs = {}
+    for tag, flags in (("default", []), ("remat", ["--remat"]),
+                       ("remat-policy conv", ["--remat-policy", "conv"])):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        (line, loss), = bench.main(["--image", "--warmup", str(REMAT_WARMUP),
+                                    "--steps", str(REMAT_STEPS), *flags])
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"[data] image leg {tag}: {line['value']} images/s, peak memory {peak:.3f} GiB, "
+              f"loss {loss} (cut to {REMAT_STEPS} steps after {REMAT_WARMUP})")
+        if not (math.isfinite(line["value"]) and line["value"] > 0 and math.isfinite(loss)):
+            raise SystemExit(f"image leg {tag}: {line}, loss {loss}")
+        legs[tag] = {"images_per_sec": line["value"], "peak_gib": peak}
+    if not legs["remat"]["peak_gib"] < legs["default"]["peak_gib"]:
+        raise SystemExit(f"remat did not lower the image leg's peak memory: {legs}")
+    print(f"[data] phase took {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": {f"resnet50_decoded_cache_prefetch{p}": r["launches"]
+                         for p, r in fits.items()},
+            "native": checks, "bench": runs, "legs": legs,
+            "ms_per_step": {p: r["ms_per_step"] for p, r in fits.items()},
+            "busy": {p: r["busy"] for p, r in fits.items()}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -1806,6 +2094,8 @@ def main() -> int:
     k5 = conv_phase()
     tool_launches, tool_results = tools_phase()
     bench = bench_phase()
+    with tempfile.TemporaryDirectory() as ckpt:
+        data = data_phase(ckpt)
     bench_lm = {"bench_gpt2_small_adamw": bench["bench"],
                 "bench_gpt2_small_hybrid_adam": bench["bench --lm --lm-optimizer hybrid_adam"]}
 
@@ -1841,7 +2131,8 @@ def main() -> int:
         "replaces": "distributed_training_tpu/ops/fused_adam.py:40",
         "launches": (launches + sum(bf16.values()) + lm["fused_adam"] + lm16["fused_adam"]
                      + sum(r["launches"] for r in dp.values())
-                     + sum(n["fused_adam"] for n in bench_lm.values())),
+                     + sum(n["fused_adam"] for n in bench_lm.values())
+                     + sum(data["launches"].values())),
         "launches_by_path": {"resnet18_train": launches,
                              **{f"resnet18_train_{tag}": n for tag, n in bf16.items()},
                              **{f"resnet18_{p}_nccl_world1": r["launches"]
@@ -1849,7 +2140,8 @@ def main() -> int:
                              "gpt2_small_train": lm["fused_adam"],
                              "gpt2_small_train_fp16": lm16["fused_adam"],
                              **{p: n["fused_adam"] for p, n in bench_lm.items()
-                                if n["fused_adam"]}},
+                                if n["fused_adam"]},
+                             **data["launches"]},
         **k, "ok": True,
     }, *({
         "name": name, "route": "cuda", "source": src, "replaces": f"{ref}:{line}",

@@ -4,6 +4,8 @@
     python -m distributed_training_tpu_torch.bench --image    # one leg
     python -m distributed_training_tpu_torch.bench --lm --lm-optimizer hybrid_adam
     python -m distributed_training_tpu_torch.bench --device cpu --model resnet_micro ...
+    python -m distributed_training_tpu_torch.bench --data-only --data-mode both
+    python -m distributed_training_tpu_torch.bench --data-concurrent
 
 The port of the root ``bench.py``, with its parser (names and defaults)
 and its output: a bare run prints the image leg's JSON line, then the LM
@@ -13,30 +15,46 @@ leg's, each with ``metric``, ``value``, ``unit``, ``vs_baseline``, ``mfu``,
 - **Image leg:** ResNet-50 on synthetic ImageNet at 224², bf16 compute
   over float32 parameters, an effective batch of 512 as 2 × 256 gradient
   accumulation, SGD 0.1 with momentum 0.9, through the image train step
-  (``train/step.py``) at ``--zero-stage`` (world 1).
+  (``train/step.py``) at ``--zero-stage`` (world 1). ``--remat`` runs each
+  block under activation checkpointing, ``--remat-policy conv`` keeps
+  only the convolutions' outputs, ``--param-dtype bf16`` keeps the
+  parameters and the SGD momentum in bf16 (the BatchNorm statistics stay
+  float32, as in the Flax model).
 - **LM leg:** GPT-2-small (vocab 50304, 12 layers, 12 heads, hidden 768)
   at B16 T1024, bf16, the flash kernels K2/K3, bf16 logits, no head
   bias, AdamW 3e-4 (optax's defaults: weight decay 1e-4 on every
   tensor), through the LM train step; ``--lm-optimizer hybrid_adam`` runs
-  the fused-Adam kernel K1.
+  the fused-Adam kernel K1, ``--ce-chunk`` and ``--ce-save-probs`` the
+  chunked and saved-probabilities CE.
+- **--data-only** (:func:`bench_data_only`): the host input pipeline
+  alone, in images/s: live JPEG decode through the imagefolder loader,
+  the decoded cache, or the in-memory augment (``--data-mode``), over a
+  generated JPEG tree (``--data-images`` at 256², quality 85, 8 classes)
+  or ``--data-path``.
+- **--data-concurrent** (:func:`bench_data_concurrent`): ResNet-50 (8
+  classes) trained on decoded-cache batches through the device
+  prefetcher, with a second loader assembling batches flat out beside it
+  (``--data-stress``): the train images/s and the host's spare images/s.
 
 Both legs time the steady state on batches already on the card: 5
 warm-up steps, then 45 steps with a host read of the loss every 15 (the
 barrier), by the host clock. The step-time percentiles are over those
-sync windows' mean step times. ``mfu`` is the train step's model FLOPs
+sync windows' mean step times. The data modes print the root bench's
+keys and extras; their images need Pillow to be written and decoded
+(``ImportError`` naming it otherwise). ``mfu`` is the train step's model FLOPs
 (``observability.flops``: 3× the forward's matmul FLOPs at the effective
 batch) per second over the card's dense bf16 peak; null for a card the
 peak table does not know, and on the CPU, unless ``$OBS_PEAK_FLOPS`` gives
 one. ``vs_baseline`` is null: the root bench's baselines (6000 images/s,
-94,600 tokens/s) are a TPU's.
+94,600 tokens/s, and the data modes' device rate) are a TPU's.
 
 One default differs from the root bench: ``--steps-per-call`` is 1. The
 JAX bench compiles 15 steps into one ``lax.scan`` dispatch; eager PyTorch
 has no counterpart (a CUDA graph of the step would be one, ROADMAP.md), so
-a value above 1 raises. Every other flag the port cannot honour raises
-``NotImplementedError`` naming ROADMAP.md, never silently ignored. There
-is no CPU clamp: on the CPU (``--device cpu``) the sizes are what the
-caller passes.
+a value above 1 raises. Every other flag the port cannot honour
+(``--check``, ``--tp``, ``--tp-overlap``) raises ``NotImplementedError``
+naming ROADMAP.md, never silently ignored. There is no CPU clamp: on the
+CPU (``--device cpu``) the sizes are what the caller passes.
 """
 
 from __future__ import annotations
@@ -45,7 +63,10 @@ import argparse
 import copy
 import json
 import os
+import shutil
 import sys
+import tempfile
+import threading
 import time
 
 import numpy as np
@@ -117,8 +138,11 @@ def _where(device: torch.device) -> str:
     return "1 gpu chip(s)" if device.type == "cuda" else "cpu"
 
 
-def image_step(args, device: torch.device):
-    """The image leg's ``(model, state, step, batch)``, as it is timed."""
+PARAM_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
+
+
+def image_train(args, device: torch.device, num_classes: int):
+    """The image leg's ``(model, state, step)``: the ResNet in bf16, SGD."""
     from distributed_training_tpu_torch.config import OptimizerConfig, PrecisionConfig
     from distributed_training_tpu_torch.models import get_model
     from distributed_training_tpu_torch.parallel.zero import Zero
@@ -127,14 +151,22 @@ def image_step(args, device: torch.device):
     from distributed_training_tpu_torch.train.step import make_train_step
     from distributed_training_tpu_torch.train.train_state import TrainState
 
-    batch_size = args.batch_size  # one card: the global batch
-    model = get_model(args.model, num_classes=args.num_classes, dtype=torch.bfloat16,
+    model = get_model(args.model, num_classes=num_classes, dtype=torch.bfloat16,
+                      remat=args.remat, remat_policy=args.remat_policy,
+                      param_dtype=PARAM_DTYPES[args.param_dtype],
                       generator=torch.Generator().manual_seed(0)).to(device)
     # SGD with momentum, as the root bench's optax.sgd(0.1, momentum=0.9).
     tx = make_optimizer(OptimizerConfig(name="sgd", lr=0.1, momentum=0.9))
     state = TrainState.create(model, tx, LossScaleState.create(PrecisionConfig(dtype="bf16")),
                               Zero(args.zero_stage, None, args.cpu_offload))
     step = make_train_step(zero_stage=args.zero_stage, grad_accum_steps=args.grad_accum)
+    return model, state, step
+
+
+def image_step(args, device: torch.device):
+    """The image leg's ``(model, state, step, batch)``, as it is timed."""
+    model, state, step = image_train(args, device, args.num_classes)
+    batch_size = args.batch_size  # one card: the global batch
     rng = np.random.RandomState(0)
     images = rng.rand(batch_size, args.image_size, args.image_size, 3)
     if args.input_dtype == "uint8":
@@ -166,6 +198,9 @@ def bench_image(args, device: torch.device) -> tuple[dict, float]:
                   f"(bf16, batch {args.batch_size}/chip"
                   f"{', zero-' + str(args.zero_stage) if args.zero_stage else ''}"
                   f"{', offload' if args.cpu_offload else ''}"
+                  f"{', remat' if args.remat else ''}"
+                  f"{', remat:' + args.remat_policy if args.remat_policy else ''}"
+                  f"{', params:bf16' if args.param_dtype == 'bf16' else ''}"
                   f"{', in:' + args.input_dtype if args.input_dtype != 'fp32' else ''}"
                   f"{', accum:' + str(args.grad_accum) if args.grad_accum > 1 else ''}"
                   f", {_where(device)})",
@@ -203,7 +238,9 @@ def lm_step(args, device: torch.device):
         opt = OptimizerConfig(name="adamw", lr=3e-4, weight_decay=1e-4)
     state = TrainState.create(model, make_optimizer(opt),
                               LossScaleState.create(PrecisionConfig(dtype="bf16")))
-    step = make_lm_train_step(accuracy_metric=not args.no_accuracy, max_len=args.seq_len)
+    step = make_lm_train_step(accuracy_metric=not args.no_accuracy, max_len=args.seq_len,
+                              ce_chunk=args.ce_chunk, ce_save_probs=args.ce_save_probs,
+                              logits_dtype=parse_logits_dtype(args.logits_dtype))
     toks = np.random.RandomState(0).randint(
         0, 50304, (args.lm_batch, args.seq_len + 1)).astype(np.int32)
     batch = to_device({k: np.ascontiguousarray(v) for k, v in make_lm_batch(toks).items()},
@@ -230,6 +267,8 @@ def bench_lm(args, device: torch.device) -> tuple[dict, float]:
                   f"{args.lm_batch} T{args.seq_len} {args.attn_impl}"
                   f"{', logits:fp32' if args.logits_dtype == 'fp32' else ''}"
                   f"{', head-bias' if args.head_bias else ''}"
+                  f"{', chunked CE' if args.ce_chunk else ''}"
+                  f"{', ce-probs' if args.ce_save_probs else ''}"
                   f"{', no-acc-metric' if args.no_accuracy else ''}"
                   f", {_where(device)})",
         "value": round(tok_s, 1),
@@ -237,6 +276,213 @@ def bench_lm(args, device: torch.device) -> tuple[dict, float]:
         "vs_baseline": None,
         **observability_fields(step_flops, per_step_ms, args.steps, dt),
     }
+    print(json.dumps(result), flush=True)
+    return result, loss
+
+
+def _jpeg_tree(root: str, n: int, classes: int | None) -> tuple[list, list]:
+    """``n`` JPEGs of seeded uniform noise at 256² and quality 85 under
+    ``root`` (``root/class<c>/`` for ``classes`` classes of ``n // classes``
+    each, else flat with label ``i % 8``): real JPEG bytes, so decode costs
+    what it costs. Returns (paths, labels)."""
+    from distributed_training_tpu_torch.data.imagefolder import pillow
+
+    Image = pillow()
+    rng = np.random.RandomState(0)
+    paths, labels = [], []
+    per_class = n // classes if classes else n
+    for c in range(classes or 1):
+        d = os.path.join(root, f"class{c}") if classes else root
+        os.makedirs(d, exist_ok=True)
+        for i in range(per_class):
+            arr = rng.randint(0, 255, (256, 256, 3), dtype=np.uint8)
+            path = os.path.join(d, f"im{i}.jpg")
+            Image.fromarray(arr).save(path, quality=85)
+            paths.append(path)
+            labels.append(c if classes else i % 8)
+    return paths, labels
+
+
+def _timed_epoch(loader) -> float:
+    """A warm epoch (threads, page cache), then images/s of a timed one."""
+    loader.set_epoch(0)
+    for _ in loader:
+        pass
+    loader.set_epoch(1)
+    t0 = time.perf_counter()
+    n = 0
+    for b in loader:
+        n += len(b["label"])
+    return n / (time.perf_counter() - t0)
+
+
+def bench_data_only(args) -> tuple[dict, None]:
+    """The host input pipeline's images/s, as the root bench's
+    ``bench_data_only`` measures it: ``imagefolder`` (JPEG decode, resize,
+    crop and flip on ``--data-workers`` threads), ``cached`` (the decoded
+    cache, built once and timed apart), ``augment`` (4096 in-memory uint8
+    32² images through the pad-crop-flip augment and the float
+    conversion), or ``both`` (all three). A warm epoch, then a timed one.
+    The primary value is the rate the device would be fed in steady state:
+    the cached path when it ran, else live decode, else augment; the
+    others are extras. Host only: no device is touched."""
+    from distributed_training_tpu_torch.data.pipeline import ShardedDataLoader
+
+    batch = args.data_batch_size
+    folder_rate = cached_rate = augment_rate = None
+    root = cleanup = None
+    try:
+        if args.data_mode in ("imagefolder", "cached", "both"):
+            from distributed_training_tpu_torch.data.decoded_cache import (
+                DecodedCacheLoader,
+                build_decoded_cache,
+            )
+            from distributed_training_tpu_torch.data.imagefolder import (
+                ImageFolderLoader,
+                scan_imagefolder,
+            )
+
+            if args.data_path:
+                if not os.path.isdir(args.data_path):
+                    raise SystemExit(f"--data-path {args.data_path} does not exist; omit it "
+                                     f"to bench a generated JPEG tree")
+                root = args.data_path
+            else:
+                root = cleanup = tempfile.mkdtemp(prefix="bench_imagefolder_")
+                _jpeg_tree(os.path.join(root, "train"), args.data_images, 8)
+            paths, labels, _ = scan_imagefolder(os.path.join(root, "train"))
+            if args.data_mode != "cached":
+                folder_rate = _timed_epoch(ImageFolderLoader(
+                    paths, labels, global_batch_size=batch, image_size=args.image_size,
+                    augment="pad_crop_flip", train=True, num_workers=args.data_workers))
+            if args.data_mode in ("cached", "both"):
+                cache = os.path.join(root, ".decoded_cache", f"train_{args.image_size}")
+                t0 = time.perf_counter()
+                build_decoded_cache(paths, labels, cache, image_size=args.image_size,
+                                    num_workers=args.data_workers)
+                print(json.dumps({"note": "decoded-cache one-time build", "images": len(paths),
+                                  "seconds": round(time.perf_counter() - t0, 1)}),
+                      file=sys.stderr)
+                cached_rate = _timed_epoch(DecodedCacheLoader(
+                    cache, global_batch_size=batch, augment="pad_crop_flip", train=True))
+        if args.data_mode in ("augment", "both"):
+            rng = np.random.RandomState(0)
+            images = rng.randint(0, 256, (4096, 32, 32, 3), dtype=np.uint8)
+            labels = rng.randint(0, 10, 4096).astype(np.int32)
+            augment_rate = _timed_epoch(ShardedDataLoader(
+                images, labels, global_batch_size=batch, augment="pad_crop_flip",
+                train=True))
+    finally:
+        if cleanup:
+            shutil.rmtree(cleanup, ignore_errors=True)
+    primary = next(r for r in (cached_rate, folder_rate, augment_rate) if r is not None)
+    extras = {}
+    for key, rate in (("cached_images_per_sec", cached_rate),
+                      ("jpeg_decode_images_per_sec", folder_rate),
+                      ("augment_images_per_sec", augment_rate)):
+        if rate is not None and rate is not primary:
+            extras[key] = round(rate, 1)
+    result = {
+        "metric": f"host input pipeline ({args.data_mode}; {os.cpu_count()} core(s), "
+                  f"{args.data_workers} threads, batch {batch})",
+        "value": round(primary, 2),
+        "unit": "images/sec (host)",
+        "vs_baseline": None,
+        **extras,
+    }
+    print(json.dumps(result), flush=True)
+    return result, None
+
+
+def bench_data_concurrent(args, device: torch.device) -> tuple[dict, float]:
+    """The input pipeline while training runs, as the root bench's
+    ``bench_data_concurrent`` measures it: ``--model`` (8 classes, the
+    image leg's bf16 SGD step, no accumulation) trained end to end on
+    decoded-cache batches (``--data-workers`` assembly threads, the device
+    prefetcher at depth 2) from ``--data-images`` JPEGs at 256², while
+    with ``--data-stress`` a second loader over the same cache assembles
+    batches flat out on a thread. ``value`` is the train images/s,
+    ``spare_host_images_per_sec`` what the second loader sustained
+    meanwhile: the host's headroom to feed more."""
+    from distributed_training_tpu_torch.data.decoded_cache import (
+        DecodedCacheLoader,
+        build_decoded_cache,
+    )
+    from distributed_training_tpu_torch.data.prefetch import prefetch_to_device
+
+    batch = args.batch_size  # one card: the global batch
+    # A batch larger than the data would make every epoch empty (drop_last).
+    if args.data_images < 2 * batch:
+        print(f"bench: --data-images {args.data_images} < 2x the batch; raising to "
+              f"{2 * batch}", file=sys.stderr)
+        args.data_images = 2 * batch
+    root = tempfile.mkdtemp(prefix="bench_concurrent_")
+    try:
+        paths, labels = _jpeg_tree(root, args.data_images, None)
+        cache = build_decoded_cache(paths, labels, os.path.join(root, f"cache_{args.image_size}"),
+                                    image_size=args.image_size, num_workers=args.data_workers)
+        args.grad_accum = 1
+        _, state, step = image_train(args, device, 8)
+
+        def loader():
+            return DecodedCacheLoader(cache, global_batch_size=batch, augment="pad_crop_flip",
+                                      train=True, num_workers=args.data_workers)
+
+        def epochs():
+            ld, epoch = loader(), 0
+            while True:
+                ld.set_epoch(epoch)
+                yield from ld
+                epoch += 1
+
+        stress_count = [0]
+        stop = threading.Event()
+
+        def stress():
+            ld, epoch = loader(), 100
+            while not stop.is_set():
+                ld.set_epoch(epoch)
+                for b in ld:
+                    stress_count[0] += len(b["label"])
+                    if stop.is_set():
+                        return
+                epoch += 1
+
+        it = iter(prefetch_to_device(epochs(), device, 2))
+        try:
+            for _ in range(args.warmup):
+                metrics = step(state, next(it))
+            if args.warmup:
+                float(metrics["loss"])
+            worker = threading.Thread(target=stress, name="bench-stress", daemon=True)
+            t0 = time.perf_counter()
+            if args.data_stress:
+                worker.start()
+            for i in range(args.steps):
+                metrics = step(state, next(it))
+                if args.sync_interval > 0 and (i + 1) % args.sync_interval == 0:
+                    float(metrics["loss"])
+            loss = float(metrics["loss"])
+            dt = time.perf_counter() - t0
+            stop.set()
+            if args.data_stress:
+                worker.join(timeout=60)
+        finally:
+            stop.set()
+            it.close()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    img_s = args.steps * batch / dt
+    result = {
+        "metric": f"{args.model} end-to-end train on decoded cache (real batches, "
+                  f"{args.data_workers} workers, prefetch 2, batch {batch}/chip, "
+                  f"{_where(device)})" + (" + concurrent stress loader" if args.data_stress else ""),
+        "value": round(img_s, 2),
+        "unit": "images/sec/chip",
+        "vs_baseline": None,
+    }
+    if args.data_stress:
+        result["spare_host_images_per_sec"] = round(stress_count[0] / dt, 1)
     print(json.dumps(result), flush=True)
     return result, loss
 
@@ -302,23 +548,11 @@ def build_parser() -> argparse.ArgumentParser:
 
 def unported(args) -> list[str]:
     """The flags set to something the port cannot honour yet."""
-    defaults = build_parser().parse_args([])
-    data = [f"--{name.replace('_', '-')}" for name in (
-        "data_stress", "data_mode", "data_path", "data_images", "data_workers",
-        "data_batch_size") if getattr(args, name) != getattr(defaults, name)]
     flags = {
-        "--remat (activation checkpointing, A5)": args.remat,
-        "--remat-policy (A5)": args.remat_policy is not None,
-        "--param-dtype bf16 (bf16 master weights)": args.param_dtype == "bf16",
         "--tp (tensor parallelism, A7)": args.tp != 1,
         "--tp-overlap (A7)": args.tp_overlap,
-        "--ce-chunk (chunked CE, A7)": args.ce_chunk is not None,
-        "--ce-save-probs (A7)": args.ce_save_probs,
-        "--data-only (the host input pipeline, A6)": args.data_only,
-        "--data-concurrent (A6)": args.data_concurrent,
         "--check (BENCH_BASELINE.json holds a TPU's numbers)": args.check,
         "--steps-per-call > 1 (a CUDA graph of the step)": args.steps_per_call != 1,
-        **{f"{flag} (A6)": True for flag in data},
     }
     return [k for k, v in flags.items() if v]
 
@@ -330,11 +564,14 @@ def main(argv: list[str] | None = None) -> list[tuple[dict, float]]:
     bad = unported(args)
     if bad:
         raise NotImplementedError(f"not ported yet (see ROADMAP.md): {', '.join(bad)}")
+    if args.data_only:  # the host alone
+        return [bench_data_only(args)]
     from distributed_training_tpu_torch.utils.device import resolve_device, set_fp32_math
 
     device = resolve_device(args.device)
     set_fp32_math()
-    legs = ([bench_lm] if args.lm else [bench_image] if args.image
+    legs = ([bench_data_concurrent] if args.data_concurrent
+            else [bench_lm] if args.lm else [bench_image] if args.image
             else [bench_image, bench_lm])
     out = []
     for leg in legs:  # each leg gets its own copy of the arguments

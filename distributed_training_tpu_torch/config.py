@@ -128,7 +128,7 @@ class CheckpointConfig:
 @dataclasses.dataclass(frozen=True)
 class DataConfig:
     # cifar10 | synthetic_cifar | synthetic_cifar_hard | synthetic_imagenet
-    # (imagefolder is not ported yet)
+    # | imagefolder (<data_path>/{train,val}/<class>/<image> trees)
     dataset: str = "cifar10"
     data_path: str | None = None  # None → $DATA or ../data
     batch_size: int = 100      # per-device
@@ -140,8 +140,8 @@ class DataConfig:
     drop_last: bool = True
     synthetic_ok: bool = True  # fall back to synthetic data if not on disk
     max_steps_per_epoch: int | None = None  # cap train steps (smoke/bench runs)
-    prefetch: int = 2
-    decoded_cache: bool = False
+    prefetch: int = 2  # batches copied to the device ahead; 0 in the loop
+    decoded_cache: bool = False  # imagefolder: decode once into a uint8 memmap
 
 
 @dataclasses.dataclass(frozen=True)

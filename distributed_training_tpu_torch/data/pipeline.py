@@ -8,12 +8,16 @@ batches. The batches are bitwise identical to the JAX package's.
 
 Host→device copies (:func:`to_device`) go through pinned memory with
 ``non_blocking=True``, so the copy of one batch overlaps the step still
-running on the card. Not ported yet: imagefolder trees, the decoded cache
-and the background prefetch thread.
+running on the card; the trainers copy ahead on a thread of their own
+(``data/prefetch.py``). Besides the in-memory datasets,
+:func:`build_dataloaders` reads imagefolder trees (``data/imagefolder.py``)
+and, with ``data.decoded_cache``, their decoded cache
+(``data/decoded_cache.py``).
 """
 
 from __future__ import annotations
 
+import os
 from typing import Iterator
 
 import numpy as np
@@ -192,15 +196,15 @@ def build_dataloaders(cfg, *, seed: int = 0,
     of the default process group (0 and 1 without one): each process
     loads its own contiguous slice of every global batch.
     """
+    coord = Coordinator()
     if process_index is None or process_count is None:
-        coord = Coordinator()
         process_index, process_count = coord.process_index, coord.process_count
     data = cfg.data
     global_bs = global_batch_size or data.global_batch_size or data.batch_size
     eval_bs = eval_global_batch_size or global_bs
-    if data.dataset == "imagefolder" or data.decoded_cache:
-        raise NotImplementedError(
-            "imagefolder datasets and the decoded cache are not ported yet")
+    shard = dict(process_index=process_index, process_count=process_count)
+    if data.dataset == "imagefolder":
+        return _imagefolder_loaders(data, coord, seed, global_bs, eval_bs, shard)
     if data.dataset == "cifar10":
         tr = cifar10.load_cifar10(data.data_path, train=True,
                                   synthetic_ok=data.synthetic_ok)
@@ -228,3 +232,55 @@ def build_dataloaders(cfg, *, seed: int = 0,
         drop_last=False, augment=data.augment, train=False, seed=seed,
         process_index=process_index, process_count=process_count)
     return train_loader, eval_loader
+
+
+def _imagefolder_loaders(data, coord: Coordinator, seed: int, global_bs: int,
+                         eval_bs: int, shard: dict):
+    """``root/train`` and ``root/val`` class trees (torchvision's layout),
+    decoded a batch at a time on threads or, with ``data.decoded_cache``,
+    decoded once into ``root/.decoded_cache/{train,val}_<size>`` (rank 0
+    first, so processes sharing a filesystem do not race) and read from
+    there."""
+    from distributed_training_tpu_torch.data.imagefolder import (
+        ImageFolderLoader,
+        scan_imagefolder,
+    )
+
+    if not data.data_path:
+        raise ValueError("dataset='imagefolder' requires data_path")
+    tr_paths, tr_labels, classes = scan_imagefolder(os.path.join(data.data_path, "train"))
+    ev_paths, ev_labels, ev_classes = scan_imagefolder(os.path.join(data.data_path, "val"))
+    if classes != ev_classes:
+        raise ValueError(f"train/val class mismatch: {classes} vs {ev_classes}")
+    if len(classes) != data.num_classes:
+        raise ValueError(
+            f"found {len(classes)} classes under {data.data_path}, "
+            f"config says num_classes={data.num_classes}")
+    if not data.decoded_cache:
+        common = dict(image_size=data.image_size, seed=seed,
+                      num_workers=data.num_workers, augment=data.augment, **shard)
+        return (ImageFolderLoader(tr_paths, tr_labels, global_batch_size=global_bs,
+                                  shuffle=True, drop_last=data.drop_last, train=True,
+                                  max_steps=data.max_steps_per_epoch, **common),
+                ImageFolderLoader(ev_paths, ev_labels, global_batch_size=eval_bs,
+                                  shuffle=False, drop_last=False, train=False, **common))
+    from distributed_training_tpu_torch.data.decoded_cache import (
+        DecodedCacheLoader,
+        build_decoded_cache,
+    )
+
+    cache_root = os.path.join(data.data_path, ".decoded_cache")
+    caches = {}
+    with coord.priority_execution("decoded_cache"):
+        for split, paths, labels in (("train", tr_paths, tr_labels),
+                                     ("val", ev_paths, ev_labels)):
+            caches[split] = build_decoded_cache(
+                paths, labels, os.path.join(cache_root, f"{split}_{data.image_size}"),
+                image_size=data.image_size, num_workers=data.num_workers)
+    cached = dict(image_size=data.image_size, seed=seed, augment=data.augment,
+                  num_workers=data.num_workers, **shard)
+    return (DecodedCacheLoader(caches["train"], global_batch_size=global_bs, shuffle=True,
+                               drop_last=data.drop_last, train=True,
+                               max_steps=data.max_steps_per_epoch, **cached),
+            DecodedCacheLoader(caches["val"], global_batch_size=eval_bs, shuffle=False,
+                               drop_last=False, train=False, **cached))

@@ -1,25 +1,35 @@
-"""Batched augmentation on whole uint8 NHWC batches, in numpy.
+"""Batched augmentation on whole uint8 NHWC batches: numpy, with the
+native C++ fast path.
 
-A numpy copy of ``distributed_training_tpu/data/transforms.py``: the
-random draws happen in the same order from the same ``RandomState``, and
-the uint8 → float32 conversion rounds once, as the JAX package's native
-C++ library does (``x·scale + bias``, contracted to a fused multiply-add),
-so the batches are bitwise identical to the JAX package's. That native
-library itself is host code and is not ported yet.
+A copy of ``distributed_training_tpu/data/transforms.py``. The random
+draws happen here, in the same order from the same ``RandomState``, and
+the native library (``ops/native``, multithreaded C++) only moves memory,
+so both paths give the same bytes, and the JAX package's: the uint8 →
+float32 conversion rounds once (``x·scale + bias`` as a fused
+multiply-add, as the native library computes it). ``use_native=None``
+takes the native path when the library builds (:func:`native.available`).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from distributed_training_tpu_torch.ops.native import native
+
+
+def _native(use_native: bool | None) -> bool:
+    return native.available() if use_native is None else use_native
+
 
 def pad_crop_flip(images: np.ndarray, rng: np.random.RandomState,
-                  pad: int = 4) -> np.ndarray:
+                  pad: int = 4, use_native: bool | None = None) -> np.ndarray:
     """Batched Pad(pad) → RandomCrop(original) → RandomHorizontalFlip."""
     n, h, w, c = images.shape
     ys = rng.randint(0, 2 * pad + 1, size=n)
     xs = rng.randint(0, 2 * pad + 1, size=n)
     flips = rng.rand(n) < 0.5
+    if images.dtype == np.uint8 and _native(use_native):
+        return native.pad_crop_flip(images, ys, xs, flips, pad)
     padded = np.pad(
         images, ((0, 0), (pad, pad), (pad, pad), (0, 0)), mode="constant")
     windows = np.lib.stride_tricks.sliding_window_view(padded, (h, w), axis=(1, 2))
@@ -29,10 +39,14 @@ def pad_crop_flip(images: np.ndarray, rng: np.random.RandomState,
     return np.ascontiguousarray(crops)
 
 
-def u8_to_f32(images: np.ndarray, scale: float, bias: float) -> np.ndarray:
-    """``x·scale + bias`` with one rounding to float32. The product of a
-    uint8 and a float32 and its sum with a float32 bias are exact in
-    float64, so rounding that once is the fused multiply-add's result."""
+def u8_to_f32(images: np.ndarray, scale: float, bias: float,
+              use_native: bool | None = None) -> np.ndarray:
+    """``x·scale + bias`` with one rounding to float32. In numpy: the
+    product of a uint8 and a float32 and its sum with a float32 bias are
+    exact in float64, so rounding that once is the fused multiply-add's
+    result."""
+    if images.dtype == np.uint8 and _native(use_native):
+        return native.u8_to_f32(images, scale, bias)
     exact = images.astype(np.float64) * np.float64(np.float32(scale))
     return (exact + np.float64(np.float32(bias))).astype(np.float32)
 

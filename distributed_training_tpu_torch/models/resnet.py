@@ -20,9 +20,10 @@ What it takes to match the Flax model:
 - **Names.** Submodules carry the Flax names (``conv_init``,
   ``stage{i}_block{j}``, ``Conv_0``, ``BatchNorm_1``, ``Dense_0``...), so
   ``bridge.py`` maps one tree onto the other by name.
-- **Precision.** Parameters are float32; ``dtype`` is the compute type
-  (float16 for the fp16 policy). BatchNorm statistics and the logits are
-  float32, as in Flax.
+- **Precision.** Parameters are float32 (``param_dtype``: bf16 for the
+  bench's ``--param-dtype bf16``); ``dtype`` is the compute type (float16
+  for the fp16 policy). BatchNorm statistics and the logits are float32
+  whatever the two, as in Flax.
 - **SyncBN.** The Flax model's ``axis_name`` becomes a process group
   (:func:`set_batchnorm_group`): in training, each :class:`BatchNorm`
   averages its per-channel mean and mean of squares over the ranks with
@@ -38,12 +39,17 @@ What it takes to match the Flax model:
   tick once, and here too: in the recompute each :class:`BatchNorm`
   normalises with the statistics its first forward computed, updates no
   running statistic and, with a group, makes no second all-reduce.
-  (Flax's ``remat_policy="conv"`` is not ported: neither trainer sets it.)
+- **remat_policy="conv"** (Flax's ``save_only_these_names("conv_out")``,
+  which implies remat): the checkpoint of each block keeps the outputs of
+  its convolutions (``torch.utils.checkpoint``'s selective policy,
+  :func:`save_conv_outputs`) and recomputes only the batch norms and
+  ReLUs in the backward, under the same recompute rule for BatchNorm.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 
 import torch
@@ -51,6 +57,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
+from torch.utils.checkpoint import CheckpointPolicy, create_selective_checkpoint_contexts
 
 # Flax's BatchNorm momentum: the weight of the OLD running value.
 BN_MOMENTUM = 0.9
@@ -97,6 +104,13 @@ class Conv(nn.Module):
             # strided 1×1 channels_last conv crashes at some shapes.
             return F.conv2d(x[:, :, ::self.stride, ::self.stride],
                             self.weight.to(self.dtype))
+        if self.stride > 1 and x.shape[2] == x.shape[3] == 1:
+            # On a 1×1 image the SAME conv reads only its centre tap (the
+            # rest is padding): a 1×1 conv with that tap. Written so because
+            # the CPU (oneDNN) bf16 channels_last backward of the padded
+            # strided conv returns garbage weight gradients at this size.
+            c = self.kernel // 2
+            return F.conv2d(x, self.weight[:, :, c:c + 1, c:c + 1].to(self.dtype))
         x, pad = _pad_same(x, self.kernel, self.stride)
         return F.conv2d(x, self.weight.to(self.dtype), stride=self.stride,
                         padding=pad)
@@ -222,9 +236,24 @@ def _recomputing(block: nn.Module):
             m._stats = None
 
 
-def remat_block(block: nn.Module, x: torch.Tensor) -> torch.Tensor:
+# The op the selective-checkpoint policy sees for F.conv2d, below
+# autograd: aten.convolution.default, on the CPU and on the card (cuDNN's
+# own ops run beneath it, out of the policy's sight).
+_CONV_OPS = (torch.ops.aten.convolution.default,)
+REMAT_POLICIES = (None, "conv")
+
+
+def save_conv_outputs(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """The "conv" policy: keep every convolution's output, recompute the
+    rest."""
+    return (CheckpointPolicy.MUST_SAVE if op in _CONV_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_block(block: nn.Module, x: torch.Tensor, policy: str | None = None) -> torch.Tensor:
     """``block(x)`` under a non-reentrant checkpoint whose recompute runs
-    the batch norms in recompute mode (see the module docstring)."""
+    the batch norms in recompute mode (see the module docstring); with
+    ``policy="conv"`` the checkpoint keeps the convolutions' outputs."""
     calls = 0
 
     def run(x):
@@ -235,7 +264,13 @@ def remat_block(block: nn.Module, x: torch.Tensor) -> torch.Tensor:
         with _recomputing(block):
             return block(x)
 
-    return torch.utils.checkpoint.checkpoint(run, x, use_reentrant=False)
+    if policy == "conv":
+        context_fn = functools.partial(create_selective_checkpoint_contexts,
+                                       save_conv_outputs)
+    else:
+        context_fn = torch.utils.checkpoint.noop_context_fn
+    return torch.utils.checkpoint.checkpoint(run, x, use_reentrant=False,
+                                             context_fn=context_fn)
 
 
 class BasicBlock(nn.Module):
@@ -299,11 +334,17 @@ class ResNet(nn.Module):
     def __init__(self, stage_sizes, block_cls, num_classes: int = 10,
                  num_filters: int = 64, stem: str = "imagenet",
                  dtype: torch.dtype = torch.float32, remat: bool = False,
+                 remat_policy: str | None = None,
+                 param_dtype: torch.dtype = torch.float32,
                  generator: torch.Generator | None = None):
         super().__init__()
         if stem not in ("imagenet", "cifar"):
             raise ValueError(f"unknown stem {stem!r}")
-        self.stem, self.dtype, self.remat = stem, dtype, remat
+        if remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"unknown remat_policy {remat_policy!r} (None | 'conv')")
+        self.stem, self.dtype = stem, dtype
+        # A policy implies remat, as in the Flax model.
+        self.remat, self.remat_policy = remat or remat_policy is not None, remat_policy
         # The Flax module's fields, which the FLOP count reads.
         self.stage_sizes, self.block_cls = tuple(stage_sizes), block_cls
         self.num_classes, self.num_filters = num_classes, num_filters
@@ -322,6 +363,8 @@ class ResNet(nn.Module):
                 in_ch = filters * block_cls.expansion
         self.Dense_0 = nn.Linear(in_ch, num_classes)
         self.reset_parameters(generator or torch.Generator().manual_seed(0))
+        for p in self.parameters():  # the buffers (BN statistics) stay float32
+            p.data = p.data.to(param_dtype)
         self.to(memory_format=torch.channels_last)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -343,7 +386,7 @@ class ResNet(nn.Module):
         remat = self.remat and self.training and torch.is_grad_enabled()
         for name, block in self.named_children():
             if name.startswith("stage"):
-                x = remat_block(block, x) if remat else block(x)
+                x = remat_block(block, x, self.remat_policy) if remat else block(x)
         x = x.mean(dim=(2, 3))
         x = F.linear(x, self.Dense_0.weight.to(self.dtype),
                      self.Dense_0.bias.to(self.dtype))

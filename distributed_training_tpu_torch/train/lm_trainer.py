@@ -36,7 +36,6 @@ from distributed_training_tpu_torch.data.lm_text import (
     byte_corpus,
     synthetic_tokens,
 )
-from distributed_training_tpu_torch.data.pipeline import to_device
 from distributed_training_tpu_torch.models import get_model
 from distributed_training_tpu_torch.parallel.zero import Zero
 from distributed_training_tpu_torch.runtime.coordinator import Coordinator
@@ -142,11 +141,10 @@ class LMTrainer(Engine):
                 TokenLoader(evals, global_batch_size=self.eval_gbs,
                             shuffle=False, seed=seed, **shard))
 
-    def place(self, host_batch: dict) -> dict:
-        """A loader batch, shifted into tokens and targets, on the device."""
-        batch = make_lm_batch(host_batch["tokens"])
-        return to_device({k: np.ascontiguousarray(v) for k, v in batch.items()},
-                         self.device)
+    def host_batch(self, batch: dict) -> dict:
+        """A loader batch shifted into tokens and targets."""
+        return {k: np.ascontiguousarray(v)
+                for k, v in make_lm_batch(batch["tokens"]).items()}
 
     # -- eval ---------------------------------------------------------------
     def evaluate(self, loader: TokenLoader) -> float:
@@ -158,7 +156,7 @@ class LMTrainer(Engine):
         ema = self.cfg.optimizer.ema_decay is not None and self.cfg.eval_with_ema
         with self.state.ema_weights() if ema else contextlib.nullcontext():
             self.state.gather_params()
-            losses = [self.eval_loss(self.model, self.place(b)) for b in loader]
+            losses = [self.eval_loss(self.model, b) for b in self._batches(loader)]
             self.state.release_params()
         if not losses:
             raise ValueError(

@@ -136,10 +136,12 @@ _OWN_SLOTS = ("mu", "nu", "trace", "ema")
 @dataclasses.dataclass
 class OptState:
     """The optimizer's state: the committed update count and, by slot, a
-    float32 tensor per parameter name. The slots are ``mu`` and ``nu``
-    (Adam's moments: adam, hybrid_adam, adamw, lamb), ``trace`` (sgd with
-    momentum), ``ema`` (the parameters' EMA) and ``ema_stats`` (the
-    BatchNorm statistics' EMA, by buffer name; the train state keeps it).
+    tensor per parameter name in the parameter's dtype (float32, or bf16
+    for the bench's bf16 parameters, as optax keeps them). The slots are
+    ``mu`` and ``nu`` (Adam's moments: adam, hybrid_adam, adamw, lamb),
+    ``trace`` (sgd with momentum), ``ema`` (the parameters' EMA) and
+    ``ema_stats`` (the BatchNorm statistics' EMA, by buffer name; the
+    train state keeps it).
     A slot reads as an attribute: ``state.mu``."""
 
     count: int
@@ -194,8 +196,7 @@ class Optimizer:
         self.ema_decay = opt.ema_decay
 
     def init(self, params: dict[str, torch.Tensor]) -> OptState:
-        zeros = lambda: {n: torch.zeros_like(p, dtype=torch.float32)  # noqa: E731
-                         for n, p in params.items()}
+        zeros = lambda: {n: torch.zeros_like(p) for n, p in params.items()}  # noqa: E731
         slots = {}
         if self.name in _ADAM_MOMENTS:
             slots["mu"], slots["nu"] = zeros(), zeros()

@@ -32,7 +32,13 @@ wires it:
 - ``wall_clock_breakdown`` (``utils/profiling.py``'s ``WallClock``:
   data, step, log, eval and ckpt, printed per epoch) and ``profile_dir``
   (a ``torch.profiler`` trace of the run);
-- ``remat``, passed to the model.
+- ``remat``, passed to the model (and the image Trainer's
+  ``remat_policy`` argument, to the ResNet);
+- ``data.prefetch``: with ``prefetch ≥ 1`` a worker thread loads each
+  batch and copies it to the device that many batches ahead
+  (``data/prefetch.py``: pinned staging and a copy stream of its own on
+  the card), for training, precise-BN and eval; at 0 each batch is
+  loaded and copied in the loop, under the wall clock's ``data`` phase.
 
 The image Trainer adds precise-BN (``eval_precise_bn_batches``): before
 an eval that reads the live BatchNorm statistics, they are re-estimated
@@ -60,6 +66,7 @@ from distributed_training_tpu_torch.data.pipeline import (
     build_dataloaders,
     to_device,
 )
+from distributed_training_tpu_torch.data.prefetch import prefetch_to_device
 from distributed_training_tpu_torch.models import get_model
 from distributed_training_tpu_torch.models.resnet import (
     BN_MOMENTUM,
@@ -95,7 +102,6 @@ def unported_fields(cfg: TrainConfig) -> dict[str, bool]:
             getattr(mesh, a) != 1
             for a in ("fsdp", "model", "expert", "sequence", "pipe")),
         "tp_overlap": cfg.tp_overlap,
-        "data.decoded_cache": cfg.data.decoded_cache,
         "moe.enabled": cfg.moe.enabled,
     }
 
@@ -144,8 +150,9 @@ class MetricMeter:
 class Engine:
     """The run machinery both trainers share (see the module docstring).
     A subclass sets ``cfg``, ``coord``, ``device``, ``state``, ``meter``,
-    ``train_step`` and calls :meth:`_init_run`; it provides
-    ``place(batch)`` and the print tags ``tag`` and ``epoch_tag``."""
+    ``train_step`` and calls :meth:`_init_run`; it provides the print tags
+    ``tag`` and ``epoch_tag``, and may map each loader batch on the host
+    first (:meth:`host_batch`)."""
 
     def _init_run(self) -> None:
         cfg = self.cfg
@@ -157,6 +164,24 @@ class Engine:
         self._guard: PreemptionGuard | None = None
         self._global_step = 0
         self._epoch_step = 0
+
+    # -- data -----------------------------------------------------------------
+    def host_batch(self, batch: dict) -> dict:
+        """A loader batch as the step takes it, still on the host."""
+        return batch
+
+    def place(self, batch: dict) -> dict:
+        """A loader batch on the device, copied now."""
+        return to_device(self.host_batch(batch), self.device)
+
+    def _batches(self, loader):
+        """The loader's batches on the device: prefetched
+        ``data.prefetch`` ahead on a worker thread, or at 0 placed one by
+        one as they are drawn. A generator; close it to stop the worker."""
+        if self.cfg.data.prefetch < 1:
+            return (self.place(b) for b in loader)
+        return iter(prefetch_to_device(loader, self.device, self.cfg.data.prefetch,
+                                       host=self.host_batch))
 
     # -- checkpoints ----------------------------------------------------------
     def _save_ckpt(self, epoch: int, *, sync: bool = False, **kw) -> None:
@@ -189,23 +214,26 @@ class Engine:
             self.coord.print(f"[{self.tag}] resuming epoch {epoch} at step {skip_steps}")
             loader = SkipBatches(loader, skip_steps)
         self._epoch_step = skip_steps
-        batches = iter(loader)
-        while True:
-            with self.clock.phase("data"):
-                batch = next(batches, None)
+        batches = self._batches(loader)
+        try:
+            while True:
+                # Prefetched, this phase is the wait for the worker.
+                with self.clock.phase("data"):
+                    batch = next(batches, None)
                 if batch is None:
                     break
-                batch = self.place(batch)
-            with self.clock.phase("step"):
-                metrics = self.train_step(self.state, batch)
-            with self.clock.phase("log"):
-                self._global_step += 1
-                self._epoch_step += 1
-                fetched = self.meter.push(self._global_step, metrics)
-                if fetched:
-                    self.metrics_writer.write(self.meter.last["step"], self.meter.last)
-            if self._guard is not None and self._guard.should_stop(at_sync_point=fetched):
-                break
+                with self.clock.phase("step"):
+                    metrics = self.train_step(self.state, batch)
+                with self.clock.phase("log"):
+                    self._global_step += 1
+                    self._epoch_step += 1
+                    fetched = self.meter.push(self._global_step, metrics)
+                    if fetched:
+                        self.metrics_writer.write(self.meter.last["step"], self.meter.last)
+                if self._guard is not None and self._guard.should_stop(at_sync_point=fetched):
+                    break
+        finally:
+            batches.close()
         if self.meter.pending:
             flushed = self.meter.flush()
             self.metrics_writer.write(flushed["step"], flushed)
@@ -286,7 +314,11 @@ class Trainer(Engine):
 
     tag, epoch_tag = "trainer", "train"
 
-    def __init__(self, cfg: TrainConfig, device: str | torch.device | None = None):
+    def __init__(self, cfg: TrainConfig, device: str | torch.device | None = None, *,
+                 remat_policy: str | None = None):
+        """``remat_policy`` goes to the ResNet (``"conv"``: each block saves
+        only its conv outputs); the JAX ``TrainConfig`` has no field for it,
+        so it is an argument here."""
         refuse_unported(unported_fields(cfg))
         self.cfg = cfg
         group = initialize_distributed(device=device)
@@ -298,7 +330,7 @@ class Trainer(Engine):
         gen = torch.Generator().manual_seed(cfg.seed)
         model = get_model(cfg.model, num_classes=cfg.data.num_classes,
                           dtype=policy.compute_dtype, remat=cfg.remat,
-                          generator=gen)
+                          remat_policy=remat_policy, generator=gen)
         self.model = model.to(self.device)
         has_bn = any(isinstance(m, BatchNorm) for m in self.model.modules())
         local_bn = not cfg.sync_batchnorm and has_bn
@@ -352,9 +384,6 @@ class Trainer(Engine):
         statistics (``optimizer.ema_decay`` with ``eval_with_ema``)."""
         return self.cfg.optimizer.ema_decay is not None and self.cfg.eval_with_ema
 
-    def place(self, batch: dict) -> dict:
-        return to_device(batch, self.device)
-
     @torch.no_grad()
     def refresh_batch_stats(self, train_loader, num_batches: int) -> None:
         """Precise-BN (the JAX ``_refresh_batch_stats``): the running
@@ -368,10 +397,10 @@ class Trainer(Engine):
         acc, n = None, 0
         self.state.gather_params()
         model.train()
-        for batch in itertools.islice(iter(train_loader), num_batches):
+        for batch in self._batches(itertools.islice(iter(train_loader), num_batches)):
             for b in stats.values():
                 b.zero_()
-            model(_input_images(self.place(batch), self.input_affine))
+            model(_input_images(batch, self.input_affine))
             ticked = {k: b / (1.0 - BN_MOMENTUM) for k, b in stats.items()}
             acc = ticked if acc is None else {k: acc[k] + v for k, v in ticked.items()}
             n += 1
@@ -392,8 +421,8 @@ class Trainer(Engine):
         sums = torch.zeros(3, device=self.device)
         with (self.state.ema_weights() if self.uses_ema()
               else contextlib.nullcontext()):
-            for batch in loader:
-                c, c5, t = self.eval_step(self.state, self.place(batch))
+            for batch in self._batches(loader):
+                c, c5, t = self.eval_step(self.state, batch)
                 sums += torch.stack([c, c5, t])
             self.state.release_params()
         correct, correct5, total = sums.tolist()

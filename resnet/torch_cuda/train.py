@@ -15,10 +15,13 @@ this script imports nothing of the JAX package):
   ``--profile-dir``, ``--tensorboard-dir`` and ``--metrics-jsonl`` all
   work; SIGTERM saves a step-accurate checkpoint that ``--auto-resume``
   picks up;
+- ``--dataset imagefolder --data-path <root>`` reads ``<root>/train`` and
+  ``<root>/val`` class trees at ImageNet's size and classes by default
+  (decoding needs Pillow), and ``--decoded-cache`` decodes them once into
+  ``<root>/.decoded_cache`` and trains from there;
 - the flags of what the port lacks (MoE, chaos, the flight recorder and
-  the other observability instruments, span traces, imagefolder, the
-  decoded cache) raise ``NotImplementedError`` naming ROADMAP.md; none is
-  silently ignored. ``--flight-recorder`` therefore defaults to off, where
+  the other observability instruments, span traces) raise
+  ``NotImplementedError`` naming ROADMAP.md; none is silently ignored. ``--flight-recorder`` therefore defaults to off, where
   the JAX CLI's is on.
 
 It runs on the card (``cuda:LOCAL_RANK`` under a launcher such as
@@ -27,6 +30,8 @@ It runs on the card (``cuda:LOCAL_RANK`` under a launcher such as
 
     python train.py -p torch_ddp_fp16 -c ./ckpt-fp16      # run.sh
     python train.py -p deepspeed --dtype bf16 --stage 2 --optimizer sgd --lr 0.1
+    python train.py --model resnet50 --dataset imagefolder --data-path /data/imagenet \
+        --decoded-cache --dtype bf16 -b 256
 """
 
 from __future__ import annotations
@@ -293,11 +298,8 @@ def unported_flags(args: argparse.Namespace) -> list[str]:
     moe = ("moe", "ep_world_size", "num_experts", "mlp_type", "top_k",
            "min_capacity", "noisy_gate_policy", "moe_param_group")
     chaos = tuple(k for k in vars(defaults) if k.startswith("chaos_"))
-    bad = [f"--{k.replace('_', '-')}" for k in (*moe, *chaos, *observability, "decoded_cache")
-           if getattr(args, k) != getattr(defaults, k)]
-    if args.dataset == "imagefolder":
-        bad.append("--dataset imagefolder")
-    return bad
+    return [f"--{k.replace('_', '-')}" for k in (*moe, *chaos, *observability)
+            if getattr(args, k) != getattr(defaults, k)]
 
 
 def build_config(args: argparse.Namespace):
@@ -324,7 +326,7 @@ def build_config(args: argparse.Namespace):
     elif args.dtype != "fp32":
         cfg = cfg.replace(precision=dataclasses.replace(cfg.precision, dtype=args.dtype))
 
-    imagenet_style = args.dataset == "synthetic_imagenet"
+    imagenet_style = args.dataset in ("synthetic_imagenet", "imagefolder")
     cfg = cfg.replace(
         model=args.model,
         num_epochs=args.epochs,
@@ -348,7 +350,7 @@ def build_config(args: argparse.Namespace):
             augment="normalize_only" if args.plugin == "deepspeed" else "pad_crop_flip",
             image_size=args.image_size or (224 if imagenet_style else 32),
             num_classes=args.num_classes or (1000 if imagenet_style else 10),
-            max_steps_per_epoch=args.steps_per_epoch),
+            max_steps_per_epoch=args.steps_per_epoch, decoded_cache=args.decoded_cache),
     )
     # Optimizer overrides on top of the plugin preset (None = keep preset).
     opt_overrides = {k: v for k, v in (

@@ -8,7 +8,10 @@
 - ``python -m distributed_training_tpu_torch.bench``: the root bench's
   parser (names and defaults, ``--steps-per-call`` 1), a bare run with
   ``--device cpu`` at a tiny size printing one JSON line per leg with the
-  root bench's keys, and every flag the port cannot honour raising.
+  root bench's keys, the image leg's remat and bf16-parameter flags, the
+  LM leg's chunked and saved-probabilities CE, the data modes
+  (``--data-only`` in each mode, ``--data-concurrent``) with the root
+  bench's keys, and every flag the port cannot honour raising.
 """
 
 import importlib.util
@@ -146,14 +149,113 @@ def test_image_leg_honours_zero_offload_and_input_dtype(capsys, flags, tag):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--check"], ["--remat"], ["--remat-policy", "conv"], ["--param-dtype", "bf16"],
-    ["--tp", "2"], ["--tp-overlap"], ["--ce-chunk", "8"], ["--ce-save-probs"],
-    ["--data-only"], ["--data-concurrent"], ["--data-path", "x"], ["--data-mode", "augment"],
-    ["--steps-per-call", "15"],
+    ["--check"], ["--tp", "2"], ["--tp-overlap"], ["--steps-per-call", "15"],
 ], ids=lambda f: f[0])
 def test_unported_flags_raise(flags):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         bench.main(["--device", "cpu", *flags])
+
+
+@pytest.mark.parametrize("flags,tag", [
+    (["--remat"], ", remat,"),
+    (["--remat-policy", "conv"], ", remat:conv,"),
+    (["--param-dtype", "bf16"], ", params:bf16,"),
+], ids=["remat", "remat_policy_conv", "param_dtype_bf16"])
+def test_image_leg_runs_remat_and_bf16_params(capsys, flags, tag):
+    """The image leg's remat flags build the ResNet with them, and
+    ``--param-dtype bf16`` keeps its parameters and SGD momentum in bf16
+    with float32 BatchNorm statistics, as the Flax model with
+    ``param_dtype=bf16`` does; each tag is in the metric, as the root
+    bench writes it."""
+    (line, loss), = bench.main([*TINY, "--image", "--steps", "1", *flags])
+    assert tag in line["metric"] and line["value"] > 0 and np.isfinite(loss)
+    args = bench.build_parser().parse_args([*TINY, *flags])
+    model, state, _, _ = bench.image_step(args, torch.device("cpu"))
+    bf16 = "bf16" in flags
+    assert {p.dtype for p in model.parameters()} == {torch.bfloat16 if bf16 else torch.float32}
+    assert {b.dtype for b in model.buffers()} == {torch.float32}
+    assert {t.dtype for t in state.opt_state.trace.values()} == {
+        torch.bfloat16 if bf16 else torch.float32}
+    assert model.remat and model.remat_policy == ("conv" if "conv" in flags else None) \
+        or bf16 and not model.remat
+
+
+@pytest.mark.parametrize("flags,tag,kw", [
+    (["--ce-chunk", "4"], ", chunked CE,", dict(ce_chunk=4, ce_save_probs=False)),
+    (["--ce-save-probs", "--logits-dtype", "fp32"], ", ce-probs,",
+     dict(ce_chunk=None, ce_save_probs=True)),
+], ids=["ce_chunk", "ce_save_probs"])
+def test_lm_leg_runs_the_chunked_and_saved_probabilities_ce(monkeypatch, flags, tag, kw):
+    """The flags reach the LM step (the arguments it is made with) and the
+    metric. The leg's GPT is cut to one layer of width 32 here, its
+    vocabulary kept: the full width's CPU step is the bare run's test."""
+    from distributed_training_tpu_torch import models
+    from distributed_training_tpu_torch.train import lm_step
+
+    get_model, make_step, seen = models.get_model, lm_step.make_lm_train_step, {}
+
+    def small(name, **model_kw):
+        return get_model(name, **{**model_kw, "num_layers": 1, "num_heads": 2,
+                                  "hidden_dim": 32})
+
+    def step(**step_kw):
+        seen.update(step_kw)
+        return make_step(**step_kw)
+
+    monkeypatch.setattr(models, "get_model", small)
+    monkeypatch.setattr(lm_step, "make_lm_train_step", step)
+    (line, loss), = bench.main([*TINY, "--lm", "--steps", "1", *flags])
+    assert tag in line["metric"] and line["value"] > 0 and np.isfinite(loss)
+    assert {k: seen[k] for k in kw} == kw
+
+
+DATA = ["--data-images", "16", "--data-batch-size", "4", "--data-workers", "2",
+        "--image-size", "16"]
+
+
+@pytest.mark.parametrize("mode,extras", [
+    ("imagefolder", set()), ("cached", set()), ("augment", set()),
+    ("both", {"jpeg_decode_images_per_sec", "augment_images_per_sec"}),
+])
+def test_data_only_prints_the_root_keys(capsys, mode, extras):
+    """``--data-only`` over a generated JPEG tree: one JSON line with the
+    root bench's keys, the primary rate the cached path's when it ran,
+    ``vs_baseline`` null (the root's device rate is a TPU's)."""
+    (line, loss), = bench.main(["--data-only", "--data-mode", mode, *DATA])
+    printed = [json.loads(x) for x in capsys.readouterr().out.splitlines() if x.startswith("{")]
+    assert printed == [line] and loss is None
+    assert set(line) == {"metric", "value", "unit", "vs_baseline"} | extras
+    assert line["unit"] == "images/sec (host)" and line["vs_baseline"] is None
+    assert line["value"] > 0 and f"({mode};" in line["metric"]
+    assert all(line[k] > 0 for k in extras)
+
+
+def test_data_only_reads_a_given_tree(tmp_path):
+    from torch_image_tree import write_tree
+
+    root = write_tree(tmp_path / "tree")
+    (line, _), = bench.main(["--data-only", "--data-mode", "cached", "--data-path", root,
+                             *DATA])
+    assert line["value"] > 0
+    assert os.path.exists(os.path.join(root, ".decoded_cache", "train_16.npy"))
+    with pytest.raises(SystemExit, match="does not exist"):
+        bench.main(["--data-only", "--data-path", str(tmp_path / "none"), *DATA])
+
+
+@pytest.mark.parametrize("stress", [True, False], ids=["stress", "no_stress"])
+def test_data_concurrent_trains_on_the_decoded_cache(capsys, stress):
+    """``--data-concurrent``: training on decoded-cache batches through the
+    prefetcher, with the stress loader's spare host rate beside it."""
+    argv = [*TINY, "--data-concurrent", "--steps", "3", "--warmup", "1", *DATA,
+            "--batch-size", "4"]
+    (line, loss), = bench.main(argv + ([] if stress else ["--no-data-stress"]))
+    keys = {"metric", "value", "unit", "vs_baseline"}
+    assert set(line) == keys | ({"spare_host_images_per_sec"} if stress else set())
+    assert line["unit"] == "images/sec/chip" and line["vs_baseline"] is None
+    assert line["value"] > 0 and np.isfinite(loss)
+    assert ("stress loader" in line["metric"]) == stress
+    if stress:
+        assert line["spare_host_images_per_sec"] >= 0
 
 
 def test_without_device_raises_without_cuda(monkeypatch):

@@ -150,8 +150,11 @@ def test_cli_flags_are_the_jax_clis():
      "--gradient-accumulation-steps", "2", "--auto-resume", "--seed", "3"],
     ["--remat", "--precise-bn-batches", "2", "--wall-clock-breakdown", "--profile-dir", "p",
      "--tensorboard-dir", "tb", "--metrics-jsonl", "m.jsonl"],
+    ["--dataset", "imagefolder", "--data-path", "/d", "--decoded-cache", "--model", "resnet50"],
+    ["-p", "deepspeed", "--dataset", "imagefolder", "--data-path", "/d", "--image-size", "160",
+     "--num-classes", "100"],
 ], ids=["defaults", "deepspeed_bf16_s2", "resume_target", "sgd_ema", "lamb_imagenet",
-        "trainer_features"])
+        "trainer_features", "imagefolder_cached", "imagefolder_deepspeed"])
 def test_cli_builds_the_jax_clis_config(argv):
     want = JAX_CLI.build_config(_jax_args(argv))
     got = PORT_CLI.build_config(PORT_CLI.build_parser().parse_args(argv))
@@ -162,7 +165,7 @@ def test_cli_builds_the_jax_clis_config(argv):
     ["--moe"], ["--num-experts", "4"], ["--top-k", "2"], ["--chaos-kill-at-step", "3"],
     ["--chaos-data-error-rate", "0.1"], ["--flight-recorder"], ["--flight-dir", "f"],
     ["--trace"], ["--metrics-port", "0"], ["--grad-norm-metric"], ["--anomaly-detection"],
-    ["--dataset", "imagefolder"], ["--decoded-cache"],
+    ["--trace-dir", "t"], ["--ep-world-size", "2"],
 ], ids=lambda a: a[0].lstrip("-"))
 def test_cli_refuses_what_the_port_lacks(argv):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -198,3 +201,22 @@ def test_cli_runs_the_trainer_feature_flags(tmp_path, flag):
         assert [x["prefix"] for x in lines] == ["train", "train", "eval"]
     elif flag[0] in ("--profile-dir", "--tensorboard-dir"):
         assert os.listdir(flag[1])
+
+
+@pytest.mark.parametrize("cached", [True, False], ids=["decoded_cache", "live_decode"])
+def test_cli_trains_on_an_imagefolder_tree(tmp_path, cached):
+    """``--dataset imagefolder`` (and ``--decoded-cache``) for one short
+    epoch on a tiny tree: every step committed, the checkpoint saved, the
+    cache written under ``<root>/.decoded_cache``."""
+    from torch_image_tree import write_tree
+
+    root = write_tree(tmp_path / "tree")
+    out = PORT_CLI.main([
+        "--device", "cpu", "--model", "resnet_micro", "--dataset", "imagefolder",
+        "--data-path", root, "--num-classes", "2", "--image-size", "16", "-b", "4", "-e", "1",
+        "-c", str(tmp_path / "ck"), "-i", "1", "--dtype", "bf16",
+        "--optimizer", "hybrid_adam", "--log-interval", "1"]
+        + (["--decoded-cache"] if cached else []))
+    assert out["steps"] == 3 and 0.0 <= out["final_acc"] <= 1.0
+    assert os.path.isdir(tmp_path / "ck" / "epoch_0")
+    assert os.path.exists(os.path.join(root, ".decoded_cache", "train_16.npy")) == cached

@@ -129,7 +129,26 @@ def test_to_device_on_cpu_keeps_values():
         np.testing.assert_array_equal(dev[k].numpy(), batch[k])
 
 
-def test_unported_datasets_raise():
-    cfg = TrainConfig(data=DataConfig(dataset="imagefolder", data_path="/x"))
-    with pytest.raises(NotImplementedError):
-        pipeline.build_dataloaders(cfg)
+@pytest.mark.parametrize("cached", [False, True], ids=["imagefolder", "decoded_cache"])
+def test_unported_datasets_raise(tmp_path, cached):
+    """Once refused, now built: ``build_dataloaders`` reads an imagefolder
+    tree, live or through its decoded cache, into loaders whose batches
+    have the image shape and labels of the tree (held against the JAX
+    package in test_torch_decoded_cache.py)."""
+    from torch_image_tree import write_tree
+
+    from distributed_training_tpu_torch.data.decoded_cache import DecodedCacheLoader
+    from distributed_training_tpu_torch.data.imagefolder import ImageFolderLoader
+
+    root = write_tree(tmp_path / "tree", 3, 2)
+    cfg = TrainConfig(data=DataConfig(dataset="imagefolder", data_path=root, num_classes=2,
+                                      image_size=16, batch_size=2, decoded_cache=cached))
+    train, evals = pipeline.build_dataloaders(cfg)
+    kind = DecodedCacheLoader if cached else ImageFolderLoader
+    assert isinstance(train, kind) and isinstance(evals, kind)
+    batches = list(train)
+    assert len(batches) == 3 and len(list(evals)) == 2
+    image = batches[0]["image"]
+    assert image.shape == (2, 16, 16, 3)
+    assert image.dtype == (np.uint8 if cached else np.float32)
+    assert sorted(np.concatenate([b["label"] for b in batches]).tolist()) == [0, 0, 0, 1, 1, 1]

@@ -7,6 +7,9 @@
   operations on the same inputs).
 - ResNet's BatchNorm running statistics tick once a training step under
   remat: equal, bit for bit, to those of the run without it.
+- ResNet with ``remat_policy="conv"`` (the convolutions' outputs kept):
+  bit for bit the plain model's, no convolution recomputed, and against
+  the Flax model's conv policy on bridged weights.
 - GPT with dropout 0.1: under remat the recompute draws the same masks as
   the forward, so the gradients equal the no-remat run's bit for bit; a
   different step seed draws other masks.
@@ -109,3 +112,119 @@ def test_dropout_rate_zero_is_identity_and_eval_is_deterministic():
     half.train()
     with pytest.raises(ValueError, match="generator"):
         half(toks)
+
+
+# remat_policy="conv": each block keeps its convolutions' outputs and
+# recomputes its batch norms and ReLUs in the backward.
+
+def _conv_policy_run(policy_kw, x, y, load=None):
+    model = get_model("resnet_micro", generator=torch.Generator().manual_seed(0), **policy_kw)
+    if load is not None:
+        load(model)
+    model.train()
+    loss = torch.nn.functional.cross_entropy(model(x), y)
+    from torch.profiler import profile
+
+    with profile() as prof:
+        loss.backward()
+    # CPU convolutions run as aten::mkldnn_convolution beneath aten::_convolution.
+    recomputed = sum(e.count for e in prof.key_averages() if e.key == "aten::_convolution")
+    return (model, loss.detach(), {n: p.grad.clone() for n, p in model.named_parameters()},
+            {n: b.clone() for n, b in model.named_buffers()}, recomputed)
+
+
+def _xy(seed=2):
+    rng = np.random.RandomState(seed)
+    return (torch.from_numpy(rng.rand(4, 32, 32, 3).astype(np.float32)),
+            torch.from_numpy(rng.randint(0, 10, 4)))
+
+
+def test_resnet_conv_policy_keeps_convs_and_equals_plain_bitwise():
+    """Bit for bit in float32 against the plain model (the backward runs
+    the same operations on the same saved or recomputed values); the
+    BatchNorm statistics tick once; plain remat recomputes all 11 block
+    convolutions in the backward, the conv policy none of them."""
+    x, y = _xy()
+    _, loss, grads, bufs, plain_convs = _conv_policy_run({}, x, y)
+    _, loss_r, _, _, remat_convs = _conv_policy_run(dict(remat=True), x, y)
+    model, loss_c, grads_c, bufs_c, conv_convs = _conv_policy_run(dict(remat_policy="conv"), x, y)
+    assert model.remat and model.remat_policy == "conv"
+    assert (plain_convs, remat_convs, conv_convs) == (0, 11, 0)
+    assert torch.equal(loss, loss_c) and torch.equal(loss, loss_r)
+    for n in grads:
+        assert torch.equal(grads[n], grads_c[n]), n
+    for n in bufs:
+        assert torch.equal(bufs[n], bufs_c[n]), n
+    # Names are the plain model's: checkpoints and the bridge carry over.
+    assert list(dict(model.named_parameters())) == list(grads)
+
+
+def test_resnet_conv_policy_grads_match_jax_conv_policy():
+    """Against the Flax ResNet with ``remat_policy="conv"`` on bridged
+    weights: the loss within 1e-5 and each gradient within atol 1e-5 +
+    rtol 1e-4 (float32 on the CPU, XLA's and oneDNN's convolutions summing
+    in different orders; the largest difference measured, 2.8e-6, is a
+    sixth of that), the ticked statistics within 1e-5."""
+    import jax
+    import jax.numpy as jnp
+
+    from distributed_training_tpu.models import get_model as jax_model
+    from distributed_training_tpu_torch import bridge
+
+    x, y = _xy(3)
+    # The port's initial weights, BatchNorm scales and offsets perturbed
+    # (each block's zero-initialised last scale would hide its branch),
+    # carried to Flax through the bridge.
+    base = get_model("resnet_micro", generator=torch.Generator().manual_seed(0))
+    rs = np.random.RandomState(5)
+    with torch.no_grad():
+        for n, p in base.named_parameters():
+            if p.dim() == 1:
+                p.add_(torch.from_numpy(0.1 * rs.randn(*p.shape).astype(np.float32)))
+    params, stats0 = bridge.state_dict_to_flax(base)
+    jm = jax_model("resnet_micro", remat_policy="conv")
+
+    def loss_fn(p):
+        logits, mut = jm.apply({"params": p, "batch_stats": stats0},
+                               jnp.asarray(x.numpy()), train=True, mutable=["batch_stats"])
+        onehot = jax.nn.one_hot(jnp.asarray(y.numpy()), 10)
+        return -jnp.mean(jnp.sum(onehot * jax.nn.log_softmax(logits), -1)), mut
+
+    (jloss, mut), jgrads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(params)
+    model, loss, grads, _, _ = _conv_policy_run(
+        dict(remat_policy="conv"), x, y,
+        load=lambda m: m.load_state_dict(base.state_dict()))
+    np.testing.assert_allclose(loss.item(), float(jloss), rtol=1e-5)
+    got = bridge.named_to_flax_tree(model, grads)
+    jax.tree.map(lambda a, b: np.testing.assert_allclose(b, np.asarray(a), rtol=1e-4, atol=1e-5),
+                 jax.device_get(jgrads), got)
+    _, stats = bridge.state_dict_to_flax(model)
+    jax.tree.map(lambda a, b: np.testing.assert_allclose(b, np.asarray(a), rtol=1e-5, atol=1e-5),
+                 jax.device_get(mut["batch_stats"]), stats)
+
+
+def test_unknown_remat_policy_raises():
+    with pytest.raises(ValueError, match="remat_policy"):
+        get_model("resnet_micro", remat_policy="dots")
+
+
+def test_trainer_takes_the_conv_policy(tmp_path):
+    """The image Trainer builds its ResNet with ``remat_policy``; its
+    losses and weights equal the run without, bit for bit."""
+    from distributed_training_tpu_torch import Trainer
+    from distributed_training_tpu_torch.config import CheckpointConfig, DataConfig, TrainConfig
+
+    runs = []
+    for policy in (None, "conv"):
+        cfg = TrainConfig(model="resnet_micro", num_epochs=1, log_interval=1, eval_every=0,
+                          data=DataConfig(dataset="synthetic_cifar", batch_size=8,
+                                          max_steps_per_epoch=3),
+                          checkpoint=CheckpointConfig(directory=str(tmp_path / str(policy)),
+                                                      interval=0))
+        trainer = Trainer(cfg, device="cpu", remat_policy=policy)
+        assert trainer.model.remat_policy == policy and trainer.model.remat == bool(policy)
+        trainer.fit()
+        runs.append(([h["loss"] for h in trainer.meter.history],
+                     [p.detach().clone() for p in trainer.model.parameters()]))
+    assert runs[0][0] == runs[1][0] and len(runs[0][0]) == 3
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))

@@ -75,6 +75,49 @@ def test_resnet_micro_matches_flax(stem, size):
     _compare("resnet_micro", stem, size, tol_train=1e-4)
 
 
+def test_resnet_micro_matches_flax_where_the_last_stage_is_1x1():
+    """At 16² the imagenet stem leaves the last stage's strided 3×3 conv a
+    1×1 image, which the port computes as its centre tap."""
+    _compare("resnet_micro", "imagenet", 16, tol_train=1e-4)
+
+
+@pytest.mark.parametrize("stride", [2, 3])
+def test_conv_on_a_1x1_image_is_its_centre_tap(stride):
+    """The strided SAME conv of a 1×1 image against the padded conv it
+    stands for.
+    In bf16 channels_last, where the CPU's own backward of the padded
+    strided conv returns garbage weight gradients, the weight gradient is
+    within bf16 rounding (2**-6 of the largest, over 20 draws) of the
+    float32 one on the same bf16 inputs. In float32 the output and both
+    gradients are within 1e-6 (oneDNN sums the 8 products in another order
+    for the 1×1 conv than for the padded 3×3 one)."""
+    from distributed_training_tpu_torch.models.resnet import Conv
+
+    gen = torch.Generator().manual_seed(0)
+    for dtype in (torch.float32, torch.bfloat16):
+        conv = Conv(8, 16, 3, stride, dtype=dtype)
+        conv.reset_parameters(gen)
+        conv.to(memory_format=torch.channels_last)
+        for _ in range(20 if dtype == torch.bfloat16 else 1):
+            x = torch.randn(4, 8, 1, 1, generator=gen).to(memory_format=torch.channels_last)
+            g = torch.randn(4, 16, 1, 1, generator=gen)
+            conv.weight.grad = None
+            xa = x.clone().requires_grad_()
+            (conv(xa).float() * g).sum().backward()
+            w = conv.weight.detach().to(dtype).float().requires_grad_()
+            xb = x.to(dtype).float().requires_grad_()
+            y = torch.nn.functional.conv2d(xb, w, stride=stride, padding=1)
+            (y * g).sum().backward()
+            if dtype == torch.float32:  # the 8 products summed in another order
+                torch.testing.assert_close(conv(x), y.detach(), rtol=1e-6, atol=1e-6)
+                torch.testing.assert_close(conv.weight.grad, w.grad, rtol=1e-6, atol=1e-6)
+                torch.testing.assert_close(xa.grad, xb.grad, rtol=1e-6, atol=1e-6)
+            else:
+                err = (conv.weight.grad.float() - w.grad).abs().max()
+                assert torch.isfinite(conv.weight.grad).all()
+                assert err <= 2 ** -6 * w.grad.abs().max(), err
+
+
 def test_resnet18_matches_flax():
     _compare("resnet18", "imagenet", 32, tol_train=1e-2)
 
