@@ -50,6 +50,20 @@ Phases, in order; any failure exits non-zero and prints no result line:
    could take, with TFLOP/s, the share of the bound, and their times
    before the tensor-core redesign; then at every shape of
    ``flash_kernel_bench`` the split pair's backward beside K3's;
+6b. ring phase: ring attention (``parallel/ring_attention.py``, the
+   sequence strategy's attention) over P virtual ranks in one process,
+   through the package's own hop and merge (``ring_attention_virtual``:
+   each rank's hops in ring order, K2 causal on the diagonal block and
+   not on past blocks, no kernel on future ones, the float32 ``logaddexp``
+   merge), forward and backward through autograd (K3 with a nonzero lse
+   cotangent), at GPT-2-small's attention shape (B 16, H 12, T 1024, d
+   64, bf16, causal) with P 2 and 4, and at the flash bench's long shape
+   (B 2, H 12, T 16384) with P 4 (T_local 4096); out, dq, dk and dv (dk
+   and dv summed over the ranks that saw each block) against one
+   unsharded ``flash_attention`` call on K2/K3, and on the first two heads
+   against the plain version, by row within the flash tolerances; K2 and K3 launched once a hop that runs (counted from 0
+   around the checked run); each rank's hop times against the unsharded
+   call's over P;
 7. LM phase: ``LMTrainer.fit()`` on GPT-2-small at full width (12 layers,
    hidden 768, 12 heads, vocab 50304, T 1024, batch 16, bf16,
    ``attn_impl="flash"``, ``hybrid_adam``), 10 steps and an eval of 2
@@ -129,10 +143,18 @@ Phases, in order; any failure exits non-zero and prints no result line:
 11. K5's time at each probe shape beside its yardsticks and its time
    before the tensor-core redesign, a ``{"kernels": [...]}`` line (six
    kernels, each with its launches by path, its fp16 time, its d-256 and
-   d-512 times and its tensor-core instantiations), then the card line,
+   d-512 times and its tensor-core instantiations; K2 and K3 with their
+   ring launches and each rank's hop times), then the card line,
    and last ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits with code 2 before doing anything.
+
+``torchrun --nproc-per-node W chip_smoke.py --mesh`` (W 2 or 4 GPUs)
+runs instead the LM trainer's strategies across the ranks over NCCL
+(:func:`mesh_main`): data parallelism, the ring over W ranks, TP over W
+with and without the overlap schedule, and at W 4 TP×SP (overlapped too)
+and TP×DP, through the GPT CLI at GPT-2-small width, each against data
+parallelism's losses; then the bench's LM leg with ``--tp W``.
 """
 
 from __future__ import annotations
@@ -872,6 +894,152 @@ def flash_kernel_phase() -> dict:
     del q, k, v, g, out, lse, delta, dq
     torch.cuda.empty_cache()
     result["flash_bwd_dq"]["bench_shapes"] = _split_vs_fused(gen)
+    return result
+
+
+# The ring phase's configurations: (name, B, H, T, virtual ranks P). The
+# GPT-2-small attention shape at P 2 and 4, and the flash bench's long
+# shape (BH 24, T 16384) at P 4, T_local 4096.
+RING_CONFIGS = (("gpt2_small_p2", GPT_B, GPT_H, GPT_T, 2),
+                ("gpt2_small_p4", GPT_B, GPT_H, GPT_T, 4),
+                ("long_t16384_p4", 2, GPT_H, 16384, 4))
+
+
+# The ring against the plain version: on the first two (batch, head)
+# slices. The ring and the unsharded K2/K3 call both round p to bf16 in
+# the kernels' tiles; the plain version keeps float32 scores and rounds its
+# own out once, so its backward's delta = rowsum(dO · out) differs from
+# theirs, and in a row where dP − delta cancels, dq's relative error grows:
+# over all 192 × 1024 rows at P 2 the ring against the plain version read
+# 0.276 by row on an H100 80GB HBM3 at 700 W, while the ring against the
+# unsharded K2/K3 call read 0.043 (so the unsharded call itself lies over
+# 0.17 from the plain version in some row; LSE_GRAD_TOL's note says the
+# same of two runs with their own out). On two slices (2048 to 32768 rows)
+# all three comparisons read 0.024–0.053 there. Every head stays held
+# against the unsharded K2/K3 call.
+RING_PLAIN_HEADS = 2
+
+
+def _out_and_grads(fn, q, k, v, g) -> list:
+    """``[out, dq, dk, dv]`` of ``fn(q, k, v)`` with the output cotangent
+    ``g``, through autograd, each as ``[BH, T, d]``."""
+    xs = [x.detach().requires_grad_() for x in (q, k, v)]
+    out = fn(*xs)
+    out.backward(g)
+    return [t.reshape(-1, *t.shape[-2:]) for t in (out.detach(), *(x.grad for x in xs))]
+
+
+def _ring_hop_times(q, k, v, g, p: int, gen) -> list:
+    """Each virtual rank's hops of the causal ring, timed one by one: K2 on
+    the rank's q chunk and the block (causal on the diagonal), K3 with a
+    cotangent and a nonzero lse cotangent. Returns per rank ``(K2 ms, K3
+    ms, hops)`` summed over its hops."""
+    from distributed_training_tpu_torch.ops import flash_attention as fa
+    from distributed_training_tpu_torch.parallel.ring_attention import hop_kind
+
+    flat = [x.reshape(-1, *x.shape[-2:]) for x in (q, k, v, g)]
+    qs, ks, vs, gs = ([c.contiguous() for c in x.chunk(p, dim=-2)] for x in flat)
+    ranks = []
+    for r in range(p):
+        fwd = bwd = 0.0
+        hops = 0
+        for i in range(p):
+            src = (r + i) % p
+            kind = hop_kind(r, src, True)
+            if kind == "future":
+                continue
+            causal, hops = kind == "diag", hops + 1
+            qr, kb, vb = qs[r], ks[src], vs[src]
+            out, lse = fa.flash_fwd(qr, kb, vb, causal=causal)
+            g_lse = _randn(gen, *lse.shape)
+            fwd += cuda_ms(lambda: fa.flash_fwd(qr, kb, vb, causal=causal), 10)
+            bwd += cuda_ms(lambda: fa.flash_bwd(qr, kb, vb, out, lse, gs[r], g_lse,
+                                                causal=causal), 10)
+        ranks.append((fwd, bwd, hops))
+    return ranks
+
+
+def ring_phase() -> dict:
+    """Ring attention over P virtual ranks on the card, through the hop
+    and merge the ranks run, against one unsharded K2/K3 call and the
+    plain version; K2 and K3 counted and timed per hop."""
+    from distributed_training_tpu_torch.ops import flash_attention as fa
+    from distributed_training_tpu_torch.parallel.ring_attention import (
+        ring_attention_virtual,
+    )
+
+    if fa._USE_SPLIT_BWD or fa._USE_EXP2:
+        raise SystemExit("the ring phase runs K2/K3 as the model path does: "
+                         "the flash switches must be off")
+    card = card_line()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    fwd_tol, bwd_tol = FLASH_TOL[torch.bfloat16]
+    result = {}
+    for name, b, h, t, p in RING_CONFIGS:
+        q, k, v, g = (_randn(gen, b, h, t, GPT_D, dtype=torch.bfloat16) for _ in range(4))
+
+        def ring(*x, p=p):
+            return ring_attention_virtual(*x, p, causal=True, impl="flash")
+
+        def unsharded(*x):
+            return fa.flash_attention(*x, causal=True)
+
+        fa.flash_fwd.launches = fa.flash_bwd.launches = 0
+        got = _out_and_grads(ring, q, k, v, g)
+        torch.cuda.synchronize()
+        launches = {"flash_fwd": fa.flash_fwd.launches, "flash_bwd": fa.flash_bwd.launches}
+        hops = p * (p + 1) // 2  # rank r runs its diagonal and r past blocks
+        if launches != {"flash_fwd": hops, "flash_bwd": hops}:
+            raise SystemExit(f"ring {name}: K2/K3 launches {launches}, want {hops} each "
+                             f"(one a hop that runs)")
+        want = _out_and_grads(unsharded, q, k, v, g)
+        n = RING_PLAIN_HEADS
+        qf, kf, vf, gf = (x.reshape(b * h, t, GPT_D)[:n] for x in (q, k, v, g))
+        p_out, p_lse = fa.flash_attention_reference(qf, kf, vf, causal=True)
+        plain = [p_out, *fa.flash_attention_bwd_reference(qf, kf, vf, p_out, p_lse, gf,
+                                                          causal=True)]
+        errs = {}
+        for i, key in enumerate(("out", "dq", "dk", "dv")):
+            tol = fwd_tol if key == "out" else bwd_tol
+            for ref_name, ref, mine in (("K2/K3", want[i], got[i]),
+                                        ("plain", plain[i], got[i][:n]),
+                                        ("K2/K3~plain", plain[i], want[i][:n])):
+                errs[f"{key} vs {ref_name}"] = err = _row_err(mine, ref)
+                _check(f"ring {name}: {key} vs {ref_name}", err, tol)
+        max_abs = max((a.float() - b_.float()).abs().max().item()
+                      for a, b_ in zip(got, want))
+        del want, plain, p_out, p_lse
+        ranks = _ring_hop_times(q, k, v, g, p, gen)
+        flat = [x.reshape(-1, t, GPT_D) for x in (q, k, v, g)]
+        out, lse = fa.flash_fwd(*flat[:3], causal=True)
+        full_fwd = cuda_ms(lambda: fa.flash_fwd(*flat[:3], causal=True), 10)
+        full_bwd = cuda_ms(lambda: fa.flash_bwd(*flat[:3], out, lse, flat[3],
+                                                causal=True), 10)
+        ring_ms = cuda_ms(lambda: _out_and_grads(ring, q, k, v, g), 5)
+        whole_ms = cuda_ms(lambda: _out_and_grads(unsharded, q, k, v, g), 5)
+        print(f"[ring] {name}: B {b} H {h} T {t} d {GPT_D} bf16 causal over {p} virtual "
+              f"ranks (T_local {t // p}); K2 {launches['flash_fwd']} and K3 "
+              f"{launches['flash_bwd']} launches ({hops} hops run: the diagonal, causal, "
+              f"and each past block; no kernel on future blocks); by row: "
+              + ", ".join(f"{e} {v_:.3g}" for e, v_ in errs.items())
+              + f" (tolerances {fwd_tol}, {bwd_tol}; plain on BH {n}); "
+              f"max_abs_err vs K2/K3 {max_abs:.3g}; {card}")
+        for r, (fwd, bwd, nh) in enumerate(ranks):
+            print(f"[ring] {name} rank {r}: {nh} hop(s), K2 {fwd:.4f} ms, K3 {bwd:.4f} ms; "
+                  f"the unsharded call over {p}: K2 {full_fwd / p:.4f} ms, K3 "
+                  f"{full_bwd / p:.4f} ms")
+        print(f"[ring] {name}: the whole virtual ring forward + backward (every rank's "
+              f"hops, merges and casts, one after another) {ring_ms:.4f} ms; one "
+              f"unsharded flash_attention forward + backward {whole_ms:.4f} ms")
+        result[name] = {"virtual_ranks": p, "t_local": t // p, "hops": hops,
+                        "launches": launches, "errors_by_row": errs,
+                        "max_abs_err": max_abs,
+                        "rank_hop_ms": [{"K2": f, "K3": bw, "hops": nh}
+                                        for f, bw, nh in ranks],
+                        "unsharded_over_p_ms": {"K2": full_fwd / p, "K3": full_bwd / p},
+                        "ring_fwd_bwd_ms": ring_ms, "unsharded_fwd_bwd_ms": whole_ms}
+        del q, k, v, g, got, flat, out, lse
+        torch.cuda.empty_cache()
     return result
 
 
@@ -2056,7 +2224,102 @@ def data_phase(ckpt_dir: str) -> dict:
             "busy": {p: r["busy"] for p, r in fits.items()}}
 
 
+# The mesh mode (``torchrun --nproc-per-node W chip_smoke.py --mesh`` on a
+# machine with W GPUs, W 2 or 4): the LM strategies at GPT-2-small width
+# over the ranks, NCCL, each on the same global batches (16 rows of T
+# 1024) as data parallelism over all W ranks; each step's loss against the
+# DP run's within GPT_STAGE_RTOL (bf16: the row-parallel partial sums are
+# rounded to bf16 before their all-reduce, as JAX's psum of a bf16
+# product is; the ranks' reductions run in other orders).
+MESH_STEPS = GPT_CLI_STEPS
+
+
+def _mesh_strategies(world: int) -> list:
+    """(name, CLI flags) of every strategy the LM trainer runs over
+    ``world`` ranks, data parallelism first (the reference)."""
+    rows = str(GPT_B // world)
+    out = [("dp", ["-b", rows]), (f"sp{world}", ["--sp", str(world)]),
+           (f"tp{world}", ["--tp", str(world)]),
+           (f"tp{world}_overlap", ["--tp", str(world), "--tp-overlap"])]
+    if world == 4:
+        out += [("tp2_sp2", ["--tp", "2", "--sp", "2"]),
+                ("tp2_dp2", ["--tp", "2", "-b", str(GPT_B // 2)]),
+                ("tp2_sp2_overlap", ["--tp", "2", "--sp", "2", "--tp-overlap"])]
+    return out
+
+
+def mesh_main() -> int:
+    """The mesh mode (see ``MESH_STEPS``): every strategy through the GPT
+    CLI's trainer at ZeRO 1, its tokens/s, peak memory and K2/K3 launches
+    (summed over the ranks), its losses against data parallelism; then the
+    bench's LM leg with ``--tp``."""
+    import torch.distributed as dist
+
+    from distributed_training_tpu_torch import bench
+    from distributed_training_tpu_torch.ops import cuda_build
+    from distributed_training_tpu_torch.ops.flash_attention import flash_bwd, flash_fwd
+    from distributed_training_tpu_torch.runtime import distributed
+
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world not in (2, 4) or torch.cuda.device_count() < world:
+        print(f"chip_smoke --mesh: run under torchrun over 2 or 4 GPUs (WORLD_SIZE "
+              f"{world}, {torch.cuda.device_count()} GPUs)", file=sys.stderr)
+        return 2
+    distributed.initialize_distributed()
+    rank = dist.get_rank()
+    cuda_build.build_all()
+    card = card_line()
+    cli = _gpt_cli_module()
+    results, ref = {}, None
+    with tempfile.TemporaryDirectory() as ckpt:
+        for name, flags in _mesh_strategies(world):
+            flash_fwd.launches = flash_bwd.launches = 0
+            run = _gpt_cli_run(cli, [*GPT_CLI_WIDTH, "--stage", "1", *flags,
+                                     "-c", os.path.join(ckpt, name)])
+            counts = torch.tensor([flash_fwd.launches, flash_bwd.launches], device="cuda")
+            dist.all_reduce(counts)
+            _check_losses(f"mesh {name}", run["losses"], MESH_STEPS)
+            if min(flash_fwd.launches, flash_bwd.launches) == 0:
+                raise SystemExit(f"mesh {name}: rank {rank} launched no K2/K3")
+            ref = ref or run
+            worst = max(abs(a - b) / abs(b) for a, b in zip(run["losses"], ref["losses"]))
+            if worst > GPT_STAGE_RTOL:
+                raise SystemExit(f"mesh {name}: losses {run['losses']} against dp "
+                                 f"{ref['losses']}, {worst:.3g} relative")
+            results[name] = {"losses": run["losses"], "worst_rel_vs_dp": worst,
+                             "final_perplexity": run["result"]["final_perplexity"],
+                             "tokens_per_s": run["tokens_per_s"],
+                             "step_ms": 1e3 * sum(run["step_s"][1:]) / (MESH_STEPS - 1),
+                             "peak_gib_rank0": run["peak_bytes"] / 2**30,
+                             "launches_all_ranks": {"flash_fwd": int(counts[0]),
+                                                    "flash_bwd": int(counts[1])}}
+            if rank == 0:
+                r = results[name]
+                print(f"[mesh] {name} over {world} GPUs (GPT-2-small, B {GPT_B} T {GPT_T}, "
+                      f"bf16, flash, ZeRO 1): {r['tokens_per_s']:.1f} tokens/s, "
+                      f"{r['step_ms']:.3f} ms a step, peak {r['peak_gib_rank0']:.3f} GiB on "
+                      f"rank 0; K2/K3 launches (all ranks) {r['launches_all_ranks']}; "
+                      f"losses {r['losses']} ({worst:.3g} relative of dp's, tolerance "
+                      f"{GPT_STAGE_RTOL}); eval perplexity {r['final_perplexity']:.4f}; "
+                      f"{card}", flush=True)
+    for flags in (["--tp", str(world)], ["--tp", str(world), "--tp-overlap"]):
+        (line, loss), = bench.main(["--lm", *flags])
+        if not (line["value"] > 0 and math.isfinite(loss)):
+            raise SystemExit(f"mesh bench {flags}: {line}, loss {loss}")
+        results[f"bench {' '.join(flags)}"] = line
+    if rank == 0:
+        print(json.dumps({"mesh": results}))
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+    distributed.shutdown_distributed()
+    return 0
+
+
 def main() -> int:
+    if sys.argv[1:] == ["--mesh"]:
+        return mesh_main()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
               file=sys.stderr)
@@ -2084,6 +2347,7 @@ def main() -> int:
         bf16 = bf16_image_phase(os.path.join(ckpt, "bf16"))
         dp = dp_phase(os.path.join(ckpt, "dp"))
         flash = flash_kernel_phase()
+        ring = ring_phase()
         lm = lm_phase(os.path.join(ckpt, "lm"))
         lm16 = lm_fp16_phase(os.path.join(ckpt, "lm_fp16"))
         cli_phase(os.path.join(ckpt, "cli"))
@@ -2121,6 +2385,7 @@ def main() -> int:
               f"conv + stats {r['library_conv_stats_ms']:.4f}, bound {r['bound_ms']:.4f} "
               f"({100 * r['bound_ms'] / r['ms']:.1f}%)" + _before(f"conv3x3_stats {key}", r["ms"]))
     s0 = k5_shapes["s0"]
+    ring_names = ("flash_fwd", "flash_bwd")  # the kernels each ring hop runs
     flash_src = "distributed_training_tpu_torch/csrc/flash_attention.cu"
     split_src = "distributed_training_tpu_torch/csrc/flash_attention_split.cu"
     ref = "distributed_training_tpu/ops/flash_attention.py"
@@ -2148,8 +2413,15 @@ def main() -> int:
         **by_path(name, **({"gpt2_small_train": lm[name],
                             "gpt2_small_train_fp16": lm16[name],
                             "gpt_cli_gpt2_small_zero2_remat": gpt["launches"][name],
-                            **{p: n[name] for p, n in bench_lm.items()}}
+                            **{p: n[name] for p, n in bench_lm.items()},
+                            **{f"ring_{c}": r["launches"][name] for c, r in ring.items()}}
                            if name in lm else {})),
+        **({"ring": {c: {"launches": r["launches"][name], "hops": r["hops"],
+                         "rank_hop_ms": [x["K2" if name == "flash_fwd" else "K3"]
+                                         for x in r["rank_hop_ms"]],
+                         "unsharded_over_p_ms": r["unsharded_over_p_ms"][
+                             "K2" if name == "flash_fwd" else "K3"]}
+                     for c, r in ring.items()}} if name in ring_names else {}),
         **flash[name], "d256": d256["d256"][name], "d512": d256["d512"][name],
         "exp2_ms": exp2[name],
         "fp16_ms": half["ms"][name],

@@ -51,10 +51,14 @@ one. ``vs_baseline`` is null: the root bench's baselines (6000 images/s,
 One default differs from the root bench: ``--steps-per-call`` is 1. The
 JAX bench compiles 15 steps into one ``lax.scan`` dispatch; eager PyTorch
 has no counterpart (a CUDA graph of the step would be one, ROADMAP.md), so
-a value above 1 raises. Every other flag the port cannot honour
-(``--check``, ``--tp``, ``--tp-overlap``) raises ``NotImplementedError``
-naming ROADMAP.md, never silently ignored. There is no CPU clamp: on the
-CPU (``--device cpu``) the sizes are what the caller passes.
+a value above 1 raises. ``--tp N`` runs the LM leg megatron-sharded over
+N of the launcher's ranks (``torchrun``; ``--tp`` must divide the ranks,
+or the bench exits, as the root bench does), and ``--tp-overlap`` on the
+ring-overlapped schedule (at ``--tp 1`` the plain step, as in the root
+bench); rank 0 prints, and the MFU divides by every rank's card.
+``--check`` raises ``NotImplementedError`` naming ROADMAP.md, never
+silently ignored. There is no CPU clamp: on the CPU (``--device cpu``)
+the sizes are what the caller passes.
 """
 
 from __future__ import annotations
@@ -90,9 +94,10 @@ class _WindowTimer:
 
 
 def observability_fields(step_flops: int | None, per_step_ms: list,
-                         total_steps: int, total_seconds: float) -> dict:
+                         total_steps: int, total_seconds: float,
+                         n_devices: int = 1) -> dict:
     """``mfu``, ``model_flops_per_sec`` and the step-time percentiles, as
-    the root bench computes them (one card)."""
+    the root bench computes them (over ``n_devices`` cards)."""
     from distributed_training_tpu_torch.observability import (
         device_peak_flops,
         mfu,
@@ -106,7 +111,7 @@ def observability_fields(step_flops: int | None, per_step_ms: list,
     if step_flops and total_seconds > 0:
         fps = step_flops * total_steps / total_seconds
         out["model_flops_per_sec"] = round(fps, 1)
-        u = mfu(fps, 1, device_peak_flops())
+        u = mfu(fps, n_devices, device_peak_flops())
         if u is not None:
             out["mfu"] = round(u, 4)
     return out
@@ -134,8 +139,8 @@ def _timed_loop(step, state, batch, args) -> tuple[float, list, float]:
     return time.perf_counter() - t0, wt.per_step_ms, loss
 
 
-def _where(device: torch.device) -> str:
-    return "1 gpu chip(s)" if device.type == "cuda" else "cpu"
+def _where(device: torch.device, chips: int = 1) -> str:
+    return f"{chips} gpu chip(s)" if device.type == "cuda" else "cpu"
 
 
 PARAM_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
@@ -213,11 +218,38 @@ def bench_image(args, device: torch.device) -> tuple[dict, float]:
     return result, loss
 
 
-def lm_step(args, device: torch.device):
-    """The LM leg's ``(model, state, step, batch)``, as it is timed."""
+def lm_mesh(args):
+    """The LM leg's mesh: None at ``--tp 1`` (the one-rank step, as
+    before); else ``data × model`` over the launcher's ranks (``torchrun``),
+    after the root bench's check that ``--tp`` divides them (which exits
+    otherwise)."""
+    ranks = int(os.environ.get("WORLD_SIZE", "1"))
+    if args.tp < 1 or ranks % args.tp:
+        raise SystemExit(f"--tp {args.tp} must be >= 1 and divide the "
+                         f"device count (= {ranks})")
+    if args.tp == 1:
+        return None
+    from distributed_training_tpu_torch.config import MeshSpec
+    from distributed_training_tpu_torch.runtime.distributed import initialize_distributed
+    from distributed_training_tpu_torch.runtime.mesh import Mesh
+
+    initialize_distributed(device=args.device)
+    return Mesh(MeshSpec(data=-1, model=args.tp))
+
+
+def lm_step(args, device: torch.device, mesh=None):
+    """The LM leg's ``(model, state, step, batch)``, as it is timed: on
+    ``mesh`` (:func:`lm_mesh`), the model's tensor-parallel shards (the
+    ring-overlapped schedule with ``--tp-overlap``) and this data rank's
+    rows of the batch."""
     from distributed_training_tpu_torch.config import OptimizerConfig, PrecisionConfig
     from distributed_training_tpu_torch.data.pipeline import to_device
     from distributed_training_tpu_torch.models import get_model
+    from distributed_training_tpu_torch.parallel.tensor_parallel import (
+        TensorParallel,
+        shard_model_,
+    )
+    from distributed_training_tpu_torch.parallel.zero import Zero
     from distributed_training_tpu_torch.train.lm_step import (
         make_lm_batch,
         make_lm_train_step,
@@ -231,36 +263,46 @@ def lm_step(args, device: torch.device):
         "transformer_lm", num_classes=50304, dtype=torch.bfloat16,
         num_layers=12, num_heads=12, hidden_dim=768, max_len=args.seq_len,
         attn_impl=args.attn_impl, logits_dtype=parse_logits_dtype(args.logits_dtype),
-        head_bias=args.head_bias, generator=torch.Generator().manual_seed(0)).to(device)
+        head_bias=args.head_bias, generator=torch.Generator().manual_seed(0))
+    tp = TensorParallel.from_mesh(mesh, overlap=args.tp_overlap)
+    shard_model_(model, tp).to(device)
     if args.lm_optimizer == "hybrid_adam":
         opt = OptimizerConfig(name="hybrid_adam", lr=3e-4)
     else:  # optax.adamw(3e-4): b1 0.9, b2 0.999, eps 1e-8, weight decay 1e-4
         opt = OptimizerConfig(name="adamw", lr=3e-4, weight_decay=1e-4)
+    group = mesh.group("data", "sequence") if mesh is not None else None
     state = TrainState.create(model, make_optimizer(opt),
-                              LossScaleState.create(PrecisionConfig(dtype="bf16")))
+                              LossScaleState.create(PrecisionConfig(dtype="bf16")),
+                              Zero(0, group, tp=tp))
     step = make_lm_train_step(accuracy_metric=not args.no_accuracy, max_len=args.seq_len,
                               ce_chunk=args.ce_chunk, ce_save_probs=args.ce_save_probs,
                               logits_dtype=parse_logits_dtype(args.logits_dtype))
     toks = np.random.RandomState(0).randint(
         0, 50304, (args.lm_batch, args.seq_len + 1)).astype(np.int32)
+    if mesh is not None:  # this data rank's rows
+        rows = args.lm_batch // mesh.size("data")
+        toks = toks[mesh.index("data") * rows:(mesh.index("data") + 1) * rows]
     batch = to_device({k: np.ascontiguousarray(v) for k, v in make_lm_batch(toks).items()},
                       device)
     return model, state, step, batch
 
 
 def bench_lm(args, device: torch.device) -> tuple[dict, float]:
-    """The LM leg: ``(the JSON line's dict, the last loss)``."""
+    """The LM leg: ``(the JSON line's dict, the last loss)``; on a mesh
+    every rank runs it and rank 0 prints."""
     from distributed_training_tpu_torch.observability import (
         forward_flops,
         train_step_flops,
     )
 
-    model, state, step, batch = lm_step(args, device)
+    mesh = lm_mesh(args)
+    model, state, step, batch = lm_step(args, device, mesh)
     dt, per_step_ms, loss = _timed_loop(step, state, batch, args)
 
     tok_s = args.lm_batch * args.seq_len * args.steps / dt
     step_flops = train_step_flops(forward_flops(model, seq_len=args.seq_len,
                                                 batch=args.lm_batch))
+    chips = mesh.world if mesh is not None else 1
     result = {
         "metric": f"GPT-2-small train throughput (bf16 "
                   f"{'HybridAdam' if args.lm_optimizer == 'hybrid_adam' else 'AdamW'}, B"
@@ -270,13 +312,16 @@ def bench_lm(args, device: torch.device) -> tuple[dict, float]:
                   f"{', chunked CE' if args.ce_chunk else ''}"
                   f"{', ce-probs' if args.ce_save_probs else ''}"
                   f"{', no-acc-metric' if args.no_accuracy else ''}"
-                  f", {_where(device)})",
+                  f"{', tp:' + str(args.tp) if args.tp > 1 else ''}"
+                  f"{', tp-overlap' if args.tp_overlap else ''}"
+                  f", {_where(device, chips)})",
         "value": round(tok_s, 1),
         "unit": "tokens/sec",
         "vs_baseline": None,
-        **observability_fields(step_flops, per_step_ms, args.steps, dt),
+        **observability_fields(step_flops, per_step_ms, args.steps, dt, chips),
     }
-    print(json.dumps(result), flush=True)
+    if mesh is None or mesh.is_master():
+        print(json.dumps(result), flush=True)
     return result, loss
 
 
@@ -549,8 +594,6 @@ def build_parser() -> argparse.ArgumentParser:
 def unported(args) -> list[str]:
     """The flags set to something the port cannot honour yet."""
     flags = {
-        "--tp (tensor parallelism, A7)": args.tp != 1,
-        "--tp-overlap (A7)": args.tp_overlap,
         "--check (BENCH_BASELINE.json holds a TPU's numbers)": args.check,
         "--steps-per-call > 1 (a CUDA graph of the step)": args.steps_per_call != 1,
     }

@@ -96,10 +96,10 @@ def save_checkpoint(directory: str, epoch: int, state, *,
 
     Data-parallel: every rank calls it. The partitioned state is gathered
     to whole tensors on every rank (``TrainState.state_dict``), rank 0
-    writes the world-1 format, and the others wait at a barrier until the
-    save is committed."""
+    (``TrainState.writes_checkpoints``) writes the world-1 format, and the
+    others wait at a barrier until the save is committed."""
     sd = state.state_dict()
-    if state.zero.rank != 0:
+    if not state.writes_checkpoints():
         state.zero.barrier()
         return _epoch_dir(directory, epoch)
     path = write_checkpoint(directory, epoch, sd, next_epoch=next_epoch,

@@ -8,8 +8,9 @@ importing anything of ``distributed_training_tpu`` would import JAX.
 Not carried over yet (see ROADMAP.md): ``ServeConfig``,
 ``ObservabilityConfig``, ``ChaosConfig`` and ``TraceConfig``. ``TrainConfig`` therefore has no ``observability`` or
 ``chaos`` field; passing one raises ``TypeError``. Fields that exist but
-whose behaviour the port does not provide yet (MoE, mesh axes other than
-``data``, ``tp_overlap``, ``data.decoded_cache``, pipeline microbatches)
+whose behaviour the port does not provide yet (MoE, the ``fsdp``,
+``expert`` and ``pipe`` mesh axes, pipeline microbatches; in the image
+``Trainer`` also the ``model`` and ``sequence`` axes and ``tp_overlap``)
 raise ``NotImplementedError`` in the ``Trainer`` or ``LMTrainer`` when set
 away from their defaults.
 """
@@ -146,9 +147,10 @@ class DataConfig:
 
 @dataclasses.dataclass(frozen=True)
 class MeshSpec:
-    """Logical mesh axis sizes; -1 infers from the device count. The port
-    runs data parallelism only: ``data`` is -1 or the world size
-    (:func:`resolve_data_axis`), every other axis must be 1."""
+    """Logical mesh axis sizes; -1 infers from the device count
+    (``runtime/mesh.py``). The LM trainer runs ``data``, ``model`` and
+    ``sequence``; the image trainer ``data`` alone; ``fsdp``, ``expert``
+    and ``pipe`` above 1 are refused."""
 
     data: int = -1
     fsdp: int = 1
@@ -277,15 +279,13 @@ def effective_batch_sizes(cfg: TrainConfig, world: int,
 
 
 def resolve_data_axis(mesh: MeshSpec, world: int) -> int:
-    """``mesh.data`` against the number of processes: -1 infers it, any
-    other value must equal it. (Axes other than ``data`` are refused by
-    the trainers.)"""
-    if mesh.data == -1:
-        return world
-    if mesh.data != world:
-        raise ValueError(f"mesh data axis {mesh.data} does not match the "
-                         f"world size {world}")
-    return mesh.data
+    """The data-parallel replica count of ``mesh`` over ``world``
+    processes: ``data × fsdp`` once the sizes are resolved as
+    ``create_mesh`` resolves them (one axis may be -1 and takes what the
+    others leave; the product must be the world size, or this raises)."""
+    from distributed_training_tpu_torch.runtime.mesh import data_axis_size, mesh_sizes
+
+    return data_axis_size(mesh_sizes(mesh, world))
 
 
 def from_ds_config(ds: Mapping[str, Any], base: TrainConfig | None = None) -> TrainConfig:

@@ -40,8 +40,19 @@ follow the Flax initialisers' distributions from a ``torch.Generator``
 - ``forward(..., return_hidden=True)`` returns the final-norm hidden
   states instead of the logits: the chunked cross-entropy applies the head
   itself (``train/lm_step.py``).
+- **Sequence parallelism** (``seq_axis`` on ``mesh``, a
+  ``runtime.mesh.Mesh``): ``tokens`` is this rank's time chunk, the
+  positional embedding reads *global* positions (the chunk's offset on
+  the axis plus ``0..T_local-1``, JAX's ``_global_positions``), and every
+  block's attention runs the ring over the axis.
+- **Tensor parallelism** (``parallel/tensor_parallel.py``'s
+  ``shard_model_``, after the whole model is built): the projections, the
+  MLP, the embedding and the head hold this rank's shards and run the
+  megatron products; under ``tp_overlap`` the embedding's output is cut to
+  this rank's time chunk on the way into block 0 (JAX's interceptor does
+  the same), the stack runs time-sharded and the logits stay so.
 
-Not ported: MoE layers, sequence parallelism and the KV-cache decode path.
+Not ported: MoE layers and the KV-cache decode path.
 """
 
 from __future__ import annotations
@@ -56,6 +67,11 @@ from torch import nn
 from distributed_training_tpu_torch.parallel.ring_attention import (
     RingSelfAttention,
     lecun_normal_,
+)
+from distributed_training_tpu_torch.parallel.tensor_parallel import (
+    column_matmul,
+    row_matmul,
+    vocab_parallel_embed,
 )
 
 LN_EPS = 1e-6
@@ -80,19 +96,23 @@ class LayerNorm(nn.Module):
 
 class Dense(nn.Module):
     """Flax ``Dense``: kernel ``[in, out]``, ``lecun_normal`` init, zero
-    bias; computes in ``dtype``."""
+    bias; computes in ``dtype``. ``row_parallel`` says which megatron
+    product it runs under tensor parallelism (``tp``): row-parallel (a
+    contraction shard, the bias after the sum) or column-parallel."""
 
     def __init__(self, d_in: int, features: int, *,
                  dtype: torch.dtype = torch.float32, use_bias: bool = True,
+                 row_parallel: bool = False,
                  generator: torch.Generator | None = None):
         super().__init__()
-        self.dtype = dtype
+        self.dtype, self.row_parallel, self.tp = dtype, row_parallel, None
         self.kernel = nn.Parameter(torch.empty(d_in, features))
         lecun_normal_(self.kernel, d_in, generator)
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = x.to(self.dtype) @ self.kernel.to(self.dtype)
+        matmul = row_matmul if self.row_parallel else column_matmul
+        y = matmul(x.to(self.dtype), self.kernel.to(self.dtype), self.tp)
         return y if self.bias is None else y + self.bias.to(self.dtype)
 
 
@@ -104,14 +124,17 @@ class Embed(nn.Module):
                  dtype: torch.dtype = torch.float32,
                  generator: torch.Generator | None = None):
         super().__init__()
-        self.dtype = dtype
+        self.dtype, self.tp = dtype, None
         self.embedding = nn.Parameter(torch.empty(num_embeddings, features))
         with torch.no_grad():
             nn.init.normal_(self.embedding, 0.0, math.sqrt(1.0 / features),
                             generator=generator)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        return F.embedding(tokens, self.embedding.to(self.dtype))
+        table = self.embedding.to(self.dtype)
+        if self.tp is not None:  # vocab-parallel
+            return vocab_parallel_embed(tokens, table, self.tp)
+        return F.embedding(tokens, table)
 
 
 class MlpBlock(nn.Module):
@@ -122,7 +145,8 @@ class MlpBlock(nn.Module):
                  generator: torch.Generator | None = None):
         super().__init__()
         self.fc1 = Dense(hidden_dim, mlp_dim, dtype=dtype, generator=generator)
-        self.fc2 = Dense(mlp_dim, hidden_dim, dtype=dtype, generator=generator)
+        self.fc2 = Dense(mlp_dim, hidden_dim, dtype=dtype, row_parallel=True,
+                         generator=generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
@@ -146,13 +170,14 @@ class DecoderBlock(nn.Module):
 
     def __init__(self, hidden_dim: int, num_heads: int, mlp_dim: int, *,
                  dtype: torch.dtype = torch.float32, attn_impl: str = "exact",
-                 dropout_rate: float = 0.0,
-                 generator: torch.Generator | None = None):
+                 dropout_rate: float = 0.0, seq_axis: str | None = None,
+                 mesh=None, generator: torch.Generator | None = None):
         super().__init__()
         self.dropout_rate = dropout_rate
         self.ln1 = LayerNorm(hidden_dim, dtype)
         self.attn = RingSelfAttention(hidden_dim, num_heads, dtype=dtype,
                                       causal=True, attn_impl=attn_impl,
+                                      axis_name=seq_axis, mesh=mesh,
                                       generator=generator)
         self.ln2 = LayerNorm(hidden_dim, dtype)
         self.mlp = MlpBlock(hidden_dim, mlp_dim, dtype, generator)
@@ -183,8 +208,10 @@ def _remat_block(block: DecoderBlock, x: torch.Tensor,
 
 class TransformerLM(nn.Module):
     """GPT-style causal LM: ``tokens`` int ``[B, T]`` (and optional
-    ``positions`` ``[B, T]``, default ``0..T-1``) → logits
-    ``[B, T, vocab]`` in ``logits_dtype``."""
+    ``positions`` ``[B, T]``, default ``0..T-1``, or the chunk's global
+    positions with ``seq_axis``) → logits ``[B, T, vocab]`` in
+    ``logits_dtype`` (this rank's vocabulary or time shard under tensor
+    parallelism)."""
 
     def __init__(self, vocab_size: int, *, num_layers: int = 4,
                  num_heads: int = 4, hidden_dim: int = 256, mlp_ratio: int = 4,
@@ -192,10 +219,14 @@ class TransformerLM(nn.Module):
                  logits_dtype: torch.dtype = torch.float32,
                  head_bias: bool = False, attn_impl: str = "exact",
                  dropout_rate: float = 0.0, remat: bool = False,
+                 seq_axis: str | None = None, mesh=None,
                  generator: torch.Generator | None = None):
         super().__init__()
+        if seq_axis is not None and mesh is None:
+            raise ValueError(f"seq_axis {seq_axis!r} needs the mesh that binds it")
         self.num_layers, self.max_len, self.dtype = num_layers, max_len, dtype
         self.dropout_rate, self.remat = dropout_rate, remat
+        self.seq_axis, self.mesh, self.tp = seq_axis, mesh, None
         # The Flax module's fields, which the FLOP count reads.
         self.vocab_size, self.hidden_dim, self.mlp_ratio = vocab_size, hidden_dim, mlp_ratio
         self.tok_embed = Embed(vocab_size, hidden_dim, dtype, generator)
@@ -206,7 +237,7 @@ class TransformerLM(nn.Module):
             self.add_module(f"block{i}", DecoderBlock(
                 hidden_dim, num_heads, mlp_ratio * hidden_dim, dtype=dtype,
                 attn_impl=attn_impl, dropout_rate=dropout_rate,
-                generator=generator))
+                seq_axis=seq_axis, mesh=mesh, generator=generator))
         self.ln_f = LayerNorm(hidden_dim, dtype)
         self.lm_head = Dense(hidden_dim, vocab_size, dtype=logits_dtype,
                              use_bias=head_bias, generator=generator)
@@ -219,14 +250,21 @@ class TransformerLM(nn.Module):
         ``[B, T, hidden]``; ``generator`` draws the dropout masks in
         training (needed when ``dropout_rate`` > 0)."""
         if positions is None:
+            t, offset = tokens.shape[-1], 0
+            if self.seq_axis is not None:
+                offset = self.mesh.index(self.seq_axis) * t
+                t *= self.mesh.size(self.seq_axis)
             # Gathers past the table would fail here, where JAX clamps
-            # them silently: check the length, as the JAX model does.
-            if tokens.shape[-1] > self.max_len:
-                raise ValueError(f"sequence length {tokens.shape[-1]} exceeds "
+            # them silently: check the (global) length, as JAX does.
+            if t > self.max_len:
+                raise ValueError(f"sequence length {t} exceeds "
                                  f"max_len={self.max_len}")
-            positions = torch.arange(tokens.shape[-1], device=tokens.device)[None, :]
+            positions = offset + torch.arange(tokens.shape[-1],
+                                              device=tokens.device)[None, :]
         x = self.tok_embed(tokens)
         x = x + self.pos_embed[positions].to(self.dtype)
+        if self.tp is not None and self.tp.overlap:
+            x = self._time_shard(x)
         remat = self.remat and self.training and torch.is_grad_enabled()
         for i in range(self.num_layers):
             block = getattr(self, f"block{i}")
@@ -234,11 +272,24 @@ class TransformerLM(nn.Module):
         x = self.ln_f(x)
         return x if return_hidden else self.lm_head(x)
 
+    def _time_shard(self, x: torch.Tensor) -> torch.Tensor:
+        """The stack's entry under ``tp_overlap``: this model rank's time
+        chunk of the (replicated) embedding output."""
+        n, t = self.tp.size, x.shape[1]
+        if t % n:
+            raise ValueError(
+                f"tp_overlap: per-stage sequence length (= {t}) must divide by "
+                f"the model-axis size {n} (time scatter at the stack entry); "
+                f"pick divisible dims or disable tp_overlap")
+        tl = t // n
+        return x[:, self.tp.index * tl:(self.tp.index + 1) * tl]
+
 
 def make_transformer_lm(*, num_classes: int = 256,
                         dtype: torch.dtype = torch.float32,
                         axis_name: str | None = None,
-                        seq_axis: str | None = None, num_layers: int = 4,
+                        seq_axis: str | None = None, mesh=None,
+                        num_layers: int = 4,
                         num_heads: int = 4, hidden_dim: int = 256,
                         mlp_ratio: int = 4, max_len: int = 2048,
                         dropout_rate: float = 0.0, attn_impl: str = "exact",
@@ -246,19 +297,17 @@ def make_transformer_lm(*, num_classes: int = 256,
                         logits_dtype: torch.dtype = torch.float32,
                         head_bias: bool = False,
                         generator: torch.Generator | None = None) -> TransformerLM:
-    """Registry factory, with the JAX factory's arguments. ``num_classes``
-    is the vocabulary size; ``axis_name`` (the registry's SyncBN slot) is
-    unused. The options the port lacks raise ``NotImplementedError``."""
+    """Registry factory, with the JAX factory's arguments and ``mesh`` (the
+    ``runtime.mesh.Mesh`` that binds ``seq_axis``). ``num_classes`` is the
+    vocabulary size; ``axis_name`` (the registry's SyncBN slot) is unused.
+    MoE raises ``NotImplementedError``."""
     del axis_name
-    unported = {"seq_axis": seq_axis is not None,
-                "moe_num_experts": bool(moe_num_experts)}
-    bad = [k for k, v in unported.items() if v]
-    if bad:
+    if moe_num_experts:
         raise NotImplementedError(
-            f"transformer_lm options not ported yet: {', '.join(bad)}")
+            "transformer_lm options not ported yet: moe_num_experts")
     return TransformerLM(
         num_classes, num_layers=num_layers, num_heads=num_heads,
         hidden_dim=hidden_dim, mlp_ratio=mlp_ratio, max_len=max_len,
         dtype=dtype, logits_dtype=logits_dtype, head_bias=head_bias,
         attn_impl=attn_impl, dropout_rate=dropout_rate, remat=remat,
-        generator=generator)
+        seq_axis=seq_axis, mesh=mesh, generator=generator)

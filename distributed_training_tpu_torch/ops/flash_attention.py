@@ -425,6 +425,14 @@ class _FlashCoreLse(torch.autograd.Function):
         return _backward(ctx, g, g_lse)
 
 
+def check_seq_len(t: int) -> None:
+    """Raise :func:`_block`'s ``ValueError`` unless a length-``t`` sequence
+    fits the auto blocks of :func:`flash_attention` (forward and backward),
+    which is what the JAX wrapper takes."""
+    for requested in (1024, 2048, 512):
+        _block(t, min(t, requested))
+
+
 def _flat_args(q, k, v, block_q, block_k, bwd_block_q, bwd_block_k):
     """Shape check, the JAX auto block rule, the forward blocks'
     admissibility, and ``[..., T, d]`` flattened to contiguous

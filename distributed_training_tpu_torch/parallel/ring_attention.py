@@ -1,18 +1,44 @@
-"""Self-attention of the transformer LM: projections, exact attention and
-the flash dispatch.
+"""Self-attention of the transformer LM: projections, exact attention,
+the flash dispatch, and ring attention over the ``sequence`` axis.
 
-The port of the unsharded, non-decode part of
-``distributed_training_tpu/parallel/ring_attention.py``:
-:func:`ring_attention` with ``axis_name=None`` (the exact ``[T, T]``
-softmax, or the flash kernels K2/K3 with ``impl="flash"``), the
-projections :class:`_QKVProj` and :class:`_OutProj`, and
-:class:`RingSelfAttention`. Sequence parallelism (a bound ``axis_name``)
-and the KV-cache decode paths raise ``NotImplementedError``.
+The port of ``distributed_training_tpu/parallel/ring_attention.py``
+(without the KV-cache decode paths, which raise ``NotImplementedError``):
+:func:`ring_attention` unsharded (the exact ``[T, T]`` softmax, or the
+flash kernels K2/K3 with ``impl="flash"``) and over a bound
+``axis_name``, the projections :class:`_QKVProj` and :class:`_OutProj`,
+and :class:`RingSelfAttention`.
+
+**Ring attention** (sequence parallelism): each rank holds one time
+chunk of q, k and v, ``[B, H, T_local, hd]``; K/V blocks travel the ring
+of the ``sequence`` group (``runtime.mesh.ring_shift``: after ``i`` hops
+rank ``j`` holds the block of rank ``(j + i) mod n``), and the rank
+accumulates its queries' attention over every block it sees:
+
+- ``impl="exact"``: JAX's float32 online-softmax recurrence
+  (:func:`_online_block_update`) on materialised block scores, masked
+  causally by *global* positions; rows whose every key is masked come out
+  as 0;
+- ``impl="flash"``: each hop runs ``flash_attention_lse`` (K2, and K3
+  with a nonzero lse cotangent in the backward) on the block, and the
+  hops' ``(out, lse)`` pairs merge in float32 with ``logaddexp``
+  (:func:`ring_merge`; ``NEG_INF = -1e30`` is finite, so the merge needs
+  no guards). Relative to the rank's own chunk a block is the *diagonal*
+  (the kernel's own causal mask is exact there), in the *past* (no mask)
+  or in the *future* (no kernel runs): :func:`ring_hop`. The choice is a
+  Python ``if`` on the rank's and the block's indices.
+
+The backward is autograd's: through the merge, through each hop's
+``flash_attention_lse`` and through the ring shift, whose backward is the
+reverse hop, as in JAX's autodiff of its ring. :func:`ring_attention_virtual`
+runs the same hops and merges for every rank of a ring inside one
+process, on one device (the CPU tests and ``chip_smoke.py``'s ring phase).
 
 Parameters keep the Flax names and layouts (``qkv.kernel`` ``[D, 3, H,
 hd]``, ``qkv.bias`` ``[3, H, hd]``, ``out.kernel`` ``[H, hd, D]``,
 ``out.bias`` ``[D]``) and the Flax initialisers: ``lecun_normal`` drawn
-on the 2-D ``(fan_in, fan_out)`` flattening, zero biases.
+on the 2-D ``(fan_in, fan_out)`` flattening, zero biases. Under tensor
+parallelism (``parallel/tensor_parallel.py``) they hold this rank's
+heads, and the projections run the column- and row-parallel products.
 """
 
 from __future__ import annotations
@@ -22,7 +48,16 @@ import math
 import torch
 from torch import nn
 
-from distributed_training_tpu_torch.ops.flash_attention import flash_attention
+from distributed_training_tpu_torch.ops.flash_attention import (
+    NEG_INF,
+    flash_attention,
+    flash_attention_lse,
+)
+from distributed_training_tpu_torch.parallel.tensor_parallel import (
+    column_matmul,
+    row_matmul,
+)
+from distributed_training_tpu_torch.runtime.mesh import ring_shift
 
 
 def lecun_normal_(t: torch.Tensor, fan_in: int,
@@ -35,27 +70,183 @@ def lecun_normal_(t: torch.Tensor, fan_in: int,
                                      generator=generator)
 
 
-def ring_attention(q, k, v, *, axis_name: str | None = None,
-                   causal: bool = False, impl: str = "exact") -> torch.Tensor:
-    """Attention over ``[B, H, T, hd]``; the unsharded path only.
+def _scale(q: torch.Tensor) -> torch.Tensor:
+    """``1/√hd`` as JAX computes it: the root rounded to q's dtype first."""
+    hd = q.shape[-1]
+    return (1.0 / torch.tensor(math.sqrt(hd), dtype=torch.float32).to(q.dtype)).to(q.device)
 
-    ``impl="exact"`` materialises the scores as the JAX package does: the
-    product in the input dtype times ``1/√hd`` (itself in that dtype), the
-    causal mask at the dtype's lowest value, softmax in float32, and the
-    probabilities cast to ``v``'s dtype. ``impl="flash"`` is
+
+def _online_block_update(o, m, l, s, v):
+    """One online-softmax step (JAX's ``_online_block_update``): running
+    unnormalised ``o`` ``[..., Tq, d]``, row max ``m`` and row sum ``l``
+    ``[..., Tq]``, updated by the block's scores ``s`` and values ``v``."""
+    m_new = torch.maximum(m, s.amax(-1))
+    p = torch.exp(s - m_new[..., None])
+    correction = torch.exp(m - m_new)
+    l_new = l * correction + p.sum(-1)
+    o_new = o * correction[..., None] + torch.einsum("...qk,...kd->...qd", p, v)
+    return o_new, m_new, l_new
+
+
+def hop_kind(my_idx: int, src: int, causal: bool) -> str:
+    """Where the block of ring index ``src`` lies for the queries of
+    ``my_idx``: ``"full"`` (no mask: not causal), ``"diag"``, ``"past"``
+    or ``"future"``."""
+    if not causal:
+        return "full"
+    return "diag" if src == my_idx else "past" if src < my_idx else "future"
+
+
+def ring_hop(q, k_blk, v_blk, kind: str):
+    """One flash hop: ``flash_attention_lse`` on the block, with the causal
+    mask on the diagonal; ``None`` for a future block (no kernel runs and
+    the merge is skipped, which is what a ``NEG_INF`` lse would merge to)."""
+    if kind == "future":
+        return None
+    return flash_attention_lse(q, k_blk, v_blk, causal=kind == "diag")
+
+
+def ring_merge(o, lse_acc, out_h, lse_h):
+    """Merge one hop's normalised ``(out_h, lse_h)`` into the float32
+    accumulators ``(o, lse_acc)``: the online softmax lifted to normalised
+    per-hop results."""
+    lse_new = torch.logaddexp(lse_acc, lse_h)
+    w_acc = torch.exp(lse_acc - lse_new)
+    w_h = torch.exp(lse_h - lse_new)
+    return o * w_acc[..., None] + out_h.float() * w_h[..., None], lse_new
+
+
+def _exact_hop(o, m, l, qf, k_blk, v_blk, scale, kind, my_idx, src):
+    """One exact hop: the block's float32 scores, masked by global
+    positions, through :func:`_online_block_update`."""
+    s = torch.einsum("...qd,...kd->...qk", qf, k_blk.float()) * scale
+    if kind != "full":
+        t, tk = qf.shape[-2], k_blk.shape[-2]
+        qpos = my_idx * t + torch.arange(t, device=qf.device)
+        kpos = src * t + torch.arange(tk, device=qf.device)
+        s = s.masked_fill(kpos[None, :] > qpos[:, None], float("-inf"))
+    return _online_block_update(o, m, l, s, v_blk.float())
+
+
+class _RankRing:
+    """One rank's accumulation over the blocks it visits, for either impl."""
+
+    def __init__(self, q, my_idx: int, causal: bool, impl: str):
+        self.q, self.my_idx, self.causal, self.impl = q, my_idx, causal, impl
+        self.o = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+        if impl == "flash":
+            self.lse = torch.full(q.shape[:-1], NEG_INF, dtype=torch.float32,
+                                  device=q.device)
+        else:
+            self.m = torch.full(q.shape[:-1], float("-inf"), dtype=torch.float32,
+                                device=q.device)
+            self.l = torch.zeros(q.shape[:-1], dtype=torch.float32, device=q.device)
+            self.qf, self.scale = q.float(), _scale(q)
+
+    def visit(self, k_blk, v_blk, src: int) -> None:
+        kind = hop_kind(self.my_idx, src, self.causal)
+        if self.impl == "flash":
+            hop = ring_hop(self.q, k_blk, v_blk, kind)
+            if hop is not None:
+                self.o, self.lse = ring_merge(self.o, self.lse, *hop)
+        else:
+            self.o, self.m, self.l = _exact_hop(
+                self.o, self.m, self.l, self.qf, k_blk, v_blk, self.scale, kind,
+                self.my_idx, src)
+
+    def result(self, dtype: torch.dtype) -> torch.Tensor:
+        if self.impl == "flash":
+            return self.o.to(dtype)
+        # Fully masked rows have l == 0: their output is 0 (no 0/0).
+        out = torch.where(self.l[..., None] > 0,
+                          self.o / self.l.clamp_min(1e-30)[..., None],
+                          torch.zeros((), device=self.o.device))
+        return out.to(dtype)
+
+
+class _KeepShifts(torch.autograd.Function):
+    """Identity on ``out`` that takes the last shifted blocks as inputs too,
+    with zero gradients: the ranks' backward then runs every shift's
+    reverse hop, as JAX's transposes of its ``ppermute`` chain always run,
+    also on a rank whose last blocks lie in its future (no kernel used
+    them, and autograd would otherwise prune those hops on that rank
+    alone, leaving its neighbours waiting)."""
+
+    @staticmethod
+    def forward(ctx, out, *blocks):
+        ctx.shapes = [(b.shape, b.dtype, b.device) for b in blocks]
+        return out.view_as(out)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g, *(torch.zeros(s, dtype=d, device=dev) for s, d, dev in ctx.shapes))
+
+
+def _ring_over_group(q, k, v, *, group, n: int, my_idx: int, causal: bool,
+                     impl: str) -> torch.Tensor:
+    """The distributed loop: visit the rank's own block, then ``n - 1``
+    blocks shifted in over ``group``."""
+    acc = _RankRing(q, my_idx, causal, impl)
+    k_blk, v_blk = k, v
+    for i in range(n):
+        acc.visit(k_blk, v_blk, (my_idx + i) % n)
+        if i < n - 1:
+            k_blk, v_blk = ring_shift(group, k_blk, v_blk)
+    out = acc.result(v.dtype)
+    if impl == "flash" and hop_kind(my_idx, (my_idx + n - 1) % n, causal) == "future":
+        out = _KeepShifts.apply(out, k_blk, v_blk)
+    return out
+
+
+def ring_attention_virtual(q, k, v, n: int, *, causal: bool = False,
+                           impl: str = "exact") -> torch.Tensor:
+    """Ring attention over ``n`` virtual ranks in one process: ``q, k, v``
+    ``[..., T, hd]`` are cut into ``n`` time chunks, and virtual rank
+    ``r`` visits the blocks in the ring order rank ``r`` of a real ring
+    sees, through the same hop and merge. Differentiable (a block's
+    ``dk``/``dv`` sum over the ranks that visited it)."""
+    if impl not in ("exact", "flash"):
+        raise ValueError(f"unknown ring attention impl {impl!r}")
+    qs, ks, vs = (x.chunk(n, dim=-2) for x in (q, k, v))
+    outs = []
+    for r in range(n):
+        acc = _RankRing(qs[r].contiguous(), r, causal, impl)
+        for i in range(n):
+            src = (r + i) % n
+            acc.visit(ks[src].contiguous(), vs[src].contiguous(), src)
+        outs.append(acc.result(v.dtype))
+    return torch.cat(outs, dim=-2)
+
+
+def ring_attention(q, k, v, *, axis_name: str | None = None,
+                   causal: bool = False, impl: str = "exact",
+                   mesh=None) -> torch.Tensor:
+    """Attention over ``[B, H, T_local, hd]``.
+
+    ``axis_name`` None: the unsharded path. ``impl="exact"`` materialises
+    the scores as the JAX package does: the product in the input dtype
+    times ``1/√hd`` (itself in that dtype), the causal mask at the dtype's
+    lowest value, softmax in float32, and the probabilities cast to
+    ``v``'s dtype. ``impl="flash"`` is
     :func:`~distributed_training_tpu_torch.ops.flash_attention.flash_attention`.
+
+    ``axis_name`` bound: ring attention over that axis of ``mesh`` (a
+    ``runtime.mesh.Mesh``; see the module docstring), causal masks on
+    global positions.
     """
     if impl not in ("exact", "flash"):
         raise ValueError(f"unknown ring attention impl {impl!r}")
     if axis_name is not None:
-        raise NotImplementedError(
-            "ring attention over a sequence axis (sequence parallelism) is "
-            "not ported yet")
+        if mesh is None:
+            raise ValueError(f"ring attention over axis {axis_name!r} needs the "
+                             f"mesh that binds it")
+        return _ring_over_group(q, k, v, group=mesh.group(axis_name),
+                                n=mesh.size(axis_name),
+                                my_idx=mesh.index(axis_name), causal=causal,
+                                impl=impl)
     if impl == "flash":
         return flash_attention(q, k, v, causal=causal)
-    hd = q.shape[-1]
-    scale = 1.0 / torch.tensor(math.sqrt(hd), dtype=torch.float32).to(q.dtype)
-    s = torch.einsum("...qd,...kd->...qk", q, k) * scale.to(q.device)
+    s = torch.einsum("...qd,...kd->...qk", q, k) * _scale(q)
     if causal:
         t = q.shape[-2]
         mask = torch.ones((t, t), dtype=torch.bool, device=q.device).triu(1)
@@ -66,37 +257,43 @@ def ring_attention(q, k, v, *, axis_name: str | None = None,
 
 class _QKVProj(nn.Module):
     """QKV projection emitting q, k, v as contiguous ``[B, H, T, hd]``
-    tensors (what the flash kernels take)."""
+    tensors (what the flash kernels take); column-parallel under tensor
+    parallelism (``tp``: this rank's heads)."""
 
     def __init__(self, d_in: int, num_heads: int, head_dim: int,
                  dtype: torch.dtype = torch.float32,
                  generator: torch.Generator | None = None):
         super().__init__()
         self.dtype = dtype
+        self.tp = None
         self.kernel = nn.Parameter(torch.empty(d_in, 3, num_heads, head_dim))
         self.bias = nn.Parameter(torch.zeros(3, num_heads, head_dim))
         lecun_normal_(self.kernel, d_in, generator)
 
     def forward(self, x: torch.Tensor):
-        b, t, d_in = x.shape
+        d_in = x.shape[-1]
         _, _, h, hd = self.kernel.shape
         # One product for q, k and v, then the bias in the compute dtype
         # (two roundings, as the JAX einsum + bias); one copy puts the
         # heads before time.
-        y = x.to(self.dtype) @ self.kernel.to(self.dtype).reshape(d_in, 3 * h * hd)
+        y = column_matmul(x.to(self.dtype),
+                          self.kernel.to(self.dtype).reshape(d_in, 3 * h * hd), self.tp)
         y = y + self.bias.to(self.dtype).reshape(3 * h * hd)
+        b, t = y.shape[:2]
         y = y.view(b, t, 3, h, hd).permute(2, 0, 3, 1, 4).contiguous()
         return y[0], y[1], y[2]
 
 
 class _OutProj(nn.Module):
-    """Output projection consuming ``[B, H, T, hd]``."""
+    """Output projection consuming ``[B, H, T, hd]``; row-parallel under
+    tensor parallelism (the bias added once, after the sum)."""
 
     def __init__(self, num_heads: int, head_dim: int, features: int,
                  dtype: torch.dtype = torch.float32,
                  generator: torch.Generator | None = None):
         super().__init__()
         self.dtype = dtype
+        self.tp = None
         self.kernel = nn.Parameter(torch.empty(num_heads, head_dim, features))
         self.bias = nn.Parameter(torch.zeros(features))
         lecun_normal_(self.kernel, num_heads * head_dim, generator)
@@ -104,29 +301,32 @@ class _OutProj(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, h, t, hd = x.shape
         y = x.to(self.dtype).permute(0, 2, 1, 3).reshape(b, t, h * hd)
-        y = y @ self.kernel.to(self.dtype).reshape(h * hd, -1)
+        y = row_matmul(y, self.kernel.to(self.dtype).reshape(h * hd, -1), self.tp)
         return y + self.bias.to(self.dtype)
 
 
 class RingSelfAttention(nn.Module):
-    """Multi-head self-attention (unsharded). ``attn_impl="flash"`` runs
-    the K2/K3 kernels on the card."""
+    """Multi-head self-attention. ``attn_impl="flash"`` runs the K2/K3
+    kernels on the card; with ``axis_name`` bound on ``mesh`` (a
+    ``runtime.mesh.Mesh``) the sequence is sharded over that axis and the
+    attention runs the ring (see the module docstring)."""
 
     def __init__(self, hidden_dim: int, num_heads: int, *,
                  dtype: torch.dtype = torch.float32, causal: bool = False,
                  attn_impl: str = "exact", axis_name: str | None = None,
-                 generator: torch.Generator | None = None):
+                 mesh=None, generator: torch.Generator | None = None):
         super().__init__()
         if hidden_dim % num_heads:
             raise ValueError(f"hidden {hidden_dim} not divisible by "
                              f"{num_heads} heads")
         if attn_impl not in ("exact", "flash"):
             raise ValueError(f"unknown ring attention impl {attn_impl!r}")
-        if axis_name is not None:
-            raise NotImplementedError(
-                "sequence-parallel attention (axis_name) is not ported yet")
+        if axis_name is not None and mesh is None:
+            raise ValueError(f"sequence axis {axis_name!r} needs the mesh that "
+                             f"binds it")
         head_dim = hidden_dim // num_heads
         self.causal, self.attn_impl = causal, attn_impl
+        self.axis_name, self.mesh = axis_name, mesh
         self.qkv = _QKVProj(hidden_dim, num_heads, head_dim, dtype, generator)
         self.out = _OutProj(num_heads, head_dim, hidden_dim, dtype, generator)
 
@@ -135,5 +335,6 @@ class RingSelfAttention(nn.Module):
             raise NotImplementedError(
                 "the KV-cache decode path (inference, serving) is not ported yet")
         q, k, v = self.qkv(x)
-        out = ring_attention(q, k, v, causal=self.causal, impl=self.attn_impl)
+        out = ring_attention(q, k, v, axis_name=self.axis_name, causal=self.causal,
+                             impl=self.attn_impl, mesh=self.mesh)
         return self.out(out)

@@ -34,6 +34,16 @@ All the collectives of a step go through one flat buffer each: the
 gradient all-reduce (stages 0–1), the gradient reduce-scatter (2–3) and
 the parameter all-gather (1–3) each make one call per step, whatever the
 number of tensors. Without a group they are identities.
+
+**The group** is the replica group of the parameters: the ``data`` axis,
+and ``data × sequence`` under sequence parallelism (ring shards hold the
+same weights for other positions, so ZeRO partitions over them too, as
+the JAX ``zero_stage_axes`` recruits them). Under tensor parallelism
+(``tp``, a ``tensor_parallel.TensorParallel``) each model rank's own
+shards are partitioned over its replica group, and a whole tensor's norm
+(the clip's global norm, lamb's trust ratio; :meth:`Zero.whole_sq_norms`)
+also sums the squared norms of a model-sharded tensor over the model
+ranks, while a replicated one counts once.
 """
 
 from __future__ import annotations
@@ -76,13 +86,16 @@ class Zero:
     """One rank's view of the data-parallel group and its ZeRO stage.
 
     ``group`` None means no group: world 1, every collective an identity.
+    ``tp``: the tensor-parallel context of the parameters, or None.
     """
 
-    def __init__(self, stage: int = 0, group=None, cpu_offload: bool = False):
+    def __init__(self, stage: int = 0, group=None, cpu_offload: bool = False,
+                 tp=None):
         if stage not in STAGES:
             raise ValueError(f"zero stage must be one of {STAGES}, got {stage}")
         check_cpu_offload(cpu_offload, stage)
         self.stage, self.group, self.cpu_offload = stage, group, cpu_offload
+        self.tp = tp
         self.world = dist.get_world_size(group) if group is not None else 1
         self.rank = dist.get_rank(group) if group is not None else 0
 
@@ -162,6 +175,24 @@ class Zero:
             at += s.numel()
         return out
 
+    def whole_sq_norms(self, sq: torch.Tensor, names) -> torch.Tensor:
+        """The squared norms of whole tensors from this rank's pieces'
+        (``sq``, one per name): summed over the group's shards from stage
+        1 on, and over the model ranks for the model-sharded names."""
+        if self.partitions_optimizer:
+            sq = self.all_reduce_(sq)
+        if self.tp is not None:
+            sharded = torch.tensor([self.tp.dim(n) is not None for n in names],
+                                   device=sq.device)
+            part = torch.where(sharded, sq, torch.zeros_like(sq))
+            dist.all_reduce(part, group=self.tp.group)
+            sq = torch.where(sharded, part, sq)
+        return sq
+
     def barrier(self) -> None:
+        """Over the group, then over the model ranks: a rank passes once
+        every rank of both has arrived, the checkpoint writer included."""
         if self.group is not None:
             dist.barrier(group=self.group)
+        if self.tp is not None:
+            dist.barrier(group=self.tp.group)

@@ -123,7 +123,7 @@ class AsyncCheckpointWriter:
         queue, raises if this save failed, and holds every rank at a
         barrier until it is committed: the preemption save's contract."""
         sd = state.state_dict()
-        if state.zero.rank == 0:
+        if state.writes_checkpoints():
             snapshot = Snapshot(sd)
             self._ensure_thread()
             failed_before = self.counters["saves_failed"]

@@ -1,11 +1,10 @@
-"""The LM train and eval steps, on one device or data-parallel over a
-process group with ZeRO stages 0–3.
+"""The LM train and eval steps: one device, data parallelism with ZeRO
+stages 0–3, and the sequence and tensor strategies.
 
-The port of ``distributed_training_tpu/train/lm_step.py``'s GSPMD step at
-``model == 1`` (``make_tp_lm_train_step``, the "tensor/dp" strategy):
-forward, the cross-entropy, backward with gradient accumulation, the
-gradient exchange, the loss-scale hooks and the optimizer commit. Metrics
-stay on the device as 0-d tensors and carry the JAX step's keys
+The port of ``distributed_training_tpu/train/lm_step.py``: forward, the
+cross-entropy, backward with gradient accumulation, the gradient
+exchange, the loss-scale hooks and the optimizer commit. Metrics stay on
+the device as 0-d tensors and carry the JAX step's keys
 (:func:`_lm_metrics`); the fp32 and bf16 steps make no host read.
 
 The cross-entropy takes one of three forms, as in the JAX package:
@@ -20,16 +19,44 @@ The cross-entropy takes one of three forms, as in the JAX package:
   the forward saves the bf16 softmax and the backward is ``(p − onehot)·g``
   from it.
 
-Data parallelism (the state's ``zero``) is the image step's
-(``train/step.py``): each rank runs its equal slice of the global batch,
-the gradients are all-reduced (stages 0–1) or reduce-scattered (2–3) as a
-mean, the update runs on the rank's shard, and the metrics are averaged
-over the ranks, so the step equals the JAX GSPMD step on the global batch.
-Dropout masks come from a generator seeded by the run's seed, the step and
-the rank (the JAX step's ``fold_in`` of the shard index).
+Under tensor parallelism the logits are this model rank's vocabulary
+shard, and each form runs as the **vocab-parallel CE**
+(:class:`_VocabParallelCE`): the row maximum over the shards, then the sum
+of exponentials, then the target's logit by a masked pick, each one
+all-reduce over ``model``; its backward is local (``softmax − onehot``
+on the rank's columns). Top-1 stays tie-inclusive against the global
+maximum.
+
+The strategy is the model's (the mesh and the tensor-parallel context it
+was built with), as the JAX trainer's follows from the mesh:
+
+- data parallelism (the state's ``zero``) is the image step's
+  (``train/step.py``): each rank runs its equal slice of the global batch,
+  the gradients are all-reduced (stages 0–1) or reduce-scattered (2–3) as
+  a mean over the group, the update runs on the rank's shard, and the
+  metrics are averaged over the group, so the step equals the JAX step on
+  the global batch;
+- the sequence strategy (the model's ``seq_axis``; JAX
+  ``make_lm_train_step``): the batch is the rank's rows and time chunk,
+  attention runs the ring, and the group of the state's ``zero`` is
+  ``data × sequence`` (``_GRAD_AXES``), over which the gradients and
+  metrics are averaged and ZeRO partitions;
+- tensor parallelism (JAX ``make_tp_lm_train_step``, the same step
+  here): the model holds this model rank's shards, the group is the
+  rank's ``data`` (× ``sequence``) group, and every model rank computes
+  the same loss;
+- ``tp_overlap`` (JAX ``_lm_grads_body`` with ``tp_overlap``): the logits
+  come out time-sharded over ``model``, so the step slices the targets to
+  match, completes the gradients with ``overlap_finalize_grads`` and
+  averages the metrics over ``model`` too.
+
+Gradient accumulation runs shard-locally in every strategy. Dropout masks
+come from a generator seeded by the run's seed, the step and the shard
+(the JAX step's ``fold_in`` of ``sequence × data``, and ``model`` under
+``tp_overlap``; model ranks of the plain TP step draw the same masks).
 
 Not ported: MoE auxiliary losses (``aux_loss`` is always 0 here) and the
-sequence-, tensor- and pipeline-parallel steps.
+pipeline step.
 """
 
 from __future__ import annotations
@@ -39,8 +66,14 @@ from typing import Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.utils.checkpoint
 
+from distributed_training_tpu_torch.parallel.collective_matmul import (
+    overlap_finalize_grads,
+)
+from distributed_training_tpu_torch.parallel.tensor_parallel import copy_to_model
+from distributed_training_tpu_torch.runtime.mesh import AXIS_DATA, AXIS_SEQUENCE
 from distributed_training_tpu_torch.train.precision import commit_gradients
 from distributed_training_tpu_torch.train.train_state import TrainState
 
@@ -116,10 +149,64 @@ class _SavedProbsCE(torch.autograd.Function):
         return (dlogits * g_rows[..., None]).to(ctx.logits_dtype), None
 
 
+class _VocabParallelCE(torch.autograd.Function):
+    """CE rows and tie-inclusive correctness over vocab-sharded logits
+    (``[..., V/tp]``, this model rank's columns, from ``index · V/tp``).
+
+    As :func:`_fused_ce_rows` computes them over whole logits: the row
+    maximum in the stored dtype (all-reduced MAX), the float32 sum of
+    exponentials (all-reduced), the target's logit picked on the rank that
+    holds it (all-reduced); rows ``lse − label logit``, correct where the
+    label logit reaches the global maximum. The backward is local:
+    ``(softmax − onehot)·g`` on the rank's columns, the softmax from the
+    saved logits and lse, or with ``save_probs`` from the bf16
+    probabilities the forward kept (:class:`_SavedProbsCE`'s trade)."""
+
+    @staticmethod
+    def forward(ctx, logits, targets, group, index, save_probs):
+        vl = logits.shape[-1]
+        m = logits.amax(-1).float()
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+        ex = torch.exp(logits.float() - m[..., None])
+        s = ex.sum(-1)
+        dist.all_reduce(s, group=group)
+        lse = torch.log(s) + m
+        local = targets.long() - index * vl
+        mine = (local >= 0) & (local < vl)
+        local = local.clamp(0, vl - 1)
+        lab = logits.gather(-1, local[..., None])[..., 0].float()
+        lab = torch.where(mine, lab, torch.zeros_like(lab))
+        dist.all_reduce(lab, group=group)
+        correct = (lab >= m).float()
+        ctx.mark_non_differentiable(correct)
+        ctx.logits_dtype, ctx.save_probs = logits.dtype, save_probs
+        if save_probs:
+            ctx.save_for_backward((ex / s[..., None]).to(torch.bfloat16), local, mine)
+        else:
+            ctx.save_for_backward(logits, lse, local, mine)
+        return lse - lab, correct
+
+    @staticmethod
+    def backward(ctx, g_rows, _g_correct):
+        if ctx.save_probs:
+            p, local, mine = ctx.saved_tensors
+            p = p.float()
+        else:
+            logits, lse, local, mine = ctx.saved_tensors
+            p = torch.exp(logits.float() - lse[..., None])
+        p.scatter_add_(-1, local[..., None], -mine.float()[..., None])
+        return (p * g_rows[..., None]).to(ctx.logits_dtype), None, None, None, None
+
+
 def _ce_rows_and_correct(logits, targets, accuracy_metric: bool,
-                         save_probs: bool):
-    """The fused CE (default) or the saved-probabilities CE; returns
-    ``(rows, correct-or-None)``."""
+                         save_probs: bool, tp=None):
+    """The fused CE (default) or the saved-probabilities CE, vocab-parallel
+    over ``tp``'s model ranks when the logits are a vocabulary shard;
+    returns ``(rows, correct-or-None)``."""
+    if tp is not None:
+        rows, correct = _VocabParallelCE.apply(logits, targets, tp.group, tp.index,
+                                               save_probs)
+        return rows, (correct if accuracy_metric else None)
     if save_probs:
         rows, correct = _SavedProbsCE.apply(logits, targets)
         return rows, (correct if accuracy_metric else None)
@@ -145,6 +232,8 @@ def chunked_ce_and_accuracy(hidden: torch.Tensor, head, targets: torch.Tensor,
     b, t, _ = hidden.shape
     if t % chunk:
         raise ValueError(f"ce_chunk {chunk} must divide sequence length {t}")
+    tp = head.tp  # a vocab-parallel head: this rank's columns
+    hidden = copy_to_model(hidden, tp)
     w = head.kernel.to(logits_dtype)
     bias = head.bias.to(logits_dtype) if head.bias is not None else None
 
@@ -153,7 +242,7 @@ def chunked_ce_and_accuracy(hidden: torch.Tensor, head, targets: torch.Tensor,
         if bias is not None:
             logits = logits + bias
         rows, correct = _ce_rows_and_correct(logits, tc, accuracy_metric,
-                                             save_probs=False)
+                                             save_probs=False, tp=tp)
         acc = (correct.sum() if accuracy_metric
                else torch.zeros((), dtype=torch.float32, device=hc.device))
         return rows.sum(), acc
@@ -213,7 +302,7 @@ def _lm_loss_and_grads(model: torch.nn.Module, loss_scale, tokens, targets,
     else:
         rows, correct = _ce_rows_and_correct(
             model(tokens, generator=generator), targets, accuracy_metric,
-            ce_save_probs)
+            ce_save_probs, model.lm_head.tp)
         ce = rows.mean()
         accuracy = correct.mean() if accuracy_metric else None
     aux = torch.zeros((), dtype=torch.float32, device=ce.device)  # dense FFN
@@ -238,6 +327,45 @@ def _lm_metrics(state: TrainState, ce, aux, accuracy, finite: bool) -> dict:
     return out
 
 
+def _seq_size(model) -> int:
+    """The ranks the model's sequence is sharded over (1 without)."""
+    return model.mesh.size(model.seq_axis) if model.seq_axis is not None else 1
+
+
+def _shard_fold(model, rank: int) -> int:
+    """The shard index the dropout generator folds in: the JAX step's
+    ``sequence × data`` (× ``model`` under ``tp_overlap``) on a mesh, the
+    data rank without one."""
+    mesh, tp = model.mesh, model.tp
+    if mesh is None:
+        return rank
+    fold = mesh.index(AXIS_SEQUENCE) * mesh.size(AXIS_DATA) + mesh.index(AXIS_DATA)
+    if tp is not None and tp.overlap:
+        fold = fold * tp.size + tp.index
+    return fold
+
+
+def _overlap_targets(targets: torch.Tensor, tp) -> torch.Tensor:
+    """Under ``tp_overlap`` the logits are this model rank's time chunk:
+    the targets' matching chunk (JAX slices them in its body)."""
+    t = targets.shape[1]
+    if t % tp.size:
+        raise ValueError(
+            f"tp_overlap: the per-sequence-shard length (= {t}) must divide "
+            f"by the model-axis size {tp.size} (the overlap schedule "
+            f"time-shards activations over `model`); pick a divisible seq_len "
+            f"or disable tp_overlap")
+    tl = t // tp.size
+    return targets[:, tp.index * tl:(tp.index + 1) * tl]
+
+
+def mean_over_model(tensors: list[torch.Tensor], tp) -> list[torch.Tensor]:
+    """Each tensor averaged over the model ranks (one all-reduce)."""
+    flat = torch.stack(tensors)
+    dist.all_reduce(flat, group=tp.group)
+    return list((flat / tp.size).unbind())
+
+
 def make_lm_train_step(*, zero_stage: int = 0, grad_accum_steps: int = 1,
                        accuracy_metric: bool = True,
                        max_len: int | None = None,
@@ -245,14 +373,16 @@ def make_lm_train_step(*, zero_stage: int = 0, grad_accum_steps: int = 1,
                        logits_dtype: torch.dtype = torch.float32,
                        seed: int = 0) -> Callable:
     """Build ``step(state, batch) -> metrics`` for batches
-    ``{'tokens', 'targets'}`` of ``[B, T]`` integers (the rank's slice).
+    ``{'tokens', 'targets'}`` of ``[B, T]`` integers: the rank's rows, and
+    under the sequence strategy its time chunk.
 
+    The strategy is the state's model's (see the module docstring).
     ``zero_stage`` must be the stage of ``state.zero`` (a mismatch
     raises). ``grad_accum_steps > 1``: the batch is the rank's effective
     batch, cut into that many contiguous microbatches; their gradients are
     summed, then averaged, and one optimizer update follows. ``ce_chunk``
     and ``ce_save_probs`` select the CE (see the module docstring;
-    together they raise).
+    together they raise). ``max_len`` bounds the global sequence length.
     """
     if grad_accum_steps < 1:
         raise ValueError(f"grad_accum_steps must be >= 1, got {grad_accum_steps}")
@@ -263,19 +393,24 @@ def make_lm_train_step(*, zero_stage: int = 0, grad_accum_steps: int = 1,
         if zero.stage != zero_stage:
             raise ValueError(f"the step was built for zero stage {zero_stage}, "
                              f"the state is partitioned for {zero.stage}")
+        model = state.model
         tokens, targets = batch["tokens"], batch["targets"]
-        if max_len is not None and tokens.shape[1] > max_len:
-            raise ValueError(f"global sequence length {tokens.shape[1]} exceeds "
+        t_global = tokens.shape[1] * _seq_size(model)
+        if max_len is not None and t_global > max_len:
+            raise ValueError(f"global sequence length {t_global} exceeds "
                              f"the positional table max_len={max_len}")
         if tokens.shape[0] % grad_accum_steps:
             raise ValueError(f"batch dim {tokens.shape[0]} not divisible by "
                              f"gradient_accumulation_steps={grad_accum_steps}")
-        model = state.model
+        overlap = model.tp if model.tp is not None and model.tp.overlap else None
+        if overlap is not None:
+            targets = _overlap_targets(targets, overlap)
         model.train()
         state.gather_params()
         for p in model.parameters():
             p.grad = None
-        gen = dropout_generator(model, seed, state.step, zero.rank, tokens.device)
+        gen = dropout_generator(model, seed, state.step, _shard_fold(model, zero.rank),
+                                tokens.device)
         ces, auxs, accs = [], [], []
         for tk, tg in zip(tokens.chunk(grad_accum_steps),
                           targets.chunk(grad_accum_steps)):
@@ -291,6 +426,9 @@ def make_lm_train_step(*, zero_stage: int = 0, grad_accum_steps: int = 1,
             p.grad = None
         if grad_accum_steps > 1:
             grads = [g / grad_accum_steps for g in grads]
+        if overlap is not None:
+            done = overlap_finalize_grads(dict(zip(names, grads)), overlap)
+            grads = [done[n] for n in names]
         if zero.partitions_grads:
             grads = zero.reduce_scatter_mean(grads)
             state.release_params()
@@ -303,7 +441,10 @@ def make_lm_train_step(*, zero_stage: int = 0, grad_accum_steps: int = 1,
         local = [torch.stack(ces).mean(), torch.stack(auxs).mean()]
         if accuracy_metric:
             local.append(torch.stack(accs).mean())
-        ce, aux, *acc = zero.all_reduce_mean(local)
+        local = zero.all_reduce_mean(local)
+        if overlap is not None:
+            local = mean_over_model(local, overlap)
+        ce, aux, *acc = local
         return _lm_metrics(state, ce, aux, acc[0] if acc else None, finite)
 
     return step
@@ -312,17 +453,26 @@ def make_lm_train_step(*, zero_stage: int = 0, grad_accum_steps: int = 1,
 def make_lm_eval_fn(ce_chunk: int | None = None,
                     logits_dtype: torch.dtype = torch.float32) -> Callable:
     """Build ``eval_loss(model, batch) -> mean token CE`` (a 0-d tensor of
-    the rank's slice), through the chunked CE when ``ce_chunk`` is set, as
-    the JAX trainer's eval does."""
+    the rank's shard of the batch), through the chunked CE when
+    ``ce_chunk`` is set, as the JAX trainer's eval does. The sequence
+    strategy evaluates through the sharded forward (the ring), as JAX's
+    ``make_lm_eval_fn``; tensor parallelism through the vocab-parallel CE;
+    ``tp_overlap`` on this model rank's time chunk (the caller averages
+    over the model ranks as over the replica group)."""
 
     @torch.no_grad()
     def eval_loss(model: torch.nn.Module, batch: dict) -> torch.Tensor:
         model.eval()
+        targets = batch["targets"]
+        if model.tp is not None and model.tp.overlap:
+            targets = _overlap_targets(targets, model.tp)
         if ce_chunk:
             hidden = model(batch["tokens"], return_hidden=True)
-            return chunked_ce_and_accuracy(hidden, model.lm_head, batch["targets"],
+            return chunked_ce_and_accuracy(hidden, model.lm_head, targets,
                                            ce_chunk, accuracy_metric=False,
                                            logits_dtype=logits_dtype)[0]
-        return _fused_softmax_ce(model(batch["tokens"]), batch["targets"])
+        rows, _ = _ce_rows_and_correct(model(batch["tokens"]), targets, False,
+                                       False, model.lm_head.tp)
+        return rows.mean()
 
     return eval_loss

@@ -1,22 +1,40 @@
-"""LMTrainer: transformer-LM training on one device or data-parallel over
-a process group with ZeRO 0–3.
+"""LMTrainer: transformer-LM training over the data, sequence and model
+axes, with ZeRO 0–3.
 
-The port of ``distributed_training_tpu/train/lm_trainer.py`` for its
-``tensor/dp`` strategy at ``model == 1``. ``LMTrainer(cfg).fit()`` returns
-the JAX trainer's keys: ``final_perplexity``, ``preempted``,
-``last_metrics`` and ``steps`` (committed updates).
+The port of ``distributed_training_tpu/train/lm_trainer.py``.
+``LMTrainer(cfg).fit()`` returns the JAX trainer's keys:
+``final_perplexity``, ``preempted``, ``last_metrics`` and ``steps``
+(committed updates).
+
+The strategy follows from the mesh (``cfg.mesh`` over the world size,
+``runtime/mesh.py``), as in the JAX trainer:
+
+- ``sequence > 1`` → the sequence strategy: each rank holds its data
+  shard's rows and its time chunk, attention runs the ring over the
+  ``sequence`` group, and gradients, metrics and ZeRO run over ``data ×
+  sequence``; eval runs the same sharded forward;
+- otherwise the tensor/dp strategy: plain data parallelism at ``model ==
+  1``, megatron tensor parallelism (``parallel/tensor_parallel.py``) at
+  ``model > 1``;
+- ``model > 1`` composes with either (TP×SP), and ``tp_overlap`` swaps
+  the ring-overlapped collective matmuls in (``parallel/collective_matmul.py``);
+  at ``model == 1`` it runs the plain step, as in JAX.
+
+The configuration checks are the JAX trainer's, with its ``ValueError``
+messages. The pipeline (``pipe > 1``), MoE and the ``fsdp`` and
+``expert`` axes raise ``NotImplementedError``.
 
 It runs on the card unless ``device="cpu"`` is passed, and raises when
 there is no card and no such request. With ``cfg.lm.attn_impl="flash"``
 every layer's attention runs the K2 (forward) and K3 (backward) kernels
-on the card; with ``remat`` each block's recompute runs K2 again. Data
-parallelism, ZeRO, the chunked and saved-probabilities CE are the step's
-(``train/lm_step.py``); the process group, the rank's slice of every
-batch, the preemption guard, the background checkpoint writer, the metric
-sinks, the wall-clock breakdown and the profiler trace are the image
-trainer's (``train/trainer.py``, :class:`Engine`). Fields whose behaviour
-is not ported raise ``NotImplementedError``: the image trainer's list
-(the pipeline among the mesh axes).
+on the card (each ring hop, under the sequence strategy); with ``remat``
+each block's recompute runs K2 again. The chunked and saved-probabilities
+CE are the step's (``train/lm_step.py``); the process group, the
+preemption guard, the background checkpoint writer, the metric sinks, the
+wall-clock breakdown and the profiler trace are the image trainer's
+(``train/trainer.py``, :class:`Engine`). Checkpoints are saved in the
+world-1 format (the ZeRO partitions and the TP shards gathered) and load
+at any layout.
 """
 
 from __future__ import annotations
@@ -26,27 +44,35 @@ import contextlib
 import numpy as np
 import torch
 
-from distributed_training_tpu_torch.config import (
-    TrainConfig,
-    effective_batch_sizes,
-    resolve_data_axis,
-)
+from distributed_training_tpu_torch.config import TrainConfig, effective_batch_sizes
 from distributed_training_tpu_torch.data.lm_text import (
     TokenLoader,
     byte_corpus,
     synthetic_tokens,
 )
 from distributed_training_tpu_torch.models import get_model
+from distributed_training_tpu_torch.ops.flash_attention import check_seq_len
+from distributed_training_tpu_torch.parallel.tensor_parallel import (
+    TensorParallel,
+    shard_model_,
+)
 from distributed_training_tpu_torch.parallel.zero import Zero
 from distributed_training_tpu_torch.runtime.coordinator import Coordinator
 from distributed_training_tpu_torch.runtime.distributed import (
     initialize_distributed,
     local_device,
 )
+from distributed_training_tpu_torch.runtime.mesh import (
+    AXIS_DATA,
+    AXIS_MODEL,
+    AXIS_SEQUENCE,
+    Mesh,
+)
 from distributed_training_tpu_torch.train.lm_step import (
     make_lm_batch,
     make_lm_eval_fn,
     make_lm_train_step,
+    mean_over_model,
     parse_logits_dtype,
 )
 from distributed_training_tpu_torch.train.optim import make_optimizer
@@ -56,29 +82,82 @@ from distributed_training_tpu_torch.train.trainer import (
     Engine,
     MetricMeter,
     refuse_unported,
-    unported_fields,
 )
 from distributed_training_tpu_torch.utils.device import set_fp32_math
 
 
+def unported_lm_fields(cfg: TrainConfig) -> dict[str, bool]:
+    """The fields the LM trainer lacks, each with whether ``cfg`` sets it."""
+    return {
+        "mesh axes fsdp, expert and pipe": any(
+            getattr(cfg.mesh, a) != 1 for a in ("fsdp", "expert", "pipe")),
+        "moe.enabled": cfg.moe.enabled,
+    }
+
+
+def check_lm_config(cfg: TrainConfig, seq: int, model_par: int) -> None:
+    """The JAX trainer's checks of the LM configuration against the
+    sequence and model axis sizes, with its messages (``ValueError``)."""
+    lm = cfg.lm
+    if seq > 1 and lm.seq_len % seq:
+        raise ValueError(
+            f"sequence-parallel size {seq} must divide seq_len "
+            f"(= {lm.seq_len})")
+    if lm.ce_chunk_size is not None:
+        if lm.ce_chunk_size < 1:
+            raise ValueError(f"ce_chunk_size must be >= 1, got {lm.ce_chunk_size}")
+        # The shifted loss length is seq_len: seq_len/sp a ring shard, and
+        # tp_overlap time-shards it over the model axis too.
+        t_loss = lm.seq_len // seq
+        if cfg.tp_overlap:
+            t_loss //= model_par
+        if t_loss % lm.ce_chunk_size:
+            raise ValueError(
+                f"ce_chunk_size {lm.ce_chunk_size} must divide the "
+                f"per-shard loss sequence length (= {t_loss})")
+    if model_par > 1:
+        checks = [("num_heads", lm.num_heads),
+                  ("mlp dim", lm.hidden_dim * lm.mlp_ratio)]
+        if not cfg.tp_overlap:  # the overlap schedule keeps vocab replicated
+            checks.append(("vocab_size", lm.vocab_size))
+        for what, n in checks:
+            if n % model_par:
+                raise ValueError(
+                    f"tensor parallelism size {model_par} must divide "
+                    f"{what} (= {n})")
+        if cfg.tp_overlap and (lm.seq_len // seq) % model_par:
+            raise ValueError(
+                f"tp_overlap time-shards activations over the model "
+                f"axis: the per-sequence-shard length "
+                f"(= {lm.seq_len // seq}) must divide by the "
+                f"tensor-parallel size {model_par}")
+    if lm.attn_impl == "flash":  # ROADMAP C (e), at each shard's length
+        check_seq_len(lm.seq_len // seq)
+
+
 class LMTrainer(Engine):
-    """Epoch-loop engine for :class:`TransformerLM`, data-parallel over the
-    default process group when one is open."""
+    """Epoch-loop engine for :class:`TransformerLM` over the mesh of the
+    default process group (world 1 without one)."""
 
     tag, epoch_tag = "lm_trainer", "lm_train"
 
     def __init__(self, cfg: TrainConfig, device: str | torch.device | None = None):
         lm = cfg.lm
         # num_microbatches and virtual_stages shape the pipeline alone (the
-        # pipe axis, refused with the other mesh axes); without it the JAX
+        # pipe axis, refused with the other axes); without it the JAX
         # trainer reads neither, and neither does this one.
-        refuse_unported(unported_fields(cfg))
+        refuse_unported(unported_lm_fields(cfg))
         self.cfg = cfg
         group = initialize_distributed(device=device)
         self.coord = Coordinator()
         self.device = local_device(device)
         set_fp32_math()
-        self.world_size = resolve_data_axis(cfg.mesh, self.coord.world_size)
+        self.mesh = Mesh(cfg.mesh)
+        seq, model_par = self.mesh.size(AXIS_SEQUENCE), self.mesh.size(AXIS_MODEL)
+        self.strategy = "sequence" if seq > 1 else "tensor/dp"
+        self.tp_size = model_par
+        check_lm_config(cfg, seq, model_par)
+        self.world_size = self.mesh.data_size
         policy = Policy.from_config(cfg.precision)
         logits_dtype = parse_logits_dtype(lm.logits_dtype)
         self.model = get_model(
@@ -88,14 +167,19 @@ class LMTrainer(Engine):
             mlp_ratio=lm.mlp_ratio, max_len=lm.max_len,
             attn_impl=lm.attn_impl, remat=cfg.remat,
             logits_dtype=logits_dtype, head_bias=lm.head_bias,
+            seq_axis=AXIS_SEQUENCE if seq > 1 else None, mesh=self.mesh,
             generator=torch.Generator().manual_seed(cfg.seed),
-        ).to(self.device)
+        )
+        self.tp = TensorParallel.from_mesh(self.mesh, overlap=cfg.tp_overlap)
+        shard_model_(self.model, self.tp).to(self.device)
         self.train_gbs, self.eval_gbs, self.grad_accum = effective_batch_sizes(
             cfg, self.world_size)
         self.tx = make_optimizer(cfg.optimizer, cfg.scheduler, self.world_size)
+        # ZeRO over the replica group: data × sequence (JAX _GRAD_AXES).
         self.state = TrainState.create(
             self.model, self.tx, LossScaleState.create(cfg.precision),
-            Zero(cfg.zero.stage, group, cfg.zero.cpu_offload))
+            Zero(cfg.zero.stage, self.mesh.group(AXIS_DATA, AXIS_SEQUENCE),
+                 cfg.zero.cpu_offload, tp=self.tp))
         self.train_step = make_lm_train_step(
             zero_stage=cfg.zero.stage, grad_accum_steps=self.grad_accum,
             accuracy_metric=lm.metrics_accuracy, max_len=lm.max_len,
@@ -104,11 +188,21 @@ class LMTrainer(Engine):
         self.eval_loss = make_lm_eval_fn(lm.ce_chunk_size, logits_dtype)
         self.meter = MetricMeter(cfg.log_interval)
         self._init_run()
+        overlap = self.tp is not None and self.tp.overlap
+        label = (self.strategy + ("×tp" if model_par > 1 and seq > 1 else "")
+                 + ("(tp-overlap)" if overlap else ""))
+        layout = {a: n for a, n in self.mesh.sizes.items() if n > 1}
+        params = param_count(self.model)  # the whole model's, under TP too
+        if self.tp is not None:
+            params += (self.tp.size - 1) * sum(
+                p.numel() for n, p in self.model.named_parameters()
+                if self.tp.dim(n) is not None)
         self.coord.print(
-            f"[lm_trainer] params={param_count(self.model):,} "
+            f"[lm_trainer] params={params:,} "
             f"device={self.device} dtype={cfg.precision.dtype} "
             f"attn={lm.attn_impl} seq_len={lm.seq_len} "
             f"optimizer={cfg.optimizer.name}"
+            + (f" mesh={layout} strategy={label}" if self.mesh.world > 1 else "")
             + (f" world={self.world_size} zero={cfg.zero.stage}"
                + (" cpu_offload" if cfg.zero.cpu_offload else "")
                if group is not None or cfg.zero.stage else "")
@@ -132,9 +226,9 @@ class LMTrainer(Engine):
             evals = synthetic_tokens(lm.eval_sequences, lm.seq_len,
                                      lm.vocab_size, seed=seed + 1)
         # Train consumes effective batches; eval stays micro-sized. Each
-        # rank reads its contiguous slice of every global batch.
-        shard = dict(process_index=self.coord.process_index,
-                     process_count=self.coord.process_count)
+        # data shard reads its contiguous slice of every global batch.
+        shard = dict(process_index=self.mesh.index(AXIS_DATA),
+                     process_count=self.mesh.size(AXIS_DATA))
         return (TokenLoader(train, global_batch_size=self.train_gbs,
                             shuffle=True, seed=seed,
                             max_steps=self.cfg.data.max_steps_per_epoch, **shard),
@@ -142,17 +236,25 @@ class LMTrainer(Engine):
                             shuffle=False, seed=seed, **shard))
 
     def host_batch(self, batch: dict) -> dict:
-        """A loader batch shifted into tokens and targets."""
-        return {k: np.ascontiguousarray(v)
-                for k, v in make_lm_batch(batch["tokens"]).items()}
+        """A loader batch shifted into tokens and targets (the shift before
+        the time cut, so it crosses the chunks' boundaries), cut to this
+        rank's time chunk under the sequence strategy."""
+        n, i = self.mesh.size(AXIS_SEQUENCE), self.mesh.index(AXIS_SEQUENCE)
+        out = {}
+        for k, v in make_lm_batch(batch["tokens"]).items():
+            tl = v.shape[1] // n
+            out[k] = np.ascontiguousarray(v[:, i * tl:(i + 1) * tl])
+        return out
 
     # -- eval ---------------------------------------------------------------
     def evaluate(self, loader: TokenLoader) -> float:
         """Mean held-out perplexity: exp of the mean over batches of each
-        global batch's token CE (the ranks' slices averaged in one
-        all-reduce), with one host read for the whole pass; with the
-        parameters' EMA when ``optimizer.ema_decay`` and ``eval_with_ema``
-        are set; at ZeRO stage 3 through the gathered parameters."""
+        global batch's token CE (the ranks' shards averaged in one
+        all-reduce over the replica group, and over the model ranks under
+        ``tp_overlap``), with one host read for the whole pass; through the
+        sharded forward of the strategy; with the parameters' EMA when
+        ``optimizer.ema_decay`` and ``eval_with_ema`` are set; at ZeRO
+        stage 3 through the gathered parameters."""
         ema = self.cfg.optimizer.ema_decay is not None and self.cfg.eval_with_ema
         with self.state.ema_weights() if ema else contextlib.nullcontext():
             self.state.gather_params()
@@ -164,6 +266,8 @@ class LMTrainer(Engine):
                 f"{self.cfg.lm.eval_sequences} < global batch "
                 f"{loader.global_batch_size}? drop_last discards partials)")
         losses = self.state.zero.all_reduce_mean([torch.stack(losses)])[0]
+        if self.tp is not None and self.tp.overlap:
+            losses = mean_over_model([losses], self.tp)[0]
         ppl = float(np.exp(np.mean(losses.tolist())))
         self.metrics_writer.write(self._global_step, {"perplexity": ppl},
                                   prefix="eval")

@@ -154,23 +154,30 @@ class OptState:
         raise AttributeError(name)
 
 
-def global_norm(tensors: list[torch.Tensor], zero=None) -> torch.Tensor:
+def global_norm(tensors: list[torch.Tensor], zero=None, names=None) -> torch.Tensor:
     """L2 norm over all tensors, as a float32 0-d tensor. With ``zero``
     (a ``parallel.zero.Zero``) at stage 1 or more the tensors are this
     rank's shards: their squared norms are summed over the ranks by one
-    all-reduce."""
+    all-reduce. Under tensor parallelism (``zero.tp``; ``names`` the
+    tensors' parameter names) a model-sharded tensor's squared norm is
+    summed over the model ranks too, a replicated one counted once."""
     norms = torch._foreach_norm(tensors, 2)
+    if zero is not None and zero.tp is not None:
+        return zero.whole_sq_norms(torch.stack(norms).square(), names).sum().sqrt()
     if zero is None or not zero.partitions_optimizer:
         return torch.linalg.vector_norm(torch.stack(norms))
     return zero.all_reduce_(torch.stack(norms).square().sum()).sqrt()
 
 
-def tensor_norms(tensors: list[torch.Tensor], zero=None) -> torch.Tensor:
+def tensor_norms(tensors: list[torch.Tensor], zero=None, names=None) -> torch.Tensor:
     """Each tensor's L2 norm, as one float32 vector. Under ZeRO (stage 1
     or more) the tensors are shards: each whole tensor's norm is the square
     root of its shards' squared norms summed over the ranks (one
-    all-reduce of the vector)."""
+    all-reduce of the vector); under tensor parallelism as in
+    :func:`global_norm`."""
     norms = torch.stack(torch._foreach_norm(tensors, 2))
+    if zero is not None and zero.tp is not None:
+        return zero.whole_sq_norms(norms.square(), names).sqrt()
     if zero is None or not zero.partitions_optimizer:
         return norms
     return zero.all_reduce_(norms.square()).sqrt()
@@ -224,7 +231,7 @@ class Optimizer:
         are shards; ``zero`` makes the clip's norm global over the ranks'
         shards."""
         if self.clip is not None:
-            norm = global_norm(list(grads.values()), zero)
+            norm = global_norm(list(grads.values()), zero, list(grads))
             keep = norm < self.clip
             grads = {n: torch.where(keep, g, g / norm * self.clip)
                      for n, g in grads.items()}
@@ -303,7 +310,7 @@ class Optimizer:
         if self.weight_decay:  # adamw, lamb: decoupled, on the update
             u = list(self._add_decay(params, dict(zip(names, u)), decay).values())
         if self.name == "lamb":
-            u = self._trust_ratio(u, [params[n] for n in names], zero)
+            u = self._trust_ratio(u, [params[n] for n in names], zero, names)
         return u
 
     def _scale_by_adam(self, names, g, state, slots, count) -> list[torch.Tensor]:
@@ -327,10 +334,11 @@ class Optimizer:
         return u
 
     @staticmethod
-    def _trust_ratio(u, params, zero) -> list[torch.Tensor]:
+    def _trust_ratio(u, params, zero, names) -> list[torch.Tensor]:
         """``optax.scale_by_trust_ratio``: each update times ‖p‖ / ‖u‖, 1
-        where either norm is 0; whole-tensor norms under ZeRO."""
-        norms = tensor_norms([*params, *u], zero)
+        where either norm is 0; whole-tensor norms under ZeRO and tensor
+        parallelism."""
+        norms = tensor_norms([*params, *u], zero, [*names, *names])
         p_norm, u_norm = norms[:len(u)], norms[len(u):]
         ratio = torch.where((p_norm == 0) | (u_norm == 0),
                             torch.ones_like(p_norm), p_norm / u_norm)

@@ -149,7 +149,8 @@ def commit_gradients(state, grads: dict[str, torch.Tensor],
       gradient can still overflow inside Adam (``g² > fp32 max``), and an
       in-place write would then keep an inf moment for good. Under ZeRO
       (stage 1 or more) each rank sees only its shard of the candidate, so
-      the finite flag is all-reduced (MIN) first: every rank then commits
+      the finite flag is all-reduced (MIN) first (over the model ranks
+      too under tensor parallelism): every rank then commits
       or skips the same step and keeps the same loss scale. The flag is
       read on the host (one device sync per fp16 step). If it is set, the
       commit swaps references to the candidate, copying nothing; if not,
@@ -175,8 +176,12 @@ def commit_gradients(state, grads: dict[str, torch.Tensor],
     finite_t = all_finite(
         [*grads.values(), *out.values(),
          *(t for slot in candidate.slots.values() for t in slot.values())])
-    if zero.partitions_optimizer:
-        finite_t = zero.all_reduce_(finite_t.to(torch.int32), op=dist.ReduceOp.MIN)
+    if zero.partitions_optimizer or zero.tp is not None:
+        finite_t = finite_t.to(torch.int32)
+        if zero.partitions_optimizer:
+            zero.all_reduce_(finite_t, op=dist.ReduceOp.MIN)
+        if zero.tp is not None:  # each model rank sees its own shards
+            dist.all_reduce(finite_t, op=dist.ReduceOp.MIN, group=zero.tp.group)
     finite = bool(finite_t)
     state.loss_scale = state.loss_scale.update(finite)
     if finite:

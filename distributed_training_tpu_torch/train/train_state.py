@@ -18,7 +18,11 @@ where there is a card). At stage 3 the shards
 emptied after each step (:meth:`release_params`) and all-gathered again
 before the next forward (:meth:`gather_params`). A checkpoint holds the
 whole tensors whatever the stage and world (:meth:`state_dict` gathers,
-:meth:`load_state_dict` partitions anew).
+:meth:`load_state_dict` partitions anew). Under tensor parallelism
+(``zero.tp``) the model's tensors are this model rank's shards, which the
+ZeRO partition splits further; a checkpoint gathers them by the rule table
+(``parallel/tensor_parallel.py``) too, and a load cuts them again, so a
+save resumes at any ``(data, model, sequence)`` layout.
 """
 
 from __future__ import annotations
@@ -28,6 +32,10 @@ import dataclasses
 
 import torch
 
+from distributed_training_tpu_torch.parallel.tensor_parallel import (
+    gather_tensor,
+    shard_tensor,
+)
 from distributed_training_tpu_torch.parallel.zero import Zero
 from distributed_training_tpu_torch.train.optim import Optimizer, OptState
 from distributed_training_tpu_torch.train.precision import LossScaleState
@@ -239,17 +247,37 @@ class TrainState:
                 for n, b in live_stats.items():
                     stats[n].copy_(b)
 
+    def _whole(self, tensors: dict) -> dict:
+        """Tensors by parameter name, the model-sharded ones gathered over
+        the model ranks (the tensors themselves without tensor parallelism)."""
+        tp = self.zero.tp
+        if tp is None:
+            return tensors
+        return {n: gather_tensor(t, tp.dim(n), tp) for n, t in tensors.items()}
+
+    def _local(self, tensors: dict) -> dict:
+        """The converse of :meth:`_whole`: this model rank's shards."""
+        tp = self.zero.tp
+        if tp is None:
+            return tensors
+        return {n: shard_tensor(t, tp.dim(n), tp) for n, t in tensors.items()}
+
+    def writes_checkpoints(self) -> bool:
+        """Whether this rank writes the saves: the first of its group, on
+        the first model rank."""
+        return self.zero.rank == 0 and (self.zero.tp is None or self.zero.tp.index == 0)
+
     def state_dict(self) -> dict:
         """Everything a resume needs, as whole tensors and numbers: the
-        world-1 format at every stage and world. Every rank must call it
+        world-1 format at every stage and layout. Every rank must call it
         (it all-gathers partitioned state)."""
         self.gather_params()
-        model = self.model.state_dict()  # holds the gathered tensors
+        model = self._whole(self.model.state_dict())  # the gathered tensors
         self.release_params()
         return {
             "model": model,
             "opt_state": {"count": self.opt_state.count,
-                          **{k: self._full_slot(k, v)
+                          **{k: self._whole(self._full_slot(k, v))
                              for k, v in self.opt_state.slots.items()}},
             "loss_scale": dataclasses.asdict(self.loss_scale),
             "step": self.step,
@@ -257,10 +285,10 @@ class TrainState:
 
     @torch.no_grad()
     def load_state_dict(self, sd: dict) -> None:
-        """Load a :meth:`state_dict` saved at any stage and world, and
+        """Load a :meth:`state_dict` saved at any stage and layout, and
         partition it for this one."""
         self.gather_params()
-        self.model.load_state_dict(sd["model"], strict=True)
+        self.model.load_state_dict(self._local(sd["model"]), strict=True)
         if self.shards is not None:
             self.shards = {n: self.zero.shard(p) for n, p in self.params().items()}
         self.release_params()
@@ -273,7 +301,7 @@ class TrainState:
             if set(mine) != set(tensors):
                 raise ValueError(f"optimizer state {key} names differ from "
                                  f"the checkpoint's")
-            for n, t in tensors.items():
+            for n, t in self._local(tensors).items():
                 mine[n].copy_(self.partition(t).view(mine[n].shape))
         self.opt_state.count = int(sd["opt_state"]["count"])
         self.loss_scale = LossScaleState(**sd["loss_scale"])

@@ -95,7 +95,7 @@ from distributed_training_tpu_torch.utils.profiling import WallClock, trace
 
 
 def unported_fields(cfg: TrainConfig) -> dict[str, bool]:
-    """The fields both trainers lack, each with whether ``cfg`` sets it."""
+    """The fields the image Trainer lacks, each with whether ``cfg`` sets it."""
     mesh = cfg.mesh
     return {
         "mesh axes other than data": any(

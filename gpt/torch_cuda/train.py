@@ -10,9 +10,14 @@ this script imports nothing of the JAX package). What works:
   ``--corpus`` or synthetic tokens), ``--attn-impl`` exact or flash (the
   K2/K3 kernels on the card), ``--dtype`` fp32, bf16, fp16,
   ``--logits-dtype``, ``--head-bias``;
-- data parallelism over the launcher's process group (``torchrun``),
-  ``--stage`` 0–3 (ZeRO), ``--gradient-accumulation-steps``, ``--remat``,
-  ``--ce-chunk-size`` or ``--ce-save-probs``, ``--ema-decay``;
+- the parallel strategy is the mesh over the launcher's process group
+  (``torchrun``): ``--sp N`` rings the sequence over N ranks (ring
+  attention; with ``--attn-impl flash`` each hop runs K2/K3), ``--tp N``
+  megatron-shards the layers over N ranks, ``--tp-overlap`` swaps the ring
+  collective matmuls in for the TP collectives; the rest of the ranks form
+  the data axis. ``--stage`` 0–3 (ZeRO over the replica group),
+  ``--gradient-accumulation-steps``, ``--remat``, ``--ce-chunk-size`` or
+  ``--ce-save-probs``, ``--ema-decay``;
 - ``-c``, ``-i``, ``-r``, ``--auto-resume`` (SIGTERM saves a step-accurate
   checkpoint that it picks up), ``--log-interval``, ``--steps-per-epoch``,
   ``--seed``, ``--wall-clock-breakdown``, ``--profile-dir``,
@@ -20,10 +25,9 @@ this script imports nothing of the JAX package). What works:
 
 The flags of what the port lacks raise ``NotImplementedError`` naming the
 flag when set away from their defaults: MoE (``--moe`` and its knobs),
-``--tp``, ``--tp-overlap``, ``--pp``, ``--virtual-stages``,
-``--microbatches`` (the pipeline's; 2, the default, is read by nothing
-without it, as in the JAX trainer), ``--sp``, the flight recorder and the
-other observability instruments (``--flight-recorder``, ``--trace``,
+``--pp``, ``--virtual-stages``, ``--microbatches`` (the pipeline's; 2, the
+default, is read by nothing without it, as in the JAX trainer), the flight
+recorder and the other observability instruments (``--flight-recorder``, ``--trace``,
 ``--metrics-port``, ``--grad-norm-metric``, ``--anomaly-*``) and the chaos
 flags. ``--flight-recorder`` therefore defaults to off, where the JAX
 CLI's is on.
@@ -33,6 +37,7 @@ It runs on the card (``cuda:LOCAL_RANK`` under ``torchrun``) unless
 
     ./run.sh                                                   # one card
     torchrun --nproc-per-node 1 train.py -b 8 --seq-len 512 --attn-impl flash
+    torchrun --nproc-per-node 4 train.py --sp 2 --tp 2 --attn-impl flash  # 4 cards
     python train.py --device cpu --num-layers 2 --hidden-dim 32 --seq-len 16 \
         --steps-per-epoch 2 -e 1                               # CPU, micro
 """
@@ -72,7 +77,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--attn-impl", type=str, default="exact",
                         choices=["exact", "flash"],
                         help="flash = the K2/K3 CUDA kernels (blockwise "
-                             "attention, no [T, T] scores in memory)")
+                             "attention, no [T, T] scores in memory); under "
+                             "--sp it becomes the per-hop ring compute")
     parser.add_argument("--ce-chunk-size", type=int, default=None,
                         help="chunked cross-entropy: tokens per lm_head+CE "
                              "chunk (never materializes [B,T,vocab] logits; "
@@ -115,8 +121,12 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--tp", type=int, default=1,
                         help="tensor-parallel (model axis) size")
     parser.add_argument("--tp-overlap", action="store_true", default=False,
-                        help="ring-overlapped tensor parallelism (not "
-                             "ported)")
+                        help="ring-overlapped tensor parallelism: decompose "
+                             "the megatron layer collectives into ppermute "
+                             "rings fused with the partial matmuls "
+                             "(latency-hiding collective matmul; needs "
+                             "--tp > 1 to do anything, and seq_len/--sp "
+                             "divisible by --tp)")
     parser.add_argument("--pp", type=int, default=1,
                         help="pipeline-parallel (pipe axis) size")
     parser.add_argument("--sp", type=int, default=1,
@@ -232,8 +242,8 @@ def add_chaos_arguments(parser: argparse.ArgumentParser) -> None:
 
 # Flags whose behaviour the port lacks, by dest (ROADMAP.md).
 UNPORTED = ("moe", "ep_world_size", "num_experts", "moe_every", "top_k",
-            "min_capacity", "noisy_gate_policy", "mlp_type", "tp", "tp_overlap",
-            "pp", "virtual_stages", "microbatches", "sp", "flight_recorder",
+            "min_capacity", "noisy_gate_policy", "mlp_type",
+            "pp", "virtual_stages", "microbatches", "flight_recorder",
             "flight_dir", "trace", "trace_dir", "metrics_port", "grad_norm_metric",
             "anomaly_detection", "anomaly_action", "anomaly_trace_steps")
 

@@ -151,7 +151,28 @@ def test_image_leg_honours_zero_offload_and_input_dtype(capsys, flags, tag):
 @pytest.mark.parametrize("flags", [
     ["--check"], ["--tp", "2"], ["--tp-overlap"], ["--steps-per-call", "15"],
 ], ids=lambda f: f[0])
-def test_unported_flags_raise(flags):
+def test_unported_flags_raise(flags, monkeypatch):
+    """What the port's bench lacks raises naming ROADMAP.md. ``--tp`` and
+    ``--tp-overlap``, which this test once listed, are ported: ``--tp 2``
+    over one rank exits with the root bench's message (the check that
+    ``--tp`` divides the ranks), and ``--tp-overlap`` at ``--tp 1`` runs
+    the plain LM step (its GPT cut to one layer of width 32 here, as in
+    the CE test below) with the root bench's tag."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    if flags[0] == "--tp":
+        with pytest.raises(SystemExit, match=r"--tp 2 must be >= 1 and divide the "
+                                             r"device count \(= 1\)"):
+            bench.main([*TINY, "--lm", *flags])
+        return
+    if flags[0] == "--tp-overlap":
+        from distributed_training_tpu_torch import models
+
+        get_model = models.get_model
+        monkeypatch.setattr(models, "get_model", lambda name, **kw: get_model(
+            name, **{**kw, "num_layers": 1, "num_heads": 2, "hidden_dim": 32}))
+        (line, loss), = bench.main([*TINY, "--lm", "--steps", "1", *flags])
+        assert ", tp-overlap," in line["metric"] and np.isfinite(loss)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         bench.main(["--device", "cpu", *flags])
 

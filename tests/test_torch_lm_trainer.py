@@ -131,11 +131,26 @@ def test_resume_is_step_accurate(tmp_path):
     dict(mesh=tcfg.MeshSpec(fsdp=2)),
 ], ids=lambda o: next(iter(o)) + "=" + str(next(iter(o.values())))[:40])
 def test_unported_options_raise(tmp_path, override):
-    """What the LM trainer still lacks. (ZeRO, remat, adamw under ZeRO and
-    the data axis, which this test once listed, are ported: see
-    test_torch_lm_distributed.py and test_torch_remat.py.)"""
+    """What the LM trainer still lacks raises ``NotImplementedError``.
+    (ZeRO, remat, adamw under ZeRO and the data axis, which this test once
+    listed, are ported: see test_torch_lm_distributed.py and
+    test_torch_remat.py. So are the sequence and model axes and
+    ``tp_overlap``, multi-rank in test_torch_lm_sequence_parallel.py,
+    test_torch_tensor_parallel.py and test_torch_tp_overlap.py: here, at
+    world 1, ``tp_overlap`` over a model axis of 1 builds the plain step,
+    as the JAX trainer does, and a sequence or model axis of 2 is a mesh
+    one process cannot hold, refused as ``create_mesh`` refuses it.)"""
+    cfg = _cfg(tcfg, tmp_path, **override)
+    if override == dict(tp_overlap=True):
+        t = LMTrainer(cfg, device="cpu")
+        assert t.tp is None and t.strategy == "tensor/dp"
+        return
+    if "mesh" in override and (cfg.mesh.sequence, cfg.mesh.model) != (1, 1):
+        with pytest.raises(ValueError, match="not divisible by fixed axes product 2"):
+            LMTrainer(cfg, device="cpu")
+        return
     with pytest.raises(NotImplementedError):
-        LMTrainer(_cfg(tcfg, tmp_path, **override), device="cpu")
+        LMTrainer(cfg, device="cpu")
 
 
 @pytest.mark.parametrize("prefetch", [0, 2])

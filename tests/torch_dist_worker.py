@@ -1,10 +1,12 @@
-"""One rank of the port's data-parallel runs that
-``tests/test_torch_distributed.py`` (:func:`run`, the image step) and
+"""One rank of the port's multi-rank runs that
+``tests/test_torch_distributed.py`` (:func:`run`, the image step),
 ``tests/test_torch_lm_distributed.py`` (:func:`run_lm`, the LM step and
+``LMTrainer``) and the sequence- and tensor-parallel tests
+(:func:`run_named`: ring attention, the LM step on a mesh, checkpoints,
 ``LMTrainer``) hold against the JAX package.
 
-Started by the tests in ``spawn``ed processes (two ranks, gloo on the
-CPU): it imports torch and the port only, never JAX. It reads
+Started by the tests in ``spawn``ed processes (two or four ranks, gloo on
+the CPU): it imports torch and the port only, never JAX. It reads
 ``<out>/job.pt`` (the initial weights, the batches, the trainer run's
 config) and writes every scenario's results to ``<out>/results_<rank>.pt``,
 or the traceback to ``<out>/error_<rank>.txt``.
@@ -231,6 +233,215 @@ def run(rank: int, world: int, init_file: str, out_dir: str) -> None:
 
 def run_lm(rank: int, world: int, init_file: str, out_dir: str) -> None:
     _run_parts(rank, world, init_file, out_dir, (_lm_steps, _lm_trainer))
+
+
+def _mesh(sizes: dict):
+    from distributed_training_tpu_torch.config import MeshSpec
+    from distributed_training_tpu_torch.runtime.mesh import Mesh
+
+    return Mesh(MeshSpec(**sizes))
+
+
+def _local_batch(batch: dict, mesh) -> dict:
+    """This rank's rows (its data shard) and time chunk (its sequence
+    shard) of a global ``[B, T]`` batch."""
+    nd, d = mesh.size("data"), mesh.index("data")
+    ns, q = mesh.size("sequence"), mesh.index("sequence")
+    out = {}
+    for k, v in batch.items():
+        rows, t = v.shape[0] // nd, v.shape[1] // ns
+        out[k] = torch.from_numpy(np.ascontiguousarray(
+            v[d * rows:(d + 1) * rows, q * t:(q + 1) * t]))
+    return out
+
+
+def _ring(job, rank, world, group):
+    """Ring attention over a sequence axis of the world's size: each case's
+    output chunk and the chunk's gradients of ``Σ out · g``."""
+    from distributed_training_tpu_torch.parallel.ring_attention import ring_attention
+
+    mesh = _mesh({"data": 1, "sequence": world})
+    out = {}
+    for name, (impl, causal, arrays) in job["ring_cases"].items():
+        q, k, v, g = (torch.from_numpy(a).chunk(world, dim=-2)[rank].contiguous()
+                      for a in arrays)
+        q, k, v = (x.requires_grad_() for x in (q, k, v))
+        o = ring_attention(q, k, v, axis_name="sequence", causal=causal, impl=impl,
+                           mesh=mesh)
+        (o * g).sum().backward()
+        out[name] = {"out": o.detach(), "dq": q.grad, "dk": k.grad, "dv": v.grad}
+    return {"ring": out}
+
+
+def _lm_mesh_steps(job, rank, world, group):
+    """Each mesh scenario: the LM step on this rank's shard of the global
+    batches (the model sharded by the rule table under tensor
+    parallelism), the whole state after the steps, each step's metrics and
+    the sharded eval's CE."""
+    from distributed_training_tpu_torch.config import OptimizerConfig, PrecisionConfig
+    from distributed_training_tpu_torch.models import get_model
+    from distributed_training_tpu_torch.parallel.tensor_parallel import (
+        TensorParallel,
+        shard_model_,
+    )
+    from distributed_training_tpu_torch.parallel.zero import Zero
+    from distributed_training_tpu_torch.train.lm_step import (
+        make_lm_eval_fn,
+        make_lm_train_step,
+        mean_over_model,
+    )
+    from distributed_training_tpu_torch.train.optim import make_optimizer
+    from distributed_training_tpu_torch.train.precision import LossScaleState
+    from distributed_training_tpu_torch.train.train_state import TrainState
+
+    meshes, out = {}, {}
+    for name, sc in job["mesh_scenarios"].items():
+        key = tuple(sorted(sc["mesh"].items()))
+        if key not in meshes:  # every rank opens the same groups in turn
+            meshes[key] = _mesh(sc["mesh"])
+        mesh = meshes[key]
+        seq = mesh.size("sequence")
+        model = get_model("transformer_lm", seq_axis="sequence" if seq > 1 else None,
+                          mesh=mesh, **job["lm_kw"], **sc.get("model", {}))
+        model.load_state_dict(job["model"])
+        tp = TensorParallel.from_mesh(mesh, overlap=sc.get("overlap", False))
+        shard_model_(model, tp)
+        state = TrainState.create(model, make_optimizer(OptimizerConfig(**sc["opt"])),
+                                  LossScaleState.create(PrecisionConfig()),
+                                  Zero(sc["stage"], mesh.group("data", "sequence"), tp=tp))
+        step = make_lm_train_step(zero_stage=sc["stage"], max_len=job["lm_kw"]["max_len"],
+                                  **sc.get("step", {}))
+        metrics = [{k: float(v) for k, v in step(state, _local_batch(b, mesh)).items()}
+                   for b in job["batches"]]
+        res = {"state": state.state_dict(), "metrics": metrics, "step": state.step,
+               "local_numel": sum(p.numel() for p in model.parameters())}
+        if sc.get("eval"):
+            state.gather_params()
+            ce = make_lm_eval_fn(sc.get("step", {}).get("ce_chunk"))(
+                model, _local_batch(job["eval"], mesh))
+            state.release_params()
+            ce = state.zero.all_reduce_mean([ce])[0]
+            if tp is not None and tp.overlap:
+                ce = mean_over_model([ce], tp)[0]
+            res["eval"] = float(ce)
+        if sc.get("save"):
+            from distributed_training_tpu_torch import checkpoint as ckpt_lib
+
+            ckpt_lib.save_checkpoint(os.path.join(job["dir"], name), 0, state)
+        if sc.get("restore"):
+            from distributed_training_tpu_torch import checkpoint as ckpt_lib
+
+            ckpt_lib.restore_checkpoint(sc["restore"], 0, state)
+            res["restored"] = state.state_dict()
+        out[name] = res
+    return {"mesh": out}
+
+
+def _overlap_primitives(job, rank, world, group):
+    """The ring collective matmuls over the world (the model axis): each
+    case's output piece and this rank's gradients of its shards of x and
+    w, for the loss ``Σ out · co`` summed over the ranks (a replicated
+    output counts once: each rank takes 1/world of it)."""
+    from distributed_training_tpu_torch.parallel.collective_matmul import (
+        allgather_matmul,
+        matmul_reducescatter,
+        ring_all_gather,
+    )
+
+    x0, w0, co = (torch.from_numpy(a) for a in job["xw"])
+    out = {}
+    for name in ("allgather", "rs_rows", "rs_cols"):
+        if name == "allgather":  # x rows sharded, w columns
+            x, w = x0.chunk(world, -2)[rank], w0.chunk(world, -1)[rank]
+        else:  # the contraction sharded: x columns, w rows
+            x, w = x0.chunk(world, -1)[rank], w0.chunk(world, -2)[rank]
+        x, w = x.contiguous().requires_grad_(), w.contiguous().requires_grad_()
+        if name == "allgather":
+            y = allgather_matmul(x, w, group)
+            loss = (y * co.chunk(world, -1)[rank]).sum()
+        elif name == "rs_rows":
+            y = matmul_reducescatter(x, w, group, -2)
+            loss = (y * co.chunk(world, -2)[rank]).sum()
+        else:
+            y = ring_all_gather(matmul_reducescatter(x, w, group, -1), group, -1)
+            loss = (y * co).sum() / world
+        loss.backward()
+        out[name] = {"y": y.detach(), "dx": x.grad, "dw": w.grad}
+    return {"primitives": out}
+
+
+def _lm_trainer_mesh(job, rank, world, group):
+    """``LMTrainer.fit()`` of each config of ``job["trainer_cfgs"]``."""
+    from distributed_training_tpu_torch import LMTrainer
+
+    out = {}
+    for name, cfg in job["trainer_cfgs"].items():
+        t = LMTrainer(cfg, device="cpu")
+        out[name] = {"result": t.fit(), "world": t.world_size, "strategy": t.strategy,
+                     "model": t.state.state_dict()["model"]}
+    return {"trainer": out}
+
+
+def _cli_and_bench(job, rank, world, group):
+    """The GPT CLI (``gpt/torch_cuda/train.py``) for each of
+    ``job["cli_argv"]``, then the port bench's LM leg for each of
+    ``job["bench_argv"]`` with its GPT cut to ``job["bench_model"]``."""
+    import importlib.util
+
+    from distributed_training_tpu_torch import bench, models
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "port_gpt_cli", os.path.join(root, "gpt", "torch_cuda", "train.py"))
+    cli = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cli)  # the worker imports no JAX: not torch_lm_mesh
+    out = {"cli": [cli.main(argv) for argv in job.get("cli_argv", [])]}
+    get_model = models.get_model
+    models.get_model = lambda name, **kw: get_model(name, **{**kw, **job["bench_model"]})
+    os.environ["WORLD_SIZE"] = str(world)
+    try:
+        out["bench"] = [bench.main(argv)[0] for argv in job.get("bench_argv", [])]
+    finally:
+        models.get_model = get_model
+        del os.environ["WORLD_SIZE"]
+    return out
+
+
+def run_named(rank: int, world: int, init_file: str, out_dir: str, names: tuple) -> None:
+    """The parts named (functions of this module) on this rank."""
+    _run_parts(rank, world, init_file, out_dir, tuple(globals()[n] for n in names))
+
+
+def spawn(out_dir, world: int, names: tuple, timeout_s: float = 150.0):
+    """Start ``world`` ranks of :func:`run_named` (a ``file://`` store in
+    ``out_dir``); returns a function that joins them, raises on a hung or
+    failed rank, and returns every rank's results."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=run_named,
+                         args=(r, world, os.path.join(str(out_dir), "store"), str(out_dir),
+                               names))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+
+    def join():
+        for p in procs:
+            p.join(timeout_s)
+        hung = [p for p in procs if p.is_alive()]
+        for p in hung:
+            p.kill()
+            p.join(10)
+        errors = [open(os.path.join(str(out_dir), f)).read()
+                  for f in sorted(os.listdir(str(out_dir))) if f.startswith("error_")]
+        if hung or errors or any(p.exitcode != 0 for p in procs):
+            raise RuntimeError(f"{len(hung)} rank(s) hung, exit codes "
+                               f"{[p.exitcode for p in procs]}\n" + "\n".join(errors))
+        return [torch.load(os.path.join(str(out_dir), f"results_{r}.pt"),
+                           weights_only=False) for r in range(world)]
+
+    return join
 
 
 def global_batches(n_steps: int, batch: int = 8, size: int = 64, seed: int = 0):
