@@ -60,8 +60,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
    64, bf16, causal) with P 2 and 4, and at the flash bench's long shape
    (B 2, H 12, T 16384) with P 4 (T_local 4096); out, dq, dk and dv (dk
    and dv summed over the ranks that saw each block) against one
-   unsharded ``flash_attention`` call on K2/K3, and on the first two heads
-   against the plain version, by row within the flash tolerances; K2 and K3 launched once a hop that runs (counted from 0
+   unsharded ``flash_attention`` call on K2/K3, and on every head against
+   the plain version (its backward fed the unsharded call's out and lse),
+   by row within the flash tolerances; K2 and K3 launched once a hop that runs (counted from 0
    around the checked run); each rank's hop times against the unsharded
    call's over P;
 7. LM phase: ``LMTrainer.fit()`` on GPT-2-small at full width (12 layers,
@@ -98,6 +99,19 @@ Phases, in order; any failure exits non-zero and prints no result line:
    SIGTERM after its third logged step: it must save and exit 0, and the
    run resumed with ``--auto-resume`` must end at the uninterrupted run's
    step count and final loss;
+7d''. MoE phases: the GPT CLI's trainer at GPT-2-small width with
+   ``--moe`` at the JAX CLI's defaults (8 experts at every 2nd layer,
+   top-1, capacity factor 1.25; B 16 T 1024, bf16, flash, ``hybrid_adam``)
+   for 8 steps and an eval, then top-2 with ``--mlp-type residual``,
+   beside the dense model of the same flags: losses finite and falling,
+   the aux loss finite and positive, K2/K3 once a layer a step (K2 also an
+   eval batch), K1 once a step; the model's parameter count, tokens/s, ms a
+   step, peak memory and each MoE layer's kept share; one MoE layer at that
+   width in float32 on the card against the CPU (output, aux, the input's
+   and the router's gradients within 1e-5 of their largest magnitude);
+   then the ResNet CLI's ``--moe --num-experts 4`` (``moe_mlp``, synthetic
+   CIFAR, batch 100, 20 steps of ``hybrid_adam``): losses falling, K1 once
+   a step, the trained logits on the card against the CPU within 1e-3;
 7e. d-256 phase: K2–K4 at head dims 256 and 160 (padded to 256), and at
    257, 320, 384 and 512 (768 in bf16; the d > 256 kernels, d padded to a
    multiple of 64), in float32, bf16 and fp16, T 100 and 384, causal and
@@ -150,11 +164,19 @@ Phases, in order; any failure exits non-zero and prints no result line:
 Without a CUDA device it exits with code 2 before doing anything.
 
 ``torchrun --nproc-per-node W chip_smoke.py --mesh`` (W 2 or 4 GPUs)
-runs instead the LM trainer's strategies across the ranks over NCCL
-(:func:`mesh_main`): data parallelism, the ring over W ranks, TP over W
-with and without the overlap schedule, and at W 4 TP×SP (overlapped too)
-and TP×DP, through the GPT CLI at GPT-2-small width, each against data
+runs instead (:func:`mesh_main`), over NCCL: the image Trainer on
+ResNet-18 across the ranks at the global batch 100 for each plugin preset
+(SyncBN, ZeRO 0/1/3 and 2 with ``cpu_offload``, fp32 and fp16) against
+the same preset at world 1, local BN, and a ZeRO 1 save resumed at world
+1; GPT-2-small with MoE as DP W, EP W and EP 2 × DP 2 and ``moe_mlp`` as
+DP W and EP W, each against its DP run's losses; then the LM trainer's
+strategies: data parallelism, the ring over W ranks, TP over W with and
+without the overlap schedule, and at W 4 TP×SP (overlapped too) and
+TP×DP, through the GPT CLI at GPT-2-small width, each against data
 parallelism's losses; then the bench's LM leg with ``--tp W``.
+
+``python3 chip_smoke.py --phase NAME ...`` runs the build and only the
+named phases (ring, moe_lm, moe_image), without a result line.
 """
 
 from __future__ import annotations
@@ -905,19 +927,15 @@ RING_CONFIGS = (("gpt2_small_p2", GPT_B, GPT_H, GPT_T, 2),
                 ("long_t16384_p4", 2, GPT_H, 16384, 4))
 
 
-# The ring against the plain version: on the first two (batch, head)
-# slices. The ring and the unsharded K2/K3 call both round p to bf16 in
-# the kernels' tiles; the plain version keeps float32 scores and rounds its
-# own out once, so its backward's delta = rowsum(dO · out) differs from
-# theirs, and in a row where dP − delta cancels, dq's relative error grows:
-# over all 192 × 1024 rows at P 2 the ring against the plain version read
-# 0.276 by row on an H100 80GB HBM3 at 700 W, while the ring against the
-# unsharded K2/K3 call read 0.043 (so the unsharded call itself lies over
-# 0.17 from the plain version in some row; LSE_GRAD_TOL's note says the
-# same of two runs with their own out). On two slices (2048 to 32768 rows)
-# all three comparisons read 0.024–0.053 there. Every head stays held
-# against the unsharded K2/K3 call.
-RING_PLAIN_HEADS = 2
+# The ring against the plain version on every head, the plain backward
+# fed the unsharded K2 call's out and lse as _flash_case feeds it the
+# kernel's: the plain version's own out (float32 scores, rounded once)
+# differs from the kernels' (p rounded to bf16 in their tiles), and a
+# backward whose delta = rowsum(dO · out) comes from another out reads up
+# to 0.276 by row in dq where dP − delta cancels (on an H100 80GB HBM3 at
+# 700 W). The plain version runs RING_PLAIN_ROWS query rows' worth of
+# heads at a time (one head at T 16384) to bound its [T, T] scores.
+RING_PLAIN_ROWS = 16384
 
 
 def _out_and_grads(fn, q, k, v, g) -> list:
@@ -927,6 +945,28 @@ def _out_and_grads(fn, q, k, v, g) -> list:
     out = fn(*xs)
     out.backward(g)
     return [t.reshape(-1, *t.shape[-2:]) for t in (out.detach(), *(x.grad for x in xs))]
+
+
+def _ring_plain(q, k, v, g) -> list:
+    """The plain version's ``[out, dq, dk, dv]`` on every head, ``[BH, T,
+    d]``: out from its own forward, the gradients from its backward fed the
+    unsharded K2 call's out and lse (see RING_PLAIN_ROWS), heads in groups
+    of RING_PLAIN_ROWS query rows."""
+    from distributed_training_tpu_torch.ops import flash_attention as fa
+
+    t = q.shape[-2]
+    flat = [x.reshape(-1, t, GPT_D) for x in (q, k, v, g)]
+    out, lse = fa.flash_fwd(*flat[:3], causal=True)
+    step = max(1, RING_PLAIN_ROWS // t)
+    parts = []
+    for i in range(0, flat[0].shape[0], step):
+        qf, kf, vf, gf = (x[i:i + step] for x in flat)
+        p_out, _ = fa.flash_attention_reference(qf, kf, vf, causal=True)
+        grads = fa.flash_attention_bwd_reference(qf, kf, vf, out[i:i + step],
+                                                 lse[i:i + step], gf, causal=True)
+        parts.append([p_out, *grads])
+        del p_out, grads
+    return [torch.cat(x) for x in zip(*parts)]
 
 
 def _ring_hop_times(q, k, v, g, p: int, gen) -> list:
@@ -993,22 +1033,18 @@ def ring_phase() -> dict:
             raise SystemExit(f"ring {name}: K2/K3 launches {launches}, want {hops} each "
                              f"(one a hop that runs)")
         want = _out_and_grads(unsharded, q, k, v, g)
-        n = RING_PLAIN_HEADS
-        qf, kf, vf, gf = (x.reshape(b * h, t, GPT_D)[:n] for x in (q, k, v, g))
-        p_out, p_lse = fa.flash_attention_reference(qf, kf, vf, causal=True)
-        plain = [p_out, *fa.flash_attention_bwd_reference(qf, kf, vf, p_out, p_lse, gf,
-                                                          causal=True)]
+        plain = _ring_plain(q, k, v, g)
         errs = {}
         for i, key in enumerate(("out", "dq", "dk", "dv")):
             tol = fwd_tol if key == "out" else bwd_tol
             for ref_name, ref, mine in (("K2/K3", want[i], got[i]),
-                                        ("plain", plain[i], got[i][:n]),
-                                        ("K2/K3~plain", plain[i], want[i][:n])):
+                                        ("plain", plain[i], got[i]),
+                                        ("K2/K3~plain", plain[i], want[i])):
                 errs[f"{key} vs {ref_name}"] = err = _row_err(mine, ref)
                 _check(f"ring {name}: {key} vs {ref_name}", err, tol)
         max_abs = max((a.float() - b_.float()).abs().max().item()
                       for a, b_ in zip(got, want))
-        del want, plain, p_out, p_lse
+        del want, plain
         ranks = _ring_hop_times(q, k, v, g, p, gen)
         flat = [x.reshape(-1, t, GPT_D) for x in (q, k, v, g)]
         out, lse = fa.flash_fwd(*flat[:3], causal=True)
@@ -1022,7 +1058,8 @@ def ring_phase() -> dict:
               f"{launches['flash_bwd']} launches ({hops} hops run: the diagonal, causal, "
               f"and each past block; no kernel on future blocks); by row: "
               + ", ".join(f"{e} {v_:.3g}" for e, v_ in errs.items())
-              + f" (tolerances {fwd_tol}, {bwd_tol}; plain on BH {n}); "
+              + f" (tolerances {fwd_tol}, {bwd_tol}; plain on all {b * h} heads, its "
+              f"backward from the unsharded K2 call's out and lse); "
               f"max_abs_err vs K2/K3 {max_abs:.3g}; {card}")
         for r, (fwd, bwd, nh) in enumerate(ranks):
             print(f"[ring] {name} rank {r}: {nh} hop(s), K2 {fwd:.4f} ms, K3 {bwd:.4f} ms; "
@@ -1579,16 +1616,21 @@ def bench_phase() -> dict:
     return launches
 
 
-def cli_phase(ckpt_dir: str) -> dict:
-    """The ResNet CLI (``resnet/torch_cuda/train.py``) as ``run.sh`` calls
-    it (``-p torch_ddp_fp16 -c <dir>``), on synthetic CIFAR for one short
-    epoch: it must commit every step and save its checkpoint."""
+def _resnet_cli_module():
     import importlib.util
 
     spec = importlib.util.spec_from_file_location(
         "torch_cuda_train", os.path.join(REPO, "resnet", "torch_cuda", "train.py"))
     cli = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cli)
+    return cli
+
+
+def cli_phase(ckpt_dir: str) -> dict:
+    """The ResNet CLI (``resnet/torch_cuda/train.py``) as ``run.sh`` calls
+    it (``-p torch_ddp_fp16 -c <dir>``), on synthetic CIFAR for one short
+    epoch: it must commit every step and save its checkpoint."""
+    cli = _resnet_cli_module()
     steps = 10
     out = cli.main(["-p", "torch_ddp_fp16", "-c", ckpt_dir, "-i", "1", "-e", "1",
                     "--dataset", "synthetic_cifar", "--steps-per-epoch", str(steps)])
@@ -1642,16 +1684,28 @@ def _gpt_cli_module():
     return cli
 
 
-def _gpt_cli_run(cli, argv: list) -> dict:
+def _gpt_cli_run(cli, argv: list, edit=None, eval_before: bool = False) -> dict:
     """``build_trainer(argv).fit()`` with each train step timed on the card
     (synchronised before and after); its losses, step times, peak memory
     (above what the process held before the run: earlier phases keep some
-    tensors alive), eval batches and ZeRO view."""
+    tensors alive), eval batches and ZeRO view. ``edit`` maps the CLI's
+    config to the one the trainer runs (a field the CLI has no flag for,
+    such as the optimizer); ``eval_before`` evaluates once before training
+    too (``ppl_before``). With MoE layers, each step's aux loss and each
+    layer's kept share of (token, choice) pairs."""
+    from distributed_training_tpu_torch import LMTrainer
+    from distributed_training_tpu_torch.models.moe import MoEMlp
+
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     start = torch.cuda.memory_allocated()
-    trainer = cli.build_trainer(argv)
-    step, times = trainer.train_step, []
+    if edit is None:
+        trainer = cli.build_trainer(argv)
+    else:
+        args = cli.build_parser().parse_args(argv)
+        trainer = LMTrainer(edit(cli.build_config(args)), device=args.device)
+    step, times, kept = trainer.train_step, [], []
+    moe_layers = [m for m in trainer.model.modules() if isinstance(m, MoEMlp)]
 
     def timed(state, batch):
         torch.cuda.synchronize()
@@ -1659,16 +1713,22 @@ def _gpt_cli_run(cli, argv: list) -> dict:
         out = step(state, batch)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
+        if moe_layers:
+            kept.append([float(m.kept_share) for m in moe_layers])
         return out
 
     trainer.train_step = timed
+    ppl_before = trainer.evaluate(trainer.make_loaders()[1]) if eval_before else None
     result = trainer.fit()
+    rows = trainer.train_gbs
     run = {"result": result, "losses": [h["loss"] for h in trainer.meter.history],
+           "aux": [h["aux_loss"] for h in trainer.meter.history], "ppl_before": ppl_before,
+           "kept_share": kept, "params": trainer.param_count,
            "step_s": times, "peak_bytes": torch.cuda.max_memory_allocated() - start,
            "held_before_bytes": start,
            "eval_batches": len(trainer.make_loaders()[1]),
            "stage": trainer.state.zero.stage, "grouped": trainer.state.zero.group is not None,
-           "tokens_per_s": GPT_B * GPT_T * (len(times) - 1) / sum(times[1:])}
+           "tokens_per_s": rows * GPT_T * (len(times) - 1) / sum(times[1:])}
     del trainer
     torch.cuda.empty_cache()
     return run
@@ -1832,6 +1892,166 @@ def gpt_cli_phase(ckpt_dir: str) -> dict:
     preempt = _preempt_and_resume(cli, ckpt_dir)
     return {"launches": launches, "chunked": chunked, "base": base, "runs": runs,
             "preempt": preempt}
+
+
+# The MoE phases. The LM: the GPT CLI's --moe at the JAX CLI's defaults
+# (8 experts at every 2nd layer, top-1, capacity factor 1.25) at
+# GPT-2-small width, B 16 T 1024, bf16, flash, hybrid_adam (the CLI has no
+# optimizer flag: the config is edited), an eval, MOE_LM_STEPS steps and an
+# eval; then top-2 with --mlp-type residual; beside the dense model of the
+# same flags. The fall is judged on the eval CE before and after, as in
+# the LM phase: the train batches differ from step to step by about as
+# much as the steps lower the loss. One MoE layer at that width (d 768, h 3072, 8 experts, top-1) on
+# MOE_LAYER_TOKENS tokens in float32 (TF32 off), forward and backward: the
+# card against the CPU, each output's largest error over its largest
+# magnitude within MOE_LAYER_RTOL.
+MOE_LM_STEPS = 8
+MOE_LAYER_TOKENS = 2048
+MOE_LAYER_RTOL = 1e-5
+# The image: the ResNet CLI's --moe --num-experts 4 (moe_mlp) on synthetic
+# CIFAR, batch 100, MOE_IMAGE_STEPS steps of hybrid_adam; the trained
+# model's logits on the card against the CPU within MOE_IMAGE_LOGITS_RTOL
+# of their largest magnitude.
+MOE_IMAGE_STEPS = 20
+MOE_IMAGE_LOGITS_RTOL = 1e-3
+
+
+def _hybrid_adam(cfg):
+    import dataclasses
+
+    return cfg.replace(optimizer=dataclasses.replace(cfg.optimizer, name="hybrid_adam"))
+
+
+def _moe_layer_check() -> dict:
+    """One GPT-2-small-width MoE layer, float32, the card against the CPU:
+    output, aux loss, the input's and the router's gradients."""
+    import copy
+
+    from distributed_training_tpu_torch.models.moe import MoEMlp
+
+    gen = torch.Generator().manual_seed(0)
+    d = GPT_H * GPT_D
+    layer = MoEMlp(d, 8, 4 * d, generator=gen)
+    x = torch.randn(MOE_LAYER_TOKENS // GPT_T, GPT_T, d, generator=gen)
+    g = torch.randn(x.shape, generator=gen)
+
+    def run(m, x, g):
+        x = x.clone().requires_grad_()
+        out, aux = m(x, True)
+        ((out * g).sum() + aux).backward()
+        return {"out": out.detach(), "aux": aux.detach(), "dx": x.grad,
+                "d_router": m.gate.router.kernel.grad, "kept": m.kept_share}
+
+    want = run(layer, x, g)
+    got = run(copy.deepcopy(layer).cuda(), x.cuda(), g.cuda())
+    errs = {k: _rel_err(got[k].cpu(), want[k]) for k in ("out", "aux", "dx", "d_router")}
+    for k, e in errs.items():
+        _check(f"MoE layer {k}, card vs CPU", e, MOE_LAYER_RTOL)
+    print(f"[moe] one MoE layer (d {d}, h {4 * d}, 8 experts, top-1, capacity factor "
+          f"1.25, {MOE_LAYER_TOKENS} tokens, float32), card vs CPU, largest error over "
+          f"largest magnitude: " + ", ".join(f"{k} {e:.3g}" for k, e in errs.items())
+          + f" (tolerance {MOE_LAYER_RTOL}); kept share card {float(got['kept']):.4f}, "
+          f"CPU {float(want['kept']):.4f}")
+    return errs
+
+
+def moe_lm_phase(ckpt_dir: str) -> dict:
+    """GPT-2-small with MoE through the GPT CLI's trainer (see
+    MOE_LM_STEPS): the dense model, top-1 and top-2 residual; losses finite
+    and falling, aux finite and positive, K2 once a layer a step and an
+    eval batch, K3 once a layer a step, K1 once a step; tokens/s, ms a
+    step, peak memory and each MoE layer's kept share; then one MoE layer
+    on the card against the CPU."""
+    from distributed_training_tpu_torch.ops.flash_attention import flash_bwd, flash_fwd
+    from distributed_training_tpu_torch.ops.fused_adam import fused_adam_update
+
+    cli = _gpt_cli_module()
+    card = card_line()
+    runs = {}
+    for name, extra in (("dense", []), ("moe_top1", ["--moe"]),
+                        ("moe_top2_residual", ["--moe", "--top-k", "2",
+                                               "--mlp-type", "residual"])):
+        for fn in (flash_fwd, flash_bwd, fused_adam_update):
+            fn.launches = 0
+        run = _gpt_cli_run(cli, [*GPT_CLI_WIDTH, "--steps-per-epoch", str(MOE_LM_STEPS),
+                                 *extra, "-c", os.path.join(ckpt_dir, name)], _hybrid_adam,
+                           eval_before=True)
+        launches = {"flash_fwd": flash_fwd.launches, "flash_bwd": flash_bwd.launches,
+                    "fused_adam": fused_adam_update.launches}
+        want = {"flash_fwd": GPT_LAYERS * (MOE_LM_STEPS + 2 * run["eval_batches"]),
+                "flash_bwd": GPT_LAYERS * MOE_LM_STEPS, "fused_adam": MOE_LM_STEPS}
+        kept = run["kept_share"]
+        ms = 1e3 * sum(run["step_s"][1:]) / (MOE_LM_STEPS - 1)
+        ce = (math.log(run["ppl_before"]), math.log(run["result"]["final_perplexity"]))
+        print(f"[moe] GPT-2-small {name} ({run['params']:,} parameters; B {GPT_B} T {GPT_T}, "
+              f"bf16, flash, hybrid_adam), {MOE_LM_STEPS} steps: losses {run['losses']}; "
+              f"eval CE {ce[0]:.6f} before, {ce[1]:.6f} after; aux {run['aux']}; "
+              f"{run['tokens_per_s']:.1f} tokens/s, {ms:.3f} ms a step "
+              f"(steps 2-{MOE_LM_STEPS}), peak {run['peak_bytes'] / 2**30:.3f} GiB above "
+              f"the {run['held_before_bytes'] / 2**30:.3f} GiB held before; kept share by "
+              f"MoE layer, step 1 {[round(k, 4) for k in kept[0]] if kept else []}, step "
+              f"{MOE_LM_STEPS} {[round(k, 4) for k in kept[-1]] if kept else []}; launches "
+              f"{launches} (want {want}); {card}")
+        if not all(math.isfinite(x) for x in run["losses"]) or not ce[1] < ce[0]:
+            raise SystemExit(f"moe {name}: losses {run['losses']} not finite, or the eval "
+                             f"CE did not fall: {ce}")
+        if launches != want:
+            raise SystemExit(f"moe {name}: launches {launches}, want {want}")
+        if name != "dense" and not all(math.isfinite(a) and a > 0 for a in run["aux"]):
+            raise SystemExit(f"moe {name}: aux loss {run['aux']} not finite and positive")
+        runs[name] = {"params": run["params"], "losses": run["losses"], "aux": run["aux"],
+                      "tokens_per_s": run["tokens_per_s"], "step_ms": ms,
+                      "peak_gib": run["peak_bytes"] / 2**30, "kept_share": kept,
+                      "launches": launches, "eval_ce": ce}
+        torch.cuda.empty_cache()
+    layer = _moe_layer_check()
+    return {"runs": runs, "layer": layer,
+            "launches": {k: sum(r["launches"][k] for r in runs.values())
+                         for k in ("flash_fwd", "flash_bwd", "fused_adam")}}
+
+
+def moe_image_phase(ckpt_dir: str) -> dict:
+    """The ResNet CLI's ``--moe --num-experts 4`` (see MOE_IMAGE_STEPS):
+    losses falling, K1 once a step, then the trained model's logits on the
+    card against the CPU."""
+    import copy
+
+    from distributed_training_tpu_torch import Trainer
+    from distributed_training_tpu_torch.data.pipeline import to_device
+    from distributed_training_tpu_torch.ops.fused_adam import fused_adam_update
+    from distributed_training_tpu_torch.train.step import _input_images
+
+    cli = _resnet_cli_module()
+    args = cli.build_parser().parse_args([
+        "--moe", "--num-experts", "4", "--dataset", "synthetic_cifar", "-b", "100",
+        "-e", "1", "--steps-per-epoch", str(MOE_IMAGE_STEPS), "--optimizer", "hybrid_adam",
+        "--log-interval", "1", "-c", ckpt_dir])
+    trainer = Trainer(cli.build_config(args))
+    times = _timed_train_epochs(trainer)
+    fused_adam_update.launches = 0
+    out = trainer.fit()
+    launches = fused_adam_update.launches
+    losses = [h["loss"] for h in trainer.meter.history]
+    _, eval_loader = trainer.make_loaders()
+    batch = to_device(next(iter(eval_loader)), trainer.device)
+    model = trainer.model.eval()
+    with torch.no_grad():
+        images = _input_images(batch, trainer.input_affine)
+        got = model(images)
+        want = copy.deepcopy(model).cpu()(images.cpu())
+    err = _rel_err(got.cpu(), want)
+    print(f"[moe image] resnet/torch_cuda/train.py --moe --num-experts 4 -> moe_mlp "
+          f"({sum(p.numel() for p in model.parameters()):,} parameters), synthetic CIFAR, "
+          f"batch 100, {MOE_IMAGE_STEPS} steps of hybrid_adam: losses {losses}; K1 "
+          f"launches {launches}; epoch {times[0]:.3f} s; top-1 {out['final_acc']}; logits "
+          f"card vs CPU {err:.3g} of the largest (tolerance {MOE_IMAGE_LOGITS_RTOL})")
+    _check_losses("moe image", losses, MOE_IMAGE_STEPS)
+    if launches != MOE_IMAGE_STEPS:
+        raise SystemExit(f"moe image: K1 launches {launches} != {MOE_IMAGE_STEPS} steps")
+    _check("moe image logits, card vs CPU", err, MOE_IMAGE_LOGITS_RTOL)
+    del trainer
+    torch.cuda.empty_cache()
+    return {"launches": launches, "losses": losses, "logits_rel_err": err}
 
 
 # Each kernel's time on CUDA cores, before its tensor-core redesign, at
@@ -2248,11 +2468,270 @@ def _mesh_strategies(world: int) -> list:
     return out
 
 
+# A11 and MoE in the mesh mode. The image Trainer over W ranks at the
+# global batch 100 (100 / W a rank), ResNet-18, each plugin preset of the
+# DP phase (DP_STEPS steps, hybrid_adam, synthetic CIFAR without the random
+# crop and flip, so every layout sees the same images), SyncBN, against
+# the same preset at world 1 on each rank's own card (run before the
+# group opens): each step's loss within DP_LOSS_RTOL of its dtype; local
+# BN (statistics per shard by design): finite and falling only. The
+# low_level_zero run (ZeRO 1) saves its epoch, which rank 0 loads at
+# world 1 after the group closes and trains on. So that the layouts
+# differ in nothing else, every run takes the preset's learning rate
+# unscaled (the DDP and ColossalAI presets scale it by the data-parallel
+# world) and Adam's eps A11_EPS, as the CPU tests do. On four H100 80GB
+# HBM3 at 700 W: at the world-4 rate (4x) five steps grew the layouts'
+# last-bit differences to 6.3e-5 in fp32 and 5-8% in fp16; at the
+# presets' eps 1e-8 Adam's first steps move every parameter by about the
+# learning rate whatever its gradient, so a near-zero gradient whose fp16
+# rounding differs between 25 images a rank and 100 in one moves it the
+# other way, and the fp16 presets parted by 0.9-1.2% by step 4 while fp32
+# agreed to 1e-7.
+# MoE: GPT-2-small with --moe at ZeRO 1 (moe_param_group) as DP W, EP W and
+# EP 2 x DP 2 (the rows a rank chosen so that the global batch is 16), and
+# moe_mlp as DP W and EP W (25 images a rank, the learning rate unscaled
+# in both): each step's loss against the DP run's within GPT_STAGE_RTOL;
+# these agree only if the gate is global over the data ranks.
+A11_BATCH = 100
+A11_EPS = 1e-4
+# The mesh mode's comparisons that failed, each (what, error, tolerance):
+# every comparison runs, so one run shows them all, and the mode fails at
+# its end if any did.
+MESH_FAILURES: list = []
+
+
+def _mesh_check(what: str, err: float, tol: float) -> None:
+    if not err <= tol:
+        MESH_FAILURES.append((what, err, tol))
+        print(f"[mesh] FAILED {what}: {err:.3g} above {tol}", flush=True)
+
+
+class _Alone:
+    """While it is entered, the launcher's rendezvous variables are hidden,
+    so a trainer built here runs at world 1 on this rank's card."""
+
+    KEYS = ("WORLD_SIZE", "RANK", "MASTER_ADDR", "MASTER_PORT", "GROUP_RANK",
+            "ROLE_RANK", "LOCAL_WORLD_SIZE", "ROLE_WORLD_SIZE", "GROUP_WORLD_SIZE")
+
+    def __enter__(self):
+        self.saved = {k: os.environ.pop(k) for k in self.KEYS if k in os.environ}
+
+    def __exit__(self, *exc):
+        os.environ.update(self.saved)
+
+
+def _a11_config(plugin: str, ckpt_dir: str, world: int, **changes):
+    """The DP phase's preset over ``world`` ranks at the global batch
+    A11_BATCH, without the random crop and flip, at the preset's learning
+    rate unscaled by the world and Adam's eps A11_EPS (see A11_BATCH)."""
+    import dataclasses
+
+    cfg = _dp_config(plugin, ckpt_dir)
+    return cfg.replace(data=dataclasses.replace(cfg.data, batch_size=A11_BATCH // world,
+                                                augment="normalize_only"),
+                       optimizer=dataclasses.replace(cfg.optimizer, scale_lr_by_world=False,
+                                                     eps=A11_EPS),
+                       **changes)
+
+
+def _image_run(cfg) -> dict:
+    """``Trainer(cfg).fit()`` with each step timed on the card: losses, K1
+    launches, images/s over steps 2 on, peak memory; and the trainer."""
+    from distributed_training_tpu_torch import Trainer
+    from distributed_training_tpu_torch.ops.fused_adam import fused_adam_update
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    trainer = Trainer(cfg)
+    step, times = trainer.train_step, []
+
+    def timed(state, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        return out
+
+    trainer.train_step = timed
+    fused_adam_update.launches = 0
+    trainer.fit()
+    return {"losses": [h["loss"] for h in trainer.meter.history],
+            "launches": fused_adam_update.launches,
+            "images_per_s": trainer.train_gbs * (len(times) - 1) / sum(times[1:]),
+            "peak_gib": (torch.cuda.max_memory_allocated() - start) / 2**30,
+            "trainer": trainer}
+
+
+def _rel_losses(got: list, want: list) -> float:
+    return max(abs(a - b) / abs(b) for a, b in zip(got, want))
+
+
+def a11_mesh(world: int, ckpt: str, alone: dict, card: str) -> dict:
+    """The image Trainer across the ranks (see A11_BATCH): every preset
+    against ``alone`` (its world-1 losses), local BN, the ZeRO 1 save."""
+    import torch.distributed as dist
+
+    rank, results = dist.get_rank(), {}
+    runs = [(p, p, {}) for p in DP_PRESETS] + [("torch_ddp_local_bn", "torch_ddp",
+                                               {"sync_batchnorm": False})]
+    for name, plugin, extra in runs:
+        if plugin == "low_level_zero":
+            extra = {"checkpoint": _ckpt_cfg(os.path.join(ckpt, "a11_zero1"), interval=1)}
+        cfg = _a11_config(plugin, os.path.join(ckpt, name), world, **extra)
+        run = _image_run(cfg)
+        trainer = run.pop("trainer")
+        if plugin == "low_level_zero":
+            results["zero1_saved_model"] = {
+                n: t.clone() for n, t in trainer.state.state_dict()["model"].items()}
+        _check_losses(f"a11 {name}", run["losses"], DP_STEPS)
+        if run["launches"] != DP_STEPS:
+            raise SystemExit(f"a11 {name}: rank {rank} K1 launches {run['launches']} "
+                             f"!= {DP_STEPS} steps")
+        line = {k: run[k] for k in ("losses", "launches", "images_per_s", "peak_gib")}
+        line["zero"] = trainer.state.zero.stage
+        line["world"] = trainer.world_size
+        if name in alone:
+            rtol = DP_LOSS_RTOL[cfg.precision.dtype]
+            line["rel_vs_world1"] = diff = _rel_losses(run["losses"], alone[name])
+            line["world1_losses"] = alone[name]
+            _mesh_check(f"a11 {name}: each step's loss at world {world} vs world 1", diff,
+                        rtol)
+        results[name] = line
+        if rank == 0:
+            print(f"[a11] {name} over {world} GPUs (ResNet-18, global batch {A11_BATCH}, "
+                  f"{cfg.precision.dtype}, zero {line['zero']}"
+                  f"{' cpu_offload' if cfg.zero.cpu_offload else ''}"
+                  f"{' local BN' if extra.get('sync_batchnorm') is False else ' SyncBN'}): "
+                  f"losses {line['losses']}"
+                  + (f" (world 1 {alone[name]}, {line['rel_vs_world1']:.3g} relative, "
+                     f"tolerance {DP_LOSS_RTOL[cfg.precision.dtype]})" if name in alone
+                     else " (statistics per shard: finite and falling only)")
+                  + f"; K1 {run['launches']} launches a rank; {line['images_per_s']:.1f} "
+                  f"images/s; peak {line['peak_gib']:.3f} GiB on rank 0; {card}", flush=True)
+        del trainer
+    return results
+
+
+def _ckpt_cfg(directory: str, **kw):
+    from distributed_training_tpu_torch.config import CheckpointConfig
+
+    return CheckpointConfig(directory=directory, **kw)
+
+
+def a11_resume(world: int, ckpt: str, saved_model: dict) -> dict:
+    """Rank 0 alone, after the group closed: the world-``world`` ZeRO 1
+    save loaded at world 1 (the whole model it gathered, bit for bit), then
+    trained on for one more epoch."""
+    from distributed_training_tpu_torch import Trainer
+    from distributed_training_tpu_torch import checkpoint as ckpt_lib
+
+    directory = os.path.join(ckpt, "a11_zero1")
+    cfg = _a11_config("low_level_zero", directory, 1, num_epochs=2,
+                      checkpoint=_ckpt_cfg(directory, interval=0, resume=0))
+    with _Alone():
+        run = _image_run(cfg)
+        trainer = run.pop("trainer")
+        probe = Trainer(cfg.replace(checkpoint=_ckpt_cfg(directory, interval=0)))
+        ckpt_lib.restore_checkpoint(directory, 0, probe.state)
+        loaded = probe.state.state_dict()["model"]
+    same = all(torch.equal(loaded[n].cpu(), t.cpu()) for n, t in saved_model.items())
+    print(f"[a11] the ZeRO 1 save at world {world} loaded at world 1: whole model bit for "
+          f"bit {same}; epoch 2 at world 1 from it: losses {run['losses']}, "
+          f"{trainer.state.step} committed steps", flush=True)
+    if not same or trainer.state.step != 2 * DP_STEPS:
+        raise SystemExit("a11: the world-4 ZeRO 1 checkpoint did not resume at world 1")
+    if not all(math.isfinite(x) for x in run["losses"]):
+        raise SystemExit(f"a11 resume: non-finite losses {run['losses']}")
+    return {"bitwise": same, "losses": run["losses"], "steps": trainer.state.step}
+
+
+def moe_mesh(world: int, ckpt: str, card: str) -> dict:
+    """GPT-2-small MoE and moe_mlp across the ranks (see A11_BATCH)."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from distributed_training_tpu_torch.ops.fused_adam import fused_adam_update
+
+    rank, results = dist.get_rank(), {}
+    cli = _gpt_cli_module()
+
+    def edit(cfg):
+        return _hybrid_adam(cfg).replace(moe=dataclasses.replace(cfg.moe, moe_param_group=True))
+
+    ref = None
+    for name, flags in ((f"moe_dp{world}", ["-b", str(GPT_B // world)]),
+                        (f"moe_ep{world}", ["--ep-world-size", str(world), "-b", str(GPT_B)]),
+                        ("moe_ep2_dp2", ["--ep-world-size", "2", "-b", str(2 * GPT_B // world)])):
+        fused_adam_update.launches = 0
+        run = _gpt_cli_run(cli, [*GPT_CLI_WIDTH, "--moe", "--stage", "1", *flags,
+                                 "-c", os.path.join(ckpt, name)], edit)
+        if not all(math.isfinite(x) for x in run["losses"]):
+            raise SystemExit(f"mesh {name}: non-finite losses {run['losses']}")
+        if fused_adam_update.launches != MESH_STEPS:
+            raise SystemExit(f"mesh {name}: rank {rank} K1 launches "
+                             f"{fused_adam_update.launches} != {MESH_STEPS}")
+        ref = ref or run
+        worst = _rel_losses(run["losses"], ref["losses"])
+        _mesh_check(f"mesh {name} losses vs moe_dp{world}", worst, GPT_STAGE_RTOL)
+        results[name] = {"losses": run["losses"], "aux": run["aux"],
+                         "worst_rel_vs_dp": worst, "tokens_per_s": run["tokens_per_s"],
+                         "step_ms": 1e3 * sum(run["step_s"][1:]) / (MESH_STEPS - 1),
+                         "peak_gib_rank0": run["peak_bytes"] / 2**30,
+                         "kept_share_step1": run["kept_share"][0]}
+        if rank == 0:
+            r = results[name]
+            print(f"[mesh] {name} over {world} GPUs (GPT-2-small MoE, 8 experts every 2nd "
+                  f"layer, top-1, global B {GPT_B} T {GPT_T}, bf16, flash, ZeRO 1, "
+                  f"hybrid_adam): {r['tokens_per_s']:.1f} tokens/s, {r['step_ms']:.3f} ms a "
+                  f"step, peak {r['peak_gib_rank0']:.3f} GiB on rank 0; losses {r['losses']} "
+                  f"({worst:.3g} relative of moe_dp{world}'s, tolerance {GPT_STAGE_RTOL}); "
+                  f"aux {r['aux']}; {card}", flush=True)
+    rcli = _resnet_cli_module()
+    ref = None
+    for name, flags in ((f"moe_mlp_dp{world}", []),
+                        (f"moe_mlp_ep{world}", ["--ep-world-size", str(world)])):
+        args = rcli.build_parser().parse_args([
+            "--moe", "--num-experts", "4", "--dataset", "synthetic_cifar",
+            "-b", str(A11_BATCH // world), "-e", "1", "--steps-per-epoch", str(DP_STEPS),
+            "--optimizer", "hybrid_adam", "--log-interval", "1", "-i", "0",
+            "-c", os.path.join(ckpt, name), *flags])
+        cfg = rcli.build_config(args)
+        # The preset scales the learning rate by the data replicas (4 at DP
+        # 4, 1 at EP 4): both runs take it unscaled, so they differ only
+        # in the layout.
+        cfg = cfg.replace(data=dataclasses.replace(cfg.data, augment="normalize_only"),
+                          optimizer=dataclasses.replace(cfg.optimizer,
+                                                        scale_lr_by_world=False),
+                          eval_every=0)
+        run = _image_run(cfg)
+        run.pop("trainer")
+        if not all(math.isfinite(x) for x in run["losses"]):
+            raise SystemExit(f"mesh {name}: non-finite losses {run['losses']}")
+        ref = ref or run
+        worst = _rel_losses(run["losses"], ref["losses"])
+        _mesh_check(f"mesh {name} losses vs moe_mlp_dp{world}", worst, GPT_STAGE_RTOL)
+        results[name] = {k: run[k] for k in ("losses", "launches", "images_per_s",
+                                             "peak_gib")}
+        results[name]["worst_rel_vs_dp"] = worst
+        if rank == 0:
+            print(f"[mesh] {name} over {world} GPUs (moe_mlp, 4 experts, global batch "
+                  f"{A11_BATCH}, fp32): losses {run['losses']} ({worst:.3g} relative of "
+                  f"moe_mlp_dp{world}'s); {run['images_per_s']:.1f} images/s; {card}",
+                  flush=True)
+    return results
+
+
 def mesh_main() -> int:
-    """The mesh mode (see ``MESH_STEPS``): every strategy through the GPT
-    CLI's trainer at ZeRO 1, its tokens/s, peak memory and K2/K3 launches
-    (summed over the ranks), its losses against data parallelism; then the
-    bench's LM leg with ``--tp``."""
+    """The mesh mode: first the image Trainer's presets at world 1 on each
+    rank's card, then over the ranks (A11_BATCH: each against world 1, local
+    BN, the ZeRO 1 save), MoE over the data and expert axes; then every LM
+    strategy through the GPT CLI's trainer at ZeRO 1 (see ``MESH_STEPS``),
+    its tokens/s, peak memory and K2/K3 launches (summed over the ranks),
+    its losses against data parallelism; the bench's LM leg with ``--tp``;
+    last, on rank 0 alone, the ZeRO 1 save resumed at world 1."""
     import torch.distributed as dist
 
     from distributed_training_tpu_torch import bench
@@ -2265,13 +2744,21 @@ def mesh_main() -> int:
         print(f"chip_smoke --mesh: run under torchrun over 2 or 4 GPUs (WORLD_SIZE "
               f"{world}, {torch.cuda.device_count()} GPUs)", file=sys.stderr)
         return 2
-    distributed.initialize_distributed()
-    rank = dist.get_rank()
     cuda_build.build_all()
     card = card_line()
+    with tempfile.TemporaryDirectory() as ckpt, _Alone():
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+        alone = {p: _image_run(_a11_config(p, os.path.join(ckpt, "w1_" + p), 1))["losses"]
+                 for p in DP_PRESETS}
+    distributed.initialize_distributed()
+    rank = dist.get_rank()
     cli = _gpt_cli_module()
     results, ref = {}, None
     with tempfile.TemporaryDirectory() as ckpt:
+        a11 = a11_mesh(world, ckpt, alone, card)
+        saved = a11.pop("zero1_saved_model")
+        results["a11"] = a11
+        results["moe"] = moe_mesh(world, ckpt, card)
         for name, flags in _mesh_strategies(world):
             flash_fwd.launches = flash_bwd.launches = 0
             run = _gpt_cli_run(cli, [*GPT_CLI_WIDTH, "--stage", "1", *flags,
@@ -2302,24 +2789,53 @@ def mesh_main() -> int:
                       f"losses {r['losses']} ({worst:.3g} relative of dp's, tolerance "
                       f"{GPT_STAGE_RTOL}); eval perplexity {r['final_perplexity']:.4f}; "
                       f"{card}", flush=True)
-    for flags in (["--tp", str(world)], ["--tp", str(world), "--tp-overlap"]):
-        (line, loss), = bench.main(["--lm", *flags])
-        if not (line["value"] > 0 and math.isfinite(loss)):
-            raise SystemExit(f"mesh bench {flags}: {line}, loss {loss}")
-        results[f"bench {' '.join(flags)}"] = line
-    if rank == 0:
-        print(json.dumps({"mesh": results}))
-        print(card)
-        print(json.dumps({"ok": True, "device": {
-            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-            "count": torch.cuda.device_count()}}))
-    distributed.shutdown_distributed()
+        for flags in (["--tp", str(world)], ["--tp", str(world), "--tp-overlap"]):
+            (line, loss), = bench.main(["--lm", *flags])
+            if not (line["value"] > 0 and math.isfinite(loss)):
+                raise SystemExit(f"mesh bench {flags}: {line}, loss {loss}")
+            results[f"bench {' '.join(flags)}"] = line
+        distributed.shutdown_distributed()
+        if rank == 0:
+            results["a11"]["zero1_resume_world1"] = a11_resume(world, ckpt, saved)
+    if rank != 0:  # rank 0 saw the same comparisons, and reports them
+        return 0
+    print(json.dumps({"mesh": results}, default=str), flush=True)
+    if MESH_FAILURES:
+        raise SystemExit(f"mesh: {len(MESH_FAILURES)} comparison(s) failed: {MESH_FAILURES}")
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def phase_main(names: list) -> int:
+    """``--phase NAME ...``: the build, then only the named phases (ring,
+    moe_lm, moe_image), for a short check of one part on the card; prints
+    their results and no result line."""
+    from distributed_training_tpu_torch.ops import cuda_build
+
+    phases = {"ring": lambda d: ring_phase(), "moe_lm": moe_lm_phase,
+              "moe_image": moe_image_phase}
+    if not names or any(n not in phases for n in names):
+        print(f"chip_smoke --phase: name one or more of {sorted(phases)}", file=sys.stderr)
+        return 2
+    print(f"[card] {card_line()}; torch {torch.__version__} CUDA {torch.version.cuda}")
+    cuda_build.build_all()
+    with tempfile.TemporaryDirectory() as ckpt:
+        for n in names:
+            t0 = time.perf_counter()
+            out = phases[n](os.path.join(ckpt, n))
+            print(f"[phase] {n} in {time.perf_counter() - t0:.1f} s: "
+                  f"{json.dumps(out, default=str)[:4000]}", flush=True)
     return 0
 
 
 def main() -> int:
     if sys.argv[1:] == ["--mesh"]:
         return mesh_main()
+    if sys.argv[1:2] == ["--phase"]:
+        return phase_main(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
               file=sys.stderr)
@@ -2352,6 +2868,8 @@ def main() -> int:
         lm16 = lm_fp16_phase(os.path.join(ckpt, "lm_fp16"))
         cli_phase(os.path.join(ckpt, "cli"))
         gpt = gpt_cli_phase(os.path.join(ckpt, "gpt_cli"))
+        moe_lm = moe_lm_phase(os.path.join(ckpt, "moe_lm"))
+        moe_img = moe_image_phase(os.path.join(ckpt, "moe_image"))
     half = fp16_pad_phase()
     d256 = d256_phase()
     exp2 = exp2_phase()
@@ -2397,7 +2915,8 @@ def main() -> int:
         "launches": (launches + sum(bf16.values()) + lm["fused_adam"] + lm16["fused_adam"]
                      + sum(r["launches"] for r in dp.values())
                      + sum(n["fused_adam"] for n in bench_lm.values())
-                     + sum(data["launches"].values())),
+                     + sum(data["launches"].values())
+                     + moe_lm["launches"]["fused_adam"] + moe_img["launches"]),
         "launches_by_path": {"resnet18_train": launches,
                              **{f"resnet18_train_{tag}": n for tag, n in bf16.items()},
                              **{f"resnet18_{p}_nccl_world1": r["launches"]
@@ -2406,13 +2925,18 @@ def main() -> int:
                              "gpt2_small_train_fp16": lm16["fused_adam"],
                              **{p: n["fused_adam"] for p, n in bench_lm.items()
                                 if n["fused_adam"]},
-                             **data["launches"]},
+                             **data["launches"],
+                             **{f"gpt2_small_{n}": r["launches"]["fused_adam"]
+                                for n, r in moe_lm["runs"].items()},
+                             "moe_mlp_cli": moe_img["launches"]},
         **k, "ok": True,
     }, *({
         "name": name, "route": "cuda", "source": src, "replaces": f"{ref}:{line}",
         **by_path(name, **({"gpt2_small_train": lm[name],
                             "gpt2_small_train_fp16": lm16[name],
                             "gpt_cli_gpt2_small_zero2_remat": gpt["launches"][name],
+                            **{f"gpt2_small_{n}": r["launches"][name]
+                               for n, r in moe_lm["runs"].items()},
                             **{p: n[name] for p, n in bench_lm.items()},
                             **{f"ring_{c}": r["launches"][name] for c, r in ring.items()}}
                            if name in lm else {})),

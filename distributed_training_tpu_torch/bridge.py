@@ -10,9 +10,13 @@ leaf's rank (GPT's QKV kernel is 4-D and no convolution):
 - ``nn.Linear``: ``weight`` ``[out, in]`` ↔ ``kernel`` ``[in, out]``;
 - ResNet ``BatchNorm``: ``weight`` ↔ ``scale``, ``bias`` ↔ ``bias``, and
   ``running_mean``/``running_var`` ↔ ``batch_stats`` ``mean``/``var``;
-- every other module (the GPT's, which keep the Flax names and layouts:
-  ``kernel``, ``bias``, ``scale``, ``embedding``, ``pos_embed``): the leaf
-  as it is.
+- MoE ``ExpertMlp`` (``w1``, ``b1``, ``w2``, ``b2``, ``[E, ...]``): the
+  leaf as it is, or, once ``moe.shard_experts_`` has cut the experts over
+  an expert group, this expert rank's contiguous block of E from the Flax
+  leaf (the other way the port's tensor goes as it is: gather first);
+- every other module (the GPT's and the MoE models', which keep the Flax
+  names and layouts: ``kernel``, ``bias``, ``scale``, ``embedding``,
+  ``pos_embed``, ``Dense_0``, ``LayerNorm_0``): the leaf as it is.
 
 Everything goes through numpy, so this module imports neither framework's
 other half: the tests hand it ``jax.device_get`` output.
@@ -26,6 +30,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from distributed_training_tpu_torch.models.moe import ExpertMlp
 from distributed_training_tpu_torch.models.resnet import BatchNorm, Conv
 
 _STAT_NAMES = {"running_mean": "mean", "running_var": "var"}
@@ -54,6 +59,10 @@ def _rule(module: nn.Module, prefix: tuple, leaf: str) -> _Rule:
             return _Rule("params", (*prefix, "scale"), _same, _same)
         if leaf in _STAT_NAMES:
             return _Rule("batch_stats", (*prefix, _STAT_NAMES[leaf]), _same, _same)
+    if isinstance(module, ExpertMlp) and module.ep is not None:
+        n = getattr(module, leaf).shape[0]
+        lo = module.ep.index * n
+        return _Rule("params", (*prefix, leaf), lambda x: x[lo:lo + n], _same)
     return _Rule("params", (*prefix, leaf), _same, _same)
 
 

@@ -15,8 +15,9 @@ quarantines it to ``epoch_N.corrupt``), and :func:`restore_checkpoint`
 refuses it. Orbax compatibility with the JAX package is not a goal.
 
 A data-parallel save is written by rank 0 alone, in the same format: the
-state partitioned by ZeRO is gathered to whole tensors first, so a save
-made at any stage and world resumes at any other. A save is made
+state partitioned by ZeRO is gathered to whole tensors first (and the
+tensor- and expert-parallel shards over their groups), so a save made at
+any stage, world and layout resumes at any other. A save is made
 synchronously (:func:`save_checkpoint`) or, with the trainers'
 ``checkpoint.async_save``, by a background writer from a host copy of the
 state (``resilience/async_ckpt.py``), which calls

@@ -94,8 +94,11 @@ class ZeroConfig:
 
 @dataclasses.dataclass(frozen=True)
 class MoEConfig:
-    """Mixture-of-experts surface (DeepSpeed's MoE flags). Not ported:
-    ``enabled=True`` raises in the trainers."""
+    """Mixture-of-experts surface (DeepSpeed's MoE flags): the ``moe_*``
+    image models and the LM's MoE layers (``models/moe.py``).
+    ``moe_param_group`` is a contract marker, as in JAX: expert optimizer
+    state is always partitioned within the expert rank's data group, and
+    the LM trainer requires the flag under ZeRO × expert parallelism."""
 
     enabled: bool = False
     ep_world_size: int = 1

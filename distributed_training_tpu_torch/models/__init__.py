@@ -1,8 +1,8 @@
-"""Model registry: name → ``nn.Module`` factory (the ResNet family and
-``transformer_lm``).
+"""Model registry: name → ``nn.Module`` factory (the ResNet family,
+``moe_mlp`` and ``transformer_lm``).
 
-The JAX package's other models (``vit_b16``, ``moe_mlp``) are not ported
-yet and raise ``NotImplementedError``.
+The JAX package's ``vit_b16`` is not ported yet and raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -12,13 +12,14 @@ from typing import Any
 import torch
 
 from distributed_training_tpu_torch.models.gpt import make_transformer_lm
+from distributed_training_tpu_torch.models.moe import make_moe_classifier
 from distributed_training_tpu_torch.models.resnet import STAGE_SIZES, make_resnet
 
-NOT_PORTED = ("moe_mlp", "vit_b16")
+NOT_PORTED = ("vit_b16",)
 
 
 def available_models() -> list[str]:
-    return sorted([*STAGE_SIZES, "transformer_lm"])
+    return sorted([*STAGE_SIZES, "moe_mlp", "transformer_lm"])
 
 
 def get_model(
@@ -30,16 +31,22 @@ def get_model(
     **kwargs: Any,
 ):
     """Instantiate a model by name (``kwargs`` go to :class:`ResNet`, e.g.
-    ``stem`` or ``generator``, or to ``make_transformer_lm``)."""
+    ``stem`` or ``generator``, to ``make_moe_classifier`` or to
+    ``make_transformer_lm``). ``axis_name`` is the JAX registry's SyncBN
+    slot: the port's BatchNorm takes its group from
+    ``resnet.set_batchnorm_group``, so a name here raises."""
     if name in NOT_PORTED:
         raise NotImplementedError(f"model {name!r} is not ported yet")
     if name == "transformer_lm":
         return make_transformer_lm(num_classes=num_classes, dtype=dtype,
                                    axis_name=axis_name, **kwargs)
+    if name == "moe_mlp":
+        return make_moe_classifier(num_classes=num_classes, dtype=dtype,
+                                   axis_name=axis_name, **kwargs)
     if name not in STAGE_SIZES:
         raise ValueError(f"unknown model {name!r}; available: {available_models()}")
     if axis_name is not None:
-        raise NotImplementedError(
-            "cross-replica BatchNorm (axis_name) needs multi-GPU data "
-            "parallelism, which is not ported yet")
+        raise ValueError(
+            "axis_name has no meaning in the port: SyncBN takes its process "
+            "group from models.resnet.set_batchnorm_group")
     return make_resnet(name, num_classes=num_classes, dtype=dtype, **kwargs)

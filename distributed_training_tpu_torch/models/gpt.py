@@ -52,7 +52,16 @@ follow the Flax initialisers' distributions from a ``torch.Generator``
   this rank's time chunk on the way into block 0 (JAX's interceptor does
   the same), the stack runs time-sharded and the logits stay so.
 
-Not ported: MoE layers and the KV-cache decode path.
+- **MoE** (``moe_num_experts``, :func:`moe_layer_experts`): every
+  ``moe_every``-th block's MLP is a ``models/moe.py`` ``MoEMlp`` named
+  ``moe_mlp``; ``forward(..., return_aux=True)`` returns the blocks'
+  summed, weighted load-balancing loss beside the logits or hidden states
+  (Flax sows it into the ``aux_loss`` collection). Under data and expert
+  parallelism the layers run over the mesh's groups once
+  ``moe.shard_experts_`` has set them.
+
+Not ported: the KV-cache decode path, and MoE under the sequence and
+tensor strategies.
 """
 
 from __future__ import annotations
@@ -166,12 +175,15 @@ def dropout(x: torch.Tensor, rate: float,
 
 class DecoderBlock(nn.Module):
     """Pre-LN causal block: LN → attention → (dropout) → residual → LN →
-    MLP → (dropout) → residual (the dense FFN)."""
+    FFN → (dropout) → residual. The FFN is the dense MLP, or with
+    ``moe_num_experts > 0`` an ``MoEMlp`` (``moe`` its other arguments);
+    ``forward`` returns ``(x, weighted aux loss)``."""
 
     def __init__(self, hidden_dim: int, num_heads: int, mlp_dim: int, *,
                  dtype: torch.dtype = torch.float32, attn_impl: str = "exact",
                  dropout_rate: float = 0.0, seq_axis: str | None = None,
-                 mesh=None, generator: torch.Generator | None = None):
+                 mesh=None, generator: torch.Generator | None = None,
+                 moe_num_experts: int = 0, moe: dict | None = None):
         super().__init__()
         self.dropout_rate = dropout_rate
         self.ln1 = LayerNorm(hidden_dim, dtype)
@@ -180,19 +192,52 @@ class DecoderBlock(nn.Module):
                                       axis_name=seq_axis, mesh=mesh,
                                       generator=generator)
         self.ln2 = LayerNorm(hidden_dim, dtype)
-        self.mlp = MlpBlock(hidden_dim, mlp_dim, dtype, generator)
+        if moe_num_experts > 0:
+            from distributed_training_tpu_torch.models.moe import MoEMlp
 
-    def forward(self, x: torch.Tensor,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+            self.moe_mlp = MoEMlp(hidden_dim, moe_num_experts, mlp_dim, dtype=dtype,
+                                  generator=generator, **(moe or {}))
+        else:
+            self.mlp = MlpBlock(hidden_dim, mlp_dim, dtype, generator)
+
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None):
         rate = self.dropout_rate if self.training else 0.0
         if rate and generator is None:
             raise ValueError("dropout in training needs the step's generator")
         x = x + dropout(self.attn(self.ln1(x)), rate, generator)
-        return x + dropout(self.mlp(self.ln2(x)), rate, generator)
+        if hasattr(self, "moe_mlp"):
+            y, aux = self.moe_mlp(self.ln2(x), self.training, generator)
+        else:
+            y, aux = self.mlp(self.ln2(x)), torch.zeros((), device=x.device)
+        return x + dropout(y, rate, generator), aux
+
+
+def moe_layer_experts(num_layers: int, moe_every: int,
+                      moe_num_experts) -> dict[int, int]:
+    """{layer index: expert count} for the MoE layers of a decoder stack
+    (JAX ``moe_layer_experts``): an int is that count at every
+    ``moe_every``-th layer; a tuple gives per-MoE-layer counts (length 1
+    broadcasts, length = number of MoE layers assigns in order, any other
+    length raises)."""
+    counts = (tuple(int(c) for c in moe_num_experts)
+              if isinstance(moe_num_experts, (tuple, list))
+              else (int(moe_num_experts),))
+    if moe_every <= 0 or not any(counts):
+        return {}
+    layers = [i for i in range(num_layers) if i % moe_every == moe_every - 1]
+    if len(counts) == 1:
+        counts = counts * len(layers)
+    if len(counts) != len(layers):
+        raise ValueError(
+            f"per-layer expert counts {counts} do not match the "
+            f"{len(layers)} MoE layers (num_layers={num_layers}, "
+            f"moe_every={moe_every}); pass one count or exactly "
+            f"{len(layers)}")
+    return dict(zip(layers, counts))
 
 
 def _remat_block(block: DecoderBlock, x: torch.Tensor,
-                 generator: torch.Generator | None) -> torch.Tensor:
+                 generator: torch.Generator | None):
     """``block(x, generator)`` under a non-reentrant checkpoint; the
     recompute starts from the generator state the first forward began
     with, so it draws the same dropout masks (see the module docstring)."""
@@ -220,7 +265,9 @@ class TransformerLM(nn.Module):
                  head_bias: bool = False, attn_impl: str = "exact",
                  dropout_rate: float = 0.0, remat: bool = False,
                  seq_axis: str | None = None, mesh=None,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 moe_num_experts: int | tuple = 0, moe_every: int = 2,
+                 moe: dict | None = None):
         super().__init__()
         if seq_axis is not None and mesh is None:
             raise ValueError(f"seq_axis {seq_axis!r} needs the mesh that binds it")
@@ -229,6 +276,9 @@ class TransformerLM(nn.Module):
         self.seq_axis, self.mesh, self.tp = seq_axis, mesh, None
         # The Flax module's fields, which the FLOP count reads.
         self.vocab_size, self.hidden_dim, self.mlp_ratio = vocab_size, hidden_dim, mlp_ratio
+        self.moe_num_experts = moe_num_experts
+        experts_by_layer = moe_layer_experts(num_layers, moe_every, moe_num_experts)
+        self.noisy_gate_policy = (moe or {}).get("noisy_gate_policy") if experts_by_layer else None
         self.tok_embed = Embed(vocab_size, hidden_dim, dtype, generator)
         self.pos_embed = nn.Parameter(torch.empty(max_len, hidden_dim))
         with torch.no_grad():
@@ -237,7 +287,8 @@ class TransformerLM(nn.Module):
             self.add_module(f"block{i}", DecoderBlock(
                 hidden_dim, num_heads, mlp_ratio * hidden_dim, dtype=dtype,
                 attn_impl=attn_impl, dropout_rate=dropout_rate,
-                seq_axis=seq_axis, mesh=mesh, generator=generator))
+                seq_axis=seq_axis, mesh=mesh, generator=generator,
+                moe_num_experts=experts_by_layer.get(i, 0), moe=moe))
         self.ln_f = LayerNorm(hidden_dim, dtype)
         self.lm_head = Dense(hidden_dim, vocab_size, dtype=logits_dtype,
                              use_bias=head_bias, generator=generator)
@@ -245,9 +296,11 @@ class TransformerLM(nn.Module):
     def forward(self, tokens: torch.Tensor,
                 positions: torch.Tensor | None = None, *,
                 generator: torch.Generator | None = None,
-                return_hidden: bool = False) -> torch.Tensor:
+                return_hidden: bool = False, return_aux: bool = False):
         """Logits, or with ``return_hidden`` the final-norm hidden states
-        ``[B, T, hidden]``; ``generator`` draws the dropout masks in
+        ``[B, T, hidden]``; with ``return_aux`` also the MoE layers'
+        summed load-balancing loss (a float32 0-d tensor, 0 without MoE).
+        ``generator`` draws the dropout masks and the noisy gates' noise in
         training (needed when ``dropout_rate`` > 0)."""
         if positions is None:
             t, offset = tokens.shape[-1], 0
@@ -266,11 +319,14 @@ class TransformerLM(nn.Module):
         if self.tp is not None and self.tp.overlap:
             x = self._time_shard(x)
         remat = self.remat and self.training and torch.is_grad_enabled()
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i in range(self.num_layers):
             block = getattr(self, f"block{i}")
-            x = _remat_block(block, x, generator) if remat else block(x, generator)
+            x, a = _remat_block(block, x, generator) if remat else block(x, generator)
+            aux = aux + a
         x = self.ln_f(x)
-        return x if return_hidden else self.lm_head(x)
+        out = x if return_hidden else self.lm_head(x)
+        return (out, aux) if return_aux else out
 
     def _time_shard(self, x: torch.Tensor) -> torch.Tensor:
         """The stack's entry under ``tp_overlap``: this model rank's time
@@ -293,21 +349,33 @@ def make_transformer_lm(*, num_classes: int = 256,
                         num_heads: int = 4, hidden_dim: int = 256,
                         mlp_ratio: int = 4, max_len: int = 2048,
                         dropout_rate: float = 0.0, attn_impl: str = "exact",
-                        moe_num_experts: int | tuple = 0, remat: bool = False,
+                        moe_num_experts: int | tuple = 0, moe_every: int = 2,
+                        moe_top_k: int = 1, moe_capacity_factor: float = 1.25,
+                        moe_min_capacity: int = 0,
+                        moe_noisy_gate_policy: str | None = None,
+                        moe_mlp_type: str = "standard",
+                        remat: bool = False,
                         logits_dtype: torch.dtype = torch.float32,
                         head_bias: bool = False,
                         generator: torch.Generator | None = None) -> TransformerLM:
     """Registry factory, with the JAX factory's arguments and ``mesh`` (the
     ``runtime.mesh.Mesh`` that binds ``seq_axis``). ``num_classes`` is the
     vocabulary size; ``axis_name`` (the registry's SyncBN slot) is unused.
-    MoE raises ``NotImplementedError``."""
+    The JAX ``moe_expert_axis`` has no counterpart: the expert axis comes
+    from the mesh (``moe.shard_experts_``). MoE under ``seq_axis`` raises
+    ``NotImplementedError``."""
     del axis_name
-    if moe_num_experts:
+    moe = dict(top_k=moe_top_k, capacity_factor=moe_capacity_factor,
+               min_capacity=moe_min_capacity, noisy_gate_policy=moe_noisy_gate_policy,
+               mlp_type=moe_mlp_type)
+    if seq_axis is not None and moe_layer_experts(num_layers, moe_every, moe_num_experts):
         raise NotImplementedError(
-            "transformer_lm options not ported yet: moe_num_experts")
+            "not ported yet (see ROADMAP.md): MoE with a sequence axis (the "
+            "global token order interleaves the ranks within each row)")
     return TransformerLM(
         num_classes, num_layers=num_layers, num_heads=num_heads,
         hidden_dim=hidden_dim, mlp_ratio=mlp_ratio, max_len=max_len,
         dtype=dtype, logits_dtype=logits_dtype, head_bias=head_bias,
         attn_impl=attn_impl, dropout_rate=dropout_rate, remat=remat,
-        seq_axis=seq_axis, mesh=mesh, generator=generator)
+        seq_axis=seq_axis, mesh=mesh, generator=generator,
+        moe_num_experts=moe_num_experts, moe_every=moe_every, moe=moe)

@@ -122,11 +122,17 @@ def forward_flops(model: Any, *, image_size: int | None = None,
     """Forward FLOPs of a model instance, from the dims it was built with
     (``TransformerLM``: vocab, width, depth, MLP ratio; ``ResNet``: stage
     sizes, block kind, filters, stem, classes). None for a model without
-    a formula."""
+    a formula, and for an LM with MoE layers, as in JAX: the routed FLOPs
+    depend on the capacity and the dispatch, and a wrong static guess is
+    worse than no MFU."""
     from distributed_training_tpu_torch.models.gpt import TransformerLM
     from distributed_training_tpu_torch.models.resnet import BottleneckBlock, ResNet
 
     if isinstance(model, TransformerLM):
+        experts = model.moe_num_experts
+        if any(int(e) > 0 for e in (experts if isinstance(experts, (tuple, list))
+                                    else (experts,))):
+            return None
         if seq_len is None:
             raise ValueError("forward_flops for an LM needs seq_len=")
         return gpt_forward_flops(

@@ -14,7 +14,10 @@ and writes the collectives the placement implies:
 - ``lm_head`` ``[D, V]`` shards the vocabulary (the CE over the sharded
   logits is ``train/lm_step.py``'s vocab-parallel CE), and
   ``tok_embed`` ``[V, D]`` too (a masked lookup, then an all-reduce);
-- LayerNorms and ``pos_embed`` stay replicated.
+- LayerNorms and ``pos_embed`` stay replicated;
+- the MoE experts (``experts/w1``, ``b1``, ``w2``, ``b2``, ``[E, ...]``)
+  shard E over the ``expert`` axis (:class:`ExpertParallel`; the layers'
+  collectives are ``models/moe.py``'s).
 
 The conjugate pair of megatron: :func:`copy_to_model` (*f*: identity
 forward, all-reduce of the gradient backward) in front of every
@@ -48,12 +51,12 @@ from distributed_training_tpu_torch.parallel.collective_matmul import (
     allgather_matmul,
     matmul_reducescatter,
 )
-from distributed_training_tpu_torch.runtime.mesh import AXIS_MODEL
+from distributed_training_tpu_torch.runtime.mesh import AXIS_EXPERT, AXIS_MODEL
 
 # (path regex, spec) — first match wins; matched against the "/"-joined
 # Flax path. A spec lists each dim's mesh axis (None: not sharded); ()
-# is replicated. The JAX table's GPT rows; its ViT and expert rows wait
-# for those models.
+# is replicated. The JAX table's GPT and expert rows; its ViT rows wait
+# for that model.
 LM_TP_RULES: tuple[tuple[str, tuple], ...] = (
     (r"attn/qkv/kernel$", (None, None, AXIS_MODEL, None)),
     (r"attn/qkv/bias$", (None, AXIS_MODEL, None)),
@@ -66,6 +69,9 @@ LM_TP_RULES: tuple[tuple[str, tuple], ...] = (
     (r"lm_head/kernel$", (None, AXIS_MODEL)),
     (r"lm_head/bias$", (AXIS_MODEL,)),
     (r"tok_embed/embedding$", (AXIS_MODEL, None)),
+    # MoE expert weights: the leading E dim over the expert axis.
+    (r"experts/w[12]$", (AXIS_EXPERT, None, None)),
+    (r"experts/b[12]$", (AXIS_EXPERT, None, None)),
 )
 
 # Vocab-parallel params that the ring-overlapped schedule keeps replicated
@@ -92,10 +98,10 @@ def param_path(name: str) -> str:
     return name.replace(".", "/")
 
 
-def shard_dim(name: str, overlap: bool = False) -> int | None:
-    """The dim of parameter ``name`` sharded over ``model``, or None."""
+def shard_dim(name: str, overlap: bool = False, axis: str = AXIS_MODEL) -> int | None:
+    """The dim of parameter ``name`` sharded over ``axis``, or None."""
     spec = tp_spec_for_path(param_path(name), overlap)
-    return spec.index(AXIS_MODEL) if AXIS_MODEL in spec else None
+    return spec.index(axis) if axis in spec else None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,7 +126,31 @@ class TensorParallel:
         return shard_dim(name, self.overlap)
 
 
-def shard_tensor(t: torch.Tensor, dim: int | None, tp: TensorParallel) -> torch.Tensor:
+@dataclasses.dataclass(frozen=True)
+class ExpertParallel:
+    """One rank's view of the ``expert`` axis: its group, size and index.
+    The expert leaves of the rule table hold this rank's ``E / size``
+    experts (the ``index``-th contiguous block); every other parameter is
+    replicated over the group. It shards and gathers tensors as
+    :class:`TensorParallel` does, by :meth:`dim`."""
+
+    group: object
+    size: int
+    index: int
+
+    @classmethod
+    def from_mesh(cls, mesh) -> "ExpertParallel | None":
+        """The context of ``mesh``'s expert axis; None when it is size 1."""
+        if mesh is None or mesh.size(AXIS_EXPERT) == 1:
+            return None
+        return cls(mesh.group(AXIS_EXPERT), mesh.size(AXIS_EXPERT),
+                   mesh.index(AXIS_EXPERT))
+
+    def dim(self, name: str) -> int | None:
+        return shard_dim(name, axis=AXIS_EXPERT)
+
+
+def shard_tensor(t: torch.Tensor, dim: int | None, tp) -> torch.Tensor:
     """This rank's contiguous chunk of ``t`` along ``dim`` (``t`` itself
     when ``dim`` is None); the dim must divide by the axis size."""
     if dim is None:
@@ -131,7 +161,7 @@ def shard_tensor(t: torch.Tensor, dim: int | None, tp: TensorParallel) -> torch.
     return t.chunk(tp.size, dim)[tp.index].contiguous()
 
 
-def gather_tensor(t: torch.Tensor, dim: int | None, tp: TensorParallel) -> torch.Tensor:
+def gather_tensor(t: torch.Tensor, dim: int | None, tp) -> torch.Tensor:
     """The whole tensor from every model rank's chunk along ``dim``."""
     if dim is None:
         return t

@@ -43,7 +43,12 @@ the JAX ``zero_stage_axes`` recruits them). Under tensor parallelism
 shards are partitioned over its replica group, and a whole tensor's norm
 (the clip's global norm, lamb's trust ratio; :meth:`Zero.whole_sq_norms`)
 also sums the squared norms of a model-sharded tensor over the model
-ranks, while a replicated one counts once.
+ranks, while a replicated one counts once. Under expert parallelism
+(``ep``, a ``tensor_parallel.ExpertParallel``) the group is the data
+group, which never spans the expert axis: each expert rank partitions its
+own experts (DeepSpeed's ``--moe-param-group`` semantics) and its copy of
+the replicated parameters over its data group, and an expert tensor's
+whole norm sums its experts' squares over the expert ranks.
 """
 
 from __future__ import annotations
@@ -86,16 +91,17 @@ class Zero:
     """One rank's view of the data-parallel group and its ZeRO stage.
 
     ``group`` None means no group: world 1, every collective an identity.
-    ``tp``: the tensor-parallel context of the parameters, or None.
+    ``tp``: the tensor-parallel context of the parameters, or None; ``ep``
+    the expert-parallel one, or None.
     """
 
     def __init__(self, stage: int = 0, group=None, cpu_offload: bool = False,
-                 tp=None):
+                 tp=None, ep=None):
         if stage not in STAGES:
             raise ValueError(f"zero stage must be one of {STAGES}, got {stage}")
         check_cpu_offload(cpu_offload, stage)
         self.stage, self.group, self.cpu_offload = stage, group, cpu_offload
-        self.tp = tp
+        self.tp, self.ep = tp, ep
         self.world = dist.get_world_size(group) if group is not None else 1
         self.rank = dist.get_rank(group) if group is not None else 0
 
@@ -178,21 +184,26 @@ class Zero:
     def whole_sq_norms(self, sq: torch.Tensor, names) -> torch.Tensor:
         """The squared norms of whole tensors from this rank's pieces'
         (``sq``, one per name): summed over the group's shards from stage
-        1 on, and over the model ranks for the model-sharded names."""
+        1 on, over the model ranks for the model-sharded names and over the
+        expert ranks for the expert-sharded ones."""
         if self.partitions_optimizer:
             sq = self.all_reduce_(sq)
-        if self.tp is not None:
-            sharded = torch.tensor([self.tp.dim(n) is not None for n in names],
+        for ctx in (self.tp, self.ep):
+            if ctx is None:
+                continue
+            sharded = torch.tensor([ctx.dim(n) is not None for n in names],
                                    device=sq.device)
             part = torch.where(sharded, sq, torch.zeros_like(sq))
-            dist.all_reduce(part, group=self.tp.group)
+            dist.all_reduce(part, group=ctx.group)
             sq = torch.where(sharded, part, sq)
         return sq
 
     def barrier(self) -> None:
-        """Over the group, then over the model ranks: a rank passes once
-        every rank of both has arrived, the checkpoint writer included."""
+        """Over the group, then over the model and the expert ranks: a rank
+        passes once every rank of each has arrived, the checkpoint writer
+        included."""
         if self.group is not None:
             dist.barrier(group=self.group)
-        if self.tp is not None:
-            dist.barrier(group=self.tp.group)
+        for ctx in (self.tp, self.ep):
+            if ctx is not None:
+                dist.barrier(group=ctx.group)

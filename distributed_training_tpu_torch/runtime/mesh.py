@@ -45,9 +45,12 @@ AXIS_PIPE = "pipe"
 CANONICAL_AXES = (
     AXIS_DATA, AXIS_PIPE, AXIS_FSDP, AXIS_MODEL, AXIS_EXPERT, AXIS_SEQUENCE)
 
-# The sets of axes the LM strategies communicate over: the replica group
-# (gradients, metrics and ZeRO), the tensor-parallel group and the ring.
-_GROUP_AXES = ((AXIS_DATA, AXIS_SEQUENCE), (AXIS_MODEL,), (AXIS_SEQUENCE,))
+# The sets of axes the strategies communicate over: the replica group
+# (gradients, metrics and ZeRO; without the expert axis it is also the
+# group of ranks that hold other tokens, over which the MoE gate counts),
+# the tensor-parallel group, the ring and the expert group.
+_GROUP_AXES = ((AXIS_DATA, AXIS_SEQUENCE), (AXIS_MODEL,), (AXIS_SEQUENCE,),
+               (AXIS_EXPERT,))
 
 
 def mesh_sizes(spec, world: int) -> dict[str, int]:

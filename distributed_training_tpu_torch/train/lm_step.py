@@ -55,8 +55,14 @@ come from a generator seeded by the run's seed, the step and the shard
 (the JAX step's ``fold_in`` of ``sequence × data``, and ``model`` under
 ``tp_overlap``; model ranks of the plain TP step draw the same masks).
 
-Not ported: MoE auxiliary losses (``aux_loss`` is always 0 here) and the
-pipeline step.
+With MoE layers the objective is CE + the layers' weighted
+load-balancing loss (the model's ``return_aux``), on every CE path; the
+metrics report ``loss`` (the objective), ``aux_loss`` and ``perplexity``
+``exp(CE)`` apart, as JAX's ``_lm_metrics`` does. Under data and expert
+parallelism the gate counts over the data group (``models/moe.py``), so the
+data group's mean of the ranks' losses is the global batch's.
+
+Not ported: the pipeline step.
 """
 
 from __future__ import annotations
@@ -64,7 +70,6 @@ from __future__ import annotations
 import warnings
 from typing import Callable
 
-import numpy as np
 import torch
 import torch.distributed as dist
 import torch.utils.checkpoint
@@ -75,6 +80,7 @@ from distributed_training_tpu_torch.parallel.collective_matmul import (
 from distributed_training_tpu_torch.parallel.tensor_parallel import copy_to_model
 from distributed_training_tpu_torch.runtime.mesh import AXIS_DATA, AXIS_SEQUENCE
 from distributed_training_tpu_torch.train.precision import commit_gradients
+from distributed_training_tpu_torch.train.step import dropout_generator
 from distributed_training_tpu_torch.train.train_state import TrainState
 
 LOGITS_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
@@ -276,38 +282,29 @@ def _check_ce_options(ce_chunk, ce_save_probs, logits_dtype=torch.float32):
             stacklevel=3)
 
 
-def dropout_generator(model: torch.nn.Module, seed: int, step: int, rank: int,
-                      device: torch.device) -> torch.Generator | None:
-    """The step's dropout generator: seeded by ``(seed, step, rank)``, so
-    each rank and step draws its own masks; None without dropout."""
-    if not getattr(model, "dropout_rate", 0.0):
-        return None
-    key = int(np.random.SeedSequence([seed, step, rank]).generate_state(1, np.uint64)[0])
-    return torch.Generator(device=device).manual_seed(key % 2**63)
-
-
 def _lm_loss_and_grads(model: torch.nn.Module, loss_scale, tokens, targets,
                        generator=None, ce_chunk: int | None = None,
                        accuracy_metric: bool = True,
                        logits_dtype: torch.dtype = torch.float32,
                        ce_save_probs: bool = False):
-    """Forward, CE and backward of one (micro)batch. The gradient of the
-    scaled loss is added into the parameters' ``.grad``. Returns ``(ce,
-    aux, accuracy)`` as 0-d tensors (``accuracy`` None when off)."""
+    """Forward, CE (+ the MoE aux loss) and backward of one (micro)batch.
+    The gradient of the scaled loss is added into the parameters'
+    ``.grad``. Returns ``(ce, aux, accuracy)`` as 0-d tensors
+    (``accuracy`` None when off)."""
     if ce_chunk:
-        hidden = model(tokens, generator=generator, return_hidden=True)
+        hidden, aux = model(tokens, generator=generator, return_hidden=True,
+                            return_aux=True)
         ce, accuracy = chunked_ce_and_accuracy(
             hidden, model.lm_head, targets, ce_chunk,
             accuracy_metric=accuracy_metric, logits_dtype=logits_dtype)
     else:
+        logits, aux = model(tokens, generator=generator, return_aux=True)
         rows, correct = _ce_rows_and_correct(
-            model(tokens, generator=generator), targets, accuracy_metric,
-            ce_save_probs, model.lm_head.tp)
+            logits, targets, accuracy_metric, ce_save_probs, model.lm_head.tp)
         ce = rows.mean()
         accuracy = correct.mean() if accuracy_metric else None
-    aux = torch.zeros((), dtype=torch.float32, device=ce.device)  # dense FFN
     loss_scale.scale_loss(ce + aux).backward()
-    return ce.detach(), aux, (accuracy.detach() if accuracy_metric else None)
+    return ce.detach(), aux.detach(), (accuracy.detach() if accuracy_metric else None)
 
 
 def _lm_metrics(state: TrainState, ce, aux, accuracy, finite: bool) -> dict:

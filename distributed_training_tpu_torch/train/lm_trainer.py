@@ -18,11 +18,16 @@ The strategy follows from the mesh (``cfg.mesh`` over the world size,
   ``model > 1``;
 - ``model > 1`` composes with either (TP×SP), and ``tp_overlap`` swaps
   the ring-overlapped collective matmuls in (``parallel/collective_matmul.py``);
-  at ``model == 1`` it runs the plain step, as in JAX.
+  at ``model == 1`` it runs the plain step, as in JAX;
+- MoE (``cfg.moe.enabled``, ``models/moe.py``) runs under the tensor/dp
+  strategy at ``model == 1``: the gate is global over the data group, and
+  an ``expert`` axis shards every MoE layer's experts over its ranks, which
+  hold the same rows (ZeRO partitions over the data group only, JAX's
+  ``moe_param_group``).
 
-The configuration checks are the JAX trainer's, with its ``ValueError``
-messages. The pipeline (``pipe > 1``), MoE and the ``fsdp`` and
-``expert`` axes raise ``NotImplementedError``.
+The configuration checks are the JAX trainer's, with its messages. The
+pipeline (``pipe > 1``), the ``fsdp`` axis and MoE with a ``sequence``,
+``model`` or ``pipe`` axis raise ``NotImplementedError``.
 
 It runs on the card unless ``device="cpu"`` is passed, and raises when
 there is no card and no such request. With ``cfg.lm.attn_impl="flash"``
@@ -51,8 +56,10 @@ from distributed_training_tpu_torch.data.lm_text import (
     synthetic_tokens,
 )
 from distributed_training_tpu_torch.models import get_model
+from distributed_training_tpu_torch.models.moe import MoEContext, shard_experts_
 from distributed_training_tpu_torch.ops.flash_attention import check_seq_len
 from distributed_training_tpu_torch.parallel.tensor_parallel import (
+    ExpertParallel,
     TensorParallel,
     shard_model_,
 )
@@ -64,6 +71,7 @@ from distributed_training_tpu_torch.runtime.distributed import (
 )
 from distributed_training_tpu_torch.runtime.mesh import (
     AXIS_DATA,
+    AXIS_EXPERT,
     AXIS_MODEL,
     AXIS_SEQUENCE,
     Mesh,
@@ -88,16 +96,41 @@ from distributed_training_tpu_torch.utils.device import set_fp32_math
 
 def unported_lm_fields(cfg: TrainConfig) -> dict[str, bool]:
     """The fields the LM trainer lacks, each with whether ``cfg`` sets it."""
+    moe = cfg.moe.enabled
     return {
-        "mesh axes fsdp, expert and pipe": any(
-            getattr(cfg.mesh, a) != 1 for a in ("fsdp", "expert", "pipe")),
-        "moe.enabled": cfg.moe.enabled,
+        "mesh axes fsdp and pipe": any(getattr(cfg.mesh, a) != 1 for a in ("fsdp", "pipe")),
+        "moe.enabled with a sequence axis": moe and cfg.mesh.sequence != 1,
+        "moe.enabled with a model axis": moe and cfg.mesh.model != 1,
     }
 
 
-def check_lm_config(cfg: TrainConfig, seq: int, model_par: int) -> None:
+def check_lm_config(cfg: TrainConfig, seq: int, model_par: int, expert: int = 1) -> None:
     """The JAX trainer's checks of the LM configuration against the
-    sequence and model axis sizes, with its messages (``ValueError``)."""
+    sequence, model and expert axis sizes, with its messages."""
+    if cfg.tp_overlap and cfg.moe.enabled:
+        raise NotImplementedError(
+            "tp_overlap does not compose with MoE (expert dispatch "
+            "relies on GSPMD's expert axis, which the full-manual "
+            "overlap region unbinds)")
+    if cfg.moe.enabled and expert > 1 and cfg.zero.stage >= 1 \
+            and not cfg.moe.moe_param_group:
+        raise ValueError(
+            "zero stage >= 1 with expert parallelism requires "
+            "--moe-param-group (expert optimizer state is partitioned "
+            "per expert group, DeepSpeed's split_params_into_"
+            "different_moe_groups_for_optimizer semantics)")
+    if expert > 1 and not cfg.moe.enabled:
+        raise ValueError(
+            f"expert mesh axis sized {expert} with MoE disabled would "
+            "replicate the dense model over it (idle chips); enable "
+            "--moe or drop the expert axis")
+    if cfg.moe.enabled and expert > 1:
+        for ne in cfg.moe.num_experts:
+            if int(ne) % expert:
+                raise ValueError(
+                    f"expert-parallel size {expert} must divide every "
+                    f"per-layer num_experts "
+                    f"(= {tuple(cfg.moe.num_experts)})")
     lm = cfg.lm
     if seq > 1 and lm.seq_len % seq:
         raise ValueError(
@@ -156,10 +189,19 @@ class LMTrainer(Engine):
         seq, model_par = self.mesh.size(AXIS_SEQUENCE), self.mesh.size(AXIS_MODEL)
         self.strategy = "sequence" if seq > 1 else "tensor/dp"
         self.tp_size = model_par
-        check_lm_config(cfg, seq, model_par)
+        expert = self.mesh.size(AXIS_EXPERT)
+        check_lm_config(cfg, seq, model_par, expert)
         self.world_size = self.mesh.data_size
         policy = Policy.from_config(cfg.precision)
         logits_dtype = parse_logits_dtype(lm.logits_dtype)
+        moe = cfg.moe
+        moe_kwargs = dict(
+            moe_num_experts=tuple(int(n) for n in moe.num_experts),
+            moe_every=moe.every, moe_top_k=moe.top_k,
+            moe_capacity_factor=moe.capacity_factor,
+            moe_min_capacity=moe.min_capacity,
+            moe_noisy_gate_policy=moe.noisy_gate_policy,
+            moe_mlp_type=moe.mlp_type) if moe.enabled else {}
         self.model = get_model(
             "transformer_lm", num_classes=lm.vocab_size,
             dtype=policy.compute_dtype, num_layers=lm.num_layers,
@@ -168,18 +210,22 @@ class LMTrainer(Engine):
             attn_impl=lm.attn_impl, remat=cfg.remat,
             logits_dtype=logits_dtype, head_bias=lm.head_bias,
             seq_axis=AXIS_SEQUENCE if seq > 1 else None, mesh=self.mesh,
-            generator=torch.Generator().manual_seed(cfg.seed),
+            generator=torch.Generator().manual_seed(cfg.seed), **moe_kwargs,
         )
         self.tp = TensorParallel.from_mesh(self.mesh, overlap=cfg.tp_overlap)
-        shard_model_(self.model, self.tp).to(self.device)
+        self.ep = ExpertParallel.from_mesh(self.mesh)
+        shard_model_(self.model, self.tp)
+        shard_experts_(self.model, MoEContext.from_mesh(self.mesh) if moe.enabled else None)
+        self.model.to(self.device)
         self.train_gbs, self.eval_gbs, self.grad_accum = effective_batch_sizes(
             cfg, self.world_size)
         self.tx = make_optimizer(cfg.optimizer, cfg.scheduler, self.world_size)
-        # ZeRO over the replica group: data × sequence (JAX _GRAD_AXES).
+        # ZeRO over the replica group: data × sequence (JAX _GRAD_AXES);
+        # under an expert axis, each expert rank's own.
         self.state = TrainState.create(
             self.model, self.tx, LossScaleState.create(cfg.precision),
             Zero(cfg.zero.stage, self.mesh.group(AXIS_DATA, AXIS_SEQUENCE),
-                 cfg.zero.cpu_offload, tp=self.tp))
+                 cfg.zero.cpu_offload, tp=self.tp, ep=self.ep))
         self.train_step = make_lm_train_step(
             zero_stage=cfg.zero.stage, grad_accum_steps=self.grad_accum,
             accuracy_metric=lm.metrics_accuracy, max_len=lm.max_len,
@@ -192,16 +238,14 @@ class LMTrainer(Engine):
         label = (self.strategy + ("×tp" if model_par > 1 and seq > 1 else "")
                  + ("(tp-overlap)" if overlap else ""))
         layout = {a: n for a, n in self.mesh.sizes.items() if n > 1}
-        params = param_count(self.model)  # the whole model's, under TP too
-        if self.tp is not None:
-            params += (self.tp.size - 1) * sum(
-                p.numel() for n, p in self.model.named_parameters()
-                if self.tp.dim(n) is not None)
+        self.param_count = params = param_count(self.model, self.tp, self.ep)
         self.coord.print(
             f"[lm_trainer] params={params:,} "
             f"device={self.device} dtype={cfg.precision.dtype} "
             f"attn={lm.attn_impl} seq_len={lm.seq_len} "
             f"optimizer={cfg.optimizer.name}"
+            + (f" moe={tuple(moe.num_experts)}x{moe.every} top{moe.top_k}"
+               f" {moe.mlp_type}" if moe.enabled else "")
             + (f" mesh={layout} strategy={label}" if self.mesh.world > 1 else "")
             + (f" world={self.world_size} zero={cfg.zero.stage}"
                + (" cpu_offload" if cfg.zero.cpu_offload else "")

@@ -160,9 +160,11 @@ def global_norm(tensors: list[torch.Tensor], zero=None, names=None) -> torch.Ten
     rank's shards: their squared norms are summed over the ranks by one
     all-reduce. Under tensor parallelism (``zero.tp``; ``names`` the
     tensors' parameter names) a model-sharded tensor's squared norm is
-    summed over the model ranks too, a replicated one counted once."""
+    summed over the model ranks too, a replicated one counted once, and
+    under expert parallelism (``zero.ep``) an expert tensor's over the
+    expert ranks."""
     norms = torch._foreach_norm(tensors, 2)
-    if zero is not None and zero.tp is not None:
+    if zero is not None and (zero.tp is not None or zero.ep is not None):
         return zero.whole_sq_norms(torch.stack(norms).square(), names).sum().sqrt()
     if zero is None or not zero.partitions_optimizer:
         return torch.linalg.vector_norm(torch.stack(norms))
@@ -176,7 +178,7 @@ def tensor_norms(tensors: list[torch.Tensor], zero=None, names=None) -> torch.Te
     all-reduce of the vector); under tensor parallelism as in
     :func:`global_norm`."""
     norms = torch.stack(torch._foreach_norm(tensors, 2))
-    if zero is not None and zero.tp is not None:
+    if zero is not None and (zero.tp is not None or zero.ep is not None):
         return zero.whole_sq_norms(norms.square(), names).sqrt()
     if zero is None or not zero.partitions_optimizer:
         return norms

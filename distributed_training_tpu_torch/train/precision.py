@@ -176,12 +176,13 @@ def commit_gradients(state, grads: dict[str, torch.Tensor],
     finite_t = all_finite(
         [*grads.values(), *out.values(),
          *(t for slot in candidate.slots.values() for t in slot.values())])
-    if zero.partitions_optimizer or zero.tp is not None:
+    if zero.partitions_optimizer or zero.tp is not None or zero.ep is not None:
         finite_t = finite_t.to(torch.int32)
         if zero.partitions_optimizer:
             zero.all_reduce_(finite_t, op=dist.ReduceOp.MIN)
-        if zero.tp is not None:  # each model rank sees its own shards
-            dist.all_reduce(finite_t, op=dist.ReduceOp.MIN, group=zero.tp.group)
+        for ctx in (zero.tp, zero.ep):  # each model or expert rank sees its own shards
+            if ctx is not None:
+                dist.all_reduce(finite_t, op=dist.ReduceOp.MIN, group=ctx.group)
     finite = bool(finite_t)
     state.loss_scale = state.loss_scale.update(finite)
     if finite:

@@ -27,6 +27,13 @@ case ``local_bn=True`` makes this the counterpart of the JAX package's
 step and the running statistics (and their EMA, with ``ema_decay``) are
 averaged over the ranks after it.
 
+A model with MoE layers (``moe_mlp``) adds its load-balancing loss to the
+objective (JAX ``_forward_and_loss``): ``loss`` is CE + aux, and its noisy
+gates draw from a generator seeded by the step's seed, step and data rank.
+Under an expert axis the state's ``zero`` group is the data group; the
+expert ranks of one data rank hold the same rows and compute the same
+loss.
+
 Batches are dicts of tensors with NHWC ``image``, as in the JAX package.
 """
 
@@ -34,9 +41,11 @@ from __future__ import annotations
 
 from typing import Callable
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from distributed_training_tpu_torch.models.moe import MoEImageClassifier
 from distributed_training_tpu_torch.train.precision import commit_gradients
 from distributed_training_tpu_torch.train.train_state import TrainState
 
@@ -62,10 +71,29 @@ def _accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return (logits.argmax(-1) == labels).float().mean()
 
 
+def forward_with_aux(model: torch.nn.Module, x: torch.Tensor,
+                     generator: torch.Generator | None = None):
+    """``(logits, aux)``: the MoE models' load-balancing loss, or 0."""
+    if isinstance(model, MoEImageClassifier):
+        return model(x, generator=generator, return_aux=True)
+    return model(x), torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def dropout_generator(model: torch.nn.Module, seed: int, step: int, rank: int,
+                      device: torch.device) -> torch.Generator | None:
+    """The step's generator of dropout masks and the noisy gates' noise:
+    seeded by ``(seed, step, rank)``, so each rank and step draws its own;
+    None for a model with neither."""
+    if not (getattr(model, "dropout_rate", 0.0) or getattr(model, "noisy_gate_policy", None)):
+        return None
+    key = int(np.random.SeedSequence([seed, step, rank]).generate_state(1, np.uint64)[0])
+    return torch.Generator(device=device).manual_seed(key % 2**63)
+
+
 def make_train_step(*, zero_stage: int = 0, grad_accum_steps: int = 1,
                     label_smoothing: float = 0.0,
                     input_affine: tuple | None = None,
-                    local_bn: bool = False) -> Callable:
+                    local_bn: bool = False, seed: int = 0) -> Callable:
     """Build ``step(state, batch) -> metrics``.
 
     ``zero_stage`` must be the stage of ``state.zero`` (the state holds the
@@ -76,7 +104,7 @@ def make_train_step(*, zero_stage: int = 0, grad_accum_steps: int = 1,
     BatchNorm running stats tick once per microbatch, in order (torch
     grad-accum semantics). ``local_bn``: BatchNorm without a group, its
     running statistics averaged over the ranks after the step; stage 0
-    only, as in the JAX package.
+    only, as in the JAX package. ``seed`` seeds the noisy gates' noise.
     """
     if grad_accum_steps < 1:
         raise ValueError(f"grad_accum_steps must be >= 1, got {grad_accum_steps}")
@@ -104,10 +132,11 @@ def make_train_step(*, zero_stage: int = 0, grad_accum_steps: int = 1,
         for p in model.parameters():
             p.grad = None
         losses, accs = [], []
+        gen = dropout_generator(model, seed, state.step, zero.rank, images.device)
         for x, y in zip(images.chunk(grad_accum_steps),
                         labels.chunk(grad_accum_steps)):
-            logits = model(x)
-            loss = cross_entropy_loss(logits, y, label_smoothing)
+            logits, aux = forward_with_aux(model, x, gen)
+            loss = cross_entropy_loss(logits, y, label_smoothing) + aux
             ls.scale_loss(loss).backward()
             losses.append(loss.detach())
             accs.append(_accuracy(logits.detach(), y))

@@ -22,7 +22,10 @@ whole tensors whatever the stage and world (:meth:`state_dict` gathers,
 (``zero.tp``) the model's tensors are this model rank's shards, which the
 ZeRO partition splits further; a checkpoint gathers them by the rule table
 (``parallel/tensor_parallel.py``) too, and a load cuts them again, so a
-save resumes at any ``(data, model, sequence)`` layout.
+save resumes at any ``(data, model, sequence)`` layout. The same holds
+for the expert leaves under expert parallelism (``zero.ep``): a save
+gathers every expert over the expert group, and a load cuts this rank's
+block again, at any expert-axis size.
 """
 
 from __future__ import annotations
@@ -247,25 +250,27 @@ class TrainState:
                 for n, b in live_stats.items():
                     stats[n].copy_(b)
 
+    def _contexts(self) -> list:
+        return [c for c in (self.zero.tp, self.zero.ep) if c is not None]
+
     def _whole(self, tensors: dict) -> dict:
         """Tensors by parameter name, the model-sharded ones gathered over
-        the model ranks (the tensors themselves without tensor parallelism)."""
-        tp = self.zero.tp
-        if tp is None:
-            return tensors
-        return {n: gather_tensor(t, tp.dim(n), tp) for n, t in tensors.items()}
+        the model ranks and the expert-sharded ones over the expert ranks
+        (the tensors themselves without either)."""
+        for ctx in self._contexts():
+            tensors = {n: gather_tensor(t, ctx.dim(n), ctx) for n, t in tensors.items()}
+        return tensors
 
     def _local(self, tensors: dict) -> dict:
-        """The converse of :meth:`_whole`: this model rank's shards."""
-        tp = self.zero.tp
-        if tp is None:
-            return tensors
-        return {n: shard_tensor(t, tp.dim(n), tp) for n, t in tensors.items()}
+        """The converse of :meth:`_whole`: this rank's shards."""
+        for ctx in self._contexts():
+            tensors = {n: shard_tensor(t, ctx.dim(n), ctx) for n, t in tensors.items()}
+        return tensors
 
     def writes_checkpoints(self) -> bool:
         """Whether this rank writes the saves: the first of its group, on
-        the first model rank."""
-        return self.zero.rank == 0 and (self.zero.tp is None or self.zero.tp.index == 0)
+        the first model and expert rank."""
+        return self.zero.rank == 0 and all(c.index == 0 for c in self._contexts())
 
     def state_dict(self) -> dict:
         """Everything a resume needs, as whole tensors and numbers: the
@@ -308,5 +313,13 @@ class TrainState:
         self.step = int(sd["step"])
 
 
-def param_count(model: torch.nn.Module) -> int:
-    return sum(p.numel() for p in model.parameters())
+def param_count(model: torch.nn.Module, *contexts) -> int:
+    """The model's parameter count; with tensor- or expert-parallel
+    ``contexts`` (None ones skipped), the whole model's: each leaf sharded
+    over one counts its size times the context's."""
+    n = sum(p.numel() for p in model.parameters())
+    for ctx in contexts:
+        if ctx is not None:
+            n += (ctx.size - 1) * sum(p.numel() for name, p in model.named_parameters()
+                                      if ctx.dim(name) is not None)
+    return n

@@ -40,6 +40,14 @@ wires it:
   the card), for training, precise-BN and eval; at 0 each batch is
   loaded and copied in the loop, under the wall clock's ``data`` phase.
 
+The image Trainer runs the ``moe_*`` models (``models/moe.py``) with
+``cfg.moe``'s knobs, as the JAX Trainer wires them: the mesh
+(``cfg.mesh``, ``runtime/mesh.py``) may then carry an ``expert`` axis,
+whose ranks hold the same rows and shard the experts; the gate is global
+over the data group, the batch is ``batch_size`` a rank over every rank
+(the JAX Trainer's per-chip rule) split over the data axis, and ZeRO runs
+over the data group. ``moe.enabled`` on another model raises, as in JAX.
+
 The image Trainer adds precise-BN (``eval_precise_bn_batches``): before
 an eval that reads the live BatchNorm statistics, they are re-estimated
 from that many training batches with the current weights, as the mean of
@@ -68,11 +76,13 @@ from distributed_training_tpu_torch.data.pipeline import (
 )
 from distributed_training_tpu_torch.data.prefetch import prefetch_to_device
 from distributed_training_tpu_torch.models import get_model
+from distributed_training_tpu_torch.models.moe import MoEContext, shard_experts_
 from distributed_training_tpu_torch.models.resnet import (
     BN_MOMENTUM,
     BatchNorm,
     set_batchnorm_group,
 )
+from distributed_training_tpu_torch.parallel.tensor_parallel import ExpertParallel
 from distributed_training_tpu_torch.parallel.zero import Zero
 from distributed_training_tpu_torch.resilience.async_ckpt import AsyncCheckpointWriter
 from distributed_training_tpu_torch.runtime.coordinator import Coordinator
@@ -80,6 +90,7 @@ from distributed_training_tpu_torch.runtime.distributed import (
     initialize_distributed,
     local_device,
 )
+from distributed_training_tpu_torch.runtime.mesh import AXIS_DATA, AXIS_SEQUENCE, Mesh
 from distributed_training_tpu_torch.runtime.preemption import PreemptionGuard
 from distributed_training_tpu_torch.train.optim import make_optimizer
 from distributed_training_tpu_torch.train.precision import LossScaleState, Policy
@@ -97,12 +108,12 @@ from distributed_training_tpu_torch.utils.profiling import WallClock, trace
 def unported_fields(cfg: TrainConfig) -> dict[str, bool]:
     """The fields the image Trainer lacks, each with whether ``cfg`` sets it."""
     mesh = cfg.mesh
+    moe = cfg.model.startswith("moe")
     return {
         "mesh axes other than data": any(
-            getattr(mesh, a) != 1
-            for a in ("fsdp", "model", "expert", "sequence", "pipe")),
+            getattr(mesh, a) != 1 for a in ("fsdp", "model", "sequence", "pipe")),
+        "an expert axis on a model without MoE layers": mesh.expert != 1 and not moe,
         "tp_overlap": cfg.tp_overlap,
-        "moe.enabled": cfg.moe.enabled,
     }
 
 
@@ -320,6 +331,10 @@ class Trainer(Engine):
         only its conv outputs); the JAX ``TrainConfig`` has no field for it,
         so it is an argument here."""
         refuse_unported(unported_fields(cfg))
+        if cfg.moe.enabled and not cfg.model.startswith("moe"):
+            raise NotImplementedError(
+                f"MoE is only wired into the moe_* models (models/moe.py); "
+                f"model {cfg.model!r} would silently train dense")
         self.cfg = cfg
         group = initialize_distributed(device=device)
         self.coord = Coordinator()
@@ -328,9 +343,30 @@ class Trainer(Engine):
         self.world_size = resolve_data_axis(cfg.mesh, self.coord.world_size)
         policy = Policy.from_config(cfg.precision)
         gen = torch.Generator().manual_seed(cfg.seed)
+        # This rank's slice of each global batch: its data shard's.
+        self.mesh, ep = None, None
+        self._shard = dict(process_index=self.coord.process_index,
+                           process_count=self.coord.process_count)
+        if cfg.model.startswith("moe"):
+            # The JAX Trainer passes remat only when set (this model has
+            # none, so it raises), and the MoE knobs; the expert axis comes
+            # from the mesh.
+            model_kwargs = dict(
+                num_experts=tuple(cfg.moe.num_experts), top_k=cfg.moe.top_k,
+                capacity_factor=cfg.moe.capacity_factor,
+                min_capacity=cfg.moe.min_capacity,
+                noisy_gate_policy=cfg.moe.noisy_gate_policy,
+                mlp_type=cfg.moe.mlp_type, **({"remat": True} if cfg.remat else {}))
+            self.mesh = Mesh(cfg.mesh)
+            ep = ExpertParallel.from_mesh(self.mesh)
+            group = self.mesh.group(AXIS_DATA, AXIS_SEQUENCE)
+            self._shard = dict(process_index=self.mesh.index(AXIS_DATA),
+                               process_count=self.mesh.size(AXIS_DATA))
+        else:
+            model_kwargs = dict(remat=cfg.remat, remat_policy=remat_policy)
         model = get_model(cfg.model, num_classes=cfg.data.num_classes,
-                          dtype=policy.compute_dtype, remat=cfg.remat,
-                          remat_policy=remat_policy, generator=gen)
+                          dtype=policy.compute_dtype, generator=gen, **model_kwargs)
+        shard_experts_(model, MoEContext.from_mesh(self.mesh))
         self.model = model.to(self.device)
         has_bn = any(isinstance(m, BatchNorm) for m in self.model.modules())
         local_bn = not cfg.sync_batchnorm and has_bn
@@ -343,20 +379,23 @@ class Trainer(Engine):
                 "cpu_offload rides the ZeRO optimizer-state partition, which "
                 "the local-BN step does not have")
         set_batchnorm_group(self.model, None if local_bn else group)
-        n_params = param_count(self.model)
+        n_params = param_count(self.model, ep)
         self.tx = make_optimizer(cfg.optimizer, cfg.scheduler, self.world_size)
         self.state = TrainState.create(
             self.model, self.tx, LossScaleState.create(cfg.precision),
-            Zero(cfg.zero.stage, group, cfg.zero.cpu_offload))
+            Zero(cfg.zero.stage, group, cfg.zero.cpu_offload, ep=ep))
+        # batch_size is per rank: under a data × expert mesh every rank
+        # adds its batch to the global one, as the JAX Trainer counts chips.
         self.train_gbs, self.eval_gbs, self.grad_accum = effective_batch_sizes(
-            cfg, self.world_size, allow_derive=True)
+            cfg, self.coord.world_size if self.mesh is not None else self.world_size,
+            allow_derive=True)
         self.input_affine = input_affine = (
             (2.0 / 255.0, -1.0) if cfg.data.augment == "normalize_only"
             else (1.0 / 255.0, 0.0))
         self.train_step = make_train_step(
             zero_stage=cfg.zero.stage, grad_accum_steps=self.grad_accum,
             label_smoothing=cfg.label_smoothing, input_affine=input_affine,
-            local_bn=local_bn and group is not None)
+            local_bn=local_bn and group is not None, seed=cfg.seed)
         self.eval_step = make_eval_step(input_affine=input_affine)
         self.meter = MetricMeter(cfg.log_interval)
         self.last_eval: dict[str, float] = {}
@@ -370,14 +409,14 @@ class Trainer(Engine):
                + ("" if group is None or not has_bn
                   else " local_bn" if local_bn else " sync_bn")
                if group is not None or cfg.zero.stage else "")
+            + (f" mesh={ {a: n for a, n in self.mesh.sizes.items() if n > 1} }"
+               if self.mesh is not None and self.mesh.world > 1 else "")
             + (f" grad_accum={self.grad_accum}" if self.grad_accum > 1 else ""))
 
     def make_loaders(self):
         return build_dataloaders(self.cfg, seed=self.cfg.seed,
                                  global_batch_size=self.train_gbs,
-                                 eval_global_batch_size=self.eval_gbs,
-                                 process_index=self.coord.process_index,
-                                 process_count=self.coord.process_count)
+                                 eval_global_batch_size=self.eval_gbs, **self._shard)
 
     def uses_ema(self) -> bool:
         """Eval reads the EMA of the parameters and of the BatchNorm

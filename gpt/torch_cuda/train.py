@@ -18,18 +18,24 @@ this script imports nothing of the JAX package). What works:
   the data axis. ``--stage`` 0–3 (ZeRO over the replica group),
   ``--gradient-accumulation-steps``, ``--remat``, ``--ce-chunk-size`` or
   ``--ce-save-probs``, ``--ema-decay``;
+- MoE: ``--moe`` swaps every ``--moe-every``-th FFN for ``--num-experts``
+  experts (``--top-k``, ``--min-capacity``, ``--noisy-gate-policy``,
+  ``--mlp-type``), with the gate global over the data ranks, and
+  ``--ep-world-size N`` shards the experts over N ranks that hold the same
+  rows (the rest form the data axis; ZeRO ≥ 1 with N > 1 needs the
+  config's ``moe_param_group``, which this CLI, like JAX's, has no flag for);
 - ``-c``, ``-i``, ``-r``, ``--auto-resume`` (SIGTERM saves a step-accurate
   checkpoint that it picks up), ``--log-interval``, ``--steps-per-epoch``,
   ``--seed``, ``--wall-clock-breakdown``, ``--profile-dir``,
   ``--tensorboard-dir``, ``--metrics-jsonl``.
 
 The flags of what the port lacks raise ``NotImplementedError`` naming the
-flag when set away from their defaults: MoE (``--moe`` and its knobs),
-``--pp``, ``--virtual-stages``, ``--microbatches`` (the pipeline's; 2, the
-default, is read by nothing without it, as in the JAX trainer), the flight
-recorder and the other observability instruments (``--flight-recorder``, ``--trace``,
+flag when set away from their defaults: ``--pp`` (and beside it
+``--virtual-stages`` and ``--microbatches``, which without it are read by
+nothing, as in the JAX trainer), the flight recorder and the other
+observability instruments (``--flight-recorder``, ``--trace``,
 ``--metrics-port``, ``--grad-norm-metric``, ``--anomaly-*``) and the chaos
-flags. ``--flight-recorder`` therefore defaults to off, where the JAX
+flags. MoE with ``--sp`` or ``--tp`` raises in the trainer. ``--flight-recorder`` therefore defaults to off, where the JAX
 CLI's is on.
 
 It runs on the card (``cuda:LOCAL_RANK`` under ``torchrun``) unless
@@ -38,6 +44,7 @@ It runs on the card (``cuda:LOCAL_RANK`` under ``torchrun``) unless
     ./run.sh                                                   # one card
     torchrun --nproc-per-node 1 train.py -b 8 --seq-len 512 --attn-impl flash
     torchrun --nproc-per-node 4 train.py --sp 2 --tp 2 --attn-impl flash  # 4 cards
+    torchrun --nproc-per-node 4 train.py --moe --ep-world-size 2 --attn-impl flash
     python train.py --device cpu --num-layers 2 --hidden-dim 32 --seq-len 16 \
         --steps-per-epoch 2 -e 1                               # CPU, micro
 """
@@ -241,18 +248,20 @@ def add_chaos_arguments(parser: argparse.ArgumentParser) -> None:
 
 
 # Flags whose behaviour the port lacks, by dest (ROADMAP.md).
-UNPORTED = ("moe", "ep_world_size", "num_experts", "moe_every", "top_k",
-            "min_capacity", "noisy_gate_policy", "mlp_type",
-            "pp", "virtual_stages", "microbatches", "flight_recorder",
-            "flight_dir", "trace", "trace_dir", "metrics_port", "grad_norm_metric",
-            "anomaly_detection", "anomaly_action", "anomaly_trace_steps")
+UNPORTED = ("pp", "flight_recorder", "flight_dir", "trace", "trace_dir", "metrics_port",
+            "grad_norm_metric", "anomaly_detection", "anomaly_action",
+            "anomaly_trace_steps")
+# The pipeline's own flags: read by nothing without --pp (as in the JAX
+# trainer), so refused only beside it.
+PIPELINE = ("virtual_stages", "microbatches")
 
 
 def unported_flags(args: argparse.Namespace) -> list[str]:
     """The flags set to something the port cannot honour yet."""
     defaults = build_parser().parse_args([])
     chaos = tuple(k for k in vars(defaults) if k.startswith("chaos_"))
-    return [f"--{k.replace('_', '-')}" for k in (*UNPORTED, *chaos)
+    pipeline = PIPELINE if args.pp > 1 else ()
+    return [f"--{k.replace('_', '-')}" for k in (*UNPORTED, *pipeline, *chaos)
             if getattr(args, k) != getattr(defaults, k)]
 
 

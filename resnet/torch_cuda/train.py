@@ -19,8 +19,13 @@ this script imports nothing of the JAX package):
   ``<root>/val`` class trees at ImageNet's size and classes by default
   (decoding needs Pillow), and ``--decoded-cache`` decodes them once into
   ``<root>/.decoded_cache`` and trains from there;
-- the flags of what the port lacks (MoE, chaos, the flight recorder and
-  the other observability instruments, span traces) raise
+- ``--moe`` switches the model to ``moe_mlp`` (the patch MLP with MoE
+  FFNs) as the JAX CLI does, with ``--num-experts``, ``--top-k``,
+  ``--min-capacity``, ``--noisy-gate-policy``, ``--mlp-type`` and
+  ``--moe-param-group``; ``--ep-world-size N`` shards its experts over N
+  ranks of the launcher's group (the rest form the data axis);
+- the flags of what the port lacks (chaos, the flight recorder and the
+  other observability instruments, span traces) raise
   ``NotImplementedError`` naming ROADMAP.md; none is silently ignored. ``--flight-recorder`` therefore defaults to off, where
   the JAX CLI's is on.
 
@@ -295,10 +300,8 @@ def unported_flags(args: argparse.Namespace) -> list[str]:
     observability = ("flight_recorder", "flight_dir", "trace", "trace_dir",
                      "metrics_port", "grad_norm_metric", "anomaly_detection",
                      "anomaly_action", "anomaly_trace_steps")
-    moe = ("moe", "ep_world_size", "num_experts", "mlp_type", "top_k",
-           "min_capacity", "noisy_gate_policy", "moe_param_group")
     chaos = tuple(k for k in vars(defaults) if k.startswith("chaos_"))
-    return [f"--{k.replace('_', '-')}" for k in (*moe, *chaos, *observability)
+    return [f"--{k.replace('_', '-')}" for k in (*chaos, *observability)
             if getattr(args, k) != getattr(defaults, k)]
 
 
@@ -308,6 +311,7 @@ def build_config(args: argparse.Namespace):
     from distributed_training_tpu_torch.config import (
         CheckpointConfig,
         DataConfig,
+        MoEConfig,
         TrainConfig,
         from_ds_config,
     )
@@ -316,6 +320,11 @@ def build_config(args: argparse.Namespace):
     if bad:
         raise NotImplementedError(f"not ported yet (see ROADMAP.md): {', '.join(bad)}")
     cfg = TrainConfig.from_plugin(args.plugin)
+    if args.moe and not args.model.startswith("moe"):
+        # The reference parses --moe and trains a dense ResNet regardless;
+        # here, as in the JAX CLI, the flag selects the MoE model.
+        print(f"[moe] switching model {args.model!r} -> 'moe_mlp'")
+        args.model = "moe_mlp"
     if args.plugin == "deepspeed":
         if args.deepspeed_config:
             with open(args.deepspeed_config) as fh:
@@ -351,6 +360,15 @@ def build_config(args: argparse.Namespace):
             image_size=args.image_size or (224 if imagenet_style else 32),
             num_classes=args.num_classes or (1000 if imagenet_style else 10),
             max_steps_per_epoch=args.steps_per_epoch, decoded_cache=args.decoded_cache),
+        moe=MoEConfig(
+            enabled=args.moe, ep_world_size=args.ep_world_size,
+            num_experts=tuple(args.num_experts), mlp_type=args.mlp_type,
+            top_k=args.top_k, min_capacity=args.min_capacity,
+            noisy_gate_policy=args.noisy_gate_policy,
+            moe_param_group=args.moe_param_group),
+        # --ep-world-size sizes the expert axis, under --moe only (a dense
+        # run keeps the whole data axis), as in the JAX CLI.
+        mesh=dataclasses.replace(cfg.mesh, expert=args.ep_world_size if args.moe else 1),
     )
     # Optimizer overrides on top of the plugin preset (None = keep preset).
     opt_overrides = {k: v for k, v in (

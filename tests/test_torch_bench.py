@@ -68,6 +68,21 @@ def test_gpt2_small_flops_equal_jax():
     assert got == int(want) and float(got) == want
 
 
+@pytest.mark.parametrize("experts", [8, (4,), (0, 8)], ids=["int", "tuple", "per_layer"])
+def test_moe_lm_has_no_flop_count_as_in_jax(experts):
+    """An LM with MoE layers gets no static FLOP count (so no MFU), as the
+    JAX package's ``forward_flops``; all-zero counts are the dense model."""
+    kw = dict(GPT2_SMALL, num_layers=4, moe_num_experts=experts)
+    want = jflops.forward_flops(jax_model("transformer_lm", **kw), seq_len=1024)
+    with torch.device("meta"):
+        got = forward_flops(get_model("transformer_lm", **kw), seq_len=1024)
+    assert want is None and got is None
+    dense = dict(kw, moe_num_experts=0)
+    with torch.device("meta"):
+        assert forward_flops(get_model("transformer_lm", **dense), seq_len=1024) == int(
+            jflops.forward_flops(jax_model("transformer_lm", **dense), seq_len=1024))
+
+
 def test_resnet50_train_step_is_about_3x_8_2_gflop_an_image():
     step = train_step_flops(forward_flops(get_model("resnet50", num_classes=1000),
                                           image_size=224))

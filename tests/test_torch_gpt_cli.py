@@ -90,12 +90,26 @@ def test_unported_flags_raise_naming_the_flag(argv):
     """The flags of what the port lacks raise naming the flag. ``--tp``,
     ``--tp-overlap`` and ``--sp``, which this test once listed, are ported:
     they build the JAX CLI's config (the mesh's model and sequence axes,
-    ``tp_overlap``)."""
-    if argv[0] in ("--tp", "--tp-overlap", "--sp"):
-        want = JAX_CLI.build_config(_jax_args(argv))
-        got = PORT_CLI.build_config(_port_args(argv))
-        assert dataclasses.asdict(got.mesh) == dataclasses.asdict(want.mesh)
-        assert got.tp_overlap == want.tp_overlap
+    ``tp_overlap``). So are the MoE flags (the ``moe`` config and the
+    expert axis, with and without ``--moe``), and ``--microbatches`` and
+    ``--virtual-stages`` without ``--pp``, where they build the JAX CLI's
+    ``lm`` config; beside ``--pp 2`` they still raise naming the flag."""
+    if argv[0] in ("--tp", "--tp-overlap", "--sp", "--moe", "--num-experts",
+                   "--ep-world-size", "--top-k", "--microbatches", "--virtual-stages"):
+        extras = ([[], ["--moe"]] if argv[0] in ("--num-experts", "--ep-world-size", "--top-k")
+                  else [[]])
+        for extra in extras:
+            want = JAX_CLI.build_config(_jax_args([*argv, *extra]))
+            got = PORT_CLI.build_config(_port_args([*argv, *extra]))
+            for f in FIELDS:
+                x, y = getattr(want, f), getattr(got, f)
+                if dataclasses.is_dataclass(x):
+                    x, y = dataclasses.asdict(x), dataclasses.asdict(y)
+                    x = {k: v for k, v in x.items() if k in y}
+                assert x == y, f
+        if argv[0] in ("--microbatches", "--virtual-stages"):
+            with pytest.raises(NotImplementedError, match=argv[0]):
+                PORT_CLI.build_config(_port_args([*argv, "--pp", "2"]))
         return
     with pytest.raises(NotImplementedError, match=argv[0]):
         PORT_CLI.build_config(_port_args(argv))

@@ -22,7 +22,7 @@ from distributed_training_tpu.runtime.mesh import MeshConfig, create_mesh
 from distributed_training_tpu.train.lm_trainer import LMTrainer as JaxLMTrainer
 from distributed_training_tpu_torch import bridge
 from distributed_training_tpu_torch import config as tcfg
-from distributed_training_tpu_torch.train.lm_trainer import LMTrainer
+from distributed_training_tpu_torch.train.lm_trainer import LMTrainer, check_lm_config
 from distributed_training_tpu_torch.train.trainer import Trainer
 
 # The suite runs several pytest workers on one host: torch's intra-op
@@ -123,11 +123,12 @@ def test_resume_is_step_accurate(tmp_path):
 
 @pytest.mark.parametrize("override", [
     dict(tp_overlap=True),
-    dict(moe=tcfg.MoEConfig(enabled=True)),
+    dict(moe=tcfg.MoEConfig(enabled=True), mesh=tcfg.MeshSpec(sequence=2)),
     dict(mesh=tcfg.MeshSpec(sequence=2)),
     dict(mesh=tcfg.MeshSpec(model=2)),
     dict(mesh=tcfg.MeshSpec(pipe=2)),
-    dict(mesh=tcfg.MeshSpec(expert=2)),
+    dict(mesh=tcfg.MeshSpec(expert=2), moe=tcfg.MoEConfig(enabled=True, num_experts=(4,)),
+         zero=tcfg.ZeroConfig(stage=1)),
     dict(mesh=tcfg.MeshSpec(fsdp=2)),
 ], ids=lambda o: next(iter(o)) + "=" + str(next(iter(o.values())))[:40])
 def test_unported_options_raise(tmp_path, override):
@@ -139,11 +140,29 @@ def test_unported_options_raise(tmp_path, override):
     test_torch_tensor_parallel.py and test_torch_tp_overlap.py: here, at
     world 1, ``tp_overlap`` over a model axis of 1 builds the plain step,
     as the JAX trainer does, and a sequence or model axis of 2 is a mesh
-    one process cannot hold, refused as ``create_mesh`` refuses it.)"""
+    one process cannot hold, refused as ``create_mesh`` refuses it. MoE
+    and the expert axis are ported too, multi-rank in
+    test_torch_moe_parallel.py: their cases are what stays refused, MoE
+    with a sequence, model or pipe axis (``NotImplementedError`` before
+    any mesh is built), and ZeRO × expert parallelism without
+    ``moe_param_group``, the JAX trainer's ``ValueError``, checked on the
+    mesh sizes since one process cannot hold an expert axis of 2.)"""
     cfg = _cfg(tcfg, tmp_path, **override)
     if override == dict(tp_overlap=True):
         t = LMTrainer(cfg, device="cpu")
         assert t.tp is None and t.strategy == "tensor/dp"
+        return
+    if "moe" in override:
+        if "zero" in override:
+            with pytest.raises(ValueError, match="requires --moe-param-group"):
+                check_lm_config(cfg, 1, 1, expert=2)
+            check_lm_config(cfg.replace(moe=tcfg.MoEConfig(
+                enabled=True, num_experts=(4,), moe_param_group=True)), 1, 1, expert=2)
+            return
+        for axis in ("sequence", "model", "pipe"):
+            bad = cfg.replace(mesh=tcfg.MeshSpec(**{axis: 2}))
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                LMTrainer(bad, device="cpu")
         return
     if "mesh" in override and (cfg.mesh.sequence, cfg.mesh.model) != (1, 1):
         with pytest.raises(ValueError, match="not divisible by fixed axes product 2"):

@@ -244,14 +244,18 @@ def _mesh(sizes: dict):
 
 def _local_batch(batch: dict, mesh) -> dict:
     """This rank's rows (its data shard) and time chunk (its sequence
-    shard) of a global ``[B, T]`` batch."""
+    shard) of a global ``[B, T]`` batch (of its rows alone for a batch of
+    images or labels)."""
     nd, d = mesh.size("data"), mesh.index("data")
     ns, q = mesh.size("sequence"), mesh.index("sequence")
     out = {}
     for k, v in batch.items():
-        rows, t = v.shape[0] // nd, v.shape[1] // ns
-        out[k] = torch.from_numpy(np.ascontiguousarray(
-            v[d * rows:(d + 1) * rows, q * t:(q + 1) * t]))
+        rows = v.shape[0] // nd
+        v = v[d * rows:(d + 1) * rows]
+        if v.ndim == 2:
+            t = v.shape[1] // ns
+            v = v[:, q * t:(q + 1) * t]
+        out[k] = torch.from_numpy(np.ascontiguousarray(v))
     return out
 
 
@@ -368,6 +372,54 @@ def _overlap_primitives(job, rank, world, group):
         loss.backward()
         out[name] = {"y": y.detach(), "dx": x.grad, "dw": w.grad}
     return {"primitives": out}
+
+
+def _moe_steps(job, rank, world, group):
+    """Each MoE scenario of ``job["moe_scenarios"]``: the LM step (``kind``
+    "lm") or the image step ("image") on this rank's rows of the global
+    batches, on a data × expert mesh (the experts cut to this rank's
+    block), from the whole initial weights; the whole state after the
+    steps and each step's metrics; a save or a restore when asked."""
+    from distributed_training_tpu_torch import checkpoint as ckpt_lib
+    from distributed_training_tpu_torch.config import OptimizerConfig, PrecisionConfig
+    from distributed_training_tpu_torch.models import get_model
+    from distributed_training_tpu_torch.models.moe import MoEContext, shard_experts_
+    from distributed_training_tpu_torch.parallel.tensor_parallel import ExpertParallel
+    from distributed_training_tpu_torch.parallel.zero import Zero
+    from distributed_training_tpu_torch.train.lm_step import make_lm_train_step
+    from distributed_training_tpu_torch.train.optim import make_optimizer
+    from distributed_training_tpu_torch.train.precision import LossScaleState
+    from distributed_training_tpu_torch.train.step import make_train_step
+    from distributed_training_tpu_torch.train.train_state import TrainState
+
+    meshes, out = {}, {}
+    for name, sc in job["moe_scenarios"].items():
+        key = tuple(sorted(sc["mesh"].items()))
+        if key not in meshes:  # every rank opens the same groups in turn
+            meshes[key] = _mesh(sc["mesh"])
+        mesh = meshes[key]
+        lm = sc["kind"] == "lm"
+        model = get_model("transformer_lm" if lm else "moe_mlp", **job[f"{sc['kind']}_kw"])
+        model.load_state_dict(job[f"{sc['kind']}_model"])
+        shard_experts_(model, MoEContext.from_mesh(mesh))
+        state = TrainState.create(model, make_optimizer(OptimizerConfig(**sc["opt"])),
+                                  LossScaleState.create(PrecisionConfig()),
+                                  Zero(sc["stage"], mesh.group("data", "sequence"),
+                                       ep=ExpertParallel.from_mesh(mesh)))
+        if sc.get("restore"):
+            ckpt_lib.restore_checkpoint(sc["restore"], 0, state)
+            out[name] = {"restored": state.state_dict()}
+            continue
+        step = (make_lm_train_step(zero_stage=sc["stage"], max_len=job["lm_kw"]["max_len"])
+                if lm else make_train_step(zero_stage=sc["stage"]))
+        metrics = [{k: float(v) for k, v in step(state, _local_batch(b, mesh)).items()}
+                   for b in job[f"{sc['kind']}_batches"]]
+        out[name] = {"state": state.state_dict(), "metrics": metrics, "step": state.step,
+                     "local_experts": next(p.shape[0] for n, p in model.named_parameters()
+                                           if n.endswith("experts.w1"))}
+        if sc.get("save"):
+            ckpt_lib.save_checkpoint(os.path.join(job["dir"], name), 0, state)
+    return {"moe": out}
 
 
 def _lm_trainer_mesh(job, rank, world, group):
