@@ -154,6 +154,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
    the device's busy share of each; then the bench's image leg by default,
    with ``--remat`` and with ``--remat-policy conv`` (15 steps each),
    images/s and peak memory, remat's peak below the default's;
+10d. vit phase: the bench's image leg with ``--model vit_b16`` at batch
+   256 (2 x 128) and at 512 with ``--remat`` (the JAX bench's ViT flags),
+   images/s, MFU (finite, at most 1), p50/p95 ms and peak memory each;
+   ViT-B/16's float32 logits on the card against the CPU within 1e-3 of
+   their largest magnitude; a ``{"vit": ...}`` line;
 11. K5's time at each probe shape beside its yardsticks and its time
    before the tensor-core redesign, a ``{"kernels": [...]}`` line (six
    kernels, each with its launches by path, its fp16 time, its d-256 and
@@ -169,14 +174,22 @@ ResNet-18 across the ranks at the global batch 100 for each plugin preset
 (SyncBN, ZeRO 0/1/3 and 2 with ``cpu_offload``, fp32 and fp16) against
 the same preset at world 1, local BN, and a ZeRO 1 save resumed at world
 1; GPT-2-small with MoE as DP W, EP W and EP 2 × DP 2 and ``moe_mlp`` as
-DP W and EP W, each against its DP run's losses; then the LM trainer's
-strategies: data parallelism, the ring over W ranks, TP over W with and
-without the overlap schedule, and at W 4 TP×SP (overlapped too) and
-TP×DP, through the GPT CLI at GPT-2-small width, each against data
-parallelism's losses; then the bench's LM leg with ``--tp W``.
+DP W and EP W, each against its DP run's losses; ViT-B/16 through the
+image Trainer (bf16, ZeRO 1, hybrid_adam) as DP W and over the model axis
+(model 2 and, at W 4, model 2 x data 2 and model 4), plain and
+overlapped, against DP W's losses; GPT-2-small MoE at a capacity that
+drops no token under the sequence and model axes (SP W, TP W; at W 4 SP 2
+x EP 2, TP 2 x EP 2, TP 2 x SP 2) and as DP W with two accumulation
+steps, against DP W's losses; then the LM trainer's strategies: data
+parallelism, the ring over W ranks, TP over W with and without the
+overlap schedule, and at W 4 TP×SP (overlapped too) and TP×DP, through
+the GPT CLI at GPT-2-small width, each against data parallelism's
+losses; then the bench's LM leg with ``--tp W``. ``--mesh PART ...``
+(names of ``MESH_PARTS``: a11, moe, vit, moe_axes, lm, bench) runs only
+those parts.
 
 ``python3 chip_smoke.py --phase NAME ...`` runs the build and only the
-named phases (ring, moe_lm, moe_image), without a result line.
+named phases (ring, moe_lm, moe_image, vit), without a result line.
 """
 
 from __future__ import annotations
@@ -1616,6 +1629,65 @@ def bench_phase() -> dict:
     return launches
 
 
+# The vit phase: ViT-B/16 through the port's bench image leg at the JAX
+# bench's two ViT configurations (BASELINE.md:35-36): bf16 at batch 256 (2
+# x 128 accumulated, the bench's default), and batch 512 with --remat
+# (2 x 256); then ViT-B/16's float32 logits on the card against the CPU's,
+# within VIT_LOGITS_TOL of their largest magnitude (the ResNet check's 1e-3:
+# the same weights and images, products summed in another order).
+VIT_RUNS = (("b256", ["--batch-size", "256"]), ("b512_remat", ["--batch-size", "512", "--remat"]))
+VIT_LOGITS_TOL = 1e-3
+
+
+def vit_phase() -> dict:
+    """ViT-B/16 (see VIT_RUNS): each bench run's JSON line, its images/s
+    and MFU finite with 0 < MFU <= 1, its loss finite, its peak memory;
+    then the logits check on a ViT-B/16 whose zero head is replaced by a
+    random one (so that the logits carry the whole model)."""
+    import copy
+
+    from distributed_training_tpu_torch import bench
+    from distributed_training_tpu_torch.models import get_model
+
+    out = {}
+    for tag, flags in VIT_RUNS:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        (line, loss), = bench.main(["--image", "--model", "vit_b16", *flags])
+        peak = (torch.cuda.max_memory_allocated() - start) / 2**30
+        ok = (math.isfinite(line["value"]) and line["value"] > 0 and line["mfu"] is not None
+              and math.isfinite(line["mfu"]) and 0 < line["mfu"] <= 1 and math.isfinite(loss))
+        if not ok:
+            raise SystemExit(f"vit {tag}: bench line out of range (loss {loss}): {line}")
+        out[tag] = {"images_per_s": line["value"], "mfu": line["mfu"],
+                    "step_time_p50_ms": line["step_time_p50_ms"],
+                    "step_time_p95_ms": line["step_time_p95_ms"], "peak_gib": peak,
+                    "loss": loss, "metric": line["metric"]}
+        print(f"[vit] {line['metric']}: {line['value']} images/s, MFU {line['mfu']}, p50 "
+              f"{line['step_time_p50_ms']} ms, p95 {line['step_time_p95_ms']} ms, peak "
+              f"{peak:.3f} GiB, loss {loss:.4f}", flush=True)
+    torch.cuda.empty_cache()
+    model = get_model("vit_b16", num_classes=1000, generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        model.head.kernel.normal_(0.0, 0.02, generator=torch.Generator().manual_seed(1))
+    model.eval()
+    cpu_model = copy.deepcopy(model)
+    x = torch.rand(4, 224, 224, 3, generator=torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        got = model.cuda()(x.cuda()).cpu()
+        want = cpu_model(x)
+    err = (got - want).abs().max().item() / want.abs().max().item()
+    print(f"[vit] ViT-B/16 float32 logits card vs CPU: {err:.3g} of the largest "
+          f"(tolerance {VIT_LOGITS_TOL})", flush=True)
+    if not (got.shape == (4, 1000) and torch.isfinite(got).all() and err <= VIT_LOGITS_TOL):
+        raise SystemExit(f"vit logits card vs CPU: {err}")
+    out["logits_card_vs_cpu"] = err
+    del model, cpu_model
+    torch.cuda.empty_cache()
+    return out
+
+
 def _resnet_cli_module():
     import importlib.util
 
@@ -2724,14 +2796,163 @@ def moe_mesh(world: int, ckpt: str, card: str) -> dict:
     return results
 
 
-def mesh_main() -> int:
+# ViT in the mesh mode: ViT-B/16 through Trainer.fit() on synthetic
+# ImageNet (224², uint8, 1000 classes, no augmentation), bf16, hybrid_adam
+# (K1 on each rank's ZeRO 1 shard), Adam's eps A11_EPS, DP_STEPS steps,
+# VIT_MESH_BATCH images a rank (the JAX Trainer's per-chip rule), as data
+# parallelism over the ranks and, over 4, as model 2 x data 2 and model 4,
+# each plain and with tp_overlap (over 2: model 2, both ways): each step's
+# loss against the data-parallel run's within GPT_STAGE_RTOL (bf16, the
+# row-parallel partial products rounded before their sum, as in the LM).
+VIT_MESH_BATCH = 8
+# MoE under the sequence and model axes: GPT-2-small with --moe (8 experts
+# every 2nd layer, top-1) at ZeRO 1 (moe_param_group), at a capacity that
+# drops no token (capacity_factor 8, the expert count: every token fits in
+# its expert's queue, so the shard-local gate of the sequence strategy
+# routes as the global one and only its aux loss differs, ~1e-4 of the
+# loss in the JAX package's own probe), as data parallelism over the ranks
+# (the reference), the ring (SP W; over 4 also SP 2 x EP 2), TP W (over 4
+# also TP 2 x EP 2 and TP 2 x SP 2), and data parallelism with two
+# accumulation steps on the same global batch (JAX's microbatch order):
+# each step's loss against the first's within GPT_STAGE_RTOL. The
+# capacities that drop tokens are held to the JAX package's steps by the
+# CPU tests (tests/test_torch_moe_axes.py).
+MOE_NODROP_CAPACITY = 8.0
+
+
+def vit_mesh(world: int, ckpt: str, card: str) -> dict:
+    """ViT-B/16 across the ranks (see VIT_MESH_BATCH)."""
+    from distributed_training_tpu_torch.config import (
+        DataConfig,
+        MeshSpec,
+        OptimizerConfig,
+        PrecisionConfig,
+        TrainConfig,
+        ZeroConfig,
+    )
+    import torch.distributed as dist
+
+    rank, results, ref = dist.get_rank(), {}, None
+    layouts = [(f"vit_dp{world}", {"data": world}, False)]
+    for tp in ((2, 4) if world == 4 else (2,)):
+        for overlap in (False, True):
+            name = f"vit_tp{tp}" + (f"_dp{world // tp}" if world > tp else "")
+            layouts.append((name + ("_overlap" if overlap else ""),
+                            {"data": world // tp, "model": tp}, overlap))
+    for name, mesh, overlap in layouts:
+        cfg = TrainConfig(
+            model="vit_b16", num_epochs=1, log_interval=1, eval_every=0,
+            tp_overlap=overlap, mesh=MeshSpec(**mesh), zero=ZeroConfig(stage=1),
+            precision=PrecisionConfig(dtype="bf16"),
+            optimizer=OptimizerConfig(name="hybrid_adam", eps=A11_EPS),
+            data=DataConfig(dataset="synthetic_imagenet", image_size=224, num_classes=1000,
+                            batch_size=VIT_MESH_BATCH, max_steps_per_epoch=DP_STEPS,
+                            augment="none"),
+            checkpoint=_ckpt_cfg(os.path.join(ckpt, name), interval=0))
+        run = _image_run(cfg)
+        trainer = run.pop("trainer")
+        losses = run["losses"]
+        if len(losses) != DP_STEPS or not all(math.isfinite(x) for x in losses):
+            raise SystemExit(f"mesh {name}: expected {DP_STEPS} finite losses, got {losses}")
+        if run["launches"] != DP_STEPS:
+            raise SystemExit(f"mesh {name}: rank {rank} K1 launches {run['launches']} "
+                             f"!= {DP_STEPS} steps")
+        ref = ref or run
+        worst = _rel_losses(losses, ref["losses"])
+        _mesh_check(f"mesh {name} losses vs vit_dp{world}", worst, GPT_STAGE_RTOL)
+        results[name] = {**{k: run[k] for k in ("losses", "launches", "images_per_s",
+                                                 "peak_gib")},
+                         "worst_rel_vs_dp": worst, "zero": trainer.state.zero.stage,
+                         "global_batch": trainer.train_gbs}
+        if rank == 0:
+            print(f"[mesh] {name} over {world} GPUs (ViT-B/16, synthetic 224², global "
+                  f"batch {trainer.train_gbs}, bf16, ZeRO 1, hybrid_adam): "
+                  f"{run['images_per_s']:.1f} images/s, peak {run['peak_gib']:.3f} GiB on "
+                  f"rank 0; K1 {run['launches']} launches a rank; losses {losses} "
+                  f"({worst:.3g} relative of vit_dp{world}'s, tolerance {GPT_STAGE_RTOL}); "
+                  f"{card}", flush=True)
+        del trainer
+    return results
+
+
+def moe_axes_mesh(world: int, ckpt: str, card: str) -> dict:
+    """GPT-2-small MoE under the sequence and model axes (see
+    MOE_NODROP_CAPACITY): tokens/s, K2/K3 launches counted from 0 for each
+    layout and summed over the ranks (each ring hop launches them), the
+    losses against data parallelism's."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from distributed_training_tpu_torch.ops.flash_attention import flash_bwd, flash_fwd
+    from distributed_training_tpu_torch.ops.fused_adam import fused_adam_update
+
+    rank, results, ref = dist.get_rank(), {}, None
+    cli = _gpt_cli_module()
+
+    def edit(cfg):
+        return _hybrid_adam(cfg).replace(moe=dataclasses.replace(
+            cfg.moe, moe_param_group=True, capacity_factor=MOE_NODROP_CAPACITY))
+
+    rows = str(GPT_B // world)
+    layouts = [(f"moe_nodrop_dp{world}", ["-b", rows]), (f"moe_nodrop_sp{world}", ["--sp", str(world)]),
+               (f"moe_nodrop_tp{world}", ["--tp", str(world)])]
+    if world == 4:
+        layouts += [("moe_nodrop_sp2_ep2", ["--sp", "2", "--ep-world-size", "2"]),
+                    ("moe_nodrop_tp2_ep2", ["--tp", "2", "--ep-world-size", "2"]),
+                    ("moe_nodrop_tp2_sp2", ["--tp", "2", "--sp", "2"])]
+    layouts.append((f"moe_nodrop_dp{world}_accum2",
+                    ["-b", str(GPT_B // world // 2), "--gradient-accumulation-steps", "2"]))
+    for name, flags in layouts:
+        fused_adam_update.launches = flash_fwd.launches = flash_bwd.launches = 0
+        run = _gpt_cli_run(cli, [*GPT_CLI_WIDTH, "--moe", "--stage", "1", *flags,
+                                 "-c", os.path.join(ckpt, name)], edit)
+        counts = torch.tensor([flash_fwd.launches, flash_bwd.launches], device="cuda")
+        dist.all_reduce(counts)
+        if len(run["losses"]) != MESH_STEPS or not all(math.isfinite(x) for x in run["losses"]):
+            raise SystemExit(f"mesh {name}: non-finite losses {run['losses']}")
+        if fused_adam_update.launches != MESH_STEPS:
+            raise SystemExit(f"mesh {name}: rank {rank} K1 launches "
+                             f"{fused_adam_update.launches} != {MESH_STEPS}")
+        if min(flash_fwd.launches, flash_bwd.launches) == 0:
+            raise SystemExit(f"mesh {name}: rank {rank} launched no K2/K3")
+        ref = ref or run
+        worst = _rel_losses(run["losses"], ref["losses"])
+        _mesh_check(f"mesh {name} losses vs moe_nodrop_dp{world}", worst, GPT_STAGE_RTOL)
+        results[name] = {"losses": run["losses"], "aux": run["aux"],
+                         "worst_rel_vs_dp": worst, "tokens_per_s": run["tokens_per_s"],
+                         "step_ms": 1e3 * sum(run["step_s"][1:]) / (MESH_STEPS - 1),
+                         "peak_gib_rank0": run["peak_bytes"] / 2**30,
+                         "launches_all_ranks": {"flash_fwd": int(counts[0]),
+                                                "flash_bwd": int(counts[1])},
+                         "kept_share_step1": run["kept_share"][0]}
+        if rank == 0:
+            r = results[name]
+            print(f"[mesh] {name} over {world} GPUs (GPT-2-small MoE, 8 experts every 2nd "
+                  f"layer, top-1, capacity factor {MOE_NODROP_CAPACITY}, global B {GPT_B} T "
+                  f"{GPT_T}, bf16, flash, ZeRO 1, hybrid_adam): {r['tokens_per_s']:.1f} "
+                  f"tokens/s, {r['step_ms']:.3f} ms a step, peak {r['peak_gib_rank0']:.3f} "
+                  f"GiB on rank 0; K2/K3 launches (all ranks) {r['launches_all_ranks']}; "
+                  f"losses {r['losses']} ({worst:.3g} relative of moe_nodrop_dp{world}'s, "
+                  f"tolerance {GPT_STAGE_RTOL}); aux {r['aux']}; kept share step 1 "
+                  f"{r['kept_share_step1']}; {card}", flush=True)
+    return results
+
+
+MESH_PARTS = ("a11", "moe", "vit", "moe_axes", "lm", "bench")
+
+
+def mesh_main(parts: list | None = None) -> int:
     """The mesh mode: first the image Trainer's presets at world 1 on each
     rank's card, then over the ranks (A11_BATCH: each against world 1, local
-    BN, the ZeRO 1 save), MoE over the data and expert axes; then every LM
-    strategy through the GPT CLI's trainer at ZeRO 1 (see ``MESH_STEPS``),
-    its tokens/s, peak memory and K2/K3 launches (summed over the ranks),
-    its losses against data parallelism; the bench's LM leg with ``--tp``;
-    last, on rank 0 alone, the ZeRO 1 save resumed at world 1."""
+    BN, the ZeRO 1 save), MoE over the data and expert axes, ViT-B/16 over
+    the data and model axes (VIT_MESH_BATCH), MoE under the sequence and
+    model axes (MOE_NODROP_CAPACITY); then every LM strategy through the GPT
+    CLI's trainer at ZeRO 1 (see ``MESH_STEPS``), its tokens/s, peak memory
+    and K2/K3 launches (summed over the ranks), its losses against data
+    parallelism; the bench's LM leg with ``--tp``; last, on rank 0 alone,
+    the ZeRO 1 save resumed at world 1. ``parts`` (names of MESH_PARTS)
+    runs those alone."""
     import torch.distributed as dist
 
     from distributed_training_tpu_torch import bench
@@ -2739,27 +2960,39 @@ def mesh_main() -> int:
     from distributed_training_tpu_torch.ops.flash_attention import flash_bwd, flash_fwd
     from distributed_training_tpu_torch.runtime import distributed
 
+    parts = list(parts or MESH_PARTS)
     world = int(os.environ.get("WORLD_SIZE", "1"))
+    if any(p not in MESH_PARTS for p in parts):
+        print(f"chip_smoke --mesh: parts are {MESH_PARTS}", file=sys.stderr)
+        return 2
     if world not in (2, 4) or torch.cuda.device_count() < world:
         print(f"chip_smoke --mesh: run under torchrun over 2 or 4 GPUs (WORLD_SIZE "
               f"{world}, {torch.cuda.device_count()} GPUs)", file=sys.stderr)
         return 2
     cuda_build.build_all()
     card = card_line()
-    with tempfile.TemporaryDirectory() as ckpt, _Alone():
-        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
-        alone = {p: _image_run(_a11_config(p, os.path.join(ckpt, "w1_" + p), 1))["losses"]
-                 for p in DP_PRESETS}
+    torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+    alone = {}
+    if "a11" in parts:
+        with tempfile.TemporaryDirectory() as ckpt, _Alone():
+            alone = {p: _image_run(_a11_config(p, os.path.join(ckpt, "w1_" + p), 1))["losses"]
+                     for p in DP_PRESETS}
     distributed.initialize_distributed()
     rank = dist.get_rank()
     cli = _gpt_cli_module()
-    results, ref = {}, None
+    results, ref, saved = {}, None, None
     with tempfile.TemporaryDirectory() as ckpt:
-        a11 = a11_mesh(world, ckpt, alone, card)
-        saved = a11.pop("zero1_saved_model")
-        results["a11"] = a11
-        results["moe"] = moe_mesh(world, ckpt, card)
-        for name, flags in _mesh_strategies(world):
+        if "a11" in parts:
+            a11 = a11_mesh(world, ckpt, alone, card)
+            saved = a11.pop("zero1_saved_model")
+            results["a11"] = a11
+        if "moe" in parts:
+            results["moe"] = moe_mesh(world, ckpt, card)
+        if "vit" in parts:
+            results["vit"] = vit_mesh(world, ckpt, card)
+        if "moe_axes" in parts:
+            results["moe_axes"] = moe_axes_mesh(world, ckpt, card)
+        for name, flags in (_mesh_strategies(world) if "lm" in parts else []):
             flash_fwd.launches = flash_bwd.launches = 0
             run = _gpt_cli_run(cli, [*GPT_CLI_WIDTH, "--stage", "1", *flags,
                                      "-c", os.path.join(ckpt, name)])
@@ -2789,13 +3022,14 @@ def mesh_main() -> int:
                       f"losses {r['losses']} ({worst:.3g} relative of dp's, tolerance "
                       f"{GPT_STAGE_RTOL}); eval perplexity {r['final_perplexity']:.4f}; "
                       f"{card}", flush=True)
-        for flags in (["--tp", str(world)], ["--tp", str(world), "--tp-overlap"]):
+        for flags in (([["--tp", str(world)], ["--tp", str(world), "--tp-overlap"]])
+                      if "bench" in parts else []):
             (line, loss), = bench.main(["--lm", *flags])
             if not (line["value"] > 0 and math.isfinite(loss)):
                 raise SystemExit(f"mesh bench {flags}: {line}, loss {loss}")
             results[f"bench {' '.join(flags)}"] = line
         distributed.shutdown_distributed()
-        if rank == 0:
+        if rank == 0 and saved is not None:
             results["a11"]["zero1_resume_world1"] = a11_resume(world, ckpt, saved)
     if rank != 0:  # rank 0 saw the same comparisons, and reports them
         return 0
@@ -2811,12 +3045,12 @@ def mesh_main() -> int:
 
 def phase_main(names: list) -> int:
     """``--phase NAME ...``: the build, then only the named phases (ring,
-    moe_lm, moe_image), for a short check of one part on the card; prints
+    moe_lm, moe_image, vit), for a short check of one part on the card; prints
     their results and no result line."""
     from distributed_training_tpu_torch.ops import cuda_build
 
     phases = {"ring": lambda d: ring_phase(), "moe_lm": moe_lm_phase,
-              "moe_image": moe_image_phase}
+              "moe_image": moe_image_phase, "vit": lambda d: vit_phase()}
     if not names or any(n not in phases for n in names):
         print(f"chip_smoke --phase: name one or more of {sorted(phases)}", file=sys.stderr)
         return 2
@@ -2832,8 +3066,8 @@ def phase_main(names: list) -> int:
 
 
 def main() -> int:
-    if sys.argv[1:] == ["--mesh"]:
-        return mesh_main()
+    if sys.argv[1:2] == ["--mesh"]:
+        return mesh_main(sys.argv[2:])
     if sys.argv[1:2] == ["--phase"]:
         return phase_main(sys.argv[2:])
     if not torch.cuda.is_available():
@@ -2876,6 +3110,7 @@ def main() -> int:
     k5 = conv_phase()
     tool_launches, tool_results = tools_phase()
     bench = bench_phase()
+    vit = vit_phase()
     with tempfile.TemporaryDirectory() as ckpt:
         data = data_phase(ckpt)
     bench_lm = {"bench_gpt2_small_adamw": bench["bench"],
@@ -2965,6 +3200,7 @@ def main() -> int:
         "fp16_max_abs_err": max(r["max_abs_err"] for r in half["k5"].values()),
         "fp16_by_shape": half["k5"], "instantiations": built("K5"), "ok": True,
     }]
+    print(json.dumps({"vit": vit}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -19,7 +19,9 @@ leg's, each with ``metric``, ``value``, ``unit``, ``vs_baseline``, ``mfu``,
   block under activation checkpointing, ``--remat-policy conv`` keeps
   only the convolutions' outputs, ``--param-dtype bf16`` keeps the
   parameters and the SGD momentum in bf16 (the BatchNorm statistics stay
-  float32, as in the Flax model).
+  float32, as in the Flax model). ``--model vit_b16`` runs ViT-B/16
+  (``models/vit.py``) in the same loop, with ``--remat`` each encoder
+  block under activation checkpointing, as the root bench does.
 - **LM leg:** GPT-2-small (vocab 50304, 12 layers, 12 heads, hidden 768)
   at B16 T1024, bf16, the flash kernels K2/K3, bf16 logits, no head
   bias, AdamW 3e-4 (optax's defaults: weight decay 1e-4 on every
@@ -147,7 +149,7 @@ PARAM_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
 
 
 def image_train(args, device: torch.device, num_classes: int):
-    """The image leg's ``(model, state, step)``: the ResNet in bf16, SGD."""
+    """The image leg's ``(model, state, step)``: the model in bf16, SGD."""
     from distributed_training_tpu_torch.config import OptimizerConfig, PrecisionConfig
     from distributed_training_tpu_torch.models import get_model
     from distributed_training_tpu_torch.parallel.zero import Zero
@@ -156,10 +158,15 @@ def image_train(args, device: torch.device, num_classes: int):
     from distributed_training_tpu_torch.train.step import make_train_step
     from distributed_training_tpu_torch.train.train_state import TrainState
 
+    # As the root bench: remat_policy only when set (ViT has none), and
+    # ViT's positional table sized by the image.
+    kwargs = dict(remat=args.remat, param_dtype=PARAM_DTYPES[args.param_dtype])
+    if args.remat_policy:
+        kwargs["remat_policy"] = args.remat_policy
+    if args.model.startswith("vit"):
+        kwargs["image_size"] = args.image_size
     model = get_model(args.model, num_classes=num_classes, dtype=torch.bfloat16,
-                      remat=args.remat, remat_policy=args.remat_policy,
-                      param_dtype=PARAM_DTYPES[args.param_dtype],
-                      generator=torch.Generator().manual_seed(0)).to(device)
+                      generator=torch.Generator().manual_seed(0), **kwargs).to(device)
     # SGD with momentum, as the root bench's optax.sgd(0.1, momentum=0.9).
     tx = make_optimizer(OptimizerConfig(name="sgd", lr=0.1, momentum=0.9))
     state = TrainState.create(model, tx, LossScaleState.create(PrecisionConfig(dtype="bf16")),

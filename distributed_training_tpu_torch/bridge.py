@@ -14,9 +14,11 @@ leaf's rank (GPT's QKV kernel is 4-D and no convolution):
   leaf as it is, or, once ``moe.shard_experts_`` has cut the experts over
   an expert group, this expert rank's contiguous block of E from the Flax
   leaf (the other way the port's tensor goes as it is: gather first);
-- every other module (the GPT's and the MoE models', which keep the Flax
-  names and layouts: ``kernel``, ``bias``, ``scale``, ``embedding``,
-  ``pos_embed``, ``Dense_0``, ``LayerNorm_0``): the leaf as it is.
+- every other module (the GPT's, the MoE models' and ViT's, which keep the
+  Flax names and layouts: ``kernel``, ``bias``, ``scale``, ``embedding``,
+  ``pos_embed``, ``Dense_0``, ``LayerNorm_0``; ViT's q/k/v ``DenseGeneral``
+  kernels ``[d, H, hd]``, ``out`` ``[H, hd, d]``, the HWIO patch conv,
+  ``cls_token``): the leaf as it is.
 
 Everything goes through numpy, so this module imports neither framework's
 other half: the tests hand it ``jax.device_get`` output.

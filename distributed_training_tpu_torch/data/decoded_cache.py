@@ -144,6 +144,7 @@ class DecodedCacheLoader(ShardedBatchIndexer):
         process_index: int = 0,
         process_count: int = 1,
         max_steps: int | None = None,
+        microbatches: int = 1,
         num_workers: int = 0,
     ):
         with open(cache_path + ".meta.json") as fh:
@@ -165,7 +166,7 @@ class DecodedCacheLoader(ShardedBatchIndexer):
             len(self.labels), global_batch_size=global_batch_size,
             shuffle=shuffle, drop_last=drop_last, seed=seed,
             process_index=process_index, process_count=process_count,
-            max_steps=max_steps)
+            max_steps=max_steps, microbatches=microbatches)
 
     def __iter__(self) -> Iterator[dict]:
         return self.iter_from(0)

@@ -130,13 +130,15 @@ class ImageFolderLoader(ShardedBatchIndexer):
         process_index: int = 0,
         process_count: int = 1,
         max_steps: int | None = None,
+        microbatches: int = 1,
     ):
         if len(paths) != len(labels):
             raise ValueError(f"{len(paths)} paths vs {len(labels)} labels")
         super().__init__(
             len(labels), global_batch_size=global_batch_size, shuffle=shuffle,
             drop_last=drop_last, seed=seed, process_index=process_index,
-            process_count=process_count, max_steps=max_steps)
+            process_count=process_count, max_steps=max_steps,
+            microbatches=microbatches)
         self.paths = list(paths)
         self.labels = np.asarray(labels, np.int32)
         self.image_size = image_size

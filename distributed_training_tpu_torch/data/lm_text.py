@@ -9,8 +9,10 @@ every batch order is bitwise the JAX package's:
   256). A plain file read: the JAX package's chaos and retry hooks are not
   ported (ROADMAP.md);
 - :class:`TokenLoader`: a ``(seed, epoch)``-seeded permutation of the
-  sequences, each process's contiguous slice of every global batch,
-  partial batches dropped. Batches are ``{'tokens': int32 [B, T+1]}``: one
+  sequences, each process's contiguous slice of every global batch (or,
+  with ``microbatches``, of each gradient-accumulation microbatch in
+  JAX's order, ``data/pipeline.py::process_rows``), partial batches
+  dropped. Batches are ``{'tokens': int32 [B, T+1]}``: one
   extra position for the next-token shift
   (``train/lm_step.py::make_lm_batch``).
 """
@@ -20,6 +22,8 @@ from __future__ import annotations
 from typing import Iterator
 
 import numpy as np
+
+from distributed_training_tpu_torch.data.pipeline import check_microbatches, process_rows
 
 
 def synthetic_tokens(n: int, seq_len: int, vocab_size: int = 256,
@@ -53,7 +57,8 @@ class TokenLoader:
 
     def __init__(self, tokens: np.ndarray, *, global_batch_size: int,
                  shuffle: bool = True, seed: int = 0, process_index: int = 0,
-                 process_count: int = 1, max_steps: int | None = None):
+                 process_count: int = 1, max_steps: int | None = None,
+                 microbatches: int = 1):
         self.tokens = tokens
         self.global_batch_size = global_batch_size
         self.shuffle = shuffle
@@ -65,6 +70,8 @@ class TokenLoader:
             raise ValueError(f"global batch {global_batch_size} not divisible "
                              f"by {process_count} processes")
         self.max_steps = max_steps
+        check_microbatches(global_batch_size, process_count, microbatches)
+        self.microbatches = microbatches
 
     def set_epoch(self, epoch: int) -> None:
         self.epoch = epoch
@@ -81,9 +88,9 @@ class TokenLoader:
         order = np.arange(self.tokens.shape[0])
         if self.shuffle:
             np.random.RandomState((self.seed, self.epoch)).shuffle(order)
-        per_proc = self.global_batch_size // self.process_count
-        lo = self.process_index * per_proc
         for step in range(start_step, len(self)):
             sel = order[step * self.global_batch_size:
                         (step + 1) * self.global_batch_size]
-            yield {"tokens": self.tokens[sel[lo:lo + per_proc]]}
+            rows = process_rows(sel, self.process_index, self.process_count,
+                                self.microbatches)
+            yield {"tokens": self.tokens[rows]}

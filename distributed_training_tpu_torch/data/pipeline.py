@@ -28,10 +28,38 @@ from distributed_training_tpu_torch.data.synthetic import synthetic_imagenet
 from distributed_training_tpu_torch.runtime.coordinator import Coordinator
 
 
+def check_microbatches(global_batch_size: int, process_count: int,
+                       microbatches: int) -> None:
+    """The global batch must split into ``microbatches`` blocks of equal
+    shares for every process."""
+    if microbatches > 1 and global_batch_size % (microbatches * process_count):
+        raise ValueError(
+            f"global batch {global_batch_size} not divisible into "
+            f"{microbatches} microbatches over {process_count} processes")
+
+
+def process_rows(rows: np.ndarray, index: int, count: int,
+                 microbatches: int = 1, local: int | None = None) -> np.ndarray:
+    """Process ``index``'s share of one global batch's ``rows`` (of
+    ``count`` processes). With ``microbatches`` A the global batch is A
+    contiguous blocks, JAX's gradient-accumulation microbatches (the
+    GSPMD step's ``microbatches``: ``[G] → [A, G/A]`` with the data axis
+    on dim 1), and the process takes its contiguous ``1/count`` of each
+    block in turn, so that chunk *m* of its rows is its data shard of
+    JAX's microbatch *m*; at A = 1 (or one process) its contiguous slice
+    of the whole batch, ``local`` rows (default ``len(rows) / count``; a
+    ragged last batch leaves the last processes fewer)."""
+    if microbatches > 1 and count > 1:
+        return rows.reshape(microbatches, count, -1)[:, index].reshape(-1)
+    n = len(rows) // count if local is None else local
+    return rows[index * n:(index + 1) * n]
+
+
 class ShardedBatchIndexer:
     """One global permutation per (seed, epoch), the same on every
     process; each process takes its contiguous slice of every global
-    batch."""
+    batch, or with ``microbatches`` A > 1 its slice of each of the A
+    contiguous blocks of the global batch (:func:`process_rows`)."""
 
     def __init__(
         self,
@@ -44,6 +72,7 @@ class ShardedBatchIndexer:
         process_index: int = 0,
         process_count: int = 1,
         max_steps: int | None = None,
+        microbatches: int = 1,
     ):
         self.num_examples = num_examples
         self.global_batch_size = global_batch_size
@@ -59,6 +88,8 @@ class ShardedBatchIndexer:
                 f"{process_count} processes")
         self.local_batch_size = global_batch_size // process_count
         self.max_steps = max_steps
+        check_microbatches(global_batch_size, process_count, microbatches)
+        self.microbatches = microbatches
 
     def set_epoch(self, epoch: int) -> None:
         """Reseed the shuffle (``sampler.set_epoch`` parity)."""
@@ -81,8 +112,9 @@ class ShardedBatchIndexer:
         for i in range(start_step, len(self)):
             gstart = i * self.global_batch_size
             gidx = order[gstart:gstart + self.global_batch_size]
-            lstart = self.process_index * self.local_batch_size
-            lidx = gidx[lstart:lstart + self.local_batch_size]
+            lidx = process_rows(gidx, self.process_index, self.process_count,
+                                self.microbatches if len(gidx) == self.global_batch_size
+                                else 1, self.local_batch_size)
             yield lidx, self.local_batch_size - len(lidx)
 
 
@@ -107,11 +139,13 @@ class ShardedDataLoader(ShardedBatchIndexer):
         process_index: int = 0,
         process_count: int = 1,
         max_steps: int | None = None,
+        microbatches: int = 1,
     ):
         super().__init__(
             len(labels), global_batch_size=global_batch_size, shuffle=shuffle,
             drop_last=drop_last, seed=seed, process_index=process_index,
-            process_count=process_count, max_steps=max_steps)
+            process_count=process_count, max_steps=max_steps,
+            microbatches=microbatches)
         self.images = images
         self.labels = labels
         self.augment = augment
@@ -186,7 +220,8 @@ def build_dataloaders(cfg, *, seed: int = 0,
                       global_batch_size: int | None = None,
                       eval_global_batch_size: int | None = None,
                       process_index: int | None = None,
-                      process_count: int | None = None):
+                      process_count: int | None = None,
+                      microbatches: int = 1):
     """Build ``(train_loader, eval_loader)`` for one process.
 
     ``global_batch_size`` / ``eval_global_batch_size`` override the config
@@ -194,7 +229,9 @@ def build_dataloaders(cfg, *, seed: int = 0,
     accumulation scales only the train loader). ``process_index`` and
     ``process_count`` default to this process's rank and the world size
     of the default process group (0 and 1 without one): each process
-    loads its own contiguous slice of every global batch.
+    loads its own contiguous slice of every global batch, or with
+    ``microbatches`` > 1 (the train loader only) its slice of each
+    gradient-accumulation microbatch in JAX's order (:func:`process_rows`).
     """
     coord = Coordinator()
     if process_index is None or process_count is None:
@@ -204,7 +241,8 @@ def build_dataloaders(cfg, *, seed: int = 0,
     eval_bs = eval_global_batch_size or global_bs
     shard = dict(process_index=process_index, process_count=process_count)
     if data.dataset == "imagefolder":
-        return _imagefolder_loaders(data, coord, seed, global_bs, eval_bs, shard)
+        return _imagefolder_loaders(data, coord, seed, global_bs, eval_bs, shard,
+                                    microbatches)
     if data.dataset == "cifar10":
         tr = cifar10.load_cifar10(data.data_path, train=True,
                                   synthetic_ok=data.synthetic_ok)
@@ -226,7 +264,7 @@ def build_dataloaders(cfg, *, seed: int = 0,
         train_x, train_y, global_batch_size=global_bs, shuffle=True,
         drop_last=data.drop_last, augment=data.augment, train=True, seed=seed,
         process_index=process_index, process_count=process_count,
-        max_steps=data.max_steps_per_epoch)
+        max_steps=data.max_steps_per_epoch, microbatches=microbatches)
     eval_loader = ShardedDataLoader(
         eval_x, eval_y, global_batch_size=eval_bs, shuffle=False,
         drop_last=False, augment=data.augment, train=False, seed=seed,
@@ -235,7 +273,7 @@ def build_dataloaders(cfg, *, seed: int = 0,
 
 
 def _imagefolder_loaders(data, coord: Coordinator, seed: int, global_bs: int,
-                         eval_bs: int, shard: dict):
+                         eval_bs: int, shard: dict, microbatches: int = 1):
     """``root/train`` and ``root/val`` class trees (torchvision's layout),
     decoded a batch at a time on threads or, with ``data.decoded_cache``,
     decoded once into ``root/.decoded_cache/{train,val}_<size>`` (rank 0
@@ -261,7 +299,8 @@ def _imagefolder_loaders(data, coord: Coordinator, seed: int, global_bs: int,
                       num_workers=data.num_workers, augment=data.augment, **shard)
         return (ImageFolderLoader(tr_paths, tr_labels, global_batch_size=global_bs,
                                   shuffle=True, drop_last=data.drop_last, train=True,
-                                  max_steps=data.max_steps_per_epoch, **common),
+                                  max_steps=data.max_steps_per_epoch,
+                                  microbatches=microbatches, **common),
                 ImageFolderLoader(ev_paths, ev_labels, global_batch_size=eval_bs,
                                   shuffle=False, drop_last=False, train=False, **common))
     from distributed_training_tpu_torch.data.decoded_cache import (
@@ -281,6 +320,7 @@ def _imagefolder_loaders(data, coord: Coordinator, seed: int, global_bs: int,
                   num_workers=data.num_workers, **shard)
     return (DecodedCacheLoader(caches["train"], global_batch_size=global_bs, shuffle=True,
                                drop_last=data.drop_last, train=True,
-                               max_steps=data.max_steps_per_epoch, **cached),
+                               max_steps=data.max_steps_per_epoch,
+                               microbatches=microbatches, **cached),
             DecodedCacheLoader(caches["val"], global_batch_size=eval_bs, shuffle=False,
                                drop_last=False, train=False, **cached))

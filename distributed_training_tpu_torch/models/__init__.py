@@ -1,9 +1,6 @@
 """Model registry: name → ``nn.Module`` factory (the ResNet family,
-``moe_mlp`` and ``transformer_lm``).
-
-The JAX package's ``vit_b16`` is not ported yet and raises
-``NotImplementedError``.
-"""
+``moe_mlp``, ``transformer_lm`` and ``vit_b16``), the JAX package's
+registry."""
 
 from __future__ import annotations
 
@@ -14,12 +11,13 @@ import torch
 from distributed_training_tpu_torch.models.gpt import make_transformer_lm
 from distributed_training_tpu_torch.models.moe import make_moe_classifier
 from distributed_training_tpu_torch.models.resnet import STAGE_SIZES, make_resnet
+from distributed_training_tpu_torch.models.vit import make_vit
 
-NOT_PORTED = ("vit_b16",)
+NOT_PORTED: tuple[str, ...] = ()
 
 
 def available_models() -> list[str]:
-    return sorted([*STAGE_SIZES, "moe_mlp", "transformer_lm"])
+    return sorted([*STAGE_SIZES, "moe_mlp", "transformer_lm", "vit_b16"])
 
 
 def get_model(
@@ -31,8 +29,8 @@ def get_model(
     **kwargs: Any,
 ):
     """Instantiate a model by name (``kwargs`` go to :class:`ResNet`, e.g.
-    ``stem`` or ``generator``, to ``make_moe_classifier`` or to
-    ``make_transformer_lm``). ``axis_name`` is the JAX registry's SyncBN
+    ``stem`` or ``generator``, to ``make_moe_classifier``,
+    ``make_transformer_lm`` or ``make_vit``). ``axis_name`` is the JAX registry's SyncBN
     slot: the port's BatchNorm takes its group from
     ``resnet.set_batchnorm_group``, so a name here raises."""
     if name in NOT_PORTED:
@@ -40,6 +38,9 @@ def get_model(
     if name == "transformer_lm":
         return make_transformer_lm(num_classes=num_classes, dtype=dtype,
                                    axis_name=axis_name, **kwargs)
+    if name == "vit_b16":
+        return make_vit(num_classes=num_classes, dtype=dtype, axis_name=axis_name,
+                        **kwargs)
     if name == "moe_mlp":
         return make_moe_classifier(num_classes=num_classes, dtype=dtype,
                                    axis_name=axis_name, **kwargs)

@@ -58,10 +58,11 @@ follow the Flax initialisers' distributions from a ``torch.Generator``
   summed, weighted load-balancing loss beside the logits or hidden states
   (Flax sows it into the ``aux_loss`` collection). Under data and expert
   parallelism the layers run over the mesh's groups once
-  ``moe.shard_experts_`` has set them.
+  ``moe.shard_experts_`` has set them (under a sequence axis each shard
+  gates its own tokens; under tensor parallelism every model rank runs
+  the layer whole).
 
-Not ported: the KV-cache decode path, and MoE under the sequence and
-tensor strategies.
+Not ported: the KV-cache decode path.
 """
 
 from __future__ import annotations
@@ -161,14 +162,23 @@ class MlpBlock(nn.Module):
         return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
 
 
-def dropout(x: torch.Tensor, rate: float,
-            generator: torch.Generator | None) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None,
+            shape=None, tp=None) -> torch.Tensor:
     """Flax ``nn.Dropout`` in training: keep each value with probability
     ``1 − rate`` (uniform draws from ``generator`` at or above ``rate``),
-    divided by that probability; the rest 0."""
+    divided by that probability; the rest 0. ``shape`` broadcasts one mask
+    (default ``x``'s shape); ``tp`` (a column-parallel output) draws the
+    whole layer's mask and keeps this model rank's columns, so every
+    layout draws the masks of model 1."""
     if not rate:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    shape = tuple(x.shape) if shape is None else tuple(shape)
+    if tp is not None:
+        shape = (*shape[:-1], shape[-1] * tp.size)
+    keep = torch.rand(shape, generator=generator, device=x.device) >= rate
+    if tp is not None:
+        n = shape[-1] // tp.size
+        keep = keep[..., tp.index * n:(tp.index + 1) * n]
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
                                                            device=x.device))
 
@@ -362,16 +372,12 @@ def make_transformer_lm(*, num_classes: int = 256,
     ``runtime.mesh.Mesh`` that binds ``seq_axis``). ``num_classes`` is the
     vocabulary size; ``axis_name`` (the registry's SyncBN slot) is unused.
     The JAX ``moe_expert_axis`` has no counterpart: the expert axis comes
-    from the mesh (``moe.shard_experts_``). MoE under ``seq_axis`` raises
-    ``NotImplementedError``."""
+    from the mesh (``moe.shard_experts_``), and so does the gate's scope
+    under ``seq_axis`` (local to each shard, as in JAX)."""
     del axis_name
     moe = dict(top_k=moe_top_k, capacity_factor=moe_capacity_factor,
                min_capacity=moe_min_capacity, noisy_gate_policy=moe_noisy_gate_policy,
                mlp_type=moe_mlp_type)
-    if seq_axis is not None and moe_layer_experts(num_layers, moe_every, moe_num_experts):
-        raise NotImplementedError(
-            "not ported yet (see ROADMAP.md): MoE with a sequence axis (the "
-            "global token order interleaves the ranks within each row)")
     return TransformerLM(
         num_classes, num_layers=num_layers, num_heads=num_heads,
         hidden_dim=hidden_dim, mlp_ratio=mlp_ratio, max_len=max_len,

@@ -29,15 +29,25 @@ the experts. This port computes the same function from each token's
 
 **Across ranks** (:class:`MoEContext`, set by :func:`shard_experts_`):
 
-- *The gate is global over the data group.* JAX shards the batch over
-  ``data`` and gates under GSPMD over the global token order. Here each
-  rank gates its own tokens, and each round all-gathers the ``[D, E]``
-  per-expert counts of the data group: a rank's slots start after every
-  token of the lower data ranks, the capacity comes from the global token
-  count, and the occupancy after a round is the global kept count. The
-  aux loss uses the global ``load`` and the rank's own ``importance``
-  over its own tokens, so the data group's mean of the ranks' losses and
-  gradients is the global loss and gradient.
+- *The gate's scope is JAX's.* Under the GSPMD steps (data, model and
+  expert axes) JAX shards the batch over ``data`` and gates over the
+  global token order; here each rank gates its own tokens, and each
+  round all-gathers the ``[D, E]`` per-expert counts of the data group: a
+  rank's slots start after every token of the lower data ranks, the
+  capacity comes from the global token count, and the occupancy after a
+  round is the global kept count. The aux loss uses the global ``load``
+  and the rank's own ``importance`` over its own tokens, so the data
+  group's mean of the ranks' losses and gradients is the global loss and
+  gradient. Under a ``sequence`` axis JAX's step is a shard_map manual
+  over ``(data, sequence)`` and the layer holds no collective over
+  either, so each shard gates its own ``[B/D · T/S]`` tokens in row-major
+  order: the context has no data group there (the capacity, the load and
+  the aux loss come from the shard's own counts).
+- *The model axis replicates the layer.* The rule table shards only the
+  expert leaves, and over ``expert``: under ``model`` > 1 every model
+  rank routes the same replicated tokens through the same weights, and
+  the output joins the residual stream unsummed, so each replicated
+  leaf's gradient is whole on each model rank.
 - *The expert group replicates the tokens* and shards the experts on E
   (JAX ``tensor_parallel.py`` expert rows). Each expert rank dispatches
   to its own ``E / ep`` experts, combines a partial output and the partial
@@ -79,9 +89,10 @@ JITTER_EPS = 1e-2
 @dataclasses.dataclass(frozen=True)
 class MoEContext:
     """One rank's view of the groups the MoE layers run over: the data
-    group whose ranks hold the other tokens of the global batch (the
-    gate's counts; None alone) with this rank's index and its size, and
-    the expert-parallel context (None at expert 1)."""
+    group whose ranks hold the other tokens of the gate's batch (its
+    counts; None when the gate is this rank's alone) with this rank's
+    index and its size, and the expert-parallel context (None at expert
+    1)."""
 
     data: object
     data_index: int
@@ -90,11 +101,16 @@ class MoEContext:
 
     @classmethod
     def from_mesh(cls, mesh) -> "MoEContext | None":
-        """The context on ``mesh``; None when data and expert are both 1."""
+        """The context on ``mesh``: the gate global over the data group,
+        or local to each (data, sequence) shard when the mesh has a
+        sequence axis (see the module docstring); None when nothing
+        spans ranks."""
         if mesh is None:
             return None
         ep = ExpertParallel.from_mesh(mesh)
         d = mesh.size(AXIS_DATA)
+        if mesh.size(AXIS_SEQUENCE) > 1:  # each shard gates its own tokens
+            return cls(None, 0, 1, ep) if ep is not None else None
         if d == 1 and ep is None:
             return None
         return cls(mesh.group(AXIS_DATA, AXIS_SEQUENCE) if d > 1 else None,

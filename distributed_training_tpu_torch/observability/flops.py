@@ -117,16 +117,32 @@ def resnet_forward_flops(stage_sizes, bottleneck: bool, *, image_size: int,
     return batch * fl
 
 
+def vit_forward_flops(*, image_size: int, patch_size: int, hidden_size: int,
+                      num_layers: int, mlp_dim: int, num_classes: int,
+                      batch: int = 1) -> int:
+    """ViT forward FLOPs (JAX ``vit_forward_flops``): the patch-embed conv,
+    the encoder blocks over ``(image/patch)² + 1`` tokens (the class
+    token), and the head on the class token's row."""
+    n = (image_size // patch_size) ** 2
+    t, d = n + 1, hidden_size
+    fl = 2 * n * patch_size * patch_size * 3 * d
+    fl += num_layers * (8 * t * d * d + 4 * t * t * d + 4 * t * d * mlp_dim)
+    fl += 2 * d * num_classes
+    return batch * fl
+
+
 def forward_flops(model: Any, *, image_size: int | None = None,
                   seq_len: int | None = None, batch: int = 1) -> int | None:
     """Forward FLOPs of a model instance, from the dims it was built with
     (``TransformerLM``: vocab, width, depth, MLP ratio; ``ResNet``: stage
-    sizes, block kind, filters, stem, classes). None for a model without
+    sizes, block kind, filters, stem, classes; ``ViT``: patch, width,
+    depth, MLP width, classes). None for a model without
     a formula, and for an LM with MoE layers, as in JAX: the routed FLOPs
     depend on the capacity and the dispatch, and a wrong static guess is
     worse than no MFU."""
     from distributed_training_tpu_torch.models.gpt import TransformerLM
     from distributed_training_tpu_torch.models.resnet import BottleneckBlock, ResNet
+    from distributed_training_tpu_torch.models.vit import ViT
 
     if isinstance(model, TransformerLM):
         experts = model.moe_num_experts
@@ -139,9 +155,14 @@ def forward_flops(model: Any, *, image_size: int | None = None,
             num_layers=model.num_layers, hidden_dim=model.hidden_dim,
             seq_len=seq_len, vocab_size=model.vocab_size,
             mlp_ratio=model.mlp_ratio, batch=batch)
+    if isinstance(model, (ResNet, ViT)) and image_size is None:
+        raise ValueError("forward_flops for an image model needs image_size=")
+    if isinstance(model, ViT):
+        return vit_forward_flops(
+            image_size=image_size, patch_size=model.patch_size,
+            hidden_size=model.hidden_size, num_layers=model.num_layers,
+            mlp_dim=model.mlp_dim, num_classes=model.num_classes, batch=batch)
     if isinstance(model, ResNet):
-        if image_size is None:
-            raise ValueError("forward_flops for an image model needs image_size=")
         return resnet_forward_flops(
             model.stage_sizes, model.block_cls is BottleneckBlock,
             image_size=image_size, num_classes=model.num_classes,

@@ -55,13 +55,18 @@ from distributed_training_tpu_torch.runtime.mesh import AXIS_EXPERT, AXIS_MODEL
 
 # (path regex, spec) — first match wins; matched against the "/"-joined
 # Flax path. A spec lists each dim's mesh axis (None: not sharded); ()
-# is replicated. The JAX table's GPT and expert rows; its ViT rows wait
-# for that model.
+# is replicated. The JAX table's GPT, ViT and expert rows.
 LM_TP_RULES: tuple[tuple[str, tuple], ...] = (
     (r"attn/qkv/kernel$", (None, None, AXIS_MODEL, None)),
     (r"attn/qkv/bias$", (None, AXIS_MODEL, None)),
     (r"attn/out/kernel$", (AXIS_MODEL, None, None)),
     (r"attn/out/bias$", ()),
+    # ViT blocks: q/k/v [d, H, hd] shard heads (column-parallel); attn/out
+    # is the row-parallel rule above; the classifier head shards classes.
+    (r"attn/(?:query|key|value)/kernel$", (None, AXIS_MODEL, None)),
+    (r"attn/(?:query|key|value)/bias$", (AXIS_MODEL, None)),
+    (r"(?:^|/)head/kernel$", (None, AXIS_MODEL)),
+    (r"(?:^|/)head/bias$", (AXIS_MODEL,)),
     (r"fc1/kernel$", (None, AXIS_MODEL)),
     (r"fc1/bias$", (AXIS_MODEL,)),
     (r"fc2/kernel$", (AXIS_MODEL, None)),
@@ -74,11 +79,13 @@ LM_TP_RULES: tuple[tuple[str, tuple], ...] = (
     (r"experts/b[12]$", (AXIS_EXPERT, None, None)),
 )
 
-# Vocab-parallel params that the ring-overlapped schedule keeps replicated
-# over the model axis (the head consumes the local time shard directly).
+# Vocab- and class-parallel params that the ring-overlapped schedules keep
+# replicated over the model axis (the LM head consumes the local time
+# shard directly; ViT's activations stay replicated).
 _OVERLAP_REPLICATED = (
     r"lm_head/(?:kernel|bias)$",
     r"tok_embed/embedding$",
+    r"(?:^|/)head/(?:kernel|bias)$",
 )
 
 
@@ -198,6 +205,28 @@ class _ReduceFromModel(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    """A column-parallel output all-gathered over its last dim; the
+    backward keeps this rank's columns of the (replicated) gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group, index):
+        ctx.index, ctx.n = index, x.shape[-1]
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, x, group=group)
+        return torch.cat(parts, -1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[..., ctx.index * ctx.n:(ctx.index + 1) * ctx.n], None, None
+
+
+def gather_from_model(x: torch.Tensor, tp: TensorParallel | None) -> torch.Tensor:
+    """The whole last dim of a column-parallel output on every model rank."""
+    return x if tp is None else _GatherFromModel.apply(x, tp.group, tp.index)
 
 
 def copy_to_model(x: torch.Tensor, tp: TensorParallel | None) -> torch.Tensor:

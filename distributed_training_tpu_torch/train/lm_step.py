@@ -50,7 +50,12 @@ was built with), as the JAX trainer's follows from the mesh:
   match, completes the gradients with ``overlap_finalize_grads`` and
   averages the metrics over ``model`` too.
 
-Gradient accumulation runs shard-locally in every strategy. Dropout masks
+Gradient accumulation cuts the rank's batch into contiguous microbatches
+in every strategy; where JAX accumulates under GSPMD (tensor/dp without
+``tp_overlap``) the LM trainer's loader orders each rank's rows so that
+microbatch *m* is its share of JAX's (``data/pipeline.py::process_rows``),
+and the sequence and overlap strategies keep the shard-local order of
+JAX's shard_map steps. Dropout masks
 come from a generator seeded by the run's seed, the step and the shard
 (the JAX step's ``fold_in`` of ``sequence × data``, and ``model`` under
 ``tp_overlap``; model ranks of the plain TP step draw the same masks).
@@ -60,7 +65,10 @@ load-balancing loss (the model's ``return_aux``), on every CE path; the
 metrics report ``loss`` (the objective), ``aux_loss`` and ``perplexity``
 ``exp(CE)`` apart, as JAX's ``_lm_metrics`` does. Under data and expert
 parallelism the gate counts over the data group (``models/moe.py``), so the
-data group's mean of the ranks' losses is the global batch's.
+data group's mean of the ranks' losses is the global batch's; under the
+sequence strategy each shard gates its own tokens and its aux loss is
+averaged with the CE over ``data × sequence``, as in JAX's step; under
+tensor parallelism every model rank computes the MoE layers whole.
 
 Not ported: the pipeline step.
 """

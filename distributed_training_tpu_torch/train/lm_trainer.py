@@ -19,15 +19,26 @@ The strategy follows from the mesh (``cfg.mesh`` over the world size,
 - ``model > 1`` composes with either (TP×SP), and ``tp_overlap`` swaps
   the ring-overlapped collective matmuls in (``parallel/collective_matmul.py``);
   at ``model == 1`` it runs the plain step, as in JAX;
-- MoE (``cfg.moe.enabled``, ``models/moe.py``) runs under the tensor/dp
-  strategy at ``model == 1``: the gate is global over the data group, and
-  an ``expert`` axis shards every MoE layer's experts over its ranks, which
-  hold the same rows (ZeRO partitions over the data group only, JAX's
-  ``moe_param_group``).
+- MoE (``cfg.moe.enabled``, ``models/moe.py``) runs under every strategy
+  but the pipeline, with the gate scoped as JAX scopes it: global over the
+  data group under tensor/dp (the GSPMD step), local to each (data,
+  sequence) shard under the sequence strategy (JAX's shard_map is manual
+  over both axes). An ``expert`` axis shards every MoE layer's experts
+  over its ranks, which hold the same rows (ZeRO partitions over the data
+  group only, JAX's ``moe_param_group``); under ``model > 1`` every model
+  rank computes the MoE FFN whole, as GSPMD does with leaves the rule
+  table leaves unsharded over ``model``. ``tp_overlap`` with MoE raises
+  JAX's ``NotImplementedError``.
+- Gradient accumulation: where JAX accumulates under GSPMD (tensor/dp
+  without ``tp_overlap``) microbatch *m* is a contiguous block of the
+  global batch, split over the data ranks, and the loaders give each rank
+  its shares of the blocks in order (``data/pipeline.py::process_rows``);
+  the sequence strategy and ``tp_overlap`` accumulate shard-locally, as
+  JAX's shard_map steps do.
 
 The configuration checks are the JAX trainer's, with its messages. The
-pipeline (``pipe > 1``), the ``fsdp`` axis and MoE with a ``sequence``,
-``model`` or ``pipe`` axis raise ``NotImplementedError``.
+pipeline (``pipe > 1``) and the ``fsdp`` axis raise
+``NotImplementedError``.
 
 It runs on the card unless ``device="cpu"`` is passed, and raises when
 there is no card and no such request. With ``cfg.lm.attn_impl="flash"``
@@ -96,11 +107,8 @@ from distributed_training_tpu_torch.utils.device import set_fp32_math
 
 def unported_lm_fields(cfg: TrainConfig) -> dict[str, bool]:
     """The fields the LM trainer lacks, each with whether ``cfg`` sets it."""
-    moe = cfg.moe.enabled
     return {
         "mesh axes fsdp and pipe": any(getattr(cfg.mesh, a) != 1 for a in ("fsdp", "pipe")),
-        "moe.enabled with a sequence axis": moe and cfg.mesh.sequence != 1,
-        "moe.enabled with a model axis": moe and cfg.mesh.model != 1,
     }
 
 
@@ -216,6 +224,9 @@ class LMTrainer(Engine):
         self.ep = ExpertParallel.from_mesh(self.mesh)
         shard_model_(self.model, self.tp)
         shard_experts_(self.model, MoEContext.from_mesh(self.mesh) if moe.enabled else None)
+        # JAX's microbatch order where it accumulates under GSPMD; the
+        # shard_map steps (sequence, tp_overlap) accumulate shard-locally.
+        self.global_microbatches = seq == 1 and not (cfg.tp_overlap and model_par > 1)
         self.model.to(self.device)
         self.train_gbs, self.eval_gbs, self.grad_accum = effective_batch_sizes(
             cfg, self.world_size)
@@ -270,11 +281,13 @@ class LMTrainer(Engine):
             evals = synthetic_tokens(lm.eval_sequences, lm.seq_len,
                                      lm.vocab_size, seed=seed + 1)
         # Train consumes effective batches; eval stays micro-sized. Each
-        # data shard reads its contiguous slice of every global batch.
+        # data shard reads its contiguous slice of every global batch, or
+        # of every microbatch of it (see the module docstring).
         shard = dict(process_index=self.mesh.index(AXIS_DATA),
                      process_count=self.mesh.size(AXIS_DATA))
+        micro = self.grad_accum if self.global_microbatches else 1
         return (TokenLoader(train, global_batch_size=self.train_gbs,
-                            shuffle=True, seed=seed,
+                            shuffle=True, seed=seed, microbatches=micro,
                             max_steps=self.cfg.data.max_steps_per_epoch, **shard),
                 TokenLoader(evals, global_batch_size=self.eval_gbs,
                             shuffle=False, seed=seed, **shard))

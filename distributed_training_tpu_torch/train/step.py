@@ -34,6 +34,20 @@ Under an expert axis the state's ``zero`` group is the data group; the
 expert ranks of one data rank hold the same rows and compute the same
 loss.
 
+Tensor parallelism (a ``vit_*`` model that ``shard_model_`` cut over the
+``model`` axis, its ``tp``): the megatron collectives are the model's, so
+every model rank computes the same loss and holds whole gradients of the
+replicated leaves, and the step is the same; the state's ``zero`` group
+is the data group. Under ``tp_overlap`` (JAX ``_overlap_tp_grads_body``)
+the step completes the gradients with ``overlap_finalize_grads`` before
+the exchange over the data group; BatchNorm models are refused there, as
+in JAX. Dropout masks come from the step's generator, seeded by the data
+rank: the same on every model rank, their own on each data rank.
+
+Gradient accumulation cuts the rank's batch into contiguous chunks; the
+trainers' loaders order the rows so that chunk *m* is this rank's share
+of JAX's microbatch *m* where JAX accumulates under GSPMD.
+
 Batches are dicts of tensors with NHWC ``image``, as in the JAX package.
 """
 
@@ -46,6 +60,10 @@ import torch
 import torch.nn.functional as F
 
 from distributed_training_tpu_torch.models.moe import MoEImageClassifier
+from distributed_training_tpu_torch.models.vit import ViT
+from distributed_training_tpu_torch.parallel.collective_matmul import (
+    overlap_finalize_grads,
+)
 from distributed_training_tpu_torch.train.precision import commit_gradients
 from distributed_training_tpu_torch.train.train_state import TrainState
 
@@ -73,10 +91,12 @@ def _accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 def forward_with_aux(model: torch.nn.Module, x: torch.Tensor,
                      generator: torch.Generator | None = None):
-    """``(logits, aux)``: the MoE models' load-balancing loss, or 0."""
+    """``(logits, aux)``: the MoE models' load-balancing loss, or 0 (ViT's
+    dropout draws from ``generator``)."""
     if isinstance(model, MoEImageClassifier):
         return model(x, generator=generator, return_aux=True)
-    return model(x), torch.zeros((), dtype=torch.float32, device=x.device)
+    logits = model(x, generator=generator) if isinstance(model, ViT) else model(x)
+    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def dropout_generator(model: torch.nn.Module, seed: int, step: int, rank: int,
@@ -119,6 +139,13 @@ def make_train_step(*, zero_stage: int = 0, grad_accum_steps: int = 1,
             raise ValueError(f"the step was built for zero stage {zero_stage}, "
                              f"the state is partitioned for {zero.stage}")
         model = state.model
+        tp = getattr(model, "tp", None)
+        overlap = tp if tp is not None and tp.overlap else None
+        if overlap is not None and any(True for _ in model.buffers()):
+            raise NotImplementedError(
+                "tp_overlap image step supports BatchNorm-free models only "
+                "(ViT); BN statistics under a manual model axis are not "
+                "wired — use the declarative TP schedule")
         model.train()
         images = _input_images(batch, input_affine)
         labels = batch["label"].long()
@@ -146,6 +173,9 @@ def make_train_step(*, zero_stage: int = 0, grad_accum_steps: int = 1,
             p.grad = None
         if grad_accum_steps > 1:
             grads = [g / grad_accum_steps for g in grads]
+        if overlap is not None:
+            done = overlap_finalize_grads(dict(zip(names, grads)), overlap)
+            grads = [done[n] for n in names]
         if zero.partitions_grads:
             grads = zero.reduce_scatter_mean(grads)
             state.release_params()

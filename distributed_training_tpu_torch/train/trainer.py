@@ -48,6 +48,21 @@ over the data group, the batch is ``batch_size`` a rank over every rank
 (the JAX Trainer's per-chip rule) split over the data axis, and ZeRO runs
 over the data group. ``moe.enabled`` on another model raises, as in JAX.
 
+The ``vit_*`` models (``models/vit.py``) take a ``model`` axis: megatron
+tensor parallelism by the rule table (``parallel/tensor_parallel.py``),
+the batch split over the data axis only, ZeRO over the data group, and
+with ``tp_overlap`` the ring-overlapped schedule of JAX's
+``replicated_overlap_interceptor`` (at ``model == 1`` the plain step, as
+in JAX). A ``model`` axis on another model raises JAX's
+``NotImplementedError``.
+
+Gradient accumulation follows the JAX step that runs: under its GSPMD
+step (SyncBN, BN-free models, plain TP) microbatch *m* is a contiguous
+block of the global batch split over the data ranks, and the loaders give
+each rank its shares of the blocks in order
+(``data/pipeline.py::process_rows``); the local-BN step and
+``tp_overlap`` accumulate shard-locally, as JAX's shard_map steps do.
+
 The image Trainer adds precise-BN (``eval_precise_bn_batches``): before
 an eval that reads the live BatchNorm statistics, they are re-estimated
 from that many training batches with the current weights, as the mean of
@@ -82,7 +97,11 @@ from distributed_training_tpu_torch.models.resnet import (
     BatchNorm,
     set_batchnorm_group,
 )
-from distributed_training_tpu_torch.parallel.tensor_parallel import ExpertParallel
+from distributed_training_tpu_torch.parallel.tensor_parallel import (
+    ExpertParallel,
+    TensorParallel,
+    shard_model_,
+)
 from distributed_training_tpu_torch.parallel.zero import Zero
 from distributed_training_tpu_torch.resilience.async_ckpt import AsyncCheckpointWriter
 from distributed_training_tpu_torch.runtime.coordinator import Coordinator
@@ -90,7 +109,12 @@ from distributed_training_tpu_torch.runtime.distributed import (
     initialize_distributed,
     local_device,
 )
-from distributed_training_tpu_torch.runtime.mesh import AXIS_DATA, AXIS_SEQUENCE, Mesh
+from distributed_training_tpu_torch.runtime.mesh import (
+    AXIS_DATA,
+    AXIS_MODEL,
+    AXIS_SEQUENCE,
+    Mesh,
+)
 from distributed_training_tpu_torch.runtime.preemption import PreemptionGuard
 from distributed_training_tpu_torch.train.optim import make_optimizer
 from distributed_training_tpu_torch.train.precision import LossScaleState, Policy
@@ -110,11 +134,32 @@ def unported_fields(cfg: TrainConfig) -> dict[str, bool]:
     mesh = cfg.mesh
     moe = cfg.model.startswith("moe")
     return {
-        "mesh axes other than data": any(
-            getattr(mesh, a) != 1 for a in ("fsdp", "model", "sequence", "pipe")),
+        "mesh axes other than data, model and expert (fsdp, sequence, pipe)": any(
+            getattr(mesh, a) != 1 for a in ("fsdp", "sequence", "pipe")),
         "an expert axis on a model without MoE layers": mesh.expert != 1 and not moe,
-        "tp_overlap": cfg.tp_overlap,
     }
+
+
+def check_tp_model(cfg: TrainConfig, model, tp_size: int) -> None:
+    """The JAX Trainer's checks of a ``model`` axis: only the ``vit_*``
+    models have rules in the table, and their sharded dims must divide
+    (``hidden_size`` under ``tp_overlap``, whose rings scatter it, else the
+    class-parallel head's ``num_classes``), with its messages."""
+    if tp_size <= 1:
+        return
+    if not cfg.model.startswith("vit"):
+        raise NotImplementedError(
+            f"a model mesh axis of {tp_size} is only wired for "
+            f"the vit_* models (parallel/tensor_parallel.py rule "
+            f"table); {cfg.model!r} would replicate over it")
+    checks = [("num_heads", model.num_heads), ("mlp_dim", model.mlp_dim)]
+    checks.append(("hidden_size", model.hidden_size) if cfg.tp_overlap
+                  else ("num_classes", cfg.data.num_classes))
+    for what, n in checks:
+        if n % tp_size:
+            raise ValueError(
+                f"tensor parallelism size {tp_size} must "
+                f"divide {what} (= {n})")
 
 
 def refuse_unported(unported: dict[str, bool]) -> None:
@@ -344,9 +389,17 @@ class Trainer(Engine):
         policy = Policy.from_config(cfg.precision)
         gen = torch.Generator().manual_seed(cfg.seed)
         # This rank's slice of each global batch: its data shard's.
-        self.mesh, ep = None, None
+        self.mesh, ep, self.tp = None, None, None
         self._shard = dict(process_index=self.coord.process_index,
                            process_count=self.coord.process_count)
+        if cfg.model.startswith("moe") or cfg.mesh.model != 1:
+            # Ranks that are not all data ranks: the expert axis of the MoE
+            # models, the model axis of ViT (checked below).
+            self.mesh = Mesh(cfg.mesh)
+            group = self.mesh.group(AXIS_DATA, AXIS_SEQUENCE)
+            self._shard = dict(process_index=self.mesh.index(AXIS_DATA),
+                               process_count=self.mesh.size(AXIS_DATA))
+        tp_size = self.mesh.size(AXIS_MODEL) if self.mesh is not None else 1
         if cfg.model.startswith("moe"):
             # The JAX Trainer passes remat only when set (this model has
             # none, so it raises), and the MoE knobs; the expert axis comes
@@ -357,15 +410,20 @@ class Trainer(Engine):
                 min_capacity=cfg.moe.min_capacity,
                 noisy_gate_policy=cfg.moe.noisy_gate_policy,
                 mlp_type=cfg.moe.mlp_type, **({"remat": True} if cfg.remat else {}))
-            self.mesh = Mesh(cfg.mesh)
             ep = ExpertParallel.from_mesh(self.mesh)
-            group = self.mesh.group(AXIS_DATA, AXIS_SEQUENCE)
-            self._shard = dict(process_index=self.mesh.index(AXIS_DATA),
-                               process_count=self.mesh.size(AXIS_DATA))
+        elif cfg.model.startswith("vit"):
+            # pos_embed's length comes from the image size (Flax takes it
+            # from the init input).
+            model_kwargs = dict(image_size=cfg.data.image_size,
+                                **({"remat": True} if cfg.remat else {}))
         else:
             model_kwargs = dict(remat=cfg.remat, remat_policy=remat_policy)
         model = get_model(cfg.model, num_classes=cfg.data.num_classes,
                           dtype=policy.compute_dtype, generator=gen, **model_kwargs)
+        check_tp_model(cfg, model, tp_size)
+        if tp_size > 1:
+            self.tp = TensorParallel.from_mesh(self.mesh, overlap=cfg.tp_overlap)
+            shard_model_(model, self.tp)
         shard_experts_(model, MoEContext.from_mesh(self.mesh))
         self.model = model.to(self.device)
         has_bn = any(isinstance(m, BatchNorm) for m in self.model.modules())
@@ -379,16 +437,20 @@ class Trainer(Engine):
                 "cpu_offload rides the ZeRO optimizer-state partition, which "
                 "the local-BN step does not have")
         set_batchnorm_group(self.model, None if local_bn else group)
-        n_params = param_count(self.model, ep)
+        n_params = param_count(self.model, ep, self.tp)
         self.tx = make_optimizer(cfg.optimizer, cfg.scheduler, self.world_size)
         self.state = TrainState.create(
             self.model, self.tx, LossScaleState.create(cfg.precision),
-            Zero(cfg.zero.stage, group, cfg.zero.cpu_offload, ep=ep))
-        # batch_size is per rank: under a data × expert mesh every rank
-        # adds its batch to the global one, as the JAX Trainer counts chips.
+            Zero(cfg.zero.stage, group, cfg.zero.cpu_offload, tp=self.tp, ep=ep))
+        # batch_size is per rank: under a data × expert (or model) mesh every
+        # rank adds its batch to the global one, as the JAX Trainer counts chips.
         self.train_gbs, self.eval_gbs, self.grad_accum = effective_batch_sizes(
             cfg, self.coord.world_size if self.mesh is not None else self.world_size,
             allow_derive=True)
+        # JAX's microbatch order where it accumulates under GSPMD; the
+        # local-BN and tp_overlap steps accumulate shard-locally.
+        overlap = self.tp is not None and self.tp.overlap
+        self._microbatches = 1 if local_bn or overlap else self.grad_accum
         self.input_affine = input_affine = (
             (2.0 / 255.0, -1.0) if cfg.data.augment == "normalize_only"
             else (1.0 / 255.0, 0.0))
@@ -411,12 +473,14 @@ class Trainer(Engine):
                if group is not None or cfg.zero.stage else "")
             + (f" mesh={ {a: n for a, n in self.mesh.sizes.items() if n > 1} }"
                if self.mesh is not None and self.mesh.world > 1 else "")
+            + (" tp-overlap" if overlap else "")
             + (f" grad_accum={self.grad_accum}" if self.grad_accum > 1 else ""))
 
     def make_loaders(self):
         return build_dataloaders(self.cfg, seed=self.cfg.seed,
                                  global_batch_size=self.train_gbs,
-                                 eval_global_batch_size=self.eval_gbs, **self._shard)
+                                 eval_global_batch_size=self.eval_gbs,
+                                 microbatches=self._microbatches, **self._shard)
 
     def uses_ema(self) -> bool:
         """Eval reads the EMA of the parameters and of the BatchNorm

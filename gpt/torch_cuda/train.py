@@ -20,10 +20,12 @@ this script imports nothing of the JAX package). What works:
   ``--ce-save-probs``, ``--ema-decay``;
 - MoE: ``--moe`` swaps every ``--moe-every``-th FFN for ``--num-experts``
   experts (``--top-k``, ``--min-capacity``, ``--noisy-gate-policy``,
-  ``--mlp-type``), with the gate global over the data ranks, and
-  ``--ep-world-size N`` shards the experts over N ranks that hold the same
-  rows (the rest form the data axis; ZeRO ≥ 1 with N > 1 needs the
-  config's ``moe_param_group``, which this CLI, like JAX's, has no flag for);
+  ``--mlp-type``), with the gate global over the data ranks (local to
+  each shard under ``--sp``, as in JAX), and ``--ep-world-size N`` shards
+  the experts over N ranks that hold the same rows (the rest form the data
+  axis; ZeRO ≥ 1 with N > 1 needs the config's ``moe_param_group``, which
+  this CLI, like JAX's, has no flag for); MoE composes with ``--sp`` and
+  ``--tp``, not with ``--tp-overlap`` (the trainer raises JAX's error);
 - ``-c``, ``-i``, ``-r``, ``--auto-resume`` (SIGTERM saves a step-accurate
   checkpoint that it picks up), ``--log-interval``, ``--steps-per-epoch``,
   ``--seed``, ``--wall-clock-breakdown``, ``--profile-dir``,
@@ -35,7 +37,7 @@ flag when set away from their defaults: ``--pp`` (and beside it
 nothing, as in the JAX trainer), the flight recorder and the other
 observability instruments (``--flight-recorder``, ``--trace``,
 ``--metrics-port``, ``--grad-norm-metric``, ``--anomaly-*``) and the chaos
-flags. MoE with ``--sp`` or ``--tp`` raises in the trainer. ``--flight-recorder`` therefore defaults to off, where the JAX
+flags. ``--flight-recorder`` therefore defaults to off, where the JAX
 CLI's is on.
 
 It runs on the card (``cuda:LOCAL_RANK`` under ``torchrun``) unless

@@ -24,6 +24,8 @@ this script imports nothing of the JAX package):
   ``--min-capacity``, ``--noisy-gate-policy``, ``--mlp-type`` and
   ``--moe-param-group``; ``--ep-world-size N`` shards its experts over N
   ranks of the launcher's group (the rest form the data axis);
+- ``--model`` takes every name of the registry, ``vit_b16`` (ViT-B/16)
+  included, as the JAX CLI's does;
 - the flags of what the port lacks (chaos, the flight recorder and the
   other observability instruments, span traces) raise
   ``NotImplementedError`` naming ROADMAP.md; none is silently ignored. ``--flight-recorder`` therefore defaults to off, where

@@ -192,6 +192,29 @@ def test_unported_flags_raise(flags, monkeypatch):
         bench.main(["--device", "cpu", *flags])
 
 
+@pytest.mark.parametrize("remat", [False, True], ids=["plain", "remat"])
+def test_image_leg_runs_vit_b16(remat, monkeypatch):
+    """``--model vit_b16`` runs the image leg with ViT (with and without
+    ``--remat``, as the root bench does; its ViT cut to patch 8, width 32,
+    one layer here), and counts its FLOPs (``mfu`` needs a peak, none on
+    the CPU)."""
+    from distributed_training_tpu_torch import models
+    from distributed_training_tpu_torch.observability import flops
+
+    get_model = models.get_model
+    monkeypatch.setattr(models, "get_model", lambda name, **kw: get_model(
+        name, **{**kw, "patch_size": 8, "hidden_size": 32, "num_layers": 1,
+                 "num_heads": 2, "mlp_dim": 64}))
+    flags = ["--model", "vit_b16", *(["--remat"] if remat else [])]
+    (line, loss), = bench.main([*TINY[:2], *TINY[4:], "--image", *flags])
+    assert line["metric"].startswith("vit_b16 synthetic-ImageNet")
+    assert (", remat," in line["metric"]) == remat
+    assert line["value"] > 0 and np.isfinite(loss) and line["mfu"] is None
+    per_image = 3 * flops.vit_forward_flops(image_size=32, patch_size=8, hidden_size=32,
+                                            num_layers=1, mlp_dim=64, num_classes=10)
+    assert line["model_flops_per_sec"] / line["value"] == pytest.approx(per_image, rel=1e-2)
+
+
 @pytest.mark.parametrize("flags,tag", [
     (["--remat"], ", remat,"),
     (["--remat-policy", "conv"], ", remat:conv,"),

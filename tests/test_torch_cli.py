@@ -185,6 +185,25 @@ def test_cli_refuses_what_the_port_lacks(argv):
         PORT_CLI.build_config(PORT_CLI.build_parser().parse_args(argv))
 
 
+def test_cli_takes_vit_b16_as_the_jax_cli_does(tmp_path, monkeypatch):
+    """``--model vit_b16`` (refused by the port's registry once) builds the
+    JAX CLI's config and trains through the ``Trainer``: here a ViT cut to
+    patch 8, width 32, one layer, through the registry the Trainer calls."""
+    argv = ["--model", "vit_b16", "--remat", "--dataset", "synthetic_cifar"]
+    _same(JAX_CLI.build_config(_jax_args(argv)),
+          PORT_CLI.build_config(PORT_CLI.build_parser().parse_args(argv)))
+    from distributed_training_tpu_torch.models.vit import ViT
+    from distributed_training_tpu_torch.train import trainer
+
+    get_model = trainer.get_model
+    monkeypatch.setattr(trainer, "get_model", lambda name, **kw: get_model(
+        name, **{**kw, "patch_size": 8, "hidden_size": 32, "num_layers": 1,
+                 "num_heads": 2, "mlp_dim": 64}))
+    out = PORT_CLI.main(["--device", "cpu", *argv, "-b", "4", "-e", "1",
+                         "--steps-per-epoch", "2", "-c", str(tmp_path), "-i", "1"])
+    assert out["steps"] == 2 and 0.0 <= out["final_acc"] <= 1.0
+
+
 def test_cli_trains_through_the_trainer(tmp_path):
     out = PORT_CLI.main([
         "--device", "cpu", "--model", "resnet_micro", "--dataset", "synthetic_cifar",

@@ -142,11 +142,15 @@ def test_unported_options_raise(tmp_path, override):
     as the JAX trainer does, and a sequence or model axis of 2 is a mesh
     one process cannot hold, refused as ``create_mesh`` refuses it. MoE
     and the expert axis are ported too, multi-rank in
-    test_torch_moe_parallel.py: their cases are what stays refused, MoE
-    with a sequence, model or pipe axis (``NotImplementedError`` before
-    any mesh is built), and ZeRO × expert parallelism without
-    ``moe_param_group``, the JAX trainer's ``ValueError``, checked on the
-    mesh sizes since one process cannot hold an expert axis of 2.)"""
+    test_torch_moe_parallel.py, and under the sequence and model axes,
+    multi-rank in test_torch_moe_axes.py: at world 1 MoE with a sequence
+    or model axis of 2 is the mesh one process cannot hold, as for the
+    dense model. What stays refused: MoE with a pipe axis (the pipeline,
+    ``NotImplementedError`` naming ROADMAP.md), ``tp_overlap`` with MoE
+    (the JAX trainer's ``NotImplementedError``, word for word), and ZeRO ×
+    expert parallelism without ``moe_param_group``, the JAX trainer's
+    ``ValueError``, checked on the mesh sizes since one process cannot
+    hold an expert axis of 2.)"""
     cfg = _cfg(tcfg, tmp_path, **override)
     if override == dict(tp_overlap=True):
         t = LMTrainer(cfg, device="cpu")
@@ -159,10 +163,19 @@ def test_unported_options_raise(tmp_path, override):
             check_lm_config(cfg.replace(moe=tcfg.MoEConfig(
                 enabled=True, num_experts=(4,), moe_param_group=True)), 1, 1, expert=2)
             return
-        for axis in ("sequence", "model", "pipe"):
+        for axis in ("sequence", "model"):
             bad = cfg.replace(mesh=tcfg.MeshSpec(**{axis: 2}))
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
+            with pytest.raises(ValueError, match="not divisible by fixed axes product 2"):
                 LMTrainer(bad, device="cpu")
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            LMTrainer(cfg.replace(mesh=tcfg.MeshSpec(pipe=2)), device="cpu")
+        with pytest.raises(NotImplementedError) as info:
+            LMTrainer(cfg.replace(mesh=tcfg.MeshSpec(), tp_overlap=True), device="cpu")
+        with pytest.raises(NotImplementedError) as want:
+            JaxLMTrainer(jcfg.TrainConfig(model="transformer_lm", tp_overlap=True,
+                                          moe=jcfg.MoEConfig(enabled=True)),
+                         mesh=create_mesh(MeshConfig(data=1), devices=jax.devices()[:1]))
+        assert str(info.value) == str(want.value)
         return
     if "mesh" in override and (cfg.mesh.sequence, cfg.mesh.model) != (1, 1):
         with pytest.raises(ValueError, match="not divisible by fixed axes product 2"):

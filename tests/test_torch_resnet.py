@@ -147,16 +147,24 @@ def test_resnet18_has_62_tensors_and_published_size():
 
 
 def test_registry_refuses_unported_models():
-    """``vit_b16`` is not ported. ``moe_mlp`` and the LM with MoE layers,
-    which this test once refused, build (``tests/test_torch_moe.py`` holds
-    them against JAX); MoE under a sequence axis stays refused."""
-    assert {"resnet18", "moe_mlp"} <= set(available_models())
-    with pytest.raises(NotImplementedError):
-        get_model("vit_b16")
+    """Every model of the JAX registry is ported: ``vit_b16``, which this
+    test once refused, builds (``tests/test_torch_vit.py`` holds it
+    against JAX), and so do ``moe_mlp`` and the LM with MoE layers, under a
+    sequence axis too (``tests/test_torch_moe_axes.py``); an unknown name
+    still raises."""
+    from distributed_training_tpu_torch.config import MeshSpec
+    from distributed_training_tpu_torch.models import NOT_PORTED
+    from distributed_training_tpu_torch.runtime.mesh import Mesh
+
+    assert {"resnet18", "moe_mlp", "vit_b16"} <= set(available_models())
+    assert NOT_PORTED == ()
+    vit = get_model("vit_b16", num_classes=1000)
+    assert vit.encoder_11.attn.query.kernel.shape == (768, 12, 64)
     assert get_model("moe_mlp").moe_0.num_experts == 4
     lm = get_model("transformer_lm", moe_num_experts=4)
     assert lm.block1.moe_mlp.experts.w1.shape[0] == 4 and hasattr(lm.block0, "mlp")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model("transformer_lm", moe_num_experts=4, seq_axis="sequence")
+    sp = get_model("transformer_lm", moe_num_experts=4, seq_axis="sequence",
+                   mesh=Mesh(MeshSpec()))
+    assert sp.block1.moe_mlp.experts.w1.shape[0] == 4
     with pytest.raises(ValueError):
         get_model("resnet7")

@@ -169,6 +169,29 @@ def test_every_plugin_preset_fits_and_equals_its_stage0_twin(tmp_path, plugin):
 def test_unported_options_raise(tmp_path, override):
     """What the Trainer still lacks. (remat, precise-BN, the metric sinks,
     the wall-clock breakdown and the profiler, which this test once
-    listed, are ported: test_torch_remat.py, test_torch_resilience.py.)"""
+    listed, are ported: test_torch_remat.py, test_torch_resilience.py. So
+    are ViT, the model axis and ``tp_overlap``, multi-rank in
+    test_torch_vit_tp.py: here, at world 1, ``tp_overlap`` over a model
+    axis of 1 builds the plain step, as the JAX Trainer does, a model axis
+    of 2 is a mesh one process cannot hold, refused as ``create_mesh``
+    refuses it, and ``vit_b16`` builds and trains a step.)"""
+    cfg = _cfg(tmp_path, **override)
+    if override == dict(tp_overlap=True):
+        t = Trainer(cfg, device="cpu")
+        assert t.tp is None and t._microbatches == t.grad_accum
+        return
+    if override == dict(mesh=MeshSpec(model=2)):
+        with pytest.raises(ValueError, match="not divisible by fixed axes product 2"):
+            Trainer(cfg, device="cpu")
+        return
+    if override == dict(model="vit_b16"):
+        from distributed_training_tpu_torch.models.vit import ViT
+
+        t = Trainer(cfg.replace(data=DataConfig(dataset="synthetic_cifar", batch_size=2,
+                                                max_steps_per_epoch=1)), device="cpu")
+        assert isinstance(t.model, ViT) and t.model.pos_embed.shape == (1, 5, 768)
+        batch = next(iter(t.make_loaders()[0]))
+        assert np.isfinite(float(t.train_step(t.state, t.place(batch))["loss"]))
+        return
     with pytest.raises(NotImplementedError):
-        Trainer(_cfg(tmp_path, **override), device="cpu")
+        Trainer(cfg, device="cpu")

@@ -376,15 +376,20 @@ def _overlap_primitives(job, rank, world, group):
 
 def _moe_steps(job, rank, world, group):
     """Each MoE scenario of ``job["moe_scenarios"]``: the LM step (``kind``
-    "lm") or the image step ("image") on this rank's rows of the global
-    batches, on a data × expert mesh (the experts cut to this rank's
-    block), from the whole initial weights; the whole state after the
+    "lm") or the image step ("image") on this rank's rows (and time chunk)
+    of the global batches, on a mesh of data, sequence, model and expert
+    axes (the experts cut to this rank's block, the rest by the TP rule
+    table), from the whole initial weights; the whole state after the
     steps and each step's metrics; a save or a restore when asked."""
     from distributed_training_tpu_torch import checkpoint as ckpt_lib
     from distributed_training_tpu_torch.config import OptimizerConfig, PrecisionConfig
     from distributed_training_tpu_torch.models import get_model
     from distributed_training_tpu_torch.models.moe import MoEContext, shard_experts_
-    from distributed_training_tpu_torch.parallel.tensor_parallel import ExpertParallel
+    from distributed_training_tpu_torch.parallel.tensor_parallel import (
+        ExpertParallel,
+        TensorParallel,
+        shard_model_,
+    )
     from distributed_training_tpu_torch.parallel.zero import Zero
     from distributed_training_tpu_torch.train.lm_step import make_lm_train_step
     from distributed_training_tpu_torch.train.optim import make_optimizer
@@ -399,19 +404,25 @@ def _moe_steps(job, rank, world, group):
             meshes[key] = _mesh(sc["mesh"])
         mesh = meshes[key]
         lm = sc["kind"] == "lm"
-        model = get_model("transformer_lm" if lm else "moe_mlp", **job[f"{sc['kind']}_kw"])
+        seq = {"seq_axis": "sequence", "mesh": mesh} if mesh.size("sequence") > 1 else {}
+        model = get_model("transformer_lm" if lm else "moe_mlp",
+                          **job[f"{sc['kind']}_kw"], **seq)
         model.load_state_dict(job[f"{sc['kind']}_model"])
+        tp = TensorParallel.from_mesh(mesh)
+        shard_model_(model, tp)
         shard_experts_(model, MoEContext.from_mesh(mesh))
         state = TrainState.create(model, make_optimizer(OptimizerConfig(**sc["opt"])),
                                   LossScaleState.create(PrecisionConfig()),
-                                  Zero(sc["stage"], mesh.group("data", "sequence"),
+                                  Zero(sc["stage"], mesh.group("data", "sequence"), tp=tp,
                                        ep=ExpertParallel.from_mesh(mesh)))
         if sc.get("restore"):
             ckpt_lib.restore_checkpoint(sc["restore"], 0, state)
             out[name] = {"restored": state.state_dict()}
             continue
-        step = (make_lm_train_step(zero_stage=sc["stage"], max_len=job["lm_kw"]["max_len"])
-                if lm else make_train_step(zero_stage=sc["stage"]))
+        accum = sc.get("accum", 1)
+        step = (make_lm_train_step(zero_stage=sc["stage"], max_len=job["lm_kw"]["max_len"],
+                                   grad_accum_steps=accum)
+                if lm else make_train_step(zero_stage=sc["stage"], grad_accum_steps=accum))
         metrics = [{k: float(v) for k, v in step(state, _local_batch(b, mesh)).items()}
                    for b in job[f"{sc['kind']}_batches"]]
         out[name] = {"state": state.state_dict(), "metrics": metrics, "step": state.step,
@@ -420,6 +431,78 @@ def _moe_steps(job, rank, world, group):
         if sc.get("save"):
             ckpt_lib.save_checkpoint(os.path.join(job["dir"], name), 0, state)
     return {"moe": out}
+
+
+def _trainer_steps(job, rank, world, group):
+    """Each config of ``job["trainer_steps"]``: the image ``Trainer`` or
+    ``LMTrainer`` built over the mesh as a user builds it (its models cut
+    to ``job["model_kw"][name]`` through the registry), its state loaded
+    from the whole initial weights, then ``steps`` train steps on the
+    batches of its own train loader (this rank's rows, in the order the
+    trainer gives them); the whole state, each step's metrics, and the
+    first batch's rows as this rank saw them. A config that the trainer
+    refuses returns the exception's type and message instead."""
+    from distributed_training_tpu_torch import LMTrainer, Trainer
+    from distributed_training_tpu_torch.train import lm_trainer, trainer
+
+    out = {}
+    for name, sc in job["trainer_steps"].items():
+        cfg = sc["cfg"]
+        cut = sc.get("model_kw", {})
+        originals = (trainer.get_model, lm_trainer.get_model)
+        trainer.get_model = lambda n, _g=originals[0], **kw: _g(n, **{**kw, **cut})
+        lm_trainer.get_model = lambda n, _g=originals[1], **kw: _g(n, **{**kw, **cut})
+        try:
+            cls = LMTrainer if cfg.model == "transformer_lm" else Trainer
+            try:
+                t = cls(cfg, device="cpu")
+            except (NotImplementedError, ValueError) as e:
+                out[name] = {"raised": (type(e).__name__, str(e))}
+                continue
+        finally:
+            trainer.get_model, lm_trainer.get_model = originals
+        sd = t.state.state_dict()
+        sd["model"] = {**sd["model"], **sc["weights"]}
+        t.state.load_state_dict(sd)
+        loader = t.make_loaders()[0]
+        loader.set_epoch(0)
+        metrics, first = [], None
+        for i, batch in enumerate(loader):
+            if i == sc["steps"]:
+                break
+            if first is None:
+                first = batch
+            metrics.append({k: float(v) for k, v in
+                            t.train_step(t.state, t.place(batch)).items()})
+        out[name] = {"state": t.state.state_dict(), "metrics": metrics,
+                     "step": t.state.step, "first": first}
+        if sc.get("save"):
+            from distributed_training_tpu_torch import checkpoint as ckpt_lib
+
+            ckpt_lib.save_checkpoint(os.path.join(job["dir"], name), 0, t.state)
+    return {"trainer_steps": out}
+
+
+def _vit_ring(job, rank, world, group):
+    """ViT with ``seq_axis`` over a sequence axis of the world's size: each
+    rank its rows of ``job["vit_x"]``, whose tokens are its chunk of the
+    sequence the ring attends over; its logits and the whole gradient of
+    ``Σ logits · g`` (summed over the ranks)."""
+    import torch.distributed as dist
+
+    from distributed_training_tpu_torch.models import get_model
+
+    mesh = _mesh({"data": 1, "sequence": world})
+    model = get_model("vit_b16", seq_axis_name="sequence", mesh=mesh, **job["vit_ring_kw"])
+    model.load_state_dict(job["vit_ring_model"])
+    model.train()
+    x, g = (torch.from_numpy(a).chunk(world)[rank] for a in (job["vit_x"], job["vit_g"]))
+    logits = model(x)
+    (logits * g).sum().backward()
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    for t in grads.values():
+        dist.all_reduce(t, group=group)
+    return {"vit_ring": {"logits": logits.detach(), "grads": grads}}
 
 
 def _lm_trainer_mesh(job, rank, world, group):
