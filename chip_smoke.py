@@ -112,6 +112,15 @@ Phases, in order; any failure exits non-zero and prints no result line:
    then the ResNet CLI's ``--moe --num-experts 4`` (``moe_mlp``, synthetic
    CIFAR, batch 100, 20 steps of ``hybrid_adam``): losses falling, K1 once
    a step, the trained logits on the card against the CPU within 1e-3;
+7d'''. pipeline phase: GPT-2-small (B 16, T 1024, flash) through the
+   virtual pipeline (every stage in this process) at S 4 M 4 (GPipe), S 4
+   v 3 M 4 (circular) and GPipe with remat, against the plain model on the
+   same weights and batch: float32 loss within 1e-5 relative and every
+   gradient within 1e-4 of its tensor's largest magnitude, K2 12·M (24·M
+   with remat) and K3 12·M a step; one bf16 ``hybrid_adam`` step through
+   the pipeline step against the plain step's loss within 5e-3, the
+   bubble fraction, ms a step beside the plain model's, peak memory and
+   a ``{"pipeline": ...}`` line;
 7e. d-256 phase: K2–K4 at head dims 256 and 160 (padded to 256), and at
    257, 320, 384 and 512 (768 in bf16; the d > 256 kernels, d padded to a
    multiple of 64), in float32, bf16 and fp16, T 100 and 384, causal and
@@ -184,12 +193,17 @@ steps, against DP W's losses; then the LM trainer's strategies: data
 parallelism, the ring over W ranks, TP over W with and without the
 overlap schedule, and at W 4 TP×SP (overlapped too) and TP×DP, through
 the GPT CLI at GPT-2-small width, each against data parallelism's
-losses; then the bench's LM leg with ``--tp W``. ``--mesh PART ...``
-(names of ``MESH_PARTS``: a11, moe, vit, moe_axes, lm, bench) runs only
-those parts.
+losses; then the bench's LM leg with ``--tp W``; then (W 4) the pipeline
+through the GPT CLI (``PP_LAYOUTS``: pipe 4 GPipe and circular, pipe 2 ×
+data 2, × model 2, × sequence 2, pipe 4 with accumulation, homogeneous
+MoE at pipe 4 and pipe 2 × expert 2) against DP 4's losses (MoE: the CE),
+and the circular run's save resumed at world 1. ``--mesh PART ...``
+(names of ``MESH_PARTS``: a11, moe, vit, moe_axes, lm, bench, pp) runs
+only those parts.
 
 ``python3 chip_smoke.py --phase NAME ...`` runs the build and only the
-named phases (ring, moe_lm, moe_image, vit), without a result line.
+named phases (ring, moe_lm, moe_image, vit, pipeline), without a result
+line.
 """
 
 from __future__ import annotations
@@ -1312,6 +1326,141 @@ def lm_phase(ckpt_dir: str) -> dict:
     return launches
 
 
+# The pipeline phase (one card): GPT-2-small (GPT_LAYERS 12, B 16, T 1024,
+# flash) through the virtual pipeline (parallel/pipeline.py: every stage's
+# ticks in turn in one process, the hops list rotations) against the plain
+# TransformerLM on the same weights and batch. float32: the loss within
+# PIPE_LOSS_RTOL relative, every gradient within PIPE_GRAD_TOL of its
+# tensor's largest magnitude (the same products on B/M rows at a time, the
+# gradients summed over microbatches in another order, K3's dQ atomics in
+# an order that changes between runs). bf16, one hybrid_adam step through
+# the pipeline step against the plain step: the loss within
+# GPT_STAGE_RTOL. K2 runs once a layer a live microbatch (twice under
+# remat), K3 once: 12·M (24·M) and 12·M a step.
+PIPE_RUNS = (("gpipe_s4_m4", 4, 1, 4, False), ("circular_s4_v3_m4", 4, 3, 4, False),
+             ("gpipe_s4_m4_remat", 4, 1, 4, True))
+PIPE_LOSS_RTOL = 1e-5
+PIPE_GRAD_TOL = 1e-4
+PIPE_TIMED_STEPS = 3
+
+
+def pipeline_phase() -> dict:
+    """The virtual pipeline at GPT-2-small width against the plain model
+    (see PIPE_RUNS): float32 loss and gradients, bf16 step losses, K2/K3
+    launches a step, bubble fractions and ms a step (the plain model's
+    beside them)."""
+    import copy
+
+    from distributed_training_tpu_torch.config import OptimizerConfig, PrecisionConfig
+    from distributed_training_tpu_torch.models import get_model
+    from distributed_training_tpu_torch.ops.flash_attention import flash_bwd, flash_fwd
+    from distributed_training_tpu_torch.ops.fused_adam import fused_adam_update
+    from distributed_training_tpu_torch.parallel.pipeline import PipelinedLM
+    from distributed_training_tpu_torch.train.lm_step import (
+        _fused_ce_rows,
+        make_lm_batch,
+        make_lm_train_step,
+        make_pp_lm_train_step,
+    )
+    from distributed_training_tpu_torch.train.optim import make_optimizer
+    from distributed_training_tpu_torch.train.precision import LossScaleState
+    from distributed_training_tpu_torch.train.train_state import TrainState
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(0)
+    tokens = torch.randint(0, 50304, (GPT_B, GPT_T + 1), generator=gen)
+    batch = {k: v.to(dev) for k, v in make_lm_batch(tokens).items()}
+
+    def build(dtype):
+        return get_model("transformer_lm", num_classes=50304, num_layers=GPT_LAYERS,
+                         num_heads=GPT_H, hidden_dim=GPT_H * GPT_D, max_len=GPT_T,
+                         attn_impl="flash", dtype=dtype, logits_dtype=dtype,
+                         generator=torch.Generator().manual_seed(0))
+
+    def pipelined(base, s, v, m, remat):
+        model = copy.deepcopy(base)
+        model.remat = remat
+        return PipelinedLM(model, num_microbatches=m, virtual_stages=v, pipe_size=s).to(dev)
+
+    def loss_and_grads(model):
+        model.train()
+        loss = _fused_ce_rows(model(batch["tokens"]), batch["targets"]).mean()
+        loss.backward()
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        return loss.item(), grads
+
+    base32 = build(torch.float32)
+    plain = copy.deepcopy(base32).to(dev)
+    want, want_g = loss_and_grads(plain)
+    del plain
+    runs = {}
+    for name, s, v, m, remat in PIPE_RUNS:
+        model = pipelined(base32, s, v, m, remat)
+        flash_fwd.launches = flash_bwd.launches = 0
+        got, got_g = loss_and_grads(model)
+        launches = {"flash_fwd": flash_fwd.launches, "flash_bwd": flash_bwd.launches}
+        loss_err = abs(got - want) / abs(want)
+        grad_err = max((got_g[n] - g).abs().max().item() / g.abs().max().item()
+                       for n, g in want_g.items())
+        runs[name] = {"stages": s, "virtual_stages": v, "microbatches": m, "remat": remat,
+                      "bubble_fraction": model.bubble_fraction, "launches": launches,
+                      "fp32_loss": got, "fp32_loss_rel_err": loss_err,
+                      "fp32_grad_err": grad_err}
+        del model, got_g
+        torch.cuda.empty_cache()
+        _check(f"pipeline {name} fp32 loss", loss_err, PIPE_LOSS_RTOL)
+        _check(f"pipeline {name} fp32 gradients", grad_err, PIPE_GRAD_TOL)
+        per_step = {"flash_fwd": GPT_LAYERS * m * (2 if remat else 1),
+                    "flash_bwd": GPT_LAYERS * m}
+        if launches != per_step:
+            raise SystemExit(f"pipeline {name}: launches {launches} != {per_step}")
+    del want_g, base32
+
+    # bf16: one hybrid_adam step each, the plain step first (the reference),
+    # then PIPE_TIMED_STEPS timed steps on the card (CUDA events).
+    base16 = build(torch.bfloat16)
+    opt = OptimizerConfig(name="hybrid_adam", lr=1e-3)
+
+    def bf16_run(model, step):
+        state = TrainState.create(model, make_optimizer(opt),
+                                  LossScaleState.create(PrecisionConfig(dtype="bf16")))
+        fused_adam_update.launches = 0
+        first = float(step(state, batch)["loss"])
+        ms = cuda_ms(lambda: step(state, batch), PIPE_TIMED_STEPS, ahead=False)
+        return first, ms, fused_adam_update.launches
+
+    plain_loss, plain_ms, _ = bf16_run(copy.deepcopy(base16).to(dev),
+                                       make_lm_train_step(max_len=GPT_T,
+                                                          logits_dtype=torch.bfloat16))
+    torch.cuda.empty_cache()
+    card = card_line()
+    for name, s, v, m, remat in PIPE_RUNS:
+        torch.cuda.reset_peak_memory_stats()
+        loss, ms, k1 = bf16_run(pipelined(base16, s, v, m, remat),
+                                make_pp_lm_train_step(max_len=GPT_T,
+                                                      logits_dtype=torch.bfloat16))
+        r = runs[name]
+        r.update(bf16_loss=loss, bf16_loss_rel_err=abs(loss - plain_loss) / abs(plain_loss),
+                 ms=ms, plain_ms=plain_ms, fused_adam=k1,
+                 peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        torch.cuda.empty_cache()
+        _check(f"pipeline {name} bf16 loss", r["bf16_loss_rel_err"], GPT_STAGE_RTOL)
+        if k1 != 3 + 1 + PIPE_TIMED_STEPS:  # the first step, warm-up and timed ones
+            raise SystemExit(f"pipeline {name}: K1 launches {k1}")
+        print(f"[pipeline] {name} (GPT-2-small, B {GPT_B} T {GPT_T}, virtual S {s} v {v} "
+              f"M {m}{' remat' if remat else ''}): bubble fraction "
+              f"{r['bubble_fraction']:.4f}; float32 loss {r['fp32_loss']:.7f} vs plain "
+              f"{want:.7f} ({r['fp32_loss_rel_err']:.3g} relative, tolerance "
+              f"{PIPE_LOSS_RTOL}), gradients "
+              f"{r['fp32_grad_err']:.3g} of each tensor's largest (tolerance {PIPE_GRAD_TOL}); "
+              f"K2/K3 a step {r['launches']}; bf16 hybrid_adam step {ms:.3f} ms against the "
+              f"plain model's {plain_ms:.3f} ms, first loss {loss:.6f} vs {plain_loss:.6f} "
+              f"({r['bf16_loss_rel_err']:.3g} relative, tolerance {GPT_STAGE_RTOL}); peak "
+              f"{r['peak_gib']:.3f} GiB; {card}", flush=True)
+    return {"runs": runs, "plain_fp32_loss": want, "plain_bf16_loss": plain_loss,
+            "plain_ms": plain_ms}
+
+
 def exp2_phase() -> dict:
     """Under ``_USE_EXP2``: K2, K3 and K4 against the plain versions (which
     read the switch too) over the grid's bf16 causal cases and at the flash
@@ -1756,7 +1905,8 @@ def _gpt_cli_module():
     return cli
 
 
-def _gpt_cli_run(cli, argv: list, edit=None, eval_before: bool = False) -> dict:
+def _gpt_cli_run(cli, argv: list, edit=None, eval_before: bool = False,
+                 keep_model: bool = False) -> dict:
     """``build_trainer(argv).fit()`` with each train step timed on the card
     (synchronised before and after); its losses, step times, peak memory
     (above what the process held before the run: earlier phases keep some
@@ -1764,7 +1914,8 @@ def _gpt_cli_run(cli, argv: list, edit=None, eval_before: bool = False) -> dict:
     config to the one the trainer runs (a field the CLI has no flag for,
     such as the optimizer); ``eval_before`` evaluates once before training
     too (``ppl_before``). With MoE layers, each step's aux loss and each
-    layer's kept share of (token, choice) pairs."""
+    layer's kept share of (token, choice) pairs; ``keep_model``: the whole
+    model after the run, on the host (every rank must ask for it)."""
     from distributed_training_tpu_torch import LMTrainer
     from distributed_training_tpu_torch.models.moe import MoEMlp
 
@@ -1800,7 +1951,11 @@ def _gpt_cli_run(cli, argv: list, edit=None, eval_before: bool = False) -> dict:
            "held_before_bytes": start,
            "eval_batches": len(trainer.make_loaders()[1]),
            "stage": trainer.state.zero.stage, "grouped": trainer.state.zero.group is not None,
-           "tokens_per_s": rows * GPT_T * (len(times) - 1) / sum(times[1:])}
+           "tokens_per_s": rows * GPT_T * (len(times) - 1) / sum(times[1:]),
+           "strategy": trainer.strategy,
+           "bubble": getattr(trainer.model, "bubble_fraction", None)}
+    if keep_model:
+        run["model"] = {n: t.cpu() for n, t in trainer.state.state_dict()["model"].items()}
     del trainer
     torch.cuda.empty_cache()
     return run
@@ -2939,7 +3094,130 @@ def moe_axes_mesh(world: int, ckpt: str, card: str) -> dict:
     return results
 
 
-MESH_PARTS = ("a11", "moe", "vit", "moe_axes", "lm", "bench")
+# The pipeline over four cards (--mesh pp): the GPT CLI's trainer at
+# GPT-2-small width (bf16, flash, hybrid_adam, ZeRO 1, MESH_STEPS steps,
+# the global batch GPT_B) in each layout of PP_LAYOUTS, each step's loss
+# against DP 4's within GPT_STAGE_RTOL; the MoE layouts (every layer 8
+# experts, top-1, capacity factor MOE_NODROP_CAPACITY: no token dropped)
+# compare the CE (loss less aux) against MoE DP 4's, since their aux
+# differs by design (the pipeline's gate sees one microbatch, DP's the
+# global batch). This is one card's batch over four cards: overheads only.
+PP_LAYOUTS = (
+    ("dp4", ["-b", str(GPT_B // 4)]),
+    ("pp4", ["--pp", "4", "--microbatches", "4"]),
+    ("pp4_v3", ["--pp", "4", "--virtual-stages", "3", "--microbatches", "4", "-i", "1"]),
+    ("pp2_dp2", ["--pp", "2", "--microbatches", "2", "-b", str(GPT_B // 2)]),
+    ("pp2_tp2", ["--pp", "2", "--tp", "2", "--microbatches", "2"]),
+    ("pp2_sp2", ["--pp", "2", "--sp", "2", "--microbatches", "2"]),
+    ("pp4_accum2", ["--pp", "4", "-b", str(GPT_B // 2), "--microbatches", "2",
+                    "--gradient-accumulation-steps", "2"]),
+    ("moe_nodrop_dp4", ["--moe", "--moe-every", "1", "-b", str(GPT_B // 4)]),
+    ("moe_nodrop_pp4", ["--moe", "--moe-every", "1", "--pp", "4", "--microbatches", "4"]),
+    ("moe_nodrop_pp2_ep2", ["--moe", "--moe-every", "1", "--pp", "2", "--ep-world-size", "2",
+                            "--microbatches", "2"]),
+)
+
+
+def pp_mesh(world: int, ckpt: str, card: str) -> dict:
+    """The pipeline layouts of PP_LAYOUTS over the ranks: tokens/s, peak
+    memory, bubble fraction and K1/K2/K3 launches (summed over the ranks),
+    losses (CE for MoE) against the DP 4 run's; returns the results and the
+    whole model the ``pp4_v3`` run saved."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from distributed_training_tpu_torch.ops.flash_attention import flash_bwd, flash_fwd
+    from distributed_training_tpu_torch.ops.fused_adam import fused_adam_update
+
+    if world != 4:
+        raise SystemExit("chip_smoke --mesh pp: the layouts need four ranks")
+    rank, results, refs, saved = dist.get_rank(), {}, {}, None
+    cli = _gpt_cli_module()
+
+    def edit(cfg):
+        cfg = _hybrid_adam(cfg)
+        if not cfg.moe.enabled:
+            return cfg
+        return cfg.replace(moe=dataclasses.replace(
+            cfg.moe, moe_param_group=True, capacity_factor=MOE_NODROP_CAPACITY))
+
+    for name, flags in PP_LAYOUTS:
+        fused_adam_update.launches = flash_fwd.launches = flash_bwd.launches = 0
+        run = _gpt_cli_run(cli, [*GPT_CLI_WIDTH, "--stage", "1", *flags,
+                                 "-c", os.path.join(ckpt, name)], edit,
+                           keep_model=name == "pp4_v3")
+        counts = torch.tensor([fused_adam_update.launches, flash_fwd.launches,
+                               flash_bwd.launches], device="cuda")
+        dist.all_reduce(counts)
+        if len(run["losses"]) != MESH_STEPS or not all(math.isfinite(x) for x in run["losses"]):
+            raise SystemExit(f"mesh {name}: non-finite losses {run['losses']}")
+        if fused_adam_update.launches != MESH_STEPS or min(flash_fwd.launches,
+                                                           flash_bwd.launches) == 0:
+            raise SystemExit(f"mesh {name}: rank {rank} launches K1 "
+                             f"{fused_adam_update.launches}, K2 {flash_fwd.launches}, "
+                             f"K3 {flash_bwd.launches}")
+        moe = name.startswith("moe")
+        ce = [loss - aux for loss, aux in zip(run["losses"], run["aux"])]
+        ref = refs.setdefault("moe" if moe else "dense", ce)
+        worst = _rel_losses(ce, ref)
+        if name not in ("dp4", "moe_nodrop_dp4"):
+            _mesh_check(f"mesh {name} {'CE' if moe else 'losses'} vs "
+                        f"{'moe_nodrop_dp4' if moe else 'dp4'}", worst, GPT_STAGE_RTOL)
+        if "model" in run:
+            saved = run.pop("model")
+        results[name] = {"losses": run["losses"], "aux": run["aux"], "ce": ce,
+                         "worst_rel_vs_dp": worst, "tokens_per_s": run["tokens_per_s"],
+                         "step_ms": 1e3 * sum(run["step_s"][1:]) / (MESH_STEPS - 1),
+                         "peak_gib_rank0": run["peak_bytes"] / 2**30,
+                         "bubble_fraction": run["bubble"], "strategy": run["strategy"],
+                         "final_perplexity": run["result"]["final_perplexity"],
+                         "launches_all_ranks": {"fused_adam": int(counts[0]),
+                                                "flash_fwd": int(counts[1]),
+                                                "flash_bwd": int(counts[2])}}
+        if rank == 0:
+            r = results[name]
+            print(f"[mesh] {name} over {world} GPUs (GPT-2-small{' MoE every layer' if moe else ''}"
+                  f", global B {GPT_B} T {GPT_T}, bf16, flash, ZeRO 1, hybrid_adam; "
+                  f"{r['strategy']}): {r['tokens_per_s']:.1f} tokens/s, {r['step_ms']:.3f} "
+                  f"ms a step, peak {r['peak_gib_rank0']:.3f} GiB on rank 0, bubble fraction "
+                  f"{r['bubble_fraction']}; launches (all ranks) {r['launches_all_ranks']}; "
+                  f"{'CE' if moe else 'losses'} {ce} ({worst:.3g} relative of "
+                  f"{'moe_nodrop_dp4' if moe else 'dp4'}'s, tolerance {GPT_STAGE_RTOL}); "
+                  f"aux {r['aux']}; eval perplexity {r['final_perplexity']:.4f}; {card}",
+                  flush=True)
+    return {"layouts": results, "saved_model": saved}
+
+
+def pp_resume(ckpt: str, saved_model: dict) -> dict:
+    """Rank 0 alone, after the group closed: the ``pp4_v3`` save (four
+    stages, three virtual stages each) loaded at world 1 (the whole model,
+    bit for bit, in layer order), then trained on for one more epoch."""
+    from distributed_training_tpu_torch import checkpoint as ckpt_lib
+
+    cli = _gpt_cli_module()
+    directory = os.path.join(ckpt, "pp4_v3")
+    argv = [*GPT_CLI_WIDTH, "-c", directory, "-i", "0"]
+    with _Alone():
+        probe = cli.build_trainer(argv)
+        ckpt_lib.restore_checkpoint(directory, 0, probe.state)
+        loaded = probe.state.state_dict()["model"]
+        del probe
+        torch.cuda.empty_cache()
+        run = _gpt_cli_run(cli, [*argv, "-r", "0", "-e", "2"], _hybrid_adam)
+    same = (set(loaded) == set(saved_model)
+            and all(torch.equal(loaded[n].cpu(), t.cpu()) for n, t in saved_model.items()))
+    print(f"[mesh] the pp4_v3 save (pipe 4 x virtual 3) loaded at world 1: whole model bit "
+          f"for bit {same}; epoch 2 at world 1 from it: losses {run['losses']}, "
+          f"{run['result']['steps']} committed steps", flush=True)
+    if not same or run["result"]["steps"] != 2 * MESH_STEPS:
+        raise SystemExit("pp: the pipe 4 x virtual 3 checkpoint did not resume at world 1")
+    if not all(math.isfinite(x) for x in run["losses"]):
+        raise SystemExit(f"pp resume: non-finite losses {run['losses']}")
+    return {"bitwise": same, "losses": run["losses"], "steps": run["result"]["steps"]}
+
+
+MESH_PARTS = ("a11", "moe", "vit", "moe_axes", "lm", "bench", "pp")
 
 
 def mesh_main(parts: list | None = None) -> int:
@@ -2992,6 +3270,10 @@ def mesh_main(parts: list | None = None) -> int:
             results["vit"] = vit_mesh(world, ckpt, card)
         if "moe_axes" in parts:
             results["moe_axes"] = moe_axes_mesh(world, ckpt, card)
+        pp_saved = None
+        if "pp" in parts:
+            results["pp"] = pp_mesh(world, ckpt, card)
+            pp_saved = results["pp"].pop("saved_model")
         for name, flags in (_mesh_strategies(world) if "lm" in parts else []):
             flash_fwd.launches = flash_bwd.launches = 0
             run = _gpt_cli_run(cli, [*GPT_CLI_WIDTH, "--stage", "1", *flags,
@@ -3031,6 +3313,8 @@ def mesh_main(parts: list | None = None) -> int:
         distributed.shutdown_distributed()
         if rank == 0 and saved is not None:
             results["a11"]["zero1_resume_world1"] = a11_resume(world, ckpt, saved)
+        if rank == 0 and pp_saved is not None:
+            results["pp"]["pp4_v3_resume_world1"] = pp_resume(ckpt, pp_saved)
     if rank != 0:  # rank 0 saw the same comparisons, and reports them
         return 0
     print(json.dumps({"mesh": results}, default=str), flush=True)
@@ -3050,7 +3334,8 @@ def phase_main(names: list) -> int:
     from distributed_training_tpu_torch.ops import cuda_build
 
     phases = {"ring": lambda d: ring_phase(), "moe_lm": moe_lm_phase,
-              "moe_image": moe_image_phase, "vit": lambda d: vit_phase()}
+              "moe_image": moe_image_phase, "vit": lambda d: vit_phase(),
+              "pipeline": lambda d: pipeline_phase()}
     if not names or any(n not in phases for n in names):
         print(f"chip_smoke --phase: name one or more of {sorted(phases)}", file=sys.stderr)
         return 2
@@ -3104,6 +3389,7 @@ def main() -> int:
         gpt = gpt_cli_phase(os.path.join(ckpt, "gpt_cli"))
         moe_lm = moe_lm_phase(os.path.join(ckpt, "moe_lm"))
         moe_img = moe_image_phase(os.path.join(ckpt, "moe_image"))
+    pipe = pipeline_phase()
     half = fp16_pad_phase()
     d256 = d256_phase()
     exp2 = exp2_phase()
@@ -3151,7 +3437,8 @@ def main() -> int:
                      + sum(r["launches"] for r in dp.values())
                      + sum(n["fused_adam"] for n in bench_lm.values())
                      + sum(data["launches"].values())
-                     + moe_lm["launches"]["fused_adam"] + moe_img["launches"]),
+                     + moe_lm["launches"]["fused_adam"] + moe_img["launches"]
+                     + sum(r["fused_adam"] for r in pipe["runs"].values())),
         "launches_by_path": {"resnet18_train": launches,
                              **{f"resnet18_train_{tag}": n for tag, n in bf16.items()},
                              **{f"resnet18_{p}_nccl_world1": r["launches"]
@@ -3163,7 +3450,9 @@ def main() -> int:
                              **data["launches"],
                              **{f"gpt2_small_{n}": r["launches"]["fused_adam"]
                                 for n, r in moe_lm["runs"].items()},
-                             "moe_mlp_cli": moe_img["launches"]},
+                             "moe_mlp_cli": moe_img["launches"],
+                             **{f"pipeline_{n}_bf16_steps": r["fused_adam"]
+                                for n, r in pipe["runs"].items()}},
         **k, "ok": True,
     }, *({
         "name": name, "route": "cuda", "source": src, "replaces": f"{ref}:{line}",
@@ -3173,7 +3462,9 @@ def main() -> int:
                             **{f"gpt2_small_{n}": r["launches"][name]
                                for n, r in moe_lm["runs"].items()},
                             **{p: n[name] for p, n in bench_lm.items()},
-                            **{f"ring_{c}": r["launches"][name] for c, r in ring.items()}}
+                            **{f"ring_{c}": r["launches"][name] for c, r in ring.items()},
+                            **{f"pipeline_{n}_step": r["launches"][name]
+                               for n, r in pipe["runs"].items()}}
                            if name in lm else {})),
         **({"ring": {c: {"launches": r["launches"][name], "hops": r["hops"],
                          "rank_hop_ms": [x["K2" if name == "flash_fwd" else "K3"]
@@ -3201,6 +3492,7 @@ def main() -> int:
         "fp16_by_shape": half["k5"], "instantiations": built("K5"), "ok": True,
     }]
     print(json.dumps({"vit": vit}))
+    print(json.dumps({"pipeline": pipe}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

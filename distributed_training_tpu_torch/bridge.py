@@ -20,6 +20,14 @@ leaf's rank (GPT's QKV kernel is 4-D and no convolution):
   kernels ``[d, H, hd]``, ``out`` ``[H, hd, d]``, the HWIO patch conv,
   ``cls_token``): the leaf as it is.
 
+The JAX pipeline stacks the decoder blocks into one ``blocks`` tree with a
+leading layer dim in its storage order (``circular_layer_order``):
+:func:`unstack_blocks` gives them back their per-layer names (JAX's
+``unstack_block_params``), and :func:`load_flax_pipeline` and
+:func:`flax_pipeline_tree_to_named` carry them into the port's model,
+whole or one pipeline stage (a ``PipelinedLM`` holds its layers' blocks
+under those names), the parameters and Adam's moments alike.
+
 Everything goes through numpy, so this module imports neither framework's
 other half: the tests hand it ``jax.device_get`` output.
 """
@@ -229,3 +237,32 @@ def load_optax_state(model: nn.Module, opt_state, jax_state) -> None:
         raise ValueError(f"the JAX state covers slots {sorted(covered)}, the "
                          f"port's has {sorted(slots)}")
     opt_state.count = 0 if count is None else count
+
+
+def unstack_blocks(tree: Any, layer_order) -> dict:
+    """A JAX pipeline tree (``blocks`` stacked in the storage order
+    ``layer_order``, beside the other leaves) as the plain model's tree:
+    storage row ``i`` becomes ``block{layer_order[i]}``."""
+    flat = _flatten(tree["blocks"])
+    out = {k: v for k, v in tree.items() if k != "blocks"}
+    for row, layer in enumerate(layer_order):
+        out[f"block{layer}"] = _nest({path: x[row] for path, x in flat.items()})
+    return out
+
+
+def _held(model: nn.Module, tree: dict) -> dict:
+    """``tree`` without the blocks that ``model`` (a pipeline stage) lacks."""
+    mods = dict(model.named_children())
+    return {k: v for k, v in tree.items() if not k.startswith("block") or k in mods}
+
+
+def load_flax_pipeline(model: nn.Module, params: Any, layer_order) -> None:
+    """Copy JAX pipeline parameters (see :func:`unstack_blocks`) into
+    ``model``, a whole ``TransformerLM`` or a pipeline stage (its blocks)."""
+    load_flax_variables(model, _held(model, unstack_blocks(params, layer_order)))
+
+
+def flax_pipeline_tree_to_named(model: nn.Module, tree: Any, layer_order) -> dict:
+    """A JAX pipeline param-shaped tree (e.g. Adam's ``mu``) keyed by
+    ``model``'s parameter names (:func:`load_flax_pipeline`'s blocks)."""
+    return flax_tree_to_named(model, _held(model, unstack_blocks(tree, layer_order)))

@@ -8,11 +8,10 @@ importing anything of ``distributed_training_tpu`` would import JAX.
 Not carried over yet (see ROADMAP.md): ``ServeConfig``,
 ``ObservabilityConfig``, ``ChaosConfig`` and ``TraceConfig``. ``TrainConfig`` therefore has no ``observability`` or
 ``chaos`` field; passing one raises ``TypeError``. Fields that exist but
-whose behaviour the port does not provide yet (MoE, the ``fsdp``,
-``expert`` and ``pipe`` mesh axes, pipeline microbatches; in the image
-``Trainer`` also the ``model`` and ``sequence`` axes and ``tp_overlap``)
-raise ``NotImplementedError`` in the ``Trainer`` or ``LMTrainer`` when set
-away from their defaults.
+whose behaviour the port does not provide yet (the ``fsdp`` mesh axis;
+in the image ``Trainer`` also the ``sequence`` and ``pipe`` axes) raise
+``NotImplementedError`` in the ``Trainer`` or ``LMTrainer`` when set away
+from their defaults.
 """
 
 from __future__ import annotations
@@ -151,9 +150,9 @@ class DataConfig:
 @dataclasses.dataclass(frozen=True)
 class MeshSpec:
     """Logical mesh axis sizes; -1 infers from the device count
-    (``runtime/mesh.py``). The LM trainer runs ``data``, ``model`` and
-    ``sequence``; the image trainer ``data`` alone; ``fsdp``, ``expert``
-    and ``pipe`` above 1 are refused."""
+    (``runtime/mesh.py``). The LM trainer runs ``data``, ``model``,
+    ``sequence``, ``expert`` and ``pipe``; the image trainer ``data``,
+    ``model`` and ``expert``; ``fsdp`` above 1 is refused."""
 
     data: int = -1
     fsdp: int = 1
@@ -166,10 +165,9 @@ class MeshSpec:
 @dataclasses.dataclass(frozen=True)
 class LMConfig:
     """Transformer-LM model and token-data surface (``models/gpt.py``,
-    ``train/lm_trainer.py``). Defaults are the JAX package's; the port
-    implements the data-parallel path: ``num_microbatches`` and
-    ``virtual_stages`` (the pipeline) away from their defaults raise in the
-    ``LMTrainer``."""
+    ``train/lm_trainer.py``). Defaults are the JAX package's;
+    ``num_microbatches`` and ``virtual_stages`` shape the pipeline (a
+    ``pipe`` axis above 1) and are read by nothing without it."""
 
     seq_len: int = 128
     vocab_size: int = 256

@@ -40,6 +40,10 @@ follow the Flax initialisers' distributions from a ``torch.Generator``
 - ``forward(..., return_hidden=True)`` returns the final-norm hidden
   states instead of the logits: the chunked cross-entropy applies the head
   itself (``train/lm_step.py``).
+- The forward's pieces, :func:`embed`, :func:`run_block` and
+  :func:`final` (JAX ``make_tok_embed``/``add_pos_embed``, the block,
+  ``make_final_norm``/``make_lm_head``), are also what a pipeline stage
+  runs (``parallel/pipeline.py``).
 - **Sequence parallelism** (``seq_axis`` on ``mesh``, a
   ``runtime.mesh.Mesh``): ``tokens`` is this rank's time chunk, the
   positional embedding reads *global* positions (the chunk's offset on
@@ -261,6 +265,42 @@ def _remat_block(block: DecoderBlock, x: torch.Tensor,
     return torch.utils.checkpoint.checkpoint(run, x, use_reentrant=False)
 
 
+def run_block(block: DecoderBlock, x: torch.Tensor,
+              generator: torch.Generator | None, remat: bool):
+    """``block(x, generator)``, under :func:`_remat_block` with ``remat``:
+    the per-layer step of the plain stack and of a pipeline stage."""
+    return _remat_block(block, x, generator) if remat else block(x, generator)
+
+
+def embed(model: nn.Module, tokens: torch.Tensor,
+          positions: torch.Tensor | None = None) -> torch.Tensor:
+    """The stack's input: token embedding plus positional rows (JAX
+    ``make_tok_embed`` and ``add_pos_embed``), from ``model``'s
+    ``tok_embed``, ``pos_embed``, ``dtype``, ``max_len`` and, with a
+    ``seq_axis``, the chunk's *global* positions on ``model.mesh``."""
+    if positions is None:
+        t, offset = tokens.shape[-1], 0
+        if model.seq_axis is not None:
+            offset = model.mesh.index(model.seq_axis) * t
+            t *= model.mesh.size(model.seq_axis)
+        # Gathers past the table would fail here, where JAX clamps
+        # them silently: check the (global) length, as JAX does.
+        if t > model.max_len:
+            raise ValueError(f"sequence length {t} exceeds "
+                             f"max_len={model.max_len}")
+        positions = offset + torch.arange(tokens.shape[-1],
+                                          device=tokens.device)[None, :]
+    x = model.tok_embed(tokens)
+    return x + model.pos_embed[positions].to(model.dtype)
+
+
+def final(model: nn.Module, x: torch.Tensor, return_hidden: bool = False) -> torch.Tensor:
+    """The final LayerNorm, then the head unless ``return_hidden`` (JAX
+    ``make_final_norm`` and ``make_lm_head``)."""
+    x = model.ln_f(x)
+    return x if return_hidden else model.lm_head(x)
+
+
 class TransformerLM(nn.Module):
     """GPT-style causal LM: ``tokens`` int ``[B, T]`` (and optional
     ``positions`` ``[B, T]``, default ``0..T-1``, or the chunk's global
@@ -286,7 +326,7 @@ class TransformerLM(nn.Module):
         self.seq_axis, self.mesh, self.tp = seq_axis, mesh, None
         # The Flax module's fields, which the FLOP count reads.
         self.vocab_size, self.hidden_dim, self.mlp_ratio = vocab_size, hidden_dim, mlp_ratio
-        self.moe_num_experts = moe_num_experts
+        self.moe_num_experts, self.moe_every = moe_num_experts, moe_every
         experts_by_layer = moe_layer_experts(num_layers, moe_every, moe_num_experts)
         self.noisy_gate_policy = (moe or {}).get("noisy_gate_policy") if experts_by_layer else None
         self.tok_embed = Embed(vocab_size, hidden_dim, dtype, generator)
@@ -312,30 +352,15 @@ class TransformerLM(nn.Module):
         summed load-balancing loss (a float32 0-d tensor, 0 without MoE).
         ``generator`` draws the dropout masks and the noisy gates' noise in
         training (needed when ``dropout_rate`` > 0)."""
-        if positions is None:
-            t, offset = tokens.shape[-1], 0
-            if self.seq_axis is not None:
-                offset = self.mesh.index(self.seq_axis) * t
-                t *= self.mesh.size(self.seq_axis)
-            # Gathers past the table would fail here, where JAX clamps
-            # them silently: check the (global) length, as JAX does.
-            if t > self.max_len:
-                raise ValueError(f"sequence length {t} exceeds "
-                                 f"max_len={self.max_len}")
-            positions = offset + torch.arange(tokens.shape[-1],
-                                              device=tokens.device)[None, :]
-        x = self.tok_embed(tokens)
-        x = x + self.pos_embed[positions].to(self.dtype)
+        x = embed(self, tokens, positions)
         if self.tp is not None and self.tp.overlap:
             x = self._time_shard(x)
         remat = self.remat and self.training and torch.is_grad_enabled()
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i in range(self.num_layers):
-            block = getattr(self, f"block{i}")
-            x, a = _remat_block(block, x, generator) if remat else block(x, generator)
+            x, a = run_block(getattr(self, f"block{i}"), x, generator, remat)
             aux = aux + a
-        x = self.ln_f(x)
-        out = x if return_hidden else self.lm_head(x)
+        out = final(self, x, return_hidden)
         return (out, aux) if return_aux else out
 
     def _time_shard(self, x: torch.Tensor) -> torch.Tensor:

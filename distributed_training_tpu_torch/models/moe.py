@@ -116,6 +116,16 @@ class MoEContext:
         return cls(mesh.group(AXIS_DATA, AXIS_SEQUENCE) if d > 1 else None,
                    mesh.index(AXIS_DATA), d, ep)
 
+    @classmethod
+    def for_pipeline(cls, mesh) -> "MoEContext | None":
+        """The context of a pipeline stage on ``mesh``: JAX's pipeline is a
+        shard_map manual over ``(pipe, data[, sequence])`` whose stage sees
+        one microbatch, so the gate is local to each (data shard,
+        microbatch[, sequence shard]); the expert group as in
+        :meth:`from_mesh`. None without an expert axis."""
+        ep = ExpertParallel.from_mesh(mesh)
+        return cls(None, 0, 1, ep) if ep is not None else None
+
 
 def copy_to_experts(x: torch.Tensor, ep: ExpertParallel | None) -> torch.Tensor:
     """Identity forward; the gradient summed over the expert group."""

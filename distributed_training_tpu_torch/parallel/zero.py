@@ -49,6 +49,12 @@ group, which never spans the expert axis: each expert rank partitions its
 own experts (DeepSpeed's ``--moe-param-group`` semantics) and its copy of
 the replicated parameters over its data group, and an expert tensor's
 whole norm sums its experts' squares over the expert ranks.
+Under the pipeline (``pp``, a ``pipeline.PipeStage``) the group is the
+replica group at this rank's pipe index (data × sequence there, JAX's
+``extra_axes=opt_axes``): each stage partitions its own blocks' state and
+its copy of the replicated parameters' over it; the clip's global norm
+(:meth:`Zero.global_sq_norm`) sums the blocks' squares over the stages and
+counts the replicated parameters once.
 """
 
 from __future__ import annotations
@@ -92,16 +98,16 @@ class Zero:
 
     ``group`` None means no group: world 1, every collective an identity.
     ``tp``: the tensor-parallel context of the parameters, or None; ``ep``
-    the expert-parallel one, or None.
+    the expert-parallel one, ``pp`` the pipeline stage, or None.
     """
 
     def __init__(self, stage: int = 0, group=None, cpu_offload: bool = False,
-                 tp=None, ep=None):
+                 tp=None, ep=None, pp=None):
         if stage not in STAGES:
             raise ValueError(f"zero stage must be one of {STAGES}, got {stage}")
         check_cpu_offload(cpu_offload, stage)
         self.stage, self.group, self.cpu_offload = stage, group, cpu_offload
-        self.tp, self.ep = tp, ep
+        self.tp, self.ep, self.pp = tp, ep, pp
         self.world = dist.get_world_size(group) if group is not None else 1
         self.rank = dist.get_rank(group) if group is not None else 0
 
@@ -198,12 +204,22 @@ class Zero:
             sq = torch.where(sharded, part, sq)
         return sq
 
+    def global_sq_norm(self, sq: torch.Tensor, names) -> torch.Tensor:
+        """The squared global norm from the whole tensors' squared norms
+        (``sq``, one per name): their sum, the pipeline's blocks summed over
+        the stages (each stage holds others) and the replicated parameters
+        counted once."""
+        mine = torch.tensor([self.pp.dim(n) is not None for n in names], device=sq.device)
+        blocks = torch.where(mine, sq, torch.zeros_like(sq)).sum()
+        dist.all_reduce(blocks, group=self.pp.group)
+        return blocks + torch.where(mine, torch.zeros_like(sq), sq).sum()
+
     def barrier(self) -> None:
-        """Over the group, then over the model and the expert ranks: a rank
-        passes once every rank of each has arrived, the checkpoint writer
-        included."""
+        """Over the group, then over the model, expert and pipe ranks: a
+        rank passes once every rank of each has arrived, the checkpoint
+        writer included."""
         if self.group is not None:
             dist.barrier(group=self.group)
-        for ctx in (self.tp, self.ep):
+        for ctx in (self.tp, self.ep, self.pp):
             if ctx is not None:
                 dist.barrier(group=ctx.group)

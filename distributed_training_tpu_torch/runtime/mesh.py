@@ -20,7 +20,10 @@ group for each set of axes a step reduces over:
   ``perm = [(j, (j - 1) % n)]``: index ``j`` of the group sends to
   ``j - 1`` and receives from ``j + 1``, in one
   ``dist.batch_isend_irecv``. It is differentiable; its backward is the
-  reverse shift, as the transpose of a ``ppermute`` is the reverse hop.
+  reverse shift, as the transpose of a ``ppermute`` is the reverse hop;
+- :func:`pipe_hop` is the other direction, the pipeline's
+  ``perm = [(j, (j + 1) % n)]``: index ``j`` sends to the next stage
+  ``j + 1`` (:func:`shift_prev` forward, :func:`shift_next` backward).
 
 Groups are opened when the mesh is built, by every rank in the same order
 (``dist.new_group`` is collective over the default group).
@@ -48,9 +51,9 @@ CANONICAL_AXES = (
 # The sets of axes the strategies communicate over: the replica group
 # (gradients, metrics and ZeRO; without the expert axis it is also the
 # group of ranks that hold other tokens, over which the MoE gate counts),
-# the tensor-parallel group, the ring and the expert group.
+# the tensor-parallel group, the ring, the expert group and the pipeline.
 _GROUP_AXES = ((AXIS_DATA, AXIS_SEQUENCE), (AXIS_MODEL,), (AXIS_SEQUENCE,),
-               (AXIS_EXPERT,))
+               (AXIS_EXPERT,), (AXIS_PIPE,))
 
 
 def mesh_sizes(spec, world: int) -> dict[str, int]:
@@ -200,3 +203,25 @@ def ring_shift(group, *tensors: torch.Tensor) -> tuple[torch.Tensor, ...]:
     if group is None or dist.get_world_size(group) == 1:
         return tensors
     return _RingShift.apply(group, *tensors)
+
+
+class _PipeHop(torch.autograd.Function):
+    """:func:`shift_prev` forward, :func:`shift_next` backward."""
+
+    @staticmethod
+    def forward(ctx, group, *tensors):
+        ctx.group = group
+        return tuple(shift_prev(list(tensors), group))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, *shift_next(list(grads), ctx.group))
+
+
+def pipe_hop(group, *tensors: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """Differentiable :func:`shift_prev` of ``tensors`` over ``group``:
+    ``lax.ppermute`` by ``[(j, (j + 1) % n)]``, each stage's output to the
+    next stage (an identity when ``group`` is None or this rank alone)."""
+    if group is None or dist.get_world_size(group) == 1:
+        return tensors
+    return _PipeHop.apply(group, *tensors)

@@ -70,11 +70,21 @@ sequence strategy each shard gates its own tokens and its aux loss is
 averaged with the CE over ``data × sequence``, as in JAX's step; under
 tensor parallelism every model rank computes the MoE layers whole.
 
-Not ported: the pipeline step.
+The pipeline step (:func:`make_pp_lm_train_step`, JAX's
+``make_pp_lm_train_step``) is this step on a ``parallel.pipeline.PipelinedLM``:
+one forward and one backward over the model's ``M·accum`` microbatches
+(accumulation multiplies the microbatches, DeepSpeed's pipeline
+semantics), the embeddings' gradient summed over ``pipe``
+(``PipelinedLM.pipe_grads``), then the exchange over the stage's replica
+group and one update. Its CE runs on the broadcast output of the last
+stage; under SP×PP the chunked CE takes JAX's chunk over the full
+``seq_len``, on this shard's time chunk in pieces of ``gcd(ce_chunk,
+T_local)`` (the same sum). ZeRO 3 raises JAX's error.
 """
 
 from __future__ import annotations
 
+import math
 import warnings
 from typing import Callable
 
@@ -87,6 +97,7 @@ from distributed_training_tpu_torch.parallel.collective_matmul import (
 )
 from distributed_training_tpu_torch.parallel.tensor_parallel import copy_to_model
 from distributed_training_tpu_torch.runtime.mesh import AXIS_DATA, AXIS_SEQUENCE
+from distributed_training_tpu_torch.parallel.zero import check_cpu_offload
 from distributed_training_tpu_torch.train.precision import commit_gradients
 from distributed_training_tpu_torch.train.step import dropout_generator
 from distributed_training_tpu_torch.train.train_state import TrainState
@@ -376,7 +387,7 @@ def make_lm_train_step(*, zero_stage: int = 0, grad_accum_steps: int = 1,
                        max_len: int | None = None,
                        ce_chunk: int | None = None, ce_save_probs: bool = False,
                        logits_dtype: torch.dtype = torch.float32,
-                       seed: int = 0) -> Callable:
+                       seed: int = 0, pipeline: bool = False) -> Callable:
     """Build ``step(state, batch) -> metrics`` for batches
     ``{'tokens', 'targets'}`` of ``[B, T]`` integers: the rank's rows, and
     under the sequence strategy its time chunk.
@@ -388,6 +399,8 @@ def make_lm_train_step(*, zero_stage: int = 0, grad_accum_steps: int = 1,
     summed, then averaged, and one optimizer update follows. ``ce_chunk``
     and ``ce_save_probs`` select the CE (see the module docstring;
     together they raise). ``max_len`` bounds the global sequence length.
+    ``pipeline``: the model is a ``PipelinedLM`` (use
+    :func:`make_pp_lm_train_step`).
     """
     if grad_accum_steps < 1:
         raise ValueError(f"grad_accum_steps must be >= 1, got {grad_accum_steps}")
@@ -417,10 +430,11 @@ def make_lm_train_step(*, zero_stage: int = 0, grad_accum_steps: int = 1,
         gen = dropout_generator(model, seed, state.step, _shard_fold(model, zero.rank),
                                 tokens.device)
         ces, auxs, accs = [], [], []
+        chunk = math.gcd(ce_chunk, targets.shape[1]) if pipeline and ce_chunk else ce_chunk
         for tk, tg in zip(tokens.chunk(grad_accum_steps),
                           targets.chunk(grad_accum_steps)):
             ce, aux, acc = _lm_loss_and_grads(
-                model, state.loss_scale, tk, tg, gen, ce_chunk,
+                model, state.loss_scale, tk, tg, gen, chunk,
                 accuracy_metric, logits_dtype, ce_save_probs)
             ces.append(ce)
             auxs.append(aux)
@@ -429,6 +443,8 @@ def make_lm_train_step(*, zero_stage: int = 0, grad_accum_steps: int = 1,
         grads = [p.grad for p in model.parameters()]
         for p in model.parameters():
             p.grad = None
+        if pipeline:
+            grads = model.pipe_grads(names, grads)
         if grad_accum_steps > 1:
             grads = [g / grad_accum_steps for g in grads]
         if overlap is not None:
@@ -455,15 +471,36 @@ def make_lm_train_step(*, zero_stage: int = 0, grad_accum_steps: int = 1,
     return step
 
 
+def make_pp_lm_train_step(*, zero_stage: int = 0, cpu_offload: bool = False,
+                          **kw) -> Callable:
+    """The pipeline step (see the module docstring) for a state whose model
+    is a ``PipelinedLM``; ``kw`` as :func:`make_lm_train_step`'s, without
+    ``grad_accum_steps`` (the model's microbatches hold the accumulation).
+    ZeRO 3 raises JAX's ``NotImplementedError``; ``cpu_offload`` goes
+    through the ZeRO check."""
+    if zero_stage >= 3:
+        raise NotImplementedError(
+            "zero stage 3 does not compose with the pipeline strategy "
+            "(data-sharded params would be all-gathered every pipeline "
+            "tick; DeepSpeed's pipeline engine refuses ZeRO-3 for the same "
+            "reason) — use stage 1/2, or the tensor/dp or sequence "
+            "strategies for stage 3")
+    check_cpu_offload(cpu_offload, zero_stage)
+    return make_lm_train_step(zero_stage=zero_stage, pipeline=True, **kw)
+
+
 def make_lm_eval_fn(ce_chunk: int | None = None,
-                    logits_dtype: torch.dtype = torch.float32) -> Callable:
+                    logits_dtype: torch.dtype = torch.float32,
+                    pipeline: bool = False) -> Callable:
     """Build ``eval_loss(model, batch) -> mean token CE`` (a 0-d tensor of
     the rank's shard of the batch), through the chunked CE when
     ``ce_chunk`` is set, as the JAX trainer's eval does. The sequence
     strategy evaluates through the sharded forward (the ring), as JAX's
     ``make_lm_eval_fn``; tensor parallelism through the vocab-parallel CE;
     ``tp_overlap`` on this model rank's time chunk (the caller averages
-    over the model ranks as over the replica group)."""
+    over the model ranks as over the replica group); ``pipeline`` (a
+    ``PipelinedLM``) through the schedule, the chunked CE as in the
+    pipeline step."""
 
     @torch.no_grad()
     def eval_loss(model: torch.nn.Module, batch: dict) -> torch.Tensor:
@@ -473,8 +510,9 @@ def make_lm_eval_fn(ce_chunk: int | None = None,
             targets = _overlap_targets(targets, model.tp)
         if ce_chunk:
             hidden = model(batch["tokens"], return_hidden=True)
+            chunk = math.gcd(ce_chunk, targets.shape[1]) if pipeline else ce_chunk
             return chunked_ce_and_accuracy(hidden, model.lm_head, targets,
-                                           ce_chunk, accuracy_metric=False,
+                                           chunk, accuracy_metric=False,
                                            logits_dtype=logits_dtype)[0]
         rows, _ = _ce_rows_and_correct(model(batch["tokens"]), targets, False,
                                        False, model.lm_head.tp)

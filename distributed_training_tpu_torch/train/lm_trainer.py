@@ -19,11 +19,23 @@ The strategy follows from the mesh (``cfg.mesh`` over the world size,
 - ``model > 1`` composes with either (TP×SP), and ``tp_overlap`` swaps
   the ring-overlapped collective matmuls in (``parallel/collective_matmul.py``);
   at ``model == 1`` it runs the plain step, as in JAX;
-- MoE (``cfg.moe.enabled``, ``models/moe.py``) runs under every strategy
-  but the pipeline, with the gate scoped as JAX scopes it: global over the
+- ``pipe > 1`` → the pipeline strategy (``parallel/pipeline.py``, JAX
+  ``make_pp_lm_train_step``): each rank holds its stage's blocks, the
+  GPipe (``lm.virtual_stages`` 1) or circular schedule runs
+  ``lm.num_microbatches × accum`` microbatches of the rank's rows (the
+  accumulation multiplies the microbatches, one update a step), and the
+  embeddings, final norm and head are replicated over ``pipe``. It
+  composes with ``data`` (ZeRO 1/2 over each stage's replica group),
+  ``model`` (the stage's blocks by the rule table, the embedding and head
+  vocab-parallel), ``sequence`` (the ring inside each tick) and
+  homogeneous MoE (``moe.every`` 1, one expert count; with an ``expert``
+  axis); ZeRO 3, ``tp_overlap`` and other MoE layouts raise JAX's
+  errors. Eval runs through the same schedule;
+- MoE (``cfg.moe.enabled``, ``models/moe.py``) runs under every strategy,
+  with the gate scoped as JAX scopes it: global over the
   data group under tensor/dp (the GSPMD step), local to each (data,
   sequence) shard under the sequence strategy (JAX's shard_map is manual
-  over both axes). An ``expert`` axis shards every MoE layer's experts
+  over both axes), local to each microbatch under the pipeline. An ``expert`` axis shards every MoE layer's experts
   over its ranks, which hold the same rows (ZeRO partitions over the data
   group only, JAX's ``moe_param_group``); under ``model > 1`` every model
   rank computes the MoE FFN whole, as GSPMD does with leaves the rule
@@ -33,24 +45,25 @@ The strategy follows from the mesh (``cfg.mesh`` over the world size,
   without ``tp_overlap``) microbatch *m* is a contiguous block of the
   global batch, split over the data ranks, and the loaders give each rank
   its shares of the blocks in order (``data/pipeline.py::process_rows``);
-  the sequence strategy and ``tp_overlap`` accumulate shard-locally, as
-  JAX's shard_map steps do.
+  the sequence strategy, ``tp_overlap`` and the pipeline take shard-local
+  microbatches, as JAX's shard_map steps do (pipe ranks at one data index
+  read the same rows).
 
 The configuration checks are the JAX trainer's, with its messages. The
-pipeline (``pipe > 1``) and the ``fsdp`` axis raise
-``NotImplementedError``.
+``fsdp`` axis raises ``NotImplementedError``.
 
 It runs on the card unless ``device="cpu"`` is passed, and raises when
 there is no card and no such request. With ``cfg.lm.attn_impl="flash"``
 every layer's attention runs the K2 (forward) and K3 (backward) kernels
 on the card (each ring hop, under the sequence strategy); with ``remat``
 each block's recompute runs K2 again. The chunked and saved-probabilities
-CE are the step's (``train/lm_step.py``); the process group, the
+CE are the step's (``train/lm_step.py``); under the pipeline each live
+tick's layers run them. The process group, the
 preemption guard, the background checkpoint writer, the metric sinks, the
 wall-clock breakdown and the profiler trace are the image trainer's
 (``train/trainer.py``, :class:`Engine`). Checkpoints are saved in the
-world-1 format (the ZeRO partitions and the TP shards gathered) and load
-at any layout.
+world-1 format (the ZeRO partitions, the TP shards and the pipeline's
+stages gathered, in layer order) and load at any layout.
 """
 
 from __future__ import annotations
@@ -69,6 +82,10 @@ from distributed_training_tpu_torch.data.lm_text import (
 from distributed_training_tpu_torch.models import get_model
 from distributed_training_tpu_torch.models.moe import MoEContext, shard_experts_
 from distributed_training_tpu_torch.ops.flash_attention import check_seq_len
+from distributed_training_tpu_torch.parallel.pipeline import (
+    PipelinedLM,
+    check_pipeline,
+)
 from distributed_training_tpu_torch.parallel.tensor_parallel import (
     ExpertParallel,
     TensorParallel,
@@ -84,6 +101,7 @@ from distributed_training_tpu_torch.runtime.mesh import (
     AXIS_DATA,
     AXIS_EXPERT,
     AXIS_MODEL,
+    AXIS_PIPE,
     AXIS_SEQUENCE,
     Mesh,
 )
@@ -91,6 +109,7 @@ from distributed_training_tpu_torch.train.lm_step import (
     make_lm_batch,
     make_lm_eval_fn,
     make_lm_train_step,
+    make_pp_lm_train_step,
     mean_over_model,
     parse_logits_dtype,
 )
@@ -107,19 +126,32 @@ from distributed_training_tpu_torch.utils.device import set_fp32_math
 
 def unported_lm_fields(cfg: TrainConfig) -> dict[str, bool]:
     """The fields the LM trainer lacks, each with whether ``cfg`` sets it."""
-    return {
-        "mesh axes fsdp and pipe": any(getattr(cfg.mesh, a) != 1 for a in ("fsdp", "pipe")),
-    }
+    return {"mesh axis fsdp": cfg.mesh.fsdp != 1}
 
 
-def check_lm_config(cfg: TrainConfig, seq: int, model_par: int, expert: int = 1) -> None:
+def check_lm_config(cfg: TrainConfig, seq: int, model_par: int, expert: int = 1,
+                    pipe: int = 1, grad_accum: int | None = None) -> None:
     """The JAX trainer's checks of the LM configuration against the
-    sequence, model and expert axis sizes, with its messages."""
+    sequence, model, expert and pipe axis sizes, with its messages (and
+    JAX ``PipelinedLM``'s on the schedule); ``grad_accum`` defaults to
+    ``cfg.gradient_accumulation_steps``."""
+    pipeline = pipe > 1
+    if cfg.tp_overlap and pipeline:
+        raise NotImplementedError(
+            "tp_overlap does not compose with the pipeline strategy "
+            "(the stacked-stage scan keeps `model` automatic for "
+            "GSPMD); use the tensor/dp or sequence strategy")
     if cfg.tp_overlap and cfg.moe.enabled:
         raise NotImplementedError(
             "tp_overlap does not compose with MoE (expert dispatch "
             "relies on GSPMD's expert axis, which the full-manual "
             "overlap region unbinds)")
+    if pipeline and cfg.zero.stage >= 3:
+        raise NotImplementedError(
+            f"zero stage {cfg.zero.stage} does not compose with the "
+            "pipeline strategy (params sharded over data would be "
+            "all-gathered every tick); use stage 1/2 or another "
+            "strategy")
     if cfg.moe.enabled and expert > 1 and cfg.zero.stage >= 1 \
             and not cfg.moe.moe_param_group:
         raise ValueError(
@@ -127,6 +159,22 @@ def check_lm_config(cfg: TrainConfig, seq: int, model_par: int, expert: int = 1)
             "--moe-param-group (expert optimizer state is partitioned "
             "per expert group, DeepSpeed's split_params_into_"
             "different_moe_groups_for_optimizer semantics)")
+    if cfg.moe.enabled and pipeline:
+        homogeneous = (cfg.moe.every == 1
+                       and len(set(cfg.moe.num_experts)) == 1)
+        if not homogeneous:
+            raise NotImplementedError(
+                "the pipeline engine carries MoE only in the "
+                "HOMOGENEOUS layout (--moe-every 1, one expert count: "
+                "the stacked-stage scan requires congruent per-layer "
+                "param trees, which the alternating/per-layer layouts "
+                "break). That already exceeds the parity bar — "
+                "DeepSpeed's PipelineModule cannot carry MoE layers at "
+                "all (deepspeed.moe routes through the non-pipeline "
+                "engine only; the reference's MoE surface, "
+                "resnet/deepspeed/deepspeed_train.py:61-106, drives "
+                "plain DP training). Use tensor/dp or sequence for "
+                "alternating/per-layer MoE")
     if expert > 1 and not cfg.moe.enabled:
         raise ValueError(
             f"expert mesh axis sized {expert} with MoE disabled would "
@@ -147,15 +195,25 @@ def check_lm_config(cfg: TrainConfig, seq: int, model_par: int, expert: int = 1)
     if lm.ce_chunk_size is not None:
         if lm.ce_chunk_size < 1:
             raise ValueError(f"ce_chunk_size must be >= 1, got {lm.ce_chunk_size}")
-        # The shifted loss length is seq_len: seq_len/sp a ring shard, and
-        # tp_overlap time-shards it over the model axis too.
-        t_loss = lm.seq_len // seq
-        if cfg.tp_overlap:
+        # The shifted loss length is seq_len: seq_len/sp a ring shard (the
+        # full seq_len for the pipeline, whose CE JAX runs over the global
+        # time axis), and tp_overlap time-shards it over the model axis too.
+        t_loss = lm.seq_len if pipeline else lm.seq_len // seq
+        if cfg.tp_overlap and not pipeline:
             t_loss //= model_par
         if t_loss % lm.ce_chunk_size:
             raise ValueError(
                 f"ce_chunk_size {lm.ce_chunk_size} must divide the "
                 f"per-shard loss sequence length (= {t_loss})")
+    if pipeline:
+        if lm.num_layers % pipe:
+            raise ValueError(
+                f"pipeline size {pipe} must divide num_layers "
+                f"(= {lm.num_layers})")
+        if cfg.data.batch_size % lm.num_microbatches:
+            raise ValueError(
+                f"num_microbatches {lm.num_microbatches} must divide "
+                f"the per-shard batch_size (= {cfg.data.batch_size})")
     if model_par > 1:
         checks = [("num_heads", lm.num_heads),
                   ("mlp dim", lm.hidden_dim * lm.mlp_ratio)]
@@ -174,6 +232,17 @@ def check_lm_config(cfg: TrainConfig, seq: int, model_par: int, expert: int = 1)
                 f"tensor-parallel size {model_par}")
     if lm.attn_impl == "flash":  # ROADMAP C (e), at each shard's length
         check_seq_len(lm.seq_len // seq)
+    if pipeline:
+        micro = lm.num_microbatches * (cfg.gradient_accumulation_steps
+                                       if grad_accum is None else grad_accum)
+        if cfg.data.batch_size % micro:
+            raise ValueError(
+                f"with the pipeline strategy, gradient_accumulation_steps "
+                f"multiplies the microbatch count (DeepSpeed pipeline "
+                f"semantics): num_microbatches × accum = "
+                f"{micro} must divide the per-shard "
+                f"batch_size (= {cfg.data.batch_size})")
+        check_pipeline(lm.num_layers, pipe, micro, lm.virtual_stages)
 
 
 class LMTrainer(Engine):
@@ -184,9 +253,9 @@ class LMTrainer(Engine):
 
     def __init__(self, cfg: TrainConfig, device: str | torch.device | None = None):
         lm = cfg.lm
-        # num_microbatches and virtual_stages shape the pipeline alone (the
-        # pipe axis, refused with the other axes); without it the JAX
-        # trainer reads neither, and neither does this one.
+        # num_microbatches and virtual_stages shape the pipeline alone;
+        # without the pipe axis the JAX trainer reads neither, and neither
+        # does this one.
         refuse_unported(unported_lm_fields(cfg))
         self.cfg = cfg
         group = initialize_distributed(device=device)
@@ -195,11 +264,16 @@ class LMTrainer(Engine):
         set_fp32_math()
         self.mesh = Mesh(cfg.mesh)
         seq, model_par = self.mesh.size(AXIS_SEQUENCE), self.mesh.size(AXIS_MODEL)
-        self.strategy = "sequence" if seq > 1 else "tensor/dp"
+        pipe = self.mesh.size(AXIS_PIPE)
+        self.strategy = ("pipeline" if pipe > 1 else "sequence" if seq > 1
+                         else "tensor/dp")
+        pipeline = self.strategy == "pipeline"
         self.tp_size = model_par
         expert = self.mesh.size(AXIS_EXPERT)
-        check_lm_config(cfg, seq, model_par, expert)
         self.world_size = self.mesh.data_size
+        self.train_gbs, self.eval_gbs, self.grad_accum = effective_batch_sizes(
+            cfg, self.world_size)
+        check_lm_config(cfg, seq, model_par, expert, pipe, self.grad_accum)
         policy = Policy.from_config(cfg.precision)
         logits_dtype = parse_logits_dtype(lm.logits_dtype)
         moe = cfg.moe
@@ -220,36 +294,50 @@ class LMTrainer(Engine):
             seq_axis=AXIS_SEQUENCE if seq > 1 else None, mesh=self.mesh,
             generator=torch.Generator().manual_seed(cfg.seed), **moe_kwargs,
         )
+        if pipeline:
+            # Accumulation multiplies the microbatches (JAX _pp_microbatches).
+            self._pp_microbatches = lm.num_microbatches * self.grad_accum
+            self.model = PipelinedLM(self.model, num_microbatches=self._pp_microbatches,
+                                     virtual_stages=lm.virtual_stages, mesh=self.mesh)
         self.tp = TensorParallel.from_mesh(self.mesh, overlap=cfg.tp_overlap)
         self.ep = ExpertParallel.from_mesh(self.mesh)
+        pp = self.model.stage if pipeline else None
         shard_model_(self.model, self.tp)
-        shard_experts_(self.model, MoEContext.from_mesh(self.mesh) if moe.enabled else None)
+        if moe.enabled:
+            shard_experts_(self.model, MoEContext.for_pipeline(self.mesh) if pipeline
+                           else MoEContext.from_mesh(self.mesh))
         # JAX's microbatch order where it accumulates under GSPMD; the
-        # shard_map steps (sequence, tp_overlap) accumulate shard-locally.
-        self.global_microbatches = seq == 1 and not (cfg.tp_overlap and model_par > 1)
+        # shard_map steps (sequence, tp_overlap, the pipeline) take
+        # shard-local microbatches.
+        self.global_microbatches = (seq == 1 and not pipeline
+                                    and not (cfg.tp_overlap and model_par > 1))
         self.model.to(self.device)
-        self.train_gbs, self.eval_gbs, self.grad_accum = effective_batch_sizes(
-            cfg, self.world_size)
         self.tx = make_optimizer(cfg.optimizer, cfg.scheduler, self.world_size)
-        # ZeRO over the replica group: data × sequence (JAX _GRAD_AXES);
-        # under an expert axis, each expert rank's own.
+        # ZeRO over the replica group: data × sequence (JAX _GRAD_AXES), at
+        # this rank's pipe index; under an expert axis, each expert rank's own.
         self.state = TrainState.create(
             self.model, self.tx, LossScaleState.create(cfg.precision),
             Zero(cfg.zero.stage, self.mesh.group(AXIS_DATA, AXIS_SEQUENCE),
-                 cfg.zero.cpu_offload, tp=self.tp, ep=self.ep))
-        self.train_step = make_lm_train_step(
-            zero_stage=cfg.zero.stage, grad_accum_steps=self.grad_accum,
-            accuracy_metric=lm.metrics_accuracy, max_len=lm.max_len,
-            ce_chunk=lm.ce_chunk_size, ce_save_probs=lm.ce_save_probs,
-            logits_dtype=logits_dtype, seed=cfg.seed)
-        self.eval_loss = make_lm_eval_fn(lm.ce_chunk_size, logits_dtype)
+                 cfg.zero.cpu_offload, tp=self.tp, ep=self.ep, pp=pp))
+        step_kw = dict(zero_stage=cfg.zero.stage, accuracy_metric=lm.metrics_accuracy,
+                       max_len=lm.max_len, ce_chunk=lm.ce_chunk_size,
+                       ce_save_probs=lm.ce_save_probs, logits_dtype=logits_dtype,
+                       seed=cfg.seed)
+        self.train_step = (make_pp_lm_train_step(cpu_offload=cfg.zero.cpu_offload, **step_kw)
+                           if pipeline else
+                           make_lm_train_step(grad_accum_steps=self.grad_accum, **step_kw))
+        self.eval_loss = make_lm_eval_fn(lm.ce_chunk_size, logits_dtype, pipeline=pipeline)
         self.meter = MetricMeter(cfg.log_interval)
         self._init_run()
         overlap = self.tp is not None and self.tp.overlap
-        label = (self.strategy + ("×tp" if model_par > 1 and seq > 1 else "")
+        label = (self.strategy + ("×sp" if pipeline and seq > 1 else "")
+                 + ("×tp" if model_par > 1 and (seq > 1 or pipeline) else "")
                  + ("(tp-overlap)" if overlap else ""))
+        if pipeline:
+            label += (f"(v={lm.virtual_stages} M={self._pp_microbatches} "
+                      f"bubble={self.model.bubble_fraction:.3f})")
         layout = {a: n for a, n in self.mesh.sizes.items() if n > 1}
-        self.param_count = params = param_count(self.model, self.tp, self.ep)
+        self.param_count = params = param_count(self.model, self.tp, self.ep, pp)
         self.coord.print(
             f"[lm_trainer] params={params:,} "
             f"device={self.device} dtype={cfg.precision.dtype} "

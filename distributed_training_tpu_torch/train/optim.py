@@ -162,7 +162,11 @@ def global_norm(tensors: list[torch.Tensor], zero=None, names=None) -> torch.Ten
     tensors' parameter names) a model-sharded tensor's squared norm is
     summed over the model ranks too, a replicated one counted once, and
     under expert parallelism (``zero.ep``) an expert tensor's over the
-    expert ranks."""
+    expert ranks; under the pipeline (``zero.pp``) the blocks' over the
+    stages, the replicated parameters counted once."""
+    if zero is not None and zero.pp is not None:
+        return zero.global_sq_norm(tensor_norms(tensors, zero, names).square(),
+                                   names).sqrt()
     norms = torch._foreach_norm(tensors, 2)
     if zero is not None and (zero.tp is not None or zero.ep is not None):
         return zero.whole_sq_norms(torch.stack(norms).square(), names).sum().sqrt()

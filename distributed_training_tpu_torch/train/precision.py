@@ -149,8 +149,8 @@ def commit_gradients(state, grads: dict[str, torch.Tensor],
       gradient can still overflow inside Adam (``g² > fp32 max``), and an
       in-place write would then keep an inf moment for good. Under ZeRO
       (stage 1 or more) each rank sees only its shard of the candidate, so
-      the finite flag is all-reduced (MIN) first (over the model ranks
-      too under tensor parallelism): every rank then commits
+      the finite flag is all-reduced (MIN) first (over the model, expert
+      and pipe ranks too, which hold other tensors): every rank then commits
       or skips the same step and keeps the same loss scale. The flag is
       read on the host (one device sync per fp16 step). If it is set, the
       commit swaps references to the candidate, copying nothing; if not,
@@ -176,13 +176,13 @@ def commit_gradients(state, grads: dict[str, torch.Tensor],
     finite_t = all_finite(
         [*grads.values(), *out.values(),
          *(t for slot in candidate.slots.values() for t in slot.values())])
-    if zero.partitions_optimizer or zero.tp is not None or zero.ep is not None:
+    contexts = [c for c in (zero.tp, zero.ep, zero.pp) if c is not None]
+    if zero.partitions_optimizer or contexts:
         finite_t = finite_t.to(torch.int32)
         if zero.partitions_optimizer:
             zero.all_reduce_(finite_t, op=dist.ReduceOp.MIN)
-        for ctx in (zero.tp, zero.ep):  # each model or expert rank sees its own shards
-            if ctx is not None:
-                dist.all_reduce(finite_t, op=dist.ReduceOp.MIN, group=ctx.group)
+        for ctx in contexts:  # each model, expert or pipe rank sees its own tensors
+            dist.all_reduce(finite_t, op=dist.ReduceOp.MIN, group=ctx.group)
     finite = bool(finite_t)
     state.loss_scale = state.loss_scale.update(finite)
     if finite:

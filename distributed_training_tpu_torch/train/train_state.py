@@ -25,13 +25,19 @@ ZeRO partition splits further; a checkpoint gathers them by the rule table
 save resumes at any ``(data, model, sequence)`` layout. The same holds
 for the expert leaves under expert parallelism (``zero.ep``): a save
 gathers every expert over the expert group, and a load cuts this rank's
-block again, at any expert-axis size.
+block again, at any expert-axis size. Under the pipeline (``zero.pp``)
+the model is this rank's stage: a save gathers every stage's blocks over
+the pipe group into the world-1 format, in layer order (with JAX's layout
+metadata beside it, ``layout``), and a load keeps this stage's, so a save
+at any ``(pipe, virtual_stages)`` resumes at any other layout or at
+world 1.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 
 import torch
 
@@ -255,22 +261,28 @@ class TrainState:
 
     def _whole(self, tensors: dict) -> dict:
         """Tensors by parameter name, the model-sharded ones gathered over
-        the model ranks and the expert-sharded ones over the expert ranks
-        (the tensors themselves without either)."""
+        the model ranks and the expert-sharded ones over the expert ranks,
+        then every pipeline stage's blocks over the pipe ranks, in layer
+        order (the tensors themselves without any)."""
         for ctx in self._contexts():
             tensors = {n: gather_tensor(t, ctx.dim(n), ctx) for n, t in tensors.items()}
+        if self.zero.pp is not None:
+            tensors = self.zero.pp.gather(tensors, self._device())
         return tensors
 
     def _local(self, tensors: dict) -> dict:
-        """The converse of :meth:`_whole`: this rank's shards."""
+        """The converse of :meth:`_whole`: this stage's, this rank's shards."""
+        if self.zero.pp is not None:
+            tensors = self.zero.pp.select(tensors)
         for ctx in self._contexts():
             tensors = {n: shard_tensor(t, ctx.dim(n), ctx) for n, t in tensors.items()}
         return tensors
 
     def writes_checkpoints(self) -> bool:
         """Whether this rank writes the saves: the first of its group, on
-        the first model and expert rank."""
-        return self.zero.rank == 0 and all(c.index == 0 for c in self._contexts())
+        the first model, expert and pipe rank."""
+        return self.zero.rank == 0 and all(
+            c.index == 0 for c in (*self._contexts(), self.zero.pp) if c is not None)
 
     def state_dict(self) -> dict:
         """Everything a resume needs, as whole tensors and numbers: the
@@ -286,6 +298,8 @@ class TrainState:
                              for k, v in self.opt_state.slots.items()}},
             "loss_scale": dataclasses.asdict(self.loss_scale),
             "step": self.step,
+            # JAX _ckpt_layout's metadata; nothing here is stored permuted.
+            "layout": self.zero.pp.layout() if self.zero.pp is not None else {},
         }
 
     @torch.no_grad()
@@ -303,10 +317,11 @@ class TrainState:
                              f"differ from the checkpoint's {sorted(saved)}")
         for key, tensors in saved.items():
             mine = self.opt_state.slots[key]
+            tensors = self._local(tensors)
             if set(mine) != set(tensors):
                 raise ValueError(f"optimizer state {key} names differ from "
                                  f"the checkpoint's")
-            for n, t in self._local(tensors).items():
+            for n, t in tensors.items():
                 mine[n].copy_(self.partition(t).view(mine[n].shape))
         self.opt_state.count = int(sd["opt_state"]["count"])
         self.loss_scale = LossScaleState(**sd["loss_scale"])
@@ -314,12 +329,9 @@ class TrainState:
 
 
 def param_count(model: torch.nn.Module, *contexts) -> int:
-    """The model's parameter count; with tensor- or expert-parallel
-    ``contexts`` (None ones skipped), the whole model's: each leaf sharded
-    over one counts its size times the context's."""
-    n = sum(p.numel() for p in model.parameters())
-    for ctx in contexts:
-        if ctx is not None:
-            n += (ctx.size - 1) * sum(p.numel() for name, p in model.named_parameters()
-                                      if ctx.dim(name) is not None)
-    return n
+    """The model's parameter count; with tensor- or expert-parallel contexts
+    or a pipeline stage (None ones skipped), the whole model's: each leaf
+    counts its size times the size of every context it is sharded over."""
+    contexts = [c for c in contexts if c is not None]
+    return sum(p.numel() * math.prod(c.size for c in contexts if c.dim(name) is not None)
+               for name, p in model.named_parameters())

@@ -21,20 +21,25 @@ this script imports nothing of the JAX package). What works:
 - MoE: ``--moe`` swaps every ``--moe-every``-th FFN for ``--num-experts``
   experts (``--top-k``, ``--min-capacity``, ``--noisy-gate-policy``,
   ``--mlp-type``), with the gate global over the data ranks (local to
-  each shard under ``--sp``, as in JAX), and ``--ep-world-size N`` shards
+  each shard under ``--sp``, and to each microbatch under ``--pp``, as in
+  JAX), and ``--ep-world-size N`` shards
   the experts over N ranks that hold the same rows (the rest form the data
   axis; ZeRO ≥ 1 with N > 1 needs the config's ``moe_param_group``, which
   this CLI, like JAX's, has no flag for); MoE composes with ``--sp`` and
   ``--tp``, not with ``--tp-overlap`` (the trainer raises JAX's error);
+- ``--pp S`` pipelines the decoder blocks over S ranks (GPipe over
+  ``--microbatches`` microbatches of each data shard's rows, times
+  ``--gradient-accumulation-steps``; ``--virtual-stages v`` the circular
+  schedule); it composes with ``--tp``, ``--sp``, ``--stage`` 1–2 and
+  ``--moe --moe-every 1`` (with ``--ep-world-size``); ZeRO 3,
+  ``--tp-overlap`` and other MoE layouts raise JAX's errors;
 - ``-c``, ``-i``, ``-r``, ``--auto-resume`` (SIGTERM saves a step-accurate
   checkpoint that it picks up), ``--log-interval``, ``--steps-per-epoch``,
   ``--seed``, ``--wall-clock-breakdown``, ``--profile-dir``,
   ``--tensorboard-dir``, ``--metrics-jsonl``.
 
 The flags of what the port lacks raise ``NotImplementedError`` naming the
-flag when set away from their defaults: ``--pp`` (and beside it
-``--virtual-stages`` and ``--microbatches``, which without it are read by
-nothing, as in the JAX trainer), the flight recorder and the other
+flag when set away from their defaults: the flight recorder and the other
 observability instruments (``--flight-recorder``, ``--trace``,
 ``--metrics-port``, ``--grad-norm-metric``, ``--anomaly-*``) and the chaos
 flags. ``--flight-recorder`` therefore defaults to off, where the JAX
@@ -47,6 +52,7 @@ It runs on the card (``cuda:LOCAL_RANK`` under ``torchrun``) unless
     torchrun --nproc-per-node 1 train.py -b 8 --seq-len 512 --attn-impl flash
     torchrun --nproc-per-node 4 train.py --sp 2 --tp 2 --attn-impl flash  # 4 cards
     torchrun --nproc-per-node 4 train.py --moe --ep-world-size 2 --attn-impl flash
+    torchrun --nproc-per-node 4 train.py --pp 4 --microbatches 4 -b 16 --attn-impl flash
     python train.py --device cpu --num-layers 2 --hidden-dim 32 --seq-len 16 \
         --steps-per-epoch 2 -e 1                               # CPU, micro
 """
@@ -250,20 +256,16 @@ def add_chaos_arguments(parser: argparse.ArgumentParser) -> None:
 
 
 # Flags whose behaviour the port lacks, by dest (ROADMAP.md).
-UNPORTED = ("pp", "flight_recorder", "flight_dir", "trace", "trace_dir", "metrics_port",
+UNPORTED = ("flight_recorder", "flight_dir", "trace", "trace_dir", "metrics_port",
             "grad_norm_metric", "anomaly_detection", "anomaly_action",
             "anomaly_trace_steps")
-# The pipeline's own flags: read by nothing without --pp (as in the JAX
-# trainer), so refused only beside it.
-PIPELINE = ("virtual_stages", "microbatches")
 
 
 def unported_flags(args: argparse.Namespace) -> list[str]:
     """The flags set to something the port cannot honour yet."""
     defaults = build_parser().parse_args([])
     chaos = tuple(k for k in vars(defaults) if k.startswith("chaos_"))
-    pipeline = PIPELINE if args.pp > 1 else ()
-    return [f"--{k.replace('_', '-')}" for k in (*UNPORTED, *pipeline, *chaos)
+    return [f"--{k.replace('_', '-')}" for k in (*UNPORTED, *chaos)
             if getattr(args, k) != getattr(defaults, k)]
 
 

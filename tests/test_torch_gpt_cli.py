@@ -91,12 +91,15 @@ def test_unported_flags_raise_naming_the_flag(argv):
     ``--tp-overlap`` and ``--sp``, which this test once listed, are ported:
     they build the JAX CLI's config (the mesh's model and sequence axes,
     ``tp_overlap``). So are the MoE flags (the ``moe`` config and the
-    expert axis, with and without ``--moe``), and ``--microbatches`` and
-    ``--virtual-stages`` without ``--pp``, where they build the JAX CLI's
-    ``lm`` config; beside ``--pp 2`` they still raise naming the flag."""
+    expert axis, with and without ``--moe``), and the pipeline's: ``--pp``
+    (the mesh's pipe axis), ``--microbatches`` and ``--virtual-stages``
+    (the ``lm`` config), which build the JAX CLI's config with and without
+    ``--pp 2`` (they raised beside it until the pipeline was ported)."""
     if argv[0] in ("--tp", "--tp-overlap", "--sp", "--moe", "--num-experts",
-                   "--ep-world-size", "--top-k", "--microbatches", "--virtual-stages"):
+                   "--ep-world-size", "--top-k", "--microbatches", "--virtual-stages",
+                   "--pp"):
         extras = ([[], ["--moe"]] if argv[0] in ("--num-experts", "--ep-world-size", "--top-k")
+                  else [[], ["--pp", "2"]] if argv[0] in ("--microbatches", "--virtual-stages")
                   else [[]])
         for extra in extras:
             want = JAX_CLI.build_config(_jax_args([*argv, *extra]))
@@ -107,9 +110,6 @@ def test_unported_flags_raise_naming_the_flag(argv):
                     x, y = dataclasses.asdict(x), dataclasses.asdict(y)
                     x = {k: v for k, v in x.items() if k in y}
                 assert x == y, f
-        if argv[0] in ("--microbatches", "--virtual-stages"):
-            with pytest.raises(NotImplementedError, match=argv[0]):
-                PORT_CLI.build_config(_port_args([*argv, "--pp", "2"]))
         return
     with pytest.raises(NotImplementedError, match=argv[0]):
         PORT_CLI.build_config(_port_args(argv))

@@ -12,6 +12,8 @@ eps is 1e-4 so that near-zero gradients do not turn rounding into
 lr-sized steps.
 """
 
+import re
+
 import jax
 import numpy as np
 import pytest
@@ -145,12 +147,16 @@ def test_unported_options_raise(tmp_path, override):
     test_torch_moe_parallel.py, and under the sequence and model axes,
     multi-rank in test_torch_moe_axes.py: at world 1 MoE with a sequence
     or model axis of 2 is the mesh one process cannot hold, as for the
-    dense model. What stays refused: MoE with a pipe axis (the pipeline,
-    ``NotImplementedError`` naming ROADMAP.md), ``tp_overlap`` with MoE
-    (the JAX trainer's ``NotImplementedError``, word for word), and ZeRO ×
-    expert parallelism without ``moe_param_group``, the JAX trainer's
-    ``ValueError``, checked on the mesh sizes since one process cannot
-    hold an expert axis of 2.)"""
+    dense model. So is the pipeline, multi-rank in test_torch_pp_parallel.py:
+    a pipe axis of 2 is a mesh one process cannot hold too. What stays
+    refused: MoE in the alternating layout with a pipe axis (the JAX
+    trainer's ``NotImplementedError``, word for word, checked on the mesh
+    sizes; it named ROADMAP.md until the pipeline was ported),
+    ``tp_overlap`` with MoE (the JAX trainer's ``NotImplementedError``,
+    word for word), ZeRO × expert parallelism without ``moe_param_group``,
+    the JAX trainer's ``ValueError``, checked on the mesh sizes since one
+    process cannot hold an expert axis of 2, and the ``fsdp`` axis,
+    naming ROADMAP.md.)"""
     cfg = _cfg(tcfg, tmp_path, **override)
     if override == dict(tp_overlap=True):
         t = LMTrainer(cfg, device="cpu")
@@ -167,8 +173,15 @@ def test_unported_options_raise(tmp_path, override):
             bad = cfg.replace(mesh=tcfg.MeshSpec(**{axis: 2}))
             with pytest.raises(ValueError, match="not divisible by fixed axes product 2"):
                 LMTrainer(bad, device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="not divisible by fixed axes product 2"):
             LMTrainer(cfg.replace(mesh=tcfg.MeshSpec(pipe=2)), device="cpu")
+        with pytest.raises(NotImplementedError) as info:
+            check_lm_config(cfg, 1, 1, pipe=2)
+        with pytest.raises(NotImplementedError) as want:
+            JaxLMTrainer(jcfg.TrainConfig(model="transformer_lm",
+                                          moe=jcfg.MoEConfig(enabled=True)),
+                         mesh=create_mesh(MeshConfig(data=1, pipe=2), devices=jax.devices()[:2]))
+        assert str(info.value) == str(want.value)
         with pytest.raises(NotImplementedError) as info:
             LMTrainer(cfg.replace(mesh=tcfg.MeshSpec(), tp_overlap=True), device="cpu")
         with pytest.raises(NotImplementedError) as want:
@@ -177,11 +190,11 @@ def test_unported_options_raise(tmp_path, override):
                          mesh=create_mesh(MeshConfig(data=1), devices=jax.devices()[:1]))
         assert str(info.value) == str(want.value)
         return
-    if "mesh" in override and (cfg.mesh.sequence, cfg.mesh.model) != (1, 1):
+    if "mesh" in override and (cfg.mesh.sequence, cfg.mesh.model, cfg.mesh.pipe) != (1, 1, 1):
         with pytest.raises(ValueError, match="not divisible by fixed axes product 2"):
             LMTrainer(cfg, device="cpu")
         return
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
         LMTrainer(cfg, device="cpu")
 
 
@@ -205,15 +218,32 @@ def test_decoded_cache_field_is_an_image_option(tmp_path, prefetch):
     dict(num_microbatches=2), dict(num_microbatches=4), dict(virtual_stages=2),
     dict(virtual_stages=3)], ids=lambda o: "=".join(map(str, next(iter(o.items())))))
 def test_unported_lm_options_raise(tmp_path, lm_override):
-    """The pipeline's options, with the pipe axis they shape, raise. (The
-    chunked and saved-probabilities CE, which this test once listed, are
-    ported: test_torch_lm_ce.py. Without the pipe axis the JAX trainer reads
-    neither option, and the port builds as it does.)"""
+    """The pipeline's options, with the pipe axis they shape, are checked as
+    the JAX trainer checks them (they raised until the pipeline was
+    ported): at pipe 2 over the 2 layers, 2 and 4 microbatches build in
+    both packages, and 2 and 3 virtual stages raise JAX's ``ValueError``,
+    word for word, checked on the mesh sizes since one process cannot hold
+    a pipe axis of 2 (test_torch_pp_parallel.py runs the pipeline over
+    ranks). (The chunked and saved-probabilities CE, which this test once
+    listed, are ported: test_torch_lm_ce.py. Without the pipe axis the JAX
+    trainer reads neither option, and the port builds as it does.)"""
     cfg = _cfg(tcfg, tmp_path)
     cfg = cfg.replace(lm=tcfg.LMConfig(**{**vars(cfg.lm), **lm_override}))
     LMTrainer(cfg, device="cpu")
-    with pytest.raises(NotImplementedError):
-        LMTrainer(cfg.replace(mesh=tcfg.MeshSpec(pipe=2)), device="cpu")
+    jc = _cfg(jcfg, tmp_path, impl="exact")
+    jc = jc.replace(lm=jcfg.LMConfig(**{**vars(jc.lm), **lm_override}))
+    try:
+        JaxLMTrainer(jc, mesh=create_mesh(MeshConfig(data=1, pipe=2), devices=jax.devices()[:2]))
+        want = None
+    except ValueError as e:
+        want = str(e)
+    if "virtual_stages" in lm_override:
+        assert want is not None
+        with pytest.raises(ValueError, match=f"^{re.escape(want)}$"):
+            check_lm_config(cfg, 1, 1, pipe=2)
+    else:
+        assert want is None
+        check_lm_config(cfg, 1, 1, pipe=2)
 
 
 def test_bf16_stays_refused_on_the_image_path(tmp_path):

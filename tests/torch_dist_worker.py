@@ -2,8 +2,9 @@
 ``tests/test_torch_distributed.py`` (:func:`run`, the image step),
 ``tests/test_torch_lm_distributed.py`` (:func:`run_lm`, the LM step and
 ``LMTrainer``) and the sequence- and tensor-parallel tests
-(:func:`run_named`: ring attention, the LM step on a mesh, checkpoints,
-``LMTrainer``) hold against the JAX package.
+(:func:`run_named`: ring attention, the LM step on a mesh, the pipeline
+step, checkpoints, ``LMTrainer``, the GPT CLI) hold against the JAX
+package.
 
 Started by the tests in ``spawn``ed processes (two or four ranks, gloo on
 the CPU): it imports torch and the port only, never JAX. It reads
@@ -540,6 +541,87 @@ def _cli_and_bench(job, rank, world, group):
         models.get_model = get_model
         del os.environ["WORLD_SIZE"]
     return out
+
+
+def _pp_steps(job, rank, world, group):
+    """Each pipeline scenario of ``job["pp_scenarios"]``: the pipeline step
+    on this rank's rows (and time chunk) of the global batches, this rank's
+    stage of the whole initial weights (cut by the rule table under a model
+    axis, its experts under an expert axis); the whole state after the
+    steps (every stage gathered, in layer order) and each step's metrics; a
+    save when asked."""
+    from distributed_training_tpu_torch import checkpoint as ckpt_lib
+    from distributed_training_tpu_torch.config import OptimizerConfig, PrecisionConfig
+    from distributed_training_tpu_torch.models import get_model
+    from distributed_training_tpu_torch.models.moe import MoEContext, shard_experts_
+    from distributed_training_tpu_torch.parallel.pipeline import PipelinedLM
+    from distributed_training_tpu_torch.parallel.tensor_parallel import (
+        ExpertParallel,
+        TensorParallel,
+        shard_model_,
+    )
+    from distributed_training_tpu_torch.parallel.zero import Zero
+    from distributed_training_tpu_torch.train.lm_step import make_pp_lm_train_step
+    from distributed_training_tpu_torch.train.optim import make_optimizer
+    from distributed_training_tpu_torch.train.precision import LossScaleState
+    from distributed_training_tpu_torch.train.train_state import TrainState
+
+    meshes, out = {}, {}
+    for name, sc in job["pp_scenarios"].items():
+        key = tuple(sorted(sc["mesh"].items()))
+        if key not in meshes:  # every rank opens the same groups in turn
+            meshes[key] = _mesh(sc["mesh"])
+        mesh = meshes[key]
+        kw = job[f"{sc['model']}_kw"]
+        seq = {"seq_axis": "sequence", "mesh": mesh} if mesh.size("sequence") > 1 else {}
+        model = get_model("transformer_lm", **kw, **seq)
+        model.load_state_dict(job[f"{sc['model']}_model"])
+        model = PipelinedLM(model, num_microbatches=sc["micro"],
+                            virtual_stages=sc.get("virtual", 1), mesh=mesh)
+        tp = TensorParallel.from_mesh(mesh)
+        shard_model_(model, tp)
+        shard_experts_(model, MoEContext.for_pipeline(mesh))
+        state = TrainState.create(model, make_optimizer(OptimizerConfig(**sc["opt"])),
+                                  LossScaleState.create(PrecisionConfig()),
+                                  Zero(sc["stage"], mesh.group("data", "sequence"), tp=tp,
+                                       ep=ExpertParallel.from_mesh(mesh), pp=model.stage))
+        step = make_pp_lm_train_step(zero_stage=sc["stage"], max_len=kw["max_len"],
+                                     **sc.get("step", {}))
+        metrics = [{k: float(v) for k, v in step(state, _local_batch(b, mesh)).items()}
+                   for b in job[f"{sc['model']}_batches"]]
+        out[name] = {"state": state.state_dict(), "metrics": metrics, "step": state.step,
+                     "layers": model.layers(model.stage.index)}
+        if sc.get("save"):
+            ckpt_lib.save_checkpoint(os.path.join(job["dir"], name), 0, state)
+    return {"pp": out}
+
+
+def _pp_cli(job, rank, world, group):
+    """The GPT CLI's trainer (``gpt/torch_cuda/train.py``'s
+    ``build_trainer``) for each of ``job["pp_cli"]``: ``fit()``'s result
+    and the whole model after it; for each of ``job["pp_refused"]`` the
+    exception's type and message."""
+    import importlib.util
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "port_gpt_cli", os.path.join(root, "gpt", "torch_cuda", "train.py"))
+    cli = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cli)
+    runs = []
+    for argv in job["pp_cli"]:
+        t = cli.build_trainer(argv)
+        runs.append({"result": t.fit(), "strategy": t.strategy,
+                     "bubble": t.model.bubble_fraction,
+                     "model": t.state.state_dict()["model"]})
+    refused = []
+    for argv in job["pp_refused"]:
+        try:
+            cli.build_trainer(argv)
+            refused.append(None)
+        except (NotImplementedError, ValueError) as e:
+            refused.append((type(e).__name__, str(e)))
+    return {"pp_cli": runs, "pp_refused": refused}
 
 
 def run_named(rank: int, world: int, init_file: str, out_dir: str, names: tuple) -> None:
