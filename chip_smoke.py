@@ -121,6 +121,20 @@ Phases, in order; any failure exits non-zero and prints no result line:
    the pipeline step against the plain step's loss within 5e-3, the
    bubble fraction, ms a step beside the plain model's, peak memory and
    a ``{"pipeline": ...}`` line;
+7d4. flight phase: the flight instruments (``observability/``, on by
+   default as in JAX) on full-width ResNet-18 (``Trainer.fit``, batch 100,
+   bf16) and GPT-2-small (``LMTrainer.fit``, B 16 T 1024, bf16, flash,
+   ``hybrid_adam``): recorder off, on, on, off in one process, each train
+   loop iteration timed (the card synchronised at each step's entry), the
+   "on" median within the "off" runs' interquartile spread of the "off"
+   median; one run off and one on under ``torch.cuda.set_sync_debug_mode
+   ("warn")`` with as many synchronising calls; every flush of an "on"
+   run with finite ``mfu``, ``model_flops_per_sec`` and memory keys, its
+   dump rendered by the port's ``flight_report``; then GPT-2-small with
+   every parameter NaN after step 2: ``anomaly_action="skip"`` completes
+   and leaves the dump, the batch ``.npz`` and a non-empty ``torch.profiler``
+   trace of 2 steps, ``"raise"`` raises ``AnomalyError`` after that window;
+   K1 once a step and K2/K3 once a layer a step in every run;
 7e. d-256 phase: K2–K4 at head dims 256 and 160 (padded to 256), and at
    257, 320, 384 and 512 (768 in bf16; the d > 256 kernels, d padded to a
    multiple of 64), in float32, bf16 and fp16, T 100 and 384, causal and
@@ -197,13 +211,19 @@ losses; then the bench's LM leg with ``--tp W``; then (W 4) the pipeline
 through the GPT CLI (``PP_LAYOUTS``: pipe 4 GPipe and circular, pipe 2 ×
 data 2, × model 2, × sequence 2, pipe 4 with accumulation, homogeneous
 MoE at pipe 4 and pipe 2 × expert 2) against DP 4's losses (MoE: the CE),
-and the circular run's save resumed at world 1. ``--mesh PART ...``
-(names of ``MESH_PARTS``: a11, moe, vit, moe_axes, lm, bench, pp) runs
-only those parts.
+and the circular run's save resumed at world 1; then (W 4) the fsdp axis
+(``FSDP_LAYOUTS``: GPT-2-small at fsdp 4 ZeRO 0 and 3, fsdp 2 × data 2
+ZeRO 1, × model 2, × sequence 2, × pipe 2 ZeRO 1, MoE at fsdp 2 × expert
+2; ResNet-18 at fsdp 4 SyncBN; ViT-B/16 at fsdp 2 × model 2), each against
+its DP 4 run's losses, rates, rank 0's peak and its parameter and
+optimizer-state bytes against DP 4's (they must fall by the fsdp size),
+and the fsdp 4 save resumed at world 1. ``--mesh PART ...`` (names of
+``MESH_PARTS``: a11, moe, vit, moe_axes, lm, bench, pp, fsdp) runs only
+those parts.
 
 ``python3 chip_smoke.py --phase NAME ...`` runs the build and only the
-named phases (ring, moe_lm, moe_image, vit, pipeline), without a result
-line.
+named phases (ring, moe_lm, moe_image, vit, pipeline, flight), without a
+result line.
 """
 
 from __future__ import annotations
@@ -1461,6 +1481,317 @@ def pipeline_phase() -> dict:
             "plain_ms": plain_ms}
 
 
+# The flight phase: the flight instruments (observability/), on by default
+# in both trainers, on full-width ResNet-18 (Trainer.fit, batch 100, bf16)
+# and GPT-2-small (LMTrainer.fit, B 16 T 1024, bf16, flash, hybrid_adam).
+# - A/B in one process, recorder off, on, on, off, twice over (FLIGHT_AB;
+#   FLIGHT_STEPS steps at log interval FLIGHT_LOG each): each iteration of
+#   the train loop timed from one step's entry to the next's, the card
+#   synchronised at each entry, so an interval holds the step's device work
+#   and all the loop's host work (the recorder's included, its flushes
+#   too). A run's step time is the mean of its intervals after the first
+#   two. The check fails if the "on" runs' mean step time exceeds the "off"
+#   runs' by more than the spread of the "off" runs' step times (largest
+#   less smallest). Two blocks, not one: with one, a recorder that costs
+#   nothing fails about one run in five under independent run-to-run noise.
+# - Self time: one more run with the recorder on, every call into the
+#   instruments (TrainObservability's on_step, on_flush, on_epoch) and into
+#   the wall clock's phases timed on the host, each kind of call taken at
+#   its median (a wait for the interpreter lock, which the loader's thread
+#   may hold, is not the call's work; the card's clock for CPU time ticks
+#   too coarsely to count it); their sum a step, from the third step on,
+#   must stay
+#   under FLIGHT_SELF_SHARE of the "off" runs' step time. This resolves a
+#   cost far below the A/B's noise, and names where it goes.
+# - Sync count: one run off and one on under
+#   torch.cuda.set_sync_debug_mode("warn"), every synchronising call
+#   counted; the counts must be equal (the recorder adds no host read of
+#   the device; the meter's flushes read alike in both).
+# - The "on" runs' flushes carry mfu, model_flops_per_sec and the memory
+#   keys, finite, and their dump renders through the port's flight_report.
+# - Anomaly: GPT-2-small at log interval 2, every parameter NaN after step
+#   FLIGHT_POISON_AFTER (tests/test_anomaly.py's poisoning): with "skip" the
+#   run completes and leaves the dump, the batch .npz and a non-empty
+#   torch.profiler trace of FLIGHT_TRACE_STEPS steps; with "raise" the
+#   AnomalyError comes after that window. K1 once a step, K2/K3 once a layer
+#   a step, counted from 0 around each run.
+FLIGHT_STEPS, FLIGHT_LOG = 24, 4
+FLIGHT_SYNC_STEPS = 8
+FLIGHT_AB = ("off", "on", "on", "off") * 2
+FLIGHT_SELF_SHARE = 0.01
+FLIGHT_POISON_AFTER, FLIGHT_TRACE_STEPS, FLIGHT_ANOMALY_STEPS = 2, 2, 8
+
+
+def _flight_cfg(kind: str, ckpt_dir: str, steps: int, log: int, **obs):
+    from distributed_training_tpu_torch.config import (
+        CheckpointConfig,
+        DataConfig,
+        LMConfig,
+        ObservabilityConfig,
+        OptimizerConfig,
+        PrecisionConfig,
+        TrainConfig,
+    )
+
+    common = dict(num_epochs=1, log_interval=log, eval_every=0,
+                  optimizer=OptimizerConfig(name="hybrid_adam", lr=1e-3),
+                  precision=PrecisionConfig(dtype="bf16"),
+                  checkpoint=CheckpointConfig(directory=ckpt_dir, interval=0),
+                  observability=ObservabilityConfig(**obs))
+    if kind == "resnet18":
+        return TrainConfig(model="resnet18", data=DataConfig(
+            dataset="synthetic_cifar", batch_size=100, max_steps_per_epoch=steps), **common)
+    return TrainConfig(
+        model="transformer_lm",
+        lm=LMConfig(seq_len=GPT_T, vocab_size=50304, num_layers=GPT_LAYERS,
+                    num_heads=GPT_H, hidden_dim=GPT_H * GPT_D, max_len=GPT_T,
+                    attn_impl="flash", logits_dtype="bf16", head_bias=False,
+                    train_sequences=GPT_B * steps, eval_sequences=GPT_B),
+        data=DataConfig(batch_size=GPT_B, max_steps_per_epoch=steps), **common)
+
+
+def _time_calls(obj, names: tuple, acc: dict, live) -> None:
+    """Wrap the methods ``names`` of ``obj`` so that each call made while
+    ``live()`` appends its host seconds to ``acc[name]``."""
+    def wrap(name, fn):
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                if live():
+                    acc.setdefault(name, []).append(time.perf_counter() - t0)
+        return timed
+
+    for name in names:
+        setattr(obj, name, wrap(name, getattr(obj, name)))
+
+
+def _time_phases(clock, acc: dict, live) -> None:
+    """Wrap ``clock.phase`` so that entering and leaving each phase while
+    ``live()`` appends their host seconds to ``acc["phases"]`` (the body in
+    between is not counted)."""
+    phase = clock.phase
+
+    class Timed:
+        def __init__(self, name):
+            self.cm = phase(name)
+
+        def __enter__(self):
+            t0 = time.perf_counter()
+            self.cm.__enter__()
+            if live():
+                acc.setdefault("phases", []).append(time.perf_counter() - t0)
+
+        def __exit__(self, *exc):
+            t0 = time.perf_counter()
+            self.cm.__exit__(*exc)
+            if live():
+                acc.setdefault("phases", []).append(time.perf_counter() - t0)
+
+    clock.phase = Timed
+
+
+def _self_ms(acc: dict, steps: int) -> dict:
+    """Host ms a step by kind of call, each call taken at its kind's median
+    (a call the loader's thread held up at the interpreter lock would
+    otherwise bill that wait to the instruments), and the plain sum."""
+    out = {k: 1e3 * sorted(v)[len(v) // 2] * len(v) / steps for k, v in acc.items()}
+    out["sum_of_calls"] = 1e3 * sum(sum(v) for v in acc.values()) / steps
+    return out
+
+
+def _flight_run(kind: str, ckpt_dir: str, *, steps: int, log: int, timed: bool = False,
+                sync_debug: bool = False, poison_after: int | None = None,
+                self_time: bool = False, **obs) -> dict:
+    """One ``fit()`` of ``kind`` with ``obs`` as its ObservabilityConfig;
+    the loop intervals (``timed``), the synchronising calls counted
+    (``sync_debug``), the parameters poisoned after ``poison_after`` steps,
+    the host seconds spent in the instruments and the clock's phases
+    (``self_time``); K1/K2/K3 launches from 0; the trainer, and the
+    exception ``fit`` raised."""
+    import warnings
+
+    from distributed_training_tpu_torch import LMTrainer, Trainer
+    from distributed_training_tpu_torch.ops.flash_attention import flash_bwd, flash_fwd
+    from distributed_training_tpu_torch.ops.fused_adam import fused_adam_update
+
+    cfg = _flight_cfg(kind, ckpt_dir, steps, log, **obs)
+    trainer = (Trainer if kind == "resnet18" else LMTrainer)(cfg)
+    step, entries, calls = trainer.train_step, [], []
+
+    def wrapped(state, batch):
+        if timed:
+            torch.cuda.synchronize()
+            entries.append(time.perf_counter())
+        out = step(state, batch)
+        calls.append(1)
+        if len(calls) == poison_after:
+            with torch.no_grad():
+                for p in state.master_params().values():
+                    p.mul_(float("nan"))
+        if timed and len(calls) == steps:
+            torch.cuda.synchronize()
+            entries.append(time.perf_counter())
+        return out
+
+    trainer.train_step = wrapped
+    # Self time from the third step's entry on, as the intervals count.
+    spent, live = {}, lambda: len(calls) >= 2
+    if self_time:
+        _time_calls(trainer.obs, ("on_step", "on_flush", "on_epoch"), spent, live)
+        _time_phases(trainer.clock, spent, live)
+    for fn in (fused_adam_update, flash_fwd, flash_bwd):
+        fn.launches = 0
+    error = None
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        if sync_debug:
+            torch.cuda.set_sync_debug_mode("warn")
+        try:
+            trainer.fit()
+        except Exception as e:  # noqa: BLE001 - the anomaly runs expect one
+            error = e
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [str(w.message) for w in caught if "synchroniz" in str(w.message)]
+    intervals = [1e3 * (b - a) for a, b in zip(entries, entries[1:])][2:]
+    return {"trainer": trainer, "error": error, "calls": len(calls), "syncs": len(syncs),
+            "sync_kinds": sorted(set(s.split("\n")[0][:120] for s in syncs)),
+            "intervals_ms": intervals, "self_s": spent,
+            "launches": {"fused_adam": fused_adam_update.launches,
+                         "flash_fwd": flash_fwd.launches, "flash_bwd": flash_bwd.launches}}
+
+
+def _flight_report_text(path: str) -> str:
+    import contextlib
+    import io
+
+    from distributed_training_tpu_torch.tools import flight_report
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = flight_report.main([path])
+    if rc != 0:
+        raise SystemExit(f"flight: flight_report exited {rc} on {path}")
+    return buf.getvalue()
+
+
+def _check_launches(tag: str, kind: str, launches: dict, steps: int) -> None:
+    want = {"fused_adam": steps}
+    if kind == "gpt2_small":
+        want.update(flash_fwd=GPT_LAYERS * steps, flash_bwd=GPT_LAYERS * steps)
+    if any(launches[k] != n for k, n in want.items()):
+        raise SystemExit(f"flight {tag}: launches {launches}, expected {want}")
+
+
+def flight_phase(ckpt_dir: str) -> dict:
+    """The flight instruments on both trainers (see FLIGHT_STEPS)."""
+    import glob
+    import math
+
+    from distributed_training_tpu_torch.observability import AnomalyError
+
+    out = {"launches": {}}
+    for kind in ("resnet18", "gpt2_small"):
+        ab = {}
+        for i, mode in enumerate(FLIGHT_AB):
+            run = _flight_run(kind, os.path.join(ckpt_dir, f"{kind}_ab{i}"),
+                              steps=FLIGHT_STEPS, log=FLIGHT_LOG, timed=True,
+                              flight_recorder=mode == "on")
+            _check_launches(f"{kind} {mode}", kind, run["launches"], FLIGHT_STEPS)
+            out["launches"][f"flight_{kind}_ab{i}_{mode}"] = run["launches"]
+            ab.setdefault(mode, []).append(run["intervals_ms"])
+            trainer = run.pop("trainer")
+            if mode == "on" and "dump" not in ab:
+                flushes = trainer.obs.recorder.flushes
+                keys = ("mfu", "model_flops_per_sec", "mem_bytes_in_use", "mem_peak_bytes",
+                        "mem_bytes_limit")
+                for f in flushes[1:]:
+                    if not all(isinstance(f.get(k), float) and math.isfinite(f[k])
+                               and f[k] > 0 for k in keys):
+                        raise SystemExit(f"flight {kind}: flush without finite {keys}: {f}")
+                ab["dump"] = trainer.obs.dump()
+                ab["report"] = _flight_report_text(ab["dump"])
+                ab["last_flush"] = flushes[-1]
+            del trainer
+            torch.cuda.empty_cache()
+        step_ms = {m: [sum(x) / len(x) for x in ab[m]] for m in ("on", "off")}
+        on_ms, off_ms = (sum(step_ms[m]) / len(step_ms[m]) for m in ("on", "off"))
+        spread = max(step_ms["off"]) - min(step_ms["off"])
+        run = _flight_run(kind, os.path.join(ckpt_dir, f"{kind}_self"), steps=FLIGHT_STEPS,
+                          log=FLIGHT_LOG, self_time=True)
+        _check_launches(f"{kind} self time", kind, run["launches"], FLIGHT_STEPS)
+        out["launches"][f"flight_{kind}_self"] = run["launches"]
+        self_split = _self_ms(run["self_s"], FLIGHT_STEPS - 2)
+        self_ms = sum(v for k, v in self_split.items() if k != "sum_of_calls")
+        del run["trainer"]
+        syncs = {}
+        for mode in ("off", "on"):
+            run = _flight_run(kind, os.path.join(ckpt_dir, f"{kind}_sync_{mode}"),
+                              steps=FLIGHT_SYNC_STEPS, log=FLIGHT_LOG, sync_debug=True,
+                              flight_recorder=mode == "on")
+            out["launches"][f"flight_{kind}_sync_{mode}"] = run["launches"]
+            syncs[mode] = {"count": run["syncs"], "kinds": run["sync_kinds"]}
+            del run["trainer"]
+        r = out[kind] = {"step_ms": {"on": on_ms, "off": off_ms}, "off_spread_ms": spread,
+                         "run_step_ms": step_ms,
+                         "order": list(FLIGHT_AB), "self_ms_per_step": self_ms,
+                         "self_ms_per_step_by_call": self_split,
+                         "syncs": syncs, "last_flush": ab["last_flush"]}
+        print(f"[flight] {kind}: mean loop interval, recorder off {off_ms:.3f} ms, on "
+              f"{on_ms:.3f} ms (runs in the order {'/'.join(FLIGHT_AB)}: on "
+              f"{r['run_step_ms']['on']}, off {r['run_step_ms']['off']}); off runs' spread "
+              f"{spread:.3f} ms; the instruments and the clock's phases {1e3 * self_ms:.1f} us "
+              f"a step on the host ({100 * self_ms / off_ms:.3f}% of the off step; by call "
+              f"{self_split}); "
+              f"synchronising calls off {syncs['off']['count']}, on {syncs['on']['count']} "
+              f"({syncs['on']['kinds']}); last flush {ab['last_flush']}", flush=True)
+        print("[flight] " + ab["report"].replace("\n", "\n[flight] ").rstrip(), flush=True)
+        if on_ms - off_ms > spread:
+            raise SystemExit(f"flight {kind}: recorder on {on_ms:.3f} ms against off "
+                             f"{off_ms:.3f} ms, more than the off runs' spread {spread:.3f}")
+        if self_ms > FLIGHT_SELF_SHARE * off_ms:
+            raise SystemExit(f"flight {kind}: the instruments take {self_ms:.4f} ms a step, "
+                             f"over {FLIGHT_SELF_SHARE:.0%} of the {off_ms:.3f} ms step")
+        if syncs["on"]["count"] != syncs["off"]["count"]:
+            raise SystemExit(f"flight {kind}: synchronising calls on {syncs['on']} "
+                             f"against off {syncs['off']}")
+    for action in ("skip", "raise"):
+        d = os.path.join(ckpt_dir, f"anomaly_{action}")
+        run = _flight_run("gpt2_small", d, steps=FLIGHT_ANOMALY_STEPS, log=2,
+                          poison_after=FLIGHT_POISON_AFTER, grad_norm=True,
+                          anomaly_detection=True, anomaly_action=action,
+                          anomaly_trace_steps=FLIGHT_TRACE_STEPS)
+        out["launches"][f"flight_gpt2_small_anomaly_{action}"] = run["launches"]
+        trainer, err = run.pop("trainer"), run["error"]
+        flight = os.path.join(d, "flight")
+        dumps = glob.glob(os.path.join(flight, "anomaly_step*_flight.json"))
+        npz = glob.glob(os.path.join(flight, "anomaly_step*_batch.npz"))
+        traces = glob.glob(os.path.join(flight, "anomaly_step*_trace", "trace_*.json"))
+        events = (len(json.load(open(traces[0])).get("traceEvents", []))
+                  if traces else 0)
+        # Seen at the flush after the poisoned step, traced over the next
+        # FLIGHT_TRACE_STEPS steps; "raise" stops the run there.
+        seen = 2 * (FLIGHT_POISON_AFTER // 2 + 1)
+        want_calls = (FLIGHT_ANOMALY_STEPS if action == "skip"
+                      else seen + FLIGHT_TRACE_STEPS)
+        r = out[f"anomaly_{action}"] = {
+            "error": repr(err), "calls": run["calls"], "dumps": len(dumps),
+            "npz": len(npz), "trace_events": events, "launches": run["launches"],
+            "anomalies": (json.load(open(dumps[0]))["anomalies"] if dumps else [])}
+        print(f"[flight] anomaly ({action}): {r}", flush=True)
+        ok_error = (err is None if action == "skip"
+                    else isinstance(err, AnomalyError) and "non-finite loss" in str(err))
+        if not (ok_error and run["calls"] == want_calls and len(dumps) == 1
+                and len(npz) == 1 and events > 0):
+            raise SystemExit(f"flight anomaly {action}: {r}, expected {want_calls} steps")
+        _check_launches(f"anomaly {action}", "gpt2_small", run["launches"], want_calls)
+        del trainer
+        torch.cuda.empty_cache()
+    return out
+
+
 def exp2_phase() -> dict:
     """Under ``_USE_EXP2``: K2, K3 and K4 against the plain versions (which
     read the switch too) over the grid's bf16 causal cases and at the flash
@@ -1905,8 +2236,20 @@ def _gpt_cli_module():
     return cli
 
 
+def _peak_start() -> int:
+    """The bytes allocated before a run, its peak counter reset: earlier
+    runs' garbage collected first, so that none of it is freed during the
+    run and hides the run's own peak."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
 def _gpt_cli_run(cli, argv: list, edit=None, eval_before: bool = False,
-                 keep_model: bool = False) -> dict:
+                 keep_model: bool = False, probe=None) -> dict:
     """``build_trainer(argv).fit()`` with each train step timed on the card
     (synchronised before and after); its losses, step times, peak memory
     (above what the process held before the run: earlier phases keep some
@@ -1915,13 +2258,12 @@ def _gpt_cli_run(cli, argv: list, edit=None, eval_before: bool = False,
     such as the optimizer); ``eval_before`` evaluates once before training
     too (``ppl_before``). With MoE layers, each step's aux loss and each
     layer's kept share of (token, choice) pairs; ``keep_model``: the whole
-    model after the run, on the host (every rank must ask for it)."""
+    model after the run, on the host (every rank must ask for it);
+    ``probe(trainer)`` is called after the run."""
     from distributed_training_tpu_torch import LMTrainer
     from distributed_training_tpu_torch.models.moe import MoEMlp
 
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    start = torch.cuda.memory_allocated()
+    start = _peak_start()
     if edit is None:
         trainer = cli.build_trainer(argv)
     else:
@@ -1956,6 +2298,8 @@ def _gpt_cli_run(cli, argv: list, edit=None, eval_before: bool = False,
            "bubble": getattr(trainer.model, "bubble_fraction", None)}
     if keep_model:
         run["model"] = {n: t.cpu() for n, t in trainer.state.state_dict()["model"].items()}
+    if probe is not None:
+        probe(trainer)
     del trainer
     torch.cuda.empty_cache()
     return run
@@ -2767,9 +3111,7 @@ def _image_run(cfg) -> dict:
     from distributed_training_tpu_torch import Trainer
     from distributed_training_tpu_torch.ops.fused_adam import fused_adam_update
 
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    start = torch.cuda.memory_allocated()
+    start = _peak_start()
     trainer = Trainer(cfg)
     step, times = trainer.train_step, []
 
@@ -3217,7 +3559,261 @@ def pp_resume(ckpt: str, saved_model: dict) -> dict:
     return {"bitwise": same, "losses": run["losses"], "steps": run["result"]["steps"]}
 
 
-MESH_PARTS = ("a11", "moe", "vit", "moe_axes", "lm", "bench", "pp")
+# The fsdp axis in the mesh mode (four ranks; no CLI has a flag for it, as
+# in JAX, so each run's config gains MeshSpec.fsdp): GPT-2-small through the
+# GPT CLI's trainer at the global batch GPT_B (bf16, flash, hybrid_adam,
+# MESH_STEPS steps) as DP 4 (the reference, ZeRO 0), fsdp 4 at ZeRO 0 (its
+# save resumed at world 1) and ZeRO 3, fsdp 2 x DP 2 at ZeRO 1, fsdp 2 x TP
+# 2, fsdp 2 x SP 2, fsdp 2 x PP 2 at ZeRO 1; MoE every 2nd layer at
+# MOE_NODROP_CAPACITY as DP 4 and fsdp 2 x EP 2; ResNet-18 (the A11 config,
+# fp32 SyncBN) and ViT-B/16 (VIT_MESH_BATCH a rank, bf16) as DP 4 and at
+# fsdp 4, fsdp 2 x TP 2. Each step's loss against its DP 4 run's (an LM's
+# fsdp ranks run the same rows, so the LM layouts are world 1's step on
+# the same global batch, as DP 4's is): GPT_STAGE_RTOL, and DP_LOSS_RTOL
+# in fp32 for ResNet-18. Rank 0's parameter and optimizer-state bytes
+# against its DP 4 run's (ZeRO 0): they must fall by at least the fsdp
+# size (less 2% for the flat rule's padding).
+FSDP_LAYOUTS = (
+    ("dp4", ["-b", str(GPT_B // 4)], 1),
+    ("fsdp4_zero0", ["-b", str(GPT_B // 4), "-i", "1"], 4),
+    ("fsdp4_zero3", ["-b", str(GPT_B // 4), "--stage", "3"], 4),
+    ("fsdp2_dp2_zero1", ["-b", str(GPT_B // 4), "--stage", "1"], 2),
+    ("fsdp2_tp2", ["-b", str(GPT_B // 2), "--tp", "2"], 2),
+    ("fsdp2_sp2", ["-b", str(GPT_B // 2), "--sp", "2"], 2),
+    ("fsdp2_pp2_zero1", ["-b", str(GPT_B // 2), "--pp", "2", "--microbatches", "2",
+                         "--stage", "1"], 2),
+    ("moe_dp4", ["-b", str(GPT_B // 4), "--moe"], 1),
+    ("moe_fsdp2_ep2", ["-b", str(GPT_B // 2), "--moe", "--ep-world-size", "2"], 2),
+)
+FSDP_IMAGE_LAYOUTS = (("resnet18_dp4", "resnet18", {"data": 4}),
+                      ("resnet18_fsdp4", "resnet18", {"data": 1, "fsdp": 4}),
+                      ("vit_dp4", "vit_b16", {"data": 4}),
+                      ("vit_fsdp2_tp2", "vit_b16", {"data": 1, "fsdp": 2, "model": 2}))
+FSDP_BYTES_SLACK = 0.98
+
+
+def _state_bytes(trainer) -> dict:
+    """Bytes of the parameters (the shards where they are held so) and of
+    the optimizer state this rank holds."""
+    st = trainer.state
+    params = st.shards if st.shards is not None else st.params()
+    return {"params": sum(t.numel() * t.element_size() for t in params.values()),
+            "opt": sum(t.numel() * t.element_size() for slot in st.opt_state.slots.values()
+                       for t in slot.values())}
+
+
+def _fsdp_bytes_check(name: str, got: dict, ref: dict, fsdp: int) -> dict:
+    ratios = {k: ref[k] / got[k] for k in ("params", "opt")}
+    if fsdp > 1:
+        for k, r in ratios.items():
+            _mesh_check(f"mesh {name} {k} bytes fall by the fsdp size {fsdp} (ratio {r:.3f})",
+                        fsdp * FSDP_BYTES_SLACK - r, 0.0)
+    return ratios
+
+
+def fsdp_mesh(world: int, ckpt: str, card: str) -> dict:
+    """The fsdp layouts (see FSDP_LAYOUTS): losses, tokens/s or images/s,
+    rank 0's peak and state bytes; returns them and the whole model the
+    ``fsdp4_zero0`` run saved."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from distributed_training_tpu_torch.config import (
+        DataConfig,
+        MeshSpec,
+        OptimizerConfig,
+        PrecisionConfig,
+        TrainConfig,
+        ZeroConfig,
+    )
+    from distributed_training_tpu_torch.ops.flash_attention import flash_bwd, flash_fwd
+    from distributed_training_tpu_torch.ops.fused_adam import fused_adam_update
+
+    if world != 4:
+        raise SystemExit("chip_smoke --mesh fsdp: the layouts need four ranks")
+    rank, results, refs, saved = dist.get_rank(), {}, {}, None
+    cli = _gpt_cli_module()
+    for name, flags, fsdp in FSDP_LAYOUTS:
+        state_bytes = {}
+
+        def edit(cfg, fsdp=fsdp):
+            cfg = _hybrid_adam(cfg).replace(mesh=dataclasses.replace(cfg.mesh, fsdp=fsdp))
+            if cfg.moe.enabled:
+                cfg = cfg.replace(moe=dataclasses.replace(
+                    cfg.moe, capacity_factor=MOE_NODROP_CAPACITY))
+            return cfg
+
+        def probe(trainer, store=state_bytes):
+            store.update(_state_bytes(trainer))
+
+        fused_adam_update.launches = flash_fwd.launches = flash_bwd.launches = 0
+        run = _gpt_cli_run(cli, [*GPT_CLI_WIDTH, *flags, "-c", os.path.join(ckpt, name)],
+                           edit, keep_model=name == "fsdp4_zero0", probe=probe)
+        if len(run["losses"]) != MESH_STEPS or not all(math.isfinite(x) for x in run["losses"]):
+            raise SystemExit(f"mesh {name}: non-finite losses {run['losses']}")
+        if fused_adam_update.launches != MESH_STEPS or min(flash_fwd.launches,
+                                                           flash_bwd.launches) == 0:
+            raise SystemExit(f"mesh {name}: rank {rank} launches K1 "
+                             f"{fused_adam_update.launches}, K2 {flash_fwd.launches}, "
+                             f"K3 {flash_bwd.launches}")
+        ref_name = "moe_dp4" if name.startswith("moe") else "dp4"
+        ref = refs.setdefault(ref_name, {"losses": run["losses"], "bytes": state_bytes})
+        worst = _rel_losses(run["losses"], ref["losses"])
+        if name != ref_name:
+            _mesh_check(f"mesh {name} losses vs {ref_name}", worst, GPT_STAGE_RTOL)
+        ratios = _fsdp_bytes_check(name, state_bytes, ref["bytes"], fsdp)
+        if "model" in run:
+            saved = run.pop("model")
+        results[name] = {"losses": run["losses"], "worst_rel_vs_dp4": worst,
+                         "tokens_per_s": run["tokens_per_s"],
+                         "step_ms": 1e3 * sum(run["step_s"][1:]) / (MESH_STEPS - 1),
+                         "peak_gib_rank0": run["peak_bytes"] / 2**30,
+                         "state_bytes_rank0": state_bytes,
+                         "dp4_over_this_bytes": ratios, "strategy": run["strategy"]}
+        if rank == 0:
+            r = results[name]
+            print(f"[mesh] {name} over {world} GPUs (GPT-2-small{' MoE' if 'moe' in name else ''}"
+                  f", global B {GPT_B} T {GPT_T}, bf16, flash, hybrid_adam; {r['strategy']}): "
+                  f"{r['tokens_per_s']:.1f} tokens/s, {r['step_ms']:.3f} ms a step, peak "
+                  f"{r['peak_gib_rank0']:.3f} GiB on rank 0, parameters "
+                  f"{state_bytes['params'] / 2**20:.1f} MiB and optimizer state "
+                  f"{state_bytes['opt'] / 2**20:.1f} MiB on rank 0 ({ref_name}'s over this: "
+                  f"{ratios['params']:.3f}, {ratios['opt']:.3f}); losses {r['losses']} "
+                  f"({worst:.3g} relative of {ref_name}'s, tolerance {GPT_STAGE_RTOL}); {card}",
+                  flush=True)
+    for name, model, mesh in FSDP_IMAGE_LAYOUTS:
+        fsdp = mesh.get("fsdp", 1)
+        if model == "resnet18":
+            cfg = _a11_config("torch_ddp", os.path.join(ckpt, name), world,
+                              mesh=MeshSpec(**mesh))
+            tol, unit = DP_LOSS_RTOL["fp32"], "ResNet-18, fp32 SyncBN"
+        else:
+            cfg = TrainConfig(
+                model="vit_b16", num_epochs=1, log_interval=1, eval_every=0,
+                mesh=MeshSpec(**mesh), zero=ZeroConfig(stage=0),
+                precision=PrecisionConfig(dtype="bf16"),
+                optimizer=OptimizerConfig(name="hybrid_adam", eps=A11_EPS),
+                data=DataConfig(dataset="synthetic_imagenet", image_size=224,
+                                num_classes=1000, batch_size=VIT_MESH_BATCH,
+                                max_steps_per_epoch=DP_STEPS, augment="none"),
+                checkpoint=_ckpt_cfg(os.path.join(ckpt, name), interval=0))
+            tol, unit = GPT_STAGE_RTOL, "ViT-B/16, bf16, synthetic 224²"
+        run = _image_run(cfg)
+        trainer = run.pop("trainer")
+        state_bytes = _state_bytes(trainer)
+        losses = run["losses"]
+        if len(losses) != DP_STEPS or not all(math.isfinite(x) for x in losses):
+            raise SystemExit(f"mesh {name}: expected {DP_STEPS} finite losses, got {losses}")
+        if run["launches"] != DP_STEPS:
+            raise SystemExit(f"mesh {name}: rank {rank} K1 launches {run['launches']}")
+        ref = refs.setdefault(model, {"losses": losses, "bytes": state_bytes})
+        worst = _rel_losses(losses, ref["losses"])
+        if fsdp > 1:
+            _mesh_check(f"mesh {name} losses vs {model}_dp4", worst, tol)
+        ratios = _fsdp_bytes_check(name, state_bytes, ref["bytes"], fsdp)
+        results[name] = {**{k: run[k] for k in ("losses", "images_per_s", "peak_gib")},
+                         "worst_rel_vs_dp4": worst, "state_bytes_rank0": state_bytes,
+                         "dp4_over_this_bytes": ratios, "global_batch": trainer.train_gbs}
+        if rank == 0:
+            print(f"[mesh] {name} over {world} GPUs ({unit}, global batch "
+                  f"{trainer.train_gbs}, hybrid_adam): {run['images_per_s']:.1f} images/s, "
+                  f"peak {run['peak_gib']:.3f} GiB on rank 0, parameters "
+                  f"{state_bytes['params'] / 2**20:.1f} MiB and optimizer state "
+                  f"{state_bytes['opt'] / 2**20:.1f} MiB on rank 0 (dp4's over this: "
+                  f"{ratios['params']:.3f}, {ratios['opt']:.3f}); losses {losses} "
+                  f"({worst:.3g} relative of dp4's, tolerance {tol}); {card}", flush=True)
+        del trainer
+        torch.cuda.empty_cache()
+    return {"layouts": results, "saved_model": saved}
+
+
+# The flight recorder across four cards: GPT-2-small at fsdp 2 × DP 2, ZeRO 1,
+# the mesh layouts' CLI flags (log interval 1: a flush, and so a gloo
+# exchange of the straggler payloads, every step), recorder off, on, on,
+# off twice over, FSDP_AB_STEPS steps each; each loop interval timed from
+# one step's entry to the next's (card synchronised there), a run's step
+# time the mean after the first two. Reported, not gated: four-card rates
+# vary by up to 2x between calls.
+FSDP_AB_STEPS = 12
+
+
+def fsdp_flight_ab(world: int, ckpt: str, card: str) -> dict:
+    """The recorder's cost on four cards (see FSDP_AB_STEPS)."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from distributed_training_tpu_torch import LMTrainer
+
+    cli = _gpt_cli_module()
+    argv = [*GPT_CLI_WIDTH, "-b", str(GPT_B // 4), "--stage", "1",
+            "--steps-per-epoch", str(FSDP_AB_STEPS)]
+    runs = {"on": [], "off": []}
+    for i, mode in enumerate(FLIGHT_AB):
+        args = cli.build_parser().parse_args([*argv, "-c", os.path.join(ckpt, f"ab{i}")])
+        cfg = _hybrid_adam(cli.build_config(args))
+        cfg = cfg.replace(mesh=dataclasses.replace(cfg.mesh, fsdp=2),
+                          observability=dataclasses.replace(
+                              cfg.observability, flight_recorder=mode == "on"))
+        trainer = LMTrainer(cfg, device=args.device)
+        step, entries = trainer.train_step, []
+
+        def timed(state, batch, step=step, entries=entries):
+            torch.cuda.synchronize()
+            entries.append(time.perf_counter())
+            return step(state, batch)
+
+        trainer.train_step = timed
+        trainer.fit()
+        torch.cuda.synchronize()
+        entries.append(time.perf_counter())
+        intervals = [b - a for a, b in zip(entries, entries[1:])][2:]
+        runs[mode].append(1e3 * sum(intervals) / len(intervals))
+        del trainer
+        torch.cuda.empty_cache()
+    # Rank 0's step is every rank's (each step ends in collectives).
+    on_ms, off_ms = (sum(runs[m]) / len(runs[m]) for m in ("on", "off"))
+    out = {"step_ms": {"on": on_ms, "off": off_ms}, "run_step_ms": runs,
+           "off_spread_ms": max(runs["off"]) - min(runs["off"]), "order": list(FLIGHT_AB)}
+    if dist.get_rank() == 0:
+        print(f"[mesh] fsdp2_dp2_zero1 flight recorder A/B over {world} GPUs (log interval 1, "
+              f"{FSDP_AB_STEPS} steps a run, runs {'/'.join(FLIGHT_AB)}): mean loop interval "
+              f"off {off_ms:.3f} ms, on {on_ms:.3f} ms ({on_ms - off_ms:+.3f}); runs on "
+              f"{runs['on']}, off {runs['off']}; off runs' spread {out['off_spread_ms']:.3f} ms;"
+              f" {card}", flush=True)
+    return out
+
+
+def fsdp_resume(ckpt: str, saved_model: dict) -> dict:
+    """Rank 0 alone, after the group closed: the ``fsdp4_zero0`` save loaded
+    at world 1 (the whole model, bit for bit), then trained on for one
+    more epoch."""
+    from distributed_training_tpu_torch import checkpoint as ckpt_lib
+
+    cli = _gpt_cli_module()
+    directory = os.path.join(ckpt, "fsdp4_zero0")
+    argv = [*GPT_CLI_WIDTH, "-c", directory, "-i", "0"]
+    with _Alone():
+        probe = cli.build_trainer(argv)
+        ckpt_lib.restore_checkpoint(directory, 0, probe.state)
+        loaded = probe.state.state_dict()["model"]
+        del probe
+        torch.cuda.empty_cache()
+        run = _gpt_cli_run(cli, [*argv, "-r", "0", "-e", "2"], _hybrid_adam)
+    same = (set(loaded) == set(saved_model)
+            and all(torch.equal(loaded[n].cpu(), t.cpu()) for n, t in saved_model.items()))
+    print(f"[mesh] the fsdp4_zero0 save loaded at world 1: whole model bit for bit {same}; "
+          f"epoch 2 at world 1 from it: losses {run['losses']}, "
+          f"{run['result']['steps']} committed steps", flush=True)
+    if not same or run["result"]["steps"] != 2 * MESH_STEPS:
+        raise SystemExit("fsdp: the fsdp 4 checkpoint did not resume at world 1")
+    if not all(math.isfinite(x) for x in run["losses"]):
+        raise SystemExit(f"fsdp resume: non-finite losses {run['losses']}")
+    return {"bitwise": same, "losses": run["losses"], "steps": run["result"]["steps"]}
+
+
+MESH_PARTS = ("a11", "moe", "vit", "moe_axes", "lm", "bench", "pp", "fsdp")
 
 
 def mesh_main(parts: list | None = None) -> int:
@@ -3270,10 +3866,15 @@ def mesh_main(parts: list | None = None) -> int:
             results["vit"] = vit_mesh(world, ckpt, card)
         if "moe_axes" in parts:
             results["moe_axes"] = moe_axes_mesh(world, ckpt, card)
-        pp_saved = None
+        pp_saved = fsdp_saved = None
         if "pp" in parts:
             results["pp"] = pp_mesh(world, ckpt, card)
             pp_saved = results["pp"].pop("saved_model")
+        if "fsdp" in parts:
+            results["fsdp"] = fsdp_mesh(world, ckpt, card)
+            fsdp_saved = results["fsdp"].pop("saved_model")
+            results["fsdp"]["flight_ab"] = fsdp_flight_ab(world, os.path.join(ckpt, "fsdp_ab"),
+                                                          card)
         for name, flags in (_mesh_strategies(world) if "lm" in parts else []):
             flash_fwd.launches = flash_bwd.launches = 0
             run = _gpt_cli_run(cli, [*GPT_CLI_WIDTH, "--stage", "1", *flags,
@@ -3315,6 +3916,8 @@ def mesh_main(parts: list | None = None) -> int:
             results["a11"]["zero1_resume_world1"] = a11_resume(world, ckpt, saved)
         if rank == 0 and pp_saved is not None:
             results["pp"]["pp4_v3_resume_world1"] = pp_resume(ckpt, pp_saved)
+        if rank == 0 and fsdp_saved is not None:
+            results["fsdp"]["fsdp4_zero0_resume_world1"] = fsdp_resume(ckpt, fsdp_saved)
     if rank != 0:  # rank 0 saw the same comparisons, and reports them
         return 0
     print(json.dumps({"mesh": results}, default=str), flush=True)
@@ -3335,7 +3938,7 @@ def phase_main(names: list) -> int:
 
     phases = {"ring": lambda d: ring_phase(), "moe_lm": moe_lm_phase,
               "moe_image": moe_image_phase, "vit": lambda d: vit_phase(),
-              "pipeline": lambda d: pipeline_phase()}
+              "pipeline": lambda d: pipeline_phase(), "flight": flight_phase}
     if not names or any(n not in phases for n in names):
         print(f"chip_smoke --phase: name one or more of {sorted(phases)}", file=sys.stderr)
         return 2
@@ -3389,6 +3992,7 @@ def main() -> int:
         gpt = gpt_cli_phase(os.path.join(ckpt, "gpt_cli"))
         moe_lm = moe_lm_phase(os.path.join(ckpt, "moe_lm"))
         moe_img = moe_image_phase(os.path.join(ckpt, "moe_image"))
+        flight = flight_phase(os.path.join(ckpt, "flight"))
     pipe = pipeline_phase()
     half = fp16_pad_phase()
     d256 = d256_phase()
@@ -3438,7 +4042,8 @@ def main() -> int:
                      + sum(n["fused_adam"] for n in bench_lm.values())
                      + sum(data["launches"].values())
                      + moe_lm["launches"]["fused_adam"] + moe_img["launches"]
-                     + sum(r["fused_adam"] for r in pipe["runs"].values())),
+                     + sum(r["fused_adam"] for r in pipe["runs"].values())
+                     + sum(r["fused_adam"] for r in flight["launches"].values())),
         "launches_by_path": {"resnet18_train": launches,
                              **{f"resnet18_train_{tag}": n for tag, n in bf16.items()},
                              **{f"resnet18_{p}_nccl_world1": r["launches"]
@@ -3452,7 +4057,8 @@ def main() -> int:
                                 for n, r in moe_lm["runs"].items()},
                              "moe_mlp_cli": moe_img["launches"],
                              **{f"pipeline_{n}_bf16_steps": r["fused_adam"]
-                                for n, r in pipe["runs"].items()}},
+                                for n, r in pipe["runs"].items()},
+                             **{p: r["fused_adam"] for p, r in flight["launches"].items()}},
         **k, "ok": True,
     }, *({
         "name": name, "route": "cuda", "source": src, "replaces": f"{ref}:{line}",
@@ -3464,7 +4070,8 @@ def main() -> int:
                             **{p: n[name] for p, n in bench_lm.items()},
                             **{f"ring_{c}": r["launches"][name] for c, r in ring.items()},
                             **{f"pipeline_{n}_step": r["launches"][name]
-                               for n, r in pipe["runs"].items()}}
+                               for n, r in pipe["runs"].items()},
+                            **{p: r[name] for p, r in flight["launches"].items() if r[name]}}
                            if name in lm else {})),
         **({"ring": {c: {"launches": r["launches"][name], "hops": r["hops"],
                          "rank_hop_ms": [x["K2" if name == "flash_fwd" else "K3"]
@@ -3493,6 +4100,8 @@ def main() -> int:
     }]
     print(json.dumps({"vit": vit}))
     print(json.dumps({"pipeline": pipe}))
+    print(json.dumps({"flight": {k: v for k, v in flight.items() if k != "launches"}},
+                     default=str))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -5,13 +5,13 @@ Field names and defaults are the JAX package's, so a config written for
 one package means the same run in the other. The port keeps its own copy:
 importing anything of ``distributed_training_tpu`` would import JAX.
 
-Not carried over yet (see ROADMAP.md): ``ServeConfig``,
-``ObservabilityConfig``, ``ChaosConfig`` and ``TraceConfig``. ``TrainConfig`` therefore has no ``observability`` or
-``chaos`` field; passing one raises ``TypeError``. Fields that exist but
-whose behaviour the port does not provide yet (the ``fsdp`` mesh axis;
-in the image ``Trainer`` also the ``sequence`` and ``pipe`` axes) raise
-``NotImplementedError`` in the ``Trainer`` or ``LMTrainer`` when set away
-from their defaults.
+Not carried over yet (see ROADMAP.md): ``ServeConfig`` and
+``ChaosConfig``; ``TrainConfig`` therefore has no ``chaos`` field, and
+passing one raises ``TypeError``. Fields that exist but whose behaviour
+the port does not provide yet (``ObservabilityConfig.metrics_port`` and
+``TraceConfig.enabled``; in the image ``Trainer`` the ``sequence`` and
+``pipe`` mesh axes) raise ``NotImplementedError`` in the ``Trainer`` or
+``LMTrainer`` when set away from their defaults.
 """
 
 from __future__ import annotations
@@ -192,6 +192,73 @@ class LMConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class TraceConfig:
+    """Span-level event tracing (JAX ``observability/trace.py``). Kept
+    with JAX's fields, defaults and validation; ``enabled`` raises
+    ``NotImplementedError`` in the trainers (ROADMAP.md, queue A)."""
+
+    enabled: bool = False
+    dir: str | None = None
+    max_events: int = 500_000
+
+    def __post_init__(self):
+        if self.max_events < 1:
+            raise ValueError(
+                f"max_events must be >= 1, got {self.max_events}")
+
+
+@dataclasses.dataclass(frozen=True)
+class ObservabilityConfig:
+    """Flight instruments (``observability/``): MFU accounting, the flight
+    recorder, device-memory telemetry, anomaly-triggered forensics and the
+    cross-rank straggler view. JAX's fields, defaults and validation.
+
+    Per step they cost one host timestamp; every other input is read at the
+    meter's flush from values it fetched anyway. ``metrics_port`` (the
+    live exporter) and ``trace.enabled`` raise ``NotImplementedError`` in
+    the trainers when set (ROADMAP.md, queue A); ``metrics_host`` is only
+    stored.
+    """
+
+    flight_recorder: bool = True
+    ring_size: int = 1024
+    # None resolves to ``<checkpoint.directory>/flight`` in the trainers.
+    dump_dir: str | None = None
+    mfu: bool = True
+    peak_flops: float | None = None
+    memory_telemetry: bool = True
+    grad_norm: bool = False
+    anomaly_detection: bool = False
+    anomaly_action: str = "raise"  # raise | skip
+    anomaly_trace_steps: int = 3
+    grad_norm_spike_factor: float = 10.0
+    straggler_attribution: bool = True
+    straggler_window: int = 256
+    trace: TraceConfig = dataclasses.field(default_factory=TraceConfig)
+    metrics_port: int | None = None
+    metrics_host: str = "127.0.0.1"
+
+    def __post_init__(self):
+        if self.metrics_port is not None and not (
+                0 <= self.metrics_port <= 65535):
+            raise ValueError(
+                f"metrics_port must be in [0, 65535], got "
+                f"{self.metrics_port}")
+        if self.anomaly_action not in ("raise", "skip"):
+            raise ValueError(
+                f"anomaly_action must be 'raise' or 'skip', got "
+                f"{self.anomaly_action!r}")
+        if self.anomaly_trace_steps < 0:
+            raise ValueError(
+                f"anomaly_trace_steps must be >= 0, got "
+                f"{self.anomaly_trace_steps}")
+        if self.straggler_window < 2:
+            raise ValueError(
+                f"straggler_window must be >= 2, got "
+                f"{self.straggler_window}")
+
+
+@dataclasses.dataclass(frozen=True)
 class TrainConfig:
     model: str = "resnet18"
     plugin: str = "torch_ddp"
@@ -220,6 +287,8 @@ class TrainConfig:
     profile_dir: str | None = None
     tensorboard_dir: str | None = None
     metrics_jsonl: str | None = None
+    observability: ObservabilityConfig = dataclasses.field(
+        default_factory=ObservabilityConfig)
 
     def replace(self, **kw: Any) -> "TrainConfig":
         return dataclasses.replace(self, **kw)

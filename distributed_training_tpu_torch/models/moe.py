@@ -80,7 +80,7 @@ from distributed_training_tpu_torch.parallel.tensor_parallel import (
     reduce_from_model,
 )
 from distributed_training_tpu_torch.parallel.zero import _tensor_collective
-from distributed_training_tpu_torch.runtime.mesh import AXIS_DATA, AXIS_SEQUENCE
+from distributed_training_tpu_torch.runtime.mesh import AXIS_DATA, AXIS_FSDP, AXIS_SEQUENCE
 
 AUX_LOSS_WEIGHT = 1e-2
 JITTER_EPS = 1e-2
@@ -100,17 +100,23 @@ class MoEContext:
     ep: ExpertParallel | None
 
     @classmethod
-    def from_mesh(cls, mesh) -> "MoEContext | None":
+    def from_mesh(cls, mesh, batch_over_fsdp: bool = False) -> "MoEContext | None":
         """The context on ``mesh``: the gate global over the data group,
         or local to each (data, sequence) shard when the mesh has a
         sequence axis (see the module docstring); None when nothing
-        spans ranks."""
+        spans ranks. ``batch_over_fsdp``: the batch is split over data ×
+        fsdp (the image Trainer's, JAX's ``batch_sharding``), so the gate
+        counts over that group; otherwise the fsdp ranks of a data index
+        hold the same rows (the LM strategies) and the data group counts."""
         if mesh is None:
             return None
         ep = ExpertParallel.from_mesh(mesh)
         d = mesh.size(AXIS_DATA)
         if mesh.size(AXIS_SEQUENCE) > 1:  # each shard gates its own tokens
             return cls(None, 0, 1, ep) if ep is not None else None
+        if batch_over_fsdp and mesh.size(AXIS_FSDP) > 1:
+            return cls(mesh.group(AXIS_DATA, AXIS_FSDP), mesh.replica_index,
+                       mesh.data_size, ep)
         if d == 1 and ep is None:
             return None
         return cls(mesh.group(AXIS_DATA, AXIS_SEQUENCE) if d > 1 else None,

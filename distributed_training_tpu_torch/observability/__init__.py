@@ -1,13 +1,33 @@
-"""Observability: the FLOP count and MFU of a train step, and the
-percentile the bench reports step times with.
+"""Observability: the trainers' flight instruments.
 
-The port's part of ``distributed_training_tpu/observability``; the rest
-of that package (flight recorder, traces, anomaly detection, metric
-sinks) is not ported yet (ROADMAP.md, queue A10).
+The port of ``distributed_training_tpu/observability``:
+
+- :mod:`flops`: the analytic FLOPs of a train step and the per-card peak
+  that turn a rate into an MFU;
+- :mod:`flight_recorder`: a bounded ring of per-step host timestamps and
+  flushed metrics: step-time percentiles, goodput, a JSON dump (on
+  demand, on anomaly, on crash) that ``tools/flight_report.py`` renders;
+- :mod:`histogram`: the fixed-bucket step-time histogram of a dump;
+- :mod:`memory`: the CUDA allocator's counters at each meter flush;
+- :mod:`anomaly`: NaN/Inf losses and grad-norm spikes over flushed
+  metrics;
+- :mod:`aggregate`: the cross-rank straggler view, exchanged over gloo;
+- :mod:`prometheus`: a dump as Prometheus text;
+- :mod:`hooks`: :class:`TrainObservability`, which both trainers drive.
+
+Not ported yet (ROADMAP.md, queue A): span traces, the live exporter.
 """
 
 from __future__ import annotations
 
+from distributed_training_tpu_torch.observability.anomaly import (  # noqa: F401
+    AnomalyDetector,
+    AnomalyError,
+)
+from distributed_training_tpu_torch.observability.flight_recorder import (  # noqa: F401
+    FlightRecorder,
+    percentile,
+)
 from distributed_training_tpu_torch.observability.flops import (  # noqa: F401
     PEAK_BF16_FLOPS,
     device_peak_flops,
@@ -17,18 +37,12 @@ from distributed_training_tpu_torch.observability.flops import (  # noqa: F401
     resnet_forward_flops,
     train_step_flops,
 )
-
-
-def percentile(values, q: float) -> float:
-    """Linear-interpolation percentile (numpy's default method); ``q`` in
-    [0, 100]; raises on an empty input."""
-    if not len(values):
-        raise ValueError("percentile of empty sequence")
-    xs = sorted(float(v) for v in values)
-    if len(xs) == 1:
-        return xs[0]
-    pos = (len(xs) - 1) * (q / 100.0)
-    lo = int(pos)
-    hi = min(lo + 1, len(xs) - 1)
-    frac = pos - lo
-    return xs[lo] * (1.0 - frac) + xs[hi] * frac
+from distributed_training_tpu_torch.observability.histogram import (  # noqa: F401
+    FixedHistogram,
+)
+from distributed_training_tpu_torch.observability.hooks import (  # noqa: F401
+    TrainObservability,
+)
+from distributed_training_tpu_torch.observability.memory import (  # noqa: F401
+    device_memory_metrics,
+)

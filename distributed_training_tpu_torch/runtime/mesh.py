@@ -49,11 +49,18 @@ CANONICAL_AXES = (
     AXIS_DATA, AXIS_PIPE, AXIS_FSDP, AXIS_MODEL, AXIS_EXPERT, AXIS_SEQUENCE)
 
 # The sets of axes the strategies communicate over: the replica group
-# (gradients, metrics and ZeRO; without the expert axis it is also the
-# group of ranks that hold other tokens, over which the MoE gate counts),
-# the tensor-parallel group, the ring, the expert group and the pipeline.
+# without ``fsdp`` (gradients, metrics and ZeRO at fsdp 1; without the
+# expert axis it is also the group of ranks that hold other tokens, over
+# which the MoE gate counts), the tensor-parallel group, the ring, the
+# expert group and the pipeline; then the ``fsdp`` axis's: the whole
+# replica group (data × fsdp × sequence), the fsdp group that shards the
+# parameters, and data × fsdp (the image batch's split, over which the
+# image models' MoE gate counts). The fsdp groups are opened only where
+# the axis spans ranks.
 _GROUP_AXES = ((AXIS_DATA, AXIS_SEQUENCE), (AXIS_MODEL,), (AXIS_SEQUENCE,),
                (AXIS_EXPERT,), (AXIS_PIPE,))
+_FSDP_GROUP_AXES = ((AXIS_DATA, AXIS_FSDP, AXIS_SEQUENCE), (AXIS_FSDP,),
+                    (AXIS_DATA, AXIS_FSDP))
 
 
 def mesh_sizes(spec, world: int) -> dict[str, int]:
@@ -99,6 +106,14 @@ class Mesh:
         self._groups: dict[tuple, object] = {}
         for axes in _GROUP_AXES:
             self._groups[axes] = self._open(axes, dims, opened)
+        for axes in _FSDP_GROUP_AXES:
+            # At fsdp 1 a group without the axis's size-1 axes is one the
+            # mesh already holds (no second dist.new_group of the same ranks).
+            same = tuple(a for a in axes if self.sizes[a] > 1)
+            held = [k for k in _GROUP_AXES
+                    if tuple(a for a in k if self.sizes[a] > 1) == same]
+            self._groups[axes] = (self._groups[held[0]] if held and same
+                                  else self._open(axes, dims, opened))
 
     def _open(self, axes: tuple, dims: list[int], opened: bool):
         """The group along ``axes`` that holds this rank; every rank opens
@@ -145,6 +160,13 @@ class Mesh:
     @property
     def data_size(self) -> int:
         return data_axis_size(self.sizes)
+
+    @property
+    def replica_index(self) -> int:
+        """This rank's index among the ``data × fsdp`` replicas, data-major
+        (``d·F + f``): the row block of a batch split over both axes, as
+        JAX's ``batch_sharding`` splits the image batch."""
+        return self.index(AXIS_DATA) * self.size(AXIS_FSDP) + self.index(AXIS_FSDP)
 
     def is_master(self) -> bool:
         return self.rank == 0

@@ -1,3 +1,3 @@
-"""The port's counterparts of the JAX package's kernel tools in ``tools/``:
-``flash_kernel_bench`` and ``conv_fusion_probe``, each run as
-``python -m distributed_training_tpu_torch.tools.<name>``."""
+"""The port's counterparts of the repo's ``tools/``: the kernel tools
+``flash_kernel_bench`` and ``conv_fusion_probe``, and ``flight_report``,
+each run as ``python -m distributed_training_tpu_torch.tools.<name>``."""

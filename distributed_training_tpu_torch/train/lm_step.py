@@ -36,6 +36,10 @@ was built with), as the JAX trainer's follows from the mesh:
   a mean over the group, the update runs on the rank's shard, and the
   metrics are averaged over the group, so the step equals the JAX step on
   the global batch;
+- under the ``fsdp`` mesh axis the group is ``data × fsdp`` (× ``sequence``)
+  and the parameters are shards between steps (``parallel/zero.py``); the
+  fsdp ranks of a data index run the same rows, so the exchange's mean
+  over the group is the data ranks' mean, as JAX's pmean of equal values;
 - the sequence strategy (the model's ``seq_axis``; JAX
   ``make_lm_train_step``): the batch is the rank's rows and time chunk,
   attention runs the ring, and the group of the state's ``zero`` is
@@ -98,6 +102,7 @@ from distributed_training_tpu_torch.parallel.collective_matmul import (
 from distributed_training_tpu_torch.parallel.tensor_parallel import copy_to_model
 from distributed_training_tpu_torch.runtime.mesh import AXIS_DATA, AXIS_SEQUENCE
 from distributed_training_tpu_torch.parallel.zero import check_cpu_offload
+from distributed_training_tpu_torch.train.optim import global_norm
 from distributed_training_tpu_torch.train.precision import commit_gradients
 from distributed_training_tpu_torch.train.step import dropout_generator
 from distributed_training_tpu_torch.train.train_state import TrainState
@@ -387,7 +392,8 @@ def make_lm_train_step(*, zero_stage: int = 0, grad_accum_steps: int = 1,
                        max_len: int | None = None,
                        ce_chunk: int | None = None, ce_save_probs: bool = False,
                        logits_dtype: torch.dtype = torch.float32,
-                       seed: int = 0, pipeline: bool = False) -> Callable:
+                       seed: int = 0, pipeline: bool = False,
+                       grad_norm_metric: bool = False) -> Callable:
     """Build ``step(state, batch) -> metrics`` for batches
     ``{'tokens', 'targets'}`` of ``[B, T]`` integers: the rank's rows, and
     under the sequence strategy its time chunk.
@@ -400,7 +406,9 @@ def make_lm_train_step(*, zero_stage: int = 0, grad_accum_steps: int = 1,
     and ``ce_save_probs`` select the CE (see the module docstring;
     together they raise). ``max_len`` bounds the global sequence length.
     ``pipeline``: the model is a ``PipelinedLM`` (use
-    :func:`make_pp_lm_train_step`).
+    :func:`make_pp_lm_train_step`). ``grad_norm_metric`` adds
+    ``grad_norm``, the global norm of the averaged, unscaled gradients (each
+    model, expert, pipe and fsdp shard counted once), on the device.
     """
     if grad_accum_steps < 1:
         raise ValueError(f"grad_accum_steps must be >= 1, got {grad_accum_steps}")
@@ -450,13 +458,8 @@ def make_lm_train_step(*, zero_stage: int = 0, grad_accum_steps: int = 1,
         if overlap is not None:
             done = overlap_finalize_grads(dict(zip(names, grads)), overlap)
             grads = [done[n] for n in names]
-        if zero.partitions_grads:
-            grads = zero.reduce_scatter_mean(grads)
-            state.release_params()
-        else:
-            grads = zero.all_reduce_mean(grads)
-            if zero.partitions_optimizer:
-                grads = [zero.shard(g) for g in grads]
+        grads = zero.exchange_grads(grads)
+        state.release_params()
         grads = state.loss_scale.unscale_grads(dict(zip(names, grads)))
         finite = commit_gradients(state, grads)
         local = [torch.stack(ces).mean(), torch.stack(auxs).mean()]
@@ -466,7 +469,10 @@ def make_lm_train_step(*, zero_stage: int = 0, grad_accum_steps: int = 1,
         if overlap is not None:
             local = mean_over_model(local, overlap)
         ce, aux, *acc = local
-        return _lm_metrics(state, ce, aux, acc[0] if acc else None, finite)
+        metrics = _lm_metrics(state, ce, aux, acc[0] if acc else None, finite)
+        if grad_norm_metric:
+            metrics["grad_norm"] = global_norm(list(grads.values()), zero, names)
+        return metrics
 
     return step
 

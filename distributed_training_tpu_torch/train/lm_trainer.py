@@ -49,8 +49,18 @@ The strategy follows from the mesh (``cfg.mesh`` over the world size,
   microbatches, as JAX's shard_map steps do (pipe ranks at one data index
   read the same rows).
 
-The configuration checks are the JAX trainer's, with its messages. The
-``fsdp`` axis raises ``NotImplementedError``.
+- ``fsdp > 1`` composes with every strategy above: it shards the
+  parameters and the optimizer state (``parallel/zero.py``, JAX
+  ``zero_stage_axes``; with the stage, over the whole replica group), and
+  the replica count ``data × fsdp`` sizes the global batch and scales the
+  learning rate. The batch splits over ``data`` alone, as in every JAX LM
+  strategy: the fsdp ranks of a data index run the same rows (and draw
+  the same dropout masks and MoE gates), and their gradients are averaged
+  over ``data × fsdp``. Splitting the rows over ``fsdp`` as well would
+  save the duplicated compute, but the MoE gate's and dropout's scopes
+  are JAX's only as they stand, so the rows are duplicated.
+
+The configuration checks are the JAX trainer's, with its messages.
 
 It runs on the card unless ``device="cpu"`` is passed, and raises when
 there is no card and no such request. With ``cfg.lm.attn_impl="flash"``
@@ -81,6 +91,13 @@ from distributed_training_tpu_torch.data.lm_text import (
 )
 from distributed_training_tpu_torch.models import get_model
 from distributed_training_tpu_torch.models.moe import MoEContext, shard_experts_
+from distributed_training_tpu_torch.observability.flops import (
+    forward_flops,
+    train_step_flops,
+)
+from distributed_training_tpu_torch.observability.hooks import (
+    refuse_unported as refuse_unported_observability,
+)
 from distributed_training_tpu_torch.ops.flash_attention import check_seq_len
 from distributed_training_tpu_torch.parallel.pipeline import (
     PipelinedLM,
@@ -100,6 +117,7 @@ from distributed_training_tpu_torch.runtime.distributed import (
 from distributed_training_tpu_torch.runtime.mesh import (
     AXIS_DATA,
     AXIS_EXPERT,
+    AXIS_FSDP,
     AXIS_MODEL,
     AXIS_PIPE,
     AXIS_SEQUENCE,
@@ -116,17 +134,8 @@ from distributed_training_tpu_torch.train.lm_step import (
 from distributed_training_tpu_torch.train.optim import make_optimizer
 from distributed_training_tpu_torch.train.precision import LossScaleState, Policy
 from distributed_training_tpu_torch.train.train_state import TrainState, param_count
-from distributed_training_tpu_torch.train.trainer import (
-    Engine,
-    MetricMeter,
-    refuse_unported,
-)
+from distributed_training_tpu_torch.train.trainer import Engine, MetricMeter
 from distributed_training_tpu_torch.utils.device import set_fp32_math
-
-
-def unported_lm_fields(cfg: TrainConfig) -> dict[str, bool]:
-    """The fields the LM trainer lacks, each with whether ``cfg`` sets it."""
-    return {"mesh axis fsdp": cfg.mesh.fsdp != 1}
 
 
 def check_lm_config(cfg: TrainConfig, seq: int, model_par: int, expert: int = 1,
@@ -256,7 +265,7 @@ class LMTrainer(Engine):
         # num_microbatches and virtual_stages shape the pipeline alone;
         # without the pipe axis the JAX trainer reads neither, and neither
         # does this one.
-        refuse_unported(unported_lm_fields(cfg))
+        refuse_unported_observability(cfg.observability)
         self.cfg = cfg
         group = initialize_distributed(device=device)
         self.coord = Coordinator()
@@ -294,6 +303,10 @@ class LMTrainer(Engine):
             seq_axis=AXIS_SEQUENCE if seq > 1 else None, mesh=self.mesh,
             generator=torch.Generator().manual_seed(cfg.seed), **moe_kwargs,
         )
+        # One optimizer step's model FLOPs over the effective global batch
+        # (None with MoE layers, as in JAX).
+        step_flops = train_step_flops(forward_flops(self.model, seq_len=lm.seq_len,
+                                                    batch=self.train_gbs))
         if pipeline:
             # Accumulation multiplies the microbatches (JAX _pp_microbatches).
             self._pp_microbatches = lm.num_microbatches * self.grad_accum
@@ -312,23 +325,29 @@ class LMTrainer(Engine):
         self.global_microbatches = (seq == 1 and not pipeline
                                     and not (cfg.tp_overlap and model_par > 1))
         self.model.to(self.device)
+        self.param_count = param_count(self.model, self.tp, self.ep, pp)
         self.tx = make_optimizer(cfg.optimizer, cfg.scheduler, self.world_size)
-        # ZeRO over the replica group: data × sequence (JAX _GRAD_AXES), at
-        # this rank's pipe index; under an expert axis, each expert rank's own.
+        # ZeRO over the replica group: data × fsdp × sequence (JAX
+        # zero_stage_axes), at this rank's pipe index; under an expert axis,
+        # each expert rank's own. The fsdp ranks of a data index read the
+        # same rows (the batch splits over data alone, as in JAX), so the
+        # exchange's mean over the group is the data ranks' mean.
         self.state = TrainState.create(
             self.model, self.tx, LossScaleState.create(cfg.precision),
-            Zero(cfg.zero.stage, self.mesh.group(AXIS_DATA, AXIS_SEQUENCE),
-                 cfg.zero.cpu_offload, tp=self.tp, ep=self.ep, pp=pp))
+            Zero(cfg.zero.stage, self.mesh.group(AXIS_DATA, AXIS_FSDP, AXIS_SEQUENCE),
+                 cfg.zero.cpu_offload, tp=self.tp, ep=self.ep, pp=pp,
+                 fsdp=self.mesh.group(AXIS_FSDP),
+                 inner=self.mesh.group(AXIS_DATA, AXIS_SEQUENCE)))
         step_kw = dict(zero_stage=cfg.zero.stage, accuracy_metric=lm.metrics_accuracy,
                        max_len=lm.max_len, ce_chunk=lm.ce_chunk_size,
                        ce_save_probs=lm.ce_save_probs, logits_dtype=logits_dtype,
-                       seed=cfg.seed)
+                       seed=cfg.seed, grad_norm_metric=cfg.observability.grad_norm)
         self.train_step = (make_pp_lm_train_step(cpu_offload=cfg.zero.cpu_offload, **step_kw)
                            if pipeline else
                            make_lm_train_step(grad_accum_steps=self.grad_accum, **step_kw))
         self.eval_loss = make_lm_eval_fn(lm.ce_chunk_size, logits_dtype, pipeline=pipeline)
         self.meter = MetricMeter(cfg.log_interval)
-        self._init_run()
+        self._init_run(step_flops)
         overlap = self.tp is not None and self.tp.overlap
         label = (self.strategy + ("×sp" if pipeline and seq > 1 else "")
                  + ("×tp" if model_par > 1 and (seq > 1 or pipeline) else "")
@@ -337,7 +356,7 @@ class LMTrainer(Engine):
             label += (f"(v={lm.virtual_stages} M={self._pp_microbatches} "
                       f"bubble={self.model.bubble_fraction:.3f})")
         layout = {a: n for a, n in self.mesh.sizes.items() if n > 1}
-        self.param_count = params = param_count(self.model, self.tp, self.ep, pp)
+        params = self.param_count
         self.coord.print(
             f"[lm_trainer] params={params:,} "
             f"device={self.device} dtype={cfg.precision.dtype} "

@@ -156,9 +156,9 @@ class OptState:
 
 def global_norm(tensors: list[torch.Tensor], zero=None, names=None) -> torch.Tensor:
     """L2 norm over all tensors, as a float32 0-d tensor. With ``zero``
-    (a ``parallel.zero.Zero``) at stage 1 or more the tensors are this
-    rank's shards: their squared norms are summed over the ranks by one
-    all-reduce. Under tensor parallelism (``zero.tp``; ``names`` the
+    (a ``parallel.zero.Zero``) at stage 1 or more, or under fsdp, the
+    tensors are this rank's shards: their squared norms are summed over the
+    ranks the state is split over by one all-reduce. Under tensor parallelism (``zero.tp``; ``names`` the
     tensors' parameter names) a model-sharded tensor's squared norm is
     summed over the model ranks too, a replicated one counted once, and
     under expert parallelism (``zero.ep``) an expert tensor's over the
@@ -172,7 +172,7 @@ def global_norm(tensors: list[torch.Tensor], zero=None, names=None) -> torch.Ten
         return zero.whole_sq_norms(torch.stack(norms).square(), names).sum().sqrt()
     if zero is None or not zero.partitions_optimizer:
         return torch.linalg.vector_norm(torch.stack(norms))
-    return zero.all_reduce_(torch.stack(norms).square().sum()).sqrt()
+    return zero.sum_shards_(torch.stack(norms).square().sum()).sqrt()
 
 
 def tensor_norms(tensors: list[torch.Tensor], zero=None, names=None) -> torch.Tensor:
@@ -186,7 +186,7 @@ def tensor_norms(tensors: list[torch.Tensor], zero=None, names=None) -> torch.Te
         return zero.whole_sq_norms(norms.square(), names).sqrt()
     if zero is None or not zero.partitions_optimizer:
         return norms
-    return zero.all_reduce_(norms.square()).sqrt()
+    return zero.sum_shards_(norms.square()).sqrt()
 
 
 class Optimizer:

@@ -20,6 +20,12 @@ mean over the global batch. The step then, in order:
 3. all-gathers the updated parameters at stages 1–2; at stage 3 keeps
    the shard, and all-gathers the parameters at the next forward.
 
+Under the ``fsdp`` mesh axis the state's ``zero`` holds the parameters as
+shards between steps: the step gathers them before the forward and the
+exchange reduce-scatters the gradients over ``fsdp`` and then the rest of
+the replica group (``parallel/zero.py``); each rank of ``data × fsdp``
+runs its own rows, as JAX's ``batch_sharding`` splits them.
+
 BatchNorm statistics are synchronised over the group (SyncBN,
 ``models/resnet.py``) unless the model was built without it, in which
 case ``local_bn=True`` makes this the counterpart of the JAX package's
@@ -64,6 +70,7 @@ from distributed_training_tpu_torch.models.vit import ViT
 from distributed_training_tpu_torch.parallel.collective_matmul import (
     overlap_finalize_grads,
 )
+from distributed_training_tpu_torch.train.optim import global_norm
 from distributed_training_tpu_torch.train.precision import commit_gradients
 from distributed_training_tpu_torch.train.train_state import TrainState
 
@@ -113,7 +120,8 @@ def dropout_generator(model: torch.nn.Module, seed: int, step: int, rank: int,
 def make_train_step(*, zero_stage: int = 0, grad_accum_steps: int = 1,
                     label_smoothing: float = 0.0,
                     input_affine: tuple | None = None,
-                    local_bn: bool = False, seed: int = 0) -> Callable:
+                    local_bn: bool = False, seed: int = 0,
+                    grad_norm_metric: bool = False) -> Callable:
     """Build ``step(state, batch) -> metrics``.
 
     ``zero_stage`` must be the stage of ``state.zero`` (the state holds the
@@ -125,6 +133,10 @@ def make_train_step(*, zero_stage: int = 0, grad_accum_steps: int = 1,
     grad-accum semantics). ``local_bn``: BatchNorm without a group, its
     running statistics averaged over the ranks after the step; stage 0
     only, as in the JAX package. ``seed`` seeds the noisy gates' noise.
+    ``grad_norm_metric`` adds ``grad_norm``: the global L2 norm of the
+    averaged, unscaled gradients the optimizer takes, on the device (each
+    shard counted once, ``optim.global_norm``), read at the meter's flush
+    like every metric.
     """
     if grad_accum_steps < 1:
         raise ValueError(f"grad_accum_steps must be >= 1, got {grad_accum_steps}")
@@ -176,29 +188,28 @@ def make_train_step(*, zero_stage: int = 0, grad_accum_steps: int = 1,
         if overlap is not None:
             done = overlap_finalize_grads(dict(zip(names, grads)), overlap)
             grads = [done[n] for n in names]
-        if zero.partitions_grads:
-            grads = zero.reduce_scatter_mean(grads)
-            state.release_params()
-        else:
-            grads = zero.all_reduce_mean(grads)
-            if zero.partitions_optimizer:
-                grads = [zero.shard(g) for g in grads]
+        grads = zero.exchange_grads(grads)
+        state.release_params()
         grads = ls.unscale_grads(dict(zip(names, grads)))
         finite = commit_gradients(state, grads, snapshot)
         if local_bn:
-            bufs = [*model.buffers(),
-                    *state.opt_state.slots.get("ema_stats", {}).values()]
+            bufs = list(model.buffers())
+            ema = list(state.opt_state.slots.get("ema_stats", {}).values())
             with torch.no_grad():
-                for b, avg in zip(bufs, zero.all_reduce_mean(bufs)):
+                for b, avg in zip([*bufs, *ema], [*zero.all_reduce_mean(bufs),
+                                                  *zero.mean_over_copies(ema)]):
                     b.copy_(avg)
         loss, acc = zero.all_reduce_mean(
             [torch.stack(losses).mean(), torch.stack(accs).mean()])
-        return {
+        metrics = {
             "loss": loss,
             "accuracy": acc,
             "loss_scale": state.loss_scale.scale,
             "grads_finite": float(finite),
         }
+        if grad_norm_metric:
+            metrics["grad_norm"] = global_norm(list(grads.values()), zero, names)
+        return metrics
 
     return step
 

@@ -16,7 +16,10 @@ partition rule, and lives in host memory with ``cpu_offload`` (pinned
 where there is a card). At stage 3 the shards
 *are* the parameters between steps: the model's parameter tensors are
 emptied after each step (:meth:`release_params`) and all-gathered again
-before the next forward (:meth:`gather_params`). A checkpoint holds the
+before the next forward (:meth:`gather_params`). Under the ``fsdp`` axis
+(``zero.fsdp``) the parameters are held as shards between steps at every
+stage, as at stage 3, and the optimizer state is split as
+``parallel/zero.py`` lays it out. A checkpoint holds the
 whole tensors whatever the stage and world (:meth:`state_dict` gathers,
 :meth:`load_state_dict` partitions anew). Under tensor parallelism
 (``zero.tp``) the model's tensors are this model rank's shards, which the
@@ -86,7 +89,7 @@ class TrainState:
                              memory_format=torch.channels_last))
                          for n, p in params.items()}
         if state.zero.partitions_params:
-            state.shards = {n: state.zero.shard(p) for n, p in params.items()}
+            state.shards = {n: state.zero.param_shard(p) for n, p in params.items()}
         state.opt_state = tx.init(state.master_params())
         stats = state.stats()
         if tx.ema_decay is not None and stats:
@@ -119,9 +122,13 @@ class TrainState:
     def master_params(self) -> dict[str, torch.Tensor]:
         """What the optimizer updates: the model's tensors at stage 0;
         this rank's shards from stage 1 on (copies of the replicated
-        parameters at 1–2, the parameters themselves at 3)."""
+        parameters at 1–2, the parameters themselves at 3). Under fsdp the
+        parameter shards at stages 0 and 3, and at 1–2 copies of this
+        rank's optimizer chunk of them."""
         if self.shards is not None:
-            return self.shards
+            if self.zero.opt_is_param_shard:
+                return self.shards
+            return {n: self.zero.opt_from_param(p) for n, p in self.shards.items()}
         if not self.zero.partitions_optimizer:
             return self.params()
         return {n: self.zero.shard(p) for n, p in self.params().items()}
@@ -131,9 +138,13 @@ class TrainState:
         """Install updated master parameters: at stage 0 the model's
         tensors become ``new``'s (a swap of references when they are not
         the same tensors); at 1–2 the shards are all-gathered into them; at
-        3 the shards are kept and the model's tensors stay released."""
+        3 the shards are kept and the model's tensors stay released. Under
+        fsdp the parameter shards are kept (at 1–2 gathered over the inner
+        group from the optimizer chunks)."""
         if self.shards is not None:
-            self.shards = new
+            names = list(new)
+            self.shards = dict(zip(names, self.zero.params_from_opt(
+                [new[n] for n in names])))
             return
         params = self.params()
         if not self.zero.partitions_optimizer:
@@ -155,8 +166,8 @@ class TrainState:
             return
         params = self.params()
         names = list(params)
-        full = self.zero.all_gather([self.shards[n] for n in names],
-                                    [self.layouts[n][0] for n in names])
+        full = self.zero.gather_params([self.shards[n] for n in names],
+                                       [self.layouts[n][0] for n in names])
         for n, f in zip(names, full):
             fmt = (torch.channels_last if self.layouts[n][1]
                    else torch.contiguous_format)
@@ -233,7 +244,9 @@ class TrainState:
         live_stats = {n: b.clone() for n, b in stats.items()}
         live_shards, live = self.shards, None
         if self.shards is not None:
-            self.shards = {n: t.to(dev) for n, t in slots["ema"].items()}
+            names = list(slots["ema"])
+            self.shards = dict(zip(names, self.zero.params_from_opt(
+                [slots["ema"][n].to(dev) for n in names])))
         else:
             live = {n: p.data for n, p in self.params().items()}
             full = self._full_slot("ema", slots["ema"], dev)
@@ -309,7 +322,7 @@ class TrainState:
         self.gather_params()
         self.model.load_state_dict(self._local(sd["model"]), strict=True)
         if self.shards is not None:
-            self.shards = {n: self.zero.shard(p) for n, p in self.params().items()}
+            self.shards = {n: self.zero.param_shard(p) for n, p in self.params().items()}
         self.release_params()
         saved = {k: v for k, v in sd["opt_state"].items() if k != "count"}
         if set(saved) != set(self.opt_state.slots):

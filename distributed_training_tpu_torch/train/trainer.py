@@ -32,6 +32,14 @@ wires it:
 - ``wall_clock_breakdown`` (``utils/profiling.py``'s ``WallClock``:
   data, step, log, eval and ckpt, printed per epoch) and ``profile_dir``
   (a ``torch.profiler`` trace of the run);
+- the flight instruments (``cfg.observability``, on by default as in
+  JAX; ``observability/hooks.py``): one host timestamp a step, and at
+  each meter flush MFU, the allocator's memory counters, the flight
+  recorder, the cross-rank straggler view and the anomaly detector,
+  whose trigger dumps the record and the batch under
+  ``<checkpoint.directory>/flight``, traces the next steps and then
+  raises or goes on; a crash dumps the record too. The wall clock runs on
+  host time for them whenever the recorder is on;
 - ``remat``, passed to the model (and the image Trainer's
   ``remat_policy`` argument, to the ResNet);
 - ``data.prefetch``: with ``prefetch ≥ 1`` a worker thread loads each
@@ -39,6 +47,14 @@ wires it:
   (``data/prefetch.py``: pinned staging and a copy stream of its own on
   the card), for training, precise-BN and eval; at 0 each batch is
   loaded and copied in the loop, under the wall clock's ``data`` phase.
+
+The ``fsdp`` mesh axis shards the parameters and the optimizer state
+(``parallel/zero.py``, JAX ``zero_stage_axes``) and splits the batch
+with ``data``: rank ``d·F + f`` takes that block of every global batch
+(JAX's ``batch_sharding``), SyncBN counts over both axes, and the
+gradients are averaged over them. The local-BN step splits the training
+batch over ``data`` alone, as JAX's shard_map step does (the fsdp ranks
+of a data index then train on the same rows); eval splits over both.
 
 The image Trainer runs the ``moe_*`` models (``models/moe.py``) with
 ``cfg.moe``'s knobs, as the JAX Trainer wires them: the mesh
@@ -75,6 +91,7 @@ from __future__ import annotations
 
 import contextlib
 import itertools
+import os
 
 import torch
 
@@ -102,7 +119,17 @@ from distributed_training_tpu_torch.parallel.tensor_parallel import (
     TensorParallel,
     shard_model_,
 )
+from distributed_training_tpu_torch.observability.anomaly import AnomalyError
+from distributed_training_tpu_torch.observability.flops import (
+    forward_flops,
+    train_step_flops,
+)
+from distributed_training_tpu_torch.observability.hooks import (
+    TrainObservability,
+    refuse_unported as refuse_unported_observability,
+)
 from distributed_training_tpu_torch.parallel.zero import Zero
+from distributed_training_tpu_torch.resilience import retry as retry_lib
 from distributed_training_tpu_torch.resilience.async_ckpt import AsyncCheckpointWriter
 from distributed_training_tpu_torch.runtime.coordinator import Coordinator
 from distributed_training_tpu_torch.runtime.distributed import (
@@ -111,6 +138,7 @@ from distributed_training_tpu_torch.runtime.distributed import (
 )
 from distributed_training_tpu_torch.runtime.mesh import (
     AXIS_DATA,
+    AXIS_FSDP,
     AXIS_MODEL,
     AXIS_SEQUENCE,
     Mesh,
@@ -134,8 +162,8 @@ def unported_fields(cfg: TrainConfig) -> dict[str, bool]:
     mesh = cfg.mesh
     moe = cfg.model.startswith("moe")
     return {
-        "mesh axes other than data, model and expert (fsdp, sequence, pipe)": any(
-            getattr(mesh, a) != 1 for a in ("fsdp", "sequence", "pipe")),
+        "mesh axes other than data, fsdp, model and expert (sequence, pipe)": any(
+            getattr(mesh, a) != 1 for a in ("sequence", "pipe")),
         "an expert axis on a model without MoE layers": mesh.expert != 1 and not moe,
     }
 
@@ -210,16 +238,42 @@ class Engine:
     ``tag`` and ``epoch_tag``, and may map each loader batch on the host
     first (:meth:`host_batch`)."""
 
-    def _init_run(self) -> None:
+    def _init_run(self, step_flops: int | None = None) -> None:
+        """``step_flops``: the model FLOPs of one optimizer step (the
+        effective global batch's), for the flight instruments' MFU."""
         cfg = self.cfg
-        self.clock = WallClock(cfg.wall_clock_breakdown, device=self.device)
+        obs = cfg.observability
+        # The clock runs whenever the flight recorder does (goodput), on
+        # host time alone; it synchronises the card at its phase
+        # boundaries only for wall_clock_breakdown, whose report it prints.
+        self.clock = WallClock(cfg.wall_clock_breakdown or obs.flight_recorder,
+                               device=self.device if cfg.wall_clock_breakdown else None)
         self.metrics_writer = MetricsWriter(cfg.tensorboard_dir, cfg.metrics_jsonl,
                                             enabled=self.coord.is_master())
         self._ckpt_writer = (AsyncCheckpointWriter(printer=self.coord.print)
                              if cfg.checkpoint.async_save else None)
+        self._sync_saves = 0
         self._guard: PreemptionGuard | None = None
         self._global_step = 0
         self._epoch_step = 0
+        # Forensics land next to the run's durable artifacts by default.
+        self.obs = TrainObservability(
+            obs, step_flops=step_flops, n_devices=self.coord.world_size,
+            clock=self.clock, is_master=self.coord.is_master(),
+            printer=self.coord.print,
+            dump_dir=obs.dump_dir or os.path.join(cfg.checkpoint.directory, "flight"),
+            extra_provider=self._resilience_snapshot,
+            num_processes=self.coord.world_size, device=self.device)
+
+    def _resilience_snapshot(self) -> dict:
+        """The flight dump's ``resilience`` section: saves committed and
+        failed, and I/O retries."""
+        c = {"io_retries": retry_lib.total_retries(),
+             "saves_committed": self._sync_saves, "saves_failed": 0}
+        if self._ckpt_writer is not None:
+            c["saves_committed"] += self._ckpt_writer.counters["saves_committed"]
+            c["saves_failed"] = self._ckpt_writer.counters["saves_failed"]
+        return {"resilience": c}
 
     # -- data -----------------------------------------------------------------
     def host_batch(self, batch: dict) -> dict:
@@ -249,6 +303,7 @@ class Engine:
             self._ckpt_writer.save(d, epoch, self.state, sync=sync, **kw)
         else:
             ckpt_lib.save_checkpoint(d, epoch, self.state, **kw)
+            self._sync_saves += 1
 
     def _prune_ckpts(self) -> None:
         """Retention sweep (rank 0), after any save in flight."""
@@ -270,29 +325,36 @@ class Engine:
             self.coord.print(f"[{self.tag}] resuming epoch {epoch} at step {skip_steps}")
             loader = SkipBatches(loader, skip_steps)
         self._epoch_step = skip_steps
+        self.obs.on_epoch()  # the boundary's pause is no straggler step
         batches = self._batches(loader)
+        batch = None
         try:
             while True:
                 # Prefetched, this phase is the wait for the worker.
                 with self.clock.phase("data"):
-                    batch = next(batches, None)
-                if batch is None:
+                    nxt = next(batches, None)
+                if nxt is None:
                     break
+                batch = nxt
                 with self.clock.phase("step"):
                     metrics = self.train_step(self.state, batch)
                 with self.clock.phase("log"):
                     self._global_step += 1
                     self._epoch_step += 1
                     fetched = self.meter.push(self._global_step, metrics)
+                    self.obs.on_step(self._global_step)
                     if fetched:
-                        self.metrics_writer.write(self.meter.last["step"], self.meter.last)
+                        extras = self.obs.on_flush(self.meter.last, batch=batch)
+                        self.metrics_writer.write(self.meter.last["step"],
+                                                  {**self.meter.last, **extras})
                 if self._guard is not None and self._guard.should_stop(at_sync_point=fetched):
                     break
         finally:
             batches.close()
         if self.meter.pending:
             flushed = self.meter.flush()
-            self.metrics_writer.write(flushed["step"], flushed)
+            extras = self.obs.on_flush(flushed, batch=batch)
+            self.metrics_writer.write(flushed["step"], {**flushed, **extras})
         self.coord.print(f"[{self.epoch_tag}] epoch {epoch + 1}: "
                          + " ".join(f"{k}={v:.4g}" for k, v in self.meter.last.items()))
         if self.cfg.wall_clock_breakdown:
@@ -302,12 +364,23 @@ class Engine:
     # -- full run -------------------------------------------------------------
     def fit(self) -> dict:
         try:
-            return self._fit()
+            result = self._fit()
+            # A deferred anomaly raise whose trace window the run's end
+            # cut short surfaces here (its forensics were written).
+            self.obs.close()
+            return result
+        except AnomalyError:
+            raise
+        except BaseException:
+            # The flight record before the exception flies.
+            self.obs.on_crash()
+            raise
         finally:
             if self._ckpt_writer is not None:
                 # A background failure was counted and printed; it must not
                 # mask this run's outcome or exception.
                 self._ckpt_writer.close(raise_on_error=False)
+            self.obs.close(raise_pending=False)
             self.metrics_writer.close()
 
     def _run_epochs(self, train_loader, evaluate) -> tuple:
@@ -376,6 +449,7 @@ class Trainer(Engine):
         only its conv outputs); the JAX ``TrainConfig`` has no field for it,
         so it is an argument here."""
         refuse_unported(unported_fields(cfg))
+        refuse_unported_observability(cfg.observability)
         if cfg.moe.enabled and not cfg.model.startswith("moe"):
             raise NotImplementedError(
                 f"MoE is only wired into the moe_* models (models/moe.py); "
@@ -389,16 +463,21 @@ class Trainer(Engine):
         policy = Policy.from_config(cfg.precision)
         gen = torch.Generator().manual_seed(cfg.seed)
         # This rank's slice of each global batch: its data shard's.
-        self.mesh, ep, self.tp = None, None, None
+        self.mesh, ep, self.tp, fsdp, inner = None, None, None, None, None
         self._shard = dict(process_index=self.coord.process_index,
                            process_count=self.coord.process_count)
-        if cfg.model.startswith("moe") or cfg.mesh.model != 1:
+        self._train_shard = self._shard
+        if cfg.model.startswith("moe") or cfg.mesh.model != 1 or cfg.mesh.fsdp != 1:
             # Ranks that are not all data ranks: the expert axis of the MoE
-            # models, the model axis of ViT (checked below).
+            # models, the model axis of ViT (checked below), the fsdp axis.
+            # The batch splits over data × fsdp (JAX's batch_sharding).
             self.mesh = Mesh(cfg.mesh)
-            group = self.mesh.group(AXIS_DATA, AXIS_SEQUENCE)
-            self._shard = dict(process_index=self.mesh.index(AXIS_DATA),
-                               process_count=self.mesh.size(AXIS_DATA))
+            group = self.mesh.group(AXIS_DATA, AXIS_FSDP, AXIS_SEQUENCE)
+            fsdp = self.mesh.group(AXIS_FSDP)
+            inner = self.mesh.group(AXIS_DATA, AXIS_SEQUENCE)
+            self._shard = self._train_shard = dict(
+                process_index=self.mesh.replica_index,
+                process_count=self.mesh.data_size)
         tp_size = self.mesh.size(AXIS_MODEL) if self.mesh is not None else 1
         if cfg.model.startswith("moe"):
             # The JAX Trainer passes remat only when set (this model has
@@ -424,7 +503,7 @@ class Trainer(Engine):
         if tp_size > 1:
             self.tp = TensorParallel.from_mesh(self.mesh, overlap=cfg.tp_overlap)
             shard_model_(model, self.tp)
-        shard_experts_(model, MoEContext.from_mesh(self.mesh))
+        shard_experts_(model, MoEContext.from_mesh(self.mesh, batch_over_fsdp=True))
         self.model = model.to(self.device)
         has_bn = any(isinstance(m, BatchNorm) for m in self.model.modules())
         local_bn = not cfg.sync_batchnorm and has_bn
@@ -437,11 +516,18 @@ class Trainer(Engine):
                 "cpu_offload rides the ZeRO optimizer-state partition, which "
                 "the local-BN step does not have")
         set_batchnorm_group(self.model, None if local_bn else group)
+        if local_bn and self.mesh is not None:
+            # JAX's local-BN step is a shard_map over data alone: the fsdp
+            # ranks of a data index train on the same rows (eval still
+            # splits over data × fsdp).
+            self._train_shard = dict(process_index=self.mesh.index(AXIS_DATA),
+                                     process_count=self.mesh.size(AXIS_DATA))
         n_params = param_count(self.model, ep, self.tp)
         self.tx = make_optimizer(cfg.optimizer, cfg.scheduler, self.world_size)
         self.state = TrainState.create(
             self.model, self.tx, LossScaleState.create(cfg.precision),
-            Zero(cfg.zero.stage, group, cfg.zero.cpu_offload, tp=self.tp, ep=ep))
+            Zero(cfg.zero.stage, group, cfg.zero.cpu_offload, tp=self.tp, ep=ep,
+                 fsdp=fsdp, inner=inner))
         # batch_size is per rank: under a data × expert (or model) mesh every
         # rank adds its batch to the global one, as the JAX Trainer counts chips.
         self.train_gbs, self.eval_gbs, self.grad_accum = effective_batch_sizes(
@@ -457,11 +543,13 @@ class Trainer(Engine):
         self.train_step = make_train_step(
             zero_stage=cfg.zero.stage, grad_accum_steps=self.grad_accum,
             label_smoothing=cfg.label_smoothing, input_affine=input_affine,
-            local_bn=local_bn and group is not None, seed=cfg.seed)
+            local_bn=local_bn and group is not None, seed=cfg.seed,
+            grad_norm_metric=cfg.observability.grad_norm)
         self.eval_step = make_eval_step(input_affine=input_affine)
         self.meter = MetricMeter(cfg.log_interval)
         self.last_eval: dict[str, float] = {}
-        self._init_run()
+        self._init_run(train_step_flops(forward_flops(
+            self.model, image_size=cfg.data.image_size, batch=self.train_gbs)))
         self.coord.print(
             f"[trainer] model={cfg.model} params={n_params:,} "
             f"device={self.device} plugin={cfg.plugin} "
@@ -477,10 +565,13 @@ class Trainer(Engine):
             + (f" grad_accum={self.grad_accum}" if self.grad_accum > 1 else ""))
 
     def make_loaders(self):
-        return build_dataloaders(self.cfg, seed=self.cfg.seed,
-                                 global_batch_size=self.train_gbs,
-                                 eval_global_batch_size=self.eval_gbs,
-                                 microbatches=self._microbatches, **self._shard)
+        kw = dict(seed=self.cfg.seed, global_batch_size=self.train_gbs,
+                  eval_global_batch_size=self.eval_gbs,
+                  microbatches=self._microbatches)
+        train, evals = build_dataloaders(self.cfg, **kw, **self._train_shard)
+        if self._train_shard is not self._shard:
+            evals = build_dataloaders(self.cfg, **kw, **self._shard)[1]
+        return train, evals
 
     def uses_ema(self) -> bool:
         """Eval reads the EMA of the parameters and of the BatchNorm

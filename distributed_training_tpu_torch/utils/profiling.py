@@ -10,9 +10,10 @@ The port of ``distributed_training_tpu/utils/profiling.py``:
   split into named phases (the trainers use ``data``, ``step``, ``log``,
   ``eval`` and ``ckpt``, as the JAX trainers do), reported per epoch.
 
-Not ported: what the JAX ``WallClock`` keeps for the flight recorder (the
-span-trace session it can feed, its run-lifetime totals and the open
-phase that ``/healthz`` reads).
+The clock also keeps the run-lifetime totals the flight recorder's
+goodput reads (:meth:`WallClock.snapshot`), and the phase open now. Not
+ported: the span-trace session the JAX ``WallClock`` can feed (ROADMAP.md,
+queue A).
 """
 
 from __future__ import annotations
@@ -52,7 +53,10 @@ class WallClock:
     time. PyTorch returns before the card finishes, so with ``device`` a
     CUDA device each phase boundary synchronises it, and a phase's time is
     the device work it queued; only when enabled (disabled, a phase costs
-    nothing and synchronises nothing).
+    nothing and synchronises nothing). Without ``device`` the clock reads
+    host time only, as JAX's does (the trainers run it so for the flight
+    recorder's goodput: the phases then bill host time, and the device's
+    lands where the host waits for it, at the meter's flush).
     """
 
     def __init__(self, enabled: bool = False,
@@ -60,34 +64,64 @@ class WallClock:
         self.enabled = enabled
         self._cuda = device is not None and torch.device(device).type == "cuda"
         self.totals: dict[str, float] = defaultdict(float)
+        # Run-lifetime totals: report() clears ``totals`` each epoch.
+        self.lifetime: dict[str, float] = defaultdict(float)
         self._stack: list[list] = []  # [name, segment_start] frames
+
+    def _accrue(self, name: str, dt: float) -> None:
+        self.totals[name] += dt
+        self.lifetime[name] += dt
+
+    @property
+    def current_phase(self) -> str | None:
+        """The innermost open phase, or None."""
+        return self._stack[-1][0] if self._stack else None
 
     def _now(self) -> float:
         if self._cuda:
             torch.cuda.synchronize()
         return time.perf_counter()
 
-    @contextlib.contextmanager
     def phase(self, name: str):
-        if not self.enabled:
-            yield
-            return
-        now = self._now()
-        if self._stack:  # pause the outer phase
-            outer = self._stack[-1]
-            self.totals[outer[0]] += now - outer[1]
-        self._stack.append([name, now])
-        try:
-            yield
-        finally:
-            now = self._now()
-            frame = self._stack.pop()
-            self.totals[frame[0]] += now - frame[1]
-            if self._stack:  # resume the outer phase's segment
-                self._stack[-1][1] = now
+        """A context manager that bills the time inside it to ``name``
+        (nested phases pause the outer one); a shared no-op when disabled."""
+        return _Phase(self, name) if self.enabled else _OFF
+
+    def snapshot(self) -> dict[str, float]:
+        """Run-lifetime phase totals in seconds, never cleared."""
+        return dict(self.lifetime)
 
     def report(self) -> dict[str, float]:
         """This epoch's phase totals in seconds; clears them."""
         out = dict(self.totals)
         self.totals.clear()
         return out
+
+
+class _Phase:
+    """One open phase of a :class:`WallClock` (a class, not a generator:
+    the trainers enter three a step)."""
+
+    __slots__ = ("clock", "name")
+
+    def __init__(self, clock: WallClock, name: str):
+        self.clock, self.name = clock, name
+
+    def __enter__(self):
+        clock = self.clock
+        now = clock._now()
+        if clock._stack:  # pause the outer phase
+            outer = clock._stack[-1]
+            clock._accrue(outer[0], now - outer[1])
+        clock._stack.append([self.name, now])
+
+    def __exit__(self, *exc) -> None:
+        clock = self.clock
+        now = clock._now()
+        frame = clock._stack.pop()
+        clock._accrue(frame[0], now - frame[1])
+        if clock._stack:  # resume the outer phase's segment
+            clock._stack[-1][1] = now
+
+
+_OFF = contextlib.nullcontext()

@@ -38,12 +38,16 @@ this script imports nothing of the JAX package). What works:
   ``--seed``, ``--wall-clock-breakdown``, ``--profile-dir``,
   ``--tensorboard-dir``, ``--metrics-jsonl``.
 
+- the flight instruments, mapped field for field as the JAX CLI maps
+  them: ``--flight-recorder`` (on by default, as in JAX), ``--flight-dir``
+  (default ``<checkpoint>/flight``), ``--grad-norm-metric`` and
+  ``--anomaly-detection`` (which turns the grad norm on too),
+  ``--anomaly-action``, ``--anomaly-trace-steps``; read a dump with
+  ``python -m distributed_training_tpu_torch.tools.flight_report``.
+
 The flags of what the port lacks raise ``NotImplementedError`` naming the
-flag when set away from their defaults: the flight recorder and the other
-observability instruments (``--flight-recorder``, ``--trace``,
-``--metrics-port``, ``--grad-norm-metric``, ``--anomaly-*``) and the chaos
-flags. ``--flight-recorder`` therefore defaults to off, where the JAX
-CLI's is on.
+flag when set away from their defaults: ``--trace``, ``--trace-dir``,
+``--metrics-port`` and the chaos flags.
 
 It runs on the card (``cuda:LOCAL_RANK`` under ``torchrun``) unless
 ``--device cpu`` asks for the CPU; without a card it raises.
@@ -168,7 +172,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--metrics-jsonl", type=str, default=None)
     # Observability (flight instruments; docs/OBSERVABILITY.md).
     parser.add_argument("--flight-recorder",
-                        action=argparse.BooleanOptionalAction, default=False,
+                        action=argparse.BooleanOptionalAction, default=True,
                         help="ring buffer of per-step timestamps + flushed "
                              "metrics; step-time p50/p95 + goodput, dumped "
                              "to JSON on anomaly/crash (read it with "
@@ -256,9 +260,7 @@ def add_chaos_arguments(parser: argparse.ArgumentParser) -> None:
 
 
 # Flags whose behaviour the port lacks, by dest (ROADMAP.md).
-UNPORTED = ("flight_recorder", "flight_dir", "trace", "trace_dir", "metrics_port",
-            "grad_norm_metric", "anomaly_detection", "anomaly_action",
-            "anomaly_trace_steps")
+UNPORTED = ("trace", "trace_dir", "metrics_port")
 
 
 def unported_flags(args: argparse.Namespace) -> list[str]:
@@ -271,15 +273,16 @@ def unported_flags(args: argparse.Namespace) -> list[str]:
 
 def build_config(args: argparse.Namespace):
     """The port's ``TrainConfig`` for ``args``, field for field what the
-    JAX CLI's ``build_config`` builds (less its observability and chaos
-    configs, which the port has not); raises ``NotImplementedError`` for
-    the flags the port lacks."""
+    JAX CLI's ``build_config`` builds (less its chaos config, which the
+    port has not); raises ``NotImplementedError`` for the flags the port
+    lacks."""
     from distributed_training_tpu_torch.config import (
         CheckpointConfig,
         DataConfig,
         LMConfig,
         MeshSpec,
         MoEConfig,
+        ObservabilityConfig,
         TrainConfig,
         ZeroConfig,
     )
@@ -307,6 +310,14 @@ def build_config(args: argparse.Namespace):
         profile_dir=args.profile_dir,
         tensorboard_dir=args.tensorboard_dir,
         metrics_jsonl=args.metrics_jsonl,
+        observability=ObservabilityConfig(
+            flight_recorder=args.flight_recorder,
+            dump_dir=args.flight_dir,
+            grad_norm=args.grad_norm_metric or args.anomaly_detection,
+            anomaly_detection=args.anomaly_detection,
+            anomaly_action=args.anomaly_action,
+            anomaly_trace_steps=args.anomaly_trace_steps,
+        ),
         precision=dataclasses.replace(cfg.precision, dtype=args.dtype),
         zero=ZeroConfig(stage=args.stage),
         mesh=MeshSpec(data=-1, model=args.tp, pipe=args.pp, sequence=args.sp,

@@ -26,10 +26,13 @@ this script imports nothing of the JAX package):
   ranks of the launcher's group (the rest form the data axis);
 - ``--model`` takes every name of the registry, ``vit_b16`` (ViT-B/16)
   included, as the JAX CLI's does;
-- the flags of what the port lacks (chaos, the flight recorder and the
-  other observability instruments, span traces) raise
-  ``NotImplementedError`` naming ROADMAP.md; none is silently ignored. ``--flight-recorder`` therefore defaults to off, where
-  the JAX CLI's is on.
+- the flight instruments, mapped field for field as the JAX CLI maps
+  them: ``--flight-recorder`` (on by default, as in JAX), ``--flight-dir``,
+  ``--grad-norm-metric``, ``--anomaly-detection`` (the grad norm with
+  it), ``--anomaly-action``, ``--anomaly-trace-steps``;
+- the flags of what the port lacks (chaos, span traces, the live
+  exporter's ``--metrics-port``) raise ``NotImplementedError`` naming
+  ROADMAP.md; none is silently ignored.
 
 It runs on the card (``cuda:LOCAL_RANK`` under a launcher such as
 ``torchrun``, which sets the process group's environment) unless
@@ -177,11 +180,10 @@ def build_parser() -> argparse.ArgumentParser:
                         help="TensorBoard scalar log directory")
     parser.add_argument("--metrics-jsonl", type=str, default=None,
                         help="append metric flushes to this JSONL file")
-    # Observability (flight instruments): the JAX CLI's surface, not
-    # ported yet (ROADMAP.md, A10); each raises when set. --flight-recorder
-    # defaults to off here, where the JAX CLI's is on.
+    # Observability (flight instruments); --trace, --trace-dir and
+    # --metrics-port are not ported yet (ROADMAP.md, queue A) and raise.
     parser.add_argument("--flight-recorder",
-                        action=argparse.BooleanOptionalAction, default=False,
+                        action=argparse.BooleanOptionalAction, default=True,
                         help="ring buffer of per-step timestamps + flushed "
                              "metrics (step-time percentiles, goodput; "
                              "dumped on anomaly/crash)")
@@ -299,9 +301,7 @@ def default_ds_config(dtype: str, stage: int, batch_size: int) -> dict:
 def unported_flags(args: argparse.Namespace) -> list[str]:
     """The flags set to something the port cannot honour yet."""
     defaults = build_parser().parse_args([])
-    observability = ("flight_recorder", "flight_dir", "trace", "trace_dir",
-                     "metrics_port", "grad_norm_metric", "anomaly_detection",
-                     "anomaly_action", "anomaly_trace_steps")
+    observability = ("trace", "trace_dir", "metrics_port")
     chaos = tuple(k for k in vars(defaults) if k.startswith("chaos_"))
     return [f"--{k.replace('_', '-')}" for k in (*chaos, *observability)
             if getattr(args, k) != getattr(defaults, k)]
@@ -314,6 +314,7 @@ def build_config(args: argparse.Namespace):
         CheckpointConfig,
         DataConfig,
         MoEConfig,
+        ObservabilityConfig,
         TrainConfig,
         from_ds_config,
     )
@@ -353,6 +354,14 @@ def build_config(args: argparse.Namespace):
         profile_dir=args.profile_dir,
         tensorboard_dir=args.tensorboard_dir,
         metrics_jsonl=args.metrics_jsonl,
+        observability=ObservabilityConfig(
+            flight_recorder=args.flight_recorder,
+            dump_dir=args.flight_dir,
+            grad_norm=args.grad_norm_metric or args.anomaly_detection,
+            anomaly_detection=args.anomaly_detection,
+            anomaly_action=args.anomaly_action,
+            anomaly_trace_steps=args.anomaly_trace_steps,
+        ),
         checkpoint=CheckpointConfig(directory=args.checkpoint, interval=args.interval,
                                     resume=args.resume, auto_resume=args.auto_resume),
         data=DataConfig(

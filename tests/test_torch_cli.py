@@ -6,7 +6,7 @@
   it gives the JAX package's fields; unknown keys raise in both, and what
   asks for a behaviour the port lacks raises ``NotImplementedError``.
 - The CLI parses the JAX CLI's flags with its names and defaults (plus
-  ``--device``; ``--flight-recorder`` is off), builds the same config
+  ``--device``), builds the same config
   from the same command line, refuses every flag of what the port lacks,
   and trains through ``Trainer.fit()``.
 """
@@ -31,7 +31,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # TrainConfig fields both packages have and a ds_config or the CLI sets.
 FIELDS = ("model", "plugin", "num_epochs", "gradient_accumulation_steps", "label_smoothing",
           "seed", "log_interval", "target_acc", "optimizer", "scheduler", "precision",
-          "zero", "checkpoint", "data", "remat", "wall_clock_breakdown")
+          "zero", "checkpoint", "data", "remat", "wall_clock_breakdown", "observability")
 
 
 def _load(path, name):
@@ -136,7 +136,9 @@ def _jax_args(argv):
 def test_cli_flags_are_the_jax_clis():
     jax_args, port_args = vars(_jax_args([])), vars(PORT_CLI.build_parser().parse_args([]))
     assert set(port_args) == set(jax_args) | {"device"}
-    assert {k for k in jax_args if jax_args[k] != port_args[k]} == {"flight_recorder"}
+    # --flight-recorder is on by default, as in JAX (it was off until the
+    # flight instruments were ported).
+    assert {k for k in jax_args if jax_args[k] != port_args[k]} == set()
 
 
 @pytest.mark.parametrize("argv", [
@@ -171,7 +173,21 @@ def test_cli_refuses_what_the_port_lacks(argv):
     """What the port lacks raises naming ROADMAP.md. The MoE flags, which
     this test once listed, are ported: they build the JAX CLI's config
     (``--moe`` switches the model to ``moe_mlp``; ``--ep-world-size`` sizes
-    the expert axis under ``--moe`` alone)."""
+    the expert axis under ``--moe`` alone). So are the flight instruments'
+    (``--flight-recorder`` and ``--no-flight-recorder``, ``--flight-dir``,
+    ``--grad-norm-metric``, ``--anomaly-detection``): they build the JAX
+    CLI's ``observability`` config. ``--trace``, ``--trace-dir``,
+    ``--metrics-port`` and the chaos flags stay refused."""
+    flight = {"--flight-recorder": ["--no-flight-recorder"], "--flight-dir": [],
+              "--grad-norm-metric": [], "--anomaly-detection": ["--anomaly-action", "skip"]}
+    if argv[0] in flight:
+        for args in (argv, [*argv, *flight[argv[0]]]):
+            want = JAX_CLI.build_config(_jax_args(args))
+            got = PORT_CLI.build_config(PORT_CLI.build_parser().parse_args(args))
+            _same(want, got)
+            assert dataclasses.asdict(got.observability) == dataclasses.asdict(
+                want.observability)
+        return
     if argv[0] in ("--moe", "--num-experts", "--top-k", "--ep-world-size"):
         for extra in ([], ["--moe"] if argv[0] != "--moe" else ["--ep-world-size", "2"]):
             want = JAX_CLI.build_config(_jax_args([*argv, *extra]))

@@ -347,13 +347,18 @@ def test_coordinator_over_two_ranks(runs):
 
 
 def test_world_size_resolves_the_data_axis():
-    """``MeshSpec.data`` is -1 (the world size) or the world size; any
-    other axis above 1 stays refused by the Trainer."""
+    """``MeshSpec.data`` is -1 (the world size) or the world size, and the
+    replica count is ``data × fsdp``; the sequence and pipe axes stay
+    refused by the Trainer, and an fsdp axis of 2 is a mesh one process
+    cannot hold (multi-rank in test_torch_fsdp.py)."""
     assert resolve_data_axis(MeshSpec(), 4) == 4
     assert resolve_data_axis(MeshSpec(data=2), 2) == 2
+    assert resolve_data_axis(MeshSpec(data=-1, fsdp=2), 4) == 4
     with pytest.raises(ValueError, match="world size"):
         resolve_data_axis(MeshSpec(data=2), 1)
     with pytest.raises(NotImplementedError, match="mesh axes other than data"):
+        Trainer(_ckpt_cfg("unused", 8, 1).replace(mesh=MeshSpec(sequence=2)), device="cpu")
+    with pytest.raises(ValueError, match="not divisible by fixed axes product 2"):
         Trainer(_ckpt_cfg("unused", 8, 1).replace(mesh=MeshSpec(fsdp=2)), device="cpu")
 
 
@@ -391,7 +396,8 @@ def test_partition_rule_is_per_tensor_flat_and_padded():
     shards = []
     for rank in range(3):
         z = Zero(1)
-        z.world, z.rank = 3, rank
+        z.world = z.inner_size = 3
+        z.rank = z.inner_rank = rank
         assert z.chunk(10) == 4
         shards.append(z.shard(t))
     assert [s.tolist() for s in shards] == [[0, 1, 2, 3], [4, 5, 6, 7], [8, 9, 0, 0]]

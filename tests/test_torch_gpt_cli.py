@@ -1,9 +1,8 @@
 """The port's GPT CLI (``gpt/torch_cuda/train.py``) against the JAX one
 (``gpt/jax_tpu/train.py``): the same flags with the same dests and
-defaults (plus ``--device``; ``--flight-recorder`` defaults to off, as in
-the port's ResNet CLI, because the port has no flight recorder), the same
-config from the same command line, the flags of what the port lacks
-refused, and a short run on the CPU through ``LMTrainer``."""
+defaults (plus ``--device``), the same config from the same command line,
+the flags of what the port lacks refused, and a short run on the CPU
+through ``LMTrainer``."""
 
 import dataclasses
 import importlib.util
@@ -19,7 +18,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIELDS = ("model", "num_epochs", "gradient_accumulation_steps", "remat", "tp_overlap",
           "seed", "log_interval", "wall_clock_breakdown", "profile_dir", "tensorboard_dir",
           "metrics_jsonl", "optimizer", "precision", "zero", "mesh", "checkpoint", "data",
-          "lm", "moe")
+          "lm", "moe", "observability")
 
 torch.set_num_threads(1)
 
@@ -51,7 +50,9 @@ def _port_args(argv):
 def test_parser_dests_and_defaults_are_the_jax_clis():
     jax_args, port_args = vars(_jax_args([])), vars(_port_args([]))
     assert set(port_args) == set(jax_args) | {"device"}
-    assert {k for k in jax_args if jax_args[k] != port_args[k]} == {"flight_recorder"}
+    # --flight-recorder is on by default, as in JAX (it was off until the
+    # flight instruments were ported).
+    assert {k for k in jax_args if jax_args[k] != port_args[k]} == set()
 
 
 @pytest.mark.parametrize("argv", [
@@ -94,13 +95,22 @@ def test_unported_flags_raise_naming_the_flag(argv):
     expert axis, with and without ``--moe``), and the pipeline's: ``--pp``
     (the mesh's pipe axis), ``--microbatches`` and ``--virtual-stages``
     (the ``lm`` config), which build the JAX CLI's config with and without
-    ``--pp 2`` (they raised beside it until the pipeline was ported)."""
+    ``--pp 2`` (they raised beside it until the pipeline was ported). So
+    are the flight instruments' (``--flight-recorder`` with and without
+    ``--no-flight-recorder``, ``--grad-norm-metric``,
+    ``--anomaly-detection``, ``--anomaly-action``): they build the JAX
+    CLI's ``observability`` config. ``--trace``, ``--metrics-port`` and the
+    chaos flags stay refused."""
+    flight = {"--flight-recorder": [[], ["--no-flight-recorder"]],
+              "--grad-norm-metric": [[]], "--anomaly-detection": [[], ["--anomaly-action",
+                                                                        "skip"]],
+              "--anomaly-action": [[], ["--anomaly-detection"]]}
     if argv[0] in ("--tp", "--tp-overlap", "--sp", "--moe", "--num-experts",
                    "--ep-world-size", "--top-k", "--microbatches", "--virtual-stages",
-                   "--pp"):
+                   "--pp", *flight):
         extras = ([[], ["--moe"]] if argv[0] in ("--num-experts", "--ep-world-size", "--top-k")
                   else [[], ["--pp", "2"]] if argv[0] in ("--microbatches", "--virtual-stages")
-                  else [[]])
+                  else flight.get(argv[0], [[]]))
         for extra in extras:
             want = JAX_CLI.build_config(_jax_args([*argv, *extra]))
             got = PORT_CLI.build_config(_port_args([*argv, *extra]))

@@ -155,8 +155,10 @@ def test_unported_options_raise(tmp_path, override):
     ``tp_overlap`` with MoE (the JAX trainer's ``NotImplementedError``,
     word for word), ZeRO × expert parallelism without ``moe_param_group``,
     the JAX trainer's ``ValueError``, checked on the mesh sizes since one
-    process cannot hold an expert axis of 2, and the ``fsdp`` axis,
-    naming ROADMAP.md.)"""
+    process cannot hold an expert axis of 2. The ``fsdp`` axis is ported,
+    multi-rank in test_torch_fsdp.py: at world 1 an fsdp axis of 2 is a
+    mesh one process cannot hold; beside it, the live exporter
+    (``metrics_port``) and span traces still raise naming ROADMAP.md.)"""
     cfg = _cfg(tcfg, tmp_path, **override)
     if override == dict(tp_overlap=True):
         t = LMTrainer(cfg, device="cpu")
@@ -190,12 +192,17 @@ def test_unported_options_raise(tmp_path, override):
                          mesh=create_mesh(MeshConfig(data=1), devices=jax.devices()[:1]))
         assert str(info.value) == str(want.value)
         return
-    if "mesh" in override and (cfg.mesh.sequence, cfg.mesh.model, cfg.mesh.pipe) != (1, 1, 1):
+    if "mesh" in override and (cfg.mesh.sequence, cfg.mesh.model, cfg.mesh.pipe,
+                               cfg.mesh.fsdp) != (1, 1, 1, 1):
         with pytest.raises(ValueError, match="not divisible by fixed axes product 2"):
             LMTrainer(cfg, device="cpu")
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LMTrainer(cfg, device="cpu")
+    if cfg.mesh.fsdp != 1:
+        # What stays refused beside it: the live exporter and span traces.
+        for obs in (tcfg.ObservabilityConfig(metrics_port=0),
+                    tcfg.ObservabilityConfig(trace=tcfg.TraceConfig(enabled=True))):
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                LMTrainer(cfg.replace(mesh=tcfg.MeshSpec(), observability=obs),
+                          device="cpu")
 
 
 @pytest.mark.parametrize("prefetch", [0, 2])

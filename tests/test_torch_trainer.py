@@ -174,13 +174,15 @@ def test_unported_options_raise(tmp_path, override):
     test_torch_vit_tp.py: here, at world 1, ``tp_overlap`` over a model
     axis of 1 builds the plain step, as the JAX Trainer does, a model axis
     of 2 is a mesh one process cannot hold, refused as ``create_mesh``
-    refuses it, and ``vit_b16`` builds and trains a step.)"""
+    refuses it, and ``vit_b16`` builds and trains a step. The fsdp axis is
+    ported, multi-rank in test_torch_fsdp.py: an fsdp axis of 2 is a mesh
+    one process cannot hold too. The sequence and pipe axes stay refused.)"""
     cfg = _cfg(tmp_path, **override)
     if override == dict(tp_overlap=True):
         t = Trainer(cfg, device="cpu")
         assert t.tp is None and t._microbatches == t.grad_accum
         return
-    if override == dict(mesh=MeshSpec(model=2)):
+    if override in (dict(mesh=MeshSpec(model=2)), dict(mesh=MeshSpec(fsdp=2))):
         with pytest.raises(ValueError, match="not divisible by fixed axes product 2"):
             Trainer(cfg, device="cpu")
         return

@@ -15,6 +15,7 @@ or the traceback to ``<out>/error_<rank>.txt``.
 
 from __future__ import annotations
 
+import math
 import os
 import traceback
 
@@ -103,7 +104,7 @@ def _fp16_skip(job, rank, world, group):
     c = zero.chunk(first.numel())
     if rank == 0:
         grads[0].view(-1)[c] = float("inf")  # element c: the first of rank 1's shard
-    shards = zero.reduce_scatter_mean(grads)
+    shards = zero.exchange_grads(grads)
     local_finite = bool(torch.isfinite(shards[0]).all())
     before = {n: p.clone() for n, p in state.master_params().items()}
     from distributed_training_tpu_torch.train.precision import commit_gradients
@@ -475,8 +476,13 @@ def _trainer_steps(job, rank, world, group):
                 first = batch
             metrics.append({k: float(v) for k, v in
                             t.train_step(t.state, t.place(batch)).items()})
+        st = t.state
+        held = {"params": sum(p.numel() for p in (st.shards or st.params()).values()),
+                "whole": sum(math.prod(shape) for shape, _ in st.layouts.values()),
+                **{k: sum(v.numel() for v in st.opt_state.slots[k].values())
+                   for k in ("mu", "nu") if k in st.opt_state.slots}}
         out[name] = {"state": t.state.state_dict(), "metrics": metrics,
-                     "step": t.state.step, "first": first}
+                     "step": t.state.step, "first": first, "held": held}
         if sc.get("save"):
             from distributed_training_tpu_torch import checkpoint as ckpt_lib
 
@@ -622,6 +628,50 @@ def _pp_cli(job, rank, world, group):
         except (NotImplementedError, ValueError) as e:
             refused.append((type(e).__name__, str(e)))
     return {"pp_cli": runs, "pp_refused": refused}
+
+
+def _flight_world(job, rank, world, group):
+    """Each config of ``job["flight_cfgs"]``: ``fit()`` with the flight
+    instruments at their defaults, then the cross-rank summary the last
+    flush exchanged (over gloo) and the recorder's step count; rank 0
+    dumps the record to the config's ``dump``."""
+    from distributed_training_tpu_torch import LMTrainer, Trainer
+
+    out = {}
+    for name, sc in job["flight_cfgs"].items():
+        cfg = sc["cfg"]
+        t = (LMTrainer if cfg.model == "transformer_lm" else Trainer)(cfg, device="cpu")
+        t.fit()
+        if rank == 0:
+            t.obs.dump(sc["dump"])
+        out[name] = {"hosts": t.obs.host_summary,
+                     "recorded": t.obs.recorder._count,
+                     "flushes": t.obs.recorder.flushes}
+    # Both ranks past their last exchange before either tears its group down.
+    torch.distributed.barrier()
+    return {"flight": out, "host_group": _host_group_reuse()}
+
+
+def _host_group_reuse() -> dict:
+    """``aggregate.host_group`` under a default group that is not gloo (its
+    backend read as NCCL's): the gloo group it opens beside it, the same
+    object at a second call (a second trainer of the process), and an
+    exchange over it."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from distributed_training_tpu_torch.observability import aggregate
+
+    real = dist.get_backend
+    dist.get_backend = lambda group=None: "nccl"
+    try:
+        first, second = aggregate.host_group(), aggregate.host_group()
+    finally:
+        dist.get_backend = real
+    rank = dist.get_rank()
+    rows = aggregate.gather_payloads(np.full(3, float(rank)), 2, group=first)
+    return {"same": first is second, "world": first is dist.group.WORLD,
+            "size": dist.get_world_size(first), "rows": rows}
 
 
 def run_named(rank: int, world: int, init_file: str, out_dir: str, names: tuple) -> None:
