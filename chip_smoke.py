@@ -135,6 +135,29 @@ Phases, in order; any failure exits non-zero and prints no result line:
    and leaves the dump, the batch ``.npz`` and a non-empty ``torch.profiler``
    trace of 2 steps, ``"raise"`` raises ``AnomalyError`` after that window;
    K1 once a step and K2/K3 once a layer a step in every run;
+7d5. trace phase: the span trace on the same two configurations, trace
+   off, on, on, off (mean loop interval each, reported), the span calls'
+   own host time under 1% of the step, as many synchronising calls with
+   the trace on as off, the file rendered by the port's ``trace_report``
+   with the wall clock's spans, the async writer's track and one step span
+   a step; GPT-2-small's traced run also serves ``metrics_port``, scraped
+   (``/metrics``, ``/healthz``, ``/vars``, each 200, the flushed MFU in
+   ``/vars``) from a second thread during the fit (see TRACE_STEPS);
+7d6. resilience phase: the chaos drills through both CLIs on ResNet-18
+   (batch 100) and GPT-2-small at full width: SIGTERM at a step (the
+   restored state bit for bit the saved one, then the resume), SIGKILL (the
+   resume from the newest committed save) in subprocesses; a torn newest
+   save skipped and quarantined; a corrupted committed save refused by
+   ``verify_checkpoint``; data-read faults over an imagefolder tree and an
+   LM corpus, counted per key; slow steps in the flight dump; each resumed
+   run's losses held to the two uninterrupted runs by the continuation
+   rule, its branch printed (see RES_EPOCHS);
+7d7. generate phase: GPT-2-small trained 4 steps, saved, restored through
+   ``inference/restore.py``; greedy generation at batch 8 for 128 + 128
+   and 512 + 512 tokens, the cached logits against the full forward, the
+   tokens against the teacher-forced rollout (near ties counted), beam
+   search, the generate CLI; prefill ms, decode ms a token, tokens/s, the
+   cache's MiB and the peak (see GEN_SHAPES);
 7e. d-256 phase: K2–K4 at head dims 256 and 160 (padded to 256), and at
    257, 320, 384 and 512 (768 in bf16; the d > 256 kernels, d padded to a
    multiple of 64), in float32, bf16 and fp16, T 100 and 384, causal and
@@ -217,17 +240,22 @@ ZeRO 1, × model 2, × sequence 2, × pipe 2 ZeRO 1, MoE at fsdp 2 × expert
 2; ResNet-18 at fsdp 4 SyncBN; ViT-B/16 at fsdp 2 × model 2), each against
 its DP 4 run's losses, rates, rank 0's peak and its parameter and
 optimizer-state bytes against DP 4's (they must fall by the fsdp size),
-and the fsdp 4 save resumed at world 1. ``--mesh PART ...`` (names of
-``MESH_PARTS``: a11, moe, vit, moe_axes, lm, bench, pp, fsdp) runs only
-those parts.
+and the fsdp 4 save resumed at world 1; then (``resilience``) the chaos
+drills across the ranks: a slow step on rank 1 named the straggler by
+every rank, a SIGTERM kill on every rank resumed at world 4 by the
+continuation rule, and the flight recorder's gloo exchange timed a flush
+on each rank (see RES_MESH_EPOCHS). ``--mesh PART ...`` (names of
+``MESH_PARTS``: a11, moe, vit, moe_axes, lm, bench, pp, fsdp, resilience)
+runs only those parts.
 
 ``python3 chip_smoke.py --phase NAME ...`` runs the build and only the
-named phases (ring, moe_lm, moe_image, vit, pipeline, flight), without a
-result line.
+named phases (ring, moe_lm, moe_image, vit, pipeline, flight, trace,
+resilience, generate), without a result line.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -1484,16 +1512,27 @@ def pipeline_phase() -> dict:
 # The flight phase: the flight instruments (observability/), on by default
 # in both trainers, on full-width ResNet-18 (Trainer.fit, batch 100, bf16)
 # and GPT-2-small (LMTrainer.fit, B 16 T 1024, bf16, flash, hybrid_adam).
-# - A/B in one process, recorder off, on, on, off, twice over (FLIGHT_AB;
-#   FLIGHT_STEPS steps at log interval FLIGHT_LOG each): each iteration of
+# - A/B in one process, recorder off, on, on, off, twice over (FLIGHT_AB),
+#   and that FLIGHT_AB_REPEATS times over (FLIGHT_STEPS steps at log
+#   interval FLIGHT_LOG each): each iteration of
 #   the train loop timed from one step's entry to the next's, the card
 #   synchronised at each entry, so an interval holds the step's device work
 #   and all the loop's host work (the recorder's included, its flushes
 #   too). A run's step time is the mean of its intervals after the first
 #   two. The check fails if the "on" runs' mean step time exceeds the "off"
 #   runs' by more than the spread of the "off" runs' step times (largest
-#   less smallest). Two blocks, not one: with one, a recorder that costs
-#   nothing fails about one run in five under independent run-to-run noise.
+#   less smallest of the four in each FLIGHT_AB, averaged over its repeats).
+#   Two blocks, not one: with one, a recorder that costs nothing fails about
+#   one run in five under independent run-to-run noise; with two, about one
+#   in forty (independent normal noise). ResNet-18's loop is host-bound and
+#   its intervals vary widely within a run, so it repeats FLIGHT_AB: the
+#   threshold's expectation stays that of four "off" runs while the
+#   difference of the means is taken over twice the runs, and a free
+#   recorder fails about one run in 370.
+#   Each timed run starts from a full collection (gc.collect() after the
+#   trainer is built), so that no collection an earlier run left owing
+#   lands in its intervals; the collector's pauses inside each run's
+#   counted intervals are reported.
 # - Self time: one more run with the recorder on, every call into the
 #   instruments (TrainObservability's on_step, on_flush, on_epoch) and into
 #   the wall clock's phases timed on the host, each kind of call taken at
@@ -1518,11 +1557,13 @@ def pipeline_phase() -> dict:
 FLIGHT_STEPS, FLIGHT_LOG = 24, 4
 FLIGHT_SYNC_STEPS = 8
 FLIGHT_AB = ("off", "on", "on", "off") * 2
+FLIGHT_AB_REPEATS = {"resnet18": 2, "gpt2_small": 1}
 FLIGHT_SELF_SHARE = 0.01
 FLIGHT_POISON_AFTER, FLIGHT_TRACE_STEPS, FLIGHT_ANOMALY_STEPS = 2, 2, 8
 
 
-def _flight_cfg(kind: str, ckpt_dir: str, steps: int, log: int, **obs):
+def _flight_cfg(kind: str, ckpt_dir: str, steps: int, log: int, interval: int = 0,
+                **obs):
     from distributed_training_tpu_torch.config import (
         CheckpointConfig,
         DataConfig,
@@ -1536,7 +1577,7 @@ def _flight_cfg(kind: str, ckpt_dir: str, steps: int, log: int, **obs):
     common = dict(num_epochs=1, log_interval=log, eval_every=0,
                   optimizer=OptimizerConfig(name="hybrid_adam", lr=1e-3),
                   precision=PrecisionConfig(dtype="bf16"),
-                  checkpoint=CheckpointConfig(directory=ckpt_dir, interval=0),
+                  checkpoint=CheckpointConfig(directory=ckpt_dir, interval=interval),
                   observability=ObservabilityConfig(**obs))
     if kind == "resnet18":
         return TrainConfig(model="resnet18", data=DataConfig(
@@ -1603,20 +1644,23 @@ def _self_ms(acc: dict, steps: int) -> dict:
 
 def _flight_run(kind: str, ckpt_dir: str, *, steps: int, log: int, timed: bool = False,
                 sync_debug: bool = False, poison_after: int | None = None,
-                self_time: bool = False, **obs) -> dict:
+                self_time: bool = False, span_self_time: bool = False,
+                scrape: bool = False, interval: int = 0, **obs) -> dict:
     """One ``fit()`` of ``kind`` with ``obs`` as its ObservabilityConfig;
     the loop intervals (``timed``), the synchronising calls counted
     (``sync_debug``), the parameters poisoned after ``poison_after`` steps,
     the host seconds spent in the instruments and the clock's phases
-    (``self_time``); K1/K2/K3 launches from 0; the trainer, and the
-    exception ``fit`` raised."""
+    (``self_time``) or in the span trace's own calls (``span_self_time``),
+    a live scrape of the exporter from another thread (``scrape``), a save
+    every ``interval`` epochs; K1/K2/K3 launches from 0; the trainer, and
+    the exception ``fit`` raised."""
     import warnings
 
     from distributed_training_tpu_torch import LMTrainer, Trainer
     from distributed_training_tpu_torch.ops.flash_attention import flash_bwd, flash_fwd
     from distributed_training_tpu_torch.ops.fused_adam import fused_adam_update
 
-    cfg = _flight_cfg(kind, ckpt_dir, steps, log, **obs)
+    cfg = _flight_cfg(kind, ckpt_dir, steps, log, interval, **obs)
     trainer = (Trainer if kind == "resnet18" else LMTrainer)(cfg)
     step, entries, calls = trainer.train_step, [], []
 
@@ -1641,8 +1685,22 @@ def _flight_run(kind: str, ckpt_dir: str, *, steps: int, log: int, timed: bool =
     if self_time:
         _time_calls(trainer.obs, ("on_step", "on_flush", "on_epoch"), spent, live)
         _time_phases(trainer.clock, spent, live)
+    if span_self_time:  # every span, instant and counter, any thread
+        _time_calls(trainer.trace, ("complete", "instant", "counter"), spent, live)
+    scraper = _Scraper(trainer.obs) if scrape else None
     for fn in (fused_adam_update, flash_fwd, flash_bwd):
         fn.launches = 0
+    pauses = []  # (start, seconds, generation) of each collection in fit()
+
+    def on_gc(phase, info, started=[0.0]):
+        if phase == "start":
+            started[0] = time.perf_counter()
+        else:
+            pauses.append((started[0], time.perf_counter() - started[0], info["generation"]))
+
+    if timed:  # the same collector state at every timed run's start
+        gc.collect()
+        gc.callbacks.append(on_gc)
     error = None
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
@@ -1654,11 +1712,20 @@ def _flight_run(kind: str, ckpt_dir: str, *, steps: int, log: int, timed: bool =
             error = e
         finally:
             torch.cuda.set_sync_debug_mode(0)
+            if scraper is not None:
+                scraper.stop()
+            if timed:
+                gc.callbacks.remove(on_gc)
     syncs = [str(w.message) for w in caught if "synchroniz" in str(w.message)]
     intervals = [1e3 * (b - a) for a, b in zip(entries, entries[1:])][2:]
+    # The collector's pauses inside the counted intervals, by generation.
+    counted = [(s, g) for t, s, g in pauses if len(entries) > 2 and entries[2] <= t < entries[-1]]
+    gc_window = {"ms": 1e3 * sum(s for s, _ in counted),
+                 "by_generation": [sum(g == n for _, g in counted) for n in range(3)]}
     return {"trainer": trainer, "error": error, "calls": len(calls), "syncs": len(syncs),
             "sync_kinds": sorted(set(s.split("\n")[0][:120] for s in syncs)),
-            "intervals_ms": intervals, "self_s": spent,
+            "intervals_ms": intervals, "gc": gc_window, "self_s": spent,
+            "scrape": scraper.result if scraper is not None else None,
             "launches": {"fused_adam": fused_adam_update.launches,
                          "flash_fwd": flash_fwd.launches, "flash_bwd": flash_bwd.launches}}
 
@@ -1694,14 +1761,15 @@ def flight_phase(ckpt_dir: str) -> dict:
 
     out = {"launches": {}}
     for kind in ("resnet18", "gpt2_small"):
-        ab = {}
-        for i, mode in enumerate(FLIGHT_AB):
+        ab, order = {}, FLIGHT_AB * FLIGHT_AB_REPEATS[kind]
+        for i, mode in enumerate(order):
             run = _flight_run(kind, os.path.join(ckpt_dir, f"{kind}_ab{i}"),
                               steps=FLIGHT_STEPS, log=FLIGHT_LOG, timed=True,
                               flight_recorder=mode == "on")
             _check_launches(f"{kind} {mode}", kind, run["launches"], FLIGHT_STEPS)
             out["launches"][f"flight_{kind}_ab{i}_{mode}"] = run["launches"]
             ab.setdefault(mode, []).append(run["intervals_ms"])
+            ab.setdefault(f"gc_{mode}", []).append(run["gc"])
             trainer = run.pop("trainer")
             if mode == "on" and "dump" not in ab:
                 flushes = trainer.obs.recorder.flushes
@@ -1718,7 +1786,9 @@ def flight_phase(ckpt_dir: str) -> dict:
             torch.cuda.empty_cache()
         step_ms = {m: [sum(x) / len(x) for x in ab[m]] for m in ("on", "off")}
         on_ms, off_ms = (sum(step_ms[m]) / len(step_ms[m]) for m in ("on", "off"))
-        spread = max(step_ms["off"]) - min(step_ms["off"])
+        per = FLIGHT_AB.count("off")  # the "off" runs of one FLIGHT_AB
+        offs = [step_ms["off"][j:j + per] for j in range(0, len(step_ms["off"]), per)]
+        spread = sum(max(o) - min(o) for o in offs) / len(offs)
         run = _flight_run(kind, os.path.join(ckpt_dir, f"{kind}_self"), steps=FLIGHT_STEPS,
                           log=FLIGHT_LOG, self_time=True)
         _check_launches(f"{kind} self time", kind, run["launches"], FLIGHT_STEPS)
@@ -1736,13 +1806,20 @@ def flight_phase(ckpt_dir: str) -> dict:
             del run["trainer"]
         r = out[kind] = {"step_ms": {"on": on_ms, "off": off_ms}, "off_spread_ms": spread,
                          "run_step_ms": step_ms,
-                         "order": list(FLIGHT_AB), "self_ms_per_step": self_ms,
+                         "order": list(order), "self_ms_per_step": self_ms,
                          "self_ms_per_step_by_call": self_split,
-                         "syncs": syncs, "last_flush": ab["last_flush"]}
+                         "syncs": syncs, "last_flush": ab["last_flush"],
+                         "gc_pauses": {m: ab[f"gc_{m}"] for m in ("on", "off")}}
+        gc_note = (f"collector pauses in the counted intervals, a run: on "
+                   f"{[round(g['ms'], 3) for g in ab['gc_on']]} ms, off "
+                   f"{[round(g['ms'], 3) for g in ab['gc_off']]} ms (full collections on "
+                   f"{sum(g['by_generation'][2] for g in ab['gc_on'])}, off "
+                   f"{sum(g['by_generation'][2] for g in ab['gc_off'])})")
         print(f"[flight] {kind}: mean loop interval, recorder off {off_ms:.3f} ms, on "
-              f"{on_ms:.3f} ms (runs in the order {'/'.join(FLIGHT_AB)}: on "
+              f"{on_ms:.3f} ms (runs in the order {'/'.join(order)}: on "
               f"{r['run_step_ms']['on']}, off {r['run_step_ms']['off']}); off runs' spread "
-              f"{spread:.3f} ms; the instruments and the clock's phases {1e3 * self_ms:.1f} us "
+              f"{spread:.3f} ms (a FLIGHT_AB's, averaged); {gc_note}; the instruments and the clock's phases "
+              f"{1e3 * self_ms:.1f} us "
               f"a step on the host ({100 * self_ms / off_ms:.3f}% of the off step; by call "
               f"{self_split}); "
               f"synchronising calls off {syncs['off']['count']}, on {syncs['on']['count']} "
@@ -1750,7 +1827,9 @@ def flight_phase(ckpt_dir: str) -> dict:
         print("[flight] " + ab["report"].replace("\n", "\n[flight] ").rstrip(), flush=True)
         if on_ms - off_ms > spread:
             raise SystemExit(f"flight {kind}: recorder on {on_ms:.3f} ms against off "
-                             f"{off_ms:.3f} ms, more than the off runs' spread {spread:.3f}")
+                             f"{off_ms:.3f} ms, more than the off runs' spread {spread:.3f} "
+                             f"(runs on {step_ms['on']}, off {step_ms['off']}; {gc_note}; "
+                             f"self time {1e3 * self_ms:.1f} us a step)")
         if self_ms > FLIGHT_SELF_SHARE * off_ms:
             raise SystemExit(f"flight {kind}: the instruments take {self_ms:.4f} ms a step, "
                              f"over {FLIGHT_SELF_SHARE:.0%} of the {off_ms:.3f} ms step")
@@ -1789,6 +1868,823 @@ def flight_phase(ckpt_dir: str) -> dict:
         _check_launches(f"anomaly {action}", "gpt2_small", run["launches"], want_calls)
         del trainer
         torch.cuda.empty_cache()
+    return out
+
+
+class _Scraper:
+    """A thread that, once the recorder holds a flush, fetches the live
+    exporter's ``/metrics``, ``/healthz`` and ``/vars`` (urllib, loopback)
+    until each has answered, while ``fit()`` runs; ``result`` holds the
+    status codes, the last flush's MFU from ``/vars`` and the ``/healthz``
+    phase."""
+
+    def __init__(self, obs):
+        self.obs, self.result = obs, {}
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, name="scraper", daemon=True)
+        self._thread.start()
+
+    def _run(self) -> None:
+        import urllib.request
+
+        while not self._stop.is_set():
+            exp, rec = self.obs.exporter, self.obs.recorder
+            if exp is None or rec is None or not rec.flushes:
+                time.sleep(0.002)
+                continue
+            try:
+                got = {}
+                for path in ("/metrics", "/healthz", "/vars"):
+                    with urllib.request.urlopen(exp.url(path), timeout=10) as resp:
+                        got[path] = (resp.status, resp.read().decode())
+            except OSError as e:
+                self.result["error"] = repr(e)
+                time.sleep(0.01)
+                continue
+            flushes = json.loads(got["/vars"][1]).get("flushes") or [{}]
+            self.result = {"codes": {p: c for p, (c, _) in got.items()},
+                           "mfu": flushes[-1].get("mfu"),
+                           "phase": json.loads(got["/healthz"][1])["phase"],
+                           "metrics_lines": got["/metrics"][1].count("\n"),
+                           "step": flushes[-1].get("step")}
+            return
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._thread.join(timeout=30)
+
+
+# The trace phase: the span trace (observability/trace.py) on both trainers
+# at the flight phase's configurations (full-width ResNet-18 at batch 100
+# and GPT-2-small, bf16, hybrid_adam; TRACE_STEPS steps, a flush every
+# TRACE_LOG): trace off, on, on, off in one process, each run's mean loop
+# interval after its first two steps; the first "on" run also times every
+# span call on the host (must stay under TRACE_SELF_SHARE of the off step)
+# and saves once, so its file holds the async writer's track. The A/B is
+# reported, not gated: with two "off" runs the spread cannot resolve a cost
+# of ~0.1 ms (the flight phase's finding). Then TRACE_SYNC_STEPS steps off
+# and on under torch.cuda.set_sync_debug_mode("warn"), with as many
+# synchronising calls; GPT-2-small's "on" run also serves --metrics-port,
+# scraped from a second thread during the fit.
+TRACE_AB = ("off", "on", "on", "off")
+TRACE_STEPS, TRACE_LOG, TRACE_SYNC_STEPS = 12, 4, 8
+TRACE_SELF_SHARE = 0.01
+
+
+def _trace_report(path: str) -> tuple[dict, str]:
+    """The port's trace_report on ``path``: its summary and its text (the
+    tool must exit 0)."""
+    import contextlib
+    import io
+
+    from distributed_training_tpu_torch.observability.trace import load_trace
+    from distributed_training_tpu_torch.tools import trace_report
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = trace_report.main([path])
+    if rc != 0:
+        raise SystemExit(f"trace: trace_report exited {rc} on {path}")
+    return trace_report.summarize(load_trace(path)), buf.getvalue()
+
+
+def _span_counts(path: str) -> dict:
+    """{track: {span or event name: count}} of a trace file."""
+    from distributed_training_tpu_torch.observability.trace import load_trace
+
+    events = load_trace(path)["traceEvents"]
+    tracks = {e["tid"]: e["args"]["name"] for e in events
+              if e["ph"] == "M" and e["name"] == "thread_name"}
+    out: dict = {}
+    for e in events:
+        if e["ph"] != "M":
+            by = out.setdefault(tracks[e["tid"]], {})
+            by[e["name"]] = by.get(e["name"], 0) + 1
+    return out
+
+
+def trace_phase(ckpt_dir: str) -> dict:
+    """The span trace on both trainers (see TRACE_STEPS)."""
+    from distributed_training_tpu_torch.config import TraceConfig
+
+    out = {"launches": {}}
+    for kind in ("resnet18", "gpt2_small"):
+        ab, first = {"on": [], "off": []}, None
+        for i, mode in enumerate(TRACE_AB):
+            on = mode == "on"
+            d = os.path.join(ckpt_dir, f"{kind}_ab{i}")
+            is_first = on and first is None
+            run = _flight_run(kind, d, steps=TRACE_STEPS, log=TRACE_LOG, timed=True,
+                              span_self_time=is_first, interval=1 if is_first else 0,
+                              trace=TraceConfig(enabled=on))
+            _check_launches(f"trace {kind} {mode}", kind, run["launches"], TRACE_STEPS)
+            out["launches"][f"trace_{kind}_ab{i}_{mode}"] = run["launches"]
+            ab[mode].append(sum(run["intervals_ms"]) / len(run["intervals_ms"]))
+            if is_first:
+                path = run["trainer"].obs.trace_path
+                summary, text = _trace_report(path)
+                first = {"path": path, "summary": summary, "text": text,
+                         "spans": _span_counts(path),
+                         "self": _self_ms(run["self_s"], TRACE_STEPS - 2)}
+            del run["trainer"]
+            torch.cuda.empty_cache()
+        spans = first["spans"]
+        want = {"step": TRACE_STEPS, "data": None, "log": TRACE_STEPS, "ckpt": 1}
+        train = spans.get("train", {})
+        if (any(train.get(n, 0) < 1 or (c is not None and train[n] != c)
+                for n, c in want.items())
+                or spans.get("ckpt-writer", {}).get("ckpt.persist") != 1):
+            raise SystemExit(f"trace {kind}: spans {spans}, expected {want} on the train track "
+                             f"and one ckpt.persist on ckpt-writer")
+        syncs, scrape = {}, None
+        for mode in ("off", "on"):
+            live = mode == "on" and kind == "gpt2_small"
+            run = _flight_run(kind, os.path.join(ckpt_dir, f"{kind}_sync_{mode}"),
+                              steps=TRACE_SYNC_STEPS, log=TRACE_LOG, sync_debug=True,
+                              scrape=live, trace=TraceConfig(enabled=mode == "on"),
+                              **({"metrics_port": _free_port()} if live else {}))
+            _check_launches(f"trace {kind} sync {mode}", kind, run["launches"],
+                            TRACE_SYNC_STEPS)
+            out["launches"][f"trace_{kind}_sync_{mode}"] = run["launches"]
+            syncs[mode] = {"count": run["syncs"], "kinds": run["sync_kinds"]}
+            scrape = run["scrape"] if live else scrape
+            del run["trainer"]
+            torch.cuda.empty_cache()
+        on_ms, off_ms = (sum(ab[m]) / len(ab[m]) for m in ("on", "off"))
+        self_ms = sum(v for k, v in first["self"].items() if k != "sum_of_calls")
+        r = out[kind] = {"step_ms": {"on": on_ms, "off": off_ms}, "run_step_ms": ab,
+                         "off_spread_ms": max(ab["off"]) - min(ab["off"]),
+                         "order": list(TRACE_AB), "span_self_ms_per_step": self_ms,
+                         "span_self_by_call": first["self"], "syncs": syncs,
+                         "spans": spans, "events": first["summary"]["events"],
+                         "scrape": scrape}
+        print(f"[trace] {kind}: mean loop interval, trace off {off_ms:.3f} ms, on {on_ms:.3f} ms "
+              f"({on_ms - off_ms:+.3f}; runs {'/'.join(TRACE_AB)}: on {ab['on']}, off "
+              f"{ab['off']}; off spread {r['off_spread_ms']:.3f} ms, reported, not gated); the "
+              f"span calls {1e3 * self_ms:.1f} us a step on the host ({100 * self_ms / off_ms:.3f}%"
+              f" of the off step; by call {first['self']}); synchronising calls off "
+              f"{syncs['off']['count']}, on {syncs['on']['count']}; {r['events']} events, spans "
+              f"by track {spans}" + (f"; live scrape {scrape}" if scrape is not None else ""),
+              flush=True)
+        print("[trace] " + first["text"].replace("\n", "\n[trace] ").rstrip(), flush=True)
+        if self_ms > TRACE_SELF_SHARE * off_ms:
+            raise SystemExit(f"trace {kind}: the span calls take {self_ms:.4f} ms a step, over "
+                             f"{TRACE_SELF_SHARE:.0%} of the {off_ms:.3f} ms step")
+        if syncs["on"]["count"] != syncs["off"]["count"]:
+            raise SystemExit(f"trace {kind}: synchronising calls on {syncs['on']} against off "
+                             f"{syncs['off']}")
+        if kind == "gpt2_small":
+            mfu = (scrape or {}).get("mfu")
+            if (not scrape or set(scrape.get("codes", {}).values()) != {200}
+                    or not isinstance(mfu, float) or not 0 < mfu < 1):
+                raise SystemExit(f"trace: the live scrape during the GPT-2-small fit: {scrape}")
+    return out
+
+
+# The resilience phase: the chaos drills through both CLIs, ResNet-18
+# (-p deepspeed: its normalize-only input draws no random numbers; bf16,
+# synthetic CIFAR at batch 100) and GPT-2-small at full width (bf16, flash,
+# T 1024, batch 16, over a seeded random byte corpus), RES_EPOCHS epochs of
+# RES_STEPS steps, every step's loss in a JSONL file. The uninterrupted run
+# twice, in this process through the CLI's build_trainer: the first with a
+# slow step every 2nd step (the flight dump's step-time percentiles show
+# them), a data-error rate (GPT: the corpus read) and its one save, at the
+# end, corrupted after commit (verify_checkpoint raises); the second saving
+# every epoch, its last save torn (auto-resume skips and quarantines it).
+# SIGTERM at step RES_KILL_STEP, in this process (the chaos monkey raises
+# the signal, the trainer's PreemptionGuard catches it), with no interval
+# save: a step-accurate save and a clean return; the resume's trainer
+# restores it (the parameters, moments, step and data position equal the
+# saved ones bit for bit) and trains to the end. SIGKILL at step
+# RES_HARD_KILL_STEP, the first of the last epoch, in a subprocess (it must
+# kill the child, not this script) saving every epoch; then the resume, in
+# this process, from the newest committed interval save (the writer's queue
+# holds one task, so epoch 0's save was committed before epoch 1's could be
+# queued; epoch 1's may or may not be). No run evaluates but the SIGKILL
+# child (the CLIs have no flag for it) and no resume saves: no drill reads
+# either. ResNet-18 also reads an imagefolder tree of RES_TREE JPEGs under a
+# data-error rate: io_faults in the dump equals the keys the seeded choice
+# faults.
+#
+# The continuation check: if the two uninterrupted runs' losses agree bit
+# for bit, each resumed run's must too; else each resumed step's loss lies
+# within RES_CONT_FACTOR times the largest gap between the two
+# uninterrupted runs (at any step) of the first run's loss at that step. K3
+# adds dQ with float32 atomics and cuDNN may pick algorithms that do not
+# repeat, so either branch can come up; which one each model took is
+# printed. No algorithm is switched to force determinism.
+RES_EPOCHS, RES_STEPS = 3, 2
+RES_KILL_STEP, RES_HARD_KILL_STEP = 3, 5
+RES_SLOW_MS, RES_DATA_ERROR_RATE, RES_CHAOS_SEED = 100.0, 0.3, 5
+RES_CONT_FACTOR = 5.0
+RES_TREE = 200
+RES_RESNET_ARGS = ["-p", "deepspeed", "--model", "resnet18", "--dataset", "synthetic_cifar",
+                   "-b", "100", "--dtype", "bf16"]
+RES_SCRIPTS = {"resnet18": "resnet/torch_cuda/train.py", "gpt2_small": "gpt/torch_cuda/train.py"}
+
+
+def _res_args(kind: str) -> list:
+    """The model's flags: RES_RESNET_ARGS, or the GPT CLI phase's width."""
+    return (RES_RESNET_ARGS if kind == "resnet18"
+            else GPT_CLI_WIDTH[:GPT_CLI_WIDTH.index("-e")])
+
+
+def _res_argv(kind: str, run_dir: str, interval: int, *extra) -> list:
+    return [*_res_args(kind), "-e", str(RES_EPOCHS), "--steps-per-epoch", str(RES_STEPS),
+            "--log-interval", "1", "-i", str(interval), "--auto-resume", "-c", run_dir,
+            "--metrics-jsonl", run_dir + ".jsonl", *extra]
+
+
+def _jsonl_losses(path: str) -> dict:
+    """{step: loss} of a run's train lines."""
+    with open(path) as fh:
+        rows = [json.loads(x) for x in fh]
+    return {r["step"]: r["loss"] for r in rows if r["prefix"] == "train"}
+
+
+def _cli_subprocess(kind: str, argv: list, log_path: str, expect: int) -> str:
+    import subprocess
+
+    with open(log_path, "w") as log:
+        rc = subprocess.run([sys.executable, os.path.join(REPO, RES_SCRIPTS[kind]), *argv],
+                            cwd=REPO, stdout=log, stderr=subprocess.STDOUT,
+                            timeout=600).returncode
+    out = open(log_path).read()
+    if rc != expect:
+        raise SystemExit(f"resilience {kind}: {' '.join(argv)} exited {rc}, expected "
+                         f"{expect}: {out[-3000:]}")
+    return out
+
+
+def _res_cli(kind: str):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"res_cli_{kind}",
+                                                  os.path.join(REPO, RES_SCRIPTS[kind]))
+    cli = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cli)
+    return cli
+
+
+def _res_trainer(cli, argv: list):
+    """The CLI's trainer for ``argv`` (its ``build_config``), with
+    ``eval_every`` 0: no drill reads an eval."""
+    from distributed_training_tpu_torch import LMTrainer, Trainer
+
+    args = cli.build_parser().parse_args(argv)
+    cfg = cli.build_config(args).replace(eval_every=0)
+    return (LMTrainer if cfg.model == "transformer_lm" else Trainer)(cfg, device=args.device)
+
+
+def _res_fit(trainer) -> dict:
+    """``trainer.fit()``; the flight dump, the chaos counters and K1/K2/K3
+    launches from 0."""
+    from distributed_training_tpu_torch.ops.flash_attention import flash_bwd, flash_fwd
+    from distributed_training_tpu_torch.ops.fused_adam import fused_adam_update
+
+    for fn in (fused_adam_update, flash_fwd, flash_bwd):
+        fn.launches = 0
+    result = trainer.fit()
+    out = {"result": result, "dump": json.load(open(trainer.obs.dump())),
+           "chaos": dict(trainer.chaos.counters) if trainer.chaos is not None else {},
+           "launches": {"fused_adam": fused_adam_update.launches,
+                        "flash_fwd": flash_fwd.launches, "flash_bwd": flash_bwd.launches}}
+    del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def _restored_equals_saved(trainer, run_dir: str, want_start: tuple) -> dict:
+    """A resume's restore (what ``fit`` does first) into ``trainer``
+    against the saved payload: every tensor of the state bit for bit, the
+    step, and where in its epoch the data resumes."""
+    from distributed_training_tpu_torch import checkpoint as ckpt_lib
+
+    epoch = ckpt_lib.resolve_resume(trainer.cfg.checkpoint)
+    start = ckpt_lib.restore_checkpoint(run_dir, epoch, trainer.state)
+    saved = torch.load(os.path.join(run_dir, f"epoch_{epoch}", ckpt_lib.PAYLOAD),
+                       map_location="cpu", weights_only=True)["state"]
+    got = trainer.state.state_dict()
+    tensors = unequal = 0
+    for part in ("model", "opt_state"):
+        for k, v in saved[part].items():
+            for n, t in (v.items() if isinstance(v, dict) else [(None, v)]):
+                g = got[part][k] if n is None else got[part][k][n]
+                if isinstance(t, torch.Tensor):
+                    tensors += 1
+                    unequal += not torch.equal(g.cpu(), t)
+                elif g != t:
+                    unequal += 1
+    out = {"epoch": epoch, "start": start, "step": got["step"], "saved_step": saved["step"],
+           "tensors": tensors, "unequal": unequal}
+    del saved, got
+    if (start != want_start or out["step"] != out["saved_step"]
+            or out["saved_step"] != RES_KILL_STEP or unequal):
+        raise SystemExit(f"resilience: the restore after SIGTERM at step {RES_KILL_STEP}: "
+                         f"{out}, expected start {want_start}")
+    return out
+
+
+def _continuation(tag: str, base: list, resumed: dict) -> dict:
+    """The continuation rule (see RES_CONT_FACTOR) for the resumed run's
+    {step: loss} against the two uninterrupted runs' ``base``."""
+    a, b = base
+    gap = max(abs(a[s] - b[s]) for s in a)
+    err = max(abs(resumed[s] - a[s]) for s in resumed)
+    branch = "bitwise" if gap == 0.0 else "within_gap"
+    ok = err == 0.0 if branch == "bitwise" else err <= RES_CONT_FACTOR * gap
+    out = {"branch": branch, "gap": gap, "resumed_err": err, "steps": sorted(resumed),
+           "limit": 0.0 if branch == "bitwise" else RES_CONT_FACTOR * gap}
+    if not ok or sorted(resumed) != sorted(s for s in a if s > min(resumed) - 1):
+        raise SystemExit(f"resilience {tag}: continuation {out}; losses {resumed} against "
+                         f"{a} and {b}")
+    return out
+
+
+def _io_faults_expected(keys: list, seed: int, rate: float) -> int:
+    """How many of ``keys`` the seeded choice faults (``ChaosMonkey.io_check``)."""
+    import zlib
+
+    return sum(zlib.crc32(f"{seed}:data:{k}".encode()) % 1_000_000 < int(rate * 1_000_000)
+               for k in keys)
+
+
+def resilience_phase(ckpt_dir: str) -> dict:
+    """The chaos drills through both CLIs (see RES_EPOCHS)."""
+    import shutil
+    import warnings
+
+    import numpy as np
+
+    from distributed_training_tpu_torch import bench
+    from distributed_training_tpu_torch import checkpoint as ckpt_lib
+    from distributed_training_tpu_torch.resilience.errors import CheckpointCorruptError
+    from distributed_training_tpu_torch.resilience.verify import verify_checkpoint
+
+    out = {"launches": {}}
+    corpus = os.path.join(ckpt_dir, "corpus.bin")
+    os.makedirs(ckpt_dir, exist_ok=True)
+    with open(corpus, "wb") as fh:
+        fh.write(np.random.RandomState(0).randint(0, 256, 1 << 21, dtype=np.uint8).tobytes())
+    for kind in ("resnet18", "gpt2_small"):
+        t0 = time.perf_counter()
+        cli, d = _res_cli(kind), os.path.join(ckpt_dir, kind)
+        data = ["--corpus", corpus] if kind == "gpt2_small" else []
+        chaos = ["--chaos-seed", str(RES_CHAOS_SEED)]
+        runs = {}
+        # The uninterrupted run, twice; with drills that leave the losses alone.
+        a_dir, b_dir = os.path.join(d, "base_a"), os.path.join(d, "base_b")
+        runs["base_a"] = _res_fit(_res_trainer(cli, _res_argv(
+            kind, a_dir, RES_EPOCHS, *data, *chaos, "--chaos-slow-step-every", "2",
+            "--chaos-slow-step-ms", str(RES_SLOW_MS),
+            "--chaos-corrupt-ckpt-epoch", str(RES_EPOCHS - 1),
+            *(["--chaos-data-error-rate", "1.0"] if kind == "gpt2_small" else []))))
+        runs["base_b"] = _res_fit(_res_trainer(cli, _res_argv(
+            kind, b_dir, 1, *data, *chaos, "--chaos-torn-ckpt-epoch", str(RES_EPOCHS - 1))))
+        for name in ("base_a", "base_b"):
+            out["launches"][f"resilience_{kind}_{name}"] = runs[name]["launches"]
+        base = [_jsonl_losses(x + ".jsonl") for x in (a_dir, b_dir)]
+        # Drill 4: committed, and the checksum pass refuses it.
+        try:
+            verify_checkpoint(os.path.join(a_dir, f"epoch_{RES_EPOCHS - 1}"))
+            raise SystemExit(f"resilience {kind}: the corrupted save verified")
+        except CheckpointCorruptError as e:
+            corrupt = {"reason": e.reason, "faults": runs["base_a"]["chaos"]}
+        if corrupt["reason"] != "checksum" or corrupt["faults"]["corrupt_ckpts"] != 1:
+            raise SystemExit(f"resilience {kind}: corrupt drill {corrupt}")
+        # Drill 3: auto-resume skips the torn newest save and quarantines it.
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fallback = ckpt_lib.resolve_resume(cli.build_config(cli.build_parser().parse_args(
+                _res_argv(kind, b_dir, 1))).checkpoint)
+        torn = {"resume_epoch": fallback,
+                "quarantined": os.path.isdir(os.path.join(b_dir, f"epoch_{RES_EPOCHS - 1}.corrupt")),
+                "warning": [str(w.message)[:160] for w in caught][:1]}
+        if fallback != RES_EPOCHS - 2 or not torn["quarantined"]:
+            raise SystemExit(f"resilience {kind}: torn drill {torn}")
+        # Drill 6: the stalls in the flight dump's step times.
+        stats = runs["base_a"]["dump"]["step_time_stats"]
+        slow = {"stats": stats, "slow_steps": runs["base_a"]["chaos"]["slow_steps"]}
+        if (slow["slow_steps"] != RES_EPOCHS * RES_STEPS // 2
+                or stats["step_time_max_ms"] < RES_SLOW_MS):
+            raise SystemExit(f"resilience {kind}: slow-step drill {slow}")
+        # Drill 1: SIGTERM at a step, a step-accurate save, its restore, the resume.
+        t_dir = os.path.join(d, "term")
+        term_argv = _res_argv(kind, t_dir, 0, *data)
+        killed = _res_fit(_res_trainer(cli, [*term_argv, "--chaos-kill-at-step",
+                                             str(RES_KILL_STEP)]))
+        if not killed["result"]["preempted"] or killed["chaos"]["kills"] != 1:
+            raise SystemExit(f"resilience {kind}: SIGTERM run not preempted: "
+                             f"{killed['result']}, {killed['chaos']}")
+        out["launches"][f"resilience_{kind}_sigterm"] = killed["launches"]
+        os.replace(t_dir + ".jsonl", t_dir + "_first.jsonl")
+        trainer = _res_trainer(cli, term_argv)
+        restore = _restored_equals_saved(
+            trainer, t_dir, (RES_KILL_STEP // RES_STEPS, RES_KILL_STEP % RES_STEPS))
+        run = _res_fit(trainer)
+        del trainer
+        out["launches"][f"resilience_{kind}_sigterm_resume"] = run["launches"]
+        term = _continuation(f"{kind} SIGTERM", base, _jsonl_losses(t_dir + ".jsonl"))
+        # Drill 2: SIGKILL, no save; the resume from the newest committed one.
+        k_dir = os.path.join(d, "kill")
+        _cli_subprocess(kind, [*_res_argv(kind, k_dir, 1, *data), "--chaos-kill-at-step",
+                               str(RES_HARD_KILL_STEP), "--chaos-kill-signal", "kill"],
+                        k_dir + ".log", -9)
+        committed = ckpt_lib.latest_valid_epoch(k_dir, quarantine=False)
+        os.replace(k_dir + ".jsonl", k_dir + "_first.jsonl")
+        run = _res_fit(_res_trainer(cli, _res_argv(kind, k_dir, 0, *data)))
+        out["launches"][f"resilience_{kind}_sigkill_resume"] = run["launches"]
+        kill = {"newest_committed": committed, "resumed_steps": run["result"]["steps"],
+                **_continuation(f"{kind} SIGKILL", base, _jsonl_losses(k_dir + ".jsonl"))}
+        if committed not in (0, 1) or kill["steps"][0] != (committed + 1) * RES_STEPS + 1:
+            raise SystemExit(f"resilience {kind}: SIGKILL drill {kill}")
+        # Drill 5: data-read faults absorbed by the retry, counted per key.
+        io = {}
+        if kind == "gpt2_small":
+            io = {"corpus": runs["base_a"]["chaos"]["io_faults"], "expected": 1,
+                  "dump": runs["base_a"]["dump"]["resilience"]["chaos_faults"]["io_faults"],
+                  "retries": runs["base_a"]["dump"]["resilience"]["io_retries"]}
+        else:
+            root = tempfile.mkdtemp(prefix="chip_smoke_res_tree_")
+            try:
+                paths = []
+                for split, n in (("train", RES_TREE), ("val", 100)):
+                    paths += bench._jpeg_tree(os.path.join(root, split), n, 2)[0]
+                tree_argv = [*_res_args(kind), "--dataset", "imagefolder", "--data-path", root,
+                             "--image-size", "32", "--num-classes", "2", "-e", "1",
+                             "--steps-per-epoch", str(RES_TREE // 100), "-i", "0",
+                             "-c", os.path.join(d, "tree"), *chaos,
+                             "--chaos-data-error-rate", str(RES_DATA_ERROR_RATE)]
+                run = _res_fit(_res_trainer(cli, tree_argv))
+                out["launches"][f"resilience_{kind}_imagefolder"] = run["launches"]
+                train = [p for p in paths if os.sep + "train" + os.sep in p]
+                io = {"imagefolder": run["chaos"]["io_faults"],
+                      "expected": _io_faults_expected(train, RES_CHAOS_SEED,
+                                                      RES_DATA_ERROR_RATE),
+                      "dump": run["dump"]["resilience"]["chaos_faults"]["io_faults"],
+                      "retries": run["dump"]["resilience"]["io_retries"]}
+            finally:
+                shutil.rmtree(root, ignore_errors=True)
+        got = io.get("imagefolder", io.get("corpus"))
+        if not (got == io["expected"] == io["dump"] and got > 0):
+            raise SystemExit(f"resilience {kind}: data-error drill {io}")
+        r = out[kind] = {"corrupt": corrupt, "torn": torn, "slow": slow, "restore": restore,
+                         "sigterm": term, "sigkill": kill, "io": io,
+                         "base_losses": [[base[0][s] for s in sorted(base[0])],
+                                         [base[1][s] for s in sorted(base[1])]],
+                         "seconds": time.perf_counter() - t0}
+        print(f"[resilience] {kind}: every drill passed in {r['seconds']:.1f} s: continuation "
+              f"branch {term['branch']} (gap between the uninterrupted runs {term['gap']!r}); "
+              f"SIGTERM at step {RES_KILL_STEP}: restore {restore}, resumed steps "
+              f"{term['steps']} within {term['resumed_err']!r}; SIGKILL at step "
+              f"{RES_HARD_KILL_STEP}: newest committed save epoch {committed}, resumed "
+              f"steps {kill['steps']} within {kill['resumed_err']!r}; torn {torn}; "
+              f"corrupt {corrupt}; slow {slow}; data errors {io}", flush=True)
+    return out
+
+
+# The generate phase: GPT-2-small at full width, bf16 (the flight phase's
+# configuration), GEN_TRAIN_STEPS LMTrainer steps and a save; the save
+# restored through inference/restore.py (the GPT CLI's flags: bf16, bf16
+# logits, no head bias), its weights bit for bit the trained ones; then
+# greedy generation at batch GEN_BATCH for each (prompt, new tokens) of
+# GEN_SHAPES. The cached logits at every decoded position against one full
+# forward without a cache over the same tokens, row by row (_row_err) within
+# GEN_ROW_TOL: both run the exact attention in bf16, but the decode's
+# scores are float32 products of the bf16 q and k where the full forward
+# rounds them to bf16 first, and the difference grows through 12 layers
+# (the LM phase's limit for two bf16 attentions, LM_LOGITS_TOL). The greedy
+# tokens against a naive rollout (the full forward teacher-forced on the
+# generated prefix picks each next token) at every position whose top-2 gap
+# exceeds GEN_ROW_TOL of that row's RMS; the near ties are counted. Beam
+# search, GEN_BEAMS beams on GEN_BEAM_BATCH prompts: distinct beams, best
+# first, and one beam equal to greedy. The generate CLI once, on the save.
+# Prefill ms, decode ms a token, tokens/s, the cache's MiB and the peak GiB
+# of each shape, and the Generator call's synchronising calls, counted under
+# torch.cuda.set_sync_debug_mode("warn") (GEN_MAX_SYNCS); the decode loop
+# launches no flash kernel (prefill runs JAX's plain attention too).
+GEN_TRAIN_STEPS, GEN_BATCH = 4, 8
+GEN_SHAPES = ((128, 128), (512, 512))
+GEN_ROW_TOL = LM_LOGITS_TOL
+GEN_BEAM_BATCH, GEN_BEAMS, GEN_BEAM_NEW = 2, 4, 32
+# A generate call copies the prompt to the card and the tokens back; a
+# synchronising call inside the decode loop would grow with the tokens.
+GEN_MAX_SYNCS = 2
+# Decode steps timed and profiled a shape (_decode_profile).
+GEN_PROFILED = 16
+GEN_MODEL = dict(vocab_size=50304, num_layers=GPT_LAYERS, num_heads=GPT_H,
+                 hidden_dim=GPT_H * GPT_D, max_len=GPT_T, dtype="bf16", head_bias=False,
+                 logits_dtype="bf16")
+
+
+def _decode_profile(model, prompt: torch.Tensor, steps: int) -> dict:
+    """Where a decode step's time goes: ``steps`` greedy steps after a
+    prefill, timed on the host (the wall, and the dispatch: the loop's time
+    before the closing synchronize), then ``steps`` more under
+    ``torch.profiler`` for the device's kernel time and events a step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from distributed_training_tpu_torch.inference import sampler
+
+    with torch.no_grad():
+        logits, cache = sampler.prefill(model, prompt, 2 * steps)
+        tok = logits[:, -1].argmax(-1)
+        del logits
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(steps):
+            tok = sampler.decode_step(model, tok, prompt.shape[1] + i, cache).argmax(-1)
+        dispatch = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for i in range(steps, 2 * steps):
+                tok = sampler.decode_step(model, tok, prompt.shape[1] + i, cache).argmax(-1)
+            torch.cuda.synchronize()
+    rows = _device_rows(prof)
+    busy_ms = sum(r[0] for r in rows) / 1e3
+    return {"steps": steps, "wall_ms_per_step": 1e3 * wall / steps,
+            "dispatch_ms_per_step": 1e3 * dispatch / steps,
+            "device_busy_ms_per_step": busy_ms / steps,
+            "device_busy_share": busy_ms / (1e3 * wall),
+            "device_events_per_step": sum(r[2] for r in rows) / steps,
+            "top_device": [(round(us / 1e3, 4), key[:60], n) for us, key, n in rows[:6]]}
+
+
+def _gen_case(model, prompt: torch.Tensor, new: int) -> dict:
+    """One greedy shape: timing through ``Generator``, the cached logits of
+    the same decode loop (``sampler.prefill``/``decode_step``) against a
+    full forward, the tokens against the teacher-forced rollout."""
+    import warnings
+
+    from distributed_training_tpu_torch.inference import Generator, SampleConfig
+    from distributed_training_tpu_torch.inference import sampler
+    from distributed_training_tpu_torch.ops.flash_attention import flash_bwd, flash_fwd
+
+    b, tp = prompt.shape
+    gen = Generator(model, SampleConfig(max_new_tokens=new, temperature=0.0))
+    # Warm-up at the prompt's shape (the first prefill at a shape pays for
+    # cuBLAS's choice and the allocator's growth).
+    Generator(model, SampleConfig(max_new_tokens=2, temperature=0.0))(prompt.cpu().numpy())
+    start = _peak_start()
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, cache = sampler.prefill(model, prompt, new)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        cache_bytes = cache.nbytes
+        del cache
+    launches = (flash_fwd.launches, flash_bwd.launches)
+    host_prompt = prompt.cpu().numpy()
+    torch.cuda.synchronize()
+    # Every synchronising call of the generation counted as it runs: the
+    # check only reads a flag where no call synchronises.
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            t0 = time.perf_counter()
+            tokens = gen(host_prompt)
+            total_s = time.perf_counter() - t0
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [str(w.message).split("\n")[0][:120] for w in caught
+             if "synchroniz" in str(w.message)]
+    peak = torch.cuda.max_memory_allocated() - start
+    if (flash_fwd.launches, flash_bwd.launches) != launches:
+        raise SystemExit("generate: the decode loop launched a flash kernel")
+    with torch.no_grad():
+        logits, cache = sampler.prefill(model, prompt, new)
+        steps, tok = [logits[:, -1].float()], logits[:, -1].float().argmax(-1)
+        mine = [tok]
+        for i in range(new - 1):
+            step = sampler.decode_step(model, tok, tp + i, cache).float()
+            tok = step.argmax(-1)
+            steps.append(step)
+            mine.append(tok)
+        cached = torch.stack(steps, 1)                    # [B, new, V]
+        mine = torch.stack(mine, 1)
+        gen_tok = torch.from_numpy(tokens).to(prompt.device)
+        seq = torch.cat([prompt, gen_tok[:, :-1]], 1)
+        full = model(seq)[:, tp - 1:].float()             # [B, new, V]
+        row_err = _row_err(cached, full)
+        top2 = full.topk(2, dim=-1).values
+        gap = top2[..., 0] - top2[..., 1]
+        rms = full.square().mean(-1).sqrt()
+        decisive = gap > GEN_ROW_TOL * rms
+        wrong = (decisive & (gen_tok != full.argmax(-1))).sum().item()
+        near = (~decisive).sum().item()
+        near_differ = (~decisive & (gen_tok != full.argmax(-1))).sum().item()
+        same_loop = bool(torch.equal(mine, gen_tok))
+        del cache, logits, cached, full
+        profiled = _decode_profile(model, prompt, GEN_PROFILED)
+    out = {"prompt": tp, "new": new, "batch": b, "prefill_ms": 1e3 * prefill_s,
+           "decode_ms_per_token": 1e3 * (total_s - prefill_s) / (new - 1),
+           "tokens_per_s": b * new / total_s, "generate_s": total_s,
+           "syncs": len(syncs), "sync_kinds": sorted(set(syncs)),
+           "cache_mib": cache_bytes / 2**20, "peak_gib": peak / 2**30,
+           "cached_vs_full_row_err": row_err, "decisive_mismatches": wrong,
+           "near_ties": near, "near_ties_differing": near_differ,
+           "generator_equals_the_loop": same_loop, "decode_profile": profiled}
+    _check(f"generate {tp}+{new}: cached logits vs the full forward", row_err, GEN_ROW_TOL)
+    if wrong or not same_loop:
+        raise SystemExit(f"generate {tp}+{new}: greedy tokens against the rollout: {out}")
+    return out
+
+
+def generate_phase(ckpt_dir: str) -> dict:
+    """Train, save, restore, generate (see GEN_SHAPES)."""
+    import contextlib
+    import importlib.util
+    import io
+
+    import numpy as np
+
+    from distributed_training_tpu_torch.inference import (
+        BeamConfig,
+        BeamSearcher,
+        Generator,
+        SampleConfig,
+    )
+    from distributed_training_tpu_torch.inference.restore import build_lm_and_restore
+
+    run = _flight_run("gpt2_small", ckpt_dir, steps=GEN_TRAIN_STEPS, log=2, interval=1)
+    _check_launches("generate training", "gpt2_small", run["launches"], GEN_TRAIN_STEPS)
+    trained = {n: p.detach().cpu() for n, p in run["trainer"].model.named_parameters()}
+    del run["trainer"]
+    torch.cuda.empty_cache()
+    lines = []
+    model, epoch = build_lm_and_restore(**GEN_MODEL, checkpoint=ckpt_dir, printer=lines.append)
+    if epoch != 0 or any(not torch.equal(p.detach().cpu(), trained[n])
+                         for n, p in model.named_parameters()):
+        raise SystemExit(f"generate: the restored weights are not the trained ones ({lines})")
+    out = {"launches": {"generate_gpt2_small_train": run["launches"]}, "restore": lines,
+           "shapes": {}}
+    gen = torch.Generator().manual_seed(0)
+    for tp, new in GEN_SHAPES:
+        prompt = torch.randint(0, 50304, (GEN_BATCH, tp), generator=gen).cuda()
+        r = out["shapes"][f"{tp}+{new}"] = _gen_case(model, prompt, new)
+        print(f"[generate] GPT-2-small bf16, batch {GEN_BATCH}, prompt {tp} + {new} new, "
+              f"greedy: prefill {r['prefill_ms']:.3f} ms, decode {r['decode_ms_per_token']:.3f} "
+              f"ms a token, {r['tokens_per_s']:.1f} tokens/s, cache {r['cache_mib']:.1f} MiB, "
+              f"peak {r['peak_gib']:.3f} GiB; cached logits vs the full forward "
+              f"{r['cached_vs_full_row_err']:.4g} (tolerance {GEN_ROW_TOL}); near ties "
+              f"{r['near_ties']} (differing {r['near_ties_differing']}), decisive mismatches "
+              f"{r['decisive_mismatches']}; synchronising calls {r['syncs']} "
+              f"{r['sync_kinds']}; decode profile {r['decode_profile']}", flush=True)
+    syncs = {k: r["syncs"] for k, r in out["shapes"].items()}
+    if len(set(syncs.values())) != 1 or max(syncs.values()) > GEN_MAX_SYNCS:
+        raise SystemExit(f"generate: synchronising calls by shape {syncs}: the decode loop "
+                         f"synchronises per token (at most {GEN_MAX_SYNCS} a call, the "
+                         f"same for every length)")
+    prompt = torch.randint(0, 50304, (GEN_BEAM_BATCH, GEN_SHAPES[0][0]), generator=gen)
+    seqs, scores = BeamSearcher(model, BeamConfig(num_beams=GEN_BEAMS,
+                                                  max_new_tokens=GEN_BEAM_NEW))(prompt.numpy())
+    one, _ = BeamSearcher(model, BeamConfig(num_beams=1,
+                                            max_new_tokens=GEN_BEAM_NEW))(prompt.numpy())
+    greedy = Generator(model, SampleConfig(max_new_tokens=GEN_BEAM_NEW,
+                                           temperature=0.0))(prompt.numpy())
+    beam = {"scores": scores.tolist(),
+            "distinct": all(len({tuple(x) for x in seqs[i]}) == GEN_BEAMS
+                            for i in range(GEN_BEAM_BATCH)),
+            "sorted": bool((np.diff(scores, axis=1) <= 0).all()),
+            "one_beam_is_greedy": bool(np.array_equal(one[:, 0], greedy))}
+    out["beam"] = beam
+    if not (beam["distinct"] and beam["sorted"] and beam["one_beam_is_greedy"]):
+        raise SystemExit(f"generate: beam search {beam}")
+    del model
+    torch.cuda.empty_cache()
+    spec = importlib.util.spec_from_file_location(
+        "generate_cli", os.path.join(REPO, "gpt", "torch_cuda", "generate.py"))
+    cli = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cli)
+    buf = io.StringIO()
+    argv = ["--vocab-size", "50304", "--num-layers", str(GPT_LAYERS), "--num-heads",
+            str(GPT_H), "--hidden-dim", str(GPT_H * GPT_D), "--max-len", str(GPT_T),
+            "--dtype", "bf16", "--no-head-bias", "--logits-dtype", "bf16"]
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main([*argv, "-c", ckpt_dir, "--prompt", "The ", "--temperature", "0",
+                       "--max-new-tokens", "16"])
+    text = buf.getvalue()
+    out["cli"] = text.strip().splitlines()
+    if rc != 0 or "restored epoch 0" not in text or "'The ' -> " not in text:
+        raise SystemExit(f"generate: the generate CLI exited {rc}: {text[-2000:]}")
+    print(f"[generate] beam {beam}; generate.py: {out['cli']}", flush=True)
+    return out
+
+
+
+# Mesh part "resilience" (four cards): GPT-2-small through the GPT CLI's
+# trainer as DP 4 at global batch 16 (ZeRO 1), RES_MESH_EPOCHS epochs of
+# RES_STEPS steps, a flush every step. The straggler drill: a slow step of
+# RES_SLOW_MS every 2nd step on rank 1 alone; every rank's cross-rank view
+# must name rank 1. The kill drill: the uninterrupted run twice, then
+# SIGTERM at step RES_KILL_STEP on every rank (each rank's own chaos monkey),
+# the step-accurate save, the resume at world 4; the losses by the
+# continuation rule. The recorder's exchange: each flush's host time of
+# TrainObservability.on_flush and, inside it, of the gloo all-gather, on
+# each rank, in the first uninterrupted run (no chaos).
+RES_MESH_EPOCHS = 3
+
+
+def _exchange_run(cli, argv: list) -> dict:
+    """``build_trainer(argv).fit()`` with each train step timed on the card
+    and each ``TrainObservability.on_flush`` and the gloo exchange inside
+    it (``aggregate.gather_payloads``) timed on the host; the losses and
+    the times in seconds."""
+    from distributed_training_tpu_torch.observability import aggregate
+
+    trainer = cli.build_trainer(argv)
+    acc: dict = {}
+    _time_calls(trainer.obs, ("on_flush",), acc, lambda: True)
+    gather, step = aggregate.gather_payloads, trainer.train_step
+
+    def timed_gather(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return gather(*a, **kw)
+        finally:
+            acc.setdefault("gather", []).append(time.perf_counter() - t0)
+
+    def timed_step(state, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(state, batch)
+        torch.cuda.synchronize()
+        acc.setdefault("step", []).append(time.perf_counter() - t0)
+        return out
+
+    aggregate.gather_payloads, trainer.train_step = timed_gather, timed_step
+    try:
+        result = trainer.fit()
+    finally:
+        aggregate.gather_payloads = gather
+    run = {"result": result, "losses": [h["loss"] for h in trainer.meter.history],
+           "times": acc}
+    del trainer
+    torch.cuda.empty_cache()
+    return run
+
+
+def resilience_mesh(world: int, ckpt: str, card: str) -> dict:
+    """The chaos drills across the ranks (see RES_MESH_EPOCHS)."""
+    import torch.distributed as dist
+
+    cli = _gpt_cli_module()
+    rank = dist.get_rank()
+    # Every rank resumes from the save rank 0 wrote: one directory for all
+    # (each rank's mesh_main opened a temporary directory of its own).
+    shared = [ckpt]
+    dist.broadcast_object_list(shared, src=0)
+    ckpt = shared[0]
+    argv = [*GPT_CLI_WIDTH, "-b", str(GPT_B // world), "--stage", "1", "-e",
+            str(RES_MESH_EPOCHS), "--steps-per-epoch", str(RES_STEPS), "-i", "0",
+            "--auto-resume"]
+    holder = {}
+    slow = _gpt_cli_run(cli, [*argv, "-c", os.path.join(ckpt, "res_slow"),
+                              "--chaos-slow-step-every", "2", "--chaos-slow-step-host", "1",
+                              "--chaos-slow-step-ms", str(RES_SLOW_MS)],
+                        probe=lambda t: holder.update(hosts=t.obs.host_summary,
+                                                      slow=t.chaos.counters["slow_steps"]))
+    straggler = (holder["hosts"] or {}).get("straggler") or {}
+    views = [None] * world
+    dist.all_gather_object(views, straggler.get("host"))
+    out = {"straggler": {"view": straggler, "every_rank_names": views,
+                         "slow_steps_here": holder["slow"], "losses": slow["losses"]}}
+    if views != [1] * world:
+        raise SystemExit(f"mesh resilience: the straggler views {views}, expected rank 1; "
+                         f"{straggler}")
+    runs = {"base_a": _exchange_run(cli, [*argv, "-c", os.path.join(ckpt, "res_a")])}
+    for name, extra in (("base_b", ["-c", os.path.join(ckpt, "res_b")]),
+                        ("killed", ["-c", os.path.join(ckpt, "res_kill"),
+                                    "--chaos-kill-at-step", str(RES_KILL_STEP)]),
+                        ("resumed", ["-c", os.path.join(ckpt, "res_kill")])):
+        r = _gpt_cli_run(cli, [*argv, *extra])
+        runs[name] = {"result": r["result"], "losses": r["losses"]}
+    total = RES_MESH_EPOCHS * RES_STEPS
+    base = [dict(zip(range(1, total + 1), runs[n]["losses"])) for n in ("base_a", "base_b")]
+    killed, resumed = runs["killed"], runs["resumed"]
+    if not killed["result"]["preempted"] or killed["result"]["steps"] != RES_KILL_STEP:
+        raise SystemExit(f"mesh resilience: the SIGTERM run {killed['result']}")
+    cont = _continuation("mesh SIGTERM", base, dict(zip(
+        range(RES_KILL_STEP + 1, total + 1), resumed["losses"])))
+    times = {k: sorted(v) for k, v in runs["base_a"]["times"].items()}
+    med = {k: 1e3 * v[len(v) // 2] for k, v in times.items()}
+    mine = {"on_flush_ms_median": med["on_flush"], "gather_ms_median": med["gather"],
+            "on_flush_ms_max": 1e3 * times["on_flush"][-1], "flushes": len(times["on_flush"]),
+            "step_ms_median": med["step"]}
+    every = [None] * world
+    dist.all_gather_object(every, mine)
+    out.update({"kill": {"continuation": cont, "killed": killed["result"],
+                         "resumed": resumed["result"]}, "exchange_by_rank": every})
+    if rank == 0:
+        print(f"[mesh] resilience over {world} GPUs (GPT-2-small, DP {world}, global B {GPT_B}, "
+              f"ZeRO 1): straggler view {straggler} on every rank; SIGTERM at step "
+              f"{RES_KILL_STEP}: continuation {cont}; the recorder's flush on each rank "
+              f"(on_flush / its gloo all-gather, median ms; step ms): "
+              f"{[(e['on_flush_ms_median'], e['gather_ms_median'], e['step_ms_median']) for e in every]}"
+              f"; {card}", flush=True)
     return out
 
 
@@ -3813,7 +4709,7 @@ def fsdp_resume(ckpt: str, saved_model: dict) -> dict:
     return {"bitwise": same, "losses": run["losses"], "steps": run["result"]["steps"]}
 
 
-MESH_PARTS = ("a11", "moe", "vit", "moe_axes", "lm", "bench", "pp", "fsdp")
+MESH_PARTS = ("a11", "moe", "vit", "moe_axes", "lm", "bench", "pp", "fsdp", "resilience")
 
 
 def mesh_main(parts: list | None = None) -> int:
@@ -3875,6 +4771,9 @@ def mesh_main(parts: list | None = None) -> int:
             fsdp_saved = results["fsdp"].pop("saved_model")
             results["fsdp"]["flight_ab"] = fsdp_flight_ab(world, os.path.join(ckpt, "fsdp_ab"),
                                                           card)
+        if "resilience" in parts:
+            results["resilience"] = resilience_mesh(world, os.path.join(ckpt, "resilience"),
+                                                    card)
         for name, flags in (_mesh_strategies(world) if "lm" in parts else []):
             flash_fwd.launches = flash_bwd.launches = 0
             run = _gpt_cli_run(cli, [*GPT_CLI_WIDTH, "--stage", "1", *flags,
@@ -3932,13 +4831,16 @@ def mesh_main(parts: list | None = None) -> int:
 
 def phase_main(names: list) -> int:
     """``--phase NAME ...``: the build, then only the named phases (ring,
-    moe_lm, moe_image, vit), for a short check of one part on the card; prints
-    their results and no result line."""
+    moe_lm, moe_image, vit, pipeline, flight, trace, resilience, generate),
+    for a short check of one part on the card; prints their results and no
+    result line."""
     from distributed_training_tpu_torch.ops import cuda_build
 
     phases = {"ring": lambda d: ring_phase(), "moe_lm": moe_lm_phase,
               "moe_image": moe_image_phase, "vit": lambda d: vit_phase(),
-              "pipeline": lambda d: pipeline_phase(), "flight": flight_phase}
+              "pipeline": lambda d: pipeline_phase(), "flight": flight_phase,
+              "trace": trace_phase, "resilience": resilience_phase,
+              "generate": generate_phase}
     if not names or any(n not in phases for n in names):
         print(f"chip_smoke --phase: name one or more of {sorted(phases)}", file=sys.stderr)
         return 2
@@ -3993,6 +4895,12 @@ def main() -> int:
         moe_lm = moe_lm_phase(os.path.join(ckpt, "moe_lm"))
         moe_img = moe_image_phase(os.path.join(ckpt, "moe_image"))
         flight = flight_phase(os.path.join(ckpt, "flight"))
+        traced = trace_phase(os.path.join(ckpt, "trace"))
+        res = resilience_phase(os.path.join(ckpt, "resilience"))
+        generated = generate_phase(os.path.join(ckpt, "generate"))
+    # The new phases' in-process runs: K1 once a step, K2/K3 once a layer a
+    # step (the resilience phase's subprocesses count in their own process).
+    late_launches = {**traced["launches"], **res["launches"], **generated["launches"]}
     pipe = pipeline_phase()
     half = fp16_pad_phase()
     d256 = d256_phase()
@@ -4043,7 +4951,8 @@ def main() -> int:
                      + sum(data["launches"].values())
                      + moe_lm["launches"]["fused_adam"] + moe_img["launches"]
                      + sum(r["fused_adam"] for r in pipe["runs"].values())
-                     + sum(r["fused_adam"] for r in flight["launches"].values())),
+                     + sum(r["fused_adam"] for r in flight["launches"].values())
+                     + sum(r["fused_adam"] for r in late_launches.values())),
         "launches_by_path": {"resnet18_train": launches,
                              **{f"resnet18_train_{tag}": n for tag, n in bf16.items()},
                              **{f"resnet18_{p}_nccl_world1": r["launches"]
@@ -4058,7 +4967,8 @@ def main() -> int:
                              "moe_mlp_cli": moe_img["launches"],
                              **{f"pipeline_{n}_bf16_steps": r["fused_adam"]
                                 for n, r in pipe["runs"].items()},
-                             **{p: r["fused_adam"] for p, r in flight["launches"].items()}},
+                             **{p: r["fused_adam"] for p, r in flight["launches"].items()},
+                             **{p: r["fused_adam"] for p, r in late_launches.items()}},
         **k, "ok": True,
     }, *({
         "name": name, "route": "cuda", "source": src, "replaces": f"{ref}:{line}",
@@ -4071,7 +4981,8 @@ def main() -> int:
                             **{f"ring_{c}": r["launches"][name] for c, r in ring.items()},
                             **{f"pipeline_{n}_step": r["launches"][name]
                                for n, r in pipe["runs"].items()},
-                            **{p: r[name] for p, r in flight["launches"].items() if r[name]}}
+                            **{p: r[name] for p, r in flight["launches"].items() if r[name]},
+                            **{p: r[name] for p, r in late_launches.items() if r[name]}}
                            if name in lm else {})),
         **({"ring": {c: {"launches": r["launches"][name], "hops": r["hops"],
                          "rank_hop_ms": [x["K2" if name == "flash_fwd" else "K3"]
@@ -4102,6 +5013,9 @@ def main() -> int:
     print(json.dumps({"pipeline": pipe}))
     print(json.dumps({"flight": {k: v for k, v in flight.items() if k != "launches"}},
                      default=str))
+    for tag, phase in (("trace", traced), ("resilience", res), ("generate", generated)):
+        print(json.dumps({tag: {k: v for k, v in phase.items() if k != "launches"}},
+                         default=str))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,18 +1,24 @@
 """Checkpoint / resume in the port's own format, with the JAX package's
-commit protocol.
+commit protocol (``resilience/verify.py``).
 
 A save of epoch N is the directory ``epoch_N`` holding:
 
 1. ``state.pt``: ``torch.save`` of the train state (model, optimizer,
-   loss scaler, step) and the resume metadata, written first;
-2. ``MANIFEST.json``: size and CRC32 of every payload file;
+   loss scaler, step) and the resume metadata, written first (through a
+   temporary name and a rename, so a crash mid-write leaves no
+   ``state.pt``);
+2. ``MANIFEST.json``: size and CRC32 of every payload file, and the CRC32,
+   dtype and shape of every leaf of the state (``verify.write_manifest``);
 3. ``COMMITTED``: an empty marker, written last through a temporary name
    and an atomic rename.
 
 A directory without the marker, or whose files no longer match the
-manifest, is not a checkpoint: :func:`latest_valid_epoch` skips it (and
-quarantines it to ``epoch_N.corrupt``), and :func:`restore_checkpoint`
-refuses it. Orbax compatibility with the JAX package is not a goal.
+manifest, is not a checkpoint (``verify.verify_checkpoint`` raises
+:class:`CheckpointCorruptError` with its reason): :func:`latest_valid_epoch`
+skips it (and quarantines it to ``epoch_N.corrupt``), and
+:func:`restore_checkpoint` refuses it. The saves of the port's earlier
+layout (a manifest of files alone) verify and restore as they are. Orbax
+compatibility with the JAX package is not a goal.
 
 A data-parallel save is written by rank 0 alone, in the same format: the
 state partitioned by ZeRO is gathered to whole tensors first (and the
@@ -28,42 +34,28 @@ batch twice.
 
 from __future__ import annotations
 
-import json
 import os
 import shutil
 import warnings
-import zlib
 
 import torch
 
+from distributed_training_tpu_torch.resilience import verify as verify_lib
+from distributed_training_tpu_torch.resilience.errors import (  # noqa: F401
+    CheckpointCorruptError,
+)
+from distributed_training_tpu_torch.resilience.verify import (  # noqa: F401
+    COMMIT_NAME,
+    MANIFEST_NAME,
+    checkpoint_is_valid,
+    verify_checkpoint,
+)
+
 PAYLOAD = "state.pt"
-MANIFEST_NAME = "MANIFEST.json"
-COMMIT_NAME = "COMMITTED"
-
-
-class CheckpointCorruptError(RuntimeError):
-    """A checkpoint directory that is torn, uncommitted or altered."""
 
 
 def _epoch_dir(directory: str, epoch: int) -> str:
     return os.path.join(os.path.abspath(directory), f"epoch_{epoch}")
-
-
-def _crc_file(path: str, chunk: int = 1 << 20) -> int:
-    crc = 0
-    with open(path, "rb") as fh:
-        while block := fh.read(chunk):
-            crc = zlib.crc32(block, crc)
-    return crc
-
-
-def _write_atomic(path: str, data: bytes) -> None:
-    tmp = f"{path}.tmp"
-    with open(tmp, "wb") as fh:
-        fh.write(data)
-        fh.flush()
-        os.fsync(fh.fileno())
-    os.replace(tmp, path)
 
 
 def write_checkpoint(directory: str, epoch: int, sd: dict, *,
@@ -81,11 +73,12 @@ def write_checkpoint(directory: str, epoch: int, sd: dict, *,
             "next_epoch": epoch + 1 if next_epoch is None else int(next_epoch),
             "epoch_step": int(epoch_step)}
     payload = os.path.join(path, PAYLOAD)
-    torch.save({"state": sd, "meta": meta}, payload)
-    files = {PAYLOAD: [os.path.getsize(payload), _crc_file(payload)]}
-    _write_atomic(os.path.join(path, MANIFEST_NAME),
-                  json.dumps({"files": files}).encode())
-    _write_atomic(os.path.join(path, COMMIT_NAME), b"")
+    with open(payload + ".tmp", "wb") as fh:
+        torch.save({"state": sd, "meta": meta}, fh)
+        fh.flush()
+        os.fsync(fh.fileno())
+    os.replace(payload + ".tmp", payload)
+    verify_lib.write_manifest(path, verify_lib.leaf_checksums({"state": sd}))
     return path
 
 
@@ -109,33 +102,6 @@ def save_checkpoint(directory: str, epoch: int, state, *,
     return path
 
 
-def verify_checkpoint(path: str) -> None:
-    """Raise :class:`CheckpointCorruptError` unless ``path`` is a
-    committed save whose files match its manifest."""
-    if not os.path.exists(os.path.join(path, COMMIT_NAME)):
-        raise CheckpointCorruptError(
-            f"checkpoint {path} is UNCOMMITTED (torn or in-progress save)")
-    try:
-        with open(os.path.join(path, MANIFEST_NAME)) as fh:
-            files = json.load(fh)["files"]
-    except (OSError, ValueError, KeyError) as err:
-        raise CheckpointCorruptError(
-            f"checkpoint {path} has no readable manifest: {err}") from err
-    for rel, (size, crc) in files.items():
-        f = os.path.join(path, rel)
-        if not os.path.exists(f) or os.path.getsize(f) != size or _crc_file(f) != crc:
-            raise CheckpointCorruptError(
-                f"checkpoint {path}: {rel} does not match its manifest")
-
-
-def checkpoint_is_valid(path: str) -> bool:
-    try:
-        verify_checkpoint(path)
-        return True
-    except CheckpointCorruptError:
-        return False
-
-
 def restore_checkpoint(directory: str, epoch: int, state) -> tuple[int, int]:
     """Load the save of ``epoch`` into ``state`` in place, partitioned for
     its stage and world whatever they were at the save; returns
@@ -143,7 +109,7 @@ def restore_checkpoint(directory: str, epoch: int, state) -> tuple[int, int]:
     path = _epoch_dir(directory, epoch)
     if not os.path.isdir(path):
         raise FileNotFoundError(f"no checkpoint at {path}")
-    verify_checkpoint(path)
+    verify_lib.verify_checkpoint(path)
     blob = torch.load(os.path.join(path, PAYLOAD), map_location="cpu",
                       weights_only=True)
     state.load_state_dict(blob["state"])
@@ -162,22 +128,26 @@ def _epoch_list(directory: str) -> list[int]:
 
 def latest_valid_epoch(directory: str, *, quarantine: bool = True) -> int | None:
     """Newest epoch whose save verifies, or None. Bad saves met on the way
-    are skipped and, with ``quarantine``, renamed to ``epoch_N.corrupt``."""
+    are skipped and, with ``quarantine``, renamed to ``epoch_N.corrupt``
+    (``verify.quarantine_checkpoint``); an unreadable one is skipped and
+    left where it is."""
     directory = os.path.abspath(directory)
     for e in reversed(_epoch_list(directory)):
         path = _epoch_dir(directory, e)
         try:
-            verify_checkpoint(path)
+            verify_lib.verify_checkpoint(path)
             return e
         except CheckpointCorruptError as err:
             if quarantine:
-                dst = f"{path}.corrupt"
-                shutil.rmtree(dst, ignore_errors=True)
-                os.replace(path, dst)
+                dst = verify_lib.quarantine_checkpoint(path)
                 warnings.warn(f"skipping corrupt checkpoint (quarantined to "
                               f"{dst}): {err}", stacklevel=2)
             else:
                 warnings.warn(f"skipping corrupt checkpoint: {err}", stacklevel=2)
+        except OSError as err:
+            # A directory that vanished mid-scan or a transient read fault.
+            warnings.warn(f"skipping unreadable checkpoint {path}: {err}",
+                          stacklevel=2)
     return None
 
 

@@ -5,13 +5,12 @@ Field names and defaults are the JAX package's, so a config written for
 one package means the same run in the other. The port keeps its own copy:
 importing anything of ``distributed_training_tpu`` would import JAX.
 
-Not carried over yet (see ROADMAP.md): ``ServeConfig`` and
-``ChaosConfig``; ``TrainConfig`` therefore has no ``chaos`` field, and
-passing one raises ``TypeError``. Fields that exist but whose behaviour
-the port does not provide yet (``ObservabilityConfig.metrics_port`` and
-``TraceConfig.enabled``; in the image ``Trainer`` the ``sequence`` and
-``pipe`` mesh axes) raise ``NotImplementedError`` in the ``Trainer`` or
-``LMTrainer`` when set away from their defaults.
+Not carried over yet (see ROADMAP.md): ``ServeConfig``. Fields that
+exist but whose behaviour the port does not provide yet (in the image
+``Trainer`` the ``sequence`` and ``pipe`` mesh axes) raise
+``NotImplementedError`` there when set away from their defaults;
+``ChaosConfig.swap_error_rate`` is stored, and only the hot swap of the
+serving engine would read it, as in JAX.
 """
 
 from __future__ import annotations
@@ -193,9 +192,10 @@ class LMConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TraceConfig:
-    """Span-level event tracing (JAX ``observability/trace.py``). Kept
-    with JAX's fields, defaults and validation; ``enabled`` raises
-    ``NotImplementedError`` in the trainers (ROADMAP.md, queue A)."""
+    """Span-level event tracing (``observability/trace.py``): JAX's
+    fields, defaults and validation. Off by default; when on, the trainers
+    write ``<dir or dump_dir/trace>/trace.json`` (``trace_p<rank>.json``
+    on several ranks) at the run's end and on a crash."""
 
     enabled: bool = False
     dir: str | None = None
@@ -214,10 +214,10 @@ class ObservabilityConfig:
     cross-rank straggler view. JAX's fields, defaults and validation.
 
     Per step they cost one host timestamp; every other input is read at the
-    meter's flush from values it fetched anyway. ``metrics_port`` (the
-    live exporter) and ``trace.enabled`` raise ``NotImplementedError`` in
-    the trainers when set (ROADMAP.md, queue A); ``metrics_host`` is only
-    stored.
+    meter's flush from values it fetched anyway. ``metrics_port`` starts
+    the live exporter (``observability/exporter.py``: ``/metrics``,
+    ``/healthz``, ``/vars``) on ``metrics_host`` on rank 0; ``trace`` the
+    span trace.
     """
 
     flight_recorder: bool = True
@@ -259,6 +259,93 @@ class ObservabilityConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class ChaosConfig:
+    """Deterministic fault injection (``resilience/chaos.py``): JAX's
+    fields, defaults, ``active`` and validation.
+
+    Every fault is step- or epoch-addressed and seeded, a pure function of
+    this config, so a chaos run replays exactly. All defaults are inert;
+    the trainers build a ``ChaosMonkey`` only when :attr:`active`.
+    """
+
+    seed: int = 0
+    # Deliver a signal from inside the step loop at this global step:
+    # "sigterm" goes through the PreemptionGuard (finish the step, save,
+    # return); "kill" is SIGKILL, death with no save (the resume falls back
+    # to the last committed interval save).
+    kill_at_step: int | None = None
+    kill_signal: str = "sigterm"  # sigterm | kill
+    # After this epoch's save lands, truncate its largest file and drop its
+    # COMMITTED marker: what a crash mid-write leaves.
+    torn_ckpt_epoch: int | None = None
+    torn_truncate_bytes: int = 64
+    # Corrupt this epoch's payload and keep its marker and manifest: caught
+    # only by the checksum pass.
+    corrupt_ckpt_epoch: int | None = None
+    # Probability (per distinct read key, seeded) that a data read raises a
+    # one-shot ChaosIOError, which the loaders' RetryPolicy absorbs.
+    data_error_rate: float = 0.0
+    # The same for the serving hot swap's staging read (stored; the hot
+    # swap is not ported).
+    swap_error_rate: float = 0.0
+    # A host stall of slow_step_ms every slow_step_every-th step, on every
+    # rank or on rank slow_step_host alone.
+    slow_step_every: int | None = None
+    slow_step_ms: float = 50.0
+    slow_step_host: int | None = None
+
+    @property
+    def active(self) -> bool:
+        return (self.kill_at_step is not None
+                or self.torn_ckpt_epoch is not None
+                or self.corrupt_ckpt_epoch is not None
+                or self.data_error_rate > 0
+                or self.swap_error_rate > 0
+                or self.slow_step_every is not None)
+
+    def __post_init__(self):
+        if self.kill_signal not in ("sigterm", "kill"):
+            raise ValueError(
+                f"kill_signal must be 'sigterm' or 'kill', got "
+                f"{self.kill_signal!r}")
+        if not 0.0 <= self.data_error_rate <= 1.0:
+            raise ValueError(
+                f"data_error_rate must be in [0, 1], got "
+                f"{self.data_error_rate}")
+        if not 0.0 <= self.swap_error_rate <= 1.0:
+            raise ValueError(
+                f"swap_error_rate must be in [0, 1], got "
+                f"{self.swap_error_rate}")
+        if self.slow_step_every is not None and self.slow_step_every < 1:
+            raise ValueError(
+                f"slow_step_every must be >= 1, got {self.slow_step_every}")
+        if self.slow_step_host is not None and self.slow_step_host < 0:
+            raise ValueError(
+                f"slow_step_host must be >= 0, got {self.slow_step_host}")
+        if self.torn_truncate_bytes < 0:
+            raise ValueError(
+                f"torn_truncate_bytes must be >= 0, got "
+                f"{self.torn_truncate_bytes}")
+
+    @classmethod
+    def from_flags(cls, args) -> "ChaosConfig":
+        """The CLIs' ``--chaos-*`` flags (an ``argparse.Namespace``), field
+        for field as the JAX CLIs map them."""
+        return cls(
+            seed=args.chaos_seed,
+            kill_at_step=args.chaos_kill_at_step,
+            kill_signal=args.chaos_kill_signal,
+            torn_ckpt_epoch=args.chaos_torn_ckpt_epoch,
+            torn_truncate_bytes=args.chaos_torn_bytes,
+            corrupt_ckpt_epoch=args.chaos_corrupt_ckpt_epoch,
+            data_error_rate=args.chaos_data_error_rate,
+            slow_step_every=args.chaos_slow_step_every,
+            slow_step_ms=args.chaos_slow_step_ms,
+            slow_step_host=args.chaos_slow_step_host,
+        )
+
+
+@dataclasses.dataclass(frozen=True)
 class TrainConfig:
     model: str = "resnet18"
     plugin: str = "torch_ddp"
@@ -289,6 +376,7 @@ class TrainConfig:
     metrics_jsonl: str | None = None
     observability: ObservabilityConfig = dataclasses.field(
         default_factory=ObservabilityConfig)
+    chaos: ChaosConfig = dataclasses.field(default_factory=ChaosConfig)
 
     def replace(self, **kw: Any) -> "TrainConfig":
         return dataclasses.replace(self, **kw)

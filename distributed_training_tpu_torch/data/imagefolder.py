@@ -22,13 +22,14 @@ from typing import Iterator, Sequence
 import numpy as np
 
 from distributed_training_tpu_torch.data.pipeline import ShardedBatchIndexer
+from distributed_training_tpu_torch.resilience.chaos import chaos_io_check
 from distributed_training_tpu_torch.resilience.retry import RetryPolicy
 
 IMAGE_EXTENSIONS = (".jpg", ".jpeg", ".png", ".bmp", ".gif", ".webp")
 
 # Transient-I/O retry for each image's decode (flaky network-filesystem
-# reads), with a deterministic backoff. (The JAX package's chaos hook,
-# chaos_io_check, comes with the port of resilience/chaos.py.)
+# reads; also where the chaos harness injects its one-shot faults), with a
+# deterministic backoff, so chaos runs replay exactly.
 _DECODE_RETRY = RetryPolicy(max_attempts=3, base_delay_s=0.02)
 
 
@@ -71,7 +72,7 @@ def scan_imagefolder(root: str) -> tuple[list[str], np.ndarray, list[str]]:
 
 def _decode(path: str, size: int, randomize: bool, rng_seed: int) -> np.ndarray:
     """One image as float32 [size, size, 3] in [0, 1], retrying transient
-    I/O faults (``_DECODE_RETRY``).
+    I/O faults (``_DECODE_RETRY``; chaos injects here).
 
     The short side is resized to ``round(1.15 · size)`` (bilinear); then
     with ``randomize`` a random crop and horizontal flip drawn from
@@ -83,6 +84,7 @@ def _decode(path: str, size: int, randomize: bool, rng_seed: int) -> np.ndarray:
 def _decode_once(path: str, size: int, randomize: bool,
                  rng_seed: int) -> np.ndarray:
     Image = pillow()
+    chaos_io_check("data", path)
     with Image.open(path) as im:
         im = im.convert("RGB")
         w, h = im.size

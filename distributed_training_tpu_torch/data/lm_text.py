@@ -6,8 +6,8 @@ every batch order is bitwise the JAX package's:
 - :func:`synthetic_tokens`: arithmetic progressions (next token =
   (prev + 1) mod vocab), cheap, learnable and deterministic;
 - :func:`byte_corpus`: byte-level windows of a local text file (vocab
-  256). A plain file read: the JAX package's chaos and retry hooks are not
-  ported (ROADMAP.md);
+  256), read under JAX's deterministic transient-I/O retry
+  (``resilience/retry.py``), where the chaos harness injects its faults;
 - :class:`TokenLoader`: a ``(seed, epoch)``-seeded permutation of the
   sequences, each process's contiguous slice of every global batch (or,
   with ``microbatches``, of each gradient-accumulation microbatch in
@@ -37,9 +37,19 @@ def synthetic_tokens(n: int, seq_len: int, vocab_size: int = 256,
 def byte_corpus(path: str, n: int, seq_len: int, seed: int = 0,
                 span: tuple[float, float] = (0.0, 1.0)) -> np.ndarray:
     """``[n, seq_len+1]`` int32 byte windows sampled from a fractional
-    ``span`` of a file (train and eval take disjoint spans)."""
-    with open(path, "rb") as fh:
-        data = np.frombuffer(fh.read(), dtype=np.uint8)
+    ``span`` of a file (train and eval take disjoint spans). The read runs
+    under JAX's ``RetryPolicy`` (3 attempts, 0.02 s), and the chaos
+    harness's ``chaos_io_check`` keys it by the path."""
+    from distributed_training_tpu_torch.resilience.chaos import chaos_io_check
+    from distributed_training_tpu_torch.resilience.retry import RetryPolicy
+
+    def _read() -> bytes:
+        chaos_io_check("data", path)
+        with open(path, "rb") as fh:
+            return fh.read()
+
+    data = np.frombuffer(RetryPolicy(max_attempts=3, base_delay_s=0.02).call(_read),
+                         dtype=np.uint8)
     lo, hi = int(data.size * span[0]), int(data.size * span[1])
     data = data[lo:hi]
     if data.size < seq_len + 2:

@@ -66,7 +66,19 @@ follow the Flax initialisers' distributions from a ``torch.Generator``
   gates its own tokens; under tensor parallelism every model rank runs
   the layer whole).
 
-Not ported: the KV-cache decode path.
+- **Decode** (``forward(..., cache=...)``, JAX's ``decode=True``): the
+  dense KV-cache path of ``inference/``. ``cache`` is a
+  ``parallel.ring_attention.KVCache`` from :meth:`TransformerLM.init_cache`
+  (``cache_len`` slots, default ``max_len``); each block writes this call's
+  K/V into its layer at the cache's index and attends over the whole
+  cache, and the call advances the index by its length, in place.
+  ``positions`` feeds the positional embedding only and is required (JAX's
+  refusal); its rows are clamped to the table, as JAX's gather clamps
+  them, so a call past the end comes out NaN (the attention's poison)
+  rather than raising. MoE FFNs run position-wise over the call's tokens,
+  the gate's capacity from their count, as in JAX. JAX's refusals and
+  messages: no positions, ``cache_len`` above ``max_len``, a sequence
+  axis, ``kv_dtype`` without the paged cache.
 """
 
 from __future__ import annotations
@@ -79,6 +91,7 @@ import torch.utils.checkpoint
 from torch import nn
 
 from distributed_training_tpu_torch.parallel.ring_attention import (
+    KVCache,
     RingSelfAttention,
     lecun_normal_,
 )
@@ -214,11 +227,13 @@ class DecoderBlock(nn.Module):
         else:
             self.mlp = MlpBlock(hidden_dim, mlp_dim, dtype, generator)
 
-    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None):
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None,
+                cache: KVCache | None = None, layer: int = 0):
+        """``cache``: the decode path over the cache's layer ``layer``."""
         rate = self.dropout_rate if self.training else 0.0
         if rate and generator is None:
             raise ValueError("dropout in training needs the step's generator")
-        x = x + dropout(self.attn(self.ln1(x)), rate, generator)
+        x = x + dropout(self.attn(self.ln1(x), cache, layer), rate, generator)
         if hasattr(self, "moe_mlp"):
             y, aux = self.moe_mlp(self.ln2(x), self.training, generator)
         else:
@@ -343,23 +358,61 @@ class TransformerLM(nn.Module):
         self.lm_head = Dense(hidden_dim, vocab_size, dtype=logits_dtype,
                              use_bias=head_bias, generator=generator)
 
+    def init_cache(self, batch: int, cache_len: int | None = None, *,
+                   device=None, kv_dtype: str | None = None) -> KVCache:
+        """An empty decode cache of ``cache_len`` slots (default
+        ``max_len``) for ``batch`` rows, in the compute dtype."""
+        cache_len = self.max_len if cache_len is None else int(cache_len)
+        self._check_cache_len(cache_len)
+        attn = self.block0.attn
+        _, _, heads, head_dim = attn.qkv.kernel.shape
+        return KVCache.empty(layers=self.num_layers, batch=batch, cache_len=cache_len,
+                             heads=heads, head_dim=head_dim, dtype=self.dtype,
+                             device=self.pos_embed.device if device is None else device,
+                             kv_dtype=kv_dtype)
+
+    def _check_cache_len(self, cache_len: int) -> None:
+        if cache_len > self.max_len:
+            # Slots past max_len would decode at clamped positional rows.
+            raise ValueError(
+                f"cache_len={cache_len} exceeds the positional table "
+                f"(max_len={self.max_len})")
+
     def forward(self, tokens: torch.Tensor,
                 positions: torch.Tensor | None = None, *,
                 generator: torch.Generator | None = None,
-                return_hidden: bool = False, return_aux: bool = False):
+                return_hidden: bool = False, return_aux: bool = False,
+                cache: KVCache | None = None):
         """Logits, or with ``return_hidden`` the final-norm hidden states
         ``[B, T, hidden]``; with ``return_aux`` also the MoE layers'
         summed load-balancing loss (a float32 0-d tensor, 0 without MoE).
         ``generator`` draws the dropout masks and the noisy gates' noise in
-        training (needed when ``dropout_rate`` > 0)."""
+        training (needed when ``dropout_rate`` > 0). ``cache``: the decode
+        path (see the module docstring), which advances ``cache.index``."""
+        if cache is not None:
+            if positions is None:
+                raise ValueError(
+                    "decode=True requires explicit positions (the pos-embed row "
+                    "of each incoming token)")
+            self._check_cache_len(cache.cache_len)
+            # JAX's gather clamps a row past the table; the attention's
+            # poison then marks the call.
+            positions = positions.clamp(0, self.max_len - 1)
         x = embed(self, tokens, positions)
         if self.tp is not None and self.tp.overlap:
             x = self._time_shard(x)
-        remat = self.remat and self.training and torch.is_grad_enabled()
+        remat = (self.remat and self.training and torch.is_grad_enabled()
+                 and cache is None)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i in range(self.num_layers):
-            x, a = run_block(getattr(self, f"block{i}"), x, generator, remat)
+            block = getattr(self, f"block{i}")
+            if cache is not None:
+                x, a = block(x, generator, cache, i)
+            else:
+                x, a = run_block(block, x, generator, remat)
             aux = aux + a
+        if cache is not None:
+            cache.index += tokens.shape[1]
         out = final(self, x, return_hidden)
         return (out, aux) if return_aux else out
 

@@ -13,9 +13,9 @@ The port of ``distributed_training_tpu/observability``:
   metrics;
 - :mod:`aggregate`: the cross-rank straggler view, exchanged over gloo;
 - :mod:`prometheus`: a dump as Prometheus text;
+- :mod:`trace`: span traces of the run, in Chrome/Perfetto JSON;
+- :mod:`exporter`: the live ``/metrics``, ``/healthz`` and ``/vars``;
 - :mod:`hooks`: :class:`TrainObservability`, which both trainers drive.
-
-Not ported yet (ROADMAP.md, queue A): span traces, the live exporter.
 """
 
 from __future__ import annotations
@@ -45,4 +45,8 @@ from distributed_training_tpu_torch.observability.hooks import (  # noqa: F401
 )
 from distributed_training_tpu_torch.observability.memory import (  # noqa: F401
     device_memory_metrics,
+)
+from distributed_training_tpu_torch.observability.trace import (  # noqa: F401
+    TraceSession,
+    load_trace,
 )

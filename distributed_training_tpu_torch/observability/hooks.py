@@ -24,8 +24,12 @@ alike (the detector's inputs are the same on every rank).
 Two pieces of JAX's forensics read XLA and have no counterpart here, and
 the dump says so in its ``notes``: the step's HLO text (``hooks.py``'s
 ``_save_hlo``) and the compiled-program count (``xla_compiles``, from the
-XLA sanitizer). The live exporter (``metrics_port``) and span traces wait
-for the next part of the port (ROADMAP.md, queue A).
+XLA sanitizer).
+
+It also owns the run's span trace (``observability/trace.py``), written on
+:meth:`close` and on a crash, and, on rank 0 with ``metrics_port`` set,
+the live exporter (``observability/exporter.py``), whose scrapes read
+:meth:`scrape_snapshot`: host values only, never the card.
 """
 
 from __future__ import annotations
@@ -53,16 +57,6 @@ NOTES = ("no step HLO: the port's step is eager PyTorch, with no lowered "
          "no xla_compiles: the port compiles no XLA programs")
 
 
-def refuse_unported(cfg) -> None:
-    """Raise for the ``ObservabilityConfig`` fields whose behaviour waits
-    for the next part of the port."""
-    bad = [name for name, on in (("metrics_port", cfg.metrics_port is not None),
-                                 ("trace.enabled", cfg.trace.enabled)) if on]
-    if bad:
-        raise NotImplementedError(
-            f"not ported yet (see ROADMAP.md): observability {', '.join(bad)}")
-
-
 class TrainObservability:
     """Flight instruments for one training run (see module docstring)."""
 
@@ -71,17 +65,19 @@ class TrainObservability:
                  printer: Callable[[str], None] = print,
                  dump_dir: str | None = None,
                  extra_provider: Callable[[], dict] | None = None,
+                 trace=None, trace_path: str | None = None,
                  num_processes: int = 1, device=None):
         """``cfg`` is a :class:`~distributed_training_tpu_torch.config.
         ObservabilityConfig`; ``step_flops`` the model FLOPs of one
         optimizer step (None → no MFU); ``clock`` the trainer's WallClock
         for goodput; ``dump_dir`` overrides ``cfg.dump_dir``;
         ``extra_provider`` supplies extra dump sections (the trainers'
-        resilience counters). ``num_processes`` > 1 drives the cross-rank
+        resilience counters). ``trace``/``trace_path``: the run's
+        ``TraceSession`` and its file, written by :meth:`close` and the
+        crash path. ``num_processes`` > 1 drives the cross-rank
         exchange at each flush: every rank must construct this object (it
         opens the gloo group) and flush at the same steps. ``device``:
         the card whose allocator the memory telemetry reads."""
-        refuse_unported(cfg)
         self.cfg = cfg
         self.extra_provider = extra_provider
         self.dump_dir = dump_dir or cfg.dump_dir or "./flight"
@@ -89,6 +85,10 @@ class TrainObservability:
         self.printer = printer
         self.clock = clock
         self.device = device
+        self.trace, self.trace_path = trace, trace_path
+        self._trace_saved = False
+        # The run's coarse phase for /healthz (the clock's open phase wins).
+        self.phase = "init"
         self.num_processes = int(num_processes)
         # The last flush's exchange: the [ranks, payload] matrix, or (one
         # process) this rank's payload parts, packed when read.
@@ -108,6 +108,27 @@ class TrainObservability:
         self._pending_raise: AnomalyError | None = None
         self._fired = False
         self._crash_dumped = False
+        # The live exporter, on rank 0 only, bound here so that a port in
+        # use fails the run's start rather than its first scrape.
+        self.exporter = None
+        if cfg.metrics_port is not None and is_master:
+            from distributed_training_tpu_torch.observability.exporter import (
+                MetricsExporter,
+            )
+
+            self.exporter = MetricsExporter(
+                self.scrape_snapshot, port=cfg.metrics_port, host=cfg.metrics_host,
+                phase_provider=self._live_phase).start()
+            self.printer(f"[observability] live metrics: {self.exporter.url('')} "
+                         f"(/metrics /healthz /vars)")
+
+    def _live_phase(self) -> str:
+        """The /healthz phase: the clock's open phase, else the run's."""
+        if self.clock is not None:
+            ph = self.clock.current_phase
+            if ph:
+                return ph
+        return self.phase
 
     def on_epoch(self) -> None:
         """Epoch boundary: the eval/ckpt/reshuffle pause before the next
@@ -116,6 +137,7 @@ class TrainObservability:
         if self.recorder is not None:
             self.recorder.mark_gap()
         self._rate_anchor = None
+        self.phase = "train"
 
     # -- hot path ------------------------------------------------------------
     def on_step(self, step: int) -> None:
@@ -262,6 +284,34 @@ class TrainObservability:
         extra["notes"] = list(NOTES)
         return totals, extra
 
+    def scrape_snapshot(self) -> dict:
+        """What a ``/metrics`` or ``/vars`` scrape serves: :meth:`dump`'s
+        record, never written. With the recorder off, the goodput and the
+        extra sections alone."""
+        totals, extra = self._dump_sections()
+        if self.recorder is not None:
+            return self.recorder.snapshot(reason="scrape", phase_totals=totals,
+                                          extra=extra)
+        snap: dict = {"reason": "scrape", "steps_recorded_total": 0}
+        if totals:
+            snap["wall_clock"] = FlightRecorder.goodput(totals)
+        snap.update(extra)
+        return snap
+
+    def save_trace(self) -> str | None:
+        """Write the span trace to ``trace_path`` once; returns the path,
+        or None with tracing off."""
+        if self.trace is None or self.trace_path is None:
+            return None
+        if not self._trace_saved:
+            self.trace.save(self.trace_path)
+            # Set only after the write: a failed crash-path save leaves
+            # close() to try again.
+            self._trace_saved = True
+            self.printer(f"[observability] trace: {self.trace_path} "
+                         f"({len(self.trace)} events)")
+        return self.trace_path
+
     def dump(self, path: str | None = None, reason: str = "on-demand") -> str | None:
         """Write the flight record to ``path`` (default
         ``dump_dir/flight.json``); returns the path, or None when the
@@ -286,12 +336,24 @@ class TrainObservability:
             self.printer(f"[observability] crash flight record: {path}")
         except Exception as e:
             self.printer(f"[observability] crash dump failed: {e}")
+        try:
+            self.save_trace()  # the timeline up to the crash
+        except Exception as e:
+            self.printer(f"[observability] crash trace save failed: {e}")
 
     def close(self, raise_pending: bool = True) -> None:
-        """Idempotent teardown: stop a dangling anomaly trace; surface a
-        deferred raise whose trace window the run's end cut short."""
+        """Idempotent teardown: stop the live exporter and a dangling
+        anomaly trace; write the span trace; surface a deferred raise whose
+        trace window the run's end cut short."""
+        self.phase = "done"
+        if self.exporter is not None:
+            self.exporter.close()
         self._trace_left = 0
         self._stop_trace()
+        try:
+            self.save_trace()
+        except Exception as e:  # teardown must not mask the run's outcome
+            self.printer(f"[observability] trace save failed: {e}")
         if raise_pending and self._pending_raise is not None:
             err, self._pending_raise = self._pending_raise, None
             raise err

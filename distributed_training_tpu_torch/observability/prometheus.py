@@ -2,8 +2,8 @@
 
 The port of ``distributed_training_tpu/observability/prometheus.py``'s
 renderer, which ``python -m distributed_training_tpu_torch.tools.
-flight_report --prometheus`` prints (the live ``/metrics`` exporter is
-not ported yet: ROADMAP.md, queue A).
+flight_report --prometheus`` prints and the live exporter's ``/metrics``
+serves (``observability/exporter.py``).
 
 The input is the dict shape :meth:`FlightRecorder.snapshot` produces —
 optionally carrying the ``serving`` / ``hosts`` / ``resilience`` extra
@@ -16,6 +16,10 @@ and are skipped — Prometheus text has no place for them.
 """
 
 from __future__ import annotations
+
+# The Prometheus text-format version of the exposition; the live exporter
+# advertises it in the /metrics Content-Type.
+TEXT_CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
 
 def prom_hist(lines: list, name: str, hist: dict,
               help_text: str) -> None:

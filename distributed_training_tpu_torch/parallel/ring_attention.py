@@ -1,12 +1,25 @@
 """Self-attention of the transformer LM: projections, exact attention,
 the flash dispatch, and ring attention over the ``sequence`` axis.
 
-The port of ``distributed_training_tpu/parallel/ring_attention.py``
-(without the KV-cache decode paths, which raise ``NotImplementedError``):
+The port of ``distributed_training_tpu/parallel/ring_attention.py``:
 :func:`ring_attention` unsharded (the exact ``[T, T]`` softmax, or the
 flash kernels K2/K3 with ``impl="flash"``) and over a bound
 ``axis_name``, the projections :class:`_QKVProj` and :class:`_OutProj`,
-and :class:`RingSelfAttention`.
+:class:`RingSelfAttention`, and the dense KV-cache decode
+(:class:`KVCache`, :func:`decode_attend`: JAX's ``_decode_attend``). The
+paged decode of the serving engine (JAX's ``_paged_decode_attend``) comes
+with the serving port (ROADMAP.md, A9).
+
+**Decode.** The cache is an explicit object the caller makes
+(``TransformerLM.init_cache``) and passes to each forward, which updates
+it in place: per layer K and V ``[B, cache_len, H, hd]`` and one write
+index for the stack (JAX keeps one ``cache_index`` a layer; they move
+together). A call writes its K/V at the index, attends each query over
+the whole cache in float32 under the causal mask by global position, and
+NaN-poisons the whole call when it runs past the end (a clamped write
+would corrupt the history), as JAX does. The product is a plain one, as
+in JAX, where decode reaches no Pallas kernel; the index is a host int,
+so a decode step never reads the card.
 
 **Ring attention** (sequence parallelism): each rank holds one time
 chunk of q, k and v, ``[B, H, T_local, hd]``; K/V blocks travel the ring
@@ -43,6 +56,7 @@ heads, and the projections run the column- and row-parallel products.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -60,6 +74,76 @@ from distributed_training_tpu_torch.parallel.tensor_parallel import (
 from distributed_training_tpu_torch.runtime.mesh import ring_shift
 
 
+class KVCache:
+    """The dense decode cache of a decoder stack: ``keys[i]`` and
+    ``values[i]`` ``[B, cache_len, H, hd]`` for layer ``i``, and the write
+    index ``index`` (the number of positions written so far).
+
+    ``kv_dtype`` is the paged pool's storage dtype in JAX, refused here
+    with JAX's message: the contiguous cache stores the compute dtype."""
+
+    def __init__(self, keys: list, values: list, index: int = 0,
+                 kv_dtype: str | None = None):
+        if kv_dtype is not None:
+            raise ValueError(
+                "kv_dtype requires the paged cache (kv_page_size set); "
+                "the legacy contiguous path keeps full-precision slots")
+        self.keys, self.values, self.index = list(keys), list(values), int(index)
+
+    @classmethod
+    def empty(cls, *, layers: int, batch: int, cache_len: int, heads: int,
+              head_dim: int, dtype: torch.dtype, device=None,
+              kv_dtype: str | None = None) -> "KVCache":
+        """Zeros at index 0 (JAX's freshly made cache)."""
+        shape = (batch, cache_len, heads, head_dim)
+        return cls([torch.zeros(shape, dtype=dtype, device=device) for _ in range(layers)],
+                   [torch.zeros(shape, dtype=dtype, device=device) for _ in range(layers)],
+                   kv_dtype=kv_dtype)
+
+    @property
+    def cache_len(self) -> int:
+        return self.keys[0].shape[1]
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in (*self.keys, *self.values))
+
+    def select_rows(self, rows: torch.Tensor) -> None:
+        """Keep batch rows ``rows`` (an index tensor, repeats allowed) of
+        every layer's K and V: beam search's reorder by parent and its
+        K-fold repeat of the prompt's rows."""
+        self.keys = [k.index_select(0, rows) for k in self.keys]
+        self.values = [v.index_select(0, rows) for v in self.values]
+
+
+def decode_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  cache: KVCache, layer: int) -> torch.Tensor:
+    """JAX's ``_decode_attend`` on ``[B, T_in, H, hd]``: write ``k``/``v``
+    into layer ``layer`` of ``cache`` at ``cache.index`` (the caller
+    advances the index), attend ``q`` over the whole cache; returns ``[B,
+    T_in, H, hd]`` in ``v``'s dtype."""
+    t_in, hd = q.shape[1], q.shape[-1]
+    i0, length = cache.index, cache.cache_len
+    # JAX's dynamic_update_slice clamps the start so the write fits; the
+    # poison below marks every such call.
+    start = max(0, min(i0, length - t_in))
+    cache.keys[layer][:, start:start + t_in] = k
+    cache.values[layer][:, start:start + t_in] = v
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, cache.keys[layer], cache.values[layer]))
+    s = torch.einsum("...qd,...kd->...qk", qh.float(), kh.float()) * _host_scale(hd, torch.float32)
+    # Queries sit at i0..i0+T_in-1; slots past the write head are zeros,
+    # masked with the future.
+    qpos = i0 + torch.arange(t_in, device=q.device)
+    kpos = torch.arange(length, device=q.device)
+    s = s.masked_fill(kpos[None, :] > qpos[:, None], float("-inf"))
+    if i0 + t_in > length:
+        # Past the end: the clamped write corrupted history, so the whole
+        # call is wrong, in-bounds rows too.
+        s = torch.full_like(s, float("nan"))
+    p = torch.softmax(s, dim=-1).to(vh.dtype)
+    return torch.einsum("...qk,...kd->...qd", p, vh).transpose(1, 2)
+
+
 def lecun_normal_(t: torch.Tensor, fan_in: int,
                   generator: torch.Generator | None = None) -> torch.Tensor:
     """Flax ``lecun_normal``: a normal truncated at ±2σ, rescaled so the
@@ -70,10 +154,18 @@ def lecun_normal_(t: torch.Tensor, fan_in: int,
                                      generator=generator)
 
 
-def _scale(q: torch.Tensor) -> torch.Tensor:
-    """``1/√hd`` as JAX computes it: the root rounded to q's dtype first."""
-    hd = q.shape[-1]
-    return (1.0 / torch.tensor(math.sqrt(hd), dtype=torch.float32).to(q.dtype)).to(q.device)
+@functools.lru_cache(maxsize=None)
+def _host_scale(hd: int, dtype: torch.dtype) -> float:
+    """``1/√hd`` as JAX computes it in ``dtype`` (the root rounded to the
+    dtype, then its reciprocal in the dtype), as a Python float: a scalar
+    operand, so multiplying by it copies nothing to the card."""
+    root = torch.tensor(math.sqrt(hd), dtype=torch.float32).to(dtype)
+    return (1.0 / root).item()
+
+
+def _scale(q: torch.Tensor) -> float:
+    """``1/√hd`` for q's head width and dtype (:func:`_host_scale`)."""
+    return _host_scale(q.shape[-1], q.dtype)
 
 
 def _online_block_update(o, m, l, s, v):
@@ -330,11 +422,21 @@ class RingSelfAttention(nn.Module):
         self.qkv = _QKVProj(hidden_dim, num_heads, head_dim, dtype, generator)
         self.out = _OutProj(num_heads, head_dim, hidden_dim, dtype, generator)
 
-    def forward(self, x: torch.Tensor, decode: bool = False) -> torch.Tensor:
-        if decode:
-            raise NotImplementedError(
-                "the KV-cache decode path (inference, serving) is not ported yet")
+    def forward(self, x: torch.Tensor, cache: KVCache | None = None,
+                layer: int = 0) -> torch.Tensor:
+        """With ``cache`` the decode path over its layer ``layer`` (see the
+        module docstring), with JAX's refusals."""
         q, k, v = self.qkv(x)
+        if cache is not None:
+            if self.axis_name is not None:
+                raise ValueError(
+                    "decode=True is the unsharded inference path; generation "
+                    "does not compose with sequence-parallel attention")
+            if not self.causal:
+                raise ValueError("decode=True only makes sense for causal attention")
+            # The cache keeps [B, T, H, hd]; the projections give [B, H, T, hd].
+            out = decode_attend(*(t.transpose(1, 2) for t in (q, k, v)), cache, layer)
+            return self.out(out.transpose(1, 2))
         out = ring_attention(q, k, v, axis_name=self.axis_name, causal=self.causal,
                              impl=self.attn_impl, mesh=self.mesh)
         return self.out(out)

@@ -21,11 +21,16 @@ world-1 format) by every rank together; rank 0 alone copies it to the
 host and writes it.
 
 Failures in the writer thread are recorded and surface on :meth:`wait`
-(or on a ``sync=True`` save), as the JAX writer's do.
+(or on a ``sync=True`` save), as the JAX writer's do. As in JAX, a
+``post_save`` hook runs in the writer thread after each committed save
+(the chaos harness tears saves there, where a crash would), and a span
+trace gets the writer's own ``ckpt-writer`` track (``ckpt.persist`` and
+``ckpt.prune`` spans), where its overlap with the steps shows.
 """
 
 from __future__ import annotations
 
+import contextlib
 import queue as queue_lib
 import threading
 from typing import Any, Callable
@@ -77,9 +82,14 @@ class AsyncCheckpointWriter:
 
     _STOP = object()
 
-    def __init__(self, *, printer: Callable[[str], None] = print):
+    def __init__(self, *, post_save: Callable[[str, int], None] | None = None,
+                 printer: Callable[[str], None] = print, trace=None):
+        """``post_save(path, epoch)`` runs in the writer thread after each
+        committed save; ``trace`` is a ``TraceSession`` or None."""
         self._q: queue_lib.Queue = queue_lib.Queue(maxsize=1)
         self._thread: threading.Thread | None = None
+        self._post_save = post_save
+        self._trace = trace
         self._printer = printer
         self._lock = threading.Lock()
         self.last_error: BaseException | None = None
@@ -99,13 +109,17 @@ class AsyncCheckpointWriter:
                     return
                 if task[0] == "save":
                     _, directory, epoch, snapshot, kwargs = task
-                    ckpt_lib.write_checkpoint(directory, epoch, snapshot.ready(),
-                                              **kwargs)
+                    with self._span("ckpt.persist", epoch=int(epoch)):
+                        path = ckpt_lib.write_checkpoint(directory, epoch,
+                                                         snapshot.ready(), **kwargs)
                     with self._lock:
                         self.counters["saves_committed"] += 1
+                    if self._post_save is not None:
+                        self._post_save(path, epoch)
                 else:  # prune
                     _, directory, keep = task
-                    ckpt_lib.prune_checkpoints(directory, keep)
+                    with self._span("ckpt.prune"):
+                        ckpt_lib.prune_checkpoints(directory, keep)
             except BaseException as e:  # noqa: BLE001 - recorded, surfaced on wait
                 with self._lock:
                     if task is not self._STOP and task[0] == "save":
@@ -114,6 +128,12 @@ class AsyncCheckpointWriter:
                 self._printer(f"[ckpt-writer] background save failed: {e}")
             finally:
                 self._q.task_done()
+
+    def _span(self, name: str, **attrs):
+        """A span on the writer's track, or nothing without a trace."""
+        if self._trace is None:
+            return contextlib.nullcontext()
+        return self._trace.span(name, track="ckpt-writer", **attrs)
 
     def save(self, directory: str, epoch: int, state, *, sync: bool = False,
              **kwargs: Any) -> None:

@@ -70,7 +70,8 @@ each block's recompute runs K2 again. The chunked and saved-probabilities
 CE are the step's (``train/lm_step.py``); under the pipeline each live
 tick's layers run them. The process group, the
 preemption guard, the background checkpoint writer, the metric sinks, the
-wall-clock breakdown and the profiler trace are the image trainer's
+wall-clock breakdown, the profiler trace, the flight instruments, the span
+trace, the live exporter and chaos are the image trainer's
 (``train/trainer.py``, :class:`Engine`). Checkpoints are saved in the
 world-1 format (the ZeRO partitions, the TP shards and the pipeline's
 stages gathered, in layer order) and load at any layout.
@@ -94,9 +95,6 @@ from distributed_training_tpu_torch.models.moe import MoEContext, shard_experts_
 from distributed_training_tpu_torch.observability.flops import (
     forward_flops,
     train_step_flops,
-)
-from distributed_training_tpu_torch.observability.hooks import (
-    refuse_unported as refuse_unported_observability,
 )
 from distributed_training_tpu_torch.ops.flash_attention import check_seq_len
 from distributed_training_tpu_torch.parallel.pipeline import (
@@ -265,7 +263,6 @@ class LMTrainer(Engine):
         # num_microbatches and virtual_stages shape the pipeline alone;
         # without the pipe axis the JAX trainer reads neither, and neither
         # does this one.
-        refuse_unported_observability(cfg.observability)
         self.cfg = cfg
         group = initialize_distributed(device=device)
         self.coord = Coordinator()

@@ -40,6 +40,24 @@ wires it:
   ``<checkpoint.directory>/flight``, traces the next steps and then
   raises or goes on; a crash dumps the record too. The wall clock runs on
   host time for them whenever the recorder is on;
+- the span trace (``observability.trace.enabled``;
+  ``observability/trace.py``), opened as the JAX trainers open it:
+  ``<dir or the flight directory>/trace/trace.json`` (``trace_p<rank>.json``
+  on several ranks), written at the run's end and on a crash, with the
+  wall clock's phases (data, step, log, eval, ckpt) as spans on the
+  ``train`` track, the async writer's on ``ckpt-writer`` and the chaos
+  injections on ``chaos``. Spans read host time only: a ``step`` span
+  times the step's dispatch, as in JAX, and never synchronises the card;
+- the live exporter (``observability.metrics_port``; rank 0 only):
+  ``/metrics``, ``/healthz`` and ``/vars`` from a thread, over host values
+  the meter's flush already fetched;
+- chaos (``cfg.chaos``; ``resilience/chaos.py``): when active, a
+  ``ChaosMonkey`` at JAX's points: after each step's metric push (slow
+  steps, the kill at a step: SIGTERM goes through the preemption guard,
+  SIGKILL saves nothing), after each save (rank 0; in the async writer's
+  thread with ``async_save``) and, installed for ``fit()``, in the
+  loaders' reads; its counters go into the flight dump's
+  ``resilience.chaos_faults``;
 - ``remat``, passed to the model (and the image Trainer's
   ``remat_policy`` argument, to the ResNet);
 - ``data.prefetch``: with ``prefetch ≥ 1`` a worker thread loads each
@@ -124,11 +142,10 @@ from distributed_training_tpu_torch.observability.flops import (
     forward_flops,
     train_step_flops,
 )
-from distributed_training_tpu_torch.observability.hooks import (
-    TrainObservability,
-    refuse_unported as refuse_unported_observability,
-)
+from distributed_training_tpu_torch.observability import trace as trace_lib
+from distributed_training_tpu_torch.observability.hooks import TrainObservability
 from distributed_training_tpu_torch.parallel.zero import Zero
+from distributed_training_tpu_torch.resilience import chaos as chaos_lib
 from distributed_training_tpu_torch.resilience import retry as retry_lib
 from distributed_training_tpu_torch.resilience.async_ckpt import AsyncCheckpointWriter
 from distributed_training_tpu_torch.runtime.coordinator import Coordinator
@@ -243,36 +260,48 @@ class Engine:
         effective global batch's), for the flight instruments' MFU."""
         cfg = self.cfg
         obs = cfg.observability
-        # The clock runs whenever the flight recorder does (goodput), on
+        rank, world = self.coord.process_index, self.coord.world_size
+        # Forensics land next to the run's durable artifacts by default.
+        dump_dir = obs.dump_dir or os.path.join(cfg.checkpoint.directory, "flight")
+        # None unless trace.enabled: then no span is ever made.
+        self.trace, trace_path = trace_lib.session_for_run(
+            obs.trace, default_dir=dump_dir, rank=rank, world=world)
+        # The clock runs whenever the flight recorder or the trace does, on
         # host time alone; it synchronises the card at its phase
         # boundaries only for wall_clock_breakdown, whose report it prints.
-        self.clock = WallClock(cfg.wall_clock_breakdown or obs.flight_recorder,
-                               device=self.device if cfg.wall_clock_breakdown else None)
+        self.clock = WallClock(
+            cfg.wall_clock_breakdown or obs.flight_recorder or self.trace is not None,
+            device=self.device if cfg.wall_clock_breakdown else None, trace=self.trace)
         self.metrics_writer = MetricsWriter(cfg.tensorboard_dir, cfg.metrics_jsonl,
                                             enabled=self.coord.is_master())
-        self._ckpt_writer = (AsyncCheckpointWriter(printer=self.coord.print)
-                             if cfg.checkpoint.async_save else None)
+        self.chaos = (chaos_lib.ChaosMonkey(cfg.chaos, process_index=rank, trace=self.trace)
+                      if cfg.chaos.active else None)
+        self._ckpt_writer = (AsyncCheckpointWriter(
+            post_save=self.chaos.after_checkpoint_save if self.chaos else None,
+            printer=self.coord.print, trace=self.trace)
+            if cfg.checkpoint.async_save else None)
         self._sync_saves = 0
         self._guard: PreemptionGuard | None = None
         self._global_step = 0
         self._epoch_step = 0
-        # Forensics land next to the run's durable artifacts by default.
         self.obs = TrainObservability(
-            obs, step_flops=step_flops, n_devices=self.coord.world_size,
+            obs, step_flops=step_flops, n_devices=world,
             clock=self.clock, is_master=self.coord.is_master(),
-            printer=self.coord.print,
-            dump_dir=obs.dump_dir or os.path.join(cfg.checkpoint.directory, "flight"),
+            printer=self.coord.print, dump_dir=dump_dir,
             extra_provider=self._resilience_snapshot,
-            num_processes=self.coord.world_size, device=self.device)
+            trace=self.trace, trace_path=trace_path,
+            num_processes=world, device=self.device)
 
     def _resilience_snapshot(self) -> dict:
         """The flight dump's ``resilience`` section: saves committed and
-        failed, and I/O retries."""
+        failed, I/O retries and, with chaos, its faults."""
         c = {"io_retries": retry_lib.total_retries(),
              "saves_committed": self._sync_saves, "saves_failed": 0}
         if self._ckpt_writer is not None:
             c["saves_committed"] += self._ckpt_writer.counters["saves_committed"]
             c["saves_failed"] = self._ckpt_writer.counters["saves_failed"]
+        if self.chaos is not None:
+            c["chaos_faults"] = dict(self.chaos.counters)
         return {"resilience": c}
 
     # -- data -----------------------------------------------------------------
@@ -302,8 +331,11 @@ class Engine:
         if self._ckpt_writer is not None:
             self._ckpt_writer.save(d, epoch, self.state, sync=sync, **kw)
         else:
-            ckpt_lib.save_checkpoint(d, epoch, self.state, **kw)
+            path = ckpt_lib.save_checkpoint(d, epoch, self.state, **kw)
             self._sync_saves += 1
+            # Rank 0 wrote the save, and every rank has passed its barrier.
+            if self.chaos is not None and self.coord.is_master():
+                self.chaos.after_checkpoint_save(path, epoch)
 
     def _prune_ckpts(self) -> None:
         """Retention sweep (rank 0), after any save in flight."""
@@ -342,6 +374,10 @@ class Engine:
                     self._global_step += 1
                     self._epoch_step += 1
                     fetched = self.meter.push(self._global_step, metrics)
+                    # Chaos before the recorder's timestamp: a slow step's
+                    # stall lands in this step's interval, as a real one's.
+                    if self.chaos is not None:
+                        self.chaos.on_step(self._global_step)
                     self.obs.on_step(self._global_step)
                     if fetched:
                         extras = self.obs.on_flush(self.meter.last, batch=batch)
@@ -363,6 +399,9 @@ class Engine:
 
     # -- full run -------------------------------------------------------------
     def fit(self) -> dict:
+        if self.chaos is not None:
+            # The loaders poll the process-wide registration; this fit only.
+            chaos_lib.install(self.chaos)
         try:
             result = self._fit()
             # A deferred anomaly raise whose trace window the run's end
@@ -376,6 +415,8 @@ class Engine:
             self.obs.on_crash()
             raise
         finally:
+            if self.chaos is not None:
+                chaos_lib.uninstall()
             if self._ckpt_writer is not None:
                 # A background failure was counted and printed; it must not
                 # mask this run's outcome or exception.
@@ -449,7 +490,6 @@ class Trainer(Engine):
         only its conv outputs); the JAX ``TrainConfig`` has no field for it,
         so it is an argument here."""
         refuse_unported(unported_fields(cfg))
-        refuse_unported_observability(cfg.observability)
         if cfg.moe.enabled and not cfg.model.startswith("moe"):
             raise NotImplementedError(
                 f"MoE is only wired into the moe_* models (models/moe.py); "

@@ -11,9 +11,11 @@ The port of ``distributed_training_tpu/utils/profiling.py``:
   ``eval`` and ``ckpt``, as the JAX trainers do), reported per epoch.
 
 The clock also keeps the run-lifetime totals the flight recorder's
-goodput reads (:meth:`WallClock.snapshot`), and the phase open now. Not
-ported: the span-trace session the JAX ``WallClock`` can feed (ROADMAP.md,
-queue A).
+goodput reads (:meth:`WallClock.snapshot`), and the phase open now (the
+live exporter's ``/healthz``). With a span-trace session
+(``observability/trace.py``) each phase is also one span, inclusive of
+its nested phases, on the clock's track: how both trainers get their
+step, data, log, eval and ckpt spans.
 """
 
 from __future__ import annotations
@@ -60,13 +62,17 @@ class WallClock:
     """
 
     def __init__(self, enabled: bool = False,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None, *, trace=None,
+                 track: str = "train"):
+        """``trace`` (a ``TraceSession`` or None) receives each phase as a
+        span on ``track``."""
         self.enabled = enabled
         self._cuda = device is not None and torch.device(device).type == "cuda"
+        self.trace, self.track = trace, track
         self.totals: dict[str, float] = defaultdict(float)
         # Run-lifetime totals: report() clears ``totals`` each epoch.
         self.lifetime: dict[str, float] = defaultdict(float)
-        self._stack: list[list] = []  # [name, segment_start] frames
+        self._stack: list[list] = []  # [name, segment_start, entry] frames
 
     def _accrue(self, name: str, dt: float) -> None:
         self.totals[name] += dt
@@ -74,8 +80,13 @@ class WallClock:
 
     @property
     def current_phase(self) -> str | None:
-        """The innermost open phase, or None."""
-        return self._stack[-1][0] if self._stack else None
+        """The innermost open phase, or None. Read without a lock from the
+        exporter's thread: the stack gains and loses whole frames under
+        the interpreter lock, and a stale answer is fine there."""
+        try:
+            return self._stack[-1][0]
+        except IndexError:  # popped between the check and the read
+            return None
 
     def _now(self) -> float:
         if self._cuda:
@@ -113,7 +124,7 @@ class _Phase:
         if clock._stack:  # pause the outer phase
             outer = clock._stack[-1]
             clock._accrue(outer[0], now - outer[1])
-        clock._stack.append([self.name, now])
+        clock._stack.append([self.name, now, now])
 
     def __exit__(self, *exc) -> None:
         clock = self.clock
@@ -122,6 +133,8 @@ class _Phase:
         clock._accrue(frame[0], now - frame[1])
         if clock._stack:  # resume the outer phase's segment
             clock._stack[-1][1] = now
+        if clock.trace is not None:
+            clock.trace.complete(frame[0], frame[2], now, track=clock.track)
 
 
 _OFF = contextlib.nullcontext()

@@ -43,11 +43,18 @@ this script imports nothing of the JAX package). What works:
   (default ``<checkpoint>/flight``), ``--grad-norm-metric`` and
   ``--anomaly-detection`` (which turns the grad norm on too),
   ``--anomaly-action``, ``--anomaly-trace-steps``; read a dump with
-  ``python -m distributed_training_tpu_torch.tools.flight_report``.
+  ``python -m distributed_training_tpu_torch.tools.flight_report``;
+- ``--trace``/``--no-trace`` and ``--trace-dir`` (the span trace, written
+  at the run's end; read it with ``python -m
+  distributed_training_tpu_torch.tools.trace_report``), ``--metrics-port``
+  (the live ``/metrics``, ``/healthz``, ``/vars`` on rank 0; 0 picks a
+  free port);
+- every ``--chaos-*`` flag (``ChaosConfig.from_flags``, the JAX CLI's
+  mapping): the kill at a step (SIGTERM saves and exits, SIGKILL dies),
+  torn and corrupted saves, data-read faults, slow steps on one rank or
+  all.
 
-The flags of what the port lacks raise ``NotImplementedError`` naming the
-flag when set away from their defaults: ``--trace``, ``--trace-dir``,
-``--metrics-port`` and the chaos flags.
+No flag of the JAX CLI is refused.
 
 It runs on the card (``cuda:LOCAL_RANK`` under ``torchrun``) unless
 ``--device cpu`` asks for the CPU; without a card it raises.
@@ -218,8 +225,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def add_chaos_arguments(parser: argparse.ArgumentParser) -> None:
-    """The JAX CLI's fault-injection flags (its resilience/chaos.py), not
-    ported yet: each raises when set away from its default."""
+    """The JAX CLI's fault-injection flags (``resilience/chaos.py``), all
+    inert at their defaults; ``ChaosConfig.from_flags`` maps them."""
     parser.add_argument("--chaos-seed", type=int, default=0)
     parser.add_argument("--chaos-kill-at-step", type=int, default=None,
                         help="deliver --chaos-kill-signal from inside the "
@@ -258,38 +265,22 @@ def add_chaos_arguments(parser: argparse.ArgumentParser) -> None:
                              "to attribute); default: every host")
 
 
-
-# Flags whose behaviour the port lacks, by dest (ROADMAP.md).
-UNPORTED = ("trace", "trace_dir", "metrics_port")
-
-
-def unported_flags(args: argparse.Namespace) -> list[str]:
-    """The flags set to something the port cannot honour yet."""
-    defaults = build_parser().parse_args([])
-    chaos = tuple(k for k in vars(defaults) if k.startswith("chaos_"))
-    return [f"--{k.replace('_', '-')}" for k in (*UNPORTED, *chaos)
-            if getattr(args, k) != getattr(defaults, k)]
-
-
 def build_config(args: argparse.Namespace):
     """The port's ``TrainConfig`` for ``args``, field for field what the
-    JAX CLI's ``build_config`` builds (less its chaos config, which the
-    port has not); raises ``NotImplementedError`` for the flags the port
-    lacks."""
+    JAX CLI's ``build_config`` builds."""
     from distributed_training_tpu_torch.config import (
+        ChaosConfig,
         CheckpointConfig,
         DataConfig,
         LMConfig,
         MeshSpec,
         MoEConfig,
         ObservabilityConfig,
+        TraceConfig,
         TrainConfig,
         ZeroConfig,
     )
 
-    bad = unported_flags(args)
-    if bad:
-        raise NotImplementedError(f"not ported yet (see ROADMAP.md): {', '.join(bad)}")
     cfg = TrainConfig(model="transformer_lm")
     if args.ema_decay is not None:
         cfg = cfg.replace(optimizer=dataclasses.replace(cfg.optimizer,
@@ -313,11 +304,14 @@ def build_config(args: argparse.Namespace):
         observability=ObservabilityConfig(
             flight_recorder=args.flight_recorder,
             dump_dir=args.flight_dir,
+            metrics_port=args.metrics_port,
             grad_norm=args.grad_norm_metric or args.anomaly_detection,
             anomaly_detection=args.anomaly_detection,
             anomaly_action=args.anomaly_action,
             anomaly_trace_steps=args.anomaly_trace_steps,
+            trace=TraceConfig(enabled=args.trace, dir=args.trace_dir),
         ),
+        chaos=ChaosConfig.from_flags(args),
         precision=dataclasses.replace(cfg.precision, dtype=args.dtype),
         zero=ZeroConfig(stage=args.stage),
         mesh=MeshSpec(data=-1, model=args.tp, pipe=args.pp, sequence=args.sp,

@@ -30,9 +30,11 @@ this script imports nothing of the JAX package):
   them: ``--flight-recorder`` (on by default, as in JAX), ``--flight-dir``,
   ``--grad-norm-metric``, ``--anomaly-detection`` (the grad norm with
   it), ``--anomaly-action``, ``--anomaly-trace-steps``;
-- the flags of what the port lacks (chaos, span traces, the live
-  exporter's ``--metrics-port``) raise ``NotImplementedError`` naming
-  ROADMAP.md; none is silently ignored.
+- ``--trace``/``--no-trace`` and ``--trace-dir`` (the span trace; read it
+  with ``python -m distributed_training_tpu_torch.tools.trace_report``),
+  ``--metrics-port`` (the live exporter on rank 0) and every
+  ``--chaos-*`` flag, mapped field for field as the JAX CLI maps them.
+  No flag of the JAX CLI is refused or silently ignored.
 
 It runs on the card (``cuda:LOCAL_RANK`` under a launcher such as
 ``torchrun``, which sets the process group's environment) unless
@@ -180,8 +182,7 @@ def build_parser() -> argparse.ArgumentParser:
                         help="TensorBoard scalar log directory")
     parser.add_argument("--metrics-jsonl", type=str, default=None,
                         help="append metric flushes to this JSONL file")
-    # Observability (flight instruments); --trace, --trace-dir and
-    # --metrics-port are not ported yet (ROADMAP.md, queue A) and raise.
+    # Observability (flight instruments, the span trace, the exporter).
     parser.add_argument("--flight-recorder",
                         action=argparse.BooleanOptionalAction, default=True,
                         help="ring buffer of per-step timestamps + flushed "
@@ -215,9 +216,8 @@ def build_parser() -> argparse.ArgumentParser:
                         choices=["raise", "skip"])
     parser.add_argument("--anomaly-trace-steps", type=int, default=3)
 
-    # Chaos harness (the JAX CLI's resilience/chaos.py surface): not
-    # ported yet (ROADMAP.md, A10); each raises when set away from its
-    # default.
+    # Chaos harness (resilience/chaos.py), the JAX CLI's flags; all
+    # defaults inert.
     parser.add_argument("--chaos-seed", type=int, default=0)
     parser.add_argument("--chaos-kill-at-step", type=int, default=None,
                         help="deliver --chaos-kill-signal at this global "
@@ -298,30 +298,20 @@ def default_ds_config(dtype: str, stage: int, batch_size: int) -> dict:
 
 
 
-def unported_flags(args: argparse.Namespace) -> list[str]:
-    """The flags set to something the port cannot honour yet."""
-    defaults = build_parser().parse_args([])
-    observability = ("trace", "trace_dir", "metrics_port")
-    chaos = tuple(k for k in vars(defaults) if k.startswith("chaos_"))
-    return [f"--{k.replace('_', '-')}" for k in (*chaos, *observability)
-            if getattr(args, k) != getattr(defaults, k)]
-
-
 def build_config(args: argparse.Namespace):
-    """The port's ``TrainConfig`` for ``args``; raises
-    ``NotImplementedError`` for flags the port lacks."""
+    """The port's ``TrainConfig`` for ``args``, field for field what the
+    JAX CLI's ``build_config`` builds."""
     from distributed_training_tpu_torch.config import (
+        ChaosConfig,
         CheckpointConfig,
         DataConfig,
         MoEConfig,
         ObservabilityConfig,
+        TraceConfig,
         TrainConfig,
         from_ds_config,
     )
 
-    bad = unported_flags(args)
-    if bad:
-        raise NotImplementedError(f"not ported yet (see ROADMAP.md): {', '.join(bad)}")
     cfg = TrainConfig.from_plugin(args.plugin)
     if args.moe and not args.model.startswith("moe"):
         # The reference parses --moe and trains a dense ResNet regardless;
@@ -357,11 +347,14 @@ def build_config(args: argparse.Namespace):
         observability=ObservabilityConfig(
             flight_recorder=args.flight_recorder,
             dump_dir=args.flight_dir,
+            metrics_port=args.metrics_port,
             grad_norm=args.grad_norm_metric or args.anomaly_detection,
             anomaly_detection=args.anomaly_detection,
             anomaly_action=args.anomaly_action,
             anomaly_trace_steps=args.anomaly_trace_steps,
+            trace=TraceConfig(enabled=args.trace, dir=args.trace_dir),
         ),
+        chaos=ChaosConfig.from_flags(args),
         checkpoint=CheckpointConfig(directory=args.checkpoint, interval=args.interval,
                                     resume=args.resume, auto_resume=args.auto_resume),
         data=DataConfig(
@@ -393,11 +386,18 @@ def build_config(args: argparse.Namespace):
     return cfg
 
 
-def main(argv: list[str] | None = None) -> dict:
+def build_trainer(argv: list[str] | None = None):
+    """Parse ``argv`` and build the ``Trainer`` it asks for (which opens or
+    joins the process group)."""
     from distributed_training_tpu_torch import Trainer
 
     args = build_parser().parse_args(argv)
-    trainer = Trainer(build_config(args), device=args.device)
+    return Trainer(build_config(args), device=args.device)
+
+
+def main(argv: list[str] | None = None) -> dict:
+    """:func:`build_trainer`, then ``fit()``; returns its result."""
+    trainer = build_trainer(argv)
     result = trainer.fit()
     trainer.coord.print(f"[done] {result}")
     return result

@@ -7,8 +7,9 @@
   asks for a behaviour the port lacks raises ``NotImplementedError``.
 - The CLI parses the JAX CLI's flags with its names and defaults (plus
   ``--device``), builds the same config
-  from the same command line, refuses every flag of what the port lacks,
-  and trains through ``Trainer.fit()``.
+  from the same command line (every flag of the JAX CLI, the span trace's,
+  the live exporter's and the chaos flags included), and trains through
+  ``Trainer.fit()``.
 """
 
 import contextlib
@@ -31,7 +32,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # TrainConfig fields both packages have and a ds_config or the CLI sets.
 FIELDS = ("model", "plugin", "num_epochs", "gradient_accumulation_steps", "label_smoothing",
           "seed", "log_interval", "target_acc", "optimizer", "scheduler", "precision",
-          "zero", "checkpoint", "data", "remat", "wall_clock_breakdown", "observability")
+          "zero", "checkpoint", "data", "remat", "wall_clock_breakdown", "observability",
+          "chaos")
 
 
 def _load(path, name):
@@ -170,23 +172,32 @@ def test_cli_builds_the_jax_clis_config(argv):
     ["--trace-dir", "t"], ["--ep-world-size", "2"],
 ], ids=lambda a: a[0].lstrip("-"))
 def test_cli_refuses_what_the_port_lacks(argv):
-    """What the port lacks raises naming ROADMAP.md. The MoE flags, which
-    this test once listed, are ported: they build the JAX CLI's config
+    """What the port lacked raised naming ROADMAP.md; every flag this test
+    lists is ported now. The MoE flags build the JAX CLI's config
     (``--moe`` switches the model to ``moe_mlp``; ``--ep-world-size`` sizes
-    the expert axis under ``--moe`` alone). So are the flight instruments'
+    the expert axis under ``--moe`` alone). So do the flight instruments'
     (``--flight-recorder`` and ``--no-flight-recorder``, ``--flight-dir``,
-    ``--grad-norm-metric``, ``--anomaly-detection``): they build the JAX
-    CLI's ``observability`` config. ``--trace``, ``--trace-dir``,
-    ``--metrics-port`` and the chaos flags stay refused."""
+    ``--grad-norm-metric``, ``--anomaly-detection``), and, refused until
+    the span trace, the exporter and chaos were ported, ``--trace`` (and
+    ``--no-trace``), ``--trace-dir``, ``--metrics-port`` and the chaos
+    flags (with the kill signal and the other faults beside them): the JAX
+    CLI's ``observability`` and ``chaos`` configs."""
     flight = {"--flight-recorder": ["--no-flight-recorder"], "--flight-dir": [],
-              "--grad-norm-metric": [], "--anomaly-detection": ["--anomaly-action", "skip"]}
+              "--grad-norm-metric": [], "--anomaly-detection": ["--anomaly-action", "skip"],
+              "--trace": ["--no-trace"], "--trace-dir": ["--trace"], "--metrics-port": [],
+              "--chaos-kill-at-step": ["--chaos-kill-signal", "kill", "--chaos-seed", "4"],
+              "--chaos-data-error-rate": ["--chaos-torn-ckpt-epoch", "1", "--chaos-torn-bytes",
+                                          "8", "--chaos-corrupt-ckpt-epoch", "2",
+                                          "--chaos-slow-step-every", "3", "--chaos-slow-step-ms",
+                                          "7", "--chaos-slow-step-host", "1"]}
     if argv[0] in flight:
         for args in (argv, [*argv, *flight[argv[0]]]):
             want = JAX_CLI.build_config(_jax_args(args))
             got = PORT_CLI.build_config(PORT_CLI.build_parser().parse_args(args))
             _same(want, got)
-            assert dataclasses.asdict(got.observability) == dataclasses.asdict(
-                want.observability)
+            for f in ("observability", "chaos"):
+                assert dataclasses.asdict(getattr(got, f)) == dataclasses.asdict(
+                    getattr(want, f)), f
         return
     if argv[0] in ("--moe", "--num-experts", "--top-k", "--ep-world-size"):
         for extra in ([], ["--moe"] if argv[0] != "--moe" else ["--ep-world-size", "2"]):
@@ -197,8 +208,7 @@ def test_cli_refuses_what_the_port_lacks(argv):
                 assert dataclasses.asdict(getattr(got, f)) == dataclasses.asdict(
                     getattr(want, f)), f
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PORT_CLI.build_config(PORT_CLI.build_parser().parse_args(argv))
+    raise AssertionError(f"{argv[0]} is in neither list")
 
 
 def test_cli_takes_vit_b16_as_the_jax_cli_does(tmp_path, monkeypatch):

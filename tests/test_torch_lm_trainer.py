@@ -12,6 +12,7 @@ eps is 1e-4 so that near-zero gradients do not turn rounding into
 lr-sized steps.
 """
 
+import os
 import re
 
 import jax
@@ -157,8 +158,11 @@ def test_unported_options_raise(tmp_path, override):
     the JAX trainer's ``ValueError``, checked on the mesh sizes since one
     process cannot hold an expert axis of 2. The ``fsdp`` axis is ported,
     multi-rank in test_torch_fsdp.py: at world 1 an fsdp axis of 2 is a
-    mesh one process cannot hold; beside it, the live exporter
-    (``metrics_port``) and span traces still raise naming ROADMAP.md.)"""
+    mesh one process cannot hold. Beside it, the live exporter
+    (``metrics_port``) and span traces, which raised naming ROADMAP.md
+    until they were ported, now start: the trainer opens the exporter on
+    a free port and the trace session, and ``close`` releases the one and
+    writes the other.)"""
     cfg = _cfg(tcfg, tmp_path, **override)
     if override == dict(tp_overlap=True):
         t = LMTrainer(cfg, device="cpu")
@@ -197,12 +201,12 @@ def test_unported_options_raise(tmp_path, override):
         with pytest.raises(ValueError, match="not divisible by fixed axes product 2"):
             LMTrainer(cfg, device="cpu")
     if cfg.mesh.fsdp != 1:
-        # What stays refused beside it: the live exporter and span traces.
-        for obs in (tcfg.ObservabilityConfig(metrics_port=0),
-                    tcfg.ObservabilityConfig(trace=tcfg.TraceConfig(enabled=True))):
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                LMTrainer(cfg.replace(mesh=tcfg.MeshSpec(), observability=obs),
-                          device="cpu")
+        # Ported beside it: the live exporter and span traces.
+        t = LMTrainer(cfg.replace(mesh=tcfg.MeshSpec(), observability=tcfg.ObservabilityConfig(
+            metrics_port=0, trace=tcfg.TraceConfig(enabled=True))), device="cpu")
+        assert t.obs.exporter.port > 0 and t.trace is not None
+        t.obs.close()
+        assert os.path.isfile(t.obs.trace_path)
 
 
 @pytest.mark.parametrize("prefetch", [0, 2])

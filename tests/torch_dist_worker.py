@@ -652,6 +652,45 @@ def _flight_world(job, rank, world, group):
     return {"flight": out, "host_group": _host_group_reuse()}
 
 
+def _chaos_world(job, rank, world, group):
+    """Chaos across the ranks (``job["chaos_cfg"]`` a micro LM config):
+    a slow step every 2nd step on rank 1 alone, traced (each rank writes
+    its ``trace_p<rank>.json``), and the cross-rank summary that names the
+    straggler; then a SIGTERM kill at step 2 on every rank, its save, the
+    run resumed at the same world, and the uninterrupted run, each rank's
+    final state."""
+    import dataclasses
+
+    from distributed_training_tpu_torch import LMTrainer
+    from distributed_training_tpu_torch.config import (
+        ChaosConfig,
+        CheckpointConfig,
+        ObservabilityConfig,
+        TraceConfig,
+    )
+
+    cfg, root = job["chaos_cfg"], job["chaos_dir"]
+
+    def ckpt(name):
+        return dataclasses.replace(cfg.checkpoint, directory=os.path.join(root, name))
+
+    slow = LMTrainer(cfg.replace(
+        checkpoint=ckpt("slow"),
+        chaos=ChaosConfig(slow_step_every=2, slow_step_ms=60.0, slow_step_host=1),
+        observability=ObservabilityConfig(trace=TraceConfig(enabled=True))), device="cpu")
+    slow.fit()
+    out = {"hosts": slow.obs.host_summary, "trace_path": slow.obs.trace_path,
+           "slow_steps": slow.chaos.counters["slow_steps"]}
+    runs = {}
+    for name, chaos in (("base", ChaosConfig()), ("killed", ChaosConfig(kill_at_step=2)),
+                        ("resumed", ChaosConfig())):
+        t = LMTrainer(cfg.replace(checkpoint=ckpt("base" if name == "base" else "kill"),
+                                  chaos=chaos), device="cpu")
+        runs[name] = {"result": t.fit(), "state": t.state.state_dict()}
+    torch.distributed.barrier()
+    return {"chaos": {**out, "runs": runs}}
+
+
 def _host_group_reuse() -> dict:
     """``aggregate.host_group`` under a default group that is not gloo (its
     backend read as NCCL's): the gloo group it opens beside it, the same
