@@ -158,6 +158,14 @@ Phases, in order; any failure exits non-zero and prints no result line:
    tokens against the teacher-forced rollout (near ties counted), beam
    search, the generate CLI; prefill ms, decode ms a token, tokens/s, the
    cache's MiB and the peak (see GEN_SHAPES);
+7d8. serve phase: the serving engine on GPT-2-small (bf16, random weights):
+   32 requests of 64 greedy tokens through the paged engine, the legacy
+   engine and a two-tier run on half the pool with preemption; every
+   request finished, the pool balanced, the ledgers conserved, the
+   preempted requests and every request against its uninterrupted or
+   Generator tokens (a difference only at a near tie); TTFT, TPOT,
+   tokens/s, reads of the card an iteration, the busy share (see
+   SERVE_REQUESTS);
 7e. d-256 phase: K2–K4 at head dims 256 and 160 (padded to 256), and at
    257, 320, 384 and 512 (768 in bf16; the d > 256 kernels, d padded to a
    multiple of 64), in float32, bf16 and fp16, T 100 and 384, causal and
@@ -2575,6 +2583,311 @@ def generate_phase(ckpt_dir: str) -> dict:
 
 
 
+# The serve phase: the serving engine (serving/engine.py) on GPT-2-small at
+# full width (12 layers, 12 heads, hidden 768, GPT-2's vocabulary of 50257,
+# max_len 1024) in bf16 with bf16 logits and seeded random weights.
+# SERVE_REQUESTS requests, prompt lengths drawn from the seed in
+# SERVE_PROMPT, SERVE_NEW new tokens each, greedy, max_batch SERVE_BATCH and
+# JAX's defaults kv_page_size 8 and prefill_chunk 64. Three runs: the paged
+# engine; the legacy engine (kv_page_size None); two tiers on half the
+# default pool, the first half of the requests best-effort (tier 1), the
+# second half tier 0 submitted after SERVE_HEAD_START iterations, so that
+# tier 0 preempts. Every request must finish with its SERVE_NEW tokens,
+# check_balanced() hold and no ledger break conservation. The preempted
+# requests against their tokens in the uninterrupted paged run, and every
+# request of the paged and legacy runs against the port's Generator: where
+# the tokens differ, the Generator's top-2 logit gap at the first differing
+# position (its own prefill and decode steps, teacher-forced on the
+# reference's tokens) must be under SERVE_GAP_TOL of that row's RMS, the
+# generate phase's bf16 bound: a near tie that the kernels of another
+# batch shape round the other way. The differing requests are counted.
+# Prints TTFT and TPOT p50/p99, tokens/s, iterations, the engine's reads of
+# the card an iteration, and the card's busy share over SERVE_PROFILED
+# profiled iterations of the paged engine, with the share of the paged
+# pool's gather and scatter (the index kernels).
+SERVE_REQUESTS, SERVE_NEW, SERVE_BATCH = 32, 64, 8
+SERVE_PROMPT = (16, 512)
+SERVE_VOCAB = 50257
+SERVE_HEAD_START = 8
+SERVE_PROFILED = 24
+SERVE_GAP_TOL = GEN_ROW_TOL
+
+
+def _serve_model():
+    from distributed_training_tpu_torch.models import get_model
+
+    return get_model("transformer_lm", num_classes=SERVE_VOCAB, num_layers=GPT_LAYERS,
+                     num_heads=GPT_H, hidden_dim=GPT_H * GPT_D, max_len=GPT_T,
+                     dtype=torch.bfloat16, logits_dtype=torch.bfloat16,
+                     generator=torch.Generator().manual_seed(0)).cuda().eval()
+
+
+def _serve_run(model, prompts: list, cfg, *, low: int = 0) -> dict:
+    """Serve ``prompts`` (the first ``low`` as tier 1, the rest submitted as
+    tier 0 after SERVE_HEAD_START iterations); the engine, completions by
+    uid, iterations, wall seconds and latency percentiles."""
+    import numpy as np
+
+    from distributed_training_tpu_torch.serving import Engine
+
+    eng = Engine(model, cfg)
+    done, iters = {}, 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for p in prompts[:low] if low else prompts:
+        eng.submit(p, priority=1 if low else 0)
+    if low:
+        for _ in range(SERVE_HEAD_START):
+            done |= {f.uid: f for f in eng.step()}
+            iters += 1
+        for p in prompts[low:]:
+            eng.submit(p, priority=0)
+    while not eng.idle:
+        done |= {f.uid: f for f in eng.step()}
+        iters += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stats = eng.stats()
+    bad = {u: f.ledger.violations(ttft_ms=f.ttft_ms) for u, f in done.items()
+           if f.ledger.violations(ttft_ms=f.ttft_ms)}
+    short = {u: (f.finish_reason, int(f.tokens.size)) for u, f in done.items()
+             if f.tokens.size != SERVE_NEW}
+    if len(done) != len(prompts) or short or bad \
+            or stats["ledger_conservation_violations"]:
+        raise SystemExit(f"serve: {len(done)} of {len(prompts)} finished, short {short}, "
+                         f"ledger violations {bad or stats['ledger_conservation_violations']}")
+    eng.check_balanced()
+    ttft = np.array([f.ttft_ms for f in done.values()])
+    tpot = np.array([f.tpot_ms for f in done.values()])
+    return {"engine": eng, "done": done, "out": {
+        "iterations": iters, "wall_s": wall, "tokens": int(stats["tokens_emitted"]),
+        "tokens_per_s_wall": stats["tokens_emitted"] / wall,
+        "throughput_tok_s": stats["throughput_tok_s"],
+        "ttft_p50_ms": float(np.percentile(ttft, 50)),
+        "ttft_p99_ms": float(np.percentile(ttft, 99)),
+        "tpot_p50_ms": float(np.percentile(tpot, 50)),
+        "tpot_p99_ms": float(np.percentile(tpot, 99)),
+        "device_reads": eng.device_reads,
+        "device_reads_per_iteration": eng.device_reads / iters,
+        "requests_preempted": stats["requests_preempted"],
+        "preempted_token_recompute": stats["preempted_token_recompute"],
+        "kv_reserved_vs_written": stats["kv_reserved_vs_written"],
+        "cache_mib": eng._cache.nbytes / 2**20}}
+
+
+def _reference(model, prompt) -> tuple[list, list]:
+    """The ``Generator``'s greedy tokens for ``prompt`` (batch 1), by its own
+    loop (``sampler.prefill``, then ``decode_step`` a token, argmax), and
+    at each position the top-2 gap of its logits over the row's RMS."""
+    from distributed_training_tpu_torch.inference import sampler
+
+    with torch.no_grad():
+        p = torch.as_tensor(prompt, dtype=torch.long, device=model.pos_embed.device)[None]
+        logits, cache = sampler.prefill(model, p, SERVE_NEW)
+        rows = [logits[0, -1]]
+        for j in range(SERVE_NEW - 1):
+            rows.append(sampler.decode_step(model, rows[-1].argmax()[None], p.shape[1] + j,
+                                            cache)[0])
+        rows = torch.stack(rows).float()
+        top2 = rows.topk(2, dim=-1).values
+        gaps = (top2[:, 0] - top2[:, 1]) / rows.square().mean(-1).sqrt()
+        return rows.argmax(-1).tolist(), gaps.tolist()
+
+
+def _near_tie(model, prompt, ref, got) -> tuple[int, float]:
+    """The first position where ``got`` leaves ``ref`` and the top-2 gap of
+    the Generator's logits there over the row's RMS, its prefill and decode
+    steps teacher-forced on ``ref``'s tokens."""
+    from distributed_training_tpu_torch.inference import sampler
+
+    i = int(next(j for j in range(len(ref)) if ref[j] != got[j]))
+    device = model.pos_embed.device
+    with torch.no_grad():
+        p = torch.as_tensor(prompt, dtype=torch.long, device=device)[None]
+        logits, cache = sampler.prefill(model, p, len(ref))
+        row = logits[0, -1]
+        for j in range(i):
+            tok = torch.tensor([int(ref[j])], device=device)
+            row = sampler.decode_step(model, tok, p.shape[1] + j, cache)[0]
+        row = row.float()
+        top2 = row.topk(2).values
+        return i, float((top2[0] - top2[1]) / row.square().mean().sqrt())
+
+
+def _against(model, prompts: list, ref: dict, got: dict, uids, what: str,
+             gaps: dict | None = None) -> dict:
+    """Requests ``uids`` of ``got`` against ``ref`` (token lists by uid):
+    the count that differ, each one's first differing position and gap
+    (from ``gaps``, the reference's own, when given); a difference at a gap
+    at or above SERVE_GAP_TOL fails."""
+    differing = {}
+    for u in uids:
+        a, b = list(ref[u]), list(got[u])
+        if a != b:
+            i = next(j for j in range(len(a)) if a[j] != b[j])
+            differing[u] = ((i, gaps[u][i]) if gaps is not None
+                            else _near_tie(model, prompts[u], a, b))
+    decisive = {u: d for u, d in differing.items() if d[1] >= SERVE_GAP_TOL}
+    if decisive:
+        raise SystemExit(f"serve: {what}: requests whose tokens leave the reference at a "
+                         f"decisive position (index, gap / RMS): {decisive}")
+    return {"compared": len(list(uids)), "differing": len(differing),
+            "first_difference": {u: [i, round(g, 5)] for u, (i, g) in differing.items()}}
+
+
+def _gather_ms(eng) -> float:
+    """One layer's paged gather at the engine's shapes (every slot's whole
+    table view of K: [max_batch, pages_per_slot x page_size] rows of [H, hd]),
+    timed with CUDA events over 50 launches after 5."""
+    pool = eng._cache.keys[0]
+    b, n = eng.cfg.max_batch, eng.pages_per_slot
+    table = torch.randperm(eng.pool_pages, device=pool.device)[:b * n].view(b, n) + 1
+    gather = (table[:, :, None] * eng.page_size
+              + torch.arange(eng.page_size, device=pool.device)).reshape(b, -1)
+    for _ in range(5):
+        pool[gather]
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(50):
+        pool[gather]
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / 50
+
+
+def _serve_profile(model, prompts: list, cfg) -> dict:
+    """The paged engine in steady decoding (SERVE_BATCH requests seated,
+    prefills done): SERVE_PROFILED iterations timed on the host, as many
+    under ``torch.profiler`` (the card's busy share, the pool's gather and
+    scatter kernels' share of it), and the gather timed alone: its ms a
+    step (K and V, every layer) and share of the iteration."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from distributed_training_tpu_torch.serving import Engine
+
+    eng = Engine(model, cfg)
+    # Budgets that outlast the prefills (at most 8 chunks a prompt) and
+    # both windows.
+    for p in prompts[:SERVE_BATCH]:
+        eng.submit(p, max_new_tokens=SERVE_BATCH * 8 + 2 * SERVE_PROFILED + 8)
+    while any(q.prefilling for q in eng.scheduler.active()) or len(eng.queue):
+        eng.step()
+    t0 = time.perf_counter()
+    for _ in range(SERVE_PROFILED):
+        eng.step()  # each ends with its read of the sampled tokens
+    wall_ms = (time.perf_counter() - t0) * 1e3 / SERVE_PROFILED
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SERVE_PROFILED):
+            eng.step()
+        torch.cuda.synchronize()
+        prof_us = (time.perf_counter() - t0) * 1e6
+    if len(eng.scheduler.active()) != SERVE_BATCH:
+        raise SystemExit("serve: a request finished inside the timed windows")
+    gather_ms = _gather_ms(eng) * 2 * GPT_LAYERS
+    del eng
+    rows = _device_rows(prof)
+    busy = sum(r[0] for r in rows)
+    pool_us = sum(r[0] for r in rows if re.search(r"gather|index|scatter", r[1]))
+    # No device rows (a profiler that traces no kernels): not measured.
+    return {"iterations": SERVE_PROFILED, "wall_ms_per_iteration": wall_ms,
+            "profiled_wall_ms_per_iteration": prof_us / 1e3 / SERVE_PROFILED,
+            "device_busy_ms_per_iteration": busy / 1e3 / SERVE_PROFILED if busy else None,
+            "device_busy_share": busy / prof_us if busy else None,
+            "pool_kernels_share_of_busy": pool_us / busy if busy else None,
+            "gather_ms_per_step": gather_ms, "gather_share_of_iteration": gather_ms / wall_ms,
+            "top_device": [(round(us / 1e3, 4), key[:60], n) for us, key, n in rows[:8]]}
+
+
+def serve_phase() -> dict:
+    """The serving engine at GPT-2-small width (see SERVE_REQUESTS)."""
+    import numpy as np
+
+    from distributed_training_tpu_torch.config import ServeConfig
+    from distributed_training_tpu_torch.inference import Generator, SampleConfig
+    from distributed_training_tpu_torch.serving import Engine
+
+    t_phase = time.perf_counter()
+    model = _serve_model()
+    rng = np.random.RandomState(0)
+    lens = rng.randint(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1, SERVE_REQUESTS)
+    prompts = [rng.randint(0, SERVE_VOCAB, n).astype(np.int32) for n in lens]
+    base = dict(max_batch=SERVE_BATCH, max_new_tokens=SERVE_NEW, temperature=0.0)
+    paged_cfg = ServeConfig(**base)
+    legacy_cfg = ServeConfig(kv_page_size=None, **base)
+    # Warm-up (cuBLAS's choices, the allocator's growth) on both paths.
+    for cfg in (paged_cfg, legacy_cfg):
+        eng = Engine(model, cfg)
+        for p in prompts[:2]:
+            eng.submit(p, max_new_tokens=4)
+        eng.run()
+    del eng
+    runs = {"paged": _serve_run(model, prompts, paged_cfg),
+            "legacy": _serve_run(model, prompts, legacy_cfg)}
+    half = runs["paged"]["engine"].pool_pages // 2
+    low = SERVE_REQUESTS // 2
+    runs["two_tier"] = _serve_run(model, prompts, ServeConfig(
+        num_tiers=2, kv_pages=half, **base), low=low)
+    tiered = runs["two_tier"]
+    if not tiered["out"]["requests_preempted"]:
+        raise SystemExit(f"serve: the two-tier run preempted nothing: {tiered['out']}")
+    tokens = {n: {u: f.tokens.tolist() for u, f in r["done"].items()} for n, r in runs.items()}
+    preempted = [u for u, f in tiered["done"].items()
+                 if any(iv[0] == "preempt_requeue" for iv in f.ledger.intervals)]
+    if not preempted:
+        raise SystemExit("serve: no completion of the two-tier run shows a requeue")
+    for r in runs.values():
+        del r["engine"]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    reference, gaps = {}, {}
+    for u, p in enumerate(prompts):
+        reference[u], gaps[u] = _reference(model, p)
+    generator_s = time.perf_counter() - t0
+    # The loop is the Generator's: one request through the Generator itself.
+    if Generator(model, SampleConfig(max_new_tokens=SERVE_NEW, temperature=0.0))(
+            prompts[0])[0].tolist() != reference[0]:
+        raise SystemExit("serve: the reference loop is not the Generator's")
+    out = {"requests": SERVE_REQUESTS, "prompt_lens": lens.tolist(), "new": SERVE_NEW,
+           "runs": {n: r["out"] for n, r in runs.items()},
+           "preempted_uids": sorted(preempted),
+           "preempted_vs_uninterrupted": _against(
+               model, prompts, tokens["paged"], tokens["two_tier"], sorted(preempted),
+               "preempted vs uninterrupted",
+               # The reference's gaps hold where its tokens are the paged run's.
+               gaps if all(tokens["paged"][u] == reference[u] for u in preempted) else None),
+           "paged_vs_generator": _against(model, prompts, reference, tokens["paged"],
+                                          range(SERVE_REQUESTS), "paged vs Generator", gaps),
+           "legacy_vs_generator": _against(model, prompts, reference, tokens["legacy"],
+                                           range(SERVE_REQUESTS), "legacy vs Generator", gaps),
+           "generator_s": generator_s}
+    out["profile"] = _serve_profile(model, prompts, paged_cfg)
+    out["seconds"] = time.perf_counter() - t_phase
+    for n, r in out["runs"].items():
+        print(f"[serve] GPT-2-small bf16 {n}: {SERVE_REQUESTS} requests x {SERVE_NEW} tokens "
+              f"in {r['iterations']} iterations, {r['wall_s']:.3f} s: TTFT p50 "
+              f"{r['ttft_p50_ms']:.2f} / p99 {r['ttft_p99_ms']:.2f} ms, TPOT p50 "
+              f"{r['tpot_p50_ms']:.3f} / p99 {r['tpot_p99_ms']:.3f} ms, "
+              f"{r['tokens_per_s_wall']:.1f} tokens/s, {r['device_reads_per_iteration']:.4f} "
+              f"reads of the card an iteration, preempted {r['requests_preempted']}, "
+              f"cache {r['cache_mib']:.1f} MiB", flush=True)
+    prof = out["profile"]
+    print(f"[serve] differing from the reference (near ties, gap under {SERVE_GAP_TOL} of "
+          f"the RMS): preempted vs uninterrupted "
+          f"{out['preempted_vs_uninterrupted']['differing']} of {len(preempted)}, paged vs "
+          f"Generator {out['paged_vs_generator']['differing']} of {SERVE_REQUESTS}, legacy "
+          f"vs Generator {out['legacy_vs_generator']['differing']} of {SERVE_REQUESTS}; "
+          f"steady decode: {prof['wall_ms_per_iteration']:.3f} ms an iteration "
+          f"({prof['profiled_wall_ms_per_iteration']:.3f} profiled), device busy "
+          f"{prof['device_busy_ms_per_iteration']} ms, share {prof['device_busy_share']}, "
+          f"the pool's gather/scatter kernels a share {prof['pool_kernels_share_of_busy']} "
+          f"of it; the gather alone {prof['gather_ms_per_step']:.4f} ms a step, "
+          f"{100 * prof['gather_share_of_iteration']:.2f}% of the iteration; phase "
+          f"{out['seconds']:.1f} s", flush=True)
+    return out
+
+
 # Mesh part "resilience" (four cards): GPT-2-small through the GPT CLI's
 # trainer as DP 4 at global batch 16 (ZeRO 1), RES_MESH_EPOCHS epochs of
 # RES_STEPS steps, a flush every step. The straggler drill: a slow step of
@@ -4831,7 +5144,8 @@ def mesh_main(parts: list | None = None) -> int:
 
 def phase_main(names: list) -> int:
     """``--phase NAME ...``: the build, then only the named phases (ring,
-    moe_lm, moe_image, vit, pipeline, flight, trace, resilience, generate),
+    moe_lm, moe_image, vit, pipeline, flight, trace, resilience, generate,
+    serve),
     for a short check of one part on the card; prints their results and no
     result line."""
     from distributed_training_tpu_torch.ops import cuda_build
@@ -4840,7 +5154,7 @@ def phase_main(names: list) -> int:
               "moe_image": moe_image_phase, "vit": lambda d: vit_phase(),
               "pipeline": lambda d: pipeline_phase(), "flight": flight_phase,
               "trace": trace_phase, "resilience": resilience_phase,
-              "generate": generate_phase}
+              "generate": generate_phase, "serve": lambda d: serve_phase()}
     if not names or any(n not in phases for n in names):
         print(f"chip_smoke --phase: name one or more of {sorted(phases)}", file=sys.stderr)
         return 2
@@ -4898,6 +5212,7 @@ def main() -> int:
         traced = trace_phase(os.path.join(ckpt, "trace"))
         res = resilience_phase(os.path.join(ckpt, "resilience"))
         generated = generate_phase(os.path.join(ckpt, "generate"))
+        served = serve_phase()
     # The new phases' in-process runs: K1 once a step, K2/K3 once a layer a
     # step (the resilience phase's subprocesses count in their own process).
     late_launches = {**traced["launches"], **res["launches"], **generated["launches"]}
@@ -5013,7 +5328,8 @@ def main() -> int:
     print(json.dumps({"pipeline": pipe}))
     print(json.dumps({"flight": {k: v for k, v in flight.items() if k != "launches"}},
                      default=str))
-    for tag, phase in (("trace", traced), ("resilience", res), ("generate", generated)):
+    for tag, phase in (("trace", traced), ("resilience", res), ("generate", generated),
+                       ("serve", served)):
         print(json.dumps({tag: {k: v for k, v in phase.items() if k != "launches"}},
                          default=str))
     print(json.dumps({"kernels": kernels}))

@@ -5,12 +5,12 @@ Field names and defaults are the JAX package's, so a config written for
 one package means the same run in the other. The port keeps its own copy:
 importing anything of ``distributed_training_tpu`` would import JAX.
 
-Not carried over yet (see ROADMAP.md): ``ServeConfig``. Fields that
-exist but whose behaviour the port does not provide yet (in the image
-``Trainer`` the ``sequence`` and ``pipe`` mesh axes) raise
-``NotImplementedError`` there when set away from their defaults;
-``ChaosConfig.swap_error_rate`` is stored, and only the hot swap of the
-serving engine would read it, as in JAX.
+Fields whose behaviour the port does not provide yet raise
+``NotImplementedError`` naming ROADMAP.md when set away from their
+defaults: ``ServeConfig``'s prefix cache, speculation, weight
+quantization, int8 KV pages, journal, SLO rules and incident bundles
+(``serving/engine.py``). ``ChaosConfig.swap_error_rate`` is stored, and
+only the serving engine's hot swap would read it, as in JAX.
 """
 
 from __future__ import annotations
@@ -149,9 +149,9 @@ class DataConfig:
 @dataclasses.dataclass(frozen=True)
 class MeshSpec:
     """Logical mesh axis sizes; -1 infers from the device count
-    (``runtime/mesh.py``). The LM trainer runs ``data``, ``model``,
-    ``sequence``, ``expert`` and ``pipe``; the image trainer ``data``,
-    ``model`` and ``expert``; ``fsdp`` above 1 is refused."""
+    (``runtime/mesh.py``). Both trainers run every axis; the image
+    trainer splits its batch over ``data × fsdp`` and replicates its step
+    over ``sequence`` and ``pipe``, as JAX's does."""
 
     data: int = -1
     fsdp: int = 1
@@ -343,6 +343,197 @@ class ChaosConfig:
             slow_step_ms=args.chaos_slow_step_ms,
             slow_step_host=args.chaos_slow_step_host,
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeConfig:
+    """Continuous-batching serving engine knobs (``serving/``): JAX's
+    fields, defaults and validation.
+
+    Every shape is static: the paged engine runs one fused prefill-chunk
+    + decode step and one decode-only step for ``max_batch`` slots, the
+    legacy engine one bucketed prefill family and one decode step, and
+    any request mix is served without a new shape. The fields of the
+    prefix cache, speculation, weight quantization, int8 KV pages, the
+    journal and the SLO alerting are validated here as in JAX; the
+    ``Engine`` refuses them away from their defaults (see ROADMAP.md).
+    """
+
+    # Decode slots, refilled from the queue at iteration boundaries.
+    max_batch: int = 8
+    # Per-slot KV positions (prompt + generated); None = the model's max_len.
+    max_len: int | None = None
+    # Default completion budget per request (requests may ask for less).
+    max_new_tokens: int = 128
+    # Sampling transforms (sampler.py; 0 temperature = greedy).
+    temperature: float = 0.0
+    top_k: int | None = None
+    top_p: float | None = None
+    eos_id: int | None = None
+    pad_id: int = 0
+    # Paged KV cache: a pool of kv_page_size-token pages and a page table
+    # per slot; None = the legacy contiguous slot per sequence.
+    kv_page_size: int | None = 8
+    # Pool size in pages; None = max_batch x ceil(budget / kv_page_size).
+    # Fewer oversubscribe: admission then gates on committed pages.
+    kv_pages: int | None = None
+    # Chunked prefill (paged only): one chunk of this many prompt tokens
+    # rides each decode iteration in the fused step.
+    prefill_chunk: int = 64
+    # Legacy prefill: prompts pad up to a multiple of this (batch-1 prefill).
+    prefill_bucket: int = 64
+    # Flight-recorder ring (one entry per iteration) and flush cadence.
+    ring_size: int = 4096
+    flush_every: int = 32
+    seed: int = 0
+    # Bounded queue (QueueFullError past it; None = unbounded) and the
+    # per-request deadlines (finish reason "timeout"; None = off).
+    max_queue_depth: int | None = None
+    ttft_deadline_ms: float | None = None
+    deadline_ms: float | None = None
+    # Speculative decoding (refused by the port's Engine, ROADMAP.md A9 (b)).
+    spec_k: int = 0
+    spec_drafter: str = "ngram"
+    spec_ngram: int = 3
+    spec_draft_window: int = 16
+    # SLO tiers (0 = highest), the per-tenant seat quota, weighted-fair
+    # tenant shares, tier-0 headroom and lossless preempt-and-requeue.
+    num_tiers: int = 1
+    tenant_quota: int | None = None
+    tenant_weights: dict | None = None
+    tier_reserved_slots: int = 0
+    tier_reserved_pages: int = 0
+    preempt: bool = True
+    # The write-ahead request journal (refused, ROADMAP.md A9 (b)).
+    journal_dir: str | None = None
+    journal_fsync: str = "batch"
+    journal_segment_bytes: int = 1 << 20
+    # The radix-tree prefix cache (refused, ROADMAP.md A9 (b)).
+    prefix_cache: bool = False
+    prefix_cache_pages: int | None = None
+    # int8 weights and int8 KV pages (refused, ROADMAP.md A9 (b)).
+    quantize_weights: bool = False
+    kv_dtype: str | None = None
+    # The control room: the time-series ring's cadence and capacity (the
+    # engine samples it always); SLO rules and incident bundles (refused,
+    # ROADMAP.md A9 (c)).
+    sample_every: int = 16
+    timeseries_capacity: int = 1024
+    slo_rules: str | None = None
+    incident_dir: str | None = None
+
+    def __post_init__(self):
+        if self.max_batch < 1:
+            raise ValueError(f"max_batch must be >= 1, got {self.max_batch}")
+        if self.max_queue_depth is not None and self.max_queue_depth < 1:
+            raise ValueError(
+                f"max_queue_depth must be >= 1, got {self.max_queue_depth}")
+        for name in ("ttft_deadline_ms", "deadline_ms"):
+            v = getattr(self, name)
+            if v is not None and v <= 0:
+                raise ValueError(f"{name} must be > 0, got {v}")
+        if self.max_new_tokens < 1:
+            raise ValueError(
+                f"max_new_tokens must be >= 1, got {self.max_new_tokens}")
+        if self.prefill_bucket < 1:
+            raise ValueError(
+                f"prefill_bucket must be >= 1, got {self.prefill_bucket}")
+        if self.kv_page_size is not None and self.kv_page_size < 1:
+            raise ValueError(
+                f"kv_page_size must be >= 1 (or None for the legacy "
+                f"contiguous cache), got {self.kv_page_size}")
+        if self.kv_pages is not None:
+            if self.kv_page_size is None:
+                raise ValueError(
+                    "kv_pages requires kv_page_size (the legacy "
+                    "contiguous cache has no page pool)")
+            if self.kv_pages < 1:
+                raise ValueError(
+                    f"kv_pages must be >= 1, got {self.kv_pages}")
+        if self.prefill_chunk < 1:
+            raise ValueError(
+                f"prefill_chunk must be >= 1, got {self.prefill_chunk}")
+        if self.prefix_cache and self.kv_page_size is None:
+            raise ValueError(
+                "prefix_cache requires the paged KV cache (set "
+                "kv_page_size): the legacy contiguous slot reservation "
+                "has no pages to alias across requests")
+        if self.prefix_cache_pages is not None \
+                and self.prefix_cache_pages < 1:
+            raise ValueError(
+                f"prefix_cache_pages must be >= 1 (or None), "
+                f"got {self.prefix_cache_pages}")
+        if self.flush_every < 1:
+            raise ValueError(
+                f"flush_every must be >= 1, got {self.flush_every}")
+        if self.max_len is not None and self.max_len < 2:
+            raise ValueError(
+                f"max_len must be >= 2 (one prompt token + one generated), "
+                f"got {self.max_len}")
+        if self.spec_k < 0:
+            raise ValueError(
+                f"spec_k must be >= 0 (0 = speculation off), "
+                f"got {self.spec_k}")
+        if self.spec_drafter not in ("ngram", "gpt"):
+            raise ValueError(
+                f"spec_drafter must be 'ngram' or 'gpt', "
+                f"got {self.spec_drafter!r}")
+        if self.spec_ngram < 1:
+            raise ValueError(
+                f"spec_ngram must be >= 1, got {self.spec_ngram}")
+        if self.spec_draft_window < 1:
+            raise ValueError(
+                f"spec_draft_window must be >= 1, "
+                f"got {self.spec_draft_window}")
+        if self.num_tiers < 1:
+            raise ValueError(
+                f"num_tiers must be >= 1, got {self.num_tiers}")
+        if self.tenant_quota is not None and self.tenant_quota < 1:
+            raise ValueError(
+                f"tenant_quota must be >= 1, got {self.tenant_quota}")
+        if self.tenant_weights is not None:
+            for t, w in self.tenant_weights.items():
+                if not w > 0:
+                    raise ValueError(
+                        f"tenant weight must be > 0, got {t!r}: {w}")
+        if not 0 <= self.tier_reserved_slots < self.max_batch:
+            raise ValueError(
+                f"tier_reserved_slots must be in [0, max_batch-1] (a "
+                f"full reserve would starve every non-top tier), got "
+                f"{self.tier_reserved_slots} of {self.max_batch} slots")
+        if self.tier_reserved_pages < 0:
+            raise ValueError(
+                f"tier_reserved_pages must be >= 0, "
+                f"got {self.tier_reserved_pages}")
+        if self.journal_fsync not in ("none", "batch", "always"):
+            raise ValueError(
+                f"journal_fsync must be 'none', 'batch' or 'always', "
+                f"got {self.journal_fsync!r}")
+        if self.journal_segment_bytes < 4096:
+            raise ValueError(
+                f"journal_segment_bytes must be >= 4096 (a segment "
+                f"must hold more than one compaction header), got "
+                f"{self.journal_segment_bytes}")
+        if self.kv_dtype not in (None, "int8"):
+            raise ValueError(
+                f"kv_dtype must be None (model dtype) or 'int8', "
+                f"got {self.kv_dtype!r}")
+        if self.kv_dtype is not None and self.kv_page_size is None:
+            raise ValueError(
+                "kv_dtype requires the paged KV cache (set "
+                "kv_page_size): the legacy contiguous path keeps "
+                "full-precision slots")
+        if self.sample_every < 1:
+            raise ValueError(
+                f"sample_every must be >= 1, got {self.sample_every}")
+        if self.timeseries_capacity < 2:
+            raise ValueError(
+                f"timeseries_capacity must be >= 2, "
+                f"got {self.timeseries_capacity}")
+        if self.incident_dir is not None and self.slo_rules is None:
+            raise ValueError(
+                "incident_dir without slo_rules captures nothing: an "
+                "incident bundle is written when a rule fires")
 
 
 @dataclasses.dataclass(frozen=True)

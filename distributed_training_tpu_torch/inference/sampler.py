@@ -26,6 +26,17 @@ composed in that order. Randomness comes from an explicit
 its key), so repeated calls without one differ and a seeded call repeats.
 Only greedy decoding can match JAX token for token (their random streams
 differ).
+
+**Per-row draws** (:func:`sample_rows`, the serving engine's sampler):
+JAX's engine samples each row under ``fold_in(fold_in(seed, uid),
+position)``, so a request's tokens do not depend on the batch it shares,
+the page size or the prefill chunk. A ``torch.Generator`` draws a whole
+batch from one stream, which has no such property; here each row's
+uniform is a counter-based integer hash of its key (:func:`stream_key`
+of the seed and the request's uid, host-side, then :func:`row_keys`
+folds in the position on the device), and the token is the inverse-CDF
+pick over the row's filtered probabilities: static shapes, no host
+generator per row, the same row arithmetic whatever the batch.
 """
 
 from __future__ import annotations
@@ -96,6 +107,56 @@ def sample_token(generator: torch.Generator | None, logits: torch.Tensor,
         logits = apply_top_p(logits, cfg.top_p)
     probs = torch.softmax(logits, dim=-1)
     return torch.multinomial(probs, 1, generator=generator)[:, 0]
+
+
+_M32 = 0xFFFFFFFF
+
+
+def _mix32(h):
+    """A 32-bit integer finaliser (xor-shift, multiply) on a Python int or
+    a non-negative int64 tensor; each multiplier is below 2**31, so the
+    products of 32-bit values never leave int64."""
+    h = h ^ (h >> 16)
+    h = (h * 0x7FEB352D) & _M32
+    h = h ^ (h >> 15)
+    h = (h * 0x2C1B3C6D) & _M32
+    return h ^ (h >> 16)
+
+
+def stream_key(seed: int, uid: int) -> int:
+    """A request's sampling stream, keyed by the engine seed and its uid
+    (JAX's ``fold_in(seed_key, uid)``), as a host int below 2**32."""
+    return _mix32(_mix32((int(seed) & _M32) ^ 0x9E3779B9) ^ (int(uid) & _M32))
+
+
+def row_keys(streams: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """Each row's key: its stream with its position folded in (JAX's
+    ``fold_in(stream, position)``); long tensors of one shape."""
+    return _mix32(_mix32(streams ^ (positions & _M32)) ^ 0x85EBCA6B)
+
+
+def sample_rows(logits: torch.Tensor, keys: torch.Tensor,
+                cfg: SampleConfig) -> torch.Tensor:
+    """Next-token ids ``[N]`` from logits ``[N, V]`` per ``cfg``, row ``i``
+    drawn from ``keys[i]`` alone (:func:`row_keys`): the uniform
+    ``(key >> 8) / 2**24``, then the first token whose cumulative
+    probability exceeds it times the row's total. Greedy is ``argmax``."""
+    logits = logits.float()
+    if cfg.temperature == 0.0:
+        return logits.argmax(-1)
+    logits = logits / cfg.temperature
+    if cfg.top_k is not None:
+        logits = apply_top_k(logits, cfg.top_k)
+    if cfg.top_p is not None:
+        logits = apply_top_p(logits, cfg.top_p)
+    probs = torch.softmax(logits, dim=-1)
+    cdf = torch.cumsum(probs, dim=-1)
+    u = (keys >> 8).float() * (1.0 / (1 << 24)) * cdf[:, -1]
+    tok = torch.searchsorted(cdf, u[:, None], right=True)[:, 0]
+    # Rounding can put u at the total: take the last token with mass.
+    v = probs.shape[-1]
+    last = v - 1 - (probs > 0).flip(-1).int().argmax(-1)
+    return torch.minimum(tok, last)
 
 
 def check_unsharded(model: Any) -> None:

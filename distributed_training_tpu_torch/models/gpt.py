@@ -78,7 +78,17 @@ follow the Flax initialisers' distributions from a ``torch.Generator``
   rather than raising. MoE FFNs run position-wise over the call's tokens,
   the gate's capacity from their count, as in JAX. JAX's refusals and
   messages: no positions, ``cache_len`` above ``max_len``, a sequence
-  axis, ``kv_dtype`` without the paged cache.
+  axis, ``kv_dtype`` without the paged cache. A ``KVCache`` whose index is
+  a ``[B]`` tensor gives each row its own write head (the serving
+  engine's legacy slots); the call advances every head by its length.
+
+- **Paged decode** (``forward(..., cache=pool, pages=PagedKV(...))``,
+  JAX's ``pages=`` on the paged clone): the serving engine's default
+  cache. ``pool`` is a ``parallel.ring_attention.PagedCache`` from
+  :meth:`TransformerLM.init_paged_cache`; ``pages`` routes each row
+  through its page table, and ``positions`` must equal
+  ``pages.positions`` (the embedding and the pool read the same rows).
+  Nothing is advanced: the write heads are the caller's.
 """
 
 from __future__ import annotations
@@ -92,6 +102,8 @@ from torch import nn
 
 from distributed_training_tpu_torch.parallel.ring_attention import (
     KVCache,
+    PagedCache,
+    PagedKV,
     RingSelfAttention,
     lecun_normal_,
 )
@@ -228,12 +240,14 @@ class DecoderBlock(nn.Module):
             self.mlp = MlpBlock(hidden_dim, mlp_dim, dtype, generator)
 
     def forward(self, x: torch.Tensor, generator: torch.Generator | None = None,
-                cache: KVCache | None = None, layer: int = 0):
-        """``cache``: the decode path over the cache's layer ``layer``."""
+                cache: KVCache | PagedCache | None = None, layer: int = 0,
+                pages: PagedKV | None = None):
+        """``cache``: the decode path over the cache's layer ``layer``
+        (with ``pages``, the paged pool's)."""
         rate = self.dropout_rate if self.training else 0.0
         if rate and generator is None:
             raise ValueError("dropout in training needs the step's generator")
-        x = x + dropout(self.attn(self.ln1(x), cache, layer), rate, generator)
+        x = x + dropout(self.attn(self.ln1(x), cache, layer, pages), rate, generator)
         if hasattr(self, "moe_mlp"):
             y, aux = self.moe_mlp(self.ln2(x), self.training, generator)
         else:
@@ -371,6 +385,19 @@ class TransformerLM(nn.Module):
                              device=self.pos_embed.device if device is None else device,
                              kv_dtype=kv_dtype)
 
+    def init_paged_cache(self, kv_pages: int, kv_page_size: int, *, device=None,
+                         kv_dtype: str | None = None) -> PagedCache:
+        """An empty paged pool of ``kv_pages`` physical pages (the null page
+        0 included) of ``kv_page_size`` positions, in the compute dtype:
+        JAX's ``init_decode_cache`` on the paged clone."""
+        attn = self.block0.attn
+        _, _, heads, head_dim = attn.qkv.kernel.shape
+        return PagedCache.empty(layers=self.num_layers, kv_pages=kv_pages,
+                                page_size=kv_page_size, heads=heads, head_dim=head_dim,
+                                dtype=self.dtype,
+                                device=self.pos_embed.device if device is None else device,
+                                kv_dtype=kv_dtype)
+
     def _check_cache_len(self, cache_len: int) -> None:
         if cache_len > self.max_len:
             # Slots past max_len would decode at clamped positional rows.
@@ -382,19 +409,22 @@ class TransformerLM(nn.Module):
                 positions: torch.Tensor | None = None, *,
                 generator: torch.Generator | None = None,
                 return_hidden: bool = False, return_aux: bool = False,
-                cache: KVCache | None = None):
+                cache: KVCache | PagedCache | None = None,
+                pages: PagedKV | None = None):
         """Logits, or with ``return_hidden`` the final-norm hidden states
         ``[B, T, hidden]``; with ``return_aux`` also the MoE layers'
         summed load-balancing loss (a float32 0-d tensor, 0 without MoE).
         ``generator`` draws the dropout masks and the noisy gates' noise in
         training (needed when ``dropout_rate`` > 0). ``cache``: the decode
-        path (see the module docstring), which advances ``cache.index``."""
+        path (see the module docstring), which advances ``cache.index``;
+        with ``pages`` the paged pool's, which advances nothing."""
         if cache is not None:
             if positions is None:
                 raise ValueError(
                     "decode=True requires explicit positions (the pos-embed row "
                     "of each incoming token)")
-            self._check_cache_len(cache.cache_len)
+            if pages is None:
+                self._check_cache_len(cache.cache_len)
             # JAX's gather clamps a row past the table; the attention's
             # poison then marks the call.
             positions = positions.clamp(0, self.max_len - 1)
@@ -407,12 +437,12 @@ class TransformerLM(nn.Module):
         for i in range(self.num_layers):
             block = getattr(self, f"block{i}")
             if cache is not None:
-                x, a = block(x, generator, cache, i)
+                x, a = block(x, generator, cache, i, pages)
             else:
                 x, a = run_block(block, x, generator, remat)
             aux = aux + a
-        if cache is not None:
-            cache.index += tokens.shape[1]
+        if cache is not None and pages is None:
+            cache.index = cache.index + tokens.shape[1]
         out = final(self, x, return_hidden)
         return (out, aux) if return_aux else out
 

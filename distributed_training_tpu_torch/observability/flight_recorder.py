@@ -225,7 +225,7 @@ class FlightRecorder:
         if phase_totals:
             snap["wall_clock"] = self.goodput(phase_totals)
         if extra:
-            snap.update(extra)
+            snap |= extra
         return snap
 
     def dump(self, path: str, **snapshot_kwargs: Any) -> dict[str, Any]:

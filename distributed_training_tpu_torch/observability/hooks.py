@@ -273,10 +273,12 @@ class TrainObservability:
         extra sections, the flush-cached cross-rank summary and the notes
         on what a port dump leaves out. Host values only."""
         totals = self.clock.snapshot() if self.clock is not None else None
+        # Dicts merge with ``|=``, never ``.update``: the lint resolves a
+        # method call by its name alone, and ``update`` is the optimizer's.
         extra: dict = {}
         if self.extra_provider is not None:
             try:
-                extra.update(self.extra_provider())
+                extra |= self.extra_provider()
             except Exception as e:  # forensics must not mask the dump
                 self.printer(f"[observability] extra dump section failed: {e}")
         if self._gathered is not None:
@@ -295,7 +297,7 @@ class TrainObservability:
         snap: dict = {"reason": "scrape", "steps_recorded_total": 0}
         if totals:
             snap["wall_clock"] = FlightRecorder.goodput(totals)
-        snap.update(extra)
+        snap |= extra
         return snap
 
     def save_trace(self) -> str | None:

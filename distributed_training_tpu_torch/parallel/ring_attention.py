@@ -6,9 +6,9 @@ The port of ``distributed_training_tpu/parallel/ring_attention.py``:
 flash kernels K2/K3 with ``impl="flash"``) and over a bound
 ``axis_name``, the projections :class:`_QKVProj` and :class:`_OutProj`,
 :class:`RingSelfAttention`, and the dense KV-cache decode
-(:class:`KVCache`, :func:`decode_attend`: JAX's ``_decode_attend``). The
-paged decode of the serving engine (JAX's ``_paged_decode_attend``) comes
-with the serving port (ROADMAP.md, A9).
+(:class:`KVCache`, :func:`decode_attend`: JAX's ``_decode_attend``), and
+the serving engine's paged decode (:class:`PagedKV`, :class:`PagedCache`,
+:func:`paged_decode_attend`: JAX's ``_paged_decode_attend``).
 
 **Decode.** The cache is an explicit object the caller makes
 (``TransformerLM.init_cache``) and passes to each forward, which updates
@@ -19,7 +19,24 @@ the whole cache in float32 under the causal mask by global position, and
 NaN-poisons the whole call when it runs past the end (a clamped write
 would corrupt the history), as JAX does. The product is a plain one, as
 in JAX, where decode reaches no Pallas kernel; the index is a host int,
-so a decode step never reads the card.
+so a decode step never reads the card. The serving engine's legacy
+slots give each batch row its own write head (``index`` a ``[B]`` long
+tensor on the device: JAX ``vmap``s the one-sequence decode over the
+slots, so each has its own ``cache_index``): each row writes at its own
+head, is masked by its own positions and poisoned alone when it runs
+past the end.
+
+**Paged decode** (the serving engine's default cache): one flat pool per
+layer for K and one for V, ``[kv_pages * kv_page_size, H, hd]``, page 0
+the null page (:class:`PagedCache`), and per-call routing
+(:class:`PagedKV`: each row's page table, each token's position and
+validity). A token writes row ``table[b, pos // ps] * ps + pos % ps``,
+an invalid one the null page; each query row gathers its own table's
+pages into an ``[L, H, hd]`` view (``L = pages_per_slot * ps``) and
+attends with the causal mask by global position, the arithmetic of
+:func:`decode_attend`, NaN-poisoning a row whose position is past its
+table. The pools start zeroed: a masked score is 0 after the softmax,
+but 0 × NaN is not, so stale or unwritten rows must hold numbers.
 
 **Ring attention** (sequence parallelism): each rank holds one time
 chunk of q, k and v, ``[B, H, T_local, hd]``; K/V blocks travel the ring
@@ -58,6 +75,7 @@ from __future__ import annotations
 
 import functools
 import math
+from typing import NamedTuple
 
 import torch
 from torch import nn
@@ -77,18 +95,23 @@ from distributed_training_tpu_torch.runtime.mesh import ring_shift
 class KVCache:
     """The dense decode cache of a decoder stack: ``keys[i]`` and
     ``values[i]`` ``[B, cache_len, H, hd]`` for layer ``i``, and the write
-    index ``index`` (the number of positions written so far).
+    index ``index`` (the number of positions written so far): a host int
+    for the whole batch (``Generator``, ``BeamSearcher``), or a ``[B]``
+    long tensor, one write head a row (the serving engine's legacy slots).
+    The serving engine's default cache is the paged pool,
+    :class:`PagedCache`.
 
     ``kv_dtype`` is the paged pool's storage dtype in JAX, refused here
     with JAX's message: the contiguous cache stores the compute dtype."""
 
-    def __init__(self, keys: list, values: list, index: int = 0,
+    def __init__(self, keys: list, values: list, index: int | torch.Tensor = 0,
                  kv_dtype: str | None = None):
         if kv_dtype is not None:
             raise ValueError(
                 "kv_dtype requires the paged cache (kv_page_size set); "
                 "the legacy contiguous path keeps full-precision slots")
-        self.keys, self.values, self.index = list(keys), list(values), int(index)
+        self.keys, self.values = list(keys), list(values)
+        self.index = index if isinstance(index, torch.Tensor) else int(index)
 
     @classmethod
     def empty(cls, *, layers: int, batch: int, cache_len: int, heads: int,
@@ -121,7 +144,10 @@ def decode_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """JAX's ``_decode_attend`` on ``[B, T_in, H, hd]``: write ``k``/``v``
     into layer ``layer`` of ``cache`` at ``cache.index`` (the caller
     advances the index), attend ``q`` over the whole cache; returns ``[B,
-    T_in, H, hd]`` in ``v``'s dtype."""
+    T_in, H, hd]`` in ``v``'s dtype. A ``[B]`` tensor index is the
+    per-row form (:func:`_decode_attend_rows`)."""
+    if isinstance(cache.index, torch.Tensor):
+        return _decode_attend_rows(q, k, v, cache, layer)
     t_in, hd = q.shape[1], q.shape[-1]
     i0, length = cache.index, cache.cache_len
     # JAX's dynamic_update_slice clamps the start so the write fits; the
@@ -140,6 +166,119 @@ def decode_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         # Past the end: the clamped write corrupted history, so the whole
         # call is wrong, in-bounds rows too.
         s = torch.full_like(s, float("nan"))
+    p = torch.softmax(s, dim=-1).to(vh.dtype)
+    return torch.einsum("...qk,...kd->...qd", p, vh).transpose(1, 2)
+
+
+def _decode_attend_rows(q, k, v, cache: KVCache, layer: int) -> torch.Tensor:
+    """:func:`decode_attend` with one write head a row (``cache.index``
+    ``[B]`` on the device): JAX's ``vmap`` of the one-sequence decode over
+    the slots. Each row writes at its own head (clamped, as
+    ``dynamic_update_slice`` clamps) by an indexed copy, is masked by its
+    own positions and NaN-poisoned alone when it runs past the end."""
+    b, t_in, _, hd = q.shape
+    length = cache.cache_len
+    i0 = cache.index.to(q.device)
+    start = i0.clamp(0, length - t_in)
+    cols = start[:, None] + torch.arange(t_in, device=q.device)
+    rows = torch.arange(b, device=q.device)[:, None].expand(b, t_in)
+    cache.keys[layer][rows, cols] = k
+    cache.values[layer][rows, cols] = v
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, cache.keys[layer], cache.values[layer]))
+    s = torch.einsum("...qd,...kd->...qk", qh.float(), kh.float()) * _host_scale(hd, torch.float32)
+    qpos = i0[:, None] + torch.arange(t_in, device=q.device)          # [B, T_in]
+    kpos = torch.arange(length, device=q.device)
+    s = s.masked_fill(kpos[None, None, None, :] > qpos[:, None, :, None], float("-inf"))
+    s = s.masked_fill((i0 + t_in > length)[:, None, None, None], float("nan"))
+    p = torch.softmax(s, dim=-1).to(vh.dtype)
+    return torch.einsum("...qk,...kd->...qd", p, vh).transpose(1, 2)
+
+
+class PagedKV(NamedTuple):
+    """Per-call paged routing (JAX's ``PagedKV``): ``table`` long ``[B,
+    pages_per_slot]`` each row's logical → physical page map (unallocated
+    entries point at the null page 0), ``positions`` long ``[B, T_in]``
+    each incoming token's global position, ``valid`` bool ``[B, T_in]``
+    the tokens that exist (the others write the null page and their
+    outputs are discarded by the caller)."""
+
+    table: torch.Tensor
+    positions: torch.Tensor
+    valid: torch.Tensor
+
+
+class PagedCache:
+    """The paged KV pool of a decoder stack: per layer one flat K and one
+    flat V ``[kv_pages * page_size, H, hd]`` (``kv_pages`` counts the null
+    page 0), zero-filled. ``kv_dtype`` is JAX's pool storage dtype:
+    ``None`` (the compute dtype) is the only one ported; ``"int8"`` is the
+    serving features' part (ROADMAP.md A9 (b)); anything else is JAX's
+    ``ValueError``."""
+
+    def __init__(self, keys: list, values: list, page_size: int):
+        self.keys, self.values, self.page_size = list(keys), list(values), int(page_size)
+
+    @classmethod
+    def empty(cls, *, layers: int, kv_pages: int, page_size: int, heads: int,
+              head_dim: int, dtype: torch.dtype, device=None,
+              kv_dtype: str | None = None) -> "PagedCache":
+        check_kv_dtype(kv_dtype)
+        if kv_pages < 2 or page_size < 1:
+            raise ValueError(f"a paged pool needs the null page and one more "
+                             f"(kv_pages={kv_pages}) of page_size >= 1 "
+                             f"(page_size={page_size})")
+        shape = (kv_pages * page_size, heads, head_dim)
+        return cls([torch.zeros(shape, dtype=dtype, device=device) for _ in range(layers)],
+                   [torch.zeros(shape, dtype=dtype, device=device) for _ in range(layers)],
+                   page_size)
+
+    @property
+    def kv_pages(self) -> int:
+        return self.keys[0].shape[0] // self.page_size
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in (*self.keys, *self.values))
+
+
+def check_kv_dtype(kv_dtype: str | None) -> None:
+    """JAX's pool dtypes: None ported, "int8" not yet, others refused."""
+    if kv_dtype == "int8":
+        raise NotImplementedError(
+            "kv_dtype='int8' (int8 KV pages with per-row scales) is not "
+            "ported yet (see ROADMAP.md, A9 (b))")
+    if kv_dtype is not None:
+        raise ValueError(f"kv_dtype must be None or 'int8', got {kv_dtype!r}")
+
+
+def paged_decode_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        cache: PagedCache, layer: int, pages: PagedKV) -> torch.Tensor:
+    """JAX's ``_paged_decode_attend`` on ``[B, T_in, H, hd]``: scatter this
+    call's K/V into layer ``layer``'s pool through ``pages``, then attend
+    each query row over its own table's gathered view (see the module
+    docstring); returns ``[B, T_in, H, hd]`` in ``v``'s dtype."""
+    b, t_in, _, hd = q.shape
+    ps = cache.page_size
+    table, positions, valid = pages
+    n_pages = table.shape[1]
+    # JAX's take_along_axis clamps a logical page past the table; that
+    # row is poisoned below.
+    logical = (positions // ps).clamp(max=n_pages - 1)
+    phys = table.gather(1, logical) * ps + positions % ps
+    # Invalid tokens all write the null page (row < ps): the only place
+    # repeated indices land, whose order does not matter.
+    write = torch.where(valid, phys, torch.zeros_like(phys)).reshape(-1)
+    kp, vp = cache.keys[layer], cache.values[layer]
+    kp[write] = k.reshape(b * t_in, *k.shape[2:]).to(kp.dtype)
+    vp[write] = v.reshape(b * t_in, *v.shape[2:]).to(vp.dtype)
+    l_all = n_pages * ps
+    gather = (table[:, :, None] * ps + torch.arange(ps, device=table.device)).reshape(b, l_all)
+    kg, vg = kp[gather], vp[gather]                                   # [B, L, H, hd]
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, kg, vg))
+    s = torch.einsum("...qd,...kd->...qk", qh.float(), kh.float()) * _host_scale(hd, torch.float32)
+    kpos = torch.arange(l_all, device=q.device)
+    s = s.masked_fill(kpos[None, None, None, :] > positions[:, None, :, None], float("-inf"))
+    s = s.masked_fill((positions >= l_all)[:, None, :, None], float("nan"))
     p = torch.softmax(s, dim=-1).to(vh.dtype)
     return torch.einsum("...qk,...kd->...qd", p, vh).transpose(1, 2)
 
@@ -422,10 +561,11 @@ class RingSelfAttention(nn.Module):
         self.qkv = _QKVProj(hidden_dim, num_heads, head_dim, dtype, generator)
         self.out = _OutProj(num_heads, head_dim, hidden_dim, dtype, generator)
 
-    def forward(self, x: torch.Tensor, cache: KVCache | None = None,
-                layer: int = 0) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, cache: KVCache | PagedCache | None = None,
+                layer: int = 0, pages: PagedKV | None = None) -> torch.Tensor:
         """With ``cache`` the decode path over its layer ``layer`` (see the
-        module docstring), with JAX's refusals."""
+        module docstring): the dense cache, or with ``pages`` the paged
+        pool; JAX's refusals."""
         q, k, v = self.qkv(x)
         if cache is not None:
             if self.axis_name is not None:
@@ -435,7 +575,12 @@ class RingSelfAttention(nn.Module):
             if not self.causal:
                 raise ValueError("decode=True only makes sense for causal attention")
             # The cache keeps [B, T, H, hd]; the projections give [B, H, T, hd].
-            out = decode_attend(*(t.transpose(1, 2) for t in (q, k, v)), cache, layer)
+            qkv = [t.transpose(1, 2) for t in (q, k, v)]
+            if isinstance(cache, PagedCache) != (pages is not None):
+                raise ValueError("a paged pool decodes with pages= (PagedKV) "
+                                 "and only a paged pool takes it")
+            out = (paged_decode_attend(*qkv, cache, layer, pages) if pages is not None
+                   else decode_attend(*qkv, cache, layer))
             return self.out(out.transpose(1, 2))
         out = ring_attention(q, k, v, axis_name=self.axis_name, causal=self.causal,
                              impl=self.attn_impl, mesh=self.mesh)

@@ -341,7 +341,7 @@ def _lm_metrics(state: TrainState, ce, aux, accuracy, finite: bool) -> dict:
         "accuracy": accuracy,
         "perplexity": torch.exp(ce).float(),
         "loss_scale": state.loss_scale.scale,
-        "grads_finite": float(finite),
+        "grads_finite": 1.0 if finite else 0.0,
     }
     if accuracy is None:
         del out["accuracy"]

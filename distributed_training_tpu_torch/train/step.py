@@ -205,7 +205,7 @@ def make_train_step(*, zero_stage: int = 0, grad_accum_steps: int = 1,
             "loss": loss,
             "accuracy": acc,
             "loss_scale": state.loss_scale.scale,
-            "grads_finite": float(finite),
+            "grads_finite": 1.0 if finite else 0.0,
         }
         if grad_norm_metric:
             metrics["grad_norm"] = global_norm(list(grads.values()), zero, names)

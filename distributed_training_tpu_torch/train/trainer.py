@@ -82,6 +82,12 @@ over the data group, the batch is ``batch_size`` a rank over every rank
 (the JAX Trainer's per-chip rule) split over the data axis, and ZeRO runs
 over the data group. ``moe.enabled`` on another model raises, as in JAX.
 
+The image models run on no ``sequence`` or ``pipe`` axis of their own:
+as in JAX, whose ``Trainer`` builds its mesh from every ``MeshSpec`` axis
+and shards the batch over ``data × fsdp`` alone, the step is replicated
+over them (the ranks of a ``(data, fsdp)`` index train on the same rows
+and keep the same state).
+
 The ``vit_*`` models (``models/vit.py``) take a ``model`` axis: megatron
 tensor parallelism by the rule table (``parallel/tensor_parallel.py``),
 the batch split over the data axis only, ZeRO over the data group, and
@@ -179,8 +185,6 @@ def unported_fields(cfg: TrainConfig) -> dict[str, bool]:
     mesh = cfg.mesh
     moe = cfg.model.startswith("moe")
     return {
-        "mesh axes other than data, fsdp, model and expert (sequence, pipe)": any(
-            getattr(mesh, a) != 1 for a in ("sequence", "pipe")),
         "an expert axis on a model without MoE layers": mesh.expert != 1 and not moe,
     }
 
@@ -507,10 +511,15 @@ class Trainer(Engine):
         self._shard = dict(process_index=self.coord.process_index,
                            process_count=self.coord.process_count)
         self._train_shard = self._shard
-        if cfg.model.startswith("moe") or cfg.mesh.model != 1 or cfg.mesh.fsdp != 1:
+        if cfg.model.startswith("moe") or any(
+                getattr(cfg.mesh, a) != 1 for a in ("model", "fsdp", "sequence", "pipe")):
             # Ranks that are not all data ranks: the expert axis of the MoE
-            # models, the model axis of ViT (checked below), the fsdp axis.
-            # The batch splits over data × fsdp (JAX's batch_sharding).
+            # models, the model axis of ViT (checked below), the fsdp axis,
+            # and the sequence and pipe axes, over which the step is
+            # replicated. The batch splits over data × fsdp alone (JAX's
+            # batch_sharding); the pipe ranks reduce within their own
+            # data × fsdp × sequence group, the sequence ranks' identical
+            # gradients average to the same mean.
             self.mesh = Mesh(cfg.mesh)
             group = self.mesh.group(AXIS_DATA, AXIS_FSDP, AXIS_SEQUENCE)
             fsdp = self.mesh.group(AXIS_FSDP)

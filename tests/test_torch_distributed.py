@@ -348,15 +348,15 @@ def test_coordinator_over_two_ranks(runs):
 
 def test_world_size_resolves_the_data_axis():
     """``MeshSpec.data`` is -1 (the world size) or the world size, and the
-    replica count is ``data × fsdp``; the sequence and pipe axes stay
-    refused by the Trainer, and an fsdp axis of 2 is a mesh one process
-    cannot hold (multi-rank in test_torch_fsdp.py)."""
+    replica count is ``data × fsdp``; a sequence or an fsdp axis of 2 is a
+    mesh one process cannot hold (multi-rank in test_torch_trainer_axes.py
+    and test_torch_fsdp.py)."""
     assert resolve_data_axis(MeshSpec(), 4) == 4
     assert resolve_data_axis(MeshSpec(data=2), 2) == 2
     assert resolve_data_axis(MeshSpec(data=-1, fsdp=2), 4) == 4
     with pytest.raises(ValueError, match="world size"):
         resolve_data_axis(MeshSpec(data=2), 1)
-    with pytest.raises(NotImplementedError, match="mesh axes other than data"):
+    with pytest.raises(ValueError, match="not divisible by fixed axes product 2"):
         Trainer(_ckpt_cfg("unused", 8, 1).replace(mesh=MeshSpec(sequence=2)), device="cpu")
     with pytest.raises(ValueError, match="not divisible by fixed axes product 2"):
         Trainer(_ckpt_cfg("unused", 8, 1).replace(mesh=MeshSpec(fsdp=2)), device="cpu")

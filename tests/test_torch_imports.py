@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``distributed_training_tpu_torch``
-and no line of ``chip_smoke.py`` or of the two CLIs
-(``resnet/torch_cuda/train.py``, ``gpt/torch_cuda/train.py``) imports JAX,
+(``serving/`` included) and no line of ``chip_smoke.py`` or of the CLIs
+(``resnet/torch_cuda/train.py``, ``gpt/torch_cuda/train.py``,
+``gpt/torch_cuda/serve.py``) imports JAX,
 Flax, optax, orbax or the JAX package; and the entry points refuse to run
 on the CPU unless asked."""
 
@@ -28,6 +29,7 @@ def _port_files():
     yield os.path.join(REPO, "chip_smoke.py")
     yield os.path.join(REPO, "resnet", "torch_cuda", "train.py")
     yield os.path.join(REPO, "gpt", "torch_cuda", "train.py")
+    yield os.path.join(REPO, "gpt", "torch_cuda", "serve.py")
 
 
 def _imported(path):
@@ -76,7 +78,9 @@ def test_every_module_imports_with_jax_blocked():
                 "utils.profiling", "runtime.preemption", "resilience",
                 "resilience.async_ckpt", "ops.native", "ops.native.native",
                 "data.imagefolder", "data.decoded_cache", "data.prefetch",
-                "resilience.retry"):
+                "resilience.retry", "serving", "serving.engine", "serving.queue",
+                "serving.scheduler", "serving.pages", "serving.request",
+                "serving.ledger", "serving.metrics", "serving.timeseries"):
         assert f"distributed_training_tpu_torch.{new}" in mods
 
 
@@ -95,6 +99,31 @@ def test_the_clis_import_with_jax_blocked():
         "assert not any(k.split('.')[0] in %r for k, v in sys.modules.items() if v is not None)\n"
     ) % (FORBIDDEN, [os.path.join(REPO, d, "torch_cuda", "train.py") for d in ("resnet", "gpt")],
          FORBIDDEN)
+    r = subprocess.run([sys.executable, "-c", code], env=dict(os.environ, PYTHONPATH=REPO),
+                       cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+
+
+def test_serve_cli_imports_with_jax_blocked():
+    """``gpt/torch_cuda/serve.py`` loads and parses its defaults (the card
+    as the device), and refuses an unported flag before building anything,
+    in a process where importing JAX or the JAX package fails."""
+    code = (
+        "import sys, importlib.util\n"
+        "for name in %r: sys.modules[name] = None\n"
+        "spec = importlib.util.spec_from_file_location('serve', %r)\n"
+        "m = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(m)\n"
+        "assert m.build_parser().parse_args([]).device == 'cuda'\n"
+        "try:\n"
+        "    m.main(['--spec-k', '1'])\n"
+        "except NotImplementedError as e:\n"
+        "    assert 'ROADMAP.md' in str(e)\n"
+        "else:\n"
+        "    raise AssertionError('--spec-k was not refused')\n"
+        "import distributed_training_tpu_torch.serving\n"
+        "assert not any(k.split('.')[0] in %r for k, v in sys.modules.items() if v is not None)\n"
+    ) % (FORBIDDEN, os.path.join(REPO, "gpt", "torch_cuda", "serve.py"), FORBIDDEN)
     r = subprocess.run([sys.executable, "-c", code], env=dict(os.environ, PYTHONPATH=REPO),
                        cwd=REPO, capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr

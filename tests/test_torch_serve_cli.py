@@ -1,0 +1,151 @@
+"""``gpt/torch_cuda/serve.py``, the port of ``gpt/jax_tpu/serve.py``, on
+the CPU (``--device cpu``) over a checkpoint the port's GPT CLI wrote:
+the completions in submission order (greedy, each equal to the port's
+``Generator`` on the restored model), ``--json``, ``--ledger-out``,
+``--flight-dump`` through the port's ``flight_report``, the SIGTERM
+drain in a subprocess, the refused flags, and no CPU fallback without
+``--device cpu``.
+"""
+
+import importlib.util
+import json
+import os
+import signal
+import subprocess
+import sys
+import time
+
+import numpy as np
+import pytest
+import torch
+
+from distributed_training_tpu_torch.inference import Generator, SampleConfig
+from distributed_training_tpu_torch.inference import restore as restore_lib
+from distributed_training_tpu_torch.tools import flight_report
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SERVE = os.path.join(ROOT, "gpt", "torch_cuda", "serve.py")
+MODEL = ["--num-layers", "1", "--num-heads", "2", "--hidden-dim", "16",
+         "--model-max-len", "64"]
+PROMPTS = ["ab", "cdef", "", "xy"]
+
+
+def _load(path, name):
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.fixture(scope="module")
+def ckpt(tmp_path_factory):
+    """One epoch of the port's GPT CLI at the serve flags' model."""
+    d = tmp_path_factory.mktemp("serve_ck")
+    cli = _load(os.path.join(ROOT, "gpt", "torch_cuda", "train.py"), "port_gpt_cli_serve")
+    cli.main(["--device", "cpu", "-e", "1", "--steps-per-epoch", "2", "-b", "2",
+              "--seq-len", "8", "--num-layers", "1", "--num-heads", "2", "--hidden-dim", "16",
+              "--max-len", "64", "--log-interval", "1", "-i", "1", "--no-flight-recorder",
+              "-c", str(d / "ck")])
+    return str(d / "ck")
+
+
+@pytest.fixture(scope="module")
+def serve_cli():
+    return _load(SERVE, "port_serve_cli")
+
+
+@pytest.fixture(scope="module")
+def served(ckpt, serve_cli, tmp_path_factory):
+    d = tmp_path_factory.mktemp("served")
+    pfile = d / "prompts.txt"
+    pfile.write_text("".join(p + "\n" for p in PROMPTS))
+    out = {"ledger": str(d / "ledger.json"), "flight": str(d / "flight.json")}
+    import contextlib
+    import io
+
+    stdout, stderr = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(stdout), contextlib.redirect_stderr(stderr):
+        rc = serve_cli.main(["--device", "cpu", "-c", ckpt, "--prompts-file", str(pfile),
+                             *MODEL, "--max-new-tokens", "5", "--max-batch", "2",
+                             "--prefill-chunk", "4", "--json",
+                             "--ledger-out", out["ledger"], "--flight-dump", out["flight"]])
+    out.update(rc=rc, stdout=stdout.getvalue(), stderr=stderr.getvalue())
+    return out
+
+
+def test_completions_in_submission_order_equal_the_generator(served, ckpt):
+    assert served["rc"] == 0
+    assert "restored epoch 0" in served["stderr"]
+    lines = [ln for ln in served["stdout"].splitlines() if ln.startswith("[serve] #")]
+    assert [ln.split()[1] for ln in lines] == ["#0", "#1", "#2"]
+    model, _ = restore_lib.build_lm_and_restore(
+        vocab_size=256, num_layers=1, num_heads=2, hidden_dim=16, max_len=64,
+        checkpoint=ckpt, device="cpu", printer=lambda m: None)
+    gen = Generator(model, SampleConfig(max_new_tokens=5, temperature=0.0))
+    for ln, text in zip(lines, [p for p in PROMPTS if p]):
+        want = gen(np.frombuffer(text.encode(), np.uint8).astype(np.int64))[0]
+        completion = bytes(int(t) % 256 for t in want).decode("utf-8", errors="replace")
+        assert ln.endswith(f"{text!r} -> {completion!r}"), ln
+
+
+def test_json_line_is_the_stats(served):
+    stats = json.loads([ln for ln in served["stdout"].splitlines() if ln.strip()][-1])
+    assert stats["requests_finished"] == 3 and stats["tokens_emitted"] == 15
+    assert stats["drained"] is True and stats["throughput_tok_s"] > 0
+    assert stats["alerts_fired"] == 0 and stats["ledger_conservation_violations"] == 0
+
+
+def test_ledger_out_and_flight_dump(served):
+    rows = json.load(open(served["ledger"]))
+    assert [r["uid"] for r in rows] == [0, 1, 2]
+    assert all(r["ledger"]["conserved"] for r in rows)
+    snap = json.load(open(served["flight"]))
+    text = flight_report.render(flight_report.summarize(snap))
+    assert "serving: 3 requests" in text and "latency ledger" in text
+
+
+def test_sigterm_drains_and_writes_a_valid_dump(ckpt, tmp_path):
+    pfile = tmp_path / "prompts.txt"
+    pfile.write_text("".join(f"prompt {i}\n" for i in range(48)))
+    dump = tmp_path / "drain_flight.json"
+    err_path = tmp_path / "serve.stderr"
+    env = {**os.environ, "PYTHONPATH": ROOT, "OMP_NUM_THREADS": "1"}
+    with open(err_path, "w") as errfh:
+        proc = subprocess.Popen(
+            [sys.executable, SERVE, "--device", "cpu", "-c", ckpt,
+             "--prompts-file", str(pfile), *MODEL, "--max-new-tokens", "48",
+             "--max-batch", "2", "--json", "--flight-dump", str(dump)],
+            stdout=subprocess.PIPE, stderr=errfh, text=True, env=env)
+        deadline = time.time() + 120
+        while "engine ready" not in open(err_path).read():
+            assert proc.poll() is None, open(err_path).read()[-2000:]
+            assert time.time() < deadline, "serve.py never reported ready"
+            time.sleep(0.05)
+        proc.send_signal(signal.SIGTERM)
+        out, _ = proc.communicate(timeout=120)
+    err = open(err_path).read()
+    assert proc.returncode == 0, err[-2000:]
+    assert "SIGTERM: drained" in err
+    stats = json.loads([ln for ln in out.splitlines() if ln.strip()][-1])
+    assert stats["drained"] is True
+    assert stats["requests_finished"] + stats["requests_drain_rejected"] == 48
+    snap = json.load(open(dump))
+    assert snap["serving"]["drained"] is True
+
+
+REFUSED = [["--prefix-cache"], ["--spec-k", "2"], ["--quantize-weights"],
+           ["--kv-dtype", "int8"], ["--journal-dir", "j"], ["--watch-ckpt-dir", "w"],
+           ["--slo-rules", "default"], ["--incident-dir", "i"], ["--metrics-port", "0"]]
+
+
+@pytest.mark.parametrize("flag", REFUSED, ids=[f[0] for f in REFUSED])
+def test_refused_flag_raises(serve_cli, flag):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        serve_cli.main(["--device", "cpu", *flag])
+
+
+def test_no_cpu_fallback_without_a_card(serve_cli, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve_cli.main(["-c", str(tmp_path / "none"), *MODEL])

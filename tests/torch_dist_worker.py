@@ -3,8 +3,8 @@
 ``tests/test_torch_lm_distributed.py`` (:func:`run_lm`, the LM step and
 ``LMTrainer``) and the sequence- and tensor-parallel tests
 (:func:`run_named`: ring attention, the LM step on a mesh, the pipeline
-step, checkpoints, ``LMTrainer``, the GPT CLI) hold against the JAX
-package.
+step, checkpoints, ``LMTrainer``, the GPT CLI, the image ``Trainer``'s
+``fit``) hold against the JAX package.
 
 Started by the tests in ``spawn``ed processes (two or four ranks, gloo on
 the CPU): it imports torch and the port only, never JAX. It reads
@@ -488,6 +488,34 @@ def _trainer_steps(job, rank, world, group):
 
             ckpt_lib.save_checkpoint(os.path.join(job["dir"], name), 0, t.state)
     return {"trainer_steps": out}
+
+
+def _trainer_fit(job, rank, world, group):
+    """Each config of ``job["trainer_fit"]``: the image ``Trainer`` built
+    as a user builds it, its model loaded from the whole initial weights,
+    then ``fit()``; every train step's metrics (read on the host) and
+    what ``fit()`` returns."""
+    from distributed_training_tpu_torch import Trainer
+
+    out = {}
+    for name, sc in job["trainer_fit"].items():
+        t = Trainer(sc["cfg"], device="cpu")
+        sd = t.state.state_dict()
+        sd["model"] = {**sd["model"], **sc["weights"]}
+        t.state.load_state_dict(sd)
+        steps, inner = [], t.train_step
+
+        def recorded(state, batch, _inner=inner, _steps=steps):
+            metrics = _inner(state, batch)
+            _steps.append({k: float(v) for k, v in metrics.items()})
+            return metrics
+
+        t.train_step = recorded
+        result = t.fit()
+        out[name] = {"metrics": steps, "result": result,
+                     "mesh": None if t.mesh is None else dict(t.mesh.sizes),
+                     "model": t.state.state_dict()["model"]}
+    return {"trainer_fit": out}
 
 
 def _vit_ring(job, rank, world, group):
