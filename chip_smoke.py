@@ -166,6 +166,17 @@ Phases, in order; any failure exits non-zero and prints no result line:
    Generator tokens (a difference only at a near tie); TTFT, TPOT,
    tokens/s, reads of the card an iteration, the busy share (see
    SERVE_REQUESTS);
+7d9. serve-features phase: the same model, paged: the prefix cache on
+   against off over requests sharing a 256-token system prompt,
+   speculative decoding (n-gram and GPT self-drafter) against spec_k 0,
+   int8 weights against the dequantized set, int8 KV pages against the
+   bf16 pool (bytes a token and the first differences' gaps within their
+   bounds), the journal crashed mid-run and recovered in a new engine
+   (every request once), the hot swap of a committed epoch 2 armed by
+   ``HotSwapper.poll_once`` mid-run and rolled back; tokens under the
+   near-tie gate; prefill positions saved, TTFT, acceptance, tokens a
+   dispatch, tokens/s, weight and pool bytes, recovery time, recomputed
+   tokens, ``swap_blocked_s`` (see FEAT_PAGE);
 7e. d-256 phase: K2–K4 at head dims 256 and 160 (padded to 256), and at
    257, 320, 384 and 512 (768 in bf16; the d > 256 kernels, d padded to a
    multiple of 64), in float32, bf16 and fp16, T 100 and 384, causal and
@@ -258,7 +269,7 @@ runs only those parts.
 
 ``python3 chip_smoke.py --phase NAME ...`` runs the build and only the
 named phases (ring, moe_lm, moe_image, vit, pipeline, flight, trace,
-resilience, generate), without a result line.
+resilience, generate, serve, serve_features), without a result line.
 """
 
 from __future__ import annotations
@@ -2613,13 +2624,13 @@ SERVE_PROFILED = 24
 SERVE_GAP_TOL = GEN_ROW_TOL
 
 
-def _serve_model():
+def _serve_model(seed: int = 0):
     from distributed_training_tpu_torch.models import get_model
 
     return get_model("transformer_lm", num_classes=SERVE_VOCAB, num_layers=GPT_LAYERS,
                      num_heads=GPT_H, hidden_dim=GPT_H * GPT_D, max_len=GPT_T,
                      dtype=torch.bfloat16, logits_dtype=torch.bfloat16,
-                     generator=torch.Generator().manual_seed(0)).cuda().eval()
+                     generator=torch.Generator().manual_seed(seed)).cuda().eval()
 
 
 def _serve_run(model, prompts: list, cfg, *, low: int = 0) -> dict:
@@ -2885,6 +2896,289 @@ def serve_phase() -> dict:
           f"of it; the gather alone {prof['gather_ms_per_step']:.4f} ms a step, "
           f"{100 * prof['gather_share_of_iteration']:.2f}% of the iteration; phase "
           f"{out['seconds']:.1f} s", flush=True)
+    return out
+
+
+# The serve-features phase: the serving features (serving/prefix_cache.py,
+# speculative.py, quantize.py, journal.py, hotswap.py) on the serve phase's
+# model (GPT-2-small, bf16, seeded random weights), paged with
+# SERVE_BATCH slots and pages of FEAT_PAGE, SERVE_NEW greedy tokens a
+# request. Every run must finish each request with its SERVE_NEW tokens and
+# drain the pool balanced; every comparison of tokens holds them under the
+# serve phase's near-tie gate (a difference only where the reference's
+# top-2 gap is under SERVE_GAP_TOL of the row's RMS), except int8 KV's:
+# - prefix cache: FEAT_REQUESTS requests sharing a FEAT_SYSTEM-token system
+#   prompt with tails drawn in FEAT_TAIL, the first served alone (it
+#   leaves the prompt in the trie), then the rest; the cache on against
+#   off: the prefill positions saved and the TTFT p50 of the rest;
+# - speculative decoding: FEAT_SPEC requests at spec_k FEAT_K with the
+#   n-gram drafter and with the GPT self-drafter against spec_k 0: the
+#   acceptance rate, tokens landed a dispatch and tokens/s;
+# - int8 weights: the quantizing engine against an engine on the
+#   dequantized set (bf16), the dequant-at-use path; the weight bytes;
+# - int8 KV: against the bf16 pool: the pool bytes a token (within
+#   FEAT_KV8_BYTES of bf16's), the share of requests whose tokens differ
+#   and each first difference's gap, which must be under FEAT_KV8_GAP_TOL;
+# - the journal: a run crashed (journal.crash()) after FEAT_CRASH_AT
+#   iterations and a new engine's recover(): every request completed once,
+#   the tokens of the uninterrupted run; the recovery time and
+#   tokens_recomputed_on_recovery;
+# - the hot swap: two seeded weight sets committed as epochs 1 and 2 in a
+#   directory (a params file, the manifest and the COMMITTED marker),
+#   HotSwapper.poll_once arms epoch 2 after FEAT_SWAP_AT iterations, and
+#   FEAT_SPEC requests admitted after the barrier against a fresh engine on
+#   epoch 2's weights; rollback() re-arms epoch 1's own tensors;
+#   swap_blocked_s.
+FEAT_PAGE = 8
+FEAT_SYSTEM, FEAT_TAIL, FEAT_REQUESTS = 256, (16, 128), 16
+FEAT_SPEC, FEAT_K = 8, 4
+FEAT_KV8_BYTES = (0.53, 0.54)   # (1 + 4/64) / 2 = 0.53125 at head dim 64
+FEAT_KV8_GAP_TOL = 0.5
+FEAT_CRASH_AT, FEAT_SWAP_AT = 40, 24
+
+
+def _feat_run(model, prompts: list, cfg, *, warm: int = 0) -> dict:
+    """Serve ``prompts`` (the first ``warm`` to completion first) through
+    one engine; the engine, tokens by uid, stats, wall seconds and the
+    TTFT p50 of the requests after the warm ones."""
+    import numpy as np
+
+    from distributed_training_tpu_torch.serving import Engine
+
+    eng = Engine(model, cfg)
+    done = {}
+    for p in prompts[:warm]:
+        eng.submit(p)
+    done |= {f.uid: f for f in eng.run()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for p in prompts[warm:]:
+        eng.submit(p)
+    done |= {f.uid: f for f in eng.run()}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    short = {u: (f.finish_reason, int(f.tokens.size)) for u, f in done.items()
+             if f.tokens.size != SERVE_NEW}
+    if len(done) != len(prompts) or short:
+        raise SystemExit(f"serve_features: {len(done)} of {len(prompts)} finished, short {short}")
+    eng.check_balanced()
+    stats = eng.stats()
+    rest = [f for u, f in done.items() if u >= warm]
+    return {"engine": eng, "tokens": {u: f.tokens.tolist() for u, f in done.items()},
+            "stats": stats, "wall_s": wall,
+            "tokens_per_s": sum(f.tokens.size for f in rest) / wall,
+            "ttft_p50_ms": float(np.percentile([f.ttft_ms for f in rest], 50))}
+
+
+def _save_params(directory: str, epoch: int, model) -> str:
+    """``model``'s weights as a committed save: ``epoch_N/params.pt``, then
+    the manifest and the COMMITTED marker (``resilience/verify.py``)."""
+    from distributed_training_tpu_torch.resilience import verify
+
+    path = os.path.join(directory, f"epoch_{epoch}")
+    os.makedirs(path)
+    torch.save({n: p.detach().cpu() for n, p in model.named_parameters()},
+               os.path.join(path, "params.pt"))
+    verify.write_manifest(path)
+    return path
+
+
+def serve_features_phase() -> dict:
+    """The serving features at GPT-2-small width (see FEAT_PAGE)."""
+    import numpy as np
+
+    from distributed_training_tpu_torch.config import ServeConfig
+    from distributed_training_tpu_torch.serving import Engine, HotSwapper
+    from distributed_training_tpu_torch.serving import quantize as qz
+
+    t_phase = time.perf_counter()
+    model = _serve_model()
+    rng = np.random.RandomState(2)
+    system = rng.randint(0, SERVE_VOCAB, FEAT_SYSTEM)
+    shared = [np.concatenate([system, rng.randint(0, SERVE_VOCAB, n)]).astype(np.int32)
+              for n in rng.randint(FEAT_TAIL[0], FEAT_TAIL[1] + 1, FEAT_REQUESTS)]
+    prompts = [rng.randint(0, SERVE_VOCAB, n).astype(np.int32)
+               for n in rng.randint(SERVE_PROMPT[0], FEAT_SYSTEM + 1, 2 * FEAT_SPEC)]
+    first, late = prompts[:FEAT_SPEC], prompts[FEAT_SPEC:]
+    base = dict(max_batch=SERVE_BATCH, max_new_tokens=SERVE_NEW, temperature=0.0,
+                kv_page_size=FEAT_PAGE)
+    out: dict = {}
+
+    # Prefix cache.
+    off = _feat_run(model, shared, ServeConfig(**base), warm=1)
+    on = _feat_run(model, shared, ServeConfig(prefix_cache=True, **base), warm=1)
+    st = on["stats"]
+    out["prefix_cache"] = {
+        "hit_tokens": st["prefix_cache_hit_tokens"],
+        "hit_requests": st["prefix_cache_hit_requests"],
+        "prompt_tokens": int(sum(p.size for p in shared)),
+        "ttft_p50_ms": {"off": off["ttft_p50_ms"], "on": on["ttft_p50_ms"]},
+        "wall_s": {"off": off["wall_s"], "on": on["wall_s"]},
+        "on_vs_off": _against(model, shared, off["tokens"], on["tokens"],
+                              range(FEAT_REQUESTS), "prefix cache on vs off")}
+    if st["prefix_cache_hit_tokens"] < (FEAT_REQUESTS - 1) * (FEAT_SYSTEM - FEAT_PAGE):
+        raise SystemExit(f"serve_features: the prefix cache hit too little: {out['prefix_cache']}")
+    del off, on
+
+    # Speculative decoding (the plain run is the later runs' reference).
+    plain = _feat_run(model, first, ServeConfig(**base))
+    spec = {}
+    for drafter in ("ngram", "gpt"):
+        r = _feat_run(model, first, ServeConfig(spec_k=FEAT_K, spec_drafter=drafter, **base))
+        st = r["stats"]
+        spec[drafter] = {
+            "acceptance_rate": st["spec_acceptance_rate"],
+            "tokens_per_dispatch": st["spec_tokens_per_dispatch"],
+            "drafted": st["drafted_tokens"], "accepted": st["accepted_tokens"],
+            "tokens_per_s": r["tokens_per_s"], "wall_s": r["wall_s"],
+            "vs_plain": _against(model, first, plain["tokens"], r["tokens"],
+                                 range(FEAT_SPEC), f"spec_k {FEAT_K} {drafter} vs 0")}
+        if not st["drafted_tokens"]:
+            raise SystemExit(f"serve_features: the {drafter} drafter drafted nothing")
+    spec["plain"] = {"tokens_per_s": plain["tokens_per_s"], "wall_s": plain["wall_s"]}
+    out["speculative"] = spec
+
+    # int8 weights: the quantizing engine (on a model of its own: it
+    # installs the int8 set there) against an engine on the dequantized set.
+    qmodel = _serve_model()
+    fp_bytes = sum(p.numel() * p.element_size() for n, p in qz.serving_params(qmodel).items()
+                   if qz.reduce_axes_for(n.replace(".", "/")) is not None)
+    quant = _feat_run(qmodel, first, ServeConfig(quantize_weights=True, **base))
+    twin = _serve_model()
+    qz.install_params(twin, qz.dequantize_params(qz.serving_params(qmodel), torch.bfloat16))
+    deq = _feat_run(twin, first, ServeConfig(**base))
+    out["int8_weights"] = {
+        "quantized_bytes": quant["stats"]["quantized_params_bytes"],
+        "float32_bytes": fp_bytes, "bf16_bytes": fp_bytes // 2,
+        "weight_quant_s": quant["stats"]["weight_quant_s"],
+        "tokens_per_s": quant["tokens_per_s"], "dequantized_tokens_per_s": deq["tokens_per_s"],
+        "vs_dequantized": _against(twin, first, deq["tokens"], quant["tokens"],
+                                   range(FEAT_SPEC), "int8 weights vs dequantized")}
+    del qmodel, twin, quant, deq
+    torch.cuda.empty_cache()
+
+    # int8 KV pages against the bf16 pool.
+    kv8 = _feat_run(model, first, ServeConfig(kv_dtype="int8", **base))
+    ratio = kv8["stats"]["kv_bytes_per_token"] / plain["stats"]["kv_bytes_per_token"]
+    diffs = {u: _near_tie(model, first[u], plain["tokens"][u], kv8["tokens"][u])
+             for u in range(FEAT_SPEC) if plain["tokens"][u] != kv8["tokens"][u]}
+    out["int8_kv"] = {
+        "bytes_per_token": kv8["stats"]["kv_bytes_per_token"],
+        "bf16_bytes_per_token": plain["stats"]["kv_bytes_per_token"], "ratio": ratio,
+        "differing_share": len(diffs) / FEAT_SPEC,
+        "first_difference": {u: [i, round(g, 5)] for u, (i, g) in diffs.items()},
+        "tokens_per_s": kv8["tokens_per_s"]}
+    if not FEAT_KV8_BYTES[0] <= ratio < FEAT_KV8_BYTES[1] or any(
+            g >= FEAT_KV8_GAP_TOL for _, g in diffs.values()):
+        raise SystemExit(f"serve_features: int8 KV out of its bounds: {out['int8_kv']}")
+    del kv8
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # The journal: crash mid-run, recover in a new engine.
+        cfg = ServeConfig(journal_dir=os.path.join(tmp, "journal"), **base)
+        eng = Engine(model, cfg)
+        eng.recover()
+        for p in first:
+            eng.submit(p)
+        before = []
+        for _ in range(FEAT_CRASH_AT):
+            before += eng.step()
+        eng.journal.crash()
+        del eng
+        t0 = time.perf_counter()
+        eng = Engine(model, cfg)
+        report = eng.recover()
+        recover_s = time.perf_counter() - t0
+        after = report["redelivered"] + report["completed_at_replay"] + eng.run()
+        resume_s = time.perf_counter() - t0
+        eng.check_balanced()
+        eng.journal.shutdown()
+        uids = sorted(f.uid for f in after)
+        st = eng.stats()
+        if uids != list(range(FEAT_SPEC)):
+            raise SystemExit(f"serve_features: the recovered run completed {uids}")
+        out["journal"] = {
+            "finished_before_crash": len(before), "redelivered": len(report["redelivered"]),
+            "resumed": report["resumed"], "recover_s": recover_s, "run_to_end_s": resume_s,
+            "requests_recovered": st["requests_recovered"],
+            "tokens_recomputed_on_recovery": st["tokens_recomputed_on_recovery"],
+            "vs_uninterrupted": _against(model, first, plain["tokens"],
+                                         {f.uid: f.tokens.tolist() for f in after},
+                                         range(FEAT_SPEC), "recovered vs uninterrupted")}
+        del eng
+
+        # The hot swap: epochs 1 (this model) and 2 (seed 1) committed.
+        model2 = _serve_model(seed=1)
+        ckpt = os.path.join(tmp, "ckpt")
+        t0 = time.perf_counter()
+        _save_params(ckpt, 1, model)
+        _save_params(ckpt, 2, model2)
+        save_s = time.perf_counter() - t0
+
+        def restore_fn(epoch: int) -> dict:
+            sd = torch.load(os.path.join(ckpt, f"epoch_{epoch}", "params.pt"))
+            return {n: t.cuda() for n, t in sd.items()}
+
+        eng = Engine(model, ServeConfig(prefix_cache=True, **base), weights_epoch=1)
+        originals = dict(eng.params)
+        swapper = HotSwapper(eng, ckpt, restore_fn, printer=lambda m: None)
+        for p in first:
+            eng.submit(p)
+        done = []
+        for _ in range(FEAT_SWAP_AT):
+            done += eng.step()
+        in_flight = FEAT_SPEC - len(done)
+        t0 = time.perf_counter()
+        armed = swapper.poll_once()
+        stage_s = time.perf_counter() - t0
+        done += eng.step()  # the barrier
+        if armed != 2 or eng.weights_epoch != 2:
+            raise SystemExit(f"serve_features: the swap armed {armed}, serving {eng.weights_epoch}")
+        for p in late:
+            eng.submit(p)
+        done += eng.run()
+        eng.check_balanced()
+        blocked = eng.stats()["swap_blocked_s"]
+        if eng.rollback() != 1:
+            raise SystemExit("serve_features: rollback did not re-arm epoch 1")
+        eng.step()
+        if eng.weights_epoch != 1 or any(eng.params[n] is not t for n, t in originals.items()):
+            raise SystemExit("serve_features: rollback did not re-install epoch 1's tensors")
+        got = {f.uid - FEAT_SPEC: f.tokens.tolist() for f in done if f.uid >= FEAT_SPEC}
+        fresh = _feat_run(model2, late, ServeConfig(**base))
+        out["hot_swap"] = {
+            "save_s": save_s, "poll_stage_s": stage_s, "swap_blocked_s": blocked,
+            "swaps_completed": eng.stats()["swaps_completed"],
+            "in_flight_at_barrier": in_flight,
+            "late_vs_fresh": _against(model2, late, fresh["tokens"], got, range(FEAT_SPEC),
+                                      "admitted after the barrier vs fresh epoch 2")}
+        del eng, swapper, fresh, model2
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    pc, sp, q8, k8, jr, hs = (out[k] for k in ("prefix_cache", "speculative", "int8_weights",
+                                               "int8_kv", "journal", "hot_swap"))
+    print(f"[serve_features] GPT-2-small bf16, {SERVE_BATCH} slots, pages of {FEAT_PAGE}: "
+          f"prefix cache: {pc['hit_tokens']} of {pc['prompt_tokens']} prompt positions "
+          f"saved, TTFT p50 {pc['ttft_p50_ms']['off']:.2f} ms off / "
+          f"{pc['ttft_p50_ms']['on']:.2f} ms on, differing {pc['on_vs_off']['differing']}; "
+          f"spec_k {FEAT_K}: ngram acceptance {sp['ngram']['acceptance_rate']:.3f}, "
+          f"{sp['ngram']['tokens_per_dispatch']:.3f} tokens a dispatch, "
+          f"{sp['ngram']['tokens_per_s']:.1f} tokens/s; gpt acceptance "
+          f"{sp['gpt']['acceptance_rate']:.3f}, {sp['gpt']['tokens_per_dispatch']:.3f} "
+          f"a dispatch, {sp['gpt']['tokens_per_s']:.1f} tokens/s; plain "
+          f"{sp['plain']['tokens_per_s']:.1f} tokens/s", flush=True)
+    print(f"[serve_features] int8 weights {q8['quantized_bytes']} bytes against "
+          f"{q8['bf16_bytes']} bf16 / {q8['float32_bytes']} float32 (quantized in "
+          f"{q8['weight_quant_s']:.3f} s), differing from the dequantized engine "
+          f"{q8['vs_dequantized']['differing']}; int8 KV {k8['bytes_per_token']:.1f} bytes a "
+          f"token against {k8['bf16_bytes_per_token']:.1f} ({k8['ratio']:.5f}x), differing "
+          f"share {k8['differing_share']:.3f}, first differences {k8['first_difference']}; "
+          f"journal: recover {jr['recover_s']:.3f} s, to the end {jr['run_to_end_s']:.3f} s, "
+          f"{jr['tokens_recomputed_on_recovery']} tokens recomputed, {jr['redelivered']} "
+          f"redelivered, {jr['resumed']} resumed; hot swap: swap_blocked_s "
+          f"{hs['swap_blocked_s']:.6f}, staged in {hs['poll_stage_s']:.2f} s, late requests "
+          f"differing {hs['late_vs_fresh']['differing']}; phase {out['seconds']:.1f} s",
+          flush=True)
     return out
 
 
@@ -5145,7 +5439,7 @@ def mesh_main(parts: list | None = None) -> int:
 def phase_main(names: list) -> int:
     """``--phase NAME ...``: the build, then only the named phases (ring,
     moe_lm, moe_image, vit, pipeline, flight, trace, resilience, generate,
-    serve),
+    serve, serve_features),
     for a short check of one part on the card; prints their results and no
     result line."""
     from distributed_training_tpu_torch.ops import cuda_build
@@ -5154,7 +5448,8 @@ def phase_main(names: list) -> int:
               "moe_image": moe_image_phase, "vit": lambda d: vit_phase(),
               "pipeline": lambda d: pipeline_phase(), "flight": flight_phase,
               "trace": trace_phase, "resilience": resilience_phase,
-              "generate": generate_phase, "serve": lambda d: serve_phase()}
+              "generate": generate_phase, "serve": lambda d: serve_phase(),
+              "serve_features": lambda d: serve_features_phase()}
     if not names or any(n not in phases for n in names):
         print(f"chip_smoke --phase: name one or more of {sorted(phases)}", file=sys.stderr)
         return 2
@@ -5213,6 +5508,7 @@ def main() -> int:
         res = resilience_phase(os.path.join(ckpt, "resilience"))
         generated = generate_phase(os.path.join(ckpt, "generate"))
         served = serve_phase()
+        features = serve_features_phase()
     # The new phases' in-process runs: K1 once a step, K2/K3 once a layer a
     # step (the resilience phase's subprocesses count in their own process).
     late_launches = {**traced["launches"], **res["launches"], **generated["launches"]}
@@ -5329,7 +5625,7 @@ def main() -> int:
     print(json.dumps({"flight": {k: v for k, v in flight.items() if k != "launches"}},
                      default=str))
     for tag, phase in (("trace", traced), ("resilience", res), ("generate", generated),
-                       ("serve", served)):
+                       ("serve", served), ("serve_features", features)):
         print(json.dumps({tag: {k: v for k, v in phase.items() if k != "launches"}},
                          default=str))
     print(json.dumps({"kernels": kernels}))

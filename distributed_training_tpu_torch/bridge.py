@@ -28,6 +28,12 @@ leading layer dim in its storage order (``circular_layer_order``):
 whole or one pipeline stage (a ``PipelinedLM`` holds its layers' blocks
 under those names), the parameters and Adam's moments alike.
 
+A tree from JAX's ``serving/quantize.py::quantize_params`` holds
+``QuantizedTensor`` leaves (``q`` int8 and ``scale`` float32):
+:func:`flax_to_serving_params` carries them, as the port's
+``QuantizedTensor``, into the parameter set the serving engine installs
+(``serving/quantize.py::install_params``).
+
 Everything goes through numpy, so this module imports neither framework's
 other half: the tests hand it ``jax.device_get`` output.
 """
@@ -42,6 +48,7 @@ from torch import nn
 
 from distributed_training_tpu_torch.models.moe import ExpertMlp
 from distributed_training_tpu_torch.models.resnet import BatchNorm, Conv
+from distributed_training_tpu_torch.serving.quantize import QuantizedTensor
 
 _STAT_NAMES = {"running_mean": "mean", "running_var": "var"}
 
@@ -83,12 +90,16 @@ def _rules(model: nn.Module) -> dict[str, _Rule]:
         prefix = tuple(mod_name.split(".")) if mod_name else ()
         leaves = [n for n, _ in mod.named_parameters(recurse=False)]
         leaves += [n for n, _ in mod.named_buffers(recurse=False)]
+        leaves += [n for n, v in vars(mod).items() if isinstance(v, QuantizedTensor)]
         for leaf in leaves:
             out[".".join((*prefix, leaf))] = _rule(mod, prefix, leaf)
     return out
 
 
 def _flatten(tree: Any, prefix: tuple = ()) -> dict[tuple, np.ndarray]:
+    if hasattr(tree, "q") and hasattr(tree, "scale"):
+        # JAX's QuantizedTensor: its two arrays, as a pair.
+        return {prefix: (np.asarray(tree.q), np.asarray(tree.scale))}
     if isinstance(tree, dict) or hasattr(tree, "items"):
         out = {}
         for k, v in tree.items():
@@ -120,7 +131,11 @@ def _from_trees(model: nn.Module, trees: dict[str, Any]) -> dict[str, torch.Tens
             raise KeyError(f"Flax {rule.collection} has no {'/'.join(rule.path)} "
                            f"for the port's {name}")
         used[rule.collection].add(rule.path)
-        out[name] = torch.from_numpy(np.array(rule.to_torch(x)))
+        if isinstance(x, tuple):
+            out[name] = QuantizedTensor(*(torch.from_numpy(np.array(rule.to_torch(a)))
+                                          for a in x))
+        else:
+            out[name] = torch.from_numpy(np.array(rule.to_torch(x)))
     for c, leaves in flat.items():
         extra = set(leaves) - used[c]
         if extra:
@@ -167,6 +182,13 @@ def flax_tree_to_named(model: nn.Module, tree: Any) -> dict[str, torch.Tensor]:
 def named_to_flax_tree(model: nn.Module, named: dict[str, torch.Tensor]) -> dict:
     """Inverse of :func:`flax_tree_to_named`."""
     return _to_trees(model, named)["params"]
+
+
+def flax_to_serving_params(model: nn.Module, params: Any) -> dict[str, Any]:
+    """The serving engine's parameter set for a Flax ``params`` tree, JAX's
+    quantized leaves included (each a port ``QuantizedTensor`` of the same
+    codes and scales); install it with ``serving.quantize.install_params``."""
+    return _from_trees(model, {"params": params})
 
 
 def load_flax_variables(model: nn.Module, params: Any,

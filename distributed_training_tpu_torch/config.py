@@ -7,10 +7,9 @@ importing anything of ``distributed_training_tpu`` would import JAX.
 
 Fields whose behaviour the port does not provide yet raise
 ``NotImplementedError`` naming ROADMAP.md when set away from their
-defaults: ``ServeConfig``'s prefix cache, speculation, weight
-quantization, int8 KV pages, journal, SLO rules and incident bundles
-(``serving/engine.py``). ``ChaosConfig.swap_error_rate`` is stored, and
-only the serving engine's hot swap would read it, as in JAX.
+defaults: ``ServeConfig``'s SLO rules and incident bundles
+(``serving/engine.py``). ``ChaosConfig.swap_error_rate`` is read by the
+serving hot swap's staging read (``serving/hotswap.py``), as in JAX.
 """
 
 from __future__ import annotations
@@ -285,8 +284,8 @@ class ChaosConfig:
     # Probability (per distinct read key, seeded) that a data read raises a
     # one-shot ChaosIOError, which the loaders' RetryPolicy absorbs.
     data_error_rate: float = 0.0
-    # The same for the serving hot swap's staging read (stored; the hot
-    # swap is not ported).
+    # The same for the serving hot swap's staging read
+    # (serving/hotswap.py).
     swap_error_rate: float = 0.0
     # A host stall of slow_step_ms every slow_step_every-th step, on every
     # rank or on rank slow_step_host alone.
@@ -356,7 +355,8 @@ class ServeConfig:
     any request mix is served without a new shape. The fields of the
     prefix cache, speculation, weight quantization, int8 KV pages, the
     journal and the SLO alerting are validated here as in JAX; the
-    ``Engine`` refuses them away from their defaults (see ROADMAP.md).
+    ``Engine`` serves all but the SLO alerting, which it refuses away
+    from its defaults (see ROADMAP.md).
     """
 
     # Decode slots, refilled from the queue at iteration boundaries.
@@ -391,7 +391,7 @@ class ServeConfig:
     max_queue_depth: int | None = None
     ttft_deadline_ms: float | None = None
     deadline_ms: float | None = None
-    # Speculative decoding (refused by the port's Engine, ROADMAP.md A9 (b)).
+    # Speculative decoding (serving/speculative.py).
     spec_k: int = 0
     spec_drafter: str = "ngram"
     spec_ngram: int = 3
@@ -404,14 +404,14 @@ class ServeConfig:
     tier_reserved_slots: int = 0
     tier_reserved_pages: int = 0
     preempt: bool = True
-    # The write-ahead request journal (refused, ROADMAP.md A9 (b)).
+    # The write-ahead request journal (serving/journal.py).
     journal_dir: str | None = None
     journal_fsync: str = "batch"
     journal_segment_bytes: int = 1 << 20
-    # The radix-tree prefix cache (refused, ROADMAP.md A9 (b)).
+    # The radix-tree prefix cache (serving/prefix_cache.py).
     prefix_cache: bool = False
     prefix_cache_pages: int | None = None
-    # int8 weights and int8 KV pages (refused, ROADMAP.md A9 (b)).
+    # int8 weights and int8 KV pages (serving/quantize.py, PagedCache).
     quantize_weights: bool = False
     kv_dtype: str | None = None
     # The control room: the time-series ring's cadence and capacity (the

@@ -75,8 +75,9 @@ def build_lm_and_restorer(
     unless ``"cpu"`` is asked for; ``runtime.distributed.local_device``)
     holding the restored weights; ``epoch`` -1 when there was no
     checkpoint (the seeded random init); ``restore_fn(epoch,
-    directory=checkpoint)`` the weights of another epoch, restored into
-    the same template.
+    directory=checkpoint)`` the weights of another epoch (fresh tensors,
+    restored into a template of its own, so the returned model is never
+    written).
 
     Raises ``SystemExit`` for ``use_ema`` without ``ema_decay``, and with
     JAX's message when the checkpoint does not fit the flags.
@@ -98,25 +99,39 @@ def build_lm_and_restorer(
         raise SystemExit("--use-ema requires --ema-decay (mirror training)")
 
     precision = PrecisionConfig(dtype=dtype)
-    model = get_model(
-        "transformer_lm",
-        num_classes=vocab_size,
-        dtype=Policy.from_config(precision).compute_dtype,
-        num_layers=num_layers,
-        num_heads=num_heads,
-        hidden_dim=hidden_dim,
-        max_len=max_len,
-        head_bias=head_bias,
-        logits_dtype=parse_logits_dtype(logits_dtype),
-        generator=torch.Generator().manual_seed(seed),
-        **dict(moe_kwargs or {}),
-    ).to(local_device(device))
-    tx = make_optimizer(OptimizerConfig(ema_decay=ema_decay), SchedulerConfig(),
-                        world_size=1)
-    template = TrainState.create(model, tx, LossScaleState.create(precision))
+
+    def build_model():
+        return get_model(
+            "transformer_lm",
+            num_classes=vocab_size,
+            dtype=Policy.from_config(precision).compute_dtype,
+            num_layers=num_layers,
+            num_heads=num_heads,
+            hidden_dim=hidden_dim,
+            max_len=max_len,
+            head_bias=head_bias,
+            logits_dtype=parse_logits_dtype(logits_dtype),
+            generator=torch.Generator().manual_seed(seed),
+            **dict(moe_kwargs or {}),
+        ).to(local_device(device))
+
+    def make_template(m):
+        tx = make_optimizer(OptimizerConfig(ema_decay=ema_decay), SchedulerConfig(),
+                            world_size=1)
+        return TrainState.create(m, tx, LossScaleState.create(precision))
+
+    model = build_model()
+    template = make_template(model)
+    # Later restores (the serving hot swap's staging reads, on its watcher
+    # thread) restore into a template of their own, built at the first
+    # one: the first template holds the returned model's own parameters,
+    # which may be serving.
+    later: list = []
 
     def restore_fn(e: int, directory: str = checkpoint) -> dict:
-        return restore_params(template, directory, e, use_ema=use_ema)
+        if not later:
+            later.append(make_template(build_model()))
+        return restore_params(later[0], directory, e, use_ema=use_ema)
 
     epoch = resume
     if epoch < 0:
@@ -126,7 +141,7 @@ def build_lm_and_restorer(
         epoch = -1 if latest is None else latest
     if epoch >= 0:
         try:
-            params = restore_fn(epoch)
+            params = restore_params(template, checkpoint, epoch, use_ema=use_ema)
         except ckpt_lib.CheckpointCorruptError:
             raise  # the typed verdict names the directory and the remedy
         except Exception as e:

@@ -170,6 +170,11 @@ class Embed(nn.Module):
                             generator=generator)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        q = getattr(self.embedding, "q", None)
+        if q is not None:
+            # A per-row int8 table (serving/quantize.py): gather the rows
+            # and their scales, and dequantize only those (JAX's branch).
+            return q[tokens].to(self.dtype) * self.embedding.scale[tokens].to(self.dtype)
         table = self.embedding.to(self.dtype)
         if self.tp is not None:  # vocab-parallel
             return vocab_parallel_embed(tokens, table, self.tp)

@@ -36,7 +36,10 @@ pages into an ``[L, H, hd]`` view (``L = pages_per_slot * ps``) and
 attends with the causal mask by global position, the arithmetic of
 :func:`decode_attend`, NaN-poisoning a row whose position is past its
 table. The pools start zeroed: a masked score is 0 after the softmax,
-but 0 × NaN is not, so stale or unwritten rows must hold numbers.
+but 0 × NaN is not, so stale or unwritten rows must hold numbers. With
+``kv_dtype="int8"`` the pools hold int8 rows beside float32 per-row,
+per-head scales (quantized on the scatter, dequantized in the gather,
+the attention in float32), JAX's ``quant`` branch.
 
 **Ring attention** (sequence parallelism): each rank holds one time
 chunk of q, k and v, ``[B, H, T_local, hd]``; K/V blocks travel the ring
@@ -211,12 +214,22 @@ class PagedCache:
     """The paged KV pool of a decoder stack: per layer one flat K and one
     flat V ``[kv_pages * page_size, H, hd]`` (``kv_pages`` counts the null
     page 0), zero-filled. ``kv_dtype`` is JAX's pool storage dtype:
-    ``None`` (the compute dtype) is the only one ported; ``"int8"`` is the
-    serving features' part (ROADMAP.md A9 (b)); anything else is JAX's
-    ``ValueError``."""
+    ``None`` stores the compute dtype; ``"int8"`` stores int8 pools with
+    per-row, per-head float32 scales beside them (``key_scales``,
+    ``value_scales`` ``[kv_pages * page_size, H]``), quantized on the
+    scatter and dequantized in the gather of the same call; anything
+    else is JAX's ``ValueError``. A row's scales sit at the row's own
+    index, so they travel with its page through every alias."""
 
-    def __init__(self, keys: list, values: list, page_size: int):
+    def __init__(self, keys: list, values: list, page_size: int,
+                 key_scales: list | None = None, value_scales: list | None = None):
         self.keys, self.values, self.page_size = list(keys), list(values), int(page_size)
+        self.key_scales = None if key_scales is None else list(key_scales)
+        self.value_scales = None if value_scales is None else list(value_scales)
+
+    @property
+    def kv_dtype(self) -> str | None:
+        return None if self.key_scales is None else "int8"
 
     @classmethod
     def empty(cls, *, layers: int, kv_pages: int, page_size: int, heads: int,
@@ -227,10 +240,17 @@ class PagedCache:
             raise ValueError(f"a paged pool needs the null page and one more "
                              f"(kv_pages={kv_pages}) of page_size >= 1 "
                              f"(page_size={page_size})")
-        shape = (kv_pages * page_size, heads, head_dim)
-        return cls([torch.zeros(shape, dtype=dtype, device=device) for _ in range(layers)],
-                   [torch.zeros(shape, dtype=dtype, device=device) for _ in range(layers)],
-                   page_size)
+        rows = kv_pages * page_size
+        shape = (rows, heads, head_dim)
+        store = torch.int8 if kv_dtype == "int8" else dtype
+
+        def pools(shape, dtype):
+            return [torch.zeros(shape, dtype=dtype, device=device) for _ in range(layers)]
+
+        if kv_dtype == "int8":
+            return cls(pools(shape, store), pools(shape, store), page_size,
+                       pools((rows, heads), torch.float32), pools((rows, heads), torch.float32))
+        return cls(pools(shape, store), pools(shape, store), page_size)
 
     @property
     def kv_pages(self) -> int:
@@ -238,17 +258,26 @@ class PagedCache:
 
     @property
     def nbytes(self) -> int:
-        return sum(t.numel() * t.element_size() for t in (*self.keys, *self.values))
+        scales = (*self.key_scales, *self.value_scales) if self.key_scales else ()
+        return sum(t.numel() * t.element_size() for t in (*self.keys, *self.values, *scales))
 
 
 def check_kv_dtype(kv_dtype: str | None) -> None:
-    """JAX's pool dtypes: None ported, "int8" not yet, others refused."""
-    if kv_dtype == "int8":
-        raise NotImplementedError(
-            "kv_dtype='int8' (int8 KV pages with per-row scales) is not "
-            "ported yet (see ROADMAP.md, A9 (b))")
-    if kv_dtype is not None:
+    """JAX's pool dtypes: None or "int8"; anything else is refused."""
+    if kv_dtype not in (None, "int8"):
         raise ValueError(f"kv_dtype must be None or 'int8', got {kv_dtype!r}")
+
+
+def _quantize_rows(rows: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 of each ``[..., hd]`` row: ``scale = amax / 127``
+    over ``hd`` (1.0 for an all-zero row), round to nearest even. A row's
+    scale depends on that row alone, so a request's pages do not depend
+    on the batch."""
+    r32 = rows.float()
+    amax = r32.abs().amax(-1)
+    scl = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    q = torch.clamp(torch.round(r32 / scl[..., None]), -127, 127).to(torch.int8)
+    return q, scl
 
 
 def paged_decode_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -256,31 +285,49 @@ def paged_decode_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """JAX's ``_paged_decode_attend`` on ``[B, T_in, H, hd]``: scatter this
     call's K/V into layer ``layer``'s pool through ``pages``, then attend
     each query row over its own table's gathered view (see the module
-    docstring); returns ``[B, T_in, H, hd]`` in ``v``'s dtype."""
+    docstring); returns ``[B, T_in, H, hd]`` in ``v``'s dtype. ``T_in``
+    is 1 (the decode lane), the prefill chunk, or the speculative verify
+    window: each row attends the rows before it written in the same call.
+    An int8 pool quantizes the rows on the scatter, dequantizes the
+    gathered rows with their scales, and attends in float32."""
     b, t_in, _, hd = q.shape
     ps = cache.page_size
     table, positions, valid = pages
     n_pages = table.shape[1]
-    # JAX's take_along_axis clamps a logical page past the table; that
-    # row is poisoned below.
-    logical = (positions // ps).clamp(max=n_pages - 1)
+    quant = cache.key_scales is not None
+    raw = positions // ps
+    logical = raw.clamp(max=n_pages - 1)
     phys = table.gather(1, logical) * ps + positions % ps
     # Invalid tokens all write the null page (row < ps): the only place
-    # repeated indices land, whose order does not matter.
-    write = torch.where(valid, phys, torch.zeros_like(phys)).reshape(-1)
+    # repeated indices land, whose order does not matter. So does a token
+    # past its table (JAX's take_along_axis fills its page with INT_MIN,
+    # which times a power-of-two page size wraps to the null page); its
+    # row is poisoned below.
+    write = torch.where(valid & (raw < n_pages), phys, torch.zeros_like(phys)).reshape(-1)
     kp, vp = cache.keys[layer], cache.values[layer]
-    kp[write] = k.reshape(b * t_in, *k.shape[2:]).to(kp.dtype)
-    vp[write] = v.reshape(b * t_in, *v.shape[2:]).to(vp.dtype)
+    k_rows = k.reshape(b * t_in, *k.shape[2:])
+    v_rows = v.reshape(b * t_in, *v.shape[2:])
     l_all = n_pages * ps
     gather = (table[:, :, None] * ps + torch.arange(ps, device=table.device)).reshape(b, l_all)
-    kg, vg = kp[gather], vp[gather]                                   # [B, L, H, hd]
+    if quant:
+        ks, vs = cache.key_scales[layer], cache.value_scales[layer]
+        (kq, k_scl), (vq, v_scl) = _quantize_rows(k_rows), _quantize_rows(v_rows)
+        kp[write], vp[write], ks[write], vs[write] = kq, vq, k_scl, v_scl
+        kg = kp[gather].float() * ks[gather][..., None]              # [B, L, H, hd]
+        vg = vp[gather].float() * vs[gather][..., None]
+    else:
+        kp[write] = k_rows.to(kp.dtype)
+        vp[write] = v_rows.to(vp.dtype)
+        kg, vg = kp[gather], vp[gather]                               # [B, L, H, hd]
     qh, kh, vh = (t.transpose(1, 2) for t in (q, kg, vg))
     s = torch.einsum("...qd,...kd->...qk", qh.float(), kh.float()) * _host_scale(hd, torch.float32)
     kpos = torch.arange(l_all, device=q.device)
     s = s.masked_fill(kpos[None, None, None, :] > positions[:, None, :, None], float("-inf"))
     s = s.masked_fill((positions >= l_all)[:, None, :, None], float("nan"))
     p = torch.softmax(s, dim=-1).to(vh.dtype)
-    return torch.einsum("...qk,...kd->...qd", p, vh).transpose(1, 2)
+    out = torch.einsum("...qk,...kd->...qd", p, vh).transpose(1, 2)
+    # The dequantized math ran in float32: hand back the compute dtype.
+    return out.to(v.dtype) if quant else out
 
 
 def lecun_normal_(t: torch.Tensor, fan_in: int,

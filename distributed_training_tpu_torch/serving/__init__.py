@@ -1,22 +1,34 @@
 """Continuous-batching serving for the transformer LM: the port of
-``distributed_training_tpu/serving/``'s engine core.
+``distributed_training_tpu/serving/``'s engine and its features.
 
 :class:`Engine` (paged KV with chunked prefill, or the legacy contiguous
 slots), :class:`RequestQueue` (tiers, tenants, quotas, deadlines,
 shedding), :class:`SlotScheduler` (iteration-level batching with
 preempt-and-requeue), :class:`PagePool`, :class:`ServeTelemetry` and
-:class:`TelemetryRing`, and the per-request :class:`LatencyLedger`. The
-CLI is ``gpt/torch_cuda/serve.py``. The prefix cache, speculation,
-quantization, the journal, the hot swap, the SLO alerts and the fleet
-(front door, router, supervisor) are not ported yet (ROADMAP.md A9 (b)
-and (c)).
+:class:`TelemetryRing`, the per-request :class:`LatencyLedger`, the radix
+:class:`PrefixCache`, the speculative drafters (``speculative.py``), int8
+weights (``quantize.py``), the :class:`RequestJournal` and the
+:class:`HotSwapper`. The CLI is ``gpt/torch_cuda/serve.py``. The SLO
+alerts and the fleet (front door, router, supervisor) are not ported yet
+(ROADMAP.md A9 (c)).
 """
 
 from distributed_training_tpu_torch.resilience.errors import (  # noqa: F401
     DrainingError,
+    JournalCorruptError,
     QueueFullError,
+    SwapError,
 )
 from distributed_training_tpu_torch.serving.engine import Engine  # noqa: F401
+from distributed_training_tpu_torch.serving.hotswap import (  # noqa: F401
+    HotSwapper,
+    committed_epochs,
+)
+from distributed_training_tpu_torch.serving.journal import (  # noqa: F401
+    JournaledRequest,
+    RecoveredState,
+    RequestJournal,
+)
 from distributed_training_tpu_torch.serving.ledger import (  # noqa: F401
     LEDGER_CAUSES,
     TOKEN_CAUSES,
@@ -27,6 +39,12 @@ from distributed_training_tpu_torch.serving.pages import (  # noqa: F401
     NULL_PAGE,
     PagePool,
     pages_for,
+)
+from distributed_training_tpu_torch.serving.prefix_cache import PrefixCache  # noqa: F401
+from distributed_training_tpu_torch.serving.quantize import (  # noqa: F401
+    QuantizedTensor,
+    dequantize_params,
+    quantize_params,
 )
 from distributed_training_tpu_torch.serving.queue import RequestQueue  # noqa: F401
 from distributed_training_tpu_torch.serving.request import (  # noqa: F401
@@ -41,6 +59,10 @@ from distributed_training_tpu_torch.serving.request import (  # noqa: F401
     Request,
 )
 from distributed_training_tpu_torch.serving.scheduler import SlotScheduler  # noqa: F401
+from distributed_training_tpu_torch.serving.speculative import (  # noqa: F401
+    GPTDrafter,
+    NGramDrafter,
+)
 from distributed_training_tpu_torch.serving.timeseries import (  # noqa: F401
     TelemetryRing,
 )

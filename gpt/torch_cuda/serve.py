@@ -16,11 +16,15 @@ The model flags must match the training run so the checkpoint restores
 vocabulary of 256 is one token a byte). It serves on the card unless
 ``--device cpu`` asks for the CPU; without a card it fails.
 
-The flags are the JAX CLI's. Those of the features not ported yet raise
+The flags are the JAX CLI's: the prefix cache (``--prefix-cache``),
+speculative decoding (``--spec-k``, ``--spec-drafter``), int8 weights and
+KV pages (``--quantize-weights``, ``--kv-dtype int8``), the write-ahead
+journal (``--journal-dir``: a restart replays it, redelivers finished
+results, resumes the unfinished and skips the prompt lines already
+consumed) and the live hot swap (``--watch-ckpt-dir``: SIGHUP polls now,
+SIGUSR1 rolls back). Those of the features not ported yet raise
 ``NotImplementedError`` naming ROADMAP.md when set away from their
-defaults: ``--prefix-cache``, ``--spec-k``, ``--quantize-weights``,
-``--kv-dtype``, ``--journal-dir``, ``--watch-ckpt-dir``, ``--slo-rules``,
-``--incident-dir`` and ``--metrics-port``.
+defaults: ``--slo-rules``, ``--incident-dir`` and ``--metrics-port``.
 
     echo -e "The \\nOnce upon" | python gpt/torch_cuda/serve.py \\
         -c ./checkpoint --max-batch 8 --max-new-tokens 64
@@ -36,7 +40,7 @@ import sys
 # Run as a script from this directory: the repo root holds the package.
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))))
 
-NOT_PORTED = "not ported yet (see ROADMAP.md, A9 (b) and (c))"
+NOT_PORTED = "not ported yet (see ROADMAP.md, A9 (c))"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -69,19 +73,28 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--prefill-bucket", type=int, default=64,
                         help="legacy mode: prompts pad to a multiple of this")
     parser.add_argument("--prefix-cache", action=argparse.BooleanOptionalAction,
-                        default=False, help=f"radix-tree prefix cache ({NOT_PORTED})")
+                        default=False,
+                        help="radix-tree prefix cache: a prompt that starts with "
+                             "a resident page-aligned prefix aliases its pages "
+                             "and prefills only the tail (paged mode)")
     parser.add_argument("--prefix-cache-pages", type=int, default=None,
                         help="the prefix cache's page cap")
     parser.add_argument("--spec-k", type=int, default=0,
-                        help=f"speculative decoding drafts ({NOT_PORTED}); 0 = off")
+                        help="speculative decoding: drafts a slot verified in "
+                             "one [max_batch, k+1] window; 0 = off")
     parser.add_argument("--spec-drafter", type=str, default="ngram",
-                        choices=["ngram", "gpt"])
-    parser.add_argument("--spec-ngram", type=int, default=3)
-    parser.add_argument("--spec-draft-window", type=int, default=16)
+                        choices=["ngram", "gpt"],
+                        help="ngram = prompt lookup; gpt = self-drafting "
+                             "with the serving weights")
+    parser.add_argument("--spec-ngram", type=int, default=3,
+                        help="longest suffix n-gram the ngram drafter matches")
+    parser.add_argument("--spec-draft-window", type=int, default=16,
+                        help="the gpt drafter's token window")
     parser.add_argument("--quantize-weights", action="store_true", default=False,
-                        help=f"int8 matmul weights ({NOT_PORTED})")
+                        help="per-channel int8 matmul weights (and token "
+                             "table), dequantized at use")
     parser.add_argument("--kv-dtype", type=str, default=None, choices=["int8"],
-                        help=f"int8 KV pages ({NOT_PORTED})")
+                        help="int8 KV pages with per-row scales (paged mode)")
     # SLO tiers and tenants.
     parser.add_argument("--num-tiers", type=int, default=1,
                         help="SLO tiers: priority 0 = highest; larger tiers "
@@ -109,10 +122,16 @@ def build_parser() -> argparse.ArgumentParser:
                         help="evict requests still decoding past this "
                              "(partial tokens returned)")
     parser.add_argument("--watch-ckpt-dir", type=str, default=None,
-                        help=f"live weight hot swap ({NOT_PORTED})")
-    parser.add_argument("--watch-interval", type=float, default=2.0)
+                        help="live weight hot swap: watch this checkpoint "
+                             "directory and install each newly committed, "
+                             "verified epoch at an iteration boundary. SIGHUP "
+                             "polls now; SIGUSR1 re-arms the previous weights")
+    parser.add_argument("--watch-interval", type=float, default=2.0,
+                        help="seconds between the watcher's polls")
     parser.add_argument("--journal-dir", type=str, default=None,
-                        help=f"write-ahead request journal ({NOT_PORTED})")
+                        help="write-ahead request journal: accepted requests "
+                             "survive a crash; a restart redelivers finished "
+                             "results and resumes the rest")
     parser.add_argument("--journal-fsync", type=str, default="batch",
                         choices=["none", "batch", "always"])
     parser.add_argument("--journal-segment-bytes", type=int, default=1 << 20)
@@ -175,12 +194,6 @@ def build_parser() -> argparse.ArgumentParser:
 def refused_flags(args: argparse.Namespace) -> list[str]:
     """The flags of unported features set away from their defaults."""
     flags = {
-        "--prefix-cache": args.prefix_cache,
-        "--spec-k": args.spec_k > 0,
-        "--quantize-weights": args.quantize_weights,
-        "--kv-dtype": args.kv_dtype is not None,
-        "--journal-dir": args.journal_dir is not None,
-        "--watch-ckpt-dir": args.watch_ckpt_dir is not None,
         "--slo-rules": args.slo_rules is not None,
         "--incident-dir": args.incident_dir is not None,
         "--metrics-port": args.metrics_port is not None,
@@ -202,7 +215,7 @@ def main(argv: list[str] | None = None) -> int:
 
     from distributed_training_tpu_torch.config import ServeConfig
     from distributed_training_tpu_torch.inference.restore import (
-        build_lm_and_restore,
+        build_lm_and_restorer,
         moe_kwargs_from_flags,
     )
     from distributed_training_tpu_torch.inference.sampler import CacheBudgetError
@@ -211,6 +224,7 @@ def main(argv: list[str] | None = None) -> int:
     from distributed_training_tpu_torch.serving import (
         DrainingError,
         Engine,
+        HotSwapper,
         QueueFullError,
     )
     from distributed_training_tpu_torch.serving.ledger import dump_ledgers
@@ -218,7 +232,7 @@ def main(argv: list[str] | None = None) -> int:
     def log(msg: str) -> None:
         print(f"[serve] {msg}", file=sys.stderr, flush=True)
 
-    model, restored_epoch = build_lm_and_restore(
+    model, restored_epoch, restore_fn = build_lm_and_restorer(
         vocab_size=args.vocab_size,
         num_layers=args.num_layers,
         num_heads=args.num_heads,
@@ -252,10 +266,14 @@ def main(argv: list[str] | None = None) -> int:
         kv_pages=args.kv_pages,
         prefill_chunk=args.prefill_chunk,
         prefill_bucket=args.prefill_bucket,
+        prefix_cache=args.prefix_cache,
         prefix_cache_pages=args.prefix_cache_pages,
+        spec_k=args.spec_k,
         spec_drafter=args.spec_drafter,
         spec_ngram=args.spec_ngram,
         spec_draft_window=args.spec_draft_window,
+        quantize_weights=args.quantize_weights,
+        kv_dtype=args.kv_dtype,
         num_tiers=args.num_tiers,
         tenant_quota=args.tenant_quota,
         tier_reserved_slots=args.tier_reserved_slots,
@@ -264,11 +282,42 @@ def main(argv: list[str] | None = None) -> int:
         max_queue_depth=args.max_queue_depth,
         ttft_deadline_ms=args.ttft_deadline_ms,
         deadline_ms=args.deadline_ms,
+        journal_dir=args.journal_dir,
         journal_fsync=args.journal_fsync,
         journal_segment_bytes=args.journal_segment_bytes,
         sample_every=args.sample_every,
         seed=args.seed,
     ), trace=trace, weights_epoch=restored_epoch)
+
+    # The live hot swap: a watcher thread streams newly committed epochs
+    # of --watch-ckpt-dir through verification into the engine. The
+    # signal handlers only set events: the rollback takes the engine's
+    # swap lock, which this thread holds around the barrier.
+    swapper = None
+    if args.watch_ckpt_dir is not None:
+        import signal as signal_mod
+
+        watch_dir = args.watch_ckpt_dir
+        swapper = HotSwapper(engine, watch_dir, lambda e: restore_fn(e, watch_dir),
+                             printer=lambda msg: print(msg, file=sys.stderr, flush=True))
+        swapper.start(interval_s=args.watch_interval)
+        if hasattr(signal_mod, "SIGHUP"):
+            signal_mod.signal(signal_mod.SIGHUP, lambda *_: swapper.trigger())
+        if hasattr(signal_mod, "SIGUSR1"):
+            signal_mod.signal(signal_mod.SIGUSR1, lambda *_: swapper.request_rollback())
+        log(f"hot-swap watcher on {watch_dir} (every {args.watch_interval:g}s; "
+            f"SIGHUP = poll now, SIGUSR1 = rollback)")
+
+    # The journal's replay comes before the prompt stream: finished but
+    # unacked results are redelivered once, unfinished requests re-seat,
+    # and the journaled line cursor skips prompts an earlier life took.
+    report = engine.recover()
+    recovered = report["redelivered"] + report["completed_at_replay"]
+    lines_consumed = int(report["notes"].get("lines_consumed", 0))
+    if recovered or report["resumed"] or lines_consumed:
+        log(f"journal recovery: {len(recovered)} redelivered/expired, "
+            f"{report['resumed']} resumed; skipping {lines_consumed} "
+            f"already-consumed prompt line(s)")
 
     if args.prompts_file:
         with open(args.prompts_file) as fh:
@@ -276,8 +325,9 @@ def main(argv: list[str] | None = None) -> int:
     else:
         lines = [ln.rstrip("\n") for ln in sys.stdin]
     lines = [ln for ln in lines if ln]
-    if not lines:
+    if not lines and not (recovered or report["resumed"]):
         raise SystemExit("no prompts (stdin/--prompts-file was empty)")
+    lines = lines[lines_consumed:]
 
     # Graceful drain: SIGTERM latches; the submit loop then closes
     # admission (later prompts get the typed DrainingError) and the engine
@@ -289,6 +339,12 @@ def main(argv: list[str] | None = None) -> int:
         for text in lines:
             if guard.triggered:
                 engine.close_admission()
+            if engine.journal is not None:
+                # The line cursor is journaled before the line is acted
+                # on (at most once); the admit below persists it in the
+                # same batch.
+                lines_consumed += 1
+                engine.journal.log_note({"lines_consumed": lines_consumed}, flush=False)
             tokens = np.frombuffer(text.encode("utf-8"), np.uint8)
             if (tokens >= args.vocab_size).any():
                 log(f"SKIP (bytes outside vocab {args.vocab_size}): {text!r}")
@@ -304,16 +360,28 @@ def main(argv: list[str] | None = None) -> int:
                 continue
             texts[req.uid] = text
         # One-shot CLI: ending through drain() makes the normal path and
-        # the SIGTERM path the same (close admission, finish, report).
-        done = engine.drain()
+        # the SIGTERM path the same (close admission, finish, report). The
+        # journal's recoveries are this process's deliveries too.
+        done = recovered + engine.drain()
         if guard.triggered:
             log(f"SIGTERM: drained {len(done)} in-flight request(s), admission closed")
+    if swapper is not None:
+        swapper.close()
+        log(f"hot-swap: {swapper.counters['armed']} armed / "
+            f"{swapper.counters['rejected']} rejected over {swapper.counters['polls']} "
+            f"polls; serving weights epoch {engine.weights_epoch}")
 
     for fin in sorted(done, key=lambda f: f.uid):
         ttft = "-" if fin.ttft_ms is None else f"{fin.ttft_ms:.1f} ms"
         text = texts.get(fin.uid, decode_bytes(fin.prompt))
         print(f"[serve] #{fin.uid} ({fin.finish_reason}, ttft {ttft}): "
               f"{text!r} -> {decode_bytes(fin.tokens)!r}")
+
+    if engine.journal is not None:
+        # The client cursor: the completions above are consumed, so a
+        # later recovery does not redeliver them.
+        engine.journal.ack([f.uid for f in done])
+        engine.journal.shutdown()
 
     stats = engine.stats()
     if args.json:

@@ -80,7 +80,9 @@ def test_every_module_imports_with_jax_blocked():
                 "data.imagefolder", "data.decoded_cache", "data.prefetch",
                 "resilience.retry", "serving", "serving.engine", "serving.queue",
                 "serving.scheduler", "serving.pages", "serving.request",
-                "serving.ledger", "serving.metrics", "serving.timeseries"):
+                "serving.ledger", "serving.metrics", "serving.timeseries",
+                "serving.prefix_cache", "serving.speculative", "serving.quantize",
+                "serving.journal", "serving.hotswap"):
         assert f"distributed_training_tpu_torch.{new}" in mods
 
 
@@ -106,8 +108,10 @@ def test_the_clis_import_with_jax_blocked():
 
 def test_serve_cli_imports_with_jax_blocked():
     """``gpt/torch_cuda/serve.py`` loads and parses its defaults (the card
-    as the device), and refuses an unported flag before building anything,
-    in a process where importing JAX or the JAX package fails."""
+    as the device) and the serving features' flags (``--spec-k``,
+    ``--prefix-cache``, ...), and refuses a flag still unported before
+    building anything, in a process where importing JAX or the JAX
+    package fails."""
     code = (
         "import sys, importlib.util\n"
         "for name in %r: sys.modules[name] = None\n"
@@ -115,12 +119,17 @@ def test_serve_cli_imports_with_jax_blocked():
         "m = importlib.util.module_from_spec(spec)\n"
         "spec.loader.exec_module(m)\n"
         "assert m.build_parser().parse_args([]).device == 'cuda'\n"
+        "a = m.build_parser().parse_args(['--spec-k', '2', '--prefix-cache', '--spec-drafter',\n"
+        "                                 'gpt', '--quantize-weights', '--kv-dtype', 'int8'])\n"
+        "assert a.spec_k == 2 and a.prefix_cache and not m.refused_flags(a)\n"
         "try:\n"
-        "    m.main(['--spec-k', '1'])\n"
+        "    m.main(['--metrics-port', '0'])\n"
         "except NotImplementedError as e:\n"
         "    assert 'ROADMAP.md' in str(e)\n"
         "else:\n"
-        "    raise AssertionError('--spec-k was not refused')\n"
+        "    raise AssertionError('--metrics-port was not refused')\n"
+        "import distributed_training_tpu_torch.serving.speculative\n"
+        "import distributed_training_tpu_torch.serving.prefix_cache\n"
         "import distributed_training_tpu_torch.serving\n"
         "assert not any(k.split('.')[0] in %r for k, v in sys.modules.items() if v is not None)\n"
     ) % (FORBIDDEN, os.path.join(REPO, "gpt", "torch_cuda", "serve.py"), FORBIDDEN)

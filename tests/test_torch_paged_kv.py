@@ -222,14 +222,23 @@ def test_per_row_write_heads_match_jax_vmap():
 
 
 def test_pool_dtype_refusals():
+    """JAX's pool dtypes: None and "int8" are taken (int8 pools with float32
+    per-row, per-head scales beside them); anything else is JAX's
+    ValueError, and so is an int8 contiguous cache."""
     check_kv_dtype(None)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        check_kv_dtype("int8")
+    check_kv_dtype("int8")
     with pytest.raises(ValueError, match="kv_dtype must be None or 'int8'"):
         check_kv_dtype("fp8")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="kv_dtype must be None or 'int8'"):
         PagedCache.empty(layers=1, kv_pages=4, page_size=PS, heads=H, head_dim=HD,
-                         dtype=torch.float32, kv_dtype="int8")
+                         dtype=torch.float32, kv_dtype="fp8")
+    cache = PagedCache.empty(layers=1, kv_pages=4, page_size=PS, heads=H, head_dim=HD,
+                             dtype=torch.float32, kv_dtype="int8")
+    assert cache.kv_dtype == "int8" and cache.keys[0].dtype == torch.int8
+    assert cache.key_scales[0].shape == (4 * PS, H) and cache.key_scales[0].dtype == torch.float32
+    with pytest.raises(ValueError, match="requires the paged cache"):
+        KVCache.empty(layers=1, batch=1, cache_len=4, heads=H, head_dim=HD,
+                      dtype=torch.float32, kv_dtype="int8")
 
 
 def test_pools_start_zeroed():

@@ -3,8 +3,9 @@ the CPU (``--device cpu``) over a checkpoint the port's GPT CLI wrote:
 the completions in submission order (greedy, each equal to the port's
 ``Generator`` on the restored model), ``--json``, ``--ledger-out``,
 ``--flight-dump`` through the port's ``flight_report``, the SIGTERM
-drain in a subprocess, the refused flags, and no CPU fallback without
-``--device cpu``.
+drain in a subprocess, the serving features' flags, the flags still
+refused (ROADMAP.md A9 (c)), and no CPU fallback without ``--device
+cpu``.
 """
 
 import importlib.util
@@ -133,15 +134,59 @@ def test_sigterm_drains_and_writes_a_valid_dump(ckpt, tmp_path):
     assert snap["serving"]["drained"] is True
 
 
-REFUSED = [["--prefix-cache"], ["--spec-k", "2"], ["--quantize-weights"],
-           ["--kv-dtype", "int8"], ["--journal-dir", "j"], ["--watch-ckpt-dir", "w"],
-           ["--slo-rules", "default"], ["--incident-dir", "i"], ["--metrics-port", "0"]]
+REFUSED = [["--slo-rules", "default"], ["--incident-dir", "i"], ["--metrics-port", "0"]]
 
 
 @pytest.mark.parametrize("flag", REFUSED, ids=[f[0] for f in REFUSED])
 def test_refused_flag_raises(serve_cli, flag):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         serve_cli.main(["--device", "cpu", *flag])
+
+
+PORTED = [["--prefix-cache"], ["--spec-k", "2"], ["--quantize-weights"],
+          ["--kv-dtype", "int8"], ["--journal-dir", "{tmp}/j"], ["--watch-ckpt-dir", "{ckpt}"]]
+
+
+@pytest.mark.parametrize("flag", PORTED, ids=[f[0] for f in PORTED])
+def test_ported_flag_runs(serve_cli, ckpt, served, flag, tmp_path):
+    """Each serving feature's flag runs the CLI to the end over the same
+    prompts: the prefix cache, speculation, the journal and the watcher
+    (with nothing newer to install) print the plain run's completions; a
+    second run over the same journal skips the lines it consumed and
+    redelivers nothing it acked."""
+    import contextlib
+    import io
+
+    pfile = tmp_path / "prompts.txt"
+    pfile.write_text("".join(p + "\n" for p in PROMPTS))
+    argv = ["--device", "cpu", "-c", ckpt, "--prompts-file", str(pfile), *MODEL,
+            "--max-new-tokens", "5", "--max-batch", "2", "--prefill-chunk", "4", "--json",
+            *(f.format(tmp=tmp_path, ckpt=ckpt) for f in flag)]
+
+    def run():
+        out, err = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = serve_cli.main(argv)
+        return rc, out.getvalue(), err.getvalue()
+
+    rc, out, err = run()
+    assert rc == 0, err[-2000:]
+    stats = json.loads(out.splitlines()[-1])
+    assert stats["requests_finished"] == 3
+    lines = [ln for ln in out.splitlines() if ln.startswith("[serve] #")]
+    if flag[0] in ("--prefix-cache", "--spec-k", "--journal-dir", "--watch-ckpt-dir"):
+        want = [ln for ln in served["stdout"].splitlines() if ln.startswith("[serve] #")]
+        strip = [ln.split(" (")[0] + ln.split("):", 1)[1] for ln in lines]
+        assert strip == [ln.split(" (")[0] + ln.split("):", 1)[1] for ln in want]
+    if flag[0] == "--journal-dir":
+        assert stats["journal_records_written"] > 0
+        rc, out, err = run()
+        assert rc == 0 and "skipping 3 already-consumed" in err
+        assert json.loads(out.splitlines()[-1])["requests_finished"] == 0
+    if flag[0] == "--watch-ckpt-dir":
+        assert "hot-swap: 0 armed / 0 rejected" in err
+    if flag[0] == "--quantize-weights":
+        assert stats["quantized_params_bytes"] > 0 and stats["weight_quant_s"] > 0
 
 
 def test_no_cpu_fallback_without_a_card(serve_cli, tmp_path):

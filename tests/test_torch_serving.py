@@ -17,8 +17,9 @@ through ``bridge.py``), six prompts through two slots:
 3. **Mechanics** as JAX pins them: the oversubscribed pool, EOS eviction,
    the one-token budget, drain, the bounded queue, both deadlines, the
    KV accounting, ``stats()``'s keys (JAX's set), the flight dump through
-   the port's ``flight_report``, one device read an iteration, and one
-   refusal test per unported option.
+   the port's ``flight_report``, one device read an iteration, one
+   refusal test per option still unported (A9 (c)), and one test per
+   serving feature and engine method ported since.
 
 Token comparisons are exact; the tests share engines in module fixtures.
 """
@@ -374,10 +375,7 @@ def test_trace_draws_slot_tracks(lm, prompts):
     assert {"queued", "prefill", "prefill_chunk", "decode", "first_token"} <= names
 
 
-REFUSED = {
-    "prefix_cache": True, "spec_k": 2, "quantize_weights": True, "kv_dtype": "int8",
-    "journal_dir": "journal", "slo_rules": "default", "incident_dir": "incidents",
-}
+REFUSED = {"slo_rules": "default", "incident_dir": "incidents"}
 
 
 @pytest.mark.parametrize("field", list(REFUSED))
@@ -391,11 +389,60 @@ def test_refused_option_raises(lm, field):
         Engine(lm, cfg)
 
 
+PORTED = {"prefix_cache": True, "spec_k": 2, "quantize_weights": True, "kv_dtype": "int8",
+          "journal_dir": "journal"}
+
+
+@pytest.mark.parametrize("field", list(PORTED))
+def test_ported_option_runs(field, prompts, batched_greedy, tmp_path):
+    """Each serving feature runs through the engine: the prefix cache,
+    speculation and the journal give the plain engine's tokens; the int8
+    weights and KV pages finish every request and drain the pool
+    balanced (their tokens are held against JAX's in their own files)."""
+    value = str(tmp_path / "journal") if field == "journal_dir" else PORTED[field]
+    cfg = ServeConfig(max_batch=2, prefill_bucket=8, **GREEDY, **{field: value})
+    assert not any(unported_serve_fields(cfg).values())
+    eng = Engine(_model(), cfg)
+    eng.recover()
+    for p in prompts:
+        eng.submit(p)
+    done = {f.uid: f for f in eng.run()}
+    eng.check_balanced()
+    assert sorted(done) == list(range(len(prompts)))
+    assert all(f.tokens.size == N_NEW for f in done.values())
+    if field in ("prefix_cache", "spec_k", "journal_dir"):
+        for u, f in batched_greedy[1].items():
+            np.testing.assert_array_equal(done[u].tokens, f.tokens)
+    if field == "journal_dir":
+        eng.journal.shutdown()
+        assert eng.stats()["journal_records_written"] > 0
+
+
 @pytest.mark.parametrize("call", ["recover", "validate_swap", "arm_swap", "rollback"])
-def test_refused_engine_method_raises(lm, call):
+def test_ported_engine_method_runs(lm, call):
+    """The journal's and the hot swap's engine methods: recover without a
+    journal reports nothing; the serving set validates and arms (the
+    barrier installs it at the next step); rollback before any swap is
+    JAX's typed refusal."""
+    from distributed_training_tpu_torch.resilience.errors import SwapError
+    from distributed_training_tpu_torch.serving.quantize import serving_params
+
     eng = Engine(lm, ServeConfig(max_batch=1))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        getattr(eng, call)()
+    if call == "recover":
+        assert eng.recover() == {"redelivered": [], "completed_at_replay": [],
+                                 "resumed": 0, "notes": {}, "torn_bytes": 0}
+    elif call == "validate_swap":
+        eng.validate_swap(serving_params(lm))
+        with pytest.raises(SwapError, match="does not match"):
+            eng.validate_swap({"tok_embed.embedding": torch.zeros(3)})
+    elif call == "arm_swap":
+        eng.arm_swap(serving_params(lm), epoch=3)
+        assert eng.phase == "swapping"
+        eng.step()
+        assert eng.weights_epoch == 3 and eng.stats()["swaps_completed"] == 1
+    else:
+        with pytest.raises(SwapError, match="nothing to roll back to"):
+            eng.rollback()
 
 
 def test_serve_config_validation_is_jax_s():
