@@ -177,6 +177,15 @@ Phases, in order; any failure exits non-zero and prints no result line:
    near-tie gate; prefill positions saved, TTFT, acceptance, tokens a
    dispatch, tokens/s, weight and pool bytes, recovery time, recomputed
    tokens, ``swap_blocked_s`` (see FEAT_PAGE);
+7d10. fleet phase: two ``serve_net`` replica processes at GPT-2-small width
+   on the card under the supervisor, behind the router in this process:
+   prefix routing against round_robin on shared_prefix (prefix-hit tokens,
+   TTFT and tokens/s through the door), a SIGKILL mid-stream (1 restart,
+   1 breaker open, 1 failover resume, ``fleet_trace --check-failover``), a
+   rolling deploy mid-load (2 deploys, 0 failed); the door's tokens against
+   an in-process replica under the near-tie gate; SLO alerts and an
+   incident bundle from an overloaded in-process engine, ``/timeseries``
+   and ``/alerts`` scraped; no kernel runs (see FLEET_WIDTH);
 7e. d-256 phase: K2–K4 at head dims 256 and 160 (padded to 256), and at
    257, 320, 384 and 512 (768 in bf16; the d > 256 kernels, d padded to a
    multiple of 64), in float32, bf16 and fp16, T 100 and 384, causal and
@@ -269,7 +278,7 @@ runs only those parts.
 
 ``python3 chip_smoke.py --phase NAME ...`` runs the build and only the
 named phases (ring, moe_lm, moe_image, vit, pipeline, flight, trace,
-resilience, generate, serve, serve_features), without a result line.
+resilience, generate, serve, serve_features, fleet), without a result line.
 """
 
 from __future__ import annotations
@@ -2912,8 +2921,9 @@ def serve_phase() -> dict:
 #   leaves the prompt in the trie), then the rest; the cache on against
 #   off: the prefill positions saved and the TTFT p50 of the rest;
 # - speculative decoding: FEAT_SPEC requests at spec_k FEAT_K with the
-#   n-gram drafter and with the GPT self-drafter against spec_k 0: the
-#   acceptance rate, tokens landed a dispatch and tokens/s;
+#   n-gram drafter, and FEAT_GPT_DRAFT of them with the GPT self-drafter,
+#   against spec_k 0: the acceptance rate, tokens landed a dispatch and
+#   tokens/s;
 # - int8 weights: the quantizing engine against an engine on the
 #   dequantized set (bf16), the dequant-at-use path; the weight bytes;
 # - int8 KV: against the bf16 pool: the pool bytes a token (within
@@ -2932,6 +2942,10 @@ def serve_phase() -> dict:
 FEAT_PAGE = 8
 FEAT_SYSTEM, FEAT_TAIL, FEAT_REQUESTS = 256, (16, 128), 16
 FEAT_SPEC, FEAT_K = 8, 4
+# The GPT self-drafter's run takes the first FEAT_GPT_DRAFT of the FEAT_SPEC
+# requests: it runs spec_k eager forwards a slot an iteration and accepts
+# ~0 on random weights, so more requests cost time and show nothing more.
+FEAT_GPT_DRAFT = 2
 FEAT_KV8_BYTES = (0.53, 0.54)   # (1 + 4/64) / 2 = 0.53125 at head dim 64
 FEAT_KV8_GAP_TOL = 0.5
 FEAT_CRASH_AT, FEAT_SWAP_AT = 40, 24
@@ -3023,16 +3037,17 @@ def serve_features_phase() -> dict:
     # Speculative decoding (the plain run is the later runs' reference).
     plain = _feat_run(model, first, ServeConfig(**base))
     spec = {}
-    for drafter in ("ngram", "gpt"):
-        r = _feat_run(model, first, ServeConfig(spec_k=FEAT_K, spec_drafter=drafter, **base))
+    for drafter, n in (("ngram", FEAT_SPEC), ("gpt", FEAT_GPT_DRAFT)):
+        r = _feat_run(model, first[:n], ServeConfig(spec_k=FEAT_K, spec_drafter=drafter,
+                                                     **base))
         st = r["stats"]
         spec[drafter] = {
-            "acceptance_rate": st["spec_acceptance_rate"],
+            "requests": n, "acceptance_rate": st["spec_acceptance_rate"],
             "tokens_per_dispatch": st["spec_tokens_per_dispatch"],
             "drafted": st["drafted_tokens"], "accepted": st["accepted_tokens"],
             "tokens_per_s": r["tokens_per_s"], "wall_s": r["wall_s"],
             "vs_plain": _against(model, first, plain["tokens"], r["tokens"],
-                                 range(FEAT_SPEC), f"spec_k {FEAT_K} {drafter} vs 0")}
+                                 range(n), f"spec_k {FEAT_K} {drafter} vs 0")}
         if not st["drafted_tokens"]:
             raise SystemExit(f"serve_features: the {drafter} drafter drafted nothing")
     spec["plain"] = {"tokens_per_s": plain["tokens_per_s"], "wall_s": plain["wall_s"]}
@@ -3179,6 +3194,332 @@ def serve_features_phase() -> dict:
           f"{hs['swap_blocked_s']:.6f}, staged in {hs['poll_stage_s']:.2f} s, late requests "
           f"differing {hs['late_vs_fresh']['differing']}; phase {out['seconds']:.1f} s",
           flush=True)
+    return out
+
+
+# The fleet phase: the serving fleet and its control room. Two replicas of
+# the port's serve_net (`python -m distributed_training_tpu_torch.tools.
+# serve_net --replica`, one process each, on the card) at GPT-2-small's
+# full width (FLEET_WIDTH: GPT-2's vocabulary of 50257, 12 layers, 12
+# heads, hidden 768, max_len 1024; float32, seeded random weights; paged
+# KV with the prefix cache on, serve_net's engine defaults, 8 greedy tokens
+# a request) under one ReplicaSupervisor, with their journals and fleet
+# traces on, behind a Router and its RouterFrontDoor in this process. At
+# most FLEET_MAX_STARTS replica processes start (the first two side by
+# side), each start's seconds printed. Four legs over
+# the same two replicas, in this order, each with a door of its own and
+# client-supplied trace ids (so no two legs' ids meet in the merged trace):
+# - "prefix": FLEET_REQUESTS shared_prefix requests (seed 0) replayed one
+#   at a time through the prefix policy; client TTFT and tokens/s, and the
+#   fleet's prefix-hit tokens (the replicas' /vars before and after);
+# - "failover": FLEET_FAILOVER_REQUESTS (seed 2) through a traced door
+#   whose chaos hook SIGKILLs the replica serving request FLEET_KILL_AT
+#   mid-stream (breaker threshold 1, cooldown 600 s): exactly 1 restart
+#   (journal recovery before the port line), 1 breaker open, 1 failover
+#   resume, 0 failed, 0 balance violations, 0 fleet-ledger violations;
+#   then the port's fleet_trace --check-failover over every trace file;
+# - "deploy": shared_prefix seed 1 at concurrency 4 with a rolling deploy
+#   mid-load: 0 failed, 0 stream mismatches, 2 deploys; each deploy's
+#   barrier flushes that replica's trie, so no page of seed 0 survives;
+# - "round_robin": leg "prefix"'s requests again through round_robin: the
+#   prefix policy must save more prefill positions, route some requests by
+#   prefix, and round_robin none.
+# Every leg must pass serve_net's own gate (row_ok). The token check: leg
+# "prefix"'s completions against one in-process replica (serve_net's
+# engine on this process's card, the same requests one at a time), under
+# the serve phase's near-tie gate. The control room: an in-process engine
+# on that model with FLEET_SLO_RULES over the degrading scenario at
+# --virtual-dt pacing and a queue bound that sheds; /timeseries and
+# /alerts scraped through attach_engine mid-run; at least one alert fired,
+# one incident bundle written, incident_report exit 0 on it and 2 on a
+# torn copy. No kernel of the port runs here (serving is a plain product).
+FLEET_WIDTH = ["--vocab-size", str(SERVE_VOCAB), "--num-layers", str(GPT_LAYERS),
+               "--num-heads", str(GPT_H), "--hidden-dim", str(GPT_H * GPT_D),
+               "--model-max-len", str(GPT_T), "--max-new-tokens", "8"]
+FLEET_REQUESTS, FLEET_FAILOVER_REQUESTS, FLEET_KILL_AT = 16, 12, 3
+FLEET_MAX_STARTS = 5
+FLEET_SLO_RULES = ("queue_pressure:queue_depth>2@3,10;"
+                   "shed_rate:requests_shed/requests_submitted>0.05@3,10")
+FLEET_ALERT_LOAD = dict(requests=64, rate=200.0, virtual_dt_ms=5.0, max_queue_depth=8,
+                        max_batch=4, mean_prompt_len=24, max_new_tokens=16,
+                        prefill_chunk=16, sample_every=2)
+
+
+def _fleet_scenario(name: str, seed: int, n: int, args) -> list:
+    from distributed_training_tpu_torch.tools.traffic import make_scenario
+
+    return make_scenario(name, seed=seed, requests=n, rate=args.rate,
+                         mean_prompt_len=args.mean_prompt_len,
+                         max_prompt_len=args.max_prompt_len,
+                         max_new_tokens=args.max_new_tokens, vocab_size=args.vocab_size,
+                         budget=args.max_len)
+
+
+def _fleet_leg(name: str, sup, serve_net, args, reqs: list, *, policy: str,
+               concurrency: int = 1, deploy: bool = False, kill_at: int = 0,
+               trace_dir: str | None = None, router_box: list) -> dict:
+    """One leg through a door of its own over the supervisor's replicas:
+    serve_net's SLA row, plus its wall seconds, tokens/s, client TTFT
+    (sequential legs), the fleet's prefix-hit tokens of this leg and the
+    door's results."""
+    import numpy as np
+
+    from distributed_training_tpu_torch.observability.trace import fleet_session
+    from distributed_training_tpu_torch.serving.router import HttpReplica, Router, RouterFrontDoor
+    from distributed_training_tpu_torch.tools.traffic import replay_over_http
+
+    router = Router([HttpReplica(h.url, name=h.name) for h in sup.handles], policy=policy,
+                    breaker_threshold=1, breaker_cooldown_s=600.0)
+    router_box[:] = [router]
+    killed = []
+
+    def hook(seq: int, delivered: int, replica) -> None:
+        if kill_at and not killed and seq == kill_at and delivered >= 1 and replica is not None:
+            killed.append(replica)
+            print(f"[fleet] {name}: SIGKILL replica {replica} mid-stream (request {seq}, "
+                  f"{delivered} tokens delivered)", flush=True)
+            sup.kill(replica)
+
+    trace, trace_path = fleet_session("door", trace_dir)
+    door = RouterFrontDoor(router, chaos_hook=hook if kill_at else None, trace=trace,
+                           trace_path=trace_path,
+                           supervisor_snapshot=sup.supervisor_snapshot).start()
+    hits0 = sum(serve_net.replica_stats(h.url)["prefix_cache_hit_tokens"] for h in sup.handles)
+    try:
+        deployer = None
+        if deploy:
+            def rolling_deploy() -> None:
+                time.sleep(0.5)  # mid-load: every replica has work
+                router.rolling_deploy()
+
+            deployer = threading.Thread(target=rolling_deploy, name="fleet-deploy",
+                                        daemon=True)
+            deployer.start()
+        ttft: list = []
+        t0 = time.perf_counter()
+        results = replay_over_http(door.url("/generate"), reqs, concurrency=concurrency,
+                                   timeout_s=300.0, trace_prefix=f"{name}-", ttft_ms=ttft)
+        wall = time.perf_counter() - t0
+        if deployer is not None:
+            deployer.join(timeout=300.0)
+        per_replica, balance = serve_net.settle_and_audit(sup, timeout_s=180.0)
+        row = serve_net.fleet_row(scenario=name, results=results, dropped=set(), router=router,
+                                  sup=sup, door=door, per_replica=per_replica,
+                                  balance_violations=balance, concurrency=concurrency,
+                                  wall_s=wall)
+    finally:
+        door.stop()
+    if trace is not None:
+        trace.save(trace_path)
+    if not serve_net.row_ok(row):
+        raise SystemExit(f"fleet: leg {name} failed serve_net's gate: {row}")
+    row["tokens_per_s"] = row["tokens_emitted"] / wall
+    # A restart starts its replica's counters afresh: no leg total then.
+    row["leg_prefix_hit_tokens"] = None if kill_at else row["prefix_cache_hit_tokens"] - hits0
+    if concurrency == 1 and not kill_at:  # client TTFT of the sequential legs
+        if None in ttft:
+            raise SystemExit(f"fleet: leg {name}: a request streamed no tokens: {ttft}")
+        row["ttft_p50_ms"] = float(np.percentile(ttft, 50))
+        row["ttft_p99_ms"] = float(np.percentile(ttft, 99))
+    print(f"[fleet] {name}: {json.dumps(row)}", flush=True)
+    return {"row": row, "results": results}
+
+
+def _control_room(model, args, work_dir: str) -> dict:
+    """The SLO drill in process (see FLEET_SLO_RULES): alerts, a bundle,
+    incident_report, /timeseries and /alerts scraped mid-run."""
+    import contextlib
+    import io
+    import urllib.request
+
+    from distributed_training_tpu_torch.config import ServeConfig
+    from distributed_training_tpu_torch.observability.exporter import attach_engine
+    from distributed_training_tpu_torch.resilience.errors import QueueFullError
+    from distributed_training_tpu_torch.serving import Engine
+    from distributed_training_tpu_torch.tools import incident_report
+    from distributed_training_tpu_torch.tools.traffic import make_scenario
+
+    a = FLEET_ALERT_LOAD
+    inc_dir = os.path.join(work_dir, "incidents")
+    eng = Engine(model, ServeConfig(
+        max_batch=a["max_batch"], max_new_tokens=a["max_new_tokens"], temperature=0.0,
+        prefill_chunk=a["prefill_chunk"], max_queue_depth=a["max_queue_depth"],
+        sample_every=a["sample_every"], slo_rules=FLEET_SLO_RULES, incident_dir=inc_dir))
+    load = make_scenario("degrading", seed=0, requests=a["requests"], rate=a["rate"],
+                         mean_prompt_len=a["mean_prompt_len"],
+                         max_prompt_len=eng.budget - a["max_new_tokens"],
+                         max_new_tokens=a["max_new_tokens"], vocab_size=args.vocab_size,
+                         budget=eng.budget)
+    exporter = attach_engine(eng, 0, component="fleet", printer=lambda m: None)
+    scraped, shed, it, sub = {}, 0, 0, 0
+    t0 = time.perf_counter()
+    try:
+        while sub < len(load):
+            vnow = it * a["virtual_dt_ms"] / 1e3
+            while sub < len(load) and load[sub].arrival_s <= vnow:
+                try:
+                    eng.submit(load[sub].prompt, max_new_tokens=load[sub].max_new_tokens)
+                except QueueFullError:
+                    shed += 1
+                sub += 1
+            eng.step()
+            it += 1
+            if sub == len(load) and not scraped:  # mid-run: the last arrivals queued
+                for path in ("/timeseries", "/alerts"):
+                    with urllib.request.urlopen(exporter.url(path), timeout=30.0) as resp:
+                        scraped[path] = json.loads(resp.read())
+        eng.drain()
+    finally:
+        exporter.close()
+    wall = time.perf_counter() - t0
+    eng.close_incidents()
+    eng.check_balanced()
+    stats = eng.stats()
+    bundles = sorted(os.listdir(inc_dir)) if os.path.isdir(inc_dir) else []
+    if not bundles:
+        raise SystemExit(f"fleet: the control room wrote no incident bundle: {stats}")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc_good = incident_report.main([inc_dir])
+    torn = os.path.join(work_dir, "torn.json")
+    with open(os.path.join(inc_dir, bundles[0])) as fh:
+        head = fh.read(256)
+    with open(torn, "w") as fh:
+        fh.write(head)
+    with contextlib.redirect_stderr(io.StringIO()):
+        rc_torn = incident_report.main([torn])
+    out = {"alerts_fired": stats["alerts_fired"], "alerts_cleared": stats["alerts_cleared"],
+           "incidents_captured": stats["incidents_captured"], "bundles": bundles,
+           "requests_shed": stats["requests_shed"], "shed_at_submit": shed,
+           "iterations": it, "wall_s": wall,
+           "log": [(e["event"], e["rule"], e["iteration"]) for e in eng.alerts.log],
+           "scraped": {"timeseries_samples": len(scraped["/timeseries"].get("samples", [])),
+                       "timeseries_fields": len(scraped["/timeseries"].get("fields", [])),
+                       "alerts_rules": [r["name"] for r in scraped["/alerts"]["rules"]]},
+           "incident_report_rc": rc_good, "torn_rc": rc_torn,
+           "report_head": buf.getvalue().splitlines()[:2]}
+    if not (stats["alerts_fired"] >= 1 and stats["incidents_captured"] >= 1
+            and rc_good == 0 and rc_torn == 2 and out["requests_shed"] > 0
+            and out["scraped"]["timeseries_samples"] > 0):
+        raise SystemExit(f"fleet: the control room failed: {out}")
+    print(f"[fleet] control room: {json.dumps(out)}", flush=True)
+    return out
+
+
+def fleet_phase(work_dir: str) -> dict:
+    """The serving fleet at GPT-2-small width (see FLEET_WIDTH)."""
+    import contextlib
+    import io
+    from concurrent.futures import ThreadPoolExecutor
+
+    from distributed_training_tpu_torch.serving.supervisor import ReplicaSupervisor
+    from distributed_training_tpu_torch.tools import fleet_trace, serve_net
+
+    t_phase = time.perf_counter()
+    os.makedirs(work_dir, exist_ok=True)
+    trace_dir = os.path.join(work_dir, "traces")
+    args = serve_net.build_parser().parse_args(
+        [*FLEET_WIDTH, "--journal-dir", os.path.join(work_dir, "journal"),
+         "--trace-dir", trace_dir])
+    starts: list = []
+    router_box: list = []
+
+    # The first two starts run side by side (each blocks on its port line);
+    # the supervisor takes them as its first spawns, and a restart starts anew.
+    with ThreadPoolExecutor(2) as pool:
+        first = dict(enumerate(pool.map(lambda i: serve_net.ReplicaProc(i, args), range(2))))
+
+    def spawn(i: int):
+        if len(starts) >= FLEET_MAX_STARTS:
+            raise SystemExit(f"fleet: more than {FLEET_MAX_STARTS} replica starts")
+        h = first.pop(i) if i in first else serve_net.ReplicaProc(i, args)
+        starts.append(round(h.start_s, 3))
+        print(f"[fleet] replica {h.name} start {len(starts)}: {h.start_s:.2f} s", flush=True)
+        return h
+
+    def on_restart(i: int, h) -> None:
+        if router_box:
+            router_box[0].replicas[i].url = h.url
+
+    out: dict = {"card": card_line()}
+    sup = ReplicaSupervisor(spawn, 2, on_restart=on_restart).start()
+    try:
+        prefix_reqs = _fleet_scenario("shared_prefix", 0, FLEET_REQUESTS, args)
+        # The kill before the deploy: a restarted replica comes up on the
+        # seeded weights (epoch -1), and its journal must have been
+        # written by that epoch, not the deploy's.
+        legs = {"prefix": _fleet_leg("prefix", sup, serve_net, args, prefix_reqs,
+                                     policy="prefix", router_box=router_box)}
+        legs["failover"] = _fleet_leg(
+            "failover", sup, serve_net, args,
+            _fleet_scenario("shared_prefix", 2, FLEET_FAILOVER_REQUESTS, args),
+            policy="prefix", kill_at=FLEET_KILL_AT, trace_dir=trace_dir,
+            router_box=router_box)
+        legs["deploy"] = _fleet_leg(
+            "deploy", sup, serve_net, args,
+            _fleet_scenario("shared_prefix", 1, FLEET_REQUESTS, args), policy="prefix",
+            concurrency=4, deploy=True, router_box=router_box)
+        legs["round_robin"] = _fleet_leg("round_robin", sup, serve_net, args, prefix_reqs,
+                                         policy="round_robin", router_box=router_box)
+    finally:
+        sup.stop()
+    rows = {k: v["row"] for k, v in legs.items()}
+    out["legs"] = rows
+    out["replica_start_s"] = starts
+    p, rr, dep, fo = rows["prefix"], rows["round_robin"], rows["deploy"], rows["failover"]
+    checks = {
+        "prefix beats round_robin on prefix-hit tokens":
+            p["leg_prefix_hit_tokens"] > rr["leg_prefix_hit_tokens"],
+        "prefix routes by prefix": p["router_prefix_routed"] > 0,
+        "round_robin routes none by prefix": rr["router_prefix_routed"] == 0,
+        "2 deploys, 0 failed, 0 mismatches": (dep["router_deploys_completed"] == 2
+                                              and dep["requests_failed"] == 0
+                                              and dep["stream_vs_done_mismatches"] == 0),
+        "1 restart, 1 breaker open, 1 resume": (fo["replica_restarts"] == 1
+                                                and fo["breaker_opens"] == 1
+                                                and fo["failover_resumes"] == 1),
+        "failover: 0 failed, 0 balance violations": (fo["requests_failed"] == 0
+                                                     and fo["balance_violations"] == 0),
+        "at most 5 starts": len(starts) <= FLEET_MAX_STARTS,
+    }
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = fleet_trace.main(["--dir", trace_dir, "-o", os.path.join(work_dir, "merged.json"),
+                               "--check-failover", "--slack-ms", "500"])
+    out["fleet_trace"] = buf.getvalue().strip().splitlines()
+    checks["fleet_trace --check-failover"] = rc == 0
+    out["checks"] = checks
+    if not all(checks.values()):
+        raise SystemExit(f"fleet: failed checks {[k for k, v in checks.items() if not v]}: "
+                         f"{out}")
+
+    # The token check: one in-process replica, the same requests one at a time.
+    in_args = serve_net.build_parser().parse_args(FLEET_WIDTH)
+    eng = serve_net.build_engine(in_args)
+    local = {}
+    for i, r in enumerate(prefix_reqs):
+        eng.submit(r.prompt, max_new_tokens=r.max_new_tokens)
+        local[i] = eng.run()[0].tokens.tolist()
+    door = {i: list(d["tokens"]) for i, d in enumerate(legs["prefix"]["results"])}
+    out["door_vs_in_process"] = _against(eng.model, [r.prompt for r in prefix_reqs], local, door,
+                                         range(len(prefix_reqs)), "fleet door vs in-process")
+    model = eng.model
+    del eng
+    out["control_room"] = _control_room(model, in_args, work_dir)
+    del model
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[fleet] {out['card']}: GPT-2-small float32, 2 replicas: prefix-hit tokens "
+          f"{p['leg_prefix_hit_tokens']} (prefix) against {rr['leg_prefix_hit_tokens']} "
+          f"(round_robin); through the door TTFT p50 {p['ttft_p50_ms']:.2f} / "
+          f"{rr['ttft_p50_ms']:.2f} ms, {p['tokens_per_s']:.1f} / {rr['tokens_per_s']:.1f} "
+          f"tokens/s; deploy leg {dep['router_deploys_completed']} deploys, "
+          f"{dep['tokens_per_s']:.1f} tokens/s at concurrency 4; failover "
+          f"{fo['replica_restarts']} restart, {fo['breaker_opens']} breaker open, "
+          f"{fo['failover_resumes']} resume; replica starts {starts} s; alerts "
+          f"{out['control_room']['alerts_fired']} fired, incidents "
+          f"{out['control_room']['incidents_captured']}; door vs in-process differing "
+          f"{out['door_vs_in_process']['differing']}; phase {out['seconds']:.1f} s", flush=True)
     return out
 
 
@@ -5439,7 +5780,7 @@ def mesh_main(parts: list | None = None) -> int:
 def phase_main(names: list) -> int:
     """``--phase NAME ...``: the build, then only the named phases (ring,
     moe_lm, moe_image, vit, pipeline, flight, trace, resilience, generate,
-    serve, serve_features),
+    serve, serve_features, fleet),
     for a short check of one part on the card; prints their results and no
     result line."""
     from distributed_training_tpu_torch.ops import cuda_build
@@ -5449,7 +5790,7 @@ def phase_main(names: list) -> int:
               "pipeline": lambda d: pipeline_phase(), "flight": flight_phase,
               "trace": trace_phase, "resilience": resilience_phase,
               "generate": generate_phase, "serve": lambda d: serve_phase(),
-              "serve_features": lambda d: serve_features_phase()}
+              "serve_features": lambda d: serve_features_phase(), "fleet": fleet_phase}
     if not names or any(n not in phases for n in names):
         print(f"chip_smoke --phase: name one or more of {sorted(phases)}", file=sys.stderr)
         return 2
@@ -5462,6 +5803,14 @@ def phase_main(names: list) -> int:
             print(f"[phase] {n} in {time.perf_counter() - t0:.1f} s: "
                   f"{json.dumps(out, default=str)[:4000]}", flush=True)
     return 0
+
+
+def _timed(name: str, phase, *args):
+    """Run one phase of the full script and print its seconds."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    print(f"[phase] {name} in {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
 
 
 def main() -> int:
@@ -5489,39 +5838,40 @@ def main() -> int:
               f"{' '.join(regs)}; bytes of spill stores {' '.join(spills)}")
     instantiations = wgmma_build_lines()
 
-    k = kernel_phase()
+    k = _timed("kernel", kernel_phase)
     with tempfile.TemporaryDirectory() as ckpt:
-        launches = train_phase(os.path.join(ckpt, "fp32"))
-        fp16_phase(os.path.join(ckpt, "fp16"))
-        bf16 = bf16_image_phase(os.path.join(ckpt, "bf16"))
-        dp = dp_phase(os.path.join(ckpt, "dp"))
-        flash = flash_kernel_phase()
-        ring = ring_phase()
-        lm = lm_phase(os.path.join(ckpt, "lm"))
-        lm16 = lm_fp16_phase(os.path.join(ckpt, "lm_fp16"))
-        cli_phase(os.path.join(ckpt, "cli"))
-        gpt = gpt_cli_phase(os.path.join(ckpt, "gpt_cli"))
-        moe_lm = moe_lm_phase(os.path.join(ckpt, "moe_lm"))
-        moe_img = moe_image_phase(os.path.join(ckpt, "moe_image"))
-        flight = flight_phase(os.path.join(ckpt, "flight"))
-        traced = trace_phase(os.path.join(ckpt, "trace"))
-        res = resilience_phase(os.path.join(ckpt, "resilience"))
-        generated = generate_phase(os.path.join(ckpt, "generate"))
-        served = serve_phase()
-        features = serve_features_phase()
+        launches = _timed("train", train_phase, os.path.join(ckpt, "fp32"))
+        _timed("fp16", fp16_phase, os.path.join(ckpt, "fp16"))
+        bf16 = _timed("bf16_image", bf16_image_phase, os.path.join(ckpt, "bf16"))
+        dp = _timed("dp", dp_phase, os.path.join(ckpt, "dp"))
+        flash = _timed("flash_kernel", flash_kernel_phase)
+        ring = _timed("ring", ring_phase)
+        lm = _timed("lm", lm_phase, os.path.join(ckpt, "lm"))
+        lm16 = _timed("lm_fp16", lm_fp16_phase, os.path.join(ckpt, "lm_fp16"))
+        _timed("cli", cli_phase, os.path.join(ckpt, "cli"))
+        gpt = _timed("gpt_cli", gpt_cli_phase, os.path.join(ckpt, "gpt_cli"))
+        moe_lm = _timed("moe_lm", moe_lm_phase, os.path.join(ckpt, "moe_lm"))
+        moe_img = _timed("moe_image", moe_image_phase, os.path.join(ckpt, "moe_image"))
+        flight = _timed("flight", flight_phase, os.path.join(ckpt, "flight"))
+        traced = _timed("trace", trace_phase, os.path.join(ckpt, "trace"))
+        res = _timed("resilience", resilience_phase, os.path.join(ckpt, "resilience"))
+        generated = _timed("generate", generate_phase, os.path.join(ckpt, "generate"))
+        served = _timed("serve", serve_phase)
+        features = _timed("serve_features", serve_features_phase)
+        fleet = _timed("fleet", fleet_phase, os.path.join(ckpt, "fleet"))
     # The new phases' in-process runs: K1 once a step, K2/K3 once a layer a
     # step (the resilience phase's subprocesses count in their own process).
     late_launches = {**traced["launches"], **res["launches"], **generated["launches"]}
-    pipe = pipeline_phase()
-    half = fp16_pad_phase()
-    d256 = d256_phase()
-    exp2 = exp2_phase()
-    k5 = conv_phase()
-    tool_launches, tool_results = tools_phase()
-    bench = bench_phase()
-    vit = vit_phase()
+    pipe = _timed("pipeline", pipeline_phase)
+    half = _timed("fp16_pad", fp16_pad_phase)
+    d256 = _timed("d256", d256_phase)
+    exp2 = _timed("exp2", exp2_phase)
+    k5 = _timed("conv", conv_phase)
+    tool_launches, tool_results = _timed("tools", tools_phase)
+    bench = _timed("bench", bench_phase)
+    vit = _timed("vit", vit_phase)
     with tempfile.TemporaryDirectory() as ckpt:
-        data = data_phase(ckpt)
+        data = _timed("data", data_phase, ckpt)
     bench_lm = {"bench_gpt2_small_adamw": bench["bench"],
                 "bench_gpt2_small_hybrid_adam": bench["bench --lm --lm-optimizer hybrid_adam"]}
 
@@ -5625,7 +5975,7 @@ def main() -> int:
     print(json.dumps({"flight": {k: v for k, v in flight.items() if k != "launches"}},
                      default=str))
     for tag, phase in (("trace", traced), ("resilience", res), ("generate", generated),
-                       ("serve", served), ("serve_features", features)):
+                       ("serve", served), ("serve_features", features), ("fleet", fleet)):
         print(json.dumps({tag: {k: v for k, v in phase.items() if k != "launches"}},
                          default=str))
     print(json.dumps({"kernels": kernels}))

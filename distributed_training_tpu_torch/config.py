@@ -5,11 +5,8 @@ Field names and defaults are the JAX package's, so a config written for
 one package means the same run in the other. The port keeps its own copy:
 importing anything of ``distributed_training_tpu`` would import JAX.
 
-Fields whose behaviour the port does not provide yet raise
-``NotImplementedError`` naming ROADMAP.md when set away from their
-defaults: ``ServeConfig``'s SLO rules and incident bundles
-(``serving/engine.py``). ``ChaosConfig.swap_error_rate`` is read by the
-serving hot swap's staging read (``serving/hotswap.py``), as in JAX.
+``ChaosConfig.swap_error_rate`` is read by the serving hot swap's staging
+read (``serving/hotswap.py``), as in JAX.
 """
 
 from __future__ import annotations
@@ -354,9 +351,8 @@ class ServeConfig:
     legacy engine one bucketed prefill family and one decode step, and
     any request mix is served without a new shape. The fields of the
     prefix cache, speculation, weight quantization, int8 KV pages, the
-    journal and the SLO alerting are validated here as in JAX; the
-    ``Engine`` serves all but the SLO alerting, which it refuses away
-    from its defaults (see ROADMAP.md).
+    journal and the SLO alerting are validated here as in JAX, and the
+    ``Engine`` serves them all.
     """
 
     # Decode slots, refilled from the queue at iteration boundaries.
@@ -415,8 +411,8 @@ class ServeConfig:
     quantize_weights: bool = False
     kv_dtype: str | None = None
     # The control room: the time-series ring's cadence and capacity (the
-    # engine samples it always); SLO rules and incident bundles (refused,
-    # ROADMAP.md A9 (c)).
+    # engine samples it always); SLO rules (serving/alerts.py's grammar,
+    # evaluated at each sample) and the incident bundles' directory.
     sample_every: int = 16
     timeseries_capacity: int = 1024
     slo_rules: str | None = None

@@ -8,7 +8,11 @@ the standard library's ``http.server`` alone:
   --prometheus`` also uses, so a scrape and a report of one run agree;
 - ``GET /healthz``: a small JSON object: status, the run's phase (the
   wall clock's open phase, or init/train/done), uptime, scrape count;
-- ``GET /vars``: the whole snapshot as strict JSON.
+- ``GET /vars``: the whole snapshot as strict JSON;
+- ``GET /timeseries`` and ``GET /alerts``: the serving control room's
+  sample ring and SLO alert log as strict JSON, where the owner registered
+  their providers (:func:`attach_engine` does); 404 otherwise, so the
+  trainers' exporter serves what it always did.
 
 Any other path answers 404 with the list of endpoints; a provider that
 raises answers 500, and the server goes on.
@@ -23,9 +27,9 @@ keep the process alive.
 
 ``TrainObservability`` owns one on rank 0 when
 ``ObservabilityConfig.metrics_port`` is set (both trainers, both CLIs'
-``--metrics-port``). The serving engine's ``/healthz`` extras,
-``/timeseries`` and ``/alerts`` and JAX's ``attach_engine`` come with the
-serving port (ROADMAP.md, A9).
+``--metrics-port``); the serving CLIs and ``tools/serve_bench.py`` attach
+one to an ``Engine`` through :func:`attach_engine`, and the front door
+(``serving/frontend.py``) answers its GETs through one.
 """
 
 from __future__ import annotations
@@ -52,9 +56,11 @@ class MetricsExporter:
     >>> exp.close()
 
     ``snapshot_provider`` returns the flight-snapshot dict;
-    ``phase_provider`` the phase for ``/healthz``. Both are called on the
-    handler's thread and read host values only (see the module
-    docstring).
+    ``phase_provider`` the phase for ``/healthz``, ``health_provider`` the
+    owner's extras there (the engine's weights epoch and counters), and
+    ``timeseries_provider`` / ``alerts_provider`` the bodies of
+    ``/timeseries`` and ``/alerts``. All are called on the handler's
+    thread and read host values only (see the module docstring).
 
     ``port=0`` binds a free port (:attr:`port` says which). A port in use
     raises ``OSError`` here, before the run starts. ``host`` defaults to
@@ -63,9 +69,15 @@ class MetricsExporter:
 
     def __init__(self, snapshot_provider: Callable[[], dict], *,
                  port: int, host: str = "127.0.0.1",
-                 phase_provider: Callable[[], str] | None = None):
+                 phase_provider: Callable[[], str] | None = None,
+                 health_provider: Callable[[], dict] | None = None,
+                 timeseries_provider: Callable[[], dict] | None = None,
+                 alerts_provider: Callable[[], dict] | None = None):
         self._provider = snapshot_provider
         self._phase = phase_provider or (lambda: "running")
+        self._health_extra = health_provider
+        self._timeseries = timeseries_provider
+        self._alerts = alerts_provider
         self._t0 = time.perf_counter()
         self.scrapes = 0  # /metrics requests served (in /healthz)
         exporter = self
@@ -122,6 +134,8 @@ class MetricsExporter:
                     "uptime_seconds": time.perf_counter() - self._t0,
                     "scrapes": self.scrapes,
                 }
+                if self._health_extra is not None:
+                    payload |= self._health_extra()
                 body = json.dumps(payload, allow_nan=False) + "\n"
                 ctype = "application/json"
             elif path == "/vars":
@@ -129,9 +143,20 @@ class MetricsExporter:
                 # as in a flight dump.
                 body = json.dumps(self._provider(), allow_nan=False) + "\n"
                 ctype = "application/json"
+            elif path == "/timeseries" and self._timeseries is not None:
+                body = json.dumps(self._timeseries(), allow_nan=False) + "\n"
+                ctype = "application/json"
+            elif path == "/alerts" and self._alerts is not None:
+                body = json.dumps(self._alerts(), allow_nan=False) + "\n"
+                ctype = "application/json"
             else:
+                endpoints = list(ENDPOINTS)
+                if self._timeseries is not None:
+                    endpoints.append("/timeseries")
+                if self._alerts is not None:
+                    endpoints.append("/alerts")
                 self._send(req, 404, "application/json", json.dumps(
-                    {"error": "not found", "endpoints": list(ENDPOINTS)}) + "\n")
+                    {"error": "not found", "endpoints": endpoints}) + "\n")
                 return
         except Exception as e:  # a bad snapshot must not stop the server
             self._send(req, 500, "text/plain; charset=utf-8",
@@ -151,3 +176,22 @@ class MetricsExporter:
             req.wfile.write(data)
         except (BrokenPipeError, ConnectionResetError):
             pass  # the scraper hung up mid-response
+
+
+def attach_engine(engine, port: int, *, component: str = "serve",
+                  host: str = "127.0.0.1",
+                  printer: Callable[[str], None] = print) -> MetricsExporter:
+    """A started exporter over a serving ``Engine`` (JAX's wiring, which
+    both serving CLIs share): snapshots from ``engine.flight_snapshot``
+    (no flush, no read of the card), the ``/healthz`` phase from
+    ``engine.phase`` and its extras from ``engine.health``, and the
+    control room's ``/timeseries`` and ``/alerts``."""
+    exporter = MetricsExporter(
+        engine.flight_snapshot, port=port, host=host,
+        phase_provider=lambda: engine.phase,
+        health_provider=engine.health,
+        timeseries_provider=engine.timeseries_snapshot,
+        alerts_provider=engine.alerts_snapshot).start()
+    printer(f"[{component}] live metrics: {exporter.url('')} "
+            f"(/metrics /healthz /vars /timeseries /alerts)")
+    return exporter

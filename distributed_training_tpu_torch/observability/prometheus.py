@@ -99,3 +99,64 @@ def prometheus_text(snap: dict) -> str:
     """The full exposition body (trailing newline included, per the
     Prometheus text-format contract)."""
     return "\n".join(prometheus_lines(snap)) + "\n"
+
+
+def merge_labeled_expositions(parts: list) -> list:
+    """JAX's merge, unchanged. Merge several Prometheus text expositions into ONE, injecting a
+    distinguishing label on every sample — the federated ``/fleet/
+    metrics`` surface (router front door) merges each replica's
+    ``/metrics`` body through this with ``('replica="r0"', text)``
+    pairs.
+
+    Families are grouped: ``# HELP``/``# TYPE`` headers are emitted
+    once (first writer wins), immediately before that family's samples,
+    and all replicas' samples of one family sit together — the
+    text-format contract scrapers rely on. Histogram samples
+    (``_bucket``/``_sum``/``_count``) group under their parent family.
+    The injected label is prepended to any labels a sample already
+    carries.
+    """
+    order: list = []
+    fams: dict = {}  # family -> {"headers": [...], "samples": [...]}
+
+    def fam_of(name: str) -> str:
+        for suffix in ("_bucket", "_sum", "_count"):
+            if name.endswith(suffix) and name[: -len(suffix)] in fams:
+                return name[: -len(suffix)]
+        return name
+
+    def slot(family: str) -> dict:
+        if family not in fams:
+            fams[family] = {"headers": [], "samples": []}
+            order.append(family)
+        return fams[family]
+
+    for label, text in parts:
+        for line in text.splitlines():
+            if not line.strip():
+                continue
+            if line.startswith("#"):
+                fields = line.split(" ", 3)
+                if len(fields) >= 3 and fields[1] in ("HELP", "TYPE"):
+                    s = slot(fields[2])
+                    if line not in s["headers"]:
+                        s["headers"].append(line)
+                continue
+            name_labels, _, value = line.rpartition(" ")
+            if not name_labels:
+                continue
+            if "{" in name_labels:
+                name, _, rest = name_labels.partition("{")
+                inner = rest.rstrip("}")
+                labeled = (f"{name}{{{label},{inner}}}" if inner
+                           else f"{name}{{{label}}}")
+            else:
+                name = name_labels
+                labeled = f"{name_labels}{{{label}}}"
+            slot(fam_of(name))["samples"].append(f"{labeled} {value}")
+    lines: list = []
+    for family in order:
+        lines.extend(fams[family]["headers"])
+        lines.extend(fams[family]["samples"])
+    return lines
+

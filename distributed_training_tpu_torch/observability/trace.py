@@ -177,11 +177,14 @@ class TraceSession:
     def save(self, path: str) -> str:
         """Write the trace to ``path`` (directories created; a temporary
         name and an atomic rename, so a crash mid-write leaves no torn
-        file); returns ``path``."""
+        file); returns ``path``. The temporary name is the calling
+        thread's own: a front door's handler threads checkpoint one trace
+        at once, and a shared name would let one rename another's file
+        away."""
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-        tmp = path + ".tmp"
+        tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
         with open(tmp, "w") as fh:
-            json.dump(self.to_json(), fh, allow_nan=False)
+            json.dump(self.to_json(), fh, allow_nan=False)  # graftlint: disable=scrape-safety -- json.dump serializes to a file handle; it mutates no recorder (the rule's name list means telemetry dump hooks)
         os.replace(tmp, path)
         return path
 
@@ -219,6 +222,32 @@ def session_for_cli(enabled: bool, trace_dir: str, component: str
     cfg = TraceConfig(enabled=True, dir=trace_dir)
     session = TraceSession(process_name=component, max_events=cfg.max_events)
     return session, os.path.join(cfg.dir, f"{component}_trace.json")
+
+
+def fleet_session(component: str, trace_dir: str | None, *,
+                  max_events: int | None = None
+                  ) -> tuple["TraceSession | None", str | None]:
+    """``(session, output_path)`` for one participant of a fleet (a
+    ``serve_net`` replica or the router's front door), or ``(None, None)``
+    when ``trace_dir`` is empty.
+
+    As JAX's: the session's pid is the process's real ``os.getpid()``, so a
+    replica killed and its successor land on two lanes, and the file is
+    ``<trace_dir>/<component>_pid<pid>_trace.json``, so a restart never
+    overwrites the dead process's file. ``tools/fleet_trace.py`` aligns
+    the files by each session's ``wall_time_origin`` and the door's and
+    replica's ``hop.send``/``hop.recv`` instants.
+    """
+    if not trace_dir:
+        return None, None
+    from distributed_training_tpu_torch.config import TraceConfig
+
+    cfg = TraceConfig(enabled=True, dir=trace_dir,
+                      **({} if max_events is None else {"max_events": max_events}))
+    pid = os.getpid()
+    session = TraceSession(pid=pid, process_name=f"{component} pid {pid}",
+                           max_events=cfg.max_events)
+    return session, os.path.join(cfg.dir, f"{component}_pid{pid}_trace.json")
 
 
 def load_trace(path: str) -> dict[str, Any]:

@@ -8,9 +8,12 @@ preempt-and-requeue), :class:`PagePool`, :class:`ServeTelemetry` and
 :class:`TelemetryRing`, the per-request :class:`LatencyLedger`, the radix
 :class:`PrefixCache`, the speculative drafters (``speculative.py``), int8
 weights (``quantize.py``), the :class:`RequestJournal` and the
-:class:`HotSwapper`. The CLI is ``gpt/torch_cuda/serve.py``. The SLO
-alerts and the fleet (front door, router, supervisor) are not ported yet
-(ROADMAP.md A9 (c)).
+:class:`HotSwapper`; the control room (:class:`AlertEngine` over SLO
+rules, the :class:`IncidentWriter`) and the fleet: the SSE front door of
+one engine (:class:`ServingFrontend`), the cache-aware :class:`Router`
+behind a :class:`RouterFrontDoor` over :class:`HttpReplica` clients, and the
+:class:`ReplicaSupervisor`. The CLIs are ``gpt/torch_cuda/serve.py`` and
+``python -m distributed_training_tpu_torch.tools.serve_net``.
 """
 
 from distributed_training_tpu_torch.resilience.errors import (  # noqa: F401
@@ -19,7 +22,15 @@ from distributed_training_tpu_torch.resilience.errors import (  # noqa: F401
     QueueFullError,
     SwapError,
 )
+from distributed_training_tpu_torch.serving.alerts import (  # noqa: F401
+    AlertEngine,
+    IncidentWriter,
+    SLORule,
+    default_rules,
+    parse_slo_rules,
+)
 from distributed_training_tpu_torch.serving.engine import Engine  # noqa: F401
+from distributed_training_tpu_torch.serving.frontend import ServingFrontend  # noqa: F401
 from distributed_training_tpu_torch.serving.hotswap import (  # noqa: F401
     HotSwapper,
     committed_epochs,
@@ -58,10 +69,18 @@ from distributed_training_tpu_torch.serving.request import (  # noqa: F401
     FinishedRequest,
     Request,
 )
+from distributed_training_tpu_torch.serving.router import (  # noqa: F401
+    HttpReplica,
+    Router,
+    RouterFrontDoor,
+)
 from distributed_training_tpu_torch.serving.scheduler import SlotScheduler  # noqa: F401
 from distributed_training_tpu_torch.serving.speculative import (  # noqa: F401
     GPTDrafter,
     NGramDrafter,
+)
+from distributed_training_tpu_torch.serving.supervisor import (  # noqa: F401
+    ReplicaSupervisor,
 )
 from distributed_training_tpu_torch.serving.timeseries import (  # noqa: F401
     TelemetryRing,

@@ -79,9 +79,15 @@ The serving features, each JAX's:
   parameter set is installed at the next iteration boundary; in-flight
   requests keep their slots, pages and streams.
 
-Not ported yet (ROADMAP.md A9 (c)), refused away from their defaults
-with ``NotImplementedError``: SLO rules and incident bundles. With no
-rules the ``alerts_*`` counts are 0, as in JAX.
+The control room, JAX's: at every ``sample_every`` iterations the engine
+appends a sample of host counters and gauges to its time-series ring,
+evaluates the SLO rules (``slo_rules``; ``serving/alerts.py``) over it,
+and hands each firing rule's incident bundle to the
+:class:`IncidentWriter`'s thread (``incident_dir``), so ``step`` opens no
+file. With no rules the ``alerts_*`` counts are 0. A front door
+(``serving/frontend.py``) drives one engine over HTTP through
+:meth:`set_token_listener`, :meth:`probe_snapshot` and the admission
+methods.
 """
 
 from __future__ import annotations
@@ -104,6 +110,11 @@ from distributed_training_tpu_torch.inference.sampler import (
 )
 from distributed_training_tpu_torch.parallel.ring_attention import PagedKV
 from distributed_training_tpu_torch.resilience.errors import SwapError
+from distributed_training_tpu_torch.serving.alerts import (
+    AlertEngine,
+    IncidentWriter,
+    parse_slo_rules,
+)
 from distributed_training_tpu_torch.serving.journal import RequestJournal, perf_of
 from distributed_training_tpu_torch.serving.ledger import (
     CAUSE_CANCELLED,
@@ -153,30 +164,6 @@ from distributed_training_tpu_torch.serving.timeseries import (
     TelemetryRing,
 )
 
-# The empty alert engine's JSON view (JAX's ``AlertEngine([]).to_dict()``):
-# the flight dump's ``alerts`` section with no rules configured.
-_NO_ALERTS = {"format_version": 1, "rules": [], "fired": 0, "cleared": 0,
-              "active": [], "log_dropped": 0, "log": []}
-
-
-def unported_serve_fields(cfg: ServeConfig) -> dict[str, bool]:
-    """The ``ServeConfig`` options the port lacks, each with whether
-    ``cfg`` sets it away from its default."""
-    return {
-        "slo_rules (SLO alerting, A9 (c))": cfg.slo_rules is not None,
-        "incident_dir (incident bundles, A9 (c))": cfg.incident_dir is not None,
-    }
-
-
-def refuse_unported_serve(cfg: ServeConfig) -> None:
-    """Raise ``NotImplementedError`` naming ROADMAP.md for every option of
-    ``cfg`` set to a behaviour the port lacks."""
-    bad = [k for k, v in unported_serve_fields(cfg).items() if v]
-    if bad:
-        raise NotImplementedError(
-            f"not ported yet (see ROADMAP.md): {', '.join(bad)}")
-
-
 class Engine:
     """Continuous-batching serving engine for a ``TransformerLM``.
 
@@ -196,7 +183,6 @@ class Engine:
     def __init__(self, model: Any, cfg: ServeConfig, *, trace=None,
                  weights_epoch: int = -1, drafter=None):
         check_unsharded(model)
-        refuse_unported_serve(cfg)
         self.cfg = cfg
         self.trace = trace
         self.model = model.eval()
@@ -332,10 +318,16 @@ class Engine:
         self._recovering = False
         self.recovery_report: dict[str, Any] | None = None
         self.telemetry = ServeTelemetry(cfg.ring_size, num_tiers=cfg.num_tiers)
-        # The control room's sample ring (iteration cadence), built always;
-        # flight snapshots and dumps carry it.
+        # The control room (iteration cadence, never wall time): the sample
+        # ring, the SLO rules evaluated at each sample, and the incident
+        # writer's thread that owns the disk. A bad rule spec fails here,
+        # before the engine serves.
         self.timeseries = TelemetryRing(cfg.timeseries_capacity,
                                         cfg.sample_every)
+        self.alerts = AlertEngine(
+            parse_slo_rules(cfg.slo_rules) if cfg.slo_rules else [])
+        self.incidents: IncidentWriter | None = (
+            IncidentWriter(cfg.incident_dir) if cfg.incident_dir else None)
         self._iteration = 0
         # The front door's per-iteration token listener and its cursors.
         self._token_listener = None
@@ -1419,7 +1411,9 @@ class Engine:
     def _sample_telemetry(self, it: int) -> None:
         """One control-room sample (iteration cadence): a flat sample of
         host-side counters and gauges into the time-series ring, with
-        JAX's columns. No device read, no file."""
+        JAX's columns; the SLO rules evaluated over it, and one incident
+        bundle enqueued a rule that fired. No device read, no file (the
+        incident writer's thread owns the disk)."""
         tm = self.telemetry
         sample: dict[str, float] = {
             "iteration": it,
@@ -1461,6 +1455,21 @@ class Engine:
                 suffix = f"{i:02d}" if i < len(hist.bounds) else "inf"
                 sample[f"{prefix}_le_{suffix}"] = n
         self.timeseries.record_sample(sample)
+        for event in self.alerts.evaluate(self.timeseries, it):
+            if self.incidents is not None:
+                # One bundle a fire: the alert, the alert log, the newest
+                # samples and a flight snapshot without the control-room
+                # sections (the bundle carries them at its top level).
+                self.incidents.capture(event["rule"], {
+                    "format_version": 1,
+                    "alert": event,
+                    "alerts": self.alerts.to_dict(),
+                    "timeseries": self.timeseries.to_dict(
+                        last_n=TIMESERIES_DUMP_SAMPLES),
+                    "flight": self.telemetry.snapshot(
+                        reason=f"incident:{event['rule']}",
+                        stats=self.stats()),
+                })
 
     def _trace_finish(self, fin: FinishedRequest) -> None:
         """A request's terminal trace events: its decode span and a finish
@@ -1701,7 +1710,8 @@ class Engine:
     def stats(self) -> dict[str, Any]:
         """The SLA summary with JAX's keys: the telemetry's, the queue's
         admission and degradation counters, the journal's, the trie's
-        gauge, and the alerts' (0: SLO rules are not ported)."""
+        gauge, and the alerts' and incidents' lifetime counts (0 without
+        rules)."""
         stats = self.telemetry.stats()
         stats["queue_depth_max"] = max(stats["queue_depth_max"], self.queue.depth_max)
         stats["requests_submitted"] = self.queue.submitted
@@ -1717,18 +1727,21 @@ class Engine:
         stats["weights_epoch"] = int(self.weights_epoch)
         stats["prefix_cache_pages_held"] = (self.prefix_cache.num_pages
                                             if self.prefix_cache is not None else 0)
-        stats["alerts_fired"] = 0
-        stats["alerts_cleared"] = 0
-        stats["alerts_active"] = 0
-        stats["incidents_captured"] = 0
+        stats["alerts_fired"] = self.alerts.fired
+        stats["alerts_cleared"] = self.alerts.cleared
+        stats["alerts_active"] = len(self.alerts.active)
+        stats["incidents_captured"] = (self.incidents.captured
+                                       if self.incidents is not None else 0)
         return stats
 
     def reset_stats(self) -> None:
         """A fresh telemetry window (after a warm-up pass, say); slot state
         and page allocations are untouched. The ledger's lifetime
         histograms and conservation audit carry over, and so do the
-        recovery counters and the quantization gauges (facts of the
-        engine, not of a window)."""
+        recovery counters, the quantization gauges and the alert engine
+        and incident writer (facts of the engine, not of a window: an alert
+        that fired before a warm-up reset did fire). The sample ring starts
+        afresh."""
         old = self.telemetry
         self.telemetry = ServeTelemetry(self.cfg.ring_size, num_tiers=self.cfg.num_tiers)
         self.telemetry.on_recovered(old.requests_recovered,
@@ -1742,9 +1755,10 @@ class Engine:
         self._iteration = 0
 
     def _control_room_sections(self) -> dict[str, Any]:
-        """The ``alerts`` (none configured) and ``timeseries`` sections of
-        flight snapshots and dumps."""
-        return {"alerts": {**_NO_ALERTS, "active": [], "log": []},
+        """The ``alerts`` and ``timeseries`` sections of flight snapshots
+        and dumps (both packages' ``flight_report`` and ``incident_report``
+        read these shapes)."""
+        return {"alerts": self.alerts.to_dict(),
                 "timeseries": self.timeseries.to_dict(last_n=TIMESERIES_DUMP_SAMPLES)}
 
     def flight_snapshot(self, *, reason: str = "scrape") -> dict[str, Any]:
@@ -1759,3 +1773,21 @@ class Engine:
         self.telemetry.flush(self._iteration, len(self.queue), self.scheduler.num_active)
         return self.telemetry.dump(path, reason=reason, stats=self.stats(),
                                    extra_sections=self._control_room_sections())
+
+    def timeseries_snapshot(self) -> dict[str, Any]:
+        """The ring's JSON view for the exporter's ``/timeseries``: a
+        scrape copies rows and changes nothing."""
+        return self.timeseries.to_dict(last_n=TIMESERIES_DUMP_SAMPLES)
+
+    def alerts_snapshot(self) -> dict[str, Any]:
+        """The alert engine's JSON view (rules, counts, active set, event
+        log) for the exporter's ``/alerts``; rules are evaluated on the
+        engine's thread alone."""
+        return self.alerts.to_dict()
+
+    def close_incidents(self) -> None:
+        """Write out the queued incident bundles and stop the writer's
+        thread (idempotent; nothing without ``incident_dir``). Callers run
+        it at exit, after the last iteration, as ``journal.shutdown()``."""
+        if self.incidents is not None:
+            self.incidents.shutdown()

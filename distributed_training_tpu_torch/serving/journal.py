@@ -364,7 +364,7 @@ class RequestJournal:
             d = rec.get("d", {})
             self._max_uid = max(self._max_uid,
                                 int(d.pop("_journal_max_uid", -1)))
-            self._notes.update(d)
+            self._notes |= d
         # Unknown kinds are skipped: a newer writer's extra record types
         # must not brick an older reader's recovery.
 

@@ -22,9 +22,11 @@ KV pages (``--quantize-weights``, ``--kv-dtype int8``), the write-ahead
 journal (``--journal-dir``: a restart replays it, redelivers finished
 results, resumes the unfinished and skips the prompt lines already
 consumed) and the live hot swap (``--watch-ckpt-dir``: SIGHUP polls now,
-SIGUSR1 rolls back). Those of the features not ported yet raise
-``NotImplementedError`` naming ROADMAP.md when set away from their
-defaults: ``--slo-rules``, ``--incident-dir`` and ``--metrics-port``.
+SIGUSR1 rolls back), the live endpoints (``--metrics-port``: ``/metrics``,
+``/healthz``, ``/vars``, ``/timeseries``, ``/alerts``) and the control
+room (``--slo-rules``, ``--incident-dir``: one bundle a fired alert, which
+``python -m distributed_training_tpu_torch.tools.incident_report``
+renders).
 
     echo -e "The \\nOnce upon" | python gpt/torch_cuda/serve.py \\
         -c ./checkpoint --max-batch 8 --max-new-tokens 64
@@ -39,8 +41,6 @@ import sys
 
 # Run as a script from this directory: the repo root holds the package.
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))))
-
-NOT_PORTED = "not ported yet (see ROADMAP.md, A9 (c))"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -142,11 +142,19 @@ def build_parser() -> argparse.ArgumentParser:
                         help="write each completed request's latency ledger "
                              "(serving/ledger.py) as one strict-JSON list")
     parser.add_argument("--metrics-port", type=int, default=None,
-                        help=f"live telemetry endpoints ({NOT_PORTED})")
+                        help="live telemetry: /metrics (Prometheus text), "
+                             "/healthz, /vars, /timeseries and /alerts "
+                             "while the engine serves (loopback; 0 = a "
+                             "free port)")
     parser.add_argument("--slo-rules", type=str, default=None,
-                        help=f"SLO burn-rate alerting ({NOT_PORTED})")
+                        help="SLO burn-rate alerting: 'default' or "
+                             "';'-separated name:metric[/den]>objective"
+                             "[@fast,slow][xBURN][~CLEAR] clauses "
+                             "(serving/alerts.py), evaluated every "
+                             "--sample-every iterations")
     parser.add_argument("--incident-dir", type=str, default=None,
-                        help=f"incident bundles ({NOT_PORTED})")
+                        help="one incident bundle a fired alert, written "
+                             "off the serving loop; needs --slo-rules")
     parser.add_argument("--sample-every", type=int, default=16,
                         help="time-series sample cadence in iterations")
     parser.add_argument("--trace", action=argparse.BooleanOptionalAction,
@@ -191,25 +199,12 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def refused_flags(args: argparse.Namespace) -> list[str]:
-    """The flags of unported features set away from their defaults."""
-    flags = {
-        "--slo-rules": args.slo_rules is not None,
-        "--incident-dir": args.incident_dir is not None,
-        "--metrics-port": args.metrics_port is not None,
-    }
-    return [k for k, v in flags.items() if v]
-
-
 def decode_bytes(toks) -> str:
     return bytes(int(t) % 256 for t in toks).decode("utf-8", errors="replace")
 
 
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
-    refused = refused_flags(args)
-    if refused:
-        raise NotImplementedError(f"{', '.join(refused)}: {NOT_PORTED}")
 
     import numpy as np
 
@@ -219,6 +214,7 @@ def main(argv: list[str] | None = None) -> int:
         moe_kwargs_from_flags,
     )
     from distributed_training_tpu_torch.inference.sampler import CacheBudgetError
+    from distributed_training_tpu_torch.observability.exporter import attach_engine
     from distributed_training_tpu_torch.observability.trace import session_for_cli
     from distributed_training_tpu_torch.runtime.preemption import PreemptionGuard
     from distributed_training_tpu_torch.serving import (
@@ -286,6 +282,8 @@ def main(argv: list[str] | None = None) -> int:
         journal_fsync=args.journal_fsync,
         journal_segment_bytes=args.journal_segment_bytes,
         sample_every=args.sample_every,
+        slo_rules=args.slo_rules,
+        incident_dir=args.incident_dir,
         seed=args.seed,
     ), trace=trace, weights_epoch=restored_epoch)
 
@@ -307,6 +305,14 @@ def main(argv: list[str] | None = None) -> int:
             signal_mod.signal(signal_mod.SIGUSR1, lambda *_: swapper.request_rollback())
         log(f"hot-swap watcher on {watch_dir} (every {args.watch_interval:g}s; "
             f"SIGHUP = poll now, SIGUSR1 = rollback)")
+
+    # The live endpoints read host state the loop already holds
+    # (flight_snapshot never flushes or reads the card); up before the
+    # replay, so /healthz reads 'recovering' while it runs.
+    exporter = None
+    if args.metrics_port is not None:
+        exporter = attach_engine(engine, args.metrics_port, component="serve",
+                                 printer=log)
 
     # The journal's replay comes before the prompt stream: finished but
     # unacked results are redelivered once, unfinished requests re-seat,
@@ -393,6 +399,11 @@ def main(argv: list[str] | None = None) -> int:
             f"ttft p50 {stats['ttft_p50_ms']:.1f} / p95 {stats['ttft_p95_ms']:.1f} ms | "
             f"tpot p50 {stats['tpot_p50_ms']:.2f} / p95 {stats['tpot_p95_ms']:.2f} ms | "
             f"queue depth max {stats['queue_depth_max']}")
+        if args.slo_rules:
+            log(f"alerts: {stats['alerts_fired']} fired, "
+                f"{stats['alerts_cleared']} cleared, "
+                f"{stats['alerts_active']} active | "
+                f"incidents {stats['incidents_captured']}")
     if args.ledger_out:
         n_rows, bad = dump_ledgers(args.ledger_out, done)
         log(f"latency ledgers: {args.ledger_out} ({n_rows} requests, "
@@ -400,9 +411,16 @@ def main(argv: list[str] | None = None) -> int:
     if args.flight_dump:
         engine.dump_flight(args.flight_dump)
         log(f"flight record: {args.flight_dump}")
+    # Every captured bundle on disk before exit (as journal.shutdown).
+    engine.close_incidents()
+    if engine.incidents is not None:
+        log(f"incidents: {args.incident_dir} ({engine.incidents.captured} captured, "
+            f"{engine.incidents.write_errors} write error(s))")
     if trace is not None:
         trace.save(trace_path)
         log(f"trace: {trace_path} ({len(trace)} events)")
+    if exporter is not None:
+        exporter.close()
     return 0
 
 

@@ -82,7 +82,10 @@ def test_every_module_imports_with_jax_blocked():
                 "serving.scheduler", "serving.pages", "serving.request",
                 "serving.ledger", "serving.metrics", "serving.timeseries",
                 "serving.prefix_cache", "serving.speculative", "serving.quantize",
-                "serving.journal", "serving.hotswap"):
+                "serving.journal", "serving.hotswap", "serving.alerts", "serving.httpbody",
+                "serving.frontend", "serving.router", "serving.supervisor",
+                "tools.traffic", "tools.serve_bench", "tools.serve_net", "tools.fleet_trace",
+                "tools.incident_report", "tools.profile_step"):
         assert f"distributed_training_tpu_torch.{new}" in mods
 
 
@@ -108,10 +111,11 @@ def test_the_clis_import_with_jax_blocked():
 
 def test_serve_cli_imports_with_jax_blocked():
     """``gpt/torch_cuda/serve.py`` loads and parses its defaults (the card
-    as the device) and the serving features' flags (``--spec-k``,
-    ``--prefix-cache``, ...), and refuses a flag still unported before
-    building anything, in a process where importing JAX or the JAX
-    package fails."""
+    as the device), the serving features' flags (``--spec-k``,
+    ``--prefix-cache``, ...) and the control room's (``--metrics-port``,
+    ``--slo-rules``, ``--incident-dir``), and the fleet's modules and the
+    serving tools import and parse their defaults (the card as the
+    device), in a process where importing JAX or the JAX package fails."""
     code = (
         "import sys, importlib.util\n"
         "for name in %r: sys.modules[name] = None\n"
@@ -121,16 +125,22 @@ def test_serve_cli_imports_with_jax_blocked():
         "assert m.build_parser().parse_args([]).device == 'cuda'\n"
         "a = m.build_parser().parse_args(['--spec-k', '2', '--prefix-cache', '--spec-drafter',\n"
         "                                 'gpt', '--quantize-weights', '--kv-dtype', 'int8'])\n"
-        "assert a.spec_k == 2 and a.prefix_cache and not m.refused_flags(a)\n"
-        "try:\n"
-        "    m.main(['--metrics-port', '0'])\n"
-        "except NotImplementedError as e:\n"
-        "    assert 'ROADMAP.md' in str(e)\n"
-        "else:\n"
-        "    raise AssertionError('--metrics-port was not refused')\n"
+        "assert a.spec_k == 2 and a.prefix_cache\n"
+        "a = m.build_parser().parse_args(['--metrics-port', '0', '--slo-rules', 'default',\n"
+        "                                 '--incident-dir', 'inc'])\n"
+        "assert (a.metrics_port, a.slo_rules, a.incident_dir) == (0, 'default', 'inc')\n"
         "import distributed_training_tpu_torch.serving.speculative\n"
         "import distributed_training_tpu_torch.serving.prefix_cache\n"
         "import distributed_training_tpu_torch.serving\n"
+        "from distributed_training_tpu_torch.serving import (AlertEngine, ServingFrontend,\n"
+        "    Router, RouterFrontDoor, ReplicaSupervisor, parse_slo_rules)\n"
+        "from distributed_training_tpu_torch.serving.httpbody import read_body\n"
+        "from distributed_training_tpu_torch.observability.exporter import attach_engine\n"
+        "from distributed_training_tpu_torch.tools import (serve_bench, serve_net, traffic,\n"
+        "    fleet_trace, incident_report, profile_step)\n"
+        "for tool in (serve_bench, serve_net, profile_step):\n"
+        "    assert tool.build_parser().parse_args([]).device == 'cuda'\n"
+        "assert len(traffic.SCENARIOS) == 9 and len(parse_slo_rules('default')) == 7\n"
         "assert not any(k.split('.')[0] in %r for k, v in sys.modules.items() if v is not None)\n"
     ) % (FORBIDDEN, os.path.join(REPO, "gpt", "torch_cuda", "serve.py"), FORBIDDEN)
     r = subprocess.run([sys.executable, "-c", code], env=dict(os.environ, PYTHONPATH=REPO),

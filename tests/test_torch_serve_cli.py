@@ -3,9 +3,9 @@ the CPU (``--device cpu``) over a checkpoint the port's GPT CLI wrote:
 the completions in submission order (greedy, each equal to the port's
 ``Generator`` on the restored model), ``--json``, ``--ledger-out``,
 ``--flight-dump`` through the port's ``flight_report``, the SIGTERM
-drain in a subprocess, the serving features' flags, the flags still
-refused (ROADMAP.md A9 (c)), and no CPU fallback without ``--device
-cpu``.
+drain in a subprocess, the serving features' and the control room's
+flags (``--slo-rules``, ``--incident-dir``, ``--metrics-port``), and no
+CPU fallback without ``--device cpu``.
 """
 
 import importlib.util
@@ -134,26 +134,23 @@ def test_sigterm_drains_and_writes_a_valid_dump(ckpt, tmp_path):
     assert snap["serving"]["drained"] is True
 
 
-REFUSED = [["--slo-rules", "default"], ["--incident-dir", "i"], ["--metrics-port", "0"]]
-
-
-@pytest.mark.parametrize("flag", REFUSED, ids=[f[0] for f in REFUSED])
-def test_refused_flag_raises(serve_cli, flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        serve_cli.main(["--device", "cpu", *flag])
-
-
 PORTED = [["--prefix-cache"], ["--spec-k", "2"], ["--quantize-weights"],
-          ["--kv-dtype", "int8"], ["--journal-dir", "{tmp}/j"], ["--watch-ckpt-dir", "{ckpt}"]]
+          ["--kv-dtype", "int8"], ["--journal-dir", "{tmp}/j"], ["--watch-ckpt-dir", "{ckpt}"],
+          ["--slo-rules", "default", "--flight-dump", "{tmp}/f.json"],
+          ["--incident-dir", "{tmp}/inc", "--slo-rules", "queued:queue_depth>0.5@1,1",
+           "--sample-every", "1"],
+          ["--metrics-port", "0"]]
 
 
 @pytest.mark.parametrize("flag", PORTED, ids=[f[0] for f in PORTED])
 def test_ported_flag_runs(serve_cli, ckpt, served, flag, tmp_path):
-    """Each serving feature's flag runs the CLI to the end over the same
-    prompts: the prefix cache, speculation, the journal and the watcher
-    (with nothing newer to install) print the plain run's completions; a
-    second run over the same journal skips the lines it consumed and
-    redelivers nothing it acked."""
+    """Each serving flag runs the CLI to the end over the same prompts:
+    the prefix cache, speculation, the journal, the watcher (with nothing
+    newer to install) and the control room's flags print the plain run's
+    completions; a second run over the same journal skips the lines it
+    consumed and redelivers nothing it acked; the default SLO rules stand
+    in the flight dump and fire nothing; a rule over the queue writes its
+    incident bundle; ``--metrics-port`` serves while the CLI runs."""
     import contextlib
     import io
 
@@ -174,7 +171,8 @@ def test_ported_flag_runs(serve_cli, ckpt, served, flag, tmp_path):
     stats = json.loads(out.splitlines()[-1])
     assert stats["requests_finished"] == 3
     lines = [ln for ln in out.splitlines() if ln.startswith("[serve] #")]
-    if flag[0] in ("--prefix-cache", "--spec-k", "--journal-dir", "--watch-ckpt-dir"):
+    if flag[0] in ("--prefix-cache", "--spec-k", "--journal-dir", "--watch-ckpt-dir",
+                   "--slo-rules", "--incident-dir", "--metrics-port"):
         want = [ln for ln in served["stdout"].splitlines() if ln.startswith("[serve] #")]
         strip = [ln.split(" (")[0] + ln.split("):", 1)[1] for ln in lines]
         assert strip == [ln.split(" (")[0] + ln.split("):", 1)[1] for ln in want]
@@ -187,6 +185,15 @@ def test_ported_flag_runs(serve_cli, ckpt, served, flag, tmp_path):
         assert "hot-swap: 0 armed / 0 rejected" in err
     if flag[0] == "--quantize-weights":
         assert stats["quantized_params_bytes"] > 0 and stats["weight_quant_s"] > 0
+    if flag[0] == "--slo-rules":
+        dump = json.load(open(tmp_path / "f.json"))
+        assert len(dump["alerts"]["rules"]) == 7 and stats["alerts_fired"] == 0
+    if flag[0] == "--incident-dir":
+        assert stats["alerts_fired"] == stats["incidents_captured"] == 1
+        assert os.listdir(tmp_path / "inc") == ["incident_000_queued.json"]
+        assert "incidents: " in err and "(1 captured, 0 write error(s))" in err
+    if flag[0] == "--metrics-port":
+        assert "[serve] live metrics: http://127.0.0.1:" in err
 
 
 def test_no_cpu_fallback_without_a_card(serve_cli, tmp_path):

@@ -17,15 +17,16 @@ through ``bridge.py``), six prompts through two slots:
 3. **Mechanics** as JAX pins them: the oversubscribed pool, EOS eviction,
    the one-token budget, drain, the bounded queue, both deadlines, the
    KV accounting, ``stats()``'s keys (JAX's set), the flight dump through
-   the port's ``flight_report``, one device read an iteration, one
-   refusal test per option still unported (A9 (c)), and one test per
-   serving feature and engine method ported since.
+   the port's ``flight_report``, one device read an iteration, and one
+   test per serving option (the features, the SLO rules and the incident
+   bundles) and engine method.
 
 Token comparisons are exact; the tests share engines in module fixtures.
 """
 
 import dataclasses
 import json
+import os
 import time
 
 import jax
@@ -54,7 +55,6 @@ from distributed_training_tpu_torch.serving import (
     Engine,
     QueueFullError,
 )
-from distributed_training_tpu_torch.serving.engine import unported_serve_fields
 from distributed_training_tpu_torch.tools import flight_report
 
 torch.set_num_threads(1)
@@ -375,33 +375,26 @@ def test_trace_draws_slot_tracks(lm, prompts):
     assert {"queued", "prefill", "prefill_chunk", "decode", "first_token"} <= names
 
 
-REFUSED = {"slo_rules": "default", "incident_dir": "incidents"}
-
-
-@pytest.mark.parametrize("field", list(REFUSED))
-def test_refused_option_raises(lm, field):
-    kw = {field: REFUSED[field]}
-    if field == "incident_dir":
-        kw["slo_rules"] = "default"  # JAX's validation: no dir without rules
-    cfg = ServeConfig(**kw)
-    assert any(unported_serve_fields(cfg).values())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        Engine(lm, cfg)
-
-
+# A rule that burns while anything waits: six prompts on two slots queue.
+QUEUED = "queued:queue_depth>0.5@1,1"
 PORTED = {"prefix_cache": True, "spec_k": 2, "quantize_weights": True, "kv_dtype": "int8",
-          "journal_dir": "journal"}
+          "journal_dir": "journal", "slo_rules": "default", "incident_dir": "incidents"}
 
 
 @pytest.mark.parametrize("field", list(PORTED))
 def test_ported_option_runs(field, prompts, batched_greedy, tmp_path):
-    """Each serving feature runs through the engine: the prefix cache,
-    speculation and the journal give the plain engine's tokens; the int8
-    weights and KV pages finish every request and drain the pool
-    balanced (their tokens are held against JAX's in their own files)."""
-    value = str(tmp_path / "journal") if field == "journal_dir" else PORTED[field]
-    cfg = ServeConfig(max_batch=2, prefill_bucket=8, **GREEDY, **{field: value})
-    assert not any(unported_serve_fields(cfg).values())
+    """Each serving option runs through the engine: the prefix cache,
+    speculation, the journal, the SLO rules and the incident bundles give
+    the plain engine's tokens; the int8 weights and KV pages finish every
+    request and drain the pool balanced (their tokens are held against
+    JAX's in their own files). The default rules fire nothing on this
+    healthy run; a rule over the queue fires, and its bundle is written."""
+    kw = {field: PORTED[field]}
+    if field in ("journal_dir", "incident_dir"):
+        kw[field] = str(tmp_path / PORTED[field])
+    if field == "incident_dir":
+        kw |= {"slo_rules": QUEUED, "sample_every": 1}
+    cfg = ServeConfig(max_batch=2, prefill_bucket=8, **GREEDY, **kw)
     eng = Engine(_model(), cfg)
     eng.recover()
     for p in prompts:
@@ -410,12 +403,19 @@ def test_ported_option_runs(field, prompts, batched_greedy, tmp_path):
     eng.check_balanced()
     assert sorted(done) == list(range(len(prompts)))
     assert all(f.tokens.size == N_NEW for f in done.values())
-    if field in ("prefix_cache", "spec_k", "journal_dir"):
+    if field in ("prefix_cache", "spec_k", "journal_dir", "slo_rules", "incident_dir"):
         for u, f in batched_greedy[1].items():
             np.testing.assert_array_equal(done[u].tokens, f.tokens)
     if field == "journal_dir":
         eng.journal.shutdown()
         assert eng.stats()["journal_records_written"] > 0
+    if field == "slo_rules":
+        assert len(eng.alerts_snapshot()["rules"]) == 7
+        assert eng.stats()["alerts_fired"] == 0
+    if field == "incident_dir":
+        eng.close_incidents()
+        assert eng.stats()["alerts_fired"] == eng.stats()["incidents_captured"] == 1
+        assert os.listdir(kw["incident_dir"]) == ["incident_000_queued.json"]
 
 
 @pytest.mark.parametrize("call", ["recover", "validate_swap", "arm_swap", "rollback"])
