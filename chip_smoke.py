@@ -144,7 +144,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    (``/metrics``, ``/healthz``, ``/vars``, each 200, the flushed MFU in
    ``/vars``) from a second thread during the fit (see TRACE_STEPS);
 7d6. resilience phase: the chaos drills through both CLIs on ResNet-18
-   (batch 100) and GPT-2-small at full width: SIGTERM at a step (the
+   (batch 100) and GPT-2-small at full width, 2 of its 12 layers
+   (RES_GPT_LAYERS): SIGTERM at a step (the
    restored state bit for bit the saved one, then the resume), SIGKILL (the
    resume from the newest committed save) in subprocesses; a torn newest
    save skipped and quarantined; a corrupted committed save refused by
@@ -209,24 +210,32 @@ Phases, in order; any failure exits non-zero and prints no result line:
    switches must be back to False after them;
 10b. bench phase: ``python -m distributed_training_tpu_torch.bench`` at
    its defaults (the bf16 ResNet-50 leg at 224², batch 512 as 2 × 256,
-   SGD; the GPT-2-small AdamW leg at B16 T1024 with flash attention),
-   each leg printing its JSON line, then the LM leg with
-   ``--lm-optimizer hybrid_adam``; every value and MFU finite and
-   positive, MFU at most 1, the losses finite, K2/K3 once a layer a step
-   and K1 once a step on the hybrid_adam leg; then each default leg's
-   step profiled (device busy share, kernels by device time);
+   SGD; the GPT-2-small AdamW leg at B16 T1024 with flash attention; each
+   leg a CUDA graph of 15 steps a call, ``--steps-per-call``), each leg
+   printing its JSON line, then the LM leg with ``--lm-optimizer
+   hybrid_adam``; every value and MFU finite and positive, MFU at most 1,
+   the losses finite, K2/K3 once a layer and K1 once a captured or priming
+   step on the hybrid_adam leg; then the graph check on the image and the
+   hybrid_adam legs (two replays of 15 steps against 30 eager steps from
+   clones of the state, within 5× the gap of two eager runs; the counts on
+   the host and the card; one replay's K1/K2/K3 counted by name among
+   the captured graph's kernel nodes, and each seen in a profiler trace
+   of a replay; ms/step, busy share, graph pool and eager peak both
+   ways; two eager steps of each profiled: device busy share, kernels by
+   device time);
 10c. data phase: the native augment library built on this host
    (``available()``) and bit for bit the numpy path on 256 crops at 224
    from 257² images; the bench's ``--data-only --data-mode both`` and
-   ``--data-concurrent --data-stress`` at their defaults, every value
-   finite and positive, the decoded cache through the native library;
+   ``--data-concurrent --data-stress`` over 512 and 1024 JPEGs (the
+   concurrent one 10 steps after 1; ``DATA_BENCH_CUT``), every value finite and
+   positive, the decoded cache through the native library;
    ``Trainer.fit()`` on full-width ResNet-50 (imagenet stem, 224, bf16,
-   ``hybrid_adam``) over the decoded cache of a JPEG tree, 3 epochs of 20
+   ``hybrid_adam``) over the decoded cache of a JPEG tree, 3 epochs of 10
    steps at batch 32, at ``prefetch`` 0 and 2: the loss finite, K1 once a
    step, the batches the step received at 2 bit for bit those at 0, the
    prefetched pinned copies on a stream no kernel runs on; ms/step and
    the device's busy share of each; then the bench's image leg by default,
-   with ``--remat`` and with ``--remat-policy conv`` (15 steps each),
+   with ``--remat`` and with ``--remat-policy conv`` (4 eager steps each),
    images/s and peak memory, remat's peak below the default's;
 10d. vit phase: the bench's image leg with ``--model vit_b16`` at batch
    256 (2 x 128) and at 512 with ``--remat`` (the JAX bench's ViT flags),
@@ -277,7 +286,7 @@ on each rank (see RES_MESH_EPOCHS). ``--mesh PART ...`` (names of
 runs only those parts.
 
 ``python3 chip_smoke.py --phase NAME ...`` runs the build and only the
-named phases (ring, moe_lm, moe_image, vit, pipeline, flight, trace,
+named phases (kernel, bench, data, ring, moe_lm, moe_image, vit, pipeline, flight, trace,
 resilience, generate, serve, serve_features, fleet), without a result line.
 """
 
@@ -376,6 +385,57 @@ DP_LOSS_RTOL = {"fp32": 1e-5, "fp16": 5e-3}
 DP_PRESETS = ("torch_ddp", "torch_ddp_fp16", "low_level_zero", "gemini", "deepspeed")
 
 
+def _adam_dev_scalars(ps, gs, ms, vs, lr: float, b1: float, b2: float, eps: float) -> dict:
+    """K1's device-scalar launch (``scalars=``, the one a CUDA graph of
+    steps replays) on copies of ``ps``/``ms``/``vs``: three steps against
+    the plain version given the same tensor scalars, each step's scalars
+    computed on the card from a count tensor; the largest error."""
+    from distributed_training_tpu_torch.ops.fused_adam import (
+        adam_scalars_tensor,
+        fused_adam_reference,
+        fused_adam_update,
+    )
+
+    dev = ps[0].device
+    got = [[t.clone() for t in ts] for ts in (ps, ms, vs)]
+    ref = [(p.clone(), m.clone(), v.clone()) for p, m, v in zip(ps, ms, vs)]
+    lr_t = torch.tensor(lr, dtype=torch.float32, device=dev)
+    for step in range(1, 4):
+        scalars = adam_scalars_tensor(lr_t, torch.tensor(step, device=dev), b1, b2)
+        fused_adam_update(got[0], gs, got[1], got[2], b1=b1, b2=b2, eps=eps, scalars=scalars)
+        ref = [fused_adam_reference(p, g, m, v, b1=b1, b2=b2, eps=eps, scalars=scalars)
+               for (p, m, v), g in zip(ref, gs)]
+    torch.cuda.synchronize()
+    max_abs = 0.0
+    for got_t, want in zip(zip(*got), ref):
+        for a, b in zip(got_t, want):
+            max_abs = max(max_abs, (a - b).abs().max().item())
+            torch.testing.assert_close(a, b, rtol=ADAM_RTOL, atol=ADAM_ATOL)
+    return {"max_abs_err": max_abs}
+
+
+def _adam_launch_ms(ps, gs, ms, vs, lr: float, b1: float, b2: float, eps: float) -> dict:
+    """K1 by value against K1 reading its scalars from the card (one
+    ``(lr, bc1, bc2)`` tensor made once), on the same tensors, in turns
+    (by value, device, device, by value)."""
+    from distributed_training_tpu_torch.ops.fused_adam import (
+        adam_scalars_tensor,
+        fused_adam_update,
+    )
+
+    dev = ps[0].device
+    scalars = adam_scalars_tensor(torch.tensor(lr, dtype=torch.float32, device=dev),
+                                  torch.tensor(4, device=dev), b1, b2)
+    calls = {"by_value": lambda: fused_adam_update(ps, gs, ms, vs, lr=lr, step=4, b1=b1,
+                                                   b2=b2, eps=eps),
+             "dev_scalars": lambda: fused_adam_update(ps, gs, ms, vs, b1=b1, b2=b2, eps=eps,
+                                                      scalars=scalars)}
+    times = {k: [] for k in calls}
+    for k in ("by_value", "dev_scalars", "dev_scalars", "by_value"):
+        times[k].append(cuda_ms(calls[k], 50))
+    return {k: min(v) for k, v in times.items()}
+
+
 def kernel_phase() -> dict:
     from distributed_training_tpu_torch.models import get_model
     from distributed_training_tpu_torch.ops.fused_adam import (
@@ -438,9 +498,38 @@ def kernel_phase() -> dict:
           f"library_ms={library_ms:.4f} bound_ms={bound_ms:.4f} "
           f"({ADAM_BYTES * n / 1e6:.1f} MB at 3.35 TB/s) "
           f"achieved {ADAM_BYTES * n / kernel_ms / 1e9:.3f} TB/s")
-    return {"max_abs_err": max_abs, "ms": kernel_ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": bound_ms,
-            "bound_by": "bytes" if bound_by_bytes >= bound_by_ops else "operations"}
+    # The device-scalar launch (what a CUDA graph of steps replays): held to
+    # the plain version with the same tensor scalars, and timed beside the
+    # by-value launch, here and at GPT-2-small's 149 tensors.
+    dev_check = _adam_dev_scalars(ps, gs, ms, vs, lr, b1, b2, eps)
+    resnet_ms = _adam_launch_ms(ps, gs, ms, vs, lr, b1, b2, eps)
+    del ps, gs, ms, vs, ref, lib_params, lib
+    with torch.device("meta"):
+        gpt = get_model("transformer_lm", num_classes=50304, num_layers=GPT_LAYERS,
+                        num_heads=GPT_H, hidden_dim=GPT_H * GPT_D, max_len=GPT_T)
+    shapes = [p.shape for p in gpt.parameters()]
+    gpt_n = sum(p.numel() for p in gpt.parameters())
+    ps = [torch.randn(sh, device=dev, generator=gen) for sh in shapes]
+    gs = [torch.randn_like(p) for p in ps]
+    ms = [torch.zeros_like(p) for p in ps]
+    vs = [torch.zeros_like(p) for p in ps]
+    gpt_ms = _adam_launch_ms(ps, gs, ms, vs, lr, b1, b2, eps)
+    gpt_bound = ADAM_BYTES * gpt_n / HBM_BYTES_PER_S * 1e3
+    del ps, gs, ms, vs
+    torch.cuda.empty_cache()
+    print(f"[kernel] fused_adam device-scalar launch vs plain (the same tensor scalars), "
+          f"3 steps on the 62 ResNet-18 tensors: max_abs_err={dev_check['max_abs_err']:.3g}; "
+          f"ms by value / device scalars (in turns): ResNet-18 "
+          f"{resnet_ms['by_value']:.4f} / {resnet_ms['dev_scalars']:.4f}, GPT-2-small "
+          f"({len(shapes)} tensors, {gpt_n:,} params) {gpt_ms['by_value']:.4f} / "
+          f"{gpt_ms['dev_scalars']:.4f}, bound {gpt_bound:.4f}")
+    return {"max_abs_err": max(max_abs, dev_check["max_abs_err"]), "ms": kernel_ms,
+            "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes" if bound_by_bytes >= bound_by_ops else "operations",
+            "dev_scalars": {"max_abs_err": dev_check["max_abs_err"],
+                            "resnet18_ms": resnet_ms,
+                            "gpt2_small": {"tensors": len(shapes), "params": gpt_n,
+                                           "ms": gpt_ms, "bound_ms": gpt_bound}}}
 
 
 def _timed_train_epochs(trainer) -> list[float]:
@@ -2071,7 +2160,9 @@ def trace_phase(ckpt_dir: str) -> dict:
 
 # The resilience phase: the chaos drills through both CLIs, ResNet-18
 # (-p deepspeed: its normalize-only input draws no random numbers; bf16,
-# synthetic CIFAR at batch 100) and GPT-2-small at full width (bf16, flash,
+# synthetic CIFAR at batch 100) and GPT-2-small at full width cut to
+# RES_GPT_LAYERS of its 12 layers for the script's time (every drill stays;
+# a save shrinks from 1.5 GB to ~0.8; bf16, flash,
 # T 1024, batch 16, over a seeded random byte corpus), RES_EPOCHS epochs of
 # RES_STEPS steps, every step's loss in a JSONL file. The uninterrupted run
 # twice, in this process through the CLI's build_trainer: the first with a
@@ -2090,7 +2181,8 @@ def trace_phase(ckpt_dir: str) -> dict:
 # holds one task, so epoch 0's save was committed before epoch 1's could be
 # queued; epoch 1's may or may not be). No run evaluates but the SIGKILL
 # child (the CLIs have no flag for it) and no resume saves: no drill reads
-# either. ResNet-18 also reads an imagefolder tree of RES_TREE JPEGs under a
+# either. ResNet-18 also reads an imagefolder tree of RES_TREE JPEGs (one
+# step of batch 100; two before the same cut for time) under a
 # data-error rate: io_faults in the dump equals the keys the seeded choice
 # faults.
 #
@@ -2105,16 +2197,21 @@ RES_EPOCHS, RES_STEPS = 3, 2
 RES_KILL_STEP, RES_HARD_KILL_STEP = 3, 5
 RES_SLOW_MS, RES_DATA_ERROR_RATE, RES_CHAOS_SEED = 100.0, 0.3, 5
 RES_CONT_FACTOR = 5.0
-RES_TREE = 200
+RES_GPT_LAYERS = 2
+RES_TREE = 100
 RES_RESNET_ARGS = ["-p", "deepspeed", "--model", "resnet18", "--dataset", "synthetic_cifar",
                    "-b", "100", "--dtype", "bf16"]
 RES_SCRIPTS = {"resnet18": "resnet/torch_cuda/train.py", "gpt2_small": "gpt/torch_cuda/train.py"}
 
 
 def _res_args(kind: str) -> list:
-    """The model's flags: RES_RESNET_ARGS, or the GPT CLI phase's width."""
-    return (RES_RESNET_ARGS if kind == "resnet18"
-            else GPT_CLI_WIDTH[:GPT_CLI_WIDTH.index("-e")])
+    """The model's flags: RES_RESNET_ARGS, or the GPT CLI phase's width at
+    RES_GPT_LAYERS layers."""
+    if kind == "resnet18":
+        return RES_RESNET_ARGS
+    args = GPT_CLI_WIDTH[:GPT_CLI_WIDTH.index("-e")]
+    at = args.index("--num-layers") + 1
+    return [*args[:at], str(RES_GPT_LAYERS), *args[at + 1:]]
 
 
 def _res_argv(kind: str, run_dir: str, interval: int, *extra) -> list:
@@ -3898,59 +3995,227 @@ def bf16_image_phase(ckpt_dir: str) -> dict:
     return out
 
 
+# The bench phase's graph check: the image leg and the LM hybrid_adam leg
+# at their defaults, one state cloned after make_multi_step's prime and
+# capture: GRAPH_REPLAYS replays of the leg's graph of N steps
+# (--steps-per-call, 15) against N·GRAPH_REPLAYS eager steps of each clone.
+# The continuation rule (RES_CONT_FACTOR): if the two eager runs agree bit
+# for bit, the graph must too; else the graph's losses at each replay's
+# last step and its parameters lie within RES_CONT_FACTOR times the
+# largest gap between the eager runs. K3 adds dQ with float32 atomics and
+# cuDNN's backward may too; and the graph computes the learning rate and
+# Adam's bias corrections on the card (CUDA's powf) where the eager step
+# takes numpy's.
+GRAPH_REPLAYS = 2
+# Eager steps profiled beside one profiled replay (a trace's processing
+# grows with its kernels: two steps give the busy share).
+GRAPH_EAGER_PROFILED = 2
+# The port's kernels in a profiler trace or a graph's kernel nodes, by
+# their (demangled or mangled) names: K1, K2 (bf16 or fp16 fwd_kernel) and
+# K3 (bwd_kernel with dq).
+TRACE_KERNELS = {
+    "fused_adam": r"fused_adam_kernel",
+    "flash_fwd": r"flash_wgmma::fwd_kernel<|_ZN11flash_wgmma10fwd_kernel",
+    "flash_bwd": r"flash_wgmma::bwd_kernel<.*true>|_ZN11flash_wgmma10bwd_kernel.*Lb1E",
+}
+
+
+def _trace_counts(calls: list, tag: str | None = None) -> dict:
+    """``calls`` under ``torch.profiler``: wall ms, the device's busy share
+    of it, and the port's kernels by :data:`TRACE_KERNELS` name; with
+    ``tag`` the kernels by device time printed as :func:`_profile` does."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.zeros(1, device="cuda")  # a first event of its own, ahead of the calls'
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for call in calls:
+            call()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = _device_rows(prof)
+    counts = {k: sum(c for _, key, c in rows if re.search(pat, key))
+              for k, pat in TRACE_KERNELS.items()}
+    busy = sum(r[0] for r in rows) / wall_us
+    if tag is not None:
+        print(f"[{tag}] profile of {len(calls)} steps: wall {wall_us / 1e3:.3f} ms "
+              f"(profiled), device busy {100 * busy:.1f}% of wall")
+        for dev_us, key, count in rows[:12]:
+            print(f"[{tag}]   {dev_us / 1e3:9.3f} ms  x{count:<5d} {key[:90]}")
+    return {"wall_ms": wall_us / 1e3, "busy": busy, "kernels": counts, "rows": len(rows)}
+
+
+def _graph_census(multi) -> tuple[dict, int]:
+    """The kernels that each replay of ``multi`` (kept graph) launches: the
+    port's by :data:`TRACE_KERNELS` name among its graph's kernel nodes,
+    and the number of kernel nodes in all."""
+    from distributed_training_tpu_torch.train.multi_step import graph_kernels
+
+    with tempfile.TemporaryDirectory() as tmp:
+        names = graph_kernels(multi, os.path.join(tmp, "graph.dot"))
+    return {k: sum(1 for x in names if re.search(pat, x))
+            for k, pat in TRACE_KERNELS.items()}, len(names)
+
+
+def _max_gap(a: list, b: list) -> float:
+    return max((x - y).abs().max().item() for x, y in zip(a, b))
+
+
+def _graph_vs_eager(tag: str, setup, argv: list, want: dict) -> dict:
+    """See GRAPH_REPLAYS: the graph of the bench leg ``setup`` against eager
+    steps from clones of its state, the host and card counts, ms a step
+    both ways (synchronised wall time, and one replay against as many eager
+    steps under the profiler: busy share and the port's kernels by name),
+    the graph pool and the eager peak memory."""
+    import copy
+
+    from distributed_training_tpu_torch import bench
+    from distributed_training_tpu_torch.train.multi_step import make_multi_step
+
+    t_leg = time.perf_counter()
+    args = bench.build_parser().parse_args(argv)
+    n = args.steps_per_call
+    _, state, step, batch = setup(args, torch.device("cuda"))
+    multi = make_multi_step(step, state, batch, n, keep_graph=True)
+    t_census = time.perf_counter()
+    census, nodes = _graph_census(multi)
+    census_s = time.perf_counter() - t_census
+    clones = [copy.deepcopy(state) for _ in range(2)]
+    start, count0 = state.step, state.opt_state.count
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    graph_losses = [multi()["loss"].clone() for _ in range(GRAPH_REPLAYS)]
+    torch.cuda.synchronize()
+    graph_ms = (time.perf_counter() - t0) / (n * GRAPH_REPLAYS) * 1e3
+    eager, eager_ms = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for clone in clones:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eager.append([step(clone, batch)["loss"].detach().clone()
+                      for _ in range(n * GRAPH_REPLAYS)])
+        torch.cuda.synchronize()
+        eager_ms.append((time.perf_counter() - t0) / (n * GRAPH_REPLAYS) * 1e3)
+    eager_peak = torch.cuda.max_memory_allocated()
+    params = [list(x.model.parameters()) for x in (state, *clones)]
+    gap = {"loss": _max_gap(eager[0], eager[1]), "params": _max_gap(params[1], params[2])}
+    err = {"loss": _max_gap(graph_losses, eager[0][n - 1::n]),
+           "params": _max_gap(params[0], params[1])}
+    branch = "bitwise" if max(gap.values()) == 0.0 else "within_gap"
+    ok = all(err[k] <= RES_CONT_FACTOR * gap[k] for k in gap)
+    counts = {"host_step": state.step, "host_count": state.opt_state.count,
+              "card_count": int(state.opt_state.count_t),
+              "eager_card_count": int(clones[0].opt_state.count_t)}
+    want_count = count0 + n * GRAPH_REPLAYS
+    counts_ok = (state.step == start + n * GRAPH_REPLAYS
+                 and counts["host_count"] == counts["card_count"] == want_count
+                 and counts["eager_card_count"] == clones[0].opt_state.count == want_count)
+    # A trace can lose a kernel's record on some hosts (one K2 of 180),
+    # never gain one: the count is the census, the trace must see each.
+    graph_trace = _trace_counts([multi])
+    traced_ok = all(0 < c <= census[k] if census[k] else c == 0
+                    for k, c in graph_trace["kernels"].items())
+    eager_trace = _trace_counts([lambda: step(clones[0], batch)] * GRAPH_EAGER_PROFILED,
+                                f"bench {tag} eager")
+    out = {"steps_per_call": n, "branch": branch, "gap": gap, "err": err,
+           "limit_factor": RES_CONT_FACTOR, "counts": counts, "start": start,
+           "graph_ms_per_step": graph_ms, "eager_ms_per_step": eager_ms,
+           "graph_busy": graph_trace["busy"], "eager_busy": eager_trace["busy"],
+           "graph_profiled_ms_per_step": graph_trace["wall_ms"] / n,
+           "eager_profiled_ms_per_step": eager_trace["wall_ms"] / GRAPH_EAGER_PROFILED,
+           "graph_kernels": census, "graph_kernel_nodes": nodes, "census_s": census_s,
+           "replay_kernels": graph_trace["kernels"],
+           "eager_kernels": eager_trace["kernels"],
+           "graph_pool_gib": multi.pool_bytes / 2**30, "eager_peak_gib": eager_peak / 2**30,
+           "losses": {"graph": [float(x) for x in graph_losses],
+                      "eager": [[float(x) for x in e[n - 1::n]] for e in eager]}}
+    print(f"[bench graph] {tag}: {GRAPH_REPLAYS} replays of a graph of {n} steps against "
+          f"{n * GRAPH_REPLAYS} eager steps from clones: branch {branch}, gaps between the "
+          f"eager runs {gap}, graph against eager {err} (limit {RES_CONT_FACTOR} x the gap); "
+          f"counts {counts} from step {start}; ms/step graph {graph_ms:.3f}, eager "
+          f"{' / '.join(f'{x:.3f}' for x in eager_ms)}; busy graph "
+          f"{100 * graph_trace['busy']:.1f}% / eager {100 * eager_trace['busy']:.1f}% "
+          f"(profiled, {graph_trace['wall_ms'] / n:.3f} / "
+          f"{eager_trace['wall_ms'] / GRAPH_EAGER_PROFILED:.3f} ms/step); kernels in one "
+          f"replay {census} (the graph's, of {nodes} kernel nodes, read in {census_s:.1f} s; "
+          f"its trace {graph_trace['kernels']}), in "
+          f"{GRAPH_EAGER_PROFILED} eager steps "
+          f"{eager_trace['kernels']}; graph pool {out['graph_pool_gib']:.3f} GiB, eager peak "
+          f"{out['eager_peak_gib']:.3f} GiB; {card_line()}; "
+          f"{time.perf_counter() - t_leg:.1f} s", flush=True)
+    if not ok or not counts_ok or census != want or not traced_ok:
+        raise SystemExit(f"bench graph {tag}: {out}; kernels in one replay expected {want}, "
+                         f"each seen in its trace and none more often than in the graph")
+    del multi, state, clones, params, step, batch
+    torch.cuda.empty_cache()
+    return out
+
+
 def bench_phase() -> dict:
     """The port's bench as a user runs it: a bare run at its defaults (the
     bf16 ResNet-50 leg, then the GPT-2-small AdamW leg; each prints its
-    JSON line), then the LM leg with ``--lm-optimizer hybrid_adam``. Every
-    kernel count starts at 0 before each run. Each ``value`` and ``mfu``
-    must be finite and positive, each ``mfu`` at most 1, each loss finite;
-    the LM legs must launch K2 and K3 once a layer a step, and the
-    hybrid_adam leg K1 once a step. Then a profile of two steps of each
-    default leg: the device's busy share and the kernels by device time."""
+    JSON line), then the LM leg with ``--lm-optimizer hybrid_adam``, each
+    at the default ``--steps-per-call`` N (15): one CUDA graph of N steps.
+    Every kernel count starts at 0 before each run; the wrappers count when
+    the graph is captured (and at the priming step), so the LM legs must
+    count K2 and K3 12 · (N + 1) times and the hybrid_adam leg K1 N + 1
+    times. Each ``value`` and ``mfu`` must be finite and positive, each
+    ``mfu`` at most 1, each loss finite. Then the graph check (see
+    GRAPH_REPLAYS) on the image leg and the hybrid_adam leg, its replay's
+    kernels counted among the graph's kernel nodes: K2 and K3 12 · N
+    times, K1 N times on the hybrid_adam leg, each also seen in a
+    profiler trace of a replay and never more often; its profile of two eager steps prints
+    the kernels by device time (the image leg's default step, and the LM
+    leg's with K1 where the default takes AdamW)."""
     import math
 
     from distributed_training_tpu_torch import bench
     from distributed_training_tpu_torch.ops import flash_attention as fa
     from distributed_training_tpu_torch.ops.fused_adam import fused_adam_update
 
+    t_phase = time.perf_counter()
     counters = {"flash_fwd": fa.flash_fwd, "flash_bwd": fa.flash_bwd,
                 "fused_adam": fused_adam_update}
     defaults = bench.build_parser().parse_args([])
-    steps = defaults.warmup + defaults.steps
+    n = defaults.steps_per_call
     runs, launches = {}, {}
     for path, argv in (("bench", []), ("bench --lm --lm-optimizer hybrid_adam",
                                        ["--lm", "--lm-optimizer", "hybrid_adam"])):
         for fn in counters.values():
             fn.launches = 0
         runs[path] = bench.main(argv)
-        launches[path] = {n: fn.launches for n, fn in counters.items()}
+        launches[path] = {k: fn.launches for k, fn in counters.items()}
         print(f"[bench] {path}: launches {launches[path]}")
     results = [*runs["bench"], *runs["bench --lm --lm-optimizer hybrid_adam"]]
     for line, loss in results:
         ok = (math.isfinite(line["value"]) and line["value"] > 0 and line["mfu"] is not None
-              and math.isfinite(line["mfu"]) and 0 < line["mfu"] <= 1 and math.isfinite(loss))
+              and math.isfinite(line["mfu"]) and 0 < line["mfu"] <= 1 and math.isfinite(loss)
+              and f"steps/call:{n}" in line["metric"])
         if not ok:
             raise SystemExit(f"bench line out of range (loss {loss}): {line}")
-    lm = GPT_LAYERS * steps
+    lm = GPT_LAYERS * (n + 1)
     want = {"bench": {"flash_fwd": lm, "flash_bwd": lm, "fused_adam": 0},
             "bench --lm --lm-optimizer hybrid_adam": {"flash_fwd": lm, "flash_bwd": lm,
-                                                      "fused_adam": steps}}
+                                                      "fused_adam": n + 1}}
     if launches != want:
         raise SystemExit(f"bench launches {launches} != {want}")
     print(f"[bench] losses {[round(loss, 4) for _, loss in results]}; image "
           f"{results[0][0]['value']} images/s mfu {results[0][0]['mfu']}, LM AdamW "
           f"{results[1][0]['value']} tokens/s mfu {results[1][0]['mfu']}, LM hybrid_adam "
           f"{results[2][0]['value']} tokens/s mfu {results[2][0]['mfu']}")
-    # Where each default leg's step spends the card's time: two steps after
-    # two warm-up steps, on the leg's own model, state and batch.
-    for tag, setup in (("bench image", bench.image_step), ("bench lm", bench.lm_step)):
-        _, state, step, batch = setup(defaults, torch.device("cuda"))
-        for _ in range(2):
-            step(state, batch)
-        _profile([lambda: step(state, batch)] * 2, tag)
-        del state, step, batch
-        torch.cuda.empty_cache()
-    return launches
+    t0 = time.perf_counter()
+    print(f"[bench] the bare runs took {t0 - t_phase:.1f} s", flush=True)
+
+    def per_steps(k: int, lm: bool) -> dict:
+        return {"fused_adam": k if lm else 0, "flash_fwd": GPT_LAYERS * k if lm else 0,
+                "flash_bwd": GPT_LAYERS * k if lm else 0}
+    graphs = {"image": _graph_vs_eager("image leg", bench.image_step, [], per_steps(n, False)),
+              "lm_hybrid_adam": _graph_vs_eager("LM hybrid_adam leg", bench.lm_step,
+                                                ["--lm-optimizer", "hybrid_adam"],
+                                                per_steps(n, True))}
+    print(f"[bench] the graph checks took {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"launches": launches, "graphs": graphs}
 
 
 # The vit phase: ViT-B/16 through the port's bench image leg at the JAX
@@ -4597,13 +4862,23 @@ def wgmma_build_lines() -> dict:
 # bf16, hybrid_adam) over a decoded cache of a JPEG tree of DATA_CLASSES
 # classes × DATA_PER_CLASS images (256², quality 85; val a quarter of
 # that), DATA_EPOCHS epochs of DATA_STEPS steps of batch DATA_BATCH, at
-# prefetch 0 and 2.
+# prefetch 0 and 2. Cut in depth for the script's time (96 images a class
+# and 20 steps an epoch until the bench phase's graph check came): every
+# check stays.
 DATA_CROPS = 256
-DATA_CLASSES, DATA_PER_CLASS, DATA_BATCH, DATA_STEPS, DATA_EPOCHS = 8, 96, 32, 20, 3
+# At 6 steps the profiled epoch's trace held 4 of its 12 pinned copies and
+# the stream check (at least one a step) failed; at 10 it holds enough.
+DATA_CLASSES, DATA_PER_CLASS, DATA_BATCH, DATA_STEPS, DATA_EPOCHS = 8, 48, 32, 10, 3
 # The image leg with remat and the conv policy, beside the default leg:
-# cut to REMAT_STEPS timed steps after REMAT_WARMUP (the default leg's
-# full run is in the bench phase), which the lines say.
-REMAT_WARMUP, REMAT_STEPS = 3, 15
+# cut to REMAT_STEPS timed eager steps after REMAT_WARMUP (the default leg's
+# full run is in the bench phase), which the lines say (3 and 15 before the
+# same cut).
+REMAT_WARMUP, REMAT_STEPS = 1, 4
+# The two data benches, cut in depth from their defaults (2048 JPEGs; 5
+# warm-up and 45 timed steps) for the same reason.
+DATA_BENCH_CUT = {"data_only": ["--data-images", "512"],
+                  "data_concurrent": ["--data-images", "1024", "--warmup", "1",
+                                      "--steps", "10"]}
 
 
 def _native_check() -> dict:
@@ -4774,15 +5049,17 @@ def data_phase(ckpt_dir: str) -> dict:
     print(f"[data] Pillow {PIL.__version__}: real JPEG trees, live decode and the decoded cache")
 
     runs = {}
-    for path, argv in (("bench --data-only --data-mode both", ["--data-only", "--data-mode", "both"]),
+    for path, argv in (("bench --data-only --data-mode both", ["--data-only", "--data-mode", "both",
+                                                               *DATA_BENCH_CUT["data_only"]]),
                        ("bench --data-concurrent --data-stress",
-                        ["--data-concurrent", "--data-stress"])):
+                        ["--data-concurrent", "--data-stress",
+                         *DATA_BENCH_CUT["data_concurrent"]])):
         native.gather_crop_flip.calls = native.u8_to_f32.calls = native.pad_crop_flip.calls = 0
         t0 = time.perf_counter()
         (line, loss), = bench.main(argv)
         calls = {n: getattr(native, n).calls
                  for n in ("gather_crop_flip", "pad_crop_flip", "u8_to_f32")}
-        print(f"[data] {path} (at its defaults, no cut): {time.perf_counter() - t0:.1f} s; "
+        print(f"[data] {path} (cut to {' '.join(argv[2:])}): {time.perf_counter() - t0:.1f} s; "
               f"native calls {calls}; loss {loss}")
         numbers = {k: v for k, v in line.items() if isinstance(v, (int, float))
                    and not isinstance(v, bool)}
@@ -4842,7 +5119,8 @@ def data_phase(ckpt_dir: str) -> dict:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         (line, loss), = bench.main(["--image", "--warmup", str(REMAT_WARMUP),
-                                    "--steps", str(REMAT_STEPS), *flags])
+                                    "--steps", str(REMAT_STEPS), "--steps-per-call", "1",
+                                    *flags])
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         print(f"[data] image leg {tag}: {line['value']} images/s, peak memory {peak:.3f} GiB, "
               f"loss {loss} (cut to {REMAT_STEPS} steps after {REMAT_WARMUP})")
@@ -5754,7 +6032,9 @@ def mesh_main(parts: list | None = None) -> int:
                       f"{card}", flush=True)
         for flags in (([["--tp", str(world)], ["--tp", str(world), "--tp-overlap"]])
                       if "bench" in parts else []):
-            (line, loss), = bench.main(["--lm", *flags])
+            # One eager step a call: a graph of steps with --tp > 1 raises
+            # (its collectives in a capture are not ported; ROADMAP.md).
+            (line, loss), = bench.main(["--lm", "--steps-per-call", "1", *flags])
             if not (line["value"] > 0 and math.isfinite(loss)):
                 raise SystemExit(f"mesh bench {flags}: {line}, loss {loss}")
             results[f"bench {' '.join(flags)}"] = line
@@ -5778,14 +6058,15 @@ def mesh_main(parts: list | None = None) -> int:
 
 
 def phase_main(names: list) -> int:
-    """``--phase NAME ...``: the build, then only the named phases (ring,
-    moe_lm, moe_image, vit, pipeline, flight, trace, resilience, generate,
-    serve, serve_features, fleet),
+    """``--phase NAME ...``: the build, then only the named phases (kernel,
+    bench, data, ring, moe_lm, moe_image, vit, pipeline, flight, trace,
+    resilience, generate, serve, serve_features, fleet),
     for a short check of one part on the card; prints their results and no
     result line."""
     from distributed_training_tpu_torch.ops import cuda_build
 
-    phases = {"ring": lambda d: ring_phase(), "moe_lm": moe_lm_phase,
+    phases = {"kernel": lambda d: kernel_phase(), "bench": lambda d: bench_phase(),
+              "data": data_phase, "ring": lambda d: ring_phase(), "moe_lm": moe_lm_phase,
               "moe_image": moe_image_phase, "vit": lambda d: vit_phase(),
               "pipeline": lambda d: pipeline_phase(), "flight": flight_phase,
               "trace": trace_phase, "resilience": resilience_phase,
@@ -5872,8 +6153,10 @@ def main() -> int:
     vit = _timed("vit", vit_phase)
     with tempfile.TemporaryDirectory() as ckpt:
         data = _timed("data", data_phase, ckpt)
-    bench_lm = {"bench_gpt2_small_adamw": bench["bench"],
-                "bench_gpt2_small_hybrid_adam": bench["bench --lm --lm-optimizer hybrid_adam"]}
+    bench_lm = {"bench_gpt2_small_adamw": bench["launches"]["bench"],
+                "bench_gpt2_small_hybrid_adam":
+                    bench["launches"]["bench --lm --lm-optimizer hybrid_adam"]}
+    replayed = bench["graphs"]["lm_hybrid_adam"]["graph_kernels"]
 
     def by_path(name: str, **more) -> dict:
         paths = {**more, **{p: n[name] for p, n in tool_launches.items() if name in n}}
@@ -5930,6 +6213,7 @@ def main() -> int:
                                 for n, r in pipe["runs"].items()},
                              **{p: r["fused_adam"] for p, r in flight["launches"].items()},
                              **{p: r["fused_adam"] for p, r in late_launches.items()}},
+        "graph_replay_launches": {"bench_gpt2_small_hybrid_adam": replayed["fused_adam"]},
         **k, "ok": True,
     }, *({
         "name": name, "route": "cuda", "source": src, "replaces": f"{ref}:{line}",
@@ -5953,6 +6237,8 @@ def main() -> int:
                      for c, r in ring.items()}} if name in ring_names else {}),
         **flash[name], "d256": d256["d256"][name], "d512": d256["d512"][name],
         "exp2_ms": exp2[name],
+        **({"graph_replay_launches": {"bench_gpt2_small_hybrid_adam": replayed[name]}}
+           if name in replayed else {}),
         "fp16_ms": half["ms"][name],
         "fp16_max_abs_err": half["max_abs_err"][name],
         "instantiations": built(tag), "ok": True,

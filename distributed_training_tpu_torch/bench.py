@@ -50,17 +50,26 @@ peak table does not know, and on the CPU, unless ``$OBS_PEAK_FLOPS`` gives
 one. ``vs_baseline`` is null: the root bench's baselines (6000 images/s,
 94,600 tokens/s, and the data modes' device rate) are a TPU's.
 
-One default differs from the root bench: ``--steps-per-call`` is 1. The
-JAX bench compiles 15 steps into one ``lax.scan`` dispatch; eager PyTorch
-has no counterpart (a CUDA graph of the step would be one, ROADMAP.md), so
-a value above 1 raises. ``--tp N`` runs the LM leg megatron-sharded over
-N of the launcher's ranks (``torchrun``; ``--tp`` must divide the ranks,
-or the bench exits, as the root bench does), and ``--tp-overlap`` on the
-ring-overlapped schedule (at ``--tp 1`` the plain step, as in the root
-bench); rank 0 prints, and the MFU divides by every rank's card.
-``--check`` raises ``NotImplementedError`` naming ROADMAP.md, never
-silently ignored. There is no CPU clamp: on the CPU (``--device cpu``)
-the sizes are what the caller passes.
+``--steps-per-call N`` (15 by default, as in the root bench) runs N steps
+a call (``train/multi_step.py``): on the card one CUDA graph of N steps,
+the counterpart of the root's ``lax.scan`` of N steps in one dispatch; on
+the CPU the same N steps in a loop. As in the root bench, the image leg
+takes N on every device and the LM leg on the card only (the root's on the
+TPU only); on the card one priming step runs before the capture,
+``--warmup`` and ``--steps`` count calls of N steps (rounded down, at
+least 1; the image leg says so on stderr when it rounds up, in the root's
+words), and throughput counts ``steps × N`` steps.
+``--cpu-offload`` forces N to 1 with the root's message. Under N > 1, ``--tp
+> 1``, an fp16 loss scale and a model with dropout raise
+``NotImplementedError`` naming ROADMAP.md; pass ``--steps-per-call 1`` for
+one eager step a call and exact step counts. ``--tp N`` runs the LM leg
+megatron-sharded over N of the launcher's ranks (``torchrun``; ``--tp``
+must divide the ranks, or the bench exits, as the root bench does), and
+``--tp-overlap`` on the ring-overlapped schedule (at ``--tp 1`` the plain
+step, as in the root bench); rank 0 prints, and the MFU divides by every
+rank's card. ``--check`` raises ``NotImplementedError`` naming ROADMAP.md,
+never silently ignored. There is no CPU clamp: on the CPU (``--device
+cpu``) the sizes are what the caller passes.
 """
 
 from __future__ import annotations
@@ -119,19 +128,33 @@ def observability_fields(step_flops: int | None, per_step_ms: list,
     return out
 
 
-def _timed_loop(step, state, batch, args) -> tuple[float, list, float]:
-    """Warm-up, then ``args.steps`` steps with a host read of the loss
-    every ``sync_interval``: (seconds, per-window step ms, last loss)."""
+def _timed_loop(step, state, batch, args, steps_per_call: int = 1
+                ) -> tuple[float, list, float]:
+    """Warm-up, then ``args.steps`` calls with a host read of the loss
+    every ``sync_interval`` calls: (seconds, per-window step ms, last
+    loss). A call is one step, or at ``steps_per_call`` N > 1 N steps
+    (``make_multi_step``, which on the card primes and captures first),
+    ``args.warmup`` and ``args.steps`` rounded to calls as the root bench
+    rounds them."""
+    if steps_per_call > 1:
+        from distributed_training_tpu_torch.train.multi_step import make_multi_step
+
+        call = make_multi_step(step, state, batch, steps_per_call)
+        args.steps = max(1, args.steps // steps_per_call)
+        args.warmup = max(1, args.warmup // steps_per_call)
+    else:
+        def call():
+            return step(state, batch)
     for _ in range(args.warmup):
-        metrics = step(state, batch)
+        metrics = call()
     if args.warmup:
         float(metrics["loss"])
     t0 = time.perf_counter()
     wt = _WindowTimer()
     win = 0
     for i in range(args.steps):
-        metrics = step(state, batch)
-        win += 1
+        metrics = call()
+        win += steps_per_call
         if args.sync_interval > 0 and (i + 1) % args.sync_interval == 0:
             float(metrics["loss"])
             wt.mark(win)
@@ -199,10 +222,22 @@ def bench_image(args, device: torch.device) -> tuple[dict, float]:
         train_step_flops,
     )
 
+    steps_per_call = max(1, args.steps_per_call)
+    if args.cpu_offload and steps_per_call > 1:
+        # The root bench's rule: offload streams host<->device every step,
+        # so amortizing dispatch is moot; run per-step.
+        print("bench: --cpu-offload forces --steps-per-call 1", file=sys.stderr)
+        steps_per_call = 1
+    if steps_per_call > 1 and (args.warmup == 0 or args.steps < steps_per_call):
+        print(f"bench: steps-per-call={steps_per_call} rounds "
+              f"warmup {args.warmup}->{max(1, args.warmup // steps_per_call) * steps_per_call} "
+              f"and steps {args.steps}->{max(1, args.steps // steps_per_call) * steps_per_call} "
+              f"(one priming call always runs; pass --steps-per-call 1 "
+              f"for exact counts)", file=sys.stderr)
     model, state, step, batch = image_step(args, device)
-    dt, per_step_ms, loss = _timed_loop(step, state, batch, args)
+    dt, per_step_ms, loss = _timed_loop(step, state, batch, args, steps_per_call)
 
-    per_chip = args.steps * args.batch_size / dt
+    per_chip = args.steps * steps_per_call * args.batch_size / dt
     step_flops = train_step_flops(forward_flops(model, image_size=args.image_size,
                                                 batch=args.batch_size))
     result = {
@@ -215,11 +250,12 @@ def bench_image(args, device: torch.device) -> tuple[dict, float]:
                   f"{', params:bf16' if args.param_dtype == 'bf16' else ''}"
                   f"{', in:' + args.input_dtype if args.input_dtype != 'fp32' else ''}"
                   f"{', accum:' + str(args.grad_accum) if args.grad_accum > 1 else ''}"
+                  f"{', steps/call:' + str(steps_per_call) if steps_per_call > 1 else ''}"
                   f", {_where(device)})",
         "value": round(per_chip, 2),
         "unit": "images/sec/chip",
         "vs_baseline": None,
-        **observability_fields(step_flops, per_step_ms, args.steps, dt),
+        **observability_fields(step_flops, per_step_ms, args.steps * steps_per_call, dt),
     }
     print(json.dumps(result), flush=True)
     return result, loss
@@ -302,11 +338,18 @@ def bench_lm(args, device: torch.device) -> tuple[dict, float]:
         train_step_flops,
     )
 
+    # As the root bench's LM leg takes N on the TPU only: N on the card.
+    steps_per_call = max(1, args.steps_per_call) if device.type == "cuda" else 1
+    if steps_per_call > 1 and args.tp > 1:
+        raise NotImplementedError(
+            "--steps-per-call > 1 with --tp > 1 (the tensor-parallel step's "
+            "collectives in a CUDA graph) is not ported yet (see ROADMAP.md); "
+            "pass --steps-per-call 1")
     mesh = lm_mesh(args)
     model, state, step, batch = lm_step(args, device, mesh)
-    dt, per_step_ms, loss = _timed_loop(step, state, batch, args)
+    dt, per_step_ms, loss = _timed_loop(step, state, batch, args, steps_per_call)
 
-    tok_s = args.lm_batch * args.seq_len * args.steps / dt
+    tok_s = args.lm_batch * args.seq_len * args.steps * steps_per_call / dt
     step_flops = train_step_flops(forward_flops(model, seq_len=args.seq_len,
                                                 batch=args.lm_batch))
     chips = mesh.world if mesh is not None else 1
@@ -321,11 +364,13 @@ def bench_lm(args, device: torch.device) -> tuple[dict, float]:
                   f"{', no-acc-metric' if args.no_accuracy else ''}"
                   f"{', tp:' + str(args.tp) if args.tp > 1 else ''}"
                   f"{', tp-overlap' if args.tp_overlap else ''}"
+                  f"{', steps/call:' + str(steps_per_call) if steps_per_call > 1 else ''}"
                   f", {_where(device, chips)})",
         "value": round(tok_s, 1),
         "unit": "tokens/sec",
         "vs_baseline": None,
-        **observability_fields(step_flops, per_step_ms, args.steps, dt, chips),
+        **observability_fields(step_flops, per_step_ms, args.steps * steps_per_call, dt,
+                               chips),
     }
     if mesh is None or mesh.is_master():
         print(json.dumps(result), flush=True)
@@ -540,8 +585,7 @@ def bench_data_concurrent(args, device: torch.device) -> tuple[dict, float]:
 
 
 def build_parser() -> argparse.ArgumentParser:
-    """The root bench's parser (names and defaults; ``--steps-per-call``
-    defaults to 1 here), and ``--device``."""
+    """The root bench's parser (names and defaults), and ``--device``."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default=None,
                     help="cuda (default; raises without a card) or cpu")
@@ -562,8 +606,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="batch image dtype (uint8 maps to float on the card)")
     ap.add_argument("--grad-accum", type=int, default=2,
                     help="microbatches a step (batch-size is the effective batch)")
-    ap.add_argument("--steps-per-call", type=int, default=1,
-                    help="train steps a dispatch; only 1 (see the module docstring)")
+    ap.add_argument("--steps-per-call", type=int, default=15,
+                    help="N train steps a call: one CUDA graph of N steps on the "
+                         "card, N steps in a loop on the CPU (the LM leg: on the "
+                         "card only); see the module docstring")
     ap.add_argument("--warmup", type=int, default=5)
     ap.add_argument("--steps", type=int, default=45)
     ap.add_argument("--sync-interval", type=int, default=15,
@@ -602,7 +648,6 @@ def unported(args) -> list[str]:
     """The flags set to something the port cannot honour yet."""
     flags = {
         "--check (BENCH_BASELINE.json holds a TPU's numbers)": args.check,
-        "--steps-per-call > 1 (a CUDA graph of the step)": args.steps_per_call != 1,
     }
     return [k for k, v in flags.items() if v]
 

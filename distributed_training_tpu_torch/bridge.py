@@ -204,7 +204,7 @@ def load_flax_adam_state(model: nn.Module, opt_state, count: int, mu: Any,
     """Copy a JAX ``FusedAdamState`` (``count``, ``mu``, ``nu``) or an optax
     ``ScaleByAdamState`` of ``model``'s parameters into the port's
     ``OptState``."""
-    opt_state.count = int(count)
+    opt_state.set_count(count)
     for src, dst in ((mu, opt_state.mu), (nu, opt_state.nu)):
         for name, t in flax_tree_to_named(model, src).items():
             dst[name].copy_(t)
@@ -258,7 +258,7 @@ def load_optax_state(model: nn.Module, opt_state, jax_state) -> None:
     if covered != set(slots):
         raise ValueError(f"the JAX state covers slots {sorted(covered)}, the "
                          f"port's has {sorted(slots)}")
-    opt_state.count = 0 if count is None else count
+    opt_state.set_count(0 if count is None else count)
 
 
 def unstack_blocks(tree: Any, layer_order) -> dict:

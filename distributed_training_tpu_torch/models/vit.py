@@ -193,8 +193,10 @@ class MultiHeadDotProductAttention(nn.Module):
             x = copy_to_model(x, tp)
         q, k, v = self.query(x), self.key(x), self.value(x)  # [B, T, H, hd]
         dt = self.dtype
-        depth = torch.tensor(math.sqrt(q.shape[-1]), dtype=torch.float32).to(dt)
-        q = q / depth.to(q.device)
+        depth = float(torch.tensor(math.sqrt(q.shape[-1]), dtype=torch.float32).to(dt))
+        # Filled on the device, not copied from the host: a CUDA graph of
+        # the step can capture it.
+        q = q / torch.full((), depth, dtype=dt, device=q.device)
         # '...qhd,...khd->...hqk'
         w = torch.matmul(q.transpose(-3, -2), k.permute(0, 2, 3, 1))
         w = torch.softmax(w, dim=-1)

@@ -436,7 +436,7 @@ def make_lm_train_step(*, zero_stage: int = 0, grad_accum_steps: int = 1,
         for p in model.parameters():
             p.grad = None
         gen = dropout_generator(model, seed, state.step, _shard_fold(model, zero.rank),
-                                tokens.device)
+                                tokens.device, state.capturable)
         ces, auxs, accs = [], [], []
         chunk = math.gcd(ce_chunk, targets.shape[1]) if pipeline and ce_chunk else ce_chunk
         for tk, tg in zip(tokens.chunk(grad_accum_steps),

@@ -30,10 +30,23 @@ each committed update, seeded with the initial parameters. The train
 state adds the average of the BatchNorm statistics beside it
 (``precision.commit_gradients``).
 
-Schedules return float32 numbers computed on the host, so the step needs
-no device read for its learning rate. The updates are plain tensor ops
+Schedules take the update count and return the float32 learning rate.
+Given the host count (an int) they return a numpy float32 computed on the
+host, so the eager step needs no device read for its learning rate; given
+the count as a 0-d integer tensor they compute the same float32 numbers
+with tensor ops on that tensor's device (optax's arithmetic; the cosine
+within an ulp of numpy's ``cos``). The updates are plain tensor ops
 (``torch._foreach_*``, a few launches a step whatever the number of
 tensors), in optax's order of operations.
+
+The count lives twice in :class:`OptState`: the host int (checkpoints,
+eager code) and ``count_t``, the same number as a 0-d int64 tensor on the
+parameters' device, advanced in place by every update. A capturable update
+(``update(..., capturable=True)``, which ``train/multi_step.py`` asks for)
+reads no host number that changes from step to step: its learning rate and
+Adam's bias corrections come from ``count_t`` on the card, so a CUDA graph
+of N steps replays N new step numbers every time, as JAX's state carries
+its count on the device.
 
 Under ZeRO stages 1–3 (``parallel/zero.py``) the chain runs on each rank's
 shards: the clip's global norm is the square root of the all-reduced sum
@@ -54,17 +67,38 @@ import numpy as np
 import torch
 
 from distributed_training_tpu_torch.config import OptimizerConfig, SchedulerConfig
-from distributed_training_tpu_torch.ops.fused_adam import fused_adam_update
+from distributed_training_tpu_torch.ops.fused_adam import (
+    adam_scalars_tensor,
+    fused_adam_update,
+)
 
-Schedule = Callable[[int], np.float32]
+Count = int | torch.Tensor
+Schedule = Callable[[Count], np.float32 | torch.Tensor]
+
+
+def _f32(x: float) -> float:
+    """``x`` rounded to float32, as the Python float a tensor op takes."""
+    return float(np.float32(x))
+
+
+def _constant(value: float) -> Schedule:
+    """``optax.constant_schedule`` in float32."""
+    def schedule(count: Count):
+        if isinstance(count, torch.Tensor):
+            return torch.full((), _f32(value), dtype=torch.float32, device=count.device)
+        return np.float32(value)
+    return schedule
 
 
 def _linear(init: float, end: float, steps: int) -> Schedule:
     """``optax.linear_schedule`` (polynomial, power 1) in float32."""
     if steps <= 0:
-        return lambda count: np.float32(init)
+        return _constant(init)
 
-    def schedule(count: int) -> np.float32:
+    def schedule(count: Count):
+        if isinstance(count, torch.Tensor):
+            frac = 1.0 - count.clamp(0, steps).float() / float(steps)
+            return frac * _f32(init - end) + _f32(end)
         c = np.float32(min(max(count, 0), steps))
         frac = np.float32(1.0) - c / np.float32(steps)
         return np.float32(init - end) * frac + np.float32(end)
@@ -73,8 +107,11 @@ def _linear(init: float, end: float, steps: int) -> Schedule:
 
 def _join(first: Schedule, second: Schedule, boundary: int) -> Schedule:
     """``optax.join_schedules`` with one boundary."""
-    return lambda count: (first(count) if count < boundary
-                          else second(count - boundary))
+    def schedule(count: Count):
+        if isinstance(count, torch.Tensor):
+            return torch.where(count < boundary, first(count), second(count - boundary))
+        return first(count) if count < boundary else second(count - boundary)
+    return schedule
 
 
 def _cosine(init: float, decay_steps: int) -> Schedule:
@@ -82,7 +119,11 @@ def _cosine(init: float, decay_steps: int) -> Schedule:
     if not decay_steps > 0:
         raise ValueError(f"cosine decay needs positive decay_steps, got {decay_steps}")
 
-    def schedule(count: int) -> np.float32:
+    def schedule(count: Count):
+        if isinstance(count, torch.Tensor):
+            c = count.clamp(max=decay_steps).float()
+            cos = torch.cos(c * _f32(math.pi) / float(decay_steps))
+            return 0.5 * (1.0 + cos) * _f32(init)
         c = np.float32(min(count, decay_steps))
         cos = np.cos(np.float32(math.pi) * c / np.float32(decay_steps))
         decayed = np.float32(0.5) * (np.float32(1.0) + cos)
@@ -92,15 +133,16 @@ def _cosine(init: float, decay_steps: int) -> Schedule:
 
 def make_schedule(opt: OptimizerConfig, sched: SchedulerConfig,
                   world_size: int = 1) -> Schedule:
-    """The LR schedule: ``count → float32 lr``."""
+    """The LR schedule: ``count → float32 lr``, the count a host int or a
+    0-d integer tensor (see the module docstring)."""
     base_lr = opt.lr * (world_size if opt.scale_lr_by_world else 1)
     if sched.name == "constant":
-        return lambda count: np.float32(base_lr)
+        return _constant(base_lr)
     if sched.name == "warmup_lr":
         return _join(
             _linear(sched.warmup_min_lr, sched.warmup_max_lr,
                     sched.warmup_num_steps),
-            lambda count: np.float32(sched.warmup_max_lr),
+            _constant(sched.warmup_max_lr),
             sched.warmup_num_steps)
     if sched.name == "cosine":
         if sched.total_steps is None:
@@ -141,17 +183,25 @@ class OptState:
     ``mu`` and ``nu`` (Adam's moments: adam, hybrid_adam, adamw, lamb),
     ``trace`` (sgd with momentum), ``ema`` (the parameters' EMA) and
     ``ema_stats`` (the BatchNorm statistics' EMA, by buffer name; the
-    train state keeps it).
+    train state keeps it). ``count_t`` is the count again as a 0-d int64
+    tensor on the parameters' device, which every update advances in place
+    (a CUDA graph's replays too); set both with :meth:`set_count`.
     A slot reads as an attribute: ``state.mu``."""
 
     count: int
     slots: dict[str, dict[str, torch.Tensor]]
+    count_t: torch.Tensor
 
     def __getattr__(self, name: str):
         slots = self.__dict__.get("slots")
         if slots is not None and name in slots:
             return slots[name]
         raise AttributeError(name)
+
+    def set_count(self, count: int) -> None:
+        """The count, on the host and on the card (a restore's)."""
+        self.count = int(count)
+        self.count_t.fill_(self.count)
 
 
 def global_norm(tensors: list[torch.Tensor], zero=None, names=None) -> torch.Tensor:
@@ -217,7 +267,8 @@ class Optimizer:
             slots["trace"] = zeros()
         if self.ema_decay is not None:
             slots["ema"] = {n: p.detach().float().clone() for n, p in params.items()}
-        return OptState(0, slots)
+        device = next(iter(params.values())).device if params else None
+        return OptState(0, slots, torch.zeros((), dtype=torch.int64, device=device))
 
     def decay_flags(self, params: dict[str, torch.Tensor]) -> dict[str, bool]:
         """Which of the (full) parameters take weight decay, by name."""
@@ -256,14 +307,20 @@ class Optimizer:
     def update(self, params: dict[str, torch.Tensor],
                grads: dict[str, torch.Tensor], state: OptState, *,
                out: dict[str, torch.Tensor] | None = None,
-               decay: dict[str, bool] | None = None, zero=None) -> OptState:
+               decay: dict[str, bool] | None = None, zero=None,
+               capturable: bool = False) -> OptState:
         """One step. Writes the new parameters into ``params`` (in place)
-        or into ``out``; returns the new state, whose slots are new
-        tensors when ``out`` is given and the old ones updated in place
-        otherwise. ``decay`` and ``zero`` as in :meth:`transform_grads`."""
+        or into ``out``; returns the new state, whose slots (and count
+        tensor) are new tensors when ``out`` is given and the old ones
+        updated in place otherwise. ``decay`` and ``zero`` as in
+        :meth:`transform_grads`. ``capturable``: the learning rate and the
+        bias corrections come from ``state.count_t`` on its device, not
+        from the host count (see the module docstring)."""
         names = list(params)
         grads = self.transform_grads(params, grads, decay=decay, zero=zero)
         count = state.count + 1
+        count_t = state.count_t.add_(1) if out is None else state.count_t + 1
+        at = count_t if capturable else count
         if out is None:
             p_out, slots = params, state.slots
         else:  # new tensors for the slots this chain writes; others carried
@@ -271,18 +328,20 @@ class Optimizer:
             slots = {k: {n: torch.empty_like(t) for n, t in v.items()}
                      if k in _OWN_SLOTS else v for k, v in state.slots.items()}
         if self.fused:
+            step = (dict(scalars=adam_scalars_tensor(self.lr(at), at, self.b1, self.b2))
+                    if capturable else dict(lr=float(self.lr(at)), step=at))
             fused_adam_update(
                 [params[n] for n in names],
                 [_like(params[n], grads[n]) for n in names],
                 [state.mu[n] for n in names], [state.nu[n] for n in names],
-                lr=float(self.lr(count)), step=count, b1=self.b1, b2=self.b2,
-                eps=self.eps,
+                b1=self.b1, b2=self.b2, eps=self.eps,
                 out=([p_out[n] for n in names], [slots["mu"][n] for n in names],
-                     [slots["nu"][n] for n in names]))
+                     [slots["nu"][n] for n in names]), **step)
         else:
-            u = self._direction(names, params, grads, state, slots, count,
+            u = self._direction(names, params, grads, state, slots, at,
                                 decay, zero)
-            new = torch._foreach_mul(u, -float(self.lr(count - 1)))
+            lr = self.lr(at - 1)
+            new = torch._foreach_mul(u, -lr if capturable else -float(lr))
             torch._foreach_add_(new, [params[n] for n in names])
             torch._foreach_copy_([p_out[n] for n in names], new)
         if self.ema_decay is not None:
@@ -291,7 +350,7 @@ class Optimizer:
             torch._foreach_add_(ema, torch._foreach_mul([p_out[n] for n in names],
                                                         one_minus))
             torch._foreach_copy_([slots["ema"][n] for n in names], ema)
-        return OptState(count, slots)
+        return OptState(count, slots, count_t)
 
     def _direction(self, names, params, grads, state, slots, count, decay,
                    zero) -> list[torch.Tensor]:
@@ -319,9 +378,10 @@ class Optimizer:
             u = self._trust_ratio(u, [params[n] for n in names], zero, names)
         return u
 
-    def _scale_by_adam(self, names, g, state, slots, count) -> list[torch.Tensor]:
+    def _scale_by_adam(self, names, g, state, slots, count: Count) -> list[torch.Tensor]:
         """``optax.scale_by_adam``: the new moments into ``slots``, and
-        ``m̂ / (√v̂ + eps)``."""
+        ``m̂ / (√v̂ + eps)``; the bias corrections float32 numbers from the
+        host ``count``, or 0-d tensors from the count tensor."""
         m = torch._foreach_mul(g, 1.0 - self.b1)
         torch._foreach_add_(m, torch._foreach_mul([state.mu[n] for n in names], self.b1))
         v = torch._foreach_mul(g, g)
@@ -329,9 +389,14 @@ class Optimizer:
         torch._foreach_add_(v, torch._foreach_mul([state.nu[n] for n in names], self.b2))
         torch._foreach_copy_([slots["mu"][n] for n in names], m)
         torch._foreach_copy_([slots["nu"][n] for n in names], v)
-        t = np.float32(count)
-        bc1 = float(np.float32(1.0) - np.float32(self.b1) ** t)
-        bc2 = float(np.float32(1.0) - np.float32(self.b2) ** t)
+        if isinstance(count, torch.Tensor):
+            t = count.float()
+            bc1 = 1.0 - torch.pow(_f32(self.b1), t)
+            bc2 = 1.0 - torch.pow(_f32(self.b2), t)
+        else:
+            t = np.float32(count)
+            bc1 = float(np.float32(1.0) - np.float32(self.b1) ** t)
+            bc2 = float(np.float32(1.0) - np.float32(self.b2) ** t)
         den = torch._foreach_div(v, bc2)
         torch._foreach_sqrt_(den)
         torch._foreach_add_(den, self.eps)

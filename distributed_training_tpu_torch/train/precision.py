@@ -157,13 +157,22 @@ def commit_gradients(state, grads: dict[str, torch.Tensor],
       the candidate is dropped, ``old_batch_stats`` (a snapshot of the
       BatchNorm buffers taken before the forward) is put back, and neither
       the step count nor the schedule advances.
-    - Static or inert scaler: the optimizer updates in place.
+    - Static or inert scaler: the optimizer updates in place, and with
+      ``state.capturable`` reads its count on the card (a CUDA graph can
+      capture the commit). The dynamic scaler's host read of its flag
+      cannot be captured: under ``state.capturable`` it raises.
     """
     params = state.master_params()
     zero = state.zero
+    if state.loss_scale.dynamic and state.capturable:
+        raise NotImplementedError(
+            "the dynamic loss scale reads its finite flag on the host every "
+            "step, which a CUDA graph of steps cannot replay: use bf16, fp32 "
+            "or a static loss scale there (ROADMAP.md, queue B)")
     opt_state = state.offload_fetch()
     if not state.loss_scale.dynamic:
-        new = state.tx.update(params, grads, opt_state, decay=state.decay, zero=zero)
+        new = state.tx.update(params, grads, opt_state, decay=state.decay, zero=zero,
+                              capturable=state.capturable)
         _advance_ema_stats(state, new.slots, in_place=True)
         state.offload_store(new)
         state.apply_params(params)

@@ -107,12 +107,19 @@ def forward_with_aux(model: torch.nn.Module, x: torch.Tensor,
 
 
 def dropout_generator(model: torch.nn.Module, seed: int, step: int, rank: int,
-                      device: torch.device) -> torch.Generator | None:
+                      device: torch.device,
+                      capturable: bool = False) -> torch.Generator | None:
     """The step's generator of dropout masks and the noisy gates' noise:
     seeded by ``(seed, step, rank)``, so each rank and step draws its own;
-    None for a model with neither."""
+    None for a model with neither. Its seed is the host step, which a CUDA
+    graph of steps would freeze: with ``capturable`` such a model raises."""
     if not (getattr(model, "dropout_rate", 0.0) or getattr(model, "noisy_gate_policy", None)):
         return None
+    if capturable:
+        raise NotImplementedError(
+            "dropout and noisy gates seed their generator from the host step, "
+            "which a CUDA graph of steps cannot advance: run such a model one "
+            "step a call (ROADMAP.md, queue B)")
     key = int(np.random.SeedSequence([seed, step, rank]).generate_state(1, np.uint64)[0])
     return torch.Generator(device=device).manual_seed(key % 2**63)
 
@@ -171,7 +178,8 @@ def make_train_step(*, zero_stage: int = 0, grad_accum_steps: int = 1,
         for p in model.parameters():
             p.grad = None
         losses, accs = [], []
-        gen = dropout_generator(model, seed, state.step, zero.rank, images.device)
+        gen = dropout_generator(model, seed, state.step, zero.rank, images.device,
+                                state.capturable)
         for x, y in zip(images.chunk(grad_accum_steps),
                         labels.chunk(grad_accum_steps)):
             logits, aux = forward_with_aux(model, x, gen)

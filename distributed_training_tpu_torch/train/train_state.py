@@ -73,6 +73,10 @@ class TrainState:
     decay: dict = dataclasses.field(default_factory=dict)
     layouts: dict = dataclasses.field(default_factory=dict)
     shards: dict | None = None
+    # Set while ``train/multi_step.py`` runs its steps: the update reads its
+    # count on the card, and what needs the host (the dynamic loss scale,
+    # dropout's seed) raises.
+    capturable: bool = False
 
     @classmethod
     def create(cls, model: torch.nn.Module, tx: Optimizer,
@@ -191,7 +195,7 @@ class TrainState:
         dev = next(iter(self.master_params().values())).device
         return OptState(st.count, {
             k: {n: t.to(dev, non_blocking=True) for n, t in v.items()}
-            for k, v in st.slots.items()})
+            for k, v in st.slots.items()}, st.count_t)
 
     @torch.no_grad()
     def offload_store(self, st: OptState) -> None:
@@ -205,7 +209,7 @@ class TrainState:
         for k, v in st.slots.items():
             for n, t in v.items():
                 host.slots[k][n].copy_(t, non_blocking=True)
-        host.count = st.count
+        host.count, host.count_t = st.count, st.count_t
 
     def _shapes(self, slot: str, names) -> list:
         """The whole shapes of a slot's tensors: the buffers' for
@@ -336,7 +340,7 @@ class TrainState:
                                  f"the checkpoint's")
             for n, t in tensors.items():
                 mine[n].copy_(self.partition(t).view(mine[n].shape))
-        self.opt_state.count = int(sd["opt_state"]["count"])
+        self.opt_state.set_count(sd["opt_state"]["count"])
         self.loss_scale = LossScaleState(**sd["loss_scale"])
         self.step = int(sd["step"])
 

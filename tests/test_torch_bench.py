@@ -6,12 +6,17 @@
   the peak table knows the H100 and no TPU, and ``$OBS_PEAK_FLOPS``
   overrides it; the percentile is the JAX package's.
 - ``python -m distributed_training_tpu_torch.bench``: the root bench's
-  parser (names and defaults, ``--steps-per-call`` 1), a bare run with
-  ``--device cpu`` at a tiny size printing one JSON line per leg with the
-  root bench's keys, the image leg's remat and bf16-parameter flags, the
-  LM leg's chunked and saved-probabilities CE, the data modes
-  (``--data-only`` in each mode, ``--data-concurrent``) with the root
-  bench's keys, and every flag the port cannot honour raising.
+  parser (names and defaults), a bare run with ``--device cpu`` at a tiny
+  size printing one JSON line per leg with the root bench's keys, the
+  image leg's remat and bf16-parameter flags, ``--steps-per-call`` (N
+  steps a call, the root's rounding of warm-up and steps and its message,
+  the windows and throughput over steps × N, ``--cpu-offload`` forcing 1,
+  the LM leg taking N on the card only), the LM leg's chunked and
+  saved-probabilities CE, the data modes (``--data-only`` in each mode,
+  ``--data-concurrent``) with the root bench's keys, and every flag the
+  port cannot honour raising. The tiny runs pass ``--steps-per-call 1``
+  (the default 15 would round 2 steps up to 15 a call, after 15 of
+  warm-up) unless N is what they test.
 """
 
 import importlib.util
@@ -124,12 +129,13 @@ def test_parser_has_the_root_bench_names_and_defaults():
     port = vars(bench.build_parser().parse_args([]))
     assert set(port) == set(root) | {"device"}
     differ = {k for k in root if root[k] != port[k]}
-    assert differ == {"steps_per_call"} and port["steps_per_call"] == 1
+    assert differ == set() and port["steps_per_call"] == 15
 
 
 TINY = ["--device", "cpu", "--model", "resnet_micro", "--batch-size", "4",
         "--image-size", "32", "--num-classes", "10", "--warmup", "0", "--steps", "2",
-        "--sync-interval", "1", "--lm-batch", "1", "--seq-len", "8"]
+        "--sync-interval", "1", "--lm-batch", "1", "--seq-len", "8",
+        "--steps-per-call", "1"]
 
 
 def test_bare_run_prints_both_legs_with_the_root_keys(capsys, monkeypatch):
@@ -164,11 +170,12 @@ def test_image_leg_honours_zero_offload_and_input_dtype(capsys, flags, tag):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--check"], ["--tp", "2"], ["--tp-overlap"], ["--steps-per-call", "15"],
+    ["--check"], ["--tp", "2"], ["--tp-overlap"],
 ], ids=lambda f: f[0])
 def test_unported_flags_raise(flags, monkeypatch):
-    """What the port's bench lacks raises naming ROADMAP.md. ``--tp`` and
-    ``--tp-overlap``, which this test once listed, are ported: ``--tp 2``
+    """What the port's bench lacks raises naming ROADMAP.md. ``--tp``,
+    ``--tp-overlap`` and ``--steps-per-call``, which this test once listed,
+    are ported (the last in ``test_steps_per_call`` below): ``--tp 2``
     over one rank exits with the root bench's message (the check that
     ``--tp`` divides the ranks), and ``--tp-overlap`` at ``--tp 1`` runs
     the plain LM step (its GPT cut to one layer of width 32 here, as in
@@ -190,6 +197,59 @@ def test_unported_flags_raise(flags, monkeypatch):
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         bench.main(["--device", "cpu", *flags])
+
+
+N_STEPS = [
+    ("image", ["--image", "--steps-per-call", "3", "--warmup", "0", "--steps", "6"],
+     3, 9, "bench: steps-per-call=3 rounds warmup 0->3 and steps 6->6 (one priming "
+           "call always runs; pass --steps-per-call 1 for exact counts)"),
+    ("cpu_offload", ["--image", "--steps-per-call", "3", "--zero-stage", "2",
+                     "--cpu-offload"], 1, 2, "bench: --cpu-offload forces --steps-per-call 1"),
+    ("lm_on_the_cpu", ["--lm", "--steps-per-call", "3"], 1, 2, None),
+]
+
+
+@pytest.mark.parametrize("leg,flags,n,steps,message", N_STEPS, ids=[c[0] for c in N_STEPS])
+def test_steps_per_call(capsys, monkeypatch, leg, flags, n, steps, message):
+    """``--steps-per-call N`` as the root bench takes it: the image leg runs
+    N steps a call on the CPU too (``make_multi_step``'s loop; no priming
+    step there), rounds ``--warmup`` and ``--steps`` to calls with the
+    root's message when it rounds up, counts ``win`` and the throughput
+    over steps × N (the step-time windows then match the rate, and the
+    FLOPs per image stay one step's), and tags the metric
+    ``steps/call:N``; ``--cpu-offload`` forces 1 with the root's message;
+    the LM leg takes N on the card only (its GPT cut to one layer of width
+    32 here)."""
+    from distributed_training_tpu_torch import models
+    from distributed_training_tpu_torch.train import lm_step, step as step_mod
+
+    get_model, ran = models.get_model, [0]
+    monkeypatch.setattr(models, "get_model", lambda name, **kw: get_model(
+        name, **({**kw, "num_layers": 1, "num_heads": 2, "hidden_dim": 32}
+                 if name == "transformer_lm" else kw)))
+    for mod, name in ((step_mod, "make_train_step"), (lm_step, "make_lm_train_step")):
+        def counted(make=getattr(mod, name), **kw):
+            inner = make(**kw)
+
+            def step(state, batch):
+                ran[0] += 1
+                return inner(state, batch)
+            return step
+        monkeypatch.setattr(mod, name, counted)
+    argv = [*TINY[:-2], *flags] + ([] if "--steps" in flags else ["--steps", "2"])
+    (line, loss), = bench.main(argv)
+    err = capsys.readouterr().err
+    assert ran[0] == steps and np.isfinite(loss) and line["value"] > 0
+    assert (f", steps/call:{n}," in line["metric"]) == (n > 1)
+    assert (message in err) if message else ("steps-per-call" not in err)
+    if leg == "image":
+        batch = 4
+        assert line["step_time_p50_ms"] == pytest.approx(1e3 * batch / line["value"], rel=0.2)
+        per_image = train_step_flops(forward_flops(
+            get_model("resnet_micro", num_classes=10), image_size=32, batch=1))
+        # rel 1e-3: ``value`` is rounded to 0.01 images/s; steps counted
+        # once where the other counts steps × N would be off by 3×.
+        assert line["model_flops_per_sec"] / line["value"] == pytest.approx(per_image, rel=1e-3)
 
 
 @pytest.mark.parametrize("remat", [False, True], ids=["plain", "remat"])

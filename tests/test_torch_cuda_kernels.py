@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from distributed_training_tpu_torch.ops.fused_adam import (
+    adam_scalars_tensor,
     fused_adam_reference,
     fused_adam_update,
 )
@@ -78,6 +79,122 @@ def test_kernel_refuses_what_it_cannot_take(require_cuda):
                           lr=1e-3, step=1)
     with pytest.raises(ValueError):
         fused_adam_update([p], [p.cpu()], [p], [p], lr=1e-3, step=1)
+
+
+@pytest.mark.cuda
+def test_kernel_reads_its_step_scalars_on_the_card(require_cuda):
+    """The device-scalar launch (``scalars=``) against the plain version
+    with the same tensor scalars, bit for bit; captured in a CUDA graph and
+    replayed after the scalars are rewritten in place, it takes each
+    replay's values (by-value arguments would repeat the first step's)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    p, g = (torch.randn(20001, device=dev, generator=gen) for _ in range(2))
+    m, v = torch.zeros_like(p), torch.zeros_like(p)
+    lr = torch.tensor(1e-3, device=dev)
+    scalars = adam_scalars_tensor(lr, torch.tensor(1, device=dev), 0.9, 0.999)
+    want = fused_adam_reference(p, g, m, v, scalars=scalars)
+    fused_adam_update([p], [g], [m], [v], scalars=scalars)
+    for got, w in zip((p, m, v), want):
+        assert torch.equal(got, w)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fused_adam_update([p], [g], [m], [v], scalars=scalars)
+    for step in range(2, 5):
+        scalars.copy_(adam_scalars_tensor(lr, torch.tensor(step, device=dev), 0.9, 0.999))
+        want = fused_adam_reference(p, g, m, v, scalars=scalars)
+        graph.replay()
+        for got, w in zip((p, m, v), want):
+            assert torch.equal(got, w)
+    with pytest.raises(ValueError, match="scalars"):
+        fused_adam_update([p], [g], [m], [v], scalars=scalars.double())
+
+
+@pytest.mark.cuda
+def test_multi_step_graph_takes_new_step_numbers(require_cuda, tmp_path):
+    """``make_multi_step`` on the card: two replays of a 3-step graph of a
+    float32 ResNet step with ``hybrid_adam`` under a warm-up schedule (so
+    each step's rate and bias corrections differ) against 6 eager steps
+    from a copy of the state: the same losses within rtol 1e-5 and
+    parameters within atol 1e-5 (cuDNN's backward sums with atomics in an
+    order that changes from run to run: two eager runs differ by up to
+    ~3e-6 on a BatchNorm bias of ~1.5e-3 after 6 steps at lr 1e-3 on an
+    H100), and the counts on the host and the card both advanced by 6;
+    the kept graph holds one K1 node a step (``graph_kernels``)."""
+    import copy
+
+    from distributed_training_tpu_torch.config import (
+        OptimizerConfig,
+        PrecisionConfig,
+        SchedulerConfig,
+    )
+    from distributed_training_tpu_torch.models import get_model
+    from distributed_training_tpu_torch.train.multi_step import graph_kernels, make_multi_step
+    from distributed_training_tpu_torch.train.optim import make_optimizer
+    from distributed_training_tpu_torch.train.precision import LossScaleState
+    from distributed_training_tpu_torch.train.step import make_train_step
+    from distributed_training_tpu_torch.train.train_state import TrainState
+
+    dev = torch.device("cuda")
+    torch.backends.cudnn.allow_tf32 = False
+    model = get_model("resnet_micro", num_classes=10,
+                      generator=torch.Generator().manual_seed(0)).to(dev)
+    sched = SchedulerConfig(name="warmup_lr", warmup_min_lr=1e-4, warmup_max_lr=1e-3,
+                            warmup_num_steps=8)
+    state = TrainState.create(model, make_optimizer(OptimizerConfig(name="hybrid_adam"), sched),
+                              LossScaleState.create(PrecisionConfig()))
+    gen = torch.Generator(device=dev).manual_seed(2)
+    batch = {"image": torch.rand(8, 32, 32, 3, device=dev, generator=gen),
+             "label": torch.randint(0, 10, (8,), device=dev, generator=gen)}
+    step = make_train_step()
+    multi = make_multi_step(step, state, batch, 3, keep_graph=True)
+    names = graph_kernels(multi, str(tmp_path / "graph.dot"))
+    assert sum("fused_adam_kernel" in x for x in names) == 3
+    eager = copy.deepcopy(state)
+    start = state.step
+    got = [float(multi()["loss"]) for _ in range(2)]
+    want = [float(step(eager, batch)["loss"]) for _ in range(6)][2::3]
+    torch.testing.assert_close(torch.tensor(got), torch.tensor(want), rtol=1e-5, atol=0)
+    for a, b in zip(state.model.parameters(), eager.model.parameters()):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    assert state.step == state.opt_state.count == int(state.opt_state.count_t) == start + 6
+
+
+@pytest.mark.cuda
+def test_vit_step_captures(require_cuda):
+    """A ViT step (the bench's ``--model vit_b16`` leg, cut to one narrow
+    layer) captures in a CUDA graph: its attention scale is filled on the
+    card, where a copy from the host would be refused during the capture;
+    two replays of 2 steps against 4 eager steps from a copy of the state,
+    within the cuBLAS tolerance of the test above."""
+    import copy
+
+    from distributed_training_tpu_torch.config import OptimizerConfig, PrecisionConfig
+    from distributed_training_tpu_torch.models import get_model
+    from distributed_training_tpu_torch.train.multi_step import make_multi_step
+    from distributed_training_tpu_torch.train.optim import make_optimizer
+    from distributed_training_tpu_torch.train.precision import LossScaleState
+    from distributed_training_tpu_torch.train.step import make_train_step
+    from distributed_training_tpu_torch.train.train_state import TrainState
+
+    dev = torch.device("cuda")
+    model = get_model("vit_b16", num_classes=10, dtype=torch.bfloat16, image_size=32,
+                      patch_size=8, hidden_size=32, num_layers=1, num_heads=2, mlp_dim=64,
+                      generator=torch.Generator().manual_seed(0)).to(dev)
+    state = TrainState.create(model, make_optimizer(OptimizerConfig(name="sgd", lr=0.1,
+                                                                    momentum=0.9)),
+                              LossScaleState.create(PrecisionConfig(dtype="bf16")))
+    gen = torch.Generator(device=dev).manual_seed(3)
+    batch = {"image": torch.rand(8, 32, 32, 3, device=dev, generator=gen),
+             "label": torch.randint(0, 10, (8,), device=dev, generator=gen)}
+    step = make_train_step(grad_accum_steps=2)
+    multi = make_multi_step(step, state, batch, 2)
+    eager = copy.deepcopy(state)
+    got = [float(multi()["loss"]) for _ in range(2)]
+    want = [float(step(eager, batch)["loss"]) for _ in range(4)][1::2]
+    torch.testing.assert_close(torch.tensor(got), torch.tensor(want), rtol=1e-5, atol=0)
+    for a, b in zip(state.model.parameters(), eager.model.parameters()):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
 
 
 # -- flash attention (K2 forward, K3 backward) --------------------------------

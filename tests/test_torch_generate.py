@@ -407,7 +407,8 @@ def test_bench_compare_reads_the_port_bench_lines(tmp_path):
 
     (line, _), = bench.main(["--device", "cpu", "--model", "resnet_micro", "--batch-size", "4",
                              "--image-size", "32", "--num-classes", "10", "--warmup", "0",
-                             "--steps", "1", "--sync-interval", "1", "--image"])
+                             "--steps", "1", "--sync-interval", "1", "--steps-per-call", "1",
+                             "--image"])
     spec = importlib.util.spec_from_file_location(
         "bench_compare", os.path.join(ROOT, "tools", "bench_compare.py"))
     compare = importlib.util.module_from_spec(spec)
