@@ -36,7 +36,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
    stage's collectives, K1 on the rank's shard); the loss must be finite
    and fall, K1 must launch once a step, each step's loss must match the
    no-group run's, and the offloaded moments must be pinned host tensors;
-   images/s and peak memory per preset;
+   one more step counted (``utils/collectives.py``), printed as a
+   ``[collectives]`` line and held exactly, counts and bytes, to
+   :func:`expected_dp_collectives`; images/s and peak memory per preset;
 6. flash kernel phase: the flash-attention forward (K2), fused backward
    (K3) and split backward (K4a dq, K4b dk and dv) against their plain
    versions over float32 and bfloat16, causal and not, head dims 32, 64
@@ -91,7 +93,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    world-1 NCCL group, at ZeRO 2 with remat and the chunked CE (256) and a
    JSONL sink: the loss finite and falling, K2 launched twice a layer a
    step (forward and recompute) and once a layer an eval batch, K3 once a
-   layer a step, the JSONL lines written; tokens/s and peak memory beside
+   layer a step, the JSONL lines written, one more step's collectives
+   held as in the DP phase; tokens/s and peak memory beside
    the same run without remat and the chunked CE, whose peak must be
    higher; with fp32 logits, stage 0 against stage 3 and the
    saved-probabilities CE against the default, each step's loss; then the
@@ -281,13 +284,17 @@ and the fsdp 4 save resumed at world 1; then (``resilience``) the chaos
 drills across the ranks: a slow step on rank 1 named the straggler by
 every rank, a SIGTERM kill on every rank resumed at world 4 by the
 continuation rule, and the flight recorder's gloo exchange timed a flush
-on each rank (see RES_MESH_EPOCHS). ``--mesh PART ...`` (names of
-``MESH_PARTS``: a11, moe, vit, moe_axes, lm, bench, pp, fsdp, resilience)
-runs only those parts.
+on each rank (see RES_MESH_EPOCHS); then (W 4, ``collectives``) the
+collective accounting tool's micro rows over NCCL against the same rows
+over gloo on the CPU, and one counted, timed step at full width a
+strategy (GPT-2-small's, ResNet-18 data parallel), the data-parallel ones
+held exactly to what the port's code implies (see COLL_WARMUP).
+``--mesh PART ...`` (names of ``MESH_PARTS``: a11, moe, vit, moe_axes,
+lm, bench, pp, fsdp, resilience, collectives) runs only those parts.
 
 ``python3 chip_smoke.py --phase NAME ...`` runs the build and only the
-named phases (kernel, bench, data, ring, moe_lm, moe_image, vit, pipeline, flight, trace,
-resilience, generate, serve, serve_features, fleet), without a result line.
+named phases (kernel, bench, dp, gpt_cli, data, ring, moe_lm, moe_image, vit, pipeline,
+flight, trace, resilience, generate, serve, serve_features, fleet), without a result line.
 """
 
 from __future__ import annotations
@@ -702,6 +709,96 @@ def _dp_config(plugin: str, ckpt_dir: str):
     return cfg.replace(optimizer=dataclasses.replace(cfg.optimizer, name="hybrid_adam"))
 
 
+def _data_parallel_alone(trainer) -> bool:
+    """Whether ``trainer`` runs over its ZeRO group alone: no model,
+    expert, pipe, fsdp or sequence axis."""
+    z = trainer.state.zero
+    return ((z.tp, z.ep, z.pp, z.fsdp) == (None,) * 4
+            and getattr(trainer.model, "seq_axis", None) is None)
+
+
+def expected_dp_collectives(trainer) -> dict:
+    """The ``{kind: {"count", "bytes"}}`` one train step of ``trainer``
+    (the image ``Trainer`` or ``LMTrainer``, data parallel over its ZeRO
+    group alone, one microbatch) must issue, from the port's code, with
+    W the group's ranks and c = Σ ceil(n/W) over the parameters' sizes n:
+
+    - the gradient exchange (``parallel/zero.py``): one all-reduce of the
+      whole flat gradients at stages 0-1, one reduce-scatter returning the
+      c-element shard at 2-3;
+    - the parameters (``train/train_state.py``): one all-gather of W·c
+      elements, after the update at stages 1-2, before the forward at 3;
+    - from stage 1 on, the clip's global norm over the shards and, under
+      the dynamic loss scale, the finite flag: one 4-byte all-reduce each;
+    - SyncBN (``models/resnet.py``): each BatchNorm layer's [2, C] float32
+      moments forward and [2, C] sums backward, one all-reduce each;
+    - the metrics: one all-reduce of the float32 scalars (loss and
+      accuracy; the LM step's CE, aux loss and accuracy when it is on)."""
+    from distributed_training_tpu_torch import LMTrainer
+    from distributed_training_tpu_torch.models.resnet import BatchNorm
+
+    state, lm = trainer.state, isinstance(trainer, LMTrainer)
+    zero = state.zero
+    if not _data_parallel_alone(trainer) or trainer.grad_accum != 1 or state.tx.name == "lamb":
+        raise NotImplementedError("the expectation covers data parallelism alone, one "
+                                  "microbatch, without lamb's trust ratio")
+    acct: dict = {}
+
+    def add(kind: str, nbytes: int) -> None:
+        entry = acct.setdefault(kind, {"count": 0, "bytes": 0})
+        entry["count"] += 1
+        entry["bytes"] += nbytes
+
+    if zero.group is None:
+        return acct
+    w, stage = zero.world, zero.stage
+    size = next(iter(state.model.parameters())).element_size()
+    numels = [math.prod(shape) for shape, _ in state.layouts.values()]
+    chunks = sum(-(-n // w) for n in numels)
+    if stage == 3:
+        add("all-gather", w * chunks * size)
+    for bn in state.model.modules():
+        if isinstance(bn, BatchNorm) and bn.group is not None:
+            add("all-reduce", 2 * bn.running_mean.numel() * 4)  # forward moments
+            add("all-reduce", 2 * bn.running_mean.numel() * 4)  # backward sums
+    if stage < 2:
+        add("all-reduce", sum(numels) * size)
+    else:
+        add("reduce-scatter", chunks * size)
+    if stage >= 1:
+        if state.tx.clip is not None:
+            add("all-reduce", 4)
+        if state.loss_scale.dynamic:
+            add("all-reduce", 4)
+        if stage < 3:
+            add("all-gather", w * chunks * size)
+    metrics = 2 + trainer.cfg.lm.metrics_accuracy if lm else 2
+    add("all-reduce", 4 * metrics)
+    if trainer.cfg.observability.grad_norm and stage >= 1:
+        add("all-reduce", 4)
+    return acct
+
+
+def _collectives_line(acct: dict) -> str:
+    return "; ".join(f"{kind} {e['count']} calls {e['bytes']} bytes"
+                     for kind, e in sorted(acct.items())) or "none"
+
+
+def counted_step(trainer, batch: dict, tag: str) -> dict:
+    """One more train step of ``trainer`` on ``batch`` under
+    ``count_collectives()``: printed as a ``[collectives]`` line and held
+    exactly, counts and bytes, to :func:`expected_dp_collectives`."""
+    from distributed_training_tpu_torch.utils.collectives import step_collectives
+
+    want = expected_dp_collectives(trainer)
+    got = step_collectives(trainer.train_step, trainer.state, batch)
+    print(f"[collectives] {tag}, zero stage {trainer.state.zero.stage}, world "
+          f"{trainer.state.zero.world}: {_collectives_line(got)}", flush=True)
+    if got != want:
+        raise SystemExit(f"{tag}: one step's collectives {got}, expected {want}")
+    return got
+
+
 def dp_phase(ckpt_dir: str) -> dict:
     """The five plugin presets through ``Trainer(cfg).fit()`` on full-width
     ResNet-18: first each without a process group, then each under a
@@ -772,9 +869,11 @@ def dp_phase(ckpt_dir: str) -> dict:
                 raise SystemExit(f"{plugin}: cpu_offload moments are not pinned host tensors")
             loader, _ = trainer.make_loaders()
             batches = [to_device(b, trainer.device) for _, b in zip(range(10), loader)]
+            counted = counted_step(trainer, batches[0], f"dp {plugin} (ResNet-18, batch 100)")
             steady_state(trainer, batches, 100, "images", tag=f"dp {plugin}", profiled=2)
             results[plugin] = {"launches": launches, "loss_rel_diff": diff,
-                               "committed": out["steps"], "moments_pinned": pinned}
+                               "committed": out["steps"], "moments_pinned": pinned,
+                               "collectives": counted}
             del trainer, batches
     finally:
         distributed.shutdown_distributed()
@@ -4398,7 +4497,7 @@ def _gpt_cli_run(cli, argv: list, edit=None, eval_before: bool = False,
     run = {"result": result, "losses": [h["loss"] for h in trainer.meter.history],
            "aux": [h["aux_loss"] for h in trainer.meter.history], "ppl_before": ppl_before,
            "kept_share": kept, "params": trainer.param_count,
-           "step_s": times, "peak_bytes": torch.cuda.max_memory_allocated() - start,
+           "step_s": list(times), "peak_bytes": torch.cuda.max_memory_allocated() - start,
            "held_before_bytes": start,
            "eval_batches": len(trainer.make_loaders()[1]),
            "stage": trainer.state.zero.stage, "grouped": trainer.state.zero.group is not None,
@@ -4505,10 +4604,19 @@ def gpt_cli_phase(ckpt_dir: str) -> dict:
     try:
         jsonl = os.path.join(ckpt_dir, "gpt2_small.jsonl")
         flash_fwd.launches = flash_bwd.launches = 0
+        launches, counted = {}, {}
+
+        def count_one_more(trainer):
+            # The fit's launches, then one more step, its collectives counted.
+            launches.update(flash_fwd=flash_fwd.launches, flash_bwd=flash_bwd.launches)
+            loader = trainer.make_loaders()[0]
+            loader.set_epoch(0)
+            counted.update(counted_step(trainer, trainer.place(next(iter(loader))),
+                                        "gpt_cli GPT-2-small (bf16, flash, remat, ce_chunk 256)"))
+
         chunked = _gpt_cli_run(cli, [*GPT_CLI_WIDTH, "--stage", "2", "--remat",
                                   "--ce-chunk-size", "256", "--metrics-jsonl", jsonl,
-                                  "-c", os.path.join(ckpt_dir, "main")])
-        launches = {"flash_fwd": flash_fwd.launches, "flash_bwd": flash_bwd.launches}
+                                  "-c", os.path.join(ckpt_dir, "main")], probe=count_one_more)
         want = {"flash_fwd": GPT_LAYERS * (2 * GPT_CLI_STEPS + chunked["eval_batches"]),
                 "flash_bwd": GPT_LAYERS * GPT_CLI_STEPS}
         with open(jsonl) as fh:
@@ -4571,7 +4679,7 @@ def gpt_cli_phase(ckpt_dir: str) -> dict:
         distributed.shutdown_distributed()
     preempt = _preempt_and_resume(cli, ckpt_dir)
     return {"launches": launches, "chunked": chunked, "base": base, "runs": runs,
-            "preempt": preempt}
+            "preempt": preempt, "collectives": counted}
 
 
 # The MoE phases. The LM: the GPT CLI's --moe at the JAX CLI's defaults
@@ -5197,6 +5305,10 @@ def _mesh_check(what: str, err: float, tol: float) -> None:
     if not err <= tol:
         MESH_FAILURES.append((what, err, tol))
         print(f"[mesh] FAILED {what}: {err:.3g} above {tol}", flush=True)
+
+
+def _mesh_require(what: str, ok: bool) -> None:
+    _mesh_check(what, 0.0 if ok else 1.0, 0.0)
 
 
 class _Alone:
@@ -5935,7 +6047,134 @@ def fsdp_resume(ckpt: str, saved_model: dict) -> dict:
     return {"bitwise": same, "losses": run["losses"], "steps": run["result"]["steps"]}
 
 
-MESH_PARTS = ("a11", "moe", "vit", "moe_axes", "lm", "bench", "pp", "fsdp", "resilience")
+# The collectives part of the mesh mode (W 4). The collective accounting
+# tool's micro rows (tools/collective_accounting.py) over the W NCCL ranks,
+# every rank's accounting equal to the same tool's over W gloo ranks on
+# the CPU (run beside it as a subprocess: the counter reads the port's
+# calls, not the backend); then one counted step at full width after
+# COLL_WARMUP uncounted ones (NCCL's communicators and cuDNN's plans come
+# up in those), timed on the card: GPT-2-small through the GPT CLI at each
+# of _mesh_strategies' flags at ZeRO 0, data parallelism at ZeRO 1 and 3,
+# GPipe over 4 stages and 4 microbatches, and ResNet-18 data parallel
+# (A11_BATCH). The data-parallel rows must equal expected_dp_collectives
+# exactly; every data-parallel all-reduce of the gradients must lie in
+# [G, 2G) bytes (G = 4 × parameters); ZeRO 3 must all-gather; the sp and
+# overlap rows and the pipeline must permute. Bytes a rank a step over the
+# step's ms is the link rate the step would need (printed, not gated).
+COLL_WARMUP = 2
+COLL_FULL = (*((n, ["--stage", "0", *f]) for n, f in _mesh_strategies(4)),
+             ("dp_zero1", ["--stage", "1", "-b", str(GPT_B // 4)]),
+             ("dp_zero3", ["--stage", "3", "-b", str(GPT_B // 4)]),
+             ("pp4", ["--stage", "0", "--pp", "4", "--microbatches", "4"]))
+
+
+def _counted_timed_step(trainer, batches: list) -> tuple[dict, float]:
+    """COLL_WARMUP steps, then one step counted and timed on the card."""
+    from distributed_training_tpu_torch.utils.collectives import step_collectives
+
+    for b in batches[:COLL_WARMUP]:
+        trainer.train_step(trainer.state, b)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    acct = step_collectives(trainer.train_step, trainer.state, batches[COLL_WARMUP])
+    torch.cuda.synchronize()
+    return acct, 1e3 * (time.perf_counter() - t0)
+
+
+def collectives_mesh(world: int, ckpt: str, card: str) -> dict:
+    """The collectives part (see COLL_WARMUP); writes
+    ``profiles/torch_collectives_4gpu.json`` on rank 0."""
+    import subprocess
+
+    import torch.distributed as dist
+
+    from distributed_training_tpu_torch import Trainer
+    from distributed_training_tpu_torch.data.pipeline import to_device
+    from distributed_training_tpu_torch.tools import collective_accounting as tool
+    from distributed_training_tpu_torch.train.train_state import param_count
+
+    if world != 4:
+        raise SystemExit("chip_smoke --mesh collectives: the rows need four ranks")
+    rank = dist.get_rank()
+    cpu_out = os.path.join(ckpt, "collectives_cpu")
+    proc = (subprocess.Popen([sys.executable, "-m", tool.__name__, "--device", "cpu",
+                              "--ranks", str(world), "--out", cpu_out], cwd=REPO,
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            if rank == 0 else None)
+    t0 = time.perf_counter()
+    micro = tool.run_rows(world, None, torch.device("cuda", torch.cuda.current_device()))
+    micro_s = time.perf_counter() - t0
+    if rank == 0:
+        log = proc.communicate(timeout=600)[0]
+        if proc.returncode != 0:
+            raise SystemExit(f"the CPU accounting exited {proc.returncode}: {log[-3000:]}")
+        with open(cpu_out + ".json") as fh:
+            cpu = json.load(fh)["strategies"]
+        differ = sorted(n for n in set(cpu) | set(micro) if cpu.get(n) != micro.get(n))
+        print(f"[collectives] the tool's {len(micro)} micro rows over {world} NCCL ranks in "
+              f"{micro_s:.1f} s: every rank's accounting against {world} gloo ranks on the "
+              f"CPU, rows that differ {differ}", flush=True)
+        _mesh_require(f"collectives: micro rows equal over NCCL and gloo, {differ} differ",
+                      not differ)
+    cli = _gpt_cli_module()
+    full = {}
+
+    def record(name: str, trainer, batches: list, what: str) -> None:
+        acct, ms = _counted_timed_step(trainer, batches)
+        grad_bytes = 4 * (trainer.param_count if hasattr(trainer, "param_count")
+                          else param_count(trainer.model))
+        sent = sum(e["bytes"] for e in acct.values())
+        row = {"model": what, "collectives": acct, "step_ms": ms,
+               "grad_bytes_fp32": grad_bytes, "bytes_per_rank": sent,
+               "link_gb_per_s": sent / ms / 1e6, "strategy": getattr(trainer, "strategy", "dp")}
+        if _data_parallel_alone(trainer):
+            row["expected"] = want = expected_dp_collectives(trainer)
+            _mesh_require(f"collectives {name}: equal to expected_dp_collectives {want}",
+                          acct == want)
+            if trainer.state.zero.stage < 2:
+                reduced = acct.get("all-reduce", {}).get("bytes", 0)
+                _mesh_require(f"collectives {name}: all-reduce bytes {reduced} in [G, 2G)",
+                              grad_bytes <= reduced < 2 * grad_bytes)
+        full[name] = row
+        if rank == 0:
+            print(f"[collectives] {name} over {world} GPUs ({what}; {row['strategy']}): "
+                  f"{_collectives_line(acct)}; {sent} bytes a rank a step in {ms:.3f} ms "
+                  f"= {row['link_gb_per_s']:.2f} GB/s of link the step would need; "
+                  f"G {grad_bytes} bytes; {card}", flush=True)
+
+    for name, flags in COLL_FULL:
+        trainer = cli.build_trainer([*GPT_CLI_WIDTH, *flags,
+                                     "-c", os.path.join(ckpt, "coll_" + name)])
+        loader = trainer.make_loaders()[0]
+        loader.set_epoch(0)
+        batches = [trainer.place(b) for _, b in zip(range(COLL_WARMUP + 1), loader)]
+        record(name, trainer, batches, f"GPT-2-small, B {GPT_B} T {GPT_T}, bf16, flash, "
+               f"{' '.join(flags)}")
+        del trainer, batches
+        torch.cuda.empty_cache()
+    trainer = Trainer(_a11_config("torch_ddp", os.path.join(ckpt, "coll_resnet18"), world))
+    batches = [to_device(b, trainer.device)
+               for _, b in zip(range(COLL_WARMUP + 1), trainer.make_loaders()[0])]
+    record("resnet18_dp4", trainer, batches, f"ResNet-18, global batch {A11_BATCH}, fp32, "
+           f"SyncBN, ZeRO 0")
+    del trainer, batches
+    _mesh_require("collectives dp_zero3: all-gathers", "all-gather" in
+                  full["dp_zero3"]["collectives"])
+    for name in ("sp4", "tp4_overlap", "tp2_sp2", "tp2_sp2_overlap", "pp4"):
+        _mesh_require(f"collectives {name}: permutes",
+                      "collective-permute" in full[name]["collectives"])
+    if rank == 0:
+        path = os.path.join(REPO, "profiles", "torch_collectives_4gpu.json")
+        with open(path, "w") as fh:
+            json.dump({"devices": world, "platform": "cuda", "backend": "nccl", "card": card,
+                       "notes": tool.NOTES, "strategies": micro, "full_width": full},
+                      fh, indent=1, sort_keys=True)
+        print(f"[collectives] wrote {path}", flush=True)
+    return {"micro_rows": len(micro), "full_width": full}
+
+
+MESH_PARTS = ("a11", "moe", "vit", "moe_axes", "lm", "bench", "pp", "fsdp", "resilience",
+              "collectives")
 
 
 def mesh_main(parts: list | None = None) -> int:
@@ -6000,6 +6239,8 @@ def mesh_main(parts: list | None = None) -> int:
         if "resilience" in parts:
             results["resilience"] = resilience_mesh(world, os.path.join(ckpt, "resilience"),
                                                     card)
+        if "collectives" in parts:
+            results["collectives"] = collectives_mesh(world, ckpt, card)
         for name, flags in (_mesh_strategies(world) if "lm" in parts else []):
             flash_fwd.launches = flash_bwd.launches = 0
             run = _gpt_cli_run(cli, [*GPT_CLI_WIDTH, "--stage", "1", *flags,
@@ -6059,13 +6300,14 @@ def mesh_main(parts: list | None = None) -> int:
 
 def phase_main(names: list) -> int:
     """``--phase NAME ...``: the build, then only the named phases (kernel,
-    bench, data, ring, moe_lm, moe_image, vit, pipeline, flight, trace,
-    resilience, generate, serve, serve_features, fleet),
+    bench, dp, gpt_cli, data, ring, moe_lm, moe_image, vit, pipeline,
+    flight, trace, resilience, generate, serve, serve_features, fleet),
     for a short check of one part on the card; prints their results and no
     result line."""
     from distributed_training_tpu_torch.ops import cuda_build
 
     phases = {"kernel": lambda d: kernel_phase(), "bench": lambda d: bench_phase(),
+              "dp": dp_phase, "gpt_cli": gpt_cli_phase,
               "data": data_phase, "ring": lambda d: ring_phase(), "moe_lm": moe_lm_phase,
               "moe_image": moe_image_phase, "vit": lambda d: vit_phase(),
               "pipeline": lambda d: pipeline_phase(), "flight": flight_phase,

@@ -85,7 +85,8 @@ def test_every_module_imports_with_jax_blocked():
                 "serving.journal", "serving.hotswap", "serving.alerts", "serving.httpbody",
                 "serving.frontend", "serving.router", "serving.supervisor",
                 "tools.traffic", "tools.serve_bench", "tools.serve_net", "tools.fleet_trace",
-                "tools.incident_report", "tools.profile_step"):
+                "tools.incident_report", "tools.profile_step", "utils.collectives",
+                "tools.collective_accounting"):
         assert f"distributed_training_tpu_torch.{new}" in mods
 
 

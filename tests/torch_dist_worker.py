@@ -4,7 +4,8 @@
 ``LMTrainer``) and the sequence- and tensor-parallel tests
 (:func:`run_named`: ring attention, the LM step on a mesh, the pipeline
 step, checkpoints, ``LMTrainer``, the GPT CLI, the image ``Trainer``'s
-``fit``) hold against the JAX package.
+``fit``) hold against the JAX package, and the collective accounting
+(``tests/test_torch_collectives.py``).
 
 Started by the tests in ``spawn``ed processes (two or four ranks, gloo on
 the CPU): it imports torch and the port only, never JAX. It reads
@@ -739,6 +740,117 @@ def _host_group_reuse() -> dict:
     rows = aggregate.gather_payloads(np.full(3, float(rank)), 2, group=first)
     return {"same": first is second, "world": first is dist.group.WORLD,
             "size": dist.get_world_size(first), "rows": rows}
+
+
+def _collective_counter(job, rank, world, group):
+    """``utils/collectives.count_collectives`` on a group of ranks 0 and 1
+    (every rank opens it): each counted function called once with known
+    shapes, an async all-reduce read right after it is issued, a nested
+    call, and the functions after a normal exit and after an exception."""
+    import torch.distributed as dist
+
+    from distributed_training_tpu_torch.utils.collectives import count_collectives
+
+    pair = dist.new_group([0, 1])
+    if rank > 1:
+        return {}
+    originals = {n: getattr(dist, n) for n in ("all_reduce", "all_gather",
+                                               "all_gather_into_tensor",
+                                               "reduce_scatter_tensor", "broadcast",
+                                               "batch_isend_irecv")}
+    peer = 1 - rank
+    with count_collectives() as acct:
+        dist.all_reduce(torch.ones(3, 5), group=pair)
+        dist.all_gather([torch.empty(4) for _ in range(2)], torch.ones(4), group=pair)
+        dist.all_gather_into_tensor(torch.empty(12), torch.ones(6), group=pair)
+        dist.reduce_scatter_tensor(torch.empty(3, dtype=torch.float64),
+                                   torch.ones(6, dtype=torch.float64), group=pair)
+        dist.broadcast(torch.ones(7, dtype=torch.int32), src=0, group=pair)
+        recv = [torch.empty(2), torch.empty(3, dtype=torch.int64)]
+        ops = [dist.P2POp(dist.isend, torch.ones(2), peer, pair),
+               dist.P2POp(dist.irecv, recv[0], peer, pair),
+               dist.P2POp(dist.isend, torch.ones(3, dtype=torch.int64), peer, pair),
+               dist.P2POp(dist.irecv, recv[1], peer, pair)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        before = {k: dict(v) for k, v in acct.items()}
+        work = dist.all_reduce(torch.ones(2), group=pair, async_op=True)
+        issued = dict(acct["all-reduce"])
+        work.wait()
+    calls = {k: dict(v) for k, v in acct.items()}
+    restored = all(getattr(dist, n) is f for n, f in originals.items())
+
+    # A counted function that calls another: counted once, as the outer kind.
+    real = dist.all_gather_into_tensor
+
+    def gathers_after_a_reduce(out, inp, group=None, async_op=False):
+        dist.all_reduce(torch.ones(1), group=group)
+        return real(out, inp, group=group, async_op=async_op)
+
+    dist.all_gather_into_tensor = gathers_after_a_reduce
+    try:
+        with count_collectives() as acct:
+            dist.all_gather_into_tensor(torch.empty(4), torch.ones(2), group=pair)
+        nested = {k: dict(v) for k, v in acct.items()}
+    finally:
+        dist.all_gather_into_tensor = real
+    try:
+        with count_collectives():
+            dist.all_reduce(torch.ones(1), group=pair)
+            raise ValueError("inside the block")
+    except ValueError:
+        pass
+    after_raise = all(getattr(dist, n) is f for n, f in originals.items())
+    return {"counter": {"calls": calls, "before_async": before, "issued": issued,
+                        "received": [t.tolist() for t in recv], "restored": restored,
+                        "nested": nested, "restored_after_raise": after_raise}}
+
+
+def _accounting_rows(job, rank, world, group):
+    """Every row of ``tools/collective_accounting.py`` over this world."""
+    from distributed_training_tpu_torch.tools.collective_accounting import run_rows
+
+    return {"rows": run_rows(world, None, torch.device("cpu"))}
+
+
+def _world1_expectation(job, rank, world, group):
+    """Last part of a run: the group closes; rank 0 opens a gloo group of
+    one rank and, for each of ``chip_smoke.py``'s DP presets at micro width
+    (``resnet_micro``, 4 images) and its GPT CLI ZeRO 2 run at micro width
+    (``job["gpt_argv"]``), one step's collectives beside
+    ``chip_smoke.expected_dp_collectives``."""
+    import dataclasses
+
+    from distributed_training_tpu_torch import Trainer
+    from distributed_training_tpu_torch.runtime import distributed
+    from distributed_training_tpu_torch.utils.collectives import step_collectives
+
+    distributed.shutdown_distributed()
+    if rank != 0:
+        return {}
+    import chip_smoke
+
+    distributed.initialize_distributed(
+        init_method=f"file://{os.path.join(job['dir'], 'store_world1')}", world_size=1,
+        rank=0, device="cpu", timeout_s=60)
+    trainers = []
+    for plugin in chip_smoke.DP_PRESETS:
+        cfg = chip_smoke._dp_config(plugin, os.path.join(job["dir"], plugin))
+        trainers.append((plugin, Trainer(cfg.replace(
+            model="resnet_micro",
+            data=dataclasses.replace(cfg.data, batch_size=4, max_steps_per_epoch=1)),
+            device="cpu")))
+    trainers.append(("gpt_cli", chip_smoke._gpt_cli_module().build_trainer(
+        [*job["gpt_argv"], "-c", os.path.join(job["dir"], "gpt")])))
+    out = {}
+    for name, t in trainers:
+        loader = t.make_loaders()[0]
+        loader.set_epoch(0)
+        batch = t.place(next(iter(loader)))
+        out[name] = {"stage": t.state.zero.stage, "world": t.state.zero.world,
+                     "want": chip_smoke.expected_dp_collectives(t),
+                     "got": step_collectives(t.train_step, t.state, batch)}
+    return {"world1": out}
 
 
 def run_named(rank: int, world: int, init_file: str, out_dir: str, names: tuple) -> None:
