@@ -220,12 +220,15 @@ Phases, in order; any failure exits non-zero and prints no result line:
    the losses finite, K2/K3 once a layer and K1 once a captured or priming
    step on the hybrid_adam leg; then the graph check on the image and the
    hybrid_adam legs (two replays of 15 steps against 30 eager steps from
-   clones of the state, within 5× the gap of two eager runs; the counts on
-   the host and the card; one replay's K1/K2/K3 counted by name among
-   the captured graph's kernel nodes, and each seen in a profiler trace
-   of a replay; ms/step, busy share, graph pool and eager peak both
-   ways; two eager steps of each profiled: device busy share, kernels by
-   device time);
+   each of two clones of the state, within 5× the gap of the two eager
+   runs; the counts on the host and the card; one replay's K1/K2/K3
+   counted by name among the captured graph's kernel nodes, and each seen
+   in a profiler trace of a replay; ms/step, busy share, graph pool and
+   eager peak both ways; two eager steps of each profiled: device busy
+   share, kernels by device time); last, both graph checks again under a
+   world-1 NCCL group (one replay each), the step's collectives captured,
+   K1–K3 counted exactly, NCCL's kernel nodes and version printed, and
+   the part's seconds;
 10c. data phase: the native augment library built on this host
    (``available()``) and bit for bit the numpy path on 256 crops at 224
    from 257² images; the bench's ``--data-only --data-mode both`` and
@@ -270,7 +273,11 @@ steps, against DP W's losses; then the LM trainer's strategies: data
 parallelism, the ring over W ranks, TP over W with and without the
 overlap schedule, and at W 4 TP×SP (overlapped too) and TP×DP, through
 the GPT CLI at GPT-2-small width, each against data parallelism's
-losses; then the bench's LM leg with ``--tp W``; then (W 4) the pipeline
+losses; then (``bench``, see :func:`bench_mesh`) the bench's legs over
+the W ranks at the default 15 steps a call, each a CUDA graph with NCCL's
+collectives inside the capture, held against eager steps at the same
+world, beside the same legs at world 1 on each rank's card (run first);
+then (W 4) the pipeline
 through the GPT CLI (``PP_LAYOUTS``: pipe 4 GPipe and circular, pipe 2 ×
 data 2, × model 2, × sequence 2, pipe 4 with accumulation, homogeneous
 MoE at pipe 4 and pipe 2 × expert 2) against DP 4's losses (MoE: the CE),
@@ -299,6 +306,7 @@ flight, trace, resilience, generate, serve, serve_features, fleet), without a re
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -656,6 +664,22 @@ def _device_rows(prof) -> list:
     return rows
 
 
+def _busy_us(prof) -> float:
+    """The device's busy µs in the profile: the union of its device events'
+    ``[start, end)`` intervals (kernels, copies, memsets), so that what runs
+    on two streams at once (NCCL's kernels beside the compute stream, a
+    copy beside a kernel) counts once. Summing the rows would count it
+    twice and can pass 100% of the wall."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for start, stop in spans:
+        if stop > end:
+            busy += stop - max(start, end)
+            end = stop
+    return busy
+
+
 def _profile(calls: list, tag: str) -> None:
     """Run ``calls`` under ``torch.profiler`` and print where the device
     time goes: the wall time, the device's busy share of it, and the
@@ -670,7 +694,7 @@ def _profile(calls: list, tag: str) -> None:
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     rows = _device_rows(prof)
-    busy = sum(r[0] for r in rows)
+    busy = _busy_us(prof)
     print(f"[{tag}] profile of {len(calls)} steps: wall {wall_us / 1e3:.3f} ms "
           f"(profiled), device busy {busy / 1e3:.3f} ms = "
           f"{100 * busy / wall_us:.1f}% of wall")
@@ -2626,7 +2650,7 @@ def _decode_profile(model, prompt: torch.Tensor, steps: int) -> dict:
                 tok = sampler.decode_step(model, tok, prompt.shape[1] + i, cache).argmax(-1)
             torch.cuda.synchronize()
     rows = _device_rows(prof)
-    busy_ms = sum(r[0] for r in rows) / 1e3
+    busy_ms = _busy_us(prof) / 1e3
     return {"steps": steps, "wall_ms_per_step": 1e3 * wall / steps,
             "dispatch_ms_per_step": 1e3 * dispatch / steps,
             "device_busy_ms_per_step": busy_ms / steps,
@@ -3004,7 +3028,7 @@ def _serve_profile(model, prompts: list, cfg) -> dict:
     gather_ms = _gather_ms(eng) * 2 * GPT_LAYERS
     del eng
     rows = _device_rows(prof)
-    busy = sum(r[0] for r in rows)
+    busy = _busy_us(prof)
     pool_us = sum(r[0] for r in rows if re.search(r"gather|index|scatter", r[1]))
     # No device rows (a profiler that traces no kernels): not measured.
     return {"iterations": SERVE_PROFILED, "wall_ms_per_iteration": wall_ms,
@@ -4105,7 +4129,13 @@ def bf16_image_phase(ckpt_dir: str) -> dict:
 # cuDNN's backward may too; and the graph computes the learning rate and
 # Adam's bias corrections on the card (CUDA's powf) where the eager step
 # takes numpy's.
+# Two replays: the second reads the count tensor the first advanced (the
+# learning rate and Adam's bias corrections at steps N+1..2N).
 GRAPH_REPLAYS = 2
+# The graphs under a NCCL group (the bench phase's world-1 part, the mesh
+# mode's bench part) replay once: they check the collectives in the
+# capture, the replays above the continuation.
+GRAPH_REPLAYS_NCCL = 1
 # Eager steps profiled beside one profiled replay (a trace's processing
 # grows with its kernels: two steps give the busy share).
 GRAPH_EAGER_PROFILED = 2
@@ -4121,8 +4151,9 @@ TRACE_KERNELS = {
 
 def _trace_counts(calls: list, tag: str | None = None) -> dict:
     """``calls`` under ``torch.profiler``: wall ms, the device's busy share
-    of it, and the port's kernels by :data:`TRACE_KERNELS` name; with
-    ``tag`` the kernels by device time printed as :func:`_profile` does."""
+    of it (:func:`_busy_us`), and the port's kernels by
+    :data:`TRACE_KERNELS` name; with ``tag`` the kernels by device time
+    printed as :func:`_profile` does."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -4136,7 +4167,7 @@ def _trace_counts(calls: list, tag: str | None = None) -> dict:
     rows = _device_rows(prof)
     counts = {k: sum(c for _, key, c in rows if re.search(pat, key))
               for k, pat in TRACE_KERNELS.items()}
-    busy = sum(r[0] for r in rows) / wall_us
+    busy = _busy_us(prof) / wall_us
     if tag is not None:
         print(f"[{tag}] profile of {len(calls)} steps: wall {wall_us / 1e3:.3f} ms "
               f"(profiled), device busy {100 * busy:.1f}% of wall")
@@ -4145,28 +4176,57 @@ def _trace_counts(calls: list, tag: str | None = None) -> dict:
     return {"wall_ms": wall_us / 1e3, "busy": busy, "kernels": counts, "rows": len(rows)}
 
 
-def _graph_census(multi) -> tuple[dict, int]:
+# NCCL's kernels among a graph's kernel nodes (ncclDevKernel_AllReduce_...,
+# ncclKernel_...), by their mangled or plain names.
+NCCL_KERNEL = re.compile(r"nccl", re.IGNORECASE)
+
+
+def _graph_census(multi) -> tuple[dict, int, list]:
     """The kernels that each replay of ``multi`` (kept graph) launches: the
     port's by :data:`TRACE_KERNELS` name among its graph's kernel nodes,
-    and the number of kernel nodes in all."""
+    the number of kernel nodes in all, and NCCL's kernel nodes' names."""
     from distributed_training_tpu_torch.train.multi_step import graph_kernels
 
     with tempfile.TemporaryDirectory() as tmp:
         names = graph_kernels(multi, os.path.join(tmp, "graph.dot"))
-    return {k: sum(1 for x in names if re.search(pat, x))
-            for k, pat in TRACE_KERNELS.items()}, len(names)
+    return ({k: sum(1 for x in names if re.search(pat, x)) for k, pat in TRACE_KERNELS.items()},
+            len(names), [x for x in names if NCCL_KERNEL.search(x)])
+
+
+@contextlib.contextmanager
+def _groups_shared():
+    """While it is entered, a deep copy (a state's clone) shares the
+    process groups it meets instead of copying them: a group cannot be
+    copied, and the clone's collectives run over the same ranks."""
+    import torch.distributed as dist
+
+    pg = type(dist.group.WORLD) if dist.is_initialized() else None
+    if pg is not None:
+        pg.__deepcopy__ = lambda self, memo: self
+    try:
+        yield
+    finally:
+        if pg is not None:
+            del pg.__deepcopy__
+
+
+def _nccl_version() -> str:
+    return ".".join(str(x) for x in torch.cuda.nccl.version())
 
 
 def _max_gap(a: list, b: list) -> float:
     return max((x - y).abs().max().item() for x, y in zip(a, b))
 
 
-def _graph_vs_eager(tag: str, setup, argv: list, want: dict) -> dict:
-    """See GRAPH_REPLAYS: the graph of the bench leg ``setup`` against eager
-    steps from clones of its state, the host and card counts, ms a step
-    both ways (synchronised wall time, and one replay against as many eager
+def _graph_vs_eager(tag: str, setup, argv: list, want: dict, min_nccl: int = 0,
+                    replays: int = GRAPH_REPLAYS) -> dict:
+    """See GRAPH_REPLAYS: ``replays`` replays of the graph of the bench leg
+    ``setup`` against eager steps from clones of its state, the host and
+    card counts, ms a step both ways (synchronised wall time, and one replay against as many eager
     steps under the profiler: busy share and the port's kernels by name),
-    the graph pool and the eager peak memory."""
+    the graph pool and the eager peak memory, and NCCL's kernel nodes in
+    the graph (at least ``min_nccl``). Under a process group every rank
+    runs it at the same point: the clones share the state's groups."""
     import copy
 
     from distributed_training_tpu_torch import bench
@@ -4178,24 +4238,25 @@ def _graph_vs_eager(tag: str, setup, argv: list, want: dict) -> dict:
     _, state, step, batch = setup(args, torch.device("cuda"))
     multi = make_multi_step(step, state, batch, n, keep_graph=True)
     t_census = time.perf_counter()
-    census, nodes = _graph_census(multi)
+    census, nodes, nccl = _graph_census(multi)
     census_s = time.perf_counter() - t_census
-    clones = [copy.deepcopy(state) for _ in range(2)]
+    with _groups_shared():
+        clones = [copy.deepcopy(state) for _ in range(2)]
     start, count0 = state.step, state.opt_state.count
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    graph_losses = [multi()["loss"].clone() for _ in range(GRAPH_REPLAYS)]
+    graph_losses = [multi()["loss"].clone() for _ in range(replays)]
     torch.cuda.synchronize()
-    graph_ms = (time.perf_counter() - t0) / (n * GRAPH_REPLAYS) * 1e3
+    graph_ms = (time.perf_counter() - t0) / (n * replays) * 1e3
     eager, eager_ms = [], []
     torch.cuda.reset_peak_memory_stats()
     for clone in clones:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         eager.append([step(clone, batch)["loss"].detach().clone()
-                      for _ in range(n * GRAPH_REPLAYS)])
+                      for _ in range(n * replays)])
         torch.cuda.synchronize()
-        eager_ms.append((time.perf_counter() - t0) / (n * GRAPH_REPLAYS) * 1e3)
+        eager_ms.append((time.perf_counter() - t0) / (n * replays) * 1e3)
     eager_peak = torch.cuda.max_memory_allocated()
     params = [list(x.model.parameters()) for x in (state, *clones)]
     gap = {"loss": _max_gap(eager[0], eager[1]), "params": _max_gap(params[1], params[2])}
@@ -4206,8 +4267,8 @@ def _graph_vs_eager(tag: str, setup, argv: list, want: dict) -> dict:
     counts = {"host_step": state.step, "host_count": state.opt_state.count,
               "card_count": int(state.opt_state.count_t),
               "eager_card_count": int(clones[0].opt_state.count_t)}
-    want_count = count0 + n * GRAPH_REPLAYS
-    counts_ok = (state.step == start + n * GRAPH_REPLAYS
+    want_count = count0 + n * replays
+    counts_ok = (state.step == start + n * replays
                  and counts["host_count"] == counts["card_count"] == want_count
                  and counts["eager_card_count"] == clones[0].opt_state.count == want_count)
     # A trace can lose a kernel's record on some hosts (one K2 of 180),
@@ -4224,13 +4285,14 @@ def _graph_vs_eager(tag: str, setup, argv: list, want: dict) -> dict:
            "graph_profiled_ms_per_step": graph_trace["wall_ms"] / n,
            "eager_profiled_ms_per_step": eager_trace["wall_ms"] / GRAPH_EAGER_PROFILED,
            "graph_kernels": census, "graph_kernel_nodes": nodes, "census_s": census_s,
+           "nccl_kernel_nodes": len(nccl), "nccl_kernels": sorted({x[:60] for x in nccl}),
            "replay_kernels": graph_trace["kernels"],
            "eager_kernels": eager_trace["kernels"],
            "graph_pool_gib": multi.pool_bytes / 2**30, "eager_peak_gib": eager_peak / 2**30,
            "losses": {"graph": [float(x) for x in graph_losses],
                       "eager": [[float(x) for x in e[n - 1::n]] for e in eager]}}
-    print(f"[bench graph] {tag}: {GRAPH_REPLAYS} replays of a graph of {n} steps against "
-          f"{n * GRAPH_REPLAYS} eager steps from clones: branch {branch}, gaps between the "
+    print(f"[bench graph] {tag}: {replays} replay(s) of a graph of {n} steps against "
+          f"{n * replays} eager steps from clones: branch {branch}, gaps between the "
           f"eager runs {gap}, graph against eager {err} (limit {RES_CONT_FACTOR} x the gap); "
           f"counts {counts} from step {start}; ms/step graph {graph_ms:.3f}, eager "
           f"{' / '.join(f'{x:.3f}' for x in eager_ms)}; busy graph "
@@ -4238,14 +4300,16 @@ def _graph_vs_eager(tag: str, setup, argv: list, want: dict) -> dict:
           f"(profiled, {graph_trace['wall_ms'] / n:.3f} / "
           f"{eager_trace['wall_ms'] / GRAPH_EAGER_PROFILED:.3f} ms/step); kernels in one "
           f"replay {census} (the graph's, of {nodes} kernel nodes, read in {census_s:.1f} s; "
-          f"its trace {graph_trace['kernels']}), in "
+          f"its trace {graph_trace['kernels']}), NCCL's kernel nodes {len(nccl)} "
+          f"{out['nccl_kernels']}, in "
           f"{GRAPH_EAGER_PROFILED} eager steps "
           f"{eager_trace['kernels']}; graph pool {out['graph_pool_gib']:.3f} GiB, eager peak "
           f"{out['eager_peak_gib']:.3f} GiB; {card_line()}; "
           f"{time.perf_counter() - t_leg:.1f} s", flush=True)
-    if not ok or not counts_ok or census != want or not traced_ok:
+    if not ok or not counts_ok or census != want or not traced_ok or len(nccl) < min_nccl:
         raise SystemExit(f"bench graph {tag}: {out}; kernels in one replay expected {want}, "
-                         f"each seen in its trace and none more often than in the graph")
+                         f"each seen in its trace and none more often than in the graph, "
+                         f"and at least {min_nccl} NCCL kernel node(s)")
     del multi, state, clones, params, step, batch
     torch.cuda.empty_cache()
     return out
@@ -4314,7 +4378,51 @@ def bench_phase() -> dict:
                                                 ["--lm-optimizer", "hybrid_adam"],
                                                 per_steps(n, True))}
     print(f"[bench] the graph checks took {time.perf_counter() - t0:.1f} s", flush=True)
-    return {"launches": launches, "graphs": graphs}
+    return {"launches": launches, "graphs": graphs, "nccl": _bench_nccl_world1(per_steps)}
+
+
+def _bench_nccl_world1(per_steps) -> dict:
+    """The bench phase's last part: both legs (the image leg, the LM leg's
+    ``hybrid_adam`` with K1, K2 and K3) under a world-1 NCCL group, as the
+    DP phase brings one up, each a graph of the default N steps whose
+    capture takes the step's collectives on the group (the gradients'
+    all-reduce, the LM metrics' mean), held against its eager
+    steps (GRAPH_REPLAYS_NCCL), K1–K3 counted exactly in the graph; NCCL's
+    kernel nodes printed (at world 1 NCCL may put a copy, or nothing, in
+    place of a kernel). Both legs at the bench's defaults: the image leg's
+    ms a step read against the check without a group (at world 1 the
+    bench keeps each BatchNorm local, so only the gradients' all-reduce
+    joins the step)."""
+    import torch.distributed as dist
+
+    from distributed_training_tpu_torch import bench
+    from distributed_training_tpu_torch.runtime import distributed
+
+    t0 = time.perf_counter()
+    n = bench.build_parser().parse_args([]).steps_per_call
+    port = _free_port()
+    group = distributed.initialize_distributed(
+        init_method=f"tcp://127.0.0.1:{port}", world_size=1, rank=0)
+    if group is None or dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+        raise SystemExit("bench: the world-1 NCCL group did not come up")
+    print(f"[bench nccl] world-1 NCCL group up at tcp://127.0.0.1:{port} (NCCL "
+          f"{_nccl_version()}): both legs as graphs of {n} steps with the group's "
+          f"collectives inside the capture", flush=True)
+    try:
+        graphs = {"image": _graph_vs_eager(
+                      "image leg, world-1 NCCL", bench.image_step, [], per_steps(n, False),
+                      replays=GRAPH_REPLAYS_NCCL),
+                  "lm_hybrid_adam": _graph_vs_eager(
+                      "LM hybrid_adam leg, world-1 NCCL", bench.lm_step,
+                      ["--lm-optimizer", "hybrid_adam"], per_steps(n, True),
+                      replays=GRAPH_REPLAYS_NCCL)}
+    finally:
+        distributed.shutdown_distributed()
+    seconds = time.perf_counter() - t0
+    print(f"[bench nccl] NCCL {_nccl_version()}: NCCL kernel nodes a graph "
+          f"{ {k: g['nccl_kernel_nodes'] for k, g in graphs.items()} }; the part took "
+          f"{seconds:.1f} s", flush=True)
+    return {"graphs": graphs, "seconds": seconds, "nccl_version": _nccl_version()}
 
 
 # The vit phase: ViT-B/16 through the port's bench image leg at the JAX
@@ -5104,7 +5212,7 @@ def _data_fit(root: str, ckpt_dir: str, prefetch: int) -> dict:
         if index == 1:
             timed["ms_per_step"] = wall / DATA_STEPS * 1e3
         else:
-            timed["busy"] = sum(r[0] for r in _device_rows(prof)) / 1e6 / wall
+            timed["busy"] = _busy_us(prof) / 1e6 / wall
             timed.update(_trace_streams(prof))
         return out
 
@@ -6177,6 +6285,55 @@ MESH_PARTS = ("a11", "moe", "vit", "moe_axes", "lm", "bench", "pp", "fsdp", "res
               "collectives")
 
 
+def bench_mesh(world: int, card: str, alone: dict) -> dict:
+    """The mesh mode's bench part: the port bench's legs over the ``world``
+    ranks at their defaults, each at the default N steps a call (one CUDA
+    graph of N steps, NCCL's collectives inside the capture): the image leg
+    (ResNet-50, batch 512 a chip) at ZeRO 0 and 1, the LM leg
+    (GPT-2-small, AdamW, B16 T1024 global) as DP ``world``, ``--tp world``
+    and ``--tp world --tp-overlap``. Each runs as ``bench.main`` runs it
+    (its JSON line, rank 0's printed), then its graph against eager steps
+    from clones at the same world (GRAPH_REPLAYS_NCCL), K2/K3
+    counted in the graph (12 · N on the LM legs), at least one NCCL kernel
+    node a step on every rank; per-chip images/s and tokens/s beside the
+    world-1 run's (``alone``), and each graph's busy share."""
+    import torch.distributed as dist
+
+    from distributed_training_tpu_torch import bench
+
+    rank = dist.get_rank()
+    n = bench.build_parser().parse_args([]).steps_per_call
+    out = {"nccl_version": _nccl_version(), "world1": alone}
+    legs = (("image_zero0", "image", []), ("image_zero1", "image", ["--zero-stage", "1"]),
+            (f"lm_dp{world}", "lm", []), (f"lm_tp{world}", "lm", ["--tp", str(world)]),
+            (f"lm_tp{world}_overlap", "lm", ["--tp", str(world), "--tp-overlap"]))
+    for name, leg, flags in legs:
+        t0 = time.perf_counter()
+        (line, loss), = bench.main([f"--{leg}", *flags])
+        if not (line["value"] > 0 and math.isfinite(loss) and f"steps/call:{n}" in line["metric"]):
+            raise SystemExit(f"mesh bench {name}: {line}, loss {loss}")
+        lm = leg == "lm"
+        want = {"fused_adam": 0, "flash_fwd": GPT_LAYERS * n if lm else 0,
+                "flash_bwd": GPT_LAYERS * n if lm else 0}
+        g = _graph_vs_eager(f"{name} over {world} GPUs", getattr(bench, f"{leg}_step"), flags,
+                            want, min_nccl=n, replays=GRAPH_REPLAYS_NCCL)
+        out[name] = {"line": line, "loss": loss, "world1_value": alone[leg]["value"],
+                     **{k: g[k] for k in ("branch", "gap", "err", "graph_ms_per_step",
+                                          "eager_ms_per_step", "graph_busy", "eager_busy",
+                                          "graph_kernels", "nccl_kernel_nodes",
+                                          "nccl_kernels")}}
+        if rank == 0:
+            print(f"[mesh] bench {name} over {world} GPUs (NCCL {out['nccl_version']}): "
+                  f"{line['value']} {line['unit']} against {alone[leg]['value']} at world 1 "
+                  f"on one card ({line['value'] / alone[leg]['value']:.3f}x), mfu "
+                  f"{line['mfu']}; graph {g['graph_ms_per_step']:.3f} ms/step, eager "
+                  f"{' / '.join(f'{x:.3f}' for x in g['eager_ms_per_step'])}, busy graph "
+                  f"{100 * g['graph_busy']:.1f}% / eager {100 * g['eager_busy']:.1f}%; NCCL "
+                  f"kernel nodes {g['nccl_kernel_nodes']} in a graph of {n} steps; "
+                  f"{time.perf_counter() - t0:.1f} s; {card}", flush=True)
+    return out
+
+
 def mesh_main(parts: list | None = None) -> int:
     """The mesh mode: first the image Trainer's presets at world 1 on each
     rank's card, then over the ranks (A11_BATCH: each against world 1, local
@@ -6185,9 +6342,9 @@ def mesh_main(parts: list | None = None) -> int:
     model axes (MOE_NODROP_CAPACITY); then every LM strategy through the GPT
     CLI's trainer at ZeRO 1 (see ``MESH_STEPS``), its tokens/s, peak memory
     and K2/K3 launches (summed over the ranks), its losses against data
-    parallelism; the bench's LM leg with ``--tp``; last, on rank 0 alone,
-    the ZeRO 1 save resumed at world 1. ``parts`` (names of MESH_PARTS)
-    runs those alone."""
+    parallelism; the bench's legs over the ranks (:func:`bench_mesh`);
+    last, on rank 0 alone, the ZeRO 1 save resumed at world 1. ``parts``
+    (names of MESH_PARTS) runs those alone."""
     import torch.distributed as dist
 
     from distributed_training_tpu_torch import bench
@@ -6207,11 +6364,14 @@ def mesh_main(parts: list | None = None) -> int:
     cuda_build.build_all()
     card = card_line()
     torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
-    alone = {}
+    alone = bench_alone = {}
     if "a11" in parts:
         with tempfile.TemporaryDirectory() as ckpt, _Alone():
             alone = {p: _image_run(_a11_config(p, os.path.join(ckpt, "w1_" + p), 1))["losses"]
                      for p in DP_PRESETS}
+    if "bench" in parts:
+        with _Alone():  # each rank's card at world 1, the legs at their defaults
+            bench_alone = {leg: bench.main([f"--{leg}"])[0][0] for leg in ("image", "lm")}
     distributed.initialize_distributed()
     rank = dist.get_rank()
     cli = _gpt_cli_module()
@@ -6271,14 +6431,8 @@ def mesh_main(parts: list | None = None) -> int:
                       f"losses {r['losses']} ({worst:.3g} relative of dp's, tolerance "
                       f"{GPT_STAGE_RTOL}); eval perplexity {r['final_perplexity']:.4f}; "
                       f"{card}", flush=True)
-        for flags in (([["--tp", str(world)], ["--tp", str(world), "--tp-overlap"]])
-                      if "bench" in parts else []):
-            # One eager step a call: a graph of steps with --tp > 1 raises
-            # (its collectives in a capture are not ported; ROADMAP.md).
-            (line, loss), = bench.main(["--lm", "--steps-per-call", "1", *flags])
-            if not (line["value"] > 0 and math.isfinite(loss)):
-                raise SystemExit(f"mesh bench {flags}: {line}, loss {loss}")
-            results[f"bench {' '.join(flags)}"] = line
+        if "bench" in parts:
+            results["bench"] = bench_mesh(world, card, bench_alone)
         distributed.shutdown_distributed()
         if rank == 0 and saved is not None:
             results["a11"]["zero1_resume_world1"] = a11_resume(world, ckpt, saved)
@@ -6399,6 +6553,7 @@ def main() -> int:
                 "bench_gpt2_small_hybrid_adam":
                     bench["launches"]["bench --lm --lm-optimizer hybrid_adam"]}
     replayed = bench["graphs"]["lm_hybrid_adam"]["graph_kernels"]
+    replayed_nccl = bench["nccl"]["graphs"]["lm_hybrid_adam"]["graph_kernels"]
 
     def by_path(name: str, **more) -> dict:
         paths = {**more, **{p: n[name] for p, n in tool_launches.items() if name in n}}
@@ -6455,7 +6610,9 @@ def main() -> int:
                                 for n, r in pipe["runs"].items()},
                              **{p: r["fused_adam"] for p, r in flight["launches"].items()},
                              **{p: r["fused_adam"] for p, r in late_launches.items()}},
-        "graph_replay_launches": {"bench_gpt2_small_hybrid_adam": replayed["fused_adam"]},
+        "graph_replay_launches": {"bench_gpt2_small_hybrid_adam": replayed["fused_adam"],
+                                  "bench_gpt2_small_hybrid_adam_nccl_world1":
+                                      replayed_nccl["fused_adam"]},
         **k, "ok": True,
     }, *({
         "name": name, "route": "cuda", "source": src, "replaces": f"{ref}:{line}",
@@ -6479,7 +6636,9 @@ def main() -> int:
                      for c, r in ring.items()}} if name in ring_names else {}),
         **flash[name], "d256": d256["d256"][name], "d512": d256["d512"][name],
         "exp2_ms": exp2[name],
-        **({"graph_replay_launches": {"bench_gpt2_small_hybrid_adam": replayed[name]}}
+        **({"graph_replay_launches": {"bench_gpt2_small_hybrid_adam": replayed[name],
+                                      "bench_gpt2_small_hybrid_adam_nccl_world1":
+                                          replayed_nccl[name]}}
            if name in replayed else {}),
         "fp16_ms": half["ms"][name],
         "fp16_max_abs_err": half["max_abs_err"][name],

@@ -15,7 +15,7 @@ leg's, each with ``metric``, ``value``, ``unit``, ``vs_baseline``, ``mfu``,
 - **Image leg:** ResNet-50 on synthetic ImageNet at 224², bf16 compute
   over float32 parameters, an effective batch of 512 as 2 × 256 gradient
   accumulation, SGD 0.1 with momentum 0.9, through the image train step
-  (``train/step.py``) at ``--zero-stage`` (world 1). ``--remat`` runs each
+  (``train/step.py``) at ``--zero-stage``. ``--remat`` runs each
   block under activation checkpointing, ``--remat-policy conv`` keeps
   only the convolutions' outputs, ``--param-dtype bf16`` keeps the
   parameters and the SGD momentum in bf16 (the BatchNorm statistics stay
@@ -38,6 +38,23 @@ leg's, each with ``metric``, ``value``, ``unit``, ``vs_baseline``, ``mfu``,
   prefetcher, with a second loader assembling batches flat out beside it
   (``--data-stress``): the train images/s and the host's spare images/s.
 
+**Over the launcher's ranks** (``torchrun``, ``WORLD_SIZE`` > 1; or a
+group the caller opened, such as a world-1 NCCL group) every leg but
+``--data-only`` runs data-parallel over all W ranks, as the root bench runs
+over every device: :func:`main` opens the group (NCCL with each rank on
+``cuda:LOCAL_RANK``, gloo with ``--device cpu``) and the legs' setups read
+it; rank 0 alone prints, and the metric names ``W gpu chip(s)``. The image
+leg's global batch is ``--batch-size`` × W, made from ``RandomState(0)``
+as the root makes it, each rank its rows (of each of JAX's accumulation
+microbatches); at W > 1 SyncBN's statistics span the global batch (at W 1
+each BatchNorm keeps its own, as ``torch.nn.SyncBatchNorm`` does) and
+``--zero-stage`` shards over the ranks; ``value`` is images/s a chip and
+``mfu`` counts W chips. The LM
+leg runs on ``data × model`` (``--tp``), ``--lm-batch`` the global batch,
+``value`` tokens/s in all. ``--data-concurrent`` trains ``--batch-size`` ×
+W (rank 0 writes the JPEGs and the cache, the others wait), and
+``--data-stress`` loads rank 0's host alone.
+
 Both legs time the steady state on batches already on the card: 5
 warm-up steps, then 45 steps with a host read of the loss every 15 (the
 barrier), by the host clock. The step-time percentiles are over those
@@ -59,15 +76,15 @@ TPU only); on the card one priming step runs before the capture,
 ``--warmup`` and ``--steps`` count calls of N steps (rounded down, at
 least 1; the image leg says so on stderr when it rounds up, in the root's
 words), and throughput counts ``steps × N`` steps.
-``--cpu-offload`` forces N to 1 with the root's message. Under N > 1, ``--tp
-> 1``, an fp16 loss scale and a model with dropout raise
+``--cpu-offload`` forces N to 1 with the root's message. Over the ranks
+the graph captures the step's NCCL collectives (``train/multi_step.py``).
+Under N > 1 an fp16 loss scale and a model with dropout raise
 ``NotImplementedError`` naming ROADMAP.md; pass ``--steps-per-call 1`` for
 one eager step a call and exact step counts. ``--tp N`` runs the LM leg
-megatron-sharded over N of the launcher's ranks (``torchrun``; ``--tp``
-must divide the ranks, or the bench exits, as the root bench does), and
-``--tp-overlap`` on the ring-overlapped schedule (at ``--tp 1`` the plain
-step, as in the root bench); rank 0 prints, and the MFU divides by every
-rank's card. ``--check`` raises ``NotImplementedError`` naming ROADMAP.md,
+megatron-sharded over N of the launcher's ranks (``--tp`` must divide the
+ranks, or the bench exits, as the root bench does), and ``--tp-overlap``
+on the ring-overlapped schedule (at ``--tp 1`` the plain step, as in the
+root bench); the MFU divides by every rank's card. ``--check`` raises ``NotImplementedError`` naming ROADMAP.md,
 never silently ignored. There is no CPU clamp: on the CPU (``--device
 cpu``) the sizes are what the caller passes.
 """
@@ -171,10 +188,15 @@ def _where(device: torch.device, chips: int = 1) -> str:
 PARAM_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
 
 
-def image_train(args, device: torch.device, num_classes: int):
-    """The image leg's ``(model, state, step)``: the model in bf16, SGD."""
+def image_train(args, device: torch.device, num_classes: int, group=None):
+    """The image leg's ``(model, state, step)``: the model in bf16, SGD;
+    over ``group`` (the launcher's ranks) data-parallel, with
+    ``--zero-stage``'s partition and, over more than one rank, SyncBN's
+    statistics over its ranks (a world-1 SyncBN's all-reduces would only
+    slow the step)."""
     from distributed_training_tpu_torch.config import OptimizerConfig, PrecisionConfig
     from distributed_training_tpu_torch.models import get_model
+    from distributed_training_tpu_torch.models.resnet import set_batchnorm_group
     from distributed_training_tpu_torch.parallel.zero import Zero
     from distributed_training_tpu_torch.train.optim import make_optimizer
     from distributed_training_tpu_torch.train.precision import LossScaleState
@@ -190,28 +212,49 @@ def image_train(args, device: torch.device, num_classes: int):
         kwargs["image_size"] = args.image_size
     model = get_model(args.model, num_classes=num_classes, dtype=torch.bfloat16,
                       generator=torch.Generator().manual_seed(0), **kwargs).to(device)
+    set_batchnorm_group(model, group if _world(group) > 1 else None)
     # SGD with momentum, as the root bench's optax.sgd(0.1, momentum=0.9).
     tx = make_optimizer(OptimizerConfig(name="sgd", lr=0.1, momentum=0.9))
     state = TrainState.create(model, tx, LossScaleState.create(PrecisionConfig(dtype="bf16")),
-                              Zero(args.zero_stage, None, args.cpu_offload))
+                              Zero(args.zero_stage, group, args.cpu_offload))
     step = make_train_step(zero_stage=args.zero_stage, grad_accum_steps=args.grad_accum)
     return model, state, step
 
 
+def _world(group) -> int:
+    return torch.distributed.get_world_size(group) if group is not None else 1
+
+
+def _is_master(group) -> bool:
+    return group is None or torch.distributed.get_rank(group) == 0
+
+
 def image_step(args, device: torch.device):
-    """The image leg's ``(model, state, step, batch)``, as it is timed."""
-    model, state, step = image_train(args, device, args.num_classes)
-    batch_size = args.batch_size  # one card: the global batch
+    """The image leg's ``(model, state, step, batch)``, as it is timed:
+    over the launcher's ranks (the open group) each rank holds its
+    ``--batch-size`` rows of one global batch of ``--batch-size`` × ranks,
+    made from ``RandomState(0)`` as the root bench makes it, its rows those
+    of JAX's microbatches (``data/pipeline.py::process_rows``)."""
+    from distributed_training_tpu_torch.data.pipeline import process_rows
+    from distributed_training_tpu_torch.runtime.distributed import process_group
+
+    group = process_group()
+    model, state, step = image_train(args, device, args.num_classes, group)
+    world = _world(group)
+    global_batch = args.batch_size * world
     rng = np.random.RandomState(0)
-    images = rng.rand(batch_size, args.image_size, args.image_size, 3)
+    images = rng.rand(global_batch, args.image_size, args.image_size, 3)
+    labels = rng.randint(0, args.num_classes, global_batch).astype(np.int32)
+    if world > 1:
+        rows = process_rows(np.arange(global_batch), torch.distributed.get_rank(group),
+                            world, microbatches=args.grad_accum)
+        images, labels = images[rows], labels[rows]
     if args.input_dtype == "uint8":
         images = torch.from_numpy((images * 255).astype(np.uint8))
     else:
         images = torch.from_numpy(images.astype(np.float32)).to(
             torch.bfloat16 if args.input_dtype == "bf16" else torch.float32)
-    batch = {"image": images.to(device),
-             "label": torch.from_numpy(rng.randint(0, args.num_classes, batch_size)
-                                       .astype(np.int32)).to(device)}
+    batch = {"image": images.to(device), "label": torch.from_numpy(labels).to(device)}
     return model, state, step, batch
 
 
@@ -221,6 +264,7 @@ def bench_image(args, device: torch.device) -> tuple[dict, float]:
         forward_flops,
         train_step_flops,
     )
+    from distributed_training_tpu_torch.runtime.distributed import process_group
 
     steps_per_call = max(1, args.steps_per_call)
     if args.cpu_offload and steps_per_call > 1:
@@ -228,18 +272,22 @@ def bench_image(args, device: torch.device) -> tuple[dict, float]:
         # so amortizing dispatch is moot; run per-step.
         print("bench: --cpu-offload forces --steps-per-call 1", file=sys.stderr)
         steps_per_call = 1
-    if steps_per_call > 1 and (args.warmup == 0 or args.steps < steps_per_call):
+    if (steps_per_call > 1 and (args.warmup == 0 or args.steps < steps_per_call)
+            and _is_master(process_group())):
         print(f"bench: steps-per-call={steps_per_call} rounds "
               f"warmup {args.warmup}->{max(1, args.warmup // steps_per_call) * steps_per_call} "
               f"and steps {args.steps}->{max(1, args.steps // steps_per_call) * steps_per_call} "
               f"(one priming call always runs; pass --steps-per-call 1 "
               f"for exact counts)", file=sys.stderr)
     model, state, step, batch = image_step(args, device)
+    group = state.zero.group
+    chips = _world(group)
     dt, per_step_ms, loss = _timed_loop(step, state, batch, args, steps_per_call)
 
+    # The root's images/s over every chip, divided by the chips.
     per_chip = args.steps * steps_per_call * args.batch_size / dt
     step_flops = train_step_flops(forward_flops(model, image_size=args.image_size,
-                                                batch=args.batch_size))
+                                                batch=args.batch_size * chips))
     result = {
         "metric": f"{args.model} synthetic-ImageNet train throughput "
                   f"(bf16, batch {args.batch_size}/chip"
@@ -251,40 +299,41 @@ def bench_image(args, device: torch.device) -> tuple[dict, float]:
                   f"{', in:' + args.input_dtype if args.input_dtype != 'fp32' else ''}"
                   f"{', accum:' + str(args.grad_accum) if args.grad_accum > 1 else ''}"
                   f"{', steps/call:' + str(steps_per_call) if steps_per_call > 1 else ''}"
-                  f", {_where(device)})",
+                  f", {_where(device, chips)})",
         "value": round(per_chip, 2),
         "unit": "images/sec/chip",
         "vs_baseline": None,
-        **observability_fields(step_flops, per_step_ms, args.steps * steps_per_call, dt),
+        **observability_fields(step_flops, per_step_ms, args.steps * steps_per_call, dt,
+                               chips),
     }
-    print(json.dumps(result), flush=True)
+    if _is_master(group):
+        print(json.dumps(result), flush=True)
     return result, loss
 
 
 def lm_mesh(args):
-    """The LM leg's mesh: None at ``--tp 1`` (the one-rank step, as
-    before); else ``data × model`` over the launcher's ranks (``torchrun``),
-    after the root bench's check that ``--tp`` divides them (which exits
-    otherwise)."""
-    ranks = int(os.environ.get("WORLD_SIZE", "1"))
+    """The LM leg's mesh: ``data × model`` (``--tp``) over the launcher's
+    ranks (the open group), after the root bench's check that ``--tp``
+    divides them (which exits otherwise); None for one process alone."""
+    from distributed_training_tpu_torch.runtime.distributed import process_group
+
+    ranks = _world(process_group())
     if args.tp < 1 or ranks % args.tp:
         raise SystemExit(f"--tp {args.tp} must be >= 1 and divide the "
                          f"device count (= {ranks})")
-    if args.tp == 1:
+    if process_group() is None:
         return None
     from distributed_training_tpu_torch.config import MeshSpec
-    from distributed_training_tpu_torch.runtime.distributed import initialize_distributed
     from distributed_training_tpu_torch.runtime.mesh import Mesh
 
-    initialize_distributed(device=args.device)
     return Mesh(MeshSpec(data=-1, model=args.tp))
 
 
-def lm_step(args, device: torch.device, mesh=None):
+def lm_step(args, device: torch.device):
     """The LM leg's ``(model, state, step, batch)``, as it is timed: on
-    ``mesh`` (:func:`lm_mesh`), the model's tensor-parallel shards (the
-    ring-overlapped schedule with ``--tp-overlap``) and this data rank's
-    rows of the batch."""
+    the mesh over the launcher's ranks (:func:`lm_mesh`), the model's
+    tensor-parallel shards (the ring-overlapped schedule with
+    ``--tp-overlap``) and this data rank's rows of the global batch."""
     from distributed_training_tpu_torch.config import OptimizerConfig, PrecisionConfig
     from distributed_training_tpu_torch.data.pipeline import to_device
     from distributed_training_tpu_torch.models import get_model
@@ -302,6 +351,7 @@ def lm_step(args, device: torch.device, mesh=None):
     from distributed_training_tpu_torch.train.precision import LossScaleState
     from distributed_training_tpu_torch.train.train_state import TrainState
 
+    mesh = lm_mesh(args)
     model = get_model(
         "transformer_lm", num_classes=50304, dtype=torch.bfloat16,
         num_layers=12, num_heads=12, hidden_dim=768, max_len=args.seq_len,
@@ -337,22 +387,19 @@ def bench_lm(args, device: torch.device) -> tuple[dict, float]:
         forward_flops,
         train_step_flops,
     )
+    from distributed_training_tpu_torch.runtime.distributed import process_group
 
     # As the root bench's LM leg takes N on the TPU only: N on the card.
     steps_per_call = max(1, args.steps_per_call) if device.type == "cuda" else 1
-    if steps_per_call > 1 and args.tp > 1:
-        raise NotImplementedError(
-            "--steps-per-call > 1 with --tp > 1 (the tensor-parallel step's "
-            "collectives in a CUDA graph) is not ported yet (see ROADMAP.md); "
-            "pass --steps-per-call 1")
-    mesh = lm_mesh(args)
-    model, state, step, batch = lm_step(args, device, mesh)
+    model, state, step, batch = lm_step(args, device)
+    # Every rank of the mesh: under --tp the state's group is its data group.
+    group = process_group()
     dt, per_step_ms, loss = _timed_loop(step, state, batch, args, steps_per_call)
 
     tok_s = args.lm_batch * args.seq_len * args.steps * steps_per_call / dt
     step_flops = train_step_flops(forward_flops(model, seq_len=args.seq_len,
                                                 batch=args.lm_batch))
-    chips = mesh.world if mesh is not None else 1
+    chips = _world(group)
     result = {
         "metric": f"GPT-2-small train throughput (bf16 "
                   f"{'HybridAdam' if args.lm_optimizer == 'hybrid_adam' else 'AdamW'}, B"
@@ -372,7 +419,7 @@ def bench_lm(args, device: torch.device) -> tuple[dict, float]:
         **observability_fields(step_flops, per_step_ms, args.steps * steps_per_call, dt,
                                chips),
     }
-    if mesh is None or mesh.is_master():
+    if _is_master(group):
         print(json.dumps(result), flush=True)
     return result, loss
 
@@ -506,24 +553,37 @@ def bench_data_concurrent(args, device: torch.device) -> tuple[dict, float]:
         build_decoded_cache,
     )
     from distributed_training_tpu_torch.data.prefetch import prefetch_to_device
+    from distributed_training_tpu_torch.runtime.distributed import process_group
 
-    batch = args.batch_size  # one card: the global batch
+    group = process_group()
+    world = _world(group)
+    rank = torch.distributed.get_rank(group) if group is not None else 0
+    batch = args.batch_size * world  # the global batch, each rank its rows
     # A batch larger than the data would make every epoch empty (drop_last).
     if args.data_images < 2 * batch:
-        print(f"bench: --data-images {args.data_images} < 2x the batch; raising to "
-              f"{2 * batch}", file=sys.stderr)
+        if rank == 0:
+            print(f"bench: --data-images {args.data_images} < 2x the batch; raising to "
+                  f"{2 * batch}", file=sys.stderr)
         args.data_images = 2 * batch
-    root = tempfile.mkdtemp(prefix="bench_concurrent_")
+    # Rank 0 writes the JPEGs and the decoded cache; the others wait for it.
+    root = [tempfile.mkdtemp(prefix="bench_concurrent_") if rank == 0 else None]
     try:
-        paths, labels = _jpeg_tree(root, args.data_images, None)
-        cache = build_decoded_cache(paths, labels, os.path.join(root, f"cache_{args.image_size}"),
-                                    image_size=args.image_size, num_workers=args.data_workers)
+        cache = os.path.join(root[0], f"cache_{args.image_size}") if rank == 0 else None
+        if rank == 0:
+            paths, labels = _jpeg_tree(root[0], args.data_images, None)
+            build_decoded_cache(paths, labels, cache, image_size=args.image_size,
+                                num_workers=args.data_workers)
+        if group is not None:
+            root.append(cache)
+            torch.distributed.broadcast_object_list(root, src=0, group=group)
+            cache = root[1]
         args.grad_accum = 1
-        _, state, step = image_train(args, device, 8)
+        _, state, step = image_train(args, device, 8, group)
 
         def loader():
             return DecodedCacheLoader(cache, global_batch_size=batch, augment="pad_crop_flip",
-                                      train=True, num_workers=args.data_workers)
+                                      train=True, num_workers=args.data_workers,
+                                      process_index=rank, process_count=world)
 
         def epochs():
             ld, epoch = loader(), 0
@@ -552,8 +612,9 @@ def bench_data_concurrent(args, device: torch.device) -> tuple[dict, float]:
             if args.warmup:
                 float(metrics["loss"])
             worker = threading.Thread(target=stress, name="bench-stress", daemon=True)
+            stressed = args.data_stress and rank == 0  # rank 0's host alone
             t0 = time.perf_counter()
-            if args.data_stress:
+            if stressed:
                 worker.start()
             for i in range(args.steps):
                 metrics = step(state, next(it))
@@ -562,25 +623,31 @@ def bench_data_concurrent(args, device: torch.device) -> tuple[dict, float]:
             loss = float(metrics["loss"])
             dt = time.perf_counter() - t0
             stop.set()
-            if args.data_stress:
+            if stressed:
                 worker.join(timeout=60)
         finally:
             stop.set()
             it.close()
     finally:
-        shutil.rmtree(root, ignore_errors=True)
-    img_s = args.steps * batch / dt
+        if group is not None:  # every rank is done with the cache
+            torch.distributed.barrier(group=group)
+        if rank == 0:
+            shutil.rmtree(root[0], ignore_errors=True)
+    img_s = args.steps * args.batch_size / dt
     result = {
         "metric": f"{args.model} end-to-end train on decoded cache (real batches, "
-                  f"{args.data_workers} workers, prefetch 2, batch {batch}/chip, "
-                  f"{_where(device)})" + (" + concurrent stress loader" if args.data_stress else ""),
+                  f"{args.data_workers} workers, prefetch 2, batch {args.batch_size}/chip, "
+                  f"{_where(device, world)})"
+                  + (f" + concurrent stress loader{' on rank 0' if world > 1 else ''}"
+                     if args.data_stress else ""),
         "value": round(img_s, 2),
         "unit": "images/sec/chip",
         "vs_baseline": None,
     }
-    if args.data_stress:
+    if stressed:
         result["spare_host_images_per_sec"] = round(stress_count[0] / dt, 1)
-    print(json.dumps(result), flush=True)
+    if rank == 0:
+        print(json.dumps(result), flush=True)
     return result, loss
 
 
@@ -595,7 +662,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--image-size", type=int, default=224)
     ap.add_argument("--num-classes", type=int, default=1000)
     ap.add_argument("--zero-stage", type=int, default=0, choices=[0, 1, 2, 3],
-                    help="ZeRO stage of the benched step (world 1)")
+                    help="ZeRO stage of the benched step (over the launcher's ranks)")
     ap.add_argument("--cpu-offload", action="store_true", default=False,
                     help="optimizer state in pinned host memory "
                          "(requires --zero-stage >= 1)")
@@ -661,9 +728,16 @@ def main(argv: list[str] | None = None) -> list[tuple[dict, float]]:
         raise NotImplementedError(f"not ported yet (see ROADMAP.md): {', '.join(bad)}")
     if args.data_only:  # the host alone
         return [bench_data_only(args)]
-    from distributed_training_tpu_torch.utils.device import resolve_device, set_fp32_math
+    from distributed_training_tpu_torch.runtime.distributed import (
+        initialize_distributed,
+        local_device,
+    )
+    from distributed_training_tpu_torch.utils.device import set_fp32_math
 
-    device = resolve_device(args.device)
+    # Over torchrun's ranks (or the caller's open group): each on its card,
+    # before any work; the legs' setups read the group.
+    initialize_distributed(device=args.device)
+    device = local_device(args.device)
     set_fp32_math()
     legs = ([bench_data_concurrent] if args.data_concurrent
             else [bench_lm] if args.lm else [bench_image] if args.image

@@ -97,6 +97,21 @@ def host_group():
     return _HOST_GROUP[1]
 
 
+def close_host_group() -> None:
+    """Destroy the gloo group :func:`host_group` opened beside the default
+    group, if any, and drop this module's reference to it: its worker
+    threads are joined now, while the interpreter runs. Left open to the
+    interpreter's exit, a worker still releasing its last exchange's
+    tensors would take the GIL during finalization, which ends the thread
+    inside C++ and aborts the process (``std::terminate``). Collective:
+    every rank calls it (``runtime.distributed.shutdown_distributed``)."""
+    global _HOST_GROUP
+    world, group = _HOST_GROUP
+    _HOST_GROUP = (None, None)
+    if group is not None and dist.is_initialized() and world is dist.group.WORLD:
+        dist.destroy_process_group(group)
+
+
 def gather_payloads(payload: np.ndarray, num_processes: int, *,
                     group=None) -> np.ndarray:
     """All-gather ``payload`` across ranks → ``[num_ranks, len(payload)]``.

@@ -151,6 +151,9 @@ class Zero:
         if self.fsdp_size * self.inner_size != self.world:
             raise ValueError(f"fsdp ({self.fsdp_size}) × inner ({self.inner_size}) "
                              f"ranks must make the replica group ({self.world})")
+        # The norms' masks by (context, names, device), built once: a tensor
+        # made from a host list is a copy that a CUDA graph's capture refuses.
+        self._masks: dict[tuple, torch.Tensor] = {}
 
     @property
     def partitions_optimizer(self) -> bool:
@@ -299,8 +302,7 @@ class Zero:
         for ctx in (self.tp, self.ep):
             if ctx is None:
                 continue
-            sharded = torch.tensor([ctx.dim(n) is not None for n in names],
-                                   device=sq.device)
+            sharded = self._mask(ctx, names, sq.device)
             part = torch.where(sharded, sq, torch.zeros_like(sq))
             dist.all_reduce(part, group=ctx.group)
             sq = torch.where(sharded, part, sq)
@@ -311,10 +313,21 @@ class Zero:
         (``sq``, one per name): their sum, the pipeline's blocks summed over
         the stages (each stage holds others) and the replicated parameters
         counted once."""
-        mine = torch.tensor([self.pp.dim(n) is not None for n in names], device=sq.device)
+        mine = self._mask(self.pp, names, sq.device)
         blocks = torch.where(mine, sq, torch.zeros_like(sq)).sum()
         dist.all_reduce(blocks, group=self.pp.group)
         return blocks + torch.where(mine, torch.zeros_like(sq), sq).sum()
+
+    def _mask(self, ctx, names, device) -> torch.Tensor:
+        """Whether ``ctx`` (a tensor-, expert-parallel or pipeline context)
+        shards each of ``names``, on ``device``: built at the first call for
+        these names, then reused."""
+        names = tuple(names)
+        key = (id(ctx), names, device)
+        if key not in self._masks:
+            self._masks[key] = torch.tensor([ctx.dim(n) is not None for n in names],
+                                            device=device)
+        return self._masks[key]
 
     def barrier(self) -> None:
         """Over the group, then over the model, expert and pipe ranks: a

@@ -13,7 +13,8 @@ single process with no such environment opens no group and runs at world
 1, as the JAX package does; an explicit ``init_method`` opens one even at
 world 1 (``chip_smoke.py`` brings NCCL up so on one card). A group that
 should exist and does not come up raises: the port never carries on at
-world 1 when ``WORLD_SIZE`` says more.
+world 1 when ``WORLD_SIZE`` says more. :func:`shutdown_distributed` is
+the one place that tears the groups down.
 """
 
 from __future__ import annotations
@@ -106,6 +107,16 @@ def process_group():
 
 
 def shutdown_distributed() -> None:
-    """``destroy_process_group`` parity; a no-op without a group."""
-    if dist.is_initialized():
-        dist.destroy_process_group()
+    """Tear every group the port opened down, on every rank: first the
+    straggler exchange's gloo group beside the default group
+    (``observability.aggregate.close_host_group``), then a barrier over the
+    default group, so that no rank closes its connections while a peer
+    still exchanges over them, then ``destroy_process_group`` (the default
+    group and the mesh's groups). A no-op without a group."""
+    if not dist.is_initialized():
+        return
+    from distributed_training_tpu_torch.observability import aggregate
+
+    aggregate.close_host_group()
+    dist.barrier()
+    dist.destroy_process_group()

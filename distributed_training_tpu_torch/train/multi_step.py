@@ -23,9 +23,14 @@ bias corrections from the count tensor it advances on the card
 (``ops/fused_adam.py``). What needs the host refuses: the dynamic loss scale
 (``precision.commit_gradients``) and dropout or noisy gates
 (``step.dropout_generator``) raise ``NotImplementedError``. On the card the
-state must also be updated in place and stay on one card: a process group
-(its collectives), tensor, expert or pipeline parallelism, the fsdp axis
-and ``cpu_offload`` (host copies) raise, as ROADMAP.md lists.
+state must also be updated in place on its card: expert parallelism, the
+pipeline, the fsdp axis and ``cpu_offload`` (host copies) raise, as
+ROADMAP.md lists. A process group and tensor parallelism (with or without
+``tp_overlap``) are captured when their groups are NCCL's: each replay
+launches the step's collectives in the order every rank captured them.
+The priming step runs each of them once before the capture, so that every
+communicator of the data, model and mesh groups is up when the capture
+begins.
 
 The graph writes where it captured: the parameters, the optimizer's slots,
 its count tensor and the BatchNorm statistics are updated in place, the
@@ -46,6 +51,7 @@ import warnings
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 
 from distributed_training_tpu_torch.train.train_state import TrainState
 
@@ -62,16 +68,22 @@ def _capturable(state: TrainState):
 def _check_graph_state(state: TrainState) -> None:
     zero = state.zero
     sharded = [name for name, on in (
-        ("a process group", zero.group is not None),
-        ("tensor parallelism", zero.tp is not None),
         ("expert parallelism", zero.ep is not None),
         ("the pipeline", zero.pp is not None),
         ("the fsdp axis", zero.fsdp is not None),
         ("cpu_offload", zero.cpu_offload)) if on]
     if sharded:
         raise NotImplementedError(
-            f"a CUDA graph of train steps takes one card's state updated in "
-            f"place; not yet with {', '.join(sharded)} (ROADMAP.md, queue B)")
+            f"a CUDA graph of train steps takes a state updated in place on "
+            f"its card; not yet with {', '.join(sharded)} (ROADMAP.md, queue B)")
+    groups = {"the replica group": zero.group,
+              "the model group": zero.tp.group if zero.tp is not None else None}
+    other = {what: dist.get_backend(g) for what, g in groups.items()
+             if g is not None and dist.get_backend(g) != "nccl"}
+    if other:
+        raise NotImplementedError(
+            f"a CUDA graph captures the collectives of NCCL groups only; "
+            f"{', '.join(f'{w} is {b}' for w, b in other.items())}")
 
 
 def make_multi_step(step: Callable, state: TrainState, batch: dict,

@@ -82,11 +82,12 @@ over the data group, the batch is ``batch_size`` a rank over every rank
 (the JAX Trainer's per-chip rule) split over the data axis, and ZeRO runs
 over the data group. ``moe.enabled`` on another model raises, as in JAX.
 
-The image models run on no ``sequence`` or ``pipe`` axis of their own:
-as in JAX, whose ``Trainer`` builds its mesh from every ``MeshSpec`` axis
-and shards the batch over ``data × fsdp`` alone, the step is replicated
-over them (the ranks of a ``(data, fsdp)`` index train on the same rows
-and keep the same state).
+The image models run on no ``sequence`` or ``pipe`` axis of their own,
+and the models without MoE layers on no ``expert`` axis: as in JAX, whose
+``Trainer`` builds its mesh from every ``MeshSpec`` axis, shards the batch
+over ``data × fsdp`` alone and counts every rank in the global batch, the
+step is replicated over them (the ranks of a ``(data, fsdp)`` index train
+on the same rows and keep the same state).
 
 The ``vit_*`` models (``models/vit.py``) take a ``model`` axis: megatron
 tensor parallelism by the rule table (``parallel/tensor_parallel.py``),
@@ -106,9 +107,7 @@ each rank its shares of the blocks in order
 The image Trainer adds precise-BN (``eval_precise_bn_batches``): before
 an eval that reads the live BatchNorm statistics, they are re-estimated
 from that many training batches with the current weights, as the mean of
-the batches' own statistics. Fields of the config whose behaviour is not
-ported yet raise ``NotImplementedError`` when set away from their
-defaults.
+the batches' own statistics.
 """
 
 from __future__ import annotations
@@ -180,15 +179,6 @@ from distributed_training_tpu_torch.utils.metrics_io import MetricsWriter
 from distributed_training_tpu_torch.utils.profiling import WallClock, trace
 
 
-def unported_fields(cfg: TrainConfig) -> dict[str, bool]:
-    """The fields the image Trainer lacks, each with whether ``cfg`` sets it."""
-    mesh = cfg.mesh
-    moe = cfg.model.startswith("moe")
-    return {
-        "an expert axis on a model without MoE layers": mesh.expert != 1 and not moe,
-    }
-
-
 def check_tp_model(cfg: TrainConfig, model, tp_size: int) -> None:
     """The JAX Trainer's checks of a ``model`` axis: only the ``vit_*``
     models have rules in the table, and their sharded dims must divide
@@ -209,14 +199,6 @@ def check_tp_model(cfg: TrainConfig, model, tp_size: int) -> None:
             raise ValueError(
                 f"tensor parallelism size {tp_size} must "
                 f"divide {what} (= {n})")
-
-
-def refuse_unported(unported: dict[str, bool]) -> None:
-    """Raise for every field set to a behaviour the port lacks."""
-    bad = [k for k, v in unported.items() if v]
-    if bad:
-        raise NotImplementedError(
-            f"not ported yet (see ROADMAP.md): {', '.join(bad)}")
 
 
 class MetricMeter:
@@ -493,7 +475,6 @@ class Trainer(Engine):
         """``remat_policy`` goes to the ResNet (``"conv"``: each block saves
         only its conv outputs); the JAX ``TrainConfig`` has no field for it,
         so it is an argument here."""
-        refuse_unported(unported_fields(cfg))
         if cfg.moe.enabled and not cfg.model.startswith("moe"):
             raise NotImplementedError(
                 f"MoE is only wired into the moe_* models (models/moe.py); "
@@ -512,12 +493,14 @@ class Trainer(Engine):
                            process_count=self.coord.process_count)
         self._train_shard = self._shard
         if cfg.model.startswith("moe") or any(
-                getattr(cfg.mesh, a) != 1 for a in ("model", "fsdp", "sequence", "pipe")):
+                getattr(cfg.mesh, a) != 1
+                for a in ("model", "fsdp", "sequence", "pipe", "expert")):
             # Ranks that are not all data ranks: the expert axis of the MoE
             # models, the model axis of ViT (checked below), the fsdp axis,
-            # and the sequence and pipe axes, over which the step is
-            # replicated. The batch splits over data × fsdp alone (JAX's
-            # batch_sharding); the pipe ranks reduce within their own
+            # and the sequence and pipe axes, and the expert axis of a model
+            # without MoE layers, over which the step is replicated. The
+            # batch splits over data × fsdp alone (JAX's batch_sharding);
+            # the pipe and expert ranks reduce within their own
             # data × fsdp × sequence group, the sequence ranks' identical
             # gradients average to the same mean.
             self.mesh = Mesh(cfg.mesh)

@@ -177,16 +177,17 @@ def test_unported_options_raise(tmp_path, override):
     refuses it, and ``vit_b16`` builds and trains a step. The fsdp axis is
     ported, multi-rank in test_torch_fsdp.py: an fsdp axis of 2 is a mesh
     one process cannot hold too. So are the sequence and pipe axes, which
-    replicate the step, multi-rank in test_torch_trainer_axes.py: at world
-    1 an axis of 2 is refused as ``create_mesh`` refuses it. An expert axis
-    on a model without MoE layers stays refused.)"""
+    replicate the step, multi-rank in test_torch_trainer_axes.py, and so
+    is an expert axis on a model without MoE layers: at world 1 an axis of
+    2 is refused as ``create_mesh`` refuses it.)"""
     cfg = _cfg(tmp_path, **override)
     if override == dict(tp_overlap=True):
         t = Trainer(cfg, device="cpu")
         assert t.tp is None and t._microbatches == t.grad_accum
         return
     if override in (dict(mesh=MeshSpec(model=2)), dict(mesh=MeshSpec(fsdp=2)),
-                    dict(mesh=MeshSpec(sequence=2)), dict(mesh=MeshSpec(pipe=2))):
+                    dict(mesh=MeshSpec(sequence=2)), dict(mesh=MeshSpec(pipe=2)),
+                    dict(mesh=MeshSpec(expert=2))):
         with pytest.raises(ValueError, match="not divisible by fixed axes product 2"):
             Trainer(cfg, device="cpu")
         return
@@ -198,6 +199,3 @@ def test_unported_options_raise(tmp_path, override):
         assert isinstance(t.model, ViT) and t.model.pos_embed.shape == (1, 5, 768)
         batch = next(iter(t.make_loaders()[0]))
         assert np.isfinite(float(t.train_step(t.state, t.place(batch))["loss"]))
-        return
-    with pytest.raises(NotImplementedError):
-        Trainer(cfg, device="cpu")

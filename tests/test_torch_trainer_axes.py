@@ -1,10 +1,13 @@
-"""The image ``Trainer`` on the ``sequence`` and ``pipe`` mesh axes.
+"""The image ``Trainer`` on the ``sequence``, ``pipe`` and ``expert`` mesh
+axes.
 
 JAX's ``Trainer`` builds its mesh from every ``MeshSpec`` axis and shards
 the image batch over ``data × fsdp`` alone (``runtime/mesh.py``
-``batch_sharding``), so a ``sequence`` or ``pipe`` axis replicates the
-step: its ranks train on the same rows and keep the same state. The port
-does the same over gloo ranks (``tests/torch_dist_worker.py``).
+``batch_sharding``), so a ``sequence`` or ``pipe`` axis, or an ``expert``
+axis on a model without MoE layers, replicates the step: its ranks train
+on the same rows and keep the same state, and the global batch counts
+every rank. The port does the same over gloo ranks
+(``tests/torch_dist_worker.py``).
 
 Four ranks run ``resnet_micro`` at data 2 × sequence 2 and data 2 × pipe
 2 through ``Trainer(cfg).fit()``, each from JAX's ``Trainer``'s own
@@ -17,7 +20,9 @@ against the port's data-2 run at rtol 1e-6 (the same arithmetic, whose
 only difference is a mean over four gloo ranks of two identical pairs
 where data 2 averages two). Every rank ends with the same weights, to
 1e-6 of the data-2 run's, and ``fit()``'s eval accuracy is JAX's to one of
-its 1024 images. The optimizer is the worker's (``OPT``: Adam's
+its 1024 images. Two ranks run ``resnet_micro`` at data 1 × expert 2 in the
+same spawn as data 2, held the same way against JAX's ``Trainer`` on a
+two-device ``data × expert`` mesh. The optimizer is the worker's (``OPT``: Adam's
 eps 1e-4): at eps 1e-8 a gradient that is zero in exact arithmetic turns
 the reduction's rounding into an lr-sized step whose sign depends on the
 order of the sums, and a mean over four ranks sums in another order than
@@ -44,12 +49,13 @@ from distributed_training_tpu_torch.config import (
     TrainConfig,
 )
 from distributed_training_tpu_torch.models import get_model
-from distributed_training_tpu_torch.train.trainer import unported_fields
 
 torch.set_num_threads(1)
 
 STEPS, PER_RANK = 3, 2
 MESHES = {"d2s2": {"data": 2, "sequence": 2}, "d2p2": {"data": 2, "pipe": 2}}
+# The expert axis on a model without MoE layers, over two ranks.
+EXPERT = {"d1e2": {"data": 1, "expert": 2}}
 
 
 def _cfg(mesh: dict, per_rank: int, directory: str) -> TrainConfig:
@@ -93,15 +99,16 @@ def _jax_fit(cfg: TrainConfig, sizes: dict):
 def runs(tmp_path_factory):
     """JAX's fits here, then the two spawns, one after the other."""
     ref, weights = {}, None
-    for name, mesh in MESHES.items():
-        cfg = _cfg(mesh, PER_RANK, str(tmp_path_factory.mktemp(f"jax_{name}")))
+    for name, mesh in {**MESHES, **EXPERT}.items():
+        per_rank = PER_RANK * 4 // int(np.prod(list(mesh.values())))
+        cfg = _cfg(mesh, per_rank, str(tmp_path_factory.mktemp(f"jax_{name}")))
         w, steps, result = _jax_fit(cfg, mesh)
         weights = w if weights is None else weights
         ref[name] = {"metrics": steps, "result": result}
         for k, v in w.items():
             torch.testing.assert_close(v, weights[k], rtol=0, atol=0)
     ranks = {}
-    for world, cases in ((4, MESHES), (2, {"d2": {"data": 2}})):
+    for world, cases in ((4, MESHES), (2, {"d2": {"data": 2}, **EXPERT})):
         d = tmp_path_factory.mktemp(f"axes{world}")
         per_rank = PER_RANK * 4 // world
         job = {"trainer_fit": {
@@ -159,8 +166,29 @@ def test_replicated_ranks_hold_the_same_state(runs):
                                            rtol=0, atol=0, msg=k)
 
 
-def test_only_the_expert_refusal_is_left():
-    cfg = _cfg({"data": 1, "sequence": 2, "pipe": 2}, PER_RANK, "unused")
-    assert not any(unported_fields(cfg).values())
-    bad = _cfg({"data": 1, "expert": 2}, PER_RANK, "unused")
-    assert unported_fields(bad) == {"an expert axis on a model without MoE layers": True}
+@pytest.mark.parametrize("name", list(EXPERT))
+def test_expert_axis_on_a_dense_model_matches_jax_trainer(runs, name):
+    """An expert axis on ``resnet_micro`` (no MoE layers) replicates the
+    step, as JAX's ``Trainer`` does: every rank trains on the whole global
+    batch (``batch_size`` a rank, counted over both ranks, split over the
+    data axis of 1), each train step's loss and accuracy JAX's at rtol
+    1e-5, the eval accuracy within one of the 1024 images."""
+    want = runs["ref"][name]["metrics"]
+    assert len(want) == STEPS
+    for r in runs["ranks"][2]:
+        got = r["trainer_fit"][name]
+        assert got["mesh"] == {**dict.fromkeys(
+            ("data", "pipe", "fsdp", "model", "expert", "sequence"), 1), **EXPERT[name]}
+        assert got["result"]["steps"] == STEPS
+        for key in ("loss", "accuracy"):
+            np.testing.assert_allclose(_losses(got["metrics"], key), _losses(want, key),
+                                       rtol=1e-5, err_msg=key)
+        assert abs(got["result"]["final_acc"]
+                   - runs["ref"][name]["result"]["final_acc"]) <= 1 / 1024
+
+
+def test_expert_ranks_hold_the_same_state(runs):
+    """The two expert ranks of the dense model end equal."""
+    a, b = (r["trainer_fit"]["d1e2"]["model"] for r in runs["ranks"][2])
+    for k, v in a.items():
+        torch.testing.assert_close(v, b[k], rtol=0, atol=0, msg=k)

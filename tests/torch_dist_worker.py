@@ -578,6 +578,122 @@ def _cli_and_bench(job, rank, world, group):
     return out
 
 
+def _bench_legs(job, rank, world, group):
+    """The port bench over the ranks (``WORLD_SIZE`` set, the group open),
+    its models cut by ``job["bench_model"]`` (by model name): the image and
+    LM legs of ``job["bench_legs"]`` (their argv) as ``image_step`` and
+    ``lm_step`` set them up, ``job["bench_steps"]`` steps each, every
+    step's loss and the whole model after them; then ``bench.main`` for
+    each of ``job["bench_lines"]``, what it returned and the JSON lines it
+    printed on this rank."""
+    import contextlib
+    import io
+    import json
+
+    from distributed_training_tpu_torch import bench, models
+
+    get_model, cut = models.get_model, job["bench_model"]
+    models.get_model = lambda name, **kw: get_model(name, **{**kw, **cut.get(name, {})})
+    os.environ["WORLD_SIZE"] = str(world)
+    device = torch.device("cpu")
+    setups = {"image": bench.image_step, "lm": bench.lm_step}
+    out = {}
+    try:
+        for leg, argv in job["bench_legs"].items():
+            args = bench.build_parser().parse_args(argv)
+            _, state, step, batch = setups[leg](args, device)
+            losses = [float(step(state, batch)["loss"]) for _ in range(job["bench_steps"])]
+            out[leg] = {"losses": losses, "model": state.state_dict()["model"],
+                        "rows": len(next(iter(batch.values())))}
+        out["lines"] = []
+        for argv in job["bench_lines"]:
+            printed = io.StringIO()
+            with contextlib.redirect_stdout(printed):
+                returned = bench.main(argv)
+            out["lines"].append({"returned": returned, "printed": [
+                json.loads(x) for x in printed.getvalue().splitlines() if x.startswith("{")]})
+    finally:
+        models.get_model = get_model
+        del os.environ["WORLD_SIZE"]
+    return {"bench_legs": out}
+
+
+def _tp_clip_host_lists(job, rank, world, group):
+    """A tensor-parallel GPT (data 1 × model ``world``, ZeRO 1) whose step
+    clips its gradients to a norm that binds and reports ``grad_norm``:
+    one step, then a second with ``torch.tensor`` wrapped, every call of it
+    whose data is a Python list or tuple recorded (a host copy, which a CUDA
+    graph's capture refuses), and both steps' metrics."""
+    from distributed_training_tpu_torch.config import OptimizerConfig, PrecisionConfig
+    from distributed_training_tpu_torch.models import get_model
+    from distributed_training_tpu_torch.parallel.tensor_parallel import (
+        TensorParallel,
+        shard_model_,
+    )
+    from distributed_training_tpu_torch.parallel.zero import Zero
+    from distributed_training_tpu_torch.train.lm_step import make_lm_batch, make_lm_train_step
+    from distributed_training_tpu_torch.train.optim import make_optimizer
+    from distributed_training_tpu_torch.train.precision import LossScaleState
+    from distributed_training_tpu_torch.train.train_state import TrainState
+
+    mesh = _mesh({"data": 1, "model": world})
+    model = get_model("transformer_lm", generator=torch.Generator().manual_seed(0), **LM_KW)
+    tp = TensorParallel.from_mesh(mesh)
+    shard_model_(model, tp)
+    state = TrainState.create(
+        model, make_optimizer(OptimizerConfig(**{**OPT, "grad_clip_norm": 0.05})),
+        LossScaleState.create(PrecisionConfig()), Zero(1, mesh.group("data", "sequence"), tp=tp))
+    step = make_lm_train_step(zero_stage=1, max_len=LM_KW["max_len"], grad_norm_metric=True)
+    toks = np.random.RandomState(3).randint(0, LM_KW["num_classes"], (2, 17)).astype(np.int32)
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in make_lm_batch(toks).items()}
+    metrics = [{k: float(v) for k, v in step(state, batch).items()}]
+    real, lists = torch.tensor, []
+
+    def recorded(data, *args, **kwargs):
+        if isinstance(data, (list, tuple)):
+            lists.append(repr(data)[:200])
+        return real(data, *args, **kwargs)
+
+    torch.tensor = recorded
+    try:
+        metrics.append({k: float(v) for k, v in step(state, batch).items()})
+    finally:
+        torch.tensor = real
+    return {"tp_clip": {"metrics": metrics, "lists": lists,
+                        "masks": len(state.zero._masks)}}
+
+
+def _teardown_cycles(job, rank, world, group):
+    """``job["teardown_cycles"]`` times: the straggler exchange's gloo group
+    opened beside a default group that is not gloo (its backend read as
+    NCCL's, as on the card), one exchange over it, then
+    ``shutdown_distributed``; each cycle after the first opens the default
+    group again on a new store first. Each cycle's rows. The last shutdown
+    is the rank's last act before it exits, as at the end of
+    :func:`_flight_world`."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from distributed_training_tpu_torch.observability import aggregate
+    from distributed_training_tpu_torch.runtime import distributed
+
+    rows = []
+    for cycle in range(job["teardown_cycles"]):
+        if cycle:
+            distributed.initialize_distributed(
+                init_method=f"file://{job['dir']}/store_cycle{cycle}", world_size=world,
+                rank=rank, device="cpu", timeout_s=60)
+        real = dist.get_backend
+        dist.get_backend = lambda group=None: "nccl"
+        try:
+            host = aggregate.host_group()
+        finally:
+            dist.get_backend = real
+        rows.append(aggregate.gather_payloads(np.full(2, float(rank)), world, group=host))
+        distributed.shutdown_distributed()
+    return {"teardown": rows}
+
+
 def _pp_steps(job, rank, world, group):
     """Each pipeline scenario of ``job["pp_scenarios"]``: the pipeline step
     on this rank's rows (and time chunk) of the global batches, this rank's
